@@ -5,13 +5,20 @@
 Builds the CUDA kernels of open_simulator_torch/ops/csrc from this checkout,
 holds each kernel against its plain PyTorch version on the card (exact
 equality: every output is a bool, an i32 or an f32 count), then drives the
-port's main path, `Simulator.schedule_pods` on a 5,000-node / 50,000-pod
-hard-predicate cluster and on a 100-node cluster that overflows, and holds the
-results against the goldens the JAX package computed
-(tests/golden/torch_port_*.json). Every phase prints one JSON line; any
-mismatch or error exits non-zero. The last line is the device record.
-Without a CUDA device it exits 2 and prints no result. Imports no JAX and
-nothing of open_simulator_tpu.
+port's main path, `Simulator.schedule_pods`, and holds each run against the
+goldens the JAX package computed (tests/golden/torch_port_*.json):
+
+- on the serial route (`use_waves=False`): a 5,000-node / 50,000-pod
+  hard-predicate cluster and a 100-node cluster that overflows;
+- on the default route (the segment router): the same two clusters, the
+  10,000-node / 100,000-pod plain cluster (one wave) and a 5,000-node /
+  20,000-pod cluster whose pods spread against themselves (group-serial).
+
+Every phase prints one JSON line; any mismatch or error exits non-zero. The
+line before the card line lists every kernel with its launches on the main
+path, its time, its plain version's time and its bound; the last line is the
+device record. Without a CUDA device it exits 2 and prints no result. Imports
+no JAX and nothing of open_simulator_tpu.
 """
 
 from __future__ import annotations
@@ -28,6 +35,13 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+SRC = "open_simulator_torch/ops/csrc/"
+JAX_KERNELS = "open_simulator_tpu/ops/kernels.py"
+# which kernels run each segment kind of the router
+SEGMENT_KERNELS = {"serial": "K2 schedule_batch",
+                   "wave": "K3 schedule_wave + K3c aggregate_commit",
+                   "spread": "K4 schedule_group_serial + K3c aggregate_commit",
+                   "affinity": "K2 + K3c interim"}
 
 
 def emit(phase: str, **fields) -> None:
@@ -61,6 +75,19 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def timed(fn):
+    """(result, milliseconds) of one call of `fn`, by CUDA events."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def summarize(sim, pods, failed) -> dict:
     """Same digest as tests/test_torch_golden.py summarize()."""
     import numpy as np
@@ -88,6 +115,23 @@ def check_golden(kind: str, got: dict) -> None:
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def err_of(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def group_row_bytes(tb, cry, g: int) -> int:
+    """Bytes of the tables one group's step reads once: its [N] rows (static
+    masks, raw scores), alloc, requested and nonzero, and the domain maps and
+    counter rows of its valid slots."""
+    N, R = tb.alloc.shape
+    D1 = cry.counter.shape[1]
+    b = 5 * N + 6 * 4 * N + 2 * 4 * N * R + 4 * N * 2
+    for ids in (tb.req_aff_t[g], tb.req_anti_t[g], tb.dns_t[g], tb.carr_anti_t[g],
+                tb.pref_t[g], tb.sa_t[g]):
+        b += int((ids >= 0).sum()) * (4 * N + 4 * D1)
+    return b + int((tb.dns_t[g] >= 0).sum()) * D1 + int((tb.grp_ports[g] > 0).sum()) * N
 
 
 def k1_bytes(tb, cry, g: int) -> int:
@@ -121,6 +165,50 @@ def k2_cost(tb, cry, n_valid: int, P: int) -> tuple:
     return b, n_valid * N * per_node
 
 
+# f32 operations of one [N, B+1] table entry of K3 (csrc/wave.cu): the copy
+# count 1, usage 4, least/balanced 16, the weighted sum 4, the monotone test 1
+K3_OPS_PER_ENTRY = 26
+# f32 operations of one K3 iteration per node besides its table row:
+# normalizers 6, the normalized static terms 16, the guard 2, the end
+# normalizers 6
+K3_OPS_PER_NODE = 30
+
+
+def k3_cost(tb, cry, g: int, block: int, iterations: int) -> tuple:
+    """(bytes, f32 operations) of one wave: the group's rows read once and the
+    [N] counts written once; per iteration, the table's entries and the
+    per-node passes (the radix passes are integer work and not counted)."""
+    N = tb.alloc.shape[0]
+    ops = iterations * N * ((block + 1) * K3_OPS_PER_ENTRY + K3_OPS_PER_NODE)
+    return group_row_bytes(tb, cry, g) + 4 * N, ops
+
+
+def k3c_cost(tb, cry) -> tuple:
+    """(bytes, f32 operations) of one aggregate commit: the carry's requested,
+    nonzero, counter and carrier read and written once, the [U, N] domain
+    maps and the counts read once; one multiply and one add per element."""
+    N, R = tb.alloc.shape
+    D1 = cry.counter.shape[1]
+    rows = N * R + 2 * N + (cry.counter.shape[0] + cry.carrier.shape[0]) * D1
+    return 2 * 4 * rows + nbytes(tb.topo_dom) + 4 * N, 2 * rows + tb.topo_dom.numel()
+
+
+# f32 operations of one K4 step per node (csrc/group_serial.cu): the live
+# DoNotSchedule test 4 per term, least/balanced 20, the normalized terms 16,
+# the score 12, SelectorSpread 14, ScheduleAnyway 5 per term and 6
+def k4_cost(tb, cry, g: int, n_valid: int) -> tuple:
+    N = tb.alloc.shape[0]
+    per_node = (4 * int((tb.dns_t[g] >= 0).sum()) + 20 + 16 + 12 + 14
+                + 5 * int((tb.sa_t[g] >= 0).sum()) + 6)
+    return group_row_bytes(tb, cry, g) + 4 * N, n_valid * N * per_node
+
+
+def bound_of(b: int, ops: int) -> tuple:
+    """(bound ms, "bytes" or "operations")."""
+    tb, to = b / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(tb, to) * 1e3, "operations" if to > tb else "bytes"
+
+
 def main() -> int:
     import torch
 
@@ -128,10 +216,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    from open_simulator_torch.core.types import ResourceTypes
     from open_simulator_torch.ops import build
     from open_simulator_torch.ops import kernels as K
     from open_simulator_torch.simulator.engine import Simulator
-    from open_simulator_torch.utils.synth import synth_cluster
+    from open_simulator_torch.utils.synth import synth_cluster, synth_spread_cluster
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -141,13 +230,14 @@ def main() -> int:
     emit("device", name=name, count=torch.cuda.device_count(), smi=card,
          torch=torch.__version__, cuda=torch.version.cuda)
 
-    # ---- build
+    # ---- build: one nvcc per source, started together, then the link
     t0 = time.perf_counter()
     lib_path = build.compile_library()
     build.library()
     emit("build", seconds=round(time.perf_counter() - t0, 3), nvcc_seconds=build.build_seconds,
          library=os.path.relpath(lib_path, REPO),
          ptxas=[ln for ln in build.ptxas_log.splitlines() if "registers" in ln or "spill" in ln])
+    rows = {}  # kernel name -> kernels-line fields measured below
 
     # ---- the 5,000-node / 2,500-pod batch, on the card
     nodes, pods = synth_cluster(5000, 2500, hard_predicates=True)
@@ -164,13 +254,8 @@ def main() -> int:
     # ---- schedule_batch: K2 against its plain version, full width
     torch.cuda.synchronize()
     end_k, ch_k = K.schedule_batch_kernel(tb, seed, pg, fn, vd, bt.n_zones)
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    end_p, ch_p = K.schedule_batch_plain(tb, seed, pg, fn, vd, bt.n_zones)
-    t1.record()
-    torch.cuda.synchronize()
-    plain_ms_k2 = t0.elapsed_time(t1)
+    (end_p, ch_p), plain_ms_k2 = timed(lambda: K.schedule_batch_plain(tb, seed, pg, fn, vd,
+                                                                      bt.n_zones))
     err_k2 = 0.0
     if not torch.equal(ch_k, ch_p):
         fail(f"schedule_batch choices differ at {int((ch_k != ch_p).sum())} pods")
@@ -178,21 +263,25 @@ def main() -> int:
         a, b = getattr(end_k, f), getattr(end_p, f)
         if not torch.equal(a, b):
             fail(f"schedule_batch carry.{f} differs")
-        err_k2 = max(err_k2, float((a.float() - b.float()).abs().max()) if a.numel() else 0.0)
+        err_k2 = max(err_k2, err_of(a, b))
     k2_ms = cuda_ms(lambda: K.schedule_batch_kernel(tb, seed, pg, fn, vd, bt.n_zones), 3)
     k2_b, k2_ops = k2_cost(tb, seed, P, pad)
-    k2_bound = max(k2_b / HBM_BYTES_PER_S, k2_ops / F32_OPS_PER_S) * 1e3
+    k2_bound, k2_by = bound_of(k2_b, k2_ops)
     emit("schedule_batch", nodes=int(tb.alloc.shape[0]), pods=P, padded=pad, groups=len(kinds),
          placed=int((ch_k >= 0).sum()), kernel_ms=k2_ms, plain_ms=plain_ms_k2,
          bound_ms=k2_bound, bytes=k2_b, f32_ops=k2_ops, max_abs_err=err_k2, card=card)
+    rows["schedule_batch"] = dict(source=SRC + "schedule.cu", replaces=JAX_KERNELS + ":2267",
+                                  max_abs_err=err_k2, ms=k2_ms, plain_ms=plain_ms_k2,
+                                  bound_ms=k2_bound, bound_by=k2_by)
 
-    # ---- feasibility: K1 against its plain version, every group, seed and end carry
+    # ---- feasibility: K1 against its plain version, every group, seed and
+    # end carry, with and without the DoNotSchedule filter
     checked = 0
     for label, cry in (("seed", seed), ("end", end_k)):
         for g in kinds:
-            for forced in (-1, g % int(tb.alloc.shape[0])):
-                f_k, s_k = K.feasibility_kernel(tb, cry, g, forced, True)
-                f_p, s_p = K.feasibility(tb, cry, g, forced, True)
+            for forced, dns in ((-1, True), (g % int(tb.alloc.shape[0]), True), (-1, False)):
+                f_k, s_k = K.feasibility_kernel(tb, cry, g, forced, True, include_dns=dns)
+                f_p, s_p = K.feasibility(tb, cry, g, forced, True, include_dns=dns)
                 if not torch.equal(f_k, f_p):
                     fail(f"feasibility mask differs (group {g}, forced {forced}, {label} carry)")
                 for k in K.STAGE_KEYS:
@@ -206,60 +295,155 @@ def main() -> int:
     k1_bound = k1_b / HBM_BYTES_PER_S * 1e3
     emit("feasibility", cases=checked, groups=len(kinds), kernel_ms=k1_ms,
          plain_ms=k1_plain_ms, bound_ms=k1_bound, bytes=k1_b, max_abs_err=0.0, card=card)
+    rows["feasibility"] = dict(source=SRC + "schedule.cu", replaces=JAX_KERNELS + ":743",
+                               max_abs_err=0.0, ms=k1_ms, plain_ms=k1_plain_ms,
+                               bound_ms=k1_bound, bound_by="bytes")
 
-    # ---- the main path: simulate_hard, then overflow_reasons, counts from 0
-    K.reset_launch_counts()
+    # ---- schedule_wave + aggregate_commit: K3 and K3c against their plain
+    # versions on the 10,000-node / 100,000-pod wave and on a cap1 segment of
+    # the 5,000-node hard shape, at the engine's block and kmax
+    def wave_case(label, sim, pods, pick):
+        bt = sim.encode_batch(pods)
+        tb, seed = sim._to_device(bt)
+        seg = pick(sim._segments(bt, len(pods)))
+        _, _, m, g, cap1, _ = seg
+        N = sim.na.N
+        block = K.wave_block_for(m, N)
+        kmax = K.wave_kmax(m, N, block)
+        (kj, kp, kst), _ = timed(lambda: K.schedule_wave_kernel(tb, seed, g, m, cap1, block=block,
+                                                                kmax=kmax))
+        (pj, pp, pst), plain_ms = timed(lambda: K.schedule_wave_plain(
+            tb, seed, g, m, cap1, block=block, kmax=kmax))
+        if not torch.equal(kj, pj) or int(kp) != pp:
+            fail(f"schedule_wave {label}: counts differ at {int((kj != pj).sum())} nodes")
+        if kst.tolist() != [pst[k] for k in K.WAVE_STATS]:
+            fail(f"schedule_wave {label}: loop statistics {kst.tolist()} vs {pst}")
+        kc = K.aggregate_commit_kernel(tb, seed, g, kj)
+        pc, c_plain_ms = timed(lambda: K.aggregate_commit_plain(tb, seed, g, pj))
+        c_err = 0.0
+        for f in K.Carry._fields:
+            if not torch.equal(getattr(kc, f), getattr(pc, f)):
+                fail(f"aggregate_commit {label}: carry.{f} differs")
+            c_err = max(c_err, err_of(getattr(kc, f), getattr(pc, f)))
+        ms = cuda_ms(lambda: K.schedule_wave_kernel(tb, seed, g, m, cap1, block=block,
+                                                    kmax=kmax), 3)
+        c_ms = cuda_ms(lambda: K.aggregate_commit_kernel(tb, seed, g, kj), 20)
+        b, ops = k3_cost(tb, seed, g, block, pst["iterations"])
+        bound, by = bound_of(b, ops)
+        cb, cops = k3c_cost(tb, seed)
+        c_bound, c_by = bound_of(cb, cops)
+        emit("schedule_wave", case=label, nodes=int(tb.alloc.shape[0]), pods=m, cap1=bool(cap1),
+             block=block, kmax=kmax, placed=pp, **pst, kernel_ms=ms, plain_ms=plain_ms,
+             bound_ms=bound, bytes=b, f32_ops=ops, max_abs_err=err_of(kj, pj), card=card)
+        emit("aggregate_commit", case=label, kernel_ms=c_ms, plain_ms=c_plain_ms,
+             bound_ms=c_bound, bytes=cb, f32_ops=cops, max_abs_err=c_err, card=card)
+        return (dict(max_abs_err=err_of(kj, pj), ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                     bound_by=by),
+                dict(max_abs_err=c_err, ms=c_ms, plain_ms=c_plain_ms, bound_ms=c_bound,
+                     bound_by=c_by))
+
     nodes, pods = synth_cluster(5000, 50000, hard_predicates=True)
-    hard = Simulator(nodes, device="cuda")
-    torch.cuda.synchronize()
-    t0h = time.perf_counter()
-    failed = hard.schedule_pods(pods)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0h
-    s, e = K.schedule_batch.last_events
-    hard_k2_ms = s.elapsed_time(e)
-    got = summarize(hard, pods, failed)
-    if got["placed"] + got["unscheduled"] != len(pods):
-        fail("simulate_hard: a pod was neither placed nor reported")
-    check_golden("hard", got)
-    hard_counts = K.launch_counts()
-    emit("simulate_hard", pods=len(pods), nodes=len(nodes), placed=got["placed"],
-         unscheduled=got["unscheduled"], choices_sha256=got["choices_sha256"],
-         seconds=wall, pods_per_s=len(pods) / wall, schedule_batch_kernel_ms=hard_k2_ms,
-         launches=hard_counts, golden="match", card=card)
+    wave_case("hard_cap1", Simulator(nodes, device="cuda"), pods,
+              lambda segs: next(s for s in segs if s[0] == "wave" and s[4]))
+    nodes, pods = synth_cluster(10000, 100000)
+    w_row, c_row = wave_case("northstar", Simulator(nodes, device="cuda"), pods,
+                             lambda segs: next(s for s in segs if s[0] == "wave"))
+    rows["schedule_wave"] = dict(source=SRC + "wave.cu", replaces=JAX_KERNELS + ":1113", **w_row)
+    rows["aggregate_commit"] = dict(source=SRC + "wave.cu", replaces=JAX_KERNELS + ":976",
+                                    **c_row)
 
+    # ---- schedule_group_serial: K4 against its plain version on full-width
+    # segments of the spread workload, one of each spread flag (500 pods each)
+    nodes, pods, services = synth_spread_cluster(5000, 20000)
+    sim = Simulator(nodes, device="cuda")
+    sim.register_cluster_objects(ResourceTypes(services=services))
+    bt = sim.encode_batch(pods)
+    tb, seed = sim._to_device(bt)
+    firsts = {}
+    for s in sim._segments(bt, len(pods)):
+        if s[0] == "spread":
+            firsts.setdefault((s[5], s[6]), s)
+    k4 = None
+    for (ss_live, sa_live), (_, _, m, g, cap1, _, _) in sorted(firsts.items()):
+        valid = torch.ones(m, dtype=torch.bool, device="cuda")
+        nz = bt.n_zones if ss_live else 2
+        (kj, kp), _ = timed(lambda: K.schedule_group_serial_kernel(
+            tb, seed, g, valid, cap1, ss_live=ss_live, sa_live=sa_live, n_zones=nz))
+        (pj, pp), plain_ms = timed(lambda: K.schedule_group_serial_plain(
+            tb, seed, g, valid, cap1, ss_live=ss_live, sa_live=sa_live, n_zones=nz))
+        if not torch.equal(kj, pj) or int(kp) != pp:
+            fail(f"schedule_group_serial (ss_live={ss_live}, sa_live={sa_live}): counts differ")
+        ms = cuda_ms(lambda: K.schedule_group_serial_kernel(
+            tb, seed, g, valid, cap1, ss_live=ss_live, sa_live=sa_live, n_zones=nz), 3)
+        b, ops = k4_cost(tb, seed, g, m)
+        bound, by = bound_of(b, ops)
+        emit("schedule_group_serial", nodes=int(tb.alloc.shape[0]), pods=m, ss_live=ss_live,
+             sa_live=sa_live, placed=pp, kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound,
+             bytes=b, f32_ops=ops, max_abs_err=err_of(kj, pj), card=card)
+        if sa_live:  # the kernels line reports the ScheduleAnyway segment
+            k4 = dict(max_abs_err=err_of(kj, pj), ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                      bound_by=by)
+    if set(firsts) != {(True, False), (False, True), (False, False)}:
+        fail(f"spread workload: segment flags {sorted(firsts)}")
+    rows["schedule_group_serial"] = dict(source=SRC + "group_serial.cu",
+                                         replaces=JAX_KERNELS + ":2104", **k4)
+
+    # ---- the main path: Simulator.schedule_pods against the JAX goldens,
+    # each run with every launch count set to 0 just before it
+    launches = Counter()
+    walls = {}
+
+    def main_path(kind, nodes, pods, services=(), serial=False):
+        K.reset_launch_counts()
+        sim = Simulator(nodes, device="cuda")
+        sim.use_waves = not serial
+        sim.register_cluster_objects(ResourceTypes(services=list(services)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        failed = sim.schedule_pods(pods)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = K.launch_counts()
+        stats = K.wave_stats()
+        launches.update(counts)
+        got = summarize(sim, pods, failed)
+        if got["placed"] + got["unscheduled"] != len(pods):
+            fail(f"{kind}: a pod was neither placed nor reported")
+        check_golden(kind, got)
+        walls[kind] = wall
+        census = {k: {"segments": v[0], "pods": v[1], "kernels": SEGMENT_KERNELS[k]}
+                  for k, v in sorted(sim.segment_census.items())}
+        emit("simulate", kind=kind, route="serial" if serial else "default", pods=len(pods),
+             nodes=len(nodes), placed=got["placed"], unscheduled=got["unscheduled"],
+             reasons=len(got["reason_census"]), choices_sha256=got["choices_sha256"],
+             seconds=wall, pods_per_s=len(pods) / wall, launches=counts, wave_stats=stats,
+             census=census, golden="match", card=card)
+        return counts
+
+    nodes, pods = synth_cluster(5000, 50000, hard_predicates=True)
+    main_path("hard", nodes, pods, serial=True)
     nodes, pods = synth_cluster(100, 30000, hard_predicates=True)
-    over = Simulator(nodes, device="cuda")
-    t0o = time.perf_counter()
-    failed = over.schedule_pods(pods)
-    torch.cuda.synchronize()
-    wall_o = time.perf_counter() - t0o
-    got = summarize(over, pods, failed)
-    check_golden("overflow", got)
-    counts = K.launch_counts()
-    if counts["feasibility"] - hard_counts["feasibility"] <= 0:
-        fail("overflow_reasons: the feasibility kernel never launched")
-    emit("overflow_reasons", pods=len(pods), nodes=len(nodes), placed=got["placed"],
-         unscheduled=got["unscheduled"], reasons=len(got["reason_census"]),
-         choices_sha256=got["choices_sha256"], seconds=wall_o,
-         launches={k: counts[k] - hard_counts[k] for k in counts}, golden="match", card=card)
-    for k, n in counts.items():
-        if n <= 0:
+    if main_path("overflow", nodes, pods, serial=True)["feasibility"] <= 0:
+        fail("overflow: the feasibility kernel never launched")
+    nodes, pods = synth_cluster(5000, 50000, hard_predicates=True)
+    main_path("hard_waves", nodes, pods)
+    nodes, pods = synth_cluster(100, 30000, hard_predicates=True)
+    main_path("overflow_waves", nodes, pods)
+    nodes, pods = synth_cluster(10000, 100000)
+    main_path("northstar", nodes, pods)
+    nodes, pods, services = synth_spread_cluster(5000, 20000)
+    main_path("spread", nodes, pods, services)
+    for k in rows:
+        if launches[k] <= 0:
             fail(f"kernel {k} was not launched on the main path")
 
-    src = "open_simulator_torch/ops/csrc/schedule.cu"
     print(json.dumps({"kernels": [
-        {"name": "schedule_batch", "route": "cuda", "source": src,
-         "replaces": "open_simulator_tpu/ops/kernels.py:2267", "launches": counts["schedule_batch"],
-         "max_abs_err": err_k2, "ms": k2_ms, "plain_ms": plain_ms_k2, "bound_ms": k2_bound,
-         "bound_by": "operations" if k2_ops / F32_OPS_PER_S > k2_b / HBM_BYTES_PER_S else "bytes",
-         "library_ms": None},
-        {"name": "feasibility", "route": "cuda", "source": src,
-         "replaces": "open_simulator_tpu/ops/kernels.py:743", "launches": counts["feasibility"],
-         "max_abs_err": 0.0, "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
-         "bound_by": "bytes", "library_ms": None},
-    ]}), flush=True)
-    emit("done", seconds=round(time.perf_counter() - t_start, 1))
+        {"name": k, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
+         "launches": launches[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+         "library_ms": None}
+        for k, r in rows.items()]}), flush=True)
+    emit("done", seconds=round(time.perf_counter() - t_start, 1), walls=walls)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

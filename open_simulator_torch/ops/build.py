@@ -4,8 +4,10 @@ The library is compiled on first use for sm_90a with `--fmad=false` (no
 contraction into fused multiply-adds: the kernels must round every operation
 exactly as the plain PyTorch versions do) into `build/torch_kernels/` at the
 root of the checkout, named by a digest of the sources and flags, so an edited
-source never loads a stale binary. It has a plain C interface and includes no
-PyTorch header, which keeps the build to seconds. Nothing here runs at import.
+source never loads a stale binary. Each source compiles in its own nvcc
+process, all started together, then one link makes the library. It has a
+plain C interface and includes no PyTorch header, which keeps the build to
+seconds. Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -20,10 +22,11 @@ import time
 from typing import List, Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = [os.path.join(_HERE, "csrc", "schedule.cu")]
+SOURCES = [os.path.join(_HERE, "csrc", f) for f in ("schedule.cu", "wave.cu", "group_serial.cu")]
+HEADERS = [os.path.join(_HERE, "csrc", "common.cuh")]
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
+              "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -53,7 +56,18 @@ def _digest(paths: List[str]) -> str:
 
 
 def library_path() -> str:
-    return os.path.join(BUILD_DIR, f"libschedule_{_digest(SOURCES)}.so")
+    return os.path.join(BUILD_DIR, f"libschedule_{_digest(SOURCES + HEADERS)}.so")
+
+
+def _run_all(cmds: List[List[str]]) -> List[subprocess.CompletedProcess]:
+    """Run the commands at once; wait for every one of them."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    done = []
+    for c, p in zip(cmds, procs):
+        out, err = p.communicate()
+        done.append(subprocess.CompletedProcess(c, p.returncode, out, err))
+    return done
 
 
 def compile_library() -> str:
@@ -64,15 +78,29 @@ def compile_library() -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o") for s in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, *SOURCES],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
+    nvcc = nvcc_path()
+    try:
+        compiled = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
+                             for s, o in zip(SOURCES, objs)])
+        for proc in compiled:
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}) on {proc.args[-1]}:\n"
+                                   f"{proc.stdout}\n{proc.stderr}")
+        tmp = f"{out}.{tag}"
+        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n"
+                               f"{link.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     build_seconds = time.perf_counter() - t0
-    ptxas_log = proc.stderr
+    ptxas_log = "".join(p.stderr for p in compiled)
     return out
 
 
@@ -97,10 +125,25 @@ def _load(path: str) -> ctypes.CDLL:
     lib.error_string.restype = ctypes.c_char_p
     lib.schedule_scratch_floats.argtypes = [V]
     lib.schedule_scratch_floats.restype = ctypes.c_longlong
-    lib.feasibility_launch.argtypes = [V, ctypes.c_int, ctypes.c_int, ctypes.c_int, P, P, P, P]
+    lib.feasibility_launch.argtypes = [V] + [ctypes.c_int] * 4 + [P] * 4
     lib.feasibility_launch.restype = ctypes.c_int
     lib.schedule_batch_launch.argtypes = [V, P, P, P, ctypes.c_int, P, P, P]
     lib.schedule_batch_launch.restype = ctypes.c_int
+    lib.wave_scratch_floats.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.wave_scratch_floats.restype = ctypes.c_longlong
+    lib.wave_scratch_ints.argtypes = [ctypes.c_int]
+    lib.wave_scratch_ints.restype = ctypes.c_longlong
+    lib.schedule_wave_launch.argtypes = [V] + [ctypes.c_int] * 5 + [P] * 5
+    lib.schedule_wave_launch.restype = ctypes.c_int
+    lib.aggregate_commit_launch.argtypes = [V, ctypes.c_int, P, P, P, P, ctypes.c_int, P, P]
+    lib.aggregate_commit_launch.restype = ctypes.c_int
+    lib.group_serial_scratch_floats.argtypes = [V]
+    lib.group_serial_scratch_floats.restype = ctypes.c_longlong
+    lib.group_serial_scratch_ints.argtypes = [V]
+    lib.group_serial_scratch_ints.restype = ctypes.c_longlong
+    lib.schedule_group_serial_launch.argtypes = ([V, ctypes.c_int, P] + [ctypes.c_int] * 4
+                                                 + [P] * 5)
+    lib.schedule_group_serial_launch.restype = ctypes.c_int
     if lib.tables_view_size() != ctypes.sizeof(TablesView):
         raise RuntimeError(f"TablesView layout mismatch: library {lib.tables_view_size()} "
                            f"bytes, ctypes {ctypes.sizeof(TablesView)}")

@@ -151,6 +151,16 @@ class Carry(NamedTuple):
     sdev_alloc: torch.Tensor   # [N, MAXSD] f32
 
 
+class SerialState(NamedTuple):
+    """The only state a single-group serial run mutates (the JAX
+    `SerialState` of schedule_group_serial); the plain scan updates it in
+    place."""
+
+    j: torch.Tensor       # [N] i32: per-node copies placed so far
+    cnt: torch.Tensor     # [Sd, D+1] f32: live DoNotSchedule counter rows
+    cnt_sa: torch.Tensor  # [Ss, D+1] f32: live ScheduleAnyway counter rows
+
+
 _SEED_OF = {f: "seed_" + f for f in Carry._fields}
 
 
@@ -282,9 +292,11 @@ STAGE_ROWS = tuple(k for k in STAGE_KEYS if k != "fit_each")
 
 
 def feasibility(tb: Tables, cry: Carry, g: int, forced: int, valid: bool,
-                filters: FilterFlags = DEFAULT_FILTERS):
+                filters: FilterFlags = DEFAULT_FILTERS, include_dns: bool = True):
     """[N] feasibility mask for one pod, plus the named per-stage masks
-    (STAGE_KEYS) for diagnostics. Plain version of `feasibility_kernel`."""
+    (STAGE_KEYS) for diagnostics. Plain version of `feasibility_kernel`.
+    `include_dns=False` drops the DoNotSchedule filter: the group-serial scan
+    evaluates it against its own live counter rows."""
     N, R = tb.alloc.shape
     dev = tb.alloc.device
     req = tb.grp_requests[g]
@@ -331,7 +343,7 @@ def feasibility(tb: Tables, cry: Carry, g: int, forced: int, valid: bool,
         aff_ok, blocked_in, blocked_ex = ones, ~ones, ~ones
 
     # PodTopologySpread DoNotSchedule (filtering.go Filter)
-    if filters.spread:
+    if include_dns and filters.spread:
         dvalid, dids = _slot_ids(tb.dns_t[g])
         edom = tb.dns_edom[g]
         cdom, dns_at, dns_key, _ = counter_rows_at(tb, cry, dids)
@@ -529,6 +541,371 @@ def schedule_batch_plain(tb: Tables, cry: Carry, pod_group, forced_node, valid,
     return cry, torch.stack(choices)
 
 
+# ------------------------------------------------------------------ wave route ----
+#
+# Port of the JAX package's wave kernels (ops/kernels.py :800-1310, :2102-2262).
+# A wave places m interchangeable pods of one group at once: it builds the
+# [N, B+1] table of the score each node would give its next B+1 copies, takes
+# the best entries in serial's pick order (score desc, node asc, copy asc)
+# under a guard that defers any entry a hidden (deeper or non-monotone) entry
+# could beat, and stops early where a node leaving the feasible set would move
+# a normalizer. The per-node counts then equal m serial steps exactly.
+
+WAVE_BLOCK = 64  # B: max score-table depth = max copies per node per wave iteration
+# Score-table entries (N*B) above which wave_block_for halves the depth.
+_WAVE_TABLE_BUDGET = 1 << 21
+# `capacity` of a node when NodeResourcesFit is off or nothing is requested
+_CAP_UNBOUNDED_F = 2_147_483_000.0
+_CAP_UNBOUNDED_I = 2_147_483_000
+WAVE_STATS = ("iterations", "head_fallbacks", "guarded")
+
+
+def wave_block_for(m: int, n: int) -> int:
+    """Score-table depth for an m-pod wave over n nodes: a pow2 in [8,
+    WAVE_BLOCK] covering ~8x the mean per-node take, halved toward 8 while
+    n*B exceeds _WAVE_TABLE_BUDGET. Correctness never depends on it (hidden
+    entries defer to later iterations), only the iteration count does."""
+    b = 8
+    target = (8 * m + max(n, 1) - 1) // max(n, 1)
+    while b < min(WAVE_BLOCK, target):
+        b *= 2
+    while b > 8 and n * b > _WAVE_TABLE_BUDGET:
+        b //= 2
+    return b
+
+
+def wave_kmax(m: int, n: int, block: int) -> int:
+    """Top-k width of one wave iteration: a pow2 >= the segment length (from
+    256), capped at the table size. Entries past it defer to later
+    iterations, so it bounds one iteration's take, never the result."""
+    cap = max(1, n * block)
+    k = 256
+    while k < min(m, cap):
+        k *= 2
+    return min(k, cap)
+
+
+def _wave_statics(tb: Tables, cry: Carry, g: int, w: ScoreWeights = DEFAULT_WEIGHTS) -> dict:
+    """Per-segment constants of the score, exactly as scores() computes them
+    (counters cannot change inside a wave)."""
+    ip_raw = interpod_raw(tb, cry, g)
+    simon_s = _flr(100.0 * tb.simon_raw[g])
+    na_raw = tb.nodeaff_raw[g]
+    t_raw = tb.taint_raw[g]
+    return {
+        "ip_raw": ip_raw,
+        "simon_s": simon_s,
+        "na_raw": na_raw,
+        "t_raw": t_raw,
+        "max_stack": torch.stack([simon_s, na_raw, t_raw, ip_raw]),
+        "min_stack": torch.stack([simon_s, ip_raw]),
+        "static": w.avoid * tb.avoid_raw[g] + w.image * tb.image_raw[g] + tb.extra_raw[g],
+    }
+
+
+def _wave_norms(st: dict, F: torch.Tensor) -> tuple:
+    """(simon_hi, simon_lo, na_max, t_max, ip_max, ip_min) over the feasible
+    set F, as 0-dim tensors (the same floats scores() normalizes with)."""
+    inf = torch.tensor(float("inf"), device=F.device)
+    maxes = torch.amax(torch.where(F[None, :], st["max_stack"], -inf), dim=1)
+    mins = torch.amin(torch.where(F[None, :], st["min_stack"], inf), dim=1)
+    return (maxes[0], mins[0], torch.clamp(maxes[1], min=0.0), torch.clamp(maxes[2], min=0.0),
+            torch.clamp(maxes[3], min=0.0), torch.clamp(mins[1], max=0.0))
+
+
+def _normalized_terms(st: dict, norms: tuple) -> tuple:
+    """Simon, NodeAffinity, TaintToleration and InterPodAffinity over the
+    normalizers `norms`, unweighted (as scores() normalizes them)."""
+    simon_hi, simon_lo, na_max, t_max, ip_max, ip_min = norms
+    rng = simon_hi - simon_lo
+    simon = torch.where((rng > 0) & torch.isfinite(rng),
+                        _flr((st["simon_s"] - simon_lo) * 100.0 / rng), 0.0)
+    nodeaff = torch.where(na_max > 0, _flr(st["na_raw"] * 100.0 / na_max), 0.0)
+    taint = torch.where(t_max > 0, 100.0 - _flr(st["t_raw"] * 100.0 / t_max), 100.0)
+    ip_rng = ip_max - ip_min
+    interpod = torch.where(ip_rng > 0, _flr(100.0 * (st["ip_raw"] - ip_min) / ip_rng), 0.0)
+    return simon, nodeaff, taint, interpod
+
+
+def _wave_score_table(tb: Tables, cry: Carry, st: dict, norms: tuple, g: int, j: torch.Tensor,
+                      w: ScoreWeights = DEFAULT_WEIGHTS, block: int = WAVE_BLOCK) -> torch.Tensor:
+    """[N, B+1] table: entry (n, k) is the score of the (j_n+k+1)-th copy of
+    group g on node n. Term by term the formulas of scores(); the terms that
+    are constant on F (SelectorSpread, PodTopologySpread, Open-Local) are
+    dropped, since a uniform shift never changes the order the wave takes."""
+    dev = j.device
+    copies = (j.to(_F32)[:, None, None]
+              + torch.arange(1, block + 2, dtype=_F32, device=dev)[None, :, None])
+    used = cry.nonzero[:, None, :] + tb.grp_nonzero[g][None, None, :] * copies  # [N, B+1, 2]
+    a_c, a_m = tb.alloc[:, CPU_I], tb.alloc[:, MEM_I]
+    least, balanced = least_balanced(used[:, :, 0], used[:, :, 1], a_c[:, None], a_m[:, None])
+    simon, nodeaff, taint, interpod = _normalized_terms(st, norms)
+    static_n = ((w.simon + w.gpushare) * simon + w.nodeaff * nodeaff + w.taint * taint
+                + w.interpod * interpod + st["static"])
+    return w.least * least + w.balanced * balanced + static_n[:, None]
+
+
+def _wave_capacity(tb: Tables, cry: Carry, g: int, cap1: bool) -> torch.Tensor:
+    """[N] i32: how many more copies of group g each node can take, from the
+    closed-form NodeResourcesFit bound (the eps slack of feasibility())."""
+    req = tb.grp_requests[g]
+    eps = tb.alloc * 1e-6
+    room = tb.alloc + eps - cry.requested
+    per_res = torch.where(req[None, :] > 0,
+                          torch.floor(room / torch.clamp(req[None, :], min=1e-30)),
+                          float("inf"))
+    cap = torch.clamp(torch.amin(per_res, dim=1), 0.0, _CAP_UNBOUNDED_F).to(torch.int32)
+    return torch.clamp(cap, max=1) if cap1 else cap
+
+
+def _base_capacity(tb: Tables, cry: Carry, g: int, cap1: bool, base_feas: torch.Tensor,
+                   filters: FilterFlags) -> torch.Tensor:
+    """Copies each node can take in this segment (0 off the base feasible set)."""
+    zero = torch.zeros((), dtype=torch.int32, device=base_feas.device)
+    if filters.fit:
+        return torch.where(base_feas, _wave_capacity(tb, cry, g, cap1), zero)
+    # resources unbounded, but cap1 (ports / self-anti-affinity) survives
+    cap = torch.where(base_feas, torch.full_like(zero, _CAP_UNBOUNDED_I), zero)
+    return torch.clamp(cap, max=1) if cap1 else cap
+
+
+def _top_k(flat: torch.Tensor, k: int):
+    """lax.top_k: the k largest values, ties by ascending index (a stable
+    descending sort keeps equal values in index order)."""
+    vals, pos = torch.sort(flat, descending=True, stable=True)
+    return vals[:k], pos[:k]
+
+
+def _wave_candidates_from(table_ext, avail, F, B: int, iota_n, kmax: int):
+    """The usable-entry mask (capacity, monotone prefix, hidden-continuation
+    guard) and the top-kmax candidates in serial's pick order. Returns
+    (table [N, B], idx_srt, ex_srt, vals, guarded): idx_srt, ex_srt and vals
+    are [kmax]; guarded counts the entries the guard deferred."""
+    N = table_ext.shape[0]
+    dev = table_ext.device
+    ninf = torch.tensor(float("-inf"), device=dev)
+    table = table_ext[:, :B]
+    ks = torch.arange(B, dtype=torch.int32, device=dev)[None, :]
+    in_cap = ks < avail[:, None]
+    step_ok = torch.cat([torch.ones((N, 1), dtype=torch.int32, device=dev),
+                         (table[:, 1:] <= table[:, :-1]).to(torch.int32)], dim=1)
+    mono = torch.cumprod(step_ok, dim=1) > 0
+    usable = in_cap & mono & F[:, None]
+
+    # an entry is takeable only if its key (score desc, index asc) strictly
+    # beats every OTHER node's first hidden entry (past depth B or past a
+    # monotonicity break)
+    first_bad = torch.amin(torch.where(mono, B, ks), dim=1)
+    k_hid = torch.clamp(first_bad, max=B)
+    has_hidden = (k_hid < avail) & F
+    bound = torch.where(has_hidden,
+                        torch.gather(table_ext, 1, k_hid.long()[:, None])[:, 0], ninf)
+    b1 = torch.amax(bound)
+    i1 = torch.argmax(bound)  # first max = lowest index among ties
+    bound2 = bound.clone()
+    bound2[i1] = ninf
+    b2 = torch.amax(bound2)
+    i2 = torch.argmax(bound2)
+    cut_s = torch.where(iota_n == i1, b2, b1)
+    cut_i = torch.where(iota_n == i1, i2, i1).to(torch.int32)
+    beats = (table > cut_s[:, None]) | ((table == cut_s[:, None])
+                                        & (iota_n[:, None] < cut_i[:, None]))
+    guarded = int((usable & ~beats).sum())
+    usable = usable & beats
+
+    flat_s = torch.where(usable, table, ninf).reshape(-1)
+    exhaust = (ks == (avail[:, None] - 1)) & usable  # the entry that empties node n
+    vals, flat_pos = _top_k(flat_s, kmax)
+    idx_srt = torch.div(flat_pos, B, rounding_mode="floor").to(torch.int32)
+    ex_srt = exhaust.reshape(-1)[flat_pos].to(torch.int32)
+    return table, idx_srt, ex_srt, vals, guarded
+
+
+def _wave_iteration(st: dict, norms: tuple, table_ext, F, avail, j, placed: int, m: int,
+                    B: int, K: int):
+    """Selection half of one wave iteration (JAX body_tail): returns (new j,
+    placed, this iteration's take, {"head_fallbacks": 0 or 1, "guarded": n})."""
+    N = table_ext.shape[0]
+    dev = table_ext.device
+    iota_n = torch.arange(N, dtype=torch.int32, device=dev)
+    table, idx_srt, ex_srt, vals, guarded = _wave_candidates_from(table_ext, avail, F, B,
+                                                                   iota_n, K)
+    pos = torch.arange(K, dtype=torch.int32, device=dev)
+    n_finite = int(torch.isfinite(vals).sum())
+    m_rem = m - placed
+    m_cand = min(m_rem, n_finite)
+
+    def counts_of(take: int) -> torch.Tensor:
+        return torch.zeros(N, dtype=torch.int32, device=dev).index_add_(
+            0, idx_srt.long(), (pos < take).to(torch.int32))
+
+    # exhausted nodes inside the candidate range may stay mid-wave only when
+    # every normalizer provably survives their removal
+    counts0 = counts_of(m_cand)
+    leaves = counts0 >= torch.clamp(avail, min=1)
+    norms_end = _wave_norms(st, F & ~leaves)
+    same = all(bool(a == b) for a, b in zip(norms, norms_end))  # ±inf equal themselves
+    p_ex = int(torch.amin(torch.where((ex_srt > 0) & (pos < m_cand), pos, N * B)))
+    m_take = m_cand if same else min(m_cand, p_ex + 1)
+    counts = counts_of(m_take)
+
+    # guaranteed progress: serial's next pick is always the best head
+    # (each node's k=0 entry), so placing exactly that pod is exact
+    head = m_take == 0 and bool(torch.any(F)) and m_rem > 0
+    if head:
+        heads = torch.where(F, table[:, 0], float("-inf"))
+        counts = torch.zeros(N, dtype=torch.int32, device=dev)
+        counts[torch.argmax(heads)] = 1
+        m_take = 1
+    return j + counts, placed + m_take, m_take, {"head_fallbacks": int(head), "guarded": guarded}
+
+
+@torch.inference_mode()
+def schedule_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
+                        w: ScoreWeights = DEFAULT_WEIGHTS, filters: FilterFlags = DEFAULT_FILTERS,
+                        block: int = WAVE_BLOCK, kmax: int = 0):
+    """Plain version of `schedule_wave_kernel`: place up to m pods of the
+    wave-eligible group g, reproducing m serial steps. Returns (per-node
+    counts [N] i32, placed, stats); the carry is not touched (the aggregate
+    commit applies the counts). stats counts the loop's iterations, its
+    head-fallback iterations and the entries the hidden-continuation guard
+    deferred, summed over iterations."""
+    N = tb.alloc.shape[0]
+    K = kmax if kmax else N * block
+    base_feas, _ = feasibility(tb, cry, g, -1, True, filters)
+    st = _wave_statics(tb, cry, g, w)
+    capacity = _base_capacity(tb, cry, g, cap1, base_feas, filters)
+    j = torch.zeros(N, dtype=torch.int32, device=tb.alloc.device)
+    placed, last_w = 0, 1
+    stats = dict.fromkeys(WAVE_STATS, 0)
+    while last_w > 0 and placed < m:
+        avail = capacity - j  # copies left per node
+        F = base_feas & (avail > 0)
+        norms = _wave_norms(st, F)
+        table_ext = _wave_score_table(tb, cry, st, norms, g, j, w, block)
+        j, placed, last_w, it = _wave_iteration(st, norms, table_ext, F, avail, j, placed, m,
+                                                block, K)
+        stats["iterations"] += 1
+        for k, v in it.items():
+            stats[k] += v
+    return j, placed, stats
+
+
+@torch.inference_mode()
+def aggregate_commit_plain(tb: Tables, cry: Carry, g: int, j: torch.Tensor) -> Carry:
+    """The sum of sum(j) serial commit() calls for group g (j = per-node
+    counts), as one update of the carry; returns a new Carry. Plain version
+    of `aggregate_commit_kernel` (no GPU-share device ledger: ROADMAP B9)."""
+    jf = j.to(_F32)
+    D = cry.counter.shape[1] - 1
+    requested = cry.requested + tb.grp_requests[g][None, :] * jf[:, None]
+    nonzero = cry.nonzero + tb.grp_nonzero[g][None, :] * jf[:, None]
+    # a placed copy claims the group's host ports on its node (idempotent bits)
+    pids = tb.grp_ports[g].long()
+    port_used = cry.port_used.clone()
+    port_used[:, pids] = port_used[:, pids] | ((pids > 0)[None, :] & (j > 0)[:, None])
+    # counter/carrier rows of one topology key share their domain row: reduce
+    # the counts once per unique topology, then broadcast to the rows
+    U = tb.topo_dom.shape[0]
+    dom = tb.topo_dom.long()
+    seg = torch.zeros((U, D + 1), dtype=_F32, device=jf.device).scatter_add_(
+        1, dom, jf[None, :] * (dom < D))
+    counter = (cry.counter + tb.counter_sel_match_g[:, g, None].to(_F32)
+               * seg[tb.counter_topo.long()])
+    carrier = cry.carrier + tb.grp_carries[g][:, None] * seg[tb.carr_topo.long()]
+    return cry._replace(requested=requested, nonzero=nonzero, port_used=port_used,
+                        counter=counter, carrier=carrier)
+
+
+@torch.inference_mode()
+def schedule_group_serial_plain(tb: Tables, cry: Carry, g: int, valid, cap1: bool,
+                                w: ScoreWeights = DEFAULT_WEIGHTS,
+                                filters: FilterFlags = DEFAULT_FILTERS,
+                                ss_live: bool = False, sa_live: bool = False, n_zones: int = 2):
+    """Plain version of `schedule_group_serial_kernel`: the serial scan of one
+    group whose placements feed its own DoNotSchedule filter (live [Sd, D+1]
+    counter rows), SelectorSpread score (ss_live: per-node counts base + j
+    with the zone blend) and ScheduleAnyway score (sa_live: live [Ss, D+1]
+    rows). Everything else a step reads is constant within the run and
+    hoisted. `valid` [P] bool marks real pods. Returns (per-node counts [N]
+    i32, placed); the carry is not touched."""
+    N = tb.alloc.shape[0]
+    D = cry.counter.shape[1] - 1
+    dev = tb.alloc.device
+    ninf = torch.tensor(float("-inf"), device=dev)
+    base_feas, _ = feasibility(tb, cry, g, -1, True, filters, include_dns=False)
+    st = _wave_statics(tb, cry, g, w)
+    capacity = _base_capacity(tb, cry, g, cap1, base_feas, filters)
+
+    dvalid, dids = _slot_ids(tb.dns_t[g])
+    dom_rows = tb.counter_dom[dids].long()  # [Sd, N]
+    key_present = dom_rows < D
+    edom = tb.dns_edom[g]
+    dself = tb.dns_self[g][:, None]
+    dskew = tb.dns_maxskew[g][:, None]
+    dmatch = (tb.counter_sel_match_g[dids, g] & dvalid).to(_F32)
+    Sd = dids.shape[0]
+    a_c, a_m = tb.alloc[:, CPU_I], tb.alloc[:, MEM_I]
+    gnz = tb.grp_nonzero[g]
+    if ss_live:
+        # the group's own SelectorSpread counter is hostname-topology, so the
+        # per-node counts are exactly base + j
+        ss_id = torch.clamp(tb.ss_t[g], min=0).reshape(1).long()
+        base_pernode = counter_rows_at(tb, cry, ss_id)[1][0]
+        Z = max(2, n_zones)
+    if sa_live:
+        svalid, sidx = _slot_ids(tb.sa_t[g])
+        sa_dom_rows = tb.counter_dom[sidx].long()  # [Ss, N]
+        sa_ignored = torch.any(svalid[:, None] & (sa_dom_rows >= D), dim=0)
+        sa_match = (tb.counter_sel_match_g[sidx, g] & svalid).to(_F32)
+        sa_maxskew = tb.sa_maxskew[g]
+        Ss = sidx.shape[0]
+
+    state = SerialState(j=torch.zeros(N, dtype=torch.int32, device=dev),
+                        cnt=cry.counter[dids].clone(),
+                        cnt_sa=(cry.counter[sidx].clone() if sa_live
+                                else torch.zeros((1, D + 1), dtype=_F32, device=dev)))
+    j, cnt, cnt_sa = state
+    placed = 0
+    for ok in torch.as_tensor(valid).tolist():
+        if not ok:  # padded pod: commits nothing
+            continue
+        # live DoNotSchedule filter, term for term as in feasibility()
+        cnt_at = torch.gather(cnt, 1, dom_rows)
+        min_c = torch.amin(torch.where(edom, cnt, float("inf")), dim=1)
+        min_c = torch.where(torch.isfinite(min_c), min_c, 0.0)
+        dns_ok_each = key_present & (cnt_at + dself - min_c[:, None] <= dskew)
+        dns_ok = torch.all(dns_ok_each | ~dvalid[:, None], dim=0)
+        F = base_feas & (capacity - j > 0) & dns_ok
+        if not torch.any(F):  # nothing feasible: no commit, and F stays empty
+            continue
+        # the candidate pod counts toward its own usage, hence j + 1
+        used = cry.nonzero + gnz[None, :] * (j + 1).to(_F32)[:, None]
+        least, balanced = least_balanced(used[:, 0], used[:, 1], a_c, a_m)
+        lb = w.least * least + w.balanced * balanced
+        simon, nodeaff, taint, interpod = _normalized_terms(st, _wave_norms(st, F))
+        score = (lb + (w.simon + w.gpushare) * simon + w.nodeaff * nodeaff + w.taint * taint
+                 + w.interpod * interpod + st["static"])
+        if ss_live:
+            pernode = base_pernode + j.to(_F32)
+            maxN = torch.clamp(torch.amax(torch.where(F, pernode, ninf)), min=0.0)
+            score = score + w.ss * _flr(selector_spread_score(pernode, F, tb.node_zone, Z, maxN))
+        if sa_live:
+            cnt_at_sa = torch.gather(cnt_sa, 1, sa_dom_rows)
+            score = score + w.pts * schedule_anyway_score(
+                cnt_at_sa, F & ~sa_ignored, sa_dom_rows, svalid, sa_maxskew, D)
+        choice = int(torch.argmax(torch.where(F, score, ninf)))
+        j[choice] += 1
+        placed += 1
+        cnt[torch.arange(Sd, device=dev), dom_rows[:, choice]] += dmatch
+        if sa_live:
+            # sentinel-masked like commit(): a pod may land on a node missing
+            # the ScheduleAnyway topology key (a score-only plugin)
+            sa_dom_c = sa_dom_rows[:, choice]
+            cnt_sa[torch.arange(Ss, device=dev), sa_dom_c] += sa_match * (sa_dom_c < D)
+    return j, placed
+
+
 # ------------------------------------------------------------------ CUDA route ----
 #
 # csrc/schedule.cu holds both kernels; ops/build.py compiles it with nvcc for
@@ -630,7 +1007,7 @@ def _stream() -> ctypes.c_void_p:
 
 
 def feasibility_kernel(tb: Tables, cry: Carry, g: int, forced: int, valid: bool,
-                       filters: FilterFlags = DEFAULT_FILTERS):
+                       filters: FilterFlags = DEFAULT_FILTERS, include_dns: bool = True):
     """Launch K1 (csrc/schedule.cu feasibility_kernel): one thread per node.
     Returns (feasible [N] bool, stages {STAGE_KEYS: tensor})."""
     from . import build
@@ -643,6 +1020,7 @@ def feasibility_kernel(tb: Tables, cry: Carry, g: int, forced: int, valid: bool,
     stage_rows = torch.empty((len(STAGE_ROWS), N), dtype=torch.bool, device=dev)
     fit_each = torch.empty((N, R), dtype=torch.bool, device=dev)
     _check(lib.feasibility_launch(ctypes.byref(v), int(g), int(forced), int(bool(valid)),
+                                  int(bool(include_dns)),
                                   ctypes.c_void_p(feasible.data_ptr()),
                                   ctypes.c_void_p(stage_rows.data_ptr()),
                                   ctypes.c_void_p(fit_each.data_ptr()), _stream()),
@@ -689,6 +1067,99 @@ def schedule_batch_kernel(tb: Tables, cry: Carry, pod_group, forced_node, valid,
     return out, choices
 
 
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _i32_on(t, dev, n: int, what: str) -> torch.Tensor:
+    """`t` as a contiguous i32 tensor of length n on `dev` (raises otherwise)."""
+    out = torch.as_tensor(t, dtype=torch.int32, device=dev).contiguous()
+    if out.shape != (n,):
+        raise ValueError(f"{what}: need shape ({n},), got {tuple(out.shape)}")
+    return out
+
+
+def schedule_wave_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
+                         w: ScoreWeights = DEFAULT_WEIGHTS, filters: FilterFlags = DEFAULT_FILTERS,
+                         block: int = WAVE_BLOCK, kmax: int = 0):
+    """Launch K3 (csrc/wave.cu schedule_wave_kernel): one persistent block
+    runs the whole wave loop. Returns (per-node counts [N] i32, placed as a
+    0-dim i32 tensor, [iterations, head_fallbacks, guarded] i32), all on the
+    card; `cry` is only read."""
+    from . import build
+
+    lib = build.library()
+    dev = tb.alloc.device
+    N = tb.alloc.shape[0]
+    K = kmax if kmax else N * block
+    if N * block >= 2 ** 31 or not 1 <= K <= N * block:
+        raise ValueError(f"wave table {N}x{block} with kmax {K} is out of the kernel's range")
+    v = _view(tb, cry, 2, w, filters)
+    j = torch.empty(N, dtype=torch.int32, device=dev)
+    stats = torch.empty(4, dtype=torch.int32, device=dev)
+    fs = torch.empty(int(lib.wave_scratch_floats(N, block)), dtype=_F32, device=dev)
+    iscr = torch.empty(int(lib.wave_scratch_ints(N)), dtype=torch.int32, device=dev)
+    _check(lib.schedule_wave_launch(ctypes.byref(v), int(g), int(m), int(bool(cap1)),
+                                    int(block), int(K), _ptr(j), _ptr(stats), _ptr(fs),
+                                    _ptr(iscr), _stream()),
+           "schedule_wave_kernel launch")
+    schedule_wave.launches += 1
+    return j, stats[0], stats[1:]
+
+
+def aggregate_commit_kernel(tb: Tables, cry: Carry, g: int, j: torch.Tensor) -> Carry:
+    """Launch K3c (csrc/wave.cu aggregate_commit_kernel) on a CLONE of `cry`,
+    which it updates in place and returns; `cry` is left untouched."""
+    from . import build
+
+    lib = build.library()
+    dev = tb.alloc.device
+    out = Carry(*(t.clone() for t in cry))
+    v = _view(tb, out, 2, DEFAULT_WEIGHTS, DEFAULT_FILTERS)
+    jj = _i32_on(j, dev, tb.alloc.shape[0], "j")
+    for name in ("topo_dom", "counter_topo", "carr_topo"):
+        t = getattr(tb, name)
+        if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous int32 tensor on {dev}")
+    U = tb.topo_dom.shape[0]
+    seg = torch.empty(U * cry.counter.shape[1], dtype=_F32, device=dev)
+    _check(lib.aggregate_commit_launch(ctypes.byref(v), int(g), _ptr(jj), _ptr(tb.topo_dom),
+                                       _ptr(tb.counter_topo), _ptr(tb.carr_topo), int(U),
+                                       _ptr(seg), _stream()),
+           "aggregate_commit_kernel launch")
+    aggregate_commit.launches += 1
+    return out
+
+
+def schedule_group_serial_kernel(tb: Tables, cry: Carry, g: int, valid, cap1: bool,
+                                 w: ScoreWeights = DEFAULT_WEIGHTS,
+                                 filters: FilterFlags = DEFAULT_FILTERS,
+                                 ss_live: bool = False, sa_live: bool = False, n_zones: int = 2):
+    """Launch K4 (csrc/group_serial.cu schedule_group_serial_kernel): one
+    persistent block loops over the pods. Returns (per-node counts [N] i32,
+    placed as a 0-dim i32 tensor), on the card; `cry` is only read."""
+    from . import build
+
+    lib = build.library()
+    dev = tb.alloc.device
+    N = tb.alloc.shape[0]
+    vd = torch.as_tensor(valid, dtype=torch.bool, device=dev).contiguous()
+    v = _view(tb, cry, n_zones, w, filters)
+    j = torch.empty(N, dtype=torch.int32, device=dev)
+    placed = torch.empty(1, dtype=torch.int32, device=dev)
+    fs = torch.empty(int(lib.group_serial_scratch_floats(ctypes.byref(v))), dtype=_F32,
+                     device=dev)
+    iscr = torch.empty(int(lib.group_serial_scratch_ints(ctypes.byref(v))), dtype=torch.int32,
+                       device=dev)
+    _check(lib.schedule_group_serial_launch(ctypes.byref(v), int(g), _ptr(vd), int(vd.shape[0]),
+                                            int(bool(cap1)), int(bool(ss_live)),
+                                            int(bool(sa_live)), _ptr(j), _ptr(placed),
+                                            _ptr(fs), _ptr(iscr), _stream()),
+           "schedule_group_serial_kernel launch")
+    schedule_group_serial.launches += 1
+    return j, placed[0]
+
+
 def _on_cpu(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return True
@@ -715,16 +1186,74 @@ def schedule_batch(tb: Tables, cry: Carry, pod_group, forced_node, valid, n_zone
     return schedule_batch_kernel(tb, cry, pod_group, forced_node, valid, n_zones, w, filters)
 
 
-feasibility_jit.launches = 0
-schedule_batch.launches = 0
+def aggregate_commit(tb: Tables, cry: Carry, g: int, j: torch.Tensor) -> Carry:
+    """Commit j[n] copies of group g on every node n at once (JAX
+    `_aggregate_commit`): the plain version for CPU tensors, K3c for CUDA
+    tensors. Returns a new Carry."""
+    if _on_cpu(tb.alloc):
+        return aggregate_commit_plain(tb, cry, g, j)
+    return aggregate_commit_kernel(tb, cry, g, j)
+
+
+def schedule_wave(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
+                  w: ScoreWeights = DEFAULT_WEIGHTS, filters: FilterFlags = DEFAULT_FILTERS,
+                  block: int = WAVE_BLOCK, kmax: int = 0):
+    """Place up to m pods of wave-eligible group g, exactly as m serial steps
+    would (JAX `schedule_wave`): the plain version for CPU tensors, K3 for
+    CUDA tensors, then `aggregate_commit`. Returns (new carry, per-node
+    counts [N] i32, placed). The loop's statistics (WAVE_STATS) are added
+    to `schedule_wave.stats`, an i32 tensor on the wrapper's device (adding
+    it up does not wait for the card)."""
+    if _on_cpu(tb.alloc):
+        j, placed, st = schedule_wave_plain(tb, cry, g, m, cap1, w, filters, block, kmax)
+        stats = torch.tensor([st[k] for k in WAVE_STATS], dtype=torch.int32)
+    else:
+        j, placed, stats = schedule_wave_kernel(tb, cry, g, m, cap1, w, filters, block, kmax)
+    prev = schedule_wave.stats
+    schedule_wave.stats = stats if prev is None or prev.device != stats.device else prev + stats
+    return aggregate_commit(tb, cry, g, j), j, placed
+
+
+def schedule_group_serial(tb: Tables, cry: Carry, g: int, valid, cap1: bool,
+                          w: ScoreWeights = DEFAULT_WEIGHTS,
+                          filters: FilterFlags = DEFAULT_FILTERS,
+                          ss_live: bool = False, sa_live: bool = False, n_zones: int = 2):
+    """The serial scan of one group with live spread state (JAX
+    `schedule_group_serial`): the plain version for CPU tensors, K4 for CUDA
+    tensors, then `aggregate_commit`. Returns (new carry, per-node counts [N]
+    i32, placed)."""
+    if _on_cpu(tb.alloc):
+        j, placed = schedule_group_serial_plain(tb, cry, g, valid, cap1, w, filters,
+                                                ss_live, sa_live, n_zones)
+    else:
+        j, placed = schedule_group_serial_kernel(tb, cry, g, valid, cap1, w, filters,
+                                                 ss_live, sa_live, n_zones)
+    return aggregate_commit(tb, cry, g, j), j, placed
+
+
+_WRAPPERS = {"schedule_batch": schedule_batch, "feasibility": feasibility_jit,
+             "schedule_wave": schedule_wave, "aggregate_commit": aggregate_commit,
+             "schedule_group_serial": schedule_group_serial}
+for _f in _WRAPPERS.values():
+    _f.launches = 0
 schedule_batch.last_events = None
+schedule_wave.stats = None
 
 
 def reset_launch_counts() -> None:
-    feasibility_jit.launches = 0
-    schedule_batch.launches = 0
+    for f in _WRAPPERS.values():
+        f.launches = 0
+    schedule_wave.stats = None
+
+
+def wave_stats() -> Dict[str, int]:
+    """WAVE_STATS summed over the wave dispatches since reset_launch_counts()
+    (reading it waits for the card)."""
+    s = schedule_wave.stats
+    vals = [0] * len(WAVE_STATS) if s is None else s.cpu().tolist()
+    return dict(zip(WAVE_STATS, vals))
 
 
 def launch_counts() -> Dict[str, int]:
-    return {"feasibility": feasibility_jit.launches, "schedule_batch": schedule_batch.launches}
+    return {name: f.launches for name, f in _WRAPPERS.items()}
 

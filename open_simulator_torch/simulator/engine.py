@@ -1,11 +1,26 @@
 """The Simulator engine: owns cluster state and drives the device scheduler.
 
-Port of `open_simulator_tpu/simulator/engine.py`, serial route only: every run
-of unbound pods is encoded into numpy `BatchTables`, staged as torch tensors
-on the simulator's device, scheduled by ONE `kernels.schedule_batch` dispatch
-(the CUDA kernel K2 on the card, the plain PyTorch scan on the CPU), fetched
-once with `.cpu()`, and committed on the host pod by pod. Failed pods get their
-FitError reasons from `kernels.feasibility_jit` (K1 on the card).
+Port of `open_simulator_tpu/simulator/engine.py`. Every run of unbound pods
+is encoded into numpy `BatchTables`, staged as torch tensors on the
+simulator's device, and cut into segments (`_segments`, the JAX segment
+router): runs of at least WAVE_MIN identical pods go to the route their group
+allows, the rest coalesce into serial chunks. Each segment is one kernel
+dispatch from the previous segment's end carry:
+
+- "serial": `kernels.schedule_batch` (K2), per-pod choices;
+- "wave": `kernels.schedule_wave` (K3, then K3c `aggregate_commit`);
+- "spread": `kernels.schedule_group_serial` (K4, then K3c);
+- "affinity": the interim route until `schedule_affinity_wave` is ported
+  (ROADMAP B8): K2 over the segment's pods from the segment's start carry,
+  its choices counted per node, then K3c on the start carry. The JAX package
+  holds the affinity wave to the serial scan's per-node counts, so the
+  counts, the carry and the hand-out below are those of the JAX route.
+
+The results are fetched once (`torch.cat` and `.cpu()`); pods of a counted
+segment are handed out in node order, as in the JAX engine. Failed pods get
+their FitError reasons from `kernels.feasibility_jit` (K1 on the card)
+against the end carry of their segment. `use_waves = False` sends every pod
+through K2 (the serial route).
 
 Behavioral parity notes (as in the JAX engine):
 - Pods arriving with spec.nodeName are committed directly without any
@@ -14,11 +29,10 @@ Behavioral parity notes (as in the JAX engine):
 - Failed pods leave no trace on cluster state.
 - ScheduleApp registers only ConfigMaps/StorageClasses/PDBs from the app.
 - Unschedulable reasons are rebuilt from per-stage masks in the k8s FitError
-  format, against the end state of the failing pod's run.
+  format.
 
 Left out of this port so far, each with the ROADMAP item it waits for:
-- wave, group-serial and affinity-wave segments (the JAX segment router):
-  B6-B8; the serial route places every pod identically;
+- the affinity wave kernel itself (interim route above): B8;
 - GPU-share and Open-Local kernel branches: B9 (such batches raise);
 - preemption (mixed pod priorities raise): A6;
 - capacity probing (probe_pods / probe_utilization): A7;
@@ -33,7 +47,8 @@ Left out of this port so far, each with the ROADMAP item it waits for:
 from __future__ import annotations
 
 import copy
-from typing import Callable, Dict, List, Optional, Tuple
+import os
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,6 +69,7 @@ from ..utils.objutil import (
     selector_from_set,
 )
 from .encode import (
+    HOSTNAME,
     SIG_MEMO_KEY,
     BatchTables,
     Encoder,
@@ -68,6 +84,25 @@ from .encode import (
     scheduling_signature,
     strip_daemon_pin,
 )
+
+# Minimum run length of identical pods worth dispatching as a wave segment;
+# shorter runs ride the serial scan.
+WAVE_MIN = 8
+
+
+class GroupRoute(NamedTuple):
+    """One group's kernel routing decision (see Simulator._wave_eligibility):
+    kind "wave" -> schedule_wave, "affinity" -> the affinity route, "spread"
+    -> schedule_group_serial, None -> the serial scan."""
+
+    kind: Optional[str]
+    cap1: bool
+    gpu_live: bool
+    ss_live: bool
+    sa_live: bool
+
+
+_SERIAL = GroupRoute(None, False, False, False, False)
 
 # Runs longer than this many pods schedule as consecutive chunks (the JAX
 # engine's default OPEN_SIMULATOR_STREAM_PODS): chunk k's commits seed chunk
@@ -171,6 +206,24 @@ class Simulator:
         self.disable_progress = disable_progress
         self.patch_pod_funcs = patch_pod_funcs or []
         self._progress = None
+        # The segment router: runs of identical pods go to the wave kernels.
+        # False sends every pod through the serial scan.
+        self.use_waves = True
+        # routing cache, keyed by a flags/weights digest so that changing
+        # filter_flags/score_w on a reused Simulator re-routes (_route_digest)
+        self._wave_elig_cache: Dict[int, GroupRoute] = {}
+        self._wave_elig_key: tuple = ()
+        self._domain_count_cache: Dict[str, int] = {}  # topo key -> #domains
+        self.segment_census: Dict[str, List[int]] = {}  # kind -> [segments, pods]
+        # Live-DNS groups whose every self topology has fewer domains than
+        # this ride the group-serial scan instead of the affinity route (the
+        # JAX engine's break-even knob, read the same way so that both
+        # packages route alike; placements are exact on either route).
+        try:
+            self._spread_wave_min_domains = int(
+                os.environ.get("OPEN_SIMULATOR_SPREAD_WAVE_MIN_DOMAINS", "0"))
+        except ValueError:
+            self._spread_wave_min_domains = 0
 
     # ------------------------------------------------------------- state ----------
 
@@ -324,6 +377,187 @@ class Simulator:
         return (kernels.tables_from_batch(bt, self.device),
                 kernels.carry_from_batch(bt, self.device))
 
+    # ------------------------------------------------------------ routing ---------
+
+    def _route_digest(self) -> tuple:
+        """Everything _wave_eligibility reads besides the (immutable) group:
+        score weights, filter flags and the break-even knob."""
+        return (self.score_w, self.filter_flags, self._spread_wave_min_domains)
+
+    def _wave_eligibility(self, gi: int) -> GroupRoute:
+        """Route group gi to its scheduling kernel (the JAX engine's rules).
+
+        kind="wave": the group's placements change no predicate or score
+        input it reads itself, so schedule_wave commits whole score-table
+        prefixes. Hostname-topology required self-anti-affinity and host
+        ports (with NodePorts on) are per-node capacity-1 clamps (cap1).
+
+        kind="affinity": counter-live hard predicates (self-matching
+        DoNotSchedule terms, required self-affinity, non-hostname required
+        self-anti-affinity in either direction, live SelectorSpread on an
+        unzoned cluster), at most one budget-consuming live term.
+
+        kind="spread": the group-serial scan: ScheduleAnyway terms
+        (sa_live), zoned live SelectorSpread, and several self-matching
+        DoNotSchedule terms (or live-DNS groups below
+        OPEN_SIMULATOR_SPREAD_WAVE_MIN_DOMAINS domains).
+
+        kind=None: the serial scan: storage state, self-matching preferred
+        affinity, GPU with counter liveness, ScheduleAnyway mixed with
+        affinity liveness."""
+        digest = self._route_digest()
+        if digest != self._wave_elig_key:
+            self._wave_elig_cache.clear()
+            self._wave_elig_key = digest
+        got = self._wave_elig_cache.get(gi)
+        if got is not None:
+            return got
+        enc = self.encoder
+        g = enc.group_list[gi]
+        tmpl = g.template
+        cap1 = False
+        spread_live = (any(selfm for _, _, selfm in g.spread_dns)
+                       and self.filter_flags.spread)
+        gpu_live = g.gpu_mem > 0 and g.gpu_pre_ids is None
+        # the default spread selector always matches the group's own pods; a
+        # zero SelectorSpread weight makes the term inert
+        ss_live = g.ss_counter >= 0 and self.score_w.ss != 0
+        sa_live = bool(g.spread_sa) and self.score_w.pts != 0
+        if (g.gpu_mem > 0 and not gpu_live) or g.lvm_sizes or g.sdev_sizes:
+            got = _SERIAL  # host-mirrored gpu/storage state
+        else:
+            if g.ports and self.filter_flags.ports:
+                cap1 = True  # the first copy claims the port on its node
+            aff_live = anti_live = pref_live = False
+            budget_terms = (sum(1 for _, _, selfm in g.spread_dns if selfm)
+                            if spread_live else 0)
+            if self.filter_flags.interpod:
+                for cid in g.req_aff:
+                    if enc.counter_list[cid].matches_pod(tmpl):
+                        aff_live = True
+                for cid in g.req_anti:
+                    cs = enc.counter_list[cid]
+                    if cs.matches_pod(tmpl):
+                        if cs.topo_key == HOSTNAME:
+                            cap1 = True
+                        else:
+                            anti_live = True
+                            budget_terms += 1
+                for cs in g.carried:
+                    if cs.use == "anti" and cs.matches_pod(tmpl):
+                        if cs.topo_key == HOSTNAME:
+                            cap1 = True
+                        else:
+                            anti_live = True
+                            budget_terms += 1
+            for cid, _ in g.pref:
+                if enc.counter_list[cid].matches_pod(tmpl):
+                    pref_live = True  # a live interpod SCORE term
+            counter_live = spread_live or ss_live or aff_live or anti_live
+            ss_zoned = ss_live and len(self.na.zones) > 0
+            low_domains = spread_live and not all(
+                not selfm or self._domain_count(cid) >= self._spread_wave_min_domains
+                for cid, _, selfm in g.spread_dns)
+            if pref_live or (gpu_live and (counter_live or sa_live)):
+                got = _SERIAL
+            elif aff_live or anti_live:
+                got = (_SERIAL if sa_live
+                       else GroupRoute("affinity", cap1, False, ss_live, False))
+            elif sa_live or ss_zoned or budget_terms > 1 or (spread_live and low_domains):
+                got = GroupRoute("spread", cap1, False, ss_live, sa_live)
+            elif spread_live or ss_live:
+                got = GroupRoute("affinity", cap1, False, ss_live, False)
+            else:
+                got = GroupRoute("wave", cap1, gpu_live, False, False)
+        self._wave_elig_cache[gi] = got
+        return got
+
+    def _domain_count(self, cid: int) -> int:
+        """Number of distinct domains a counter's topology key has on this
+        cluster (cached per topology key)."""
+        key = self.encoder.counter_list[cid].topo_key
+        got = self._domain_count_cache.get(key)
+        if got is None:
+            dom = self.na.domain_of(key)
+            got = self._domain_count_cache[key] = int(len(np.unique(dom[dom >= 0])))
+        return got
+
+    def _segments(self, bt: BatchTables, P: int) -> List[tuple]:
+        """Split the batch into maximal runs of one (group, forced) pair;
+        routed runs of >= WAVE_MIN become ('wave', start, len, g, cap1,
+        gpu_live), ('affinity', start, len, g, cap1, ss_live) or ('spread',
+        start, len, g, cap1, ss_live, sa_live) segments, the rest coalesce
+        into ('serial', start, len) chunks."""
+        pg = np.asarray(bt.pod_group[:P])
+        fn = np.asarray(bt.forced_node[:P])
+        change = np.flatnonzero((np.diff(pg) != 0) | (np.diff(fn) != 0)) + 1
+        starts = np.concatenate([[0], change])
+        ends = np.concatenate([change, [P]])
+        segs: List[tuple] = []
+        ser_start: Optional[int] = None
+        for i, j in zip(starts.tolist(), ends.tolist()):
+            g, f = int(pg[i]), int(fn[i])
+            run = j - i
+            route = self._wave_eligibility(g) if f < 0 else _SERIAL
+            if route.kind is not None and run >= WAVE_MIN:
+                if ser_start is not None:
+                    segs.append(("serial", ser_start, i - ser_start))
+                    ser_start = None
+                if route.kind == "spread":
+                    segs.append(("spread", i, run, g, route.cap1, route.ss_live, route.sa_live))
+                elif route.kind == "affinity":
+                    segs.append(("affinity", i, run, g, route.cap1, route.ss_live))
+                else:
+                    segs.append(("wave", i, run, g, route.cap1, route.gpu_live))
+            elif ser_start is None:
+                ser_start = i
+        if ser_start is not None:
+            segs.append(("serial", ser_start, P - ser_start))
+        return segs
+
+    def _dispatch(self, seg: tuple, bt: BatchTables, tables, carry):
+        """One segment's kernel dispatch from `carry` (its start carry):
+        returns (end carry, i32 result on the device): per-pod choices of a
+        serial segment, per-node counts of every other kind."""
+        kind, start, length = seg[:3]
+        w, filters = self.score_w, self.filter_flags
+        if kind == "serial":
+            pad = bucket_capped(length, 2048)
+            pg = np.zeros(pad, np.int32)
+            pg[:length] = bt.pod_group[start:start + length]
+            fn = np.full(pad, -1, np.int32)
+            fn[:length] = bt.forced_node[start:start + length]
+            vd = np.zeros(pad, bool)
+            vd[:length] = True
+            return kernels.schedule_batch(
+                tables, carry, torch.from_numpy(pg), torch.from_numpy(fn),
+                torch.from_numpy(vd), n_zones=bt.n_zones, w=w, filters=filters)
+        g, cap1 = seg[3], bool(seg[4])
+        if kind == "wave":
+            block = kernels.wave_block_for(length, self.na.N)
+            kmax = kernels.wave_kmax(length, self.na.N, block)
+            carry, counts, _ = kernels.schedule_wave(tables, carry, g, length, cap1, w=w,
+                                                     filters=filters, block=block, kmax=kmax)
+            return carry, counts
+        if kind == "spread":
+            ss_live, sa_live = bool(seg[5]), bool(seg[6])
+            vd = np.zeros(bucket_capped(length, 2048), bool)
+            vd[:length] = True
+            carry, counts, _ = kernels.schedule_group_serial(
+                tables, carry, g, torch.from_numpy(vd), cap1, w=w, filters=filters,
+                ss_live=ss_live, sa_live=sa_live, n_zones=bt.n_zones if ss_live else 2)
+            return carry, counts
+        # "affinity", interim route until schedule_affinity_wave is ported
+        # (ROADMAP B8): the serial scan's per-node counts are the affinity
+        # wave's, and its aggregate commit is applied to the start carry
+        pg = torch.full((length,), g, dtype=torch.int32)
+        _, ch = kernels.schedule_batch(
+            tables, carry, pg, torch.full((length,), -1, dtype=torch.int32),
+            torch.ones(length, dtype=torch.bool), n_zones=bt.n_zones, w=w, filters=filters)
+        N = tables.alloc.shape[0]
+        counts = torch.bincount(ch.long() + 1, minlength=N + 1)[1:].to(torch.int32)
+        return kernels.aggregate_commit(tables, carry, g, counts), counts
+
     def _schedule_run_once(self, to_schedule: List[dict]) -> List[UnscheduledPod]:
         bt = self.encode_batch(to_schedule)
         enable_gpu, enable_storage = plugin_flags(bt)
@@ -333,20 +567,36 @@ class Simulator:
                 "PyTorch port does not have yet (ROADMAP B9)")
         tables, carry = self._to_device(bt)
         P = len(to_schedule)
-        pad = bucket_capped(P, 2048)
-        pg = np.zeros(pad, np.int32)
-        pg[:P] = bt.pod_group[:P]
-        fn = np.full(pad, -1, np.int32)
-        fn[:P] = bt.forced_node[:P]
-        vd = np.zeros(pad, bool)
-        vd[:P] = True
-        final_carry, ch = kernels.schedule_batch(
-            tables, carry, torch.from_numpy(pg), torch.from_numpy(fn), torch.from_numpy(vd),
-            n_zones=bt.n_zones, w=self.score_w, filters=self.filter_flags)
-        choices = ch.cpu().numpy()[:P]  # the run's one fetch
+        segs = self._segments(bt, P) if self.use_waves else [("serial", 0, P)]
+        # every segment chains from the previous one's end carry; the results
+        # come back in ONE fetch
+        outs: List[tuple] = []  # (seg, i32 device result, carry after the segment)
+        for seg in segs:
+            carry, res = self._dispatch(seg, bt, tables, carry)
+            outs.append((seg, res, carry))
+        flat = torch.cat([res for _, res, _ in outs]).cpu().numpy()
+        choices = np.full(P, -1, np.int32)
+        seg_of = np.zeros(P, np.int32)
+        off = 0
+        for k, (seg, res, _) in enumerate(outs):
+            part = flat[off:off + res.shape[0]]
+            off += res.shape[0]
+            start, length = seg[1], seg[2]
+            seg_of[start:start + length] = k
+            if seg[0] == "serial":
+                choices[start:start + length] = part[:length]
+            else:
+                # pods of one group are interchangeable: hand them out in node
+                # order; the (length - placed) unschedulable pods stay -1
+                placed = int(part.sum())
+                choices[start:start + placed] = np.repeat(np.arange(part.shape[0]), part)[:placed]
+        for seg in segs:
+            n = self.segment_census.setdefault(seg[0], [0, 0])
+            n[0] += 1
+            n[1] += seg[2]
 
         failed: List[UnscheduledPod] = []
-        reason_cache: Dict[Tuple[int, int], Dict[str, int]] = {}
+        reason_cache: Dict[Tuple[int, int, int], Dict[str, int]] = {}
         progress = self._progress
         for i, pod in enumerate(to_schedule):
             if progress is not None:
@@ -356,12 +606,12 @@ class Simulator:
                 self._commit_pod(pod, node_i)
                 continue
             # pods of one group share tolerations/requests: diagnose once per
-            # (group, forced) against the run's end state
-            key = (int(bt.pod_group[i]), int(bt.forced_node[i]))
+            # (group, forced, segment) against the end carry of the segment
+            key = (int(bt.pod_group[i]), int(bt.forced_node[i]), int(seg_of[i]))
             reasons = reason_cache.get(key)
             if reasons is None:
                 reasons = reason_cache[key] = self._explain_reasons(
-                    pod, key[0], key[1], tables, final_carry)
+                    pod, key[0], key[1], tables, outs[key[2]][2])
             pod.pop(SIG_MEMO_KEY, None)
             failed.append(UnscheduledPod(pod, self._format_reason(pod, reasons, self.na.N)))
         return failed

@@ -314,3 +314,54 @@ def synth_cluster_store(
         made += n
         k += 1
     return ns, ps
+
+
+def _spread_term(app: str, topo: str, when: str, max_skew: int) -> dict:
+    return {"maxSkew": max_skew, "topologyKey": topo, "whenUnsatisfiable": when,
+            "labelSelector": {"matchLabels": {"app": app}}}
+
+
+def synth_spread_cluster(
+    n_nodes: int,
+    n_pods: int,
+    n_zones: int = 8,
+) -> Tuple[List[dict], List[dict], List[dict]]:
+    """(nodes, pods, services): a zoned cluster whose pods spread against
+    themselves, in contiguous replica blocks cycling four shapes — a
+    ScheduleAnyway zone spread, a Service-backed Deployment (SelectorSpread
+    with the zone blend), two DoNotSchedule terms on zone and hostname, and
+    plain pods. The first three are the group-serial route's shapes (live
+    ScheduleAnyway, live zoned SelectorSpread, several live DoNotSchedule
+    terms); the services list holds the one Service the second shape needs."""
+    zone = "topology.kubernetes.io/zone"
+    nodes = [synth_node(i, n_zones=n_zones) for i in range(n_nodes)]
+    services = [{"apiVersion": "v1", "kind": "Service",
+                 "metadata": {"name": "web", "namespace": "default"},
+                 "spec": {"selector": {"app": "svc-web"}}}]
+    pods: List[dict] = []
+    block = max(8, n_pods // 40)
+    k = 0
+    while len(pods) < n_pods:
+        n = min(block, n_pods - len(pods))
+        kind = k % 4
+        for _ in range(n):
+            idx = len(pods)
+            if kind == 0:
+                app = f"sa-{k}"
+                pod = synth_pod(idx, cpu_milli=200, labels={"app": app})
+                pod["spec"]["topologySpreadConstraints"] = [
+                    _spread_term(app, zone, "ScheduleAnyway", 1)]
+            elif kind == 1:
+                pod = synth_pod(idx, cpu_milli=150, mem_bytes=128 << 20,
+                                labels={"app": "svc-web"})
+            elif kind == 2:
+                app = f"dns-{k}"
+                pod = synth_pod(idx, cpu_milli=250, labels={"app": app})
+                pod["spec"]["topologySpreadConstraints"] = [
+                    _spread_term(app, zone, "DoNotSchedule", 2),
+                    _spread_term(app, "kubernetes.io/hostname", "DoNotSchedule", 1)]
+            else:
+                pod = synth_pod(idx, labels={"app": f"plain-{k}"})
+            pods.append(pod)
+        k += 1
+    return nodes, pods, services

@@ -44,3 +44,98 @@ def test_topology_weight_on_the_card_matches_the_host():
         pytest.skip("needs a CUDA device")
     x = torch.arange(0, 1 << 20, dtype=torch.float32)
     assert torch.equal(K.topology_weight(x.cuda()).cpu(), K.topology_weight(x))
+
+
+def _segments_of(sim, pods):
+    bt = sim.encode_batch(pods)
+    tb, seed = sim._to_device(bt)
+    return bt, tb, seed, sim._segments(bt, len(pods))
+
+
+def _same_carry(a, b):
+    for f in K.Carry._fields:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+@pytest.mark.cuda
+def test_wave_kernels_match_plain_versions():
+    """K3 (counts, placed, loop statistics) and K3c (the whole carry) against
+    their plain versions, at the engine's block/kmax and at a forced block 8
+    / kmax 16 that makes the guard and more iterations fire."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    nodes, pods = synth_cluster(256, 3000, hard_predicates=True)
+    sim = Simulator(nodes, device="cuda")
+    bt, tb, seed, segs = _segments_of(sim, pods)
+    waves = [s for s in segs if s[0] == "wave"]
+    assert any(s[4] for s in waves) and any(not s[4] for s in waves)  # cap1 and not
+    for _, _, m, g, cap1, _ in waves:
+        block = K.wave_block_for(m, sim.na.N)
+        for blk, kmax in ((block, K.wave_kmax(m, sim.na.N, block)), (8, 16)):
+            kj, kp, kst = K.schedule_wave_kernel(tb, seed, g, m, cap1, block=blk, kmax=kmax)
+            pj, pp, pst = K.schedule_wave_plain(tb, seed, g, m, cap1, block=blk, kmax=kmax)
+            assert torch.equal(kj, pj), (g, blk)
+            assert int(kp) == pp
+            assert kst.tolist() == [pst[k] for k in K.WAVE_STATS]
+            _same_carry(K.aggregate_commit_kernel(tb, seed, g, kj),
+                        K.aggregate_commit_plain(tb, seed, g, pj))
+
+
+@pytest.mark.cuda
+def test_group_serial_kernel_matches_plain_version():
+    """K4 on every spread flag (live ScheduleAnyway, live zoned
+    SelectorSpread, two DoNotSchedule terms) against its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.utils.synth import synth_spread_cluster
+
+    nodes, pods, services = synth_spread_cluster(256, 1200)
+    sim = Simulator(nodes, device="cuda")
+    sim.register_cluster_objects(ResourceTypes(services=services))
+    bt, tb, seed, segs = _segments_of(sim, pods)
+    spread = [s for s in segs if s[0] == "spread"]
+    assert {(s[5], s[6]) for s in spread} == {(True, False), (False, True), (False, False)}
+    for _, _, m, g, cap1, ss_live, sa_live in spread[:6]:
+        valid = torch.arange(m + 5, device="cuda") < m
+        nz = bt.n_zones if ss_live else 2
+        kj, kp = K.schedule_group_serial_kernel(tb, seed, g, valid, cap1, ss_live=ss_live,
+                                                sa_live=sa_live, n_zones=nz)
+        pj, pp = K.schedule_group_serial_plain(tb, seed, g, valid, cap1, ss_live=ss_live,
+                                               sa_live=sa_live, n_zones=nz)
+        assert torch.equal(kj, pj), (g, ss_live, sa_live)
+        assert int(kp) == pp
+
+
+@pytest.mark.cuda
+def test_wave_kernel_branches_match_plain_version():
+    """K3's other branches against the plain version: rising score columns
+    (the guard and the head fallback), NodeResourcesFit off, and an
+    overflowing cluster whose exhausting picks stop iterations early."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from fixtures import make_node, make_pod
+
+    rising = [make_node(f"r{i}", cpu="4", memory="8Gi") for i in range(2)]
+    hogs = [make_pod(f"hog{i}", cpu="2500m", memory="100Mi", node_name=f"r{i}") for i in range(2)]
+    mem = [make_pod(f"mem-{i}", cpu="100m", memory="1Gi", labels={"app": "mem"})
+           for i in range(12)]
+    over_nodes, over_pods = synth_cluster(8, 600, hard_predicates=True)
+    totals = {k: 0 for k in K.WAVE_STATS}
+    for nodes, bound, pods in ((rising, hogs, mem), (over_nodes, [], over_pods)):
+        sim = Simulator(nodes, device="cuda")
+        sim.schedule_pods(bound)
+        bt, tb, seed, segs = _segments_of(sim, pods)
+        for _, _, m, g, cap1, _ in (s for s in segs if s[0] == "wave"):
+            for filters in (K.DEFAULT_FILTERS, K.FilterFlags(fit=False)):
+                for blk, kmax in ((K.wave_block_for(m, sim.na.N), 0), (8, 16)):
+                    kj, kp, kst = K.schedule_wave_kernel(tb, seed, g, m, cap1, filters=filters,
+                                                         block=blk, kmax=kmax)
+                    pj, pp, pst = K.schedule_wave_plain(tb, seed, g, m, cap1, filters=filters,
+                                                        block=blk, kmax=kmax)
+                    assert torch.equal(kj, pj), (g, filters, blk)
+                    assert int(kp) == pp
+                    assert kst.tolist() == [pst[k] for k in K.WAVE_STATS]
+                    for k in K.WAVE_STATS:
+                        totals[k] += pst[k]
+    assert totals["head_fallbacks"] > 0 and totals["guarded"] > 0

@@ -1,15 +1,16 @@
 """Goldens for the PyTorch port's chip check, computed by the JAX package.
 
-`chip_smoke.py` runs the port on the GPU for two synthetic clusters and holds
-its result against `tests/golden/torch_port_*.json`: the sha256 of the per-pod
+`chip_smoke.py` runs the port on the GPU for synthetic clusters and holds its
+result against `tests/golden/torch_port_*.json`: the sha256 of the per-pod
 choices, the per-node pod counts and the census of failure reasons. Those
-files come from the JAX package's serial route (`use_waves=False`, one CPU
-device), through `compute()` below:
+files come from the JAX package on one CPU device, through `compute()` below,
+on the route each file names: the serial route (`use_waves=False`) for
+"hard" and "overflow", the default route (the segment router) for the rest:
 
     JAX_PLATFORMS=cpu python tests/test_torch_golden.py --write
 
-The slow test recomputes both goldens through JAX; the tier-1 test holds the
-two packages to one result on a small cluster of the same kind.
+The slow test recomputes the goldens through JAX; the tier-1 tests hold the
+two packages to one result on small clusters of the same kinds.
 """
 
 from __future__ import annotations
@@ -30,12 +31,22 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
 GOLDEN_DIR = os.path.join(REPO, "tests", "golden")
+# kind -> (generator, nodes, pods, serial route?)
 SCENARIOS = {
     # BASELINE.md's hard-predicate stress configuration
-    "hard": (5000, 50000),
+    "hard": ("hard", 5000, 50000, True),
     # 100 nodes x 256 pod slots cannot hold 30,000 pods: exercises the reasons
-    "overflow": (100, 30000),
+    "overflow": ("hard", 100, 30000, True),
+    # the same two on the default route: wave and affinity segments
+    "hard_waves": ("hard", 5000, 50000, False),
+    "overflow_waves": ("hard", 100, 30000, False),
+    # bench.py's headline shape: one 100,000-pod wave over 10,000 nodes
+    "northstar": ("plain", 10000, 100000, False),
+    # zoned pods spreading against themselves: the group-serial route
+    "spread": ("spread", 5000, 20000, False),
 }
+ROUTES = {True: "open_simulator_tpu Simulator, use_waves=False, one CPU device",
+          False: "open_simulator_tpu Simulator, default route (use_waves=True), one CPU device"}
 
 
 def golden_path(kind: str) -> str:
@@ -59,39 +70,63 @@ def summarize(sim, pods, failed) -> dict:
     }
 
 
-def run_jax(n_nodes: int, n_pods: int) -> dict:
-    from open_simulator_tpu.simulator.engine import Simulator
-    from open_simulator_tpu.utils.synth import synth_cluster
+def generator(gen: str, n_nodes: int, n_pods: int) -> str:
+    if gen == "spread":
+        return f"synth_spread_cluster({n_nodes}, {n_pods})"
+    hard = ", hard_predicates=True" if gen == "hard" else ""
+    return f"synth_cluster({n_nodes}, {n_pods}{hard})"
 
-    nodes, pods = synth_cluster(n_nodes, n_pods, hard_predicates=True)
+
+def workload(gen: str, n_nodes: int, n_pods: int, synth) -> tuple:
+    """(nodes, pods, services) from `synth` (a utils.synth module of either
+    package: their synth_cluster is one function); the spread workload comes
+    from the port's own generator, which imports no JAX."""
+    if gen == "spread":
+        from open_simulator_torch.utils.synth import synth_spread_cluster
+
+        return synth_spread_cluster(n_nodes, n_pods)
+    nodes, pods = synth.synth_cluster(n_nodes, n_pods, hard_predicates=gen == "hard")
+    return nodes, pods, []
+
+
+def run_jax(gen: str, n_nodes: int, n_pods: int, serial: bool) -> dict:
+    from open_simulator_tpu.core.types import ResourceTypes
+    from open_simulator_tpu.simulator.engine import Simulator
+    from open_simulator_tpu.utils import synth
+
+    nodes, pods, services = workload(gen, n_nodes, n_pods, synth)
     sim = Simulator(nodes, use_mesh=False)
-    sim.use_waves = False
+    sim.use_waves = not serial
+    sim.register_cluster_objects(ResourceTypes(services=services))
     failed = sim.schedule_pods(pods)
     return summarize(sim, pods, failed)
 
 
-def run_port(n_nodes: int, n_pods: int, device: str = "cpu") -> dict:
+def run_port(gen: str, n_nodes: int, n_pods: int, serial: bool, device: str = "cpu") -> dict:
+    from open_simulator_torch.core.types import ResourceTypes
     from open_simulator_torch.simulator.engine import Simulator
-    from open_simulator_torch.utils.synth import synth_cluster
+    from open_simulator_torch.utils import synth
 
-    nodes, pods = synth_cluster(n_nodes, n_pods, hard_predicates=True)
+    nodes, pods, services = workload(gen, n_nodes, n_pods, synth)
     sim = Simulator(nodes, device=device)
+    sim.use_waves = not serial
+    sim.register_cluster_objects(ResourceTypes(services=services))
     failed = sim.schedule_pods(pods)
     return summarize(sim, pods, failed)
 
 
 def compute(kind: str) -> dict:
-    n_nodes, n_pods = SCENARIOS[kind]
+    gen, n_nodes, n_pods, serial = SCENARIOS[kind]
     try:
         commit = subprocess.run(["git", "rev-parse", "HEAD"], cwd=REPO, capture_output=True,
                                 text=True, check=True).stdout.strip()
     except (OSError, subprocess.CalledProcessError):
         commit = "unknown"
     return {
-        "generator": f"synth_cluster({n_nodes}, {n_pods}, hard_predicates=True)",
-        "route": "open_simulator_tpu Simulator, use_waves=False, one CPU device",
+        "generator": generator(gen, n_nodes, n_pods),
+        "route": ROUTES[serial],
         "commit": commit,
-        **run_jax(n_nodes, n_pods),
+        **run_jax(gen, n_nodes, n_pods, serial),
     }
 
 
@@ -115,8 +150,9 @@ def test_goldens_match_jax(kind):
 @pytest.mark.parametrize("kind", sorted(SCENARIOS))
 def test_golden_files_are_consistent(kind):
     g = load(kind)
-    n_nodes, n_pods = SCENARIOS[kind]
-    assert g["generator"] == f"synth_cluster({n_nodes}, {n_pods}, hard_predicates=True)"
+    gen, n_nodes, n_pods, serial = SCENARIOS[kind]
+    assert g["generator"] == generator(gen, n_nodes, n_pods)
+    assert g["route"] == ROUTES[serial]
     assert len(g["per_node_counts"]) == n_nodes
     assert sum(g["per_node_counts"]) == g["placed"]
     assert g["placed"] + g["unscheduled"] == n_pods
@@ -124,18 +160,29 @@ def test_golden_files_are_consistent(kind):
 
 
 def test_small_scenario_both_packages():
-    # 4 nodes x 256 pod slots cannot hold 1,200 pods: the reasons path runs
-    jax_side = run_jax(4, 1200)
-    port_side = run_port(4, 1200)
+    # 4 nodes x 256 pod slots cannot hold 1,200 pods: the reasons path runs;
+    # both packages on the serial route
+    jax_side = run_jax("hard", 4, 1200, True)
+    port_side = run_port("hard", 4, 1200, True)
     assert jax_side["unscheduled"] > 0
+    for k in RESULT_KEYS:
+        assert port_side[k] == jax_side[k], k
+
+
+@pytest.mark.parametrize("gen,n_nodes,n_pods", [("hard", 4, 1200), ("plain", 40, 600),
+                                                ("spread", 24, 320)])
+def test_small_scenario_both_packages_default_route(gen, n_nodes, n_pods):
+    jax_side = run_jax(gen, n_nodes, n_pods, False)
+    port_side = run_port(gen, n_nodes, n_pods, False)
     for k in RESULT_KEYS:
         assert port_side[k] == jax_side[k], k
 
 
 if __name__ == "__main__":
     if "--write" not in sys.argv[1:]:
-        sys.exit("usage: JAX_PLATFORMS=cpu python tests/test_torch_golden.py --write")
-    for kind in sorted(SCENARIOS):
+        sys.exit("usage: JAX_PLATFORMS=cpu python tests/test_torch_golden.py --write [kind ...]")
+    kinds = [k for k in sys.argv[1:] if k in SCENARIOS] or sorted(SCENARIOS)
+    for kind in kinds:
         g = compute(kind)
         with open(golden_path(kind), "w") as f:
             json.dump(g, f, indent=1)

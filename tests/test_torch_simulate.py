@@ -1,6 +1,7 @@
 """End to end: the PyTorch port's `simulate()` (plain PyTorch path on the CPU)
-against the JAX package's `simulate()` on its serial route (use_waves=False).
-The node of every pod and every failure reason must be equal."""
+against the JAX package's `simulate()`, both on the serial route
+(use_waves=False). The node of every pod and every failure reason must be
+equal. tests/test_torch_waves.py holds the default route (the segment router)."""
 
 import os
 
@@ -9,6 +10,7 @@ import pytest
 import open_simulator_torch
 import open_simulator_torch.core.types as torch_types
 import open_simulator_tpu.core.types as jax_types
+from open_simulator_torch.simulator import engine as torch_engine
 from open_simulator_tpu.simulator import engine as jax_engine
 from open_simulator_tpu.simulator.core import simulate as jax_simulate
 from open_simulator_torch.models.workloads import reset_name_counter as torch_reset_names
@@ -36,13 +38,26 @@ def jax_serial(monkeypatch):
     return run
 
 
-def port_simulate(*args):
-    torch_reset_names()
-    return open_simulator_torch.simulate(*args, device="cpu")
+@pytest.fixture
+def port_simulate(monkeypatch):
+    """The port's simulate() with every pod on the serial schedule_batch route."""
+    orig = torch_engine.Simulator.__init__
+
+    def init(self, *a, **kw):
+        orig(self, *a, **kw)
+        self.use_waves = False
+
+    monkeypatch.setattr(torch_engine.Simulator, "__init__", init)
+
+    def run(*args):
+        torch_reset_names()
+        return open_simulator_torch.simulate(*args, device="cpu")
+
+    return run
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_scenario_matches_jax(name, jax_serial):
+def test_scenario_matches_jax(name, jax_serial, port_simulate):
     case = CASES[name]()
     want = outcome(jax_serial(*build(jax_types, case)))
     got = outcome(port_simulate(*build(torch_types, case)))
@@ -56,7 +71,7 @@ def _demo1_simple(yamlio, types):
     return cluster, [app]
 
 
-def test_demo1_simple_matches_jax(jax_serial):
+def test_demo1_simple_matches_jax(jax_serial, port_simulate):
     from open_simulator_torch.utils import yamlio as torch_yamlio
     from open_simulator_tpu.utils import yamlio as jax_yamlio
 
@@ -79,6 +94,7 @@ def test_overflowing_synthetic_cluster_matches_jax():
 
     nodes, pods = torch_synth(8, 2500, hard_predicates=True)
     tsim = open_simulator_torch.Simulator(nodes, device="cpu")
+    tsim.use_waves = False
     tfailed = tsim.schedule_pods(pods)
     got = outcome(torch_types.SimulateResult(tfailed, tsim.get_cluster_node_status()))
     assert len(got["reasons"]) > 0
