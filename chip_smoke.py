@@ -11,8 +11,11 @@ goldens the JAX package computed (tests/golden/torch_port_*.json):
 - on the serial route (`use_waves=False`): a 5,000-node / 50,000-pod
   hard-predicate cluster and a 100-node cluster that overflows;
 - on the default route (the segment router): the same two clusters, the
-  10,000-node / 100,000-pod plain cluster (one wave) and a 5,000-node /
-  20,000-pod cluster whose pods spread against themselves (group-serial).
+  10,000-node / 100,000-pod plain cluster (one wave), a 5,000-node /
+  20,000-pod cluster whose pods spread against themselves (group-serial)
+  and a 5,000-node / 20,000-pod cluster whose pods constrain themselves
+  (self-affinity, self-anti-affinity, DoNotSchedule spread, live
+  SelectorSpread: the affinity wave).
 
 Every phase prints one JSON line; any mismatch or error exits non-zero. The
 line before the card line lists every kernel with its launches on the main
@@ -41,7 +44,7 @@ JAX_KERNELS = "open_simulator_tpu/ops/kernels.py"
 SEGMENT_KERNELS = {"serial": "K2 schedule_batch",
                    "wave": "K3 schedule_wave + K3c aggregate_commit",
                    "spread": "K4 schedule_group_serial + K3c aggregate_commit",
-                   "affinity": "K2 + K3c interim"}
+                   "affinity": "K5 schedule_affinity_wave + K3c aggregate_commit"}
 
 
 def emit(phase: str, **fields) -> None:
@@ -203,6 +206,37 @@ def k4_cost(tb, cry, g: int, n_valid: int) -> tuple:
     return group_row_bytes(tb, cry, g) + 4 * N, n_valid * N * per_node
 
 
+# f32 operations of one K5 epoch per node besides its table row
+# (csrc/affinity_wave.cu): the live gates 4 per term slot, ip_raw 2 per
+# weighted slot, the normalizer inputs 16, the normalized static terms 16,
+# the cut 2, the sandwich 7
+K5_OPS_PER_NODE = 41
+# f32 operations of one K5 round per candidate position (budget, rank,
+# levels: 16) and per domain (the count, the minimum, the level histogram,
+# the rise and the block bookkeeping: 12)
+K5_OPS_PER_POSITION = 16
+K5_OPS_PER_DOMAIN = 12
+
+
+def k5_cost(tb, cry, g: int, block: int, stats: dict) -> tuple:
+    """(bytes, f32 operations) of one affinity wave: the group's rows and its
+    live [slots, D+1] rows read once and the [N] counts written once; per
+    epoch the per-node passes and the table (one column for a head-fallback
+    epoch, B+1 otherwise); per productive round its K_EP positions and D+1
+    domains."""
+    N = tb.alloc.shape[0]
+    D1 = cry.counter.shape[1]
+    slots = sum(int((ids >= 0).sum()) for ids in (tb.dns_t[g], tb.req_aff_t[g], tb.req_anti_t[g],
+                                                  tb.carr_anti_t[g], tb.carr_w_t[g])) + 1
+    cw = int((tb.carr_w_t[g] >= 0).sum())
+    epochs, heads, rounds = stats["epochs"], stats["head_fallbacks"], stats["multi_rounds"]
+    columns = (epochs - heads) * (block + 1) + heads
+    per_node = K5_OPS_PER_NODE + 4 * slots + 2 * cw
+    ops = (columns * N * K3_OPS_PER_ENTRY + epochs * N * per_node
+           + rounds * (min(N * block, 2048) * K5_OPS_PER_POSITION + D1 * K5_OPS_PER_DOMAIN))
+    return group_row_bytes(tb, cry, g) + 4 * slots * D1 + 4 * N, ops
+
+
 def bound_of(b: int, ops: int) -> tuple:
     """(bound ms, "bytes" or "operations")."""
     tb, to = b / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
@@ -220,7 +254,8 @@ def main() -> int:
     from open_simulator_torch.ops import build
     from open_simulator_torch.ops import kernels as K
     from open_simulator_torch.simulator.engine import Simulator
-    from open_simulator_torch.utils.synth import synth_cluster, synth_spread_cluster
+    from open_simulator_torch.utils.synth import (synth_affinity_cluster, synth_cluster,
+                                                  synth_spread_cluster)
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -388,6 +423,55 @@ def main() -> int:
     rows["schedule_group_serial"] = dict(source=SRC + "group_serial.cu",
                                          replaces=JAX_KERNELS + ":2104", **k4)
 
+    # ---- schedule_affinity_wave: K5 against its plain version (counts,
+    # placed, epoch statistics, then K3c's carry) on three full-width
+    # segments: a 1,000-pod zone spread of the hard shape (one epoch of many
+    # rounds), the hostname spread of the affinity cluster (D+1 8,193) and a
+    # 500-pod Service-backed segment (one head-fallback epoch per pod)
+    def affinity_case(label, sim, pods, pick):
+        bt = sim.encode_batch(pods)
+        tb, seed = sim._to_device(bt)
+        _, _, m, g, cap1, ss_live = pick(sim._segments(bt, len(pods)))
+        block = K.wave_block_for(m, sim.na.N)
+        nz = bt.n_zones if ss_live else 2
+        kw = dict(ss_live=ss_live, block=block, n_zones=nz)
+        (kj, kp, kst), _ = timed(lambda: K.schedule_affinity_wave_kernel(tb, seed, g, m, cap1,
+                                                                         **kw))
+        (pj, pp, pst), plain_ms = timed(lambda: K.schedule_affinity_wave_plain(tb, seed, g, m,
+                                                                               cap1, **kw))
+        if not torch.equal(kj, pj) or int(kp) != pp:
+            fail(f"schedule_affinity_wave {label}: counts differ at {int((kj != pj).sum())} "
+                 f"nodes (placed {int(kp)} vs {pp})")
+        if kst.tolist() != [pst[k] for k in K.AFFINITY_STATS]:
+            fail(f"schedule_affinity_wave {label}: epoch statistics {kst.tolist()} vs {pst}")
+        kc = K.aggregate_commit_kernel(tb, seed, g, kj)
+        pc = K.aggregate_commit_plain(tb, seed, g, pj)
+        for f in K.Carry._fields:
+            if not torch.equal(getattr(kc, f), getattr(pc, f)):
+                fail(f"aggregate_commit after schedule_affinity_wave {label}: carry.{f} differs")
+        ms = cuda_ms(lambda: K.schedule_affinity_wave_kernel(tb, seed, g, m, cap1, **kw), 3)
+        b, ops = k5_cost(tb, seed, g, block, pst)
+        bound, by = bound_of(b, ops)
+        emit("schedule_affinity_wave", case=label, nodes=int(tb.alloc.shape[0]), pods=m,
+             domains=int(seed.counter.shape[1]), ss_live=bool(ss_live), cap1=bool(cap1),
+             block=block, placed=pp, **pst, kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound,
+             bytes=b, f32_ops=ops, max_abs_err=err_of(kj, pj), card=card)
+        return dict(max_abs_err=err_of(kj, pj), ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                    bound_by=by)
+
+    nodes, pods = synth_cluster(5000, 50000, hard_predicates=True)
+    k5 = affinity_case("hard_zone_spread", Simulator(nodes, device="cuda"), pods,
+                       lambda segs: next(s for s in segs if s[0] == "affinity"))
+    nodes, pods, services = synth_affinity_cluster(5000, 20000)
+    sim = Simulator(nodes, device="cuda")
+    sim.register_cluster_objects(ResourceTypes(services=services))
+    # the second block of each cycle is the hostname spread
+    affinity_case("hostname_spread", sim, pods, lambda segs: segs[1])
+    affinity_case("service_zoned", sim, pods, lambda segs: next(s for s in segs
+                                                                if s[0] == "affinity" and s[5]))
+    rows["schedule_affinity_wave"] = dict(source=SRC + "affinity_wave.cu",
+                                          replaces=JAX_KERNELS + ":1311", **k5)
+
     # ---- the main path: Simulator.schedule_pods against the JAX goldens,
     # each run with every launch count set to 0 just before it
     launches = Counter()
@@ -405,6 +489,7 @@ def main() -> int:
         wall = time.perf_counter() - t0
         counts = K.launch_counts()
         stats = K.wave_stats()
+        aff_stats = K.affinity_stats()
         launches.update(counts)
         got = summarize(sim, pods, failed)
         if got["placed"] + got["unscheduled"] != len(pods):
@@ -417,7 +502,7 @@ def main() -> int:
              nodes=len(nodes), placed=got["placed"], unscheduled=got["unscheduled"],
              reasons=len(got["reason_census"]), choices_sha256=got["choices_sha256"],
              seconds=wall, pods_per_s=len(pods) / wall, launches=counts, wave_stats=stats,
-             census=census, golden="match", card=card)
+             affinity_stats=aff_stats, census=census, golden="match", card=card)
         return counts
 
     nodes, pods = synth_cluster(5000, 50000, hard_predicates=True)
@@ -433,6 +518,8 @@ def main() -> int:
     main_path("northstar", nodes, pods)
     nodes, pods, services = synth_spread_cluster(5000, 20000)
     main_path("spread", nodes, pods, services)
+    nodes, pods, services = synth_affinity_cluster(5000, 20000)
+    main_path("affinity", nodes, pods, services)
     for k in rows:
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched on the main path")

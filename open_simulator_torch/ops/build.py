@@ -22,8 +22,9 @@ import time
 from typing import List, Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = [os.path.join(_HERE, "csrc", f) for f in ("schedule.cu", "wave.cu", "group_serial.cu")]
-HEADERS = [os.path.join(_HERE, "csrc", "common.cuh")]
+SOURCES = [os.path.join(_HERE, "csrc", f)
+           for f in ("schedule.cu", "wave.cu", "group_serial.cu", "affinity_wave.cu")]
+HEADERS = [os.path.join(_HERE, "csrc", f) for f in ("common.cuh", "select.cuh")]
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
@@ -144,6 +145,12 @@ def _load(path: str) -> ctypes.CDLL:
     lib.schedule_group_serial_launch.argtypes = ([V, ctypes.c_int, P] + [ctypes.c_int] * 4
                                                  + [P] * 5)
     lib.schedule_group_serial_launch.restype = ctypes.c_int
+    lib.affinity_scratch_floats.argtypes = [V, ctypes.c_int]
+    lib.affinity_scratch_floats.restype = ctypes.c_longlong
+    lib.affinity_scratch_ints.argtypes = [V]
+    lib.affinity_scratch_ints.restype = ctypes.c_longlong
+    lib.schedule_affinity_wave_launch.argtypes = [V] + [ctypes.c_int] * 5 + [P] * 5
+    lib.schedule_affinity_wave_launch.restype = ctypes.c_int
     if lib.tables_view_size() != ctypes.sizeof(TablesView):
         raise RuntimeError(f"TablesView layout mismatch: library {lib.tables_view_size()} "
                            f"bytes, ctypes {ctypes.sizeof(TablesView)}")

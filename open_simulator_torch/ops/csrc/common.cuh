@@ -1,6 +1,7 @@
 // Device code shared by the port's CUDA kernels (schedule.cu: K1, K2;
-// wave.cu: K3, K3c; group_serial.cu: K4): the tables view, the filters of
-// `feasibility`, the score formulas and the block reductions.
+// wave.cu: K3, K3c; group_serial.cu: K4; affinity_wave.cu: K5): the tables
+// view, the filters of `feasibility`, the score formulas and the block
+// reductions.
 //
 // Exactness contract with the plain PyTorch versions (ops/kernels.py):
 // - built with --fmad=false and without fast math: every multiply and add is
@@ -172,11 +173,12 @@ static __device__ void pod_prologue(const TablesView& t, int g, int include_dns,
 }
 
 // Every filter of `feasibility` (kernels.py:379-521, no GPU-share/Open-Local
-// branch) for one node; include_dns=0 drops DoNotSchedule. Returns the stage
-// bits plus BIT_FEASIBLE; writes fit_each[R] when `fit_each` is not null.
+// branch) for one node; include_dns=0 drops DoNotSchedule, include_interpod=0
+// the InterPodAffinity filters. Returns the stage bits plus BIT_FEASIBLE;
+// writes fit_each[R] when `fit_each` is not null.
 static __device__ uint32_t node_feasibility(const TablesView& t, const PodCtx* pc, int g,
-                                            int forced, int valid, int include_dns, int n,
-                                            uint8_t* fit_each) {
+                                            int forced, int valid, int include_dns,
+                                            int include_interpod, int n, uint8_t* fit_each) {
   const int N = t.N, R = t.R, D = t.D1 - 1;
   const size_t gn = (size_t)g * N + n;
   const bool smask = t.static_mask[gn];
@@ -209,7 +211,7 @@ static __device__ uint32_t node_feasibility(const TablesView& t, const PodCtx* p
 
   // InterPodAffinity
   bool aff_ok = true, blocked_in = false, blocked_ex = false;
-  if (t.f_interpod) {
+  if (t.f_interpod && include_interpod) {
     bool aff_all = true;
     for (int a = 0; a < t.A; ++a) {
       const int id = t.req_aff_t[g * t.A + a];
@@ -266,7 +268,7 @@ static __device__ uint32_t node_feasibility(const TablesView& t, const PodCtx* p
   return bits;
 }
 
-// One block of this many threads runs each of K2, K3, K3c and K4.
+// One block of this many threads runs each of K2, K3, K3c, K4 and K5.
 #define BLOCK_THREADS 1024
 
 // weight slots of TablesView::w (ops/kernels.py _view)
@@ -289,9 +291,8 @@ static __device__ __forceinline__ void least_balanced(float used_c, float used_m
   *bal = (cf >= 1.0f || mf >= 1.0f) ? 0.0f : floorf((1.0f - fabsf(cf - mf)) * 100.0f);
 }
 
-// InterPodAffinity raw score (kernels.py:237-252): preferred terms, then the
-// existing pods' weighted carrier terms
-static __device__ float interpod_raw_at(const TablesView& t, int g, int n) {
+// The preferred-term part of the InterPodAffinity raw score, left to right
+static __device__ float interpod_pref_at(const TablesView& t, int g, int n) {
   float acc = 0.0f;
   for (int k = 0; k < t.Cp; ++k) {
     const int id = t.pref_t[g * t.Cp + k];
@@ -299,6 +300,13 @@ static __device__ float interpod_raw_at(const TablesView& t, int g, int n) {
     const int dom = t.counter_dom[(size_t)id * t.N + n];
     acc = acc + t.pref_w[g * t.Cp + k] * t.counter[(size_t)id * t.D1 + dom];
   }
+  return acc;
+}
+
+// InterPodAffinity raw score (kernels.py:237-252): preferred terms, then the
+// existing pods' weighted carrier terms
+static __device__ float interpod_raw_at(const TablesView& t, int g, int n) {
+  const float acc = interpod_pref_at(t, g, n);
   float acc2 = 0.0f;
   for (int k = 0; k < t.Cw; ++k) {
     const int id = t.carr_w_t[g * t.Cw + k];
@@ -369,15 +377,18 @@ static __device__ int segment_capacity(const TablesView& t, int g, int n, int ca
   return cap1 ? min(cap, 1) : cap;
 }
 
-// Per-node constants of a one-group segment (K3, K4; kernels.py
+// Per-node constants of a one-group segment (K3, K4, K5; kernels.py
 // _wave_statics :868 and the capacity): base feasibility (include_dns=0
-// drops DoNotSchedule), copies the node can take, the interpod raw score,
-// the floored Simon input and the static score terms.
+// drops DoNotSchedule, include_interpod=0 InterPodAffinity), copies the node
+// can take, the interpod raw score, the floored Simon input and the static
+// score terms.
 static __device__ void segment_node_constants(const TablesView& t, const PodCtx* pc, int g, int n,
-                                              int cap1, int include_dns, int* feas, int* cap,
-                                              float* ip, float* simon_s, float* stat) {
+                                              int cap1, int include_dns, int include_interpod,
+                                              int* feas, int* cap, float* ip, float* simon_s,
+                                              float* stat) {
   const size_t gn = (size_t)g * t.N + n;
-  const bool f = (node_feasibility(t, pc, g, -1, 1, include_dns, n, nullptr) >> BIT_FEASIBLE) & 1u;
+  const bool f = (node_feasibility(t, pc, g, -1, 1, include_dns, include_interpod, n, nullptr)
+                  >> BIT_FEASIBLE) & 1u;
   *feas = f;
   *cap = segment_capacity(t, g, n, cap1, f);
   *ip = interpod_raw_at(t, g, n);

@@ -34,7 +34,7 @@ feasibility_kernel(TablesView t, int g, int forced, int valid, int include_dns, 
   pod_prologue(t, g, include_dns, &pc, s_red);
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= t.N) return;
-  const uint32_t bits = node_feasibility(t, &pc, g, forced, valid, include_dns, n,
+  const uint32_t bits = node_feasibility(t, &pc, g, forced, valid, include_dns, 1, n,
                                          fit_each + (size_t)n * t.R);
   feasible[n] = (bits >> BIT_FEASIBLE) & 1u;
   for (int s = 0; s < N_STAGES; ++s) stages[(size_t)s * t.N + n] = (bits >> s) & 1u;
@@ -85,7 +85,7 @@ schedule_batch_kernel(TablesView t, const int* pod_group, const int* forced_node
     float mn_simon = INFINITY, mn_ip = INFINITY;
     bool anyF = false, have_zones = false;
     for (int n = tid; n < N; n += bd) {
-      const uint32_t bits = node_feasibility(t, &pc, g, forced, 1, 1, n, nullptr);
+      const uint32_t bits = node_feasibility(t, &pc, g, forced, 1, 1, 1, n, nullptr);
       const bool F = (bits >> BIT_FEASIBLE) & 1u;
       float flags = 0.0f;
       if (F) {

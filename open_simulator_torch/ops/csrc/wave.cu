@@ -16,7 +16,7 @@
 // order lax.top_k returns), and stops at the first node-exhausting pick when
 // the normalizers over the shrunken feasible set differ.
 //
-// The selection is a radix select, written here, on a 64-bit key per entry:
+// The selection is a radix select (select.cuh) on a 64-bit key per entry:
 // the high word is the order-preserving bits of the score, the low word the
 // complement of the flat index, so a larger key is an earlier serial pick
 // and every key is distinct. Eight 8-bit passes find the key of the r-th
@@ -37,77 +37,7 @@
 // The exactness contract with the plain PyTorch version is in common.cuh.
 
 #include "common.cuh"
-
-typedef unsigned long long u64;
-
-// Order-preserving bits of a score (-0 keys as +0; no table entry is NaN).
-static __device__ __forceinline__ uint32_t order_bits(float x) {
-  const uint32_t u = __float_as_uint(x == 0.0f ? 0.0f : x);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-// Selection key of table entry (n, k): score desc, then flat index asc.
-// Never 0 (order bits of a number are never 0), so 0 means "no entry".
-static __device__ __forceinline__ u64 entry_key(float v, int n, int k, int B) {
-  return ((u64)order_bits(v) << 32) | (u64)(0xffffffffu - (uint32_t)(n * B + k));
-}
-
-// Leading entries of a node's usable prefix with key >= T (the keys fall
-// strictly along the prefix, so these are all its entries >= T).
-static __device__ __forceinline__ int count_at_least(const float* row, int n, int u, int B, u64 T) {
-  int c = 0;
-  while (c < u && entry_key(row[c], n, c, B) >= T) ++c;
-  return c;
-}
-
-static __device__ __forceinline__ int count_above(const float* row, int n, int u, int B, u64 X) {
-  int c = 0;
-  while (c < u && entry_key(row[c], n, c, B) > X) ++c;
-  return c;
-}
-
-// The key of the r-th best usable entry (r >= 1, at most the usable count):
-// an 8-pass MSB-first radix select over the keys, with warp-aggregated
-// shared-memory histograms. Block-uniform; every thread gets the key.
-static __device__ u64 select_key(const float* table, const int* u_s, int N, int B, int r,
-                                 int* hist, u64* s_prefix, int* s_rem) {
-  const int tid = threadIdx.x, bd = blockDim.x, lane = tid & 31, B1 = B + 1;
-  const unsigned NB = (unsigned)N * (unsigned)B;
-  u64 prefix = 0, mask = 0;
-  int rem = r;
-  for (int shift = 56; shift >= 0; shift -= 8) {
-    for (int d = tid; d < 256; d += bd) hist[d] = 0;
-    __syncthreads();
-    for (unsigned e0 = 0; e0 < NB; e0 += bd) {  // uniform trip count: the warp stays converged
-      const unsigned e = e0 + tid;
-      int digit = 256;
-      if (e < NB) {
-        const int n = (int)(e / (unsigned)B), k = (int)(e - (unsigned)n * B);
-        if (k < u_s[n]) {
-          const u64 key = entry_key(table[(size_t)n * B1 + k], n, k, B);
-          if ((key & mask) == prefix) digit = (int)((key >> shift) & 255u);
-        }
-      }
-      const unsigned peers = __match_any_sync(FULL_MASK, digit);
-      if (digit < 256 && lane == __ffs(peers) - 1) atomicAdd(&hist[digit], __popc(peers));
-    }
-    __syncthreads();
-    if (tid == 0) {
-      int cum = 0, d = 255;
-      for (; d > 0; --d) {
-        if (cum + hist[d] >= rem) break;
-        cum += hist[d];
-      }
-      *s_rem = rem - cum;
-      *s_prefix = prefix | ((u64)d << shift);
-    }
-    __syncthreads();
-    rem = *s_rem;
-    prefix = *s_prefix;
-    mask |= 255ull << shift;
-  }
-  return prefix;
-}
+#include "select.cuh"
 
 // Float scratch: table [N, B+1], then ip_raw, simon_s, static, bound [N] each.
 // Int scratch: cap, feas, u (usable prefix length), c0 (first take) [N] each.
@@ -137,7 +67,7 @@ schedule_wave_kernel(TablesView t, int g, int m, int cap1, int B, int K, int* j,
   // ---- segment constants: base feasibility, capacity, static score terms
   pod_prologue(t, g, 1, &pc, s_red);
   for (int n = tid; n < N; n += bd) {
-    segment_node_constants(t, &pc, g, n, cap1, 1, &feas_s[n], &cap_s[n], &ip_s[n], &simon_s[n],
+    segment_node_constants(t, &pc, g, n, cap1, 1, 1, &feas_s[n], &cap_s[n], &ip_s[n], &simon_s[n],
                            &stat_s[n]);
     j[n] = 0;
   }

@@ -292,11 +292,14 @@ STAGE_ROWS = tuple(k for k in STAGE_KEYS if k != "fit_each")
 
 
 def feasibility(tb: Tables, cry: Carry, g: int, forced: int, valid: bool,
-                filters: FilterFlags = DEFAULT_FILTERS, include_dns: bool = True):
+                filters: FilterFlags = DEFAULT_FILTERS, include_dns: bool = True,
+                include_interpod: bool = True):
     """[N] feasibility mask for one pod, plus the named per-stage masks
     (STAGE_KEYS) for diagnostics. Plain version of `feasibility_kernel`.
     `include_dns=False` drops the DoNotSchedule filter: the group-serial scan
-    evaluates it against its own live counter rows."""
+    evaluates it against its own live counter rows. `include_interpod=False`
+    drops the InterPodAffinity filters likewise: the affinity wave evaluates
+    them each epoch from its live rows."""
     N, R = tb.alloc.shape
     dev = tb.alloc.device
     req = tb.grp_requests[g]
@@ -319,7 +322,7 @@ def feasibility(tb: Tables, cry: Carry, g: int, forced: int, valid: bool,
     else:
         conflict = ~ones
 
-    if filters.interpod:
+    if include_interpod and filters.interpod:
         D = cry.counter.shape[1] - 1
         # required affinity (filtering.go satisfyPodAffinity)
         avalid, aids = _slot_ids(tb.req_aff_t[g])
@@ -906,6 +909,420 @@ def schedule_group_serial_plain(tb: Tables, cry: Carry, g: int, valid, cap1: boo
     return j, placed
 
 
+# -------------------------------------------------------------- affinity route ----
+#
+# Port of the JAX package's `schedule_affinity_wave` (ops/kernels.py
+# :1287-2099, without the sharded branch): groups whose hard predicates read
+# their own running placements (self-matching DoNotSchedule spread, required
+# self-affinity, non-hostname required self-anti-affinity in either
+# direction, live SelectorSpread). Each epoch builds one [N, B+1] table under
+# the normalizers of the current feasible set, takes its top K_EP entries in
+# serial's pick order and consumes them over multi-level rounds against
+# per-domain budgets, accepted only when a normalizer sandwich proves the
+# normalizers fixed; otherwise the epoch places serial's single next pick
+# (the head fallback).
+
+AFFINITY_STATS = ("epochs", "head_fallbacks", "multi_rounds")
+K_EP_MAX = 2048  # width of one epoch's candidate order (JAX K_EP = min(N*B, 2048))
+LMAX = 32        # min-rise levels one multi-level round may take
+# K5 keys a candidate by (domain, position) in 32 bits: 11 bits of position
+AFFINITY_MAX_D1 = 1 << 21
+
+
+class AffinityWaveState(NamedTuple):
+    """The epoch loop's carry (the JAX `AffinityWaveState`): the only state an
+    epoch changes. The plain loop keeps the scalars as Python ints."""
+
+    j: torch.Tensor         # [N] i32: per-node copies placed so far
+    cnt_dns: torch.Tensor   # [Sd, D+1] f32: DoNotSchedule counter rows
+    cnt_aff: torch.Tensor   # [A, D+1] f32: required-affinity counter rows
+    cnt_anti: torch.Tensor  # [Ba, D+1] f32: incoming anti-affinity counter rows
+    cnt_car: torch.Tensor   # [Ca, D+1] f32: existing-pods-anti carrier rows
+    cnt_cw: torch.Tensor    # [Cw, D+1] f32: weighted (hard) carrier rows
+    cnt_ss: torch.Tensor    # [1, D+1] f32: SelectorSpread counter row
+    placed: int
+    last: int               # the last epoch's take (progress flag)
+    ep_stats: tuple         # AFFINITY_STATS
+
+
+def _sel(live: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Sum of per-slot rows over the live slots (integer-valued: exact)."""
+    return torch.sum(torch.where(live[:, None], rows, torch.zeros_like(rows)), dim=0)
+
+
+def _norm_vals(max_stack, min_stack, F):
+    """Maxima of max_stack's rows and minima of min_stack's over F."""
+    maxes = torch.amax(torch.where(F[None, :], max_stack, float("-inf")), dim=1)
+    mins = torch.amin(torch.where(F[None, :], min_stack, float("inf")), dim=1)
+    return maxes, mins
+
+
+def _norms_eq(pairs) -> bool:
+    # +-inf compare equal; no NaN can arise
+    return all(bool(torch.all(a == b)) for a, b in pairs)
+
+
+def _affinity_round(rs: dict, ep: dict) -> dict:
+    """One multi-level round (JAX round_body): takes along the candidate
+    order against the per-domain budgets at the current minimum."""
+    D, INF_P = ep["D"], ep["INF_P"]
+    dev = rs["taken_d"].device
+    pos_k, cand, dom_srt, occ_all = ep["pos_k"], ep["cand"], ep["dom_srt"], ep["occ_all"]
+    edom_live = ep["edom_live"]
+    taken_d = rs["taken_d"]
+    cnt_now = ep["cnt_live"] + taken_d * ep["inc_live"]
+    min_c = torch.amin(torch.where(edom_live, cnt_now, float("inf")))
+    min_c = torch.where(torch.isfinite(min_c), min_c, 0.0)
+    q_dns = torch.clamp(ep["skew_live"] - ep["self_live"] + min_c - cnt_now + 1.0, min=0.0)
+    q = q_dns if ep["dns_live"] else torch.where(cnt_now > 0, 0.0, 1.0)
+    if not ep["has_budget"]:
+        q = torch.full_like(q, float("inf"))
+    q[D] = float("inf")  # absent-key nodes are never metered
+    dl = dom_srt.long()
+    t_e = taken_d[dl]
+    q_e = q[dl]
+    r_e = occ_all - t_e
+    remaining = cand & (r_e >= 0)
+    consumable = remaining & (r_e < q_e)
+    m_left = ep["m_rem"] - rs["got"]
+
+    # multi-level take: up to LMAX min-rises at once
+    dom_cnt_e = cnt_now[dl]
+    l_e = torch.clamp(r_e - q_e + 2.0, min=1.0)
+    lc_e = dom_cnt_e + r_e + 1.0 - min_c
+    elig_e = edom_live[dl]
+    lc_ok = remaining & elig_e & (lc_e >= 1.0) & (lc_e <= float(LMAX))
+    lc_i = torch.clamp(lc_e, 0.0, float(LMAX + 1)).to(torch.int32).long()
+    minus1 = torch.full((LMAX + 2,), -1, dtype=torch.int32, device=dev)
+    prise = minus1.scatter_reduce(0, lc_i, torch.where(lc_ok, pos_k, -1), reduce="amax")
+    provided = torch.zeros(LMAX + 2, dtype=_F32, device=dev).index_add_(0, lc_i, lc_ok.to(_F32))
+    delta = torch.where(edom_live, cnt_now - min_c, float("inf"))
+    hist = torch.zeros(LMAX + 2, dtype=_F32, device=dev).index_add_(
+        0, torch.clamp(delta, 0.0, float(LMAX + 1)).to(torch.int32).long(), edom_live.to(_F32))
+    needed = torch.cumsum(hist, dim=0)
+    lvl = torch.arange(LMAX + 2, device=dev)
+    inner = (lvl >= 1) & (lvl <= LMAX)
+    ok_l = torch.where(inner, (provided == needed[torch.clamp(lvl - 1, min=0)]).to(_F32), 1.0)
+    L_used = int(torch.sum((torch.cumprod(ok_l, dim=0) > 0) & inner))
+    P_L = int(torch.cummax(prise, dim=0).values[L_used])
+    take_full = remaining & (l_e <= float(L_used)) & (pos_k <= P_L)
+    n_full = int(torch.sum(take_full))
+    use_full = ep["dns_live"] and L_used >= 1 and 0 < n_full <= m_left
+
+    # single-rise take (the chronological tail, and the anti path)
+    at_min = edom_live & (cnt_now == min_c) & ep["dns_live"]
+    first_pos = torch.full((D + 1,), INF_P, dtype=torch.int32, device=dev).scatter_reduce(
+        0, dl, torch.where(consumable, pos_k, INF_P), reduce="amin")
+    rise = int(torch.amax(torch.where(at_min, first_pos, -1)))
+    unreached = bool(torch.any(at_min & (first_pos >= INF_P)))
+    p_rise = rise if bool(torch.any(at_min)) and not unreached else INF_P
+    take_pre = consumable & (pos_k <= p_rise)
+    rank = torch.cumsum(take_pre.to(torch.int32), dim=0)
+    take_one = take_pre & (rank <= m_left)
+    n_one = min(m_left, int(rank[-1]))
+
+    take = take_full if use_full else take_one
+    n_take = n_full if use_full else n_one
+    N = rs["counts"].shape[0]
+    counts_r = torch.zeros(N, dtype=torch.int32, device=dev).index_add_(
+        0, ep["idx_srt"].long(), take.to(torch.int32))
+    consumed_d = torch.zeros(D + 1, dtype=_F32, device=dev).index_add_(0, dl, take.to(_F32))
+    # sandwich bookkeeping: domains blocked at the round start or consumed
+    # to their budget (a multi-level round marks every eligible or touched one)
+    blocked_d = (q < 1.0) | ((consumed_d >= q) & torch.isfinite(q))
+    if use_full:
+        blocked_d = blocked_d | edom_live | (consumed_d > 0)
+    everb = rs["everb"] | (blocked_d[ep["dom_live"].long()] & ep["has_budget"])
+    real = torch.arange(D + 1, device=dev) < D
+    return {"taken_d": taken_d + consumed_d * real, "counts": rs["counts"] + counts_r,
+            "got": rs["got"] + n_take, "last": n_take, "everb": everb,
+            "rounds": rs["rounds"] + int(n_take > 0)}
+
+
+@torch.inference_mode()
+def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
+                                 ss_live: bool = False, w: ScoreWeights = DEFAULT_WEIGHTS,
+                                 filters: FilterFlags = DEFAULT_FILTERS,
+                                 block: int = WAVE_BLOCK, n_zones: int = 2):
+    """Plain version of `schedule_affinity_wave_kernel`: place up to m pods
+    of the affinity-route group g, exactly as m serial steps would. Returns
+    (per-node counts [N] i32, placed, stats) with stats the AFFINITY_STATS
+    dict (epochs, head-fallback epochs, productive multi-rounds); the carry is
+    not touched (the aggregate commit applies the counts)."""
+    N = tb.alloc.shape[0]
+    dev = tb.alloc.device
+    B = block
+    K_EP = min(N * B, K_EP_MAX)
+    D = cry.counter.shape[1] - 1
+    iota_n = torch.arange(N, dtype=torch.int32, device=dev)
+    pos_k = torch.arange(K_EP, dtype=torch.int32, device=dev)
+    INF_P = N * B + 1
+    ninf = torch.tensor(float("-inf"), device=dev)
+    base_feas, _ = feasibility(tb, cry, g, -1, True, filters, include_dns=False,
+                               include_interpod=False)
+    st0 = _wave_statics(tb, cry, g, w)
+    capacity = _base_capacity(tb, cry, g, cap1, base_feas, filters)
+    match_g = tb.counter_sel_match_g[:, g]
+    grp_carries = tb.grp_carries[g]
+
+    # ---- term slots: ids, domain maps, live flags, seed rows
+    dvalid, dids = _slot_ids(tb.dns_t[g])
+    dom_dns = tb.counter_dom[dids].long()                   # [Sd, N]
+    edom = tb.dns_edom[g]                                   # [Sd, D+1]
+    dself, dskew = tb.dns_self[g], tb.dns_maxskew[g]
+    live_dns = dvalid & match_g[dids] & (dself > 0)
+    if not filters.spread:
+        dvalid = torch.zeros_like(dvalid)
+        live_dns = torch.zeros_like(live_dns)
+    avalid, aids = _slot_ids(tb.req_aff_t[g])
+    dom_aff = tb.counter_dom[aids].long()
+    bvalid, bids = _slot_ids(tb.req_anti_t[g])
+    dom_anti = tb.counter_dom[bids].long()
+    live_anti = bvalid & match_g[bids]
+    cavalid, ca_ids = _slot_ids(tb.carr_anti_t[g])
+    dom_car = tb.carr_dom[ca_ids].long()
+    car_inc = grp_carries[ca_ids]
+    live_car = cavalid & (car_inc > 0)
+    cwvalid, cw_ids = _slot_ids(tb.carr_w_t[g])
+    dom_cw = tb.carr_dom[cw_ids].long()
+    cw_w = tb.carr_w_w[g]
+    cw_inc = grp_carries[cw_ids]
+    live_cw = cwvalid & (cw_inc > 0)
+    if not filters.interpod:
+        avalid = torch.zeros_like(avalid)
+        bvalid, live_anti = torch.zeros_like(bvalid), torch.zeros_like(live_anti)
+        cavalid, live_car = torch.zeros_like(cavalid), torch.zeros_like(live_car)
+
+    # static ip part: the preferred terms (their rows never move here)
+    pvalid, pids = _slot_ids(tb.pref_t[g])
+    _, pref_at, _, _ = counter_rows_at(tb, cry, pids)
+    ip_pref = _masked_sum(pvalid, tb.pref_w[g][:, None] * pref_at)
+
+    ss_idx = torch.clamp(tb.ss_t[g], min=0).reshape(1).long()
+    dom_ss = tb.counter_dom[ss_idx].long()                  # [1, N]
+    ss_match = (match_g[ss_idx] & (tb.ss_t[g] >= 0)).to(_F32)  # [1]
+    zones = tb.node_zone.long()
+    Z = max(2, n_zones)
+
+    # counter increments of one placement (commit() semantics)
+    inc_dns = (match_g[dids] & dvalid).to(_F32)
+    inc_aff = (match_g[aids] & avalid).to(_F32)
+    inc_anti = (match_g[bids] & bvalid).to(_F32)
+    inc_car = car_inc * cavalid.to(_F32)
+    inc_cw = cw_inc * cwvalid.to(_F32)
+
+    # the composed budget meter: one live DNS term, or live anti terms that
+    # share one topology (identical domain rows)
+    n_dns = int(live_dns.sum())
+    n_budget = n_dns + int(live_anti.sum()) + int(live_car.sum())
+    has_budget = n_budget >= 1
+    dom_sum = _sel(live_dns, dom_dns) + _sel(live_anti, dom_anti) + _sel(live_car, dom_car)
+    dom_live = torch.div(dom_sum, max(n_budget, 1), rounding_mode="floor").to(torch.int32)
+    doms_same = all(bool(torch.all(~live[:, None] | (dom == dom_live[None, :].long())))
+                    for live, dom in ((live_dns, dom_dns), (live_anti, dom_anti),
+                                      (live_car, dom_car)))
+    budget_composes = n_budget <= 1 or (n_dns == 0 and doms_same)
+    edom_live = _sel(live_dns, edom.to(_F32)) > 0           # [D+1]
+    ep = {
+        "D": D, "INF_P": INF_P, "pos_k": pos_k, "edom_live": edom_live, "dom_live": dom_live,
+        "skew_live": torch.sum(torch.where(live_dns, dskew, 0.0)),
+        "self_live": torch.sum(torch.where(live_dns, dself, 0.0)),
+        "dns_live": n_dns > 0, "has_budget": has_budget,
+        "inc_live": (torch.sum(torch.where(live_dns, inc_dns, 0.0))
+                     + torch.sum(torch.where(live_anti, inc_anti, 0.0))
+                     + torch.sum(torch.where(live_car, inc_car, 0.0))),
+    }
+    dns_key_live_ok = torch.all((dom_dns < D) | ~live_dns[:, None], dim=0)
+    aff_self = bool(tb.grp_aff_self[g])
+    has_aff = bool(torch.any(avalid))
+    has_live_cw = bool(torch.any(live_cw))
+
+    def norm_stacks(ip_raw, pernode0):
+        rows = [st0["simon_s"], st0["na_raw"], st0["t_raw"], ip_raw]
+        if ss_live:
+            rows.append(pernode0)
+        return torch.stack(rows), torch.stack([st0["simon_s"], ip_raw])
+
+    def epoch(state: AffinityWaveState) -> AffinityWaveState:
+        j = state.j
+        cnt_dns, cnt_aff, cnt_anti, cnt_car, cnt_cw, cnt_ss = state[1:7]
+        avail = capacity - j
+
+        # ---- live gates from the epoch-start rows (feasibility() term for term)
+        cnt_at_d = torch.gather(cnt_dns, 1, dom_dns)
+        min_d = torch.amin(torch.where(edom, cnt_dns, float("inf")), dim=1)
+        min_d = torch.where(torch.isfinite(min_d), min_d, 0.0)
+        skew_ok = (dom_dns < D) & (cnt_at_d + dself[:, None] - min_d[:, None] <= dskew[:, None])
+        dns_ok = torch.all(skew_ok | ~dvalid[:, None], dim=0)
+        dns_ok_static = torch.all(skew_ok | ~dvalid[:, None] | live_dns[:, None], dim=0)
+        at_a = torch.gather(cnt_aff, 1, dom_aff)
+        aff_all = torch.all(((dom_aff < D) & (at_a > 0)) | ~avalid[:, None], dim=0)
+        totals_a = torch.sum(cnt_aff[:, :D], dim=1)
+        total_aff = torch.sum(torch.where(avalid, totals_a, 0.0))
+        bootstrap = has_aff and bool(total_aff == 0.0) and aff_self
+        aff_ok = torch.ones_like(aff_all) if bootstrap else aff_all
+        at_b = torch.gather(cnt_anti, 1, dom_anti) > 0
+        blocked_in = torch.any(at_b & bvalid[:, None], dim=0)
+        blocked_in_st = torch.any(at_b & bvalid[:, None] & ~live_anti[:, None], dim=0)
+        at_c = torch.gather(cnt_car, 1, dom_car) > 0
+        blocked_ex = torch.any(at_c & cavalid[:, None], dim=0)
+        blocked_ex_st = torch.any(at_c & cavalid[:, None] & ~live_car[:, None], dim=0)
+        # F_start: serial's current feasible set; F_hi: live budget gates
+        # lifted (the sandwich's upper set)
+        room = base_feas & (avail > 0) & aff_ok
+        F_start = room & dns_ok & ~blocked_in & ~blocked_ex
+        F_hi = room & dns_ok_static & ~blocked_in_st & ~blocked_ex_st & dns_key_live_ok
+
+        # ---- live scores: ip_raw from the live carrier rows, ss per node
+        cw_at = torch.gather(cnt_cw, 1, dom_cw)
+        ip_raw = ip_pref + _masked_sum(cwvalid, cw_w[:, None] * cw_at)
+        pernode0 = torch.gather(cnt_ss, 1, dom_ss)[0]
+        max_stack, min_stack = norm_stacks(ip_raw, pernode0)
+        maxes_s, mins_s = _norm_vals(max_stack, min_stack, F_start)
+        maxes_h, mins_h = _norm_vals(max_stack, min_stack, F_hi)
+        norms6 = (maxes_s[0], mins_s[0], torch.clamp(maxes_s[1], min=0.0),
+                  torch.clamp(maxes_s[2], min=0.0), torch.clamp(maxes_s[3], min=0.0),
+                  torch.clamp(mins_s[1], max=0.0))
+        any_hi = bool(torch.any(F_hi))
+        # uniform normalizer inputs over F_hi pin every normalizer
+        base_hi_min = torch.amin(torch.where(F_hi[None, :], max_stack[:4], float("inf")), dim=1)
+        uniform_base = bool(torch.all(maxes_h[:4] == base_hi_min)) and any_hi
+        # ip liveness: the frozen table is exact only while ip_raw is uniform
+        # over F_hi and each live carrier's domain is single-valued there
+        ip_safe = True
+        if has_live_cw and any_hi:
+            dmax = torch.amax(torch.where(F_hi[None, :], dom_cw, -1), dim=1)
+            dmin = torch.amin(torch.where(F_hi[None, :], dom_cw, D + 2), dim=1)
+            dom_same = bool(torch.all(~live_cw | (dmax == dmin)))
+            ip_safe = dom_same and bool(maxes_h[3] == mins_h[1])
+
+        # ---- the score table under serial's current normalizers
+        st_ep = dict(st0, ip_raw=ip_raw)
+        table_ext = _wave_score_table(tb, cry, st_ep, norms6, g, j, w, B)
+        if ss_live:
+            # live SelectorSpread, term for term, maxN and zone sums frozen at
+            # the epoch start; column c = c earlier takes on the node
+            maxN = torch.clamp(maxes_s[4], min=0.0)
+            pernode_k = pernode0[:, None] + torch.arange(B + 1, dtype=_F32, device=dev)[None, :]
+            node_score = torch.where(maxN > 0, 100.0 * (maxN - pernode_k) / maxN, 100.0)
+            nz_count = torch.where(F_start, pernode0, 0.0)
+            zone_sums = torch.zeros(Z, dtype=_F32, device=dev).index_add_(0, zones, nz_count)
+            maxZ = torch.amax(torch.cat([zone_sums.new_zeros(1), zone_sums[1:]]))
+            have_zones = bool(torch.any(F_start & (zones > 0)))
+            zscore = torch.where(maxZ > 0, 100.0 * (maxZ - zone_sums[zones]) / maxZ, 100.0)
+            blended = torch.where((have_zones & (zones > 0))[:, None],
+                                  node_score * (1.0 / 3.0) + zscore[:, None] * (2.0 / 3.0),
+                                  node_score)
+            table_ext = table_ext + w.ss * _flr(blended)
+            # depth cap: a take past the frozen maxN would move it
+            k_cap = torch.clamp(maxN - pernode0, 0.0, float(B)).to(torch.int32)
+            ss_multi_ok = not have_zones  # zone sums move with every zoned take
+        else:
+            k_cap = torch.full((N,), B, dtype=torch.int32, device=dev)
+            ss_multi_ok = True
+        table = table_ext[:, :B]
+
+        pre_norms_ok = uniform_base or _norms_eq(zip((maxes_s[:4], mins_s),
+                                                     (maxes_h[:4], mins_h)))
+        if ss_live:
+            pre_norms_ok = pre_norms_ok and bool(maxes_s[4] == maxes_h[4])
+        use_multi_pre = (budget_composes and not bootstrap and ip_safe and ss_multi_ok
+                         and pre_norms_ok)
+        m_rem = m - state.placed
+        rs = {"counts": torch.zeros(N, dtype=torch.int32, device=dev), "got": 0, "last": 1,
+              "rounds": 0, "everb": torch.zeros(N, dtype=torch.bool, device=dev)}
+        if use_multi_pre:
+            # ---- candidates: capacity, depth cap, monotone prefix, and the
+            # hidden-continuation cut (the JAX expressions; the rounds never
+            # run when use_multi_pre is off, so neither does this)
+            ks = torch.arange(B, dtype=torch.int32, device=dev)[None, :]
+            in_cap = ks < torch.minimum(avail, k_cap)[:, None]
+            step_ok = torch.cat([torch.ones((N, 1), dtype=torch.int32, device=dev),
+                                 (table[:, 1:] <= table[:, :-1]).to(torch.int32)], dim=1)
+            mono = torch.cumprod(step_ok, dim=1) > 0
+            usable = in_cap & mono & F_hi[:, None]
+            first_bad = torch.amin(torch.where(mono, B, ks), dim=1)
+            k_hid = torch.minimum(torch.clamp(first_bad, max=B), k_cap)
+            has_hidden = (k_hid < avail) & F_hi
+            bound = torch.where(has_hidden,
+                                torch.gather(table_ext, 1, k_hid.long()[:, None])[:, 0], ninf)
+            b1, i1 = torch.amax(bound), torch.argmax(bound)
+            bound2 = bound.clone()
+            bound2[i1] = ninf
+            b2, i2 = torch.amax(bound2), torch.argmax(bound2)
+            cut_s = torch.where(iota_n == i1, b2, b1)
+            cut_i = torch.where(iota_n == i1, i2, i1).to(torch.int32)
+            beats = (table > cut_s[:, None]) | ((table == cut_s[:, None])
+                                                & (iota_n[:, None] < cut_i[:, None]))
+            usable = usable & beats
+            # the top K_EP entries in lax.top_k order (score desc, flat index
+            # asc), then each entry's rank among its domain's candidates
+            vals_k, flat_pos = _top_k(torch.where(usable, table, ninf).reshape(-1), K_EP)
+            idx_srt = torch.div(flat_pos, B, rounding_mode="floor").to(torch.int32)
+            cand = torch.isfinite(vals_k)
+            dom_srt = dom_live[idx_srt.long()]
+            dkey = torch.where(cand, dom_srt, D + 1)
+            d2, p2 = torch.sort(dkey, stable=True)
+            run_start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), d2[1:] != d2[:-1]])
+            seg_start = torch.cummax(torch.where(run_start, pos_k, 0), dim=0).values
+            occ_all = torch.zeros(K_EP, dtype=_F32, device=dev)
+            occ_all[p2] = (pos_k - seg_start).to(_F32)
+            cnt_live = (_sel(live_dns, cnt_dns) + _sel(live_anti, cnt_anti)
+                        + _sel(live_car, cnt_car))
+            ep.update(cand=cand, dom_srt=dom_srt, occ_all=occ_all, idx_srt=idx_srt,
+                      cnt_live=cnt_live, m_rem=m_rem)
+            rs["taken_d"] = torch.zeros(D + 1, dtype=_F32, device=dev)
+            # the condition is read once per chain of four rounds, as in JAX
+            while rs["last"] > 0 and rs["got"] < m_rem:
+                for _ in range(4):
+                    rs = _affinity_round(rs, ep)
+
+        # ---- the normalizer sandwich: S_lo <= every F_t <= F_hi
+        use_multi = False
+        if use_multi_pre and rs["got"] > 0:
+            F_lo = F_hi & ~rs["everb"] & ~(rs["counts"] >= avail)
+            maxes_l, mins_l = _norm_vals(max_stack, min_stack, F_lo)
+            lo_ok = uniform_base or _norms_eq(zip((maxes_h[:4], mins_h), (maxes_l[:4], mins_l)))
+            if ss_live:
+                lo_ok = lo_ok and bool(maxes_h[4] == maxes_l[4])
+            use_multi = lo_ok
+        # the head fallback: serial's single next pick is always exact
+        use_head = not use_multi and bool(torch.any(F_start)) and m_rem > 0
+        if use_multi:
+            counts, m_take = rs["counts"], rs["got"]
+        else:
+            counts = torch.zeros(N, dtype=torch.int32, device=dev)
+            m_take = 0
+            if use_head:
+                counts[torch.argmax(torch.where(F_start, table[:, 0], ninf))] = 1
+                m_take = 1
+
+        # fold the takes into every counter/carrier row (the sentinel column
+        # never counts, as in commit())
+        cf = counts.to(_F32)
+        col_real = (torch.arange(D + 1, device=dev) < D).to(_F32)
+
+        def upd(rows, doms, incs):
+            add = torch.zeros_like(rows).scatter_add_(1, doms, cf[None, :] * incs[:, None])
+            return rows + add * col_real
+
+        e, h, r = state.ep_stats
+        return AffinityWaveState(
+            j + counts, upd(cnt_dns, dom_dns, inc_dns), upd(cnt_aff, dom_aff, inc_aff),
+            upd(cnt_anti, dom_anti, inc_anti), upd(cnt_car, dom_car, inc_car),
+            upd(cnt_cw, dom_cw, inc_cw), upd(cnt_ss, dom_ss, ss_match),
+            state.placed + m_take, m_take,
+            (e + 1, h + int(use_head), r + (rs["rounds"] if use_multi else 0)))
+
+    state = AffinityWaveState(
+        torch.zeros(N, dtype=torch.int32, device=dev), cry.counter[dids], cry.counter[aids],
+        cry.counter[bids], cry.carrier[ca_ids], cry.carrier[cw_ids], cry.counter[ss_idx],
+        0, 1, (0, 0, 0))
+    while state.last > 0 and state.placed < m:
+        state = epoch(state)
+    return state.j, state.placed, dict(zip(AFFINITY_STATS, state.ep_stats))
+
+
 # ------------------------------------------------------------------ CUDA route ----
 #
 # csrc/schedule.cu holds both kernels; ops/build.py compiles it with nvcc for
@@ -1160,6 +1577,38 @@ def schedule_group_serial_kernel(tb: Tables, cry: Carry, g: int, valid, cap1: bo
     return j, placed[0]
 
 
+def schedule_affinity_wave_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
+                                  ss_live: bool = False, w: ScoreWeights = DEFAULT_WEIGHTS,
+                                  filters: FilterFlags = DEFAULT_FILTERS,
+                                  block: int = WAVE_BLOCK, n_zones: int = 2):
+    """Launch K5 (csrc/affinity_wave.cu schedule_affinity_wave_kernel): one
+    persistent block runs the whole epoch loop. Returns (per-node counts [N]
+    i32, placed as a 0-dim i32 tensor, [epochs, head_fallbacks,
+    multi_rounds] i32), all on the card; `cry` is only read."""
+    from . import build
+
+    lib = build.library()
+    dev = tb.alloc.device
+    N = tb.alloc.shape[0]
+    if N * block >= 2 ** 31 or block < 1:
+        raise ValueError(f"affinity table {N}x{block} is out of the kernel's range")
+    if cry.counter.shape[1] > AFFINITY_MAX_D1:
+        raise ValueError(f"{cry.counter.shape[1]} domains exceed the kernel's {AFFINITY_MAX_D1}")
+    v = _view(tb, cry, n_zones, w, filters)
+    j = torch.empty(N, dtype=torch.int32, device=dev)
+    stats = torch.empty(4, dtype=torch.int32, device=dev)
+    fs = torch.empty(int(lib.affinity_scratch_floats(ctypes.byref(v), int(block))), dtype=_F32,
+                     device=dev)
+    iscr = torch.empty(int(lib.affinity_scratch_ints(ctypes.byref(v))), dtype=torch.int32,
+                       device=dev)
+    _check(lib.schedule_affinity_wave_launch(ctypes.byref(v), int(g), int(m), int(bool(cap1)),
+                                             int(bool(ss_live)), int(block), _ptr(j),
+                                             _ptr(stats), _ptr(fs), _ptr(iscr), _stream()),
+           "schedule_affinity_wave_kernel launch")
+    schedule_affinity_wave.launches += 1
+    return j, stats[0], stats[1:]
+
+
 def _on_cpu(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return True
@@ -1231,27 +1680,62 @@ def schedule_group_serial(tb: Tables, cry: Carry, g: int, valid, cap1: bool,
     return aggregate_commit(tb, cry, g, j), j, placed
 
 
+def schedule_affinity_wave(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
+                           ss_live: bool = False, w: ScoreWeights = DEFAULT_WEIGHTS,
+                           filters: FilterFlags = DEFAULT_FILTERS, block: int = WAVE_BLOCK,
+                           n_zones: int = 2):
+    """Place up to m pods of affinity-route group g, exactly as m serial
+    steps would (JAX `schedule_affinity_wave`): the plain version for CPU
+    tensors, K5 for CUDA tensors, then `aggregate_commit`. Returns (new carry,
+    per-node counts [N] i32, placed). The epoch statistics (AFFINITY_STATS)
+    are added to `schedule_affinity_wave.stats`, an i32 tensor on the
+    wrapper's device (adding them up does not wait for the card)."""
+    if _on_cpu(tb.alloc):
+        j, placed, st = schedule_affinity_wave_plain(tb, cry, g, m, cap1, ss_live, w, filters,
+                                                     block, n_zones)
+        stats = torch.tensor([st[k] for k in AFFINITY_STATS], dtype=torch.int32)
+    else:
+        j, placed, stats = schedule_affinity_wave_kernel(tb, cry, g, m, cap1, ss_live, w,
+                                                         filters, block, n_zones)
+    prev = schedule_affinity_wave.stats
+    schedule_affinity_wave.stats = (stats if prev is None or prev.device != stats.device
+                                    else prev + stats)
+    return aggregate_commit(tb, cry, g, j), j, placed
+
+
 _WRAPPERS = {"schedule_batch": schedule_batch, "feasibility": feasibility_jit,
              "schedule_wave": schedule_wave, "aggregate_commit": aggregate_commit,
-             "schedule_group_serial": schedule_group_serial}
+             "schedule_group_serial": schedule_group_serial,
+             "schedule_affinity_wave": schedule_affinity_wave}
 for _f in _WRAPPERS.values():
     _f.launches = 0
 schedule_batch.last_events = None
 schedule_wave.stats = None
+schedule_affinity_wave.stats = None
 
 
 def reset_launch_counts() -> None:
     for f in _WRAPPERS.values():
         f.launches = 0
     schedule_wave.stats = None
+    schedule_affinity_wave.stats = None
+
+
+def _summed(stats, names) -> Dict[str, int]:
+    vals = [0] * len(names) if stats is None else stats.cpu().tolist()
+    return dict(zip(names, vals))
 
 
 def wave_stats() -> Dict[str, int]:
     """WAVE_STATS summed over the wave dispatches since reset_launch_counts()
     (reading it waits for the card)."""
-    s = schedule_wave.stats
-    vals = [0] * len(WAVE_STATS) if s is None else s.cpu().tolist()
-    return dict(zip(WAVE_STATS, vals))
+    return _summed(schedule_wave.stats, WAVE_STATS)
+
+
+def affinity_stats() -> Dict[str, int]:
+    """AFFINITY_STATS summed over the affinity-wave dispatches since
+    reset_launch_counts() (reading it waits for the card)."""
+    return _summed(schedule_affinity_wave.stats, AFFINITY_STATS)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -10,11 +10,7 @@ dispatch from the previous segment's end carry:
 - "serial": `kernels.schedule_batch` (K2), per-pod choices;
 - "wave": `kernels.schedule_wave` (K3, then K3c `aggregate_commit`);
 - "spread": `kernels.schedule_group_serial` (K4, then K3c);
-- "affinity": the interim route until `schedule_affinity_wave` is ported
-  (ROADMAP B8): K2 over the segment's pods from the segment's start carry,
-  its choices counted per node, then K3c on the start carry. The JAX package
-  holds the affinity wave to the serial scan's per-node counts, so the
-  counts, the carry and the hand-out below are those of the JAX route.
+- "affinity": `kernels.schedule_affinity_wave` (K5, then K3c).
 
 The results are fetched once (`torch.cat` and `.cpu()`); pods of a counted
 segment are handed out in node order, as in the JAX engine. Failed pods get
@@ -32,7 +28,6 @@ Behavioral parity notes (as in the JAX engine):
   format.
 
 Left out of this port so far, each with the ROADMAP item it waits for:
-- the affinity wave kernel itself (interim route above): B8;
 - GPU-share and Open-Local kernel branches: B9 (such batches raise);
 - preemption (mixed pod priorities raise): A6;
 - capacity probing (probe_pods / probe_utilization): A7;
@@ -92,7 +87,7 @@ WAVE_MIN = 8
 
 class GroupRoute(NamedTuple):
     """One group's kernel routing decision (see Simulator._wave_eligibility):
-    kind "wave" -> schedule_wave, "affinity" -> the affinity route, "spread"
+    kind "wave" -> schedule_wave, "affinity" -> schedule_affinity_wave, "spread"
     -> schedule_group_serial, None -> the serial scan."""
 
     kind: Optional[str]
@@ -547,16 +542,13 @@ class Simulator:
                 tables, carry, g, torch.from_numpy(vd), cap1, w=w, filters=filters,
                 ss_live=ss_live, sa_live=sa_live, n_zones=bt.n_zones if ss_live else 2)
             return carry, counts
-        # "affinity", interim route until schedule_affinity_wave is ported
-        # (ROADMAP B8): the serial scan's per-node counts are the affinity
-        # wave's, and its aggregate commit is applied to the start carry
-        pg = torch.full((length,), g, dtype=torch.int32)
-        _, ch = kernels.schedule_batch(
-            tables, carry, pg, torch.full((length,), -1, dtype=torch.int32),
-            torch.ones(length, dtype=torch.bool), n_zones=bt.n_zones, w=w, filters=filters)
-        N = tables.alloc.shape[0]
-        counts = torch.bincount(ch.long() + 1, minlength=N + 1)[1:].to(torch.int32)
-        return kernels.aggregate_commit(tables, carry, g, counts), counts
+        # "affinity": counter-live hard predicates, the epoch-batched wave
+        ss_live = bool(seg[5])
+        block = kernels.wave_block_for(length, self.na.N)
+        carry, counts, _ = kernels.schedule_affinity_wave(
+            tables, carry, g, length, cap1, ss_live=ss_live, w=w, filters=filters, block=block,
+            n_zones=bt.n_zones if ss_live else 2)
+        return carry, counts
 
     def _schedule_run_once(self, to_schedule: List[dict]) -> List[UnscheduledPod]:
         bt = self.encode_batch(to_schedule)

@@ -365,3 +365,65 @@ def synth_spread_cluster(
             pods.append(pod)
         k += 1
     return nodes, pods, services
+
+
+def _required_term(app: str, topo: str) -> dict:
+    return {"requiredDuringSchedulingIgnoredDuringExecution": [
+        {"labelSelector": {"matchLabels": {"app": app}}, "topologyKey": topo}]}
+
+
+def synth_affinity_cluster(
+    n_nodes: int,
+    n_pods: int,
+    n_zones: int = 8,
+) -> Tuple[List[dict], List[dict], List[dict]]:
+    """(nodes, pods, services): a zoned cluster of three node sizes (32, 36
+    or 40 cores and 128, 136 or 144 GiB by i % 3, so the normalizer inputs
+    differ between nodes) whose pods constrain themselves, in replica blocks
+    cycling five shapes — required zone self-affinity, a hostname
+    DoNotSchedule spread (maxSkew 1), a group of ten replicas with required
+    zone self-anti-affinity (more replicas than zones: the rest fail), a zone
+    DoNotSchedule spread (maxSkew 2), and a block of the Service-backed
+    Deployment `svc-web` with required zone self-affinity (SelectorSpread
+    live). Every block is an affinity-wave segment; the services list holds
+    the one Service the last shape needs."""
+    zone = "topology.kubernetes.io/zone"
+    host = "kubernetes.io/hostname"
+    nodes = [synth_node(i, cpu_milli=32000 + 4000 * (i % 3),
+                        mem_bytes=(128 + 8 * (i % 3)) << 30, n_zones=n_zones)
+             for i in range(n_nodes)]
+    services = [{"apiVersion": "v1", "kind": "Service",
+                 "metadata": {"name": "web", "namespace": "default"},
+                 "spec": {"selector": {"app": "svc-web"}}}]
+    pods: List[dict] = []
+    block = max(8, n_pods // 40)
+    k = 0
+    while len(pods) < n_pods:
+        kind = k % 5
+        n = min(10 if kind == 2 else block, n_pods - len(pods))
+        for _ in range(n):
+            idx = len(pods)
+            if kind == 0:
+                app = f"aff-{k}"
+                pod = synth_pod(idx, labels={"app": app})
+                pod["spec"]["affinity"] = {"podAffinity": _required_term(app, zone)}
+            elif kind == 1:
+                app = f"host-{k}"
+                pod = synth_pod(idx, cpu_milli=200, labels={"app": app})
+                pod["spec"]["topologySpreadConstraints"] = [
+                    _spread_term(app, host, "DoNotSchedule", 1)]
+            elif kind == 2:
+                app = f"anti-{k}"
+                pod = synth_pod(idx, labels={"app": app})
+                pod["spec"]["affinity"] = {"podAntiAffinity": _required_term(app, zone)}
+            elif kind == 3:
+                app = f"zone-{k}"
+                pod = synth_pod(idx, cpu_milli=200, labels={"app": app})
+                pod["spec"]["topologySpreadConstraints"] = [
+                    _spread_term(app, zone, "DoNotSchedule", 2)]
+            else:
+                pod = synth_pod(idx, labels={"app": "svc-web"})
+                pod["spec"]["affinity"] = {"podAffinity": _required_term("svc-web", zone)}
+            pods.append(pod)
+        k += 1
+    return nodes, pods, services

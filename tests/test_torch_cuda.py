@@ -139,3 +139,69 @@ def test_wave_kernel_branches_match_plain_version():
                     for k in K.WAVE_STATS:
                         totals[k] += pst[k]
     assert totals["head_fallbacks"] > 0 and totals["guarded"] > 0
+
+
+def _affinity_cases():
+    """(label, nodes, pods, services) of the affinity route: every shape of
+    synth_affinity_cluster (live SelectorSpread among them) and the affinity
+    segments of the hard-predicate cluster."""
+    from open_simulator_torch.utils.synth import synth_affinity_cluster
+
+    nodes, pods, services = synth_affinity_cluster(256, 1200)
+    yield "affinity", nodes, pods, services
+    nodes, pods = synth_cluster(256, 3000, hard_predicates=True)
+    yield "hard", nodes, pods, []
+    # zone self-anti-affinity with an unlabeled two-slot node: the sentinel
+    # domain's entries are re-taken every round (the JAX result, ROADMAP §C)
+    from fixtures import make_node, make_pod
+
+    zone = "topology.kubernetes.io/zone"
+    nodes = [make_node(f"n{i}", labels={zone: f"z{i % 3}"}) for i in range(6)]
+    nodes.append(make_node("u0", pods="2"))
+    term = {"labelSelector": {"matchLabels": {"app": "ao"}}, "topologyKey": zone}
+    pods = [make_pod(f"ao-{i}", cpu="400m", memory="128Mi", labels={"app": "ao"})
+            for i in range(20)]
+    for p in pods:
+        p["spec"]["affinity"] = {
+            "podAntiAffinity": {"requiredDuringSchedulingIgnoredDuringExecution": [term]}}
+    yield "overcommit", nodes, pods, []
+
+
+@pytest.mark.cuda
+def test_affinity_wave_kernel_matches_plain_version():
+    """K5 (counts, placed, epoch statistics) against its plain version on
+    every affinity segment, at the engine's block and at a forced block 2
+    (depth caps and the hidden-continuation cut bind), and with each filter
+    flag off; K3c then commits equal counts equally."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from open_simulator_torch.core.types import ResourceTypes
+
+    totals = dict.fromkeys(K.AFFINITY_STATS, 0)
+    for label, nodes, pods, services in _affinity_cases():
+        sim = Simulator(nodes, device="cuda")
+        sim.register_cluster_objects(ResourceTypes(services=services))
+        bt, tb, seed, segs = _segments_of(sim, pods)
+        aff = [s for s in segs if s[0] == "affinity"]
+        assert aff, label
+        variants = [(None, K.DEFAULT_FILTERS), (2, K.DEFAULT_FILTERS)]
+        variants += [(None, K.FilterFlags(**{f: False})) for f in ("fit", "interpod", "spread")]
+        for k, (_, _, m, g, cap1, ss_live) in enumerate(aff):
+            nz = bt.n_zones if ss_live else 2
+            for blk, filters in (variants if k < 5 else variants[:1]):
+                blk = blk or K.wave_block_for(m, sim.na.N)
+                kj, kp, kst = K.schedule_affinity_wave_kernel(
+                    tb, seed, g, m, cap1, ss_live=ss_live, filters=filters, block=blk,
+                    n_zones=nz)
+                pj, pp, pst = K.schedule_affinity_wave_plain(
+                    tb, seed, g, m, cap1, ss_live=ss_live, filters=filters, block=blk,
+                    n_zones=nz)
+                assert torch.equal(kj, pj), (label, g, blk, filters)
+                assert int(kp) == pp
+                assert kst.tolist() == [pst[s] for s in K.AFFINITY_STATS], (label, g, blk)
+                for s in K.AFFINITY_STATS:
+                    totals[s] += pst[s]
+            _same_carry(K.aggregate_commit_kernel(tb, seed, g, kj),
+                        K.aggregate_commit_plain(tb, seed, g, pj))
+    # both epoch kinds ran: head fallbacks and multi-round takes
+    assert totals["head_fallbacks"] > 0 and totals["multi_rounds"] > 0

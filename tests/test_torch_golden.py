@@ -44,6 +44,9 @@ SCENARIOS = {
     "northstar": ("plain", 10000, 100000, False),
     # zoned pods spreading against themselves: the group-serial route
     "spread": ("spread", 5000, 20000, False),
+    # pods constraining themselves (self-affinity, self-anti-affinity,
+    # DoNotSchedule spread, live SelectorSpread): the affinity-wave route
+    "affinity": ("affinity", 5000, 20000, False),
 }
 ROUTES = {True: "open_simulator_tpu Simulator, use_waves=False, one CPU device",
           False: "open_simulator_tpu Simulator, default route (use_waves=True), one CPU device"}
@@ -71,20 +74,20 @@ def summarize(sim, pods, failed) -> dict:
 
 
 def generator(gen: str, n_nodes: int, n_pods: int) -> str:
-    if gen == "spread":
-        return f"synth_spread_cluster({n_nodes}, {n_pods})"
+    if gen in ("spread", "affinity"):
+        return f"synth_{gen}_cluster({n_nodes}, {n_pods})"
     hard = ", hard_predicates=True" if gen == "hard" else ""
     return f"synth_cluster({n_nodes}, {n_pods}{hard})"
 
 
 def workload(gen: str, n_nodes: int, n_pods: int, synth) -> tuple:
     """(nodes, pods, services) from `synth` (a utils.synth module of either
-    package: their synth_cluster is one function); the spread workload comes
-    from the port's own generator, which imports no JAX."""
-    if gen == "spread":
-        from open_simulator_torch.utils.synth import synth_spread_cluster
+    package: their synth_cluster is one function); the spread and affinity
+    workloads come from the port's own generators, which import no JAX."""
+    if gen in ("spread", "affinity"):
+        from open_simulator_torch.utils import synth as port_synth
 
-        return synth_spread_cluster(n_nodes, n_pods)
+        return getattr(port_synth, f"synth_{gen}_cluster")(n_nodes, n_pods)
     nodes, pods = synth.synth_cluster(n_nodes, n_pods, hard_predicates=gen == "hard")
     return nodes, pods, []
 
@@ -170,7 +173,7 @@ def test_small_scenario_both_packages():
 
 
 @pytest.mark.parametrize("gen,n_nodes,n_pods", [("hard", 4, 1200), ("plain", 40, 600),
-                                                ("spread", 24, 320)])
+                                                ("spread", 24, 320), ("affinity", 24, 320)])
 def test_small_scenario_both_packages_default_route(gen, n_nodes, n_pods):
     jax_side = run_jax(gen, n_nodes, n_pods, False)
     port_side = run_port(gen, n_nodes, n_pods, False)
