@@ -15,7 +15,12 @@ goldens the JAX package computed (tests/golden/torch_port_*.json):
   20,000-pod cluster whose pods spread against themselves (group-serial)
   and a 5,000-node / 20,000-pod cluster whose pods constrain themselves
   (self-affinity, self-anti-affinity, DoNotSchedule spread, live
-  SelectorSpread: the affinity wave).
+  SelectorSpread: the affinity wave);
+- GPU-share and Open-Local: a 2,000-node / 20,000-pod extended cluster on
+  both routes (`extended`, `extended_serial`), the reference's primary
+  example demo_1 with all four apps and 18 seeded new nodes against
+  tests/golden/demo1_placements.json, and the distilled GPU-share example
+  with its device ids pinned.
 
 Every phase prints one JSON line; any mismatch or error exits non-zero. The
 line before the card line lists every kernel with its launches on the main
@@ -42,7 +47,7 @@ SRC = "open_simulator_torch/ops/csrc/"
 JAX_KERNELS = "open_simulator_tpu/ops/kernels.py"
 # which kernels run each segment kind of the router
 SEGMENT_KERNELS = {"serial": "K2 schedule_batch",
-                   "wave": "K3 schedule_wave + K3c aggregate_commit",
+                   "wave": "K3 schedule_wave + K3c aggregate_commit (gpu_live for shared GPUs)",
                    "spread": "K4 schedule_group_serial + K3c aggregate_commit",
                    "affinity": "K5 schedule_affinity_wave + K3c aggregate_commit"}
 
@@ -237,10 +242,108 @@ def k5_cost(tb, cry, g: int, block: int, stats: dict) -> tuple:
     return group_row_bytes(tb, cry, g) + 4 * slots * D1 + 4 * N, ops
 
 
+def gpu_storage_bytes(tb, cry) -> int:
+    """Bytes of the GPU-share and Open-Local tables and ledgers, each once."""
+    return nbytes(tb.dev_total, cry.dev_used, tb.vg_cap, tb.vg_nameid, cry.vg_req, tb.sdev_cap,
+                  tb.sdev_media, cry.sdev_alloc)
+
+
+def gpu_storage_ops(tb, g: int) -> int:
+    """f32 operations per node of one group's GPU filter and storage_alloc,
+    as counted from csrc/common.cuh: the GPU filter 6 per device and 4 (only
+    for a GPU group); storage_alloc 4 per VG and active LVM slot, 2 per
+    storage device (the count pass), 3 per device and active device slot, 4
+    per VG (the Binpack score) and 8."""
+    M, V, Dv = tb.dev_total.shape[1], tb.vg_cap.shape[1], tb.sdev_cap.shape[1]
+    gpu = (6 * M + 4) if float(tb.grp_gpu_mem[g]) > 0 else 0
+    lvm = int((tb.grp_lvm_size[g] > 0).sum())
+    dev = int((tb.grp_sdev_size[g] > 0).sum())
+    return gpu + 4 * V * lvm + 2 * Dv + 3 * Dv * dev + 4 * V + 8
+
+
 def bound_of(b: int, ops: int) -> tuple:
     """(bound ms, "bytes" or "operations")."""
     tb, to = b / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return max(tb, to) * 1e3, "operations" if to > tb else "bytes"
+
+
+def run_simulate(kind: str, cluster, apps, card: str):
+    """simulate() on the card with every launch count set to 0 just before
+    it: (result, launch counts, wall seconds)."""
+    import torch
+
+    from open_simulator_torch import simulate
+    from open_simulator_torch.ops import kernels as K
+
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = simulate(cluster, apps, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    placed = sum(len(ns.pods) for ns in result.node_status)
+    emit("simulate", kind=kind, route="default", nodes=len(result.node_status), placed=placed,
+         unscheduled=len(result.unscheduled_pods), seconds=wall, launches=counts, card=card)
+    return result, counts
+
+
+def demo1(card: str) -> dict:
+    """The reference's primary example: demo_1 with the simple, complicate,
+    open_local and more_pods apps and 18 seeded new nodes, against
+    tests/golden/demo1_placements.json (match_rate 1.0 through the port's
+    parity module). Returns the launch counts."""
+    from open_simulator_torch.core.types import AppResource
+    from open_simulator_torch.models.fakenode import new_fake_nodes
+    from open_simulator_torch.parity import load_dump, match_rate, placement_dump
+    from open_simulator_torch.utils.yamlio import (load_cluster_from_directory,
+                                                   load_resources_from_directory,
+                                                   match_and_set_local_storage_annotation)
+
+    cluster = load_cluster_from_directory(os.path.join(REPO, "examples/cluster/demo_1"))
+    nn_dir = os.path.join(REPO, "examples/newnode/demo_1")
+    nn = load_resources_from_directory(nn_dir)
+    match_and_set_local_storage_annotation(nn.nodes, nn_dir)
+    cluster.nodes += new_fake_nodes(nn.nodes[0], 18, seed=42)
+    apps = [AppResource(name=name, resource=load_resources_from_directory(
+        os.path.join(REPO, "examples/application", path)))
+        for name, path in (("simple", "simple"), ("complicated", "complicate"),
+                           ("open_local", "open_local"), ("more_pods", "more_pods"))]
+    result, counts = run_simulate("demo_1", cluster, apps, card)
+    rate, detail = match_rate(placement_dump(result),
+                              load_dump(os.path.join(REPO, "tests", "golden",
+                                                     "demo1_placements.json")))
+    if rate != 1.0:
+        fail(f"demo_1: match_rate {rate} against the golden ({dict(list(detail.items())[:5])})")
+    emit("demo_1", match_rate=rate, golden="match", card=card)
+    return counts
+
+
+def gpushare_example(card: str) -> dict:
+    """The distilled GPU-share example (examples/cluster/gpushare with
+    examples/application/gpushare) with its outcome pinned as
+    tests/test_gpushare.py pins it: every pod placed, the device ids of the
+    two annotated pods, the pods per node. Returns the launch counts."""
+    from open_simulator_torch.core.types import AppResource
+    from open_simulator_torch.utils.yamlio import (load_cluster_from_directory,
+                                                   load_resources_from_directory)
+
+    cluster = load_cluster_from_directory(os.path.join(REPO, "examples/cluster/gpushare"))
+    app = AppResource(name="pai_gpu", resource=load_resources_from_directory(
+        os.path.join(REPO, "examples/application/gpushare")))
+    result, counts = run_simulate("gpushare", cluster, [app], card)
+    gpu_idx = {p["metadata"]["name"]: (ns.node["metadata"]["name"],
+                                       p["metadata"]["annotations"]["alibabacloud.com/gpu-index"])
+               for ns in result.node_status for p in ns.pods
+               if (p["metadata"].get("annotations") or {}).get("alibabacloud.com/gpu-index")}
+    per_node = {ns.node["metadata"]["name"]: len(ns.pods) for ns in result.node_status if ns.pods}
+    want_idx = {"gpu-pod-00": ("pai-node-00", "0"), "gpu-pod-02": ("pai-node-00", "0-1")}
+    if result.unscheduled_pods or gpu_idx != want_idx or per_node != {"pai-node-00": 4,
+                                                                        "pai-node-01": 5}:
+        fail(f"gpushare example: {gpu_idx}, {per_node}, "
+             f"{len(result.unscheduled_pods)} unscheduled")
+    emit("gpushare", gpu_index=gpu_idx, pods_per_node=per_node, pinned="match", card=card)
+    return counts
 
 
 def main() -> int:
@@ -255,7 +358,7 @@ def main() -> int:
     from open_simulator_torch.ops import kernels as K
     from open_simulator_torch.simulator.engine import Simulator
     from open_simulator_torch.utils.synth import (synth_affinity_cluster, synth_cluster,
-                                                  synth_spread_cluster)
+                                                  synth_extended_cluster, synth_spread_cluster)
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -338,40 +441,52 @@ def main() -> int:
     # versions on the 10,000-node / 100,000-pod wave and on a cap1 segment of
     # the 5,000-node hard shape, at the engine's block and kmax
     def wave_case(label, sim, pods, pick):
+        """K3 and K3c against their plain versions on one wave segment (with
+        the segment's gpu_live: the GPU filter, the units clamp and the
+        device-ledger replay); returns the two kernels-line rows."""
         bt = sim.encode_batch(pods)
         tb, seed = sim._to_device(bt)
         seg = pick(sim._segments(bt, len(pods)))
-        _, _, m, g, cap1, _ = seg
+        _, _, m, g, cap1, gpu_live = seg
         N = sim.na.N
         block = K.wave_block_for(m, N)
         kmax = K.wave_kmax(m, N, block)
-        (kj, kp, kst), _ = timed(lambda: K.schedule_wave_kernel(tb, seed, g, m, cap1, block=block,
-                                                                kmax=kmax))
-        (pj, pp, pst), plain_ms = timed(lambda: K.schedule_wave_plain(
-            tb, seed, g, m, cap1, block=block, kmax=kmax))
+        kw = dict(block=block, kmax=kmax, gpu_live=gpu_live)
+        (kj, kp, kst), _ = timed(lambda: K.schedule_wave_kernel(tb, seed, g, m, cap1, **kw))
+        (pj, pp, pst), plain_ms = timed(lambda: K.schedule_wave_plain(tb, seed, g, m, cap1, **kw))
         if not torch.equal(kj, pj) or int(kp) != pp:
             fail(f"schedule_wave {label}: counts differ at {int((kj != pj).sum())} nodes")
         if kst.tolist() != [pst[k] for k in K.WAVE_STATS]:
             fail(f"schedule_wave {label}: loop statistics {kst.tolist()} vs {pst}")
-        kc = K.aggregate_commit_kernel(tb, seed, g, kj)
-        pc, c_plain_ms = timed(lambda: K.aggregate_commit_plain(tb, seed, g, pj))
+        kc = K.aggregate_commit_kernel(tb, seed, g, kj, gpu_live)
+        pc, c_plain_ms = timed(lambda: K.aggregate_commit_plain(tb, seed, g, pj, gpu_live))
         c_err = 0.0
         for f in K.Carry._fields:
             if not torch.equal(getattr(kc, f), getattr(pc, f)):
                 fail(f"aggregate_commit {label}: carry.{f} differs")
             c_err = max(c_err, err_of(getattr(kc, f), getattr(pc, f)))
-        ms = cuda_ms(lambda: K.schedule_wave_kernel(tb, seed, g, m, cap1, block=block,
-                                                    kmax=kmax), 3)
-        c_ms = cuda_ms(lambda: K.aggregate_commit_kernel(tb, seed, g, kj), 20)
+        ms = cuda_ms(lambda: K.schedule_wave_kernel(tb, seed, g, m, cap1, **kw), 3)
+        c_ms = cuda_ms(lambda: K.aggregate_commit_kernel(tb, seed, g, kj, gpu_live), 20)
         b, ops = k3_cost(tb, seed, g, block, pst["iterations"])
-        bound, by = bound_of(b, ops)
         cb, cops = k3c_cost(tb, seed)
+        if gpu_live:
+            # K3: dev_total and dev_used read once, the units 6 per device and
+            # 2 per node; K3c: dev_total read, dev_used read and written, 8
+            # operations per copy and device
+            M = int(tb.dev_total.shape[1])
+            b += nbytes(tb.dev_total, seed.dev_used)
+            ops += int(tb.alloc.shape[0]) * (6 * M + 2)
+            cb += 3 * nbytes(tb.dev_total)
+            cops += int(kj.sum()) * M * 8
+        bound, by = bound_of(b, ops)
         c_bound, c_by = bound_of(cb, cops)
         emit("schedule_wave", case=label, nodes=int(tb.alloc.shape[0]), pods=m, cap1=bool(cap1),
-             block=block, kmax=kmax, placed=pp, **pst, kernel_ms=ms, plain_ms=plain_ms,
-             bound_ms=bound, bytes=b, f32_ops=ops, max_abs_err=err_of(kj, pj), card=card)
-        emit("aggregate_commit", case=label, kernel_ms=c_ms, plain_ms=c_plain_ms,
-             bound_ms=c_bound, bytes=cb, f32_ops=cops, max_abs_err=c_err, card=card)
+             gpu_live=bool(gpu_live), block=block, kmax=kmax, placed=pp, **pst, kernel_ms=ms,
+             plain_ms=plain_ms, bound_ms=bound, bytes=b, f32_ops=ops,
+             max_abs_err=err_of(kj, pj), card=card)
+        emit("aggregate_commit", case=label, gpu_live=bool(gpu_live), copies=int(kj.sum()),
+             kernel_ms=c_ms, plain_ms=c_plain_ms, bound_ms=c_bound, bytes=cb, f32_ops=cops,
+             max_abs_err=c_err, card=card)
         return (dict(max_abs_err=err_of(kj, pj), ms=ms, plain_ms=plain_ms, bound_ms=bound,
                      bound_by=by),
                 dict(max_abs_err=c_err, ms=c_ms, plain_ms=c_plain_ms, bound_ms=c_bound,
@@ -472,16 +587,95 @@ def main() -> int:
     rows["schedule_affinity_wave"] = dict(source=SRC + "affinity_wave.cu",
                                           replaces=JAX_KERNELS + ":1311", **k5)
 
+    # ---- the GPU-share and Open-Local branches: K2 and K1 with both on
+    # against their plain versions on a 2,500-pod serial slice of the
+    # 2,000-node extended cluster (choices, every carry field with the device
+    # and storage ledgers; every stage), then K3 + K3c with gpu_live on one
+    # 1-GPU and one 2-GPU wave segment of the whole workload
+    ext_nodes, ext_pods, _, ext_scs = synth_extended_cluster(2000, 20000)
+    sim = Simulator(ext_nodes, device="cuda")
+    sim.register_cluster_objects(ResourceTypes(storage_classes=ext_scs))
+    bt = sim.encode_batch(ext_pods[:2500])
+    tb, seed = sim._to_device(bt)
+    P = 2500
+    pad = bt.pod_group.shape[0]
+    pg, fn, vd = (torch.from_numpy(a).cuda() for a in (bt.pod_group, bt.forced_node, bt.valid))
+    flags = dict(enable_gpu=True, enable_storage=True)
+    end_k, ch_k = K.schedule_batch_kernel(tb, seed, pg, fn, vd, bt.n_zones, **flags)
+    (end_p, ch_p), plain_ms = timed(lambda: K.schedule_batch_plain(tb, seed, pg, fn, vd,
+                                                                   bt.n_zones, **flags))
+    if not torch.equal(ch_k, ch_p):
+        fail(f"schedule_batch (gpu, storage): choices differ at {int((ch_k != ch_p).sum())} pods")
+    err = 0.0
+    for f in K.Carry._fields:
+        if not torch.equal(getattr(end_k, f), getattr(end_p, f)):
+            fail(f"schedule_batch (gpu, storage): carry.{f} differs")
+        err = max(err, err_of(getattr(end_k, f), getattr(end_p, f)))
+    ms = cuda_ms(lambda: K.schedule_batch_kernel(tb, seed, pg, fn, vd, bt.n_zones, **flags), 3)
+    b, ops = k2_cost(tb, seed, P, pad)
+    N = int(tb.alloc.shape[0])
+    ops += N * sum(gpu_storage_ops(tb, int(g)) for g in bt.pod_group[:P])
+    b += gpu_storage_bytes(tb, seed) + nbytes(seed.dev_used, seed.vg_req, seed.sdev_alloc)
+    bound, by = bound_of(b, ops)
+    emit("schedule_batch_gpu_storage", nodes=N, pods=P, padded=pad,
+         placed=int((ch_k >= 0).sum()), kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound,
+         bytes=b, f32_ops=ops, max_abs_err=err, card=card)
+    rows["schedule_batch/gpu_storage"] = dict(
+        source=SRC + "schedule.cu", replaces=JAX_KERNELS + ":2265", max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+    kinds = sorted({int(g) for g in bt.pod_group[:P]})
+    checked = 0
+    for label, cry in (("seed", seed), ("end", end_k)):
+        for g in kinds:
+            f_k, s_k = K.feasibility_kernel(tb, cry, g, -1, True, **flags)
+            f_p, s_p = K.feasibility(tb, cry, g, -1, True, **flags)
+            if not torch.equal(f_k, f_p):
+                fail(f"feasibility (gpu, storage) mask differs (group {g}, {label} carry)")
+            for k in K.STAGE_KEYS:
+                if not torch.equal(s_k[k], s_p[k]):
+                    fail(f"feasibility (gpu, storage) stage {k} differs (group {g}, {label})")
+            checked += 1
+    # time K1 on a group with LVM and device volumes, against the end carry
+    g_st = next(g for g in kinds if bool((tb.grp_lvm_size[g] > 0).any()))
+    ms = cuda_ms(lambda: K.feasibility_kernel(tb, end_k, g_st, -1, True, **flags), 200)
+    plain_ms = cuda_ms(lambda: K.feasibility(tb, end_k, g_st, -1, True, **flags), 20)
+    b = k1_bytes(tb, end_k, g_st) + gpu_storage_bytes(tb, end_k)
+    bound, by = bound_of(b, N * gpu_storage_ops(tb, g_st))
+    emit("feasibility_gpu_storage", cases=checked, groups=len(kinds), kernel_ms=ms,
+         plain_ms=plain_ms, bound_ms=bound, bytes=b, max_abs_err=0.0, card=card)
+    rows["feasibility/gpu_storage"] = dict(
+        source=SRC + "schedule.cu", replaces=JAX_KERNELS + ":743", max_abs_err=0.0, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+
+    def gpu_wave(units):
+        """The first shared-GPU wave segment asking for `units` GPUs."""
+        def pick(segs):
+            got = next((s for s in segs if s[0] == "wave" and s[5]
+                        and int(sim.encoder.group_list[s[3]].gpu_num) == units), None)
+            if got is None:
+                fail(f"extended workload: no {units}-GPU wave segment")
+            return got
+        return pick
+
+    for units in (1, 2):
+        w_row, c_row = wave_case(f"extended_{units}gpu", sim, ext_pods, gpu_wave(units))
+        if units == 1:  # the kernels line reports the one-GPU segment
+            rows["schedule_wave/gpu_live"] = dict(source=SRC + "wave.cu",
+                                                  replaces=JAX_KERNELS + ":963", **w_row)
+            rows["aggregate_commit/gpu_live"] = dict(source=SRC + "wave.cu",
+                                                     replaces=JAX_KERNELS + ":1007", **c_row)
+
     # ---- the main path: Simulator.schedule_pods against the JAX goldens,
     # each run with every launch count set to 0 just before it
     launches = Counter()
     walls = {}
 
-    def main_path(kind, nodes, pods, services=(), serial=False):
+    def main_path(kind, nodes, pods, services=(), serial=False, storage_classes=()):
         K.reset_launch_counts()
         sim = Simulator(nodes, device="cuda")
         sim.use_waves = not serial
-        sim.register_cluster_objects(ResourceTypes(services=list(services)))
+        sim.register_cluster_objects(ResourceTypes(services=list(services),
+                                                   storage_classes=list(storage_classes)))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         failed = sim.schedule_pods(pods)
@@ -520,6 +714,11 @@ def main() -> int:
     main_path("spread", nodes, pods, services)
     nodes, pods, services = synth_affinity_cluster(5000, 20000)
     main_path("affinity", nodes, pods, services)
+    for kind, serial in (("extended", False), ("extended_serial", True)):
+        nodes, pods, _, scs = synth_extended_cluster(2000, 20000)
+        main_path(kind, nodes, pods, serial=serial, storage_classes=scs)
+    launches.update(demo1(card))
+    launches.update(gpushare_example(card))
     for k in rows:
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched on the main path")

@@ -136,7 +136,8 @@ def _load(path: str) -> ctypes.CDLL:
     lib.wave_scratch_ints.restype = ctypes.c_longlong
     lib.schedule_wave_launch.argtypes = [V] + [ctypes.c_int] * 5 + [P] * 5
     lib.schedule_wave_launch.restype = ctypes.c_int
-    lib.aggregate_commit_launch.argtypes = [V, ctypes.c_int, P, P, P, P, ctypes.c_int, P, P]
+    lib.aggregate_commit_launch.argtypes = [V, ctypes.c_int, P, P, P, P, ctypes.c_int, ctypes.c_int,
+                                            P, P]
     lib.aggregate_commit_launch.restype = ctypes.c_int
     lib.group_serial_scratch_floats.argtypes = [V]
     lib.group_serial_scratch_floats.restype = ctypes.c_longlong

@@ -301,8 +301,8 @@ schedule_affinity_wave_kernel(TablesView t, int g, int m, int cap1, int ss_live,
   bool same = true;
   for (int n = tid; n < N; n += bd) {
     float ip_unused;
-    segment_node_constants(t, &pc, g, n, cap1, 0, 0, &feas_s[n], &cap_s[n], &ip_unused,
-                           &simon_s[n], &stat_s[n]);
+    segment_node_constants<false>(t, &pc, g, n, cap1, 0, 0, &feas_s[n], &cap_s[n], &ip_unused,
+                                  &simon_s[n], &stat_s[n]);
     ip_pref[n] = interpod_pref_at(t, g, n);
     int sum = 0, key = 1;
     for (int k = SK_DNS; k <= SK_CAR; ++k) {

@@ -13,7 +13,17 @@
 //   add integer-valued f32 counts, exact in any order below 2^24, so atomics
 //   are safe there;
 // - every argmax carries (value, index) pairs and prefers the smaller index
-//   on equal values (JAX's first-max argmax).
+//   on equal values (JAX's first-max argmax); the argmins over a node's
+//   devices and volume groups likewise keep the first minimum;
+// - sums over a node's GPU devices and volume groups run left to right from
+//   0 on one thread.
+//
+// The GPU-share and Open-Local branches (`f_gpu`, `f_storage`) are runtime
+// flags of the view. The device code that evaluates them is compiled only
+// into the instantiations with EXT = true (node_feasibility<EXT>,
+// segment_node_constants<EXT>, K2, K3), which the launchers pick when a flag
+// is on: with both off, a kernel runs the code it ran before the branches
+// existed (the same registers, no stack for their per-node arrays).
 
 #pragma once
 
@@ -22,6 +32,8 @@
 #include <stdint.h>
 
 #define MAX_SLOTS 64
+// per-node GPU devices, volume groups and storage devices one thread holds
+#define MAX_NODE_DEVS 32
 #define FULL_MASK 0xffffffffu
 
 // Field order must match ops/kernels.py _PTR_FIELDS / _DIM_FIELDS.
@@ -63,13 +75,30 @@ struct TablesView {
   const int* carr_w_t;           // [G, Cw]
   const float* carr_w_w;         // [G, Cw]
   const float* grp_carries;      // [G, Tc]
+  const float* grp_gpu_mem;      // [G]
+  const float* grp_gpu_num;      // [G]
+  const uint8_t* grp_gpu_pre;    // [G]
+  const float* grp_gpu_take;     // [G, MAXDEV]
+  const float* dev_total;        // [N, MAXDEV]
+  const float* grp_lvm_size;     // [G, SL]
+  const int* grp_lvm_vg;         // [G, SL]
+  const float* grp_sdev_size;    // [G, SD]
+  const int* grp_sdev_media;     // [G, SD]
+  const float* vg_cap;           // [N, MAXVG]
+  const int* vg_nameid;          // [N, MAXVG]
+  const float* sdev_cap;         // [N, MAXSD]
+  const int* sdev_media;         // [N, MAXSD]
   float* requested;              // carry [N, R]
   float* nonzero;                // carry [N, 2]
   uint8_t* port_used;            // carry [N, PORT1]
   float* counter;                // carry [T, D1]
   float* carrier;                // carry [Tc, D1]
+  float* dev_used;               // carry [N, MAXDEV]
+  float* vg_req;                 // carry [N, MAXVG]
+  float* sdev_alloc;             // carry [N, MAXSD]
   int N, R, G, T, Tc, D1, PORT1, PP, A, B, Cp, Sd, Ss, Ca, Cw, Z;
-  int f_fit, f_ports, f_interpod, f_spread;
+  int MAXDEV, MAXVG, MAXSD, SL, SD;
+  int f_fit, f_ports, f_interpod, f_spread, f_gpu, f_storage;
   // least balanced openlocal simon(+gpushare) nodeaff taint interpod ss pts avoid image extra
   float w[12];
 };
@@ -172,13 +201,226 @@ static __device__ void pod_prologue(const TablesView& t, int g, int include_dns,
   __syncthreads();
 }
 
-// Every filter of `feasibility` (kernels.py:379-521, no GPU-share/Open-Local
-// branch) for one node; include_dns=0 drops DoNotSchedule, include_interpod=0
-// the InterPodAffinity filters. Returns the stage bits plus BIT_FEASIBLE;
-// writes fit_each[R] when `fit_each` is not null.
+// ---- GPU-share (kernels.py :475-498, :693-716) ----
+
+// Whole units of `safe_mem` device d of node n still holds (0 off a device)
+static __device__ __forceinline__ float gpu_units_at(const TablesView& t, const float* used,
+                                                     int n, int d, float safe_mem) {
+  const float tot = t.dev_total[(size_t)n * t.MAXDEV + d];
+  const float u = tot > 0.0f ? floorf((tot - used[d]) / safe_mem) : 0.0f;
+  return fmaxf(u, 0.0f);
+}
+
+// Open-Gpu-Share Filter of group g on node n: the node's total GPU memory
+// covers the per-GPU request and its devices hold the requested units; a
+// pre-assigned gpu-index skips the device fit.
+static __device__ bool gpu_ok_at(const TablesView& t, int g, int n) {
+  const float gmem = t.grp_gpu_mem[g];
+  if (!(gmem > 0.0f)) return true;
+  const float gnum = t.grp_gpu_num[g], safe_mem = fmaxf(gmem, 1.0f);
+  const float* used = t.dev_used + (size_t)n * t.MAXDEV;
+  float total = 0.0f, units = 0.0f;
+  bool any_dev = false;
+  for (int d = 0; d < t.MAXDEV; ++d) {
+    const float tot = t.dev_total[(size_t)n * t.MAXDEV + d];
+    total = total + tot;
+    any_dev = any_dev || tot > 0.0f;
+    units = units + gpu_units_at(t, used, n, d, safe_mem);
+  }
+  if (t.grp_gpu_pre[g]) return total >= gmem && gnum > 0.0f && any_dev;
+  return total >= gmem && units >= gnum && gnum > 0.0f;
+}
+
+// Units per device one copy of group g takes on node n (AllocateGpuId):
+// one GPU, the tightest device that fits (first on ties, device 0 when none
+// fits); several, the first `gnum` units in device order. `used` is the
+// node's ledger row; `take` gets MAXDEV values.
+static __device__ void gpu_take_at(const TablesView& t, const float* used, int n, float gmem,
+                                   float gnum, float safe_mem, bool single, float* take) {
+  const float* tot = t.dev_total + (size_t)n * t.MAXDEV;
+  if (single) {
+    float best = INFINITY;
+    int cand = 0;
+    for (int d = 0; d < t.MAXDEV; ++d) {
+      const float idle = tot[d] - used[d];
+      if (idle >= gmem && tot[d] > 0.0f && idle < best) {
+        best = idle;
+        cand = d;
+      }
+    }
+    for (int d = 0; d < t.MAXDEV; ++d) take[d] = d == cand ? 1.0f : 0.0f;
+    return;
+  }
+  float cum = 0.0f;  // whole numbers: exact
+  for (int d = 0; d < t.MAXDEV; ++d) {
+    const float u = gpu_units_at(t, used, n, d, safe_mem);
+    cum = cum + u;
+    take[d] = fminf(fmaxf(gnum - (cum - u), 0.0f), u);
+  }
+}
+
+// The serial commit's GPU ledger update at node c (kernels.py:693-716): a
+// pre-assigned gpu-index charges exactly the annotated devices. One thread.
+static __device__ void gpu_commit_at(const TablesView& t, int g, int c) {
+  const float gmem = t.grp_gpu_mem[g];
+  if (!(gmem > 0.0f)) return;  // adds take * gmem * 0
+  float take[MAX_NODE_DEVS];
+  float* used = t.dev_used + (size_t)c * t.MAXDEV;
+  if (t.grp_gpu_pre[g]) {
+    for (int d = 0; d < t.MAXDEV; ++d) take[d] = t.grp_gpu_take[(size_t)g * t.MAXDEV + d];
+  } else {
+    const float gnum = t.grp_gpu_num[g];
+    gpu_take_at(t, used, c, gmem, gnum, fmaxf(gmem, 1.0f), gnum == 1.0f, take);
+  }
+  for (int d = 0; d < t.MAXDEV; ++d) used[d] = used[d] + take[d] * gmem;
+}
+
+// ---- Open-Local (kernels.py storage_alloc :274) ----
+
+// Open-Local allocation of group g's volumes on node n against the carry's
+// VG/device state: LVM volumes in slot order (a named VG exactly, else
+// Binpack: the tightest VG that fits, first on ties), then device volumes
+// (the smallest free device of the media type that fits), with the
+// reference's quirks (a per-media count pre-check; a volume fails the node
+// only when the last free device is too small; volumes past a consumed last
+// device are dropped). Returns ok (true without storage demand); writes the
+// raw Binpack score to *raw, and the node's lvm_add[MAXVG] / dev_add[MAXSD]
+// rows when those are not null. A slot without a volume changes nothing and
+// is skipped.
+static __device__ bool storage_alloc_at(const TablesView& t, int g, int n, float* raw,
+                                        float* lvm_out, float* dev_out) {
+  const int V = t.MAXVG, Dv = t.MAXSD;
+  const float* vcap = t.vg_cap + (size_t)n * V;
+  const int* vname = t.vg_nameid + (size_t)n * V;
+  const float* vreq = t.vg_req + (size_t)n * V;
+  float lvm_add[MAX_NODE_DEVS];
+  for (int v = 0; v < V; ++v) lvm_add[v] = 0.0f;
+  bool ok = true, has_lvm = false, has_dev = false;
+  for (int s = 0; s < t.SL; ++s) {
+    const float size = t.grp_lvm_size[(size_t)g * t.SL + s];
+    if (!(size > 0.0f)) continue;
+    has_lvm = true;
+    const int nid = t.grp_lvm_vg[(size_t)g * t.SL + s];
+    bool fit = false;
+    int tgt = 0;
+    if (nid > 0) {  // named VG: the first VG of that name
+      int first = -1;
+      for (int v = 0; v < V; ++v) {
+        if (vname[v] != nid) continue;
+        if (first < 0) first = v;
+        if (vcap[v] - (vreq[v] + lvm_add[v]) >= size) fit = true;
+      }
+      tgt = first < 0 ? 0 : first;
+    } else {  // Binpack: the tightest VG that fits
+      float best = INFINITY;
+      for (int v = 0; v < V; ++v) {
+        const float fr = vcap[v] - (vreq[v] + lvm_add[v]);
+        if (vcap[v] > 0.0f && fr >= size) {
+          fit = true;
+          if (fr < best) {
+            best = fr;
+            tgt = v;
+          }
+        }
+      }
+    }
+    if (fit) lvm_add[tgt] = lvm_add[tgt] + size;
+    ok = ok && fit;
+  }
+
+  const float* dcap = t.sdev_cap + (size_t)n * Dv;
+  const int* dmed = t.sdev_media + (size_t)n * Dv;
+  const float* dal = t.sdev_alloc + (size_t)n * Dv;
+  // per media (1 hdd, 2 ssd): the last device in (capacity, index) order
+  // among the free ones, and the count pre-check
+  int last[3] = {0, 0, 0};
+  for (int m = 1; m <= 2; ++m) {
+    float maxcap = -1.0f;
+    int n_free = 0, n_vols = 0;
+    for (int d = 0; d < Dv; ++d) {
+      if (!(dmed[d] == m && dal[d] < 0.5f && dcap[d] > 0.0f)) continue;
+      ++n_free;
+      if (dcap[d] >= maxcap) {
+        maxcap = dcap[d];
+        last[m] = d;
+      }
+    }
+    for (int s = 0; s < t.SD; ++s)
+      if (t.grp_sdev_media[(size_t)g * t.SD + s] == m && t.grp_sdev_size[(size_t)g * t.SD + s] > 0.0f)
+        ++n_vols;
+    ok = ok && (n_free >= n_vols || n_vols == 0);
+  }
+  uint32_t taken = 0;  // dev_add as bits
+  float dev_acc = 0.0f, dev_units = 0.0f;
+  for (int s = 0; s < t.SD; ++s) {
+    const float size = t.grp_sdev_size[(size_t)g * t.SD + s];
+    if (!(size > 0.0f)) continue;
+    has_dev = true;
+    const int m = t.grp_sdev_media[(size_t)g * t.SD + s] == 2 ? 2 : 1;
+    bool fit = false;
+    int tgt = 0;
+    float best = INFINITY;
+    for (int d = 0; d < Dv; ++d) {
+      const bool free_now = dmed[d] == m && dal[d] < 0.5f && dcap[d] > 0.0f && !((taken >> d) & 1u);
+      if (free_now && dcap[d] >= size) {
+        fit = true;
+        if (dcap[d] < best) {
+          best = dcap[d];
+          tgt = d;
+        }
+      }
+    }
+    const int li = last[m];
+    const bool last_free = dmed[li] == m && dal[li] < 0.5f && dcap[li] > 0.0f && !((taken >> li) & 1u);
+    ok = ok && !(!fit && last_free);
+    if (fit) {
+      taken |= 1u << tgt;
+      dev_acc = dev_acc + size / fmaxf(dcap[tgt], 1.0f);
+      dev_units = dev_units + 1.0f;
+    }
+  }
+
+  // ScoreLVM (Binpack): the mean over the used VGs of used / capacity x 10
+  float frac = 0.0f, n_used = 0.0f;
+  for (int v = 0; v < V; ++v) {
+    const bool used = lvm_add[v] > 0.0f;
+    frac = frac + ((used && vcap[v] > 0.0f) ? lvm_add[v] / fmaxf(vcap[v], 1.0f) : 0.0f);
+    n_used = n_used + (used ? 1.0f : 0.0f);
+  }
+  const float lvm_raw = (has_lvm && n_used > 0.0f) ? floorf(frac / fmaxf(n_used, 1.0f) * 10.0f) : 0.0f;
+  const float dev_raw = (has_dev && dev_units > 0.0f)
+                            ? floorf(dev_acc / fmaxf(dev_units, 1.0f) * 10.0f) : 0.0f;
+  if (raw) *raw = lvm_raw + dev_raw;
+  if (lvm_out)
+    for (int v = 0; v < V; ++v) lvm_out[v] = lvm_add[v];
+  if (dev_out)
+    for (int d = 0; d < Dv; ++d) dev_out[d] = (float)((taken >> d) & 1u);
+  return ok || !(has_lvm || has_dev);
+}
+
+// The serial commit's Open-Local bind at node c (kernels.py:718-723): the
+// take is computed from the carry before the commit. One thread.
+static __device__ void storage_commit_at(const TablesView& t, int g, int c) {
+  float lvm_add[MAX_NODE_DEVS], dev_add[MAX_NODE_DEVS];
+  storage_alloc_at(t, g, c, nullptr, lvm_add, dev_add);
+  // sdo = has_storage: without storage demand both rows are zero
+  for (int v = 0; v < t.MAXVG; ++v)
+    t.vg_req[(size_t)c * t.MAXVG + v] = t.vg_req[(size_t)c * t.MAXVG + v] + lvm_add[v];
+  for (int d = 0; d < t.MAXSD; ++d)
+    t.sdev_alloc[(size_t)c * t.MAXSD + d] = t.sdev_alloc[(size_t)c * t.MAXSD + d] + dev_add[d];
+}
+
+// Every filter of `feasibility` (kernels.py:379-521) for one node;
+// include_dns=0 drops DoNotSchedule, include_interpod=0 the InterPodAffinity
+// filters; with EXT, the view's f_gpu / f_storage switch the GPU-share and
+// Open-Local filters on. Returns the stage bits plus BIT_FEASIBLE; writes
+// fit_each[R] when `fit_each` is not null, and the node's raw Open-Local
+// score to *st_raw when that is not null and f_storage is on.
+template <bool EXT>
 static __device__ uint32_t node_feasibility(const TablesView& t, const PodCtx* pc, int g,
                                             int forced, int valid, int include_dns,
-                                            int include_interpod, int n, uint8_t* fit_each) {
+                                            int include_interpod, int n, uint8_t* fit_each,
+                                            float* st_raw = nullptr) {
   const int N = t.N, R = t.R, D = t.D1 - 1;
   const size_t gn = (size_t)g * N + n;
   const bool smask = t.static_mask[gn];
@@ -248,7 +490,14 @@ static __device__ uint32_t node_feasibility(const TablesView& t, const PodCtx* p
     }
   }
 
-  bool feasible = smask && fit && !conflict && aff_ok && !blocked_in && !blocked_ex && dns_ok;
+  bool gpu_ok = true, storage_ok = true;
+  if constexpr (EXT) {
+    if (t.f_gpu) gpu_ok = gpu_ok_at(t, g, n);
+    if (t.f_storage) storage_ok = storage_alloc_at(t, g, n, st_raw, nullptr, nullptr);
+  }
+
+  bool feasible = smask && fit && !conflict && aff_ok && !blocked_in && !blocked_ex && dns_ok
+                  && gpu_ok && storage_ok;
   feasible = feasible && valid && (forced < 0 || n == forced);
 
   uint32_t bits = 0;
@@ -262,8 +511,8 @@ static __device__ uint32_t node_feasibility(const TablesView& t, const PodCtx* p
   bits |= (uint32_t)aff_ok << ST_POD_AFFINITY;
   bits |= (uint32_t)(!(blocked_in || blocked_ex)) << ST_POD_ANTI;
   bits |= (uint32_t)dns_ok << ST_SPREAD;
-  bits |= 1u << ST_GPU;
-  bits |= 1u << ST_STORAGE;
+  bits |= (uint32_t)gpu_ok << ST_GPU;
+  bits |= (uint32_t)storage_ok << ST_STORAGE;
   bits |= (uint32_t)feasible << BIT_FEASIBLE;
   return bits;
 }
@@ -379,18 +628,29 @@ static __device__ int segment_capacity(const TablesView& t, int g, int n, int ca
 
 // Per-node constants of a one-group segment (K3, K4, K5; kernels.py
 // _wave_statics :868 and the capacity): base feasibility (include_dns=0
-// drops DoNotSchedule, include_interpod=0 InterPodAffinity), copies the node
-// can take, the interpod raw score, the floored Simon input and the static
-// score terms.
+// drops DoNotSchedule, include_interpod=0 InterPodAffinity; the view's
+// f_gpu adds the GPU filter, and GPU units then clamp the capacity as
+// _gpu_capacity :963 does; EXT only), copies the node can take, the
+// interpod raw score, the floored Simon input and the static score terms.
+template <bool EXT>
 static __device__ void segment_node_constants(const TablesView& t, const PodCtx* pc, int g, int n,
                                               int cap1, int include_dns, int include_interpod,
                                               int* feas, int* cap, float* ip, float* simon_s,
                                               float* stat) {
   const size_t gn = (size_t)g * t.N + n;
-  const bool f = (node_feasibility(t, pc, g, -1, 1, include_dns, include_interpod, n, nullptr)
-                  >> BIT_FEASIBLE) & 1u;
+  const bool f = (node_feasibility<EXT>(t, pc, g, -1, 1, include_dns, include_interpod, n,
+                                        nullptr) >> BIT_FEASIBLE) & 1u;
   *feas = f;
   *cap = segment_capacity(t, g, n, cap1, f);
+  const float gmem = t.grp_gpu_mem[g];
+  if (EXT && t.f_gpu && gmem > 0.0f) {
+    // every copy takes num whole units: floor(total units / max(num, 1))
+    const float safe_mem = fmaxf(gmem, 1.0f), gnum = fmaxf(t.grp_gpu_num[g], 1.0f);
+    const float* used = t.dev_used + (size_t)n * t.MAXDEV;
+    float units = 0.0f;
+    for (int d = 0; d < t.MAXDEV; ++d) units = units + gpu_units_at(t, used, n, d, safe_mem);
+    *cap = min(*cap, (int)floorf(units / gnum));
+  }
   *ip = interpod_raw_at(t, g, n);
   *simon_s = floorf(100.0f * t.simon_raw[gn]);
   *stat = t.w[W_AVOID] * t.avoid_raw[gn] + t.w[W_IMAGE] * t.image_raw[gn] + t.extra_raw[gn];

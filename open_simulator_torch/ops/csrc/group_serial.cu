@@ -55,8 +55,8 @@ schedule_group_serial_kernel(TablesView t, int g, const uint8_t* valid, int P, i
   // static score terms, the live rows' start values
   pod_prologue(t, g, 0, &pc, s_red);
   for (int n = tid; n < N; n += bd) {
-    segment_node_constants(t, &pc, g, n, cap1, 0, 1, &feas_s[n], &cap_s[n], &ip_s[n], &simon_s[n],
-                           &stat_s[n]);
+    segment_node_constants<false>(t, &pc, g, n, cap1, 0, 1, &feas_s[n], &cap_s[n], &ip_s[n],
+                                  &simon_s[n], &stat_s[n]);
     pern0_s[n] = t.counter[(size_t)ss_id * D1 + t.counter_dom[(size_t)ss_id * N + n]];
     bool ignored = false;
     for (int s = 0; s < Ss; ++s) {

@@ -7,6 +7,18 @@
 //    `_step` :728): per pod, feasibility, every score plugin, the first-max
 //    argmax and the commit into the carry.
 //
+// Both take the GPU-share and Open-Local branches (`enable_gpu`,
+// `enable_storage`, runtime flags of the view) with `storage_alloc` (:274)
+// as a device function (common.cuh): K1 adds the gpu and storage stages;
+// K2 adds both masks, the Open-Local min-max score over the feasible set,
+// and, at the chosen node, the GPU device-ledger and storage commits.
+// JAX evaluates storage_alloc three times per step on the same inputs (XLA
+// folds them into one); K2 evaluates it once per node in phase B and once
+// more at the chosen node in phase F, from the carry before the commit,
+// rather than keep an [N, MAXVG] buffer. K2 is built twice (EXT false and
+// true); the launcher picks by the flags, so a batch without such demand
+// runs the code of the earlier slices.
+//
 // What bounds them on an H100: K1 reads a few [N] rows and is launch bound at
 // the shapes of this route (N = 5,120). K2 is a chain of dependent block-wide
 // reductions: each pod needs the previous pod's commit, so the pods cannot
@@ -34,7 +46,7 @@ feasibility_kernel(TablesView t, int g, int forced, int valid, int include_dns, 
   pod_prologue(t, g, include_dns, &pc, s_red);
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= t.N) return;
-  const uint32_t bits = node_feasibility(t, &pc, g, forced, valid, include_dns, 1, n,
+  const uint32_t bits = node_feasibility<true>(t, &pc, g, forced, valid, include_dns, 1, n,
                                          fit_each + (size_t)n * t.R);
   feasible[n] = (bits >> BIT_FEASIBLE) & 1u;
   for (int s = 0; s < N_STAGES; ++s) stages[(size_t)s * t.N + n] = (bits >> s) & 1u;
@@ -43,10 +55,14 @@ feasibility_kernel(TablesView t, int g, int forced, int valid, int include_dns, 
 // ----------------------------------------------------------------- K2 ------
 
 // scratch layout (floats): per-node rows, then zone sums, then domain marks
-enum { SC_LEAST = 0, SC_BALANCED, SC_SIMON, SC_IP, SC_PERNODE, SC_SA, SC_FLAGS, SC_NODE_ROWS };
+enum { SC_LEAST = 0, SC_BALANCED, SC_SIMON, SC_IP, SC_PERNODE, SC_SA, SC_FLAGS, SC_STORAGE,
+       SC_NODE_ROWS };
 #define FL_F 1.0f
 #define FL_REL 2.0f
 
+// EXT: the instantiation with the GPU-share and Open-Local branches, which
+// schedule_batch_launch picks when the view's f_gpu or f_storage is on
+template <bool EXT>
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
 schedule_batch_kernel(TablesView t, const int* pod_group, const int* forced_node,
                       const uint8_t* valid_pod, int P, int* choices, float* scratch) {
@@ -61,6 +77,7 @@ schedule_batch_kernel(TablesView t, const int* pod_group, const int* forced_node
   float* pern_s = scratch + (size_t)SC_PERNODE * N;
   float* sa_s = scratch + (size_t)SC_SA * N;
   float* flags_s = scratch + (size_t)SC_FLAGS * N;
+  float* st_s = scratch + (size_t)SC_STORAGE * N;  // raw Open-Local score
   float* zone_sums = scratch + (size_t)SC_NODE_ROWS * N;
   float* marks = zone_sums + t.Z;  // [Ss, D1]
   for (size_t i = tid; i < (size_t)t.Z + (size_t)t.Ss * t.D1; i += bd) zone_sums[i] = 0.0f;
@@ -79,17 +96,29 @@ schedule_batch_kernel(TablesView t, const int* pod_group, const int* forced_node
     const int ssi = ss_id > 0 ? ss_id : 0;
     bool any_sa = false;
     for (int s = 0; s < t.Ss; ++s) any_sa = any_sa || t.sa_t[g * t.Ss + s] >= 0;
+    bool has_storage = false;
+    if (EXT && t.f_storage) {
+      for (int s = 0; s < t.SL; ++s) has_storage = has_storage || t.grp_lvm_size[(size_t)g * t.SL + s] > 0.0f;
+      for (int s = 0; s < t.SD; ++s) has_storage = has_storage || t.grp_sdev_size[(size_t)g * t.SD + s] > 0.0f;
+    }
 
     // ---- B: per node, feasibility and every raw score term
     float mx[5] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY, -INFINITY};
-    float mn_simon = INFINITY, mn_ip = INFINITY;
+    float mn_simon = INFINITY, mn_ip = INFINITY, st_hi = -INFINITY, st_lo = INFINITY;
     bool anyF = false, have_zones = false;
     for (int n = tid; n < N; n += bd) {
-      const uint32_t bits = node_feasibility(t, &pc, g, forced, 1, 1, 1, n, nullptr);
+      float st_raw = 0.0f;
+      const uint32_t bits = node_feasibility<EXT>(t, &pc, g, forced, 1, 1, 1, n, nullptr,
+                                                  &st_raw);
       const bool F = (bits >> BIT_FEASIBLE) & 1u;
       float flags = 0.0f;
       if (F) {
         anyF = true;
+        if (EXT && t.f_storage) {
+          st_s[n] = st_raw;
+          st_hi = fmaxf(st_hi, st_raw);
+          st_lo = fminf(st_lo, st_raw);
+        }
         const float used_c = t.nonzero[(size_t)n * 2 + 0] + t.grp_nonzero[g * 2 + 0];
         const float used_m = t.nonzero[(size_t)n * 2 + 1] + t.grp_nonzero[g * 2 + 1];
         least_balanced(used_c, used_m, t.alloc[(size_t)n * R + 0], t.alloc[(size_t)n * R + 1],
@@ -147,6 +176,15 @@ schedule_batch_kernel(TablesView t, const int* pod_group, const int* forced_node
     const Norms nm = {mx[0], mn_simon, fmaxf(mx[1], 0.0f), fmaxf(mx[2], 0.0f),
                       fmaxf(mx[3], 0.0f), fminf(mn_ip, 0.0f)};
     const float maxN = fmaxf(mx[4], 0.0f);
+    // Open-Local normalizer: max(max_F raw, 0) and min_F raw (F is not empty)
+    float st_rng = 0.0f;
+    if (EXT && t.f_storage) {
+      float v[2] = {st_hi, st_lo};
+      const int op[2] = {OP_MAX, OP_MIN};
+      block_reduce<2>(v, op, s_red);
+      st_lo = isfinite(v[1]) ? v[1] : 0.0f;
+      st_rng = fmaxf(v[0], 0.0f) - st_lo;
+    }
 
     // ---- C: topology sizes of the ScheduleAnyway terms (count of marked
     // domains, sentinel column excluded), then clear the marks
@@ -210,7 +248,9 @@ schedule_batch_kernel(TablesView t, const int* pod_group, const int* forced_node
       const float pts = fl >= FL_F + FL_REL ? sa_normalized(sa_s[n], sa_hi, sa_lo) : 0.0f;
       float total = t.w[W_LEAST] * least_s[n];
       total = total + t.w[W_BALANCED] * bal_s[n];
-      total = total + t.w[W_OPENLOCAL] * 0.0f;  // Open-Local: no storage demand on this route
+      const float openlocal = (EXT && has_storage && st_rng > 0.0f)
+                                  ? floorf((st_s[n] - st_lo) * 100.0f / st_rng) : 0.0f;
+      total = total + t.w[W_OPENLOCAL] * openlocal;
       total = total + t.w[W_SIMON] * simon;
       total = total + t.w[W_NODEAFF] * nodeaff;
       total = total + t.w[W_TAINT] * taint;
@@ -225,7 +265,7 @@ schedule_batch_kernel(TablesView t, const int* pod_group, const int* forced_node
     block_argmax(&best, &best_i, s_red, s_idx);
     const int c = best_i;
 
-    // ---- F: commit at c (kernels.py:677-688), clear the zone sums
+    // ---- F: commit at c (kernels.py:677-723), clear the zone sums
     for (int r = tid; r < R; r += bd) t.requested[(size_t)c * R + r] += t.grp_requests[(size_t)g * R + r];
     if (tid < 2) t.nonzero[(size_t)c * 2 + tid] += t.grp_nonzero[g * 2 + tid];
     for (int k = tid; k < t.PP; k += bd) {
@@ -242,7 +282,14 @@ schedule_batch_kernel(TablesView t, const int* pod_group, const int* forced_node
       if (dom < D) t.carrier[(size_t)r * t.D1 + dom] += t.grp_carries[(size_t)g * t.Tc + r];
     }
     for (int z = tid; z < t.Z; z += bd) zone_sums[z] = 0.0f;
-    if (tid == 0) choices[p] = c;
+    if (tid == 0) {
+      if constexpr (EXT) {
+        // the device ledgers at c: one node, a few devices, one thread
+        if (t.f_gpu) gpu_commit_at(t, g, c);
+        if (t.f_storage) storage_commit_at(t, g, c);
+      }
+      choices[p] = c;
+    }
     __syncthreads();
   }
 }
@@ -271,8 +318,12 @@ int feasibility_launch(const TablesView* t, int g, int forced, int valid, int in
 int schedule_batch_launch(const TablesView* t, const int* pod_group, const int* forced_node,
                           const uint8_t* valid, int P, int* choices, float* scratch,
                           cudaStream_t stream) {
-  schedule_batch_kernel<<<1, BLOCK_THREADS, 0, stream>>>(*t, pod_group, forced_node, valid, P,
-                                                         choices, scratch);
+  if (t->f_gpu || t->f_storage)
+    schedule_batch_kernel<true><<<1, BLOCK_THREADS, 0, stream>>>(*t, pod_group, forced_node,
+                                                                 valid, P, choices, scratch);
+  else
+    schedule_batch_kernel<false><<<1, BLOCK_THREADS, 0, stream>>>(*t, pod_group, forced_node,
+                                                                  valid, P, choices, scratch);
   return (int)cudaGetLastError();
 }
 

@@ -3,11 +3,21 @@
 // K3 schedule_wave_kernel replaces open_simulator_tpu/ops/kernels.py
 //    `schedule_wave` (:1110/:1113, unsharded path :1273-1283, with
 //    _wave_statics :868, _wave_norms :890, _wave_score_table_rows :904,
-//    _wave_capacity :945 and _wave_candidates_from :1056): places up to m
+//    _wave_capacity :945, _wave_gpu_params :956, _gpu_capacity :963 and
+//    _wave_candidates_from :1056): places up to m
 //    interchangeable pods of one group exactly as m serial steps would, and
 //    returns per-node counts.
-// K3c aggregate_commit_kernel replaces `_aggregate_commit` (:976, without the
-//    GPU-share device ledger): commits those counts into the carry at once.
+// K3c aggregate_commit_kernel replaces `_aggregate_commit` (:976): commits
+//    those counts into the carry at once; with gpu_live it replays the GPU
+//    device ledger copy by copy (:1007-1031).
+//
+// gpu_live (a shared-GPU group without a pre-assigned gpu-index, the view's
+// f_gpu): K3 adds the GPU filter to the base feasibility and clamps each
+// node's capacity by floor(sum(units) / max(num, 1)); the scores do not
+// move. K3c then replays j[n] copies of the allocator (tightest fit for one
+// GPU, in-order units for several) on every node: nodes are independent, so
+// one thread per node loops j[n] times over its MAXDEV devices, exactly and
+// without atomics.
 //
 // One K3 iteration builds the [N, B+1] table of the score each node gives
 // its next B+1 copies, masks the entries a hidden entry could beat (the
@@ -41,6 +51,8 @@
 
 // Float scratch: table [N, B+1], then ip_raw, simon_s, static, bound [N] each.
 // Int scratch: cap, feas, u (usable prefix length), c0 (first take) [N] each.
+// EXT: the gpu_live instantiation (the view's f_gpu), picked by the launcher
+template <bool EXT>
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
 schedule_wave_kernel(TablesView t, int g, int m, int cap1, int B, int K, int* j, int* stats,
                      float* fs, int* is) {
@@ -67,8 +79,8 @@ schedule_wave_kernel(TablesView t, int g, int m, int cap1, int B, int K, int* j,
   // ---- segment constants: base feasibility, capacity, static score terms
   pod_prologue(t, g, 1, &pc, s_red);
   for (int n = tid; n < N; n += bd) {
-    segment_node_constants(t, &pc, g, n, cap1, 1, 1, &feas_s[n], &cap_s[n], &ip_s[n], &simon_s[n],
-                           &stat_s[n]);
+    segment_node_constants<EXT>(t, &pc, g, n, cap1, 1, 1, &feas_s[n], &cap_s[n], &ip_s[n],
+                                &simon_s[n], &stat_s[n]);
     j[n] = 0;
   }
   __syncthreads();
@@ -235,7 +247,8 @@ schedule_wave_kernel(TablesView t, int g, int m, int cap1, int B, int K, int* j,
 // seg: [U, D+1] scratch for the per-topology domain sums.
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
 aggregate_commit_kernel(TablesView t, int g, const int* j, const int* topo_dom,
-                        const int* counter_topo, const int* carr_topo, int U, float* seg) {
+                        const int* counter_topo, const int* carr_topo, int U, int gpu_live,
+                        float* seg) {
   const int N = t.N, R = t.R, D1 = t.D1, D = D1 - 1, tid = threadIdx.x, bd = blockDim.x;
   for (size_t i = tid; i < (size_t)U * D1; i += bd) seg[i] = 0.0f;
   // requested and nonzero: one multiply, then one add
@@ -268,6 +281,20 @@ aggregate_commit_kernel(TablesView t, int g, const int* j, const int* topo_dom,
     t.carrier[i] = t.carrier[i] + t.grp_carries[(size_t)g * t.Tc + r]
                                   * seg[(size_t)carr_topo[r] * D1 + d];
   }
+  // the GPU device ledger: j[n] copies of the allocator, one after another
+  const float gmem = t.grp_gpu_mem[g];
+  if (gpu_live && gmem > 0.0f) {
+    const float gnum = fmaxf(t.grp_gpu_num[g], 1.0f), safe_mem = fmaxf(gmem, 1.0f);
+    const bool single = t.grp_gpu_num[g] == 1.0f;
+    float take[MAX_NODE_DEVS];
+    for (int n = tid; n < N; n += bd) {
+      float* used = t.dev_used + (size_t)n * t.MAXDEV;
+      for (int k = 0; k < j[n]; ++k) {
+        gpu_take_at(t, used, n, gmem, gnum, safe_mem, single, take);
+        for (int d = 0; d < t.MAXDEV; ++d) used[d] = used[d] + take[d] * gmem;
+      }
+    }
+  }
 }
 
 // ------------------------------------------------------------ C interface --
@@ -280,15 +307,20 @@ long long wave_scratch_ints(int N) { return 4LL * N; }
 
 int schedule_wave_launch(const TablesView* t, int g, int m, int cap1, int B, int K, int* j,
                          int* stats, float* fs, int* is, cudaStream_t stream) {
-  schedule_wave_kernel<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, m, cap1, B, K, j, stats, fs, is);
+  if (t->f_gpu)
+    schedule_wave_kernel<true><<<1, BLOCK_THREADS, 0, stream>>>(*t, g, m, cap1, B, K, j, stats,
+                                                                fs, is);
+  else
+    schedule_wave_kernel<false><<<1, BLOCK_THREADS, 0, stream>>>(*t, g, m, cap1, B, K, j, stats,
+                                                                 fs, is);
   return (int)cudaGetLastError();
 }
 
 int aggregate_commit_launch(const TablesView* t, int g, const int* j, const int* topo_dom,
-                            const int* counter_topo, const int* carr_topo, int U, float* seg,
-                            cudaStream_t stream) {
+                            const int* counter_topo, const int* carr_topo, int U, int gpu_live,
+                            float* seg, cudaStream_t stream) {
   aggregate_commit_kernel<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, j, topo_dom, counter_topo,
-                                                           carr_topo, U, seg);
+                                                           carr_topo, U, gpu_live, seg);
   return (int)cudaGetLastError();
 }
 

@@ -20,10 +20,10 @@ Two implementations of each kernel live here:
 
 Numerical contract (shared with csrc/schedule.cu): every f32 operation is
 done separately and in the JAX expression's order (no fused multiply-add);
-sums over the small slot axes run left to right from 0; `log` is taken in
-f64 and rounded once to f32. Batches with GPU-share or Open-Local demand take
-kernel branches this port does not have yet (ROADMAP B9); the engine refuses
-them before they reach these functions.
+sums over the small slot axes (and over a node's GPU devices and volume
+groups) run left to right from 0; `log` is taken in f64 and rounded once to
+f32. The GPU-share and Open-Local branches (`enable_gpu`, `enable_storage`,
+`gpu_live`) are runtime arguments: off, they cost nothing.
 """
 
 from __future__ import annotations
@@ -121,21 +121,21 @@ class Tables(NamedTuple):
     carr_w_t: torch.Tensor     # [G, Cw] i32: carrier ids with interpod weight for g
     carr_w_w: torch.Tensor     # [G, Cw] f32: those weights (hard=1 / signed pref)
     grp_carries: torch.Tensor
-    # GPU-share and Open-Local tables: staged like the rest; the kernels of
-    # this route do not read them (ROADMAP B9).
-    grp_gpu_mem: torch.Tensor
-    grp_gpu_num: torch.Tensor
-    grp_gpu_pre: torch.Tensor
-    grp_gpu_take: torch.Tensor
-    dev_total: torch.Tensor
-    grp_lvm_size: torch.Tensor
-    grp_lvm_vg: torch.Tensor
-    grp_sdev_size: torch.Tensor
-    grp_sdev_media: torch.Tensor
-    vg_cap: torch.Tensor
-    vg_nameid: torch.Tensor
-    sdev_cap: torch.Tensor
-    sdev_media: torch.Tensor
+    # GPU-share (open-gpu-share.go Filter; per-device ledger in the carry)
+    grp_gpu_mem: torch.Tensor   # [G] f32: per-GPU memory request (0 = no GPU)
+    grp_gpu_num: torch.Tensor   # [G] f32: number of GPUs requested
+    grp_gpu_pre: torch.Tensor   # [G] bool: valid pre-assigned gpu-index present
+    grp_gpu_take: torch.Tensor  # [G, MAXDEV] f32: unit counts per device when pre-assigned
+    dev_total: torch.Tensor     # [N, MAXDEV] f32: per-device total memory (0 = absent)
+    # Open-Local storage (plugins/openlocal.py; VG/device state in the carry)
+    grp_lvm_size: torch.Tensor   # [G, SL] f32: LVM volume sizes (0 = unused slot)
+    grp_lvm_vg: torch.Tensor     # [G, SL] i32: VG name id (0 = unnamed -> Binpack)
+    grp_sdev_size: torch.Tensor  # [G, SD] f32: device volume sizes
+    grp_sdev_media: torch.Tensor  # [G, SD] i32: 1 hdd / 2 ssd (0 = unused)
+    vg_cap: torch.Tensor         # [N, MAXVG] f32 (0 = absent VG)
+    vg_nameid: torch.Tensor      # [N, MAXVG] i32
+    sdev_cap: torch.Tensor       # [N, MAXSD] f32
+    sdev_media: torch.Tensor     # [N, MAXSD] i32
 
 
 class Carry(NamedTuple):
@@ -285,6 +285,128 @@ def interpod_raw(tb: Tables, cry: Carry, g: int) -> torch.Tensor:
     return ip_raw + _masked_sum(cw_valid, tb.carr_w_w[g][:, None] * cw_at)
 
 
+def _sum_left(vals: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis, added left to right from 0 (the order the
+    kernels use over a node's GPU devices and volume groups)."""
+    acc = torch.zeros(vals.shape[:-1], dtype=vals.dtype, device=vals.device)
+    for k in range(vals.shape[-1]):
+        acc = acc + vals[..., k]
+    return acc
+
+
+def storage_alloc(tb: Tables, cry: Carry, g: int) -> dict:
+    """Open-Local allocation of group g's volumes on every node at once (JAX
+    `storage_alloc` :274): LVM volumes in slot order (a named VG exactly, an
+    unnamed one by Binpack: the tightest VG that fits, lowest index on
+    ties), then device volumes (the smallest free device of the media type
+    that fits), with the reference's quirks kept: a per-media count
+    pre-check, a volume fails the node only when the last free device is
+    too small, and volumes past a consumed last device are dropped
+    silently. Returns {ok [N] bool, lvm_add [N, MAXVG], dev_add [N, MAXSD],
+    raw [N] f32 (Binpack LVM + device score), has_storage}. A slot with no
+    volume changes nothing, so it is skipped."""
+    N, V = tb.vg_cap.shape
+    Dv = tb.sdev_cap.shape[1]
+    dev = tb.vg_cap.device
+    inf = torch.tensor(float("inf"), device=dev)
+    iota_v = torch.arange(V, device=dev)
+    iota_d = torch.arange(Dv, device=dev)
+    lvm_sizes = tb.grp_lvm_size[g].tolist()
+    lvm_vgs = tb.grp_lvm_vg[g].tolist()
+    dev_sizes = tb.grp_sdev_size[g].tolist()
+    dev_media = tb.grp_sdev_media[g].tolist()
+    has_lvm = any(s > 0 for s in lvm_sizes)
+    has_dev = any(s > 0 for s in dev_sizes)
+
+    ok = torch.ones(N, dtype=torch.bool, device=dev)
+    lvm_add = torch.zeros((N, V), dtype=_F32, device=dev)
+    for size, nid in zip(lvm_sizes, lvm_vgs):
+        if not size > 0:
+            continue
+        size = tb.grp_lvm_size.new_tensor(size)
+        free = tb.vg_cap - (cry.vg_req + lvm_add)
+        if nid > 0:  # named VG: the first VG of that name
+            slot_named = tb.vg_nameid == nid
+            fit = torch.any(slot_named & (free >= size), dim=1)
+            tgt = torch.argmax(slot_named.to(torch.int32), dim=1)
+        else:  # Binpack: the tightest VG that fits
+            cand = (tb.vg_cap > 0) & (free >= size)
+            fit = torch.any(cand, dim=1)
+            tgt = torch.argmin(torch.where(cand, free, inf), dim=1)
+        take = (iota_v[None, :] == tgt[:, None]).to(_F32)
+        lvm_add = lvm_add + take * size * fit[:, None].to(_F32)
+        ok = ok & fit
+
+    # devices: CheckExclusiveResourceMeetsPVCSize's single merge pass
+    free_start, last_idx = {}, {}
+    for m in (1, 2):
+        fs = (tb.sdev_media == m) & (cry.sdev_alloc < 0.5) & (tb.sdev_cap > 0)
+        free_start[m] = fs
+        maxcap = torch.amax(torch.where(fs, tb.sdev_cap, -1.0), dim=1, keepdim=True)
+        is_max = fs & (tb.sdev_cap == maxcap)
+        # "last" in the ascending (capacity, index) order: the highest index
+        # among the maxima, 0 when no device is free
+        last_idx[m] = torch.argmax(is_max.to(torch.int64) * (iota_d[None, :] + 1), dim=1)
+        n_vols = sum(1 for s, md in zip(dev_sizes, dev_media) if md == m and s > 0)
+        if n_vols:
+            ok = ok & (fs.sum(dim=1) >= n_vols)
+    dev_add = torch.zeros((N, Dv), dtype=_F32, device=dev)
+    dev_acc = torch.zeros(N, dtype=_F32, device=dev)
+    dev_units = torch.zeros(N, dtype=_F32, device=dev)
+    for size, media in zip(dev_sizes, dev_media):
+        if not size > 0:
+            continue
+        size = tb.grp_sdev_size.new_tensor(size)
+        m = 2 if media == 2 else 1
+        free_now = free_start[m] & (dev_add < 0.5)
+        fit_mask = free_now & (tb.sdev_cap >= size)
+        fit = torch.any(fit_mask, dim=1)
+        tgt = torch.argmin(torch.where(fit_mask, tb.sdev_cap, inf), dim=1)
+        take = (iota_d[None, :] == tgt[:, None]).to(_F32) * fit[:, None].to(_F32)
+        dev_add = dev_add + take
+        last_free = torch.gather(free_now, 1, last_idx[m][:, None])[:, 0]
+        ok = ok & ~(~fit & last_free)
+        chosen_cap = torch.sum(take * tb.sdev_cap, dim=1)  # one nonzero term: exact
+        dev_acc = dev_acc + torch.where(fit, size / torch.clamp(chosen_cap, min=1.0), 0.0)
+        dev_units = dev_units + fit.to(_F32)
+
+    # ScoreLVM (Binpack): mean over the used VGs of used/capacity x 10, floored
+    used = lvm_add > 0
+    vg_frac = torch.where(used & (tb.vg_cap > 0), lvm_add / torch.clamp(tb.vg_cap, min=1.0), 0.0)
+    n_used = used.sum(dim=1).to(_F32)
+    zero = torch.zeros(N, dtype=_F32, device=dev)
+    lvm_raw = (torch.where(n_used > 0, _flr(_sum_left(vg_frac) / torch.clamp(n_used, min=1.0)
+                                            * 10.0), 0.0) if has_lvm else zero)
+    dev_raw = (torch.where(dev_units > 0, _flr(dev_acc / torch.clamp(dev_units, min=1.0) * 10.0),
+                           0.0) if has_dev else zero)
+    has_storage = has_lvm or has_dev
+    return {"ok": ok if has_storage else torch.ones_like(ok), "lvm_add": lvm_add,
+            "dev_add": dev_add, "raw": lvm_raw + dev_raw, "has_storage": has_storage}
+
+
+def _gpu_units(dev_total: torch.Tensor, dev_used: torch.Tensor, safe_mem) -> torch.Tensor:
+    """Whole units of `safe_mem` each device still holds (0 off a device)."""
+    idle = dev_total - dev_used
+    return torch.clamp(torch.where(dev_total > 0, torch.floor(idle / safe_mem), 0.0), min=0.0)
+
+
+def _gpu_take(dev_total: torch.Tensor, dev_used: torch.Tensor, gmem, gnum, safe_mem,
+              single: bool) -> torch.Tensor:
+    """AllocateGpuId (gpunodeinfo.go:232-290) on rows [..., MAXDEV]: units per
+    device for one copy. One GPU: the tightest device that fits (lowest
+    index on ties, index 0 when none fits); several: the first `gnum` units
+    in device order, several units may share a device."""
+    if single:
+        idle = dev_total - dev_used
+        fit_dev = (idle >= gmem) & (dev_total > 0)
+        cand = torch.argmin(torch.where(fit_dev, idle, float("inf")), dim=-1)
+        iota = torch.arange(dev_total.shape[-1], device=dev_total.device)
+        return (iota == cand.unsqueeze(-1)).to(_F32)
+    units = _gpu_units(dev_total, dev_used, safe_mem)
+    cum = torch.cumsum(units, dim=-1)  # whole numbers: exact in any order
+    return torch.minimum(torch.clamp(gnum - (cum - units), min=0.0), units)
+
+
 STAGE_KEYS = ("static", "taint", "unsched", "affinity", "extra", "fit", "fit_each",
               "ports", "pod_affinity", "pod_anti", "spread", "gpu", "storage")
 # the [N] stage masks in the order the CUDA kernel writes its [12, N] rows
@@ -293,13 +415,17 @@ STAGE_ROWS = tuple(k for k in STAGE_KEYS if k != "fit_each")
 
 def feasibility(tb: Tables, cry: Carry, g: int, forced: int, valid: bool,
                 filters: FilterFlags = DEFAULT_FILTERS, include_dns: bool = True,
-                include_interpod: bool = True):
+                include_interpod: bool = True, enable_gpu: bool = False,
+                enable_storage: bool = False):
     """[N] feasibility mask for one pod, plus the named per-stage masks
     (STAGE_KEYS) for diagnostics. Plain version of `feasibility_kernel`.
     `include_dns=False` drops the DoNotSchedule filter: the group-serial scan
     evaluates it against its own live counter rows. `include_interpod=False`
     drops the InterPodAffinity filters likewise: the affinity wave evaluates
-    them each epoch from its live rows."""
+    them each epoch from its live rows. `enable_gpu` / `enable_storage` turn
+    on the GPU-share and Open-Local filters (the engine passes
+    `plugin_flags(bt)`: on for a batch with such demand); off, their stages
+    are all true."""
     N, R = tb.alloc.shape
     dev = tb.alloc.device
     req = tb.grp_requests[g]
@@ -358,7 +484,25 @@ def feasibility(tb: Tables, cry: Carry, g: int, forced: int, valid: bool,
     else:
         dns_ok = ones
 
-    feasible = smask & fit & ~conflict & aff_ok & ~blocked_in & ~blocked_ex & dns_ok
+    # Open-Gpu-Share Filter (open-gpu-share.go:51-81): the node's total GPU
+    # memory covers the per-GPU request and its devices hold the requested
+    # units; a pre-assigned gpu-index skips the device fit
+    # (gpunodeinfo.go:247-253)
+    gpu_ok = ones
+    if enable_gpu and bool(tb.grp_gpu_mem[g] > 0):
+        gmem, gnum = tb.grp_gpu_mem[g], tb.grp_gpu_num[g]
+        node_total = _sum_left(tb.dev_total)
+        if bool(tb.grp_gpu_pre[g]):
+            gpu_ok = (node_total >= gmem) & (gnum > 0) & torch.any(tb.dev_total > 0, dim=1)
+        else:
+            units = _gpu_units(tb.dev_total, cry.dev_used, torch.clamp(gmem, min=1.0))
+            gpu_ok = (node_total >= gmem) & (_sum_left(units) >= gnum) & (gnum > 0)
+
+    # Open-Local Filter (open-local.go:51-92)
+    storage_ok = storage_alloc(tb, cry, g)["ok"] if enable_storage else ones
+
+    feasible = (smask & fit & ~conflict & aff_ok & ~blocked_in & ~blocked_ex & dns_ok
+                & gpu_ok & storage_ok)
     feasible = feasible & bool(valid)
     if forced >= 0:
         feasible = feasible & (torch.arange(N, device=dev) == forced)
@@ -375,8 +519,8 @@ def feasibility(tb: Tables, cry: Carry, g: int, forced: int, valid: bool,
         "pod_affinity": aff_ok,
         "pod_anti": ~(blocked_in | blocked_ex),
         "spread": dns_ok,
-        "gpu": ones,
-        "storage": ones,
+        "gpu": gpu_ok,
+        "storage": storage_ok,
     }
     return feasible, stages
 
@@ -398,10 +542,10 @@ def components_total(comp: dict) -> torch.Tensor:
 
 
 def score_components(tb: Tables, cry: Carry, g: int, feasible, n_zones: int,
-                     w: ScoreWeights = DEFAULT_WEIGHTS) -> dict:
+                     w: ScoreWeights = DEFAULT_WEIGHTS, enable_storage: bool = False) -> dict:
     """All normalized, weighted plugin score terms over the feasible set —
-    {name: [N] f32} in COMPONENT_ORDER (Open-Local is the constant 0 of a
-    batch without storage demand)."""
+    {name: [N] f32} in COMPONENT_ORDER (Open-Local is the constant 0 without
+    `enable_storage`)."""
     F = feasible
     dev = F.device
     inf = torch.tensor(float("inf"), device=dev)
@@ -457,10 +601,23 @@ def score_components(tb: Tables, cry: Carry, g: int, feasible, n_zones: int,
     relevantF = F & ~ignored
     pts = schedule_anyway_score(sa_at, relevantF, sa_dom, svalid, tb.sa_maxskew[g], D)
 
+    # Open-Local Score (open-local.go:94-172): Binpack LVM + device ints, then
+    # the plugin's own min-max normalization over F
+    openlocal = 0.0
+    if enable_storage:
+        st = storage_alloc(tb, cry, g)
+        st_raw = st["raw"]
+        st_hi = torch.clamp(torch.amax(torch.where(F, st_raw, -inf)), min=0.0)
+        st_lo_raw = torch.amin(torch.where(F, st_raw, inf))
+        st_lo = torch.where(torch.isfinite(st_lo_raw), st_lo_raw, 0.0)
+        st_rng = st_hi - st_lo
+        openlocal = torch.where(st["has_storage"] & (st_rng > 0),
+                                _flr((st_raw - st_lo) * 100.0 / st_rng), 0.0)
+
     return {
         "least": w.least * least,
         "balanced": w.balanced * balanced,
-        "openlocal": w.openlocal * 0.0,
+        "openlocal": w.openlocal * openlocal,
         "simon": (w.simon + w.gpushare) * simon,  # Open-Gpu-Share Score ≡ Simon Score
         "nodeaff": w.nodeaff * nodeaff,
         "taint": w.taint * taint,
@@ -474,15 +631,18 @@ def score_components(tb: Tables, cry: Carry, g: int, feasible, n_zones: int,
 
 
 def scores(tb: Tables, cry: Carry, g: int, feasible, n_zones: int,
-           w: ScoreWeights = DEFAULT_WEIGHTS) -> torch.Tensor:
+           w: ScoreWeights = DEFAULT_WEIGHTS, enable_storage: bool = False) -> torch.Tensor:
     """Weighted sum of all normalized plugin scores over the feasible set."""
-    return components_total(score_components(tb, cry, g, feasible, n_zones, w))
+    return components_total(score_components(tb, cry, g, feasible, n_zones, w, enable_storage))
 
 
-def commit(tb: Tables, cry: Carry, g: int, choice, do) -> Carry:
+def commit(tb: Tables, cry: Carry, g: int, choice, do, enable_gpu: bool = False,
+           enable_storage: bool = False) -> Carry:
     """Apply one placement to the carry (the Reserve+Bind of the cycle);
     functional: returns a new Carry. `choice`/`do` may be 0-dim tensors, so a
-    scan on the card never waits for the host."""
+    scan on the card never waits for the host. With the flags, the GPU
+    device ledger and the Open-Local VG/device state too; the storage take
+    is computed from the carry before this commit."""
     dev = tb.alloc.device
     T = cry.counter.shape[0]
     Tc = cry.carrier.shape[0]
@@ -505,27 +665,50 @@ def commit(tb: Tables, cry: Carry, g: int, choice, do) -> Carry:
     cinc = tb.grp_carries[g] * (cdom_col < D) * dof
     carrier = cry.carrier.index_put((torch.arange(Tc, device=dev), cdom_col), cinc,
                                     accumulate=True)
-    return cry._replace(requested=requested, nonzero=nonzero, port_used=port_used,
-                        counter=counter, carrier=carrier)
+
+    # GPU device allocation (AllocateGpuId): pre-assigned ids charge exactly
+    # the annotated devices (the host's add_pod), without a fit check
+    dev_used = cry.dev_used
+    if enable_gpu:
+        gmem, gnum = tb.grp_gpu_mem[g], tb.grp_gpu_num[g]
+        if bool(tb.grp_gpu_pre[g]):
+            take = tb.grp_gpu_take[g]
+        else:
+            take = _gpu_take(tb.dev_total[c[0]], cry.dev_used[c[0]], gmem, gnum,
+                             torch.clamp(gmem, min=1.0), bool(gnum == 1))
+        gdo = dof * (gmem > 0).to(_F32)
+        dev_used = cry.dev_used.index_add(0, c, (take * gmem * gdo)[None])
+
+    # Open-Local Bind: bump the VGs' requested bytes, mark devices allocated
+    vg_req, sdev_alloc = cry.vg_req, cry.sdev_alloc
+    if enable_storage:
+        st = storage_alloc(tb, cry, g)
+        sdo = dof * float(st["has_storage"])
+        vg_req = cry.vg_req.index_add(0, c, (st["lvm_add"][c[0]] * sdo)[None])
+        sdev_alloc = cry.sdev_alloc.index_add(0, c, (st["dev_add"][c[0]] * sdo)[None])
+    return Carry(requested, nonzero, port_used, counter, carrier, dev_used, vg_req, sdev_alloc)
 
 
 def step(tb: Tables, cry: Carry, g: int, forced: int, valid: bool, n_zones: int,
-         w: ScoreWeights = DEFAULT_WEIGHTS, filters: FilterFlags = DEFAULT_FILTERS):
+         w: ScoreWeights = DEFAULT_WEIGHTS, filters: FilterFlags = DEFAULT_FILTERS,
+         enable_gpu: bool = False, enable_storage: bool = False):
     """One scheduleOne cycle: (new carry, choice as a 0-dim i32 tensor, -1 =
     unschedulable)."""
-    feasible, _ = feasibility(tb, cry, g, forced, valid, filters)
+    feasible, _ = feasibility(tb, cry, g, forced, valid, filters, enable_gpu=enable_gpu,
+                              enable_storage=enable_storage)
     any_f = torch.any(feasible)
-    sc = scores(tb, cry, g, feasible, n_zones, w)
+    sc = scores(tb, cry, g, feasible, n_zones, w, enable_storage)
     masked = torch.where(feasible, sc, float("-inf"))
     choice = torch.argmax(masked).to(torch.int32)  # first max → lowest node index
     choice = torch.where(any_f, choice, torch.tensor(-1, dtype=torch.int32, device=sc.device))
-    return commit(tb, cry, g, choice, any_f), choice
+    return commit(tb, cry, g, choice, any_f, enable_gpu, enable_storage), choice
 
 
 @torch.inference_mode()
 def schedule_batch_plain(tb: Tables, cry: Carry, pod_group, forced_node, valid,
                          n_zones: int, w: ScoreWeights = DEFAULT_WEIGHTS,
-                         filters: FilterFlags = DEFAULT_FILTERS):
+                         filters: FilterFlags = DEFAULT_FILTERS, enable_gpu: bool = False,
+                         enable_storage: bool = False):
     """Plain version of `schedule_batch_kernel`: the scan as a Python loop of
     `step`; returns (final carry, choices [P] i32)."""
     choices = []
@@ -537,7 +720,7 @@ def schedule_batch_plain(tb: Tables, cry: Carry, pod_group, forced_node, valid,
         if not v:  # padded pod: feasible nowhere, commits nothing (as in the kernel)
             choices.append(none)
             continue
-        cry, ch = step(tb, cry, g, f, v, n_zones, w, filters)
+        cry, ch = step(tb, cry, g, f, v, n_zones, w, filters, enable_gpu, enable_storage)
         choices.append(ch)
     if not choices:
         return cry, torch.zeros(0, dtype=torch.int32, device=tb.alloc.device)
@@ -661,6 +844,22 @@ def _wave_capacity(tb: Tables, cry: Carry, g: int, cap1: bool) -> torch.Tensor:
     return torch.clamp(cap, max=1) if cap1 else cap
 
 
+def _wave_gpu_params(tb: Tables, g: int):
+    """(gmem, gnum, safe_mem) of a shared-GPU group (JAX :956)."""
+    gmem = tb.grp_gpu_mem[g]
+    return gmem, torch.clamp(tb.grp_gpu_num[g], min=1.0), torch.clamp(gmem, min=1.0)
+
+
+def _gpu_capacity(tb: Tables, cry: Carry, g: int, capacity: torch.Tensor) -> torch.Tensor:
+    """Clamp each node's copy capacity by its GPU units (JAX :963): every copy
+    takes `num` whole units and a take never changes another device's
+    units, so the capacity is floor(total units / num)."""
+    gmem, gnum, safe_mem = _wave_gpu_params(tb, g)
+    units = _sum_left(_gpu_units(tb.dev_total, cry.dev_used, safe_mem))
+    gpu_cap = torch.floor(units / gnum).to(torch.int32)
+    return torch.where(gmem > 0, torch.minimum(capacity, gpu_cap), capacity)
+
+
 def _base_capacity(tb: Tables, cry: Carry, g: int, cap1: bool, base_feas: torch.Tensor,
                    filters: FilterFlags) -> torch.Tensor:
     """Copies each node can take in this segment (0 off the base feasible set)."""
@@ -766,18 +965,22 @@ def _wave_iteration(st: dict, norms: tuple, table_ext, F, avail, j, placed: int,
 @torch.inference_mode()
 def schedule_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
                         w: ScoreWeights = DEFAULT_WEIGHTS, filters: FilterFlags = DEFAULT_FILTERS,
-                        block: int = WAVE_BLOCK, kmax: int = 0):
+                        block: int = WAVE_BLOCK, kmax: int = 0, gpu_live: bool = False):
     """Plain version of `schedule_wave_kernel`: place up to m pods of the
     wave-eligible group g, reproducing m serial steps. Returns (per-node
     counts [N] i32, placed, stats); the carry is not touched (the aggregate
     commit applies the counts). stats counts the loop's iterations, its
     head-fallback iterations and the entries the hidden-continuation guard
-    deferred, summed over iterations."""
+    deferred, summed over iterations. `gpu_live`: the group asks for shared
+    GPU memory (no pre-assigned gpu-index): the GPU filter joins the base
+    feasibility and GPU units clamp the capacity; the scores do not move."""
     N = tb.alloc.shape[0]
     K = kmax if kmax else N * block
-    base_feas, _ = feasibility(tb, cry, g, -1, True, filters)
+    base_feas, _ = feasibility(tb, cry, g, -1, True, filters, enable_gpu=gpu_live)
     st = _wave_statics(tb, cry, g, w)
     capacity = _base_capacity(tb, cry, g, cap1, base_feas, filters)
+    if gpu_live:
+        capacity = _gpu_capacity(tb, cry, g, capacity)
     j = torch.zeros(N, dtype=torch.int32, device=tb.alloc.device)
     placed, last_w = 0, 1
     stats = dict.fromkeys(WAVE_STATS, 0)
@@ -795,10 +998,13 @@ def schedule_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
 
 
 @torch.inference_mode()
-def aggregate_commit_plain(tb: Tables, cry: Carry, g: int, j: torch.Tensor) -> Carry:
+def aggregate_commit_plain(tb: Tables, cry: Carry, g: int, j: torch.Tensor,
+                           gpu_live: bool = False) -> Carry:
     """The sum of sum(j) serial commit() calls for group g (j = per-node
     counts), as one update of the carry; returns a new Carry. Plain version
-    of `aggregate_commit_kernel` (no GPU-share device ledger: ROADMAP B9)."""
+    of `aggregate_commit_kernel`. With `gpu_live`, the device ledger replays
+    the allocator one copy at a time on every node (JAX :1007-1031), so it
+    equals the serial commits' ledger bit for bit."""
     jf = j.to(_F32)
     D = cry.counter.shape[1] - 1
     requested = cry.requested + tb.grp_requests[g][None, :] * jf[:, None]
@@ -816,8 +1022,17 @@ def aggregate_commit_plain(tb: Tables, cry: Carry, g: int, j: torch.Tensor) -> C
     counter = (cry.counter + tb.counter_sel_match_g[:, g, None].to(_F32)
                * seg[tb.counter_topo.long()])
     carrier = cry.carrier + tb.grp_carries[g][:, None] * seg[tb.carr_topo.long()]
+    dev_used = cry.dev_used
+    if gpu_live:
+        gmem, gnum, safe_mem = _wave_gpu_params(tb, g)
+        single = bool(tb.grp_gpu_num[g] == 1)
+        rem = torch.where(gmem > 0, j, torch.zeros_like(j))
+        while bool(torch.any(rem > 0)):
+            take = _gpu_take(tb.dev_total, dev_used, gmem, gnum, safe_mem, single)
+            dev_used = dev_used + take * gmem * (rem > 0).to(_F32)[:, None]
+            rem = rem - (rem > 0).to(rem.dtype)
     return cry._replace(requested=requested, nonzero=nonzero, port_used=port_used,
-                        counter=counter, carrier=carrier)
+                        counter=counter, carrier=carrier, dev_used=dev_used)
 
 
 @torch.inference_mode()
@@ -1348,14 +1563,23 @@ _PTR_FIELDS = (
     ("sa_t", "sa_t"), ("sa_maxskew", "sa_maxskew"), ("ss_t", "ss_t"),
     ("ss_skip", "ss_skip"), ("carr_dom", "carr_dom"), ("carr_anti_t", "carr_anti_t"),
     ("carr_w_t", "carr_w_t"), ("carr_w_w", "carr_w_w"), ("grp_carries", "grp_carries"),
+    ("grp_gpu_mem", "grp_gpu_mem"), ("grp_gpu_num", "grp_gpu_num"),
+    ("grp_gpu_pre", "grp_gpu_pre"), ("grp_gpu_take", "grp_gpu_take"),
+    ("dev_total", "dev_total"), ("grp_lvm_size", "grp_lvm_size"),
+    ("grp_lvm_vg", "grp_lvm_vg"), ("grp_sdev_size", "grp_sdev_size"),
+    ("grp_sdev_media", "grp_sdev_media"), ("vg_cap", "vg_cap"), ("vg_nameid", "vg_nameid"),
+    ("sdev_cap", "sdev_cap"), ("sdev_media", "sdev_media"),
     # carry
     ("requested", "requested"), ("nonzero", "nonzero"), ("port_used", "port_used"),
-    ("counter", "counter"), ("carrier", "carrier"),
+    ("counter", "counter"), ("carrier", "carrier"), ("dev_used", "dev_used"),
+    ("vg_req", "vg_req"), ("sdev_alloc", "sdev_alloc"),
 )
 _DIM_FIELDS = ("N", "R", "G", "T", "Tc", "D1", "PORT1", "PP", "A", "B", "Cp", "Sd",
-               "Ss", "Ca", "Cw", "Z", "f_fit", "f_ports", "f_interpod", "f_spread")
+               "Ss", "Ca", "Cw", "Z", "MAXDEV", "MAXVG", "MAXSD", "SL", "SD",
+               "f_fit", "f_ports", "f_interpod", "f_spread", "f_gpu", "f_storage")
 N_WEIGHTS = 12  # least balanced openlocal simon nodeaff taint interpod ss pts avoid image extra(unused)
-MAX_SLOTS = 64  # per-group slot axes (A, B, Cp, Sd, Ss, Ca, Cw, PP) the kernel's shared memory holds
+MAX_SLOTS = 64  # per-group slot axes (A, B, Cp, Sd, Ss, Ca, Cw, PP, SL, SD) the kernels hold
+MAX_NODE_DEVS = 32  # per-node GPU devices, volume groups and storage devices a thread holds
 
 
 class TablesView(ctypes.Structure):
@@ -1373,12 +1597,17 @@ _EXPECT = {  # dtype each pointer field must have
     "mask_aff": torch.bool, "mask_extra": torch.bool, "grp_unknown": torch.bool,
     "counter_sel_match_g": torch.bool, "grp_aff_self": torch.bool,
     "dns_edom": torch.bool, "ss_skip": torch.bool, "port_used": torch.bool,
+    "grp_gpu_pre": torch.bool, "grp_lvm_vg": torch.int32, "grp_sdev_media": torch.int32,
+    "vg_nameid": torch.int32, "sdev_media": torch.int32,
 }
 
 
 def _view(tb: Tables, cry: Carry, n_zones: int, w: ScoreWeights,
-          filters: FilterFlags) -> TablesView:
-    """Check every tensor (device, dtype, contiguity) and fill the struct."""
+          filters: FilterFlags, enable_gpu: bool = False,
+          enable_storage: bool = False) -> TablesView:
+    """Check every tensor (device, dtype, contiguity) and fill the struct.
+    `enable_gpu` / `enable_storage` switch the kernels' GPU-share and
+    Open-Local branches on."""
     dev = tb.alloc.device
     src = {**tb._asdict(), **cry._asdict()}
     v = TablesView()
@@ -1396,11 +1625,17 @@ def _view(tb: Tables, cry: Carry, n_zones: int, w: ScoreWeights,
         PP=tb.grp_ports.shape[1], A=tb.req_aff_t.shape[1], B=tb.req_anti_t.shape[1],
         Cp=tb.pref_t.shape[1], Sd=tb.dns_t.shape[1], Ss=tb.sa_t.shape[1],
         Ca=tb.carr_anti_t.shape[1], Cw=tb.carr_w_t.shape[1], Z=max(2, n_zones),
+        MAXDEV=tb.dev_total.shape[1], MAXVG=tb.vg_cap.shape[1], MAXSD=tb.sdev_cap.shape[1],
+        SL=tb.grp_lvm_size.shape[1], SD=tb.grp_sdev_size.shape[1],
         f_fit=int(filters.fit), f_ports=int(filters.ports),
-        f_interpod=int(filters.interpod), f_spread=int(filters.spread))
-    for k in ("A", "B", "Cp", "Sd", "Ss", "Ca", "Cw", "PP"):
+        f_interpod=int(filters.interpod), f_spread=int(filters.spread),
+        f_gpu=int(bool(enable_gpu)), f_storage=int(bool(enable_storage)))
+    for k in ("A", "B", "Cp", "Sd", "Ss", "Ca", "Cw", "PP", "SL", "SD"):
         if dims[k] > MAX_SLOTS:
             raise ValueError(f"slot axis {k}={dims[k]} exceeds the kernel's {MAX_SLOTS}")
+    for k in ("MAXDEV",) * bool(enable_gpu) + ("MAXVG", "MAXSD") * bool(enable_storage):
+        if dims[k] > MAX_NODE_DEVS:
+            raise ValueError(f"node axis {k}={dims[k]} exceeds the kernel's {MAX_NODE_DEVS}")
     if tb.alloc.shape[1] <= max(CPU_I, MEM_I):
         raise ValueError("alloc needs the cpu and memory columns")
     for k, val in dims.items():
@@ -1424,7 +1659,8 @@ def _stream() -> ctypes.c_void_p:
 
 
 def feasibility_kernel(tb: Tables, cry: Carry, g: int, forced: int, valid: bool,
-                       filters: FilterFlags = DEFAULT_FILTERS, include_dns: bool = True):
+                       filters: FilterFlags = DEFAULT_FILTERS, include_dns: bool = True,
+                       enable_gpu: bool = False, enable_storage: bool = False):
     """Launch K1 (csrc/schedule.cu feasibility_kernel): one thread per node.
     Returns (feasible [N] bool, stages {STAGE_KEYS: tensor})."""
     from . import build
@@ -1432,7 +1668,7 @@ def feasibility_kernel(tb: Tables, cry: Carry, g: int, forced: int, valid: bool,
     lib = build.library()
     N, R = tb.alloc.shape
     dev = tb.alloc.device
-    v = _view(tb, cry, 2, DEFAULT_WEIGHTS, filters)
+    v = _view(tb, cry, 2, DEFAULT_WEIGHTS, filters, enable_gpu, enable_storage)
     feasible = torch.empty(N, dtype=torch.bool, device=dev)
     stage_rows = torch.empty((len(STAGE_ROWS), N), dtype=torch.bool, device=dev)
     fit_each = torch.empty((N, R), dtype=torch.bool, device=dev)
@@ -1443,6 +1679,8 @@ def feasibility_kernel(tb: Tables, cry: Carry, g: int, forced: int, valid: bool,
                                   ctypes.c_void_p(fit_each.data_ptr()), _stream()),
            "feasibility_kernel launch")
     feasibility_jit.launches += 1
+    if enable_gpu or enable_storage:
+        BRANCH_LAUNCHES["feasibility/gpu_storage"] += 1
     stages = {k: stage_rows[i] for i, k in enumerate(STAGE_ROWS)}
     stages["fit_each"] = fit_each
     return feasible, {k: stages[k] for k in STAGE_KEYS}
@@ -1450,7 +1688,8 @@ def feasibility_kernel(tb: Tables, cry: Carry, g: int, forced: int, valid: bool,
 
 def schedule_batch_kernel(tb: Tables, cry: Carry, pod_group, forced_node, valid,
                           n_zones: int, w: ScoreWeights = DEFAULT_WEIGHTS,
-                          filters: FilterFlags = DEFAULT_FILTERS):
+                          filters: FilterFlags = DEFAULT_FILTERS, enable_gpu: bool = False,
+                          enable_storage: bool = False):
     """Launch K2 (csrc/schedule.cu schedule_batch_kernel): one persistent
     block that loops over the P pods. The returned carry is a CLONE of `cry`
     that the kernel updates in place; `cry` itself is left untouched."""
@@ -1465,7 +1704,7 @@ def schedule_batch_kernel(tb: Tables, cry: Carry, pod_group, forced_node, valid,
     P = pg.shape[0]
     if fn.shape[0] != P or vd.shape[0] != P:
         raise ValueError("pod_group, forced_node and valid must have one length")
-    v = _view(tb, out, n_zones, w, filters)
+    v = _view(tb, out, n_zones, w, filters, enable_gpu, enable_storage)
     choices = torch.empty(P, dtype=torch.int32, device=dev)
     scratch = torch.empty(int(lib.schedule_scratch_floats(ctypes.byref(v))),
                           dtype=torch.float32, device=dev)
@@ -1479,6 +1718,8 @@ def schedule_batch_kernel(tb: Tables, cry: Carry, pod_group, forced_node, valid,
            "schedule_batch_kernel launch")
     end.record()
     schedule_batch.launches += 1
+    if enable_gpu or enable_storage:
+        BRANCH_LAUNCHES["schedule_batch/gpu_storage"] += 1
     # the launch's CUDA events: elapsed_time() once the caller has synchronized
     schedule_batch.last_events = (start, end)
     return out, choices
@@ -1498,7 +1739,7 @@ def _i32_on(t, dev, n: int, what: str) -> torch.Tensor:
 
 def schedule_wave_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
                          w: ScoreWeights = DEFAULT_WEIGHTS, filters: FilterFlags = DEFAULT_FILTERS,
-                         block: int = WAVE_BLOCK, kmax: int = 0):
+                         block: int = WAVE_BLOCK, kmax: int = 0, gpu_live: bool = False):
     """Launch K3 (csrc/wave.cu schedule_wave_kernel): one persistent block
     runs the whole wave loop. Returns (per-node counts [N] i32, placed as a
     0-dim i32 tensor, [iterations, head_fallbacks, guarded] i32), all on the
@@ -1511,7 +1752,7 @@ def schedule_wave_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
     K = kmax if kmax else N * block
     if N * block >= 2 ** 31 or not 1 <= K <= N * block:
         raise ValueError(f"wave table {N}x{block} with kmax {K} is out of the kernel's range")
-    v = _view(tb, cry, 2, w, filters)
+    v = _view(tb, cry, 2, w, filters, enable_gpu=gpu_live)
     j = torch.empty(N, dtype=torch.int32, device=dev)
     stats = torch.empty(4, dtype=torch.int32, device=dev)
     fs = torch.empty(int(lib.wave_scratch_floats(N, block)), dtype=_F32, device=dev)
@@ -1521,10 +1762,13 @@ def schedule_wave_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
                                     _ptr(iscr), _stream()),
            "schedule_wave_kernel launch")
     schedule_wave.launches += 1
+    if gpu_live:
+        BRANCH_LAUNCHES["schedule_wave/gpu_live"] += 1
     return j, stats[0], stats[1:]
 
 
-def aggregate_commit_kernel(tb: Tables, cry: Carry, g: int, j: torch.Tensor) -> Carry:
+def aggregate_commit_kernel(tb: Tables, cry: Carry, g: int, j: torch.Tensor,
+                            gpu_live: bool = False) -> Carry:
     """Launch K3c (csrc/wave.cu aggregate_commit_kernel) on a CLONE of `cry`,
     which it updates in place and returns; `cry` is left untouched."""
     from . import build
@@ -1532,7 +1776,7 @@ def aggregate_commit_kernel(tb: Tables, cry: Carry, g: int, j: torch.Tensor) -> 
     lib = build.library()
     dev = tb.alloc.device
     out = Carry(*(t.clone() for t in cry))
-    v = _view(tb, out, 2, DEFAULT_WEIGHTS, DEFAULT_FILTERS)
+    v = _view(tb, out, 2, DEFAULT_WEIGHTS, DEFAULT_FILTERS, enable_gpu=gpu_live)
     jj = _i32_on(j, dev, tb.alloc.shape[0], "j")
     for name in ("topo_dom", "counter_topo", "carr_topo"):
         t = getattr(tb, name)
@@ -1542,9 +1786,11 @@ def aggregate_commit_kernel(tb: Tables, cry: Carry, g: int, j: torch.Tensor) -> 
     seg = torch.empty(U * cry.counter.shape[1], dtype=_F32, device=dev)
     _check(lib.aggregate_commit_launch(ctypes.byref(v), int(g), _ptr(jj), _ptr(tb.topo_dom),
                                        _ptr(tb.counter_topo), _ptr(tb.carr_topo), int(U),
-                                       _ptr(seg), _stream()),
+                                       int(bool(gpu_live)), _ptr(seg), _stream()),
            "aggregate_commit_kernel launch")
     aggregate_commit.launches += 1
+    if gpu_live:
+        BRANCH_LAUNCHES["aggregate_commit/gpu_live"] += 1
     return out
 
 
@@ -1618,35 +1864,39 @@ def _on_cpu(t: torch.Tensor) -> bool:
 
 
 def feasibility_jit(tb: Tables, cry: Carry, g: int, forced: int, valid: bool,
-                    filters: FilterFlags = DEFAULT_FILTERS):
+                    filters: FilterFlags = DEFAULT_FILTERS, enable_gpu: bool = False,
+                    enable_storage: bool = False):
     """The failure-reason diagnostic (JAX `feasibility_jit`): the plain
     version for CPU tensors, K1 for CUDA tensors."""
+    flags = dict(enable_gpu=enable_gpu, enable_storage=enable_storage)
     if _on_cpu(tb.alloc):
-        return feasibility(tb, cry, g, forced, valid, filters)
-    return feasibility_kernel(tb, cry, g, forced, valid, filters)
+        return feasibility(tb, cry, g, forced, valid, filters, **flags)
+    return feasibility_kernel(tb, cry, g, forced, valid, filters, **flags)
 
 
 def schedule_batch(tb: Tables, cry: Carry, pod_group, forced_node, valid, n_zones: int,
-                   w: ScoreWeights = DEFAULT_WEIGHTS, filters: FilterFlags = DEFAULT_FILTERS):
+                   w: ScoreWeights = DEFAULT_WEIGHTS, filters: FilterFlags = DEFAULT_FILTERS,
+                   enable_gpu: bool = False, enable_storage: bool = False):
     """Scan the whole batch; returns (final carry, choices [P] i32, -1 =
     unschedulable): the plain version for CPU tensors, K2 for CUDA tensors."""
-    if _on_cpu(tb.alloc):
-        return schedule_batch_plain(tb, cry, pod_group, forced_node, valid, n_zones, w, filters)
-    return schedule_batch_kernel(tb, cry, pod_group, forced_node, valid, n_zones, w, filters)
+    run = schedule_batch_plain if _on_cpu(tb.alloc) else schedule_batch_kernel
+    return run(tb, cry, pod_group, forced_node, valid, n_zones, w, filters, enable_gpu,
+               enable_storage)
 
 
-def aggregate_commit(tb: Tables, cry: Carry, g: int, j: torch.Tensor) -> Carry:
+def aggregate_commit(tb: Tables, cry: Carry, g: int, j: torch.Tensor,
+                     gpu_live: bool = False) -> Carry:
     """Commit j[n] copies of group g on every node n at once (JAX
     `_aggregate_commit`): the plain version for CPU tensors, K3c for CUDA
     tensors. Returns a new Carry."""
     if _on_cpu(tb.alloc):
-        return aggregate_commit_plain(tb, cry, g, j)
-    return aggregate_commit_kernel(tb, cry, g, j)
+        return aggregate_commit_plain(tb, cry, g, j, gpu_live)
+    return aggregate_commit_kernel(tb, cry, g, j, gpu_live)
 
 
 def schedule_wave(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
                   w: ScoreWeights = DEFAULT_WEIGHTS, filters: FilterFlags = DEFAULT_FILTERS,
-                  block: int = WAVE_BLOCK, kmax: int = 0):
+                  block: int = WAVE_BLOCK, kmax: int = 0, gpu_live: bool = False):
     """Place up to m pods of wave-eligible group g, exactly as m serial steps
     would (JAX `schedule_wave`): the plain version for CPU tensors, K3 for
     CUDA tensors, then `aggregate_commit`. Returns (new carry, per-node
@@ -1654,13 +1904,15 @@ def schedule_wave(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
     to `schedule_wave.stats`, an i32 tensor on the wrapper's device (adding
     it up does not wait for the card)."""
     if _on_cpu(tb.alloc):
-        j, placed, st = schedule_wave_plain(tb, cry, g, m, cap1, w, filters, block, kmax)
+        j, placed, st = schedule_wave_plain(tb, cry, g, m, cap1, w, filters, block, kmax,
+                                            gpu_live)
         stats = torch.tensor([st[k] for k in WAVE_STATS], dtype=torch.int32)
     else:
-        j, placed, stats = schedule_wave_kernel(tb, cry, g, m, cap1, w, filters, block, kmax)
+        j, placed, stats = schedule_wave_kernel(tb, cry, g, m, cap1, w, filters, block, kmax,
+                                                gpu_live)
     prev = schedule_wave.stats
     schedule_wave.stats = stats if prev is None or prev.device != stats.device else prev + stats
-    return aggregate_commit(tb, cry, g, j), j, placed
+    return aggregate_commit(tb, cry, g, j, gpu_live), j, placed
 
 
 def schedule_group_serial(tb: Tables, cry: Carry, g: int, valid, cap1: bool,
@@ -1712,11 +1964,17 @@ for _f in _WRAPPERS.values():
 schedule_batch.last_events = None
 schedule_wave.stats = None
 schedule_affinity_wave.stats = None
+# launches of the kernels with their GPU-share / Open-Local branches on (a
+# part of the wrappers' own counts)
+BRANCH_LAUNCHES = dict.fromkeys(("feasibility/gpu_storage", "schedule_batch/gpu_storage",
+                                 "schedule_wave/gpu_live", "aggregate_commit/gpu_live"), 0)
 
 
 def reset_launch_counts() -> None:
     for f in _WRAPPERS.values():
         f.launches = 0
+    for k in BRANCH_LAUNCHES:
+        BRANCH_LAUNCHES[k] = 0
     schedule_wave.stats = None
     schedule_affinity_wave.stats = None
 
@@ -1739,5 +1997,6 @@ def affinity_stats() -> Dict[str, int]:
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: f.launches for name, f in _WRAPPERS.items()}
+    """Launches per wrapper, and per GPU-share / Open-Local branch."""
+    return {**{name: f.launches for name, f in _WRAPPERS.items()}, **BRANCH_LAUNCHES}
 

@@ -8,7 +8,9 @@ allows, the rest coalesce into serial chunks. Each segment is one kernel
 dispatch from the previous segment's end carry:
 
 - "serial": `kernels.schedule_batch` (K2), per-pod choices;
-- "wave": `kernels.schedule_wave` (K3, then K3c `aggregate_commit`);
+- "wave": `kernels.schedule_wave` (K3, then K3c `aggregate_commit`; a
+  shared-GPU group runs with `gpu_live`: GPU units clamp the capacity and K3c
+  replays the device allocator);
 - "spread": `kernels.schedule_group_serial` (K4, then K3c);
 - "affinity": `kernels.schedule_affinity_wave` (K5, then K3c).
 
@@ -16,7 +18,11 @@ The results are fetched once (`torch.cat` and `.cpu()`); pods of a counted
 segment are handed out in node order, as in the JAX engine. Failed pods get
 their FitError reasons from `kernels.feasibility_jit` (K1 on the card)
 against the end carry of their segment. `use_waves = False` sends every pod
-through K2 (the serial route).
+through K2 (the serial route). A batch with GPU-share or Open-Local demand
+turns on those branches of K1 and K2 (`plugin_flags`); groups with volumes,
+with a pre-assigned gpu-index, or sharing GPUs under live counters take the
+serial route, and the host ledgers (`GpuShareHost`, `OpenLocalHost`) write
+the gpu-index annotations and the storage state as each pod commits.
 
 Behavioral parity notes (as in the JAX engine):
 - Pods arriving with spec.nodeName are committed directly without any
@@ -28,7 +34,6 @@ Behavioral parity notes (as in the JAX engine):
   format.
 
 Left out of this port so far, each with the ROADMAP item it waits for:
-- GPU-share and Open-Local kernel branches: B9 (such batches raise);
 - preemption (mixed pod priorities raise): A6;
 - capacity probing (probe_pods / probe_utilization): A7;
 - custom scheduler configs and out-of-tree plugins: A7;
@@ -210,6 +215,7 @@ class Simulator:
         self._wave_elig_key: tuple = ()
         self._domain_count_cache: Dict[str, int] = {}  # topo key -> #domains
         self.segment_census: Dict[str, List[int]] = {}  # kind -> [segments, pods]
+        self._last_carry: Optional[kernels.Carry] = None  # end carry of the last batch
         # Live-DNS groups whose every self topology has fewer domains than
         # this ride the group-serial scan instead of the affinity route (the
         # JAX engine's break-even knob, read the same way so that both
@@ -510,10 +516,11 @@ class Simulator:
             segs.append(("serial", ser_start, P - ser_start))
         return segs
 
-    def _dispatch(self, seg: tuple, bt: BatchTables, tables, carry):
+    def _dispatch(self, seg: tuple, bt: BatchTables, tables, carry, flags: Tuple[bool, bool]):
         """One segment's kernel dispatch from `carry` (its start carry):
         returns (end carry, i32 result on the device): per-pod choices of a
-        serial segment, per-node counts of every other kind."""
+        serial segment, per-node counts of every other kind. `flags`:
+        (enable_gpu, enable_storage) of the batch, for the serial scan."""
         kind, start, length = seg[:3]
         w, filters = self.score_w, self.filter_flags
         if kind == "serial":
@@ -526,13 +533,15 @@ class Simulator:
             vd[:length] = True
             return kernels.schedule_batch(
                 tables, carry, torch.from_numpy(pg), torch.from_numpy(fn),
-                torch.from_numpy(vd), n_zones=bt.n_zones, w=w, filters=filters)
+                torch.from_numpy(vd), n_zones=bt.n_zones, w=w, filters=filters,
+                enable_gpu=flags[0], enable_storage=flags[1])
         g, cap1 = seg[3], bool(seg[4])
         if kind == "wave":
             block = kernels.wave_block_for(length, self.na.N)
             kmax = kernels.wave_kmax(length, self.na.N, block)
             carry, counts, _ = kernels.schedule_wave(tables, carry, g, length, cap1, w=w,
-                                                     filters=filters, block=block, kmax=kmax)
+                                                     filters=filters, block=block, kmax=kmax,
+                                                     gpu_live=bool(seg[5]))
             return carry, counts
         if kind == "spread":
             ss_live, sa_live = bool(seg[5]), bool(seg[6])
@@ -552,11 +561,7 @@ class Simulator:
 
     def _schedule_run_once(self, to_schedule: List[dict]) -> List[UnscheduledPod]:
         bt = self.encode_batch(to_schedule)
-        enable_gpu, enable_storage = plugin_flags(bt)
-        if enable_gpu or enable_storage:
-            raise NotImplementedError(
-                "pods with GPU-share or Open-Local demand need kernel branches the "
-                "PyTorch port does not have yet (ROADMAP B9)")
+        flags = plugin_flags(bt)  # (enable_gpu, enable_storage)
         tables, carry = self._to_device(bt)
         P = len(to_schedule)
         segs = self._segments(bt, P) if self.use_waves else [("serial", 0, P)]
@@ -564,8 +569,9 @@ class Simulator:
         # come back in ONE fetch
         outs: List[tuple] = []  # (seg, i32 device result, carry after the segment)
         for seg in segs:
-            carry, res = self._dispatch(seg, bt, tables, carry)
+            carry, res = self._dispatch(seg, bt, tables, carry, flags)
             outs.append((seg, res, carry))
+        self._last_carry = carry
         flat = torch.cat([res for _, res, _ in outs]).cpu().numpy()
         choices = np.full(P, -1, np.int32)
         seg_of = np.zeros(P, np.int32)
@@ -603,7 +609,7 @@ class Simulator:
             reasons = reason_cache.get(key)
             if reasons is None:
                 reasons = reason_cache[key] = self._explain_reasons(
-                    pod, key[0], key[1], tables, outs[key[2]][2])
+                    pod, key[0], key[1], tables, outs[key[2]][2], flags)
             pod.pop(SIG_MEMO_KEY, None)
             failed.append(UnscheduledPod(pod, self._format_reason(pod, reasons, self.na.N)))
         return failed
@@ -624,11 +630,14 @@ class Simulator:
         ("storage", "node(s) didn't have enough local storage"),
     )
 
-    def _explain_reasons(self, pod: dict, g: int, forced: int, tables, carry) -> Dict[str, int]:
+    def _explain_reasons(self, pod: dict, g: int, forced: int, tables, carry,
+                         flags: Tuple[bool, bool]) -> Dict[str, int]:
         """FitError reason counts from the per-stage masks of
-        kernels.feasibility_jit (findNodesThatFitPod failure accounting,
-        first-failing plugin per node)."""
-        _, stages = kernels.feasibility_jit(tables, carry, g, forced, True, self.filter_flags)
+        kernels.feasibility_jit with the batch's (enable_gpu, enable_storage)
+        (findNodesThatFitPod failure accounting, first-failing plugin per
+        node)."""
+        _, stages = kernels.feasibility_jit(tables, carry, g, forced, True, self.filter_flags,
+                                            enable_gpu=flags[0], enable_storage=flags[1])
         N = self.na.N  # stages carry phantom node padding; slice it off
         stages = {k: v.cpu().numpy()[:N] for k, v in stages.items()}
         return self._reasons_from_stages(pod, forced, stages)

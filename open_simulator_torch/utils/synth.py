@@ -427,3 +427,135 @@ def synth_affinity_cluster(
             pods.append(pod)
         k += 1
     return nodes, pods, services
+
+
+_GPU_MODEL = "alibabacloud.com/gpu-card-model"
+_GPU_COUNT = "alibabacloud.com/gpu-count"
+_GPU_MEM = "alibabacloud.com/gpu-mem"
+_GPU_INDEX = "alibabacloud.com/gpu-index"
+_NODE_STORAGE = "simon/node-local-storage"
+_POD_STORAGE = "simon/pod-local-storage"
+_GIB = 1 << 30
+
+
+def _storage_class(name: str, **params) -> dict:
+    return {"apiVersion": "storage.k8s.io/v1", "kind": "StorageClass",
+            "metadata": {"name": name}, "provisioner": "local.csi.aliyun.com",
+            "parameters": params, "reclaimPolicy": "Delete",
+            "volumeBindingMode": "WaitForFirstConsumer"}
+
+
+def _gpu_pod(idx: int, app: str, mem_mi: int, count: int, cpu_milli: int,
+             mem_bytes: int) -> dict:
+    pod = synth_pod(idx, cpu_milli=cpu_milli, mem_bytes=mem_bytes, labels={"app": app})
+    pod["metadata"]["annotations"] = {_GPU_MEM: f"{mem_mi}Mi", _GPU_COUNT: str(count)}
+    return pod
+
+
+def synth_extended_cluster(
+    n_nodes: int,
+    n_pods: int,
+    n_zones: int = 8,
+) -> Tuple[List[dict], List[dict], List[dict], List[dict]]:
+    """(nodes, pods, services, storage_classes): a GPU-share and Open-Local
+    cluster in the shapes of the reference's examples, at the scale of a
+    shared GPU fleet (Alibaba PAI's public cluster-trace-gpu-v2020: ~1,800
+    GPU machines, many tasks asking for a fraction of one GPU's memory).
+
+    Nodes cycle six shapes by index, zoned by i % n_zones: the two V100
+    nodes of examples/cluster/gpushare (2 GPUs in 32560Mi, 4 in 64640Mi), an
+    8-GPU node with the 4-GPU node's per-device memory, the storage node of
+    examples/newnode/demo_1 (VG yoda-pool 500 GiB, one 100 GiB HDD), a
+    variant of it with a second 200 GiB VG and two SSDs (200 and 400 GiB),
+    and a CPU-only node.
+
+    Pods come in replica blocks cycling seven shapes: (a) shared-GPU
+    replicas asking for one GPU of 1024Mi-10240Mi (gpu-pod-00's request; the
+    wave route with its GPU branch), (b) 2 x 10240Mi replicas (gpu-pod-02's
+    request; the wave route, in-order units), (c) a short block with a
+    pre-assigned gpu-index (the serial route), (d) one-GPU replicas with a
+    zone DoNotSchedule spread (the serial route with the GPU branch), (e)
+    StatefulSet pods with the LVM claims of
+    examples/application/open_local/sts-nginx.yaml plus a 100 GiB one,
+    alternating the unnamed (Binpack) class and the class naming yoda-pool,
+    (f) pods with SSD and HDD device claims and (g) plain CPU pods. The GPU
+    and storage demand exceeds the cluster, so part of (a), (b), (e) and (f)
+    fails. The storage_classes list holds the classes the claims name."""
+    zone = "topology.kubernetes.io/zone"
+    storage_classes = [
+        _storage_class("open-local-lvm", volumeType="LVM"),
+        _storage_class("yoda-lvm-default", volumeType="LVM", vgName="yoda-pool"),
+        _storage_class("open-local-device-hdd", volumeType="Device", mediaType="hdd"),
+        _storage_class("open-local-device-ssd", volumeType="Device", mediaType="ssd"),
+    ]
+    gpu_shapes = {0: (2, "32560Mi"), 1: (4, "64640Mi"), 2: (8, "129280Mi")}
+    nodes = []
+    for i in range(n_nodes):
+        kind = i % 6
+        if kind in gpu_shapes:
+            count, mem = gpu_shapes[kind]
+            node = synth_node(i, cpu_milli=64000, mem_bytes=256000 << 20, pods=110,
+                              n_zones=n_zones)
+            node["metadata"]["labels"][_GPU_MODEL] = "V100"
+            for key in ("allocatable", "capacity"):
+                node["status"][key].update({_GPU_COUNT: str(count), _GPU_MEM: mem})
+        elif kind in (3, 4):
+            node = synth_node(i, cpu_milli=32000, mem_bytes=64 * _GIB, pods=110, n_zones=n_zones)
+            vgs = [{"name": "yoda-pool", "capacity": str(500 * _GIB)}]
+            devices = [{"name": "/dev/vdd", "device": "/dev/vdd", "capacity": str(100 * _GIB),
+                        "mediaType": "hdd", "isAllocated": "false"}]
+            if kind == 4:
+                vgs.append({"name": "pool-b", "capacity": str(200 * _GIB)})
+                devices += [{"name": f"/dev/nvme{k}n1", "device": f"/dev/nvme{k}n1",
+                             "capacity": str(size * _GIB), "mediaType": "ssd",
+                             "isAllocated": "false"} for k, size in ((0, 200), (1, 400))]
+            node["metadata"]["annotations"] = {
+                _NODE_STORAGE: json.dumps({"devices": devices, "vgs": vgs})}
+        else:
+            node = synth_node(i, pods=110, n_zones=n_zones)
+        nodes.append(node)
+
+    pods: List[dict] = []
+    block = max(8, n_pods // 70)
+    k = 0
+    while len(pods) < n_pods:
+        kind, cycle = k % 7, k // 7
+        n = min(min(16, block) if kind == 2 else block, n_pods - len(pods))
+        for r in range(n):
+            idx = len(pods)
+            if kind == 0:
+                mem_mi = (1024, 2048, 4096, 8192, 10240)[cycle % 5]
+                pod = _gpu_pod(idx, f"share-{k}", mem_mi, 1, 4000, 9216 << 20)
+            elif kind == 1:
+                pod = _gpu_pod(idx, f"dual-{k}", 10240, 2, 12000, 18432 << 20)
+            elif kind == 2:
+                pod = _gpu_pod(idx, f"pinned-{k}", 10240, 1, 4000, 9216 << 20)
+                pod["metadata"]["annotations"][_GPU_INDEX] = "0"
+            elif kind == 3:
+                app = f"spread-{k}"
+                pod = _gpu_pod(idx, app, 4096, 1, 4000, 9216 << 20)
+                pod["spec"]["topologySpreadConstraints"] = [
+                    _spread_term(app, zone, "DoNotSchedule", 1)]
+            elif kind == 4:
+                sc = "open-local-lvm" if cycle % 2 == 0 else "yoda-lvm-default"
+                app = f"sts-{k}"
+                pod = synth_pod(idx, cpu_milli=1000, mem_bytes=2 * _GIB, labels={"app": app})
+                pod["metadata"]["name"] = f"{app}-{r}"
+                pod["metadata"]["annotations"] = {_POD_STORAGE: json.dumps({"volumes": [
+                    {"size": str(size * _GIB), "kind": "LVM", "scName": sc}
+                    for size in (10, 40, 100)]})}
+            elif kind == 5:
+                hdd, ssd = "open-local-device-hdd", "open-local-device-ssd"
+                vols = ([(150, "SSD", ssd), (80, "HDD", hdd)] if cycle % 2 == 0
+                        else [(50, "HDD", hdd)])
+                pod = synth_pod(idx, cpu_milli=2000, mem_bytes=4 * _GIB,
+                                labels={"app": f"disk-{k}"})
+                pod["metadata"]["annotations"] = {_POD_STORAGE: json.dumps({"volumes": [
+                    {"size": str(size * _GIB), "kind": kd, "scName": sc}
+                    for size, kd, sc in vols]})}
+            else:
+                pod = synth_pod(idx, cpu_milli=500, mem_bytes=1 * _GIB,
+                                labels={"app": f"plain-{k}"})
+            pods.append(pod)
+        k += 1
+    return nodes, pods, [], storage_classes

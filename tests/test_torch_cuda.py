@@ -205,3 +205,50 @@ def test_affinity_wave_kernel_matches_plain_version():
                         K.aggregate_commit_plain(tb, seed, g, pj))
     # both epoch kinds ran: head fallbacks and multi-round takes
     assert totals["head_fallbacks"] > 0 and totals["multi_rounds"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_pods", [1200, 2400])
+def test_extended_kernels_match_plain_versions(n_pods):
+    """The GPU-share and Open-Local branches on two 256-node extended
+    clusters (the second overflows further): K2 (choices, every carry field
+    with the device and storage ledgers) and K1 (every stage, seed and end
+    carry) with both branches on, and K3 + K3c with gpu_live on every
+    shared-GPU wave segment, at the engine's block and at block 8 / kmax 16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.utils.synth import synth_extended_cluster
+
+    nodes, pods, _, scs = synth_extended_cluster(256, n_pods)
+    sim = Simulator(nodes, device="cuda")
+    sim.register_cluster_objects(ResourceTypes(storage_classes=scs))
+    bt, tb, seed, segs = _segments_of(sim, pods)
+    flags = dict(enable_gpu=True, enable_storage=True)
+    args = [torch.from_numpy(a).cuda() for a in (bt.pod_group, bt.forced_node, bt.valid)]
+    kc, kch = K.schedule_batch_kernel(tb, seed, *args, bt.n_zones, **flags)
+    pc, pch = K.schedule_batch_plain(tb, seed, *args, bt.n_zones, **flags)
+    assert torch.equal(kch, pch)
+    assert bool((kch[:len(pods)] < 0).any())
+    _same_carry(kc, pc)
+    for g in sorted({int(g) for g in bt.pod_group[:len(pods)]}):
+        for cry in (seed, kc):
+            kf, ks = K.feasibility_kernel(tb, cry, g, -1, True, **flags)
+            pf, ps = K.feasibility(tb, cry, g, -1, True, **flags)
+            assert torch.equal(kf, pf), g
+            for k in K.STAGE_KEYS:
+                assert torch.equal(ks[k], ps[k]), (g, k)
+    waves = [s for s in segs if s[0] == "wave" and s[5]]
+    assert {int(bt.grp_gpu_num[s[3]]) for s in waves} == {1, 2}
+    for _, _, m, g, cap1, _ in waves:
+        block = K.wave_block_for(m, sim.na.N)
+        for blk, kmax in ((block, K.wave_kmax(m, sim.na.N, block)), (8, 16)):
+            kj, kp, kst = K.schedule_wave_kernel(tb, kc, g, m, cap1, block=blk, kmax=kmax,
+                                                 gpu_live=True)
+            pj, pp, pst = K.schedule_wave_plain(tb, kc, g, m, cap1, block=blk, kmax=kmax,
+                                                gpu_live=True)
+            assert torch.equal(kj, pj), (g, blk)
+            assert int(kp) == pp
+            assert kst.tolist() == [pst[k] for k in K.WAVE_STATS]
+        _same_carry(K.aggregate_commit_kernel(tb, kc, g, kj, gpu_live=True),
+                    K.aggregate_commit_plain(tb, kc, g, pj, gpu_live=True))

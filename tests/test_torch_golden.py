@@ -47,6 +47,11 @@ SCENARIOS = {
     # pods constraining themselves (self-affinity, self-anti-affinity,
     # DoNotSchedule spread, live SelectorSpread): the affinity-wave route
     "affinity": ("affinity", 5000, 20000, False),
+    # GPU-share and Open-Local demand: shared-GPU waves with the GPU branch,
+    # the rest on the serial route with both branches
+    "extended": ("extended", 2000, 20000, False),
+    # the same on the serial route: every GPU pod through K2's allocator
+    "extended_serial": ("extended", 2000, 20000, True),
 }
 ROUTES = {True: "open_simulator_tpu Simulator, use_waves=False, one CPU device",
           False: "open_simulator_tpu Simulator, default route (use_waves=True), one CPU device"}
@@ -73,23 +78,28 @@ def summarize(sim, pods, failed) -> dict:
     }
 
 
+PORT_GENERATORS = ("spread", "affinity", "extended")
+
+
 def generator(gen: str, n_nodes: int, n_pods: int) -> str:
-    if gen in ("spread", "affinity"):
+    if gen in PORT_GENERATORS:
         return f"synth_{gen}_cluster({n_nodes}, {n_pods})"
     hard = ", hard_predicates=True" if gen == "hard" else ""
     return f"synth_cluster({n_nodes}, {n_pods}{hard})"
 
 
 def workload(gen: str, n_nodes: int, n_pods: int, synth) -> tuple:
-    """(nodes, pods, services) from `synth` (a utils.synth module of either
-    package: their synth_cluster is one function); the spread and affinity
-    workloads come from the port's own generators, which import no JAX."""
-    if gen in ("spread", "affinity"):
+    """(nodes, pods, services, storage_classes) from `synth` (a utils.synth
+    module of either package: their synth_cluster is one function); the
+    spread, affinity and extended workloads come from the port's own
+    generators, which import no JAX."""
+    if gen in PORT_GENERATORS:
         from open_simulator_torch.utils import synth as port_synth
 
-        return getattr(port_synth, f"synth_{gen}_cluster")(n_nodes, n_pods)
+        out = getattr(port_synth, f"synth_{gen}_cluster")(n_nodes, n_pods)
+        return out if len(out) == 4 else (*out, [])
     nodes, pods = synth.synth_cluster(n_nodes, n_pods, hard_predicates=gen == "hard")
-    return nodes, pods, []
+    return nodes, pods, [], []
 
 
 def run_jax(gen: str, n_nodes: int, n_pods: int, serial: bool) -> dict:
@@ -97,10 +107,10 @@ def run_jax(gen: str, n_nodes: int, n_pods: int, serial: bool) -> dict:
     from open_simulator_tpu.simulator.engine import Simulator
     from open_simulator_tpu.utils import synth
 
-    nodes, pods, services = workload(gen, n_nodes, n_pods, synth)
+    nodes, pods, services, scs = workload(gen, n_nodes, n_pods, synth)
     sim = Simulator(nodes, use_mesh=False)
     sim.use_waves = not serial
-    sim.register_cluster_objects(ResourceTypes(services=services))
+    sim.register_cluster_objects(ResourceTypes(services=services, storage_classes=scs))
     failed = sim.schedule_pods(pods)
     return summarize(sim, pods, failed)
 
@@ -110,10 +120,10 @@ def run_port(gen: str, n_nodes: int, n_pods: int, serial: bool, device: str = "c
     from open_simulator_torch.simulator.engine import Simulator
     from open_simulator_torch.utils import synth
 
-    nodes, pods, services = workload(gen, n_nodes, n_pods, synth)
+    nodes, pods, services, scs = workload(gen, n_nodes, n_pods, synth)
     sim = Simulator(nodes, device=device)
     sim.use_waves = not serial
-    sim.register_cluster_objects(ResourceTypes(services=services))
+    sim.register_cluster_objects(ResourceTypes(services=services, storage_classes=scs))
     failed = sim.schedule_pods(pods)
     return summarize(sim, pods, failed)
 
@@ -173,12 +183,24 @@ def test_small_scenario_both_packages():
 
 
 @pytest.mark.parametrize("gen,n_nodes,n_pods", [("hard", 4, 1200), ("plain", 40, 600),
-                                                ("spread", 24, 320), ("affinity", 24, 320)])
+                                                ("spread", 24, 320), ("affinity", 24, 320),
+                                                ("extended", 48, 600)])
 def test_small_scenario_both_packages_default_route(gen, n_nodes, n_pods):
     jax_side = run_jax(gen, n_nodes, n_pods, False)
     port_side = run_port(gen, n_nodes, n_pods, False)
     for k in RESULT_KEYS:
         assert port_side[k] == jax_side[k], k
+
+
+def test_small_extended_scenario_both_packages_serial_route():
+    # GPU-share and Open-Local demand past the cluster's: GPU and storage
+    # reasons; every pod through the serial scan with both branches on
+    jax_side = run_jax("extended", 48, 600, True)
+    port_side = run_port("extended", 48, 600, True)
+    for k in RESULT_KEYS:
+        assert port_side[k] == jax_side[k], k
+    census = " ".join(jax_side["reason_census"])
+    assert "Node:node-" in census and "didn't have enough local storage" in census
 
 
 if __name__ == "__main__":

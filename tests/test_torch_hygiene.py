@@ -83,10 +83,13 @@ def test_unsupported_batches_raise():
     pods[1]["spec"]["priority"] = 100
     with pytest.raises(NotImplementedError, match="A6"):
         open_simulator_torch.Simulator(nodes, device="cpu").schedule_pods(pods)
+    # GPU-share demand no longer raises: with no GPU node the pod fails with
+    # the GPU filter's per-node reasons
     nodes, pods = synth_cluster(2, 1)
-    pods[0]["metadata"]["annotations"] = {"alibabacloud.com/gpu-mem": "1Gi"}
-    with pytest.raises(NotImplementedError, match="B9"):
-        open_simulator_torch.Simulator(nodes, device="cpu").schedule_pods(pods)
+    pods[0]["metadata"]["annotations"] = {"alibabacloud.com/gpu-mem": "1Gi",
+                                          "alibabacloud.com/gpu-count": "1"}
+    failed = open_simulator_torch.Simulator(nodes, device="cpu").schedule_pods(pods)
+    assert len(failed) == 1 and "1 Node:node-00000, 1 Node:node-00001" in failed[0].reason
 
 
 def test_wrappers_refuse_other_devices():

@@ -29,6 +29,17 @@ def _synthetic():
     return JaxSimulator(nodes, use_mesh=False), pods
 
 
+def _extended():
+    # GPU-share and Open-Local tables staged (the branches themselves are
+    # held in test_torch_extended.py)
+    from open_simulator_torch.utils.synth import synth_extended_cluster
+
+    nodes, pods, _, scs = synth_extended_cluster(48, 400)
+    sim = JaxSimulator(nodes, use_mesh=False)
+    sim.register_cluster_objects(jax_types.ResourceTypes(storage_classes=scs))
+    return sim, pods
+
+
 def _case(name):
     def make():
         cluster, apps = build(jax_types, CASES[name]())
@@ -40,7 +51,8 @@ def _case(name):
     return make
 
 
-BATCHES = {"synthetic": _synthetic, "topology_spread": _case("topology_spread"),
+BATCHES = {"synthetic": _synthetic, "extended": _extended,
+           "topology_spread": _case("topology_spread"),
            "scoring": _case("scoring_and_workloads"), "interpod": _case("interpod_affinity")}
 
 

@@ -192,3 +192,114 @@ def outcome(result) -> dict:
             nodes[(md.get("namespace"), md["name"])] = ns.node["metadata"]["name"]
     reasons = [u.reason for u in result.unscheduled_pods]
     return {"nodes": nodes, "reasons": reasons}
+
+
+# ---------------------------------------------------------- extended resources ----
+# GPU-share and Open-Local cases: the scenarios of tests/test_gpushare.py
+# (simulation section), tests/test_openlocal.py (simulation section) and the
+# GPU waves of tests/test_waves.py, as (cluster, apps) cases.
+
+def _gpu_cases() -> Dict[str, Callable[[], Case]]:
+    from test_gpushare import GI, gpu_node, gpu_pod
+
+    def app(pods, nodes):
+        return {"nodes": nodes}, [("gpu", {"pods": pods})]
+
+    def no_count():
+        pod = gpu_pod("p0", mem_gi=1)
+        del pod["metadata"]["annotations"]["alibabacloud.com/gpu-count"]
+        return app([pod], [gpu_node("g0")])
+
+    def preassigned():
+        pinned = gpu_pod("pinned", mem_gi=2, count=1)
+        pinned["metadata"]["annotations"]["alibabacloud.com/gpu-index"] = "1"
+        return app([pinned, gpu_pod("filler", mem_gi=2, count=1)],
+                   [gpu_node("g0", count=2, total_mem=4 * GI)])
+
+    return {
+        "gpu_annotated": lambda: app([gpu_pod(f"p{i}", mem_gi=1) for i in range(4)],
+                                     [gpu_node("g0", count=2, total_mem=4 * GI)]),
+        "gpu_exhaustion": lambda: app([gpu_pod(f"p{i}", mem_gi=1) for i in range(3)],
+                                      [gpu_node("g0", count=1, total_mem=2 * GI)]),
+        "gpu_count_required": no_count,
+        "gpu_non_gpu_node": lambda: app([gpu_pod("p0", mem_gi=1)],
+                                        [make_node("cpu-only"),
+                                         gpu_node("g0", count=1, total_mem=4 * GI)]),
+        "gpu_multi": lambda: app([gpu_pod("p0", mem_gi=3, count=3)],
+                                 [gpu_node("g0", count=4, total_mem=16 * GI)]),
+        "gpu_preassigned": preassigned,
+    }
+
+
+def _storage_cases() -> Dict[str, Callable[[], Case]]:
+    from test_openlocal import GI, device_sc, lvm_sc, storage_node, storage_pod
+
+    def app(pods, nodes, scs):
+        return {"nodes": nodes, "storage_classes": scs}, [("app", {"pods": pods})]
+
+    def lvm(n):
+        return app([storage_pod(f"p{i}", [(4 * GI, "LVM", "open-local-lvm")]) for i in range(n)],
+                   [storage_node("s0", vgs=[("pool", 10 * GI)]), make_node("plain")], [lvm_sc()])
+
+    hdd2 = [("/dev/a", 100 * GI, "hdd"), ("/dev/b", 100 * GI, "hdd")]
+
+    def sts_claims():
+        sts = make_statefulset("db", replicas=2, cpu="1", memory="1Gi", volume_claim_templates=[
+            {"metadata": {"name": "data"},
+             "spec": {"storageClassName": "open-local-lvm",
+                      "resources": {"requests": {"storage": "10Gi"}}}}])
+        return ({"nodes": [storage_node("s0", vgs=[("pool", 100 * GI)])],
+                 "storage_classes": [lvm_sc()]}, [("db", {"stateful_sets": [sts]})])
+
+    return {
+        "lvm_writeback": lambda: lvm(2),
+        "lvm_exhaustion": lambda: lvm(3),
+        "device_exclusive": lambda: app(
+            [storage_pod(f"p{i}", [(10 * GI, "HDD", "hdd-sc")]) for i in range(3)],
+            [storage_node("s0", devices=hdd2)], [device_sc("hdd-sc", "hdd")]),
+        "no_storage_nodes": lambda: app(
+            [storage_pod("p0", [(1 * GI, "LVM", "open-local-lvm")])],
+            [make_node("plain-1"), make_node("plain-2")], [lvm_sc()]),
+        "kind_ignored": lambda: app(
+            [storage_pod("p0", [(10 * GI, "LVM", "ssd-sc")])],
+            [storage_node("s0", devices=[("/dev/a", 100 * GI, "ssd")])],
+            [device_sc("ssd-sc", "ssd")]),
+        "device_merge_silent_drop": lambda: app(
+            [storage_pod("p0", [(30 * GI, "HDD", "hdd-sc"), (35 * GI, "HDD", "hdd-sc")])],
+            [storage_node("s0", devices=[("/dev/a", 20 * GI, "hdd"), ("/dev/b", 40 * GI, "hdd")])],
+            [device_sc("hdd-sc", "hdd")]),
+        "device_count_precheck": lambda: app(
+            [storage_pod("p0", [(10 * GI, "HDD", "hdd-sc")] * 3)],
+            [storage_node("s0", devices=hdd2)], [device_sc("hdd-sc", "hdd")]),
+        "sts_volume_claims": sts_claims,
+    }
+
+
+def _gpu_wave_cases() -> Dict[str, Callable[[], Case]]:
+    from test_waves import GI, replicas, wave_gpu_node, wave_gpu_replicas
+
+    def app(pods, nodes):
+        return {"nodes": nodes}, [("app", {"pods": pods})]
+
+    return {
+        "gpu_wave_single": lambda: app(
+            wave_gpu_replicas("trainer", 50, mem_gi=4),
+            [wave_gpu_node(f"g{i}", count=4, total_mem=64 * GI) for i in range(6)]),
+        "gpu_wave_exhaustion": lambda: app(
+            wave_gpu_replicas("tight", 30, mem_gi=3),
+            [wave_gpu_node(f"g{i}", count=2, total_mem=16 * GI, cpu="128", memory="512Gi")
+             for i in range(4)]),
+        "gpu_wave_multi": lambda: app(
+            wave_gpu_replicas("dual", 16, mem_gi=4, count=2),
+            [wave_gpu_node(f"g{i}", count=4, total_mem=32 * GI) for i in range(3)]),
+        "gpu_wave_mixed": lambda: app(
+            wave_gpu_replicas("gp", 12, mem_gi=2) + replicas("plain", 20, cpu="250m",
+                                                             memory="512Mi"),
+            [wave_gpu_node(f"g{i}", count=2, total_mem=16 * GI, cpu="8", memory="16Gi")
+             for i in range(5)]),
+    }
+
+
+def extended_cases() -> Dict[str, Callable[[], Case]]:
+    """Every GPU-share and Open-Local case, by name."""
+    return {**_gpu_cases(), **_storage_cases(), **_gpu_wave_cases()}
