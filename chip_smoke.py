@@ -20,7 +20,17 @@ goldens the JAX package computed (tests/golden/torch_port_*.json):
   both routes (`extended`, `extended_serial`), the reference's primary
   example demo_1 with all four apps and 18 seeded new nodes against
   tests/golden/demo1_placements.json, and the distilled GPU-share example
-  with its device ids pinned.
+  with its device ids pinned;
+- the capacity planner: `CapacityPlanner.search()` on `capacity` (bench.py's
+  capacity row: 64 base nodes, 100,000 pods, MaxCPU 60; its tables grow on
+  the card from 128 to 1,024 nodes through the extension kernel K6) and
+  `capacity_lanes` (512 base nodes, 20,000 pods of every segment kind,
+  MaxCPU 90: rounds of eight candidates through K2-K5 over lanes) against
+  the JAX search's goldens, every round's counts and utilization included;
+  then `Applier.run()` on the three example configs against the JAX
+  reports. Before them, each lane kernel is held against its plain fan-out
+  and against its single-lane kernel lane by lane, and K6 against its plain
+  version.
 
 Every phase prints one JSON line; any mismatch or error exits non-zero. The
 line before the card line lists every kernel with its launches on the main
@@ -46,6 +56,10 @@ F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 SRC = "open_simulator_torch/ops/csrc/"
 JAX_KERNELS = "open_simulator_tpu/ops/kernels.py"
 # which kernels run each segment kind of the router
+# the probe fan-outs: which lane kernels run each segment kind
+FANOUT_KERNELS = {"serial": "probe_serial_fanout", "wave": "probe_wave_fanout",
+                  "spread": "probe_group_serial_fanout",
+                  "affinity": "probe_affinity_wave_fanout"}
 SEGMENT_KERNELS = {"serial": "K2 schedule_batch",
                    "wave": "K3 schedule_wave + K3c aggregate_commit (gpu_live for shared GPUs)",
                    "spread": "K4 schedule_group_serial + K3c aggregate_commit",
@@ -129,17 +143,21 @@ def err_of(a, b) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
 
 
-def group_row_bytes(tb, cry, g: int) -> int:
-    """Bytes of the tables one group's step reads once: its [N] rows (static
-    masks, raw scores), alloc, requested and nonzero, and the domain maps and
-    counter rows of its valid slots."""
+def group_row_bytes(tb, cry, g: int) -> tuple:
+    """Bytes one group's step reads once, as (tables, carry): the tables'
+    share is its [N] rows (static masks, raw scores), alloc, the domain maps
+    of its valid slots and the eligible-domain mask; the carry's share is
+    requested, nonzero, the counter rows of its valid slots and its port
+    columns. Lanes share the first and each read their own second."""
     N, R = tb.alloc.shape
     D1 = cry.counter.shape[1]
-    b = 5 * N + 6 * 4 * N + 2 * 4 * N * R + 4 * N * 2
+    shared, lane = 5 * N + 6 * 4 * N + 4 * N * R, 4 * N * R + 4 * N * 2
     for ids in (tb.req_aff_t[g], tb.req_anti_t[g], tb.dns_t[g], tb.carr_anti_t[g],
                 tb.pref_t[g], tb.sa_t[g]):
-        b += int((ids >= 0).sum()) * (4 * N + 4 * D1)
-    return b + int((tb.dns_t[g] >= 0).sum()) * D1 + int((tb.grp_ports[g] > 0).sum()) * N
+        shared += int((ids >= 0).sum()) * 4 * N
+        lane += int((ids >= 0).sum()) * 4 * D1
+    return (shared + int((tb.dns_t[g] >= 0).sum()) * D1,
+            lane + int((tb.grp_ports[g] > 0).sum()) * N)
 
 
 def k1_bytes(tb, cry, g: int) -> int:
@@ -157,8 +175,9 @@ def k1_bytes(tb, cry, g: int) -> int:
 
 
 def k2_cost(tb, cry, n_valid: int, P: int) -> tuple:
-    """(bytes, f32 operations) the serial scan must spend: tables, carry in
-    and out, pod arrays and choices each moved once; per valid pod and node,
+    """(shared bytes, lane bytes, f32 operations) the serial scan must spend:
+    tables and pod arrays read once (shared by lanes), carry in and out and
+    choices (each lane's own) moved once; per valid pod and node,
     the f32 operations of one step as counted from csrc/schedule.cu (filters:
     4 per resource and 2 per slot; least/balanced 16; raw terms 3 per
     weighted slot; normalizers and selector spread 30; the total 22)."""
@@ -166,11 +185,11 @@ def k2_cost(tb, cry, n_valid: int, P: int) -> tuple:
 
     tables = [t for t in tb if isinstance(t, torch.Tensor)]
     carry = [cry.requested, cry.nonzero, cry.port_used, cry.counter, cry.carrier]
-    b = nbytes(*tables) + 2 * nbytes(*carry) + P * (4 + 4 + 1 + 4)
     N, R = tb.alloc.shape
     slots = sum(t.shape[1] for t in (tb.req_aff_t, tb.req_anti_t, tb.carr_anti_t, tb.dns_t))
     per_node = 4 * R + 2 * slots + 16 + 3 * (tb.pref_t.shape[1] + tb.carr_w_t.shape[1]) + 30 + 22
-    return b, n_valid * N * per_node
+    return (nbytes(*tables) + P * (4 + 4 + 1), 2 * nbytes(*carry) + P * 4,
+            n_valid * N * per_node)
 
 
 # f32 operations of one [N, B+1] table entry of K3 (csrc/wave.cu): the copy
@@ -183,22 +202,26 @@ K3_OPS_PER_NODE = 30
 
 
 def k3_cost(tb, cry, g: int, block: int, iterations: int) -> tuple:
-    """(bytes, f32 operations) of one wave: the group's rows read once and the
-    [N] counts written once; per iteration, the table's entries and the
-    per-node passes (the radix passes are integer work and not counted)."""
+    """(shared bytes, lane bytes, f32 operations) of one wave: the group's
+    rows read once and the [N] counts written once; per iteration, the
+    table's entries and the per-node passes (the radix passes are integer
+    work and not counted)."""
     N = tb.alloc.shape[0]
     ops = iterations * N * ((block + 1) * K3_OPS_PER_ENTRY + K3_OPS_PER_NODE)
-    return group_row_bytes(tb, cry, g) + 4 * N, ops
+    shared, lane = group_row_bytes(tb, cry, g)
+    return shared, lane + 4 * N, ops
 
 
 def k3c_cost(tb, cry) -> tuple:
-    """(bytes, f32 operations) of one aggregate commit: the carry's requested,
-    nonzero, counter and carrier read and written once, the [U, N] domain
-    maps and the counts read once; one multiply and one add per element."""
+    """(shared bytes, lane bytes, f32 operations) of one aggregate commit:
+    the [U, N] domain maps read once (shared by lanes); the carry's
+    requested, nonzero, counter and carrier read and written once and the
+    counts read once (each lane's own); one multiply and one add per
+    element."""
     N, R = tb.alloc.shape
     D1 = cry.counter.shape[1]
     rows = N * R + 2 * N + (cry.counter.shape[0] + cry.carrier.shape[0]) * D1
-    return 2 * 4 * rows + nbytes(tb.topo_dom) + 4 * N, 2 * rows + tb.topo_dom.numel()
+    return nbytes(tb.topo_dom), 2 * 4 * rows + 4 * N, 2 * rows + tb.topo_dom.numel()
 
 
 # f32 operations of one K4 step per node (csrc/group_serial.cu): the live
@@ -208,7 +231,8 @@ def k4_cost(tb, cry, g: int, n_valid: int) -> tuple:
     N = tb.alloc.shape[0]
     per_node = (4 * int((tb.dns_t[g] >= 0).sum()) + 20 + 16 + 12 + 14
                 + 5 * int((tb.sa_t[g] >= 0).sum()) + 6)
-    return group_row_bytes(tb, cry, g) + 4 * N, n_valid * N * per_node
+    shared, lane = group_row_bytes(tb, cry, g)
+    return shared, lane + 4 * N, n_valid * N * per_node
 
 
 # f32 operations of one K5 epoch per node besides its table row
@@ -224,8 +248,9 @@ K5_OPS_PER_DOMAIN = 12
 
 
 def k5_cost(tb, cry, g: int, block: int, stats: dict) -> tuple:
-    """(bytes, f32 operations) of one affinity wave: the group's rows and its
-    live [slots, D+1] rows read once and the [N] counts written once; per
+    """(shared bytes, lane bytes, f32 operations) of one affinity wave: the
+    group's rows and its live [slots, D+1] rows read once and the [N] counts
+    written once; per
     epoch the per-node passes and the table (one column for a head-fallback
     epoch, B+1 otherwise); per productive round its K_EP positions and D+1
     domains."""
@@ -239,7 +264,14 @@ def k5_cost(tb, cry, g: int, block: int, stats: dict) -> tuple:
     per_node = K5_OPS_PER_NODE + 4 * slots + 2 * cw
     ops = (columns * N * K3_OPS_PER_ENTRY + epochs * N * per_node
            + rounds * (min(N * block, 2048) * K5_OPS_PER_POSITION + D1 * K5_OPS_PER_DOMAIN))
-    return group_row_bytes(tb, cry, g) + 4 * slots * D1 + 4 * N, ops
+    shared, lane = group_row_bytes(tb, cry, g)
+    return shared, lane + 4 * slots * D1 + 4 * N, ops
+
+
+def one_lane(cost: tuple) -> tuple:
+    """(bytes, f32 operations) of a single-lane launch from a cost triple."""
+    shared, lane, ops = cost
+    return shared + lane, ops
 
 
 def gpu_storage_bytes(tb, cry) -> int:
@@ -346,6 +378,326 @@ def gpushare_example(card: str) -> dict:
     return counts
 
 
+def load_golden(kind: str) -> dict:
+    with open(os.path.join(REPO, "tests", "golden", f"torch_port_{kind}.json")) as f:
+        return json.load(f)
+
+
+class max_cpu_env:
+    """MaxCPU set (None: unset) for the duration of a block."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def __enter__(self):
+        self.prev = os.environ.pop("MaxCPU", None)
+        if self.value is not None:
+            os.environ["MaxCPU"] = str(self.value)
+
+    def __exit__(self, *exc):
+        os.environ.pop("MaxCPU", None)
+        if self.prev is not None:
+            os.environ["MaxCPU"] = self.prev
+
+
+def lanes_session(kind: str, S: int):
+    """The capacity probe session of a CAPACITY_SCENARIOS kind on the card,
+    grown to its first round of S candidates in the golden, and that
+    round's [S, N] node-active masks (as probe_many builds them)."""
+    import numpy as np
+    import torch
+
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.simulator.probe import ProbeSession
+    from open_simulator_torch.utils.synth import capacity_scenario
+
+    base, template, pods, services, _ = capacity_scenario(kind)
+    ses = ProbeSession.try_build(base, template, pods, ResourceTypes(services=services),
+                                 device="cuda")
+    cands = next(r["candidates"] for r in load_golden(kind)["rounds"]
+                 if len(r["candidates"]) == S)
+    ses.ensure_capacity(max(cands))
+    active = np.zeros((S, ses._n_pad), bool)
+    for i, n in enumerate(cands):
+        active[i, :ses.n_base + n] = True
+    return ses, torch.from_numpy(active).cuda(), cands
+
+
+def lane_case(ses, seg, active, card: str) -> tuple:
+    """One segment's lane kernel against its plain fan-out (counts or
+    choices, placed, loop statistics, then K3c over lanes: every carry field
+    of every lane) and lane by lane against the single-lane kernel on the
+    lane's masked tables; times the lane kernel, the plain lanes, lane 0's
+    single-lane kernel and K3c over lanes. Returns the kernels-line rows of
+    the lane kernel and of K3c over lanes (None for the serial scan, which
+    commits inside K2)."""
+    import torch
+
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.simulator.encode import bucket_capped
+
+    tb, bt, seed = ses._tables, ses._bt, ses._seed
+    S = active.shape[0]
+    cry_s = K.carry_lanes(seed, S)
+    w, filters = ses._sim.score_w, ses._sim.filter_flags
+    n_real = ses.n_base + ses.n_new
+    kind, start, length = seg[:3]
+    masked = [K._mask_active(tb, active[s]) for s in range(S)]
+    if kind == "serial":
+        pad = bucket_capped(length, 2048)
+        pg = torch.zeros(pad, dtype=torch.int32)
+        pg[:length] = torch.from_numpy(bt.pod_group[start:start + length])
+        fn = torch.full((pad,), -1, dtype=torch.int32)
+        fn[:length] = torch.from_numpy(bt.forced_node[start:start + length])
+        pg, fn = pg.cuda(), fn.cuda()
+        vd = (torch.arange(pad) < length).cuda()
+        args = (pg, fn, vd, bt.n_zones, w, filters, *ses._flags)
+        lanes_k = lambda: K.schedule_batch_lanes_kernel(tb, cry_s, active, *args)  # noqa: E731
+        lanes_p = lambda: K.schedule_batch_lanes_plain(tb, cry_s, active, *args)  # noqa: E731
+        single = lambda s: K.schedule_batch_kernel(masked[s], K.carry_lane(cry_s, s), *args)  # noqa: E731,E501
+        (kc, kch), _ = timed(lanes_k)
+        (pc, pch), plain_ms = timed(lanes_p)
+        if not torch.equal(kch, pch):
+            fail(f"probe_serial_fanout: choices differ at {int((kch != pch).sum())} places")
+        for s in range(S):
+            c1, ch1 = single(s)
+            if not torch.equal(ch1, kch[s]) or not torch.equal(c1.requested, kc.requested[s]):
+                fail(f"probe_serial_fanout: lane {s} differs from the single-lane K2")
+        placed = (kch >= 0).sum(dim=1)
+        stats = None
+        costs = [k2_cost(tb, seed, length, pad)] * S
+        name = "probe_serial_fanout"
+        commit = None
+    else:
+        g, cap1 = seg[3], bool(seg[4])
+        block = K.wave_block_for(length, n_real)
+        if kind == "wave":
+            kw = dict(block=block, kmax=K.wave_kmax(length, n_real, block), gpu_live=seg[5])
+            run_k, run_p, run_1 = (K.schedule_wave_lanes_kernel, K.schedule_wave_lanes_plain,
+                                   K.schedule_wave_kernel)
+            extra = (g, length, cap1)
+        elif kind == "spread":
+            vd = (torch.arange(bucket_capped(length, 2048)) < length).cuda()
+            kw = dict(ss_live=seg[5], sa_live=seg[6], n_zones=bt.n_zones if seg[5] else 2)
+            run_k, run_p, run_1 = (K.schedule_group_serial_lanes_kernel,
+                                   K.schedule_group_serial_lanes_plain,
+                                   K.schedule_group_serial_kernel)
+            extra = (g, vd, cap1)
+        else:
+            kw = dict(ss_live=seg[5], block=block, n_zones=bt.n_zones if seg[5] else 2)
+            run_k, run_p, run_1 = (K.schedule_affinity_wave_lanes_kernel,
+                                   K.schedule_affinity_wave_lanes_plain,
+                                   K.schedule_affinity_wave_kernel)
+            extra = (g, length, cap1)
+        lanes_k = lambda: run_k(tb, cry_s, active, *extra, w=w, filters=filters, **kw)  # noqa: E731,E501
+        single = lambda s: run_1(masked[s], K.carry_lane(cry_s, s), *extra, w=w,  # noqa: E731
+                                 filters=filters, **kw)
+        ko, _ = timed(lanes_k)
+        po, plain_ms = timed(lambda: run_p(tb, cry_s, active, *extra, w=w, filters=filters,
+                                           **kw))
+        name = FANOUT_KERNELS[kind]
+        for a, b_ in zip(ko, po):
+            if not torch.equal(a, b_):
+                fail(f"{name}: counts, placed or statistics differ from the plain lanes")
+        for s in range(S):
+            one = single(s)
+            if any(not torch.equal(a[s], b_.reshape(a[s].shape)) for a, b_ in zip(ko, one)):
+                fail(f"{name}: lane {s} differs from the single-lane kernel")
+        gpu_live = kind == "wave" and bool(seg[5])
+        commit = lambda: K.aggregate_commit_lanes_kernel(tb, cry_s, g, ko[0], gpu_live)  # noqa: E731,E501
+        kc = commit()
+        pc, commit_plain_ms = timed(lambda: K.aggregate_commit_lanes_plain(tb, cry_s, g, po[0],
+                                                                           gpu_live))
+        placed = ko[1]
+        stats = ko[2].sum(dim=0).tolist() if len(ko) > 2 else None
+        # each lane's work as its own loop statistics say
+        if kind == "wave":
+            costs = [k3_cost(tb, seed, g, block, int(it)) for it in ko[2][:, 0].tolist()]
+        elif kind == "spread":
+            costs = [k4_cost(tb, seed, g, length)] * S
+        else:
+            costs = [k5_cost(tb, seed, g, block, dict(zip(K.AFFINITY_STATS, st)))
+                     for st in ko[2].tolist()]
+    for f in K.Carry._fields:
+        if not torch.equal(getattr(kc, f), getattr(pc, f)):
+            fail(f"{name}: carry.{f} differs from the plain lanes")
+    ms = cuda_ms(lanes_k, 3)
+    single_ms = cuda_ms(lambda: single(0), 3)
+    N = int(tb.alloc.shape[0])
+    # the tables once for all lanes; each lane's carry, counts, statistics
+    # and [N] active row
+    b = costs[0][0] + sum(lane + N for _, lane, _ in costs)
+    ops = sum(op for _, _, op in costs)
+    bound, by = bound_of(b, ops)
+    emit(name, segment=kind, lanes=S, nodes=N, pods=length, placed=placed.tolist(),
+         stats=stats, kernel_ms=ms, single_lane_ms=single_ms, plain_ms=plain_ms, bound_ms=bound,
+         bytes=b, f32_ops=ops, max_abs_err=0.0, card=card)
+    row = dict(source=SRC + {"serial": "schedule.cu", "wave": "wave.cu",
+                             "spread": "group_serial.cu", "affinity": "affinity_wave.cu"}[kind],
+               replaces=JAX_KERNELS + {"serial": ":2361", "wave": ":2302", "spread": ":2322",
+                                       "affinity": ":2342"}[kind],
+               max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+    if commit is None:
+        return row, None
+    # K3c over lanes: the domain maps once, each lane's carry and counts
+    c_ms = cuda_ms(commit, 20)
+    shared, lane, c_ops = k3c_cost(tb, seed)
+    cb = shared + S * lane
+    c_bound, c_by = bound_of(cb, S * c_ops)
+    emit("aggregate_commit_lanes", segment=kind, lanes=S, nodes=N,
+         copies=ko[0].sum(dim=1).tolist(), kernel_ms=c_ms, plain_ms=commit_plain_ms,
+         bound_ms=c_bound, bytes=cb, f32_ops=S * c_ops, max_abs_err=0.0, card=card)
+    return row, dict(source=SRC + "wave.cu", replaces=JAX_KERNELS + ":976", max_abs_err=0.0,
+                     ms=c_ms, plain_ms=commit_plain_ms, bound_ms=c_bound, bound_by=c_by)
+
+
+def extend_case(card: str) -> dict:
+    """K6 against extend_tables_plain on the `capacity` session's tables:
+    the main path's growth (128 -> 1,024 nodes, no phantom pad) and a
+    half-size growth with a pad. Times the launch alone (its pointer table
+    and outputs built once), the whole wrapper call, the plain version and,
+    as the library figure, torch.index_select along the node axis of every
+    field (the fill aside). Returns the kernels-line row."""
+    import torch
+
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.simulator.probe import ProbeSession
+    from open_simulator_torch.utils.synth import capacity_scenario
+
+    base, template, pods, services, _ = capacity_scenario("capacity")
+    ses = ProbeSession.try_build(base, template, pods, ResourceTypes(services=services),
+                                 device="cuda")
+    tb = ses._tables
+    n_real = ses.n_base + ses.n_new
+    sentinel = ses._seed.counter.shape[1] - 1
+    out = None
+    for n_new, pad in ((1024, 0), (1024, 448)):
+        k = n_new - n_real - pad
+        args = (tb, n_real, k, ses.n_base, n_new, sentinel)
+        got = K.extend_tables_kernel(*args)
+        want, plain_ms = timed(lambda: K.extend_tables_plain(*args))
+        for f in K.Tables._fields:
+            if not torch.equal(getattr(got, f), getattr(want, f)):
+                fail(f"extend_tables (pad {pad}): {f} differs from the plain version")
+        plan = K.extend_tables_plan(*args)
+        ms = cuda_ms(lambda: K.extend_tables_launch(plan), 50)
+        wrapper_ms = cuda_ms(lambda: K.extend_tables_kernel(*args), 50)
+        idx = torch.cat([torch.arange(n_real), torch.full((k,), ses.n_base)]).cuda()
+        fields = [(getattr(tb, f), axis) for f, axis, _, _ in K.EXT_FIELDS]
+        lib_ms = cuda_ms(lambda: [a.index_select(axis % a.dim(), idx) for a, axis in fields], 50)
+        b = sum(nbytes(a) for a, _ in fields) + sum(nbytes(t) for t in plan.out.values())
+        bound, by = bound_of(b, 0)
+        emit("extend_tables", nodes_from=int(tb.alloc.shape[0]), nodes_to=n_new, k=k, pad=pad,
+             fields=len(fields), kernel_ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+             library_ms=lib_ms, bound_ms=bound, bytes=b, max_abs_err=0.0, card=card)
+        if out is None:  # the kernels line reports the main path's growth
+            out = dict(source=SRC + "extend.cu",
+                       replaces="open_simulator_tpu/parallel/mesh.py:672", max_abs_err=0.0,
+                       ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=lib_ms)
+    return out
+
+
+def capacity_search(kind: str, card: str) -> tuple:
+    """CapacityPlanner.search() on the card against the JAX golden: found,
+    nodes_added, hist, stats and every round's candidates with their
+    (scheduled, total, utilization). Every launch count is set to 0 just
+    before; returns (launch counts, wall seconds)."""
+    import torch
+
+    from open_simulator_torch.apply.applier import CapacityPlanner
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.simulator import probe as PR
+    from open_simulator_torch.utils.synth import capacity_scenario
+
+    want = load_golden(kind)
+    base, template, pods, services, max_cpu = capacity_scenario(kind)
+    rounds = []
+    orig = PR.ProbeSession.probe_many
+
+    def probe_many(self, ns):
+        res = orig(self, ns)
+        rounds.append({"candidates": list(ns),
+                       "results": {str(n): [res[n][0], res[n][1], res[n][2]] for n in ns}})
+        return res
+
+    PR.ProbeSession.probe_many = probe_many
+    try:
+        with max_cpu_env(max_cpu):
+            K.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            planner = CapacityPlanner(base, template, pods,
+                                      cluster_objects=ResourceTypes(services=services),
+                                      device="cuda")
+            found, n, hist = planner.search()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = K.launch_counts()
+    finally:
+        PR.ProbeSession.probe_many = orig
+    stats = {k: planner.stats[k] for k in ("path", "probes", "dispatches", "encodes")}
+    got = {"found": found, "nodes_added": n, "hist": [list(h) for h in hist], "stats": stats,
+           "rounds": json.loads(json.dumps(rounds))}
+    for k, v in got.items():
+        if v != want[k]:
+            fail(f"{kind}: {k} differs from the JAX golden ({v} vs {want[k]})")
+    ses = planner.session
+    emit("capacity_search", kind=kind, nodes_added=n, rounds=len(rounds),
+         lanes=[len(r["candidates"]) for r in rounds], stats=stats,
+         encode_s=planner.stats["encode_s"], extensions=ses.extensions,
+         device_extensions=ses.device_extensions, uploads=ses.uploads,
+         seconds=wall, pods_per_s=len(pods) / wall, launches=counts,
+         wave_stats=K.wave_stats(), affinity_stats=K.affinity_stats(), golden="match", card=card)
+    return counts, wall, ses
+
+
+def apply_config(kind: str, card: str) -> dict:
+    """Applier.run() on the card on an example config against the JAX
+    golden: nodes added, unscheduled and the report with normalized
+    fake-node names. Returns the launch counts."""
+    import io
+
+    import torch
+
+    from open_simulator_torch.apply.applier import Applier, Options
+    from open_simulator_torch.models.workloads import reset_name_counter
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.parity import normalize_report
+
+    want = load_golden(kind)
+    cwd = os.getcwd()
+    os.chdir(REPO)
+    try:
+        with max_cpu_env(want["max_cpu"]):
+            reset_name_counter()
+            K.reset_launch_counts()
+            applier = Applier(Options(simon_config=want["config"], device="cuda",
+                                      extended_resources=list(want["extended_resources"])))
+            applier.out = io.StringIO()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = applier.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = K.launch_counts()
+    finally:
+        os.chdir(cwd)
+    added = sum(1 for ns in result.node_status
+                if "simon/new-node" in (ns.node["metadata"].get("labels") or {}))
+    got = {"nodes_added": added, "unscheduled": len(result.unscheduled_pods),
+           "report": normalize_report(applier.out.getvalue())}
+    for k, v in got.items():
+        if v != want[k]:
+            fail(f"{kind}: {k} differs from the JAX golden")
+    planner = applier.planner
+    emit("apply", kind=kind, config=want["config"], nodes_added=added,
+         search=planner.stats if planner is not None else "full simulations",
+         seconds=wall, launches=counts, golden="match", card=card)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -403,7 +755,7 @@ def main() -> int:
             fail(f"schedule_batch carry.{f} differs")
         err_k2 = max(err_k2, err_of(a, b))
     k2_ms = cuda_ms(lambda: K.schedule_batch_kernel(tb, seed, pg, fn, vd, bt.n_zones), 3)
-    k2_b, k2_ops = k2_cost(tb, seed, P, pad)
+    k2_b, k2_ops = one_lane(k2_cost(tb, seed, P, pad))
     k2_bound, k2_by = bound_of(k2_b, k2_ops)
     emit("schedule_batch", nodes=int(tb.alloc.shape[0]), pods=P, padded=pad, groups=len(kinds),
          placed=int((ch_k >= 0).sum()), kernel_ms=k2_ms, plain_ms=plain_ms_k2,
@@ -467,8 +819,8 @@ def main() -> int:
             c_err = max(c_err, err_of(getattr(kc, f), getattr(pc, f)))
         ms = cuda_ms(lambda: K.schedule_wave_kernel(tb, seed, g, m, cap1, **kw), 3)
         c_ms = cuda_ms(lambda: K.aggregate_commit_kernel(tb, seed, g, kj, gpu_live), 20)
-        b, ops = k3_cost(tb, seed, g, block, pst["iterations"])
-        cb, cops = k3c_cost(tb, seed)
+        b, ops = one_lane(k3_cost(tb, seed, g, block, pst["iterations"]))
+        cb, cops = one_lane(k3c_cost(tb, seed))
         if gpu_live:
             # K3: dev_total and dev_used read once, the units 6 per device and
             # 2 per node; K3c: dev_total read, dev_used read and written, 8
@@ -525,7 +877,7 @@ def main() -> int:
             fail(f"schedule_group_serial (ss_live={ss_live}, sa_live={sa_live}): counts differ")
         ms = cuda_ms(lambda: K.schedule_group_serial_kernel(
             tb, seed, g, valid, cap1, ss_live=ss_live, sa_live=sa_live, n_zones=nz), 3)
-        b, ops = k4_cost(tb, seed, g, m)
+        b, ops = one_lane(k4_cost(tb, seed, g, m))
         bound, by = bound_of(b, ops)
         emit("schedule_group_serial", nodes=int(tb.alloc.shape[0]), pods=m, ss_live=ss_live,
              sa_live=sa_live, placed=pp, kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound,
@@ -565,7 +917,7 @@ def main() -> int:
             if not torch.equal(getattr(kc, f), getattr(pc, f)):
                 fail(f"aggregate_commit after schedule_affinity_wave {label}: carry.{f} differs")
         ms = cuda_ms(lambda: K.schedule_affinity_wave_kernel(tb, seed, g, m, cap1, **kw), 3)
-        b, ops = k5_cost(tb, seed, g, block, pst)
+        b, ops = one_lane(k5_cost(tb, seed, g, block, pst))
         bound, by = bound_of(b, ops)
         emit("schedule_affinity_wave", case=label, nodes=int(tb.alloc.shape[0]), pods=m,
              domains=int(seed.counter.shape[1]), ss_live=bool(ss_live), cap1=bool(cap1),
@@ -612,7 +964,7 @@ def main() -> int:
             fail(f"schedule_batch (gpu, storage): carry.{f} differs")
         err = max(err, err_of(getattr(end_k, f), getattr(end_p, f)))
     ms = cuda_ms(lambda: K.schedule_batch_kernel(tb, seed, pg, fn, vd, bt.n_zones, **flags), 3)
-    b, ops = k2_cost(tb, seed, P, pad)
+    b, ops = one_lane(k2_cost(tb, seed, P, pad))
     N = int(tb.alloc.shape[0])
     ops += N * sum(gpu_storage_ops(tb, int(g)) for g in bt.pod_group[:P])
     b += gpu_storage_bytes(tb, seed) + nbytes(seed.dev_used, seed.vg_req, seed.sdev_alloc)
@@ -664,6 +1016,20 @@ def main() -> int:
                                                   replaces=JAX_KERNELS + ":963", **w_row)
             rows["aggregate_commit/gpu_live"] = dict(source=SRC + "wave.cu",
                                                      replaces=JAX_KERNELS + ":1007", **c_row)
+
+    # ---- the capacity probe's kernels: K2-K5 over lanes (then K3c over
+    # lanes) on the capacity_lanes session at S = 8 with the masks of the
+    # search's first round of eight, one segment of each kind, and K6
+    ses, active, cands = lanes_session("capacity_lanes", 8)
+    emit("lanes_session", candidates=cands, nodes=int(ses._n_pad), segments=len(ses._segs),
+         card=card)
+    for kind in ("serial", "wave", "spread", "affinity"):
+        seg = next(sg for sg in ses._segs if sg[0] == kind)
+        rows[FANOUT_KERNELS[kind]], commit_row = lane_case(ses, seg, active, card)
+        if kind == "wave":  # the kernels line reports K3c over lanes on the wave
+            rows["aggregate_commit_lanes"] = commit_row
+    del ses, active
+    rows["extend_tables"] = extend_case(card)
 
     # ---- the main path: Simulator.schedule_pods against the JAX goldens,
     # each run with every launch count set to 0 just before it
@@ -719,6 +1085,15 @@ def main() -> int:
         main_path(kind, nodes, pods, serial=serial, storage_classes=scs)
     launches.update(demo1(card))
     launches.update(gpushare_example(card))
+    # the capacity planner: both searches, then apply on the example configs
+    for kind in ("capacity", "capacity_lanes"):
+        counts, wall, ses = capacity_search(kind, card)
+        launches.update(counts)
+        walls[f"search_{kind}"] = wall
+        if kind == "capacity" and (ses.device_extensions < 1 or counts["extend_tables"] < 1):
+            fail("capacity: the tables did not grow on the device")
+    for kind in ("apply_smoke", "apply_gpushare", "apply_demo1"):
+        launches.update(apply_config(kind, card))
     for k in rows:
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched on the main path")
@@ -727,7 +1102,7 @@ def main() -> int:
         {"name": k, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
          "launches": launches[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": None}
+         "library_ms": r.get("library_ms")}
         for k, r in rows.items()]}), flush=True)
     emit("done", seconds=round(time.perf_counter() - t_start, 1), walls=walls)
     print(card, flush=True)

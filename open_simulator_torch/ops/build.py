@@ -23,7 +23,7 @@ from typing import List, Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [os.path.join(_HERE, "csrc", f)
-           for f in ("schedule.cu", "wave.cu", "group_serial.cu", "affinity_wave.cu")]
+           for f in ("schedule.cu", "wave.cu", "group_serial.cu", "affinity_wave.cu", "extend.cu")]
 HEADERS = [os.path.join(_HERE, "csrc", f) for f in ("common.cuh", "select.cuh")]
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -115,7 +115,7 @@ def library() -> ctypes.CDLL:
 
 
 def _load(path: str) -> ctypes.CDLL:
-    from .kernels import TablesView
+    from .kernels import ExtArgs, TablesView
 
     lib = ctypes.CDLL(path)
     P = ctypes.c_void_p
@@ -152,6 +152,26 @@ def _load(path: str) -> ctypes.CDLL:
     lib.affinity_scratch_ints.restype = ctypes.c_longlong
     lib.schedule_affinity_wave_launch.argtypes = [V] + [ctypes.c_int] * 5 + [P] * 5
     lib.schedule_affinity_wave_launch.restype = ctypes.c_int
+    # the lane kernels: the same arguments and the lane count S before the outputs
+    lib.schedule_batch_lanes_launch.argtypes = [V, P, P, P, ctypes.c_int, ctypes.c_int, P, P, P]
+    lib.schedule_batch_lanes_launch.restype = ctypes.c_int
+    lib.schedule_wave_lanes_launch.argtypes = [V] + [ctypes.c_int] * 6 + [P] * 5
+    lib.schedule_wave_lanes_launch.restype = ctypes.c_int
+    lib.aggregate_commit_lanes_launch.argtypes = ([V, ctypes.c_int, P, P, P, P] + [ctypes.c_int] * 3
+                                                  + [P, P])
+    lib.aggregate_commit_lanes_launch.restype = ctypes.c_int
+    lib.schedule_group_serial_lanes_launch.argtypes = ([V, ctypes.c_int, P] + [ctypes.c_int] * 5
+                                                       + [P] * 5)
+    lib.schedule_group_serial_lanes_launch.restype = ctypes.c_int
+    lib.schedule_affinity_wave_lanes_launch.argtypes = [V] + [ctypes.c_int] * 6 + [P] * 5
+    lib.schedule_affinity_wave_lanes_launch.restype = ctypes.c_int
+    lib.ext_args_size.argtypes = []
+    lib.ext_args_size.restype = ctypes.c_int
+    lib.extend_tables_launch.argtypes = [ctypes.POINTER(ExtArgs), ctypes.c_longlong, P]
+    lib.extend_tables_launch.restype = ctypes.c_int
+    if lib.ext_args_size() != ctypes.sizeof(ExtArgs):
+        raise RuntimeError(f"ExtArgs layout mismatch: library {lib.ext_args_size()} bytes, "
+                           f"ctypes {ctypes.sizeof(ExtArgs)}")
     if lib.tables_view_size() != ctypes.sizeof(TablesView):
         raise RuntimeError(f"TablesView layout mismatch: library {lib.tables_view_size()} "
                            f"bytes, ctypes {ctypes.sizeof(TablesView)}")

@@ -45,6 +45,11 @@
 // table's first column. Spreading the table and the node passes over the
 // card's 132 SMs is later work.
 //
+// K5 over lanes (schedule_affinity_wave_lanes_kernel, one block per lane,
+// each with its own scratch slice for the live rows and round arrays, so
+// every atomic stays inside its lane) replaces `probe_affinity_wave_fanout`
+// (:2340/:2342); see common.cuh `lane_view`.
+//
 // The exactness contract with the plain PyTorch version is in common.cuh;
 // everything past the table is integer-valued f32 or integer work, so the
 // atomics (zone sums, row updates, counts) are exact in any order.
@@ -161,9 +166,12 @@ static __device__ int block_scan2(int& a0, int& a1, int* s_int) {
 // [N] each; the live rows [slots, D1]; cnt_live, taken [D1] each; bound [N];
 // zone sums [Z]. Int scratch: feas, cap, dom_live, u (usable prefix), flags, counts
 // [N] each; edom_live, first_pos, consumed, everb [D1] each.
-__global__ void __launch_bounds__(BLOCK_THREADS, 1)
-schedule_affinity_wave_kernel(TablesView t, int g, int m, int cap1, int ss_live, int B, int* j,
-                              int* stats, float* fs, int* is) {
+// LANE: the lane kernel's body (the lane's active row folds into the static
+// mask); the single-lane kernel runs LANE = false.
+template <bool LANE>
+static __device__ __forceinline__ void
+schedule_affinity_wave_body(const TablesView& t, int g, int m, int cap1, int ss_live, int B,
+                            int* j, int* stats, float* fs, int* is) {
   __shared__ Ctx c;
   __shared__ PodCtx pc;
   __shared__ float s_red[16 * 32];
@@ -301,8 +309,8 @@ schedule_affinity_wave_kernel(TablesView t, int g, int m, int cap1, int ss_live,
   bool same = true;
   for (int n = tid; n < N; n += bd) {
     float ip_unused;
-    segment_node_constants<false>(t, &pc, g, n, cap1, 0, 0, &feas_s[n], &cap_s[n], &ip_unused,
-                                  &simon_s[n], &stat_s[n]);
+    segment_node_constants<false, LANE>(t, &pc, g, n, cap1, 0, 0, &feas_s[n], &cap_s[n],
+                                        &ip_unused, &simon_s[n], &stat_s[n]);
     ip_pref[n] = interpod_pref_at(t, g, n);
     int sum = 0, key = 1;
     for (int k = SK_DNS; k <= SK_CAR; ++k) {
@@ -825,6 +833,25 @@ schedule_affinity_wave_kernel(TablesView t, int g, int m, int cap1, int ss_live,
   }
 }
 
+__global__ void __launch_bounds__(BLOCK_THREADS, 1)
+schedule_affinity_wave_kernel(TablesView t, int g, int m, int cap1, int ss_live, int B, int* j,
+                              int* stats, float* fs, int* is) {
+  schedule_affinity_wave_body<false>(t, g, m, cap1, ss_live, B, j, stats, fs, is);
+}
+
+// K5 over lanes (JAX probe_affinity_wave_fanout :2340): block s runs lane s's
+// epoch loop into its own j row [s, N], stats row [s, 4] and scratch slices
+// (its live rows, round arrays and their atomics included).
+__global__ void __launch_bounds__(BLOCK_THREADS, 1)
+schedule_affinity_wave_lanes_kernel(TablesView t, int g, int m, int cap1, int ss_live, int B,
+                                    int* j, int* stats, float* fs, int* is, long long fs_lane,
+                                    long long is_lane) {
+  const int s = blockIdx.x;
+  LANE_VIEW(lt, t, s)
+  schedule_affinity_wave_body<true>(lt, g, m, cap1, ss_live, B, j + (size_t)s * t.N,
+                                    stats + 4 * s, fs + s * fs_lane, is + s * is_lane);
+}
+
 // ------------------------------------------------------------ C interface --
 
 extern "C" {
@@ -843,6 +870,17 @@ int schedule_affinity_wave_launch(const TablesView* t, int g, int m, int cap1, i
                                   int* j, int* stats, float* fs, int* is, cudaStream_t stream) {
   schedule_affinity_wave_kernel<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, m, cap1, ss_live, B, j,
                                                                  stats, fs, is);
+  return (int)cudaGetLastError();
+}
+
+// S lanes: the view is lane 0's with `t->active` the [S, N] mask; j, stats
+// [S, N], [S, 4]; fs, is S slices of the scratch sizes above
+int schedule_affinity_wave_lanes_launch(const TablesView* t, int g, int m, int cap1, int ss_live,
+                                        int B, int S, int* j, int* stats, float* fs, int* is,
+                                        cudaStream_t stream) {
+  schedule_affinity_wave_lanes_kernel<<<S, BLOCK_THREADS, 0, stream>>>(
+      *t, g, m, cap1, ss_live, B, j, stats, fs, is, affinity_scratch_floats(t, B),
+      affinity_scratch_ints(t));
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,7 @@
 // Device code shared by the port's CUDA kernels (schedule.cu: K1, K2;
-// wave.cu: K3, K3c; group_serial.cu: K4; affinity_wave.cu: K5): the tables
-// view, the filters of `feasibility`, the score formulas and the block
-// reductions.
+// wave.cu: K3, K3c; group_serial.cu: K4; affinity_wave.cu: K5, and the lane
+// kernels of K2-K5): the tables view, the filters of `feasibility`, the
+// score formulas, the block reductions and the lanes' view.
 //
 // Exactness contract with the plain PyTorch versions (ops/kernels.py):
 // - built with --fmad=false and without fast math: every multiply and add is
@@ -96,6 +96,9 @@ struct TablesView {
   float* dev_used;               // carry [N, MAXDEV]
   float* vg_req;                 // carry [N, MAXVG]
   float* sdev_alloc;             // carry [N, MAXSD]
+  // [N] node-active row of the lane a lane kernel runs (lane_view); the
+  // single-lane kernels never read it
+  const uint8_t* active;
   int N, R, G, T, Tc, D1, PORT1, PP, A, B, Cp, Sd, Ss, Ca, Cw, Z;
   int MAXDEV, MAXVG, MAXSD, SL, SD;
   int f_fit, f_ports, f_interpod, f_spread, f_gpu, f_storage;
@@ -415,15 +418,21 @@ static __device__ void storage_commit_at(const TablesView& t, int g, int c) {
 // filters; with EXT, the view's f_gpu / f_storage switch the GPU-share and
 // Open-Local filters on. Returns the stage bits plus BIT_FEASIBLE; writes
 // fit_each[R] when `fit_each` is not null, and the node's raw Open-Local
-// score to *st_raw when that is not null and f_storage is on.
-template <bool EXT>
+// score to *st_raw when that is not null and f_storage is on. With LANE, the
+// lane's node-active row folds into the static mask, the single root every
+// filter ANDs into (JAX `_mask_active`): an inactive node is infeasible for
+// every pod, so it drops out of every normalizer, count and sum that the
+// kernels take over the feasible set, exactly as the plain version's masked
+// static_mask makes it.
+template <bool EXT, bool LANE = false>
 static __device__ uint32_t node_feasibility(const TablesView& t, const PodCtx* pc, int g,
                                             int forced, int valid, int include_dns,
                                             int include_interpod, int n, uint8_t* fit_each,
                                             float* st_raw = nullptr) {
   const int N = t.N, R = t.R, D = t.D1 - 1;
   const size_t gn = (size_t)g * N + n;
-  const bool smask = t.static_mask[gn];
+  bool smask = t.static_mask[gn];
+  if constexpr (LANE) smask = smask && t.active[n];
 
   // NodeResourcesFit: new_req <= alloc + alloc * 1e-6, or nothing requested
   bool fit = true;
@@ -517,8 +526,41 @@ static __device__ uint32_t node_feasibility(const TablesView& t, const PodCtx* p
   return bits;
 }
 
-// One block of this many threads runs each of K2, K3, K3c, K4 and K5.
+// One block of this many threads runs each of K2, K3, K3c, K4 and K5 (one
+// block per lane in their lane kernels).
 #define BLOCK_THREADS 1024
+
+// ---- lanes (the capacity probe's fan-out, JAX probe_*_fanout :2300-2378) ----
+//
+// A lane kernel runs S candidate node-active masks at once, one block per
+// lane. The wrapper passes the view of lane 0: every carry field is an
+// [S, ...] tensor, contiguous, whose lane-0 slice the view points at, and
+// `active` is the [S, N] mask. lane_view moves each carry pointer and the
+// mask to lane s; the lane's block keeps it in shared memory. Every lane
+// reads the one copy of the tables and writes only its own carry, scratch
+// and outputs, so the lanes never touch each other's memory and every
+// atomic stays inside its lane.
+static __device__ TablesView lane_view(const TablesView& t, int s) {
+  TablesView v = t;
+  const size_t N = (size_t)t.N, S = (size_t)s;
+  v.requested += S * N * t.R;
+  v.nonzero += S * N * 2;
+  v.port_used += S * N * t.PORT1;
+  v.counter += S * (size_t)t.T * t.D1;
+  v.carrier += S * (size_t)t.Tc * t.D1;
+  v.dev_used += S * N * t.MAXDEV;
+  v.vg_req += S * N * t.MAXVG;
+  v.sdev_alloc += S * N * t.MAXSD;
+  if (v.active) v.active += S * N;
+  return v;
+}
+
+// The lane kernels' prologue: block blockIdx.x (or blockIdx.y for K3c) runs
+// lane `s` from the view `lt` in shared memory.
+#define LANE_VIEW(lt, t, s)                     \
+  __shared__ TablesView lt;                     \
+  if (threadIdx.x == 0) lt = lane_view(t, s);   \
+  __syncthreads();
 
 // weight slots of TablesView::w (ops/kernels.py _view)
 enum { W_LEAST = 0, W_BALANCED, W_OPENLOCAL, W_SIMON, W_NODEAFF, W_TAINT, W_INTERPOD, W_SS,
@@ -632,14 +674,14 @@ static __device__ int segment_capacity(const TablesView& t, int g, int n, int ca
 // f_gpu adds the GPU filter, and GPU units then clamp the capacity as
 // _gpu_capacity :963 does; EXT only), copies the node can take, the
 // interpod raw score, the floored Simon input and the static score terms.
-template <bool EXT>
+template <bool EXT, bool LANE = false>
 static __device__ void segment_node_constants(const TablesView& t, const PodCtx* pc, int g, int n,
                                               int cap1, int include_dns, int include_interpod,
                                               int* feas, int* cap, float* ip, float* simon_s,
                                               float* stat) {
   const size_t gn = (size_t)g * t.N + n;
-  const bool f = (node_feasibility<EXT>(t, pc, g, -1, 1, include_dns, include_interpod, n,
-                                        nullptr) >> BIT_FEASIBLE) & 1u;
+  const bool f = (node_feasibility<EXT, LANE>(t, pc, g, -1, 1, include_dns, include_interpod,
+                                              n, nullptr) >> BIT_FEASIBLE) & 1u;
   *feas = f;
   *cap = segment_capacity(t, g, n, cap1, f);
   const float gmem = t.grp_gpu_mem[g];

@@ -14,6 +14,10 @@
 // segment's pods; the live rows stay in device memory (and L2). It reuses
 // K2's device code (common.cuh) for the filters and the score formulas.
 //
+// K4 over lanes (schedule_group_serial_lanes_kernel, one block per lane)
+// replaces `probe_group_serial_fanout` (:2320/:2322); see common.cuh
+// `lane_view`.
+//
 // The exactness contract with the plain PyTorch version is in common.cuh.
 
 #include "common.cuh"
@@ -25,10 +29,13 @@
 // Float scratch: ip_raw, simon_s, static, base pernode, sa_raw [N] each, then
 // cnt [Sd, D1], cnt_sa [Ss, D1], marks [Ss, D1], zone sums [Z].
 // Int scratch: feas, cap, flags, sa_ignored [N] each.
-__global__ void __launch_bounds__(BLOCK_THREADS, 1)
-schedule_group_serial_kernel(TablesView t, int g, const uint8_t* valid, int P, int cap1,
-                             int ss_live, int sa_live, int* j, int* placed_out, float* fs,
-                             int* is) {
+// LANE: the lane kernel's body (the lane's active row folds into the static
+// mask); the single-lane kernel runs LANE = false.
+template <bool LANE>
+static __device__ __forceinline__ void
+schedule_group_serial_body(const TablesView& t, int g, const uint8_t* valid, int P, int cap1,
+                           int ss_live, int sa_live, int* j, int* placed_out, float* fs,
+                           int* is) {
   __shared__ PodCtx pc;
   __shared__ float s_red[8 * 32];
   __shared__ int s_idx[32];
@@ -55,8 +62,8 @@ schedule_group_serial_kernel(TablesView t, int g, const uint8_t* valid, int P, i
   // static score terms, the live rows' start values
   pod_prologue(t, g, 0, &pc, s_red);
   for (int n = tid; n < N; n += bd) {
-    segment_node_constants<false>(t, &pc, g, n, cap1, 0, 1, &feas_s[n], &cap_s[n], &ip_s[n],
-                                  &simon_s[n], &stat_s[n]);
+    segment_node_constants<false, LANE>(t, &pc, g, n, cap1, 0, 1, &feas_s[n], &cap_s[n],
+                                        &ip_s[n], &simon_s[n], &stat_s[n]);
     pern0_s[n] = t.counter[(size_t)ss_id * D1 + t.counter_dom[(size_t)ss_id * N + n]];
     bool ignored = false;
     for (int s = 0; s < Ss; ++s) {
@@ -244,6 +251,26 @@ schedule_group_serial_kernel(TablesView t, int g, const uint8_t* valid, int P, i
   if (tid == 0) *placed_out = placed;
 }
 
+__global__ void __launch_bounds__(BLOCK_THREADS, 1)
+schedule_group_serial_kernel(TablesView t, int g, const uint8_t* valid, int P, int cap1,
+                             int ss_live, int sa_live, int* j, int* placed_out, float* fs,
+                             int* is) {
+  schedule_group_serial_body<false>(t, g, valid, P, cap1, ss_live, sa_live, j, placed_out, fs,
+                                    is);
+}
+
+// K4 over lanes (JAX probe_group_serial_fanout :2320): block s scans lane s
+// into its own j row [s, N], placed[s] and scratch slices.
+__global__ void __launch_bounds__(BLOCK_THREADS, 1)
+schedule_group_serial_lanes_kernel(TablesView t, int g, const uint8_t* valid, int P, int cap1,
+                                   int ss_live, int sa_live, int* j, int* placed_out, float* fs,
+                                   int* is, long long fs_lane, long long is_lane) {
+  const int s = blockIdx.x;
+  LANE_VIEW(lt, t, s)
+  schedule_group_serial_body<true>(lt, g, valid, P, cap1, ss_live, sa_live, j + (size_t)s * t.N,
+                                   placed_out + s, fs + s * fs_lane, is + s * is_lane);
+}
+
 // ------------------------------------------------------------ C interface --
 
 extern "C" {
@@ -259,6 +286,17 @@ int schedule_group_serial_launch(const TablesView* t, int g, const uint8_t* vali
                                  float* fs, int* is, cudaStream_t stream) {
   schedule_group_serial_kernel<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, valid, P, cap1, ss_live,
                                                                 sa_live, j, placed, fs, is);
+  return (int)cudaGetLastError();
+}
+
+// S lanes: the view is lane 0's with `t->active` the [S, N] mask; j [S, N],
+// placed [S]; fs, is S slices of the scratch sizes above
+int schedule_group_serial_lanes_launch(const TablesView* t, int g, const uint8_t* valid, int P,
+                                       int cap1, int ss_live, int sa_live, int S, int* j,
+                                       int* placed, float* fs, int* is, cudaStream_t stream) {
+  schedule_group_serial_lanes_kernel<<<S, BLOCK_THREADS, 0, stream>>>(
+      *t, g, valid, P, cap1, ss_live, sa_live, j, placed, fs, is,
+      group_serial_scratch_floats(t), group_serial_scratch_ints(t));
   return (int)cudaGetLastError();
 }
 

@@ -29,6 +29,11 @@
 // The single block uses one SM, which is slow but exact; spreading a step over
 // many SMs (cooperative groups or a cluster) is later work.
 //
+// K2 over lanes (schedule_batch_lanes_kernel) replaces `probe_serial_fanout`
+// (:2359/:2361, schedule_batch vmapped over S candidate node-active masks):
+// one block per lane, each on its own SM, so a round of S candidates costs
+// about one single-lane launch; see common.cuh `lane_view`.
+//
 // The exactness contract with the plain PyTorch version is in common.cuh.
 // This file also holds the library's C interface helpers.
 
@@ -61,11 +66,14 @@ enum { SC_LEAST = 0, SC_BALANCED, SC_SIMON, SC_IP, SC_PERNODE, SC_SA, SC_FLAGS, 
 #define FL_REL 2.0f
 
 // EXT: the instantiation with the GPU-share and Open-Local branches, which
-// schedule_batch_launch picks when the view's f_gpu or f_storage is on
-template <bool EXT>
-__global__ void __launch_bounds__(BLOCK_THREADS, 1)
-schedule_batch_kernel(TablesView t, const int* pod_group, const int* forced_node,
-                      const uint8_t* valid_pod, int P, int* choices, float* scratch) {
+// schedule_batch_launch picks when the view's f_gpu or f_storage is on.
+// LANE: the lane kernel's body (the lane's active row folds into the static
+// mask); the single-lane kernel runs LANE = false, the code it ran before
+// lanes existed.
+template <bool EXT, bool LANE>
+static __device__ __forceinline__ void
+schedule_batch_body(const TablesView& t, const int* pod_group, const int* forced_node,
+                    const uint8_t* valid_pod, int P, int* choices, float* scratch) {
   __shared__ PodCtx pc;
   __shared__ float s_red[8 * 32];
   __shared__ int s_idx[32];
@@ -108,8 +116,8 @@ schedule_batch_kernel(TablesView t, const int* pod_group, const int* forced_node
     bool anyF = false, have_zones = false;
     for (int n = tid; n < N; n += bd) {
       float st_raw = 0.0f;
-      const uint32_t bits = node_feasibility<EXT>(t, &pc, g, forced, 1, 1, 1, n, nullptr,
-                                                  &st_raw);
+      const uint32_t bits = node_feasibility<EXT, LANE>(t, &pc, g, forced, 1, 1, 1, n,
+                                                        nullptr, &st_raw);
       const bool F = (bits >> BIT_FEASIBLE) & 1u;
       float flags = 0.0f;
       if (F) {
@@ -294,6 +302,26 @@ schedule_batch_kernel(TablesView t, const int* pod_group, const int* forced_node
   }
 }
 
+template <bool EXT>
+__global__ void __launch_bounds__(BLOCK_THREADS, 1)
+schedule_batch_kernel(TablesView t, const int* pod_group, const int* forced_node,
+                      const uint8_t* valid_pod, int P, int* choices, float* scratch) {
+  schedule_batch_body<EXT, false>(t, pod_group, forced_node, valid_pod, P, choices, scratch);
+}
+
+// K2 over lanes (JAX probe_serial_fanout :2359): block s scans the batch for
+// lane s into its own carry slice, choices row [s, P] and scratch slice.
+template <bool EXT>
+__global__ void __launch_bounds__(BLOCK_THREADS, 1)
+schedule_batch_lanes_kernel(TablesView t, const int* pod_group, const int* forced_node,
+                            const uint8_t* valid_pod, int P, int* choices, float* scratch,
+                            long long scratch_lane) {
+  const int s = blockIdx.x;
+  LANE_VIEW(lt, t, s)
+  schedule_batch_body<EXT, true>(lt, pod_group, forced_node, valid_pod, P,
+                                 choices + (size_t)s * P, scratch + s * scratch_lane);
+}
+
 // ------------------------------------------------------------ C interface --
 
 extern "C" {
@@ -324,6 +352,21 @@ int schedule_batch_launch(const TablesView* t, const int* pod_group, const int* 
   else
     schedule_batch_kernel<false><<<1, BLOCK_THREADS, 0, stream>>>(*t, pod_group, forced_node,
                                                                   valid, P, choices, scratch);
+  return (int)cudaGetLastError();
+}
+
+// S lanes: the view is lane 0's, `t->active` the [S, N] mask; scratch holds
+// S slices of schedule_scratch_floats(t), choices [S, P]
+int schedule_batch_lanes_launch(const TablesView* t, const int* pod_group, const int* forced_node,
+                                const uint8_t* valid, int P, int S, int* choices, float* scratch,
+                                cudaStream_t stream) {
+  const long long lane = schedule_scratch_floats(t);
+  if (t->f_gpu || t->f_storage)
+    schedule_batch_lanes_kernel<true><<<S, BLOCK_THREADS, 0, stream>>>(
+        *t, pod_group, forced_node, valid, P, choices, scratch, lane);
+  else
+    schedule_batch_lanes_kernel<false><<<S, BLOCK_THREADS, 0, stream>>>(
+        *t, pod_group, forced_node, valid, P, choices, scratch, lane);
   return (int)cudaGetLastError();
 }
 

@@ -44,6 +44,10 @@
 // over the card's 132 SMs is later work. K3c touches the carry once
 // ([N, R] rows, [T, D+1] counters) and is launch bound.
 //
+// K3 and K3c over lanes (schedule_wave_lanes_kernel, one block per lane;
+// aggregate_commit_lanes_kernel, the lane on the grid's second dimension)
+// replace `probe_wave_fanout` (:2300/:2302); see common.cuh `lane_view`.
+//
 // The exactness contract with the plain PyTorch version is in common.cuh.
 
 #include "common.cuh"
@@ -51,11 +55,13 @@
 
 // Float scratch: table [N, B+1], then ip_raw, simon_s, static, bound [N] each.
 // Int scratch: cap, feas, u (usable prefix length), c0 (first take) [N] each.
-// EXT: the gpu_live instantiation (the view's f_gpu), picked by the launcher
-template <bool EXT>
-__global__ void __launch_bounds__(BLOCK_THREADS, 1)
-schedule_wave_kernel(TablesView t, int g, int m, int cap1, int B, int K, int* j, int* stats,
-                     float* fs, int* is) {
+// EXT: the gpu_live instantiation (the view's f_gpu), picked by the launcher.
+// LANE: the lane kernel's body (the lane's active row folds into the static
+// mask); the single-lane kernel runs LANE = false.
+template <bool EXT, bool LANE>
+static __device__ __forceinline__ void
+schedule_wave_body(const TablesView& t, int g, int m, int cap1, int B, int K, int* j, int* stats,
+                   float* fs, int* is) {
   __shared__ PodCtx pc;
   __shared__ float s_red[8 * 32];
   __shared__ int s_idx[32];
@@ -79,8 +85,8 @@ schedule_wave_kernel(TablesView t, int g, int m, int cap1, int B, int K, int* j,
   // ---- segment constants: base feasibility, capacity, static score terms
   pod_prologue(t, g, 1, &pc, s_red);
   for (int n = tid; n < N; n += bd) {
-    segment_node_constants<EXT>(t, &pc, g, n, cap1, 1, 1, &feas_s[n], &cap_s[n], &ip_s[n],
-                                &simon_s[n], &stat_s[n]);
+    segment_node_constants<EXT, LANE>(t, &pc, g, n, cap1, 1, 1, &feas_s[n], &cap_s[n],
+                                      &ip_s[n], &simon_s[n], &stat_s[n]);
     j[n] = 0;
   }
   __syncthreads();
@@ -241,14 +247,33 @@ schedule_wave_kernel(TablesView t, int g, int m, int cap1, int B, int K, int* j,
   }
 }
 
+template <bool EXT>
+__global__ void __launch_bounds__(BLOCK_THREADS, 1)
+schedule_wave_kernel(TablesView t, int g, int m, int cap1, int B, int K, int* j, int* stats,
+                     float* fs, int* is) {
+  schedule_wave_body<EXT, false>(t, g, m, cap1, B, K, j, stats, fs, is);
+}
+
+// K3 over lanes (JAX probe_wave_fanout :2300): block s runs lane s's wave
+// into its own j row [s, N], stats row [s, 4] and scratch slices.
+template <bool EXT>
+__global__ void __launch_bounds__(BLOCK_THREADS, 1)
+schedule_wave_lanes_kernel(TablesView t, int g, int m, int cap1, int B, int K, int* j,
+                           int* stats, float* fs, int* is, long long fs_lane, long long is_lane) {
+  const int s = blockIdx.x;
+  LANE_VIEW(lt, t, s)
+  schedule_wave_body<EXT, true>(lt, g, m, cap1, B, K, j + (size_t)s * t.N, stats + 4 * s,
+                                fs + s * fs_lane, is + s * is_lane);
+}
+
 // ---------------------------------------------------------------- K3c ------
 
 // Commit j[n] copies of group g on every node n into the carry `t` points at.
 // seg: [U, D+1] scratch for the per-topology domain sums.
-__global__ void __launch_bounds__(BLOCK_THREADS, 1)
-aggregate_commit_kernel(TablesView t, int g, const int* j, const int* topo_dom,
-                        const int* counter_topo, const int* carr_topo, int U, int gpu_live,
-                        float* seg) {
+static __device__ __forceinline__ void
+aggregate_commit_body(const TablesView& t, int g, const int* j, const int* topo_dom,
+                      const int* counter_topo, const int* carr_topo, int U, int gpu_live,
+                      float* seg) {
   const int N = t.N, R = t.R, D1 = t.D1, D = D1 - 1, tid = threadIdx.x, bd = blockDim.x;
   for (size_t i = tid; i < (size_t)U * D1; i += bd) seg[i] = 0.0f;
   // requested and nonzero: one multiply, then one add
@@ -297,6 +322,25 @@ aggregate_commit_kernel(TablesView t, int g, const int* j, const int* topo_dom,
   }
 }
 
+__global__ void __launch_bounds__(BLOCK_THREADS, 1)
+aggregate_commit_kernel(TablesView t, int g, const int* j, const int* topo_dom,
+                        const int* counter_topo, const int* carr_topo, int U, int gpu_live,
+                        float* seg) {
+  aggregate_commit_body(t, g, j, topo_dom, counter_topo, carr_topo, U, gpu_live, seg);
+}
+
+// K3c over lanes, the lane on the grid's second dimension: block (0, s)
+// commits j row [s, N] into lane s's carry, with its own seg slice.
+__global__ void __launch_bounds__(BLOCK_THREADS, 1)
+aggregate_commit_lanes_kernel(TablesView t, int g, const int* j, const int* topo_dom,
+                              const int* counter_topo, const int* carr_topo, int U, int gpu_live,
+                              float* seg) {
+  const int s = blockIdx.y;
+  LANE_VIEW(lt, t, s)
+  aggregate_commit_body(lt, g, j + (size_t)s * t.N, topo_dom, counter_topo, carr_topo, U,
+                        gpu_live, seg + (size_t)s * U * t.D1);
+}
+
 // ------------------------------------------------------------ C interface --
 
 extern "C" {
@@ -321,6 +365,30 @@ int aggregate_commit_launch(const TablesView* t, int g, const int* j, const int*
                             float* seg, cudaStream_t stream) {
   aggregate_commit_kernel<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, j, topo_dom, counter_topo,
                                                            carr_topo, U, gpu_live, seg);
+  return (int)cudaGetLastError();
+}
+
+// S lanes: the view is lane 0's with `t->active` the [S, N] mask; j, stats
+// [S, N], [S, 4]; fs, is S slices of wave_scratch_floats / wave_scratch_ints
+int schedule_wave_lanes_launch(const TablesView* t, int g, int m, int cap1, int B, int K, int S,
+                               int* j, int* stats, float* fs, int* is, cudaStream_t stream) {
+  const long long fl = wave_scratch_floats(t->N, B), il = wave_scratch_ints(t->N);
+  if (t->f_gpu)
+    schedule_wave_lanes_kernel<true><<<S, BLOCK_THREADS, 0, stream>>>(*t, g, m, cap1, B, K, j,
+                                                                      stats, fs, is, fl, il);
+  else
+    schedule_wave_lanes_kernel<false><<<S, BLOCK_THREADS, 0, stream>>>(*t, g, m, cap1, B, K, j,
+                                                                       stats, fs, is, fl, il);
+  return (int)cudaGetLastError();
+}
+
+// S lanes of K3c: the view is lane 0's carry of [S, ...] tensors; j [S, N];
+// seg S slices of [U, D+1]
+int aggregate_commit_lanes_launch(const TablesView* t, int g, const int* j, const int* topo_dom,
+                                  const int* counter_topo, const int* carr_topo, int U,
+                                  int gpu_live, int S, float* seg, cudaStream_t stream) {
+  aggregate_commit_lanes_kernel<<<dim3(1, S), BLOCK_THREADS, 0, stream>>>(
+      *t, g, j, topo_dom, counter_topo, carr_topo, U, gpu_live, seg);
   return (int)cudaGetLastError();
 }
 

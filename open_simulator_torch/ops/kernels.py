@@ -29,6 +29,7 @@ f32. The GPU-share and Open-Local branches (`enable_gpu`, `enable_storage`,
 from __future__ import annotations
 
 import ctypes
+import struct
 from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
@@ -1573,6 +1574,8 @@ _PTR_FIELDS = (
     ("requested", "requested"), ("nonzero", "nonzero"), ("port_used", "port_used"),
     ("counter", "counter"), ("carrier", "carrier"), ("dev_used", "dev_used"),
     ("vg_req", "vg_req"), ("sdev_alloc", "sdev_alloc"),
+    # the lane kernels' [S, N] node-active masks (null for the single-lane kernels)
+    ("active", "active"),
 )
 _DIM_FIELDS = ("N", "R", "G", "T", "Tc", "D1", "PORT1", "PP", "A", "B", "Cp", "Sd",
                "Ss", "Ca", "Cw", "Z", "MAXDEV", "MAXVG", "MAXSD", "SL", "SD",
@@ -1598,21 +1601,24 @@ _EXPECT = {  # dtype each pointer field must have
     "counter_sel_match_g": torch.bool, "grp_aff_self": torch.bool,
     "dns_edom": torch.bool, "ss_skip": torch.bool, "port_used": torch.bool,
     "grp_gpu_pre": torch.bool, "grp_lvm_vg": torch.int32, "grp_sdev_media": torch.int32,
-    "vg_nameid": torch.int32, "sdev_media": torch.int32,
+    "vg_nameid": torch.int32, "sdev_media": torch.int32, "active": torch.bool,
 }
 
 
 def _view(tb: Tables, cry: Carry, n_zones: int, w: ScoreWeights,
           filters: FilterFlags, enable_gpu: bool = False,
-          enable_storage: bool = False) -> TablesView:
+          enable_storage: bool = False, active=None) -> TablesView:
     """Check every tensor (device, dtype, contiguity) and fill the struct.
     `enable_gpu` / `enable_storage` switch the kernels' GPU-share and
-    Open-Local branches on."""
+    Open-Local branches on. A lane kernel passes lane 0 of its [S, ...]
+    carry (`carry_lane(cry_s, 0, copy=False)`) and its [S, N] `active`."""
     dev = tb.alloc.device
-    src = {**tb._asdict(), **cry._asdict()}
+    src = {**tb._asdict(), **cry._asdict(), "active": active}
     v = TablesView()
     for name, field in _PTR_FIELDS:
         t = src[field]
+        if t is None and name == "active":
+            continue
         want = _EXPECT.get(name, torch.float32)
         if t.device != dev or t.dtype != want or not t.is_contiguous():
             raise ValueError(f"{name}: need a contiguous {want} tensor on {dev}, "
@@ -1955,10 +1961,539 @@ def schedule_affinity_wave(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
     return aggregate_commit(tb, cry, g, j), j, placed
 
 
+# ------------------------------------------------------------- probe lanes ----
+#
+# Port of the JAX package's multi-candidate capacity probing (ops/kernels.py
+# :2280-2378, `probe_*_fanout`): S node-active masks in one dispatch. A
+# candidate differs from another only in which node columns are active, and
+# `active` folds into static_mask (`_mask_active`), which makes an inactive
+# node a phantom: infeasible for every pod, excluded from every normalizer,
+# owner of no placed pod. The carry has a leading [S] axis. JAX vmaps K2-K5
+# over the lanes; the plain versions below loop over them, and the lane
+# kernels run one block per lane (csrc/*.cu `*_lanes_kernel`).
+
+
+def _mask_active(tb: Tables, active: torch.Tensor) -> Tables:
+    """Fold an [N] node-active mask into the static group mask (JAX :2294)."""
+    return tb._replace(static_mask=tb.static_mask & active[None, :])
+
+
+def carry_lanes(cry: Carry, S: int) -> Carry:
+    """The seed carry broadcast to S lanes: [S, ...] contiguous copies."""
+    return Carry(*(t.unsqueeze(0).expand(S, *t.shape).contiguous() for t in cry))
+
+
+def carry_lane(cry_s: Carry, s: int, copy: bool = True) -> Carry:
+    """Lane s of an [S, ...] carry (a copy unless `copy` is False)."""
+    return Carry(*((t[s].clone() if copy else t[s]) for t in cry_s))
+
+
+def _stack_carries(carries) -> Carry:
+    return Carry(*(torch.stack(ts) for ts in zip(*carries)))
+
+
+def _lanes_of(active_s: torch.Tensor, N: int, dev) -> torch.Tensor:
+    """`active_s` as a contiguous [S, N] bool tensor on `dev` (raises otherwise)."""
+    a = torch.as_tensor(active_s, dtype=torch.bool, device=dev).contiguous()
+    if a.dim() != 2 or a.shape[1] != N or a.shape[0] < 1:
+        raise ValueError(f"active_s: need shape (S, {N}), got {tuple(a.shape)}")
+    return a
+
+
+def _check_lanes(cry_s: Carry, S: int) -> None:
+    for f, t in zip(Carry._fields, cry_s):
+        if t.shape[0] != S or not t.is_contiguous():
+            raise ValueError(f"carry {f}: need a contiguous [{S}, ...] tensor, got "
+                             f"{tuple(t.shape)}")
+
+
+@torch.inference_mode()
+def schedule_batch_lanes_plain(tb: Tables, cry_s: Carry, active_s, pod_group, forced_node,
+                               valid, n_zones: int, w: ScoreWeights = DEFAULT_WEIGHTS,
+                               filters: FilterFlags = DEFAULT_FILTERS, enable_gpu: bool = False,
+                               enable_storage: bool = False):
+    """Plain version of `schedule_batch_lanes_kernel`: schedule_batch_plain
+    on each lane's masked tables. Returns (carry_s, choices [S, P] i32)."""
+    outs, choices = [], []
+    for s in range(active_s.shape[0]):
+        c2, ch = schedule_batch_plain(_mask_active(tb, active_s[s]), carry_lane(cry_s, s),
+                                      pod_group, forced_node, valid, n_zones, w, filters,
+                                      enable_gpu, enable_storage)
+        outs.append(c2)
+        choices.append(ch)
+    return _stack_carries(outs), torch.stack(choices)
+
+
+@torch.inference_mode()
+def schedule_wave_lanes_plain(tb: Tables, cry_s: Carry, active_s, g: int, m: int, cap1: bool,
+                              w: ScoreWeights = DEFAULT_WEIGHTS,
+                              filters: FilterFlags = DEFAULT_FILTERS, block: int = WAVE_BLOCK,
+                              kmax: int = 0, gpu_live: bool = False):
+    """Plain version of `schedule_wave_lanes_kernel`: returns (counts [S, N]
+    i32, placed [S] i32, stats [S, 3] i32 in WAVE_STATS order)."""
+    js, placed, stats = [], [], []
+    for s in range(active_s.shape[0]):
+        j, p, st = schedule_wave_plain(_mask_active(tb, active_s[s]), carry_lane(cry_s, s), g, m,
+                                       cap1, w, filters, block, kmax, gpu_live)
+        js.append(j)
+        placed.append(p)
+        stats.append([st[k] for k in WAVE_STATS])
+    return _lane_results(js, placed, stats)
+
+
+def _lane_results(js, placed, stats):
+    dev = js[0].device
+    return (torch.stack(js), torch.tensor(placed, dtype=torch.int32, device=dev),
+            torch.tensor(stats, dtype=torch.int32, device=dev))
+
+
+@torch.inference_mode()
+def aggregate_commit_lanes_plain(tb: Tables, cry_s: Carry, g: int, j_s: torch.Tensor,
+                                 gpu_live: bool = False) -> Carry:
+    """Plain version of `aggregate_commit_lanes_kernel`: lane s commits row s
+    of j_s into its own carry. The tables are not masked: the counts of an
+    inactive node are 0."""
+    return _stack_carries(aggregate_commit_plain(tb, carry_lane(cry_s, s), g, j_s[s], gpu_live)
+                          for s in range(j_s.shape[0]))
+
+
+@torch.inference_mode()
+def schedule_group_serial_lanes_plain(tb: Tables, cry_s: Carry, active_s, g: int, valid,
+                                      cap1: bool, w: ScoreWeights = DEFAULT_WEIGHTS,
+                                      filters: FilterFlags = DEFAULT_FILTERS,
+                                      ss_live: bool = False, sa_live: bool = False,
+                                      n_zones: int = 2):
+    """Plain version of `schedule_group_serial_lanes_kernel`: returns
+    (counts [S, N] i32, placed [S] i32)."""
+    js, placed = [], []
+    for s in range(active_s.shape[0]):
+        j, p = schedule_group_serial_plain(_mask_active(tb, active_s[s]), carry_lane(cry_s, s),
+                                           g, valid, cap1, w, filters, ss_live, sa_live, n_zones)
+        js.append(j)
+        placed.append(p)
+    return torch.stack(js), torch.tensor(placed, dtype=torch.int32, device=js[0].device)
+
+
+@torch.inference_mode()
+def schedule_affinity_wave_lanes_plain(tb: Tables, cry_s: Carry, active_s, g: int, m: int,
+                                       cap1: bool, ss_live: bool = False,
+                                       w: ScoreWeights = DEFAULT_WEIGHTS,
+                                       filters: FilterFlags = DEFAULT_FILTERS,
+                                       block: int = WAVE_BLOCK, n_zones: int = 2):
+    """Plain version of `schedule_affinity_wave_lanes_kernel`: returns
+    (counts [S, N] i32, placed [S] i32, stats [S, 3] i32 in AFFINITY_STATS
+    order)."""
+    js, placed, stats = [], [], []
+    for s in range(active_s.shape[0]):
+        j, p, st = schedule_affinity_wave_plain(_mask_active(tb, active_s[s]),
+                                                carry_lane(cry_s, s), g, m, cap1, ss_live, w,
+                                                filters, block, n_zones)
+        js.append(j)
+        placed.append(p)
+        stats.append([st[k] for k in AFFINITY_STATS])
+    return _lane_results(js, placed, stats)
+
+
+def _lane_view(tb: Tables, cry_s: Carry, active_s, n_zones: int, w: ScoreWeights,
+               filters: FilterFlags, enable_gpu: bool = False, enable_storage: bool = False):
+    """(S, [S, N] mask, TablesView of lane 0) for a lane kernel."""
+    active = _lanes_of(active_s, tb.alloc.shape[0], tb.alloc.device)
+    S = active.shape[0]
+    _check_lanes(cry_s, S)
+    v = _view(tb, carry_lane(cry_s, 0, copy=False), n_zones, w, filters, enable_gpu,
+              enable_storage, active=active)
+    return S, active, v
+
+
+def schedule_batch_lanes_kernel(tb: Tables, cry_s: Carry, active_s, pod_group, forced_node,
+                                valid, n_zones: int, w: ScoreWeights = DEFAULT_WEIGHTS,
+                                filters: FilterFlags = DEFAULT_FILTERS, enable_gpu: bool = False,
+                                enable_storage: bool = False):
+    """Launch K2 over S lanes (csrc/schedule.cu schedule_batch_lanes_kernel),
+    block s on lane s. Returns (carry_s, choices [S, P] i32): the carry is a
+    CLONE of `cry_s` that the kernel updates in place."""
+    from . import build
+
+    lib = build.library()
+    dev = tb.alloc.device
+    out = Carry(*(t.clone() for t in cry_s))
+    S, active, v = _lane_view(tb, out, active_s, n_zones, w, filters, enable_gpu,
+                              enable_storage)
+    pg = torch.as_tensor(pod_group, dtype=torch.int32, device=dev).contiguous()
+    fn = torch.as_tensor(forced_node, dtype=torch.int32, device=dev).contiguous()
+    vd = torch.as_tensor(valid, dtype=torch.bool, device=dev).contiguous()
+    P = pg.shape[0]
+    if fn.shape[0] != P or vd.shape[0] != P:
+        raise ValueError("pod_group, forced_node and valid must have one length")
+    choices = torch.empty((S, P), dtype=torch.int32, device=dev)
+    scratch = torch.empty(S * int(lib.schedule_scratch_floats(ctypes.byref(v))),
+                          dtype=torch.float32, device=dev)
+    _check(lib.schedule_batch_lanes_launch(ctypes.byref(v), _ptr(pg), _ptr(fn), _ptr(vd), int(P),
+                                           int(S), _ptr(choices), _ptr(scratch), _stream()),
+           "schedule_batch_lanes_kernel launch")
+    probe_serial_fanout.launches += 1
+    return out, choices
+
+
+def schedule_wave_lanes_kernel(tb: Tables, cry_s: Carry, active_s, g: int, m: int, cap1: bool,
+                               w: ScoreWeights = DEFAULT_WEIGHTS,
+                               filters: FilterFlags = DEFAULT_FILTERS, block: int = WAVE_BLOCK,
+                               kmax: int = 0, gpu_live: bool = False):
+    """Launch K3 over S lanes (csrc/wave.cu schedule_wave_lanes_kernel).
+    Returns (counts [S, N] i32, placed [S] i32, stats [S, 3] i32), all on the
+    card; `cry_s` is only read."""
+    from . import build
+
+    lib = build.library()
+    dev = tb.alloc.device
+    N = tb.alloc.shape[0]
+    K = kmax if kmax else N * block
+    if N * block >= 2 ** 31 or not 1 <= K <= N * block:
+        raise ValueError(f"wave table {N}x{block} with kmax {K} is out of the kernel's range")
+    S, active, v = _lane_view(tb, cry_s, active_s, 2, w, filters, enable_gpu=gpu_live)
+    j = torch.empty((S, N), dtype=torch.int32, device=dev)
+    stats = torch.empty((S, 4), dtype=torch.int32, device=dev)
+    fs = torch.empty(S * int(lib.wave_scratch_floats(N, block)), dtype=_F32, device=dev)
+    iscr = torch.empty(S * int(lib.wave_scratch_ints(N)), dtype=torch.int32, device=dev)
+    _check(lib.schedule_wave_lanes_launch(ctypes.byref(v), int(g), int(m), int(bool(cap1)),
+                                          int(block), int(K), int(S), _ptr(j), _ptr(stats),
+                                          _ptr(fs), _ptr(iscr), _stream()),
+           "schedule_wave_lanes_kernel launch")
+    probe_wave_fanout.launches += 1
+    return j, stats[:, 0], stats[:, 1:]
+
+
+def aggregate_commit_lanes_kernel(tb: Tables, cry_s: Carry, g: int, j_s: torch.Tensor,
+                                  gpu_live: bool = False) -> Carry:
+    """Launch K3c over S lanes (csrc/wave.cu aggregate_commit_lanes_kernel,
+    the lane on the grid's second dimension) on a CLONE of `cry_s`, which it
+    updates in place and returns."""
+    from . import build
+
+    lib = build.library()
+    dev = tb.alloc.device
+    out = Carry(*(t.clone() for t in cry_s))
+    N = tb.alloc.shape[0]
+    jj = torch.as_tensor(j_s, dtype=torch.int32, device=dev).contiguous()
+    S = jj.shape[0]
+    if jj.shape != (S, N):
+        raise ValueError(f"j_s: need shape (S, {N}), got {tuple(jj.shape)}")
+    _check_lanes(out, S)
+    v = _view(tb, carry_lane(out, 0, copy=False), 2, DEFAULT_WEIGHTS, DEFAULT_FILTERS,
+              enable_gpu=gpu_live)
+    for name in ("topo_dom", "counter_topo", "carr_topo"):
+        t = getattr(tb, name)
+        if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous int32 tensor on {dev}")
+    U = tb.topo_dom.shape[0]
+    seg = torch.empty(S * U * cry_s.counter.shape[2], dtype=_F32, device=dev)
+    _check(lib.aggregate_commit_lanes_launch(ctypes.byref(v), int(g), _ptr(jj), _ptr(tb.topo_dom),
+                                             _ptr(tb.counter_topo), _ptr(tb.carr_topo), int(U),
+                                             int(bool(gpu_live)), int(S), _ptr(seg), _stream()),
+           "aggregate_commit_lanes_kernel launch")
+    aggregate_commit_lanes.launches += 1
+    return out
+
+
+def schedule_group_serial_lanes_kernel(tb: Tables, cry_s: Carry, active_s, g: int, valid,
+                                       cap1: bool, w: ScoreWeights = DEFAULT_WEIGHTS,
+                                       filters: FilterFlags = DEFAULT_FILTERS,
+                                       ss_live: bool = False, sa_live: bool = False,
+                                       n_zones: int = 2):
+    """Launch K4 over S lanes (csrc/group_serial.cu
+    schedule_group_serial_lanes_kernel). Returns (counts [S, N] i32, placed
+    [S] i32), on the card; `cry_s` is only read."""
+    from . import build
+
+    lib = build.library()
+    dev = tb.alloc.device
+    N = tb.alloc.shape[0]
+    vd = torch.as_tensor(valid, dtype=torch.bool, device=dev).contiguous()
+    S, active, v = _lane_view(tb, cry_s, active_s, n_zones, w, filters)
+    j = torch.empty((S, N), dtype=torch.int32, device=dev)
+    placed = torch.empty(S, dtype=torch.int32, device=dev)
+    fs = torch.empty(S * int(lib.group_serial_scratch_floats(ctypes.byref(v))), dtype=_F32,
+                     device=dev)
+    iscr = torch.empty(S * int(lib.group_serial_scratch_ints(ctypes.byref(v))),
+                       dtype=torch.int32, device=dev)
+    _check(lib.schedule_group_serial_lanes_launch(ctypes.byref(v), int(g), _ptr(vd),
+                                                  int(vd.shape[0]), int(bool(cap1)),
+                                                  int(bool(ss_live)), int(bool(sa_live)), int(S),
+                                                  _ptr(j), _ptr(placed), _ptr(fs), _ptr(iscr),
+                                                  _stream()),
+           "schedule_group_serial_lanes_kernel launch")
+    probe_group_serial_fanout.launches += 1
+    return j, placed
+
+
+def schedule_affinity_wave_lanes_kernel(tb: Tables, cry_s: Carry, active_s, g: int, m: int,
+                                        cap1: bool, ss_live: bool = False,
+                                        w: ScoreWeights = DEFAULT_WEIGHTS,
+                                        filters: FilterFlags = DEFAULT_FILTERS,
+                                        block: int = WAVE_BLOCK, n_zones: int = 2):
+    """Launch K5 over S lanes (csrc/affinity_wave.cu
+    schedule_affinity_wave_lanes_kernel). Returns (counts [S, N] i32, placed
+    [S] i32, stats [S, 3] i32), all on the card; `cry_s` is only read."""
+    from . import build
+
+    lib = build.library()
+    dev = tb.alloc.device
+    N = tb.alloc.shape[0]
+    if N * block >= 2 ** 31 or block < 1:
+        raise ValueError(f"affinity table {N}x{block} is out of the kernel's range")
+    if cry_s.counter.shape[2] > AFFINITY_MAX_D1:
+        raise ValueError(f"{cry_s.counter.shape[2]} domains exceed the kernel's "
+                         f"{AFFINITY_MAX_D1}")
+    S, active, v = _lane_view(tb, cry_s, active_s, n_zones, w, filters)
+    j = torch.empty((S, N), dtype=torch.int32, device=dev)
+    stats = torch.empty((S, 4), dtype=torch.int32, device=dev)
+    fs = torch.empty(S * int(lib.affinity_scratch_floats(ctypes.byref(v), int(block))),
+                     dtype=_F32, device=dev)
+    iscr = torch.empty(S * int(lib.affinity_scratch_ints(ctypes.byref(v))), dtype=torch.int32,
+                       device=dev)
+    _check(lib.schedule_affinity_wave_lanes_launch(ctypes.byref(v), int(g), int(m),
+                                                   int(bool(cap1)), int(bool(ss_live)),
+                                                   int(block), int(S), _ptr(j), _ptr(stats),
+                                                   _ptr(fs), _ptr(iscr), _stream()),
+           "schedule_affinity_wave_lanes_kernel launch")
+    probe_affinity_wave_fanout.launches += 1
+    return j, stats[:, 0], stats[:, 1:]
+
+
+def aggregate_commit_lanes(tb: Tables, cry_s: Carry, g: int, j_s: torch.Tensor,
+                           gpu_live: bool = False) -> Carry:
+    """Commit row s of j_s into lane s of cry_s: the plain version for CPU
+    tensors, K3c over lanes for CUDA tensors. Returns a new [S, ...] carry."""
+    if _on_cpu(tb.alloc):
+        return aggregate_commit_lanes_plain(tb, cry_s, g, j_s, gpu_live)
+    return aggregate_commit_lanes_kernel(tb, cry_s, g, j_s, gpu_live)
+
+
+def _add_stats(fn, stats: torch.Tensor) -> None:
+    """Add the lanes' loop statistics, summed over lanes, to `fn.stats`."""
+    total = stats.sum(dim=0, dtype=torch.int32)
+    prev = fn.stats
+    fn.stats = total if prev is None or prev.device != total.device else prev + total
+
+
+def probe_serial_fanout(tb: Tables, cry_s: Carry, active_s, pod_group, forced_node, valid,
+                        n_zones: int, enable_gpu: bool = True, enable_storage: bool = True,
+                        w: ScoreWeights = DEFAULT_WEIGHTS, filters: FilterFlags = DEFAULT_FILTERS):
+    """schedule_batch over S candidate node-active masks in one dispatch (JAX
+    `probe_serial_fanout`): the plain version for CPU tensors, K2 over lanes
+    for CUDA tensors. Returns (carry_s, placed_s [S] i32)."""
+    run = schedule_batch_lanes_plain if _on_cpu(tb.alloc) else schedule_batch_lanes_kernel
+    carry_s, choices = run(tb, cry_s, active_s, pod_group, forced_node, valid, n_zones, w,
+                           filters, enable_gpu, enable_storage)
+    return carry_s, (choices >= 0).sum(dim=1, dtype=torch.int32)
+
+
+def probe_wave_fanout(tb: Tables, cry_s: Carry, active_s, g: int, m: int, cap1: bool,
+                      gpu_live: bool = False, w: ScoreWeights = DEFAULT_WEIGHTS,
+                      filters: FilterFlags = DEFAULT_FILTERS, block: int = WAVE_BLOCK,
+                      kmax: int = 0):
+    """schedule_wave over S candidate node-active masks in one dispatch (JAX
+    `probe_wave_fanout`): the plain version for CPU tensors, K3 over lanes
+    for CUDA tensors, then K3c over lanes. Returns (carry_s, placed_s [S]
+    i32); the loop statistics, summed over lanes, join `schedule_wave.stats`."""
+    run = schedule_wave_lanes_plain if _on_cpu(tb.alloc) else schedule_wave_lanes_kernel
+    j_s, placed_s, stats = run(tb, cry_s, active_s, g, m, cap1, w, filters, block, kmax, gpu_live)
+    _add_stats(schedule_wave, stats)
+    return aggregate_commit_lanes(tb, cry_s, g, j_s, gpu_live), placed_s
+
+
+def probe_group_serial_fanout(tb: Tables, cry_s: Carry, active_s, g: int, valid, cap1: bool,
+                              w: ScoreWeights = DEFAULT_WEIGHTS,
+                              filters: FilterFlags = DEFAULT_FILTERS, ss_live: bool = False,
+                              sa_live: bool = False, n_zones: int = 2):
+    """schedule_group_serial over S candidate node-active masks in one
+    dispatch (JAX `probe_group_serial_fanout`): the plain version for CPU
+    tensors, K4 over lanes for CUDA tensors, then K3c over lanes. Returns
+    (carry_s, placed_s [S] i32)."""
+    run = (schedule_group_serial_lanes_plain if _on_cpu(tb.alloc)
+           else schedule_group_serial_lanes_kernel)
+    j_s, placed_s = run(tb, cry_s, active_s, g, valid, cap1, w, filters, ss_live, sa_live, n_zones)
+    return aggregate_commit_lanes(tb, cry_s, g, j_s), placed_s
+
+
+def probe_affinity_wave_fanout(tb: Tables, cry_s: Carry, active_s, g: int, m: int, cap1: bool,
+                               ss_live: bool = False, w: ScoreWeights = DEFAULT_WEIGHTS,
+                               filters: FilterFlags = DEFAULT_FILTERS, block: int = WAVE_BLOCK,
+                               n_zones: int = 2):
+    """schedule_affinity_wave over S candidate node-active masks in one
+    dispatch (JAX `probe_affinity_wave_fanout`): the plain version for CPU
+    tensors, K5 over lanes for CUDA tensors, then K3c over lanes. Returns
+    (carry_s, placed_s [S] i32); the epoch statistics, summed over lanes,
+    join `schedule_affinity_wave.stats`."""
+    run = (schedule_affinity_wave_lanes_plain if _on_cpu(tb.alloc)
+           else schedule_affinity_wave_lanes_kernel)
+    j_s, placed_s, stats = run(tb, cry_s, active_s, g, m, cap1, ss_live, w, filters, block,
+                               n_zones)
+    _add_stats(schedule_affinity_wave, stats)
+    return aggregate_commit_lanes(tb, cry_s, g, j_s), placed_s
+
+
+# --------------------------------------------------------- table extension ----
+#
+# Port of `open_simulator_tpu/parallel/mesh.py` `_extend_tables_impl` (:672)
+# and `extend_tables_on_device` (:703), without the mesh shardings (A12). When
+# the capacity search outgrows the encoded node bucket, every appended column
+# is a verbatim copy of the template column already on the device (the probe
+# session checked at build that the template copies are bit-identical), and
+# the phantom re-padding writes constants, so the tables grow in place of a
+# re-encode and a host upload. Only valid while the extension does not widen
+# the domain axis (no hostname-keyed counter or carrier rows);
+# simulator/probe.py re-uploads otherwise. `extend_tables_plain` is torch
+# concatenation field by field as the JAX function; `extend_tables_kernel`
+# launches csrc/extend.cu (K6) once for every field.
+
+# Phantom fills mirror pad_batch_tables exactly: a padded column must be
+# indistinguishable from one it would have produced.
+_EXT_GN_FILL = (
+    ("static_mask", False), ("mask_taint", False), ("mask_unsched", False),
+    ("mask_aff", False), ("mask_extra", False),
+    ("simon_raw", 0), ("nodeaff_raw", 0), ("taint_raw", 0), ("avoid_raw", 0),
+    ("image_raw", 0), ("extra_raw", 0),
+)
+_EXT_DOM_FIELDS = ("counter_dom", "topo_dom", "carr_dom")  # filled with the sentinel
+_EXT_NROW_FILL = (
+    ("alloc", 0), ("dev_total", 0), ("vg_cap", 0), ("vg_nameid", 0),
+    ("sdev_cap", 0), ("sdev_media", 0),
+)
+# (field, node axis, fill, sentinel?): node_zone is a [N] row filled with 0
+EXT_FIELDS = ([(f, -1, fill, False) for f, fill in _EXT_GN_FILL]
+              + [(f, -1, 0, True) for f in _EXT_DOM_FIELDS]
+              + [(f, 0, fill, False) for f, fill in _EXT_NROW_FILL]
+              + [("node_zone", -1, 0, False)])
+
+
+def _check_extension(tb: Tables, n_real: int, k: int, template_col: int, n_pad_new: int) -> int:
+    n_old = tb.alloc.shape[0]
+    pad = n_pad_new - n_real - k
+    if not (0 <= template_col < n_real <= n_old and k >= 0 and pad >= 0):
+        raise ValueError(f"extension n_real={n_real} k={k} template_col={template_col} "
+                         f"n_pad_new={n_pad_new} does not fit tables of {n_old} nodes")
+    return pad
+
+
+@torch.inference_mode()
+def extend_tables_plain(tb: Tables, n_real: int, k: int, template_col: int, n_pad_new: int,
+                        sentinel: int) -> Tables:
+    """Plain version of `extend_tables_kernel` (JAX `_extend_tables_impl`):
+    Tables [*, N_pad] -> [*, n_pad_new]: columns [0, n_real) kept, k copies of
+    column `template_col`, then the phantom fill."""
+    pad = _check_extension(tb, n_real, k, template_col, n_pad_new)
+
+    def grow(a: torch.Tensor, axis: int, fill) -> torch.Tensor:
+        a = a.movedim(axis, 0)
+        parts = [a[:n_real], a[template_col:template_col + 1].expand(k, *a.shape[1:])]
+        if pad:
+            parts.append(torch.full((pad, *a.shape[1:]), fill, dtype=a.dtype, device=a.device))
+        return torch.cat(parts, dim=0).movedim(0, axis).contiguous()
+
+    return tb._replace(**{f: grow(getattr(tb, f), axis, sentinel if sent else fill)
+                          for f, axis, fill, sent in EXT_FIELDS})
+
+
+EXT_MAX_FIELDS = 32  # csrc/extend.cu
+
+
+class ExtField(ctypes.Structure):
+    _fields_ = [("src", ctypes.c_void_p), ("dst", ctypes.c_void_p), ("outer", ctypes.c_longlong),
+                ("inner", ctypes.c_int), ("elem", ctypes.c_int), ("fill", ctypes.c_uint32),
+                ("pad_", ctypes.c_int)]
+
+
+class ExtArgs(ctypes.Structure):
+    _fields_ = [("f", ExtField * EXT_MAX_FIELDS), ("n_fields", ctypes.c_int),
+                ("n_old", ctypes.c_int), ("n_new", ctypes.c_int), ("n_real", ctypes.c_int),
+                ("k", ctypes.c_int), ("template_col", ctypes.c_int)]
+
+
+class ExtPlan(NamedTuple):
+    """One K6 launch: its pointer table, the output buffers it points at
+    (kept alive here) and the largest field's element count."""
+    args: ExtArgs
+    out: Dict[str, torch.Tensor]
+    max_elems: int
+
+
+def extend_tables_plan(tb: Tables, n_real: int, k: int, template_col: int, n_pad_new: int,
+                       sentinel: int) -> ExtPlan:
+    """Allocate the grown fields on the card and fill K6's pointer table."""
+    _check_extension(tb, n_real, k, template_col, n_pad_new)
+    dev = tb.alloc.device
+    n_old = tb.alloc.shape[0]
+    args = ExtArgs(n_fields=len(EXT_FIELDS), n_old=n_old, n_new=n_pad_new, n_real=n_real, k=k,
+                   template_col=template_col)
+    out: Dict[str, torch.Tensor] = {}
+    max_elems = 1
+    for i, (f, axis, fill, sent) in enumerate(EXT_FIELDS):
+        a = getattr(tb, f)
+        if a.device != dev or not a.is_contiguous() or a.element_size() not in (1, 4):
+            raise ValueError(f"{f}: need a contiguous 1- or 4-byte tensor on {dev}")
+        if a.shape[axis] != n_old:
+            raise ValueError(f"{f}: node axis {a.shape[axis]} != {n_old}")
+        shape = list(a.shape)
+        shape[axis] = n_pad_new
+        dst = torch.empty(shape, dtype=a.dtype, device=dev)
+        out[f] = dst
+        if axis == -1:
+            outer, inner = a.numel() // n_old, 1
+        else:
+            outer, inner = 1, a.numel() // n_old
+        value = sentinel if sent else fill
+        if a.dtype == torch.float32:  # the fill's bit pattern (0.0: all zero bits)
+            bits = struct.unpack("<I", struct.pack("<f", float(value)))[0]
+        else:
+            bits = int(value) & 0xffffffff
+        args.f[i] = ExtField(src=a.data_ptr(), dst=dst.data_ptr(), outer=outer, inner=inner,
+                             elem=a.element_size(), fill=bits)
+        max_elems = max(max_elems, dst.numel())
+    return ExtPlan(args, out, max_elems)
+
+
+def extend_tables_launch(plan: ExtPlan) -> None:
+    """Launch K6 (csrc/extend.cu extend_tables_kernel) on a plan: one launch
+    writes every field of the node axis."""
+    from . import build
+
+    _check(build.library().extend_tables_launch(ctypes.byref(plan.args), plan.max_elems,
+                                                _stream()),
+           "extend_tables_kernel launch")
+    extend_tables_on_device.launches += 1
+
+
+def extend_tables_kernel(tb: Tables, n_real: int, k: int, template_col: int, n_pad_new: int,
+                         sentinel: int) -> Tables:
+    """K6 on fresh outputs; returns new Tables (the fields off the node axis
+    are shared with `tb`)."""
+    plan = extend_tables_plan(tb, n_real, k, template_col, n_pad_new, sentinel)
+    extend_tables_launch(plan)
+    return tb._replace(**plan.out)
+
+
+def extend_tables_on_device(tables: Tables, *, n_real: int, k: int, template_col: int,
+                            n_pad_new: int, sentinel: int) -> Tables:
+    """Grow Tables by k template-column copies (+ phantom re-pad to
+    n_pad_new) where they lie: the plain version for tables on the CPU, K6
+    for tables on the card. `n_real` is the current real column count (the
+    old phantom columns are overwritten), `sentinel` the padded domain
+    sentinel id."""
+    if _on_cpu(tables.alloc):
+        return extend_tables_plain(tables, n_real, k, template_col, n_pad_new, sentinel)
+    return extend_tables_kernel(tables, n_real, k, template_col, n_pad_new, sentinel)
+
+
 _WRAPPERS = {"schedule_batch": schedule_batch, "feasibility": feasibility_jit,
              "schedule_wave": schedule_wave, "aggregate_commit": aggregate_commit,
              "schedule_group_serial": schedule_group_serial,
-             "schedule_affinity_wave": schedule_affinity_wave}
+             "schedule_affinity_wave": schedule_affinity_wave,
+             "probe_serial_fanout": probe_serial_fanout, "probe_wave_fanout": probe_wave_fanout,
+             "probe_group_serial_fanout": probe_group_serial_fanout,
+             "probe_affinity_wave_fanout": probe_affinity_wave_fanout,
+             "aggregate_commit_lanes": aggregate_commit_lanes,
+             "extend_tables": extend_tables_on_device}
 for _f in _WRAPPERS.values():
     _f.launches = 0
 schedule_batch.last_events = None

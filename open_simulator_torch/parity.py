@@ -22,6 +22,7 @@ match_rate(a, b) = sum over keys of min(a[k], b[k]) / max(total_a, total_b).
 from __future__ import annotations
 
 import json
+import re
 from typing import Dict, Tuple
 
 from .core.types import SimulateResult
@@ -107,3 +108,32 @@ def save_dump(dump: dict, path: str) -> None:
     with open(path, "w") as f:
         json.dump(dump, f, indent=1, sort_keys=True)
 
+
+# a fake node's time-seeded name (models/fakenode.py)
+_FAKE_NAME = re.compile(rf"{C.NewNodeNamePrefix}-[a-z0-9]{{5}}\b")
+
+
+def normalize_report(text: str) -> str:
+    """An apply report with its time-seeded fake-node names (`simon-xxxxx`)
+    replaced by `simon-#k`, k their order of first appearance (Node Info
+    lists the nodes in creation order), and each App Info node list
+    re-sorted under the new names: two runs that placed the same pods on the
+    same node indices give the same text."""
+    order: Dict[str, str] = {}
+
+    def sub(m) -> str:
+        return order.setdefault(m.group(0), f"{C.NewNodeNamePrefix}-#{len(order)}")
+
+    lines = _FAKE_NAME.sub(sub, text).split("\n")
+    in_apps = False
+    for i, line in enumerate(lines):
+        if line == "App Info":
+            in_apps = True
+        elif in_apps and not line:
+            in_apps = False
+        elif in_apps:
+            # the last column is "node(count), node(count), ..."
+            cells = line.rsplit("  ", 1)
+            if len(cells) == 2 and "(" in cells[1]:
+                lines[i] = cells[0] + "  " + ", ".join(sorted(cells[1].split(", ")))
+    return "\n".join(lines)

@@ -33,9 +33,12 @@ Behavioral parity notes (as in the JAX engine):
 - Unschedulable reasons are rebuilt from per-stage masks in the k8s FitError
   format.
 
+Capacity probing (`probe_pods`, `probe_utilization`) counts how many pods
+would schedule without materializing placements: the capacity planner's
+fresh-probe search (apply/applier.py) calls it.
+
 Left out of this port so far, each with the ROADMAP item it waits for:
 - preemption (mixed pod priorities raise): A6;
-- capacity probing (probe_pods / probe_utilization): A7;
 - custom scheduler configs and out-of-tree plugins: A7;
 - the watchdog, CPU failover, fault injection and transactional rollback
   (resilience/): A9;
@@ -613,6 +616,78 @@ class Simulator:
             pod.pop(SIG_MEMO_KEY, None)
             failed.append(UnscheduledPod(pod, self._format_reason(pod, reasons, self.na.N)))
         return failed
+
+    # ------------------------------------------------------------ probing ---------
+
+    def probe_pods(self, pods: List[dict]) -> Tuple[int, int]:
+        """Capacity-probe scheduling (JAX engine :1663): how many of `pods`
+        would schedule, without materializing placements. Pre-bound pods
+        commit normally (cluster state the probe must account); every unbound
+        pod joins ONE device run whose results are counted and never written
+        back: no pod mutation, no placed records, no failure diagnosis.
+        Returns (scheduled, total).
+
+        The caller owns two caveats (CapacityPlanner.try_build guards both):
+        pre-bound pods all commit BEFORE the unbound run, whatever their list
+        position, and pods bound to unknown nodes drop out of the totals as
+        schedule_pods drops them from every report. Like the JAX probe, it
+        runs no preemption, so mixed priorities do not raise here."""
+        return self._probe_pods_inner(pods)
+
+    def _probe_pods_inner(self, pods: List[dict]) -> Tuple[int, int]:
+        run: List[dict] = []
+        scheduled = 0
+        homeless = 0
+        for pod in pods:
+            node_name = (pod.get("spec") or {}).get("nodeName")
+            if not node_name:
+                run.append(pod)
+                continue
+            ni = self.na.index.get(node_name)
+            if ni is None:
+                homeless += 1
+                self.homeless.append(pod)
+            else:
+                self._commit_pod(pod, ni, scheduled=False)
+                scheduled += 1
+        total_known = len(pods) - homeless
+        if not run or self.na.N == 0:
+            return scheduled, total_known
+        bt = self.encode_batch(run)
+        tables, carry = self._to_device(bt)
+        flags = plugin_flags(bt)
+        P = len(run)
+        segs = self._segments(bt, P) if self.use_waves else [("serial", 0, P)]
+        placed_parts = []
+        for seg in segs:
+            carry, res = self._dispatch(seg, bt, tables, carry, flags)
+            # a serial segment returns per-pod choices, the others per-node counts
+            placed_parts.append((res >= 0).sum(dtype=torch.int32) if seg[0] == "serial"
+                                else res.sum(dtype=torch.int32))
+        self._last_carry = carry
+        total = int(torch.stack(placed_parts).sum().cpu())  # one fetch
+        return scheduled + total, total_known
+
+    def probe_utilization(self) -> Dict[str, float]:
+        """Aggregate used/allocatable totals after a probe_pods run (JAX
+        engine :1834), read from the end carry in one fetch: the inputs of
+        satisfyResourceSetting (apply.go:689-775). CPU in milli, memory in
+        bytes; the sums are taken in f64 on the host (byte quantities over
+        thousands of nodes overflow f32 precision)."""
+        from ..ops.resources import CPU_I, MEM_I
+
+        N = self.na.N
+        if self._last_carry is None:
+            used = np.zeros((N, self.axis.R), np.float64)
+        else:
+            used = self._last_carry.requested.cpu().numpy()[:N].astype(np.float64)
+        alloc = self.na.alloc
+        return {
+            "cpu_used": float(used[:, CPU_I].sum()),
+            "cpu_alloc": float(alloc[:, CPU_I].sum()),
+            "mem_used": float(used[:, MEM_I].sum()),
+            "mem_alloc": float(alloc[:, MEM_I].sum()),
+        }
 
     # ------------------------------------------------- unschedulable reasons ------
 

@@ -559,3 +559,81 @@ def synth_extended_cluster(
             pods.append(pod)
         k += 1
     return nodes, pods, [], storage_classes
+
+
+def synth_capacity_cluster(
+    n_base: int = 512,
+    n_pods: int = 20000,
+    n_zones: int = 4,
+) -> Tuple[List[dict], dict, List[dict], List[dict]]:
+    """(base_nodes, template, pods, services): a capacity-planning input whose
+    arithmetic lower bound is not exact, so the planner's search runs rounds
+    of eight candidates through every segment kind of the router.
+
+    n_base zoned `synth_node`s and the template `synth_node(0)` (zone 0, so
+    every added node lands there); pods in replica blocks cycling five
+    shapes: plain replicas (the wave route), replicas with required hostname
+    self-anti-affinity (one per node: a cap-1 wave with hostname-keyed
+    counters, which the lower bound does not see), a block of the
+    Service-backed Deployment `svc-web` (live zoned SelectorSpread: the
+    group-serial route), replicas with required zone self-affinity (the
+    affinity wave), and a run of short alternating blocks below the router's
+    WAVE_MIN (the serial scan). The services list holds the one Service."""
+    zone = "topology.kubernetes.io/zone"
+    base = [synth_node(i, n_zones=n_zones) for i in range(n_base)]
+    template = synth_node(0, n_zones=n_zones)
+    services = [{"apiVersion": "v1", "kind": "Service",
+                 "metadata": {"name": "web", "namespace": "default"},
+                 "spec": {"selector": {"app": "svc-web"}}}]
+    pods: List[dict] = []
+    block = max(16, n_pods // 20)
+    k = 0
+    while len(pods) < n_pods:
+        n = min(block, n_pods - len(pods))
+        kind = k % 5
+        if kind == 4:  # short runs of two alternating shapes: serial chunks
+            for r in range(n // 4):
+                app = f"small-{k}-{r % 2}"
+                for _ in range(4):
+                    pods.append(synth_pod(len(pods), cpu_milli=300 + 200 * (r % 2),
+                                          labels={"app": app}))
+            k += 1
+            continue
+        for _ in range(n):
+            idx = len(pods)
+            if kind == 0:
+                pod = synth_pod(idx, cpu_milli=1000, mem_bytes=2 << 30,
+                                labels={"app": f"plain-{k}"})
+            elif kind == 1:
+                app = f"host-anti-{k}"
+                pod = synth_pod(idx, cpu_milli=2000, labels={"app": app}, anti_affinity_on=app)
+            elif kind == 2:
+                pod = synth_pod(idx, cpu_milli=500, mem_bytes=1 << 30, labels={"app": "svc-web"})
+            else:
+                app = f"zone-aff-{k}"
+                pod = synth_pod(idx, cpu_milli=1500, labels={"app": app})
+                pod["spec"]["affinity"] = {"podAffinity": _required_term(app, zone)}
+            pods.append(pod)
+        k += 1
+    return base, template, pods, services
+
+
+# The capacity planner's scenarios: kind -> (generator call, MaxCPU percent).
+# "capacity" is the repo's capacity row (bench.py bench_capacity_plan,
+# config 5): 64 base nodes, 100,000 pods, a 60% MaxCPU envelope, whose
+# arithmetic bound is exact; "capacity_lanes" is synth_capacity_cluster at a
+# 90% envelope, whose bound is not.
+CAPACITY_SCENARIOS = {
+    "capacity": ("synth_node(i) x 64, template synth_node(0), synth_pod(i) x 100000", 60),
+    "capacity_lanes": ("synth_capacity_cluster(512, 20000)", 90),
+}
+
+
+def capacity_scenario(kind: str):
+    """(base_nodes, template, pods, services, MaxCPU) of a CAPACITY_SCENARIOS kind."""
+    max_cpu = CAPACITY_SCENARIOS[kind][1]
+    if kind == "capacity":
+        return ([synth_node(i) for i in range(64)], synth_node(0),
+                [synth_pod(i) for i in range(100000)], [], max_cpu)
+    base, template, pods, services = synth_capacity_cluster(512, 20000)
+    return base, template, pods, services, max_cpu

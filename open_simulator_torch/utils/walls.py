@@ -13,6 +13,13 @@ so an older checkout (one that routed the affinity segments differently) runs
 the same clusters; run it by path, so that it imports no package of its own
 checkout. Compare two checkouts in one invocation sequence on one card:
 parent, change, change, parent. Imports no JAX.
+
+With `--kernels`, it times the single-lane kernels of the main path instead
+(CUDA events, mean of `--reps` launches after a warm-up): K2 on 2,500 pods
+of the 5,000-node hard shape, K4 on the first ScheduleAnyway segment of the
+spread cluster and K5 on the first affinity segment of the hard shape, and
+prints the root's `ptxas -v` lines (registers, stack, spills) of each
+kernel, so that two checkouts compare kernel for kernel.
 """
 
 from __future__ import annotations
@@ -54,6 +61,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE, help="checkout whose open_simulator_torch runs")
     ap.add_argument("--repeat", type=int, default=1)
+    ap.add_argument("--kernels", action="store_true",
+                    help="time the single-lane K2, K4 and K5 and print ptxas lines")
+    ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("kinds", nargs="*", default=["hard_waves", "overflow_waves", "affinity"])
     args = ap.parse_args()
     import torch
@@ -70,6 +80,8 @@ def main() -> int:
 
     # set-up outside the timed runs: the kernels' build, the first launches
     build.library()
+    if args.kernels:
+        return kernel_times(synth, args.root, args.reps)
     for kind in args.kinds:
         nodes, pods, services = workload(synth, KINDS[kind][0], 64, 640)
         sim = Simulator(nodes, device="cuda")
@@ -103,6 +115,73 @@ def main() -> int:
                               "census": sim.segment_census, "launches": K.launch_counts(),
                               "card": card}), flush=True)
     return 1 if bad else 0
+
+
+def _ms(fn, reps: int) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_times(synth, root: str, reps: int) -> int:
+    import torch
+
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.ops import build
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.simulator.engine import Simulator
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    path = build.compile_library()
+    log = build.ptxas_log
+    if not log:  # built by an earlier process: compile once more for the log
+        os.remove(path)
+        build.compile_library()
+        log = build.ptxas_log
+    print(json.dumps({"root": os.path.abspath(root), "ptxas": [
+        ln.strip() for ln in log.splitlines()
+        if "Compiling entry" in ln or "registers" in ln or "spill" in ln]}), flush=True)
+    out = {}
+    nodes, pods = synth.synth_cluster(5000, 2500, hard_predicates=True)
+    sim = Simulator(nodes, device="cuda")
+    bt = sim.encode_batch(pods)
+    tb, seed = sim._to_device(bt)
+    pg, fn, vd = (torch.from_numpy(a).cuda() for a in (bt.pod_group, bt.forced_node, bt.valid))
+    out["K2 schedule_batch hard 2500 pods"] = _ms(
+        lambda: K.schedule_batch_kernel(tb, seed, pg, fn, vd, bt.n_zones), reps)
+    nodes, pods, services = synth.synth_spread_cluster(5000, 20000)
+    sim = Simulator(nodes, device="cuda")
+    sim.register_cluster_objects(ResourceTypes(services=services))
+    bt = sim.encode_batch(pods)
+    tb, seed = sim._to_device(bt)
+    seg = next(s for s in sim._segments(bt, len(pods)) if s[0] == "spread" and s[6])
+    _, _, m, g, cap1, ss_live, sa_live = seg
+    valid = torch.ones(m, dtype=torch.bool, device="cuda")
+    out["K4 schedule_group_serial spread sa_live"] = _ms(
+        lambda: K.schedule_group_serial_kernel(tb, seed, g, valid, cap1, ss_live=ss_live,
+                                               sa_live=sa_live, n_zones=2), reps)
+    nodes, pods = synth.synth_cluster(5000, 50000, hard_predicates=True)
+    sim = Simulator(nodes, device="cuda")
+    bt = sim.encode_batch(pods)
+    tb, seed = sim._to_device(bt)
+    _, _, m, g, cap1, ss_live = next(s for s in sim._segments(bt, len(pods))
+                                     if s[0] == "affinity")
+    block = K.wave_block_for(m, sim.na.N)
+    out["K5 schedule_affinity_wave hard zone spread"] = _ms(
+        lambda: K.schedule_affinity_wave_kernel(tb, seed, g, m, cap1, ss_live=ss_live,
+                                                block=block), reps)
+    print(json.dumps({"root": os.path.abspath(root), "kernel_ms": out, "reps": reps,
+                      "card": card}), flush=True)
+    return 0
 
 
 if __name__ == "__main__":

@@ -252,3 +252,153 @@ def test_extended_kernels_match_plain_versions(n_pods):
             assert kst.tolist() == [pst[k] for k in K.WAVE_STATS]
         _same_carry(K.aggregate_commit_kernel(tb, kc, g, kj, gpu_live=True),
                     K.aggregate_commit_plain(tb, kc, g, pj, gpu_live=True))
+
+
+def _capacity_session(n_base=48, n_pods=600, n_new=40):
+    """A capacity probe session on the card over synth_capacity_cluster
+    (every segment kind of the router), with its segments by kind."""
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.simulator.probe import ProbeSession
+    from open_simulator_torch.utils.synth import synth_capacity_cluster
+
+    base, tpl, pods, services = synth_capacity_cluster(n_base, n_pods)
+    ses = ProbeSession.try_build(base, tpl, pods, ResourceTypes(services=services),
+                                 n_new=n_new, device="cuda")
+    assert ses is not None
+    kinds = {}
+    for s in ses._segs:
+        kinds.setdefault(s[0], s)
+    assert set(kinds) == {"serial", "wave", "spread", "affinity"}
+    return ses, kinds
+
+
+def _lane_masks(ses, S):
+    """S node-active masks: prefixes of growing candidate counts, and (for
+    S > 1) one arbitrary mask as the last lane."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    a = np.zeros((S, ses._n_pad), bool)
+    for i in range(S):
+        a[i, :ses.n_base + (ses.n_new * i) // max(S - 1, 1)] = True
+    if S > 1:
+        a[-1] = rng.random(ses._n_pad) < 0.7
+        a[-1, ses.n_base + ses.n_new:] = False
+    return torch.from_numpy(a).cuda()
+
+
+def _fanout_cases(ses, seg, active):
+    """(kernel dispatcher, plain fan-out, args, kwargs) of one segment: the
+    plain fan-out is the plain lanes then the plain commit over lanes, run on
+    the card's tensors."""
+    from open_simulator_torch.simulator.encode import bucket_capped
+
+    tb, bt = ses._tables, ses._bt
+    cry_s = K.carry_lanes(ses._seed, active.shape[0])
+    n_real = ses.n_base + ses.n_new
+    kind, start, length = seg[:3]
+    if kind == "serial":
+        pad = bucket_capped(length, 2048)
+        pg = torch.zeros(pad, dtype=torch.int32)
+        pg[:length] = torch.from_numpy(bt.pod_group[start:start + length])
+        fn = torch.full((pad,), -1, dtype=torch.int32)
+        fn[:length] = torch.from_numpy(bt.forced_node[start:start + length])
+        vd = torch.arange(pad) < length
+        args = (tb, cry_s, active, pg.cuda(), fn.cuda(), vd.cuda(), bt.n_zones, *ses._flags)
+
+        def plain(*a):
+            enable_gpu, enable_storage = a[7:]
+            carry_s, choices = K.schedule_batch_lanes_plain(*a[:7], enable_gpu=enable_gpu,
+                                                            enable_storage=enable_storage)
+            return carry_s, (choices >= 0).sum(dim=1, dtype=torch.int32)
+
+        return K.probe_serial_fanout, plain, args, {}
+    g, cap1 = seg[3], bool(seg[4])
+    block = K.wave_block_for(length, n_real)
+    if kind == "wave":
+        kw = dict(gpu_live=seg[5], block=block, kmax=K.wave_kmax(length, n_real, block))
+        lanes, args = K.schedule_wave_lanes_plain, (tb, cry_s, active, g, length, cap1)
+        commit_kw = dict(gpu_live=seg[5])
+        dispatch = K.probe_wave_fanout
+    elif kind == "spread":
+        vd = (torch.arange(bucket_capped(length, 2048)) < length).cuda()
+        kw = dict(ss_live=seg[5], sa_live=seg[6], n_zones=bt.n_zones if seg[5] else 2)
+        lanes, args = K.schedule_group_serial_lanes_plain, (tb, cry_s, active, g, vd, cap1)
+        commit_kw, dispatch = {}, K.probe_group_serial_fanout
+    else:
+        kw = dict(ss_live=seg[5], block=block, n_zones=bt.n_zones if seg[5] else 2)
+        lanes, args = K.schedule_affinity_wave_lanes_plain, (tb, cry_s, active, g, length, cap1)
+        commit_kw, dispatch = {}, K.probe_affinity_wave_fanout
+
+    def plain(*a, **k):
+        out = lanes(*a, **k)
+        return K.aggregate_commit_lanes_plain(tb, cry_s, g, out[0], **commit_kw), out[1]
+
+    return dispatch, plain, args, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 2, 8])
+def test_lane_kernels_match_plain_fanouts(S):
+    """Each fan-out on the card (K2-K5 over lanes, then K3c over lanes)
+    against its plain fan-out: placed per lane and every carry field of
+    every lane, one segment of each kind, prefix masks and an arbitrary one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    ses, kinds = _capacity_session(16, 600)
+    active = _lane_masks(ses, S)
+    for kind, seg in sorted(kinds.items()):
+        kfn, pfn, args, kw = _fanout_cases(ses, seg, active)
+        kc, kp = kfn(*args, **kw)
+        pc, pp = pfn(*args, **kw)
+        assert torch.equal(kp, pp), kind
+        _same_carry(kc, pc)
+
+
+@pytest.mark.cuda
+def test_lane_kernels_equal_single_lane_kernels():
+    """Lane s of each lane kernel equals the single-lane kernel on the
+    tables with lane s's mask folded into static_mask (loop statistics
+    included)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    ses, kinds = _capacity_session(16, 600)
+    active = _lane_masks(ses, 4)
+    tb = ses._tables
+    cry_s = K.carry_lanes(ses._seed, 4)
+    n_real = ses.n_base + ses.n_new
+    _, _, m, g, cap1, gpu_live = kinds["wave"]
+    block = K.wave_block_for(m, n_real)
+    kw = dict(block=block, kmax=K.wave_kmax(m, n_real, block), gpu_live=gpu_live)
+    j_s, p_s, st_s = K.schedule_wave_lanes_kernel(tb, cry_s, active, g, m, cap1, **kw)
+    _, _, m5, g5, cap5, ss5 = kinds["affinity"]
+    b5 = K.wave_block_for(m5, n_real)
+    j5, p5, st5 = K.schedule_affinity_wave_lanes_kernel(tb, cry_s, active, g5, m5, cap5, ss5,
+                                                        block=b5)
+    for s in range(4):
+        masked = K._mask_active(tb, active[s])
+        lane = K.carry_lane(cry_s, s)
+        j, p, st = K.schedule_wave_kernel(masked, lane, g, m, cap1, **kw)
+        assert torch.equal(j_s[s], j) and int(p_s[s]) == int(p)
+        assert torch.equal(st_s[s], st)
+        j, p, st = K.schedule_affinity_wave_kernel(masked, lane, g5, m5, cap5, ss5, block=b5)
+        assert torch.equal(j5[s], j) and int(p5[s]) == int(p)
+        assert torch.equal(st5[s], st)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pad", [0, 37])
+def test_extend_kernel_matches_plain_version(pad):
+    """K6 against extend_tables_plain, every field, with and without a
+    phantom pad after the copies."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    ses, _ = _capacity_session(16, 600)
+    tb = ses._tables
+    n_real = ses.n_base + ses.n_new
+    k = 3 * tb.alloc.shape[0] - n_real - pad
+    sentinel = ses._seed.counter.shape[1] - 1
+    got = K.extend_tables_kernel(tb, n_real, k, ses.n_base, n_real + k + pad, sentinel)
+    want = K.extend_tables_plain(tb, n_real, k, ses.n_base, n_real + k + pad, sentinel)
+    for f in K.Tables._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f

@@ -11,6 +11,17 @@ on the route each file names: the serial route (`use_waves=False`) for
 
 The slow test recomputes the goldens through JAX; the tier-1 tests hold the
 two packages to one result on small clusters of the same kinds.
+
+The capacity planner's goldens come the same way: `capacity` and
+`capacity_lanes` (utils/synth.py CAPACITY_SCENARIOS) hold the JAX
+`CapacityPlanner.search()` result (found, nodes_added, hist, stats without
+the encode wall) and every probe round's candidates with their (scheduled,
+total, utilization), captured by wrapping the JAX `ProbeSession.probe_many`;
+`apply_smoke`, `apply_gpushare` and `apply_demo1` (APPLY_SCENARIOS) hold the
+JAX `Applier.run()` on the repo's example configs: nodes added and the
+report with its fake-node names normalized (parity.normalize_report):
+
+    JAX_PLATFORMS=cpu python tests/test_torch_golden.py --write capacity capacity_lanes
 """
 
 from __future__ import annotations
@@ -55,6 +66,15 @@ SCENARIOS = {
 }
 ROUTES = {True: "open_simulator_tpu Simulator, use_waves=False, one CPU device",
           False: "open_simulator_tpu Simulator, default route (use_waves=True), one CPU device"}
+
+
+# kind -> (simon config, MaxCPU percent or None, --extended-resources)
+APPLY_SCENARIOS = {
+    "apply_smoke": ("examples/simon-smoke-config.yaml", 40, ()),
+    "apply_gpushare": ("examples/simon-gpushare-config.yaml", None, ("gpu",)),
+    "apply_demo1": ("examples/simon-config.yaml", None, ("open-local", "gpu")),
+}
+ALL_KINDS = sorted(SCENARIOS) + ["capacity", "capacity_lanes"] + sorted(APPLY_SCENARIOS)
 
 
 def golden_path(kind: str) -> str:
@@ -128,13 +148,105 @@ def run_port(gen: str, n_nodes: int, n_pods: int, serial: bool, device: str = "c
     return summarize(sim, pods, failed)
 
 
+class _env:
+    """Set MaxCPU (None: unset) for the duration of a block."""
+
+    def __init__(self, max_cpu):
+        self.max_cpu = max_cpu
+
+    def __enter__(self):
+        self.prev = os.environ.pop("MaxCPU", None)
+        if self.max_cpu is not None:
+            os.environ["MaxCPU"] = str(self.max_cpu)
+
+    def __exit__(self, *exc):
+        os.environ.pop("MaxCPU", None)
+        if self.prev is not None:
+            os.environ["MaxCPU"] = self.prev
+
+
+def capacity_search(pkg: str, kind: str, device: str = "cpu") -> dict:
+    """CapacityPlanner.search() of package `pkg` ("open_simulator_tpu" or
+    "open_simulator_torch") on a CAPACITY_SCENARIOS kind, with every probe
+    round of its session recorded."""
+    import importlib
+
+    from open_simulator_torch.utils.synth import capacity_scenario
+
+    A = importlib.import_module(f"{pkg}.apply.applier")
+    PR = importlib.import_module(f"{pkg}.simulator.probe")
+    T = importlib.import_module(f"{pkg}.core.types")
+    base, template, pods, services, max_cpu = capacity_scenario(kind)
+    rounds = []
+    orig = PR.ProbeSession.probe_many
+
+    def probe_many(self, ns):
+        res = orig(self, ns)
+        rounds.append({"candidates": list(ns),
+                       "results": {str(n): [res[n][0], res[n][1], res[n][2]] for n in ns}})
+        return res
+
+    kw = {"device": device} if pkg == "open_simulator_torch" else {}
+    PR.ProbeSession.probe_many = probe_many
+    try:
+        with _env(max_cpu):
+            planner = A.CapacityPlanner(base, template, pods,
+                                        cluster_objects=T.ResourceTypes(services=services), **kw)
+            found, n, hist = planner.search()
+    finally:
+        PR.ProbeSession.probe_many = orig
+    stats = {k: planner.stats[k] for k in ("path", "probes", "dispatches", "encodes")}
+    return {"found": found, "nodes_added": n, "hist": [list(h) for h in hist],
+            "stats": stats, "rounds": rounds}
+
+
+def apply_run(pkg: str, kind: str, device: str = "cpu") -> dict:
+    """Applier.run() of package `pkg` on an APPLY_SCENARIOS config, from the
+    repo root, pod names restarted: nodes added and the normalized report."""
+    import importlib
+    import io
+
+    from open_simulator_torch.parity import normalize_report
+
+    config, max_cpu, ext = APPLY_SCENARIOS[kind]
+    A = importlib.import_module(f"{pkg}.apply.applier")
+    importlib.import_module(f"{pkg}.models.workloads").reset_name_counter()
+    kw = {"device": device} if pkg == "open_simulator_torch" else {}
+    cwd = os.getcwd()
+    os.chdir(REPO)
+    try:
+        with _env(max_cpu):
+            applier = A.Applier(A.Options(simon_config=config, extended_resources=list(ext),
+                                          **kw))
+            applier.out = io.StringIO()
+            result = applier.run()
+    finally:
+        os.chdir(cwd)
+    added = sum(1 for ns in result.node_status
+                if "simon/new-node" in (ns.node["metadata"].get("labels") or {}))
+    return {"nodes_added": added, "unscheduled": len(result.unscheduled_pods),
+            "report": normalize_report(applier.out.getvalue())}
+
+
 def compute(kind: str) -> dict:
-    gen, n_nodes, n_pods, serial = SCENARIOS[kind]
     try:
         commit = subprocess.run(["git", "rev-parse", "HEAD"], cwd=REPO, capture_output=True,
                                 text=True, check=True).stdout.strip()
     except (OSError, subprocess.CalledProcessError):
         commit = "unknown"
+    if kind in ("capacity", "capacity_lanes"):
+        from open_simulator_torch.utils.synth import CAPACITY_SCENARIOS
+
+        gen, max_cpu = CAPACITY_SCENARIOS[kind]
+        return {"generator": gen, "max_cpu": max_cpu,
+                "route": "open_simulator_tpu CapacityPlanner.search(), one CPU device",
+                "commit": commit, **capacity_search("open_simulator_tpu", kind)}
+    if kind in APPLY_SCENARIOS:
+        config, max_cpu, ext = APPLY_SCENARIOS[kind]
+        return {"config": config, "max_cpu": max_cpu, "extended_resources": list(ext),
+                "route": "open_simulator_tpu Applier.run(), one CPU device", "commit": commit,
+                **apply_run("open_simulator_tpu", kind)}
+    gen, n_nodes, n_pods, serial = SCENARIOS[kind]
     return {
         "generator": generator(gen, n_nodes, n_pods),
         "route": ROUTES[serial],
@@ -172,6 +284,40 @@ def test_golden_files_are_consistent(kind):
     assert sum(g["reason_census"].values()) == g["unscheduled"]
 
 
+PLANNER_KINDS = ["capacity", "capacity_lanes", *sorted(APPLY_SCENARIOS)]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("kind", PLANNER_KINDS)
+def test_planner_goldens_match_jax(kind):
+    got = json.loads(json.dumps(compute(kind)))
+    want = load(kind)
+    assert {k: v for k, v in got.items() if k != "commit"} == {
+        k: v for k, v in want.items() if k != "commit"}
+
+
+@pytest.mark.parametrize("kind", PLANNER_KINDS)
+def test_planner_golden_files_are_consistent(kind):
+    g = load(kind)
+    if kind in APPLY_SCENARIOS:
+        assert g["config"] == APPLY_SCENARIOS[kind][0]
+        assert g["report"].startswith("Simulation success!")
+        if g["nodes_added"]:
+            assert f"(added {g['nodes_added']} node(s)" in g["report"]
+        return
+    from open_simulator_torch.utils.synth import CAPACITY_SCENARIOS
+
+    assert (g["generator"], g["max_cpu"]) == CAPACITY_SCENARIOS[kind]
+    assert g["found"] and g["stats"]["path"] == "incremental" and g["stats"]["encodes"] == 1
+    assert g["stats"]["dispatches"] == len(g["rounds"])
+    assert g["stats"]["probes"] == sum(len(set(r["candidates"])) for r in g["rounds"])
+    verdicts = {int(n): v for r in g["rounds"] for n, v in r["results"].items()}
+    n = g["nodes_added"]
+    assert verdicts[n][0] == verdicts[n][1]  # everything schedules at the answer
+    assert [list(h) for h in g["hist"]] == [[m, verdicts[m][1] - verdicts[m][0]]
+                                           for m, _ in g["hist"]]
+
+
 def test_small_scenario_both_packages():
     # 4 nodes x 256 pod slots cannot hold 1,200 pods: the reasons path runs;
     # both packages on the serial route
@@ -206,10 +352,11 @@ def test_small_extended_scenario_both_packages_serial_route():
 if __name__ == "__main__":
     if "--write" not in sys.argv[1:]:
         sys.exit("usage: JAX_PLATFORMS=cpu python tests/test_torch_golden.py --write [kind ...]")
-    kinds = [k for k in sys.argv[1:] if k in SCENARIOS] or sorted(SCENARIOS)
+    kinds = [k for k in sys.argv[1:] if k in ALL_KINDS] or sorted(SCENARIOS)
     for kind in kinds:
         g = compute(kind)
         with open(golden_path(kind), "w") as f:
             json.dump(g, f, indent=1)
             f.write("\n")
-        print(kind, g["choices_sha256"], g["placed"], g["unscheduled"])
+        print(kind, *(g[k] for k in ("choices_sha256", "placed", "nodes_added", "unscheduled")
+                      if k in g))
