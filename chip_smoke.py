@@ -30,7 +30,22 @@ goldens the JAX package computed (tests/golden/torch_port_*.json):
   then `Applier.run()` on the three example configs against the JAX
   reports. Before them, each lane kernel is held against its plain fan-out
   and against its single-lane kernel lane by lane, and K6 against its plain
-  version.
+  version;
+- scenario sweeps through the port's CLI entry point (`sweep ... --parity
+  full --device cuda`): the three examples/sweeps specs byte for byte
+  against the JAX reports (tests/golden/torch_port_sweep_*.json), and
+  bench.py's 256-scenario sweep (2,564,314 pods on 960 + 64 nodes, fanout
+  32) against the JAX report but for its parity block; then the resident
+  image at full width: bench.py's serve shape (10,000 nodes, 5,000 bound
+  pods, a 20,000-event watch stream ingested through `apply_events`) and 64
+  what-if sessions in one `dispatch_sessions` call, every response against
+  `fresh_probe` on the card. Before them, the four serve and sweep fan-outs
+  (K2, K3 and K3c over lanes with per-lane pod streams, valid rows and wave
+  groups) are held against their plain versions at S = 8 on the sweep's
+  1,024-node image, lane by lane against the single-lane kernels, and in a
+  call of five lanes padded to eight. The line after the build says which
+  path computes the scheduling signature (the native raw-subtree hash or
+  the computed tuple).
 
 Every phase prints one JSON line; any mismatch or error exits non-zero. The
 line before the card line lists every kernel with its launches on the main
@@ -698,6 +713,455 @@ def apply_config(kind: str, card: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------- the serve and sweep lanes
+
+BENCH_SPEC = "tests/golden/torch_port_sweep_bench.spec.json"
+SWEEP_EXAMPLES = ("zone-outage", "monte-carlo-mix", "preemption-storm")
+# the kernels line's source and TPU kernel of each serve and sweep fan-out
+LANE_ROWS = {"serve_whatif_fanout": ("schedule.cu", ":2383"),
+             "serve_wave_fanout": ("wave.cu", ":2412"),
+             "sweep_wave_fanout": ("wave.cu", ":2447"),
+             "sweep_whatif_fanout": ("schedule.cu", ":2480")}
+
+
+def bench_image():
+    """The resident image of bench.py's sweep base on the card: 960 zoned
+    nodes plus the 64 nodepool nodes built drained (1,024 columns), as the
+    sweep runner stages it, with the spec's scenarios."""
+    from open_simulator_torch.serve import ResidentImage
+    from open_simulator_torch.sweep import load_spec
+    from open_simulator_torch.sweep.families import build_base, compile_families
+
+    spec = load_spec(os.path.join(REPO, BENCH_SPEC))
+    base, bound = build_base(spec)
+    comp = compile_families(spec, spec.seed, base)
+    img = ResidentImage.try_build(base + comp.pool_nodes, pods=bound, device="cuda")
+    img.apply_events([{"type": "node_drain", "name": n["metadata"]["name"]}
+                      for n in comp.pool_nodes])
+    return img, comp.scenarios
+
+
+def lane_inputs(img, sessions, activates):
+    """([S, N] active rows, [S]-lane carry) of sessions' overlays on the card."""
+    import numpy as np
+    import torch
+
+    from open_simulator_torch.ops import kernels as K
+
+    rows = [img.lane_overlay(ses, act) for ses, act in zip(sessions, activates)]
+    active = torch.from_numpy(np.stack([a for a, _ in rows])).cuda()
+    carry = K.Carry(*(torch.from_numpy(np.stack([seeds[k] for _, seeds in rows])).cuda()
+                      for k in range(len(K.Carry._fields))))
+    return active, carry
+
+
+def padded(t, S_real: int):
+    """Lanes S_real.. repeat lane 0, as the image pads a dispatch to a power of two."""
+    t = t.clone()
+    t[S_real:] = t[0]
+    return t
+
+
+def serve_sweep_lane_cases(card: str) -> dict:
+    """The four serve and sweep fan-outs against their plain versions on the
+    card, at S = 8 on bench.py's sweep image (1,024 nodes), the lanes being
+    the overlays of eight scenarios of every family (zone outages, drains,
+    storms, rollouts, pool activations): every output and every carry field
+    of every lane, then lane by lane against the single-lane kernel on the
+    lane's masked tables; then one call of five lanes padded to eight.
+    Returns the kernels-line rows."""
+    import numpy as np
+    import torch
+
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.simulator.encode import bucket_capped
+    from open_simulator_torch.sweep.families import build_pod
+    from open_simulator_torch.sweep.spec import PodTemplate
+
+    img, scenarios = bench_image()
+    # a hostname self-anti-affinity group: a cap1 wave
+    anti = [build_pod(f"anti-{i}", PodTemplate(name="anti", replicas=0, cpu="1",
+                                               memory="1Gi", anti_affinity_on="anti"))
+            for i in range(2)]
+    g_anti = img.session(anti).batch[0][0]
+    picks = [0, 3, 20, 60, 200, 219, 227, 240]  # baseline, outages, drains, storm, pool, mc
+    lanes = [scenarios[i] for i in picks]
+    sessions = [img.session(sc.pods, drains=sc.drains) for sc in lanes]
+    img.ensure_staged()  # the tables of every group the sessions interned
+    sim, tb = img._sim, img._tables
+    route = sim._wave_eligibility(g_anti)
+    if route.kind != "wave" or not route.cap1:
+        fail(f"the anti-affinity group routes {route}, not a cap1 wave")
+    active, cry_s = lane_inputs(img, sessions, [sc.activates for sc in lanes])
+    seed = K.Carry(*(t[0] for t in cry_s))
+    S, N, n_real = 8, int(tb.alloc.shape[0]), sim.na.N
+    apps = sorted({g for g, _ in sessions[0].batch})
+    rng = np.random.default_rng(6)
+    w, filters, nz = sim.score_w, sim.filter_flags, img._bt.n_zones
+    emit("lane_image", nodes=N, real_nodes=n_real, lanes=[sc.label for sc in lanes],
+         groups=len(sim.encoder.group_list), card=card)
+    masked = [K._mask_active(tb, active[s]) for s in range(S)]
+    rows = {}
+
+    def compare(name, kernel, plain, reps):
+        """Kernel and plain calls of one fan-out: equal outputs and carries,
+        the base carry untouched; (kernel ms, plain ms, kernel outputs)."""
+        before = [t.clone() for t in cry_s]
+        (kc, ko), _ = timed(kernel)
+        (pc, po), plain_ms = timed(plain)
+        if not torch.equal(ko, po):
+            fail(f"{name}: outputs differ from the plain version at {int((ko != po).sum())} places")
+        for f in K.Carry._fields:
+            if not torch.equal(getattr(kc, f), getattr(pc, f)):
+                fail(f"{name}: carry.{f} differs from the plain version")
+        if any(not torch.equal(a, b) for a, b in zip(before, cry_s)):
+            fail(f"{name}: the input carry was written")
+        return cuda_ms(kernel, reps), plain_ms, kc, ko
+
+    def row(name, ms, plain_ms, b, ops, **extra):
+        bound, by = bound_of(b, ops)
+        emit(name, lanes=S, nodes=N, kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound, bytes=b,
+             f32_ops=ops, max_abs_err=0.0, card=card, **extra)
+        src, line = LANE_ROWS[name]
+        rows[name] = dict(source=SRC + src, replaces=JAX_KERNELS + line, max_abs_err=0.0, ms=ms,
+                          plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+
+    # ---- sweep_whatif_fanout: 8 pod streams of ~1,000 pods each (rows of
+    # each lane's own scenario in batch order)
+    lengths = [int(rng.integers(900, 1101)) for _ in range(S)]
+    P = bucket_capped(max(lengths), 2048)
+    pg = np.zeros((S, P), np.int32)
+    fn = np.full((S, P), -1, np.int32)
+    vd = np.zeros((S, P), bool)
+    for s, L in enumerate(lengths):
+        batch = np.asarray(sessions[s].batch, np.int32)
+        rows_ = np.sort(rng.choice(len(batch), size=L, replace=False))
+        pg[s, :L], fn[s, :L], vd[s, :L] = batch[rows_, 0], batch[rows_, 1], True
+    pg, fn, vd = (torch.from_numpy(a).cuda() for a in (pg, fn, vd))
+    args = (pg, fn, vd, nz, False, False, w, filters)
+    ms, plain_ms, kc, ko = compare(
+        "sweep_whatif_fanout", lambda: K.sweep_whatif_fanout(tb, cry_s, active, *args),
+        lambda: K.schedule_batch_lanes_plain(tb, cry_s, active, pg, fn, vd, nz, w, filters), 3)
+    for s in range(S):
+        c1, ch1 = K.schedule_batch_kernel(masked[s], K.carry_lane(cry_s, s), pg[s], fn[s], vd[s],
+                                          nz, w, filters)
+        if not torch.equal(ch1, ko[s]) or not torch.equal(c1.requested, kc.requested[s]):
+            fail(f"sweep_whatif_fanout: lane {s} differs from the single-lane K2")
+    costs = [k2_cost(tb, seed, L, P) for L in lengths]
+    row("sweep_whatif_fanout", ms, plain_ms, costs[0][0] + sum(c[1] + N for c in costs),
+        sum(c[2] for c in costs), pods=lengths, placed=(ko >= 0).sum(dim=1).tolist())
+
+    # ---- serve_whatif_fanout: one union of 8 requests of ~125 pods
+    union, spans = [], []
+    for s in range(S):
+        batch = sessions[s].batch
+        take = np.sort(rng.choice(len(batch), size=int(rng.integers(100, 151)), replace=False))
+        spans.append((len(union), len(take)))
+        union += [batch[i] for i in take]
+    P = bucket_capped(len(union), 2048)
+    upg = np.zeros(P, np.int32)
+    ufn = np.full(P, -1, np.int32)
+    upg[:len(union)], ufn[:len(union)] = np.asarray(union, np.int32).T
+    valid = np.zeros((S, P), bool)
+    for s, (a, n) in enumerate(spans):
+        valid[s, a:a + n] = True
+    upg, ufn, valid = (torch.from_numpy(a).cuda() for a in (upg, ufn, valid))
+    args = (upg, ufn, valid, nz, False, False, w, filters)
+
+    def plain_serve_whatif(cry, act, vd):
+        carry, choices = K.schedule_batch_lanes_plain(tb, cry, act, upg, ufn, vd, nz, w, filters)
+        return carry, (choices >= 0).sum(dim=1, dtype=torch.int32)
+
+    ms, plain_ms, kc, ko = compare(
+        "serve_whatif_fanout", lambda: K.serve_whatif_fanout(tb, cry_s, active, *args),
+        lambda: plain_serve_whatif(cry_s, active, valid), 5)
+    for s in range(S):
+        c1, ch1 = K.schedule_batch_kernel(masked[s], K.carry_lane(cry_s, s), upg, ufn, valid[s],
+                                          nz, w, filters)
+        if int((ch1 >= 0).sum()) != int(ko[s]) or not torch.equal(c1.requested,
+                                                                   kc.requested[s]):
+            fail(f"serve_whatif_fanout: lane {s} differs from the single-lane K2")
+    costs = [k2_cost(tb, seed, n, P) for _, n in spans]
+    row("serve_whatif_fanout", ms, plain_ms, costs[0][0] + sum(c[1] + N for c in costs),
+        sum(c[2] for c in costs), union=len(union), placed=ko.tolist())
+
+    def plain_wave(cry, act, g, m, c, **kw):
+        """The plain lanes of K3 then K3c, segment by segment ([S, K] inputs)."""
+        return K._wave_chain(tb, cry, act, g, m, c, w, filters, kw["block"], kw["kmax"],
+                             K.schedule_wave_lanes_plain, K.aggregate_commit_lanes_plain)
+
+    def plain_serve_wave(cry, act, g, m, c, **kw):
+        carry, _, placed = plain_wave(cry, act, g[:, None], m[:, None], c[:, None], **kw)
+        return carry, placed[:, 0]
+
+    # ---- serve_wave_fanout: 8 different (g, m, cap1), one m = 0, m = 1
+    # beside m = 2,000 (the shared block and kmax of the largest m); the row
+    # times the whole fan-out, K3 and K3c over lanes (2 launches), against
+    # the plain lanes of both and a bound of both
+    gs = [apps[0], apps[1], g_anti, apps[3], apps[4], apps[5], g_anti, apps[7]]
+    g_s = torch.tensor(gs, dtype=torch.int32).cuda()
+    m_s = torch.tensor([2000, 0, 1, 500, 50, 1250, 300, 10], dtype=torch.int32).cuda()
+    c_s = torch.tensor([g == g_anti for g in gs]).cuda()
+    block = K.wave_block_for(2000, n_real)
+    kw = dict(block=block, kmax=K.wave_kmax(2000, n_real, block))
+    ms, plain_ms, kc, ko = compare(
+        "serve_wave_fanout",
+        lambda: K.serve_wave_fanout(tb, cry_s, active, g_s, m_s, c_s, w, filters, **kw),
+        lambda: plain_serve_wave(cry_s, active, g_s, m_s, c_s, **kw), 20)
+    j_s, p_s, st_s = K.schedule_wave_lanes_kernel(tb, cry_s, active, g_s, m_s, c_s, w, filters,
+                                                  **kw)
+    if not torch.equal(p_s, ko):
+        fail("serve_wave_fanout: K3 over lanes differs from the fan-out")
+    for s in range(S):
+        j, p, st = K.schedule_wave_kernel(masked[s], K.carry_lane(cry_s, s), gs[s],
+                                          int(m_s[s]), bool(c_s[s]), w, filters, **kw)
+        if not torch.equal(j, j_s[s]) or int(p) != int(p_s[s]) or not torch.equal(st, st_s[s]):
+            fail(f"serve_wave_fanout: lane {s} differs from the single-lane K3")
+    if int(ko[1]) != 0 or int(ko[2]) != 1:
+        fail(f"serve_wave_fanout: placed {ko.tolist()}: m = 0 or m = 1 lane wrong")
+    # K3 over lanes alone, printed beside the row
+    k3_ms = cuda_ms(lambda: K.schedule_wave_lanes_kernel(tb, cry_s, active, g_s, m_s, c_s, w,
+                                                         filters, **kw), 20)
+    costs = [k3_cost(tb, seed, gs[s], block, int(st_s[s, 0])) for s in range(S)]
+    c_shared, c_lane, c_ops = k3c_cost(tb, seed)
+    row("serve_wave_fanout", ms, plain_ms,
+        sum(c[0] for c in costs) + sum(c[1] + N for c in costs) + c_shared + S * c_lane,
+        sum(c[2] for c in costs) + S * c_ops, launches_per_call=2, k3_ms=k3_ms,
+        placed=ko.tolist(), iterations=st_s[:, 0].tolist())
+
+    # ---- sweep_wave_fanout: K = 4 segments per lane, the last a padding
+    # segment (m = 0); the chain as the fan-out runs it: 2K launches
+    depth = 4
+    g_sk = np.zeros((S, depth), np.int32)
+    m_sk = np.zeros((S, depth), np.int32)
+    c_sk = np.zeros((S, depth), bool)
+    for s in range(S):
+        for k in range(depth - 1):
+            g = apps[(s + 3 * k) % len(apps)] if (s + k) % 5 else g_anti
+            g_sk[s, k], m_sk[s, k], c_sk[s, k] = g, int(rng.integers(100, 1300)), g == g_anti
+    block = K.wave_block_for(int(m_sk.max()), n_real)
+    kw = dict(block=block, kmax=K.wave_kmax(int(m_sk.max()), n_real, block))
+    g_sk, m_sk, c_sk = (torch.from_numpy(a).cuda() for a in (g_sk, m_sk, c_sk))
+    ms, plain_ms, kc, ko = compare(
+        "sweep_wave_fanout",
+        lambda: K.sweep_wave_fanout(tb, cry_s, active, g_sk, m_sk, c_sk, w, filters, **kw),
+        lambda: plain_wave(cry_s, active, g_sk, m_sk, c_sk, **kw)[:2], 5)
+    for s in range(S):
+        lane = K.carry_lane(cry_s, s)
+        for k in range(depth):
+            j, _, _ = K.schedule_wave_kernel(masked[s], lane, int(g_sk[s, k]), int(m_sk[s, k]),
+                                             bool(c_sk[s, k]), w, filters, **kw)
+            if not torch.equal(j, ko[s, k]):
+                fail(f"sweep_wave_fanout: lane {s} segment {k} differs from the single-lane K3")
+            lane = K.aggregate_commit_kernel(masked[s], lane, int(g_sk[s, k]), j)
+        if not torch.equal(lane.counter, kc.counter[s]) or not torch.equal(lane.requested,
+                                                                           kc.requested[s]):
+            fail(f"sweep_wave_fanout: lane {s}'s end carry differs from the single-lane chain")
+    if int(ko[:, depth - 1].sum()) != 0:
+        fail("sweep_wave_fanout: a padding segment placed pods")
+    # one chain's work: per segment, K3 over lanes (its iterations as the
+    # kernel counts them in one call) and K3c over lanes
+    K.schedule_wave.stats = None
+    K.sweep_wave_fanout(tb, cry_s, active, g_sk, m_sk, c_sk, w, filters, **kw)
+    iters = K.wave_stats()["iterations"]
+    shared3 = sum(group_row_bytes(tb, seed, g)[0] for g in set(g_sk.flatten().tolist()))
+    lane3 = sum(group_row_bytes(tb, seed, g)[1] + 5 * N for g in g_sk.flatten().tolist())
+    c_shared, c_lane, c_ops = k3c_cost(tb, seed)
+    b = shared3 + lane3 + depth * (c_shared + S * c_lane)
+    ops = iters * N * ((block + 1) * K3_OPS_PER_ENTRY + K3_OPS_PER_NODE) + depth * S * c_ops
+    row("sweep_wave_fanout", ms, plain_ms, b, ops, segments=depth, launches_per_call=2 * depth,
+        placed=ko.sum(dim=2).tolist(), iterations=iters)
+
+    # ---- one call of five lanes padded to eight (lanes 5-7 repeat lane 0)
+    act5, cry5 = padded(active, 5), K.Carry(*(padded(t, 5) for t in cry_s))
+    g5, m5, c5 = padded(g_s, 5), padded(m_s, 5), padded(c_s, 5)
+    block = K.wave_block_for(2000, n_real)
+    kw = dict(block=block, kmax=K.wave_kmax(2000, n_real, block))
+    v5 = padded(valid, 5)
+    for name, kernel, plain in (
+            ("serve_wave_fanout",
+             lambda: K.serve_wave_fanout(tb, cry5, act5, g5, m5, c5, w, filters, **kw),
+             lambda: plain_serve_wave(cry5, act5, g5, m5, c5, **kw)),
+            ("serve_whatif_fanout",
+             lambda: K.serve_whatif_fanout(tb, cry5, act5, upg, ufn, v5, nz, False, False, w,
+                                           filters),
+             lambda: plain_serve_whatif(cry5, act5, v5))):
+        kc, ko = kernel()
+        pc, po = plain()
+        if not torch.equal(ko, po) or any(not torch.equal(a, b) for a, b in zip(kc, pc)):
+            fail(f"{name}: the padded five-lane call differs from its plain version")
+        if not torch.equal(ko[5:], ko[:1].expand(3)):
+            fail(f"{name}: a padding lane differs from lane 0")
+    emit("lanes_padded", lanes=5, padded_to=8, fanouts=["serve_wave_fanout",
+                                                        "serve_whatif_fanout"], card=card)
+    return rows
+
+
+def run_cli_sweep(name: str, card: str, extra=()) -> dict:
+    """`python -m open_simulator_torch.cli sweep SPEC --parity full --device
+    cuda` in this process (so the launch counts are read), its report held
+    against the JAX golden: byte for byte for the example specs; for the
+    bench spec every byte but the parity block (the golden ran with parity
+    off). Returns the launch counts of the run."""
+    import contextlib
+    import io
+    import re
+
+    import torch
+
+    from open_simulator_torch.cli.main import main as cli
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.sweep import report_json
+
+    spec = BENCH_SPEC if name == "bench" else f"examples/sweeps/{name}.yaml"
+    out = os.path.join(REPO, "build", "chip_smoke", f"sweep_{name}.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    K.reset_launch_counts()
+    err = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err), contextlib.redirect_stdout(io.StringIO()):
+        rc = cli(["sweep", os.path.join(REPO, spec), "--out", out, "--parity", "full",
+                  "--device", "cuda", *extra])
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    if rc != 0:
+        fail(f"sweep {name}: exit {rc}: {err.getvalue()[-2000:]}")
+    with open(out, "rb") as f:
+        got = f.read()
+    with open(os.path.join(REPO, "tests", "golden", f"torch_port_sweep_{name}.json"), "rb") as f:
+        want = f.read()
+    report = json.loads(got)
+    if name == "bench":
+        golden = json.loads(want)
+        if report["parity"] != {"mode": "full", "checked": 256, "mismatches": 0}:
+            fail(f"sweep bench: parity {report['parity']}")
+        report.pop("parity")
+        golden.pop("parity")
+        if report_json(report) != report_json(golden):
+            fail("sweep bench: the report differs from the JAX golden")
+    elif got != want:
+        fail(f"sweep {name}: the report differs from the JAX golden")
+    m = re.search(r"batched ([0-9.]+)s, parity ([0-9.]+)s", err.getvalue())
+    n = len(report["scenarios"])
+    emit("sweep", spec=name, scenarios=n, pods=sum(r["pods"] for r in report["scenarios"]),
+         lanes=report["lanes"], dispatches=report["dispatches"], seconds=wall,
+         batched_s=float(m.group(1)), parity_s=float(m.group(2)),
+         scenarios_per_s=n / float(m.group(1)), launches={k: v for k, v in counts.items() if v},
+         golden="match", card=card)
+    return counts
+
+
+def watch_batches(lines):
+    """The resident image's events from kube-watch JSONL lines, one batch
+    per BOOKMARK: node ADDED -> node_add, node MODIFIED unschedulable ->
+    node_drain, pod ADDED / DELETED -> pod_add / pod_delete."""
+    batch = []
+    for line in lines:
+        ev = json.loads(line)
+        typ, obj = ev["type"], ev["object"]
+        md = obj.get("metadata") or {}
+        if typ == "BOOKMARK":
+            yield batch
+            batch = []
+        elif obj.get("kind") == "Node":
+            if typ == "ADDED":
+                batch.append({"type": "node_add", "node": obj})
+            elif (obj.get("spec") or {}).get("unschedulable"):
+                batch.append({"type": "node_drain", "name": md["name"]})
+        elif typ == "DELETED":
+            batch.append({"type": "pod_delete", "namespace": md.get("namespace", "default"),
+                          "name": md["name"]})
+        elif typ == "ADDED":
+            batch.append({"type": "pod_add", "pod": obj})
+    if batch:
+        yield batch
+
+
+def serve_full_width(card: str, n_nodes: int = 10_000, n_events: int = 20_000) -> dict:
+    """bench.py's serve shape on the card: a 10,000-node image with 5,000
+    bound pods, the 20,000-event watch stream ingested through apply_events,
+    then 64 sessions in one dispatch_sessions call (48 uniform-replica
+    requests of 50 to 2,000 pods, some with drains: the wave lane; 16 mixed
+    requests of ~200 pods: the serial lane over their union), each response
+    held against fresh_probe of the same request on the card. Returns the
+    launch counts of the ingest and the dispatch."""
+    import torch
+
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.serve import ResidentImage
+    from open_simulator_torch.utils.synth import synth_pod, synth_watch_stream
+
+    nodes, bound, lines = synth_watch_stream(n_nodes, n_events, seed=11, bookmark_every=64,
+                                             n_bound=n_nodes // 2)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    img = ResidentImage.try_build(nodes, pods=bound, device="cuda")
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    applied = batches = 0
+    for batch in watch_batches(lines):
+        applied += img.apply_events(batch)["applied"]
+        batches += 1
+    ingest_s = time.perf_counter() - t0
+    live = [name for name, i in img._sim.na.index.items() if img.active[i]]
+    requests = []
+    for j in range(48):
+        m = 50 + (1950 * j) // 47
+        pods = [synth_pod(0, cpu_milli=100 + 25 * (j % 16), labels={"app": f"req-{j}"})
+                for _ in range(m)]
+        for i, p in enumerate(pods):
+            p["metadata"]["name"] = f"req-{j}-{i:05d}"
+        drains = tuple(live[(j * 997 + 13 * k) % len(live)] for k in range(3)) if j % 4 == 0 \
+            else ()
+        requests.append((pods, drains))
+    for j in range(16):
+        pods = []
+        t = 0
+        while len(pods) < 200:
+            t = (t + 1 + j) % 4
+            for _ in range(1 + (len(pods) + j) % 3):
+                pods.append(synth_pod(len(pods), cpu_milli=150 + 40 * t,
+                                      labels={"app": f"mix-{j}-{t}"}))
+        for i, p in enumerate(pods):
+            p["metadata"]["name"] = f"mix-{j}-{i:05d}"
+        requests.append((pods, ()))
+    sessions = [img.session(pods, drains=d) for pods, d in requests]
+    route_s = {}
+    for attr in ("_dispatch_wave", "_dispatch_serial"):
+        def timed_route(*a, fn=getattr(img, attr), attr=attr):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            route_s[attr[len("_dispatch_"):]] = time.perf_counter() - t1
+            return out
+        setattr(img, attr, timed_route)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    responses = img.dispatch_sessions(sessions)
+    torch.cuda.synchronize()
+    dispatch_s = time.perf_counter() - t0
+    counts = K.launch_counts()
+    # one wave dispatch (K3 and K3c over lanes) and one serial dispatch (K2)
+    if counts["serve_wave_fanout"] != 2 or counts["serve_whatif_fanout"] != 1:
+        fail(f"serve: launches {counts}")
+    t0 = time.perf_counter()
+    for (pods, drains), resp in zip(requests, responses):
+        want = img.fresh_probe(pods, drains=drains)
+        for k in ("scheduled", "total", "unscheduled", "utilization"):
+            if resp[k] != want[k]:
+                fail(f"serve: {k} {resp[k]} != fresh_probe {want[k]}")
+    oracle_s = time.perf_counter() - t0
+    emit("serve", nodes=img._sim.na.N, live_nodes=img.n_nodes, bound=len(bound),
+         events=applied, batches=batches, epoch=img.epoch, sessions=len(sessions),
+         requested_pods=sum(len(p) for p, _ in requests),
+         scheduled=sum(r["scheduled"] for r in responses), build_s=build_s, ingest_s=ingest_s,
+         dispatch_s=dispatch_s, route_s=route_s, oracle_s=oracle_s,
+         launches={k: v for k, v in counts.items() if v}, fresh_probe="match", card=card)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -715,9 +1179,9 @@ def main() -> int:
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     card = smi()
-    emit("device", name=name, count=torch.cuda.device_count(), smi=card,
+    emit("device", name=device_name, count=torch.cuda.device_count(), smi=card,
          torch=torch.__version__, cuda=torch.version.cuda)
 
     # ---- build: one nvcc per source, started together, then the link
@@ -727,6 +1191,10 @@ def main() -> int:
     emit("build", seconds=round(time.perf_counter() - t0, 3), nvcc_seconds=build.build_seconds,
          library=os.path.relpath(lib_path, REPO),
          ptxas=[ln for ln in build.ptxas_log.splitlines() if "registers" in ln or "spill" in ln])
+    # the scheduling signature's path: the native raw-subtree hash (built with
+    # the host's C++ compiler) or, where it cannot be, the computed tuple
+    from open_simulator_torch import native
+    emit("signature", path=native.backend())
     rows = {}  # kernel name -> kernels-line fields measured below
 
     # ---- the 5,000-node / 2,500-pod batch, on the card
@@ -1030,6 +1498,9 @@ def main() -> int:
             rows["aggregate_commit_lanes"] = commit_row
     del ses, active
     rows["extend_tables"] = extend_case(card)
+    # ---- the serve and sweep fan-outs: K2, K3 and K3c over lanes with
+    # per-lane inputs, on bench.py's sweep image
+    rows.update(serve_sweep_lane_cases(card))
 
     # ---- the main path: Simulator.schedule_pods against the JAX goldens,
     # each run with every launch count set to 0 just before it
@@ -1094,6 +1565,12 @@ def main() -> int:
             fail("capacity: the tables did not grow on the device")
     for kind in ("apply_smoke", "apply_gpushare", "apply_demo1"):
         launches.update(apply_config(kind, card))
+    # scenario sweeps through the CLI entry point (parity full on the card)
+    # against the JAX reports, then the resident image at full width
+    for spec in SWEEP_EXAMPLES:
+        launches.update(run_cli_sweep(spec, card))
+    launches.update(run_cli_sweep("bench", card, ("--fanout", "32")))
+    launches.update(serve_full_width(card))
     for k in rows:
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched on the main path")
@@ -1106,7 +1583,7 @@ def main() -> int:
         for k, r in rows.items()]}), flush=True)
     emit("done", seconds=round(time.perf_counter() - t_start, 1), walls=walls)
     print(card, flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

@@ -1,14 +1,18 @@
-"""The port's `simon`-style CLI: `apply` on the PyTorch/CUDA Simulator.
+"""The port's `simon`-style CLI: `apply` and `sweep` on the PyTorch/CUDA Simulator.
 
     python -m open_simulator_torch.cli apply -f CONFIG [--output-file F]
         [--use-greed] [-i] [--extended-resources open-local,gpu]
         [--device cpu|cuda]
+    python -m open_simulator_torch.cli sweep SPEC [--seed K] [--out FILE.json]
+        [--json] [--parity full|sample|off] [--parity-sample N] [--fanout S]
+        [--device cpu|cuda]
 
-The flags are those of the reference's `simon apply` (cmd/apply/apply.go)
-that the port runs; `--device` picks the Simulator's device (the card by
-default). `--default-scheduler-config` is parsed and refused with the
-ROADMAP item it waits for. The other subcommands of the JAX package's CLI
-(server, sweep, lint, audit, ...) are not ported.
+`apply` takes the flags of the reference's `simon apply` (cmd/apply/apply.go)
+that the port runs; `--default-scheduler-config` is parsed and refused with
+the ROADMAP item it waits for. `sweep` takes the JAX package's `simon sweep`
+flags. `--device` picks the device (the card by default). The other
+subcommands of the JAX package's CLI (server, lint, audit, ...) are not
+ported.
 """
 
 from __future__ import annotations
@@ -56,7 +60,76 @@ def build_parser() -> argparse.ArgumentParser:
     p_apply.add_argument("--device", default=None, choices=("cuda", "cpu"),
                          help="device of the simulation (default: cuda; cpu runs the plain "
                               "PyTorch versions of the kernels)")
+
+    p_sweep = sub.add_parser(
+        "sweep", help="Run a batched scenario sweep: N independent what-if futures "
+                      "(drains, zone outages, preemption storms, rollout waves, nodepool "
+                      "mixes, Monte-Carlo workload draws) evaluated as lanes of a few "
+                      "fan-out dispatches, every lane parity-checked against a fresh "
+                      "serial run")
+    p_sweep.add_argument("spec", help="sweep spec file (YAML/JSON, kind: SweepSpec; see "
+                                      "examples/sweeps/)")
+    p_sweep.add_argument("--seed", type=int, default=None, metavar="K",
+                         help="override the spec's seed: every random draw derives from it, "
+                              "so the same seed gives byte-identical report JSON")
+    p_sweep.add_argument("--out", default="", metavar="FILE.json",
+                         help="write the full report as deterministic JSON")
+    p_sweep.add_argument("--json", action="store_true",
+                         help="print the report JSON on stdout instead of the summary table")
+    p_sweep.add_argument("--parity", choices=("full", "sample", "off"), default="full",
+                         help="batched==serial placement-census check: re-run every batched "
+                              "lane ('full', default), a seeded sample, or skip ('off'); any "
+                              "mismatch exits nonzero")
+    p_sweep.add_argument("--parity-sample", type=int, default=8, metavar="N",
+                         help="lanes re-run serially under --parity sample (default 8)")
+    p_sweep.add_argument("--fanout", type=int, default=64, metavar="S",
+                         help="max scenario lanes per batched dispatch (default 64)")
+    p_sweep.add_argument("--device", default=None, choices=("cuda", "cpu"),
+                         help="device of the sweep (default: cuda; cpu runs the plain PyTorch "
+                              "versions of the kernels)")
     return parser
+
+
+def cmd_sweep(args) -> int:
+    """`sweep`: batched scenario sweeps over one resident cluster image, with
+    the batched==serial parity check on by default. The wall time goes to
+    stderr only: the report bytes derive from (spec, seed, results)."""
+    import time
+
+    from ..sweep import (SweepParityError, SweepRunner, SweepSpecError, build_report,
+                         load_spec, render_report, report_json)
+
+    try:
+        spec = load_spec(args.spec)
+    except SweepSpecError as e:
+        print(f"sweep error: {e}", file=sys.stderr)
+        return 1
+    runner = SweepRunner(spec, seed=args.seed, parity=args.parity,
+                         parity_sample=args.parity_sample, fanout=args.fanout,
+                         device=args.device)
+    t0 = time.perf_counter()
+    try:
+        runner.run()
+    except SweepParityError as e:
+        print(f"sweep PARITY FAILURE: {e}", file=sys.stderr)
+        return 1
+    except SweepSpecError as e:
+        print(f"sweep error: {e}", file=sys.stderr)
+        return 1
+    wall = time.perf_counter() - t0
+    report = build_report(runner)
+    if args.out:
+        with open(args.out, "w", encoding="utf-8") as fh:
+            fh.write(report_json(report))
+    if args.json:
+        sys.stdout.write(report_json(report))
+    else:
+        print(render_report(report))
+    print(f"sweep: {len(report['scenarios'])} scenarios in {wall:.2f}s "
+          f"({len(report['scenarios']) / wall:.1f} scenarios/s; batched "
+          f"{runner.seconds['batched']:.3f}s, parity {runner.seconds['parity']:.3f}s)"
+          + (f" -> {args.out}" if args.out else ""), file=sys.stderr)
+    return 0
 
 
 def cmd_apply(args) -> int:
@@ -88,4 +161,4 @@ def main(argv: Optional[List[str]] = None) -> int:
     if not args.command:
         parser.print_help()
         return 0
-    return {"apply": cmd_apply}[args.command](args)
+    return {"apply": cmd_apply, "sweep": cmd_sweep}[args.command](args)

@@ -1,0 +1,416 @@
+// Canonical 128-bit hashing of JSON-ish Python object trees.
+//
+// The host-side encoder keys pod "scheduling groups" by a canonical form of the
+// scheduling-relevant pod subtree (simulator/encode.py scheduling_signature). The
+// pure-Python tuple-freeze walk is the hottest host path when ingesting large
+// clusters of heterogeneous raw pods; this extension performs the same walk in
+// C++ against the CPython API and returns a 128-bit digest as a Python int.
+//
+// Canonicalization rules (must match encode._freeze semantics):
+// - dict: entries hashed in ascending key order (keys must be strings)
+// - list/tuple: order-preserving
+// - str/bytes: UTF-8 bytes
+// - bool, int, float, None: tagged scalar values; bool is distinct from int,
+//   and int vs float follow Python equality (1 == 1.0 → same hash, like a dict
+// key's behavior in the frozen-tuple form? No: tuples distinguish by hash AND
+// eq; (1,) == (1.0,) in Python, so the frozen forms collide there too — we hash
+// numeric values by their float64 bits when exactly representable, else by
+// decimal string, reproducing tuple equality).
+//
+// Digest: two independent 64-bit FNV-1a streams with different offset bases;
+// collision probability is negligible (~2^-128) for group identity.
+
+#define PY_SSIZE_T_CLEAN
+#include <Python.h>
+
+#include <algorithm>
+#include <cstdint>
+#include <cstdio>
+#include <cstring>
+#include <string>
+#include <vector>
+
+namespace {
+
+struct H128 {
+    uint64_t a = 1469598103934665603ULL;   // FNV-1a offset basis
+    uint64_t b = 14695981039346656037ULL;  // alternate stream
+    inline void feed(const void* data, size_t n) {
+        const unsigned char* p = static_cast<const unsigned char*>(data);
+        for (size_t i = 0; i < n; i++) {
+            a = (a ^ p[i]) * 1099511628211ULL;
+            b = (b ^ p[i]) * 1099511628211ULL;
+            b ^= b >> 29;  // extra mixing keeps the streams independent
+        }
+    }
+    inline void tag(char t) { feed(&t, 1); }
+};
+
+int hash_obj(PyObject* o, H128& h);  // fwd
+
+int hash_scalar_number(PyObject* o, H128& h) {
+    // Python tuple equality treats 1 == 1.0 == True; we key booleans separately
+    // ONLY when they appear as dict values/list items where _freeze kept the bool
+    // object — but (True,) == (1,) in Python too, so bools hash as numbers.
+    double d = PyFloat_AsDouble(o);
+    if (d == -1.0 && PyErr_Occurred()) {
+        PyErr_Clear();
+        // huge int: fall back to decimal string
+        PyObject* s = PyObject_Str(o);
+        if (!s) return -1;
+        Py_ssize_t n;
+        const char* buf = PyUnicode_AsUTF8AndSize(s, &n);
+        if (!buf) { Py_DECREF(s); return -1; }
+        h.tag('I');
+        h.feed(buf, static_cast<size_t>(n));
+        Py_DECREF(s);
+        return 0;
+    }
+    // exact float64 path; ints representable as float64 hash identically to the
+    // equal float, matching tuple equality
+    if (PyLong_Check(o)) {
+        // verify exactness: round-trip compare
+        PyObject* back = PyLong_FromDouble(d);
+        if (!back) { PyErr_Clear(); h.tag('I'); return hash_scalar_number(o, h); }
+        int eq = PyObject_RichCompareBool(o, back, Py_EQ);
+        Py_DECREF(back);
+        if (eq < 0) return -1;
+        if (!eq) {
+            PyObject* s = PyObject_Str(o);
+            if (!s) return -1;
+            Py_ssize_t n;
+            const char* buf = PyUnicode_AsUTF8AndSize(s, &n);
+            if (!buf) { Py_DECREF(s); return -1; }
+            h.tag('I');
+            h.feed(buf, static_cast<size_t>(n));
+            Py_DECREF(s);
+            return 0;
+        }
+    }
+    h.tag('N');
+    h.feed(&d, sizeof(d));
+    return 0;
+}
+
+int hash_obj(PyObject* o, H128& h) {
+    if (o == Py_None) {
+        h.tag('0');
+        return 0;
+    }
+    if (PyUnicode_Check(o)) {
+        Py_ssize_t n;
+        const char* buf = PyUnicode_AsUTF8AndSize(o, &n);
+        if (!buf) return -1;
+        h.tag('S');
+        h.feed(buf, static_cast<size_t>(n));
+        return 0;
+    }
+    if (PyBool_Check(o) || PyLong_Check(o) || PyFloat_Check(o)) {
+        return hash_scalar_number(o, h);
+    }
+    if (PyBytes_Check(o)) {
+        char* buf;
+        Py_ssize_t n;
+        if (PyBytes_AsStringAndSize(o, &buf, &n) < 0) return -1;
+        h.tag('S');  // bytes canonicalize like their utf-8 string
+        h.feed(buf, static_cast<size_t>(n));
+        return 0;
+    }
+    if (PyList_Check(o) || PyTuple_Check(o)) {
+        h.tag('L');
+        PyObject* seq = PySequence_Fast(o, "sequence");
+        if (!seq) return -1;
+        Py_ssize_t n = PySequence_Fast_GET_SIZE(seq);
+        for (Py_ssize_t i = 0; i < n; i++) {
+            if (hash_obj(PySequence_Fast_GET_ITEM(seq, i), h) < 0) {
+                Py_DECREF(seq);
+                return -1;
+            }
+            h.tag(',');
+        }
+        Py_DECREF(seq);
+        return 0;
+    }
+    if (PyDict_Check(o)) {
+        h.tag('D');
+        PyObject* keys = PyDict_Keys(o);
+        if (!keys) return -1;
+        if (PyList_Sort(keys) < 0) {
+            Py_DECREF(keys);
+            return -1;
+        }
+        Py_ssize_t n = PyList_GET_SIZE(keys);
+        for (Py_ssize_t i = 0; i < n; i++) {
+            PyObject* k = PyList_GET_ITEM(keys, i);
+            PyObject* v = PyDict_GetItemWithError(o, k);
+            if (!v) {
+                Py_DECREF(keys);
+                return -1;
+            }
+            if (hash_obj(k, h) < 0 || (h.tag(':'), hash_obj(v, h)) < 0) {
+                Py_DECREF(keys);
+                return -1;
+            }
+            h.tag(';');
+        }
+        Py_DECREF(keys);
+        return 0;
+    }
+    PyErr_Format(PyExc_TypeError, "canon_hash: unsupported type %s",
+                 Py_TYPE(o)->tp_name);
+    return -1;
+}
+
+PyObject* compose_digest(const H128& h) {
+    // compose a 128-bit Python int: (a << 64) | b
+    PyObject* pa = PyLong_FromUnsignedLongLong(h.a);
+    PyObject* pb = PyLong_FromUnsignedLongLong(h.b);
+    PyObject* sixty_four = PyLong_FromLong(64);
+    PyObject* out = nullptr;
+    if (pa && pb && sixty_four) {
+        PyObject* shift = PyNumber_Lshift(pa, sixty_four);
+        if (shift) {
+            out = PyNumber_Or(shift, pb);
+            Py_DECREF(shift);
+        }
+    }
+    Py_XDECREF(pa);
+    Py_XDECREF(pb);
+    Py_XDECREF(sixty_four);
+    return out;
+}
+
+PyObject* canon_hash(PyObject* /*self*/, PyObject* arg) {
+    H128 h;
+    if (hash_obj(arg, h) < 0) return nullptr;
+    return compose_digest(h);
+}
+
+// ---------------------------------------------------------------------------
+// pod_sig(pod, anno_keys): the scheduling-signature extraction + hash in one
+// call. Hash-identical to canon_hash() over the tuple the Python caller used
+// to build (simulator/encode.py scheduling_signature's native path):
+//
+//   ( namespace_of(pod), labels, nodeSelector, affinity, tolerations,
+//     topologySpreadConstraints, nodeName, hostNetwork, containers,
+//     initContainers, overhead, sorted({ref.kind}), [annotations[k]...] )
+//
+// Building that tuple cost ~15 dict lookups + allocations per pod in Python —
+// the hottest line of the 100k-pod headline bench. Unsupported/exotic values
+// raise TypeError, and the caller falls back to the computed-tuple path.
+
+// borrowed ref to d[k], or nullptr when d is not a dict / key missing
+inline PyObject* dget(PyObject* d, PyObject* key) {
+    if (!d || !PyDict_Check(d)) return nullptr;
+    return PyDict_GetItemWithError(d, key);  // clears no errors; caller checks
+}
+
+// hash one tuple element (missing → None), followed by the ',' separator
+inline int hash_elem(PyObject* v, H128& h) {
+    if (hash_obj(v ? v : Py_None, h) < 0) return -1;
+    h.tag(',');
+    return 0;
+}
+
+struct Interned {
+    PyObject *metadata, *spec, *nmspace, *labels, *annotations, *nodeSelector,
+        *affinity, *tolerations, *topologySpreadConstraints, *nodeName,
+        *hostNetwork, *containers, *initContainers, *overhead, *ownerReferences,
+        *kind;
+    bool ok;
+};
+
+Interned& interned() {
+    static Interned s = [] {
+        Interned i{};
+        i.metadata = PyUnicode_InternFromString("metadata");
+        i.spec = PyUnicode_InternFromString("spec");
+        i.nmspace = PyUnicode_InternFromString("namespace");
+        i.labels = PyUnicode_InternFromString("labels");
+        i.annotations = PyUnicode_InternFromString("annotations");
+        i.nodeSelector = PyUnicode_InternFromString("nodeSelector");
+        i.affinity = PyUnicode_InternFromString("affinity");
+        i.tolerations = PyUnicode_InternFromString("tolerations");
+        i.topologySpreadConstraints =
+            PyUnicode_InternFromString("topologySpreadConstraints");
+        i.nodeName = PyUnicode_InternFromString("nodeName");
+        i.hostNetwork = PyUnicode_InternFromString("hostNetwork");
+        i.containers = PyUnicode_InternFromString("containers");
+        i.initContainers = PyUnicode_InternFromString("initContainers");
+        i.overhead = PyUnicode_InternFromString("overhead");
+        i.ownerReferences = PyUnicode_InternFromString("ownerReferences");
+        i.kind = PyUnicode_InternFromString("kind");
+        i.ok = i.metadata && i.spec && i.nmspace && i.labels && i.annotations &&
+               i.nodeSelector && i.affinity && i.tolerations &&
+               i.topologySpreadConstraints && i.nodeName && i.hostNetwork &&
+               i.containers && i.initContainers && i.overhead &&
+               i.ownerReferences && i.kind;
+        return i;
+    }();
+    return s;
+}
+
+PyObject* pod_sig(PyObject* /*self*/, PyObject* args) {
+    PyObject* pod;
+    PyObject* anno_keys;  // sequence of annotation-key strings
+    if (!PyArg_ParseTuple(args, "OO", &pod, &anno_keys)) return nullptr;
+    Interned& I = interned();
+    if (!I.ok) return PyErr_NoMemory();
+    if (!PyDict_Check(pod)) {
+        PyErr_SetString(PyExc_TypeError, "pod_sig: pod must be a dict");
+        return nullptr;
+    }
+
+    PyObject* md = dget(pod, I.metadata);
+    PyObject* spec = dget(pod, I.spec);
+    if (PyErr_Occurred()) return nullptr;
+    // `or {}` semantics: falsy (None/""/[]) → missing; a truthy non-dict is a
+    // malformed pod the Python extraction would have errored on — raise, so
+    // the caller's computed-tuple fallback surfaces the object loudly
+    if (md && !PyDict_Check(md)) {
+        int t = PyObject_IsTrue(md);
+        if (t < 0) return nullptr;
+        if (t) {
+            PyErr_SetString(PyExc_TypeError, "pod_sig: metadata is not a dict");
+            return nullptr;
+        }
+        md = nullptr;
+    }
+    if (spec && !PyDict_Check(spec)) {
+        int t = PyObject_IsTrue(spec);
+        if (t < 0) return nullptr;
+        if (t) {
+            PyErr_SetString(PyExc_TypeError, "pod_sig: spec is not a dict");
+            return nullptr;
+        }
+        spec = nullptr;
+    }
+
+    H128 h;
+    h.tag('L');  // the outer tuple
+
+    // 1. namespace_of: metadata.namespace if truthy, else "default"
+    PyObject* ns = dget(md, I.nmspace);
+    if (PyErr_Occurred()) return nullptr;
+    int truthy = ns ? PyObject_IsTrue(ns) : 0;
+    if (truthy < 0) return nullptr;
+    if (!truthy) {
+        h.tag('S');
+        h.feed("default", 7);
+        h.tag(',');
+    } else if (hash_elem(ns, h) < 0) {
+        return nullptr;
+    }
+
+    // 2-11. raw subtrees, in the exact tuple order
+    PyObject* fields[10] = {
+        dget(md, I.labels),
+        dget(spec, I.nodeSelector),
+        dget(spec, I.affinity),
+        dget(spec, I.tolerations),
+        dget(spec, I.topologySpreadConstraints),
+        dget(spec, I.nodeName),
+        dget(spec, I.hostNetwork),
+        dget(spec, I.containers),
+        dget(spec, I.initContainers),
+        dget(spec, I.overhead),
+    };
+    if (PyErr_Occurred()) return nullptr;
+    for (PyObject* f : fields) {
+        if (hash_elem(f, h) < 0) return nullptr;
+    }
+
+    // 12. sorted unique owner-reference kinds (UTF-8 byte order == code-point
+    // order, so std::string sorting matches Python's str sorting)
+    PyObject* owners = dget(md, I.ownerReferences);
+    if (PyErr_Occurred()) return nullptr;
+    h.tag('L');
+    if (owners && owners != Py_None) {
+        PyObject* seq = PySequence_Fast(owners, "ownerReferences");
+        if (!seq) return nullptr;
+        Py_ssize_t n = PySequence_Fast_GET_SIZE(seq);
+        std::vector<std::string> kinds;
+        kinds.reserve(static_cast<size_t>(n));
+        for (Py_ssize_t k = 0; k < n; k++) {
+            PyObject* ref = PySequence_Fast_GET_ITEM(seq, k);
+            if (!PyDict_Check(ref)) {
+                Py_DECREF(seq);
+                PyErr_SetString(PyExc_TypeError,
+                                "pod_sig: ownerReferences item is not a dict");
+                return nullptr;
+            }
+            PyObject* kind = dget(ref, I.kind);
+            if (PyErr_Occurred()) { Py_DECREF(seq); return nullptr; }
+            if (kind == nullptr || kind == Py_None) {
+                // r.get("kind", "") — missing defaults to ""; an explicit None
+                // would make Python's sorted() raise TypeError, so do the same
+                if (kind == Py_None) {
+                    Py_DECREF(seq);
+                    PyErr_SetString(PyExc_TypeError,
+                                    "pod_sig: ownerReference kind is None");
+                    return nullptr;
+                }
+                kinds.emplace_back();
+            } else {
+                Py_ssize_t sn;
+                const char* sb = PyUnicode_AsUTF8AndSize(kind, &sn);
+                if (!sb) { Py_DECREF(seq); return nullptr; }
+                kinds.emplace_back(sb, static_cast<size_t>(sn));
+            }
+        }
+        Py_DECREF(seq);
+        std::sort(kinds.begin(), kinds.end());
+        kinds.erase(std::unique(kinds.begin(), kinds.end()), kinds.end());
+        for (const std::string& ks : kinds) {
+            h.tag('S');
+            h.feed(ks.data(), ks.size());
+            h.tag(',');
+        }
+    }
+    h.tag(',');
+
+    // 13. [annotations.get(k) for k in anno_keys]
+    PyObject* anns = dget(md, I.annotations);
+    if (PyErr_Occurred()) return nullptr;
+    if (anns && !PyDict_Check(anns)) {
+        int t = PyObject_IsTrue(anns);
+        if (t < 0) return nullptr;
+        if (t) {
+            PyErr_SetString(PyExc_TypeError, "pod_sig: annotations is not a dict");
+            return nullptr;
+        }
+        anns = nullptr;
+    }
+    PyObject* keys = PySequence_Fast(anno_keys, "anno_keys");
+    if (!keys) return nullptr;
+    Py_ssize_t nk = PySequence_Fast_GET_SIZE(keys);
+    h.tag('L');
+    for (Py_ssize_t k = 0; k < nk; k++) {
+        PyObject* v = dget(anns, PySequence_Fast_GET_ITEM(keys, k));
+        if (PyErr_Occurred()) { Py_DECREF(keys); return nullptr; }
+        if (hash_elem(v, h) < 0) { Py_DECREF(keys); return nullptr; }
+    }
+    Py_DECREF(keys);
+    h.tag(',');
+
+    return compose_digest(h);
+}
+
+PyMethodDef methods[] = {
+    {"canon_hash", canon_hash, METH_O,
+     "128-bit canonical hash of a JSON-ish object tree (dict keys sorted)."},
+    {"pod_sig", pod_sig, METH_VARARGS,
+     "pod_sig(pod, anno_keys): scheduling-signature digest of a pod dict — "
+     "hash-identical to canon_hash over the extracted signature tuple."},
+    {nullptr, nullptr, 0, nullptr},
+};
+
+PyModuleDef moduledef = {
+    PyModuleDef_HEAD_INIT, "_hashobj",
+    "Native canonical hashing for scheduling-group signatures.", -1, methods,
+    nullptr, nullptr, nullptr, nullptr,
+};
+
+}  // namespace
+
+PyMODINIT_FUNC PyInit__hashobj(void) { return PyModule_Create(&moduledef); }

@@ -153,12 +153,14 @@ def _load(path: str) -> ctypes.CDLL:
     lib.schedule_affinity_wave_launch.argtypes = [V] + [ctypes.c_int] * 5 + [P] * 5
     lib.schedule_affinity_wave_launch.restype = ctypes.c_int
     # the lane kernels: the same arguments and the lane count S before the outputs
-    lib.schedule_batch_lanes_launch.argtypes = [V, P, P, P, ctypes.c_int, ctypes.c_int, P, P, P]
+    lib.schedule_batch_lanes_launch.argtypes = [V, P, P, P, ctypes.c_int, ctypes.c_longlong,
+                                                ctypes.c_longlong, ctypes.c_int, P, P, P]
     lib.schedule_batch_lanes_launch.restype = ctypes.c_int
-    lib.schedule_wave_lanes_launch.argtypes = [V] + [ctypes.c_int] * 6 + [P] * 5
+    lib.schedule_wave_lanes_launch.argtypes = ([V] + [ctypes.c_int] * 3 + [P] * 3
+                                               + [ctypes.c_int] * 3 + [P] * 5)
     lib.schedule_wave_lanes_launch.restype = ctypes.c_int
-    lib.aggregate_commit_lanes_launch.argtypes = ([V, ctypes.c_int, P, P, P, P] + [ctypes.c_int] * 3
-                                                  + [P, P])
+    lib.aggregate_commit_lanes_launch.argtypes = ([V, ctypes.c_int, P, P, P, P, P]
+                                                  + [ctypes.c_int] * 3 + [P, P])
     lib.aggregate_commit_lanes_launch.restype = ctypes.c_int
     lib.schedule_group_serial_lanes_launch.argtypes = ([V, ctypes.c_int, P] + [ctypes.c_int] * 5
                                                        + [P] * 5)

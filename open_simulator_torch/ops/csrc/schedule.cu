@@ -29,10 +29,16 @@
 // The single block uses one SM, which is slow but exact; spreading a step over
 // many SMs (cooperative groups or a cluster) is later work.
 //
-// K2 over lanes (schedule_batch_lanes_kernel) replaces `probe_serial_fanout`
-// (:2359/:2361, schedule_batch vmapped over S candidate node-active masks):
-// one block per lane, each on its own SM, so a round of S candidates costs
-// about one single-lane launch; see common.cuh `lane_view`.
+// K2 over lanes (schedule_batch_lanes_kernel) replaces the three fan-outs
+// that vmap schedule_batch over S lanes, each lane with its own node-active
+// mask: `probe_serial_fanout` (:2361, one pod stream for every lane),
+// `serve_whatif_fanout` (:2383, one union pod stream, a `valid` row per
+// lane) and `sweep_whatif_fanout` (:2480, a pod stream per lane). The pod
+// arrays carry a lane stride (0 for a shared array, P for a per-lane one),
+// so one body serves the three. One block per lane, each on its own SM, so a
+// round of S lanes costs about one single-lane launch; see common.cuh
+// `lane_view`. An invalid row is a no-op (choice -1, no commit) that costs
+// the lane one byte load: a lane does not stop after its last valid row.
 //
 // The exactness contract with the plain PyTorch version is in common.cuh.
 // This file also holds the library's C interface helpers.
@@ -309,17 +315,20 @@ schedule_batch_kernel(TablesView t, const int* pod_group, const int* forced_node
   schedule_batch_body<EXT, false>(t, pod_group, forced_node, valid_pod, P, choices, scratch);
 }
 
-// K2 over lanes (JAX probe_serial_fanout :2359): block s scans the batch for
-// lane s into its own carry slice, choices row [s, P] and scratch slice.
+// K2 over lanes: block s scans lane s's pod rows (pod_group and forced_node
+// at lane stride pod_lane, valid at valid_lane: 0 or P) into its own carry
+// slice, choices row [s, P] and scratch slice.
 template <bool EXT>
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
 schedule_batch_lanes_kernel(TablesView t, const int* pod_group, const int* forced_node,
-                            const uint8_t* valid_pod, int P, int* choices, float* scratch,
+                            const uint8_t* valid_pod, int P, long long pod_lane,
+                            long long valid_lane, int* choices, float* scratch,
                             long long scratch_lane) {
   const int s = blockIdx.x;
   LANE_VIEW(lt, t, s)
-  schedule_batch_body<EXT, true>(lt, pod_group, forced_node, valid_pod, P,
-                                 choices + (size_t)s * P, scratch + s * scratch_lane);
+  schedule_batch_body<EXT, true>(lt, pod_group + s * pod_lane, forced_node + s * pod_lane,
+                                 valid_pod + s * valid_lane, P, choices + (size_t)s * P,
+                                 scratch + s * scratch_lane);
 }
 
 // ------------------------------------------------------------ C interface --
@@ -355,18 +364,20 @@ int schedule_batch_launch(const TablesView* t, const int* pod_group, const int* 
   return (int)cudaGetLastError();
 }
 
-// S lanes: the view is lane 0's, `t->active` the [S, N] mask; scratch holds
-// S slices of schedule_scratch_floats(t), choices [S, P]
+// S lanes: the view is lane 0's, `t->active` the [S, N] mask; the pod
+// arrays at lane strides pod_lane / valid_lane (0: shared, P: per lane);
+// scratch holds S slices of schedule_scratch_floats(t), choices [S, P]
 int schedule_batch_lanes_launch(const TablesView* t, const int* pod_group, const int* forced_node,
-                                const uint8_t* valid, int P, int S, int* choices, float* scratch,
+                                const uint8_t* valid, int P, long long pod_lane,
+                                long long valid_lane, int S, int* choices, float* scratch,
                                 cudaStream_t stream) {
   const long long lane = schedule_scratch_floats(t);
   if (t->f_gpu || t->f_storage)
     schedule_batch_lanes_kernel<true><<<S, BLOCK_THREADS, 0, stream>>>(
-        *t, pod_group, forced_node, valid, P, choices, scratch, lane);
+        *t, pod_group, forced_node, valid, P, pod_lane, valid_lane, choices, scratch, lane);
   else
     schedule_batch_lanes_kernel<false><<<S, BLOCK_THREADS, 0, stream>>>(
-        *t, pod_group, forced_node, valid, P, choices, scratch, lane);
+        *t, pod_group, forced_node, valid, P, pod_lane, valid_lane, choices, scratch, lane);
   return (int)cudaGetLastError();
 }
 

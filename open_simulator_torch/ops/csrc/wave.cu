@@ -46,7 +46,18 @@
 //
 // K3 and K3c over lanes (schedule_wave_lanes_kernel, one block per lane;
 // aggregate_commit_lanes_kernel, the lane on the grid's second dimension)
-// replace `probe_wave_fanout` (:2300/:2302); see common.cuh `lane_view`.
+// replace the fan-outs that vmap schedule_wave over S lanes, each lane with
+// its own node-active mask: `probe_wave_fanout` (:2302, one group for every
+// lane), `serve_wave_fanout` (:2412, a group, replica count and cap1 per
+// lane: one K3-lanes launch, then one K3c-lanes launch) and
+// `sweep_wave_fanout` (:2447 with `_sweep_wave_step` :2434: a chain of K
+// segments per lane, run as K3 then K3c over lanes for each k, 2K launches,
+// segment k's carry feeding k+1). Each of a lane's group, m and cap1 is a
+// launch argument shared by every lane (the probe) or, where its device
+// array is not null, that array's entry for the lane. A lane with m = 0 runs
+// no wave iteration and commits nothing.
+// Block and kmax are shared, from the largest m: the result does not depend
+// on them. See common.cuh `lane_view`.
 //
 // The exactness contract with the plain PyTorch version is in common.cuh.
 
@@ -254,16 +265,19 @@ schedule_wave_kernel(TablesView t, int g, int m, int cap1, int B, int K, int* j,
   schedule_wave_body<EXT, false>(t, g, m, cap1, B, K, j, stats, fs, is);
 }
 
-// K3 over lanes (JAX probe_wave_fanout :2300): block s runs lane s's wave
-// into its own j row [s, N], stats row [s, 4] and scratch slices.
+// K3 over lanes: block s runs lane s's wave (g, m and cap1, or g_s[s],
+// m_s[s] and cap1_s[s] for a non-null array) into its own j row [s, N],
+// stats row [s, 4] and scratch slices.
 template <bool EXT>
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
-schedule_wave_lanes_kernel(TablesView t, int g, int m, int cap1, int B, int K, int* j,
-                           int* stats, float* fs, int* is, long long fs_lane, long long is_lane) {
+schedule_wave_lanes_kernel(TablesView t, int g, int m, int cap1, const int* g_s, const int* m_s,
+                           const uint8_t* cap1_s, int B, int K, int* j, int* stats, float* fs,
+                           int* is, long long fs_lane, long long is_lane) {
   const int s = blockIdx.x;
   LANE_VIEW(lt, t, s)
-  schedule_wave_body<EXT, true>(lt, g, m, cap1, B, K, j + (size_t)s * t.N, stats + 4 * s,
-                                fs + s * fs_lane, is + s * is_lane);
+  schedule_wave_body<EXT, true>(lt, g_s ? g_s[s] : g, m_s ? m_s[s] : m,
+                                cap1_s ? (int)cap1_s[s] : cap1, B, K, j + (size_t)s * t.N,
+                                stats + 4 * s, fs + s * fs_lane, is + s * is_lane);
 }
 
 // ---------------------------------------------------------------- K3c ------
@@ -330,15 +344,16 @@ aggregate_commit_kernel(TablesView t, int g, const int* j, const int* topo_dom,
 }
 
 // K3c over lanes, the lane on the grid's second dimension: block (0, s)
-// commits j row [s, N] into lane s's carry, with its own seg slice.
+// commits j row [s, N] of group g (g_s[s] for a non-null g_s) into lane s's
+// carry, with its own seg slice.
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
-aggregate_commit_lanes_kernel(TablesView t, int g, const int* j, const int* topo_dom,
-                              const int* counter_topo, const int* carr_topo, int U, int gpu_live,
-                              float* seg) {
+aggregate_commit_lanes_kernel(TablesView t, int g, const int* g_s, const int* j,
+                              const int* topo_dom, const int* counter_topo, const int* carr_topo,
+                              int U, int gpu_live, float* seg) {
   const int s = blockIdx.y;
   LANE_VIEW(lt, t, s)
-  aggregate_commit_body(lt, g, j + (size_t)s * t.N, topo_dom, counter_topo, carr_topo, U,
-                        gpu_live, seg + (size_t)s * U * t.D1);
+  aggregate_commit_body(lt, g_s ? g_s[s] : g, j + (size_t)s * t.N, topo_dom, counter_topo,
+                        carr_topo, U, gpu_live, seg + (size_t)s * U * t.D1);
 }
 
 // ------------------------------------------------------------ C interface --
@@ -368,27 +383,32 @@ int aggregate_commit_launch(const TablesView* t, int g, const int* j, const int*
   return (int)cudaGetLastError();
 }
 
-// S lanes: the view is lane 0's with `t->active` the [S, N] mask; j, stats
-// [S, N], [S, 4]; fs, is S slices of wave_scratch_floats / wave_scratch_ints
-int schedule_wave_lanes_launch(const TablesView* t, int g, int m, int cap1, int B, int K, int S,
-                               int* j, int* stats, float* fs, int* is, cudaStream_t stream) {
+// S lanes: the view is lane 0's with `t->active` the [S, N] mask; g, m and
+// cap1 shared by every lane, save where g_s, m_s or cap1_s (device arrays of
+// S entries) is not null; j, stats [S, N], [S, 4]; fs, is S slices of
+// wave_scratch_floats / wave_scratch_ints
+int schedule_wave_lanes_launch(const TablesView* t, int g, int m, int cap1, const int* g_s,
+                               const int* m_s, const uint8_t* cap1_s, int B, int K, int S, int* j,
+                               int* stats, float* fs, int* is, cudaStream_t stream) {
   const long long fl = wave_scratch_floats(t->N, B), il = wave_scratch_ints(t->N);
   if (t->f_gpu)
-    schedule_wave_lanes_kernel<true><<<S, BLOCK_THREADS, 0, stream>>>(*t, g, m, cap1, B, K, j,
-                                                                      stats, fs, is, fl, il);
+    schedule_wave_lanes_kernel<true><<<S, BLOCK_THREADS, 0, stream>>>(
+        *t, g, m, cap1, g_s, m_s, cap1_s, B, K, j, stats, fs, is, fl, il);
   else
-    schedule_wave_lanes_kernel<false><<<S, BLOCK_THREADS, 0, stream>>>(*t, g, m, cap1, B, K, j,
-                                                                       stats, fs, is, fl, il);
+    schedule_wave_lanes_kernel<false><<<S, BLOCK_THREADS, 0, stream>>>(
+        *t, g, m, cap1, g_s, m_s, cap1_s, B, K, j, stats, fs, is, fl, il);
   return (int)cudaGetLastError();
 }
 
-// S lanes of K3c: the view is lane 0's carry of [S, ...] tensors; j [S, N];
-// seg S slices of [U, D+1]
-int aggregate_commit_lanes_launch(const TablesView* t, int g, const int* j, const int* topo_dom,
-                                  const int* counter_topo, const int* carr_topo, int U,
-                                  int gpu_live, int S, float* seg, cudaStream_t stream) {
+// S lanes of K3c: the view is lane 0's carry of [S, ...] tensors; group g
+// for every lane, or g_s[s] where g_s (a device array of S entries) is not
+// null; j [S, N]; seg S slices of [U, D+1]
+int aggregate_commit_lanes_launch(const TablesView* t, int g, const int* g_s, const int* j,
+                                  const int* topo_dom, const int* counter_topo,
+                                  const int* carr_topo, int U, int gpu_live, int S, float* seg,
+                                  cudaStream_t stream) {
   aggregate_commit_lanes_kernel<<<dim3(1, S), BLOCK_THREADS, 0, stream>>>(
-      *t, g, j, topo_dom, counter_topo, carr_topo, U, gpu_live, seg);
+      *t, g, g_s, j, topo_dom, counter_topo, carr_topo, U, gpu_live, seg);
   return (int)cudaGetLastError();
 }
 

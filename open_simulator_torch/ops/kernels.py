@@ -1961,16 +1961,19 @@ def schedule_affinity_wave(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
     return aggregate_commit(tb, cry, g, j), j, placed
 
 
-# ------------------------------------------------------------- probe lanes ----
+# ------------------------------------------------------------------- lanes ----
 #
-# Port of the JAX package's multi-candidate capacity probing (ops/kernels.py
-# :2280-2378, `probe_*_fanout`): S node-active masks in one dispatch. A
-# candidate differs from another only in which node columns are active, and
-# `active` folds into static_mask (`_mask_active`), which makes an inactive
-# node a phantom: infeasible for every pod, excluded from every normalizer,
-# owner of no placed pod. The carry has a leading [S] axis. JAX vmaps K2-K5
-# over the lanes; the plain versions below loop over them, and the lane
-# kernels run one block per lane (csrc/*.cu `*_lanes_kernel`).
+# Port of the JAX package's fan-outs (ops/kernels.py :2280-2510): S lanes in
+# one dispatch, each with its own node-active mask and its own carry (a
+# leading [S] axis). `active` folds into static_mask (`_mask_active`), which
+# makes an inactive node a phantom: infeasible for every pod, excluded from
+# every normalizer, owner of no placed pod. The capacity probe's lanes
+# (`probe_*_fanout`) share one segment; the serve and sweep lanes
+# (`serve_*_fanout`, `sweep_*_fanout`) carry their own pod rows or wave
+# groups. JAX vmaps K2-K5 over the lanes; the plain versions below loop over
+# them, and the lane kernels run one block per lane (csrc/*.cu
+# `*_lanes_kernel`), reading per-lane inputs at a lane stride (0 for one
+# value shared by every lane).
 
 
 def _mask_active(tb: Tables, active: torch.Tensor) -> Tables:
@@ -2007,18 +2010,31 @@ def _check_lanes(cry_s: Carry, S: int) -> None:
                              f"{tuple(t.shape)}")
 
 
+def _row(a, s: int):
+    """Lane s's row of a per-lane [S, P] input, or the [P] input shared by
+    every lane."""
+    return a[s] if isinstance(a, torch.Tensor) and a.dim() == 2 else a
+
+
+def _lane_value(a, s: int):
+    """Lane s's value of a per-lane [S] input, or the scalar shared by every lane."""
+    return a[s].item() if isinstance(a, torch.Tensor) and a.dim() == 1 else a
+
+
 @torch.inference_mode()
 def schedule_batch_lanes_plain(tb: Tables, cry_s: Carry, active_s, pod_group, forced_node,
                                valid, n_zones: int, w: ScoreWeights = DEFAULT_WEIGHTS,
                                filters: FilterFlags = DEFAULT_FILTERS, enable_gpu: bool = False,
                                enable_storage: bool = False):
     """Plain version of `schedule_batch_lanes_kernel`: schedule_batch_plain
-    on each lane's masked tables. Returns (carry_s, choices [S, P] i32)."""
+    on each lane's masked tables. `pod_group`, `forced_node` and `valid` are
+    [P] (shared by every lane) or [S, P] (a row per lane). Returns (carry_s,
+    choices [S, P] i32)."""
     outs, choices = [], []
     for s in range(active_s.shape[0]):
         c2, ch = schedule_batch_plain(_mask_active(tb, active_s[s]), carry_lane(cry_s, s),
-                                      pod_group, forced_node, valid, n_zones, w, filters,
-                                      enable_gpu, enable_storage)
+                                      _row(pod_group, s), _row(forced_node, s), _row(valid, s),
+                                      n_zones, w, filters, enable_gpu, enable_storage)
         outs.append(c2)
         choices.append(ch)
     return _stack_carries(outs), torch.stack(choices)
@@ -2029,12 +2045,15 @@ def schedule_wave_lanes_plain(tb: Tables, cry_s: Carry, active_s, g: int, m: int
                               w: ScoreWeights = DEFAULT_WEIGHTS,
                               filters: FilterFlags = DEFAULT_FILTERS, block: int = WAVE_BLOCK,
                               kmax: int = 0, gpu_live: bool = False):
-    """Plain version of `schedule_wave_lanes_kernel`: returns (counts [S, N]
-    i32, placed [S] i32, stats [S, 3] i32 in WAVE_STATS order)."""
+    """Plain version of `schedule_wave_lanes_kernel`: `g`, `m` and `cap1` are
+    scalars (every lane) or [S] tensors (one per lane). Returns (counts
+    [S, N] i32, placed [S] i32, stats [S, 3] i32 in WAVE_STATS order)."""
     js, placed, stats = [], [], []
     for s in range(active_s.shape[0]):
-        j, p, st = schedule_wave_plain(_mask_active(tb, active_s[s]), carry_lane(cry_s, s), g, m,
-                                       cap1, w, filters, block, kmax, gpu_live)
+        j, p, st = schedule_wave_plain(_mask_active(tb, active_s[s]), carry_lane(cry_s, s),
+                                       int(_lane_value(g, s)), int(_lane_value(m, s)),
+                                       bool(_lane_value(cap1, s)), w, filters, block, kmax,
+                                       gpu_live)
         js.append(j)
         placed.append(p)
         stats.append([st[k] for k in WAVE_STATS])
@@ -2051,9 +2070,11 @@ def _lane_results(js, placed, stats):
 def aggregate_commit_lanes_plain(tb: Tables, cry_s: Carry, g: int, j_s: torch.Tensor,
                                  gpu_live: bool = False) -> Carry:
     """Plain version of `aggregate_commit_lanes_kernel`: lane s commits row s
-    of j_s into its own carry. The tables are not masked: the counts of an
-    inactive node are 0."""
-    return _stack_carries(aggregate_commit_plain(tb, carry_lane(cry_s, s), g, j_s[s], gpu_live)
+    of j_s (copies of group g, or of g[s] when g is an [S] tensor) into its
+    own carry. The tables are not masked: the counts of an inactive node
+    are 0."""
+    return _stack_carries(aggregate_commit_plain(tb, carry_lane(cry_s, s), int(_lane_value(g, s)),
+                                                 j_s[s], gpu_live)
                           for s in range(j_s.shape[0]))
 
 
@@ -2105,13 +2126,27 @@ def _lane_view(tb: Tables, cry_s: Carry, active_s, n_zones: int, w: ScoreWeights
     return S, active, v
 
 
+def _lane_rows(a, dtype, S: int, P: int, dev, what: str) -> Tuple[torch.Tensor, int]:
+    """A pod array of shape [P] (shared: lane stride 0) or [S, P] (per lane:
+    stride P), contiguous on `dev`, with its lane stride."""
+    t = torch.as_tensor(a, dtype=dtype, device=dev).contiguous()
+    if t.shape == (P,):
+        return t, 0
+    if t.shape == (S, P):
+        return t, P
+    raise ValueError(f"{what}: need shape ({P},) or ({S}, {P}), got {tuple(t.shape)}")
+
+
 def schedule_batch_lanes_kernel(tb: Tables, cry_s: Carry, active_s, pod_group, forced_node,
                                 valid, n_zones: int, w: ScoreWeights = DEFAULT_WEIGHTS,
                                 filters: FilterFlags = DEFAULT_FILTERS, enable_gpu: bool = False,
-                                enable_storage: bool = False):
+                                enable_storage: bool = False, fanout=None):
     """Launch K2 over S lanes (csrc/schedule.cu schedule_batch_lanes_kernel),
-    block s on lane s. Returns (carry_s, choices [S, P] i32): the carry is a
-    CLONE of `cry_s` that the kernel updates in place."""
+    block s on lane s. `pod_group`, `forced_node` and `valid` are [P] (one
+    stream for every lane) or [S, P] (a row per lane). Returns (carry_s,
+    choices [S, P] i32): the carry is a CLONE of `cry_s` that the kernel
+    updates in place. The launch counts on `fanout` (the fan-out wrapper
+    that asked for it; probe_serial_fanout by default)."""
     from . import build
 
     lib = build.library()
@@ -2119,29 +2154,50 @@ def schedule_batch_lanes_kernel(tb: Tables, cry_s: Carry, active_s, pod_group, f
     out = Carry(*(t.clone() for t in cry_s))
     S, active, v = _lane_view(tb, out, active_s, n_zones, w, filters, enable_gpu,
                               enable_storage)
-    pg = torch.as_tensor(pod_group, dtype=torch.int32, device=dev).contiguous()
-    fn = torch.as_tensor(forced_node, dtype=torch.int32, device=dev).contiguous()
-    vd = torch.as_tensor(valid, dtype=torch.bool, device=dev).contiguous()
-    P = pg.shape[0]
-    if fn.shape[0] != P or vd.shape[0] != P:
-        raise ValueError("pod_group, forced_node and valid must have one length")
+    P = int(torch.as_tensor(pod_group).shape[-1])
+    pg, pod_lane = _lane_rows(pod_group, torch.int32, S, P, dev, "pod_group")
+    fn, fn_lane = _lane_rows(forced_node, torch.int32, S, P, dev, "forced_node")
+    vd, valid_lane = _lane_rows(valid, torch.bool, S, P, dev, "valid")
+    if fn_lane != pod_lane:
+        raise ValueError("pod_group and forced_node must both be shared or both per lane")
     choices = torch.empty((S, P), dtype=torch.int32, device=dev)
     scratch = torch.empty(S * int(lib.schedule_scratch_floats(ctypes.byref(v))),
                           dtype=torch.float32, device=dev)
     _check(lib.schedule_batch_lanes_launch(ctypes.byref(v), _ptr(pg), _ptr(fn), _ptr(vd), int(P),
-                                           int(S), _ptr(choices), _ptr(scratch), _stream()),
+                                           pod_lane, valid_lane, int(S), _ptr(choices),
+                                           _ptr(scratch), _stream()),
            "schedule_batch_lanes_kernel launch")
-    probe_serial_fanout.launches += 1
+    (fanout or probe_serial_fanout).launches += 1
     return out, choices
 
 
-def schedule_wave_lanes_kernel(tb: Tables, cry_s: Carry, active_s, g: int, m: int, cap1: bool,
+def _lane_values(vals, dtype, S: int, dev, what: str):
+    """A per-lane input as (scalar, None) when every lane shares it (a Python
+    or 0-dim value, passed as a launch argument), or (0, [S] contiguous
+    device array) for one value per lane."""
+    dim = vals.dim() if isinstance(vals, torch.Tensor) else np.ndim(vals)
+    if dim == 0:
+        return int(vals), None
+    t = torch.as_tensor(vals, dtype=dtype, device=dev).contiguous()
+    if t.shape != (S,):
+        raise ValueError(f"{what}: need a scalar or shape ({S},), got {tuple(t.shape)}")
+    return 0, t
+
+
+def _ptr_or_null(t):
+    return None if t is None else _ptr(t)
+
+
+def schedule_wave_lanes_kernel(tb: Tables, cry_s: Carry, active_s, g, m, cap1,
                                w: ScoreWeights = DEFAULT_WEIGHTS,
                                filters: FilterFlags = DEFAULT_FILTERS, block: int = WAVE_BLOCK,
-                               kmax: int = 0, gpu_live: bool = False):
+                               kmax: int = 0, gpu_live: bool = False, fanout=None):
     """Launch K3 over S lanes (csrc/wave.cu schedule_wave_lanes_kernel).
-    Returns (counts [S, N] i32, placed [S] i32, stats [S, 3] i32), all on the
-    card; `cry_s` is only read."""
+    `g`, `m` and `cap1` are each a scalar (every lane; a launch argument) or
+    an [S] tensor (one per lane); `block` and `kmax` are shared. Returns
+    (counts [S, N] i32, placed [S] i32, stats [S, 3] i32), all on the card;
+    `cry_s` is only read. The launch counts on `fanout` (probe_wave_fanout by
+    default)."""
     from . import build
 
     lib = build.library()
@@ -2151,23 +2207,30 @@ def schedule_wave_lanes_kernel(tb: Tables, cry_s: Carry, active_s, g: int, m: in
     if N * block >= 2 ** 31 or not 1 <= K <= N * block:
         raise ValueError(f"wave table {N}x{block} with kmax {K} is out of the kernel's range")
     S, active, v = _lane_view(tb, cry_s, active_s, 2, w, filters, enable_gpu=gpu_live)
+    g0, g_t = _lane_values(g, torch.int32, S, dev, "g")
+    m0, m_t = _lane_values(m, torch.int32, S, dev, "m")
+    c0, c_t = _lane_values(cap1, torch.bool, S, dev, "cap1")
     j = torch.empty((S, N), dtype=torch.int32, device=dev)
     stats = torch.empty((S, 4), dtype=torch.int32, device=dev)
     fs = torch.empty(S * int(lib.wave_scratch_floats(N, block)), dtype=_F32, device=dev)
     iscr = torch.empty(S * int(lib.wave_scratch_ints(N)), dtype=torch.int32, device=dev)
-    _check(lib.schedule_wave_lanes_launch(ctypes.byref(v), int(g), int(m), int(bool(cap1)),
+    _check(lib.schedule_wave_lanes_launch(ctypes.byref(v), g0, m0, int(bool(c0)),
+                                          _ptr_or_null(g_t), _ptr_or_null(m_t), _ptr_or_null(c_t),
                                           int(block), int(K), int(S), _ptr(j), _ptr(stats),
                                           _ptr(fs), _ptr(iscr), _stream()),
            "schedule_wave_lanes_kernel launch")
-    probe_wave_fanout.launches += 1
+    (fanout or probe_wave_fanout).launches += 1
     return j, stats[:, 0], stats[:, 1:]
 
 
-def aggregate_commit_lanes_kernel(tb: Tables, cry_s: Carry, g: int, j_s: torch.Tensor,
-                                  gpu_live: bool = False) -> Carry:
+def aggregate_commit_lanes_kernel(tb: Tables, cry_s: Carry, g, j_s: torch.Tensor,
+                                  gpu_live: bool = False, fanout=None) -> Carry:
     """Launch K3c over S lanes (csrc/wave.cu aggregate_commit_lanes_kernel,
     the lane on the grid's second dimension) on a CLONE of `cry_s`, which it
-    updates in place and returns."""
+    updates in place and returns. `g` is a scalar (every lane; a launch
+    argument) or an [S] tensor (one group per lane). The launch counts on
+    `fanout` (aggregate_commit_lanes, the probe fan-outs' commit, by
+    default)."""
     from . import build
 
     lib = build.library()
@@ -2186,12 +2249,14 @@ def aggregate_commit_lanes_kernel(tb: Tables, cry_s: Carry, g: int, j_s: torch.T
         if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"{name}: need a contiguous int32 tensor on {dev}")
     U = tb.topo_dom.shape[0]
+    g0, g_t = _lane_values(g, torch.int32, S, dev, "g")
     seg = torch.empty(S * U * cry_s.counter.shape[2], dtype=_F32, device=dev)
-    _check(lib.aggregate_commit_lanes_launch(ctypes.byref(v), int(g), _ptr(jj), _ptr(tb.topo_dom),
-                                             _ptr(tb.counter_topo), _ptr(tb.carr_topo), int(U),
-                                             int(bool(gpu_live)), int(S), _ptr(seg), _stream()),
+    _check(lib.aggregate_commit_lanes_launch(ctypes.byref(v), g0, _ptr_or_null(g_t), _ptr(jj),
+                                             _ptr(tb.topo_dom), _ptr(tb.counter_topo),
+                                             _ptr(tb.carr_topo), int(U), int(bool(gpu_live)),
+                                             int(S), _ptr(seg), _stream()),
            "aggregate_commit_lanes_kernel launch")
-    aggregate_commit_lanes.launches += 1
+    (fanout or aggregate_commit_lanes).launches += 1
     return out
 
 
@@ -2260,10 +2325,11 @@ def schedule_affinity_wave_lanes_kernel(tb: Tables, cry_s: Carry, active_s, g: i
     return j, stats[:, 0], stats[:, 1:]
 
 
-def aggregate_commit_lanes(tb: Tables, cry_s: Carry, g: int, j_s: torch.Tensor,
+def aggregate_commit_lanes(tb: Tables, cry_s: Carry, g, j_s: torch.Tensor,
                            gpu_live: bool = False) -> Carry:
-    """Commit row s of j_s into lane s of cry_s: the plain version for CPU
-    tensors, K3c over lanes for CUDA tensors. Returns a new [S, ...] carry."""
+    """Commit row s of j_s (copies of group g, or of g[s] for an [S] tensor)
+    into lane s of cry_s: the plain version for CPU tensors, K3c over lanes
+    for CUDA tensors. Returns a new [S, ...] carry."""
     if _on_cpu(tb.alloc):
         return aggregate_commit_lanes_plain(tb, cry_s, g, j_s, gpu_live)
     return aggregate_commit_lanes_kernel(tb, cry_s, g, j_s, gpu_live)
@@ -2331,6 +2397,112 @@ def probe_affinity_wave_fanout(tb: Tables, cry_s: Carry, active_s, g: int, m: in
                                n_zones)
     _add_stats(schedule_affinity_wave, stats)
     return aggregate_commit_lanes(tb, cry_s, g, j_s), placed_s
+
+
+def _on(a, dtype, dev) -> torch.Tensor:
+    return torch.as_tensor(a, dtype=dtype, device=dev).contiguous()
+
+
+def _serial_lanes(tb: Tables, fanout):
+    """K2 over lanes for one fan-out: the plain lanes for CPU tensors, the
+    kernel counted on `fanout` for CUDA tensors."""
+    if _on_cpu(tb.alloc):
+        return schedule_batch_lanes_plain
+    return lambda *a: schedule_batch_lanes_kernel(*a, fanout=fanout)
+
+
+def _wave_pair(tb: Tables, fanout):
+    """(K3 over lanes, K3c over lanes) for one fan-out: the plain lanes for
+    CPU tensors, the kernels counted on `fanout` for CUDA tensors."""
+    if _on_cpu(tb.alloc):
+        return schedule_wave_lanes_plain, aggregate_commit_lanes_plain
+    return (lambda *a: schedule_wave_lanes_kernel(*a, fanout=fanout),
+            lambda *a: aggregate_commit_lanes_kernel(*a, fanout=fanout))
+
+
+def _wave_chain(tb: Tables, cry_s: Carry, active_s, g_sk, m_sk, cap1_sk, w: ScoreWeights,
+                filters: FilterFlags, block: int, kmax: int, wave, commit):
+    """K chained wave segments per lane, each `wave` (K3 over lanes) then
+    `commit` (K3c over lanes) on the carry the segment before left: (carry_s,
+    counts [S, K, N] i32, placed [S, K] i32). The loop statistics join
+    `schedule_wave.stats`."""
+    dev = tb.alloc.device
+    # [K, S]: segment k's per-lane values are one contiguous row
+    g_ks, m_ks, c_ks = (_on(a, t, dev).t().contiguous() for a, t in
+                        ((g_sk, torch.int32), (m_sk, torch.int32), (cap1_sk, torch.bool)))
+    counts, placed = [], []
+    for k in range(g_ks.shape[0]):
+        j_s, placed_s, stats = wave(tb, cry_s, active_s, g_ks[k], m_ks[k], c_ks[k], w, filters,
+                                    block, kmax)
+        _add_stats(schedule_wave, stats)
+        cry_s = commit(tb, cry_s, g_ks[k], j_s)
+        counts.append(j_s)
+        placed.append(placed_s)
+    return cry_s, torch.stack(counts, dim=1), torch.stack(placed, dim=1)
+
+
+def serve_whatif_fanout(tb: Tables, cry_s: Carry, active_s, pod_group, forced_node, valid_s,
+                        n_zones: int, enable_gpu: bool = True, enable_storage: bool = True,
+                        w: ScoreWeights = DEFAULT_WEIGHTS, filters: FilterFlags = DEFAULT_FILTERS):
+    """schedule_batch over S what-if requests of one union-encoded pod batch
+    (JAX `serve_whatif_fanout`): every lane scans the union `pod_group` /
+    `forced_node` [P] with its own `valid_s` [S, P] row, which picks out its
+    request's rows; an invalid step is a no-op. The plain version for CPU
+    tensors, K2 over lanes for CUDA tensors. Returns (carry_s, placed_s [S]
+    i32)."""
+    dev = tb.alloc.device
+    carry_s, choices = _serial_lanes(tb, serve_whatif_fanout)(
+        tb, cry_s, active_s, _on(pod_group, torch.int32, dev), _on(forced_node, torch.int32, dev),
+        _on(valid_s, torch.bool, dev), n_zones, w, filters, enable_gpu, enable_storage)
+    return carry_s, (choices >= 0).sum(dim=1, dtype=torch.int32)
+
+
+def sweep_whatif_fanout(tb: Tables, cry_s: Carry, active_s, pod_group_s, forced_node_s,
+                        valid_s, n_zones: int, enable_gpu: bool = True,
+                        enable_storage: bool = True, w: ScoreWeights = DEFAULT_WEIGHTS,
+                        filters: FilterFlags = DEFAULT_FILTERS):
+    """schedule_batch over S scenario lanes, each with its own pod stream
+    `pod_group_s`, `forced_node_s`, `valid_s` [S, P] (JAX
+    `sweep_whatif_fanout`): the plain version for CPU tensors, K2 over lanes
+    for CUDA tensors. Returns (carry_s, choices [S, P] i32, -1 =
+    unschedulable)."""
+    dev = tb.alloc.device
+    return _serial_lanes(tb, sweep_whatif_fanout)(
+        tb, cry_s, active_s, _on(pod_group_s, torch.int32, dev),
+        _on(forced_node_s, torch.int32, dev), _on(valid_s, torch.bool, dev), n_zones, w, filters,
+        enable_gpu, enable_storage)
+
+
+def serve_wave_fanout(tb: Tables, cry_s: Carry, active_s, g_s, m_s, cap1_s,
+                      w: ScoreWeights = DEFAULT_WEIGHTS, filters: FilterFlags = DEFAULT_FILTERS,
+                      block: int = WAVE_BLOCK, kmax: int = 0):
+    """schedule_wave (gpu_live off) over S uniform-replica requests, each lane
+    with its own group, replica count and cap1 (`g_s`, `m_s`, `cap1_s` [S]),
+    then the aggregate commit (JAX `serve_wave_fanout`): the plain version for
+    CPU tensors; for CUDA tensors one launch of K3 over lanes and one of K3c
+    over lanes, both counted here. `block` and `kmax` are shared. Returns
+    (carry_s, placed_s [S] i32)."""
+    dev = tb.alloc.device
+    carry_s, _, placed = _wave_chain(tb, cry_s, active_s, _on(g_s, torch.int32, dev)[:, None],
+                                     _on(m_s, torch.int32, dev)[:, None],
+                                     _on(cap1_s, torch.bool, dev)[:, None], w, filters, block,
+                                     kmax, *_wave_pair(tb, serve_wave_fanout))
+    return carry_s, placed[:, 0]
+
+
+def sweep_wave_fanout(tb: Tables, cry_s: Carry, active_s, g_sk, m_sk, cap1_sk,
+                      w: ScoreWeights = DEFAULT_WEIGHTS, filters: FilterFlags = DEFAULT_FILTERS,
+                      block: int = WAVE_BLOCK, kmax: int = 0):
+    """K chained schedule_wave segments per lane (JAX `sweep_wave_fanout`,
+    each segment `_sweep_wave_step`): lane s runs its groups `g_sk[s]`,
+    replica counts `m_sk[s]` and cap1 flags `cap1_sk[s]` [K] in order,
+    segment k's carry feeding segment k+1; a segment with m = 0 commits
+    nothing. The plain version for CPU tensors; for CUDA tensors, per segment
+    one launch of K3 over lanes and one of K3c over lanes (2K launches, all
+    counted here). Returns (carry_s, counts [S, K, N] i32)."""
+    carry_s, counts, _ = _wave_chain(tb, cry_s, active_s, g_sk, m_sk, cap1_sk, w, filters, block,
+                                     kmax, *_wave_pair(tb, sweep_wave_fanout))
+    return carry_s, counts
 
 
 # --------------------------------------------------------- table extension ----
@@ -2492,6 +2664,8 @@ _WRAPPERS = {"schedule_batch": schedule_batch, "feasibility": feasibility_jit,
              "probe_serial_fanout": probe_serial_fanout, "probe_wave_fanout": probe_wave_fanout,
              "probe_group_serial_fanout": probe_group_serial_fanout,
              "probe_affinity_wave_fanout": probe_affinity_wave_fanout,
+             "serve_whatif_fanout": serve_whatif_fanout, "serve_wave_fanout": serve_wave_fanout,
+             "sweep_wave_fanout": sweep_wave_fanout, "sweep_whatif_fanout": sweep_whatif_fanout,
              "aggregate_commit_lanes": aggregate_commit_lanes,
              "extend_tables": extend_tables_on_device}
 for _f in _WRAPPERS.values():

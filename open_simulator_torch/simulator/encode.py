@@ -504,8 +504,10 @@ def _freeze(o):
 
 SIG_MEMO_KEY = "__sig_memo__"  # stamped by workload expansion; popped by the engine
 
+_native_hash = "unresolved"
+
 # annotation keys that change Filter/commit behavior (plugins/) — part of the
-# signature tuple
+# signature subtree on both the native and computed paths
 _SIG_ANNO_KEYS = (C.AnnoGpuMem, C.AnnoGpuCount, C.AnnoGpuIndex, C.AnnoPodLocalStorage)
 
 
@@ -513,15 +515,35 @@ def scheduling_signature(pod: dict):
     """Pods with equal signatures are interchangeable to every predicate and score.
     Returns an opaque hashable key.
 
-    The workload memo (replicas of one template share a precomputed
-    signature) is the fast path; otherwise the pure-Python computed tuple.
-    Group ids are handed out in order of first appearance, so the batch
-    tables do not depend on how the signature is hashed.
+    Fast paths, in order (the JAX package's, so that both packages cut a
+    batch into the same groups):
+    1. workload memo — replicas of one template share a precomputed signature;
+    2. native pod_sig (C++, open_simulator_torch/native): one call that
+       extracts and canonically hashes the RAW scheduling-relevant subtree —
+       namespace, labels, nodeSelector, affinity, tolerations,
+       topologySpreadConstraints, nodeName, hostNetwork, containers,
+       initContainers, overhead, sorted owner kinds, and the
+       extended-resource annotations. Raw hashing splits groups the computed
+       form would merge ("1000m" vs "1" cpu, another container name): the
+       partition, and so the per-pod placements, follow the raw subtree;
+    3. the pure-Python computed tuple, where the native path is off
+       (SIMON_NO_NATIVE=1, no compiler) or raises TypeError on an exotic
+       object in the tree.
     """
     memo = pod.get(SIG_MEMO_KEY)
     if memo is not None:
         return memo
+    global _native_hash
+    if _native_hash == "unresolved":
+        from ..native import pod_sig_fn
+
+        _native_hash = pod_sig_fn()
     spec = pod.get("spec") or {}
+    if _native_hash is not None:
+        try:
+            return _native_hash(pod, _SIG_ANNO_KEYS)
+        except TypeError:
+            pass  # exotic object in the tree: the computed tuple below
     owner_kinds = sorted({r.get("kind", "") for r in (pod.get("metadata") or {}).get("ownerReferences") or []})
     images = sorted(c.get("image", "") for c in spec.get("containers") or [])
     return (

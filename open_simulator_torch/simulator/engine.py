@@ -107,9 +107,13 @@ class GroupRoute(NamedTuple):
 
 _SERIAL = GroupRoute(None, False, False, False, False)
 
-# Runs longer than this many pods schedule as consecutive chunks (the JAX
-# engine's default OPEN_SIMULATOR_STREAM_PODS): chunk k's commits seed chunk
-# k+1's encode, so placements equal one monolithic run.
+# Runs longer than this many pods schedule as consecutive chunks, each an
+# ordinary run whose commits seed the next chunk's encode: the JAX engine's
+# default OPEN_SIMULATOR_STREAM_PODS, read from the environment as it reads
+# it (Simulator._stream_chunk; 0 turns chunking off). The chunk size is part
+# of the result: a chunk boundary ends the wave segments and serial chunks
+# that cross it, so another size puts pods of one group on other nodes (the
+# per-node census stays the same). Both packages must chunk alike.
 STREAM_PODS = 131072
 
 
@@ -204,6 +208,10 @@ class Simulator:
         self.placed: Dict[object, PlacedGroup] = {}  # signature → aggregated commits
         self.pods_on_node: List[List[dict]] = [[] for _ in range(self.na.N)]
         self.homeless: List[dict] = []  # bound to a node name we don't know
+        # id(pod) -> (sig, node_i) of every committed pod: pod deletion
+        # (serve/image.py) decrements the right signature's placed counts
+        # from it (the part of JAX's preemption bookkeeping it needs)
+        self._sig_of: Dict[int, tuple] = {}
         self._priority_seen: set = set()
         self.match_cache: Dict[Tuple[int, object], bool] = {}  # (counter id, sched signature)
         self.disable_progress = disable_progress
@@ -228,6 +236,17 @@ class Simulator:
                 os.environ.get("OPEN_SIMULATOR_SPREAD_WAVE_MIN_DOMAINS", "0"))
         except ValueError:
             self._spread_wave_min_domains = 0
+        # the streaming chunk (JAX engine.py:293-302): runs longer than this
+        # schedule as consecutive chunks; 0 turns chunking off. JAX's
+        # explicit-versus-default rule raises the default to 2,097,152 for
+        # columnar PodStore batches only, which this port does not take
+        # (ROADMAP A14), so for the dict batches it runs the value applies
+        # as it is.
+        try:
+            self._stream_chunk = max(0, int(os.environ.get("OPEN_SIMULATOR_STREAM_PODS",
+                                                           str(STREAM_PODS))))
+        except ValueError:
+            self._stream_chunk = STREAM_PODS
 
     # ------------------------------------------------------------- state ----------
 
@@ -242,6 +261,7 @@ class Simulator:
         sig = pod.get(SIG_MEMO_KEY)
         if sig is None:
             sig = scheduling_signature(pod)
+        self._sig_of[id(pod)] = (sig, node_i)
         if scheduled:
             if self.gpu_host.enabled:
                 self.gpu_host.reserve(pod, node_i)
@@ -372,9 +392,12 @@ class Simulator:
             return []
         if self.na.N == 0:
             return [UnscheduledPod(pod, self._format_reason(pod, {}, 0)) for pod in to_schedule]
+        chunk = self._stream_chunk
+        if not chunk or len(to_schedule) <= chunk:
+            return self._schedule_run_once(to_schedule)
         failed: List[UnscheduledPod] = []
-        for off in range(0, len(to_schedule), STREAM_PODS):
-            failed.extend(self._schedule_run_once(to_schedule[off:off + STREAM_PODS]))
+        for off in range(0, len(to_schedule), chunk):
+            failed.extend(self._schedule_run_once(to_schedule[off:off + chunk]))
         return failed
 
     def _to_device(self, bt: BatchTables):

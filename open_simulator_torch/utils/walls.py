@@ -7,7 +7,10 @@ overflow_waves, affinity) through `Simulator.schedule_pods` of the port found
 under DIR (default: this checkout) on the card, checks each run against this
 checkout's golden, and prints one JSON line per run with its wall clock
 (after `torch.cuda.synchronize()`), the port's segment census and kernel
-launches. The kernels' build and a small warm-up run of each kind come first,
+launches. The kinds `capacity` and `capacity_lanes` run the capacity
+planner's search (`CapacityPlanner.search()`, the probe fan-outs) on the
+scenario of that name instead, checked against its golden's `found`,
+`nodes_added` and search statistics. The kernels' build and a small warm-up run of each kind come first,
 untimed. The cluster generators are loaded from this checkout by file path,
 so an older checkout (one that routed the affinity segments differently) runs
 the same clusters; run it by path, so that it imports no package of its own
@@ -83,6 +86,8 @@ def main() -> int:
     if args.kernels:
         return kernel_times(synth, args.root, args.reps)
     for kind in args.kinds:
+        if kind in synth.CAPACITY_SCENARIOS:
+            continue  # the search warms up on its first run
         nodes, pods, services = workload(synth, KINDS[kind][0], 64, 640)
         sim = Simulator(nodes, device="cuda")
         sim.register_cluster_objects(ResourceTypes(services=services))
@@ -93,6 +98,9 @@ def main() -> int:
     bad = 0
     for _ in range(args.repeat):
         for kind in args.kinds:
+            if kind in synth.CAPACITY_SCENARIOS:
+                bad += capacity_wall(synth, kind, args.root, card)
+                continue
             nodes, pods, services = workload(synth, *KINDS[kind])
             K.reset_launch_counts()
             sim = Simulator(nodes, device="cuda")
@@ -115,6 +123,42 @@ def main() -> int:
                               "census": sim.segment_census, "launches": K.launch_counts(),
                               "card": card}), flush=True)
     return 1 if bad else 0
+
+
+def capacity_wall(synth, kind: str, root: str, card: str) -> int:
+    """One capacity search of `kind` on the card; prints its wall and
+    returns 1 if it differs from the golden."""
+    import torch
+
+    from open_simulator_torch.apply.applier import CapacityPlanner
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.ops import kernels as K
+
+    base, template, pods, services, max_cpu = synth.capacity_scenario(kind)
+    prev = os.environ.pop("MaxCPU", None)
+    if max_cpu is not None:
+        os.environ["MaxCPU"] = str(max_cpu)
+    try:
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        planner = CapacityPlanner(base, template, pods,
+                                  cluster_objects=ResourceTypes(services=services), device="cuda")
+        found, n, _ = planner.search()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        os.environ.pop("MaxCPU", None)
+        if prev is not None:
+            os.environ["MaxCPU"] = prev
+    with open(os.path.join(HERE, "tests", "golden", f"torch_port_{kind}.json")) as f:
+        want = json.load(f)
+    stats = {k: planner.stats[k] for k in want["stats"]}
+    match = (found, n, stats) == (want["found"], want["nodes_added"], want["stats"])
+    print(json.dumps({"kind": kind, "root": os.path.abspath(root), "seconds": wall,
+                      "pods_per_s": len(pods) / wall, "golden": match, "stats": stats,
+                      "launches": K.launch_counts(), "card": card}), flush=True)
+    return 0 if match else 1
 
 
 def _ms(fn, reps: int) -> float:

@@ -402,3 +402,123 @@ def test_extend_kernel_matches_plain_version(pad):
     want = K.extend_tables_plain(tb, n_real, k, ses.n_base, n_real + k + pad, sentinel)
     for f in K.Tables._fields:
         assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def _serve_sweep_inputs(ses, S):
+    """Inputs of the four serve and sweep fan-outs on a capacity session:
+    a union batch with a dense and a sparse valid row per lane, per-lane wave
+    groups with one m = 0 lane and m = 1 beside the largest m, a K = 4 chain
+    with padding segments, and per-lane pod streams of other lengths."""
+    import numpy as np
+
+    from open_simulator_torch.simulator.encode import bucket_capped
+
+    bt = ses._bt
+    rng = np.random.default_rng(9 + S)
+    waves = sorted({(s[3], bool(s[4])) for s in ses._segs if s[0] == "wave"},
+                   key=lambda gc: gc[1])
+    n_rows = min(400, len(bt.pod_group))
+    pad = bucket_capped(n_rows, 2048)
+    pg = np.zeros(pad, np.int32)
+    fn = np.full(pad, -1, np.int32)
+    pg[:n_rows], fn[:n_rows] = bt.pod_group[:n_rows], bt.forced_node[:n_rows]
+    valid = np.zeros((S, pad), bool)
+    for s in range(S):
+        lo, hi = s * n_rows // S, (s + 1) * n_rows // S
+        valid[s, lo:hi if s % 2 == 0 else lo + 3] = True
+    g_s = np.array([waves[s % len(waves)][0] for s in range(S)], np.int32)
+    cap1_s = np.array([waves[s % len(waves)][1] for s in range(S)], bool)
+    m_s = np.array([[500, 0, 1, 200, 64, 9, 333, 17][s] for s in range(S)], np.int32)
+    depth = 4
+    g_sk = np.zeros((S, depth), np.int32)
+    m_sk = np.zeros((S, depth), np.int32)
+    c_sk = np.zeros((S, depth), bool)
+    for s in range(S):
+        for k in range(depth - 1 - s % 2):
+            g, c = waves[int(rng.integers(len(waves)))]
+            g_sk[s, k], m_sk[s, k], c_sk[s, k] = g, int(rng.integers(1, 300)), c
+    lengths = [int(rng.integers(50, 400)) for _ in range(S)]
+    P = bucket_capped(max(lengths), 2048)
+    pg_s = np.zeros((S, P), np.int32)
+    fn_s = np.full((S, P), -1, np.int32)
+    vd_s = np.zeros((S, P), bool)
+    for s, L in enumerate(lengths):
+        rows = np.sort(rng.choice(len(bt.pod_group), size=L, replace=False))
+        pg_s[s, :L], fn_s[s, :L], vd_s[s, :L] = bt.pod_group[rows], bt.forced_node[rows], True
+    n_real = ses.n_base + ses.n_new
+
+    def wave_kw(m):
+        block = K.wave_block_for(int(m.max()), n_real)
+        return dict(block=block, kmax=K.wave_kmax(int(m.max()), n_real, block))
+
+    return {
+        "serve_whatif_fanout": ((pg, fn, valid, bt.n_zones, False, False), {}),
+        "serve_wave_fanout": ((g_s, m_s, cap1_s), wave_kw(m_s)),
+        "sweep_wave_fanout": ((g_sk, m_sk, c_sk), wave_kw(m_sk)),
+        "sweep_whatif_fanout": ((pg_s, fn_s, vd_s, bt.n_zones, False, False), {}),
+    }
+
+
+def _plain_fanout(name, tb, cry_s, active, args, kw):
+    """The plain reference of one serve or sweep fan-out, composed of the
+    plain lane functions on the card's tensors: K2's plain lanes for the two
+    what-if fan-outs, the plain K3 and K3c lanes (one segment, or the chain)
+    for the two wave fan-outs."""
+    import numpy as np
+
+    on = [torch.from_numpy(a).to(tb.alloc.device) if isinstance(a, np.ndarray) else a
+          for a in args]
+    if name.endswith("whatif_fanout"):
+        carry_s, choices = K.schedule_batch_lanes_plain(tb, cry_s, active, *on[:4],
+                                                        enable_gpu=on[4], enable_storage=on[5])
+        if name == "serve_whatif_fanout":
+            return carry_s, (choices >= 0).sum(dim=1, dtype=torch.int32)
+        return carry_s, choices
+    g, m, c = on if name == "sweep_wave_fanout" else (a[:, None] for a in on)
+    carry_s, counts, placed = K._wave_chain(tb, cry_s, active, g, m, c, K.DEFAULT_WEIGHTS,
+                                            K.DEFAULT_FILTERS, kw["block"], kw["kmax"],
+                                            K.schedule_wave_lanes_plain,
+                                            K.aggregate_commit_lanes_plain)
+    return (carry_s, counts) if name == "sweep_wave_fanout" else (carry_s, placed[:, 0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 2, 8])
+def test_serve_and_sweep_fanouts_match_plain_versions(S):
+    """The four serve and sweep fan-outs on the card (K2, K3 and K3c over
+    lanes with per-lane inputs) against their plain versions on the same
+    card tensors: placed, counts or choices, every carry field of every
+    lane; the base carry is left as it was."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    ses, _ = _capacity_session(16, 600)
+    active = _lane_masks(ses, S)
+    cry_s = K.carry_lanes(ses._seed, S)
+    before = [t.clone() for t in cry_s]
+    for name, (args, kw) in _serve_sweep_inputs(ses, S).items():
+        fn = getattr(K, name)
+        kc, kout = fn(ses._tables, cry_s, active, *args, **kw)
+        pc, pout = _plain_fanout(name, ses._tables, cry_s, active, args, kw)
+        assert torch.equal(kout, pout), name
+        _same_carry(kc, pc)
+        for a, b in zip(before, cry_s):
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_per_lane_wave_equals_single_lane_kernel():
+    """Lane s of serve_wave_fanout's K3 over lanes, with its own group, m
+    and cap1, equals the single-lane K3 on lane s's masked tables."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    ses, _ = _capacity_session(16, 600)
+    active = _lane_masks(ses, 8)
+    cry_s = K.carry_lanes(ses._seed, 8)
+    (g_s, m_s, cap1_s), kw = _serve_sweep_inputs(ses, 8)["serve_wave_fanout"]
+    gt, mt, ct = (torch.as_tensor(a).cuda() for a in (g_s, m_s, cap1_s))
+    j_s, p_s, st_s = K.schedule_wave_lanes_kernel(ses._tables, cry_s, active, gt, mt, ct, **kw)
+    for s in range(8):
+        j, p, st = K.schedule_wave_kernel(K._mask_active(ses._tables, active[s]),
+                                          K.carry_lane(cry_s, s), int(g_s[s]), int(m_s[s]),
+                                          bool(cap1_s[s]), **kw)
+        assert torch.equal(j_s[s], j) and int(p_s[s]) == int(p) and torch.equal(st_s[s], st)
