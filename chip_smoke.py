@@ -46,6 +46,16 @@ goldens the JAX package computed (tests/golden/torch_port_*.json):
   call of five lanes padded to eight. The line after the build says which
   path computes the scheduling signature (the native raw-subtree hash or
   the computed tuple).
+- the xray flight recorder (`apply --xray`'s engine path): `hard_waves`
+  and `extended` again with recording on, against their placement goldens
+  (the recorder only observes) and against the JAX package's traces of the
+  same runs (tests/golden/torch_port_xray_*.json: every decision set's
+  arrays, the set records and the pod rows, bit for bit). K7
+  (`explain_jit`) runs once per decision set; before that phase line, K7 is
+  held against the plain `explain_pod` on the card for every set without a
+  feasible node and a seeded sample of 32 others. The phase prints the
+  recording-on and -off walls and the encode and host-commit seconds the
+  metric catalog measured.
 
 Every phase prints one JSON line; any mismatch or error exits non-zero. The
 line before the card line lists every kernel with its launches on the main
@@ -306,6 +316,33 @@ def gpu_storage_ops(tb, g: int) -> int:
     lvm = int((tb.grp_lvm_size[g] > 0).sum())
     dev = int((tb.grp_sdev_size[g] > 0).sum())
     return gpu + 4 * V * lvm + 2 * Dv + 3 * Dv * dev + 4 * V + 8
+
+
+# f32 operations of one K7 node (csrc/explain.cu), counted as K2's step:
+# filters 4 per resource and 2 per valid slot, least/balanced 16, the raw
+# interpod terms 3 per valid weighted slot, normalizers and selector spread
+# 30, the weighted components and their total 22, ScheduleAnyway 5 per valid
+# term
+def k7_cost(tb, cry, g: int, ext: bool) -> tuple:
+    """(bytes, f32 operations) K7 must spend on one decision set: K1's reads
+    (not its outputs), the group's six score rows, nonzero, the domain maps
+    and counter or carrier rows of its weighted, ScheduleAnyway and
+    SelectorSpread slots, and the [26, N] output written once; with the
+    GPU-share / Open-Local branches, their tables and ledgers."""
+    N, R = tb.alloc.shape
+    D1 = cry.counter.shape[1]
+    valid = lambda ids: int((ids >= 0).sum())  # noqa: E731
+    slots = sum(valid(ids) for ids in (tb.req_aff_t[g], tb.req_anti_t[g], tb.carr_anti_t[g],
+                                       tb.dns_t[g]))
+    weighted = valid(tb.pref_t[g]) + valid(tb.carr_w_t[g])
+    sa = valid(tb.sa_t[g])
+    b = k1_bytes(tb, cry, g) - N * (1 + 12 + R) + 6 * 4 * N + 4 * N * 2 + 26 * 4 * N
+    b += (weighted + sa + valid(tb.ss_t[g:g + 1])) * (4 * N + 4 * D1)
+    ops = N * (4 * R + 2 * slots + 16 + 3 * weighted + 30 + 22 + 5 * sa)
+    if ext:
+        b += gpu_storage_bytes(tb, cry)
+        ops += N * gpu_storage_ops(tb, g)
+    return b, ops
 
 
 def bound_of(b: int, ops: int) -> tuple:
@@ -1162,6 +1199,101 @@ def serve_full_width(card: str, n_nodes: int = 10_000, n_events: int = 20_000) -
     return counts
 
 
+def xray_path(kind: str, nodes, pods, wall_off: float, card: str, storage_classes=()):
+    """The flight recorder on the card: `Simulator.schedule_pods` of a
+    golden cluster with recording on and every launch count set to 0 just
+    before it; the placements against the cluster's golden, the trace
+    against the JAX trace's golden, then K7 against plain explain_pod on the
+    card for every empty decision set and a seeded sample of 32 others (on
+    each set's own segment-start carry, kept by wrapping
+    `Simulator._xray_set`). Returns (the kernels-line row, launch counts)."""
+    import random
+
+    import torch
+
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.obs import REGISTRY, xray
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.parity import xray_trace_digest
+    from open_simulator_torch.simulator.engine import Simulator
+
+    sets = []  # per decision set, in set order: (key, tables, start carry, n_zones, flags)
+    orig = Simulator._xray_set
+
+    def spy(self, key3, tables, carry_start, bt, flags):
+        sets.append((key3, tables, carry_start, bt.n_zones, flags))
+        return orig(self, key3, tables, carry_start, bt, flags)
+
+    prefix = os.path.join(REPO, "build", "xray", kind)
+    os.makedirs(os.path.dirname(prefix), exist_ok=True)
+    before = REGISTRY.values()
+    Simulator._xray_set = spy
+    xray.enable(prefix)
+    try:
+        K.reset_launch_counts()
+        sim = Simulator(nodes, device="cuda")
+        sim.register_cluster_objects(ResourceTypes(storage_classes=list(storage_classes)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        failed = sim.schedule_pods(pods)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = K.launch_counts()
+    finally:
+        xray.disable()
+        Simulator._xray_set = orig
+    after = REGISTRY.values()
+    got = summarize(sim, pods, failed)
+    check_golden(kind, got)
+    digest = xray_trace_digest(prefix)
+    want = load_golden(f"xray_{kind}")
+    for k in ("sets", "empty_sets", "pods", "unscheduled_rows", "set_sha256",
+              "set_records_sha256", "pod_rows_sha256"):
+        if digest[k] != want[k]:
+            bad = ([i for i, (a, b) in enumerate(zip(digest[k], want[k])) if a != b][:8]
+                   if k == "set_sha256" else "")
+            fail(f"xray {kind}: trace {k} differs from the JAX golden {bad}")
+    if counts["explain_jit"] != digest["sets"] or len(sets) != digest["sets"]:
+        fail(f"xray {kind}: {counts['explain_jit']} K7 launches for {digest['sets']} sets")
+    # K7 against its plain version, bit for bit, on the main path's own inputs
+    tr = xray.XrayTrace.load(prefix)
+    empty = [i for i in range(len(sets)) if tr.sets[i]["n_feasible"] == 0]
+    others = [i for i in range(len(sets)) if tr.sets[i]["n_feasible"] > 0]
+    chosen = empty + sorted(random.Random(7).sample(others, min(32, len(others))))
+    err = 0.0
+    for i in chosen:
+        (g, forced, _), tb, cry, nz, (gpu, storage) = sets[i]
+        args = (tb, cry, g, forced, True, nz, gpu, storage)
+        k = K.explain_kernel(*args)
+        p = K.pack_explain(*K.explain_pod(*args))
+        if not torch.equal(k.view(torch.int32), p.view(torch.int32)):
+            bad = sorted({K.EXPLAIN_ROWS[r] for r in
+                           (k.view(torch.int32) != p.view(torch.int32)).any(1).nonzero()
+                           .flatten().tolist()})
+            fail(f"xray {kind}: K7 differs from explain_pod on set {i} (group {g}), rows {bad}")
+        err = max(err, err_of(k, p))
+    (g, forced, _), tb, cry, nz, (gpu, storage) = sets[0]
+    args = (tb, cry, g, forced, True, nz, gpu, storage)
+    ms = cuda_ms(lambda: K.explain_kernel(*args), 50)
+    plain_ms = cuda_ms(lambda: K.explain_pod(*args), 5)
+    b, ops = k7_cost(tb, cry, g, gpu or storage)
+    bound, by = bound_of(b, ops)
+
+    def seconds(name):
+        return after.get(name + "_sum", 0.0) - before.get(name + "_sum", 0.0)
+
+    emit("xray", kind=kind, nodes=len(nodes), pods=len(pods), sets=digest["sets"],
+         empty_sets=digest["empty_sets"], checked_sets=len(chosen),
+         unscheduled=got["unscheduled"], launches=counts["explain_jit"], k7_ms=ms,
+         k7_plain_ms=plain_ms, k7_bound_ms=bound, k7_bytes=b, k7_f32_ops=ops,
+         ext=bool(gpu or storage), max_abs_err=err, recording_on_s=wall,
+         recording_off_s=wall_off, encode_s=seconds("simon_encode_seconds"),
+         host_commit_s=seconds("simon_host_commit_seconds"), golden="match", card=card)
+    return (dict(source=SRC + "explain.cu", replaces=JAX_KERNELS + ":751", max_abs_err=err,
+                 ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None),
+            counts)
+
+
 def main() -> int:
     import torch
 
@@ -1554,6 +1686,12 @@ def main() -> int:
     for kind, serial in (("extended", False), ("extended_serial", True)):
         nodes, pods, _, scs = synth_extended_cluster(2000, 20000)
         main_path(kind, nodes, pods, serial=serial, storage_classes=scs)
+    nodes, pods = synth_cluster(5000, 50000, hard_predicates=True)
+    rows["explain_jit"], counts = xray_path("hard_waves", nodes, pods, walls["hard_waves"], card)
+    launches.update(counts)
+    nodes, pods, _, scs = synth_extended_cluster(2000, 20000)
+    launches.update(xray_path("extended", nodes, pods, walls["extended"], card,
+                              storage_classes=scs)[1])
     launches.update(demo1(card))
     launches.update(gpushare_example(card))
     # the capacity planner: both searches, then apply on the example configs

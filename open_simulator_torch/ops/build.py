@@ -23,7 +23,8 @@ from typing import List, Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [os.path.join(_HERE, "csrc", f)
-           for f in ("schedule.cu", "wave.cu", "group_serial.cu", "affinity_wave.cu", "extend.cu")]
+           for f in ("schedule.cu", "wave.cu", "group_serial.cu", "affinity_wave.cu", "extend.cu",
+                     "explain.cu")]
 HEADERS = [os.path.join(_HERE, "csrc", f) for f in ("common.cuh", "select.cuh")]
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -167,6 +168,10 @@ def _load(path: str) -> ctypes.CDLL:
     lib.schedule_group_serial_lanes_launch.restype = ctypes.c_int
     lib.schedule_affinity_wave_lanes_launch.argtypes = [V] + [ctypes.c_int] * 6 + [P] * 5
     lib.schedule_affinity_wave_lanes_launch.restype = ctypes.c_int
+    lib.explain_scratch_floats.argtypes = [V]
+    lib.explain_scratch_floats.restype = ctypes.c_longlong
+    lib.explain_launch.argtypes = [V] + [ctypes.c_int] * 3 + [ctypes.c_longlong, P, P, P]
+    lib.explain_launch.restype = ctypes.c_int
     lib.ext_args_size.argtypes = []
     lib.ext_args_size.restype = ctypes.c_int
     lib.extend_tables_launch.argtypes = [ctypes.POINTER(ExtArgs), ctypes.c_longlong, P]

@@ -18,6 +18,10 @@ Two implementations of each kernel live here:
   and no fallback: a failed build or launch raises). Each wrapper counts its
   launches in its `launches` attribute.
 
+The xray flight recorder's diagnostic `explain_jit` (JAX `explain_pod` /
+`explain_jit`) follows the same pattern: the plain `explain_pod`, K7
+(`csrc/explain.cu`) on the card.
+
 Numerical contract (shared with csrc/schedule.cu): every f32 operation is
 done separately and in the JAX expression's order (no fused multiply-add);
 sums over the small slot axes (and over a node's GPU devices and volume
@@ -629,6 +633,51 @@ def score_components(tb: Tables, cry: Carry, g: int, feasible, n_zones: int,
         "image": w.image * tb.image_raw[g],
         "extra": tb.extra_raw[g],  # out-of-tree plugins, pre-weighted at encode time
     }
+
+
+# The stage masks of an xray decision set, in the order of the JAX package's
+# obs/xray.py STAGE_NAMES (the engine's diagnosis order plus the static
+# root). K7 writes them as rows in this order, mapped by name from its stage
+# bits (STAGE_ROWS order).
+EXPLAIN_STAGES = ("static", "unsched", "taint", "affinity", "extra", "ports", "fit",
+                  "spread", "pod_affinity", "pod_anti", "gpu", "storage")
+# K7's [26, N] f32 output: the rows of the JAX engine's packed xray fetch
+# (simulator/engine.py `_xray_set`)
+EXPLAIN_ROWS = ("feasible", "total") + EXPLAIN_STAGES + COMPONENT_ORDER
+
+
+def explain_pod(tb: Tables, cry: Carry, g: int, forced: int, valid: bool, n_zones: int,
+                enable_gpu: bool = False, enable_storage: bool = False,
+                w: ScoreWeights = DEFAULT_WEIGHTS, filters: FilterFlags = DEFAULT_FILTERS):
+    """The xray flight recorder's diagnostic for one group against a carry
+    (JAX `explain_pod`): `feasibility`, then `score_components` over the
+    feasible mask. Plain version of `explain_kernel`. Returns (feasible [N]
+    bool, stages {EXPLAIN_STAGES: [N] bool}, total [N] f32, components
+    {COMPONENT_ORDER: [N] f32}); every component is computed on every node,
+    only the normalizers and the zone sums are taken over the feasible set."""
+    feasible, stages = feasibility(tb, cry, g, forced, valid, filters, enable_gpu=enable_gpu,
+                                   enable_storage=enable_storage)
+    comp = score_components(tb, cry, g, feasible, n_zones, w, enable_storage)
+    N = feasible.shape[0]
+    comp = {k: torch.as_tensor(v, dtype=_F32, device=feasible.device).expand(N)
+            for k, v in comp.items()}  # openlocal is a python 0.0 without storage
+    return feasible, {k: stages[k] for k in EXPLAIN_STAGES}, components_total(comp), comp
+
+
+def pack_explain(feasible, stages: dict, total, comp: dict) -> torch.Tensor:
+    """The [EXPLAIN_ROWS, N] f32 rows of an `explain_pod` result (masks as
+    1.0 / 0.0)."""
+    rows = [feasible, total] + [stages[k] for k in EXPLAIN_STAGES] + [comp[k] for k in
+                                                                     COMPONENT_ORDER]
+    return torch.stack([r.to(_F32) for r in rows])
+
+
+def unpack_explain(packed: torch.Tensor):
+    """`explain_pod`'s four-tuple from packed rows (views, no copy)."""
+    ns = len(EXPLAIN_STAGES)
+    stages = {k: packed[2 + i] > 0.5 for i, k in enumerate(EXPLAIN_STAGES)}
+    comp = {k: packed[2 + ns + i] for i, k in enumerate(COMPONENT_ORDER)}
+    return packed[0] > 0.5, stages, packed[1], comp
 
 
 def scores(tb: Tables, cry: Carry, g: int, feasible, n_zones: int,
@@ -1880,6 +1929,46 @@ def feasibility_jit(tb: Tables, cry: Carry, g: int, forced: int, valid: bool,
     return feasibility_kernel(tb, cry, g, forced, valid, filters, **flags)
 
 
+def explain_kernel(tb: Tables, cry: Carry, g: int, forced: int, valid: bool, n_zones: int,
+                   enable_gpu: bool = False, enable_storage: bool = False,
+                   w: ScoreWeights = DEFAULT_WEIGHTS,
+                   filters: FilterFlags = DEFAULT_FILTERS) -> torch.Tensor:
+    """Launch K7 (csrc/explain.cu explain_kernel): one block computes the
+    stages, components and total of `explain_pod` for group g. Returns the
+    [EXPLAIN_ROWS, N] f32 rows on the card (`unpack_explain` gives the
+    four-tuple); `cry` is only read."""
+    from . import build
+
+    lib = build.library()
+    dev = tb.alloc.device
+    N = tb.alloc.shape[0]
+    v = _view(tb, cry, n_zones, w, filters, enable_gpu, enable_storage)
+    # row i of the output holds stage bit perm[i]: EXPLAIN_STAGES mapped by
+    # name onto the STAGE_ROWS order of the kernels' stage bits, 4 bits each
+    perm = sum(STAGE_ROWS.index(k) << (4 * i) for i, k in enumerate(EXPLAIN_STAGES))
+    out = torch.empty((len(EXPLAIN_ROWS), N), dtype=_F32, device=dev)
+    scratch = torch.empty(int(lib.explain_scratch_floats(ctypes.byref(v))), dtype=_F32,
+                          device=dev)
+    _check(lib.explain_launch(ctypes.byref(v), int(g), int(forced), int(bool(valid)),
+                              ctypes.c_longlong(perm), _ptr(out), _ptr(scratch), _stream()),
+           "explain_kernel launch")
+    explain_jit.launches += 1
+    return out
+
+
+def explain_jit(tb: Tables, cry: Carry, g: int, forced: int, valid: bool, n_zones: int,
+                enable_gpu: bool = False, enable_storage: bool = False,
+                w: ScoreWeights = DEFAULT_WEIGHTS,
+                filters: FilterFlags = DEFAULT_FILTERS) -> torch.Tensor:
+    """The xray diagnostic (JAX `explain_jit`) as packed [EXPLAIN_ROWS, N]
+    f32 rows, the JAX engine's packed fetch: `explain_pod` packed for CPU
+    tensors, K7 for CUDA tensors. `unpack_explain` gives JAX's four-tuple."""
+    args = (tb, cry, g, forced, valid, n_zones, enable_gpu, enable_storage, w, filters)
+    if _on_cpu(tb.alloc):
+        return pack_explain(*explain_pod(*args))
+    return explain_kernel(*args)
+
+
 def schedule_batch(tb: Tables, cry: Carry, pod_group, forced_node, valid, n_zones: int,
                    w: ScoreWeights = DEFAULT_WEIGHTS, filters: FilterFlags = DEFAULT_FILTERS,
                    enable_gpu: bool = False, enable_storage: bool = False):
@@ -1947,7 +2036,8 @@ def schedule_affinity_wave(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
     tensors, K5 for CUDA tensors, then `aggregate_commit`. Returns (new carry,
     per-node counts [N] i32, placed). The epoch statistics (AFFINITY_STATS)
     are added to `schedule_affinity_wave.stats`, an i32 tensor on the
-    wrapper's device (adding them up does not wait for the card)."""
+    wrapper's device (adding them up does not wait for the card), and this
+    call's alone are `schedule_affinity_wave.last_stats`."""
     if _on_cpu(tb.alloc):
         j, placed, st = schedule_affinity_wave_plain(tb, cry, g, m, cap1, ss_live, w, filters,
                                                      block, n_zones)
@@ -1958,6 +2048,7 @@ def schedule_affinity_wave(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
     prev = schedule_affinity_wave.stats
     schedule_affinity_wave.stats = (stats if prev is None or prev.device != stats.device
                                     else prev + stats)
+    schedule_affinity_wave.last_stats = stats
     return aggregate_commit(tb, cry, g, j), j, placed
 
 
@@ -2667,12 +2758,13 @@ _WRAPPERS = {"schedule_batch": schedule_batch, "feasibility": feasibility_jit,
              "serve_whatif_fanout": serve_whatif_fanout, "serve_wave_fanout": serve_wave_fanout,
              "sweep_wave_fanout": sweep_wave_fanout, "sweep_whatif_fanout": sweep_whatif_fanout,
              "aggregate_commit_lanes": aggregate_commit_lanes,
-             "extend_tables": extend_tables_on_device}
+             "extend_tables": extend_tables_on_device, "explain_jit": explain_jit}
 for _f in _WRAPPERS.values():
     _f.launches = 0
 schedule_batch.last_events = None
 schedule_wave.stats = None
 schedule_affinity_wave.stats = None
+schedule_affinity_wave.last_stats = None
 # launches of the kernels with their GPU-share / Open-Local branches on (a
 # part of the wrappers' own counts)
 BRANCH_LAUNCHES = dict.fromkeys(("feasibility/gpu_storage", "schedule_batch/gpu_storage",

@@ -137,3 +137,48 @@ def normalize_report(text: str) -> str:
             if len(cells) == 2 and "(" in cells[1]:
                 lines[i] = cells[0] + "  " + ", ".join(sorted(cells[1].split(", ")))
     return "\n".join(lines)
+
+
+def xray_trace_digest(prefix: str) -> dict:
+    """Digest of a flight-recorder trace (`PREFIX.jsonl` + `PREFIX.npz`,
+    obs/xray.py): what two recordings of the same inputs share bit for bit,
+    whichever package or device wrote them. `set_sha256` holds one sha256
+    per decision set, in set order, over its (group, forced, seg) as i32
+    and its total, components, stage-mask bits and feasible bits as stored;
+    the records' digests cover the set records (n_feasible, stage_reject,
+    topk, reasons) and the batch records with their pod rows, each as
+    sorted-key JSON, backend_path left out."""
+    import hashlib
+
+    import numpy as np
+
+    from .obs.xray import UNSCHEDULABLE
+
+    sets, batches = [], []
+    with open(prefix + ".jsonl", encoding="utf-8") as f:
+        for line in f:
+            rec = json.loads(line)
+            if rec["kind"] == "set":
+                sets.append(rec)
+            elif rec["kind"] == "batch":
+                rec.pop("backend_path", None)
+                batches.append(rec)
+    set_sha = []
+    if sets:
+        with np.load(prefix + ".npz") as z:
+            for rec in sets:
+                h = hashlib.sha256(np.array([rec["group"], rec["forced"], rec["seg"]],
+                                            "<i4").tobytes())
+                for part in ("total", "comp", "mask", "feas"):
+                    h.update(np.ascontiguousarray(z[f"s{rec['id']}_{part}"]).tobytes())
+                set_sha.append(h.hexdigest())
+
+    def sha_json(x) -> str:
+        return hashlib.sha256(json.dumps(x, sort_keys=True,
+                                         separators=(",", ":")).encode()).hexdigest()
+
+    return {"sets": len(sets), "empty_sets": sum(1 for r in sets if r["n_feasible"] == 0),
+            "pods": sum(len(b["pods"]) for b in batches),
+            "unscheduled_rows": sum(b["result"].count(UNSCHEDULABLE) for b in batches),
+            "set_sha256": set_sha, "set_records_sha256": sha_json(sets),
+            "pod_rows_sha256": sha_json(batches)}

@@ -39,8 +39,11 @@ serial lane (`kernels.serve_whatif_fanout` over the union batch, K2 over
 lanes). The image lives on the device named at `try_build` (the card by
 default; "cpu" runs the plain versions).
 
-Not ported: the watchdog, fault sites, scope spans, metrics and xray records
-(ROADMAP A9), the scenario mesh (A12), custom scheduler configs (A7), and the
+With the flight recorder on (obs/xray.py), each `dispatch_sessions` call
+commits one probe record per session (counts only).
+
+Not ported: the watchdog, fault sites, scope spans and metrics (ROADMAP A9),
+the scenario mesh (A12), custom scheduler configs (A7), and the
 micro-batching service, HA state and watch sync built on this image (A10b).
 """
 
@@ -514,7 +517,20 @@ class ResidentImage:
                 for (i, _), resp in zip(serial, self._dispatch_serial(
                         [s for _, s in serial], lanes)):
                     out[i] = resp
+            self._xray_sessions(out)
             return out
+
+    def _xray_sessions(self, responses: List[dict]) -> None:
+        """simonxray ride-along: one probe record per dispatched session
+        (counts only: serving never materializes placements)."""
+        from ..obs import xray
+
+        run = xray.begin_run("serve")
+        if run is None:
+            return
+        for r in responses:
+            run.add_probe(r["scheduled"], r["total"])
+        xray.commit_run(run, [self.device.type])
 
     def _wave_route(self, session: WhatIfSession):
         """(g, m, cap1) when the whole request is m unpinned replicas of ONE

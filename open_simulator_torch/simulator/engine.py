@@ -24,6 +24,16 @@ with a pre-assigned gpu-index, or sharing GPUs under live counters take the
 serial route, and the host ledgers (`GpuShareHost`, `OpenLocalHost`) write
 the gpu-index annotations and the storage state as each pod commits.
 
+The xray flight recorder (obs/xray.py, `apply --xray`) stages one batch
+record per run of unbound pods and one decision set per (group, forced,
+segment) key, evaluated against the segment's START carry by
+`kernels.explain_jit` (K7 on the card): one launch and one packed fetch per
+set, after the dispatch loop. Off (the default), it costs one None-check
+per call. The metric catalog (obs/instruments.py) counts attempts,
+segments, commits, filter rejections and the encode / host-commit seconds
+of every run; each run is a `schedule_run` span (utils/trace.py) with its
+encode / to_device / dispatch / fetch / commit steps.
+
 Behavioral parity notes (as in the JAX engine):
 - Pods arriving with spec.nodeName are committed directly without any
   filter/capacity check (simulator.go:326-331); a pre-bound pod flushes the
@@ -41,8 +51,7 @@ Left out of this port so far, each with the ROADMAP item it waits for:
 - preemption (mixed pod priorities raise): A6;
 - custom scheduler configs and out-of-tree plugins: A7;
 - the watchdog, CPU failover, fault injection and transactional rollback
-  (resilience/): A9;
-- metrics, pulse and xray instrumentation (obs/): A9;
+  (resilience/), and the pulse and scope instrumentation (obs/): A9;
 - the columnar PodStore/NodeStore batches: A14;
 - the node-axis mesh: A12.
 """
@@ -50,7 +59,9 @@ Left out of this port so far, each with the ROADMAP item it waits for:
 from __future__ import annotations
 
 import copy
+import dataclasses
 import os
+import time
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -60,6 +71,8 @@ from ..algo.queues import sort_affinity, sort_toleration
 from ..core import constants as C
 from ..core.types import AppResource, NodeStatus, ResourceTypes, SimulateResult, UnscheduledPod
 from ..models.workloads import generate_valid_pods_from_app
+from ..obs import instruments as obs
+from ..obs import xray
 from ..ops import kernels
 from ..ops.resources import ResourceAxis, pod_nonzero_cpu_mem
 from ..utils.objutil import (
@@ -71,6 +84,7 @@ from ..utils.objutil import (
     pod_host_ports,
     selector_from_set,
 )
+from ..utils.trace import Span
 from .encode import (
     HOSTNAME,
     SIG_MEMO_KEY,
@@ -115,6 +129,13 @@ _SERIAL = GroupRoute(None, False, False, False, False)
 # that cross it, so another size puts pods of one group on other nodes (the
 # per-node census stays the same). Both packages must chunk alike.
 STREAM_PODS = 131072
+
+
+def batch_tables_nbytes(bt: BatchTables) -> int:
+    """Host bytes a BatchTables stages for device transfer (tables + seeds):
+    the simon_device_transfer_bytes_total accounting unit."""
+    return sum(v.nbytes for f in dataclasses.fields(bt)
+               if isinstance(v := getattr(bt, f.name), np.ndarray))
 
 
 def resolve_device(device=None) -> torch.device:
@@ -217,6 +238,7 @@ class Simulator:
         self.disable_progress = disable_progress
         self.patch_pod_funcs = patch_pod_funcs or []
         self._progress = None
+        self._xray_run: Optional[xray.XrayRun] = None  # this call's staging, when recording
         # The segment router: runs of identical pods go to the wave kernels.
         # False sends every pod through the serial scan.
         self.use_waves = True
@@ -309,9 +331,18 @@ class Simulator:
         """The schedulePods loop (simulator.go:309-348), batched while keeping
         the reference's strictly serial order: runs of unbound pods become one
         kernel dispatch; a pre-bound pod (spec.nodeName) flushes the run first,
-        then commits directly."""
+        then commits directly. With the flight recorder on, the call's
+        records commit when it returns; a call that raises commits none."""
         self._check_priorities(pods)
-        return self._schedule_pods_inner(pods)
+        t0 = time.perf_counter()
+        try:
+            self._xray_run = xray.begin_run("schedule")
+            result = self._schedule_pods_inner(pods)
+            self._xray_commit()
+            return result
+        finally:
+            self._xray_run = None
+            obs.E2E_SECONDS.observe(time.perf_counter() - t0)
 
     def _check_priorities(self, pods: List[dict]) -> None:
         """More than one distinct spec.priority across all calls would arm
@@ -331,6 +362,8 @@ class Simulator:
         run: List[dict] = []
         progress = Progress("Scheduling pods", len(pods), enabled=not self.disable_progress)
         self._progress = progress if progress.enabled else None
+        xr = self._xray_run
+        direct = None  # lazy xray batch for pre-bound/homeless direct commits
         for pod in pods:
             node_name = (pod.get("spec") or {}).get("nodeName")
             if not node_name:
@@ -341,13 +374,22 @@ class Simulator:
             if self._progress is not None:
                 self._progress.advance(1)
             ni = self.na.index.get(node_name)
+            if xr is not None and direct is None:
+                direct = xr.new_batch(self.na.names, self._cfg_digest(), [])
             if ni is None:
                 # the reference's fakeclient accepts pods bound to unknown nodes
                 # and drops them from every report; keep them on self.homeless
                 pod.pop(SIG_MEMO_KEY, None)
                 self.homeless.append(pod)
+                obs.SCHED_ATTEMPTS.labels(result="homeless").inc()
+                if direct is not None:
+                    direct.add_pod(xray.pod_key(pod), xray.HOMELESS, -1, -1, -1)
             else:
                 self._commit_pod(pod, ni, scheduled=False)
+                obs.SCHED_ATTEMPTS.labels(result="bound").inc()
+                obs.COMMITS.inc()
+                if direct is not None:
+                    direct.add_pod(xray.pod_key(pod), xray.BOUND, ni, -1, -1)
         failed.extend(self._schedule_run(run))
         progress.close()
         if self.gpu_host.enabled:
@@ -391,16 +433,25 @@ class Simulator:
         if not to_schedule:
             return []
         if self.na.N == 0:
-            return [UnscheduledPod(pod, self._format_reason(pod, {}, 0)) for pod in to_schedule]
+            obs.SCHED_ATTEMPTS.labels(result="unschedulable").inc(len(to_schedule))
+            out = [UnscheduledPod(pod, self._format_reason(pod, {}, 0)) for pod in to_schedule]
+            if self._xray_run is not None:
+                xb = self._xray_run.new_batch([], self._cfg_digest(), [])
+                for u in out:
+                    xb.add_pod(xray.pod_key(u.pod), xray.UNSCHEDULABLE, -1, -1, -1,
+                               reason=u.reason)
+            return out
         chunk = self._stream_chunk
         if not chunk or len(to_schedule) <= chunk:
             return self._schedule_run_once(to_schedule)
         failed: List[UnscheduledPod] = []
         for off in range(0, len(to_schedule), chunk):
+            obs.STREAM_CHUNKS.inc()
             failed.extend(self._schedule_run_once(to_schedule[off:off + chunk]))
         return failed
 
     def _to_device(self, bt: BatchTables):
+        obs.TRANSFER_BYTES.inc(batch_tables_nbytes(bt))
         return (kernels.tables_from_batch(bt, self.device),
                 kernels.carry_from_batch(bt, self.device))
 
@@ -549,8 +600,11 @@ class Simulator:
         (enable_gpu, enable_storage) of the batch, for the serial scan."""
         kind, start, length = seg[:3]
         w, filters = self.score_w, self.filter_flags
+        dims = self._dispatch_dims(bt)
         if kind == "serial":
             pad = bucket_capped(length, 2048)
+            obs.record_dispatch("schedule_batch", P=pad, zones=bt.n_zones, gpu=flags[0],
+                                storage=flags[1], **dims)
             pg = np.zeros(pad, np.int32)
             pg[:length] = bt.pod_group[start:start + length]
             fn = np.full(pad, -1, np.int32)
@@ -565,12 +619,17 @@ class Simulator:
         if kind == "wave":
             block = kernels.wave_block_for(length, self.na.N)
             kmax = kernels.wave_kmax(length, self.na.N, block)
+            obs.record_dispatch("schedule_wave", block=block, k=kmax, gpu_live=bool(seg[5]),
+                                **dims)
             carry, counts, _ = kernels.schedule_wave(tables, carry, g, length, cap1, w=w,
                                                      filters=filters, block=block, kmax=kmax,
                                                      gpu_live=bool(seg[5]))
             return carry, counts
         if kind == "spread":
             ss_live, sa_live = bool(seg[5]), bool(seg[6])
+            obs.record_dispatch("schedule_group_serial", P=bucket_capped(length, 2048),
+                                ss=ss_live, sa=sa_live, zones=bt.n_zones if ss_live else 2,
+                                **dims)
             vd = np.zeros(bucket_capped(length, 2048), bool)
             vd[:length] = True
             carry, counts, _ = kernels.schedule_group_serial(
@@ -580,23 +639,51 @@ class Simulator:
         # "affinity": counter-live hard predicates, the epoch-batched wave
         ss_live = bool(seg[5])
         block = kernels.wave_block_for(length, self.na.N)
+        obs.record_dispatch("schedule_affinity_wave", block=block, ss=ss_live,
+                            zones=bt.n_zones if ss_live else 2, **dims)
         carry, counts, _ = kernels.schedule_affinity_wave(
             tables, carry, g, length, cap1, ss_live=ss_live, w=w, filters=filters, block=block,
             n_zones=bt.n_zones if ss_live else 2)
         return carry, counts
 
     def _schedule_run_once(self, to_schedule: List[dict]) -> List[UnscheduledPod]:
-        bt = self.encode_batch(to_schedule)
+        with Span("schedule_run", log_if_longer=30.0) as span:
+            t_enc = time.perf_counter()
+            bt = self.encode_batch(to_schedule)
+            obs.ENCODE_SECONDS.observe(time.perf_counter() - t_enc)
+            obs.ENCODE_BYTES.inc(batch_tables_nbytes(bt))
+            obs.BATCH_PODS.observe(len(to_schedule))
+            span.step("encode")
+            tables, carry = self._to_device(bt)
+            span.step("to_device")
+            return self._dispatch_and_commit(to_schedule, bt, tables, carry, span)
+
+    def _dispatch_and_commit(self, to_schedule: List[dict], bt: BatchTables, tables, carry,
+                             span: Span) -> List[UnscheduledPod]:
         flags = plugin_flags(bt)  # (enable_gpu, enable_storage)
-        tables, carry = self._to_device(bt)
         P = len(to_schedule)
         segs = self._segments(bt, P) if self.use_waves else [("serial", 0, P)]
+        for seg in segs:
+            obs.SEGMENTS.labels(kind=seg[0]).inc()
+            obs.SEGMENT_PODS.labels(kind=seg[0]).inc(seg[2])
+        # the flight recorder stages one batch record per run
+        xr = self._xray_run
+        xb = (xr.new_batch(self.na.names, self._cfg_digest(),
+                           [{"kind": s[0], "start": s[1], "len": s[2],
+                             "group": (s[3] if len(s) > 3 else -1)} for s in segs])
+              if xr is not None else None)
+        carry0 = carry  # segment k starts from outs[k-1]'s end carry, or this for k == 0
         # every segment chains from the previous one's end carry; the results
-        # come back in ONE fetch
+        # come back in ONE fetch. The kernels return new carries, so every
+        # segment's start carry stays alive for the decision sets below.
         outs: List[tuple] = []  # (seg, i32 device result, carry after the segment)
+        aff_stats: Dict[int, torch.Tensor] = {}  # outs index -> [3] i32 epoch statistics
         for seg in segs:
             carry, res = self._dispatch(seg, bt, tables, carry, flags)
+            if seg[0] == "affinity" and xb is not None:
+                aff_stats[len(outs)] = kernels.schedule_affinity_wave.last_stats
             outs.append((seg, res, carry))
+        span.step("dispatch")
         self._last_carry = carry
         flat = torch.cat([res for _, res, _ in outs]).cpu().numpy()
         choices = np.full(P, -1, np.int32)
@@ -618,26 +705,86 @@ class Simulator:
             n = self.segment_census.setdefault(seg[0], [0, 0])
             n[0] += 1
             n[1] += seg[2]
+        if aff_stats:
+            # ONE packed fetch for every affinity segment's epoch counters
+            order = sorted(aff_stats)
+            vals = torch.stack([aff_stats[k] for k in order]).cpu().tolist()
+            for k, v in zip(order, vals):
+                st = {"epochs": v[0], "head_fallbacks": v[1], "rounds": v[2]}
+                span.step(f"affinity[g={segs[k][3]}] epochs={st['epochs']} "
+                          f"rounds={st['rounds']} head_fallbacks={st['head_fallbacks']}")
+                xb.segments[k]["stats"] = st
+        span.step("fetch")
 
         failed: List[UnscheduledPod] = []
         reason_cache: Dict[Tuple[int, int, int], Dict[str, int]] = {}
+        failed_of: Dict[Tuple[int, int, int], int] = {}  # key -> its failed pods
+        set_cache: Dict[Tuple[int, int, int], int] = {}  # key -> run-local set id
+
+        def xray_sid(key: Tuple[int, int, int]) -> int:
+            """The decision set of a (group, forced, segment) key, built once
+            per key per batch against the segment-START carry."""
+            sid = set_cache.get(key)
+            if sid is None:
+                k = key[2]
+                s = self._xray_set(key, tables, outs[k - 1][2] if k > 0 else carry0, bt, flags)
+                sid = set_cache[key] = xr.add_set(s)
+            return sid
+
+        t_commit = time.perf_counter()
         progress = self._progress
+        if xb is not None:  # plain ints once per batch, not per pod
+            pg_l = bt.pod_group[:P].tolist()
+            fn_l = bt.forced_node[:P].tolist()
+            seg_l = seg_of.tolist()
         for i, pod in enumerate(to_schedule):
             if progress is not None:
                 progress.advance(1)
             node_i = int(choices[i])
+            if xb is not None:
+                key = (pg_l[i], fn_l[i], seg_l[i])
+            elif node_i < 0:
+                key = (int(bt.pod_group[i]), int(bt.forced_node[i]), int(seg_of[i]))
             if node_i >= 0:
                 self._commit_pod(pod, node_i)
+                if xb is not None:
+                    xb.add_pod(xray.pod_key(pod), xray.SCHEDULED, node_i, key[2], xray_sid(key),
+                               group=key[0])
                 continue
             # pods of one group share tolerations/requests: diagnose once per
             # (group, forced, segment) against the end carry of the segment
-            key = (int(bt.pod_group[i]), int(bt.forced_node[i]), int(seg_of[i]))
             reasons = reason_cache.get(key)
             if reasons is None:
                 reasons = reason_cache[key] = self._explain_reasons(
                     pod, key[0], key[1], tables, outs[key[2]][2], flags)
             pod.pop(SIG_MEMO_KEY, None)
-            failed.append(UnscheduledPod(pod, self._format_reason(pod, reasons, self.na.N)))
+            failed_of[key] = failed_of.get(key, 0) + 1
+            reason = self._format_reason(pod, reasons, self.na.N)
+            if xb is not None:
+                sid = xray_sid(key)
+                xr.sets[sid][1].reasons = dict(reasons)
+                xb.add_pod(xray.pod_key(pod), xray.UNSCHEDULABLE, -1, key[2], sid,
+                           group=key[0], reason=reason)
+            failed.append(UnscheduledPod(pod, reason))
+        for key, n in failed_of.items():
+            obs.record_filter_reasons(reason_cache[key], n)
+        obs.HOST_COMMIT_SECONDS.observe(time.perf_counter() - t_commit)
+        placed_n = P - len(failed)
+        obs.SCHED_ATTEMPTS.labels(result="scheduled").inc(placed_n)
+        if failed:
+            obs.SCHED_ATTEMPTS.labels(result="unschedulable").inc(len(failed))
+        obs.COMMITS.inc(placed_n)
+        span.step("commit")
+        if xb is not None:
+            # the schedule_run span carries this batch's decision summary into
+            # the Chrome trace (obs/chrome.py args)
+            span.annotate("xray", {
+                "pods": P, "scheduled": placed_n, "unscheduled": len(failed),
+                "decision_sets": len(set_cache), "segments": xb.segments,
+                "unscheduled_sample": [
+                    {"pod": u.pod.get("metadata", {}).get("name"), "reason": u.reason}
+                    for u in failed[:8]],
+            })
         return failed
 
     # ------------------------------------------------------------ probing ---------
@@ -654,8 +801,18 @@ class Simulator:
         pre-bound pods all commit BEFORE the unbound run, whatever their list
         position, and pods bound to unknown nodes drop out of the totals as
         schedule_pods drops them from every report. Like the JAX probe, it
-        runs no preemption, so mixed priorities do not raise here."""
-        return self._probe_pods_inner(pods)
+        runs no preemption, so mixed priorities do not raise here. With the
+        flight recorder on, the call commits one probe record (counts only:
+        no pod rows, no decision sets)."""
+        self._xray_run = xray.begin_run("probe")
+        try:
+            result = self._probe_pods_inner(pods)
+            if self._xray_run is not None:
+                self._xray_run.add_probe(result[0], result[1])
+            self._xray_commit()
+            return result
+        finally:
+            self._xray_run = None
 
     def _probe_pods_inner(self, pods: List[dict]) -> Tuple[int, int]:
         run: List[dict] = []
@@ -677,6 +834,7 @@ class Simulator:
         if not run or self.na.N == 0:
             return scheduled, total_known
         bt = self.encode_batch(run)
+        obs.ENCODE_BYTES.inc(batch_tables_nbytes(bt))
         tables, carry = self._to_device(bt)
         flags = plugin_flags(bt)
         P = len(run)
@@ -712,6 +870,57 @@ class Simulator:
             "mem_alloc": float(alloc[:, MEM_I].sum()),
         }
 
+    # ------------------------------------------------------------- xray ----------
+
+    def _cfg_digest(self) -> str:
+        """Score-weight / filter-flag digest shared by the dispatch signature
+        (`_dispatch_dims`) and the xray batch records (the JAX engine's)."""
+        return f"{hash((self.score_w, self.filter_flags)) & 0xffffffff:08x}"
+
+    def _dispatch_dims(self, bt) -> Dict[str, object]:
+        """Static shape parts shared by every kernel dispatch over this
+        batch's tables (BatchTables, or their kernels.Tables): the signature
+        base of obs.record_dispatch."""
+        return {"N": int(bt.alloc.shape[0]), "G": int(bt.static_mask.shape[0]),
+                "T": int(bt.counter_dom.shape[0]), "mesh": False, "cfg": self._cfg_digest()}
+
+    def _xray_commit(self) -> None:
+        """Commit this call's staged decision records. A recorder failure
+        (disk full, unwritable path) must never fail a successful scheduling
+        call: it is logged loudly and recording stops."""
+        run = self._xray_run
+        if run is None:
+            return
+        try:
+            xray.commit_run(run, [self.device.type], self._cfg_digest())
+        except Exception:
+            import logging
+
+            logging.getLogger("open_simulator_torch").exception(
+                "xray: trace commit failed; disabling recording for this process (the "
+                "scheduling result itself is unaffected)")
+            xray.disable()
+
+    def _xray_set(self, key3: Tuple[int, int, int], tables, carry_start, bt: BatchTables,
+                  flags: Tuple[bool, bool]) -> xray.XraySet:
+        """One decision set: the per-stage masks, total score and per-plugin
+        components of a (group, forced, segment) key against the segment-START
+        carry (the state the segment's first pick saw), from ONE
+        `kernels.explain_jit` launch (K7 on the card) and ONE packed fetch.
+        Called once per key per batch, never per pod."""
+        g, forced, seg = key3
+        obs.record_dispatch("explain_pod", xray=True, zones=bt.n_zones, gpu=flags[0],
+                            storage=flags[1], **self._dispatch_dims(bt))
+        packed = kernels.explain_jit(tables, carry_start, g, forced, True, bt.n_zones,
+                                     enable_gpu=flags[0], enable_storage=flags[1],
+                                     w=self.score_w, filters=self.filter_flags)
+        packed = packed.cpu().numpy()[:, :self.na.N]  # drop the phantom node padding
+        ns = len(xray.STAGE_NAMES)
+        stage_rows = {s: packed[2 + i] > 0.5 for i, s in enumerate(xray.STAGE_NAMES)}
+        comp_rows = {c: packed[2 + ns + i] for i, c in enumerate(kernels.COMPONENT_ORDER)}
+        return xray.XraySet(g, forced, seg, stage_rows, packed[1], comp_rows, packed[0] > 0.5,
+                            self.na.names)
+
     # ------------------------------------------------- unschedulable reasons ------
 
     _STAGE_ORDER = (
@@ -734,6 +943,8 @@ class Simulator:
         kernels.feasibility_jit with the batch's (enable_gpu, enable_storage)
         (findNodesThatFitPod failure accounting, first-failing plugin per
         node)."""
+        obs.record_dispatch("feasibility_jit", gpu=flags[0], storage=flags[1],
+                            **self._dispatch_dims(tables))
         _, stages = kernels.feasibility_jit(tables, carry, g, forced, True, self.filter_flags,
                                             enable_gpu=flags[0], enable_storage=flags[1])
         N = self.na.N  # stages carry phantom node padding; slice it off

@@ -27,8 +27,12 @@ eligible-domain sets depend on which nodes exist), no node-advertised images
 pod after an unbound one, and every encoded template column bit-identical
 across the copies with zero seeds (`_template_columns_uniform`).
 
+With the flight recorder on (obs/xray.py), each `probe_many` round commits
+one probe record per candidate (counts only: a session never materializes
+placements).
+
 Not ported: the scenario mesh (A12), and the watchdog, fault sites, rollback
-transaction, metrics and xray records (A9).
+transaction and metrics (A9).
 """
 
 from __future__ import annotations
@@ -307,7 +311,20 @@ class ProbeSession:
         for i, n in enumerate(order):
             scheduled = self.bound_scheduled + int(placed_s[i])
             out[n] = (scheduled, self.total_known, self._utilization(n, requested_s[i]))
+        self._xray_probes(out)
         return out
+
+    def _xray_probes(self, out) -> None:
+        """simonxray ride-along: one probe record per candidate evaluated by
+        this round (counts only), tagged with the session's device."""
+        from ..obs import xray
+
+        run = xray.begin_run("probe_session")
+        if run is None:
+            return
+        for n, (scheduled, total, _) in sorted(out.items()):
+            run.add_probe(scheduled, total, candidate=n)
+        xray.commit_run(run, [self.device.type])
 
     def _dispatch_round(self, active_s: np.ndarray):
         """One fan-out per segment, chained from the seed carry broadcast

@@ -26,9 +26,11 @@ device-resident cluster image (serve/image.py):
 Lanes are shape-bucketed into chunks of at most `fanout` (the JAX runner's
 rule), so the report's dispatch counts are the JAX package's.
 
-Not ported: the failover of a failed chunk to fresh runs, scope spans,
-metrics and xray records (ROADMAP A9: a failure propagates), and the
-scenario mesh (A12).
+With the flight recorder on (obs/xray.py), a run commits one probe record
+per scenario (counts only).
+
+Not ported: the failover of a failed chunk to fresh runs, scope spans and
+metrics (ROADMAP A9: a failure propagates), and the scenario mesh (A12).
 """
 
 from __future__ import annotations
@@ -153,7 +155,20 @@ class SweepRunner:
         self._check_parity()
         # walls for the CLI's stderr line, never in the report
         self.seconds = {"batched": t_parity - t0, "parity": time.perf_counter() - t_parity}
+        self._xray_results()
         return self.results
+
+    def _xray_results(self) -> None:
+        """simonxray ride-along: one probe record per swept scenario."""
+        from ..obs import xray
+
+        run = xray.begin_run("sweep")
+        if run is None:
+            return
+        for sid in sorted(self.results):
+            r = self.results[sid]
+            run.add_probe(r.scheduled, r.total, candidate=sid)
+        xray.commit_run(run, [self.device.type])
 
     def _build_image(self) -> None:
         from ..serve.image import ResidentImage

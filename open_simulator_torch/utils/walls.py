@@ -3,7 +3,7 @@
     python open_simulator_torch/utils/walls.py [--root DIR] [--repeat K] [kind ...]
 
 Runs golden clusters of `tests/test_torch_golden.py` (default: hard_waves,
-overflow_waves, affinity) through `Simulator.schedule_pods` of the port found
+overflow_waves, affinity; also spread and extended) through `Simulator.schedule_pods` of the port found
 under DIR (default: this checkout) on the card, checks each run against this
 checkout's golden, and prints one JSON line per run with its wall clock
 (after `torch.cuda.synchronize()`), the port's segment census and kernel
@@ -42,7 +42,8 @@ import numpy as np
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # kind -> (generator, nodes, pods), as tests/test_torch_golden.py SCENARIOS
 KINDS = {"hard_waves": ("hard", 5000, 50000), "overflow_waves": ("hard", 100, 30000),
-         "spread": ("spread", 5000, 20000), "affinity": ("affinity", 5000, 20000)}
+         "spread": ("spread", 5000, 20000), "affinity": ("affinity", 5000, 20000),
+         "extended": ("extended", 2000, 20000)}
 
 
 def _synth():
@@ -54,10 +55,12 @@ def _synth():
 
 
 def workload(synth, gen: str, n_nodes: int, n_pods: int) -> tuple:
+    """(nodes, pods, services, storage classes) of a KINDS generator."""
     if gen == "hard":
         nodes, pods = synth.synth_cluster(n_nodes, n_pods, hard_predicates=True)
-        return nodes, pods, []
-    return getattr(synth, f"synth_{gen}_cluster")(n_nodes, n_pods)
+        return nodes, pods, [], []
+    out = getattr(synth, f"synth_{gen}_cluster")(n_nodes, n_pods)
+    return out if len(out) == 4 else (*out, [])
 
 
 def main() -> int:
@@ -88,9 +91,9 @@ def main() -> int:
     for kind in args.kinds:
         if kind in synth.CAPACITY_SCENARIOS:
             continue  # the search warms up on its first run
-        nodes, pods, services = workload(synth, KINDS[kind][0], 64, 640)
+        nodes, pods, services, scs = workload(synth, KINDS[kind][0], 64, 640)
         sim = Simulator(nodes, device="cuda")
-        sim.register_cluster_objects(ResourceTypes(services=services))
+        sim.register_cluster_objects(ResourceTypes(services=services, storage_classes=scs))
         sim.schedule_pods(pods)
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -101,10 +104,10 @@ def main() -> int:
             if kind in synth.CAPACITY_SCENARIOS:
                 bad += capacity_wall(synth, kind, args.root, card)
                 continue
-            nodes, pods, services = workload(synth, *KINDS[kind])
+            nodes, pods, services, scs = workload(synth, *KINDS[kind])
             K.reset_launch_counts()
             sim = Simulator(nodes, device="cuda")
-            sim.register_cluster_objects(ResourceTypes(services=services))
+            sim.register_cluster_objects(ResourceTypes(services=services, storage_classes=scs))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             failed = sim.schedule_pods(pods)

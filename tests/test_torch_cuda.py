@@ -522,3 +522,49 @@ def test_per_lane_wave_equals_single_lane_kernel():
                                           K.carry_lane(cry_s, s), int(g_s[s]), int(m_s[s]),
                                           bool(cap1_s[s]), **kw)
         assert torch.equal(j_s[s], j) and int(p_s[s]) == int(p) and torch.equal(st_s[s], st)
+
+
+def _same_explain(k_packed, p):
+    """K7's packed rows against the plain explain_pod four-tuple, bit for bit."""
+    kf, ks, ktot, kcomp = K.unpack_explain(k_packed)
+    pf, ps, ptot, pcomp = p
+    assert torch.equal(kf, pf)
+    for k in K.EXPLAIN_STAGES:
+        assert torch.equal(ks[k], ps[k]), k
+    assert torch.equal(ktot.view(torch.int32), ptot.view(torch.int32))
+    for k in K.COMPONENT_ORDER:
+        assert torch.equal(kcomp[k].view(torch.int32), pcomp[k].contiguous().view(torch.int32)), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["hard", "extended"])
+def test_explain_kernel_matches_plain_version(kind):
+    """K7 against plain explain_pod on every group, with and without a forced
+    node, against the seed carry, a mid-run carry and a full carry (no node
+    feasible); the extended cluster with the GPU-share and Open-Local
+    branches on."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.utils.synth import synth_extended_cluster
+
+    if kind == "hard":
+        nodes, pods = synth_cluster(256, 1500, hard_predicates=True)
+        scs = []
+    else:
+        nodes, pods, _, scs = synth_extended_cluster(256, 1200)
+    sim = Simulator(nodes, device="cuda")
+    sim.register_cluster_objects(ResourceTypes(storage_classes=scs))
+    bt = sim.encode_batch(pods)
+    tb, seed = sim._to_device(bt)
+    ext = kind == "extended"
+    flags = dict(enable_gpu=ext, enable_storage=ext)
+    args = [torch.from_numpy(a).cuda() for a in (bt.pod_group, bt.forced_node, bt.valid)]
+    mid, _ = K.schedule_batch_kernel(tb, seed, *args, bt.n_zones, **flags)
+    full = seed._replace(requested=tb.alloc.clone())
+    N = int(tb.alloc.shape[0])
+    for cry in (seed, mid, full):
+        for g in sorted({int(g) for g in bt.pod_group[:len(pods)]}):
+            for forced in (-1, (7 * g + 3) % N):
+                got = K.explain_kernel(tb, cry, g, forced, True, bt.n_zones, **flags)
+                _same_explain(got, K.explain_pod(tb, cry, g, forced, True, bt.n_zones, **flags))

@@ -22,6 +22,15 @@ JAX `Applier.run()` on the repo's example configs: nodes added and the
 report with its fake-node names normalized (parity.normalize_report):
 
     JAX_PLATFORMS=cpu python tests/test_torch_golden.py --write capacity capacity_lanes
+
+The flight recorder's goldens, `xray_hard_waves` and `xray_extended`, hold
+the JAX package's trace of the `hard_waves` and `extended` runs recorded
+with `--xray` (open_simulator_torch/parity.py `xray_trace_digest`: the set
+count, one sha256 per decision set over its arrays, the set records' and
+the pod rows' digests) and the placements of the same run with recording
+off:
+
+    JAX_PLATFORMS=cpu python tests/test_torch_golden.py --write xray_hard_waves xray_extended
 """
 
 from __future__ import annotations
@@ -74,7 +83,10 @@ APPLY_SCENARIOS = {
     "apply_gpushare": ("examples/simon-gpushare-config.yaml", None, ("gpu",)),
     "apply_demo1": ("examples/simon-config.yaml", None, ("open-local", "gpu")),
 }
-ALL_KINDS = sorted(SCENARIOS) + ["capacity", "capacity_lanes"] + sorted(APPLY_SCENARIOS)
+# kind -> the SCENARIOS kind recorded with the flight recorder on
+XRAY_SCENARIOS = {"xray_hard_waves": "hard_waves", "xray_extended": "extended"}
+ALL_KINDS = (sorted(SCENARIOS) + ["capacity", "capacity_lanes"] + sorted(APPLY_SCENARIOS)
+             + sorted(XRAY_SCENARIOS))
 
 
 def golden_path(kind: str) -> str:
@@ -228,6 +240,25 @@ def apply_run(pkg: str, kind: str, device: str = "cpu") -> dict:
             "report": normalize_report(applier.out.getvalue())}
 
 
+def xray_run(pkg: str, kind: str, prefix: str, device: str = "cpu") -> dict:
+    """The XRAY_SCENARIOS run of package `pkg` recorded to `prefix`:
+    {"choices_sha256": placements, **xray_trace_digest(prefix)}."""
+    import importlib
+
+    from open_simulator_torch.parity import xray_trace_digest
+
+    gen, n_nodes, n_pods, serial = SCENARIOS[XRAY_SCENARIOS[kind]]
+    xray = importlib.import_module(f"{pkg}.obs.xray")
+    run = run_jax if pkg == "open_simulator_tpu" else run_port
+    kw = {} if pkg == "open_simulator_tpu" else {"device": device}
+    xray.enable(prefix)
+    try:
+        got = run(gen, n_nodes, n_pods, serial, **kw)
+    finally:
+        xray.disable()
+    return {"choices_sha256": got["choices_sha256"], **xray_trace_digest(prefix)}
+
+
 def compute(kind: str) -> dict:
     try:
         commit = subprocess.run(["git", "rev-parse", "HEAD"], cwd=REPO, capture_output=True,
@@ -241,6 +272,18 @@ def compute(kind: str) -> dict:
         return {"generator": gen, "max_cpu": max_cpu,
                 "route": "open_simulator_tpu CapacityPlanner.search(), one CPU device",
                 "commit": commit, **capacity_search("open_simulator_tpu", kind)}
+    if kind in XRAY_SCENARIOS:
+        import tempfile
+
+        gen, n_nodes, n_pods, serial = SCENARIOS[XRAY_SCENARIOS[kind]]
+        off = run_jax(gen, n_nodes, n_pods, serial)
+        with tempfile.TemporaryDirectory() as d:
+            on = xray_run("open_simulator_tpu", kind, os.path.join(d, "trace"))
+        if on["choices_sha256"] != off["choices_sha256"]:
+            raise AssertionError(f"{kind}: recording changed the JAX placements")
+        return {"generator": generator(gen, n_nodes, n_pods), "route": ROUTES[serial] + ", --xray",
+                "commit": commit, "recording_off_choices_sha256": off["choices_sha256"],
+                **{k: v for k, v in on.items() if k != "choices_sha256"}}
     if kind in APPLY_SCENARIOS:
         config, max_cpu, ext = APPLY_SCENARIOS[kind]
         return {"config": config, "max_cpu": max_cpu, "extended_resources": list(ext),
@@ -316,6 +359,33 @@ def test_planner_golden_files_are_consistent(kind):
     assert verdicts[n][0] == verdicts[n][1]  # everything schedules at the answer
     assert [list(h) for h in g["hist"]] == [[m, verdicts[m][1] - verdicts[m][0]]
                                            for m, _ in g["hist"]]
+
+
+XRAY_KEYS = ("sets", "empty_sets", "pods", "unscheduled_rows", "set_sha256",
+             "set_records_sha256", "pod_rows_sha256")
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("kind", sorted(XRAY_SCENARIOS))
+def test_xray_goldens_match_jax(kind):
+    got = compute(kind)
+    want = load(kind)
+    for k in XRAY_KEYS + ("recording_off_choices_sha256",):
+        assert got[k] == want[k], k
+
+
+@pytest.mark.parametrize("kind", sorted(XRAY_SCENARIOS))
+def test_xray_golden_files_are_consistent(kind):
+    g = load(kind)
+    base = SCENARIOS[XRAY_SCENARIOS[kind]]
+    assert g["generator"] == generator(*base[:3])
+    assert g["route"] == ROUTES[base[3]] + ", --xray"
+    # recording observes only: the placements are the unrecorded golden's
+    assert g["recording_off_choices_sha256"] == load(XRAY_SCENARIOS[kind])["choices_sha256"]
+    assert g["sets"] == len(g["set_sha256"]) and 0 < g["sets"]
+    assert g["empty_sets"] <= g["sets"]
+    assert g["pods"] == base[2]
+    assert g["unscheduled_rows"] == load(XRAY_SCENARIOS[kind])["unscheduled"]
 
 
 def test_small_scenario_both_packages():
