@@ -56,6 +56,18 @@ goldens the JAX package computed (tests/golden/torch_port_*.json):
   feasible node and a seeded sample of 32 others. The phase prints the
   recording-on and -off walls and the encode and host-commit seconds the
   metric catalog measured.
+- the node mesh (`parallel/`): two ranks spawned after the build share
+  cuda:0 over gloo (NCCL refuses two ranks on one card; the collectives
+  stage CUDA tensors through pinned host memory) and run `extended` (N
+  2,048 at the default epoch limit: K8 with the GPU-share branch),
+  `affinity` (N 5,120, OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES=8192: K9)
+  and `northstar` (N 10,240, the limit at 16,384: K8) through
+  `Simulator(use_mesh=True)` against their goldens on both ranks, with one
+  `pmax` and one all-gather per epoch; then K8 and K9 against their plain
+  sharded versions (on the card, on the same ranks) and the unsharded K3 /
+  K5 on one segment each. The phase prints the epochs, the collective
+  calls and bytes, the transport and each rank's wall; a rank that fails
+  fails the phase.
 
 Every phase prints one JSON line; any mismatch or error exits non-zero. The
 line before the card line lists every kernel with its launches on the main
@@ -66,6 +78,7 @@ no JAX and nothing of open_simulator_tpu.
 
 from __future__ import annotations
 
+import copy
 import hashlib
 import json
 import os
@@ -1294,6 +1307,231 @@ def xray_path(kind: str, nodes, pods, wall_off: float, card: str, storage_classe
             counts)
 
 
+# ---- the node mesh: two ranks that share the card ----------------------------
+
+EPOCH_LIMIT = "OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES"
+# (golden kind, the epoch path's node limit: None keeps the default 2,048)
+MESH_RUNS = (("extended", None), ("affinity", 8192), ("northstar", 16384))
+MESH_SHARDS = 2
+
+
+def mesh_cluster(kind: str):
+    """(nodes, pods, services, storage classes) of a MESH_RUNS kind."""
+    from open_simulator_torch.utils.synth import (synth_affinity_cluster, synth_cluster,
+                                                  synth_extended_cluster)
+
+    if kind == "extended":
+        nodes, pods, _, scs = synth_extended_cluster(2000, 20000)
+        return nodes, pods, [], scs
+    if kind == "affinity":
+        nodes, pods, services = synth_affinity_cluster(5000, 20000)
+        return nodes, pods, services, []
+    nodes, pods = synth_cluster(10000, 100000)
+    return nodes, pods, [], []
+
+
+def k8_cost(tb, cry, g: int, block: int, shards: int) -> tuple:
+    """(bytes, f32 operations) of one K8 epoch on one rank's block: K3's
+    counts of one iteration over N / shards nodes (the table and the
+    per-node passes of the block; the group's rows, read once, split
+    between the ranks)."""
+    b, ops = one_lane(k3_cost(tb, cry, g, block, 1))
+    return b // shards, ops // shards
+
+
+def k9_cost(tb, cry, g: int, block: int, stats: dict, shards: int) -> tuple:
+    """(bytes, f32 operations) of one K9 epoch on one rank's block: K5's
+    counts of the segment over N / shards nodes, per epoch."""
+    b, ops = one_lane(k5_cost(tb, cry, g, block, stats))
+    return b // shards, ops // (shards * max(stats["epochs"], 1))
+
+
+def mesh_kernel_case(mesh, label: str, kind: str, nodes, pods, services, scs, pick) -> dict:
+    """K8 or K9 (`kind` "wave" or "affinity") against its plain sharded
+    version on the card and the unsharded K3 / K5, on one segment of the
+    cluster from the seed carry, on this rank of `mesh`; then K8 / K9 timed
+    per stage by CUDA events and per call by the host clock."""
+    import torch
+
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.simulator.engine import Simulator
+
+    sim = Simulator(nodes, device="cuda", use_mesh=False)
+    sim.register_cluster_objects(ResourceTypes(services=list(services),
+                                               storage_classes=list(scs)))
+    bt = sim.encode_batch(pods)
+    tb, seed = sim._to_device(bt)
+    seg = pick(sim._segments(bt, len(pods)))
+    _, _, m, g, cap1, flag = seg[:6]
+    block = K.wave_block_for(m, sim.na.N)
+    if kind == "wave":
+        kw = dict(block=block, kmax=K.wave_kmax(m, sim.na.N, block), gpu_live=bool(flag))
+        kernel = lambda: K.schedule_wave_sharded_kernel(tb, seed, g, m, cap1, mesh=mesh, **kw)  # noqa: E731
+        plain = lambda: K.schedule_wave_plain(tb, seed, g, m, cap1, mesh=mesh, **kw)  # noqa: E731
+        single = lambda: K.schedule_wave_kernel(tb, seed, g, m, cap1, **kw)  # noqa: E731
+        names = K.WAVE_STATS
+    else:
+        kw = dict(ss_live=bool(flag), block=block, n_zones=bt.n_zones if flag else 2)
+        kernel = lambda: K.schedule_affinity_wave_sharded_kernel(  # noqa: E731
+            tb, seed, g, m, cap1, mesh=mesh, **kw)
+        plain = lambda: K.schedule_affinity_wave_plain(tb, seed, g, m, cap1, mesh=mesh, **kw)  # noqa: E731
+        single = lambda: K.schedule_affinity_wave_kernel(tb, seed, g, m, cap1, **kw)  # noqa: E731
+        names = K.AFFINITY_STATS
+    (kj, kp, kst), _ = timed(kernel)
+    plain()  # warm-up: the rank's first calls of some PyTorch ops load their kernels
+    (pj, pp, pst), plain_ms = timed(plain)
+    uj, up, ust = single()
+    if not torch.equal(kj, pj) or int(kp) != pp or kst.tolist() != [pst[k] for k in names]:
+        fail(f"mesh {label}: the sharded kernel differs from its plain version "
+             f"({int((kj != pj).sum())} nodes, placed {int(kp)} vs {pp}, {kst.tolist()} vs {pst})")
+    if not torch.equal(kj, uj) or int(kp) != int(up) or kst.tolist() != ust.tolist():
+        fail(f"mesh {label}: the sharded kernel differs from the unsharded one")
+    epochs = int(kst[0])
+    reps = 3
+    mesh.reset_counts()
+    events = K.SHARDED_STAGE_EVENTS = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        kernel()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / (reps * epochs)
+    K.SHARDED_STAGE_EVENTS = None
+    stages = {k: sum(s.elapsed_time(e) for s, e in v) for k, v in events.items()
+              if "setup" not in k}
+    ms = sum(stages.values()) / (reps * epochs)
+    per_epoch = {k: v / (reps * epochs) for k, v in stages.items()}
+    b, ops = (k8_cost(tb, seed, g, block, mesh.shards) if kind == "wave"
+              else k9_cost(tb, seed, g, block, pst, mesh.shards))
+    bound, by = bound_of(b, ops)
+    coll = {k: {"calls": v["calls"] // reps, "bytes": v["bytes"] // reps}
+            for k, v in mesh.counts.items()}
+    return dict(label=label, nodes=int(tb.alloc.shape[0]), pods=m, block=block, placed=pp,
+                epochs=epochs, stats=pst, kernel_ms_per_epoch=ms, stage_ms_per_epoch=per_epoch,
+                wall_ms_per_epoch=wall_ms, plain_ms_per_epoch=plain_ms / epochs,
+                bound_ms=bound, bound_by=by, bytes=b, f32_ops=ops, collectives=coll,
+                staged_bytes=mesh.staged_bytes // reps, max_abs_err=err_of(kj, pj))
+
+
+def mesh_rank(mesh, card: str) -> dict:
+    """One rank of the mesh phase: each MESH_RUNS cluster through
+    `Simulator(use_mesh=True).schedule_pods` against its golden (every
+    launch count and collective counter set to 0 just before it), then K8 or
+    K9 against its plain sharded version on one segment of it."""
+    import torch
+
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.simulator.engine import Simulator
+
+    out = {"rank": mesh.rank, "backend": mesh.backend, "transport": mesh.transport,
+           "runs": {}, "cases": {}, "launches": Counter()}
+    for kind, limit in MESH_RUNS:
+        os.environ.pop(EPOCH_LIMIT, None)
+        if limit is not None:
+            os.environ[EPOCH_LIMIT] = str(limit)
+        nodes, pods, services, scs = mesh_cluster(kind)
+        sim = Simulator(nodes, device="cuda", use_mesh=True)
+        sim.register_cluster_objects(ResourceTypes(services=list(services),
+                                                   storage_classes=list(scs)))
+        if sim._resolve_mesh().shards != mesh.shards:
+            fail(f"mesh {kind}: the simulator's mesh has {sim._mesh.shards} shards")
+        sim._mesh = mesh  # this rank's mesh, whose collective counters are read below
+        K.reset_launch_counts()
+        mesh.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        failed = sim.schedule_pods(pods)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = K.launch_counts()
+        stats, aff = K.wave_stats(), K.affinity_stats()
+        got = summarize(sim, pods, failed)
+        check_golden(kind, got)
+        epochs = stats["iterations"] + aff["epochs"]
+        calls = {k: v["calls"] for k, v in mesh.counts.items()}
+        if epochs <= 0 or calls != {"pmax": epochs, "all_gather_tiled": epochs}:
+            fail(f"mesh {kind}: {calls} collective calls for {epochs} epochs")
+        out["launches"].update(counts)
+        out["runs"][kind] = dict(
+            nodes=len(nodes), pods=len(pods), padded=int(sim._last_carry.requested.shape[0]),
+            epoch_limit=limit or 2048, placed=got["placed"], unscheduled=got["unscheduled"],
+            choices_sha256=got["choices_sha256"], seconds=wall, pods_per_s=len(pods) / wall,
+            wave_stats=stats, affinity_stats=aff, collectives=copy.deepcopy(mesh.counts),
+            staged_bytes=mesh.staged_bytes,
+            host_reads=(K.schedule_wave_sharded_kernel.host_reads
+                        + K.schedule_affinity_wave_sharded_kernel.host_reads),
+            launches={k: counts[k] for k in ("schedule_wave_sharded",
+                                             "schedule_affinity_wave_sharded",
+                                             "schedule_wave_sharded/gpu_live", "schedule_wave",
+                                             "schedule_affinity_wave", "aggregate_commit")},
+            census={k: list(v) for k, v in sorted(sim.segment_census.items())})
+        del sim
+        # the kernel against its plain sharded version on one segment (of a
+        # fresh copy of the cluster: the run bound the pods)
+        nodes, pods, services, scs = mesh_cluster(kind)
+        if kind == "extended":
+            out["cases"]["schedule_wave_sharded/gpu_live"] = mesh_kernel_case(
+                mesh, "extended_1gpu", "wave", nodes, pods, services, scs,
+                lambda segs: next(s for s in segs if s[0] == "wave" and s[5]))
+        elif kind == "affinity":
+            out["cases"]["schedule_affinity_wave_sharded"] = mesh_kernel_case(
+                mesh, "affinity_hostname_spread", "affinity", nodes, pods, services, scs,
+                lambda segs: segs[1])
+        else:
+            out["cases"]["schedule_wave_sharded"] = mesh_kernel_case(
+                mesh, "northstar", "wave", nodes, pods, services, scs,
+                lambda segs: next(s for s in segs if s[0] == "wave"))
+    os.environ.pop(EPOCH_LIMIT, None)
+    return out
+
+
+def mesh_phase(card: str) -> tuple:
+    """The mesh phase: MESH_SHARDS ranks spawned after the build, sharing
+    cuda:0 over gloo (NCCL refuses two ranks on one card; the collectives
+    stage CUDA tensors through pinned host memory). Every rank's placements
+    must equal the goldens and each other's. Returns (kernels-line rows,
+    rank 0's launch counts of the main path)."""
+    import tempfile
+
+    import torch
+
+    from open_simulator_torch.parallel.launch import run_ranks
+
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks, before two more contexts
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as rdzv:
+        try:
+            ranks = run_ranks(mesh_rank, MESH_SHARDS, rdzv, args=(card,), device="cuda",
+                              backend="gloo", timeout_s=900)
+        except RuntimeError as e:
+            fail(f"mesh: {e}")
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    for r in ranks[1:]:
+        for kind in r0["runs"]:
+            if r["runs"][kind]["choices_sha256"] != r0["runs"][kind]["choices_sha256"]:
+                fail(f"mesh {kind}: rank {r['rank']} placed differently from rank 0")
+    for kind, run in r0["runs"].items():
+        emit("mesh", kind=kind, shards=MESH_SHARDS, backend=r0["backend"],
+             transport=r0["transport"], **run, golden="match",
+             walls_per_rank=[r["runs"][kind]["seconds"] for r in ranks], card=card)
+    rows = {}
+    for name, case in r0["cases"].items():
+        emit("mesh_kernel", name=name, shards=MESH_SHARDS, transport=r0["transport"], **case,
+             card=card)
+        source = "wave_sharded.cu" if "affinity" not in name else "affinity_sharded.cu"
+        replaces = ":1204" if "affinity" not in name else ":1977"
+        rows[name] = dict(source=SRC + source, replaces=JAX_KERNELS + replaces,
+                          max_abs_err=case["max_abs_err"], ms=case["kernel_ms_per_epoch"],
+                          plain_ms=case["plain_ms_per_epoch"], bound_ms=case["bound_ms"],
+                          bound_by=case["bound_by"])
+    emit("mesh_done", seconds=wall, card=card)
+    return rows, r0["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -1709,6 +1947,10 @@ def main() -> int:
         launches.update(run_cli_sweep(spec, card))
     launches.update(run_cli_sweep("bench", card, ("--fanout", "32")))
     launches.update(serve_full_width(card))
+    # the node mesh: two ranks sharing the card, the sharded epoch paths K8, K9
+    mesh_rows, mesh_launches = mesh_phase(card)
+    rows.update(mesh_rows)
+    launches.update(mesh_launches)
     for k in rows:
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched on the main path")

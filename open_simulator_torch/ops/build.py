@@ -24,8 +24,9 @@ from typing import List, Optional
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [os.path.join(_HERE, "csrc", f)
            for f in ("schedule.cu", "wave.cu", "group_serial.cu", "affinity_wave.cu", "extend.cu",
-                     "explain.cu")]
-HEADERS = [os.path.join(_HERE, "csrc", f) for f in ("common.cuh", "select.cuh")]
+                     "explain.cu", "wave_sharded.cu", "affinity_sharded.cu")]
+HEADERS = [os.path.join(_HERE, "csrc", f)
+           for f in ("common.cuh", "select.cuh", "wave.cuh", "affinity.cuh")]
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
@@ -172,6 +173,29 @@ def _load(path: str) -> ctypes.CDLL:
     lib.explain_scratch_floats.restype = ctypes.c_longlong
     lib.explain_launch.argtypes = [V] + [ctypes.c_int] * 3 + [ctypes.c_longlong, P, P, P]
     lib.explain_launch.restype = ctypes.c_int
+    # K8 and K9, the sharded epoch paths: setup, front, table, tail
+    I, L = ctypes.c_int, ctypes.c_longlong
+    lib.wave_sharded_scratch_floats.argtypes = [I]
+    lib.wave_sharded_scratch_floats.restype = L
+    lib.wave_sharded_scratch_ints.argtypes = [I]
+    lib.wave_sharded_scratch_ints.restype = L
+    lib.wave_sharded_setup_launch.argtypes = [V, I, I] + [P] * 5
+    lib.wave_sharded_front_launch.argtypes = [V] + [I] * 4 + [P] * 5
+    lib.wave_sharded_table_launch.argtypes = [V] + [I] * 4 + [P] * 6
+    lib.wave_sharded_tail_launch.argtypes = [V] + [I] * 4 + [P] * 7
+    lib.affinity_sharded_scratch_floats.argtypes = [V, I]
+    lib.affinity_sharded_scratch_floats.restype = L
+    lib.affinity_sharded_scratch_ints.argtypes = [V]
+    lib.affinity_sharded_scratch_ints.restype = L
+    lib.affinity_sharded_parts.argtypes = [V]
+    lib.affinity_sharded_parts.restype = I
+    lib.affinity_sharded_setup_launch.argtypes = [V, I, I, I] + [P] * 5
+    lib.affinity_sharded_front_launch.argtypes = [V] + [I] * 4 + [P] * 6
+    lib.affinity_sharded_table_launch.argtypes = [V] + [I] * 4 + [P] * 6
+    lib.affinity_sharded_tail_launch.argtypes = [V] + [I] * 4 + [P] * 7
+    for stage in ("setup", "front", "table", "tail"):
+        getattr(lib, f"wave_sharded_{stage}_launch").restype = I
+        getattr(lib, f"affinity_sharded_{stage}_launch").restype = I
     lib.ext_args_size.argtypes = []
     lib.ext_args_size.restype = ctypes.c_int
     lib.extend_tables_launch.argtypes = [ctypes.POINTER(ExtArgs), ctypes.c_longlong, P]

@@ -54,113 +54,9 @@
 // everything past the table is integer-valued f32 or integer work, so the
 // atomics (zone sums, row updates, counts) are exact in any order.
 
+#include "affinity.cuh"
 #include "common.cuh"
 #include "select.cuh"
-
-#define K_EP_MAX 2048
-#define LMAX 32
-#define POS_BITS 11
-
-typedef unsigned int u32;
-
-// term slot kinds, in the order of their live rows in the float scratch
-enum { SK_DNS = 0, SK_AFF, SK_ANTI, SK_CAR, SK_CW, SK_SS, N_KINDS };
-
-// node flags of one epoch
-#define AF_START 1  // in F_start (serial's current feasible set)
-#define AF_HI 2     // in F_hi (live budget gates lifted)
-#define AF_KEY 4    // carries every live DoNotSchedule term's key (static)
-
-struct Slot {
-  int id;       // counter id (carrier id for SK_CAR, SK_CW); 0 for a padded slot
-  int valid;    // holds a term, after the filter flags
-  int live;     // the group's own placements move the gate (DNS, anti, carried anti, cw)
-  float inc;    // count one placement adds to the row
-  float w;      // SK_CW: the interpod weight; SK_DNS: maxSkew
-  float self;   // SK_DNS: the self-match count
-};
-
-struct Ctx {
-  Slot slot[N_KINDS][MAX_SLOTS];
-  int n[N_KINDS];
-  int off[N_KINDS];  // first live row of each kind
-  float dns_min[MAX_SLOTS];
-  int n_dns, n_budget, has_aff, aff_self, has_live_cw;
-  float skew_live, self_live, inc_live;
-};
-
-static __device__ __forceinline__ int slot_dom(const TablesView& t, int kind, int id, int n) {
-  return (kind == SK_CAR || kind == SK_CW) ? t.carr_dom[(size_t)id * t.N + n]
-                                           : t.counter_dom[(size_t)id * t.N + n];
-}
-
-// The per-domain entry budget of a round (JAX round_body q): DNS adds one
-// count per entry up to maxSkew above the current minimum; composed anti
-// terms admit one entry while the count is 0; the sentinel domain is never
-// metered.
-static __device__ __forceinline__ float budget_q(const Ctx& c, float cnow, float min_c, int d,
-                                                 int D) {
-  if (d == D || c.n_budget < 1) return INFINITY;
-  if (c.n_dns > 0) return fmaxf(c.skew_live - c.self_live + min_c - cnow + 1.0f, 0.0f);
-  return cnow > 0.0f ? 0.0f : 1.0f;
-}
-
-// Bitonic sort of a[0, L) in shared memory (L a power of two), descending
-// or ascending. Block-uniform; ends with a barrier.
-template <typename T, bool DESC>
-static __device__ void bitonic_sort(T* a, int L) {
-  __syncthreads();
-  for (int k = 2; k <= L; k <<= 1) {
-    for (int jj = k >> 1; jj > 0; jj >>= 1) {
-      for (int i = threadIdx.x; i < L; i += blockDim.x) {
-        const int ixj = i ^ jj;
-        if (ixj > i) {
-          const T x = a[i], y = a[ixj];
-          const bool up = (i & k) == 0;
-          const bool swap = DESC ? (up ? x < y : x > y) : (up ? x > y : x < y);
-          if (swap) {
-            a[i] = y;
-            a[ixj] = x;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// Inclusive scan (sum, or max of non-negative values) over 2 * blockDim.x
-// elements, thread t holding elements 2t and 2t+1; returns the total.
-// `s_int` holds 32 ints.
-template <bool MAX>
-static __device__ int block_scan2(int& a0, int& a1, int* s_int) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, nw = (blockDim.x + 31) >> 5;
-  a1 = MAX ? max(a0, a1) : a0 + a1;
-  int x = a1;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(FULL_MASK, x, o);
-    if (lane >= o) x = MAX ? max(x, y) : x + y;
-  }
-  __syncthreads();  // the previous call's readers are done with s_int
-  if (lane == 31) s_int[wid] = x;
-  __syncthreads();
-  if (wid == 0) {
-    int v = lane < nw ? s_int[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(FULL_MASK, v, o);
-      if (lane >= o) v = MAX ? max(v, y) : v + y;
-    }
-    s_int[lane] = v;
-  }
-  __syncthreads();
-  int prev = __shfl_up_sync(FULL_MASK, x, 1);
-  if (lane == 0) prev = 0;
-  const int before = wid > 0 ? s_int[wid - 1] : 0;
-  const int excl = MAX ? max(before, prev) : before + prev;
-  a0 = MAX ? max(excl, a0) : excl + a0;
-  a1 = MAX ? max(excl, a1) : excl + a1;
-  return s_int[nw - 1];
-}
 
 // Float scratch: table [N, B+1]; ip_pref, simon_s, static, ip_raw, pernode0
 // [N] each; the live rows [slots, D1]; cnt_live, taken [D1] each; bound [N];
@@ -189,94 +85,7 @@ schedule_affinity_wave_body(const TablesView& t, int g, int m, int cap1, int ss_
   const float gz_c = t.grp_nonzero[g * 2 + 0], gz_m = t.grp_nonzero[g * 2 + 1];
 
   // ---- term slots (the JAX prologue :1394-1512), by thread 0
-  if (tid == 0) {
-    const int ns[N_KINDS] = {t.Sd, t.A, t.B, t.Ca, t.Cw, 1};
-    int off = 0;
-    for (int k = 0; k < N_KINDS; ++k) {
-      c.n[k] = ns[k];
-      c.off[k] = off;
-      off += ns[k];
-    }
-    int n_dns = 0, n_anti = 0, has_aff = 0, has_live_cw = 0;
-    float skew = 0.0f, self = 0.0f, inc_d = 0.0f, inc_b = 0.0f, inc_c = 0.0f;
-    for (int s = 0; s < t.Sd; ++s) {
-      Slot& x = c.slot[SK_DNS][s];
-      const int id = t.dns_t[g * t.Sd + s];
-      x.id = max(id, 0);
-      x.valid = id >= 0 && t.f_spread;
-      const bool match = t.counter_sel_match_g[(size_t)x.id * t.G + g];
-      x.self = t.dns_self[g * t.Sd + s];
-      x.w = t.dns_maxskew[g * t.Sd + s];
-      x.live = x.valid && match && x.self > 0.0f;
-      x.inc = (match && x.valid) ? 1.0f : 0.0f;
-      if (x.live) {
-        ++n_dns;
-        skew = skew + x.w;
-        self = self + x.self;
-        inc_d = inc_d + x.inc;
-      }
-    }
-    for (int s = 0; s < t.A; ++s) {
-      Slot& x = c.slot[SK_AFF][s];
-      const int id = t.req_aff_t[g * t.A + s];
-      x.id = max(id, 0);
-      x.valid = id >= 0 && t.f_interpod;
-      x.live = 0;
-      x.inc = (x.valid && t.counter_sel_match_g[(size_t)x.id * t.G + g]) ? 1.0f : 0.0f;
-      has_aff |= x.valid;
-    }
-    for (int s = 0; s < t.B; ++s) {
-      Slot& x = c.slot[SK_ANTI][s];
-      const int id = t.req_anti_t[g * t.B + s];
-      x.id = max(id, 0);
-      x.valid = id >= 0 && t.f_interpod;
-      x.live = x.valid && t.counter_sel_match_g[(size_t)x.id * t.G + g];
-      x.inc = x.live ? 1.0f : 0.0f;
-      if (x.live) {
-        ++n_anti;
-        inc_b = inc_b + x.inc;
-      }
-    }
-    for (int s = 0; s < t.Ca; ++s) {
-      Slot& x = c.slot[SK_CAR][s];
-      const int id = t.carr_anti_t[g * t.Ca + s];
-      x.id = max(id, 0);
-      x.valid = id >= 0 && t.f_interpod;
-      const float carried = t.grp_carries[(size_t)g * t.Tc + x.id];
-      x.live = x.valid && carried > 0.0f;
-      x.inc = x.valid ? carried : 0.0f;
-      if (x.live) {
-        ++n_anti;
-        inc_c = inc_c + x.inc;
-      }
-    }
-    for (int s = 0; s < t.Cw; ++s) {
-      Slot& x = c.slot[SK_CW][s];
-      const int id = t.carr_w_t[g * t.Cw + s];
-      x.id = max(id, 0);
-      x.valid = id >= 0;
-      const float carried = t.grp_carries[(size_t)g * t.Tc + x.id];
-      x.live = x.valid && carried > 0.0f;
-      x.inc = x.valid ? carried : 0.0f;
-      x.w = t.carr_w_w[g * t.Cw + s];
-      has_live_cw |= x.live;
-    }
-    {
-      Slot& x = c.slot[SK_SS][0];
-      x.id = max(t.ss_t[g], 0);
-      x.valid = t.ss_t[g] >= 0;
-      x.live = 0;
-      x.inc = (x.valid && t.counter_sel_match_g[(size_t)x.id * t.G + g]) ? 1.0f : 0.0f;
-    }
-    c.n_dns = n_dns;
-    c.n_budget = n_dns + n_anti;
-    c.has_aff = has_aff;
-    c.aff_self = t.grp_aff_self[g];
-    c.has_live_cw = has_live_cw;
-    c.skew_live = skew;
-    c.self_live = self;
-    c.inc_live = inc_d + inc_b + inc_c;
-  }
+  if (tid == 0) affinity_slots(t, g, &c);
   __syncthreads();
 
   const int n_rows = c.off[SK_SS] + 1;
@@ -560,270 +369,20 @@ schedule_affinity_wave_body(const TablesView& t, int g, int m, int cap1, int ss_
       }
     }
 
-    if (tid < 1) s_cnt = 0;
-    int got = 0, rounds = 0;
-    if (use_multi_pre) {
-      // ---- the two-largest-bound cut: an entry is usable only if its key
-      // beats every OTHER node's first hidden entry
-      block_argmax(&b1, &i1, s_red, s_int);
-      float b2 = -INFINITY;
-      int i2 = 0x7fffffff;
-      for (int n = tid; n < N; n += bd) argmax_update(n == i1 ? -INFINITY : bound_s[n], n, &b2, &i2);
-      block_argmax(&b2, &i2, s_red, s_int);
-      int U = 0;
-      for (int n = tid; n < N; n += bd) {
-        const float cut_s = n == i1 ? b2 : b1;
-        const int cut_i = n == i1 ? i2 : i1;
-        const float* row = table + (size_t)n * B1;
-        const int u0 = u_s[n];
-        int uu = 0;
-        while (uu < u0 && (row[uu] > cut_s || (row[uu] == cut_s && n < cut_i))) ++uu;
-        u_s[n] = uu;
-        U += uu;
-      }
-      U = block_sum_int(U, s_int);
-
-      // ---- the top K_EP usable entries in lax.top_k order
-      const int n_cand = min(U, K_EP);
-      const u64 T = U > K_EP ? select_key(table, u_s, N, B, K_EP, hist, &s_prefix, &s_rem) : 0;
-      for (int n = tid; n < N; n += bd) {
-        const float* row = table + (size_t)n * B1;
-        const int cn = T ? count_at_least(row, n, u_s[n], B, T) : u_s[n];
-        if (cn == 0) continue;
-        const int base = atomicAdd(&s_cnt, cn);
-        for (int k = 0; k < cn; ++k) s_key[base + k] = entry_key(row[k], n, k, B);
-      }
-      int L = 2;
-      while (L < n_cand) L <<= 1;
-      __syncthreads();
-      for (int i = n_cand + tid; i < L; i += bd) s_key[i] = 0ull;
-      bitonic_sort<u64, true>(s_key, L);
-
-      // each thread owns positions 2*tid and 2*tid+1
-      int node[2], dom[2];
-      bool cand[2];
-      float occ[2];
-      for (int q = 0; q < 2; ++q) {
-        const int p = 2 * tid + q;
-        cand[q] = p < n_cand;
-        node[q] = 0;
-        dom[q] = 0;
-        if (cand[q]) {
-          const u32 flat = 0xffffffffu - (u32)(s_key[p] & 0xffffffffull);
-          node[q] = (int)(flat / (u32)B);
-          dom[q] = dom_live[node[q]];
-        }
-      }
-      __syncthreads();
-      // rank among the same domain's candidates: sort the unique
-      // (domain, position) pairs, then a max-scan of the run starts
-      u32* s_comp = reinterpret_cast<u32*>(s_key);
-      for (int q = 0; q < 2; ++q) {
-        const int p = 2 * tid + q;
-        if (p < L) s_comp[p] = cand[q] ? ((u32)dom[q] << POS_BITS) | (u32)p : 0xffffffffu;
-      }
-      bitonic_sort<u32, false>(s_comp, L);
-      int rs[2];
-      for (int q = 0; q < 2; ++q) {
-        const int i = 2 * tid + q;
-        rs[q] = (i > 0 && i < n_cand && (s_comp[i] >> POS_BITS) == (s_comp[i - 1] >> POS_BITS))
-                    ? 0 : i;
-      }
-      block_scan2<true>(rs[0], rs[1], s_int);
-      for (int q = 0; q < 2; ++q) {
-        const int i = 2 * tid + q;
-        if (i < n_cand) s_occ[s_comp[i] & ((1u << POS_BITS) - 1)] = i - rs[q];
-      }
-      // the epoch's round state: live counts, consumption, blocks
-      for (int d = tid; d < D1; d += bd) {
-        float acc = 0.0f;
-        for (int k = SK_DNS; k <= SK_CAR; ++k) {
-          if (k == SK_AFF) continue;
-          for (int s = 0; s < c.n[k]; ++s)
-            if (c.slot[k][s].live) acc = acc + rows[(size_t)(c.off[k] + s) * D1 + d];
-        }
-        cl[d] = acc;
-        taken[d] = 0.0f;
-        first_pos[d] = INF_P;
-        consumed[d] = 0;
-        everb[d] = 0;
-      }
-      for (int n = tid; n < N; n += bd) counts[n] = 0;
-      __syncthreads();
-      for (int q = 0; q < 2; ++q) occ[q] = cand[q] ? (float)s_occ[2 * tid + q] : 0.0f;
-
-      // ---- the rounds, in chains of four (JAX round_chain): the condition
-      // is read once per chain
-      const int m_rem = m - placed;
-      int last_r = 1;
-      while (last_r > 0 && got < m_rem) {
-        for (int chain = 0; chain < 4; ++chain) {
-          const int m_left = m_rem - got;
-          float mn = INFINITY;
-          for (int d = tid; d < D1; d += bd)
-            if (edom_live[d]) mn = fminf(mn, cl[d] + taken[d] * inc_live);
-          mn = block_min(mn, s_red);
-          const float min_c = isfinite(mn) ? mn : 0.0f;
-          // levels still needed per eligible domain; per-position budgets
-          for (int d = tid; d < D1; d += bd) {
-            if (!edom_live[d]) continue;
-            const float delta = cl[d] + taken[d] * inc_live - min_c;
-            atomicAdd(&s_hist[(int)fminf(fmaxf(delta, 0.0f), (float)(LMAX + 1))], 1);
-          }
-          bool rem[2], cons[2];
-          float l_e[2];
-          for (int q = 0; q < 2; ++q) {
-            const int p = 2 * tid + q;
-            rem[q] = cons[q] = false;
-            l_e[q] = 1.0f;
-            if (!cand[q]) continue;
-            const int d = dom[q];
-            const float cnow = cl[d] + taken[d] * inc_live;
-            const float qe = budget_q(c, cnow, min_c, d, D);
-            const float r_e = occ[q] - taken[d];
-            rem[q] = r_e >= 0.0f;
-            cons[q] = rem[q] && r_e < qe;
-            l_e[q] = fmaxf(1.0f, r_e - qe + 2.0f);
-            const float lc = cnow + r_e + 1.0f - min_c;
-            if (rem[q] && edom_live[d] && lc >= 1.0f && lc <= (float)LMAX) {
-              const int li = (int)fminf(fmaxf(lc, 0.0f), (float)(LMAX + 1));
-              atomicMax(&s_prise[li], p);
-              atomicAdd(&s_prov[li], 1);
-            }
-            if (cons[q]) atomicMin(&first_pos[d], p);
-          }
-          __syncthreads();
-          // the multi-level take: the longest run of levels whose every
-          // needed domain provided its rise-completing entry
-          if (tid == 0) {
-            int needed = s_hist[0], L_used = 0, prise = s_prise[0];
-            for (int l = 1; l <= LMAX; ++l) {
-              if (s_prov[l] != needed) break;
-              needed += s_hist[l];
-              prise = max(prise, s_prise[l]);
-              L_used = l;
-            }
-            s_L = L_used;
-            s_PL = prise;
-          }
-          __syncthreads();
-          const int L_used = s_L, P_L = s_PL;
-          bool tf[2];
-          float rv[4] = {0.0f, -1.0f, 0.0f, 0.0f};  // n_full, rise, unreached, any at min
-          for (int q = 0; q < 2; ++q) {
-            tf[q] = rem[q] && l_e[q] <= (float)L_used && 2 * tid + q <= P_L;
-            rv[0] += tf[q] ? 1.0f : 0.0f;
-          }
-          if (dns_live) {
-            for (int d = tid; d < D1; d += bd) {
-              if (!edom_live[d] || cl[d] + taken[d] * inc_live != min_c) continue;
-              rv[3] = 1.0f;
-              if (first_pos[d] >= INF_P) rv[2] = 1.0f;
-              else rv[1] = fmaxf(rv[1], (float)first_pos[d]);
-            }
-          }
-          {
-            const int op4[4] = {OP_SUM, OP_MAX, OP_MAX, OP_MAX};
-            block_reduce<4>(rv, op4, s_red);
-          }
-          const int n_full = (int)rv[0];
-          const bool use_full = dns_live && L_used >= 1 && n_full <= m_left && n_full > 0;
-          const int p_rise = (rv[3] > 0.0f && rv[2] == 0.0f) ? (int)rv[1] : INF_P;
-          // the single-rise take, cut at m_left in position order
-          int r0 = cons[0] && 2 * tid <= p_rise, r1 = cons[1] && 2 * tid + 1 <= p_rise;
-          const int tp0 = r0, tp1 = r1;
-          const int total = block_scan2<false>(r0, r1, s_int);
-          const bool take[2] = {use_full ? tf[0] : (tp0 && r0 <= m_left),
-                                use_full ? tf[1] : (tp1 && r1 <= m_left)};
-          const int n_take = use_full ? n_full : min(m_left, total);
-          for (int q = 0; q < 2; ++q) {
-            if (!take[q]) continue;
-            atomicAdd(&counts[node[q]], 1);
-            atomicAdd(&consumed[dom[q]], 1);
-          }
-          __syncthreads();
-          // the sandwich's bookkeeping, and the round's consumption
-          for (int d = tid; d < D1; d += bd) {
-            const float qd = budget_q(c, cl[d] + taken[d] * inc_live, min_c, d, D);
-            const float cd = (float)consumed[d];
-            const bool blocked = qd < 1.0f || (cd >= qd && isfinite(qd))
-                                 || (use_full && (edom_live[d] || cd > 0.0f));
-            if (blocked && has_budget) everb[d] = 1;
-            if (d < D) taken[d] = taken[d] + cd;
-            consumed[d] = 0;
-            first_pos[d] = INF_P;
-          }
-          if (tid < LMAX + 2) {
-            s_prise[tid] = -1;
-            s_prov[tid] = 0;
-            s_hist[tid] = 0;
-          }
-          __syncthreads();
-          got += n_take;
-          last_r = n_take;
-          rounds += n_take > 0;
-        }
-      }
-    }
-
-    // ---- the normalizer sandwich: S_lo <= every F_t <= F_hi
-    bool use_multi = false;
-    if (use_multi_pre && got > 0) {
-      float w7[7] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY, -INFINITY, INFINITY, INFINITY};
-      for (int n = tid; n < N; n += bd) {
-        if (!(flags[n] & AF_HI) || (has_budget && everb[dom_live[n]])
-            || counts[n] >= cap_s[n] - j[n])
-          continue;
-        w7[0] = fmaxf(w7[0], simon_s[n]);
-        w7[1] = fmaxf(w7[1], t.nodeaff_raw[gN + n]);
-        w7[2] = fmaxf(w7[2], t.taint_raw[gN + n]);
-        w7[3] = fmaxf(w7[3], ip_raw[n]);
-        w7[4] = fmaxf(w7[4], pn0[n]);
-        w7[5] = fminf(w7[5], simon_s[n]);
-        w7[6] = fminf(w7[6], ip_raw[n]);
-      }
-      const int op7[7] = {OP_MAX, OP_MAX, OP_MAX, OP_MAX, OP_MAX, OP_MIN, OP_MIN};
-      block_reduce<7>(w7, op7, s_red);
-      bool lo_ok = uniform_base || (v[7] == w7[0] && v[8] == w7[1] && v[9] == w7[2]
-                                    && v[10] == w7[3] && v[12] == w7[5] && v[13] == w7[6]);
-      if (ss_live) lo_ok = lo_ok && v[11] == w7[4];
-      use_multi = lo_ok;
-    }
-
-    // ---- the head fallback: serial's single next pick is always exact
-    int head = -1;
-    if (!use_multi && any_start) {
-      float hv = -INFINITY;
-      int hi = 0x7fffffff;
-      for (int n = tid; n < N; n += bd)
-        argmax_update((flags[n] & AF_START) ? table[(size_t)n * B1] : -INFINITY, n, &hv, &hi);
-      block_argmax(&hv, &hi, s_red, s_int);
-      head = hi;
-    }
-    const int m_take = use_multi ? got : (head >= 0 ? 1 : 0);
-
-    // ---- fold the takes into j and every live row (the sentinel column
-    // never counts, as in commit())
-    for (int n = tid; n < N; n += bd) {
-      const int cn = use_multi ? counts[n] : (n == head ? 1 : 0);
-      if (cn == 0) continue;
-      j[n] += cn;
-      for (int k = 0; k < N_KINDS; ++k) {
-        for (int s = 0; s < c.n[k]; ++s) {
-          const Slot& x = c.slot[k][s];
-          if (x.inc == 0.0f) continue;
-          const int dom = slot_dom(t, k, x.id, n);
-          if (dom < D) atomicAdd(&rows[(size_t)(c.off[k] + s) * D1 + dom], (float)cn * x.inc);
-        }
-      }
-    }
-    for (int z = tid; z < Z; z += bd) zone_sums[z] = 0.0f;
-    __syncthreads();
+    const AffScratch ep = {table,    ip_pref, simon_s, stat_s,    ip_raw,    pn0,      rows,
+                           cl,       taken,   bound_s, zone_sums, feas_s,    cap_s,    dom_live,
+                           u_s,      flags,   counts,  nullptr,   edom_live, first_pos, consumed,
+                           everb};
+    const AffShared sh = {s_red, s_int, s_occ, hist, s_prise, s_prov, s_hist, &s_rem, &s_cnt,
+                          &s_L, &s_PL, s_key, &s_prefix};
+    const AvailLive av = {cap_s, j};
+    const AffDims dm = {N, D1, D, B, B1, Z, K_EP, INF_P, gN};
+    const int m_take = affinity_epoch_tail(t, c, ep, sh, av, dm, m, placed, ss_live,
+                                           use_multi_pre, uniform_base, any_start, has_budget,
+                                           dns_live, inc_live, v, b1, i1, j, heads, rounds_total);
     placed += m_take;
     last = m_take;
     ++epochs;
-    heads += head >= 0;
-    rounds_total += use_multi ? rounds : 0;
   }
   if (tid == 0) {
     stats[0] = placed;

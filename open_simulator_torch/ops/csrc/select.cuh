@@ -1,8 +1,9 @@
-// Radix selection over a score table, shared by K3 (wave.cu) and K5
-// (affinity_wave.cu): the serial pick order of the table's entries (score
-// desc, then flat index n*B+k asc, the order lax.top_k returns) as one
-// distinct 64-bit key per entry, and an MSB-first radix select that finds the
-// key of the r-th best usable entry without sorting.
+// Radix selection over a score table, shared by the wave kernels (K3, K8:
+// wave.cuh) and the affinity kernels (K5, K9: affinity.cuh): the serial pick
+// order of the table's entries (score desc, then flat index n*B+k asc, the
+// order lax.top_k returns) as one distinct 64-bit key per entry, and an
+// MSB-first radix select that finds the key of the r-th best usable entry
+// without sorting.
 
 #pragma once
 
@@ -36,12 +37,13 @@ static __device__ __forceinline__ int count_above(const float* row, int n, int u
   return c;
 }
 
-// The key of the r-th best usable entry (r >= 1, at most the usable count):
-// an 8-pass MSB-first radix select over the keys, with warp-aggregated
-// shared-memory histograms. Block-uniform; every thread gets the key.
-static __device__ u64 select_key(const float* table, const int* u_s, int N, int B, int r,
+// The key of the r-th best usable entry (r >= 1, at most the usable count)
+// of a table whose row n starts at table + n * S: an 8-pass MSB-first radix
+// select over the keys, with warp-aggregated shared-memory histograms.
+// Block-uniform; every thread gets the key.
+static __device__ u64 select_key(const float* table, int S, const int* u_s, int N, int B, int r,
                                  int* hist, u64* s_prefix, int* s_rem) {
-  const int tid = threadIdx.x, bd = blockDim.x, lane = tid & 31, B1 = B + 1;
+  const int tid = threadIdx.x, bd = blockDim.x, lane = tid & 31;
   const unsigned NB = (unsigned)N * (unsigned)B;
   u64 prefix = 0, mask = 0;
   int rem = r;
@@ -54,7 +56,7 @@ static __device__ u64 select_key(const float* table, const int* u_s, int N, int 
       if (e < NB) {
         const int n = (int)(e / (unsigned)B), k = (int)(e - (unsigned)n * B);
         if (k < u_s[n]) {
-          const u64 key = entry_key(table[(size_t)n * B1 + k], n, k, B);
+          const u64 key = entry_key(table[(size_t)n * S + k], n, k, B);
           if ((key & mask) == prefix) digit = (int)((key >> shift) & 255u);
         }
       }

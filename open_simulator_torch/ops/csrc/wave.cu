@@ -24,7 +24,8 @@
 // hidden-continuation guard), takes the best min(m_rem, kmax, usable)
 // entries in serial's pick order (score desc, flat index n*B+k asc: the
 // order lax.top_k returns), and stops at the first node-exhausting pick when
-// the normalizers over the shrunken feasible set differ.
+// the normalizers over the shrunken feasible set differ. Everything past the
+// table is `wave_take` (wave.cuh), which K8's tail shares.
 //
 // The selection is a radix select (select.cuh) on a 64-bit key per entry:
 // the high word is the order-preserving bits of the score, the low word the
@@ -63,6 +64,7 @@
 
 #include "common.cuh"
 #include "select.cuh"
+#include "wave.cuh"
 
 // Float scratch: table [N, B+1], then ip_raw, simon_s, static, bound [N] each.
 // Int scratch: cap, feas, u (usable prefix length), c0 (first take) [N] each.
@@ -155,96 +157,10 @@ schedule_wave_body(const TablesView& t, int g, int m, int cap1, int B, int K, in
       bound_s[n] = bound;
       argmax_update(bound, n, &b1, &i1);
     }
-    block_argmax(&b1, &i1, s_red, s_idx);
-    float b2 = -INFINITY;
-    int i2 = 0x7fffffff;
-    for (int n = tid; n < N; n += bd) argmax_update(n == i1 ? -INFINITY : bound_s[n], n, &b2, &i2);
-    block_argmax(&b2, &i2, s_red, s_idx);
-
-    // ---- the guard: an entry is takeable only if its key beats every OTHER
-    // node's first hidden entry; usable prefixes shrink to the beating part
-    int U = 0, gsum = 0;
-    for (int n = tid; n < N; n += bd) {
-      const float cut_s = n == i1 ? b2 : b1;
-      const int cut_i = n == i1 ? i2 : i1;
-      const float* row = table + (size_t)n * B1;
-      const int u0 = u_s[n];
-      int uu = 0;
-      while (uu < u0 && (row[uu] > cut_s || (row[uu] == cut_s && n < cut_i))) ++uu;
-      u_s[n] = uu;
-      U += uu;
-      gsum += u0 - uu;
-    }
-    U = block_sum_int(U, s_idx);
-    guarded += block_sum_int(gsum, s_idx);
-
-    // ---- the first min(m_rem, kmax, U) entries in pick order
-    const int m_rem = m - placed;
-    const int m_cand = min(m_rem, min(K, U));
-    const u64 T = m_cand > 0 ? select_key(table, u_s, N, B, m_cand, hist, &s_prefix, &s_rem) : 0;
-
-    // ---- nodes the candidates exhaust, the normalizers without them, and
-    // the best node-exhausting candidate
-    float e6[6] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY, INFINITY, INFINITY};
-    u64 ex_best = 0;
-    for (int n = tid; n < N; n += bd) {
-      const float* row = table + (size_t)n * B1;
-      const int c0 = m_cand > 0 ? count_at_least(row, n, u_s[n], B, T) : 0;
-      c0_s[n] = c0;
-      const int avail = cap_s[n] - j[n];
-      if (feas_s[n] && avail > 0 && c0 < max(avail, 1)) {
-        e6[0] = fmaxf(e6[0], simon_s[n]);
-        e6[1] = fmaxf(e6[1], t.nodeaff_raw[gN + n]);
-        e6[2] = fmaxf(e6[2], t.taint_raw[gN + n]);
-        e6[3] = fmaxf(e6[3], ip_s[n]);
-        e6[4] = fminf(e6[4], simon_s[n]);
-        e6[5] = fminf(e6[5], ip_s[n]);
-      }
-      // the entry that empties node n is usable iff its prefix reaches avail
-      if (m_cand > 0 && avail >= 1 && u_s[n] == avail) {
-        const u64 kx = entry_key(row[avail - 1], n, avail - 1, B);
-        if (kx >= T && kx > ex_best) ex_best = kx;
-      }
-    }
-    block_reduce<6>(e6, op6, s_red);
-    ex_best = block_max_u64(ex_best, s_u64);
-    const bool same = e6[0] == nm.simon_hi && e6[4] == nm.simon_lo
-                      && fmaxf(e6[1], 0.0f) == nm.na_max && fmaxf(e6[2], 0.0f) == nm.t_max
-                      && fmaxf(e6[3], 0.0f) == nm.ip_max && fminf(e6[5], 0.0f) == nm.ip_min;
-    int m_take = m_cand;
-    u64 cut = 0;  // 0: take the first m_cand entries (c0_s)
-    if (!same && ex_best != 0) {
-      // stop right after the first exhausting pick: its position is the
-      // number of entries that come before it
-      int above = 0;
-      for (int n = tid; n < N; n += bd)
-        above += count_above(table + (size_t)n * B1, n, u_s[n], B, ex_best);
-      const int p_ex = block_sum_int(above, s_idx);
-      if (p_ex + 1 < m_cand) {
-        m_take = p_ex + 1;
-        cut = ex_best;
-      }
-    }
-
-    // ---- guaranteed progress: serial's next pick is always the best head
-    int head = -1;
-    if (m_take == 0 && anyF_b && m_rem > 0) {
-      float hv = -INFINITY;
-      int hi = 0x7fffffff;
-      for (int n = tid; n < N; n += bd) {
-        const bool F = feas_s[n] && cap_s[n] - j[n] > 0;
-        argmax_update(F ? table[(size_t)n * B1] : -INFINITY, n, &hv, &hi);
-      }
-      block_argmax(&hv, &hi, s_red, s_idx);
-      head = hi;
-      m_take = 1;
-      ++heads;
-    }
-    for (int n = tid; n < N; n += bd) {
-      const int c = head >= 0 ? (n == head)
-                    : (cut ? count_at_least(table + (size_t)n * B1, n, u_s[n], B, cut) : c0_s[n]);
-      j[n] += c;
-    }
+    const WaveNodesLive nd = {feas_s, cap_s, j};
+    const int m_take = wave_take(t, nd, N, gN, m, placed, K, B, anyF_b, nm, table, B1, bound_s,
+                                 simon_s, ip_s, u_s, c0_s, j, b1, i1, s_red, s_idx, s_u64, hist,
+                                 &s_prefix, &s_rem, heads, guarded);
     __syncthreads();
     placed += m_take;
     last_w = m_take;

@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import struct
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -863,22 +863,32 @@ def _normalized_terms(st: dict, norms: tuple) -> tuple:
     return simon, nodeaff, taint, interpod
 
 
-def _wave_score_table(tb: Tables, cry: Carry, st: dict, norms: tuple, g: int, j: torch.Tensor,
-                      w: ScoreWeights = DEFAULT_WEIGHTS, block: int = WAVE_BLOCK) -> torch.Tensor:
-    """[N, B+1] table: entry (n, k) is the score of the (j_n+k+1)-th copy of
-    group g on node n. Term by term the formulas of scores(); the terms that
-    are constant on F (SelectorSpread, PodTopologySpread, Open-Local) are
-    dropped, since a uniform shift never changes the order the wave takes."""
+def _wave_score_table_rows(a_c, a_m, nonzero, grp_nz, st: dict, norms: tuple, j: torch.Tensor,
+                           w: ScoreWeights = DEFAULT_WEIGHTS,
+                           block: int = WAVE_BLOCK) -> torch.Tensor:
+    """[n, B+1] table from per-node rows (JAX :904): entry (n, k) is the
+    score of the (j_n+k+1)-th copy on node n. Every operation is per node,
+    so the rows may be the full [N] arrays or one mesh shard's block: the
+    floats are the same either way. Term by term the formulas of scores();
+    the terms that are constant on F (SelectorSpread, PodTopologySpread,
+    Open-Local) are dropped, since a uniform shift never changes the order
+    the wave takes."""
     dev = j.device
     copies = (j.to(_F32)[:, None, None]
               + torch.arange(1, block + 2, dtype=_F32, device=dev)[None, :, None])
-    used = cry.nonzero[:, None, :] + tb.grp_nonzero[g][None, None, :] * copies  # [N, B+1, 2]
-    a_c, a_m = tb.alloc[:, CPU_I], tb.alloc[:, MEM_I]
+    used = nonzero[:, None, :] + grp_nz[None, None, :] * copies  # [n, B+1, 2]
     least, balanced = least_balanced(used[:, :, 0], used[:, :, 1], a_c[:, None], a_m[:, None])
     simon, nodeaff, taint, interpod = _normalized_terms(st, norms)
     static_n = ((w.simon + w.gpushare) * simon + w.nodeaff * nodeaff + w.taint * taint
                 + w.interpod * interpod + st["static"])
     return w.least * least + w.balanced * balanced + static_n[:, None]
+
+
+def _wave_score_table(tb: Tables, cry: Carry, st: dict, norms: tuple, g: int, j: torch.Tensor,
+                      w: ScoreWeights = DEFAULT_WEIGHTS, block: int = WAVE_BLOCK) -> torch.Tensor:
+    """[N, B+1] score table over the full node set."""
+    return _wave_score_table_rows(tb.alloc[:, CPU_I], tb.alloc[:, MEM_I], cry.nonzero,
+                                  tb.grp_nonzero[g], st, norms, j, w, block)
 
 
 def _wave_capacity(tb: Tables, cry: Carry, g: int, cap1: bool) -> torch.Tensor:
@@ -1012,10 +1022,55 @@ def _wave_iteration(st: dict, norms: tuple, table_ext, F, avail, j, placed: int,
     return j + counts, placed + m_take, m_take, {"head_fallbacks": int(head), "guarded": guarded}
 
 
+def _epoch_shards(mesh, N: int) -> int:
+    """Shards of the mesh's epoch path for N nodes; 1 runs unsharded."""
+    if mesh is None:
+        return 1
+    from ..parallel.mesh import epoch_shards
+
+    return epoch_shards(mesh, N)
+
+
+def _block_of(mesh, N: int) -> slice:
+    """This rank's contiguous node block (the shard_map in_specs slice)."""
+    NL = N // mesh.shards
+    return slice(mesh.rank * NL, (mesh.rank + 1) * NL)
+
+
+def _wave_front_sharded(tb: Tables, cry: Carry, g: int, st: dict, capacity, base_feas, j,
+                        w: ScoreWeights, B: int, mesh):
+    """The sharded epoch front of the wave (JAX :1220-1246): this rank's
+    feasible block, ONE pmax of the stacked normalizers (mins negated), its
+    table block, and ONE tiled all-gather of [table.T; F; min(avail, B+1)].
+    Returns (norms, table_ext [N, B+1], F, avail) at full width: the same
+    floats as the unsharded front, avail clamped to B+1 (every comparison
+    the selection makes against it has a left side <= B)."""
+    from ..parallel.collectives import all_gather_tiled, pmax
+
+    sl = _block_of(mesh, j.shape[0])
+    j_l = j[sl]
+    avail_l = capacity[sl] - j_l
+    F_l = base_feas[sl] & (avail_l > 0)
+    ninf = float("-inf")
+    mx = torch.amax(torch.where(F_l[None, :], st["max_stack"][:, sl], ninf), dim=1)
+    mn = torch.amax(torch.where(F_l[None, :], -st["min_stack"][:, sl], ninf), dim=1)
+    red = pmax(torch.cat([mx, mn]), mesh)
+    norms = (red[0], -red[4], torch.clamp(red[1], min=0.0), torch.clamp(red[2], min=0.0),
+             torch.clamp(red[3], min=0.0), torch.clamp(-red[5], max=0.0))
+    st_l = {k: st[k][sl] for k in ("simon_s", "na_raw", "t_raw", "ip_raw", "static")}
+    table_l = _wave_score_table_rows(tb.alloc[sl, CPU_I], tb.alloc[sl, MEM_I], cry.nonzero[sl],
+                                     tb.grp_nonzero[g], st_l, norms, j_l, w, B)
+    pay = torch.cat([table_l.T, F_l[None].to(_F32),
+                     torch.clamp(avail_l, max=B + 1)[None].to(_F32)], dim=0)
+    full = all_gather_tiled(pay, mesh, axis=1)
+    return norms, full[:B + 1].T, full[B + 1] > 0, full[B + 2].to(torch.int32)
+
+
 @torch.inference_mode()
 def schedule_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
                         w: ScoreWeights = DEFAULT_WEIGHTS, filters: FilterFlags = DEFAULT_FILTERS,
-                        block: int = WAVE_BLOCK, kmax: int = 0, gpu_live: bool = False):
+                        block: int = WAVE_BLOCK, kmax: int = 0, gpu_live: bool = False,
+                        mesh=None):
     """Plain version of `schedule_wave_kernel`: place up to m pods of the
     wave-eligible group g, reproducing m serial steps. Returns (per-node
     counts [N] i32, placed, stats); the carry is not touched (the aggregate
@@ -1023,8 +1078,13 @@ def schedule_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
     head-fallback iterations and the entries the hidden-continuation guard
     deferred, summed over iterations. `gpu_live`: the group asks for shared
     GPU memory (no pre-assigned gpu-index): the GPU filter joins the base
-    feasibility and GPU units clamp the capacity; the scores do not move."""
+    feasibility and GPU units clamp the capacity; the scores do not move.
+    `mesh`: a node mesh (parallel/mesh.py) whose epoch path applies runs
+    each iteration's front on this rank's node block, with one `pmax` and
+    one `all_gather_tiled` per iteration (JAX `loop_sharded` :1215-1260),
+    and the selection on the full-width arrays; the result is the same."""
     N = tb.alloc.shape[0]
+    shards = _epoch_shards(mesh, N)
     K = kmax if kmax else N * block
     base_feas, _ = feasibility(tb, cry, g, -1, True, filters, enable_gpu=gpu_live)
     st = _wave_statics(tb, cry, g, w)
@@ -1035,10 +1095,14 @@ def schedule_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
     placed, last_w = 0, 1
     stats = dict.fromkeys(WAVE_STATS, 0)
     while last_w > 0 and placed < m:
-        avail = capacity - j  # copies left per node
-        F = base_feas & (avail > 0)
-        norms = _wave_norms(st, F)
-        table_ext = _wave_score_table(tb, cry, st, norms, g, j, w, block)
+        if shards > 1:
+            norms, table_ext, F, avail = _wave_front_sharded(tb, cry, g, st, capacity,
+                                                             base_feas, j, w, block, mesh)
+        else:
+            avail = capacity - j  # copies left per node
+            F = base_feas & (avail > 0)
+            norms = _wave_norms(st, F)
+            table_ext = _wave_score_table(tb, cry, st, norms, g, j, w, block)
         j, placed, last_w, it = _wave_iteration(st, norms, table_ext, F, avail, j, placed, m,
                                                 block, K)
         stats["iterations"] += 1
@@ -1308,12 +1372,15 @@ def _affinity_round(rs: dict, ep: dict) -> dict:
 def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
                                  ss_live: bool = False, w: ScoreWeights = DEFAULT_WEIGHTS,
                                  filters: FilterFlags = DEFAULT_FILTERS,
-                                 block: int = WAVE_BLOCK, n_zones: int = 2):
+                                 block: int = WAVE_BLOCK, n_zones: int = 2, mesh=None):
     """Plain version of `schedule_affinity_wave_kernel`: place up to m pods
     of the affinity-route group g, exactly as m serial steps would. Returns
     (per-node counts [N] i32, placed, stats) with stats the AFFINITY_STATS
     dict (epochs, head-fallback epochs, productive multi-rounds); the carry is
-    not touched (the aggregate commit applies the counts)."""
+    not touched (the aggregate commit applies the counts). `mesh`: a node
+    mesh whose epoch path applies runs each epoch's front on this rank's
+    node block, with one `pmax` and one `all_gather_tiled` per epoch (JAX
+    `loop_sharded` :2068-2078), and the tail on the full-width arrays."""
     N = tb.alloc.shape[0]
     dev = tb.alloc.device
     B = block
@@ -1402,16 +1469,26 @@ def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: b
     has_aff = bool(torch.any(avalid))
     has_live_cw = bool(torch.any(live_cw))
 
-    def norm_stacks(ip_raw, pernode0):
-        rows = [st0["simon_s"], st0["na_raw"], st0["t_raw"], ip_raw]
+    # the node-axis inputs of the epoch front: the full [N] (or [slots, N])
+    # arrays, or one mesh shard's block of each (every operation of `head` is
+    # per node or reads the replicated [slots, D+1] rows: the same floats)
+    nd_full = {"feas": base_feas, "cap": capacity, "dom_dns": dom_dns, "dom_aff": dom_aff,
+               "dom_anti": dom_anti, "dom_car": dom_car, "dom_cw": dom_cw, "dom_ss": dom_ss,
+               "ip_pref": ip_pref, "key_ok": dns_key_live_ok, "simon_s": st0["simon_s"],
+               "na_raw": st0["na_raw"], "t_raw": st0["t_raw"], "static": st0["static"]}
+
+    def norm_stacks(nd, ip_raw, pernode0):
+        rows = [nd["simon_s"], nd["na_raw"], nd["t_raw"], ip_raw]
         if ss_live:
             rows.append(pernode0)
-        return torch.stack(rows), torch.stack([st0["simon_s"], ip_raw])
+        return torch.stack(rows), torch.stack([nd["simon_s"], ip_raw])
 
-    def epoch(state: AffinityWaveState) -> AffinityWaveState:
-        j = state.j
-        cnt_dns, cnt_aff, cnt_anti, cnt_car, cnt_cw, cnt_ss = state[1:7]
-        avail = capacity - j
+    def head(j_w, cnts, nd):
+        """The epoch's live gates, feasible sets and live-score stacks from
+        the epoch-start rows (JAX epoch_head :1586)."""
+        cnt_dns, cnt_aff, cnt_anti, cnt_car, cnt_cw, cnt_ss = cnts
+        dom_dns, dom_aff, dom_cw = nd["dom_dns"], nd["dom_aff"], nd["dom_cw"]
+        avail = nd["cap"] - j_w
 
         # ---- live gates from the epoch-start rows (feasibility() term for term)
         cnt_at_d = torch.gather(cnt_dns, 1, dom_dns)
@@ -1426,23 +1503,52 @@ def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: b
         total_aff = torch.sum(torch.where(avalid, totals_a, 0.0))
         bootstrap = has_aff and bool(total_aff == 0.0) and aff_self
         aff_ok = torch.ones_like(aff_all) if bootstrap else aff_all
-        at_b = torch.gather(cnt_anti, 1, dom_anti) > 0
+        at_b = torch.gather(cnt_anti, 1, nd["dom_anti"]) > 0
         blocked_in = torch.any(at_b & bvalid[:, None], dim=0)
         blocked_in_st = torch.any(at_b & bvalid[:, None] & ~live_anti[:, None], dim=0)
-        at_c = torch.gather(cnt_car, 1, dom_car) > 0
+        at_c = torch.gather(cnt_car, 1, nd["dom_car"]) > 0
         blocked_ex = torch.any(at_c & cavalid[:, None], dim=0)
         blocked_ex_st = torch.any(at_c & cavalid[:, None] & ~live_car[:, None], dim=0)
         # F_start: serial's current feasible set; F_hi: live budget gates
         # lifted (the sandwich's upper set)
-        room = base_feas & (avail > 0) & aff_ok
+        room = nd["feas"] & (avail > 0) & aff_ok
         F_start = room & dns_ok & ~blocked_in & ~blocked_ex
-        F_hi = room & dns_ok_static & ~blocked_in_st & ~blocked_ex_st & dns_key_live_ok
+        F_hi = room & dns_ok_static & ~blocked_in_st & ~blocked_ex_st & nd["key_ok"]
 
         # ---- live scores: ip_raw from the live carrier rows, ss per node
         cw_at = torch.gather(cnt_cw, 1, dom_cw)
-        ip_raw = ip_pref + _masked_sum(cwvalid, cw_w[:, None] * cw_at)
-        pernode0 = torch.gather(cnt_ss, 1, dom_ss)[0]
-        max_stack, min_stack = norm_stacks(ip_raw, pernode0)
+        ip_raw = nd["ip_pref"] + _masked_sum(cwvalid, cw_w[:, None] * cw_at)
+        pernode0 = torch.gather(cnt_ss, 1, nd["dom_ss"])[0]
+        max_stack, min_stack = norm_stacks(nd, ip_raw, pernode0)
+        return avail, F_start, F_hi, bootstrap, ip_raw, pernode0, max_stack, min_stack
+
+    def apply_zone(table_ext, maxes_s, pernode0, F_start):
+        """The live SelectorSpread blend and depth caps at full width (JAX
+        apply_zone :1680): term for term, maxN and the zone sums frozen at
+        the epoch start; column c = c earlier takes on the node. Returns
+        (table_ext, k_cap, ss_multi_ok)."""
+        if not ss_live:
+            return table_ext, torch.full((N,), B, dtype=torch.int32, device=dev), True
+        maxN = torch.clamp(maxes_s[4], min=0.0)
+        pernode_k = pernode0[:, None] + torch.arange(B + 1, dtype=_F32, device=dev)[None, :]
+        node_score = torch.where(maxN > 0, 100.0 * (maxN - pernode_k) / maxN, 100.0)
+        nz_count = torch.where(F_start, pernode0, 0.0)
+        zone_sums = torch.zeros(Z, dtype=_F32, device=dev).index_add_(0, zones, nz_count)
+        maxZ = torch.amax(torch.cat([zone_sums.new_zeros(1), zone_sums[1:]]))
+        have_zones = bool(torch.any(F_start & (zones > 0)))
+        zscore = torch.where(maxZ > 0, 100.0 * (maxZ - zone_sums[zones]) / maxZ, 100.0)
+        blended = torch.where((have_zones & (zones > 0))[:, None],
+                              node_score * (1.0 / 3.0) + zscore[:, None] * (2.0 / 3.0),
+                              node_score)
+        table_ext = table_ext + w.ss * _flr(blended)
+        # depth cap: a take past the frozen maxN would move it
+        k_cap = torch.clamp(maxN - pernode0, 0.0, float(B)).to(torch.int32)
+        return table_ext, k_cap, not have_zones  # zone sums move with every zoned take
+
+    def front_full(j, cnts):
+        """The unsharded epoch front (JAX front_full :1628)."""
+        (avail, F_start, F_hi, bootstrap, ip_raw, pernode0, max_stack,
+         min_stack) = head(j, cnts, nd_full)
         maxes_s, mins_s = _norm_vals(max_stack, min_stack, F_start)
         maxes_h, mins_h = _norm_vals(max_stack, min_stack, F_hi)
         norms6 = (maxes_s[0], mins_s[0], torch.clamp(maxes_s[1], min=0.0),
@@ -1460,31 +1566,74 @@ def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: b
             dmin = torch.amin(torch.where(F_hi[None, :], dom_cw, D + 2), dim=1)
             dom_same = bool(torch.all(~live_cw | (dmax == dmin)))
             ip_safe = dom_same and bool(maxes_h[3] == mins_h[1])
-
         # ---- the score table under serial's current normalizers
-        st_ep = dict(st0, ip_raw=ip_raw)
-        table_ext = _wave_score_table(tb, cry, st_ep, norms6, g, j, w, B)
+        table_ext = _wave_score_table(tb, cry, dict(st0, ip_raw=ip_raw), norms6, g, j, w, B)
+        table_ext, k_cap, ss_multi_ok = apply_zone(table_ext, maxes_s, pernode0, F_start)
+        return (avail, F_start, F_hi, table_ext, k_cap, ss_multi_ok, max_stack, min_stack,
+                maxes_s, mins_s, maxes_h, mins_h, uniform_base, bootstrap, ip_safe)
+
+    def front_sharded(j, cnts):
+        """The sharded epoch front (JAX front_sharded :1982-2066): `head` on
+        this rank's node block, ONE pmax of every normalizer reduction in
+        max space (mins negated), the table block, ONE tiled all-gather of
+        [table.T; F_start; F_hi; min(avail, B+1); ip_raw (; pernode0)],
+        then the full-width values of `front_full`."""
+        from ..parallel.collectives import all_gather_tiled, pmax
+
+        sl = _block_of(mesh, N)
+        nd_l = {k: v[..., sl] for k, v in nd_full.items()}
+        (avail_l, F_start_l, F_hi_l, bootstrap, ip_raw_l, pernode0_l, max_stack_l,
+         min_stack_l) = head(j[sl], cnts, nd_l)
+
+        def mred(stack, Fm):
+            return torch.amax(torch.where(Fm[None, :], stack, float("-inf")), dim=1)
+
+        dom_cw_f = nd_l["dom_cw"].to(_F32)  # exact: domain ids < 2**24
+        red = pmax(torch.cat([
+            mred(max_stack_l, F_start_l), mred(-min_stack_l, F_start_l),
+            mred(max_stack_l, F_hi_l), mred(-min_stack_l, F_hi_l), mred(-max_stack_l[:4], F_hi_l),
+            torch.amax(torch.where(F_hi_l[None, :], dom_cw_f, -1.0), dim=1),
+            torch.amax(torch.where(F_hi_l[None, :], -dom_cw_f, -float(D + 2)), dim=1)]), mesh)
+        ns = 5 if ss_live else 4
+        Cw = dom_cw.shape[0]
+        maxes_s, mins_s = red[:ns], -red[ns:ns + 2]
+        o = ns + 2
+        maxes_h, mins_h = red[o:o + ns], -red[o + ns:o + ns + 2]
+        o += ns + 2
+        base_hi_min, dmax, dmin = -red[o:o + 4], red[o + 4:o + 4 + Cw], -red[o + 4 + Cw:]
+        norms6 = (maxes_s[0], mins_s[0], torch.clamp(maxes_s[1], min=0.0),
+                  torch.clamp(maxes_s[2], min=0.0), torch.clamp(maxes_s[3], min=0.0),
+                  torch.clamp(mins_s[1], max=0.0))
+        st_l = {"simon_s": nd_l["simon_s"], "na_raw": nd_l["na_raw"], "t_raw": nd_l["t_raw"],
+                "static": nd_l["static"], "ip_raw": ip_raw_l}
+        table_l = _wave_score_table_rows(tb.alloc[sl, CPU_I], tb.alloc[sl, MEM_I],
+                                         cry.nonzero[sl], tb.grp_nonzero[g], st_l, norms6, j[sl],
+                                         w, B)
+        rows = [table_l.T, F_start_l[None].to(_F32), F_hi_l[None].to(_F32),
+                torch.clamp(avail_l, max=B + 1)[None].to(_F32), ip_raw_l[None]]
         if ss_live:
-            # live SelectorSpread, term for term, maxN and zone sums frozen at
-            # the epoch start; column c = c earlier takes on the node
-            maxN = torch.clamp(maxes_s[4], min=0.0)
-            pernode_k = pernode0[:, None] + torch.arange(B + 1, dtype=_F32, device=dev)[None, :]
-            node_score = torch.where(maxN > 0, 100.0 * (maxN - pernode_k) / maxN, 100.0)
-            nz_count = torch.where(F_start, pernode0, 0.0)
-            zone_sums = torch.zeros(Z, dtype=_F32, device=dev).index_add_(0, zones, nz_count)
-            maxZ = torch.amax(torch.cat([zone_sums.new_zeros(1), zone_sums[1:]]))
-            have_zones = bool(torch.any(F_start & (zones > 0)))
-            zscore = torch.where(maxZ > 0, 100.0 * (maxZ - zone_sums[zones]) / maxZ, 100.0)
-            blended = torch.where((have_zones & (zones > 0))[:, None],
-                                  node_score * (1.0 / 3.0) + zscore[:, None] * (2.0 / 3.0),
-                                  node_score)
-            table_ext = table_ext + w.ss * _flr(blended)
-            # depth cap: a take past the frozen maxN would move it
-            k_cap = torch.clamp(maxN - pernode0, 0.0, float(B)).to(torch.int32)
-            ss_multi_ok = not have_zones  # zone sums move with every zoned take
-        else:
-            k_cap = torch.full((N,), B, dtype=torch.int32, device=dev)
-            ss_multi_ok = True
+            rows.append(pernode0_l[None])
+        full = all_gather_tiled(torch.cat(rows), mesh, axis=1)
+        F_start, F_hi = full[B + 1] > 0, full[B + 2] > 0
+        ip_raw, pernode0 = full[B + 4], (full[B + 5] if ss_live else None)
+        max_stack, min_stack = norm_stacks(nd_full, ip_raw, pernode0)
+        any_hi = bool(torch.any(F_hi))
+        uniform_base = bool(torch.all(maxes_h[:4] == base_hi_min)) and any_hi
+        dom_same = bool(torch.all(~live_cw | (dmax == dmin)))
+        # ip_hi / ip_lo are maxes_h[3] / mins_h[1]
+        ip_safe = not has_live_cw or not any_hi or (dom_same and bool(maxes_h[3] == mins_h[1]))
+        table_ext, k_cap, ss_multi_ok = apply_zone(full[:B + 1].T, maxes_s, pernode0, F_start)
+        return (full[B + 3].to(torch.int32), F_start, F_hi, table_ext, k_cap, ss_multi_ok,
+                max_stack, min_stack, maxes_s, mins_s, maxes_h, mins_h, uniform_base, bootstrap,
+                ip_safe)
+
+    front = front_sharded if _epoch_shards(mesh, N) > 1 else front_full
+
+    def epoch(state: AffinityWaveState) -> AffinityWaveState:
+        j = state.j
+        cnt_dns, cnt_aff, cnt_anti, cnt_car, cnt_cw, cnt_ss = state[1:7]
+        (avail, F_start, F_hi, table_ext, k_cap, ss_multi_ok, max_stack, min_stack, maxes_s,
+         mins_s, maxes_h, mins_h, uniform_base, bootstrap, ip_safe) = front(j, state[1:7])
         table = table_ext[:, :B]
 
         pre_norms_ok = uniform_base or _norms_eq(zip((maxes_s[:4], mins_s),
@@ -1910,6 +2059,133 @@ def schedule_affinity_wave_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: 
     return j, stats[0], stats[1:]
 
 
+# A timing hook for the K8 / K9 stages: when it is a dict, each of their
+# launches is recorded between two CUDA events, appended to the list under
+# its C entry point's name (chip_smoke.py sets it while it times them).
+SHARDED_STAGE_EVENTS: Optional[Dict[str, list]] = None
+
+
+def _sharded_launch(launch, *args) -> None:
+    """One launch of a K8 / K9 stage (see SHARDED_STAGE_EVENTS)."""
+    ev = SHARDED_STAGE_EVENTS
+    if ev is not None:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+    _check(launch(*args, _stream()), launch.__name__)
+    if ev is not None:
+        end.record()
+        ev.setdefault(launch.__name__, []).append((start, end))
+
+
+def _sharded_loop(front, table, tail, v, g: int, m: int, block: int, mesh, dims: tuple, state,
+                  j, fs, iscr, part, pay, front_args: tuple, tail_args: tuple, wrapper) -> None:
+    """The host's epoch loop of K8 / K9: `front` on the block, one pmax,
+    `table` on the block, one tiled all-gather of the payload rows, `tail`
+    at full width; one read of (placed, last) per epoch. `front_args` and
+    `tail_args` are the launch arguments that differ between the two
+    families. Every launch adds one to `wrapper.launches`."""
+    from ..parallel.collectives import all_gather_tiled, pmax
+
+    lo, hi = dims
+    placed, last = 0, 1
+    while last > 0 and placed < m:
+        _sharded_launch(front, ctypes.byref(v), int(g), int(block), lo, hi, _ptr(j), _ptr(fs),
+                        _ptr(iscr), _ptr(part), *front_args)
+        red = pmax(part, mesh)
+        _sharded_launch(table, ctypes.byref(v), int(g), int(block), lo, hi, _ptr(j), _ptr(fs),
+                        _ptr(iscr), _ptr(red), _ptr(pay))
+        full = all_gather_tiled(pay, mesh, axis=0)
+        _sharded_launch(tail, ctypes.byref(v), int(g), int(m), *tail_args, _ptr(j), _ptr(fs),
+                        _ptr(iscr), _ptr(red), _ptr(full), _ptr(state))
+        wrapper.launches += 3
+        placed, last = state[:2].tolist()
+        wrapper.host_reads += 1
+
+
+def schedule_wave_sharded_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
+                                 w: ScoreWeights = DEFAULT_WEIGHTS,
+                                 filters: FilterFlags = DEFAULT_FILTERS, block: int = WAVE_BLOCK,
+                                 kmax: int = 0, gpu_live: bool = False, mesh=None):
+    """Launch K8 (csrc/wave_sharded.cu) on this rank of a node `mesh` whose
+    epoch path applies: setup once, then per epoch the front and the table
+    on the rank's node block and the tail at full width, with one `pmax` and
+    one `all_gather_tiled` between them (parallel/collectives.py). Every
+    rank returns the same (per-node counts [N] i32, placed as a 0-dim i32
+    tensor, [iterations, head_fallbacks, guarded] i32), on the card; `cry`
+    is only read."""
+    from . import build
+
+    lib = build.library()
+    dev = tb.alloc.device
+    N = tb.alloc.shape[0]
+    K = kmax if kmax else N * block
+    if N * block >= 2 ** 31 or not 1 <= K <= N * block:
+        raise ValueError(f"wave table {N}x{block} with kmax {K} is out of the kernel's range")
+    if _epoch_shards(mesh, N) <= 1:
+        raise ValueError(f"the mesh's epoch path does not apply to {N} nodes")
+    sl = _block_of(mesh, N)
+    v = _view(tb, cry, 2, w, filters, enable_gpu=gpu_live)
+    j = torch.empty(N, dtype=torch.int32, device=dev)
+    state = torch.empty(5, dtype=torch.int32, device=dev)
+    fs = torch.empty(int(lib.wave_sharded_scratch_floats(N)), dtype=_F32, device=dev)
+    iscr = torch.empty(int(lib.wave_sharded_scratch_ints(N)), dtype=torch.int32, device=dev)
+    part = torch.empty(6, dtype=_F32, device=dev)
+    pay = torch.empty((sl.stop - sl.start, block + 3), dtype=_F32, device=dev)
+    fn = schedule_wave_sharded_kernel
+    _sharded_launch(lib.wave_sharded_setup_launch, ctypes.byref(v), int(g), int(bool(cap1)),
+                    _ptr(j), _ptr(fs), _ptr(iscr), _ptr(state))
+    fn.launches += 1
+    _sharded_loop(lib.wave_sharded_front_launch, lib.wave_sharded_table_launch,
+                  lib.wave_sharded_tail_launch, v, g, m, block, mesh, (sl.start, sl.stop), state,
+                  j, fs, iscr, part, pay, (), (int(block), int(K)), fn)
+    if gpu_live:
+        BRANCH_LAUNCHES["schedule_wave_sharded/gpu_live"] += 1
+    return j, state[0], state[2:5]
+
+
+def schedule_affinity_wave_sharded_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
+                                          ss_live: bool = False,
+                                          w: ScoreWeights = DEFAULT_WEIGHTS,
+                                          filters: FilterFlags = DEFAULT_FILTERS,
+                                          block: int = WAVE_BLOCK, n_zones: int = 2, mesh=None):
+    """Launch K9 (csrc/affinity_sharded.cu) on this rank of a node `mesh`
+    whose epoch path applies: setup once, then per epoch the front and the
+    table on the rank's node block and the tail at full width, with one
+    `pmax` and one `all_gather_tiled` between them. Every rank returns the
+    same (per-node counts [N] i32, placed as a 0-dim i32 tensor, [epochs,
+    head_fallbacks, multi_rounds] i32), on the card; `cry` is only read."""
+    from . import build
+
+    lib = build.library()
+    dev = tb.alloc.device
+    N = tb.alloc.shape[0]
+    if N * block >= 2 ** 31 or block < 1:
+        raise ValueError(f"affinity table {N}x{block} is out of the kernel's range")
+    if cry.counter.shape[1] > AFFINITY_MAX_D1:
+        raise ValueError(f"{cry.counter.shape[1]} domains exceed the kernel's {AFFINITY_MAX_D1}")
+    if _epoch_shards(mesh, N) <= 1:
+        raise ValueError(f"the mesh's epoch path does not apply to {N} nodes")
+    sl = _block_of(mesh, N)
+    v = _view(tb, cry, n_zones, w, filters)
+    j = torch.empty(N, dtype=torch.int32, device=dev)
+    state = torch.empty(7, dtype=torch.int32, device=dev)
+    fs = torch.empty(int(lib.affinity_sharded_scratch_floats(ctypes.byref(v), int(block))),
+                     dtype=_F32, device=dev)
+    iscr = torch.empty(int(lib.affinity_sharded_scratch_ints(ctypes.byref(v))),
+                       dtype=torch.int32, device=dev)
+    part = torch.empty(int(lib.affinity_sharded_parts(ctypes.byref(v))), dtype=_F32, device=dev)
+    pay = torch.empty((sl.stop - sl.start, block + 6), dtype=_F32, device=dev)
+    fn = schedule_affinity_wave_sharded_kernel
+    _sharded_launch(lib.affinity_sharded_setup_launch, ctypes.byref(v), int(g), int(bool(cap1)),
+                    int(block), _ptr(j), _ptr(fs), _ptr(iscr), _ptr(state))
+    fn.launches += 1
+    _sharded_loop(lib.affinity_sharded_front_launch, lib.affinity_sharded_table_launch,
+                  lib.affinity_sharded_tail_launch, v, g, m, block, mesh, (sl.start, sl.stop),
+                  state, j, fs, iscr, part, pay, (_ptr(state),), (int(bool(ss_live)), int(block)),
+                  fn)
+    return j, state[0], state[2:5]
+
+
 def _on_cpu(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return True
@@ -1991,17 +2267,21 @@ def aggregate_commit(tb: Tables, cry: Carry, g: int, j: torch.Tensor,
 
 def schedule_wave(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
                   w: ScoreWeights = DEFAULT_WEIGHTS, filters: FilterFlags = DEFAULT_FILTERS,
-                  block: int = WAVE_BLOCK, kmax: int = 0, gpu_live: bool = False):
+                  block: int = WAVE_BLOCK, kmax: int = 0, gpu_live: bool = False, mesh=None):
     """Place up to m pods of wave-eligible group g, exactly as m serial steps
     would (JAX `schedule_wave`): the plain version for CPU tensors, K3 for
-    CUDA tensors, then `aggregate_commit`. Returns (new carry, per-node
-    counts [N] i32, placed). The loop's statistics (WAVE_STATS) are added
-    to `schedule_wave.stats`, an i32 tensor on the wrapper's device (adding
-    it up does not wait for the card)."""
+    CUDA tensors (K8 where a node `mesh` takes the sharded epoch path), then
+    `aggregate_commit`. Returns (new carry, per-node counts [N] i32,
+    placed). The loop's statistics (WAVE_STATS) are added to
+    `schedule_wave.stats`, an i32 tensor on the wrapper's device (adding it
+    up does not wait for the card)."""
     if _on_cpu(tb.alloc):
         j, placed, st = schedule_wave_plain(tb, cry, g, m, cap1, w, filters, block, kmax,
-                                            gpu_live)
+                                            gpu_live, mesh)
         stats = torch.tensor([st[k] for k in WAVE_STATS], dtype=torch.int32)
+    elif _epoch_shards(mesh, tb.alloc.shape[0]) > 1:
+        j, placed, stats = schedule_wave_sharded_kernel(tb, cry, g, m, cap1, w, filters, block,
+                                                        kmax, gpu_live, mesh)
     else:
         j, placed, stats = schedule_wave_kernel(tb, cry, g, m, cap1, w, filters, block, kmax,
                                                 gpu_live)
@@ -2030,18 +2310,22 @@ def schedule_group_serial(tb: Tables, cry: Carry, g: int, valid, cap1: bool,
 def schedule_affinity_wave(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
                            ss_live: bool = False, w: ScoreWeights = DEFAULT_WEIGHTS,
                            filters: FilterFlags = DEFAULT_FILTERS, block: int = WAVE_BLOCK,
-                           n_zones: int = 2):
+                           n_zones: int = 2, mesh=None):
     """Place up to m pods of affinity-route group g, exactly as m serial
     steps would (JAX `schedule_affinity_wave`): the plain version for CPU
-    tensors, K5 for CUDA tensors, then `aggregate_commit`. Returns (new carry,
-    per-node counts [N] i32, placed). The epoch statistics (AFFINITY_STATS)
-    are added to `schedule_affinity_wave.stats`, an i32 tensor on the
-    wrapper's device (adding them up does not wait for the card), and this
-    call's alone are `schedule_affinity_wave.last_stats`."""
+    tensors, K5 for CUDA tensors (K9 where a node `mesh` takes the sharded
+    epoch path), then `aggregate_commit`. Returns (new carry, per-node
+    counts [N] i32, placed). The epoch statistics (AFFINITY_STATS) are
+    added to `schedule_affinity_wave.stats`, an i32 tensor on the wrapper's
+    device (adding them up does not wait for the card), and this call's
+    alone are `schedule_affinity_wave.last_stats`."""
     if _on_cpu(tb.alloc):
         j, placed, st = schedule_affinity_wave_plain(tb, cry, g, m, cap1, ss_live, w, filters,
-                                                     block, n_zones)
+                                                     block, n_zones, mesh)
         stats = torch.tensor([st[k] for k in AFFINITY_STATS], dtype=torch.int32)
+    elif _epoch_shards(mesh, tb.alloc.shape[0]) > 1:
+        j, placed, stats = schedule_affinity_wave_sharded_kernel(
+            tb, cry, g, m, cap1, ss_live, w, filters, block, n_zones, mesh)
     else:
         j, placed, stats = schedule_affinity_wave_kernel(tb, cry, g, m, cap1, ss_live, w,
                                                          filters, block, n_zones)
@@ -2758,9 +3042,14 @@ _WRAPPERS = {"schedule_batch": schedule_batch, "feasibility": feasibility_jit,
              "serve_whatif_fanout": serve_whatif_fanout, "serve_wave_fanout": serve_wave_fanout,
              "sweep_wave_fanout": sweep_wave_fanout, "sweep_whatif_fanout": sweep_whatif_fanout,
              "aggregate_commit_lanes": aggregate_commit_lanes,
-             "extend_tables": extend_tables_on_device, "explain_jit": explain_jit}
+             "extend_tables": extend_tables_on_device, "explain_jit": explain_jit,
+             "schedule_wave_sharded": schedule_wave_sharded_kernel,
+             "schedule_affinity_wave_sharded": schedule_affinity_wave_sharded_kernel}
 for _f in _WRAPPERS.values():
     _f.launches = 0
+# the sharded kernels' reads of (placed, last), one per epoch
+schedule_wave_sharded_kernel.host_reads = 0
+schedule_affinity_wave_sharded_kernel.host_reads = 0
 schedule_batch.last_events = None
 schedule_wave.stats = None
 schedule_affinity_wave.stats = None
@@ -2768,12 +3057,15 @@ schedule_affinity_wave.last_stats = None
 # launches of the kernels with their GPU-share / Open-Local branches on (a
 # part of the wrappers' own counts)
 BRANCH_LAUNCHES = dict.fromkeys(("feasibility/gpu_storage", "schedule_batch/gpu_storage",
-                                 "schedule_wave/gpu_live", "aggregate_commit/gpu_live"), 0)
+                                 "schedule_wave/gpu_live", "aggregate_commit/gpu_live",
+                                 "schedule_wave_sharded/gpu_live"), 0)
 
 
 def reset_launch_counts() -> None:
     for f in _WRAPPERS.values():
         f.launches = 0
+    schedule_wave_sharded_kernel.host_reads = 0
+    schedule_affinity_wave_sharded_kernel.host_reads = 0
     for k in BRANCH_LAUNCHES:
         BRANCH_LAUNCHES[k] = 0
     schedule_wave.stats = None

@@ -53,7 +53,13 @@ Left out of this port so far, each with the ROADMAP item it waits for:
 - the watchdog, CPU failover, fault injection and transactional rollback
   (resilience/), and the pulse and scope instrumentation (obs/): A9;
 - the columnar PodStore/NodeStore batches: A14;
-- the node-axis mesh: A12.
+- the mesh's partitioned table layout (A12b) and its scenario axis (A12c).
+
+On a node mesh (`use_mesh`, parallel/mesh.py) every rank runs this engine
+on the same input with the tables and carry replicated; the encoder pads
+the node axis to a multiple of the shard count, and the "wave" and
+"affinity" routes pass the mesh to their kernels, whose epoch fronts run on
+the rank's node block with two collectives per epoch (K8, K9 on the card).
 """
 
 from __future__ import annotations
@@ -129,6 +135,7 @@ _SERIAL = GroupRoute(None, False, False, False, False)
 # that cross it, so another size puts pods of one group on other nodes (the
 # per-node census stays the same). Both packages must chunk alike.
 STREAM_PODS = 131072
+_UNSET = object()  # Simulator._mesh before the mesh decision is made
 
 
 def batch_tables_nbytes(bt: BatchTables) -> int:
@@ -205,10 +212,17 @@ class Simulator:
         disable_progress: bool = True,
         patch_pod_funcs: Optional[List[Callable]] = None,
         device=None,
+        use_mesh: Optional[bool] = None,
     ) -> None:
         """device: "cuda" (the default, None) or "cpu". Without a CUDA device
-        only an explicit "cpu" runs; nothing falls back quietly."""
+        only an explicit "cpu" runs; nothing falls back quietly. use_mesh:
+        shard the wave kernels' epoch fronts over the ranks of the
+        torch.distributed process group (parallel/mesh.py); None = a mesh
+        when the group is initialized with more than one rank, overridable
+        by OPEN_SIMULATOR_MESH; True or False forces the choice."""
         self.device = resolve_device(device)
+        self.use_mesh = use_mesh
+        self._mesh = _UNSET
         # the simulator owns its node objects (the plugins write annotations
         # back into them), like the reference's fakeclient Create
         nodes = copy.deepcopy(list(nodes))
@@ -398,9 +412,14 @@ class Simulator:
 
     def encode_batch(self, to_schedule: List[dict]) -> BatchTables:
         """Encode a pod batch into padded tables (no scheduling): encoder axes
-        to pow2 buckets, the node axis to bucket_capped(N, 1024)."""
+        to pow2 buckets, the node axis to bucket_capped(N, 1024), aligned to
+        the mesh's shard count (JAX :902-911)."""
         bt = pad_encoder_axes(self.encode_batch_raw(to_schedule))
-        return pad_batch_tables(bt, bucket_capped(self.na.N, 1024))
+        target = bucket_capped(self.na.N, 1024)
+        mesh = self._resolve_mesh()
+        if mesh is not None:
+            target += (-target) % mesh.shards
+        return pad_batch_tables(bt, target)
 
     def encode_batch_raw(self, to_schedule: List[dict]) -> BatchTables:
         batch = self.encode_batch_ids(to_schedule)
@@ -623,7 +642,8 @@ class Simulator:
                                 **dims)
             carry, counts, _ = kernels.schedule_wave(tables, carry, g, length, cap1, w=w,
                                                      filters=filters, block=block, kmax=kmax,
-                                                     gpu_live=bool(seg[5]))
+                                                     gpu_live=bool(seg[5]),
+                                                     mesh=self._resolve_mesh())
             return carry, counts
         if kind == "spread":
             ss_live, sa_live = bool(seg[5]), bool(seg[6])
@@ -643,7 +663,7 @@ class Simulator:
                             zones=bt.n_zones if ss_live else 2, **dims)
         carry, counts, _ = kernels.schedule_affinity_wave(
             tables, carry, g, length, cap1, ss_live=ss_live, w=w, filters=filters, block=block,
-            n_zones=bt.n_zones if ss_live else 2)
+            n_zones=bt.n_zones if ss_live else 2, mesh=self._resolve_mesh())
         return carry, counts
 
     def _schedule_run_once(self, to_schedule: List[dict]) -> List[UnscheduledPod]:
@@ -882,7 +902,33 @@ class Simulator:
         batch's tables (BatchTables, or their kernels.Tables): the signature
         base of obs.record_dispatch."""
         return {"N": int(bt.alloc.shape[0]), "G": int(bt.static_mask.shape[0]),
-                "T": int(bt.counter_dom.shape[0]), "mesh": False, "cfg": self._cfg_digest()}
+                "T": int(bt.counter_dom.shape[0]),
+                "mesh": self._mesh is not None and self._mesh is not _UNSET,
+                "cfg": self._cfg_digest()}
+
+    def _resolve_mesh(self):
+        """Decide (once) whether to shard (JAX :1862-1900): use_mesh True or
+        False forces it; None takes a mesh when torch.distributed is
+        initialized with more than one rank, unless OPEN_SIMULATOR_MESH says
+        otherwise. True without a process group is a one-shard mesh, which
+        runs unsharded."""
+        if self._mesh is not _UNSET:
+            return self._mesh
+        want = self.use_mesh
+        env = os.environ.get("OPEN_SIMULATOR_MESH", "")
+        if want is None and env:
+            want = env not in ("0", "false", "no")
+        mesh = None
+        if want is not False:
+            import torch.distributed as dist
+
+            ranks = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+            if ranks > 1 or want:
+                from ..parallel.mesh import make_node_mesh
+
+                mesh = make_node_mesh(device=self.device)
+        self._mesh = mesh
+        return mesh
 
     def _xray_commit(self) -> None:
         """Commit this call's staged decision records. A recorder failure

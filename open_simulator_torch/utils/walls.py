@@ -17,10 +17,12 @@ the same clusters; run it by path, so that it imports no package of its own
 checkout. Compare two checkouts in one invocation sequence on one card:
 parent, change, change, parent. Imports no JAX.
 
-With `--kernels`, it times the single-lane kernels of the main path instead
-(CUDA events, mean of `--reps` launches after a warm-up): K2 on 2,500 pods
-of the 5,000-node hard shape, K4 on the first ScheduleAnyway segment of the
-spread cluster and K5 on the first affinity segment of the hard shape, and
+With `--kernels`, it times the kernels of the main path instead (CUDA
+events, mean of `--reps` launches after a warm-up): K2 on 2,500 pods of the
+5,000-node hard shape, K4 on the first ScheduleAnyway segment of the spread
+cluster, K5 and K3 on the first affinity and wave segments of the hard shape
+(each also over 8 lanes), K3 with gpu_live on the first GPU wave of the
+extended cluster, and
 prints the root's `ptxas -v` lines (registers, stack, spills) of each
 kernel, so that two checkouts compare kernel for kernel.
 """
@@ -68,7 +70,7 @@ def main() -> int:
     ap.add_argument("--root", default=HERE, help="checkout whose open_simulator_torch runs")
     ap.add_argument("--repeat", type=int, default=1)
     ap.add_argument("--kernels", action="store_true",
-                    help="time the single-lane K2, K4 and K5 and print ptxas lines")
+                    help="time K2, K3, K4 and K5 and print ptxas lines")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("kinds", nargs="*", default=["hard_waves", "overflow_waves", "affinity"])
     args = ap.parse_args()
@@ -226,6 +228,30 @@ def kernel_times(synth, root: str, reps: int) -> int:
     out["K5 schedule_affinity_wave hard zone spread"] = _ms(
         lambda: K.schedule_affinity_wave_kernel(tb, seed, g, m, cap1, ss_live=ss_live,
                                                 block=block), reps)
+    lanes = K.carry_lanes(seed, 8)
+    active = torch.ones((8, tb.alloc.shape[0]), dtype=torch.bool, device="cuda")
+    out["K5 over 8 lanes hard zone spread"] = _ms(
+        lambda: K.schedule_affinity_wave_lanes_kernel(tb, lanes, active, g, m, cap1,
+                                                      ss_live=ss_live, block=block), reps)
+    _, _, m, g, cap1 = next(s for s in sim._segments(bt, len(pods)) if s[0] == "wave")[:5]
+    block = K.wave_block_for(m, sim.na.N)
+    kw = dict(block=block, kmax=K.wave_kmax(m, sim.na.N, block))
+    out["K3 schedule_wave hard"] = _ms(
+        lambda: K.schedule_wave_kernel(tb, seed, g, m, cap1, **kw), reps)
+    out["K3 over 8 lanes hard"] = _ms(
+        lambda: K.schedule_wave_lanes_kernel(tb, lanes, active, g, m, cap1, **kw), reps)
+    nodes, pods, _, scs = synth.synth_extended_cluster(2000, 20000)
+    sim = Simulator(nodes, device="cuda")
+    sim.register_cluster_objects(ResourceTypes(storage_classes=scs))
+    bt = sim.encode_batch(pods)
+    tb, seed = sim._to_device(bt)
+    _, _, m, g, cap1 = next(s for s in sim._segments(bt, len(pods))
+                            if s[0] == "wave" and s[5])[:5]
+    block = K.wave_block_for(m, sim.na.N)
+    out["K3 schedule_wave extended gpu_live"] = _ms(
+        lambda: K.schedule_wave_kernel(tb, seed, g, m, cap1, block=block,
+                                       kmax=K.wave_kmax(m, sim.na.N, block), gpu_live=True),
+        reps)
     print(json.dumps({"root": os.path.abspath(root), "kernel_ms": out, "reps": reps,
                       "card": card}), flush=True)
     return 0

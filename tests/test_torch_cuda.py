@@ -568,3 +568,23 @@ def test_explain_kernel_matches_plain_version(kind):
             for forced in (-1, (7 * g + 3) % N):
                 got = K.explain_kernel(tb, cry, g, forced, True, bt.n_zones, **flags)
                 _same_explain(got, K.explain_pod(tb, cry, g, forced, True, bt.n_zones, **flags))
+
+
+@pytest.mark.cuda
+def test_sharded_kernels_match_plain_sharded_on_two_ranks(tmp_path):
+    """K8 and K9 on two ranks that share cuda:0 over gloo (CUDA tensors
+    staged through host memory) against their plain sharded versions on the
+    same ranks and the unsharded K3 / K5, on every wave and affinity segment
+    of the seeded workload (the upper shard's block all cordoned)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import torch_mesh_cases as C
+    from open_simulator_torch.ops import build
+    from open_simulator_torch.parallel.launch import run_ranks
+
+    build.library()  # build once, before the ranks load it
+    got = run_ranks(C.card_kernels, 2, str(tmp_path), device="cuda", backend="gloo")
+    assert got[0] == got[1]
+    assert {r["kind"] for r in got[0]} == {"wave", "affinity"}
+    for r in got[0]:
+        assert r["same_plain"] and r["same_unsharded"], r

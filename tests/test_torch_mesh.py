@@ -1,0 +1,187 @@
+"""The node-axis mesh of the PyTorch port (open_simulator_torch/parallel/)
+against the JAX package's mesh and the port's unsharded run.
+
+Two module-scoped spawns (2 and 4 gloo ranks on the CPU, `run_ranks`) run
+every case of tests/torch_mesh_cases.py on every rank. Held here:
+
+- end to end, on the JAX mesh tests' workloads, the port on `shards` ranks
+  places every pod as the JAX Simulator on `make_node_mesh(shards)` (the 8
+  virtual CPU devices of conftest.py) and as the port's unsharded run;
+- the epoch path is really taken: one `pmax` and one `all_gather_tiled` per
+  epoch of the wave and affinity segments, on both kinds;
+- the plain sharded kernels equal the unsharded ones bit for bit (counts,
+  placed, statistics) on seeded tables whose upper shards' blocks are all
+  infeasible;
+- the route's rules: an N the shard count does not divide, and an N above
+  OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES, make no collective call and
+  place the same pods;
+- every rank returns the same results, and a failing rank fails the run.
+"""
+
+import copy
+
+import pytest
+import torch
+
+import torch_mesh_cases as C
+from open_simulator_torch.parallel import (NODE_AXIS, ShardedKernels, choose_backend,
+                                           epoch_shards, initialize_distributed,
+                                           make_global_mesh, make_node_mesh, make_scenario_mesh)
+from open_simulator_torch.parallel.launch import run_ranks
+from open_simulator_torch.simulator.engine import Simulator as TorchSimulator
+from open_simulator_tpu.parallel.mesh import make_node_mesh as jax_node_mesh
+from open_simulator_tpu.simulator.engine import Simulator as JaxSimulator
+
+SHARDS = (2, 4)
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """{shards: every rank's results}, one spawn per world size."""
+    return {w: run_ranks(C.rank_cases, w, str(tmp_path_factory.mktemp(f"rdzv{w}")),
+                          device="cpu")
+            for w in SHARDS}
+
+
+@pytest.fixture(scope="module")
+def unsharded():
+    """The port's unsharded engine run of every workload."""
+    out = {name: C.run_engine(*make()) for name, make in C.WORKLOADS.items()}
+    out["seeded"] = C.run_engine(*C.seeded_workload())
+    return out
+
+
+def _jax_run(name: str, shards: int) -> dict:
+    nodes, pods = C.WORKLOADS[name]()
+    sim = JaxSimulator(copy.deepcopy(nodes), use_mesh=True)
+    sim._mesh = jax_node_mesh(shards)  # pin the shard count, as test_mesh_sharding.py does
+    return C.placements(sim, sim.schedule_pods(copy.deepcopy(pods)))
+
+
+@pytest.mark.parametrize("shards", SHARDS)
+def test_every_rank_returns_the_same_results(ranks, shards):
+    got = ranks[shards]
+    assert [r["rank"] for r in got] == list(range(shards))
+    strip = [{k: v for k, v in r.items() if k != "rank"} for r in got]
+    assert all(r == strip[0] for r in strip[1:])
+    assert got[0]["backend"] == "gloo" and got[0]["transport"] == "direct"
+
+
+@pytest.mark.parametrize("name,shards", [("mixed", 2), ("mixed", 4), ("hard_affinity", 2),
+                                         ("hostname_spread", 2), ("hostname_spread", 4)])
+def test_port_mesh_places_as_the_jax_mesh(ranks, unsharded, name, shards):
+    got = ranks[shards][0][name]
+    want = _jax_run(name, shards)
+    assert got["shards"] == shards
+    assert got["placed"] == want["placed"] and got["failed"] == want["failed"]
+    assert got["placed"] == unsharded[name]["placed"]
+    assert got["failed"] == unsharded[name]["failed"]
+    if name == "hard_affinity":
+        assert len(got["failed"]) == 4  # the hard predicate really bites
+    if name == "mixed":
+        assert {"wave", "affinity", "serial"} <= set(got["census"])
+
+
+@pytest.mark.parametrize("shards", SHARDS)
+def test_one_pmax_and_one_gather_per_epoch(ranks, unsharded, shards):
+    for name in (*C.WORKLOADS, "seeded"):
+        got = ranks[shards][0][name]
+        epochs = got["wave"]["iterations"] + got["affinity"]["epochs"]
+        calls = {k: v["calls"] for k, v in got["counts"].items()}
+        assert calls == {"pmax": epochs, "all_gather_tiled": epochs}, name
+        assert got["affinity"] == unsharded[name]["affinity"], name
+        assert got["wave"] == unsharded[name]["wave"], name
+    mixed = ranks[shards][0]["mixed"]
+    assert mixed["wave"]["iterations"] > 0 and mixed["affinity"]["epochs"] > 0
+
+
+@pytest.mark.parametrize("shards", SHARDS)
+def test_seeded_cluster_with_infeasible_shards_places_as_unsharded(ranks, unsharded, shards):
+    got = ranks[shards][0]["seeded"]
+    assert got["placed"] == unsharded["seeded"]["placed"]
+    assert got["failed"] == unsharded["seeded"]["failed"]
+    assert {"wave", "affinity"} <= set(got["census"])
+
+
+@pytest.mark.parametrize("shards", SHARDS)
+def test_plain_sharded_kernels_equal_unsharded(ranks, shards):
+    *segs, meta = ranks[shards][0]["kernels"]
+    assert meta["N"] == 64  # nodes 32-63 cordoned: every upper shard's block is infeasible
+    kinds = set()
+    for plain, sharded in segs:
+        kinds.add((plain["kind"], plain["ss_live"]))
+        assert sharded["j"] == plain["j"] and sharded["placed"] == plain["placed"]
+        assert sharded["stats"] == plain["stats"]
+        epochs = plain["stats"].get("iterations", plain["stats"].get("epochs"))
+        assert epochs > 0
+        assert {k: v["calls"] for k, v in sharded["counts"].items()} == {
+            "pmax": epochs, "all_gather_tiled": epochs}
+    assert {("wave", False), ("affinity", False), ("affinity", True)} <= kinds
+
+
+@pytest.mark.parametrize("shards", SHARDS)
+def test_route_rules_make_no_collective(ranks, unsharded, shards):
+    rules = ranks[shards][0]["rules"]
+    ind = rules["indivisible"]
+    assert ind["N"] % shards and ind["kind"] == "affinity" and ind["same"]
+    assert ind["calls"] == {"pmax": 0, "all_gather_tiled": 0}
+    above = rules["above_limit"]
+    assert above["shards"] == shards
+    assert {k: v["calls"] for k, v in above["counts"].items()} == {"pmax": 0,
+                                                                    "all_gather_tiled": 0}
+    assert above["placed"] == unsharded["mixed"]["placed"]
+
+
+def _raise_on_rank_one(mesh):
+    if mesh.rank == 1:
+        raise ValueError("rank one fails")
+    return mesh.rank
+
+
+def test_a_failing_rank_fails_the_run(tmp_path):
+    with pytest.raises(RuntimeError, match="rank 1 failed"):
+        run_ranks(_raise_on_rank_one, 2, str(tmp_path), device="cpu", timeout_s=120)
+
+
+def test_single_process_mesh_and_refusals():
+    assert initialize_distributed(world_size=1) is False
+    mesh = make_node_mesh(device="cpu")
+    assert (mesh.shards, mesh.rank, mesh.backend, mesh.shape) == (1, 0, "none", {NODE_AXIS: 1})
+    assert epoch_shards(mesh, 32) == 1 and epoch_shards(None, 32) == 1
+    with pytest.raises(ValueError):
+        make_node_mesh(2, device="cpu")
+    with pytest.raises(NotImplementedError, match="A12c"):
+        make_global_mesh(scenario_axis=2)
+    with pytest.raises(NotImplementedError, match="A12c"):
+        make_scenario_mesh(4)
+    with pytest.raises(NotImplementedError, match="A12c"):
+        ShardedKernels().probe_wave_fanout()
+    assert choose_backend("cpu", 4) == "gloo"
+    if not torch.cuda.is_available():
+        assert choose_backend("cuda", 2) == "gloo"
+
+
+def test_epoch_path_limits(monkeypatch):
+    mesh = make_node_mesh(device="cpu")
+    mesh.shards = 4  # the rule alone, without ranks
+    assert epoch_shards(mesh, 32) == 4
+    assert epoch_shards(mesh, 30) == 1
+    assert epoch_shards(mesh, 4096) == 1
+    monkeypatch.setenv("OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES", "8192")
+    assert epoch_shards(mesh, 4096) == 4
+    monkeypatch.setenv("OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES", "16")
+    assert epoch_shards(mesh, 32) == 1
+
+
+def test_simulator_mesh_choice(monkeypatch):
+    nodes, _ = C.mixed_workload()
+    monkeypatch.setenv("OPEN_SIMULATOR_MESH", "0")
+    assert TorchSimulator(nodes, device="cpu")._resolve_mesh() is None
+    monkeypatch.setenv("OPEN_SIMULATOR_MESH", "1")
+    assert TorchSimulator(nodes, device="cpu")._resolve_mesh().shards == 1
+    monkeypatch.delenv("OPEN_SIMULATOR_MESH")
+    assert TorchSimulator(nodes, device="cpu")._resolve_mesh() is None  # no process group
+    sim = TorchSimulator(nodes, device="cpu", use_mesh=True)
+    assert sim._resolve_mesh().shards == 1
+    assert sim._dispatch_dims(sim.encode_batch([]))["mesh"] is True
+    assert TorchSimulator(nodes, device="cpu", use_mesh=False)._resolve_mesh() is None
