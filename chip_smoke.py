@@ -68,6 +68,19 @@ goldens the JAX package computed (tests/golden/torch_port_*.json):
   K5 on one segment each. The phase prints the epochs, the collective
   calls and bytes, the transport and each rank's wall; a rank that fails
   fails the phase.
+- the scenario mesh (`parallel/`, the probe, serve and sweep fan-outs on a
+  'scenarios' axis): two ranks spawned after the build share cuda:0 over
+  gloo, each a scenario group that stages and runs its block of every
+  fan-out's lanes and gathers the outputs at the fetch. On both ranks:
+  `CapacityPlanner.search()` on `capacity_lanes` against its golden, the
+  64 what-if sessions of the serve phase (10,000 nodes, 20,000 events
+  ingested) against the single-rank responses above, and the sweep CLI
+  (`--parity off`) on bench.py's sweep and on monte-carlo-mix against the
+  JAX reports, rank 0 writing `--out` and rank 1 nothing. Then each of the
+  eight fan-outs on the rank's block of 4 of 8 lanes against one launch
+  over all 8 (and, gathered, against all of it), bit for bit, timed with
+  its plain version on the block. The phase prints each run's walls,
+  launches, fetches, gathered calls and bytes and staged bytes per rank.
 
 Every phase prints one JSON line; any mismatch or error exits non-zero. The
 line before the card line lists every kernel with its launches on the main
@@ -663,11 +676,12 @@ def extend_case(card: str) -> dict:
     return out
 
 
-def capacity_search(kind: str, card: str) -> tuple:
+def capacity_search(kind: str, card: str, report: bool = True) -> tuple:
     """CapacityPlanner.search() on the card against the JAX golden: found,
     nodes_added, hist, stats and every round's candidates with their
     (scheduled, total, utilization). Every launch count is set to 0 just
-    before; returns (launch counts, wall seconds)."""
+    before; prints its line when `report`; returns (launch counts, wall
+    seconds, the planner's probe session)."""
     import torch
 
     from open_simulator_torch.apply.applier import CapacityPlanner
@@ -709,6 +723,8 @@ def capacity_search(kind: str, card: str) -> tuple:
         if v != want[k]:
             fail(f"{kind}: {k} differs from the JAX golden ({v} vs {want[k]})")
     ses = planner.session
+    if not report:
+        return counts, wall, ses
     emit("capacity_search", kind=kind, nodes_added=n, rounds=len(rounds),
          lanes=[len(r["candidates"]) for r in rounds], stats=stats,
          encode_s=planner.stats["encode_s"], extensions=ses.extensions,
@@ -1128,23 +1144,16 @@ def watch_batches(lines):
         yield batch
 
 
-def serve_full_width(card: str, n_nodes: int = 10_000, n_events: int = 20_000) -> dict:
+def serve_image(n_nodes: int = 10_000, n_events: int = 20_000) -> tuple:
     """bench.py's serve shape on the card: a 10,000-node image with 5,000
-    bound pods, the 20,000-event watch stream ingested through apply_events,
-    then 64 sessions in one dispatch_sessions call (48 uniform-replica
-    requests of 50 to 2,000 pods, some with drains: the wave lane; 16 mixed
-    requests of ~200 pods: the serial lane over their union), each response
-    held against fresh_probe of the same request on the card. Returns the
-    launch counts of the ingest and the dispatch."""
-    import torch
-
-    from open_simulator_torch.ops import kernels as K
+    bound pods and the 20,000-event watch stream ingested through
+    apply_events. Returns (image, bound pods, events applied, batches,
+    build seconds, ingest seconds)."""
     from open_simulator_torch.serve import ResidentImage
-    from open_simulator_torch.utils.synth import synth_pod, synth_watch_stream
+    from open_simulator_torch.utils.synth import synth_watch_stream
 
     nodes, bound, lines = synth_watch_stream(n_nodes, n_events, seed=11, bookmark_every=64,
                                              n_bound=n_nodes // 2)
-    K.reset_launch_counts()
     t0 = time.perf_counter()
     img = ResidentImage.try_build(nodes, pods=bound, device="cuda")
     build_s = time.perf_counter() - t0
@@ -1153,7 +1162,15 @@ def serve_full_width(card: str, n_nodes: int = 10_000, n_events: int = 20_000) -
     for batch in watch_batches(lines):
         applied += img.apply_events(batch)["applied"]
         batches += 1
-    ingest_s = time.perf_counter() - t0
+    return img, bound, applied, batches, build_s, time.perf_counter() - t0
+
+
+def serve_requests(img) -> list:
+    """The 64 what-if requests of the serve phase, (pods, drains) each: 48
+    uniform-replica requests of 50 to 2,000 pods, some with drains (the
+    wave lane), and 16 mixed requests of ~200 pods (the serial lane)."""
+    from open_simulator_torch.utils.synth import synth_pod
+
     live = [name for name, i in img._sim.na.index.items() if img.active[i]]
     requests = []
     for j in range(48):
@@ -1176,6 +1193,25 @@ def serve_full_width(card: str, n_nodes: int = 10_000, n_events: int = 20_000) -
         for i, p in enumerate(pods):
             p["metadata"]["name"] = f"mix-{j}-{i:05d}"
         requests.append((pods, ()))
+    return requests
+
+
+RESPONSE_KEYS = ("scheduled", "total", "unscheduled", "utilization")
+
+
+def serve_full_width(card: str) -> tuple:
+    """bench.py's serve shape on the card (serve_image), then the 64
+    sessions of serve_requests in one dispatch_sessions call, each
+    response held against fresh_probe of the same request on the card.
+    Returns (the launch counts of the ingest and the dispatch, the
+    responses)."""
+    import torch
+
+    from open_simulator_torch.ops import kernels as K
+
+    K.reset_launch_counts()
+    img, bound, applied, batches, build_s, ingest_s = serve_image()
+    requests = serve_requests(img)
     sessions = [img.session(pods, drains=d) for pods, d in requests]
     route_s = {}
     for attr in ("_dispatch_wave", "_dispatch_serial"):
@@ -1199,7 +1235,7 @@ def serve_full_width(card: str, n_nodes: int = 10_000, n_events: int = 20_000) -
     t0 = time.perf_counter()
     for (pods, drains), resp in zip(requests, responses):
         want = img.fresh_probe(pods, drains=drains)
-        for k in ("scheduled", "total", "unscheduled", "utilization"):
+        for k in RESPONSE_KEYS:
             if resp[k] != want[k]:
                 fail(f"serve: {k} {resp[k]} != fresh_probe {want[k]}")
     oracle_s = time.perf_counter() - t0
@@ -1209,7 +1245,7 @@ def serve_full_width(card: str, n_nodes: int = 10_000, n_events: int = 20_000) -
          scheduled=sum(r["scheduled"] for r in responses), build_s=build_s, ingest_s=ingest_s,
          dispatch_s=dispatch_s, route_s=route_s, oracle_s=oracle_s,
          launches={k: v for k, v in counts.items() if v}, fresh_probe="match", card=card)
-    return counts
+    return counts, [{k: r[k] for k in RESPONSE_KEYS} for r in responses]
 
 
 def xray_path(kind: str, nodes, pods, wall_off: float, card: str, storage_classes=()):
@@ -1530,6 +1566,346 @@ def mesh_phase(card: str) -> tuple:
                           bound_by=case["bound_by"])
     emit("mesh_done", seconds=wall, card=card)
     return rows, r0["launches"]
+
+
+SCENARIO_RANKS = 2
+JAX_MESH = "open_simulator_tpu/parallel/mesh.py"
+# each fan-out's CUDA source and the JAX sharded executable it runs as on a
+# scenario mesh (ShardedKernels)
+SCENARIO_ROWS = {"probe_serial_fanout": ("schedule.cu", ":586"),
+                 "probe_wave_fanout": ("wave.cu", ":562"),
+                 "probe_group_serial_fanout": ("group_serial.cu", ":578"),
+                 "probe_affinity_wave_fanout": ("affinity_wave.cu", ":570"),
+                 "serve_whatif_fanout": ("schedule.cu", ":594"),
+                 "serve_wave_fanout": ("wave.cu", ":602"),
+                 "sweep_wave_fanout": ("wave.cu", ":610"),
+                 "sweep_whatif_fanout": ("schedule.cu", ":618")}
+
+
+class plain_on_card:
+    """The fan-outs' plain versions on CUDA tensors for a block: each
+    fan-out picks its plain lanes where `kernels._on_cpu` says yes."""
+
+    def __enter__(self):
+        from open_simulator_torch.ops import kernels as K
+
+        self.prev = K._on_cpu
+        K._on_cpu = lambda t: True
+
+    def __exit__(self, *exc):
+        from open_simulator_torch.ops import kernels as K
+
+        K._on_cpu = self.prev
+
+
+def block_cost(name: str, tb, seed, args, kw, lanes: range, stats: dict) -> tuple:
+    """(bytes, f32 operations) of one fan-out call on a block of lanes, from
+    the cost triples above: the tables once, each lane's carry, outputs and
+    [N] active row; the wave-like fan-outs' iterations (K3) or epochs (K5)
+    as the call's loop statistics (`stats`, summed over the block) count
+    them, and one K3c over lanes per segment."""
+    import torch
+
+    N = int(tb.alloc.shape[0])
+    if name in ("probe_serial_fanout", "serve_whatif_fanout", "sweep_whatif_fanout"):
+        pg, vd = torch.as_tensor(args[0]), torch.as_tensor(args[2])
+        P = int(pg.shape[-1])
+        costs = [k2_cost(tb, seed, int((vd[s] if vd.dim() == 2 else vd).sum()), P)
+                 for s in lanes]
+        return costs[0][0] + sum(c[1] + N for c in costs), sum(c[2] for c in costs)
+    if name in ("probe_wave_fanout", "probe_group_serial_fanout", "probe_affinity_wave_fanout"):
+        groups = [[int(args[0])] for _ in lanes]
+    else:
+        g = torch.as_tensor(args[0]).cpu()
+        groups = [(g[s].tolist() if g.dim() == 2 else [int(g[s])]) for s in lanes]
+    shared = sum(group_row_bytes(tb, seed, g)[0] for g in {g for gs in groups for g in gs})
+    lane = sum(group_row_bytes(tb, seed, g)[1] + 5 * N for gs in groups for g in gs)
+    if name == "probe_group_serial_fanout":
+        ops = len(lanes) * k4_cost(tb, seed, int(args[0]), int(args[1].sum()))[2]
+    elif name == "probe_affinity_wave_fanout":
+        _, aff_lane, ops = k5_cost(tb, seed, int(args[0]), kw["block"], stats)
+        lane += len(lanes) * (aff_lane - group_row_bytes(tb, seed, int(args[0]))[1] - 4 * N)
+    else:
+        ops = stats["iterations"] * N * ((kw["block"] + 1) * K3_OPS_PER_ENTRY + K3_OPS_PER_NODE)
+    c_shared, c_lane, c_ops = k3c_cost(tb, seed)
+    segs = len(groups[0])
+    return (shared + lane + segs * (c_shared + len(lanes) * c_lane),
+            ops + segs * len(lanes) * c_ops)
+
+
+def scenario_block_case(mesh, name: str, tb, seed, cry, act, args, per_lane, kw) -> dict:
+    """One fan-out on this rank's block of S lanes (its carry, active rows
+    and per-lane inputs) against one launch over all S on the same rank:
+    the block's outputs and carry leaves equal lanes [r*S/k, (r+1)*S/k) of
+    the full launch bit for bit, and gathered over the ranks they equal all
+    of it; the plain version on the block equals the kernel too. Times the
+    block's call (CUDA events; the other rank shares the card) and its plain
+    version, and bounds the block's work."""
+    import torch
+
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.parallel import gather_lanes
+
+    fn = getattr(K, name)
+    full = fn(tb, cry, act, *args, **kw)
+    full = list(full[0]) + [full[1]]
+    S = int(act.shape[0])
+    blk = mesh.lane_block(S)
+    bargs = [a[blk].contiguous() if i in per_lane else a for i, a in enumerate(args)]
+    bcry = K.Carry(*(t[blk].contiguous() for t in cry))
+    bact = act[blk].contiguous()
+
+    def run():
+        c, o = fn(tb, bcry, bact, *bargs, **kw)
+        return list(c) + [o]
+
+    K.schedule_wave.stats = K.schedule_affinity_wave.stats = None
+    got = run()
+    stats = K.affinity_stats() if name == "probe_affinity_wave_fanout" else K.wave_stats()
+    if any(not torch.equal(a, b[blk]) for a, b in zip(got, full)):
+        fail(f"scenario_mesh {name}: rank {mesh.rank}'s block differs from the full launch")
+    if any(not torch.equal(gather_lanes(a, mesh), b) for a, b in zip(got, full)):
+        fail(f"scenario_mesh {name}: the gathered blocks differ from the full launch")
+    ms = cuda_ms(run, 3)
+    with plain_on_card():
+        plain, plain_ms = timed(run)
+    if any(not torch.equal(a, b) for a, b in zip(plain, got)):
+        fail(f"scenario_mesh {name}: the plain block differs from the kernel's")
+    b, ops = block_cost(name, tb, seed, args, kw, range(blk.start, blk.stop), stats)
+    bound, by = bound_of(b, ops)
+    return dict(lanes=blk.stop - blk.start, S=S, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, bytes=b, f32_ops=ops, max_abs_err=0.0)
+
+
+def serve_lane_calls(img, sessions) -> list:
+    """The serve and sweep fan-outs' inputs at S = 8 on the serve image, for
+    the block cases: [(name, carry, active, args, per-lane argument
+    positions, kwargs)] of eight uniform-replica sessions (per-lane g, m,
+    cap1; two chained segments per lane for the sweep wave) and eight mixed
+    ones (a valid row per lane of their union; a pod stream per lane)."""
+    import numpy as np
+    import torch
+
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.simulator.encode import bucket_capped
+
+    def lanes(batch):
+        """(carry, active) of every lane: each lane's own seed copy, or the
+        base seeds broadcast (never the image's cached block)."""
+        S, active, carry_np = img._lane_arrays(batch)
+        if carry_np is None:
+            carry_np = [np.broadcast_to(v, (S,) + v.shape) for v in img._seeds]
+        return (K.Carry(*(torch.from_numpy(np.ascontiguousarray(v)).cuda() for v in carry_np)),
+                torch.from_numpy(active).cuda())
+
+    def on_card(*arrays):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in arrays)
+
+    wave, mixed = sessions[:8], sessions[48:56]
+    img.ensure_staged()
+    cry, act = lanes(wave)
+    g_s, m_s, c_s = (np.asarray(v) for v in zip(*(img._wave_route(x) for x in wave)))
+    g_s, m_s, c_s = g_s.astype(np.int32), m_s.astype(np.int32), c_s.astype(bool)
+    N = img._sim.na.N
+    block = K.wave_block_for(int(m_s.max()), N)
+    kw = dict(block=block, kmax=K.wave_kmax(int(m_s.max()), N, block))
+    calls = [("serve_wave_fanout", cry, act, on_card(g_s, m_s, c_s), (0, 1, 2), kw),
+             ("sweep_wave_fanout", cry, act,
+              on_card(*(np.stack([a, a[::-1]], 1) for a in (g_s, m_s, c_s))), (0, 1, 2), kw)]
+    cry, act = lanes(mixed)
+    S = int(act.shape[0])
+    union, spans = [], []
+    for x in mixed:
+        spans.append((len(union), len(x.batch)))
+        union += x.batch
+    P = bucket_capped(len(union), 2048)
+    pg, fn = np.zeros(P, np.int32), np.full(P, -1, np.int32)
+    pg[:len(union)], fn[:len(union)] = np.asarray(union, np.int32).T
+    valid = np.zeros((S, P), bool)
+    for li, (a, n) in enumerate(spans):
+        valid[li, a:a + n] = True
+    kw = dict(n_zones=img._bt.n_zones, enable_gpu=False, enable_storage=False)
+    calls.append(("serve_whatif_fanout", cry, act, on_card(pg, fn, valid), (2,), kw))
+    P = bucket_capped(max(len(x.batch) for x in mixed), 2048)
+    pg_s, fn_s, vd_s = np.zeros((S, P), np.int32), np.full((S, P), -1, np.int32), \
+        np.zeros((S, P), bool)
+    for li, x in enumerate(mixed):
+        n = len(x.batch)
+        pg_s[li, :n], fn_s[li, :n] = np.asarray(x.batch, np.int32).T
+        vd_s[li, :n] = True
+    calls.append(("sweep_whatif_fanout", cry, act, on_card(pg_s, fn_s, vd_s), (0, 1, 2), kw))
+    return calls
+
+
+def rank_cli_sweep(mesh, name: str, extra=()) -> dict:
+    """The sweep CLI (`--parity off --device cuda`) on this rank of the
+    process group: rank 0 writes --out, held against the JAX golden (byte
+    for byte where the golden ran with parity off, else all but its parity
+    block); any other rank writes and prints nothing."""
+    import contextlib
+    import io
+
+    from open_simulator_torch.cli.main import main as cli
+    from open_simulator_torch.sweep import report_json
+
+    spec = BENCH_SPEC if name == "bench" else f"examples/sweeps/{name}.yaml"
+    out = os.path.join(REPO, "build", "chip_smoke", f"mesh_sweep_{name}.{mesh.rank}.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    if os.path.exists(out):
+        os.remove(out)
+    stdout, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stderr(err), contextlib.redirect_stdout(stdout):
+        rc = cli(["sweep", os.path.join(REPO, spec), "--out", out, "--parity", "off",
+                  "--device", "cuda", *extra])
+    if rc != 0:
+        fail(f"scenario_mesh sweep {name}: rank {mesh.rank} exit {rc}: {err.getvalue()[-2000:]}")
+    if mesh.rank:
+        if os.path.exists(out) or stdout.getvalue():
+            fail(f"scenario_mesh sweep {name}: rank {mesh.rank} wrote or printed")
+        return {}
+    with open(out, "rb") as f:
+        got = f.read()
+    with open(os.path.join(REPO, "tests", "golden", f"torch_port_sweep_{name}.json"), "rb") as f:
+        want = f.read()
+    report, golden = json.loads(got), json.loads(want)
+    if golden["parity"]["mode"] == "off":
+        if got != want:
+            fail(f"scenario_mesh sweep {name}: the report differs from the JAX golden")
+    else:
+        report.pop("parity")
+        golden.pop("parity")
+        if report_json(report) != report_json(golden):
+            fail(f"scenario_mesh sweep {name}: the report differs from the JAX golden")
+    return dict(scenarios=len(report["scenarios"]), lanes=report["lanes"],
+                dispatches=report["dispatches"], golden="match")
+
+
+def scenario_rank(node_mesh, card: str, serve_want: list) -> dict:
+    """One rank of the scenario_mesh phase. The sessions', images' and
+    CLI's own scenario mesh is this rank's (whose counters are read). Each
+    main-path run with every launch count and mesh counter set to 0 just
+    before it: `capacity_lanes` against its golden, the 64 what-if sessions
+    at bench.py's serve shape against the single-rank dispatch's responses
+    (`serve_want`), bench.py's sweep and monte-carlo-mix through the CLI
+    against the JAX goldens. Then each fan-out's block against a full
+    launch (scenario_block_case)."""
+    import torch
+
+    import open_simulator_torch.parallel.mesh as PM
+    from open_simulator_torch.ops import kernels as K
+
+    mesh = PM.make_scenario_mesh(device="cuda")
+    PM.auto_scenario_mesh = lambda device=None: mesh
+    out = {"rank": mesh.rank, "backend": mesh.backend, "transport": mesh.transport,
+           "runs": {}, "cases": {}, "launches": Counter()}
+    held = {}
+
+    def main_run(label, fn):
+        K.reset_launch_counts()
+        mesh.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = K.launch_counts()
+        out["launches"].update(counts)
+        if not mesh.fetched or any(S != b * mesh.scenarios for b, S in mesh.fetched):
+            fail(f"scenario_mesh {label}: fetches {dict(mesh.fetched)} on {mesh.scenarios} groups")
+        out["runs"][label] = dict(seconds=wall, launches={k: v for k, v in counts.items() if v},
+                                  fetches=sum(mesh.fetched.values()), blocks=sorted(mesh.blocks),
+                                  gathered=dict(mesh.counts["gather_lanes"]),
+                                  staged_bytes=mesh.staged_bytes, **res)
+
+    def capacity():
+        counts, wall, ses = capacity_search("capacity_lanes", card, report=False)
+        held["session"] = ses
+        return dict(search_s=wall, golden="match")
+
+    def serve():
+        img, _, applied, batches, build_s, ingest_s = serve_image()
+        requests = serve_requests(img)
+        sessions = [img.session(pods, drains=d) for pods, d in requests]
+        t0 = time.perf_counter()
+        responses = img.dispatch_sessions(sessions)
+        dispatch_s = time.perf_counter() - t0
+        for i, (r, want) in enumerate(zip(responses, serve_want)):
+            if {k: r[k] for k in RESPONSE_KEYS} != want:
+                fail(f"scenario_mesh serve: response {i} differs from the single-rank dispatch")
+        held["image"], held["sessions"] = img, sessions
+        return dict(events=applied, batches=batches, build_s=build_s, ingest_s=ingest_s,
+                    dispatch_s=dispatch_s, sessions=len(sessions), single_rank="match")
+
+    main_run("capacity_lanes", capacity)
+    main_run("serve", serve)
+    main_run("bench", lambda: rank_cli_sweep(mesh, "bench", ("--fanout", "32")))
+    main_run("monte-carlo-mix", lambda: rank_cli_sweep(mesh, "monte-carlo-mix"))
+
+    # each fan-out's block against a full launch, outside the main-path runs
+    ses = held["session"]
+    cands = next(r["candidates"] for r in load_golden("capacity_lanes")["rounds"]
+                 if len(r["candidates"]) == 8)
+    active = torch.zeros((8, ses._n_pad), dtype=torch.bool)
+    for i, n in enumerate(cands):
+        active[i, :ses.n_base + n] = True
+    active, cry = active.cuda(), K.carry_lanes(ses._seed, 8)
+    seen = set()
+    for seg in ses._segs:
+        name, args, kw = ses.fanout_call(seg)
+        if name in seen:
+            continue
+        seen.add(name)
+        args = tuple(a.cuda() if isinstance(a, torch.Tensor) else a for a in args)
+        out["cases"][name] = scenario_block_case(mesh, name, ses._tables, ses._seed, cry, active,
+                                                 args, (), kw)
+    img = held["image"]
+    seed = K.carry_from_numpy(dict(zip(K.Carry._fields, img._seeds)), "cuda")
+    for name, cry, act, args, per_lane, kw in serve_lane_calls(img, held["sessions"]):
+        out["cases"][name] = scenario_block_case(mesh, name, img._tables, seed, cry, act, args,
+                                                 per_lane, kw)
+    return out
+
+
+def scenario_mesh_phase(card: str, serve_want: list) -> tuple:
+    """The scenario_mesh phase: SCENARIO_RANKS ranks spawned after the build,
+    sharing cuda:0 over gloo (CUDA tensors staged through pinned host
+    memory), each a scenario group of one rank running its block of every
+    fan-out's lanes. Returns (kernels-line rows, rank 0's launch counts of
+    the main-path runs under "<fan-out>/mesh")."""
+    import tempfile
+
+    import torch
+
+    from open_simulator_torch.parallel.launch import run_ranks
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as rdzv:
+        try:
+            ranks = run_ranks(scenario_rank, SCENARIO_RANKS, rdzv, args=(card, serve_want),
+                              device="cuda", backend="gloo", timeout_s=900)
+        except RuntimeError as e:
+            fail(f"scenario_mesh: {e}")
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    for label, run in r0["runs"].items():
+        emit("scenario_mesh", run=label, ranks=SCENARIO_RANKS, backend=r0["backend"],
+             transport=r0["transport"], **run,
+             walls_per_rank=[r["runs"][label]["seconds"] for r in ranks],
+             launches_per_rank=[r["runs"][label]["launches"] for r in ranks],
+             gathered_per_rank=[r["runs"][label]["gathered"] for r in ranks],
+             staged_bytes_per_rank=[r["runs"][label]["staged_bytes"] for r in ranks], card=card)
+    rows, launches = {}, Counter()
+    for name, (src, line) in SCENARIO_ROWS.items():
+        cases = [r["cases"][name] for r in ranks]
+        emit("scenario_block", name=name, ranks=SCENARIO_RANKS, **cases[0],
+             ms_per_rank=[c["ms"] for c in cases], card=card)
+        rows[f"{name}/mesh"] = dict(source=SRC + src, replaces=JAX_MESH + line, max_abs_err=0.0,
+                                    ms=cases[0]["ms"], plain_ms=cases[0]["plain_ms"],
+                                    bound_ms=cases[0]["bound_ms"], bound_by=cases[0]["bound_by"])
+        launches[f"{name}/mesh"] = r0["launches"][name]
+    emit("scenario_mesh_done", seconds=wall, card=card)
+    return rows, launches
 
 
 def main() -> int:
@@ -1946,9 +2322,14 @@ def main() -> int:
     for spec in SWEEP_EXAMPLES:
         launches.update(run_cli_sweep(spec, card))
     launches.update(run_cli_sweep("bench", card, ("--fanout", "32")))
-    launches.update(serve_full_width(card))
+    serve_counts, serve_responses = serve_full_width(card)
+    launches.update(serve_counts)
     # the node mesh: two ranks sharing the card, the sharded epoch paths K8, K9
     mesh_rows, mesh_launches = mesh_phase(card)
+    rows.update(mesh_rows)
+    launches.update(mesh_launches)
+    # the scenario mesh: two ranks sharing the card, each its block of lanes
+    mesh_rows, mesh_launches = scenario_mesh_phase(card, serve_responses)
     rows.update(mesh_rows)
     launches.update(mesh_launches)
     for k in rows:

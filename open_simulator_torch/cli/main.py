@@ -23,6 +23,18 @@ refused with the ROADMAP item it waits for. `sweep` takes the JAX package's
 `explain` and `metrics` read files only and need no device; they read the
 JAX package's traces and snapshots too. The other subcommands of the JAX
 package's CLI (server, lint, audit, ...) are not ported.
+
+`sweep` and `apply` run under torchrun, one rank per card:
+
+    torchrun --nproc_per_node N -m open_simulator_torch.cli sweep SPEC --out R.json
+
+With WORLD_SIZE > 1 each rank joins the process group (NCCL where every
+rank has a card, gloo otherwise; parallel/distributed.py), the sweep's
+image, the planner's probe session and the engine take their meshes over
+the ranks, every rank computes the same result, and rank 0 alone prints
+and writes the output files (the report's bytes equal the one-process
+run's). A rank that fails fails the run: the others fail at their next
+collective, within the process group's timeout.
 """
 
 from __future__ import annotations
@@ -171,6 +183,8 @@ def cmd_sweep(args) -> int:
         return 1
     wall = time.perf_counter() - t0
     report = build_report(runner)
+    if args.rank:
+        return 0  # every rank built the same report: rank 0 writes and prints it
     if args.out:
         with open(args.out, "w", encoding="utf-8") as fh:
             fh.write(report_json(report))
@@ -399,5 +413,39 @@ def main(argv: Optional[List[str]] = None) -> int:
     if not args.command:
         parser.print_help()
         return 0
-    return {"apply": cmd_apply, "sweep": cmd_sweep, "explain": cmd_explain,
-            "metrics": cmd_metrics}[args.command](args)
+    cmd = {"apply": cmd_apply, "sweep": cmd_sweep, "explain": cmd_explain,
+           "metrics": cmd_metrics}[args.command]
+    if args.command not in ("sweep", "apply"):
+        return cmd(args)
+    joined = _join_ranks(args)
+    try:
+        if not args.rank:
+            return cmd(args)
+        # every rank computes the same result; rank 0 alone prints and writes
+        if args.command == "apply":
+            args.output_file = args.trace_out = args.metrics_out = ""
+            args.xray = False
+        import contextlib
+
+        with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+            return cmd(args)
+    finally:
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _join_ranks(args) -> bool:
+    """Under torchrun (WORLD_SIZE > 1) join the process group on the
+    command's device; set args.rank (0 without a group). Returns whether
+    this call formed the group (and so ends it)."""
+    import torch.distributed as dist
+
+    joined = False
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and not dist.is_initialized():
+        from ..parallel.distributed import initialize
+
+        joined = initialize(device=args.device)
+    args.rank = dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+    return joined

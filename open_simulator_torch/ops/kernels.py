@@ -2838,9 +2838,10 @@ def sweep_whatif_fanout(tb: Tables, cry_s: Carry, active_s, pod_group_s, forced_
                         filters: FilterFlags = DEFAULT_FILTERS):
     """schedule_batch over S scenario lanes, each with its own pod stream
     `pod_group_s`, `forced_node_s`, `valid_s` [S, P] (JAX
-    `sweep_whatif_fanout`): the plain version for CPU tensors, K2 over lanes
-    for CUDA tensors. Returns (carry_s, choices [S, P] i32, -1 =
-    unschedulable)."""
+    `sweep_whatif_fanout`; [P] arrays are one stream every lane scans, as
+    parallel/mesh.py `schedule_scenarios_on_mesh` passes them): the plain
+    version for CPU tensors, K2 over lanes for CUDA tensors. Returns
+    (carry_s, choices [S, P] i32, -1 = unschedulable)."""
     dev = tb.alloc.device
     return _serial_lanes(tb, sweep_whatif_fanout)(
         tb, cry_s, active_s, _on(pod_group_s, torch.int32, dev),

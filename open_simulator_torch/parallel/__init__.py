@@ -1,14 +1,18 @@
-"""The node-axis mesh on torch.distributed: see mesh.py for the design and
-distributed.py for joining the ranks. The scenario axis is ROADMAP A12c."""
+"""The mesh on torch.distributed, its node axis and its scenario axis: see
+mesh.py for the design and distributed.py for joining the ranks."""
 
+from .collectives import gather_lanes
 from .distributed import choose_backend, make_global_mesh, node_mesh_local
 from .distributed import initialize as initialize_distributed
 from .mesh import (
     NODE_AXIS,
+    SCENARIO_AXIS,
     NodeMesh,
+    ScenarioMesh,
     ShardedKernels,
     epoch_shards,
     fanout_shardings,
+    fetch_lanes,
     make_node_mesh,
     make_scenario_mesh,
     pad_batch_tables,
@@ -18,11 +22,15 @@ from .mesh import (
 
 __all__ = [
     "NODE_AXIS",
+    "SCENARIO_AXIS",
     "NodeMesh",
+    "ScenarioMesh",
     "ShardedKernels",
     "choose_backend",
     "epoch_shards",
     "fanout_shardings",
+    "fetch_lanes",
+    "gather_lanes",
     "initialize_distributed",
     "make_global_mesh",
     "make_node_mesh",

@@ -1,5 +1,7 @@
-"""The node mesh's two collectives (the `shard_map` collectives of the JAX
-package's epoch paths, `ops/kernels.py` :1230 and :1246, :2012 and :2047).
+"""The mesh's collectives: the node axis's two (the `shard_map` collectives
+of the JAX package's epoch paths, `ops/kernels.py` :1230 and :1246, :2012
+and :2047) and the scenario axis's one, the gather of the lanes at a
+fan-out's fetch (what JAX's fetch of a lane-sharded array does).
 
 This module is the only place in the port that calls a `torch.distributed`
 collective. Each call adds to the mesh's counters (`NodeMesh.counts`: calls
@@ -48,18 +50,40 @@ def pmax(t: torch.Tensor, mesh) -> torch.Tensor:
     return out
 
 
+def _all_gather(x: torch.Tensor, mesh, ranks: int) -> torch.Tensor:
+    """The rank-order concatenation along axis 0 of every rank's `x`
+    (contiguous, equal shapes), staged through the host on the "host"
+    transport; on x's device."""
+    host = mesh.transport == "host"
+    src = _staged(mesh, x) if host else x
+    out = torch.empty((ranks * src.shape[0],) + tuple(src.shape[1:]), dtype=src.dtype,
+                      device=src.device, pin_memory=host)
+    gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    gather(out, src, group=mesh.group)
+    return _back(mesh, out, x.device) if host else out
+
+
 def all_gather_tiled(t: torch.Tensor, mesh, axis: int = 1) -> torch.Tensor:
     """Every rank's `t` concatenated along `axis` in rank order (JAX
     `lax.all_gather(..., axis=axis, tiled=True)`), on every rank."""
-    x = t.movedim(axis, 0).contiguous()
-    if mesh.transport == "host":
-        x = _staged(mesh, x)
-    out = torch.empty((mesh.shards * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
-                      device=x.device, pin_memory=mesh.transport == "host")
-    gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
-    gather(out, x, group=mesh.group)
-    if mesh.transport == "host":
-        out = _back(mesh, out, t.device)
-    out = out.movedim(0, axis)
+    out = _all_gather(t.movedim(axis, 0).contiguous(), mesh, mesh.shards).movedim(0, axis)
     _count(mesh, "all_gather_tiled", out)
+    return out
+
+
+def gather_lanes(t: torch.Tensor, mesh) -> torch.Tensor:
+    """A fan-out output's lanes from every scenario group, on every rank: the
+    [S/k, ...] blocks of a ScenarioMesh's k groups concatenated in lane
+    order into [S, ...]. The ranks of one group hold the same block (the
+    node axis is replicated), so the first rank's is kept. With one rank
+    the block is all S lanes and no collective runs; the call counts
+    either way."""
+    if mesh.world == 1:
+        out = t
+    else:
+        out = _all_gather(t.contiguous(), mesh, mesh.world)
+        if mesh.shards > 1:
+            out = out.view(mesh.scenarios, mesh.shards, *t.shape)[:, 0].reshape(
+                -1, *t.shape[1:])
+    _count(mesh, "gather_lanes", out)
     return out

@@ -9,8 +9,7 @@ it instead of hanging them. One process is a no-op, as JAX's `initialize`.
 The backend is stated, never guessed in silence (`choose_backend`): NCCL when
 every rank has a CUDA device of its own, gloo on the CPU or when ranks share
 a card (NCCL refuses two ranks on one device; the collectives then stage
-CUDA tensors through host memory, see collectives.py). Only the node axis
-exists: the scenario axis is ROADMAP A12c.
+CUDA tensors through host memory, see collectives.py).
 """
 
 from __future__ import annotations
@@ -72,9 +71,10 @@ def node_mesh_local(device=None) -> NodeMesh:
 
 
 def make_global_mesh(scenario_axis: Optional[int] = None, device=None) -> NodeMesh:
-    """JAX's (scenarios, nodes) mesh, node axis only: a scenario axis longer
-    than 1 is not ported."""
-    if scenario_axis is not None and scenario_axis > 1:
-        raise NotImplementedError("the scenario axis of the mesh is not ported yet "
-                                  "(ROADMAP A12c)")
-    return make_node_mesh(device=device)
+    """JAX's (scenarios, nodes) mesh over every rank of the process group:
+    `scenario_axis` > 1 groups the ranks into that many scenario groups of
+    consecutive ranks (a ScenarioMesh, `make_node_mesh(scenario_axis=k)`);
+    None or 1 is the node mesh over every rank. (JAX's default, one
+    scenario group per process of several devices, has no counterpart in
+    a port whose every process is one device.)"""
+    return make_node_mesh(device=device, scenario_axis=scenario_axis or 1)

@@ -1,11 +1,11 @@
-"""The node-axis mesh on `torch.distributed` (port of the node-axis part of
-`open_simulator_tpu/parallel/mesh.py`).
+"""The mesh on `torch.distributed`: its node axis and its scenario axis
+(port of `open_simulator_tpu/parallel/mesh.py`).
 
-Design. Every rank runs the same `Simulator` on the same input: it encodes
-the same `BatchTables` and holds the whole tables and carry, replicated.
-Only the epoch front of the two wave kernels is sharded: rank r computes on
-nodes [r*NL, (r+1)*NL), NL = N / shards, exactly as the JAX `shard_map`
-in_specs slice them. Each epoch of `schedule_wave` and
+Node axis. Every rank runs the same `Simulator` on the same input: it
+encodes the same `BatchTables` and holds the whole tables and carry,
+replicated. Only the epoch front of the two wave kernels is sharded: rank r
+computes on nodes [r*NL, (r+1)*NL), NL = N / shards, exactly as the JAX
+`shard_map` in_specs slice them. Each epoch of `schedule_wave` and
 `schedule_affinity_wave` then makes exactly two collectives
 (collectives.py): one `pmax` of a stacked vector that holds every
 normalizer (mins ride negated: -max(-x) == min(x)) and one tiled
@@ -17,39 +17,60 @@ out_specs `P()`); no other collective is needed. The serial routes (K2,
 K4, K1, K7) and the commit (K3c) run replicated on every rank.
 
 The epoch path is taken as JAX takes it (`_mesh_axis_shards`,
-ops/kernels.py `_epoch_shards`): more than one shard, N a multiple of the
-shard count and N at most OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES (default
-2,048). Otherwise the kernels run unsharded on every rank, which gives the
-same placements (JAX keeps XLA's per-round GSPMD form there; the port has
-no partitioned layout yet: ROADMAP A12b). The encoder pads the node axis to
-a multiple of the shard count with phantom nodes, infeasible for every pod.
+ops/kernels.py `_epoch_shards`): a 1-D node mesh of more than one shard, N
+a multiple of the shard count and N at most
+OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES (default 2,048). Otherwise the
+kernels run unsharded on every rank, which gives the same placements (JAX
+keeps XLA's per-round GSPMD form there; the port has no partitioned layout
+yet: ROADMAP A12b). The encoder pads the node axis to a multiple of the
+shard count with phantom nodes, infeasible for every pod.
+
+Scenario axis. `make_scenario_mesh(n)` is JAX's pure-scenario mesh
+('scenarios' = n, 'nodes' = 1) over the n ranks of the process group, and
+`make_node_mesh(n, scenario_axis=k)` its 2-D form: k scenario groups of
+n/k consecutive ranks, the node axis replicated within a group (the
+partitioned layout is A12b), so no wave kernel takes the epoch path on it,
+as in JAX. The S lanes of a probe, serve or sweep fan-out are independent:
+K2-K5 and K3c over lanes run one block per lane and read nothing of another
+lane. So scenario group r runs lanes [r*S/k, (r+1)*S/k) through the same
+lane kernels (`ShardedKernels`: the eight fan-outs of `kernels`, by name and
+signature) and gets the same bits for them as one launch over all S lanes.
+A rank stages and holds only its block of the lane inputs, carry and
+outputs (the tables are replicated); the one collective is `gather_lanes`
+at the fetch (`fetch_lanes`), once for each output the caller reads, after
+which every rank holds the same [S, ...] result, as JAX's fetch of a
+lane-sharded array gives it. The callers pad S to a multiple of k as JAX's
+do (the probe session repeats its last candidate, the image its lane 0).
 
 Not ported (ROADMAP A12b): the partitioned table layout
 (`table_shardings`, `carry_shardings`, `to_device_sharded`,
-`carry_reshard_bytes`) and the per-round GSPMD forms above the limit; (A12c)
-the scenario axis with the probe, serve and sweep fan-outs on it.
+`carry_reshard_bytes`) and the per-round GSPMD forms above the limit.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+from collections import Counter
 from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
+import numpy as np
+
+from ..ops import kernels
 from ..simulator.encode import pad_batch_tables as _pad_batch_tables
+from ..simulator.encode import plugin_flags
 from ..simulator.engine import resolve_device
+from .collectives import gather_lanes
 
 NODE_AXIS = "nodes"
+SCENARIO_AXIS = "scenarios"
 EPOCH_MAX_NODES = 2048  # the default of OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES (JAX :832)
 
 # Node-axis padding lives with the encoder; re-exported for the mesh's callers.
 pad_batch_tables = _pad_batch_tables
-
-_A12C = "the scenario axis of the mesh is not ported yet (ROADMAP A12c)"
-
 
 def _zero_counts() -> dict:
     return {"pmax": {"calls": 0, "bytes": 0}, "all_gather_tiled": {"calls": 0, "bytes": 0}}
@@ -80,22 +101,37 @@ class NodeMesh:
         self.staged_bytes = 0
 
 
-def make_node_mesh(n_devices: Optional[int] = None, device=None, group=None) -> NodeMesh:
+def _group_of(group) -> tuple:
+    """(group, world size, rank, backend) of `group` (default: the
+    initialized process group), or one rank without a backend."""
+    if dist.is_available() and dist.is_initialized():
+        return group, dist.get_world_size(group), dist.get_rank(group), str(dist.get_backend(group))
+    return None, 1, 0, "none"
+
+
+def _transport(backend: str, dev: torch.device) -> str:
+    return "host" if backend == "gloo" and dev.type == "cuda" else "direct"
+
+
+def make_node_mesh(n_devices: Optional[int] = None, device=None, group=None,
+                   scenario_axis: int = 1) -> NodeMesh:
     """The node mesh over the ranks of `group` (default: the initialized
     process group; one shard when there is none). `n_devices`, when given,
     must equal that rank count: each rank is one shard. `device` is where
-    this rank's tensors live: CUDA (the default) or an explicit "cpu"."""
+    this rank's tensors live: CUDA (the default) or an explicit "cpu".
+    `scenario_axis` > 1 gives JAX's 2-D ('scenarios', 'nodes') mesh: that
+    many scenario groups of consecutive ranks (a ScenarioMesh)."""
     dev = resolve_device(device)
-    if dist.is_available() and dist.is_initialized():
-        shards, rank = dist.get_world_size(group), dist.get_rank(group)
-        backend = str(dist.get_backend(group))
-    else:
-        shards, rank, backend, group = 1, 0, "none", None
-    if n_devices is not None and n_devices != shards:
-        raise ValueError(f"a node mesh of {n_devices} shards needs {n_devices} ranks; "
-                         f"the process group has {shards}")
-    transport = "host" if backend == "gloo" and dev.type == "cuda" else "direct"
-    return NodeMesh(group, rank, shards, dev, backend, transport)
+    group, world, rank, backend = _group_of(group)
+    if n_devices is not None and n_devices != world:
+        raise ValueError(f"a mesh of {n_devices} devices needs {n_devices} ranks; "
+                         f"the process group has {world}")
+    if scenario_axis > 1:
+        if world % scenario_axis:
+            raise ValueError(f"{world} ranks not divisible by scenario axis {scenario_axis}")
+        return ScenarioMesh(group, rank, world // scenario_axis, dev, backend,
+                            _transport(backend, dev), scenarios=scenario_axis)
+    return NodeMesh(group, rank, world, dev, backend, _transport(backend, dev))
 
 
 def epoch_max_nodes() -> int:
@@ -121,32 +157,233 @@ def epoch_shards(mesh, N: int) -> int:
     return 1
 
 
+# ------------------------------------------------------------ scenario axis ----
+
+
+def _scenario_counts() -> dict:
+    return {**_zero_counts(), "gather_lanes": {"calls": 0, "bytes": 0}}
+
+
+@dataclasses.dataclass
+class ScenarioMesh(NodeMesh):
+    """One rank's view of a ('scenarios', 'nodes') mesh: `scenarios` groups
+    of `shards` consecutive ranks (the node axis, replicated within a
+    group). Besides NodeMesh's fields and counters (`gather_lanes` among
+    them), what the tests and chip_smoke.py read: how many fan-out calls
+    ran on blocks of each lane count (`blocks`) and how many fetches read
+    each (this rank's lanes, the lanes gathered) (`fetched`)."""
+
+    scenarios: int = 1
+    blocks: Counter = dataclasses.field(default_factory=Counter)
+    fetched: Counter = dataclasses.field(default_factory=Counter)
+
+    def __post_init__(self) -> None:
+        self.axis_names = (SCENARIO_AXIS, NODE_AXIS)
+        self.counts = _scenario_counts()
+
+    @property
+    def shape(self) -> dict:
+        return {SCENARIO_AXIS: self.scenarios, NODE_AXIS: self.shards}
+
+    @property
+    def world(self) -> int:
+        return self.scenarios * self.shards
+
+    @property
+    def lane_group(self) -> int:
+        """This rank's index on the scenario axis."""
+        return self.rank // self.shards
+
+    def padded_lanes(self, S: int) -> int:
+        """S rounded up to a multiple of the scenario axis."""
+        return S + (-S) % self.scenarios
+
+    def lane_block(self, S: int) -> slice:
+        """This rank's lanes of an S-lane fan-out: [r*S/k, (r+1)*S/k) for
+        scenario group r of k."""
+        if S % self.scenarios:
+            raise ValueError(f"{S} lanes do not split over {self.scenarios} scenario groups; "
+                             f"pad them to {self.padded_lanes(S)}")
+        b = S // self.scenarios
+        return slice(self.lane_group * b, (self.lane_group + 1) * b)
+
+    def reset_counts(self) -> None:
+        self.counts = _scenario_counts()
+        self.staged_bytes = 0
+        self.blocks = Counter()
+        self.fetched = Counter()
+
+
+def make_scenario_mesh(n_devices: Optional[int] = None, device=None, group=None) -> ScenarioMesh:
+    """JAX's pure-scenario mesh ('scenarios' = n, 'nodes' = 1) over the n
+    ranks of the process group (one scenario group when there is none):
+    each rank runs its own block of every fan-out's lanes. `n_devices`,
+    when given, must equal the rank count (the mesh never shrinks to fit).
+    `device`: CUDA (the default) or an explicit "cpu"."""
+    dev = resolve_device(device)
+    group, world, rank, backend = _group_of(group)
+    if n_devices is not None and n_devices != world:
+        raise ValueError(f"a scenario mesh of {n_devices} needs {n_devices} ranks; "
+                         f"the process group has {world}")
+    return ScenarioMesh(group, rank, 1, dev, backend, _transport(backend, dev), scenarios=world)
+
+
+def auto_scenario_mesh(device=None) -> Optional[ScenarioMesh]:
+    """The probe session's and the image's own choice (JAX `_auto_mesh`): a
+    scenario mesh over every rank when the process group has more than one,
+    unless OPEN_SIMULATOR_MESH is 0, false or no; else None."""
+    if os.environ.get("OPEN_SIMULATOR_MESH", "") in ("0", "false", "no"):
+        return None
+    if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() <= 1:
+        return None
+    return make_scenario_mesh(device=device)
+
+
+def lane_block(mesh: Optional[ScenarioMesh], S: int) -> slice:
+    """The lanes of an S-lane fan-out this rank stages: all of them without
+    a mesh, its block on a scenario mesh."""
+    return slice(0, S) if mesh is None else mesh.lane_block(S)
+
+
+def fetch_lanes(mesh: Optional[ScenarioMesh], *outputs: torch.Tensor) -> list:
+    """One fetch of a fan-out round: each output ([lanes, ...]) as a host
+    numpy array of every lane. Without a mesh, a copy to the host; on a
+    scenario mesh, one `gather_lanes` for each output, so every rank returns
+    the same [S, ...] arrays."""
+    if mesh is None:
+        return [t.cpu().numpy() for t in outputs]
+    out = [gather_lanes(t, mesh).cpu().numpy() for t in outputs]
+    mesh.fetched[int(outputs[0].shape[0]), int(out[0].shape[0])] += 1
+    return out
+
+
+def fanout_shardings(mesh: ScenarioMesh):
+    """The slicing rule of the fan-out inputs on this rank, shaped as JAX's
+    (tables, carry_s, active_s) shardings: each entry maps a host array of
+    every lane to the part this rank holds; the tables are replicated (the
+    identity) and every carry leaf and the active mask keep this rank's lane
+    block of their leading [S] axis."""
+    def replicated(a):
+        return a
+
+    def lanes(a):
+        return a[mesh.lane_block(a.shape[0])]
+
+    return (kernels.Tables(*([replicated] * len(kernels.Tables._fields))),
+            kernels.Carry(*([lanes] * len(kernels.Carry._fields))), lanes)
+
+
+def put_fanout_inputs(mesh: ScenarioMesh, bt, carry_s_np, active_s_np):
+    """The probe fan-out inputs on this rank's device, as `fanout_shardings`
+    slices them: (tables, carry_s, active_s), the tables whole and the carry
+    leaves and the [S, N] active mask this rank's lane block. S must be a
+    multiple of the scenario axis."""
+    ts, cs, as_ = fanout_shardings(mesh)
+    tables = kernels.tables_from_batch(bt, mesh.device)
+    carry_s = kernels.Carry(*(torch.tensor(np.ascontiguousarray(rule(np.asarray(v))),
+                                           device=mesh.device)
+                              for v, rule in zip(carry_s_np, cs)))
+    active = torch.tensor(np.ascontiguousarray(as_(np.asarray(active_s_np, bool))),
+                          device=mesh.device)
+    return tables, carry_s, active
+
+
+def _fanout(name: str, per_lane: tuple = (), lane_ndim: int = 1):
+    """A ShardedKernels method: `kernels.<name>` on this rank's lane block,
+    once the active mask and the per-lane inputs (argument positions
+    `per_lane` after `active_s` whose rank is `lane_ndim`; a shared input of
+    lower rank passes) hold the carry's lane count."""
+    fn = getattr(kernels, name)
+
+    def method(self, tb, cry_s, active_s, *args, **kwargs):
+        S = int(cry_s.requested.shape[0])
+        lanes = [("active_s", active_s)] + [(f"argument {i + 4}", args[i]) for i in per_lane]
+        for what, a in lanes:
+            if what == "active_s" or np.ndim(a) == lane_ndim:
+                if int(a.shape[0]) != S:
+                    raise ValueError(f"{name}: {what} holds {int(a.shape[0])} lanes, the "
+                                     f"carry block {S}")
+        self.mesh.blocks[S] += 1
+        return fn(tb, cry_s, active_s, *args, **kwargs)
+
+    method.__name__ = name
+    method.__doc__ = f"`kernels.{name}` on this rank's block of lanes."
+    return method
+
+
 class ShardedKernels:
-    """The scenario-axis fan-outs of JAX's mesh namespace
-    (`parallel/mesh.py:360`), not ported yet: each raises. The node axis
-    needs no namespace of its own: the engine passes its mesh to
+    """The eight fan-outs on a scenario mesh (JAX's sharded executables,
+    `parallel/mesh.py:555-626`, on the 'scenarios' axis). The signatures are
+    those of `kernels.*_fanout`, so a caller swaps namespaces as JAX's do.
+    Each method takes this rank's block of lane inputs (the carry, the
+    [S/k, N] active mask and every per-lane input: `put_fanout_inputs`,
+    `lane_block`), launches the same lane kernels on it (the plain versions
+    for CPU tensors) and returns this rank's block; chained segments keep
+    the carry block on the rank's device. Nothing here gathers: the caller
+    fetches the outputs it reads with `fetch_lanes`. The node axis needs no
+    namespace of its own: the engine passes its mesh to
     `kernels.schedule_wave` and `kernels.schedule_affinity_wave`, and every
     other kernel runs unsharded on the replicated tensors of each rank."""
 
-    def _fanout(self, *args, **kwargs):
-        raise NotImplementedError(_A12C)
+    def __init__(self, mesh: ScenarioMesh) -> None:
+        if SCENARIO_AXIS not in mesh.axis_names:
+            raise ValueError(f"the fan-outs need a mesh with a '{SCENARIO_AXIS}' axis "
+                             f"(make_scenario_mesh); this mesh has {mesh.axis_names}")
+        self.mesh = mesh
 
-    probe_serial_fanout = probe_wave_fanout = probe_group_serial_fanout = _fanout
-    probe_affinity_wave_fanout = serve_whatif_fanout = serve_wave_fanout = _fanout
-    sweep_wave_fanout = sweep_whatif_fanout = _fanout
-
-
-def make_scenario_mesh(*args, **kwargs):
-    raise NotImplementedError(_A12C)
-
-
-def fanout_shardings(*args, **kwargs):
-    raise NotImplementedError(_A12C)
-
-
-def put_fanout_inputs(*args, **kwargs):
-    raise NotImplementedError(_A12C)
+    probe_serial_fanout = _fanout("probe_serial_fanout")
+    probe_wave_fanout = _fanout("probe_wave_fanout")
+    probe_group_serial_fanout = _fanout("probe_group_serial_fanout")
+    probe_affinity_wave_fanout = _fanout("probe_affinity_wave_fanout")
+    serve_whatif_fanout = _fanout("serve_whatif_fanout", (2,), 2)
+    serve_wave_fanout = _fanout("serve_wave_fanout", (0, 1, 2), 1)
+    sweep_wave_fanout = _fanout("sweep_wave_fanout", (0, 1, 2), 2)
+    sweep_whatif_fanout = _fanout("sweep_whatif_fanout", (0, 1, 2), 2)
 
 
-def schedule_scenarios_on_mesh(*args, **kwargs):
-    raise NotImplementedError(_A12C)
+def fanout_namespace(mesh: Optional[ScenarioMesh]):
+    """The fan-outs' namespace: `kernels` without a mesh, a ShardedKernels
+    on a scenario mesh."""
+    return kernels if mesh is None else ShardedKernels(mesh)
+
+
+def schedule_scenarios_on_mesh(bt, mesh: ScenarioMesh, seed_requested_s: np.ndarray):
+    """S independent what-if scenarios of one cluster and pod batch, each
+    from its own starting utilization (JAX `schedule_scenarios_on_mesh`:
+    `schedule_batch` vmapped over the seeds): `seed_requested_s` is
+    [S, N, R], S a multiple of the scenario axis. The tables are replicated
+    (padded to the node axis's shard count), every other carry leaf is the
+    batch's seed, and each scenario group runs its block of lanes through
+    K2 over lanes with every node active (`kernels.sweep_whatif_fanout` with
+    the batch's one pod stream). Returns choices [S, P] i32 on every rank
+    (one `gather_lanes`)."""
+    if SCENARIO_AXIS not in mesh.axis_names:
+        raise ValueError("mesh has no scenario axis; build with make_node_mesh(n, scenario_axis=k)")
+    bt = pad_batch_tables(bt, mesh.shards)
+    S = seed_requested_s.shape[0]
+    n_pad = bt.seed_requested.shape[0]
+    if seed_requested_s.shape[1] > n_pad:
+        raise ValueError(
+            f"seed_requested_s node axis {seed_requested_s.shape[1]} exceeds the padded node "
+            f"count {n_pad}; build seeds against the unpadded cluster "
+            f"(or pad_batch_tables(bt, {mesh.shards}))")
+    if seed_requested_s.shape[1] < n_pad:
+        seed_requested_s = np.pad(seed_requested_s,
+                                  ((0, 0), (0, n_pad - seed_requested_s.shape[1]), (0, 0)))
+    blk = mesh.lane_block(S)
+    b = blk.stop - blk.start
+    seeds = [np.asarray(seed_requested_s[blk], np.float32)] + [
+        np.broadcast_to(getattr(bt, "seed_" + f), (b,) + getattr(bt, "seed_" + f).shape)
+        for f in kernels.Carry._fields[1:]]
+    dev = mesh.device
+    tables = kernels.tables_from_batch(bt, dev)
+    carry_s = kernels.Carry(*(torch.tensor(np.ascontiguousarray(v), device=dev) for v in seeds))
+    active = torch.ones((b, n_pad), dtype=torch.bool, device=dev)
+    enable_gpu, enable_storage = plugin_flags(bt)
+    _, choices = ShardedKernels(mesh).sweep_whatif_fanout(
+        tables, carry_s, active, torch.from_numpy(bt.pod_group), torch.from_numpy(bt.forced_node),
+        torch.from_numpy(bt.valid), n_zones=bt.n_zones, enable_gpu=enable_gpu,
+        enable_storage=enable_storage)
+    out = gather_lanes(choices, mesh)
+    mesh.fetched[b, int(out.shape[0])] += 1
+    return out

@@ -37,14 +37,21 @@ A dispatch partitions its sessions into the wave lane (one group, no pin:
 `kernels.serve_wave_fanout`, K3 and K3c over lanes on the card) and the
 serial lane (`kernels.serve_whatif_fanout` over the union batch, K2 over
 lanes). The image lives on the device named at `try_build` (the card by
-default; "cpu" runs the plain versions).
+default; "cpu" runs the plain versions). On a scenario mesh
+(parallel/mesh.py; taken by itself when the process group has more than
+one rank, as JAX's `_auto_mesh` takes one over the devices) every rank holds
+the whole image and stages and runs only its block of each dispatch's
+lanes; the fetch gathers `placed` and `requested` once each, so every rank
+returns the same responses.
 
 With the flight recorder on (obs/xray.py), each `dispatch_sessions` call
 commits one probe record per session (counts only).
 
 Not ported: the watchdog, fault sites, scope spans and metrics (ROADMAP A9),
-the scenario mesh (A12), custom scheduler configs (A7), and the
-micro-batching service, HA state and watch sync built on this image (A10b).
+custom scheduler configs (A7), and the micro-batching service, HA state and
+watch sync built on this image (A10b). The port donates no carry on a mesh
+or off it (the lane kernels clone the carry they write), so the base carry
+is cached on every mesh, where JAX caches it only where it does not donate.
 """
 
 from __future__ import annotations
@@ -126,14 +133,18 @@ class ResidentImage:
     def try_build(cls, nodes: List[dict], cluster_objects=None, pods: Sequence[dict] = (),
                   sched_config=None, mesh=None, device=None) -> Optional["ResidentImage"]:
         """The image of `nodes` with the bound pods of `pods` committed, on
-        `device` ("cuda", the default, or "cpu"); None when a gate declines."""
+        `device` ("cuda", the default, or "cpu"); None when a gate declines.
+        `mesh`: a scenario mesh on that device (parallel/mesh.py); None
+        takes one over every rank when the process group has more than one
+        (`auto_scenario_mesh`, JAX's `_auto_mesh` rule)."""
+        from ..parallel.mesh import auto_scenario_mesh
         from ..simulator.engine import Simulator
 
         if sched_config is not None:
             raise NotImplementedError("custom scheduler configs are not ported yet (ROADMAP A7)")
-        if mesh is not None:
-            raise NotImplementedError("the scenario mesh is not ported yet (ROADMAP A12)")
-        sim = Simulator(list(nodes), device=device)
+        sim = Simulator(list(nodes), device=device, use_mesh=False)
+        if mesh is not None and mesh.device != sim.device:
+            raise ValueError(f"the mesh is on {mesh.device}, the image on {sim.device}")
         if cluster_objects is not None:
             sim.register_cluster_objects(cluster_objects)
         if sim.local_host.enabled or sim.gpu_host.enabled:
@@ -145,6 +156,7 @@ class ResidentImage:
         self = object.__new__(cls)
         self._sim = sim
         self.device = sim.device
+        self._mesh = mesh if mesh is not None else auto_scenario_mesh(sim.device)
         self._lock = threading.RLock()
         self.generation = 1
         self.seq = 0
@@ -363,7 +375,7 @@ class ResidentImage:
 
         old = self._sim
         nodes = [copy.deepcopy(n) for i, n in enumerate(old.na.nodes) if self.active[i]]
-        sim = Simulator(nodes, device=self.device)
+        sim = Simulator(nodes, device=self.device, use_mesh=False)
         sim.register_cluster_objects(_cluster_objects(old.model))
         self._sim = sim
         index: Dict[str, Tuple[dict, int]] = {}
@@ -483,7 +495,7 @@ class ResidentImage:
             if now != then:
                 raise ImageDonatedError(f"shared cluster-image table '{name}' was written in "
                                         f"place by a dispatch")
-        for S, (carry, stamps) in self._carry_devcache.items():
+        for (S, _, _), (carry, stamps) in self._carry_devcache.items():
             if _stamps(carry) != stamps:
                 raise ImageDonatedError(f"the cached {S}-lane base carry was written in place "
                                         f"by a dispatch")
@@ -547,15 +559,18 @@ class ResidentImage:
     def _lane_arrays(self, sessions: List[WhatIfSession],
                      activates: Optional[Sequence[Sequence[str]]] = None):
         """(S, active_s [S, n_pad], carry_np): S is the session count rounded
-        up to a power of two (surplus lanes repeat lane 0 and are sliced
-        off), plus each lane's active overlay and seed copy. carry_np is
-        None when every lane uses the unmodified base seeds: the dispatch
-        then reuses the cached device-resident base carry (_base_carry).
-        `activates` (aligned with sessions) routes through lane_overlay (the
-        sweep runner's nodepool lanes)."""
+        up to a power of two, then to a multiple of the mesh's scenario axis
+        (surplus lanes repeat lane 0 and are sliced off), plus each lane's
+        active overlay and seed copy. carry_np is None when every lane uses
+        the unmodified base seeds: the dispatch then reuses the cached
+        device-resident base carry (_base_carry). `activates` (aligned with
+        sessions) routes through lane_overlay (the sweep runner's nodepool
+        lanes)."""
         S = 1
         while S < len(sessions):
             S *= 2
+        if self._mesh is not None:
+            S = self._mesh.padded_lanes(S)
         active_s = np.zeros((S, self._n_pad), bool)
         lane_seeds = []
         all_base = True
@@ -577,25 +592,52 @@ class ResidentImage:
         return S, active_s, carry_np
 
     def _base_carry(self, S: int) -> kernels.Carry:
-        """Device-resident [S]-lane broadcast of the base seeds, cached per
-        lane count and dropped by every ingest and restage (the caller holds
-        the image lock). The lane kernels clone it before they write."""
-        got = self._carry_devcache.get(S)
+        """Device-resident broadcast of the base seeds over this rank's
+        block of S lanes (all S without a mesh), cached per (S, block) and
+        dropped by every ingest and restage (the caller holds the image
+        lock). The lane kernels clone it before they write."""
+        blk = self.lane_block(S)
+        key = (S, blk.start, blk.stop)
+        got = self._carry_devcache.get(key)
         if got is not None:
             return got[0]
+        b = blk.stop - blk.start
         carry = kernels.Carry(*(torch.tensor(np.ascontiguousarray(
-            np.broadcast_to(v, (S,) + v.shape)), device=self.device) for v in self._seeds))
-        self._carry_devcache[S] = (carry, _stamps(carry))
+            np.broadcast_to(v, (b,) + v.shape)), device=self.device) for v in self._seeds))
+        self._carry_devcache[key] = (carry, _stamps(carry))
         return carry
 
+    def lane_block(self, S: int) -> slice:
+        """The lanes of an S-lane dispatch this rank stages and runs."""
+        from ..parallel.mesh import lane_block
+
+        return lane_block(self._mesh, S)
+
+    def fanouts(self):
+        """The namespace the dispatches call: `kernels`, or the mesh's
+        ShardedKernels."""
+        from ..parallel.mesh import fanout_namespace
+
+        return fanout_namespace(self._mesh)
+
+    def fetch(self, *outputs: torch.Tensor) -> list:
+        """One fetch of a dispatch's outputs, every lane on every rank."""
+        from ..parallel.mesh import fetch_lanes
+
+        return fetch_lanes(self._mesh, *outputs)
+
     def _stage_lane_inputs(self, carry_np, active_s):
-        """(carry_s, active) on the device for one fan-out round; carry_np
-        None = every lane rides the cached base carry."""
+        """(carry_s, active) on the device for one fan-out round, this rank's
+        block of lanes only; carry_np None = every lane rides the cached
+        base carry."""
+        S = active_s.shape[0]
+        blk = self.lane_block(S)
         if carry_np is None:
-            carry_s = self._base_carry(active_s.shape[0])
+            carry_s = self._base_carry(S)
         else:
-            carry_s = kernels.Carry(*(torch.tensor(v, device=self.device) for v in carry_np))
-        return carry_s, torch.tensor(active_s, device=self.device)
+            carry_s = kernels.Carry(*(torch.tensor(np.ascontiguousarray(v[blk]),
+                                                   device=self.device) for v in carry_np))
+        return carry_s, torch.tensor(np.ascontiguousarray(active_s[blk]), device=self.device)
 
     def _dispatch_wave(self, sessions: List[WhatIfSession], routes: List[tuple],
                        lanes: int) -> List[dict]:
@@ -610,11 +652,12 @@ class ResidentImage:
         block = kernels.wave_block_for(max_m, self._sim.na.N)
         kmax = kernels.wave_kmax(max_m, self._sim.na.N, block)
         sim = self._sim
+        blk = self.lane_block(S)
         carry_s, active = self._stage_lane_inputs(carry_np, active_s)
-        carry_s, placed = kernels.serve_wave_fanout(
-            self._tables, carry_s, active, g_s, m_s, cap1_s, w=sim.score_w,
+        carry_s, placed = self.fanouts().serve_wave_fanout(
+            self._tables, carry_s, active, g_s[blk], m_s[blk], cap1_s[blk], w=sim.score_w,
             filters=sim.filter_flags, block=block, kmax=kmax)
-        placed_s, requested_s = placed.cpu().numpy(), carry_s.requested.cpu().numpy()
+        placed_s, requested_s = self.fetch(placed, carry_s.requested)
         self.assert_image_alive()
         return self._responses(sessions, [m for _, m, _ in routes], placed_s, requested_s,
                                active_s, lanes)
@@ -640,11 +683,11 @@ class ResidentImage:
         carry_s, active = self._stage_lane_inputs(carry_np, active_s)
         # gpu/storage pinned off: the image gates decline those clusters and
         # requests
-        carry_s, placed = kernels.serve_whatif_fanout(
-            self._tables, carry_s, active, pod_group, forced_node, valid_s,
+        carry_s, placed = self.fanouts().serve_whatif_fanout(
+            self._tables, carry_s, active, pod_group, forced_node, valid_s[self.lane_block(S)],
             n_zones=btp.n_zones, enable_gpu=False, enable_storage=False, w=sim.score_w,
             filters=sim.filter_flags)
-        placed_s, requested_s = placed.cpu().numpy(), carry_s.requested.cpu().numpy()
+        placed_s, requested_s = self.fetch(placed, carry_s.requested)
         self.assert_image_alive()
         return self._responses(sessions, [n for _, n in spans], placed_s, requested_s,
                                active_s, lanes)

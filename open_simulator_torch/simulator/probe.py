@@ -15,6 +15,10 @@ ONE identical node exist, so a session pays the expensive work once:
   node a `pad_batch_tables` phantom.
 - **Fan-out.** Up to `fanout` candidates run in one dispatch per segment, one
   lane each (K2-K5 over lanes on the card), and one fetch ends the round.
+  On a scenario mesh (parallel/mesh.py; taken by itself when the process
+  group has more than one rank, as JAX's `_auto_mesh` takes one over the
+  devices) each rank stages and runs its block of the lanes, and the fetch
+  gathers `placed` and `requested` once each.
 - **Growth.** When the search outgrows the encoded bucket, the template axis
   grows by appending copies of the pre-encoded template column: on the device
   (ops/kernels.py `extend_tables_on_device`, K6) when no hostname-keyed counter or carrier row
@@ -31,8 +35,8 @@ With the flight recorder on (obs/xray.py), each `probe_many` round commits
 one probe record per candidate (counts only: a session never materializes
 placements).
 
-Not ported: the scenario mesh (A12), and the watchdog, fault sites, rollback
-transaction and metrics (A9).
+Not ported: the watchdog, fault sites, rollback transaction and metrics
+(A9).
 """
 
 from __future__ import annotations
@@ -84,10 +88,13 @@ class ProbeSession:
     def try_build(cls, base_nodes: List[dict], new_node: Optional[dict],
                   pods: List[dict], cluster_objects=None,
                   app_objects: Sequence = (), n_new: int = 2, fanout: int = 8,
-                  device=None) -> Optional["ProbeSession"]:
+                  device=None, mesh=None) -> Optional["ProbeSession"]:
         """Build a session able to probe up to (at least) n_new template
         copies on `device` ("cuda", the default, or "cpu"), or None when the
-        workload fails an equivalence gate."""
+        workload fails an equivalence gate. `mesh`: a scenario mesh on that
+        device (parallel/mesh.py); None takes one over every rank when the
+        process group has more than one (`auto_scenario_mesh`, JAX's
+        `_auto_mesh` rule)."""
         from .engine import Simulator
 
         if new_node is None:
@@ -98,7 +105,7 @@ class ProbeSession:
         # real, probe-able template columns
         n0 = max(2, int(n_new))
         n0 = bucket_capped(n_base + n0, 1024) - n_base
-        sim = Simulator(base_nodes + new_fake_nodes(new_node, n0), device=device)
+        sim = Simulator(base_nodes + new_fake_nodes(new_node, n0), device=device, use_mesh=False)
         if cluster_objects is not None:
             sim.register_cluster_objects(cluster_objects)
         for rt in app_objects:
@@ -107,12 +114,15 @@ class ProbeSession:
             return None  # open-local envelope accounting (planner gate too)
         if any((n.get("status") or {}).get("images") for n in sim.na.nodes):
             return None  # ImageLocality divides by the TOTAL node count
-        return cls._try_build_encoded(sim, t0, n_base, n0, pods, fanout)
+        if mesh is not None and mesh.device != sim.device:
+            raise ValueError(f"the mesh is on {mesh.device}, the session on {sim.device}")
+        return cls._try_build_encoded(sim, t0, n_base, n0, pods, fanout, mesh)
 
     @classmethod
-    def _try_build_encoded(cls, sim, t0, n_base, n0, pods, fanout):
+    def _try_build_encoded(cls, sim, t0, n_base, n0, pods, fanout, mesh):
         # Bound pods commit once (cluster state every candidate shares); the
         # unbound remainder becomes the one encoded run.
+        from ..parallel.mesh import auto_scenario_mesh
         from ..utils.objutil import pod_resource_requests
 
         run: List[dict] = []
@@ -153,6 +163,8 @@ class ProbeSession:
         self.device_extensions = 0  # extensions that grew the tables on the device
         self.uploads = 0
         self._alloc = np.array(sim.na.alloc, np.float64)
+        # any rank count works: a round pads its lanes to a multiple of it
+        self._mesh = mesh if mesh is not None else auto_scenario_mesh(sim.device)
 
         if not run:
             # trivial probes: host arithmetic only (probe_utilization reads
@@ -329,56 +341,69 @@ class ProbeSession:
     def _dispatch_round(self, active_s: np.ndarray):
         """One fan-out per segment, chained from the seed carry broadcast
         over the lanes, and ONE fetch: (placed [S], requested [S, N, R]) as
-        numpy."""
-        sim, bt = self._sim, self._bt
-        dev = self.device
-        enable_gpu, enable_storage = self._flags
-        n_real = self.n_base + self.n_new
+        numpy. On a scenario mesh the lanes pad to a multiple of the
+        scenario axis (repeating the last candidate, as JAX's session), this
+        rank stages and runs its block of them, and the fetch gathers every
+        lane; the padding is sliced off."""
+        from ..parallel.mesh import fanout_namespace, fetch_lanes, lane_block
+
+        mesh = self._mesh
         S = active_s.shape[0]
-        carry_s = kernels.carry_lanes(self._seed, S)
-        active = torch.from_numpy(active_s).to(dev)
-        w, filters = sim.score_w, sim.filter_flags
+        if mesh is not None and S % mesh.scenarios:
+            extra = mesh.padded_lanes(S) - S
+            active_s = np.concatenate([active_s, np.repeat(active_s[-1:], extra, axis=0)])
+        blk = lane_block(mesh, active_s.shape[0])
+        carry_s = kernels.carry_lanes(self._seed, blk.stop - blk.start)
+        active = torch.from_numpy(np.ascontiguousarray(active_s[blk])).to(self.device)
+        kns = fanout_namespace(mesh)
         placed_parts = []
         for seg in self._segs:
-            if seg[0] == "serial":
-                _, start, length = seg
-                pad = bucket_capped(length, 2048)
-                pg = np.zeros(pad, np.int32)
-                pg[:length] = bt.pod_group[start:start + length]
-                fn = np.full(pad, -1, np.int32)
-                fn[:length] = bt.forced_node[start:start + length]
-                vd = np.zeros(pad, bool)
-                vd[:length] = True
-                carry_s, placed = kernels.probe_serial_fanout(
-                    self._tables, carry_s, active, torch.from_numpy(pg), torch.from_numpy(fn),
-                    torch.from_numpy(vd), n_zones=bt.n_zones, enable_gpu=enable_gpu,
-                    enable_storage=enable_storage, w=w, filters=filters)
-            elif seg[0] == "spread":
-                # dns/sa groups are gated out at build: only a live
-                # SelectorSpread counter routes here
-                _, start, length, g, cap1, ss_live, sa_live = seg
-                vd = np.zeros(bucket_capped(length, 2048), bool)
-                vd[:length] = True
-                carry_s, placed = kernels.probe_group_serial_fanout(
-                    self._tables, carry_s, active, g, torch.from_numpy(vd), bool(cap1),
-                    w=w, filters=filters, ss_live=ss_live, sa_live=sa_live,
-                    n_zones=bt.n_zones if ss_live else 2)
-            elif seg[0] == "affinity":
-                _, start, length, g, cap1, ss_live = seg
-                block = kernels.wave_block_for(length, n_real)
-                carry_s, placed = kernels.probe_affinity_wave_fanout(
-                    self._tables, carry_s, active, g, length, bool(cap1), ss_live=ss_live,
-                    w=w, filters=filters, block=block, n_zones=bt.n_zones if ss_live else 2)
-            else:
-                _, start, length, g, cap1, gpu_live = seg
-                block = kernels.wave_block_for(length, n_real)
-                kmax = kernels.wave_kmax(length, n_real, block)
-                carry_s, placed = kernels.probe_wave_fanout(
-                    self._tables, carry_s, active, g, length, bool(cap1), gpu_live=gpu_live,
-                    w=w, filters=filters, block=block, kmax=kmax)
+            name, args, kwargs = self.fanout_call(seg)
+            carry_s, placed = getattr(kns, name)(self._tables, carry_s, active, *args, **kwargs)
             placed_parts.append(placed)
-        placed_s = torch.stack(placed_parts).sum(dim=0)
-        return placed_s.cpu().numpy(), carry_s.requested.cpu().numpy()
+        placed_s, requested_s = fetch_lanes(mesh, torch.stack(placed_parts).sum(dim=0),
+                                            carry_s.requested)
+        return placed_s[:S], requested_s[:S]
+
+    def fanout_call(self, seg: tuple) -> Tuple[str, tuple, dict]:
+        """(fan-out name, arguments after (tables, carry_s, active_s), keyword
+        arguments) of one segment's dispatch: every input is shared by the
+        lanes (the candidates differ only in their active rows)."""
+        sim, bt = self._sim, self._bt
+        enable_gpu, enable_storage = self._flags
+        n_real = self.n_base + self.n_new
+        kw = dict(w=sim.score_w, filters=sim.filter_flags)
+        kind, start, length = seg[:3]
+        if kind == "serial":
+            pad = bucket_capped(length, 2048)
+            pg = np.zeros(pad, np.int32)
+            pg[:length] = bt.pod_group[start:start + length]
+            fn = np.full(pad, -1, np.int32)
+            fn[:length] = bt.forced_node[start:start + length]
+            vd = np.zeros(pad, bool)
+            vd[:length] = True
+            return ("probe_serial_fanout",
+                    (torch.from_numpy(pg), torch.from_numpy(fn), torch.from_numpy(vd)),
+                    dict(kw, n_zones=bt.n_zones, enable_gpu=enable_gpu,
+                         enable_storage=enable_storage))
+        g, cap1 = seg[3], bool(seg[4])
+        if kind == "spread":
+            # dns/sa groups are gated out at build: only a live
+            # SelectorSpread counter routes here
+            ss_live, sa_live = seg[5], seg[6]
+            vd = np.zeros(bucket_capped(length, 2048), bool)
+            vd[:length] = True
+            return ("probe_group_serial_fanout", (g, torch.from_numpy(vd), cap1),
+                    dict(kw, ss_live=ss_live, sa_live=sa_live,
+                         n_zones=bt.n_zones if ss_live else 2))
+        block = kernels.wave_block_for(length, n_real)
+        if kind == "affinity":
+            ss_live = seg[5]
+            return ("probe_affinity_wave_fanout", (g, length, cap1),
+                    dict(kw, ss_live=ss_live, block=block, n_zones=bt.n_zones if ss_live else 2))
+        return ("probe_wave_fanout", (g, length, cap1),
+                dict(kw, gpu_live=seg[5], block=block,
+                     kmax=kernels.wave_kmax(length, n_real, block)))
 
     def _utilization(self, n: int, requested_row: Optional[np.ndarray]) -> Dict[str, float]:
         """probe_utilization's aggregate totals for candidate n: f64 host sums

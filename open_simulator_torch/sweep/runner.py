@@ -24,13 +24,16 @@ device-resident cluster image (serve/image.py):
   identity. A mismatch raises SweepParityError.
 
 Lanes are shape-bucketed into chunks of at most `fanout` (the JAX runner's
-rule), so the report's dispatch counts are the JAX package's.
+rule), so the report's dispatch counts are the JAX package's. On a scenario
+mesh (`mesh`, or the image's own when the process group has more than one
+rank) each rank runs its block of every chunk's lanes and the fetch gathers
+them, so every rank builds the same results and report.
 
 With the flight recorder on (obs/xray.py), a run commits one probe record
 per scenario (counts only).
 
 Not ported: the failover of a failed chunk to fresh runs, scope spans and
-metrics (ROADMAP A9: a failure propagates), and the scenario mesh (A12).
+metrics (ROADMAP A9: a failure propagates).
 """
 
 from __future__ import annotations
@@ -92,14 +95,14 @@ class SweepRunner:
                  parity: str = "full", parity_sample: int = 8,
                  fanout: int = 64, mesh=None, device=None) -> None:
         """`device`: "cuda" (the default, None) or "cpu", for the image,
-        the fresh route and the parity oracle alike."""
+        the fresh route and the parity oracle alike. `mesh`: the image's
+        scenario mesh (parallel/mesh.py; None lets the image take its own)."""
         from ..simulator.engine import resolve_device
 
         if parity not in PARITY_MODES:
             raise ValueError(f"parity must be one of {PARITY_MODES}")
-        if mesh is not None:
-            raise NotImplementedError("the scenario mesh is not ported yet (ROADMAP A12)")
         self.device = resolve_device(device)
+        self._mesh = mesh
         self.spec = spec
         self.seed = spec.seed if seed is None else int(seed)
         self.parity = parity
@@ -175,7 +178,7 @@ class SweepRunner:
 
         self.image = ResidentImage.try_build(
             self._base_nodes + self._pool_nodes, pods=self._bound,
-            device=self.device)
+            mesh=self._mesh, device=self.device)
         if self.image is not None and self._pool_nodes:
             # the union nodepool stages INTO the image but starts drained:
             # each nodepool_mix lane re-activates its k pool columns (zero
@@ -243,7 +246,8 @@ class SweepRunner:
 
     def _lane_arrays(self, lanes: List[Tuple[Scenario, object]]):
         """(S, active_s, carry_np): the image's shared lane assembly (pow2
-        quantization, base-seed device-cache reuse) with each lane's
+        quantization, the mesh's multiple, base-seed device-cache reuse)
+        with each lane's
         copy-on-write overlay routed through lane_overlay for the nodepool
         activations."""
         return self.image._lane_arrays(
@@ -301,11 +305,12 @@ class SweepRunner:
                     kmax):
         image = self.image
         sim = image._sim
+        blk = image.lane_block(active_s.shape[0])
         carry_s, active = image._stage_lane_inputs(carry_np, active_s)
-        carry_s, counts = kernels.sweep_wave_fanout(
-            image._tables, carry_s, active, g_sk, m_sk, cap1_sk,
+        carry_s, counts = image.fanouts().sweep_wave_fanout(
+            image._tables, carry_s, active, g_sk[blk], m_sk[blk], cap1_sk[blk],
             w=sim.score_w, filters=sim.filter_flags, block=block, kmax=kmax)
-        return counts.cpu().numpy(), carry_s.requested.cpu().numpy()
+        return image.fetch(counts, carry_s.requested)
 
     def _wave_result(self, sc: Scenario, segs: List[_WaveSeg], counts_kn,
                      requested, active_row) -> ScenarioResult:
@@ -368,14 +373,15 @@ class SweepRunner:
                     valid_s):
         image = self.image
         sim = image._sim
+        blk = image.lane_block(active_s.shape[0])
         carry_s, active = image._stage_lane_inputs(carry_np, active_s)
         # gpu/storage pinned off: the image gates decline those clusters and
         # requests (as serve's serial round)
-        carry_s, choices = kernels.sweep_whatif_fanout(
-            image._tables, carry_s, active, pod_group_s, forced_node_s,
-            valid_s, n_zones=image._bt.n_zones, enable_gpu=False,
+        carry_s, choices = image.fanouts().sweep_whatif_fanout(
+            image._tables, carry_s, active, pod_group_s[blk], forced_node_s[blk],
+            valid_s[blk], n_zones=image._bt.n_zones, enable_gpu=False,
             enable_storage=False, w=sim.score_w, filters=sim.filter_flags)
-        return choices.cpu().numpy(), carry_s.requested.cpu().numpy()
+        return image.fetch(choices, carry_s.requested)
 
     def _scan_result(self, sc: Scenario, choices, requested,
                      active_row) -> ScenarioResult:

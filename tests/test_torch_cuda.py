@@ -588,3 +588,24 @@ def test_sharded_kernels_match_plain_sharded_on_two_ranks(tmp_path):
     assert {r["kind"] for r in got[0]} == {"wave", "affinity"}
     for r in got[0]:
         assert r["same_plain"] and r["same_unsharded"], r
+
+
+LANE_FANOUTS = ("probe_serial_fanout", "probe_wave_fanout", "probe_group_serial_fanout",
+                "probe_affinity_wave_fanout", "serve_whatif_fanout", "serve_wave_fanout",
+                "sweep_wave_fanout", "sweep_whatif_fanout")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fanout", LANE_FANOUTS)
+def test_lane_block_equals_full_launch(fanout):
+    """A scenario mesh's rank runs its block of a fan-out's lanes through the
+    same lane kernel: for every block of 2 and of 4 (of S = 8 lanes), the
+    block launch equals the same lanes of one launch over all S, bit for bit
+    on every output and carry leaf (tests/torch_scenario_cases.py)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import torch_scenario_cases as SC
+
+    for blocks in (2, 4):
+        got = SC.lane_block_cases("cuda", blocks, names=(fanout,))
+        assert got == {fanout: {"lanes": 8 // blocks, "same": True}}

@@ -24,8 +24,8 @@ import pytest
 import torch
 
 import torch_mesh_cases as C
-from open_simulator_torch.parallel import (NODE_AXIS, ShardedKernels, choose_backend,
-                                           epoch_shards, initialize_distributed,
+from open_simulator_torch.parallel import (NODE_AXIS, SCENARIO_AXIS, ShardedKernels,
+                                           choose_backend, epoch_shards, initialize_distributed,
                                            make_global_mesh, make_node_mesh, make_scenario_mesh)
 from open_simulator_torch.parallel.launch import run_ranks
 from open_simulator_torch.simulator.engine import Simulator as TorchSimulator
@@ -150,12 +150,20 @@ def test_single_process_mesh_and_refusals():
     assert epoch_shards(mesh, 32) == 1 and epoch_shards(None, 32) == 1
     with pytest.raises(ValueError):
         make_node_mesh(2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12c"):
-        make_global_mesh(scenario_axis=2)
-    with pytest.raises(NotImplementedError, match="A12c"):
-        make_scenario_mesh(4)
-    with pytest.raises(NotImplementedError, match="A12c"):
-        ShardedKernels().probe_wave_fanout()
+    # the scenario axis: one process is one scenario group; the mesh never
+    # shrinks to fit, and the fan-outs need a scenario axis
+    sm = make_scenario_mesh(device="cpu")
+    assert (sm.axis_names, sm.shape) == ((SCENARIO_AXIS, NODE_AXIS),
+                                         {SCENARIO_AXIS: 1, NODE_AXIS: 1})
+    assert sm.lane_block(4) == slice(0, 4) and epoch_shards(sm, 32) == 1
+    assert make_global_mesh(scenario_axis=1, device="cpu").axis_names == (NODE_AXIS,)
+    with pytest.raises(ValueError, match="not divisible"):
+        make_global_mesh(scenario_axis=2, device="cpu")
+    with pytest.raises(ValueError, match="needs 4 ranks"):
+        make_scenario_mesh(4, device="cpu")
+    with pytest.raises(ValueError, match="scenarios"):
+        ShardedKernels(mesh)
+    assert ShardedKernels(sm).mesh is sm
     assert choose_backend("cpu", 4) == "gloo"
     if not torch.cuda.is_available():
         assert choose_backend("cuda", 2) == "gloo"

@@ -1,12 +1,18 @@
-"""The node mesh with one card per rank (NCCL, as `choose_backend` picks it).
+"""The mesh with one card per rank (NCCL, as `choose_backend` picks it).
 
     python tests/torch_mesh_cards.py [RANKS]      # default: every card of the host
 
-On each rank: K8 and K9 against their plain sharded versions and the
-unsharded K3 / K5 on the seeded workload of tests/torch_mesh_cases.py, and
-the engine on the mesh against the unsharded engine on the JAX mesh tests'
-workloads, with one pmax and one all-gather per epoch. Prints every rank's
-record and exits non-zero on any difference. Imports no JAX.
+The node axis, on each rank: K8 and K9 against their plain sharded versions
+and the unsharded K3 / K5 on the seeded workload of
+tests/torch_mesh_cases.py, and the engine on the mesh against the
+unsharded engine on the JAX mesh tests' workloads, with one pmax and one
+all-gather per epoch. The scenario axis, on a scenario mesh of one group
+per rank (tests/torch_scenario_cases.py): each lane kernel's block of
+lanes against a full launch, and the probe sessions, the what-if
+responses and the example sweeps' reports (parity off) on the mesh against
+the same run on one rank, with one gather per output at every fetch.
+Prints every rank's record and exits non-zero on any difference. Imports
+no JAX.
 """
 
 import json
@@ -18,6 +24,41 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path[:0] = [os.path.dirname(HERE), HERE]
 
 import torch_mesh_cases as C  # noqa: E402
+import torch_scenario_cases as SC  # noqa: E402
+
+
+def scenario_cases() -> dict:
+    """The scenario-axis cases on this rank: True where the mesh's result
+    equals the one-rank run's (and the fetches gathered as they should)."""
+    import copy
+
+    from open_simulator_torch.parallel import make_scenario_mesh
+    from open_simulator_torch.serve import ResidentImage
+    from open_simulator_torch.sweep import SweepRunner, build_report, load_spec, report_json
+
+    mesh = make_scenario_mesh(device="cuda")
+    out = {"lane_blocks": all(v["same"] for v in SC.lane_block_cases(
+        "cuda", mesh.scenarios, only=mesh.lane_group).values())}
+    with SC.mesh_env("0"):
+        for name, case in SC.probe_cases().items():
+            got = SC.probe_rounds(SC.port_session(case, "cuda", mesh), case[5])
+            out[f"probe_{name}"] = got == SC.probe_rounds(SC.port_session(case, "cuda"), case[5])
+        nodes, bound = SC.make_cluster(10, 6)
+        got, want = (SC.serve_steps(ResidentImage.try_build(
+            copy.deepcopy(nodes), pods=copy.deepcopy(bound), device="cuda", mesh=m))
+            for m in (mesh, None))
+        out["serve"] = got == want
+        for spec in SC.SPECS:
+            reports = []
+            for m in (mesh, None):
+                runner = SweepRunner(load_spec(SC.spec_path(spec)), parity="off", mesh=m,
+                                     device="cuda")
+                runner.run()
+                reports.append(report_json(build_report(runner)))
+            out[f"sweep_{spec}"] = reports[0] == reports[1]
+    out["gathers"] = (mesh.counts["gather_lanes"]["calls"] == 2 * sum(mesh.fetched.values())
+                      and all(S == b * mesh.scenarios for b, S in mesh.fetched))
+    return out
 
 
 def rank_fn(mesh) -> dict:
@@ -32,6 +73,7 @@ def rank_fn(mesh) -> dict:
         out[name] = {"same": got["placed"] == want["placed"] and got["failed"] == want["failed"],
                      "calls": {k: v["calls"] for k, v in got["counts"].items()},
                      "epochs": got["wave"]["iterations"] + got["affinity"]["epochs"]}
+    out["scenario"] = scenario_cases()
     return out
 
 
@@ -56,6 +98,7 @@ def main() -> int:
     ok &= all(r[n]["same"] and r[n]["epochs"] > 0
               and r[n]["calls"] == {"pmax": r[n]["epochs"], "all_gather_tiled": r[n]["epochs"]}
               for r in res for n in C.WORKLOADS)
+    ok &= all(all(r["scenario"].values()) for r in res)
     print("mesh on", ranks, "cards:", "ok" if ok else "FAILED")
     return 0 if ok else 1
 
