@@ -24,9 +24,9 @@ from typing import List, Optional
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [os.path.join(_HERE, "csrc", f)
            for f in ("schedule.cu", "wave.cu", "group_serial.cu", "affinity_wave.cu", "extend.cu",
-                     "explain.cu", "wave_sharded.cu", "affinity_sharded.cu")]
+                     "explain.cu", "wave_sharded.cu", "affinity_sharded.cu", "wave_rounds.cu")]
 HEADERS = [os.path.join(_HERE, "csrc", f)
-           for f in ("common.cuh", "select.cuh", "wave.cuh", "affinity.cuh")]
+           for f in ("common.cuh", "select.cuh", "wave.cuh", "affinity.cuh", "wave_sharded.cuh")]
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
@@ -196,6 +196,17 @@ def _load(path: str) -> ctypes.CDLL:
     for stage in ("setup", "front", "table", "tail"):
         getattr(lib, f"wave_sharded_{stage}_launch").restype = I
         getattr(lib, f"affinity_sharded_{stage}_launch").restype = I
+    # K10, the wave's per-round path: setup, then summary, select, merge and
+    # finish around K8's front and table
+    lib.wave_rounds_merge_state_bytes.argtypes = []
+    lib.wave_rounds_merge_state_bytes.restype = L
+    lib.wave_rounds_setup_launch.argtypes = [V] + [I] * 4 + [P] * 5
+    lib.wave_rounds_summary_launch.argtypes = [V] + [I] * 3 + [P] * 5
+    lib.wave_rounds_select_launch.argtypes = [V] + [I] * 5 + [P] * 6
+    lib.wave_rounds_merge_launch.argtypes = [V] + [I] * 8 + [P] * 8
+    lib.wave_rounds_finish_launch.argtypes = [I] * 4 + [P] * 8
+    for stage in ("setup", "summary", "select", "merge", "finish"):
+        getattr(lib, f"wave_rounds_{stage}_launch").restype = I
     lib.ext_args_size.argtypes = []
     lib.ext_args_size.restype = ctypes.c_int
     lib.extend_tables_launch.argtypes = [ctypes.POINTER(ExtArgs), ctypes.c_longlong, P]

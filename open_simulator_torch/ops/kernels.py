@@ -938,30 +938,45 @@ def _top_k(flat: torch.Tensor, k: int):
     return vals[:k], pos[:k]
 
 
+def _usable_and_bound(table_ext, avail, F, B: int):
+    """The unguarded half of the selection on n nodes' [n, B+1] rows:
+    (table [n, B], ks [1, B], the usable-entry mask (capacity, monotone
+    prefix, feasible) and each node's first hidden entry `bound` (past
+    depth B or past a monotonicity break; -inf where there is none))."""
+    n = table_ext.shape[0]
+    dev = table_ext.device
+    table = table_ext[:, :B]
+    ks = torch.arange(B, dtype=torch.int32, device=dev)[None, :]
+    in_cap = ks < avail[:, None]
+    step_ok = torch.cat([torch.ones((n, 1), dtype=torch.int32, device=dev),
+                         (table[:, 1:] <= table[:, :-1]).to(torch.int32)], dim=1)
+    mono = torch.cumprod(step_ok, dim=1) > 0
+    usable = in_cap & mono & F[:, None]
+    first_bad = torch.amin(torch.where(mono, B, ks), dim=1)
+    k_hid = torch.clamp(first_bad, max=B)
+    has_hidden = (k_hid < avail) & F
+    bound = torch.where(has_hidden, torch.gather(table_ext, 1, k_hid.long()[:, None])[:, 0],
+                        torch.tensor(float("-inf"), device=dev))
+    return table, ks, usable, bound
+
+
+def _guarded(table, usable, iota, cut_s, cut_i):
+    """The guard: an entry is takeable only if its key (score desc, index
+    asc) strictly beats every OTHER node's first hidden entry, (cut_s,
+    cut_i) per node. Returns (the usable mask that beats it, the entries it
+    deferred)."""
+    beats = (table > cut_s[:, None]) | ((table == cut_s[:, None])
+                                        & (iota[:, None] < cut_i[:, None]))
+    return usable & beats, int((usable & ~beats).sum())
+
+
 def _wave_candidates_from(table_ext, avail, F, B: int, iota_n, kmax: int):
     """The usable-entry mask (capacity, monotone prefix, hidden-continuation
     guard) and the top-kmax candidates in serial's pick order. Returns
     (table [N, B], idx_srt, ex_srt, vals, guarded): idx_srt, ex_srt and vals
     are [kmax]; guarded counts the entries the guard deferred."""
-    N = table_ext.shape[0]
-    dev = table_ext.device
-    ninf = torch.tensor(float("-inf"), device=dev)
-    table = table_ext[:, :B]
-    ks = torch.arange(B, dtype=torch.int32, device=dev)[None, :]
-    in_cap = ks < avail[:, None]
-    step_ok = torch.cat([torch.ones((N, 1), dtype=torch.int32, device=dev),
-                         (table[:, 1:] <= table[:, :-1]).to(torch.int32)], dim=1)
-    mono = torch.cumprod(step_ok, dim=1) > 0
-    usable = in_cap & mono & F[:, None]
-
-    # an entry is takeable only if its key (score desc, index asc) strictly
-    # beats every OTHER node's first hidden entry (past depth B or past a
-    # monotonicity break)
-    first_bad = torch.amin(torch.where(mono, B, ks), dim=1)
-    k_hid = torch.clamp(first_bad, max=B)
-    has_hidden = (k_hid < avail) & F
-    bound = torch.where(has_hidden,
-                        torch.gather(table_ext, 1, k_hid.long()[:, None])[:, 0], ninf)
+    ninf = torch.tensor(float("-inf"), device=table_ext.device)
+    table, ks, usable, bound = _usable_and_bound(table_ext, avail, F, B)
     b1 = torch.amax(bound)
     i1 = torch.argmax(bound)  # first max = lowest index among ties
     bound2 = bound.clone()
@@ -970,10 +985,7 @@ def _wave_candidates_from(table_ext, avail, F, B: int, iota_n, kmax: int):
     i2 = torch.argmax(bound2)
     cut_s = torch.where(iota_n == i1, b2, b1)
     cut_i = torch.where(iota_n == i1, i2, i1).to(torch.int32)
-    beats = (table > cut_s[:, None]) | ((table == cut_s[:, None])
-                                        & (iota_n[:, None] < cut_i[:, None]))
-    guarded = int((usable & ~beats).sum())
-    usable = usable & beats
+    usable, guarded = _guarded(table, usable, iota_n, cut_s, cut_i)
 
     flat_s = torch.where(usable, table, ninf).reshape(-1)
     exhaust = (ks == (avail[:, None] - 1)) & usable  # the entry that empties node n
@@ -1031,39 +1043,171 @@ def _epoch_shards(mesh, N: int) -> int:
     return epoch_shards(mesh, N)
 
 
+def _round_shards(mesh, N: int) -> int:
+    """Shards of the wave's per-round path for N nodes (above the epoch
+    limit); 1 where it does not apply."""
+    if mesh is None:
+        return 1
+    from ..parallel.mesh import round_shards
+
+    return round_shards(mesh, N)
+
+
 def _block_of(mesh, N: int) -> slice:
     """This rank's contiguous node block (the shard_map in_specs slice)."""
     NL = N // mesh.shards
     return slice(mesh.rank * NL, (mesh.rank + 1) * NL)
 
 
-def _wave_front_sharded(tb: Tables, cry: Carry, g: int, st: dict, capacity, base_feas, j,
-                        w: ScoreWeights, B: int, mesh):
-    """The sharded epoch front of the wave (JAX :1220-1246): this rank's
-    feasible block, ONE pmax of the stacked normalizers (mins negated), its
-    table block, and ONE tiled all-gather of [table.T; F; min(avail, B+1)].
-    Returns (norms, table_ext [N, B+1], F, avail) at full width: the same
-    floats as the unsharded front, avail clamped to B+1 (every comparison
-    the selection makes against it has a left side <= B)."""
-    from ..parallel.collectives import all_gather_tiled, pmax
+def _reduced_norms(red: torch.Tensor) -> tuple:
+    """The six normalizers from a reduced [max simon, nodeaff, taint, ip,
+    max -simon, max -ip] vector (JAX :1233-1235)."""
+    return (red[0], -red[4], torch.clamp(red[1], min=0.0), torch.clamp(red[2], min=0.0),
+            torch.clamp(red[3], min=0.0), torch.clamp(-red[5], max=0.0))
+
+
+def _block_norm_partials(st: dict, F_l: torch.Tensor, sl: slice) -> torch.Tensor:
+    """This rank's six maxima over its feasible block F_l: [simon, nodeaff,
+    taint, ip] and, negated, [simon, ip] (mins ride negated)."""
+    ninf = float("-inf")
+    mx = torch.amax(torch.where(F_l[None, :], st["max_stack"][:, sl], ninf), dim=1)
+    mn = torch.amax(torch.where(F_l[None, :], -st["min_stack"][:, sl], ninf), dim=1)
+    return torch.cat([mx, mn])
+
+
+def _wave_block_front(tb: Tables, cry: Carry, g: int, st: dict, capacity, base_feas, j,
+                      w: ScoreWeights, B: int, mesh):
+    """The front of one sharded iteration on this rank's node block: the
+    block's feasible set, ONE pmax of the stacked normalizers and the
+    block's [NL, B+1] score rows. Returns (norms, table_l, F_l, avail_l)."""
+    from ..parallel.collectives import pmax
 
     sl = _block_of(mesh, j.shape[0])
     j_l = j[sl]
     avail_l = capacity[sl] - j_l
     F_l = base_feas[sl] & (avail_l > 0)
-    ninf = float("-inf")
-    mx = torch.amax(torch.where(F_l[None, :], st["max_stack"][:, sl], ninf), dim=1)
-    mn = torch.amax(torch.where(F_l[None, :], -st["min_stack"][:, sl], ninf), dim=1)
-    red = pmax(torch.cat([mx, mn]), mesh)
-    norms = (red[0], -red[4], torch.clamp(red[1], min=0.0), torch.clamp(red[2], min=0.0),
-             torch.clamp(red[3], min=0.0), torch.clamp(-red[5], max=0.0))
+    norms = _reduced_norms(pmax(_block_norm_partials(st, F_l, sl), mesh))
     st_l = {k: st[k][sl] for k in ("simon_s", "na_raw", "t_raw", "ip_raw", "static")}
     table_l = _wave_score_table_rows(tb.alloc[sl, CPU_I], tb.alloc[sl, MEM_I], cry.nonzero[sl],
                                      tb.grp_nonzero[g], st_l, norms, j_l, w, B)
+    return norms, table_l, F_l, avail_l
+
+
+def _wave_front_sharded(tb: Tables, cry: Carry, g: int, st: dict, capacity, base_feas, j,
+                        w: ScoreWeights, B: int, mesh):
+    """The sharded epoch front of the wave (JAX :1220-1246): the block's
+    front (`_wave_block_front`, one pmax) and ONE tiled all-gather of
+    [table.T; F; min(avail, B+1)]. Returns (norms, table_ext [N, B+1], F,
+    avail) at full width: the same floats as the unsharded front, avail
+    clamped to B+1 (every comparison the selection makes against it has a
+    left side <= B)."""
+    from ..parallel.collectives import all_gather_tiled
+
+    norms, table_l, F_l, avail_l = _wave_block_front(tb, cry, g, st, capacity, base_feas, j,
+                                                     w, B, mesh)
     pay = torch.cat([table_l.T, F_l[None].to(_F32),
                      torch.clamp(avail_l, max=B + 1)[None].to(_F32)], dim=0)
     full = all_gather_tiled(pay, mesh, axis=1)
     return norms, full[:B + 1].T, full[B + 1] > 0, full[B + 2].to(torch.int32)
+
+
+def _first_max(pairs) -> tuple:
+    """The (value, index) pair of the largest value, the lowest index among
+    ties: the first max, as argmax takes it."""
+    return min(pairs, key=lambda p: (-p[0], p[1]))
+
+
+def _wave_round_sharded(tb: Tables, cry: Carry, g: int, st: dict, capacity, base_feas, j,
+                        placed: int, m: int, w: ScoreWeights, B: int, K: int, mesh):
+    """One round of the wave's per-round sharded path (the plain version of
+    K10, csrc/wave_rounds.cu): `_wave_iteration` with every stage on this
+    rank's node block but the merge and j, and four collectives.
+
+    1. the block's front and table (`_wave_block_front`): pmax #1;
+    2. the block's summary: its first two maxima of the hidden-entry bound
+       and its best head, as (value, global index), and its feasible count:
+       all_gather_rows #1;
+    3. the guard from the global pairs, then the block's top
+       c = min(K, m - placed, NL*B) usable entries in pick order (score
+       desc, global flat index n*B+k asc), padded with -inf, with their
+       exhaust flags and the block's guarded count: all_gather_rows #2;
+    4. the merge: the top min(K, m - placed) of the gathered entries, which
+       are the unsharded top (the keys are distinct and every block offers
+       its own top), then the nodes they exhaust on the block and the
+       block's maxima without them: pmax #2;
+    5. the stop at the first exhausting pick, the head fallback from the
+       gathered heads and j += the counts, the same on every rank.
+    Returns what `_wave_iteration` returns."""
+    from ..parallel.collectives import all_gather_rows, pmax
+
+    N = j.shape[0]
+    dev = j.device
+    sl = _block_of(mesh, N)
+    lo, NL = sl.start, sl.stop - sl.start
+    ninf = float("-inf")
+    norms, table_ext, F_l, avail_l = _wave_block_front(tb, cry, g, st, capacity, base_feas, j,
+                                                       w, B, mesh)
+    # ---- the block's summary
+    table, ks, usable, bound = _usable_and_bound(table_ext, avail_l, F_l, B)
+    i1 = int(torch.argmax(bound))
+    bound2 = bound.clone()
+    bound2[i1] = ninf
+    i2 = int(torch.argmax(bound2))
+    heads = torch.where(F_l, table[:, 0], ninf)
+    ih = int(torch.argmax(heads))
+    summary = torch.tensor([[float(bound[i1]), lo + i1, float(bound2[i2]), lo + i2,
+                             float(heads[ih]), lo + ih, int(F_l.sum())]],
+                           dtype=torch.float64, device=dev)
+    rows = all_gather_rows(summary, mesh).tolist()
+    # ---- the guard from the global pairs, the block's top c
+    firsts = [(r[0], r[1]) for r in rows]
+    b1, g1 = _first_max(firsts)
+    win = firsts.index((b1, g1))
+    b2, g2 = _first_max(firsts[:win] + firsts[win + 1:] + [(rows[win][2], rows[win][3])])
+    iota_l = torch.arange(lo, lo + NL, dtype=torch.int32, device=dev)
+    is1 = iota_l == int(g1)
+    cut_s = torch.where(is1, torch.tensor(b2, dtype=_F32, device=dev),
+                        torch.tensor(b1, dtype=_F32, device=dev))
+    cut_i = torch.where(is1, int(g2), int(g1)).to(torch.int32)
+    usable, guarded_l = _guarded(table, usable, iota_l, cut_s, cut_i)
+    m_rem = m - placed
+    c = min(K, m_rem, NL * B)
+    vals_l, pos_l = _top_k(torch.where(usable, table, ninf).reshape(-1), c)
+    exhaust = ((ks == (avail_l[:, None] - 1)) & usable).reshape(-1)
+    cand = torch.stack([vals_l.double(), (pos_l + lo * B).double(),
+                        exhaust[pos_l].double()], dim=1)
+    tail = torch.tensor([[guarded_l, 0.0, 0.0]], dtype=torch.float64, device=dev)
+    got = all_gather_rows(torch.cat([cand, tail]), mesh).view(mesh.shards, c + 1, 3)
+    guarded = int(got[:, c, 0].sum())
+    ent = got[:, :c].reshape(-1, 3)
+    # ---- the merge: (score desc, flat asc) over every rank's entries
+    flat = ent[:, 1].long()
+    o1 = torch.argsort(flat, stable=True)
+    o2 = torch.argsort(ent[o1, 0].to(_F32), descending=True, stable=True)
+    top = o1[o2][:min(K, m_rem)]
+    vals, idx_srt, ex_srt = ent[top, 0].to(_F32), flat[top] // B, ent[top, 2] > 0
+    pos = torch.arange(top.shape[0], dtype=torch.int64, device=dev)
+    n_finite = int(torch.isfinite(vals).sum())
+    m_cand = min(m_rem, n_finite)
+
+    def counts_of(take: int) -> torch.Tensor:
+        return torch.zeros(N, dtype=torch.int32, device=dev).index_add_(
+            0, idx_srt, (pos < take).to(torch.int32))
+
+    leaves_l = counts_of(m_cand)[sl] >= torch.clamp(avail_l, min=1)
+    norms_end = _reduced_norms(pmax(_block_norm_partials(st, F_l & ~leaves_l, sl), mesh))
+    # ---- finish: the same on every rank
+    same = all(bool(a == b) for a, b in zip(norms, norms_end))  # ±inf equal themselves
+    p_ex = int(torch.amin(torch.where(ex_srt & (pos < m_cand), pos, N * B)))
+    m_take = m_cand if same else min(m_cand, p_ex + 1)
+    counts = counts_of(m_take)
+    n_feasible = sum(int(r[6]) for r in rows)
+    head = m_take == 0 and n_feasible > 0 and m_rem > 0
+    if head:
+        counts = torch.zeros(N, dtype=torch.int32, device=dev)
+        counts[int(_first_max([(r[4], r[5]) for r in rows])[1])] = 1
+        m_take = 1
+    return j + counts, placed + m_take, m_take, {"head_fallbacks": int(head), "guarded": guarded}
 
 
 @torch.inference_mode()
@@ -1082,9 +1226,13 @@ def schedule_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
     `mesh`: a node mesh (parallel/mesh.py) whose epoch path applies runs
     each iteration's front on this rank's node block, with one `pmax` and
     one `all_gather_tiled` per iteration (JAX `loop_sharded` :1215-1260),
-    and the selection on the full-width arrays; the result is the same."""
+    and the selection on the full-width arrays; above the epoch limit its
+    per-round path runs every stage on the block but the merge, with two
+    `pmax` and two `all_gather_rows` per iteration (`_wave_round_sharded`).
+    The result is the same."""
     N = tb.alloc.shape[0]
     shards = _epoch_shards(mesh, N)
+    rounds = _round_shards(mesh, N) > 1
     K = kmax if kmax else N * block
     base_feas, _ = feasibility(tb, cry, g, -1, True, filters, enable_gpu=gpu_live)
     st = _wave_statics(tb, cry, g, w)
@@ -1095,16 +1243,20 @@ def schedule_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
     placed, last_w = 0, 1
     stats = dict.fromkeys(WAVE_STATS, 0)
     while last_w > 0 and placed < m:
-        if shards > 1:
-            norms, table_ext, F, avail = _wave_front_sharded(tb, cry, g, st, capacity,
-                                                             base_feas, j, w, block, mesh)
+        if rounds:
+            j, placed, last_w, it = _wave_round_sharded(tb, cry, g, st, capacity, base_feas, j,
+                                                        placed, m, w, block, K, mesh)
         else:
-            avail = capacity - j  # copies left per node
-            F = base_feas & (avail > 0)
-            norms = _wave_norms(st, F)
-            table_ext = _wave_score_table(tb, cry, st, norms, g, j, w, block)
-        j, placed, last_w, it = _wave_iteration(st, norms, table_ext, F, avail, j, placed, m,
-                                                block, K)
+            if shards > 1:
+                norms, table_ext, F, avail = _wave_front_sharded(tb, cry, g, st, capacity,
+                                                                 base_feas, j, w, block, mesh)
+            else:
+                avail = capacity - j  # copies left per node
+                F = base_feas & (avail > 0)
+                norms = _wave_norms(st, F)
+                table_ext = _wave_score_table(tb, cry, st, norms, g, j, w, block)
+            j, placed, last_w, it = _wave_iteration(st, norms, table_ext, F, avail, j, placed,
+                                                    m, block, K)
         stats["iterations"] += 1
         for k, v in it.items():
             stats[k] += v
@@ -2143,6 +2295,78 @@ def schedule_wave_sharded_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: b
     return j, state[0], state[2:5]
 
 
+def schedule_wave_rounds_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
+                                w: ScoreWeights = DEFAULT_WEIGHTS,
+                                filters: FilterFlags = DEFAULT_FILTERS, block: int = WAVE_BLOCK,
+                                kmax: int = 0, gpu_live: bool = False, mesh=None):
+    """Launch K10 (csrc/wave_rounds.cu) on this rank of a node `mesh` whose
+    per-round path applies (N above the epoch limit): setup once on the
+    rank's node block, then per round K8's front and table and K10's
+    summary, select, merge and finish, with two `pmax` and two
+    `all_gather_rows` between them (parallel/collectives.py) and one read of
+    (placed, last). Every rank returns the same (per-node counts [N] i32,
+    placed as a 0-dim i32 tensor, [iterations, head_fallbacks, guarded]
+    i32), on the card; `cry` is only read."""
+    from ..parallel.collectives import all_gather_rows, pmax
+    from . import build
+
+    lib = build.library()
+    dev = tb.alloc.device
+    N = tb.alloc.shape[0]
+    K = kmax if kmax else N * block
+    if N * block >= 2 ** 31 or not 1 <= K <= N * block:
+        raise ValueError(f"wave table {N}x{block} with kmax {K} is out of the kernel's range")
+    if _round_shards(mesh, N) <= 1:
+        raise ValueError(f"the mesh's per-round path does not apply to {N} nodes")
+    R = mesh.shards
+    sl = _block_of(mesh, N)
+    lo, hi, NL = sl.start, sl.stop, sl.stop - sl.start
+    v = _view(tb, cry, 2, w, filters, enable_gpu=gpu_live)
+    vr = ctypes.byref(v)
+    j = torch.empty(N, dtype=torch.int32, device=dev)
+    state = torch.empty(5, dtype=torch.int32, device=dev)
+    fs = torch.empty(int(lib.wave_sharded_scratch_floats(N)), dtype=_F32, device=dev)
+    iscr = torch.empty(int(lib.wave_sharded_scratch_ints(N)), dtype=torch.int32, device=dev)
+    part = torch.empty(6, dtype=_F32, device=dev)
+    part2 = torch.empty(6, dtype=_F32, device=dev)
+    pay = torch.empty((NL, block + 3), dtype=_F32, device=dev)
+    summ = torch.empty((1, 8), dtype=torch.float64, device=dev)
+    cand = torch.empty((min(K, m, NL * block) + 1, 2), dtype=torch.int64, device=dev)
+    ms = torch.empty(int(lib.wave_rounds_merge_state_bytes()) // 8, dtype=torch.int64,
+                     device=dev)
+    fn = schedule_wave_rounds_kernel
+    _sharded_launch(lib.wave_rounds_setup_launch, vr, int(g), int(bool(cap1)), lo, hi, _ptr(j),
+                    _ptr(fs), _ptr(iscr), _ptr(state))
+    fn.launches += 1
+    placed, last = 0, 1
+    while last > 0 and placed < m:
+        c = min(K, m - placed, NL * block)
+        _sharded_launch(lib.wave_sharded_front_launch, vr, int(g), int(block), lo, hi, _ptr(j),
+                        _ptr(fs), _ptr(iscr), _ptr(part))
+        red = pmax(part, mesh)
+        _sharded_launch(lib.wave_sharded_table_launch, vr, int(g), int(block), lo, hi, _ptr(j),
+                        _ptr(fs), _ptr(iscr), _ptr(red), _ptr(pay))
+        _sharded_launch(lib.wave_rounds_summary_launch, vr, int(block), lo, hi, _ptr(fs),
+                        _ptr(iscr), _ptr(pay), _ptr(summ))
+        summ_all = all_gather_rows(summ, mesh)
+        _sharded_launch(lib.wave_rounds_select_launch, vr, int(block), lo, hi, c, R, _ptr(fs),
+                        _ptr(iscr), _ptr(pay), _ptr(summ_all), _ptr(cand))
+        rows = all_gather_rows(cand[:c + 1], mesh)
+        _sharded_launch(lib.wave_rounds_merge_launch, vr, int(g), int(m), int(K), int(block), lo,
+                        hi, c, R, _ptr(fs), _ptr(iscr), _ptr(pay), _ptr(rows), _ptr(state),
+                        _ptr(ms), _ptr(part2))
+        red2 = pmax(part2, mesh)
+        _sharded_launch(lib.wave_rounds_finish_launch, int(m), int(block), c, R, _ptr(j),
+                        _ptr(red), _ptr(red2), _ptr(summ_all), _ptr(rows), _ptr(ms),
+                        _ptr(state))
+        fn.launches += 6
+        placed, last = state[:2].tolist()
+        fn.host_reads += 1
+    if gpu_live:
+        BRANCH_LAUNCHES["schedule_wave_rounds/gpu_live"] += 1
+    return j, state[0], state[2:5]
+
+
 def schedule_affinity_wave_sharded_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
                                           ss_live: bool = False,
                                           w: ScoreWeights = DEFAULT_WEIGHTS,
@@ -2270,7 +2494,8 @@ def schedule_wave(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
                   block: int = WAVE_BLOCK, kmax: int = 0, gpu_live: bool = False, mesh=None):
     """Place up to m pods of wave-eligible group g, exactly as m serial steps
     would (JAX `schedule_wave`): the plain version for CPU tensors, K3 for
-    CUDA tensors (K8 where a node `mesh` takes the sharded epoch path), then
+    CUDA tensors (on a node `mesh`, K8 where it takes the sharded epoch path
+    and K10 where it takes the per-round path above the epoch limit), then
     `aggregate_commit`. Returns (new carry, per-node counts [N] i32,
     placed). The loop's statistics (WAVE_STATS) are added to
     `schedule_wave.stats`, an i32 tensor on the wrapper's device (adding it
@@ -2282,6 +2507,9 @@ def schedule_wave(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
     elif _epoch_shards(mesh, tb.alloc.shape[0]) > 1:
         j, placed, stats = schedule_wave_sharded_kernel(tb, cry, g, m, cap1, w, filters, block,
                                                         kmax, gpu_live, mesh)
+    elif _round_shards(mesh, tb.alloc.shape[0]) > 1:
+        j, placed, stats = schedule_wave_rounds_kernel(tb, cry, g, m, cap1, w, filters, block,
+                                                       kmax, gpu_live, mesh)
     else:
         j, placed, stats = schedule_wave_kernel(tb, cry, g, m, cap1, w, filters, block, kmax,
                                                 gpu_live)
@@ -3045,12 +3273,14 @@ _WRAPPERS = {"schedule_batch": schedule_batch, "feasibility": feasibility_jit,
              "aggregate_commit_lanes": aggregate_commit_lanes,
              "extend_tables": extend_tables_on_device, "explain_jit": explain_jit,
              "schedule_wave_sharded": schedule_wave_sharded_kernel,
-             "schedule_affinity_wave_sharded": schedule_affinity_wave_sharded_kernel}
+             "schedule_affinity_wave_sharded": schedule_affinity_wave_sharded_kernel,
+             "schedule_wave_rounds": schedule_wave_rounds_kernel}
 for _f in _WRAPPERS.values():
     _f.launches = 0
-# the sharded kernels' reads of (placed, last), one per epoch
+# the sharded kernels' reads of (placed, last), one per epoch or round
 schedule_wave_sharded_kernel.host_reads = 0
 schedule_affinity_wave_sharded_kernel.host_reads = 0
+schedule_wave_rounds_kernel.host_reads = 0
 schedule_batch.last_events = None
 schedule_wave.stats = None
 schedule_affinity_wave.stats = None
@@ -3059,7 +3289,8 @@ schedule_affinity_wave.last_stats = None
 # part of the wrappers' own counts)
 BRANCH_LAUNCHES = dict.fromkeys(("feasibility/gpu_storage", "schedule_batch/gpu_storage",
                                  "schedule_wave/gpu_live", "aggregate_commit/gpu_live",
-                                 "schedule_wave_sharded/gpu_live"), 0)
+                                 "schedule_wave_sharded/gpu_live",
+                                 "schedule_wave_rounds/gpu_live"), 0)
 
 
 def reset_launch_counts() -> None:
@@ -3067,6 +3298,7 @@ def reset_launch_counts() -> None:
         f.launches = 0
     schedule_wave_sharded_kernel.host_reads = 0
     schedule_affinity_wave_sharded_kernel.host_reads = 0
+    schedule_wave_rounds_kernel.host_reads = 0
     for k in BRANCH_LAUNCHES:
         BRANCH_LAUNCHES[k] = 0
     schedule_wave.stats = None

@@ -1,7 +1,7 @@
 """The mesh on torch.distributed, its node axis and its scenario axis: see
 mesh.py for the design and distributed.py for joining the ranks."""
 
-from .collectives import gather_lanes
+from .collectives import all_gather_rows, gather_lanes
 from .distributed import choose_backend, make_global_mesh, node_mesh_local
 from .distributed import initialize as initialize_distributed
 from .mesh import (
@@ -17,6 +17,7 @@ from .mesh import (
     make_scenario_mesh,
     pad_batch_tables,
     put_fanout_inputs,
+    round_shards,
     schedule_scenarios_on_mesh,
 )
 
@@ -26,6 +27,7 @@ __all__ = [
     "NodeMesh",
     "ScenarioMesh",
     "ShardedKernels",
+    "all_gather_rows",
     "choose_backend",
     "epoch_shards",
     "fanout_shardings",
@@ -38,5 +40,6 @@ __all__ = [
     "node_mesh_local",
     "pad_batch_tables",
     "put_fanout_inputs",
+    "round_shards",
     "schedule_scenarios_on_mesh",
 ]

@@ -1,7 +1,10 @@
-"""The mesh's collectives: the node axis's two (the `shard_map` collectives
-of the JAX package's epoch paths, `ops/kernels.py` :1230 and :1246, :2012
-and :2047) and the scenario axis's one, the gather of the lanes at a
-fan-out's fetch (what JAX's fetch of a lane-sharded array does).
+"""The mesh's collectives: the node axis's two of the epoch paths (the
+`shard_map` collectives of the JAX package's `ops/kernels.py` :1230 and
+:1246, :2012 and :2047), the gather of per-rank rows of the wave's
+per-round path (`all_gather_rows`, the exchange XLA's per-round GSPMD form
+makes of the selection's candidates), and the scenario axis's one, the
+gather of the lanes at a fan-out's fetch (what JAX's fetch of a
+lane-sharded array does).
 
 This module is the only place in the port that calls a `torch.distributed`
 collective. Each call adds to the mesh's counters (`NodeMesh.counts`: calls
@@ -68,6 +71,14 @@ def all_gather_tiled(t: torch.Tensor, mesh, axis: int = 1) -> torch.Tensor:
     `lax.all_gather(..., axis=axis, tiled=True)`), on every rank."""
     out = _all_gather(t.movedim(axis, 0).contiguous(), mesh, mesh.shards).movedim(0, axis)
     _count(mesh, "all_gather_tiled", out)
+    return out
+
+
+def all_gather_rows(t: torch.Tensor, mesh) -> torch.Tensor:
+    """Every rank's rows of `t` ([rows, ...], the same shape on every rank)
+    concatenated along axis 0 in rank order, on every rank."""
+    out = _all_gather(t.contiguous(), mesh, mesh.shards)
+    _count(mesh, "all_gather_rows", out)
     return out
 
 

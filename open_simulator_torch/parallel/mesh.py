@@ -3,27 +3,46 @@
 
 Node axis. Every rank runs the same `Simulator` on the same input: it
 encodes the same `BatchTables` and holds the whole tables and carry,
-replicated. Only the epoch front of the two wave kernels is sharded: rank r
-computes on nodes [r*NL, (r+1)*NL), NL = N / shards, exactly as the JAX
-`shard_map` in_specs slice them. Each epoch of `schedule_wave` and
-`schedule_affinity_wave` then makes exactly two collectives
-(collectives.py): one `pmax` of a stacked vector that holds every
-normalizer (mins ride negated: -max(-x) == min(x)) and one tiled
-`all_gather` of the payload, the rank's score-table block and the per-node
-rows the selection reads. After the all-gather, the selection tail runs on
-every rank on the full-width arrays, so the per-node counts, `placed`, the
-epoch statistics and K3c's new carry are equal on every rank (JAX's
-out_specs `P()`); no other collective is needed. The serial routes (K2,
-K4, K1, K7) and the commit (K3c) run replicated on every rank.
+replicated. The encoder pads the node axis to a multiple of the shard
+count with phantom nodes, infeasible for every pod. Rank r works on nodes
+[r*NL, (r+1)*NL), NL = N / shards, exactly as the JAX `shard_map` in_specs
+slice them. Two sharded paths, both on a 1-D node mesh of more than one
+shard with N a multiple of the shard count, split at
+OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES (default 2,048, read on every
+call; JAX reads it at import):
 
-The epoch path is taken as JAX takes it (`_mesh_axis_shards`,
-ops/kernels.py `_epoch_shards`): a 1-D node mesh of more than one shard, N
-a multiple of the shard count and N at most
-OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES (default 2,048). Otherwise the
-kernels run unsharded on every rank, which gives the same placements (JAX
-keeps XLA's per-round GSPMD form there; the port has no partitioned layout
-yet: ROADMAP A12b). The encoder pads the node axis to a multiple of the
-shard count with phantom nodes, infeasible for every pod.
+- The epoch path, N at most the limit (`epoch_shards`; JAX
+  `_mesh_axis_shards` and the `shard_map` loops of ops/kernels.py): the
+  epoch front of `schedule_wave` and `schedule_affinity_wave` runs on the
+  rank's block, and each epoch makes exactly two collectives
+  (collectives.py): one `pmax` of a stacked vector that holds every
+  normalizer (mins ride negated: -max(-x) == min(x)) and one tiled
+  `all_gather` of the payload, the rank's score-table block and the
+  per-node rows the selection reads. The selection tail then runs on every
+  rank on the full-width arrays (K8, K9).
+- The per-round path of `schedule_wave`, N above the limit
+  (`round_shards`; JAX keeps XLA's GSPMD form of the plain loop there,
+  :1273): every stage of a round reads the tables and the carry only on
+  the rank's block but the merge, and each round makes exactly four
+  collectives: `pmax` #1 of the six normalizer maxima; `all_gather_rows`
+  #1 of each block's summary (its first two maxima of the hidden-entry
+  bound and its best head, as (value, global node), and its feasible
+  count); `all_gather_rows` #2 of each block's top c = min(K, m - placed,
+  NL*B) guarded entries (key, exhaust flag) and its guarded count, from
+  which every rank merges the same global top; `pmax` #2 of the six
+  maxima over the nodes that top leaves feasible. Exact: the maxima are
+  order-free, ties break on global node and flat indices, and the top of
+  the union of the blocks' tops is the unsharded top (csrc/wave_rounds.cu
+  K10, ops/kernels.py `_wave_round_sharded`). Its cost per round: four
+  collectives and one host read of (placed, last), and the block's radix
+  select and the merge's over shards*c keys, one block each.
+  `schedule_affinity_wave` has no per-round form in the port yet (ROADMAP
+  B13b (b)): above the limit it runs unsharded on every rank, which gives
+  the same placements.
+
+In either path the per-node counts, `placed`, the statistics and K3c's new
+carry are equal on every rank (JAX's out_specs `P()`). The serial routes
+(K2, K4, K1, K7) and the commit (K3c) run replicated on every rank.
 
 Scenario axis. `make_scenario_mesh(n)` is JAX's pure-scenario mesh
 ('scenarios' = n, 'nodes' = 1) over the n ranks of the process group, and
@@ -42,9 +61,10 @@ which every rank holds the same [S, ...] result, as JAX's fetch of a
 lane-sharded array gives it. The callers pad S to a multiple of k as JAX's
 do (the probe session repeats its last candidate, the image its lane 0).
 
-Not ported (ROADMAP A12b): the partitioned table layout
+Not ported (ROADMAP B13b (b) and (c)): `schedule_affinity_wave`'s
+per-round form above the limit, and the partitioned table layout
 (`table_shardings`, `carry_shardings`, `to_device_sharded`,
-`carry_reshard_bytes`) and the per-round GSPMD forms above the limit.
+`carry_reshard_bytes`), with which each rank would store only its block.
 """
 
 from __future__ import annotations
@@ -73,7 +93,8 @@ EPOCH_MAX_NODES = 2048  # the default of OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES
 pad_batch_tables = _pad_batch_tables
 
 def _zero_counts() -> dict:
-    return {"pmax": {"calls": 0, "bytes": 0}, "all_gather_tiled": {"calls": 0, "bytes": 0}}
+    return {name: {"calls": 0, "bytes": 0}
+            for name in ("pmax", "all_gather_tiled", "all_gather_rows")}
 
 
 @dataclasses.dataclass
@@ -153,6 +174,16 @@ def epoch_shards(mesh, N: int) -> int:
     kernels run unsharded (JAX :1213 and :1977)."""
     ax, shards = _mesh_axis_shards(mesh)
     if ax is not None and shards > 1 and N % shards == 0 and N <= epoch_max_nodes():
+        return shards
+    return 1
+
+
+def round_shards(mesh, N: int) -> int:
+    """The shard count of the wave's per-round path for an N-node table:
+    a 1-D node mesh of more than one shard, N a multiple of the shard count
+    and N above the epoch limit (JAX's GSPMD branch, :1273). Otherwise 1."""
+    ax, shards = _mesh_axis_shards(mesh)
+    if ax is not None and shards > 1 and N % shards == 0 and N > epoch_max_nodes():
         return shards
     return 1
 

@@ -59,7 +59,9 @@ On a node mesh (`use_mesh`, parallel/mesh.py) every rank runs this engine
 on the same input with the tables and carry replicated; the encoder pads
 the node axis to a multiple of the shard count, and the "wave" and
 "affinity" routes pass the mesh to their kernels, whose epoch fronts run on
-the rank's node block with two collectives per epoch (K8, K9 on the card).
+the rank's node block with two collectives per epoch (K8, K9 on the card);
+above the epoch limit the wave's rounds run on the block with four
+collectives per round (K10).
 """
 
 from __future__ import annotations

@@ -590,6 +590,30 @@ def test_sharded_kernels_match_plain_sharded_on_two_ranks(tmp_path):
         assert r["same_plain"] and r["same_unsharded"], r
 
 
+@pytest.mark.cuda
+def test_round_kernel_matches_plain_rounds_on_two_ranks(tmp_path):
+    """K10 on two ranks that share cuda:0 over gloo against its plain
+    per-round version on the same ranks and the unsharded K3, bit for bit
+    (counts, placed, WAVE_STATS), on every run of the seeded per-round cases
+    (tests/torch_mesh_cases.py `round_segments`, the epoch limit at 16),
+    with two pmax and two all_gather_rows per round."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import torch_mesh_cases as C
+    from open_simulator_torch.ops import build
+    from open_simulator_torch.parallel.launch import run_ranks
+
+    build.library()  # build once, before the ranks load it
+    got = run_ranks(C.card_round_kernels, 2, str(tmp_path), device="cuda", backend="gloo")
+    assert got[0] == got[1]
+    for r in got[0]:
+        assert r["same_plain"] and r["same_unsharded"], r
+        rounds = r["stats"][0]
+        assert r["calls"] == {"pmax": 2 * rounds, "all_gather_tiled": 0,
+                              "all_gather_rows": 2 * rounds}, r
+    assert sum(r["stats"][1] for r in got[0]) > 0 and sum(r["stats"][2] for r in got[0]) > 0
+
+
 LANE_FANOUTS = ("probe_serial_fanout", "probe_wave_fanout", "probe_group_serial_fanout",
                 "probe_affinity_wave_fanout", "serve_whatif_fanout", "serve_wave_fanout",
                 "sweep_wave_fanout", "sweep_whatif_fanout")

@@ -12,9 +12,14 @@ every case of tests/torch_mesh_cases.py on every rank. Held here:
 - the plain sharded kernels equal the unsharded ones bit for bit (counts,
   placed, statistics) on seeded tables whose upper shards' blocks are all
   infeasible;
-- the route's rules: an N the shard count does not divide, and an N above
-  OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES, make no collective call and
-  place the same pods;
+- above OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES the wave's per-round path
+  (K10's plain version) places the N = 2,560 workload as the JAX Simulator
+  (whose GSPMD per-round form runs there) and as the unsharded port, with
+  two `pmax` and two `all_gather_rows` per round, and equals the unsharded
+  plain version bit for bit on seeded tables with the limit lowered;
+- the route's rules: an N the shard count does not divide makes no
+  collective call, and above the limit only the wave segments make the
+  rounds' collectives; both place the same pods;
 - every rank returns the same results, and a failing rank fails the run.
 """
 
@@ -26,7 +31,8 @@ import torch
 import torch_mesh_cases as C
 from open_simulator_torch.parallel import (NODE_AXIS, SCENARIO_AXIS, ShardedKernels,
                                            choose_backend, epoch_shards, initialize_distributed,
-                                           make_global_mesh, make_node_mesh, make_scenario_mesh)
+                                           make_global_mesh, make_node_mesh, make_scenario_mesh,
+                                           round_shards)
 from open_simulator_torch.parallel.launch import run_ranks
 from open_simulator_torch.simulator.engine import Simulator as TorchSimulator
 from open_simulator_tpu.parallel.mesh import make_node_mesh as jax_node_mesh
@@ -48,11 +54,12 @@ def unsharded():
     """The port's unsharded engine run of every workload."""
     out = {name: C.run_engine(*make()) for name, make in C.WORKLOADS.items()}
     out["seeded"] = C.run_engine(*C.seeded_workload())
+    out["rounds"] = C.run_engine(*C.rounds_workload())
     return out
 
 
 def _jax_run(name: str, shards: int) -> dict:
-    nodes, pods = C.WORKLOADS[name]()
+    nodes, pods = C.WORKLOADS[name]() if name in C.WORKLOADS else C.rounds_workload()
     sim = JaxSimulator(copy.deepcopy(nodes), use_mesh=True)
     sim._mesh = jax_node_mesh(shards)  # pin the shard count, as test_mesh_sharding.py does
     return C.placements(sim, sim.schedule_pods(copy.deepcopy(pods)))
@@ -88,7 +95,7 @@ def test_one_pmax_and_one_gather_per_epoch(ranks, unsharded, shards):
         got = ranks[shards][0][name]
         epochs = got["wave"]["iterations"] + got["affinity"]["epochs"]
         calls = {k: v["calls"] for k, v in got["counts"].items()}
-        assert calls == {"pmax": epochs, "all_gather_tiled": epochs}, name
+        assert calls == {"pmax": epochs, "all_gather_tiled": epochs, "all_gather_rows": 0}, name
         assert got["affinity"] == unsharded[name]["affinity"], name
         assert got["wave"] == unsharded[name]["wave"], name
     mixed = ranks[shards][0]["mixed"]
@@ -115,21 +122,74 @@ def test_plain_sharded_kernels_equal_unsharded(ranks, shards):
         epochs = plain["stats"].get("iterations", plain["stats"].get("epochs"))
         assert epochs > 0
         assert {k: v["calls"] for k, v in sharded["counts"].items()} == {
-            "pmax": epochs, "all_gather_tiled": epochs}
+            "pmax": epochs, "all_gather_tiled": epochs, "all_gather_rows": 0}
     assert {("wave", False), ("affinity", False), ("affinity", True)} <= kinds
+
+
+def _round_calls(rounds: int) -> dict:
+    """The per-round path's collective calls for `rounds` rounds: two pmax
+    (the normalizers, then those without the exhausted nodes) and two
+    all_gather_rows (the block summaries, then the candidates)."""
+    return {"pmax": 2 * rounds, "all_gather_tiled": 0, "all_gather_rows": 2 * rounds}
 
 
 @pytest.mark.parametrize("shards", SHARDS)
 def test_route_rules_make_no_collective(ranks, unsharded, shards):
+    """An N the shard count does not divide makes no collective call; above
+    the epoch limit the wave segments take the per-round path and the
+    affinity segments (whose per-round form is not ported) none."""
     rules = ranks[shards][0]["rules"]
     ind = rules["indivisible"]
     assert ind["N"] % shards and ind["kind"] == "affinity" and ind["same"]
-    assert ind["calls"] == {"pmax": 0, "all_gather_tiled": 0}
+    assert ind["calls"] == {"pmax": 0, "all_gather_tiled": 0, "all_gather_rows": 0}
     above = rules["above_limit"]
     assert above["shards"] == shards
-    assert {k: v["calls"] for k, v in above["counts"].items()} == {"pmax": 0,
-                                                                    "all_gather_tiled": 0}
+    rounds = above["wave"]["iterations"]
+    assert rounds > 0 and above["affinity"]["epochs"] > 0
+    assert {k: v["calls"] for k, v in above["counts"].items()} == _round_calls(rounds)
     assert above["placed"] == unsharded["mixed"]["placed"]
+    assert above["wave"] == unsharded["mixed"]["wave"]
+    assert above["affinity"] == unsharded["mixed"]["affinity"]
+
+
+@pytest.mark.parametrize("shards", SHARDS)
+def test_rounds_path_places_as_the_jax_mesh(ranks, unsharded, shards):
+    """N = 2,560 > the default epoch limit: the port's per-round path on
+    `shards` ranks places every pod as the JAX Simulator on
+    make_node_mesh(shards) and as the unsharded port, in several rounds."""
+    got = ranks[shards][0]["rounds"]
+    want = _jax_run("rounds", shards)
+    assert got["shards"] == shards and set(got["census"]) == {"wave"}
+    assert got["placed"] == want["placed"] and got["failed"] == want["failed"]
+    assert got["placed"] == unsharded["rounds"]["placed"]
+    assert got["failed"] == unsharded["rounds"]["failed"] == []
+    assert got["wave"] == unsharded["rounds"]["wave"]
+    rounds = got["wave"]["iterations"]
+    assert rounds > got["census"]["wave"][0]  # some segment took two rounds or more
+    assert {k: v["calls"] for k, v in got["counts"].items()} == _round_calls(rounds)
+
+
+@pytest.mark.parametrize("shards", SHARDS)
+def test_plain_round_kernels_equal_unsharded(ranks, shards):
+    """The plain per-round sharded wave against the unsharded plain version,
+    bit for bit (counts, placed, WAVE_STATS), on every wave segment of the
+    three seeded clusters of `round_segments` (limit 16), with the rounds'
+    collectives; together the runs reach every branch of the round."""
+    recs = ranks[shards][0]["round_kernels"]
+    for r in recs:
+        assert r["same"], r
+        assert r["calls"] == _round_calls(r["stats"]["iterations"]), r
+    # a round that takes less than what is left, with entries the guard deferred
+    assert any(r["stats"]["iterations"] > 1 and r["stats"]["guarded"] > 0 for r in recs)
+    assert sum(r["stats"]["head_fallbacks"] for r in recs) > 0
+    assert any(0 < r["kmax"] < r["m"] for r in recs)  # kmax below m
+    # equal scores on both sides of a rank cut (the seeded cluster's upper
+    # blocks hold no feasible node)
+    assert all(r["ties"] for r in recs if r["cluster"] != "seeded")
+    assert any(r["gpu_live"] for r in recs)  # EXT
+    assert any(not r["fit"] for r in recs)
+    # N 64 with nodes 32-63 cordoned: whole rank blocks are infeasible
+    assert {r["N"] for r in recs if r["cluster"] == "seeded"} == {64}
 
 
 def _raise_on_rank_one(mesh):
@@ -179,6 +239,21 @@ def test_epoch_path_limits(monkeypatch):
     assert epoch_shards(mesh, 4096) == 4
     monkeypatch.setenv("OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES", "16")
     assert epoch_shards(mesh, 32) == 1
+
+
+def test_round_path_limits(monkeypatch):
+    """round_shards is epoch_shards' complement above the limit: a 1-D node
+    mesh of more than one shard and N a multiple of it, N > the limit."""
+    mesh = make_node_mesh(device="cpu")
+    assert round_shards(mesh, 4096) == 1 and round_shards(None, 4096) == 1
+    mesh.shards = 4  # the rule alone, without ranks
+    assert round_shards(mesh, 32) == 1
+    assert round_shards(mesh, 2048) == 1 and epoch_shards(mesh, 2048) == 4
+    assert round_shards(mesh, 2560) == 4 and epoch_shards(mesh, 2560) == 1
+    assert round_shards(mesh, 2562) == 1
+    monkeypatch.setenv("OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES", "16")
+    assert round_shards(mesh, 32) == 4 and epoch_shards(mesh, 32) == 1
+    assert round_shards(make_scenario_mesh(device="cpu"), 32) == 1
 
 
 def test_simulator_mesh_choice(monkeypatch):

@@ -6,7 +6,11 @@ The node axis, on each rank: K8 and K9 against their plain sharded versions
 and the unsharded K3 / K5 on the seeded workload of
 tests/torch_mesh_cases.py, and the engine on the mesh against the
 unsharded engine on the JAX mesh tests' workloads, with one pmax and one
-all-gather per epoch. The scenario axis, on a scenario mesh of one group
+all-gather per epoch; then the wave's per-round path above the epoch
+limit: K10 against its plain per-round version and K3 on the seeded
+per-round cases (the limit at 16), and the engine on the N = 2,560
+`rounds_workload` (the default limit) against the unsharded engine, with
+two pmax and two all_gather_rows per round. The scenario axis, on a scenario mesh of one group
 per rank (tests/torch_scenario_cases.py): each lane kernel's block of
 lanes against a full launch, and the probe sessions, the what-if
 responses and the example sweeps' reports (parity off) on the mesh against
@@ -73,6 +77,13 @@ def rank_fn(mesh) -> dict:
         out[name] = {"same": got["placed"] == want["placed"] and got["failed"] == want["failed"],
                      "calls": {k: v["calls"] for k, v in got["counts"].items()},
                      "epochs": got["wave"]["iterations"] + got["affinity"]["epochs"]}
+    out["round_kernels"] = C.card_round_kernels(mesh)
+    nodes, pods = C.rounds_workload()
+    got = C.run_engine(nodes, pods, mesh=mesh, device="cuda")
+    want = C.run_engine(nodes, pods, mesh=None, device="cuda")
+    out["rounds"] = {"same": got["placed"] == want["placed"] and got["failed"] == want["failed"],
+                     "calls": {k: v["calls"] for k, v in got["counts"].items()},
+                     "rounds": got["wave"]["iterations"]}
     out["scenario"] = scenario_cases()
     return out
 
@@ -96,8 +107,17 @@ def main() -> int:
     ok = all(r["backend"] == "nccl" and r["transport"] == "direct" for r in res)
     ok &= all(k["same_plain"] and k["same_unsharded"] for r in res for k in r["kernels"])
     ok &= all(r[n]["same"] and r[n]["epochs"] > 0
-              and r[n]["calls"] == {"pmax": r[n]["epochs"], "all_gather_tiled": r[n]["epochs"]}
+              and r[n]["calls"] == {"pmax": r[n]["epochs"], "all_gather_tiled": r[n]["epochs"],
+                                    "all_gather_rows": 0}
               for r in res for n in C.WORKLOADS)
+    ok &= all(k["same_plain"] and k["same_unsharded"]
+              and k["calls"] == {"pmax": 2 * k["stats"][0], "all_gather_tiled": 0,
+                                 "all_gather_rows": 2 * k["stats"][0]}
+              for r in res for k in r["round_kernels"])
+    ok &= all(r["rounds"]["same"] and r["rounds"]["rounds"] > 0
+              and r["rounds"]["calls"] == {"pmax": 2 * r["rounds"]["rounds"], "all_gather_tiled": 0,
+                                           "all_gather_rows": 2 * r["rounds"]["rounds"]}
+              for r in res)
     ok &= all(all(r["scenario"].values()) for r in res)
     print("mesh on", ranks, "cards:", "ok" if ok else "FAILED")
     return 0 if ok else 1
