@@ -57,25 +57,30 @@ goldens the JAX package computed (tests/golden/torch_port_*.json):
   recording-on and -off walls and the encode and host-commit seconds the
   metric catalog measured.
 - the node mesh (`parallel/`): first the port's unsharded run of bench.py's
-  `mesh8_1m` cluster (100,000 nodes, 1,000,000 pods) on the card; then two
-  ranks spawned after the build share cuda:0 over gloo (NCCL refuses two
-  ranks on one card; the collectives stage CUDA tensors through pinned host
-  memory) and run `extended` (N 2,048 at the default epoch limit: K8 with
-  the GPU-share branch), `affinity` (N 5,120,
-  OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES=8192: K9), `northstar` (N
+  `mesh8_1m` cluster (100,000 nodes, 1,000,000 pods, in one chunk as
+  bench.py's store form streams it: OPEN_SIMULATOR_STREAM_PODS=2097152) on
+  the card; then two ranks spawned after the build share cuda:0 over gloo
+  (NCCL refuses two ranks on one card; the collectives stage CUDA tensors
+  through pinned host memory) and run `extended` (N 2,048 at the default
+  epoch limit: K8 with the GPU-share branch), `affinity` (N 5,120,
+  OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES=8192: K9), `affinity` again at
+  the default limit (the affinity wave's sharded tail, K11), `northstar` (N
   10,240 at the default limit: the wave's per-round path, K10) and
-  `mesh8_1m` (K10) through `Simulator(use_mesh=True)` against their
-  goldens on both ranks (`mesh8_1m` against the unsharded run's choices):
-  one `pmax` and one all-gather per epoch on K8 / K9, two `pmax` and two
-  `all_gather_rows` per round on K10, which must launch where K3 does not.
+  `mesh8_1m` (K10, one chunk) through `Simulator(use_mesh=True)` against
+  their goldens on both ranks (`mesh8_1m` against the unsharded run's
+  choices): one `pmax` and one all-gather per epoch on K8 / K9, two `pmax`
+  and two `all_gather_rows` per round on K10, two to four collectives per
+  epoch by branch on K11, which must launch where K3, K5 and K9 do not.
   Then K8 and K9 against their plain sharded versions (on the card, on the
   same ranks) and the unsharded K3 / K5 on one segment each (K8's on
-  northstar with the limit at 16,384), and K10 against its plain per-round
-  version and K3 on northstar's first wave, with `torch.topk` of the
-  block's scores at K10's select width beside it. The phase prints the
-  epochs or rounds, the collective calls and bytes, the staged bytes, the
-  host reads, the sharded kernels' per-stage times and each rank's wall;
-  a rank that fails fails the phase.
+  northstar with the limit at 16,384), K10 against its plain per-round
+  version and K3 on northstar's first wave, and K11 against its plain
+  version and K5 on the affinity cluster's hostname spread and zone
+  spread, with `torch.topk` of the block's scores at K10's and K11's select
+  widths beside them. The phase prints the epochs or rounds, the branches,
+  the collective calls and bytes, the staged bytes, the host reads, the
+  sharded kernels' per-stage times and each rank's wall; a rank that fails
+  fails the phase.
 - the scenario mesh (`parallel/`, the probe, serve and sweep fan-outs on a
   'scenarios' axis): two ranks spawned after the build share cuda:0 over
   gloo, each a scenario group that stages and runs its block of every
@@ -1354,13 +1359,19 @@ def xray_path(kind: str, nodes, pods, wall_off: float, card: str, storage_classe
 # ---- the node mesh: two ranks that share the card ----------------------------
 
 EPOCH_LIMIT = "OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES"
-# (kind, the epoch path's node limit: None keeps the default 2,048, the
-# wave's path: "epoch" (K8) or "rounds" (K10, above the limit)). Each run
-# equals its golden but mesh8_1m (bench.py's 100,000-node row), which has
-# none: it equals the port's unsharded run of the same cluster on the card.
-MESH_RUNS = (("extended", None, "epoch"), ("affinity", 8192, "epoch"),
-             ("northstar", None, "rounds"), ("mesh8_1m", None, "rounds"))
+# (label, cluster kind, the epoch path's node limit: None keeps the default
+# 2,048, the path: "epoch" (K8, K9) or "rounds" (above the limit: K10 for
+# the wave, K11 for the affinity wave)). Each run equals its kind's golden
+# but mesh8_1m (bench.py's 100,000-node row), which has none: it equals the
+# port's unsharded run of the same cluster on the card.
+MESH_RUNS = (("extended", "extended", None, "epoch"), ("affinity", "affinity", 8192, "epoch"),
+             ("affinity_tail", "affinity", None, "rounds"),
+             ("northstar", "northstar", None, "rounds"), ("mesh8_1m", "mesh8_1m", None, "rounds"))
 MESH_SHARDS = 2
+# bench.py runs mesh8_1m in store form, which the JAX engine streams in one
+# chunk of 2,097,152 pods (JAX engine.py:1216-1224); an explicit
+# OPEN_SIMULATOR_STREAM_PODS cuts the port's dict batch the same way
+STREAM_PODS_1M = "2097152"
 # the epoch limit under which K8's own northstar case runs (N 10,240)
 K8_NORTHSTAR_LIMIT = 16384
 
@@ -1406,6 +1417,17 @@ def k10_cost(tb, cry, g: int, block: int, shards: int, c: int) -> tuple:
     (16 bytes each); the radix passes are integer work and not counted."""
     b, ops = k8_cost(tb, cry, g, block, shards)
     return b + 16 * (c + 1) * (1 + shards), ops
+
+
+def k11_cost(tb, cry, g: int, block: int, stats: dict, shards: int, c: int) -> tuple:
+    """(bytes, f32 operations) of one K11 epoch on one rank's block: the
+    block's [NL, B+1] table written once, the [c + 1] candidate rows written
+    and the shards * (c + 1) gathered rows read (16 bytes each); K5's f32
+    operations per epoch over NL nodes (k9_cost), the radix passes and the
+    rounds' integer work not counted."""
+    NL = int(tb.alloc.shape[0]) // shards
+    _, ops = k9_cost(tb, cry, g, block, stats, shards)
+    return 4 * NL * (block + 1) + 16 * (c + 1) * (1 + shards), ops
 
 
 def stage_ms(events: dict) -> dict:
@@ -1483,6 +1505,90 @@ def mesh_rounds_case(mesh, nodes, pods) -> dict:
                 max_abs_err=err_of(kj, pj))
 
 
+def tail_verdicts(mesh) -> dict:
+    """The sharded tail's epochs by branch and its sandwich rejections, as
+    both K11 and its plain version count them (`NodeMesh.tail_branches`)."""
+    return {k: v for k, v in mesh.tail_branches.items()
+            if k in ("head", "select", "sandwich", "rejected")}
+
+
+def mesh_tail_case(mesh, label: str, nodes, pods, services, pick) -> dict:
+    """K11 against its plain sharded-tail version on the card (bit for bit:
+    counts, placed, AFFINITY_STATS, and the same branches) and against the
+    unsharded K5, on one affinity segment of the cluster from the seed
+    carry, on this rank of `mesh` at the default epoch limit; then K11 timed
+    per stage by CUDA events and per call by the host clock, and torch.topk
+    of the block's flat first-epoch scores at k = c beside it."""
+    import torch
+
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.simulator.engine import Simulator
+
+    sim = Simulator(nodes, device="cuda", use_mesh=False)
+    sim.register_cluster_objects(ResourceTypes(services=list(services)))
+    bt = sim.encode_batch(pods)
+    tb, seed = sim._to_device(bt)
+    _, _, m, g, cap1, ss_live = pick(sim._segments(bt, len(pods)))[:6]
+    N = int(tb.alloc.shape[0])
+    block = K.wave_block_for(m, sim.na.N)
+    kw = dict(ss_live=bool(ss_live), block=block, n_zones=bt.n_zones if ss_live else 2)
+    kernel = lambda: K.schedule_affinity_wave_rounds_kernel(tb, seed, g, m, cap1, mesh=mesh, **kw)  # noqa: E731
+    plain = lambda: K.schedule_affinity_wave_plain(tb, seed, g, m, cap1, mesh=mesh, **kw)  # noqa: E731
+    mesh.reset_counts()
+    (kj, kp, kst), _ = timed(kernel)
+    branches = tail_verdicts(mesh)
+    plain()  # warm-up: the rank's first calls of some PyTorch ops load their kernels
+    mesh.reset_counts()
+    (pj, pp, pst), plain_ms = timed(plain)
+    plain_branches = tail_verdicts(mesh)
+    uj, up, ust = K.schedule_affinity_wave_kernel(tb, seed, g, m, cap1, **kw)
+    if not torch.equal(kj, pj) or int(kp) != pp or kst.tolist() != [pst[k] for k in K.AFFINITY_STATS]:
+        fail(f"mesh {label}: K11 differs from its plain version ({int((kj != pj).sum())} nodes, "
+             f"placed {int(kp)} vs {pp}, {kst.tolist()} vs {pst})")
+    if branches != plain_branches:
+        fail(f"mesh {label}: K11's branches {branches} differ from the plain version's "
+             f"{plain_branches}")
+    if not torch.equal(kj, uj) or int(kp) != int(up) or kst.tolist() != ust.tolist():
+        fail(f"mesh {label}: K11 differs from the unsharded K5")
+    epochs = int(kst[0])
+    reps = 3
+    mesh.reset_counts()
+    K.schedule_affinity_wave_rounds_kernel.host_reads = 0
+    events = K.SHARDED_STAGE_EVENTS = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        kernel()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / (reps * epochs)
+    K.SHARDED_STAGE_EVENTS = None
+    stages = stage_ms(events)
+    NL = N // mesh.shards
+    c = min(N * block, K.K_EP_MAX, NL * block)
+    # the library's yardstick: the k = c largest of the block's flat scores
+    feas, _ = K.feasibility(tb, seed, g, -1, True)
+    st = K._wave_statics(tb, seed, g)
+    table = K._wave_score_table(tb, seed, st, K._wave_norms(st, feas), g,
+                                torch.zeros(N, dtype=torch.int32, device=tb.alloc.device),
+                                block=block)
+    flat = table[mesh.rank * NL:(mesh.rank + 1) * NL, :block].reshape(-1).contiguous()
+    topk_ms = cuda_ms(lambda: torch.topk(flat, c), 10)
+    b, ops = k11_cost(tb, seed, g, block, pst, mesh.shards, c)
+    bound, by = bound_of(b, ops)
+    coll = {k: {"calls": v["calls"] // reps, "bytes": v["bytes"] // reps}
+            for k, v in mesh.counts.items()}
+    return dict(label=label, nodes=N, pods=m, domains=int(seed.counter.shape[1]),
+                ss_live=bool(ss_live), block=block, c=c, placed=pp, epochs=epochs, stats=pst,
+                branches=branches, kernel_ms_per_epoch=sum(stages.values()) / (reps * epochs),
+                stage_ms_per_epoch={k: v / (reps * epochs) for k, v in stages.items()},
+                wall_ms_per_epoch=wall_ms, plain_ms_per_epoch=plain_ms / epochs, topk_ms=topk_ms,
+                bound_ms=bound, bound_by=by, bytes=b, f32_ops=ops, collectives=coll,
+                staged_bytes=mesh.staged_bytes // reps,
+                host_reads=K.schedule_affinity_wave_rounds_kernel.host_reads // reps,
+                max_abs_err=err_of(kj, pj))
+
+
 def mesh_kernel_case(mesh, label: str, kind: str, nodes, pods, services, scs, pick) -> dict:
     """K8 or K9 (`kind` "wave" or "affinity") against its plain sharded
     version on the card and the unsharded K3 / K5, on one segment of the
@@ -1553,10 +1659,10 @@ def mesh_kernel_case(mesh, label: str, kind: str, nodes, pods, services, scs, pi
 def mesh_rank(mesh, card: str, want_1m: str) -> dict:
     """One rank of the mesh phase: each MESH_RUNS cluster through
     `Simulator(use_mesh=True).schedule_pods` against its golden, or for
-    mesh8_1m against the unsharded run's choices digest `want_1m` (every
-    launch count and collective counter set to 0 just before it, the
-    sharded kernels' stages timed by CUDA events), then K8, K9 or K10
-    against its plain version on one segment of it."""
+    mesh8_1m (one chunk, as bench.py cuts it) against the unsharded run's
+    choices digest `want_1m` (every launch count and collective counter set
+    to 0 just before it, the sharded kernels' stages timed by CUDA events),
+    then K8, K9, K10 or K11 against its plain version on segments of it."""
     import torch
 
     from open_simulator_torch.core.types import ResourceTypes
@@ -1565,16 +1671,17 @@ def mesh_rank(mesh, card: str, want_1m: str) -> dict:
 
     out = {"rank": mesh.rank, "backend": mesh.backend, "transport": mesh.transport,
            "runs": {}, "cases": {}, "launches": Counter()}
-    for kind, limit, path in MESH_RUNS:
+    for label, kind, limit, path in MESH_RUNS:
         os.environ.pop(EPOCH_LIMIT, None)
         if limit is not None:
             os.environ[EPOCH_LIMIT] = str(limit)
-        nodes, pods, services, scs = mesh_cluster(kind)
-        sim = Simulator(nodes, device="cuda", use_mesh=True)
+        with stream_pods(STREAM_PODS_1M if kind == "mesh8_1m" else None):
+            nodes, pods, services, scs = mesh_cluster(kind)
+            sim = Simulator(nodes, device="cuda", use_mesh=True)
         sim.register_cluster_objects(ResourceTypes(services=list(services),
                                                    storage_classes=list(scs)))
         if sim._resolve_mesh().shards != mesh.shards:
-            fail(f"mesh {kind}: the simulator's mesh has {sim._mesh.shards} shards")
+            fail(f"mesh {label}: the simulator's mesh has {sim._mesh.shards} shards")
         sim._mesh = mesh  # this rank's mesh, whose collective counters are read below
         K.reset_launch_counts()
         mesh.reset_counts()
@@ -1590,40 +1697,54 @@ def mesh_rank(mesh, card: str, want_1m: str) -> dict:
         got = summarize(sim, pods, failed)
         if kind == "mesh8_1m":
             if got["choices_sha256"] != want_1m:
-                fail(f"mesh {kind}: the choices differ from the unsharded run's")
+                fail(f"mesh {label}: the choices differ from the unsharded run's")
         else:
             check_golden(kind, got)
         calls = {k: v["calls"] for k, v in mesh.counts.items()}
+        branches = dict(mesh.tail_branches)
         if path == "epoch":
             epochs = stats["iterations"] + aff["epochs"]
             if epochs <= 0 or calls != {"pmax": epochs, "all_gather_tiled": epochs,
                                         "all_gather_rows": 0}:
-                fail(f"mesh {kind}: {calls} collective calls for {epochs} epochs")
+                fail(f"mesh {label}: {calls} collective calls for {epochs} epochs")
         else:
-            rounds = stats["iterations"]
-            want = {"pmax": 2 * rounds, "all_gather_tiled": 0, "all_gather_rows": 2 * rounds}
-            if rounds <= 0 or aff["epochs"] or calls != want:
-                fail(f"mesh {kind}: {calls} collective calls for {rounds} rounds")
-            if counts["schedule_wave_rounds"] <= 0 or counts["schedule_wave"]:
-                fail(f"mesh {kind}: K10 launched {counts['schedule_wave_rounds']} times, "
+            # above the limit: two pmax and two all_gather_rows per wave
+            # round (K10); two all_gather_rows per affinity epoch, a third
+            # after use_multi_pre and a pmax after rounds that took pods (K11)
+            rounds, head, sel, sand = (stats["iterations"], branches.get("head", 0),
+                                       branches.get("select", 0), branches.get("sandwich", 0))
+            want = {"pmax": 2 * rounds + sand, "all_gather_tiled": 0,
+                    "all_gather_rows": 2 * rounds + 2 * head + 3 * (sel + sand)}
+            if rounds + aff["epochs"] <= 0 or head + sel + sand != aff["epochs"] or calls != want:
+                fail(f"mesh {label}: {calls} collective calls for {rounds} rounds and the "
+                     f"tail branches {branches}")
+            if (counts["schedule_wave_rounds"] > 0) != (rounds > 0) or counts["schedule_wave"]:
+                fail(f"mesh {label}: K10 launched {counts['schedule_wave_rounds']} times, "
                      f"K3 {counts['schedule_wave']}")
+            if ((counts["schedule_affinity_wave_rounds"] > 0) != (aff["epochs"] > 0)
+                    or counts["schedule_affinity_wave"] or counts["schedule_affinity_wave_sharded"]):
+                fail(f"mesh {label}: K11 launched {counts['schedule_affinity_wave_rounds']} times, "
+                     f"K5 {counts['schedule_affinity_wave']}, "
+                     f"K9 {counts['schedule_affinity_wave_sharded']}")
         out["launches"].update(counts)
         stages = stage_ms(events)
-        out["runs"][kind] = dict(
+        out["runs"][label] = dict(
             nodes=len(nodes), pods=len(pods), padded=int(sim._last_carry.requested.shape[0]),
-            epoch_limit=limit or 2048, wave_path=path, placed=got["placed"],
+            epoch_limit=limit or 2048, path=path, chunk=sim._stream_chunk, placed=got["placed"],
             unscheduled=got["unscheduled"], choices_sha256=got["choices_sha256"], seconds=wall,
             pods_per_s=len(pods) / wall, wave_stats=stats, affinity_stats=aff,
-            rounds=stats["iterations"] if path == "rounds" else 0,
+            rounds=stats["iterations"] if path == "rounds" else 0, tail_branches=branches,
             collectives=copy.deepcopy(mesh.counts), staged_bytes=mesh.staged_bytes,
             host_reads=(K.schedule_wave_sharded_kernel.host_reads
                         + K.schedule_affinity_wave_sharded_kernel.host_reads
-                        + K.schedule_wave_rounds_kernel.host_reads),
+                        + K.schedule_wave_rounds_kernel.host_reads
+                        + K.schedule_affinity_wave_rounds_kernel.host_reads),
             stage_ms=stages, kernel_ms=sum(stages.values()),
             launches={k: counts[k] for k in ("schedule_wave_sharded",
                                              "schedule_affinity_wave_sharded",
                                              "schedule_wave_sharded/gpu_live",
-                                             "schedule_wave_rounds", "schedule_wave",
+                                             "schedule_wave_rounds",
+                                             "schedule_affinity_wave_rounds", "schedule_wave",
                                              "schedule_affinity_wave", "aggregate_commit")},
             census={k: list(v) for k, v in sorted(sim.segment_census.items())})
         del sim, nodes, pods, failed
@@ -1632,14 +1753,21 @@ def mesh_rank(mesh, card: str, want_1m: str) -> dict:
         if kind == "mesh8_1m":
             continue
         nodes, pods, services, scs = mesh_cluster(kind)
-        if kind == "extended":
+        if label == "extended":
             out["cases"]["schedule_wave_sharded/gpu_live"] = mesh_kernel_case(
                 mesh, "extended_1gpu", "wave", nodes, pods, services, scs,
                 lambda segs: next(s for s in segs if s[0] == "wave" and s[5]))
-        elif kind == "affinity":
+        elif label == "affinity":
             out["cases"]["schedule_affinity_wave_sharded"] = mesh_kernel_case(
                 mesh, "affinity_hostname_spread", "affinity", nodes, pods, services, scs,
                 lambda segs: segs[1])
+        elif label == "affinity_tail":
+            # the cluster's hostname spread (the second block of each cycle)
+            # and its zone spread (the fourth), at the default limit
+            out["cases"]["schedule_affinity_wave_rounds"] = mesh_tail_case(
+                mesh, "affinity_hostname_spread", nodes, pods, services, lambda segs: segs[1])
+            out["cases"]["schedule_affinity_wave_rounds/zone_spread"] = mesh_tail_case(
+                mesh, "affinity_zone_spread", nodes, pods, services, lambda segs: segs[3])
         else:
             out["cases"]["schedule_wave_rounds"] = mesh_rounds_case(mesh, nodes, pods)
             os.environ[EPOCH_LIMIT] = str(K8_NORTHSTAR_LIMIT)
@@ -1650,9 +1778,28 @@ def mesh_rank(mesh, card: str, want_1m: str) -> dict:
     return out
 
 
+class stream_pods:
+    """OPEN_SIMULATOR_STREAM_PODS set to `value` (None: unset) inside the
+    block, for the Simulators built there; restored after it."""
+
+    def __init__(self, value) -> None:
+        self.value = value
+
+    def __enter__(self):
+        self.prev = os.environ.pop("OPEN_SIMULATOR_STREAM_PODS", None)
+        if self.value is not None:
+            os.environ["OPEN_SIMULATOR_STREAM_PODS"] = self.value
+
+    def __exit__(self, *exc) -> None:
+        os.environ.pop("OPEN_SIMULATOR_STREAM_PODS", None)
+        if self.prev is not None:
+            os.environ["OPEN_SIMULATOR_STREAM_PODS"] = self.prev
+
+
 def unsharded_1m(card: str) -> str:
     """The port's unsharded run of the mesh8_1m cluster on the card (one
-    process, no mesh): emits its wall and returns its choices digest."""
+    process, no mesh, one chunk as bench.py cuts it): emits its wall and
+    returns its choices digest."""
     import torch
 
     from open_simulator_torch.ops import kernels as K
@@ -1660,7 +1807,8 @@ def unsharded_1m(card: str) -> str:
 
     nodes, pods, _, _ = mesh_cluster("mesh8_1m")
     K.reset_launch_counts()
-    sim = Simulator(nodes, device="cuda", use_mesh=False)
+    with stream_pods(STREAM_PODS_1M):
+        sim = Simulator(nodes, device="cuda", use_mesh=False)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     failed = sim.schedule_pods(pods)
@@ -1668,8 +1816,9 @@ def unsharded_1m(card: str) -> str:
     wall = time.perf_counter() - t0
     got = summarize(sim, pods, failed)
     stats = K.wave_stats()
-    emit("mesh8_1m_unsharded", nodes=len(nodes), pods=len(pods), placed=got["placed"],
-         unscheduled=got["unscheduled"], choices_sha256=got["choices_sha256"], seconds=wall,
+    emit("mesh8_1m_unsharded", nodes=len(nodes), pods=len(pods), chunk=sim._stream_chunk,
+         placed=got["placed"], unscheduled=got["unscheduled"],
+         choices_sha256=got["choices_sha256"], seconds=wall,
          pods_per_s=len(pods) / wall, wave_stats=stats,
          census={k: list(v) for k, v in sorted(sim.segment_census.items())}, card=card)
     return got["choices_sha256"]
@@ -1700,19 +1849,27 @@ def mesh_phase(card: str) -> tuple:
     wall = time.perf_counter() - t0
     r0 = ranks[0]
     for r in ranks[1:]:
-        for kind in r0["runs"]:
-            if r["runs"][kind]["choices_sha256"] != r0["runs"][kind]["choices_sha256"]:
-                fail(f"mesh {kind}: rank {r['rank']} placed differently from rank 0")
-    for kind, run in r0["runs"].items():
-        emit("mesh", kind=kind, shards=MESH_SHARDS, backend=r0["backend"],
+        for label in r0["runs"]:
+            if r["runs"][label]["choices_sha256"] != r0["runs"][label]["choices_sha256"]:
+                fail(f"mesh {label}: rank {r['rank']} placed differently from rank 0")
+    for label, run in r0["runs"].items():
+        emit("mesh", label=label, shards=MESH_SHARDS, backend=r0["backend"],
              transport=r0["transport"], **run,
-             golden="match" if kind != "mesh8_1m" else "unsharded run's choices",
-             walls_per_rank=[r["runs"][kind]["seconds"] for r in ranks],
-             kernel_ms_per_rank=[r["runs"][kind]["kernel_ms"] for r in ranks], card=card)
+             golden="match" if label != "mesh8_1m" else "unsharded run's choices",
+             walls_per_rank=[r["runs"][label]["seconds"] for r in ranks],
+             kernel_ms_per_rank=[r["runs"][label]["kernel_ms"] for r in ranks], card=card)
     rows = {}
     for name, case in r0["cases"].items():
         emit("mesh_kernel", name=name, shards=MESH_SHARDS, transport=r0["transport"], **case,
              card=card)
+        if name == "schedule_affinity_wave_rounds":  # the kernels line reports the hostname spread
+            rows[name] = dict(source=SRC + "affinity_rounds.cu", replaces=JAX_KERNELS + ":2095",
+                              max_abs_err=case["max_abs_err"], ms=case["kernel_ms_per_epoch"],
+                              plain_ms=case["plain_ms_per_epoch"], bound_ms=case["bound_ms"],
+                              bound_by=case["bound_by"], library_ms=case["topk_ms"])
+            continue
+        if name.startswith("schedule_affinity_wave_rounds/"):
+            continue
         if name == "schedule_wave_rounds":
             rows[name] = dict(source=SRC + "wave_rounds.cu", replaces=JAX_KERNELS + ":1273",
                               max_abs_err=case["max_abs_err"], ms=case["kernel_ms_per_round"],

@@ -424,7 +424,7 @@ class Applier:
         c = self.cfg.spec.cluster
         if c.kube_config:
             raise NotImplementedError(
-                "a live cluster through kubeConfig is not ported yet (ROADMAP A10)")
+                "a live cluster through kubeConfig is not ported yet (ROADMAP A10b)")
         return load_cluster_from_directory(c.custom_cluster)
 
     def _load_apps(self) -> List[AppResource]:

@@ -24,9 +24,11 @@ from typing import List, Optional
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [os.path.join(_HERE, "csrc", f)
            for f in ("schedule.cu", "wave.cu", "group_serial.cu", "affinity_wave.cu", "extend.cu",
-                     "explain.cu", "wave_sharded.cu", "affinity_sharded.cu", "wave_rounds.cu")]
+                     "explain.cu", "wave_sharded.cu", "affinity_sharded.cu", "wave_rounds.cu",
+                     "affinity_rounds.cu")]
 HEADERS = [os.path.join(_HERE, "csrc", f)
-           for f in ("common.cuh", "select.cuh", "wave.cuh", "affinity.cuh", "wave_sharded.cuh")]
+           for f in ("common.cuh", "select.cuh", "wave.cuh", "affinity.cuh", "wave_sharded.cuh",
+                     "affinity_sharded.cuh", "merge.cuh")]
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
@@ -207,6 +209,19 @@ def _load(path: str) -> ctypes.CDLL:
     lib.wave_rounds_finish_launch.argtypes = [I] * 4 + [P] * 8
     for stage in ("setup", "summary", "select", "merge", "finish"):
         getattr(lib, f"wave_rounds_{stage}_launch").restype = I
+    # K11, the affinity wave's sharded tail: K9's setup, front and table,
+    # then flags, reduce, summary, select, merge, sandwich and finish
+    lib.affinity_rounds_state_ints.argtypes = []
+    lib.affinity_rounds_state_ints.restype = I
+    lib.affinity_rounds_flags_launch.argtypes = [V] + [I] * 5 + [P] * 3 + [I, P]
+    lib.affinity_rounds_reduce_launch.argtypes = [V] + [I] * 5 + [P] * 6
+    lib.affinity_rounds_summary_launch.argtypes = [V] + [I] * 5 + [P] * 8
+    lib.affinity_rounds_select_launch.argtypes = [V] + [I] * 6 + [P] * 5
+    lib.affinity_rounds_merge_launch.argtypes = [V] + [I] * 5 + [P] * 5
+    lib.affinity_rounds_sandwich_launch.argtypes = [V] + [I] * 4 + [P] * 5
+    lib.affinity_rounds_finish_launch.argtypes = [V] + [I] * 5 + [P] * 8
+    for stage in ("flags", "reduce", "summary", "select", "merge", "sandwich", "finish"):
+        getattr(lib, f"affinity_rounds_{stage}_launch").restype = I
     lib.ext_args_size.argtypes = []
     lib.ext_args_size.restype = ctypes.c_int
     lib.extend_tables_launch.argtypes = [ctypes.POINTER(ExtArgs), ctypes.c_longlong, P]

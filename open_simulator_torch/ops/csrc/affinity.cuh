@@ -239,6 +239,265 @@ struct AvailGathered {
   __device__ __forceinline__ int avail(int n) const { return avail_s[n]; }
 };
 
+// A position's budget domain in the rounds: its node's dom_live (K5 and K9,
+// whose candidates come from the full-width table) or the domain the entry
+// carried through the gather (K11's merged list).
+struct DomLive {
+  const int* dom_live;
+  __device__ __forceinline__ int operator()(int, int node) const { return dom_live[node]; }
+};
+
+// The rounds of one epoch (JAX round_body :1808, four to a condition check
+// as round_chain :1905) over the candidate order in s_key[0, L): n_cand
+// distinct keys sorted descending, 0 after them, position p's budget domain
+// dom_of(p, node). Leaves each node's takes in e.counts (all N cleared
+// first) and each domain's sandwich bit in e.everb: JAX ORs
+// blocked_d[dom_live] into a per-node mask, and dom_live is fixed within the
+// epoch, so a node's bit is its domain's. Adds the productive rounds to
+// `rounds`; returns the pods taken, at most m_rem. Block-uniform.
+template <class DomOf>
+static __device__ __forceinline__ int
+affinity_rounds(const Ctx& c, const AffScratch& e, const AffShared& sh, const AffDims& dm,
+                int m_rem, int n_cand, int L, bool has_budget, bool dns_live, float inc_live,
+                const DomOf& dom_of, int& rounds) {
+  const int N = dm.N, D1 = dm.D1, D = dm.D, B = dm.B, INF_P = dm.INF_P;
+  const int tid = threadIdx.x, bd = blockDim.x;
+  float* rows = e.rows;
+  float* cl = e.cl;
+  float* taken = e.taken;
+  const int* edom_live = e.edom_live;
+  int* counts = e.counts;
+  int* first_pos = e.first_pos;
+  int* consumed = e.consumed;
+  int* everb = e.everb;
+  float* s_red = sh.red;
+  int* s_int = sh.ints;
+  u64* s_key = sh.key;
+  int* s_occ = sh.occ;
+  int* s_prise = sh.prise;
+  int* s_prov = sh.prov;
+  int* s_hist = sh.lhist;
+  int& s_L = *sh.L;
+  int& s_PL = *sh.PL;
+  int got = 0;
+  // each thread owns positions 2*tid and 2*tid+1
+  int node[2], dom[2];
+  bool cand[2];
+  float occ[2];
+  for (int q = 0; q < 2; ++q) {
+    const int p = 2 * tid + q;
+    cand[q] = p < n_cand;
+    node[q] = 0;
+    dom[q] = 0;
+    if (cand[q]) {
+      const u32 flat = 0xffffffffu - (u32)(s_key[p] & 0xffffffffull);
+      node[q] = (int)(flat / (u32)B);
+      dom[q] = dom_of(p, node[q]);
+    }
+  }
+  __syncthreads();
+  // rank among the same domain's candidates: sort the unique
+  // (domain, position) pairs, then a max-scan of the run starts
+  u32* s_comp = reinterpret_cast<u32*>(s_key);
+  for (int q = 0; q < 2; ++q) {
+    const int p = 2 * tid + q;
+    if (p < L) s_comp[p] = cand[q] ? ((u32)dom[q] << POS_BITS) | (u32)p : 0xffffffffu;
+  }
+  bitonic_sort<u32, false>(s_comp, L);
+  int rs[2];
+  for (int q = 0; q < 2; ++q) {
+    const int i = 2 * tid + q;
+    rs[q] = (i > 0 && i < n_cand && (s_comp[i] >> POS_BITS) == (s_comp[i - 1] >> POS_BITS))
+                ? 0 : i;
+  }
+  block_scan2<true>(rs[0], rs[1], s_int);
+  for (int q = 0; q < 2; ++q) {
+    const int i = 2 * tid + q;
+    if (i < n_cand) s_occ[s_comp[i] & ((1u << POS_BITS) - 1)] = i - rs[q];
+  }
+  // the epoch's round state: live counts, consumption, blocks
+  for (int d = tid; d < D1; d += bd) {
+    float acc = 0.0f;
+    for (int k = SK_DNS; k <= SK_CAR; ++k) {
+      if (k == SK_AFF) continue;
+      for (int s = 0; s < c.n[k]; ++s)
+        if (c.slot[k][s].live) acc = acc + rows[(size_t)(c.off[k] + s) * D1 + d];
+    }
+    cl[d] = acc;
+    taken[d] = 0.0f;
+    first_pos[d] = INF_P;
+    consumed[d] = 0;
+    everb[d] = 0;
+  }
+  for (int n = tid; n < N; n += bd) counts[n] = 0;
+  __syncthreads();
+  for (int q = 0; q < 2; ++q) occ[q] = cand[q] ? (float)s_occ[2 * tid + q] : 0.0f;
+
+  // ---- the rounds, in chains of four (JAX round_chain): the condition
+  // is read once per chain
+  int last_r = 1;
+  while (last_r > 0 && got < m_rem) {
+    for (int chain = 0; chain < 4; ++chain) {
+      const int m_left = m_rem - got;
+      float mn = INFINITY;
+      for (int d = tid; d < D1; d += bd)
+        if (edom_live[d]) mn = fminf(mn, cl[d] + taken[d] * inc_live);
+      mn = block_min(mn, s_red);
+      const float min_c = isfinite(mn) ? mn : 0.0f;
+      // levels still needed per eligible domain; per-position budgets
+      for (int d = tid; d < D1; d += bd) {
+        if (!edom_live[d]) continue;
+        const float delta = cl[d] + taken[d] * inc_live - min_c;
+        atomicAdd(&s_hist[(int)fminf(fmaxf(delta, 0.0f), (float)(LMAX + 1))], 1);
+      }
+      bool rem[2], cons[2];
+      float l_e[2];
+      for (int q = 0; q < 2; ++q) {
+        const int p = 2 * tid + q;
+        rem[q] = cons[q] = false;
+        l_e[q] = 1.0f;
+        if (!cand[q]) continue;
+        const int d = dom[q];
+        const float cnow = cl[d] + taken[d] * inc_live;
+        const float qe = budget_q(c, cnow, min_c, d, D);
+        const float r_e = occ[q] - taken[d];
+        rem[q] = r_e >= 0.0f;
+        cons[q] = rem[q] && r_e < qe;
+        l_e[q] = fmaxf(1.0f, r_e - qe + 2.0f);
+        const float lc = cnow + r_e + 1.0f - min_c;
+        if (rem[q] && edom_live[d] && lc >= 1.0f && lc <= (float)LMAX) {
+          const int li = (int)fminf(fmaxf(lc, 0.0f), (float)(LMAX + 1));
+          atomicMax(&s_prise[li], p);
+          atomicAdd(&s_prov[li], 1);
+        }
+        if (cons[q]) atomicMin(&first_pos[d], p);
+      }
+      __syncthreads();
+      // the multi-level take: the longest run of levels whose every
+      // needed domain provided its rise-completing entry
+      if (tid == 0) {
+        int needed = s_hist[0], L_used = 0, prise = s_prise[0];
+        for (int l = 1; l <= LMAX; ++l) {
+          if (s_prov[l] != needed) break;
+          needed += s_hist[l];
+          prise = max(prise, s_prise[l]);
+          L_used = l;
+        }
+        s_L = L_used;
+        s_PL = prise;
+      }
+      __syncthreads();
+      const int L_used = s_L, P_L = s_PL;
+      bool tf[2];
+      float rv[4] = {0.0f, -1.0f, 0.0f, 0.0f};  // n_full, rise, unreached, any at min
+      for (int q = 0; q < 2; ++q) {
+        tf[q] = rem[q] && l_e[q] <= (float)L_used && 2 * tid + q <= P_L;
+        rv[0] += tf[q] ? 1.0f : 0.0f;
+      }
+      if (dns_live) {
+        for (int d = tid; d < D1; d += bd) {
+          if (!edom_live[d] || cl[d] + taken[d] * inc_live != min_c) continue;
+          rv[3] = 1.0f;
+          if (first_pos[d] >= INF_P) rv[2] = 1.0f;
+          else rv[1] = fmaxf(rv[1], (float)first_pos[d]);
+        }
+      }
+      {
+        const int op4[4] = {OP_SUM, OP_MAX, OP_MAX, OP_MAX};
+        block_reduce<4>(rv, op4, s_red);
+      }
+      const int n_full = (int)rv[0];
+      const bool use_full = dns_live && L_used >= 1 && n_full <= m_left && n_full > 0;
+      const int p_rise = (rv[3] > 0.0f && rv[2] == 0.0f) ? (int)rv[1] : INF_P;
+      // the single-rise take, cut at m_left in position order
+      int r0 = cons[0] && 2 * tid <= p_rise, r1 = cons[1] && 2 * tid + 1 <= p_rise;
+      const int tp0 = r0, tp1 = r1;
+      const int total = block_scan2<false>(r0, r1, s_int);
+      const bool take[2] = {use_full ? tf[0] : (tp0 && r0 <= m_left),
+                            use_full ? tf[1] : (tp1 && r1 <= m_left)};
+      const int n_take = use_full ? n_full : min(m_left, total);
+      for (int q = 0; q < 2; ++q) {
+        if (!take[q]) continue;
+        atomicAdd(&counts[node[q]], 1);
+        atomicAdd(&consumed[dom[q]], 1);
+      }
+      __syncthreads();
+      // the sandwich's bookkeeping, and the round's consumption
+      for (int d = tid; d < D1; d += bd) {
+        const float qd = budget_q(c, cl[d] + taken[d] * inc_live, min_c, d, D);
+        const float cd = (float)consumed[d];
+        const bool blocked = qd < 1.0f || (cd >= qd && isfinite(qd))
+                             || (use_full && (edom_live[d] || cd > 0.0f));
+        if (blocked && has_budget) everb[d] = 1;
+        if (d < D) taken[d] = taken[d] + cd;
+        consumed[d] = 0;
+        first_pos[d] = INF_P;
+      }
+      if (tid < LMAX + 2) {
+        s_prise[tid] = -1;
+        s_prov[tid] = 0;
+        s_hist[tid] = 0;
+      }
+      __syncthreads();
+      got += n_take;
+      last_r = n_take;
+      rounds += n_take > 0;
+    }
+  }
+  return got;
+}
+
+// The sandwich's lower set on nodes [lo, hi) (JAX :1921): the maxima of
+// simon, nodeaff, taint, ip and pernode and the minima of simon and ip
+// (K5's w7 order) over F_hi without the nodes of an ever-blocked domain and
+// those the takes exhaust. Block-uniform; every thread gets w7.
+template <class Avail>
+static __device__ __forceinline__ void
+affinity_lower_set(const TablesView& t, const AffScratch& e, const Avail& av, const AffDims& dm,
+                   int lo, int hi, bool has_budget, float (&w7)[7], float* s_red) {
+  const size_t gN = dm.gN;
+  for (int i = 0; i < 7; ++i) w7[i] = i < 5 ? -INFINITY : INFINITY;
+  for (int n = lo + threadIdx.x; n < hi; n += blockDim.x) {
+    if (!(e.flags[n] & AF_HI) || (has_budget && e.everb[e.dom_live[n]])
+        || e.counts[n] >= av.avail(n))
+      continue;
+    w7[0] = fmaxf(w7[0], e.simon_s[n]);
+    w7[1] = fmaxf(w7[1], t.nodeaff_raw[gN + n]);
+    w7[2] = fmaxf(w7[2], t.taint_raw[gN + n]);
+    w7[3] = fmaxf(w7[3], e.ip_raw[n]);
+    w7[4] = fmaxf(w7[4], e.pn0[n]);
+    w7[5] = fminf(w7[5], e.simon_s[n]);
+    w7[6] = fminf(w7[6], e.ip_raw[n]);
+  }
+  const int op7[7] = {OP_MAX, OP_MAX, OP_MAX, OP_MAX, OP_MAX, OP_MIN, OP_MIN};
+  block_reduce<7>(w7, op7, s_red);
+}
+
+// Fold the epoch's takes into j and every live row (the sentinel column
+// never counts, as in commit()): each node's counts when use_multi, else
+// one pod on `head` (none where head < 0); then clear the zone sums.
+// Block-uniform.
+static __device__ __forceinline__ void affinity_fold(const TablesView& t, const Ctx& c,
+                                                     const AffScratch& e, const AffDims& dm,
+                                                     bool use_multi, int head, int* j) {
+  const int D1 = dm.D1, D = dm.D;
+  for (int n = threadIdx.x; n < dm.N; n += blockDim.x) {
+    const int cn = use_multi ? e.counts[n] : (n == head ? 1 : 0);
+    if (cn == 0) continue;
+    j[n] += cn;
+    for (int k = 0; k < N_KINDS; ++k) {
+      for (int s = 0; s < c.n[k]; ++s) {
+        const Slot& x = c.slot[k][s];
+        if (x.inc == 0.0f) continue;
+        const int dom = slot_dom(t, k, x.id, n);
+        if (dom < D) atomicAdd(&e.rows[(size_t)(c.off[k] + s) * D1 + dom], (float)cn * x.inc);
+      }
+    }
+  }
+  for (int z = threadIdx.x; z < dm.Z; z += blockDim.x) e.zone_sums[z] = 0.0f;
+  __syncthreads();
+}
+
 // The epoch tail shared by K5 (affinity_wave.cu) and K9's tail
 // (affinity_sharded.cu), on the full-width table (row n at table + n * (B+1))
 // with each F_hi node's usable prefix and first hidden entry (bound; this
@@ -256,39 +515,20 @@ affinity_epoch_tail(const TablesView& t, const Ctx& c, const AffScratch& e, cons
                     bool use_multi_pre, bool uniform_base, bool any_start, bool has_budget,
                     bool dns_live, float inc_live, const float* v, float b1, int i1, int* j,
                     int& heads, int& rounds_total) {
-  const int N = dm.N, D1 = dm.D1, D = dm.D, tid = threadIdx.x, bd = blockDim.x;
-  const int B = dm.B, B1 = dm.B1, Z = dm.Z, K_EP = dm.K_EP, INF_P = dm.INF_P;
-  const size_t gN = dm.gN;
+  const int N = dm.N, tid = threadIdx.x, bd = blockDim.x;
+  const int B = dm.B, B1 = dm.B1, K_EP = dm.K_EP;
   float* table = e.table;
-  float* ip_raw = e.ip_raw;
-  float* pn0 = e.pn0;
-  float* rows = e.rows;
-  float* cl = e.cl;
-  float* taken = e.taken;
   float* bound_s = e.bound;
-  float* zone_sums = e.zone_sums;
-  const float* simon_s = e.simon_s;
   const int* dom_live = e.dom_live;
-  const int* edom_live = e.edom_live;
   const int* flags = e.flags;
   int* u_s = e.u;
-  int* counts = e.counts;
-  int* first_pos = e.first_pos;
-  int* consumed = e.consumed;
-  int* everb = e.everb;
   float* s_red = sh.red;
   int* s_int = sh.ints;
   u64* s_key = sh.key;
-  int* s_occ = sh.occ;
   int* hist = sh.hist;
-  int* s_prise = sh.prise;
-  int* s_prov = sh.prov;
-  int* s_hist = sh.lhist;
   u64& s_prefix = *sh.prefix;
   int& s_rem = *sh.rem;
   int& s_cnt = *sh.cnt;
-  int& s_L = *sh.L;
-  int& s_PL = *sh.PL;
 
   if (tid < 1) s_cnt = 0;
   int got = 0, rounds = 0;
@@ -329,191 +569,15 @@ affinity_epoch_tail(const TablesView& t, const Ctx& c, const AffScratch& e, cons
     for (int i = n_cand + tid; i < L; i += bd) s_key[i] = 0ull;
     bitonic_sort<u64, true>(s_key, L);
 
-    // each thread owns positions 2*tid and 2*tid+1
-    int node[2], dom[2];
-    bool cand[2];
-    float occ[2];
-    for (int q = 0; q < 2; ++q) {
-      const int p = 2 * tid + q;
-      cand[q] = p < n_cand;
-      node[q] = 0;
-      dom[q] = 0;
-      if (cand[q]) {
-        const u32 flat = 0xffffffffu - (u32)(s_key[p] & 0xffffffffull);
-        node[q] = (int)(flat / (u32)B);
-        dom[q] = dom_live[node[q]];
-      }
-    }
-    __syncthreads();
-    // rank among the same domain's candidates: sort the unique
-    // (domain, position) pairs, then a max-scan of the run starts
-    u32* s_comp = reinterpret_cast<u32*>(s_key);
-    for (int q = 0; q < 2; ++q) {
-      const int p = 2 * tid + q;
-      if (p < L) s_comp[p] = cand[q] ? ((u32)dom[q] << POS_BITS) | (u32)p : 0xffffffffu;
-    }
-    bitonic_sort<u32, false>(s_comp, L);
-    int rs[2];
-    for (int q = 0; q < 2; ++q) {
-      const int i = 2 * tid + q;
-      rs[q] = (i > 0 && i < n_cand && (s_comp[i] >> POS_BITS) == (s_comp[i - 1] >> POS_BITS))
-                  ? 0 : i;
-    }
-    block_scan2<true>(rs[0], rs[1], s_int);
-    for (int q = 0; q < 2; ++q) {
-      const int i = 2 * tid + q;
-      if (i < n_cand) s_occ[s_comp[i] & ((1u << POS_BITS) - 1)] = i - rs[q];
-    }
-    // the epoch's round state: live counts, consumption, blocks
-    for (int d = tid; d < D1; d += bd) {
-      float acc = 0.0f;
-      for (int k = SK_DNS; k <= SK_CAR; ++k) {
-        if (k == SK_AFF) continue;
-        for (int s = 0; s < c.n[k]; ++s)
-          if (c.slot[k][s].live) acc = acc + rows[(size_t)(c.off[k] + s) * D1 + d];
-      }
-      cl[d] = acc;
-      taken[d] = 0.0f;
-      first_pos[d] = INF_P;
-      consumed[d] = 0;
-      everb[d] = 0;
-    }
-    for (int n = tid; n < N; n += bd) counts[n] = 0;
-    __syncthreads();
-    for (int q = 0; q < 2; ++q) occ[q] = cand[q] ? (float)s_occ[2 * tid + q] : 0.0f;
-
-    // ---- the rounds, in chains of four (JAX round_chain): the condition
-    // is read once per chain
-    const int m_rem = m - placed;
-    int last_r = 1;
-    while (last_r > 0 && got < m_rem) {
-      for (int chain = 0; chain < 4; ++chain) {
-        const int m_left = m_rem - got;
-        float mn = INFINITY;
-        for (int d = tid; d < D1; d += bd)
-          if (edom_live[d]) mn = fminf(mn, cl[d] + taken[d] * inc_live);
-        mn = block_min(mn, s_red);
-        const float min_c = isfinite(mn) ? mn : 0.0f;
-        // levels still needed per eligible domain; per-position budgets
-        for (int d = tid; d < D1; d += bd) {
-          if (!edom_live[d]) continue;
-          const float delta = cl[d] + taken[d] * inc_live - min_c;
-          atomicAdd(&s_hist[(int)fminf(fmaxf(delta, 0.0f), (float)(LMAX + 1))], 1);
-        }
-        bool rem[2], cons[2];
-        float l_e[2];
-        for (int q = 0; q < 2; ++q) {
-          const int p = 2 * tid + q;
-          rem[q] = cons[q] = false;
-          l_e[q] = 1.0f;
-          if (!cand[q]) continue;
-          const int d = dom[q];
-          const float cnow = cl[d] + taken[d] * inc_live;
-          const float qe = budget_q(c, cnow, min_c, d, D);
-          const float r_e = occ[q] - taken[d];
-          rem[q] = r_e >= 0.0f;
-          cons[q] = rem[q] && r_e < qe;
-          l_e[q] = fmaxf(1.0f, r_e - qe + 2.0f);
-          const float lc = cnow + r_e + 1.0f - min_c;
-          if (rem[q] && edom_live[d] && lc >= 1.0f && lc <= (float)LMAX) {
-            const int li = (int)fminf(fmaxf(lc, 0.0f), (float)(LMAX + 1));
-            atomicMax(&s_prise[li], p);
-            atomicAdd(&s_prov[li], 1);
-          }
-          if (cons[q]) atomicMin(&first_pos[d], p);
-        }
-        __syncthreads();
-        // the multi-level take: the longest run of levels whose every
-        // needed domain provided its rise-completing entry
-        if (tid == 0) {
-          int needed = s_hist[0], L_used = 0, prise = s_prise[0];
-          for (int l = 1; l <= LMAX; ++l) {
-            if (s_prov[l] != needed) break;
-            needed += s_hist[l];
-            prise = max(prise, s_prise[l]);
-            L_used = l;
-          }
-          s_L = L_used;
-          s_PL = prise;
-        }
-        __syncthreads();
-        const int L_used = s_L, P_L = s_PL;
-        bool tf[2];
-        float rv[4] = {0.0f, -1.0f, 0.0f, 0.0f};  // n_full, rise, unreached, any at min
-        for (int q = 0; q < 2; ++q) {
-          tf[q] = rem[q] && l_e[q] <= (float)L_used && 2 * tid + q <= P_L;
-          rv[0] += tf[q] ? 1.0f : 0.0f;
-        }
-        if (dns_live) {
-          for (int d = tid; d < D1; d += bd) {
-            if (!edom_live[d] || cl[d] + taken[d] * inc_live != min_c) continue;
-            rv[3] = 1.0f;
-            if (first_pos[d] >= INF_P) rv[2] = 1.0f;
-            else rv[1] = fmaxf(rv[1], (float)first_pos[d]);
-          }
-        }
-        {
-          const int op4[4] = {OP_SUM, OP_MAX, OP_MAX, OP_MAX};
-          block_reduce<4>(rv, op4, s_red);
-        }
-        const int n_full = (int)rv[0];
-        const bool use_full = dns_live && L_used >= 1 && n_full <= m_left && n_full > 0;
-        const int p_rise = (rv[3] > 0.0f && rv[2] == 0.0f) ? (int)rv[1] : INF_P;
-        // the single-rise take, cut at m_left in position order
-        int r0 = cons[0] && 2 * tid <= p_rise, r1 = cons[1] && 2 * tid + 1 <= p_rise;
-        const int tp0 = r0, tp1 = r1;
-        const int total = block_scan2<false>(r0, r1, s_int);
-        const bool take[2] = {use_full ? tf[0] : (tp0 && r0 <= m_left),
-                              use_full ? tf[1] : (tp1 && r1 <= m_left)};
-        const int n_take = use_full ? n_full : min(m_left, total);
-        for (int q = 0; q < 2; ++q) {
-          if (!take[q]) continue;
-          atomicAdd(&counts[node[q]], 1);
-          atomicAdd(&consumed[dom[q]], 1);
-        }
-        __syncthreads();
-        // the sandwich's bookkeeping, and the round's consumption
-        for (int d = tid; d < D1; d += bd) {
-          const float qd = budget_q(c, cl[d] + taken[d] * inc_live, min_c, d, D);
-          const float cd = (float)consumed[d];
-          const bool blocked = qd < 1.0f || (cd >= qd && isfinite(qd))
-                               || (use_full && (edom_live[d] || cd > 0.0f));
-          if (blocked && has_budget) everb[d] = 1;
-          if (d < D) taken[d] = taken[d] + cd;
-          consumed[d] = 0;
-          first_pos[d] = INF_P;
-        }
-        if (tid < LMAX + 2) {
-          s_prise[tid] = -1;
-          s_prov[tid] = 0;
-          s_hist[tid] = 0;
-        }
-        __syncthreads();
-        got += n_take;
-        last_r = n_take;
-        rounds += n_take > 0;
-      }
-    }
+    got = affinity_rounds(c, e, sh, dm, m - placed, n_cand, L, has_budget, dns_live, inc_live,
+                          DomLive{dom_live}, rounds);
   }
 
   // ---- the normalizer sandwich: S_lo <= every F_t <= F_hi
   bool use_multi = false;
   if (use_multi_pre && got > 0) {
-    float w7[7] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY, -INFINITY, INFINITY, INFINITY};
-    for (int n = tid; n < N; n += bd) {
-      if (!(flags[n] & AF_HI) || (has_budget && everb[dom_live[n]])
-          || counts[n] >= av.avail(n))
-        continue;
-      w7[0] = fmaxf(w7[0], simon_s[n]);
-      w7[1] = fmaxf(w7[1], t.nodeaff_raw[gN + n]);
-      w7[2] = fmaxf(w7[2], t.taint_raw[gN + n]);
-      w7[3] = fmaxf(w7[3], ip_raw[n]);
-      w7[4] = fmaxf(w7[4], pn0[n]);
-      w7[5] = fminf(w7[5], simon_s[n]);
-      w7[6] = fminf(w7[6], ip_raw[n]);
-    }
-    const int op7[7] = {OP_MAX, OP_MAX, OP_MAX, OP_MAX, OP_MAX, OP_MIN, OP_MIN};
-    block_reduce<7>(w7, op7, s_red);
+    float w7[7];
+    affinity_lower_set(t, e, av, dm, 0, N, has_budget, w7, s_red);
     bool lo_ok = uniform_base || (v[7] == w7[0] && v[8] == w7[1] && v[9] == w7[2]
                                   && v[10] == w7[3] && v[12] == w7[5] && v[13] == w7[6]);
     if (ss_live) lo_ok = lo_ok && v[11] == w7[4];
@@ -531,24 +595,7 @@ affinity_epoch_tail(const TablesView& t, const Ctx& c, const AffScratch& e, cons
     head = hi;
   }
   const int m_take = use_multi ? got : (head >= 0 ? 1 : 0);
-
-  // ---- fold the takes into j and every live row (the sentinel column
-  // never counts, as in commit())
-  for (int n = tid; n < N; n += bd) {
-    const int cn = use_multi ? counts[n] : (n == head ? 1 : 0);
-    if (cn == 0) continue;
-    j[n] += cn;
-    for (int k = 0; k < N_KINDS; ++k) {
-      for (int s = 0; s < c.n[k]; ++s) {
-        const Slot& x = c.slot[k][s];
-        if (x.inc == 0.0f) continue;
-        const int dom = slot_dom(t, k, x.id, n);
-        if (dom < D) atomicAdd(&rows[(size_t)(c.off[k] + s) * D1 + dom], (float)cn * x.inc);
-      }
-    }
-  }
-  for (int z = tid; z < Z; z += bd) zone_sums[z] = 0.0f;
-  __syncthreads();
+  affinity_fold(t, c, e, dm, use_multi, head, j);
   heads += head >= 0;
   rounds_total += use_multi ? rounds : 0;
   return m_take;

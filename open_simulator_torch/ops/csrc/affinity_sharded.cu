@@ -50,50 +50,9 @@
 // The exactness contract with the plain PyTorch version is in common.cuh.
 
 #include "affinity.cuh"
+#include "affinity_sharded.cuh"
 #include "common.cuh"
 #include "select.cuh"
-
-// the stacked vector: [0, 5) maxima over F_start of simon, nodeaff, taint,
-// ip, pernode; [5, 7) of -simon, -ip; [7, 12), [12, 14) the same over F_hi;
-// [14, 18) maxima over F_hi of -simon, -nodeaff, -taint, -ip; then Cw
-// maxima of the weighted carriers' domains over F_hi and Cw of their
-// negations
-#define AS_FIXED 18
-
-// Float scratch (K5's layout): table [N, B+1]; ip_pref, simon_s, static,
-// ip_raw, pernode0 [N] each; the live rows [slots, D1]; cnt_live, taken
-// [D1] each; bound [N]; zone sums [Z]. Int scratch: feas, cap, dom_live, u,
-// flags, counts, avail (the epoch's gathered, clamped) [N] each; edom_live,
-// first_pos, consumed, everb [D1] each. State: placed, last, epochs, head
-// fallbacks, multi rounds, the epoch's bootstrap flag, doms_same.
-static __device__ __forceinline__ AffScratch aff_scratch(const TablesView& t, const Ctx& c, int B,
-                                                         float* fs, int* is) {
-  const int N = t.N, D1 = t.D1, n_rows = c.off[SK_SS] + 1;
-  AffScratch a;
-  a.table = fs;
-  a.ip_pref = a.table + (size_t)N * (B + 1);
-  a.simon_s = a.ip_pref + N;
-  a.stat = a.simon_s + N;
-  a.ip_raw = a.stat + N;
-  a.pn0 = a.ip_raw + N;
-  a.rows = a.pn0 + N;
-  a.cl = a.rows + (size_t)n_rows * D1;
-  a.taken = a.cl + D1;
-  a.bound = a.taken + D1;
-  a.zone_sums = a.bound + N;
-  a.feas = is;
-  a.cap = a.feas + N;
-  a.dom_live = a.cap + N;
-  a.u = a.dom_live + N;
-  a.flags = a.u + N;
-  a.counts = a.flags + N;
-  a.avail = a.counts + N;
-  a.edom_live = a.avail + N;
-  a.first_pos = a.edom_live + D1;
-  a.consumed = a.first_pos + D1;
-  a.everb = a.consumed + D1;
-  return a;
-}
 
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
 affinity_sharded_setup(TablesView t, int g, int cap1, int B, int* j, float* fs, int* is,

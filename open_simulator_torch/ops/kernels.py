@@ -1509,15 +1509,19 @@ def _affinity_round(rs: dict, ep: dict) -> dict:
         0, ep["idx_srt"].long(), take.to(torch.int32))
     consumed_d = torch.zeros(D + 1, dtype=_F32, device=dev).index_add_(0, dl, take.to(_F32))
     # sandwich bookkeeping: domains blocked at the round start or consumed
-    # to their budget (a multi-level round marks every eligible or touched one)
+    # to their budget (a multi-level round marks every eligible or touched
+    # one), kept per domain: JAX ORs blocked_d[dom_live] into a per-node
+    # mask, and dom_live is fixed within the epoch, so the node's bit is its
+    # domain's (the sandwich expands it)
     blocked_d = (q < 1.0) | ((consumed_d >= q) & torch.isfinite(q))
     if use_full:
         blocked_d = blocked_d | edom_live | (consumed_d > 0)
-    everb = rs["everb"] | (blocked_d[ep["dom_live"].long()] & ep["has_budget"])
+    everb_d = rs["everb_d"] | (blocked_d & ep["has_budget"])
     real = torch.arange(D + 1, device=dev) < D
     return {"taken_d": taken_d + consumed_d * real, "counts": rs["counts"] + counts_r,
-            "got": rs["got"] + n_take, "last": n_take, "everb": everb,
-            "rounds": rs["rounds"] + int(n_take > 0)}
+            "got": rs["got"] + n_take, "last": n_take, "everb_d": everb_d,
+            "rounds": rs["rounds"] + int(n_take > 0),
+            "full": rs["full"] + int(use_full and n_take > 0)}
 
 
 @torch.inference_mode()
@@ -1532,7 +1536,11 @@ def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: b
     not touched (the aggregate commit applies the counts). `mesh`: a node
     mesh whose epoch path applies runs each epoch's front on this rank's
     node block, with one `pmax` and one `all_gather_tiled` per epoch (JAX
-    `loop_sharded` :2068-2078), and the tail on the full-width arrays."""
+    `loop_sharded` :2068-2078), and the tail on the full-width arrays;
+    above the epoch limit its sharded tail runs every stage on the block but
+    the rounds, with two to four collectives per epoch (`epoch_rounds`; JAX
+    partitions the plain loop with GSPMD there, :2095). The result is the
+    same."""
     N = tb.alloc.shape[0]
     dev = tb.alloc.device
     B = block
@@ -1608,7 +1616,7 @@ def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: b
     budget_composes = n_budget <= 1 or (n_dns == 0 and doms_same)
     edom_live = _sel(live_dns, edom.to(_F32)) > 0           # [D+1]
     ep = {
-        "D": D, "INF_P": INF_P, "pos_k": pos_k, "edom_live": edom_live, "dom_live": dom_live,
+        "D": D, "INF_P": INF_P, "pos_k": pos_k, "edom_live": edom_live,
         "skew_live": torch.sum(torch.where(live_dns, dskew, 0.0)),
         "self_live": torch.sum(torch.where(live_dns, dself, 0.0)),
         "dns_live": n_dns > 0, "has_budget": has_budget,
@@ -1674,28 +1682,82 @@ def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: b
         max_stack, min_stack = norm_stacks(nd, ip_raw, pernode0)
         return avail, F_start, F_hi, bootstrap, ip_raw, pernode0, max_stack, min_stack
 
-    def apply_zone(table_ext, maxes_s, pernode0, F_start):
-        """The live SelectorSpread blend and depth caps at full width (JAX
-        apply_zone :1680): term for term, maxN and the zone sums frozen at
-        the epoch start; column c = c earlier takes on the node. Returns
-        (table_ext, k_cap, ss_multi_ok)."""
+    def zone_sums_of(pernode0, F_start, zn):
+        """The [Z] sums of the SelectorSpread counts over F_start by zone
+        (integer-valued: exact in any order)."""
+        nz_count = torch.where(F_start, pernode0, 0.0)
+        return torch.zeros(Z, dtype=_F32, device=dev).index_add_(0, zn, nz_count)
+
+    def apply_zone(table_ext, maxes_s, pernode0, zn, zone_sums, have_zones):
+        """The live SelectorSpread blend and depth caps (JAX apply_zone
+        :1680) on the rows of the nodes whose zones are zn, term for term:
+        maxN and the zone sums frozen at the epoch start; column c = c
+        earlier takes on the node. Returns (table_ext, k_cap)."""
+        n = table_ext.shape[0]
         if not ss_live:
-            return table_ext, torch.full((N,), B, dtype=torch.int32, device=dev), True
+            return table_ext, torch.full((n,), B, dtype=torch.int32, device=dev)
         maxN = torch.clamp(maxes_s[4], min=0.0)
         pernode_k = pernode0[:, None] + torch.arange(B + 1, dtype=_F32, device=dev)[None, :]
         node_score = torch.where(maxN > 0, 100.0 * (maxN - pernode_k) / maxN, 100.0)
-        nz_count = torch.where(F_start, pernode0, 0.0)
-        zone_sums = torch.zeros(Z, dtype=_F32, device=dev).index_add_(0, zones, nz_count)
         maxZ = torch.amax(torch.cat([zone_sums.new_zeros(1), zone_sums[1:]]))
-        have_zones = bool(torch.any(F_start & (zones > 0)))
-        zscore = torch.where(maxZ > 0, 100.0 * (maxZ - zone_sums[zones]) / maxZ, 100.0)
-        blended = torch.where((have_zones & (zones > 0))[:, None],
+        zscore = torch.where(maxZ > 0, 100.0 * (maxZ - zone_sums[zn]) / maxZ, 100.0)
+        blended = torch.where((have_zones & (zn > 0))[:, None],
                               node_score * (1.0 / 3.0) + zscore[:, None] * (2.0 / 3.0),
                               node_score)
         table_ext = table_ext + w.ss * _flr(blended)
         # depth cap: a take past the frozen maxN would move it
         k_cap = torch.clamp(maxN - pernode0, 0.0, float(B)).to(torch.int32)
-        return table_ext, k_cap, not have_zones  # zone sums move with every zoned take
+        return table_ext, k_cap
+
+    def norms_of(maxes_s, mins_s):
+        """Serial's six normalizers over F_start."""
+        return (maxes_s[0], mins_s[0], torch.clamp(maxes_s[1], min=0.0),
+                torch.clamp(maxes_s[2], min=0.0), torch.clamp(maxes_s[3], min=0.0),
+                torch.clamp(mins_s[1], max=0.0))
+
+    def block_table(sl, nd_l, ip_raw_l, maxes_s, mins_s, j_l):
+        """The [NL, B+1] score rows of the node block `sl` under serial's
+        normalizers, without the SelectorSpread blend."""
+        st_l = {"simon_s": nd_l["simon_s"], "na_raw": nd_l["na_raw"], "t_raw": nd_l["t_raw"],
+                "static": nd_l["static"], "ip_raw": ip_raw_l}
+        return _wave_score_table_rows(tb.alloc[sl, CPU_I], tb.alloc[sl, MEM_I], cry.nonzero[sl],
+                                      tb.grp_nonzero[g], st_l, norms_of(maxes_s, mins_s), j_l,
+                                      w, B)
+
+    def block_partials(max_stack, min_stack, F_start, F_hi, dom_cw_n):
+        """One stacked vector of maxima over a node block, every normalizer
+        reduction of the epoch in max space (mins negated): over F_start and
+        F_hi the maxima of max_stack and of -min_stack, over F_hi those of
+        -max_stack[:4] and of each weighted carrier's domain and its
+        negation (JAX front_sharded :1996-2010)."""
+        def mred(stack, Fm):
+            return torch.amax(torch.where(Fm[None, :], stack, float("-inf")), dim=1)
+
+        dom_cw_f = dom_cw_n.to(_F32)  # exact: domain ids < 2**24
+        return torch.cat([
+            mred(max_stack, F_start), mred(-min_stack, F_start),
+            mred(max_stack, F_hi), mred(-min_stack, F_hi), mred(-max_stack[:4], F_hi),
+            torch.amax(torch.where(F_hi[None, :], dom_cw_f, -1.0), dim=1),
+            torch.amax(torch.where(F_hi[None, :], -dom_cw_f, -float(D + 2)), dim=1)])
+
+    def reduced_vals(red):
+        """The epoch's reductions from a reduced `block_partials` vector:
+        (maxes_s, mins_s, maxes_h, mins_h, base_hi_min, dmax, dmin)."""
+        ns = 5 if ss_live else 4
+        Cw = dom_cw.shape[0]
+        o = 2 * ns + 4
+        return (red[:ns], -red[ns:ns + 2], red[ns + 2:o - 2], -red[o - 2:o], -red[o:o + 4],
+                red[o + 4:o + 4 + Cw], -red[o + 4 + Cw:])
+
+    def gates(maxes_h, mins_h, base_hi_min, dmax, dmin, any_hi: bool):
+        """(uniform_base, ip_safe): uniform normalizer inputs over F_hi pin
+        every normalizer; the frozen table is exact only while ip_raw is
+        uniform over F_hi (ip_hi / ip_lo are maxes_h[3] / mins_h[1]) and
+        each live carrier's domain is single-valued there."""
+        uniform_base = bool(torch.all(maxes_h[:4] == base_hi_min)) and any_hi
+        dom_same = bool(torch.all(~live_cw | (dmax == dmin)))
+        ip_safe = not has_live_cw or not any_hi or (dom_same and bool(maxes_h[3] == mins_h[1]))
+        return uniform_base, ip_safe
 
     def front_full(j, cnts):
         """The unsharded epoch front (JAX front_full :1628)."""
@@ -1703,32 +1765,26 @@ def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: b
          min_stack) = head(j, cnts, nd_full)
         maxes_s, mins_s = _norm_vals(max_stack, min_stack, F_start)
         maxes_h, mins_h = _norm_vals(max_stack, min_stack, F_hi)
-        norms6 = (maxes_s[0], mins_s[0], torch.clamp(maxes_s[1], min=0.0),
-                  torch.clamp(maxes_s[2], min=0.0), torch.clamp(maxes_s[3], min=0.0),
-                  torch.clamp(mins_s[1], max=0.0))
-        any_hi = bool(torch.any(F_hi))
-        # uniform normalizer inputs over F_hi pin every normalizer
         base_hi_min = torch.amin(torch.where(F_hi[None, :], max_stack[:4], float("inf")), dim=1)
-        uniform_base = bool(torch.all(maxes_h[:4] == base_hi_min)) and any_hi
-        # ip liveness: the frozen table is exact only while ip_raw is uniform
-        # over F_hi and each live carrier's domain is single-valued there
-        ip_safe = True
-        if has_live_cw and any_hi:
-            dmax = torch.amax(torch.where(F_hi[None, :], dom_cw, -1), dim=1)
-            dmin = torch.amin(torch.where(F_hi[None, :], dom_cw, D + 2), dim=1)
-            dom_same = bool(torch.all(~live_cw | (dmax == dmin)))
-            ip_safe = dom_same and bool(maxes_h[3] == mins_h[1])
+        dmax = torch.amax(torch.where(F_hi[None, :], dom_cw, -1), dim=1)
+        dmin = torch.amin(torch.where(F_hi[None, :], dom_cw, D + 2), dim=1)
+        uniform_base, ip_safe = gates(maxes_h, mins_h, base_hi_min, dmax, dmin,
+                                      bool(torch.any(F_hi)))
         # ---- the score table under serial's current normalizers
-        table_ext = _wave_score_table(tb, cry, dict(st0, ip_raw=ip_raw), norms6, g, j, w, B)
-        table_ext, k_cap, ss_multi_ok = apply_zone(table_ext, maxes_s, pernode0, F_start)
-        return (avail, F_start, F_hi, table_ext, k_cap, ss_multi_ok, max_stack, min_stack,
-                maxes_s, mins_s, maxes_h, mins_h, uniform_base, bootstrap, ip_safe)
+        table_ext = _wave_score_table(tb, cry, dict(st0, ip_raw=ip_raw),
+                                      norms_of(maxes_s, mins_s), g, j, w, B)
+        have_zones = bool(torch.any(F_start & (zones > 0)))
+        zone_sums = zone_sums_of(pernode0, F_start, zones) if ss_live else None
+        table_ext, k_cap = apply_zone(table_ext, maxes_s, pernode0, zones, zone_sums, have_zones)
+        # the zone sums move with every zoned take
+        return (avail, F_start, F_hi, table_ext, k_cap, not (ss_live and have_zones), max_stack,
+                min_stack, maxes_s, mins_s, maxes_h, mins_h, uniform_base, bootstrap, ip_safe)
 
     def front_sharded(j, cnts):
         """The sharded epoch front (JAX front_sharded :1982-2066): `head` on
         this rank's node block, ONE pmax of every normalizer reduction in
-        max space (mins negated), the table block, ONE tiled all-gather of
-        [table.T; F_start; F_hi; min(avail, B+1); ip_raw (; pernode0)],
+        max space (`block_partials`), the table block, ONE tiled all-gather
+        of [table.T; F_start; F_hi; min(avail, B+1); ip_raw (; pernode0)],
         then the full-width values of `front_full`."""
         from ..parallel.collectives import all_gather_tiled, pmax
 
@@ -1736,31 +1792,10 @@ def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: b
         nd_l = {k: v[..., sl] for k, v in nd_full.items()}
         (avail_l, F_start_l, F_hi_l, bootstrap, ip_raw_l, pernode0_l, max_stack_l,
          min_stack_l) = head(j[sl], cnts, nd_l)
-
-        def mred(stack, Fm):
-            return torch.amax(torch.where(Fm[None, :], stack, float("-inf")), dim=1)
-
-        dom_cw_f = nd_l["dom_cw"].to(_F32)  # exact: domain ids < 2**24
-        red = pmax(torch.cat([
-            mred(max_stack_l, F_start_l), mred(-min_stack_l, F_start_l),
-            mred(max_stack_l, F_hi_l), mred(-min_stack_l, F_hi_l), mred(-max_stack_l[:4], F_hi_l),
-            torch.amax(torch.where(F_hi_l[None, :], dom_cw_f, -1.0), dim=1),
-            torch.amax(torch.where(F_hi_l[None, :], -dom_cw_f, -float(D + 2)), dim=1)]), mesh)
-        ns = 5 if ss_live else 4
-        Cw = dom_cw.shape[0]
-        maxes_s, mins_s = red[:ns], -red[ns:ns + 2]
-        o = ns + 2
-        maxes_h, mins_h = red[o:o + ns], -red[o + ns:o + ns + 2]
-        o += ns + 2
-        base_hi_min, dmax, dmin = -red[o:o + 4], red[o + 4:o + 4 + Cw], -red[o + 4 + Cw:]
-        norms6 = (maxes_s[0], mins_s[0], torch.clamp(maxes_s[1], min=0.0),
-                  torch.clamp(maxes_s[2], min=0.0), torch.clamp(maxes_s[3], min=0.0),
-                  torch.clamp(mins_s[1], max=0.0))
-        st_l = {"simon_s": nd_l["simon_s"], "na_raw": nd_l["na_raw"], "t_raw": nd_l["t_raw"],
-                "static": nd_l["static"], "ip_raw": ip_raw_l}
-        table_l = _wave_score_table_rows(tb.alloc[sl, CPU_I], tb.alloc[sl, MEM_I],
-                                         cry.nonzero[sl], tb.grp_nonzero[g], st_l, norms6, j[sl],
-                                         w, B)
+        red = pmax(block_partials(max_stack_l, min_stack_l, F_start_l, F_hi_l, nd_l["dom_cw"]),
+                   mesh)
+        maxes_s, mins_s, maxes_h, mins_h, base_hi_min, dmax, dmin = reduced_vals(red)
+        table_l = block_table(sl, nd_l, ip_raw_l, maxes_s, mins_s, j[sl])
         rows = [table_l.T, F_start_l[None].to(_F32), F_hi_l[None].to(_F32),
                 torch.clamp(avail_l, max=B + 1)[None].to(_F32), ip_raw_l[None]]
         if ss_live:
@@ -1769,102 +1804,84 @@ def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: b
         F_start, F_hi = full[B + 1] > 0, full[B + 2] > 0
         ip_raw, pernode0 = full[B + 4], (full[B + 5] if ss_live else None)
         max_stack, min_stack = norm_stacks(nd_full, ip_raw, pernode0)
-        any_hi = bool(torch.any(F_hi))
-        uniform_base = bool(torch.all(maxes_h[:4] == base_hi_min)) and any_hi
-        dom_same = bool(torch.all(~live_cw | (dmax == dmin)))
-        # ip_hi / ip_lo are maxes_h[3] / mins_h[1]
-        ip_safe = not has_live_cw or not any_hi or (dom_same and bool(maxes_h[3] == mins_h[1]))
-        table_ext, k_cap, ss_multi_ok = apply_zone(full[:B + 1].T, maxes_s, pernode0, F_start)
-        return (full[B + 3].to(torch.int32), F_start, F_hi, table_ext, k_cap, ss_multi_ok,
-                max_stack, min_stack, maxes_s, mins_s, maxes_h, mins_h, uniform_base, bootstrap,
+        uniform_base, ip_safe = gates(maxes_h, mins_h, base_hi_min, dmax, dmin,
+                                      bool(torch.any(F_hi)))
+        have_zones = bool(torch.any(F_start & (zones > 0)))
+        zone_sums = zone_sums_of(pernode0, F_start, zones) if ss_live else None
+        table_ext, k_cap = apply_zone(full[:B + 1].T, maxes_s, pernode0, zones, zone_sums,
+                                      have_zones)
+        return (full[B + 3].to(torch.int32), F_start, F_hi, table_ext, k_cap,
+                not (ss_live and have_zones), max_stack, min_stack, maxes_s, mins_s, maxes_h, mins_h, uniform_base, bootstrap,
                 ip_safe)
 
     front = front_sharded if _epoch_shards(mesh, N) > 1 else front_full
 
-    def epoch(state: AffinityWaveState) -> AffinityWaveState:
-        j = state.j
-        cnt_dns, cnt_aff, cnt_anti, cnt_car, cnt_cw, cnt_ss = state[1:7]
-        (avail, F_start, F_hi, table_ext, k_cap, ss_multi_ok, max_stack, min_stack, maxes_s,
-         mins_s, maxes_h, mins_h, uniform_base, bootstrap, ip_safe) = front(j, state[1:7])
-        table = table_ext[:, :B]
-
+    def multi_pre(maxes_s, mins_s, maxes_h, mins_h, uniform_base, bootstrap, ip_safe,
+                  ss_multi_ok) -> bool:
+        """Whether the epoch may take several pods: the budget composes, no
+        bootstrap, ip and the zone sums frozen, and the normalizers of
+        F_start equal those of F_hi."""
         pre_norms_ok = uniform_base or _norms_eq(zip((maxes_s[:4], mins_s),
                                                      (maxes_h[:4], mins_h)))
         if ss_live:
             pre_norms_ok = pre_norms_ok and bool(maxes_s[4] == maxes_h[4])
-        use_multi_pre = (budget_composes and not bootstrap and ip_safe and ss_multi_ok
-                         and pre_norms_ok)
-        m_rem = m - state.placed
+        return budget_composes and not bootstrap and ip_safe and ss_multi_ok and pre_norms_ok
+
+    def usable_bound(table_ext, avail, k_cap, F_hi):
+        """The candidates of n nodes' [n, B+1] rows: capacity, depth cap and
+        the monotone prefix over F_hi (the usable-entry mask [n, B]), and
+        each node's first hidden entry `bound` (-inf where none)."""
+        n = table_ext.shape[0]
+        table = table_ext[:, :B]
+        ks = torch.arange(B, dtype=torch.int32, device=dev)[None, :]
+        in_cap = ks < torch.minimum(avail, k_cap)[:, None]
+        step_ok = torch.cat([torch.ones((n, 1), dtype=torch.int32, device=dev),
+                             (table[:, 1:] <= table[:, :-1]).to(torch.int32)], dim=1)
+        mono = torch.cumprod(step_ok, dim=1) > 0
+        usable = in_cap & mono & F_hi[:, None]
+        first_bad = torch.amin(torch.where(mono, B, ks), dim=1)
+        k_hid = torch.minimum(torch.clamp(first_bad, max=B), k_cap)
+        has_hidden = (k_hid < avail) & F_hi
+        bound = torch.where(has_hidden, torch.gather(table_ext, 1, k_hid.long()[:, None])[:, 0],
+                            ninf)
+        return usable, bound
+
+    def run_rounds(vals_k, idx_srt, dom_srt, cnts, m_rem: int) -> dict:
+        """The epoch's rounds over one candidate order (vals_k, the node
+        idx_srt and its budget domain dom_srt at each of K_EP positions; the
+        candidates are the finite values): each entry's rank among its
+        domain's candidates, then rounds until one takes nothing or m_rem
+        are taken, the condition read once per chain of four, as in JAX."""
+        cand = torch.isfinite(vals_k)
+        dkey = torch.where(cand, dom_srt, D + 1)
+        d2, p2 = torch.sort(dkey, stable=True)
+        run_start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), d2[1:] != d2[:-1]])
+        seg_start = torch.cummax(torch.where(run_start, pos_k, 0), dim=0).values
+        occ_all = torch.zeros(K_EP, dtype=_F32, device=dev)
+        occ_all[p2] = (pos_k - seg_start).to(_F32)
+        cnt_dns, _, cnt_anti, cnt_car = cnts[:4]
+        cnt_live = _sel(live_dns, cnt_dns) + _sel(live_anti, cnt_anti) + _sel(live_car, cnt_car)
+        ep.update(cand=cand, dom_srt=dom_srt, occ_all=occ_all, idx_srt=idx_srt,
+                  cnt_live=cnt_live, m_rem=m_rem)
         rs = {"counts": torch.zeros(N, dtype=torch.int32, device=dev), "got": 0, "last": 1,
-              "rounds": 0, "everb": torch.zeros(N, dtype=torch.bool, device=dev)}
-        if use_multi_pre:
-            # ---- candidates: capacity, depth cap, monotone prefix, and the
-            # hidden-continuation cut (the JAX expressions; the rounds never
-            # run when use_multi_pre is off, so neither does this)
-            ks = torch.arange(B, dtype=torch.int32, device=dev)[None, :]
-            in_cap = ks < torch.minimum(avail, k_cap)[:, None]
-            step_ok = torch.cat([torch.ones((N, 1), dtype=torch.int32, device=dev),
-                                 (table[:, 1:] <= table[:, :-1]).to(torch.int32)], dim=1)
-            mono = torch.cumprod(step_ok, dim=1) > 0
-            usable = in_cap & mono & F_hi[:, None]
-            first_bad = torch.amin(torch.where(mono, B, ks), dim=1)
-            k_hid = torch.minimum(torch.clamp(first_bad, max=B), k_cap)
-            has_hidden = (k_hid < avail) & F_hi
-            bound = torch.where(has_hidden,
-                                torch.gather(table_ext, 1, k_hid.long()[:, None])[:, 0], ninf)
-            b1, i1 = torch.amax(bound), torch.argmax(bound)
-            bound2 = bound.clone()
-            bound2[i1] = ninf
-            b2, i2 = torch.amax(bound2), torch.argmax(bound2)
-            cut_s = torch.where(iota_n == i1, b2, b1)
-            cut_i = torch.where(iota_n == i1, i2, i1).to(torch.int32)
-            beats = (table > cut_s[:, None]) | ((table == cut_s[:, None])
-                                                & (iota_n[:, None] < cut_i[:, None]))
-            usable = usable & beats
-            # the top K_EP entries in lax.top_k order (score desc, flat index
-            # asc), then each entry's rank among its domain's candidates
-            vals_k, flat_pos = _top_k(torch.where(usable, table, ninf).reshape(-1), K_EP)
-            idx_srt = torch.div(flat_pos, B, rounding_mode="floor").to(torch.int32)
-            cand = torch.isfinite(vals_k)
-            dom_srt = dom_live[idx_srt.long()]
-            dkey = torch.where(cand, dom_srt, D + 1)
-            d2, p2 = torch.sort(dkey, stable=True)
-            run_start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), d2[1:] != d2[:-1]])
-            seg_start = torch.cummax(torch.where(run_start, pos_k, 0), dim=0).values
-            occ_all = torch.zeros(K_EP, dtype=_F32, device=dev)
-            occ_all[p2] = (pos_k - seg_start).to(_F32)
-            cnt_live = (_sel(live_dns, cnt_dns) + _sel(live_anti, cnt_anti)
-                        + _sel(live_car, cnt_car))
-            ep.update(cand=cand, dom_srt=dom_srt, occ_all=occ_all, idx_srt=idx_srt,
-                      cnt_live=cnt_live, m_rem=m_rem)
-            rs["taken_d"] = torch.zeros(D + 1, dtype=_F32, device=dev)
-            # the condition is read once per chain of four rounds, as in JAX
-            while rs["last"] > 0 and rs["got"] < m_rem:
-                for _ in range(4):
-                    rs = _affinity_round(rs, ep)
+              "rounds": 0, "full": 0, "everb_d": torch.zeros(D + 1, dtype=torch.bool, device=dev),
+              "taken_d": torch.zeros(D + 1, dtype=_F32, device=dev)}
+        while rs["last"] > 0 and rs["got"] < m_rem:
+            for _ in range(4):
+                rs = _affinity_round(rs, ep)
+        return rs
 
-        # ---- the normalizer sandwich: S_lo <= every F_t <= F_hi
-        use_multi = False
-        if use_multi_pre and rs["got"] > 0:
-            F_lo = F_hi & ~rs["everb"] & ~(rs["counts"] >= avail)
-            maxes_l, mins_l = _norm_vals(max_stack, min_stack, F_lo)
-            lo_ok = uniform_base or _norms_eq(zip((maxes_h[:4], mins_h), (maxes_l[:4], mins_l)))
-            if ss_live:
-                lo_ok = lo_ok and bool(maxes_h[4] == maxes_l[4])
-            use_multi = lo_ok
-        # the head fallback: serial's single next pick is always exact
-        use_head = not use_multi and bool(torch.any(F_start)) and m_rem > 0
-        if use_multi:
-            counts, m_take = rs["counts"], rs["got"]
-        else:
-            counts = torch.zeros(N, dtype=torch.int32, device=dev)
-            m_take = 0
-            if use_head:
-                counts[torch.argmax(torch.where(F_start, table[:, 0], ninf))] = 1
-                m_take = 1
+    def lo_ok(uniform_base, maxes_h, mins_h, maxes_l, mins_l) -> bool:
+        """The sandwich's lower side: the normalizers of F_lo equal F_hi's."""
+        ok = uniform_base or _norms_eq(zip((maxes_h[:4], mins_h), (maxes_l[:4], mins_l)))
+        if ss_live:
+            ok = ok and bool(maxes_h[4] == maxes_l[4])
+        return ok
 
-        # fold the takes into every counter/carrier row (the sentinel column
-        # never counts, as in commit())
+    def finish(state: AffinityWaveState, counts, m_take: int, use_head: bool,
+               rounds: int) -> AffinityWaveState:
+        """Fold the epoch's takes into j and every counter/carrier row (the
+        sentinel column never counts, as in commit())."""
         cf = counts.to(_F32)
         col_real = (torch.arange(D + 1, device=dev) < D).to(_F32)
 
@@ -1872,20 +1889,181 @@ def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: b
             add = torch.zeros_like(rows).scatter_add_(1, doms, cf[None, :] * incs[:, None])
             return rows + add * col_real
 
+        cnt_dns, cnt_aff, cnt_anti, cnt_car, cnt_cw, cnt_ss = state[1:7]
         e, h, r = state.ep_stats
         return AffinityWaveState(
-            j + counts, upd(cnt_dns, dom_dns, inc_dns), upd(cnt_aff, dom_aff, inc_aff),
+            state.j + counts, upd(cnt_dns, dom_dns, inc_dns), upd(cnt_aff, dom_aff, inc_aff),
             upd(cnt_anti, dom_anti, inc_anti), upd(cnt_car, dom_car, inc_car),
             upd(cnt_cw, dom_cw, inc_cw), upd(cnt_ss, dom_ss, ss_match),
-            state.placed + m_take, m_take,
-            (e + 1, h + int(use_head), r + (rs["rounds"] if use_multi else 0)))
+            state.placed + m_take, m_take, (e + 1, h + int(use_head), r + rounds))
 
+    def epoch(state: AffinityWaveState) -> AffinityWaveState:
+        """One epoch on the full-width front (unsharded, or the sharded
+        epoch path's gathered rows): JAX epoch_tail :1714-1964."""
+        cnts = state[1:7]
+        (avail, F_start, F_hi, table_ext, k_cap, ss_multi_ok, max_stack, min_stack, maxes_s,
+         mins_s, maxes_h, mins_h, uniform_base, bootstrap, ip_safe) = front(state.j, cnts)
+        table = table_ext[:, :B]
+        m_rem = m - state.placed
+        rs = None
+        if multi_pre(maxes_s, mins_s, maxes_h, mins_h, uniform_base, bootstrap, ip_safe,
+                     ss_multi_ok):
+            # the hidden-continuation cut (the rounds never run when
+            # use_multi_pre is off, so neither does this), then the top K_EP
+            # entries in lax.top_k order (score desc, flat index asc)
+            usable, bound = usable_bound(table_ext, avail, k_cap, F_hi)
+            b1, i1 = torch.amax(bound), torch.argmax(bound)
+            bound2 = bound.clone()
+            bound2[i1] = ninf
+            b2, i2 = torch.amax(bound2), torch.argmax(bound2)
+            cut_s = torch.where(iota_n == i1, b2, b1)
+            cut_i = torch.where(iota_n == i1, i2, i1).to(torch.int32)
+            usable = _guarded(table, usable, iota_n, cut_s, cut_i)[0]
+            vals_k, flat_pos = _top_k(torch.where(usable, table, ninf).reshape(-1), K_EP)
+            idx_srt = torch.div(flat_pos, B, rounding_mode="floor").to(torch.int32)
+            rs = run_rounds(vals_k, idx_srt, dom_live[idx_srt.long()], cnts, m_rem)
+
+        # ---- the normalizer sandwich: S_lo <= every F_t <= F_hi
+        use_multi = False
+        if rs is not None and rs["got"] > 0:
+            F_lo = F_hi & ~rs["everb_d"][dom_live.long()] & ~(rs["counts"] >= avail)
+            maxes_l, mins_l = _norm_vals(max_stack, min_stack, F_lo)
+            use_multi = lo_ok(uniform_base, maxes_h, mins_h, maxes_l, mins_l)
+        # the head fallback: serial's single next pick is always exact
+        use_head = not use_multi and bool(torch.any(F_start)) and m_rem > 0
+        if use_multi:
+            return finish(state, rs["counts"], rs["got"], False, rs["rounds"])
+        counts = torch.zeros(N, dtype=torch.int32, device=dev)
+        if use_head:
+            counts[torch.argmax(torch.where(F_start, table[:, 0], ninf))] = 1
+        return finish(state, counts, int(use_head), use_head, 0)
+
+    def epoch_rounds(state: AffinityWaveState) -> AffinityWaveState:
+        """One epoch of the sharded tail above the epoch limit (the plain
+        version of K11, csrc/affinity_rounds.cu): every stage on this rank's
+        node block [lo, hi) but the rounds, which run on every rank on the
+        merged candidate order, with two, three or four collectives
+        (parallel/mesh.py), each counted in `mesh.tail_branches`:
+        1. `head` on the block, then all_gather_rows #1 of one row: the
+           block's `block_partials`, the flags any(F_hi), any(F_start) and
+           any(F_start on a zone) and, with ss_live, the block's zone sums;
+           every rank reduces the rows in rank order (the maxima by max, the
+           integer-valued zone sums by a left-to-right sum);
+        2. the table block with the SelectorSpread blend, and the block's
+           summary: its first two maxima of the hidden-entry bound and its
+           best head as (value, global node), and its usable count:
+           all_gather_rows #2. Without use_multi_pre the epoch ends in the
+           head fallback ("head");
+        3. the guard from the global pairs, then the block's top c =
+           min(K_EP, NL*B) entries in pick order (score desc, global flat
+           index asc), padded with -inf, each with its node's dom_live:
+           all_gather_rows #3; the top K_EP of the gathered entries is the
+           unsharded top, and the rounds run on it with no collective
+           ("select" when they take nothing);
+        4. when they took pods, the block's maxima over F_lo (the domains
+           ever blocked, expanded to the block): pmax #4 ("sandwich").
+        The head fallback and the fold are the same on every rank."""
+        from ..parallel.collectives import all_gather_rows, pmax
+
+        sl = _block_of(mesh, N)
+        lo, NL = sl.start, sl.stop - sl.start
+        cnts = state[1:7]
+        m_rem = m - state.placed
+        nd_l = {k: v[..., sl] for k, v in nd_full.items()}
+        (avail_l, F_start_l, F_hi_l, bootstrap, ip_raw_l, pernode0_l, max_stack_l,
+         min_stack_l) = head(state.j[sl], cnts, nd_l)
+        zn_l = zones[sl]
+        # ---- #1: the block's reductions, reduced on every rank
+        part = [block_partials(max_stack_l, min_stack_l, F_start_l, F_hi_l, nd_l["dom_cw"]),
+                torch.stack([torch.any(F_hi_l), torch.any(F_start_l),
+                             torch.any(F_start_l & (zn_l > 0))]).to(_F32)]
+        nv = part[0].shape[0] + 3
+        if ss_live:
+            part.append(zone_sums_of(pernode0_l, F_start_l, zn_l))
+        rows1 = all_gather_rows(torch.cat(part)[None], mesh)
+        red = torch.amax(rows1[:, :nv], dim=0)
+        zone_sums = rows1[0, nv:]
+        for r in range(1, mesh.shards):
+            zone_sums = zone_sums + rows1[r, nv:]
+        any_hi, any_start, have_zones = (bool(x) for x in red[nv - 3:] > 0)
+        maxes_s, mins_s, maxes_h, mins_h, base_hi_min, dmax, dmin = reduced_vals(red[:nv - 3])
+        uniform_base, ip_safe = gates(maxes_h, mins_h, base_hi_min, dmax, dmin, any_hi)
+        use_multi_pre = multi_pre(maxes_s, mins_s, maxes_h, mins_h, uniform_base, bootstrap,
+                                  ip_safe, not (ss_live and have_zones))
+        # ---- #2: the table block and its summary
+        table_l = block_table(sl, nd_l, ip_raw_l, maxes_s, mins_s, state.j[sl])
+        table_l, k_cap_l = apply_zone(table_l, maxes_s, pernode0_l, zn_l, zone_sums, have_zones)
+        table = table_l[:, :B]
+        heads = torch.where(F_start_l, table[:, 0], ninf)
+        ih = int(torch.argmax(heads))
+        summary = [float("-inf"), lo, float("-inf"), lo, float(heads[ih]), lo + ih, 0, 0]
+        if use_multi_pre:
+            usable_l, bound_l = usable_bound(table_l, avail_l, k_cap_l, F_hi_l)
+            i1 = int(torch.argmax(bound_l))
+            bound2 = bound_l.clone()
+            bound2[i1] = ninf
+            i2 = int(torch.argmax(bound2))
+            summary[:4] = [float(bound_l[i1]), lo + i1, float(bound2[i2]), lo + i2]
+            summary[6] = int(usable_l.sum())
+        rows2 = all_gather_rows(torch.tensor([summary], dtype=torch.float64, device=dev),
+                                mesh).tolist()
+        rs, branch = None, "head"
+        if use_multi_pre:
+            # ---- #3: the guard, the block's top c, the merge, the rounds
+            branch = "select"
+            firsts = [(r[0], r[1]) for r in rows2]
+            b1, g1 = _first_max(firsts)
+            win = firsts.index((b1, g1))
+            b2, g2 = _first_max(firsts[:win] + firsts[win + 1:] + [(rows2[win][2], rows2[win][3])])
+            iota_l = torch.arange(lo, lo + NL, dtype=torch.int32, device=dev)
+            is1 = iota_l == int(g1)
+            cut_s = torch.where(is1, torch.tensor(b2, dtype=_F32, device=dev),
+                                torch.tensor(b1, dtype=_F32, device=dev))
+            cut_i = torch.where(is1, int(g2), int(g1)).to(torch.int32)
+            usable_l = _guarded(table, usable_l, iota_l, cut_s, cut_i)[0]
+            vals_l, pos_l = _top_k(torch.where(usable_l, table, ninf).reshape(-1),
+                                   min(K_EP, NL * B))
+            ent = all_gather_rows(torch.stack([vals_l.double(), (pos_l + lo * B).double(),
+                                               dom_live[sl][pos_l // B].double()], dim=1), mesh)
+            flat = ent[:, 1].long()
+            o1 = torch.argsort(flat, stable=True)
+            top = o1[torch.argsort(ent[o1, 0].to(_F32), descending=True, stable=True)][:K_EP]
+            rs = run_rounds(ent[top, 0].to(_F32), (flat[top] // B).to(torch.int32),
+                            ent[top, 2].to(torch.int32), cnts, m_rem)
+        use_multi = False
+        if rs is not None and rs["got"] > 0:
+            # ---- #4: the sandwich's maxima over the block's F_lo
+            branch = "sandwich"
+            F_lo_l = (F_hi_l & ~rs["everb_d"][dom_live[sl].long()]
+                      & ~(rs["counts"][sl] >= avail_l))
+            mx, mn = _norm_vals(max_stack_l, min_stack_l, F_lo_l)
+            red4 = pmax(torch.cat([mx, -mn]), mesh)
+            use_multi = lo_ok(uniform_base, maxes_h, mins_h, red4[:mx.shape[0]],
+                              -red4[mx.shape[0]:])
+        mesh.tail_branches[branch] += 1
+        if branch == "sandwich":
+            # the sandwich's verdict, and the accepted rounds by their take
+            # (the multi-level one, or the single rise)
+            if use_multi:
+                mesh.tail_branches["full_rounds"] += rs["full"]
+                mesh.tail_branches["rise_rounds"] += rs["rounds"] - rs["full"]
+            else:
+                mesh.tail_branches["rejected"] += 1
+        use_head = not use_multi and any_start and m_rem > 0
+        if use_multi:
+            return finish(state, rs["counts"], rs["got"], False, rs["rounds"])
+        counts = torch.zeros(N, dtype=torch.int32, device=dev)
+        if use_head:
+            counts[int(_first_max([(r[4], r[5]) for r in rows2])[1])] = 1
+        return finish(state, counts, int(use_head), use_head, 0)
+
+    step = epoch_rounds if _round_shards(mesh, N) > 1 else epoch
     state = AffinityWaveState(
         torch.zeros(N, dtype=torch.int32, device=dev), cry.counter[dids], cry.counter[aids],
         cry.counter[bids], cry.carrier[ca_ids], cry.carrier[cw_ids], cry.counter[ss_idx],
         0, 1, (0, 0, 0))
     while state.last > 0 and state.placed < m:
-        state = epoch(state)
+        state = step(state)
     return state.j, state.placed, dict(zip(AFFINITY_STATS, state.ep_stats))
 
 
@@ -2211,14 +2389,14 @@ def schedule_affinity_wave_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: 
     return j, stats[0], stats[1:]
 
 
-# A timing hook for the K8 / K9 stages: when it is a dict, each of their
+# A timing hook for the K8 - K11 stages: when it is a dict, each of their
 # launches is recorded between two CUDA events, appended to the list under
 # its C entry point's name (chip_smoke.py sets it while it times them).
 SHARDED_STAGE_EVENTS: Optional[Dict[str, list]] = None
 
 
 def _sharded_launch(launch, *args) -> None:
-    """One launch of a K8 / K9 stage (see SHARDED_STAGE_EVENTS)."""
+    """One launch of a K8 - K11 stage (see SHARDED_STAGE_EVENTS)."""
     ev = SHARDED_STAGE_EVENTS
     if ev is not None:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2410,6 +2588,107 @@ def schedule_affinity_wave_sharded_kernel(tb: Tables, cry: Carry, g: int, m: int
     return j, state[0], state[2:5]
 
 
+def schedule_affinity_wave_rounds_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
+                                         ss_live: bool = False,
+                                         w: ScoreWeights = DEFAULT_WEIGHTS,
+                                         filters: FilterFlags = DEFAULT_FILTERS,
+                                         block: int = WAVE_BLOCK, n_zones: int = 2, mesh=None):
+    """Launch K11 (csrc/affinity_rounds.cu) on this rank of a node `mesh`
+    whose sharded tail applies (N above the epoch limit): K9's setup once,
+    then per epoch K9's front and table and K11's flags, reduce and summary
+    on the rank's node block, with all_gather_rows #1 and #2; where
+    use_multi_pre holds, K11's select (the block) and merge (the rounds,
+    replicated) around all_gather_rows #3, and where the rounds took pods
+    K11's sandwich (the block) and pmax #4; then K11's finish. The host reads
+    use_multi_pre, the rounds' take and, after a sandwich, (placed, last):
+    one to three reads per epoch. Every rank returns the same (per-node
+    counts [N] i32, placed as a 0-dim i32 tensor, [epochs, head_fallbacks,
+    multi_rounds] i32), on the card; `cry` is only read."""
+    from ..parallel.collectives import all_gather_rows, pmax
+    from . import build
+
+    lib = build.library()
+    dev = tb.alloc.device
+    N = tb.alloc.shape[0]
+    if N * block >= 2 ** 31 or block < 1:
+        raise ValueError(f"affinity table {N}x{block} is out of the kernel's range")
+    if cry.counter.shape[1] > AFFINITY_MAX_D1:
+        raise ValueError(f"{cry.counter.shape[1]} domains exceed the kernel's {AFFINITY_MAX_D1}")
+    if _round_shards(mesh, N) <= 1:
+        raise ValueError(f"the mesh's sharded tail does not apply to {N} nodes")
+    R = mesh.shards
+    sl = _block_of(mesh, N)
+    lo, hi, NL = sl.start, sl.stop, sl.stop - sl.start
+    v = _view(tb, cry, n_zones, w, filters)
+    vr = ctypes.byref(v)
+    j = torch.empty(N, dtype=torch.int32, device=dev)
+    state = torch.zeros(int(lib.affinity_rounds_state_ints()), dtype=torch.int32, device=dev)
+    fs = torch.empty(int(lib.affinity_sharded_scratch_floats(vr, int(block))), dtype=_F32,
+                     device=dev)
+    iscr = torch.empty(int(lib.affinity_sharded_scratch_ints(vr)), dtype=torch.int32, device=dev)
+    p0 = int(lib.affinity_sharded_parts(vr))  # K9's stacked vector
+    P1 = p0 + 3 + (v.Z if ss_live else 0)     # then the flags and the zone sums
+    part = torch.empty(P1, dtype=_F32, device=dev)
+    red = torch.empty(p0 + 3, dtype=_F32, device=dev)
+    pay = torch.empty((NL, block + 6), dtype=_F32, device=dev)
+    summ = torch.empty((1, 8), dtype=torch.float64, device=dev)
+    c = min(N * block, K_EP_MAX, NL * block)
+    cand = torch.empty((c + 1, 2), dtype=torch.int64, device=dev)
+    part4 = torch.empty(7, dtype=_F32, device=dev)
+    G, B, ss = int(g), int(block), int(bool(ss_live))
+    fn = schedule_affinity_wave_rounds_kernel
+    _sharded_launch(lib.affinity_sharded_setup_launch, vr, G, int(bool(cap1)), B, _ptr(j),
+                    _ptr(fs), _ptr(iscr), _ptr(state))
+    fn.launches += 1
+    placed, last, heads = 0, 1, 0
+    while last > 0 and placed < m:
+        _sharded_launch(lib.affinity_sharded_front_launch, vr, G, B, lo, hi, _ptr(j), _ptr(fs),
+                        _ptr(iscr), _ptr(part), _ptr(state))
+        _sharded_launch(lib.affinity_rounds_flags_launch, vr, G, B, lo, hi, ss, _ptr(fs),
+                        _ptr(iscr), _ptr(part), p0)
+        rows1 = all_gather_rows(part[None], mesh)
+        _sharded_launch(lib.affinity_rounds_reduce_launch, vr, G, B, ss, R, P1, _ptr(rows1),
+                        _ptr(red), _ptr(fs), _ptr(iscr), _ptr(state))
+        _sharded_launch(lib.affinity_sharded_table_launch, vr, G, B, lo, hi, _ptr(j), _ptr(fs),
+                        _ptr(iscr), _ptr(red), _ptr(pay))
+        _sharded_launch(lib.affinity_rounds_summary_launch, vr, G, B, lo, hi, ss, _ptr(j),
+                        _ptr(fs), _ptr(iscr), _ptr(red), _ptr(pay), _ptr(state), _ptr(summ))
+        summ_all = all_gather_rows(summ, mesh)
+        multi_pre, any_start = state[7:9].tolist()
+        fn.launches += 5
+        fn.host_reads += 1
+        red4, branch = None, "head"
+        if multi_pre:
+            _sharded_launch(lib.affinity_rounds_select_launch, vr, G, B, lo, hi, c, R, _ptr(fs),
+                            _ptr(iscr), _ptr(summ_all), _ptr(cand))
+            rows3 = all_gather_rows(cand, mesh)
+            _sharded_launch(lib.affinity_rounds_merge_launch, vr, G, int(m), B, c, R, _ptr(fs),
+                            _ptr(iscr), _ptr(rows3), _ptr(state))
+            fn.launches += 2
+            fn.host_reads += 1
+            branch = "select"
+            if int(state[11]) > 0:
+                _sharded_launch(lib.affinity_rounds_sandwich_launch, vr, G, B, lo, hi, _ptr(j),
+                                _ptr(fs), _ptr(iscr), _ptr(part4))
+                red4 = pmax(part4, mesh)
+                fn.launches += 1
+                branch = "sandwich"
+        _sharded_launch(lib.affinity_rounds_finish_launch, vr, G, int(m), ss, B, R, _ptr(j),
+                        _ptr(fs), _ptr(iscr), _ptr(red), _ptr_or_null(red4), _ptr(summ_all),
+                        _ptr(state))
+        fn.launches += 1
+        mesh.tail_branches[branch] += 1
+        if red4 is None:  # the head fallback, or nothing feasible
+            placed, last, heads = placed + any_start, any_start, heads + any_start
+        else:  # the sandwich's verdict: a head fallback is its rejection
+            placed, last, _, heads_now = state[:4].tolist()
+            fn.host_reads += 1
+            if heads_now > heads:
+                mesh.tail_branches["rejected"] += 1
+            heads = heads_now
+    return j, state[0], state[2:5]
+
+
 def _on_cpu(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return True
@@ -2541,8 +2820,9 @@ def schedule_affinity_wave(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
                            n_zones: int = 2, mesh=None):
     """Place up to m pods of affinity-route group g, exactly as m serial
     steps would (JAX `schedule_affinity_wave`): the plain version for CPU
-    tensors, K5 for CUDA tensors (K9 where a node `mesh` takes the sharded
-    epoch path), then `aggregate_commit`. Returns (new carry, per-node
+    tensors, K5 for CUDA tensors (on a node `mesh`, K9 where it takes the
+    sharded epoch path and K11 where it takes the sharded tail above the
+    epoch limit), then `aggregate_commit`. Returns (new carry, per-node
     counts [N] i32, placed). The epoch statistics (AFFINITY_STATS) are
     added to `schedule_affinity_wave.stats`, an i32 tensor on the wrapper's
     device (adding them up does not wait for the card), and this call's
@@ -2553,6 +2833,9 @@ def schedule_affinity_wave(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
         stats = torch.tensor([st[k] for k in AFFINITY_STATS], dtype=torch.int32)
     elif _epoch_shards(mesh, tb.alloc.shape[0]) > 1:
         j, placed, stats = schedule_affinity_wave_sharded_kernel(
+            tb, cry, g, m, cap1, ss_live, w, filters, block, n_zones, mesh)
+    elif _round_shards(mesh, tb.alloc.shape[0]) > 1:
+        j, placed, stats = schedule_affinity_wave_rounds_kernel(
             tb, cry, g, m, cap1, ss_live, w, filters, block, n_zones, mesh)
     else:
         j, placed, stats = schedule_affinity_wave_kernel(tb, cry, g, m, cap1, ss_live, w,
@@ -3274,13 +3557,15 @@ _WRAPPERS = {"schedule_batch": schedule_batch, "feasibility": feasibility_jit,
              "extend_tables": extend_tables_on_device, "explain_jit": explain_jit,
              "schedule_wave_sharded": schedule_wave_sharded_kernel,
              "schedule_affinity_wave_sharded": schedule_affinity_wave_sharded_kernel,
-             "schedule_wave_rounds": schedule_wave_rounds_kernel}
+             "schedule_wave_rounds": schedule_wave_rounds_kernel,
+             "schedule_affinity_wave_rounds": schedule_affinity_wave_rounds_kernel}
 for _f in _WRAPPERS.values():
     _f.launches = 0
 # the sharded kernels' reads of (placed, last), one per epoch or round
 schedule_wave_sharded_kernel.host_reads = 0
 schedule_affinity_wave_sharded_kernel.host_reads = 0
 schedule_wave_rounds_kernel.host_reads = 0
+schedule_affinity_wave_rounds_kernel.host_reads = 0
 schedule_batch.last_events = None
 schedule_wave.stats = None
 schedule_affinity_wave.stats = None
@@ -3299,6 +3584,7 @@ def reset_launch_counts() -> None:
     schedule_wave_sharded_kernel.host_reads = 0
     schedule_affinity_wave_sharded_kernel.host_reads = 0
     schedule_wave_rounds_kernel.host_reads = 0
+    schedule_affinity_wave_rounds_kernel.host_reads = 0
     for k in BRANCH_LAUNCHES:
         BRANCH_LAUNCHES[k] = 0
     schedule_wave.stats = None

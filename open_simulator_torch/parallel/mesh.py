@@ -6,7 +6,7 @@ encodes the same `BatchTables` and holds the whole tables and carry,
 replicated. The encoder pads the node axis to a multiple of the shard
 count with phantom nodes, infeasible for every pod. Rank r works on nodes
 [r*NL, (r+1)*NL), NL = N / shards, exactly as the JAX `shard_map` in_specs
-slice them. Two sharded paths, both on a 1-D node mesh of more than one
+slice them. The sharded paths, all on a 1-D node mesh of more than one
 shard with N a multiple of the shard count, split at
 OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES (default 2,048, read on every
 call; JAX reads it at import):
@@ -20,27 +20,45 @@ call; JAX reads it at import):
   `all_gather` of the payload, the rank's score-table block and the
   per-node rows the selection reads. The selection tail then runs on every
   rank on the full-width arrays (K8, K9).
-- The per-round path of `schedule_wave`, N above the limit
-  (`round_shards`; JAX keeps XLA's GSPMD form of the plain loop there,
-  :1273): every stage of a round reads the tables and the carry only on
-  the rank's block but the merge, and each round makes exactly four
-  collectives: `pmax` #1 of the six normalizer maxima; `all_gather_rows`
-  #1 of each block's summary (its first two maxima of the hidden-entry
-  bound and its best head, as (value, global node), and its feasible
-  count); `all_gather_rows` #2 of each block's top c = min(K, m - placed,
-  NL*B) guarded entries (key, exhaust flag) and its guarded count, from
-  which every rank merges the same global top; `pmax` #2 of the six
-  maxima over the nodes that top leaves feasible. Exact: the maxima are
+
+Above the limit (`round_shards`: JAX keeps XLA's GSPMD form of the plain
+loops there, :1273 and :2095) both waves run every per-node stage on the
+rank's block and exchange only block summaries and block tops:
+
+- The per-round path of `schedule_wave`: every stage of a round reads the
+  tables and the carry only on the rank's block but the merge, and each
+  round makes exactly four collectives: `pmax` #1 of the six normalizer
+  maxima; `all_gather_rows` #1 of each block's summary (its first two
+  maxima of the hidden-entry bound and its best head, as (value, global
+  node), and its feasible count); `all_gather_rows` #2 of each block's top
+  c = min(K, m - placed, NL*B) guarded entries (key, exhaust flag) and its
+  guarded count, from which every rank merges the same global top; `pmax`
+  #2 of the six maxima over the nodes that top leaves feasible. Exact: the maxima are
   order-free, ties break on global node and flat indices, and the top of
   the union of the blocks' tops is the unsharded top (csrc/wave_rounds.cu
   K10, ops/kernels.py `_wave_round_sharded`). Its cost per round: four
   collectives and one host read of (placed, last), and the block's radix
   select and the merge's over shards*c keys, one block each.
-  `schedule_affinity_wave` has no per-round form in the port yet (ROADMAP
-  B13b (b)): above the limit it runs unsharded on every rank, which gives
-  the same placements.
+- The sharded tail of `schedule_affinity_wave`: each epoch's front, score
+  table, SelectorSpread blend, guard and top c = min(K_EP, NL*B) entries run
+  on the block; the rounds run on every rank on the merged list and the
+  replicated [D+1] counters, so they need no collective (a round reads only
+  the candidates and the counters, and the only per-node state it writes
+  is a domain's "ever blocked" bit). An epoch makes two to four
+  collectives, by branch (`NodeMesh.tail_branches`): all_gather_rows #1 of
+  the block's stacked maxima, three flags and the block's SelectorSpread
+  zone sums (integer-valued: summed in rank order, exact); all_gather_rows
+  #2 of the block summaries (the two largest hidden-entry bounds and the
+  best head as (value, global node), the usable count) — "head" ends
+  there when the epoch cannot take several pods; all_gather_rows #3 of
+  each block's top c keys with their budget domains, whose top K_EP is the
+  unsharded top — "select" ends there when the rounds take nothing; pmax
+  #4 of the sandwich's maxima over the block — "sandwich" (csrc/
+  affinity_rounds.cu K11, ops/kernels.py `epoch_rounds` in
+  `schedule_affinity_wave_plain`). The host reads one to three small values
+  per epoch.
 
-In either path the per-node counts, `placed`, the statistics and K3c's new
+In every path the per-node counts, `placed`, the statistics and K3c's new
 carry are equal on every rank (JAX's out_specs `P()`). The serial routes
 (K2, K4, K1, K7) and the commit (K3c) run replicated on every rank.
 
@@ -61,8 +79,7 @@ which every rank holds the same [S, ...] result, as JAX's fetch of a
 lane-sharded array gives it. The callers pad S to a multiple of k as JAX's
 do (the probe session repeats its last candidate, the image its lane 0).
 
-Not ported (ROADMAP B13b (b) and (c)): `schedule_affinity_wave`'s
-per-round form above the limit, and the partitioned table layout
+Not ported (ROADMAP B13b (c)): the partitioned table layout
 (`table_shardings`, `carry_shardings`, `to_device_sharded`,
 `carry_reshard_bytes`), with which each rank would store only its block.
 """
@@ -111,6 +128,9 @@ class NodeMesh:
     transport: str
     counts: dict = dataclasses.field(default_factory=_zero_counts)
     staged_bytes: int = 0
+    # epochs of the affinity wave's sharded tail by their last collective:
+    # "head" (#2), "select" (#3), "sandwich" (#4)
+    tail_branches: Counter = dataclasses.field(default_factory=Counter)
     axis_names: Tuple[str, ...] = (NODE_AXIS,)
 
     @property
@@ -120,6 +140,7 @@ class NodeMesh:
     def reset_counts(self) -> None:
         self.counts = _zero_counts()
         self.staged_bytes = 0
+        self.tail_branches = Counter()
 
 
 def _group_of(group) -> tuple:

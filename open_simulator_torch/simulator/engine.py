@@ -53,7 +53,7 @@ Left out of this port so far, each with the ROADMAP item it waits for:
 - the watchdog, CPU failover, fault injection and transactional rollback
   (resilience/), and the pulse and scope instrumentation (obs/): A9;
 - the columnar PodStore/NodeStore batches: A14;
-- the mesh's partitioned table layout (A12b) and its scenario axis (A12c).
+- the mesh's partitioned table layout (A12b).
 
 On a node mesh (`use_mesh`, parallel/mesh.py) every rank runs this engine
 on the same input with the tables and carry replicated; the encoder pads
@@ -61,7 +61,8 @@ the node axis to a multiple of the shard count, and the "wave" and
 "affinity" routes pass the mesh to their kernels, whose epoch fronts run on
 the rank's node block with two collectives per epoch (K8, K9 on the card);
 above the epoch limit the wave's rounds run on the block with four
-collectives per round (K10).
+collectives per round (K10), and the affinity wave's epochs on the block
+but their rounds, with two to four collectives per epoch (K11).
 """
 
 from __future__ import annotations

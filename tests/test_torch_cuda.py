@@ -614,6 +614,31 @@ def test_round_kernel_matches_plain_rounds_on_two_ranks(tmp_path):
     assert sum(r["stats"][1] for r in got[0]) > 0 and sum(r["stats"][2] for r in got[0]) > 0
 
 
+@pytest.mark.cuda
+def test_tail_kernel_matches_plain_tail_on_two_ranks(tmp_path):
+    """K11 on two ranks that share cuda:0 over gloo against its plain
+    sharded-tail version on the same ranks and the unsharded K5, bit for bit
+    (counts, placed, AFFINITY_STATS), on every affinity segment of the
+    seeded tail cases (tests/torch_mesh_cases.py `_tail_segments`, the epoch
+    limit lowered), with the same branches and the tail's collectives per
+    branch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import torch_mesh_cases as C
+    from open_simulator_torch.ops import build
+    from open_simulator_torch.parallel.launch import run_ranks
+
+    build.library()  # build once, before the ranks load it
+    got = run_ranks(C.card_tail_kernels, 2, str(tmp_path), device="cuda", backend="gloo")
+    assert got[0] == got[1]
+    for r in got[0]:
+        assert r["same_plain"] and r["same_unsharded"] and r["same_branches"], r
+        assert C.tail_epochs(r["branches"]) == r["stats"][0], r
+        assert r["calls"] == C.tail_calls(r["branches"]), r
+    assert sum(r["stats"][1] for r in got[0]) > 0 and sum(r["stats"][2] for r in got[0]) > 0
+    assert sum(r["branches"].get("rejected", 0) for r in got[0]) > 0
+
+
 LANE_FANOUTS = ("probe_serial_fanout", "probe_wave_fanout", "probe_group_serial_fanout",
                 "probe_affinity_wave_fanout", "serve_whatif_fanout", "serve_wave_fanout",
                 "sweep_wave_fanout", "sweep_whatif_fanout")

@@ -17,13 +17,21 @@ every case of tests/torch_mesh_cases.py on every rank. Held here:
   (whose GSPMD per-round form runs there) and as the unsharded port, with
   two `pmax` and two `all_gather_rows` per round, and equals the unsharded
   plain version bit for bit on seeded tables with the limit lowered;
+- above the limit the affinity wave's sharded tail (K11's plain version)
+  places the N = 2,560 `tail_workload` as the JAX Simulator and as the
+  unsharded port, with two all_gather_rows per epoch, a third after
+  use_multi_pre and a pmax after rounds that took pods (none in a round),
+  and equals the unsharded plain version bit for bit on seeded tables with
+  the limit lowered, every branch of the epoch reached;
 - the route's rules: an N the shard count does not divide makes no
-  collective call, and above the limit only the wave segments make the
-  rounds' collectives; both place the same pods;
+  collective call, and above the limit the wave segments make the rounds'
+  collectives and the affinity segments the tail's; both place the same
+  pods;
 - every rank returns the same results, and a failing rank fails the run.
 """
 
 import copy
+from collections import Counter
 
 import pytest
 import torch
@@ -35,6 +43,7 @@ from open_simulator_torch.parallel import (NODE_AXIS, SCENARIO_AXIS, ShardedKern
                                            round_shards)
 from open_simulator_torch.parallel.launch import run_ranks
 from open_simulator_torch.simulator.engine import Simulator as TorchSimulator
+import open_simulator_tpu.core.types as jax_types
 from open_simulator_tpu.parallel.mesh import make_node_mesh as jax_node_mesh
 from open_simulator_tpu.simulator.engine import Simulator as JaxSimulator
 
@@ -55,12 +64,16 @@ def unsharded():
     out = {name: C.run_engine(*make()) for name, make in C.WORKLOADS.items()}
     out["seeded"] = C.run_engine(*C.seeded_workload())
     out["rounds"] = C.run_engine(*C.rounds_workload())
+    out["tail"] = C.run_engine(*C.tail_workload())
     return out
 
 
 def _jax_run(name: str, shards: int) -> dict:
-    nodes, pods = C.WORKLOADS[name]() if name in C.WORKLOADS else C.rounds_workload()
+    make = {**C.WORKLOADS, "rounds": C.rounds_workload, "tail": C.tail_workload}[name]
+    nodes, pods, *services = make()
     sim = JaxSimulator(copy.deepcopy(nodes), use_mesh=True)
+    sim.register_cluster_objects(jax_types.ResourceTypes(services=copy.deepcopy(
+        services[0] if services else [])))
     sim._mesh = jax_node_mesh(shards)  # pin the shard count, as test_mesh_sharding.py does
     return C.placements(sim, sim.schedule_pods(copy.deepcopy(pods)))
 
@@ -126,18 +139,11 @@ def test_plain_sharded_kernels_equal_unsharded(ranks, shards):
     assert {("wave", False), ("affinity", False), ("affinity", True)} <= kinds
 
 
-def _round_calls(rounds: int) -> dict:
-    """The per-round path's collective calls for `rounds` rounds: two pmax
-    (the normalizers, then those without the exhausted nodes) and two
-    all_gather_rows (the block summaries, then the candidates)."""
-    return {"pmax": 2 * rounds, "all_gather_tiled": 0, "all_gather_rows": 2 * rounds}
-
-
 @pytest.mark.parametrize("shards", SHARDS)
 def test_route_rules_make_no_collective(ranks, unsharded, shards):
     """An N the shard count does not divide makes no collective call; above
     the epoch limit the wave segments take the per-round path and the
-    affinity segments (whose per-round form is not ported) none."""
+    affinity segments the sharded tail."""
     rules = ranks[shards][0]["rules"]
     ind = rules["indivisible"]
     assert ind["N"] % shards and ind["kind"] == "affinity" and ind["same"]
@@ -146,7 +152,9 @@ def test_route_rules_make_no_collective(ranks, unsharded, shards):
     assert above["shards"] == shards
     rounds = above["wave"]["iterations"]
     assert rounds > 0 and above["affinity"]["epochs"] > 0
-    assert {k: v["calls"] for k, v in above["counts"].items()} == _round_calls(rounds)
+    assert C.tail_epochs(above["branches"]) == above["affinity"]["epochs"]
+    assert {k: v["calls"] for k, v in above["counts"].items()} == C.summed_calls(
+        C.round_calls(rounds), C.tail_calls(above["branches"]))
     assert above["placed"] == unsharded["mixed"]["placed"]
     assert above["wave"] == unsharded["mixed"]["wave"]
     assert above["affinity"] == unsharded["mixed"]["affinity"]
@@ -166,7 +174,7 @@ def test_rounds_path_places_as_the_jax_mesh(ranks, unsharded, shards):
     assert got["wave"] == unsharded["rounds"]["wave"]
     rounds = got["wave"]["iterations"]
     assert rounds > got["census"]["wave"][0]  # some segment took two rounds or more
-    assert {k: v["calls"] for k, v in got["counts"].items()} == _round_calls(rounds)
+    assert {k: v["calls"] for k, v in got["counts"].items()} == C.round_calls(rounds)
 
 
 @pytest.mark.parametrize("shards", SHARDS)
@@ -178,7 +186,7 @@ def test_plain_round_kernels_equal_unsharded(ranks, shards):
     recs = ranks[shards][0]["round_kernels"]
     for r in recs:
         assert r["same"], r
-        assert r["calls"] == _round_calls(r["stats"]["iterations"]), r
+        assert r["calls"] == C.round_calls(r["stats"]["iterations"]), r
     # a round that takes less than what is left, with entries the guard deferred
     assert any(r["stats"]["iterations"] > 1 and r["stats"]["guarded"] > 0 for r in recs)
     assert sum(r["stats"]["head_fallbacks"] for r in recs) > 0
@@ -190,6 +198,56 @@ def test_plain_round_kernels_equal_unsharded(ranks, shards):
     assert any(not r["fit"] for r in recs)
     # N 64 with nodes 32-63 cordoned: whole rank blocks are infeasible
     assert {r["N"] for r in recs if r["cluster"] == "seeded"} == {64}
+
+
+@pytest.mark.parametrize("shards", SHARDS)
+def test_sharded_tail_places_as_the_jax_mesh(ranks, unsharded, shards):
+    """N = 2,560 > the default epoch limit: the port's affinity segments take
+    the sharded tail on `shards` ranks and place every pod of
+    `tail_workload` as the JAX Simulator on make_node_mesh(shards) (its
+    GSPMD form of the plain loop) and as the unsharded port, with the
+    tail's collectives beside the wave's rounds'."""
+    got = ranks[shards][0]["tail_e2e"]
+    want = _jax_run("tail", shards)
+    assert got["shards"] == shards and "affinity" in got["census"]
+    assert got["placed"] == want["placed"] and got["failed"] == want["failed"]
+    assert got["placed"] == unsharded["tail"]["placed"]
+    assert got["failed"] == unsharded["tail"]["failed"]
+    assert got["affinity"] == unsharded["tail"]["affinity"]
+    assert got["wave"] == unsharded["tail"]["wave"]
+    epochs = got["affinity"]["epochs"]
+    assert epochs > 0 and C.tail_epochs(got["branches"]) == epochs
+    assert got["branches"].get("sandwich", 0) > 0  # rounds took pods, with no collective
+    assert {k: v["calls"] for k, v in got["counts"].items()} == C.summed_calls(
+        C.round_calls(got["wave"]["iterations"]), C.tail_calls(got["branches"]))
+
+
+@pytest.mark.parametrize("shards", SHARDS)
+def test_plain_tail_equals_unsharded(ranks, shards):
+    """The plain sharded tail against the unsharded plain version, bit for
+    bit (counts, placed, AFFINITY_STATS), on every affinity segment of the
+    seeded clusters of `tail_segments` (limit 16, or 4 at N 8), with the
+    tail's collectives per branch; together the runs reach every branch of
+    the epoch."""
+    recs = ranks[shards][0]["tail"]
+    total = Counter()
+    for r in recs:
+        assert r["same"], r
+        assert C.tail_epochs(r["branches"]) == r["stats"]["epochs"] > 0, r
+        assert r["calls"] == C.tail_calls(r["branches"]), r
+        total.update(r["branches"])
+    # accepted multi-round epochs, by both takes; a head fallback without
+    # use_multi_pre; a sandwich that rejected the rounds' take
+    assert total["full_rounds"] > 0 and total["rise_rounds"] > 0
+    assert total["head"] > 0 and total["rejected"] > 0
+    assert any(r["bootstrap"] for r in recs)
+    # live SelectorSpread with zone sums from several blocks
+    assert any(r["ss_live"] and r["zones"] > 2 and r["blocks_feasible"] > 1 for r in recs)
+    assert any(r["cluster"] == "hostname" and r["placed"] > 0 for r in recs)
+    assert all(r["ties"] for r in recs if r["cluster"] in ("open", "hostname"))
+    assert any(r["blocks_feasible"] < shards for r in recs)  # a wholly infeasible block
+    # ROADMAP §C3 as the unsharded run: 17 pods on the two-slot node u0
+    assert [r["on_last_real"] for r in recs if r["cluster"] == "overcommit"] == [17]
 
 
 def _raise_on_rank_one(mesh):

@@ -10,7 +10,10 @@ all-gather per epoch; then the wave's per-round path above the epoch
 limit: K10 against its plain per-round version and K3 on the seeded
 per-round cases (the limit at 16), and the engine on the N = 2,560
 `rounds_workload` (the default limit) against the unsharded engine, with
-two pmax and two all_gather_rows per round. The scenario axis, on a scenario mesh of one group
+two pmax and two all_gather_rows per round; and the affinity wave's
+sharded tail: K11 against its plain version and K5 on the seeded tail
+cases, and the engine on the N = 2,560 `tail_workload` against the
+unsharded engine, with the tail's collectives per branch. The scenario axis, on a scenario mesh of one group
 per rank (tests/torch_scenario_cases.py): each lane kernel's block of
 lanes against a full launch, and the probe sessions, the what-if
 responses and the example sweeps' reports (parity off) on the mesh against
@@ -84,6 +87,16 @@ def rank_fn(mesh) -> dict:
     out["rounds"] = {"same": got["placed"] == want["placed"] and got["failed"] == want["failed"],
                      "calls": {k: v["calls"] for k, v in got["counts"].items()},
                      "rounds": got["wave"]["iterations"]}
+    out["tail_kernels"] = C.card_tail_kernels(mesh)
+    nodes, pods, services = C.tail_workload()
+    got = C.run_engine(nodes, pods, services, mesh=mesh, device="cuda")
+    want = C.run_engine(nodes, pods, services, mesh=None, device="cuda")
+    out["tail"] = {"same": got["placed"] == want["placed"] and got["failed"] == want["failed"],
+                   "calls": {k: v["calls"] for k, v in got["counts"].items()},
+                   "want": C.summed_calls(C.round_calls(got["wave"]["iterations"]),
+                                          C.tail_calls(got["branches"])),
+                   "epochs": got["affinity"]["epochs"],
+                   "tail_epochs": C.tail_epochs(got["branches"])}
     out["scenario"] = scenario_cases()
     return out
 
@@ -118,6 +131,11 @@ def main() -> int:
               and r["rounds"]["calls"] == {"pmax": 2 * r["rounds"]["rounds"], "all_gather_tiled": 0,
                                            "all_gather_rows": 2 * r["rounds"]["rounds"]}
               for r in res)
+    ok &= all(k["same_plain"] and k["same_unsharded"] and k["same_branches"]
+              and k["calls"] == C.tail_calls(k["branches"])
+              for r in res for k in r["tail_kernels"])
+    ok &= all(r["tail"]["same"] and r["tail"]["epochs"] == r["tail"]["tail_epochs"] > 0
+              and r["tail"]["calls"] == r["tail"]["want"] for r in res)
     ok &= all(all(r["scenario"].values()) for r in res)
     print("mesh on", ranks, "cards:", "ok" if ok else "FAILED")
     return 0 if ok else 1

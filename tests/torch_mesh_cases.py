@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import copy
 import os
+from collections import Counter
 
 import numpy as np
 
@@ -95,6 +96,39 @@ WORKLOADS = {"mixed": mixed_workload, "hard_affinity": hard_affinity_workload,
              "hostname_spread": hostname_spread_workload}
 
 
+def tail_workload(seed: int = 13, n_nodes: int = 2560):
+    """N = 2,560 nodes on four zones, above the default epoch limit (so JAX
+    partitions the affinity wave's plain loop with GSPMD and the port takes
+    its sharded tail, K11's path, on a node mesh): seeded node sizes, and
+    every affinity shape: a zone DoNotSchedule spread, a hostname spread,
+    hostname and zone self-anti-affinity, required zone self-affinity (its
+    bootstrap) and a Service-backed group (live SelectorSpread over zones).
+    Returns (nodes, pods, services)."""
+    rng = np.random.RandomState(seed)
+    nodes = [make_node(f"t{i:05d}", cpu=str(int(rng.choice([8, 16]))),
+                       memory=f"{int(rng.choice([16, 32]))}Gi", pods="110",
+                       labels={ZONE: f"z{i % 4}"}) for i in range(n_nodes)]
+    pods = [_spread(make_pod(f"z-{i}", cpu="200m", memory="128Mi", labels={"app": "z"}),
+                    "z", ZONE, 2) for i in range(60)]
+    pods += [_spread(make_pod(f"hs-{i}", cpu="100m", memory="64Mi", labels={"app": "hs"}),
+                     "hs", HOST, 1) for i in range(80)]
+    pods += [_required(make_pod(f"ah-{i}", cpu="100m", memory="64Mi", labels={"app": "ah"}),
+                       "podAntiAffinity", "ah", HOST) for i in range(30)]
+    pods += [_required(make_pod(f"az-{i}", cpu="100m", memory="64Mi", labels={"app": "az"}),
+                       "podAntiAffinity", "az", ZONE) for i in range(6)]
+    pods += [_required(make_pod(f"af-{i}", cpu="100m", memory="64Mi", labels={"app": "af"}),
+                       "podAffinity", "af", ZONE) for i in range(40)]
+    pods += [_required(make_pod(f"sv-{i}", cpu="150m", memory="128Mi", labels={"app": "svc"}),
+                       "podAffinity", "svc", ZONE) for i in range(12)]
+    return nodes, pods, _services("svc")
+
+
+def _services(*apps) -> list:
+    return [{"apiVersion": "v1", "kind": "Service",
+             "metadata": {"name": app, "namespace": "default"},
+             "spec": {"selector": {"app": app}}} for app in apps]
+
+
 def seeded_workload(seed: int = 7, n_nodes: int = 64, cordon_from: int = 32):
     """Seeded node sizes on four zones, nodes from `cordon_from` on cordoned
     (every node of the upper shards' blocks infeasible), and pods of every
@@ -122,10 +156,7 @@ def seeded_workload(seed: int = 7, n_nodes: int = 64, cordon_from: int = 32):
                        "podAffinity", "af", ZONE) for i in range(50)]
     pods += [_required(make_pod(f"sv-{i}", cpu="150m", memory="128Mi", labels={"app": "svc"}),
                        "podAffinity", "svc", ZONE) for i in range(40)]
-    services = [{"apiVersion": "v1", "kind": "Service",
-                 "metadata": {"name": "svc", "namespace": "default"},
-                 "spec": {"selector": {"app": "svc"}}}]
-    return nodes, pods, services
+    return nodes, pods, _services("svc")
 
 
 def placements(sim, failed) -> dict:
@@ -157,7 +188,8 @@ def run_engine(nodes, pods, services=(), mesh=None, device="cpu") -> dict:
                wave=K.wave_stats(), affinity=K.affinity_stats(),
                launches={k: v for k, v in K.launch_counts().items() if "sharded" in k},
                shards=sim._mesh.shards if sim._mesh is not None else 1,
-               counts=copy.deepcopy(mesh.counts) if mesh is not None else None)
+               counts=copy.deepcopy(mesh.counts) if mesh is not None else None,
+               branches=dict(mesh.tail_branches) if mesh is not None else None)
     return out
 
 
@@ -207,6 +239,42 @@ def kernel_segments(mesh, device="cpu", seed: int = 7, cordon_from: int = 32) ->
                                  bool(seg[5]) if kind == "wave" else False)
     out.append({"N": N})
     return out
+
+
+def round_calls(rounds: int) -> dict:
+    """The per-round path's collective calls for `rounds` rounds: two pmax
+    (the normalizers, then those without the exhausted nodes) and two
+    all_gather_rows (the block summaries, then the candidates)."""
+    return {"pmax": 2 * rounds, "all_gather_tiled": 0, "all_gather_rows": 2 * rounds}
+
+
+def tail_calls(branches: dict) -> dict:
+    """The affinity wave's sharded tail's collective calls for its epochs by
+    branch: all_gather_rows #1 (the block's reductions) and #2 (the block
+    summaries) in every epoch, #3 (the block tops) after use_multi_pre
+    ("select", "sandwich"), and pmax #4 after rounds that took pods
+    ("sandwich"); the rounds themselves make none."""
+    head, sel, sand = (branches.get(k, 0) for k in ("head", "select", "sandwich"))
+    return {"pmax": sand, "all_gather_tiled": 0, "all_gather_rows": 2 * head + 3 * (sel + sand)}
+
+
+def tail_epochs(branches: dict) -> int:
+    """The sharded tail's epochs, each counted in one collective branch."""
+    return sum(branches.get(k, 0) for k in ("head", "select", "sandwich"))
+
+
+def tail_verdicts(branches) -> dict:
+    """The counts of `NodeMesh.tail_branches` that K11 keeps as its plain
+    version does: the epochs by branch and the sandwich's rejections."""
+    return {k: v for k, v in branches.items() if k in ("head", "select", "sandwich", "rejected")}
+
+
+def summed_calls(*calls) -> dict:
+    """The element-wise sum of collective-call dicts."""
+    out = Counter()
+    for c in calls:
+        out.update(c)
+    return {k: out[k] for k in ("pmax", "all_gather_tiled", "all_gather_rows")}
 
 
 LIMIT = "OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES"
@@ -369,12 +437,162 @@ def card_round_kernels(mesh, limit: int = 16) -> list:
     return out
 
 
+def overcommit_nodes():
+    """tests/test_torch_affinity.py `anti_unlabeled_overcommit`: six zoned
+    nodes and the unlabeled node u0 with two pod slots."""
+    nodes = [make_node(f"n{i}", cpu="8", labels={ZONE: f"z{i % 3}"}) for i in range(6)]
+    return nodes + [make_node("u0", cpu="8", pods="2")]
+
+
+def overcommit_pods():
+    """20 pods of zone self-anti-affinity: u0 sits in the sentinel domain,
+    which no budget meters, so the affinity wave puts 17 of them there (the
+    JAX result, ROADMAP §C3)."""
+    return [_required(make_pod(f"ao-{i}", cpu="400m", memory="128Mi", labels={"app": "ao"}),
+                      "podAntiAffinity", "ao", ZONE) for i in range(20)]
+
+
+def levels_workload(n_nodes: int = 64):
+    """A zone DoNotSchedule spread (maxSkew 1) over four zones whose first
+    zone already holds nine of its pods: the other zones catch up by several
+    levels in one multi-level round (JAX round_body's `use_full` take), then
+    single rises. Returns (nodes, bound pods, pods)."""
+    nodes = [make_node(f"v{i}", cpu="16", memory="32Gi", labels={ZONE: f"z{i % 4}"})
+             for i in range(n_nodes)]
+    bound = [make_pod(f"seed-{i}", cpu="100m", memory="64Mi", labels={"app": "lv"},
+                      node_name=f"v{4 * (i % 3)}") for i in range(9)]
+    pods = [_spread(make_pod(f"lv-{i}", cpu="100m", memory="64Mi", labels={"app": "lv"}),
+                    "lv", ZONE, 1) for i in range(120)]
+    return nodes, bound, pods
+
+
+def _tail_segments(device: str):
+    """Every affinity segment of the sharded tail's seeded clusters, chained
+    from the seed carry by the unsharded path: yields (cluster label, the
+    epoch limit to run under, tables, carry, segment, block, n_zones). The
+    clusters: `seeded_workload` (the upper half cordoned: whole blocks
+    infeasible), the same uncordoned (zone sums from several blocks),
+    `hostname_spread_workload` (hostname domains, equal scores across the
+    cuts), `levels_workload` (a multi-level round) and the overcommit case
+    (N 8 with the phantom node, limit 4)."""
+    import torch  # noqa: F401  (the plain versions need it loaded)
+
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.simulator.engine import Simulator
+
+    nodes, pods, services = seeded_workload()
+    h_nodes, h_pods = hostname_spread_workload()
+    clusters = (("seeded", 16, nodes, [], pods, services),
+                ("open", 16, seeded_workload(cordon_from=64)[0], [], pods, services),
+                ("hostname", 16, h_nodes, [], h_pods, []),
+                ("levels", 16, *levels_workload(), []),
+                ("overcommit", 4, overcommit_nodes(), [], overcommit_pods(), []))
+    for label, limit, nodes, bound, pods, services in clusters:
+        sim = Simulator(copy.deepcopy(nodes), device=device, use_mesh=False)
+        sim.register_cluster_objects(ResourceTypes(services=list(services)))
+        sim.schedule_pods(copy.deepcopy(bound))
+        bt = sim.encode_batch(copy.deepcopy(pods))
+        tb, cry = sim._to_device(bt)
+        for seg in sim._segments(bt, len(pods)):
+            kind, _, m, g, cap1 = seg[:5]
+            if kind == "wave":
+                j = K.schedule_wave_plain(tb, cry, g, m, bool(cap1),
+                                          block=K.wave_block_for(m, sim.na.N),
+                                          kmax=K.wave_kmax(m, sim.na.N,
+                                                           K.wave_block_for(m, sim.na.N)),
+                                          gpu_live=bool(seg[5]))[0]
+                cry = K.aggregate_commit(tb, cry, g, j, bool(seg[5]))
+            if kind != "affinity":
+                continue
+            block = K.wave_block_for(m, sim.na.N)
+            n_zones = bt.n_zones if seg[5] else 2
+            yield label, limit, tb, cry, seg, block, n_zones
+            j = K.schedule_affinity_wave_plain(tb, cry, g, m, bool(cap1), ss_live=bool(seg[5]),
+                                               block=block, n_zones=n_zones)[0]
+            cry = K.aggregate_commit(tb, cry, g, j)
+
+
+def _bootstrap(tb, cry, g: int) -> bool:
+    """Whether group g's first epoch is a bootstrap: required self-affinity
+    with no matching pod placed yet."""
+    ids = tb.req_aff_t[g]
+    ids = ids[ids >= 0].long()
+    return bool(tb.grp_aff_self[g]) and len(ids) > 0 and float(cry.counter[ids].sum()) == 0.0
+
+
+def tail_segments(mesh, device="cpu") -> list:
+    """The affinity wave's sharded tail (the epoch limit lowered): on every
+    affinity segment of `_tail_segments`' clusters, the plain sharded-tail
+    version against the unsharded plain version from the same carry, with
+    the collective calls and `mesh.tail_branches`. One record per segment."""
+    from open_simulator_torch.ops import kernels as K
+
+    out = []
+    for label, limit, tb, cry, seg, block, n_zones in _tail_segments(device):
+        _, _, m, g, cap1, ss_live = seg[:6]
+        runs = []
+        with epoch_limit(limit):
+            for msh in (None, mesh):
+                mesh.reset_counts()
+                j, placed, st = K.schedule_affinity_wave_plain(
+                    tb, cry, g, m, bool(cap1), ss_live=bool(ss_live), block=block,
+                    n_zones=n_zones, mesh=msh)
+                runs.append((j.tolist(), int(placed), dict(st)))
+        N = int(tb.alloc.shape[0])
+        NL = N // mesh.shards
+        feas = K.feasibility(tb, cry, g, -1, True)[0]
+        out.append({"cluster": label, "N": N, "m": m, "ss_live": bool(ss_live),
+                    "zones": int(tb.node_zone.max()) + 1, "same": runs[0] == runs[1],
+                    "stats": runs[0][2], "placed": runs[0][1],
+                    "calls": {k: v["calls"] for k, v in mesh.counts.items()},
+                    "branches": dict(mesh.tail_branches), "bootstrap": _bootstrap(tb, cry, g),
+                    "ties": _ties_across_cut(tb, cry, g, mesh.shards, K),
+                    "blocks_feasible": len({n // NL for n in feas.nonzero().flatten().tolist()}),
+                    "on_last_real": runs[1][0][6] if label == "overcommit" else None})
+    return out
+
+
+def card_tail_kernels(mesh) -> list:
+    """On the card: K11 against its plain sharded-tail version (on the card,
+    on the same ranks) and against the unsharded K5, on every segment of
+    `_tail_segments` (each under its lowered epoch limit). One record per
+    segment, with K11's collective calls and branches."""
+    import torch
+
+    from open_simulator_torch.ops import kernels as K
+
+    out = []
+    for label, limit, tb, cry, seg, block, n_zones in _tail_segments("cuda"):
+        _, _, m, g, cap1, ss_live = seg[:6]
+        kw = dict(ss_live=bool(ss_live), block=block, n_zones=n_zones)
+        with epoch_limit(limit):
+            mesh.reset_counts()
+            kj, kp, kst = K.schedule_affinity_wave_rounds_kernel(tb, cry, g, m, bool(cap1),
+                                                                 mesh=mesh, **kw)
+            calls = {k: v["calls"] for k, v in mesh.counts.items()}
+            branches = tail_verdicts(mesh.tail_branches)
+            mesh.reset_counts()
+            pj, pp, pst = K.schedule_affinity_wave_plain(tb, cry, g, m, bool(cap1), mesh=mesh,
+                                                         **kw)
+            plain_branches = tail_verdicts(mesh.tail_branches)
+        uj, up, ust = K.schedule_affinity_wave_kernel(tb, cry, g, m, bool(cap1), **kw)
+        out.append({"cluster": label, "m": m, "stats": kst.tolist(), "calls": calls,
+                    "branches": branches, "same_branches": branches == plain_branches,
+                    "same_plain": bool(torch.equal(kj, pj)) and int(kp) == pp
+                    and kst.tolist() == [pst[k] for k in K.AFFINITY_STATS],
+                    "same_unsharded": bool(torch.equal(kj, uj)) and int(kp) == int(up)
+                    and kst.tolist() == ust.tolist()})
+    return out
+
+
 def route_rules(mesh, device="cpu") -> dict:
     """The epoch path's limits: an N that the shard count does not divide
     makes no collective call, and at an N above
     OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES the wave segments take the
-    per-round path (two pmax and two all_gather_rows per round) while the
-    affinity segments run unsharded; both place the same pods."""
+    per-round path (two pmax and two all_gather_rows per round) and the
+    affinity segments the sharded tail (two to four collectives per epoch);
+    both place the same pods."""
     from open_simulator_torch.ops import kernels as K
     from open_simulator_torch.simulator.encode import pad_encoder_axes
     from open_simulator_torch.simulator.engine import Simulator
@@ -416,6 +634,8 @@ def rank_cases(mesh, device="cpu") -> dict:
     out["kernels"] = kernel_segments(mesh, device)
     out["rounds"] = run_engine(*rounds_workload(), mesh=mesh, device=device)
     out["round_kernels"] = round_segments(mesh, device)
+    out["tail_e2e"] = run_engine(*tail_workload(), mesh=mesh, device=device)
+    out["tail"] = tail_segments(mesh, device)
     out["rules"] = route_rules(mesh, device)
     return out
 
