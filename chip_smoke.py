@@ -94,6 +94,23 @@ goldens the JAX package computed (tests/golden/torch_port_*.json):
   over all 8 (and, gathered, against all of it), bit for bit, timed with
   its plain version on the block. The phase prints each run's walls,
   launches, fetches, gathered calls and bytes and staged bytes per rank.
+- the partitioned layout (`parallel/mesh.py` `to_device_sharded`): the
+  port's unsharded serial runs of `hard`'s and `extended_serial`'s first
+  2,500 pods and of `overflow`'s shortest prefix with 200 failures in this
+  process, then two ranks sharing cuda:0 over gloo, each staging only its
+  block of the node axis, hold K12 (`ops/csrc/batch_sharded.cu`, the
+  serial scan on the block) against its plain version and the unsharded K2
+  on the first 256 pods of `hard` and `extended` (EXT), and its explain
+  mode against K7, then run those three serial runs through
+  `Simulator(use_mesh=True)` with `use_waves = False` against the
+  unsharded ones (choices digest, census, every reason; K1 on the block
+  supplies overflow's) and `demo_1` against its golden. Every scan on the
+  block must make exactly two all_gather_rows a pod and one pmax per pod
+  whose group has ScheduleAnyway terms (the engine runs one tiled gather
+  per K1 launch besides). The phase prints per rank the wall and wall per
+  pod, collectives per pod by kind, the bytes gathered and staged, K12's
+  per-stage times and the table and carry bytes each rank holds against
+  the unsharded layout's.
 
 Every phase prints one JSON line; any mismatch or error exits non-zero. The
 line before the card line lists every kernel with its launches on the main
@@ -411,14 +428,12 @@ def run_simulate(kind: str, cluster, apps, card: str):
     return result, counts
 
 
-def demo1(card: str) -> dict:
-    """The reference's primary example: demo_1 with the simple, complicate,
-    open_local and more_pods apps and 18 seeded new nodes, against
-    tests/golden/demo1_placements.json (match_rate 1.0 through the port's
-    parity module). Returns the launch counts."""
+def demo1_inputs() -> tuple:
+    """(cluster, apps) of the reference's primary example: demo_1 with the
+    simple, complicate, open_local and more_pods apps and 18 seeded new
+    nodes."""
     from open_simulator_torch.core.types import AppResource
     from open_simulator_torch.models.fakenode import new_fake_nodes
-    from open_simulator_torch.parity import load_dump, match_rate, placement_dump
     from open_simulator_torch.utils.yamlio import (load_cluster_from_directory,
                                                    load_resources_from_directory,
                                                    match_and_set_local_storage_annotation)
@@ -432,13 +447,28 @@ def demo1(card: str) -> dict:
         os.path.join(REPO, "examples/application", path)))
         for name, path in (("simple", "simple"), ("complicated", "complicate"),
                            ("open_local", "open_local"), ("more_pods", "more_pods"))]
-    result, counts = run_simulate("demo_1", cluster, apps, card)
+    return cluster, apps
+
+
+def demo1_rate(result, label: str) -> float:
+    """demo_1's match_rate against tests/golden/demo1_placements.json
+    (through the port's parity module); fails below 1.0."""
+    from open_simulator_torch.parity import load_dump, match_rate, placement_dump
+
     rate, detail = match_rate(placement_dump(result),
                               load_dump(os.path.join(REPO, "tests", "golden",
                                                      "demo1_placements.json")))
     if rate != 1.0:
-        fail(f"demo_1: match_rate {rate} against the golden ({dict(list(detail.items())[:5])})")
-    emit("demo_1", match_rate=rate, golden="match", card=card)
+        fail(f"{label}: match_rate {rate} against the golden ({dict(list(detail.items())[:5])})")
+    return rate
+
+
+def demo1(card: str) -> dict:
+    """demo_1 (`demo1_inputs`) through simulate() against its golden
+    (match_rate 1.0). Returns the launch counts."""
+    cluster, apps = demo1_inputs()
+    result, counts = run_simulate("demo_1", cluster, apps, card)
+    emit("demo_1", match_rate=demo1_rate(result, "demo_1"), golden="match", card=card)
     return counts
 
 
@@ -2226,6 +2256,333 @@ def scenario_mesh_phase(card: str, serve_want: list) -> tuple:
     return rows, launches
 
 
+# ---- the partitioned layout: each rank holds its block of the node axis and
+# the serial route runs on it (K12)
+
+PART_SHARDS = 2
+PART_ENGINE_PODS = 2500  # the engine runs' prefix of hard's and extended_serial's pods
+PART_KERNEL_PODS = 256   # K12 against its plain version on this prefix
+PART_OVERFLOW_FAILED = 200  # overflow's prefix: the shortest with this many failures
+
+
+def partitioned_cluster(label: str, n_pods: int) -> tuple:
+    """(nodes, the first n_pods pods, storage classes) of a partitioned-phase
+    cluster: hard's and overflow's synth_cluster shapes, or the extended
+    cluster."""
+    from open_simulator_torch.utils.synth import synth_cluster, synth_extended_cluster
+
+    if label in ("extended", "extended_serial"):
+        nodes, pods, _, scs = synth_extended_cluster(2000, 20000)
+        return nodes, pods[:n_pods], scs
+    nodes, pods = synth_cluster(*((5000, 50000) if label == "hard" else (100, 30000)),
+                                hard_predicates=True)
+    return nodes, pods[:n_pods], []
+
+
+def serial_run(nodes, pods, scs, mesh=None) -> tuple:
+    """The serial route (`use_waves = False`) of Simulator.schedule_pods on
+    the card, on `mesh`'s partitioned layout (None: unsharded), every launch
+    count set to 0 just before it: (summary with the reasons per failed pod,
+    launch counts, wall seconds, simulator)."""
+    import torch
+
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.simulator.engine import Simulator
+
+    sim = Simulator(nodes, device="cuda", use_mesh=mesh is not None)
+    sim.use_waves = False
+    sim.register_cluster_objects(ResourceTypes(storage_classes=list(scs)))
+    if mesh is not None:
+        if sim._resolve_mesh().shards != mesh.shards:
+            fail(f"partitioned: the simulator's mesh has {sim._mesh.shards} shards")
+        sim._mesh = mesh  # this rank's mesh, whose collective counters are read
+        mesh.reset_counts()
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    failed = sim.schedule_pods(pods)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = summarize(sim, pods, failed)
+    got["reasons"] = [u.reason for u in failed]
+    at = {id(p): i for i, p in enumerate(pods)}
+    got["failed_at"] = [at[id(u.pod)] for u in failed]
+    return got, K.launch_counts(), wall, sim
+
+
+def sa_pods_of(nodes, pods, scs) -> int:
+    """How many of `pods` belong to a group with ScheduleAnyway terms in
+    their batch's encoding (each such pod costs the scan on the block one
+    pmax)."""
+    import numpy as np
+
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.simulator.engine import Simulator
+
+    sim = Simulator(nodes, device="cuda", use_mesh=False)
+    sim.register_cluster_objects(ResourceTypes(storage_classes=list(scs)))
+    bt = sim.encode_batch(pods)
+    sa = (bt.sa_t >= 0).any(axis=1)
+    return int(sa[bt.pod_group[bt.valid]].sum())
+
+
+def partitioned_unsharded(card: str) -> dict:
+    """The port's unsharded serial runs of the partitioned phase's clusters
+    on the card, in this process: {label: (pods, summary, ScheduleAnyway
+    pods)}; overflow's pods are the shortest prefix whose run fails
+    PART_OVERFLOW_FAILED pods (the serial scan has no lookahead, so the
+    prefix's run is the whole run's prefix)."""
+    runs = {}
+    for label in ("hard", "extended_serial"):
+        nodes, pods, scs = partitioned_cluster(label, PART_ENGINE_PODS)
+        runs[label] = (len(pods), *serial_run(nodes, pods, scs)[::2], sa_pods_of(nodes, pods, scs))
+    nodes, pods, scs = partitioned_cluster("overflow", 30000)
+    at = serial_run(nodes, pods, scs)[0]["failed_at"]
+    if len(at) < PART_OVERFLOW_FAILED:
+        fail(f"overflow: {len(at)} failures, fewer than {PART_OVERFLOW_FAILED}")
+    n = sorted(at)[PART_OVERFLOW_FAILED - 1] + 1
+    nodes, pods, scs = partitioned_cluster("overflow", n)
+    runs["overflow"] = (n, *serial_run(nodes, pods, scs)[::2], sa_pods_of(nodes, pods, scs))
+    for label, (n, got, wall, sa) in runs.items():
+        emit("partitioned_unsharded", label=label, pods=n, placed=got["placed"],
+             unscheduled=got["unscheduled"], choices_sha256=got["choices_sha256"], sa_pods=sa,
+             seconds=wall, ms_per_pod=wall * 1e3 / n, card=card)
+    return {label: (n, got, sa) for label, (n, got, _, sa) in runs.items()}
+
+
+def k12_cost(tbl, seedl, P: int, pad: int, ext: bool) -> tuple:
+    """(bytes, f32 operations) K12 must spend on one rank's block for a scan
+    of P valid pods: K2's counts over the block's NL nodes (its tables and
+    pod arrays read once, its carry in and out, P steps of NL nodes) and,
+    with the GPU-share / Open-Local branches, their block tables and
+    ledgers; the collective rows (a few hundred bytes a pod) left out."""
+    b, ops = one_lane(k2_cost(tbl, seedl, P, pad))
+    if ext:
+        b += gpu_storage_bytes(tbl, seedl) + nbytes(seedl.dev_used, seedl.vg_req,
+                                                    seedl.sdev_alloc)
+    return b, ops
+
+
+def check_scan_collectives(what: str, counts: dict, pods: int, sa_pods: int,
+                           tiled: int = 0) -> None:
+    """Fail unless the scan on the block made exactly two all_gather_rows
+    per pod and one pmax per pod whose group has ScheduleAnyway terms, and
+    `tiled` all_gather_tiled (the reasons' gathers) besides."""
+    got = {k: v["calls"] for k, v in counts.items()}
+    want = {"pmax": sa_pods, "all_gather_tiled": tiled, "all_gather_rows": 2 * pods}
+    if got != want:
+        fail(f"{what}: collectives {got}, expected {want}")
+
+
+def partitioned_kernel_case(mesh, label: str) -> dict:
+    """K12 against its plain version (on the card, on this rank) and the
+    unsharded K2 on the cluster's first PART_KERNEL_PODS pods from the seed
+    carry, bit for bit (choices; the carry, gathered for K2), then K12's
+    explain mode against K7 on the end carry for every group; K12 timed per
+    stage by CUDA events, its plain version and K2 beside it."""
+    import torch
+
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.parallel.collectives import all_gather_tiled
+    from open_simulator_torch.parallel.mesh import gather_carry, to_device_sharded
+    from open_simulator_torch.simulator.encode import pad_batch_tables, plugin_flags
+    from open_simulator_torch.simulator.engine import Simulator
+
+    nodes, pods, scs = partitioned_cluster(label, PART_KERNEL_PODS)
+    sim = Simulator(nodes, device="cuda", use_mesh=False)
+    sim.register_cluster_objects(ResourceTypes(storage_classes=list(scs)))
+    bt = pad_batch_tables(sim.encode_batch(pods), mesh.shards)
+    gpu, storage = plugin_flags(bt)
+    flags = dict(enable_gpu=gpu, enable_storage=storage)
+    pg, fn, vd = (torch.from_numpy(a) for a in (bt.pod_group, bt.forced_node, bt.valid))
+    tb, seed = sim._to_device(bt)
+    tbl, seedl, _ = to_device_sharded(bt, mesh)
+    P, pad = int(vd.sum()), int(vd.shape[0])
+    kernel = lambda: K.schedule_batch_sharded_kernel(tbl, seedl, pg, fn, vd, bt.n_zones,  # noqa: E731
+                                                     mesh, **flags)
+    kernel()  # warm-up: the rank's first launches and collectives
+    mesh.reset_counts()
+    events = K.SHARDED_STAGE_EVENTS = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kc, kch = kernel()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    K.SHARDED_STAGE_EVENTS = None
+    coll = copy.deepcopy(mesh.counts)
+    staged = mesh.staged_bytes
+    sa_pods = int(sum(K._has_sa(tb, int(g)) for g in bt.pod_group[:P]))
+    check_scan_collectives(f"partitioned {label}", coll, P, sa_pods)
+    stages = {k: v / P for k, v in stage_ms(events).items()}
+    (pc, pch), plain_ms = timed(lambda: K.schedule_batch_sharded_plain(
+        tbl, seedl, pg, fn, vd, bt.n_zones, mesh, **flags))
+    (uc, uch), k2_ms = timed(lambda: K.schedule_batch_kernel(tb, seed, pg, fn, vd, bt.n_zones,
+                                                             **flags))
+    if not torch.equal(kch, pch) or not all(torch.equal(a, b) for a, b in zip(kc, pc)):
+        fail(f"partitioned {label}: K12 differs from its plain version "
+             f"({int((kch != pch).sum())} choices)")
+    full = gather_carry(kc, mesh)
+    if not torch.equal(kch, uch) or not all(torch.equal(a, b) for a, b in zip(full, uc)):
+        fail(f"partitioned {label}: K12 differs from the unsharded K2 "
+             f"({int((kch != uch).sum())} choices)")
+    err = max(err_of(a, b) for a, b in zip(kc, pc))
+    groups = sorted({int(g) for g in bt.pod_group[:P]})
+    for g in groups:
+        ek = all_gather_tiled(K.explain_sharded_kernel(tbl, kc, g, -1, True, bt.n_zones, **flags,
+                                                       mesh=mesh), mesh, axis=1)
+        eu = K.explain_kernel(tb, uc, g, -1, True, bt.n_zones, **flags)
+        if not torch.equal(ek.view(torch.int32), eu.view(torch.int32)):
+            fail(f"partitioned {label}: K12's explain mode differs from K7 (group {g})")
+    b, ops = k12_cost(tbl, seedl, P, pad, gpu or storage)
+    bound, by = bound_of(b, ops)
+    return dict(label=label, nodes=int(tb.alloc.shape[0]), block_nodes=int(tbl.alloc.shape[0]),
+                pods=P, placed=int((kch >= 0).sum()), sa_pods=sa_pods,
+                ms_per_pod=sum(stages.values()), stage_ms_per_pod=stages,
+                wall_ms_per_pod=wall_ms / P, plain_ms_per_pod=plain_ms / P,
+                k2_ms_per_pod=k2_ms / P, bound_ms_per_pod=bound / P, bound_by=by, bytes=b,
+                f32_ops=ops, collectives_per_pod={k: v["calls"] / P for k, v in coll.items()},
+                gathered_bytes={k: v["bytes"] for k, v in coll.items()}, staged_bytes=staged,
+                explain_groups=len(groups), max_abs_err=err,
+                table_bytes=nbytes(*tbl), carry_bytes=nbytes(*seedl),
+                unsharded_table_bytes=nbytes(*tb), unsharded_carry_bytes=nbytes(*seed))
+
+
+def demo1_partitioned(mesh) -> tuple:
+    """demo_1 as simulate() runs it (the cluster's workloads expanded, the
+    cluster synced, then each app), on this rank's partitioned layout with
+    `use_waves = False`: (match_rate, launch counts, wall seconds)."""
+    import torch
+
+    from open_simulator_torch.models.workloads import (expand_workloads_excluding_daemonsets,
+                                                       pods_from_daemonset)
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.simulator.engine import Simulator
+
+    cluster, apps = demo1_inputs()
+    cluster = cluster.copy()
+    pods = expand_workloads_excluding_daemonsets(cluster)
+    for ds in cluster.daemon_sets:
+        pods.extend(pods_from_daemonset(ds, cluster.nodes))
+    cluster.pods = pods
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim = Simulator(cluster.nodes, device="cuda", use_mesh=True)
+    sim.use_waves = False
+    sim._mesh = mesh
+    result = sim.run_cluster(cluster)
+    failed = list(result.unscheduled_pods)
+    for app in apps:
+        result = sim.schedule_app(app)
+        failed.extend(result.unscheduled_pods)
+    result.unscheduled_pods = failed
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return demo1_rate(result, "partitioned demo_1"), K.launch_counts(), wall
+
+
+def partitioned_rank(mesh, card: str, want: dict) -> dict:
+    """One rank of the partitioned phase: K12 against its plain version on
+    hard's and extended's clusters, then the engine's partitioned serial
+    route on hard, extended_serial and overflow against the unsharded runs
+    `want` (choices digest, census, reasons), with collectives per pod, the
+    stage times and the bytes held, and demo_1 against its golden."""
+    import torch
+
+    from open_simulator_torch.ops import kernels as K
+
+    out = {"rank": mesh.rank, "backend": mesh.backend, "transport": mesh.transport,
+           "cases": {}, "runs": {}, "launches": Counter()}
+    for label in ("hard", "extended"):
+        out["cases"][label] = partitioned_kernel_case(mesh, label)
+    for label, (n, ref, sa_pods) in want.items():
+        nodes, pods, scs = partitioned_cluster(label, n)
+        events = K.SHARDED_STAGE_EVENTS = {}
+        got, counts, wall, sim = serial_run(nodes, pods, scs, mesh)
+        K.SHARDED_STAGE_EVENTS = None
+        for k in ("choices_sha256", "per_node_counts", "placed", "unscheduled", "reason_census",
+                  "reasons", "failed_at"):
+            if got[k] != ref[k]:
+                fail(f"partitioned {label}: {k} differs from the unsharded run's")
+        if counts["schedule_batch_sharded"] <= 0 or counts["schedule_batch"]:
+            fail(f"partitioned {label}: K12 launched {counts['schedule_batch_sharded']} times, "
+                 f"K2 {counts['schedule_batch']}")
+        if label == "overflow" and counts["feasibility"] <= 0:
+            fail("partitioned overflow: K1 never ran on the block")
+        # the scan's collectives, and one tiled gather per K1 launch on the block
+        check_scan_collectives(f"partitioned {label}", mesh.counts, n, sa_pods,
+                               tiled=counts["feasibility"])
+        calls = {k: v["calls"] for k, v in mesh.counts.items()}
+        out["launches"].update(counts)
+        stages = stage_ms(events)
+        out["runs"][label] = dict(
+            nodes=len(nodes), pods=n, placed=got["placed"], unscheduled=got["unscheduled"],
+            choices_sha256=got["choices_sha256"], seconds=wall, ms_per_pod=wall * 1e3 / n,
+            collectives=calls, collectives_per_pod={k: v / n for k, v in calls.items()},
+            gathered_bytes={k: v["bytes"] for k, v in mesh.counts.items()},
+            staged_bytes=mesh.staged_bytes, stage_ms=stages,
+            kernel_ms_per_pod=sum(v for k, v in stages.items() if "batch_sharded" in k) / n,
+            launches={k: counts[k] for k in ("schedule_batch_sharded", "feasibility",
+                                             "schedule_batch_sharded/gpu_storage")},
+            block_rows=int(sim._last_carry.requested.shape[0]))
+        del sim
+    rate, counts, wall = demo1_partitioned(mesh)
+    out["launches"].update(counts)
+    out["runs"]["demo_1"] = dict(match_rate=rate, seconds=wall,
+                                 launches={"schedule_batch_sharded":
+                                           counts["schedule_batch_sharded"]})
+    return out
+
+
+def partitioned_phase(card: str) -> tuple:
+    """The partitioned phase: the unsharded serial runs in this process,
+    then PART_SHARDS ranks spawned after the build share cuda:0 over gloo,
+    each staging only its block of the node axis, and run
+    `partitioned_rank`. Every rank's runs must equal the unsharded ones and
+    each other's. Returns (the K12 kernels-line row, rank 0's launch counts
+    of the main path)."""
+    import tempfile
+
+    import torch
+
+    from open_simulator_torch.parallel.launch import run_ranks
+
+    t0 = time.perf_counter()
+    want = partitioned_unsharded(card)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as rdzv:
+        try:
+            ranks = run_ranks(partitioned_rank, PART_SHARDS, rdzv, args=(card, want),
+                              device="cuda", backend="gloo", timeout_s=600)
+        except RuntimeError as e:
+            fail(f"partitioned: {e}")
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    for r in ranks[1:]:
+        for label, run in r0["runs"].items():
+            if run.get("choices_sha256") != r["runs"][label].get("choices_sha256"):
+                fail(f"partitioned {label}: rank {r['rank']} placed differently from rank 0")
+    for label, case in r0["cases"].items():
+        emit("partitioned_kernel", shards=PART_SHARDS, transport=r0["transport"], **case,
+             per_rank_ms_per_pod=[r["cases"][label]["ms_per_pod"] for r in ranks],
+             per_rank_table_bytes=[r["cases"][label]["table_bytes"] for r in ranks],
+             per_rank_carry_bytes=[r["cases"][label]["carry_bytes"] for r in ranks], card=card)
+    for label, run in r0["runs"].items():
+        emit("partitioned", label=label, shards=PART_SHARDS, backend=r0["backend"],
+             transport=r0["transport"], **run,
+             reference="golden" if label == "demo_1" else "unsharded run",
+             walls_per_rank=[r["runs"][label]["seconds"] for r in ranks], card=card)
+    case = r0["cases"]["hard"]
+    row = dict(source=SRC + "batch_sharded.cu", replaces=JAX_MESH + ":413",
+               max_abs_err=case["max_abs_err"], ms=case["ms_per_pod"],
+               plain_ms=case["plain_ms_per_pod"], bound_ms=case["bound_ms_per_pod"],
+               bound_by=case["bound_by"], library_ms=None)
+    emit("partitioned_done", seconds=wall, card=card)
+    return {"schedule_batch_sharded": row}, r0["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -2648,6 +3005,11 @@ def main() -> int:
     launches.update(mesh_launches)
     # the scenario mesh: two ranks sharing the card, each its block of lanes
     mesh_rows, mesh_launches = scenario_mesh_phase(card, serve_responses)
+    rows.update(mesh_rows)
+    launches.update(mesh_launches)
+    # the partitioned layout: two ranks sharing the card, each holding its
+    # block of the node axis, the serial route on it (K12)
+    mesh_rows, mesh_launches = partitioned_phase(card)
     rows.update(mesh_rows)
     launches.update(mesh_launches)
     for k in rows:

@@ -17,6 +17,10 @@ Where the port reads a family differently from the JAX package:
   kernels build once per process, not per shape, so a miss marks the first
   dispatch of a (kernel, static-shape) signature in the process, keyed as
   the JAX package keys its compile cache;
+- `simon_reshard_bytes_total`: counted on the partitioned layout's
+  dispatches (the serial route on a node mesh): the bytes of carry leaves
+  whose shape or device left the rank's block, which no collective moves
+  back (there is no ICI); 0 by construction, as in JAX;
 - `simon_stream_chunks_total`: the port schedules the chunks one after the
   other, with no prefetch thread for the next chunk's signatures;
 - `simon_filter_rejections_total` (`record_filter_reasons`): the engine
@@ -28,8 +32,7 @@ Where the port reads a family differently from the JAX package:
 Left out, with the writers they wait for (ROADMAP A9 unless named):
 - `install_jax_monitoring` and the XLA compile families
   (`simon_xla_backend_compiles_total`, `..._compile_seconds_total`): JAX only;
-- `simon_segment_wall_seconds_total` (OPEN_SIMULATOR_SEGMENT_TIMING) and
-  `simon_reshard_bytes_total` (the node-axis mesh, A12);
+- `simon_segment_wall_seconds_total` (OPEN_SIMULATOR_SEGMENT_TIMING);
 - `simon_commit_rollbacks_total` and the preemption families (A6);
 - the probe-session, serve, serve-HA, sync, sweep and capacity-search
   families: the port's ProbeSession, ResidentImage, SweepRunner and
@@ -99,6 +102,13 @@ SEGMENT_PODS = counter(
 TRANSFER_BYTES = counter(
     "simon_device_transfer_bytes_total",
     "Host->device bytes staged for scheduling/probe table uploads.")
+RESHARD_BYTES = counter(
+    "simon_reshard_bytes_total",
+    "Bytes of carry state whose post-dispatch sharding layout diverged from "
+    "the declared carry shardings — what a chained dispatch would have to "
+    "move across ICI to reconcile. The sharded executables pin out_shardings "
+    "to in_shardings, so this stays 0; nonzero means a mesh dispatch path "
+    "dropped its explicit shardings (parallel/mesh.py carry_reshard_bytes).")
 COMMITS = counter(
     "simon_commits_total",
     "Pods committed onto nodes (placements materialized on cluster state). "

@@ -25,7 +25,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [os.path.join(_HERE, "csrc", f)
            for f in ("schedule.cu", "wave.cu", "group_serial.cu", "affinity_wave.cu", "extend.cu",
                      "explain.cu", "wave_sharded.cu", "affinity_sharded.cu", "wave_rounds.cu",
-                     "affinity_rounds.cu")]
+                     "affinity_rounds.cu", "batch_sharded.cu")]
 HEADERS = [os.path.join(_HERE, "csrc", f)
            for f in ("common.cuh", "select.cuh", "wave.cuh", "affinity.cuh", "wave_sharded.cuh",
                      "affinity_sharded.cuh", "merge.cuh")]
@@ -222,6 +222,17 @@ def _load(path: str) -> ctypes.CDLL:
     lib.affinity_rounds_finish_launch.argtypes = [V] + [I] * 5 + [P] * 8
     for stage in ("flags", "reduce", "summary", "select", "merge", "sandwich", "finish"):
         getattr(lib, f"affinity_rounds_{stage}_launch").restype = I
+    # K12, the serial scan on a partitioned node mesh: front, sa, score, commit
+    lib.batch_sharded_scratch_floats.argtypes = [V]
+    lib.batch_sharded_scratch_floats.restype = L
+    lib.batch_sharded_part_floats.argtypes = [V, I]
+    lib.batch_sharded_part_floats.restype = I
+    lib.batch_sharded_front_launch.argtypes = [V] + [I] * 6 + [P, I, I] + [P] * 4
+    lib.batch_sharded_sa_launch.argtypes = [V, I, I, P, I, P, P, P]
+    lib.batch_sharded_score_launch.argtypes = [V] + [I] * 3 + [P, I] + [P] * 4 + [L, P]
+    lib.batch_sharded_commit_launch.argtypes = [V] + [I] * 4 + [P] * 3
+    for stage in ("front", "sa", "score", "commit"):
+        getattr(lib, f"batch_sharded_{stage}_launch").restype = I
     lib.ext_args_size.argtypes = []
     lib.ext_args_size.restype = ctypes.c_int
     lib.extend_tables_launch.argtypes = [ctypes.POINTER(ExtArgs), ctypes.c_longlong, P]

@@ -240,18 +240,28 @@ def least_balanced(used_c, used_m, a_c, a_m):
     return least, balanced
 
 
-def selector_spread_score(pernode, F, zones, Z: int, maxN):
-    """SelectorSpread (selector_spread.go:104-160): per-node count score with
-    2/3 zone blending over the feasible set F; unfloored."""
+def _zone_sums(pernode, F, zones, Z: int) -> torch.Tensor:
+    """SelectorSpread's [Z] per-zone sums of the per-node counts over F
+    (integer-valued f32: exact in any order)."""
+    return torch.zeros(Z, dtype=_F32, device=pernode.device).index_add_(
+        0, zones.long(), torch.where(F, pernode, 0.0))
+
+
+def _selector_spread_blend(pernode, zones, zone_sums, have_zones, maxN):
+    """SelectorSpread's per-node count score blended 2/3 with the zone score
+    on a zoned node of a zoned feasible set; unfloored."""
     node_score = torch.where(maxN > 0, 100.0 * (maxN - pernode) / maxN, 100.0)
-    nz_count = torch.where(F, pernode, 0.0)
-    zone_sums = torch.zeros(Z, dtype=_F32, device=pernode.device).index_add_(
-        0, zones.long(), nz_count)
     maxZ = torch.max(torch.cat([zone_sums.new_zeros(1), zone_sums[1:]]))
-    have_zones = torch.any(F & (zones > 0))
     zscore = torch.where(maxZ > 0, 100.0 * (maxZ - zone_sums[zones.long()]) / maxZ, 100.0)
     return torch.where(have_zones & (zones > 0),
                        node_score * (1.0 / 3.0) + zscore * (2.0 / 3.0), node_score)
+
+
+def selector_spread_score(pernode, F, zones, Z: int, maxN):
+    """SelectorSpread (selector_spread.go:104-160): per-node count score with
+    2/3 zone blending over the feasible set F; unfloored."""
+    return _selector_spread_blend(pernode, zones, _zone_sums(pernode, F, zones, Z),
+                                  torch.any(F & (zones > 0)), maxN)
 
 
 def topology_weight(topo_size: torch.Tensor) -> torch.Tensor:
@@ -260,23 +270,46 @@ def topology_weight(topo_size: torch.Tensor) -> torch.Tensor:
     return torch.log((topo_size + 2.0).double()).float()
 
 
-def schedule_anyway_score(cnt_sa, relevantF, dom_rows, svalid, maxskew, D: int):
-    """PodTopologySpread ScheduleAnyway scoring (scoring.go:108-200)."""
+def _sa_marks(relevantF, dom_rows, D: int) -> torch.Tensor:
+    """ScheduleAnyway's [Ss, D+1] domain marks: 1 where a relevant node of
+    the term's topology lies (the sentinel column D included)."""
     Ss = dom_rows.shape[0]
-    marks = torch.zeros((Ss, D + 1), dtype=_F32, device=cnt_sa.device)
-    marks.scatter_reduce_(1, dom_rows, relevantF.to(_F32).expand(Ss, -1).contiguous(),
-                          reduce="amax")
-    topo_size = torch.sum(marks[:, :D], dim=1)
-    tpw = topology_weight(topo_size)
+    marks = torch.zeros((Ss, D + 1), dtype=_F32, device=relevantF.device)
+    return marks.scatter_reduce_(1, dom_rows, relevantF.to(_F32).expand(Ss, -1).contiguous(),
+                                 reduce="amax")
+
+
+def _sa_raw(cnt_sa, marks, svalid, maxskew) -> torch.Tensor:
+    """ScheduleAnyway's raw per-node score, weighted by ln(topology size + 2)
+    of every term (the marked domains but the sentinel)."""
+    D = marks.shape[1] - 1
+    tpw = topology_weight(torch.sum(marks[:, :D], dim=1))
     contrib = cnt_sa * tpw[:, None] + (maxskew[:, None] - 1.0)
-    sa_raw = _flr(_masked_sum(svalid, contrib))
-    inf = torch.tensor(float("inf"), device=cnt_sa.device)
-    sa_max = torch.clamp(torch.max(torch.where(relevantF, sa_raw, -inf)), min=0.0)
-    sa_min_raw = torch.min(torch.where(relevantF, sa_raw, inf))
+    return _flr(_masked_sum(svalid, contrib))
+
+
+def _sa_partials(sa_raw, relevantF) -> torch.Tensor:
+    """[max, max of the negated] raw score over the relevant nodes (-inf
+    where there is none): the min rides negated."""
+    ninf = float("-inf")
+    return torch.stack([torch.amax(torch.where(relevantF, sa_raw, ninf)),
+                        torch.amax(torch.where(relevantF, -sa_raw, ninf))])
+
+
+def _sa_normalized(sa_raw, relevantF, red) -> torch.Tensor:
+    """ScheduleAnyway's normalized score from the reduced `_sa_partials`."""
+    sa_max = torch.clamp(red[0], min=0.0)
+    sa_min_raw = -red[1]
     sa_min = torch.where(torch.isfinite(sa_min_raw), sa_min_raw, 0.0)
     return torch.where(
         ~relevantF, 0.0,
         torch.where(sa_max > 0, _flr((sa_max + sa_min - sa_raw) * 100.0 / sa_max), 100.0))
+
+
+def schedule_anyway_score(cnt_sa, relevantF, dom_rows, svalid, maxskew, D: int):
+    """PodTopologySpread ScheduleAnyway scoring (scoring.go:108-200)."""
+    sa_raw = _sa_raw(cnt_sa, _sa_marks(relevantF, dom_rows, D), svalid, maxskew)
+    return _sa_normalized(sa_raw, relevantF, _sa_partials(sa_raw, relevantF))
 
 
 def interpod_raw(tb: Tables, cry: Carry, g: int) -> torch.Tensor:
@@ -546,31 +579,83 @@ def components_total(comp: dict) -> torch.Tensor:
     return total
 
 
-def score_components(tb: Tables, cry: Carry, g: int, feasible, n_zones: int,
-                     w: ScoreWeights = DEFAULT_WEIGHTS, enable_storage: bool = False) -> dict:
-    """All normalized, weighted plugin score terms over the feasible set —
-    {name: [N] f32} in COMPONENT_ORDER (Open-Local is the constant 0 without
-    `enable_storage`)."""
-    F = feasible
+# The score's normalizers and sums over the feasible set ride one f32 vector,
+# so that a node-partitioned scan (schedule_batch_sharded_plain, K12) reduces
+# them over the ranks in one collective: PART_HEAD values (the maxima of the
+# Simon, NodeAffinity, TaintToleration, InterPodAffinity and SelectorSpread
+# inputs; the Simon and InterPodAffinity minima negated; Open-Local's maximum
+# and negated minimum; any feasible node; any zoned feasible node), then the
+# [Z] SelectorSpread zone sums and, for a group with ScheduleAnyway terms,
+# the [Ss, D+1] domain marks. Maxima and marks reduce by max (a minimum
+# rides negated: -max(-x) == min(x)), the zone sums by an ordered sum.
+PART_HEAD = 11
+_P_ZONED = 10  # any zoned feasible node (9: any feasible node)
+
+
+def _has_sa(tb: Tables, g: int) -> bool:
+    """Whether group g has a ScheduleAnyway term."""
+    return bool((tb.sa_t[g] >= 0).any())
+
+
+def _score_locals(tb: Tables, cry: Carry, g: int, F, enable_storage: bool) -> dict:
+    """The node-local inputs of group g's score terms on these tables' nodes."""
     dev = F.device
-    inf = torch.tensor(float("inf"), device=dev)
     alloc_cm = tb.alloc[:, (CPU_I, MEM_I)]
     used = cry.nonzero + tb.grp_nonzero[g][None, :]
     least, balanced = least_balanced(used[:, 0], used[:, 1], alloc_cm[:, 0], alloc_cm[:, 1])
-
-    simon_s = _flr(100.0 * tb.simon_raw[g])
-    na_raw = tb.nodeaff_raw[g]
-    t_raw = tb.taint_raw[g]
-    ip_raw = interpod_raw(tb, cry, g)
-
     ss_id = int(tb.ss_t[g])
-    has_ss = ss_id >= 0
     pernode = counter_rows_at(tb, cry, torch.tensor([max(ss_id, 0)], device=dev))[1][0]
+    svalid, sidx = _slot_ids(tb.sa_t[g])
+    _, sa_at, sa_key, sa_dom = counter_rows_at(tb, cry, sidx)
+    ignored = torch.any(svalid[:, None] & ~sa_key, dim=0)
+    return {"F": F, "least": least, "balanced": balanced, "simon_s": _flr(100.0 * tb.simon_raw[g]),
+            "na_raw": tb.nodeaff_raw[g], "t_raw": tb.taint_raw[g],
+            "ip_raw": interpod_raw(tb, cry, g), "has_ss": ss_id >= 0, "pernode": pernode,
+            "svalid": svalid, "sa_at": sa_at, "sa_dom": sa_dom, "relevantF": F & ~ignored,
+            "st": storage_alloc(tb, cry, g) if enable_storage else None}
 
-    maxes = torch.amax(torch.where(F[None, :],
-                                   torch.stack([simon_s, na_raw, t_raw, ip_raw, pernode]),
-                                   -inf), dim=1)
-    mins = torch.amin(torch.where(F[None, :], torch.stack([simon_s, ip_raw]), inf), dim=1)
+
+def _score_partials(tb: Tables, loc: dict, Z: int, D: int, marks: bool) -> torch.Tensor:
+    """These nodes' part of the score's reductions over the feasible set
+    (the layout of PART_HEAD); the domain marks only with `marks`."""
+    F = loc["F"]
+    ninf = float("-inf")
+    st_raw = loc["st"]["raw"] if loc["st"] is not None else torch.zeros_like(loc["simon_s"])
+    mx = torch.amax(torch.where(F[None, :], torch.stack(
+        [loc["simon_s"], loc["na_raw"], loc["t_raw"], loc["ip_raw"], loc["pernode"], st_raw]),
+        ninf), dim=1)
+    nmn = torch.amax(torch.where(F[None, :], -torch.stack(
+        [loc["simon_s"], loc["ip_raw"], st_raw]), ninf), dim=1)
+    flags = torch.stack([torch.any(F), torch.any(F & (tb.node_zone > 0))]).to(_F32)
+    parts = [mx[:5], nmn[:2], mx[5:], nmn[2:], flags,
+             _zone_sums(loc["pernode"], F, tb.node_zone, Z)]
+    if marks:
+        parts.append(_sa_marks(loc["relevantF"], loc["sa_dom"], D).reshape(-1))
+    return torch.cat(parts)
+
+
+def _reduce_partials(rows: torch.Tensor, Z: int) -> torch.Tensor:
+    """The reduction of every rank's `_score_partials` ([ranks, K], rank
+    order): max, but the zone sums, which add in rank order. They are sums of
+    integer-valued counts, so the ordered sum is exact (checked)."""
+    red = torch.amax(rows, dim=0)
+    zs = rows[0, PART_HEAD:PART_HEAD + Z]
+    for r in range(1, rows.shape[0]):
+        zs = zs + rows[r, PART_HEAD:PART_HEAD + Z]
+    if rows.shape[0] > 1:
+        if not torch.equal(zs, torch.floor(zs)):
+            raise ValueError("SelectorSpread zone sums must be integer-valued to add exactly")
+        red[PART_HEAD:PART_HEAD + Z] = zs
+    return red
+
+
+def _score_final(tb: Tables, g: int, loc: dict, red, sa_red, sa_raw, n_zones: int,
+                 w: ScoreWeights, enable_storage: bool) -> dict:
+    """The normalized, weighted score terms on these tables' nodes from the
+    reduced partials `red` and ScheduleAnyway's reduced `sa_red`."""
+    Z = max(2, n_zones)
+    simon_s, na_raw, t_raw, ip_raw = loc["simon_s"], loc["na_raw"], loc["t_raw"], loc["ip_raw"]
+    maxes, mins = red[:5], -red[5:7]
 
     # Simon max-share + min-max normalize (plugin/simon.go:45-101)
     hi, lo = maxes[0], mins[0]
@@ -591,37 +676,32 @@ def score_components(tb: Tables, cry: Carry, g: int, feasible, n_zones: int,
     ip_rng = ip_max - ip_min
     interpod = torch.where(ip_rng > 0, _flr(100.0 * (ip_raw - ip_min) / ip_rng), 0.0)
 
-    blended = selector_spread_score(pernode, F, tb.node_zone, max(2, n_zones),
-                                    maxN=torch.clamp(maxes[4], min=0.0))
+    blended = _selector_spread_blend(loc["pernode"], tb.node_zone,
+                                     red[PART_HEAD:PART_HEAD + Z], red[_P_ZONED] > 0,
+                                     maxN=torch.clamp(maxes[4], min=0.0))
     if bool(tb.ss_skip[g]):
         selector_spread = torch.zeros_like(blended)
     else:
-        selector_spread = _flr(blended) if has_ss else torch.full_like(blended, 100.0)
+        selector_spread = _flr(blended) if loc["has_ss"] else torch.full_like(blended, 100.0)
 
     # PodTopologySpread ScheduleAnyway scoring
-    D = cry.counter.shape[1] - 1
-    svalid, sidx = _slot_ids(tb.sa_t[g])
-    _, sa_at, sa_key, sa_dom = counter_rows_at(tb, cry, sidx)
-    ignored = torch.any(svalid[:, None] & ~sa_key, dim=0)
-    relevantF = F & ~ignored
-    pts = schedule_anyway_score(sa_at, relevantF, sa_dom, svalid, tb.sa_maxskew[g], D)
+    pts = _sa_normalized(sa_raw, loc["relevantF"], sa_red)
 
     # Open-Local Score (open-local.go:94-172): Binpack LVM + device ints, then
     # the plugin's own min-max normalization over F
     openlocal = 0.0
     if enable_storage:
-        st = storage_alloc(tb, cry, g)
-        st_raw = st["raw"]
-        st_hi = torch.clamp(torch.amax(torch.where(F, st_raw, -inf)), min=0.0)
-        st_lo_raw = torch.amin(torch.where(F, st_raw, inf))
+        st = loc["st"]
+        st_hi = torch.clamp(red[7], min=0.0)
+        st_lo_raw = -red[8]
         st_lo = torch.where(torch.isfinite(st_lo_raw), st_lo_raw, 0.0)
         st_rng = st_hi - st_lo
         openlocal = torch.where(st["has_storage"] & (st_rng > 0),
-                                _flr((st_raw - st_lo) * 100.0 / st_rng), 0.0)
+                                _flr((st["raw"] - st_lo) * 100.0 / st_rng), 0.0)
 
     return {
-        "least": w.least * least,
-        "balanced": w.balanced * balanced,
+        "least": w.least * loc["least"],
+        "balanced": w.balanced * loc["balanced"],
         "openlocal": w.openlocal * openlocal,
         "simon": (w.simon + w.gpushare) * simon,  # Open-Gpu-Share Score ≡ Simon Score
         "nodeaff": w.nodeaff * nodeaff,
@@ -633,6 +713,51 @@ def score_components(tb: Tables, cry: Carry, g: int, feasible, n_zones: int,
         "image": w.image * tb.image_raw[g],
         "extra": tb.extra_raw[g],  # out-of-tree plugins, pre-weighted at encode time
     }
+
+
+def score_components(tb: Tables, cry: Carry, g: int, feasible, n_zones: int,
+                     w: ScoreWeights = DEFAULT_WEIGHTS, enable_storage: bool = False,
+                     mesh=None) -> dict:
+    """All normalized, weighted plugin score terms over the feasible set —
+    {name: [N] f32} in COMPONENT_ORDER (Open-Local is the constant 0 without
+    `enable_storage`). On a node `mesh` with more than one shard the tables,
+    the carry and `feasible` are this rank's node block, and the sets the
+    terms normalize over are the union of every rank's: the partials ride
+    one `all_gather_rows`, and ScheduleAnyway's extrema, which need the
+    global topology sizes first, one `pmax` (only for a group with such
+    terms). Returns this block's terms."""
+    from ..parallel.collectives import all_gather_rows, pmax
+
+    D = cry.counter.shape[1] - 1
+    Z = max(2, n_zones)
+    sa = _has_sa(tb, g)
+    loc = _score_locals(tb, cry, g, feasible, enable_storage)
+    part = _score_partials(tb, loc, Z, D, sa)
+    red = _reduce_partials((all_gather_rows(part[None], mesh) if _partitioned(mesh)
+                            else part[None]), Z)
+    marks = (red[PART_HEAD + Z:].view(-1, D + 1) if sa
+             else torch.zeros((tb.sa_t.shape[1], D + 1), dtype=_F32, device=feasible.device))
+    sa_raw = _sa_raw(loc["sa_at"], marks, loc["svalid"], tb.sa_maxskew[g])
+    sa_part = _sa_partials(sa_raw, loc["relevantF"])
+    # without a ScheduleAnyway term every raw score is 0 and every block's
+    # clamped maximum 0: the block's own partials normalize alike
+    sa_red = pmax(sa_part, mesh) if sa and _partitioned(mesh) else sa_part
+    return _score_final(tb, g, loc, red, sa_red, sa_raw, n_zones, w, enable_storage)
+
+
+def _partitioned(mesh) -> bool:
+    """Whether `mesh` partitions the node axis over more than one rank (the
+    tables and carry handed over with it are then this rank's block)."""
+    return mesh is not None and mesh.shards > 1
+
+
+def block_forced(forced: int, lo: int, NL: int) -> int:
+    """A pod's forced node (global, -1 for none) as a node of the block
+    [lo, lo + NL): its local index, or NL, which no node of the block
+    matches, when it lies in another block."""
+    if forced < 0:
+        return -1
+    return forced - lo if lo <= forced < lo + NL else NL
 
 
 # The stage masks of an xray decision set, in the order of the JAX package's
@@ -648,16 +773,23 @@ EXPLAIN_ROWS = ("feasible", "total") + EXPLAIN_STAGES + COMPONENT_ORDER
 
 def explain_pod(tb: Tables, cry: Carry, g: int, forced: int, valid: bool, n_zones: int,
                 enable_gpu: bool = False, enable_storage: bool = False,
-                w: ScoreWeights = DEFAULT_WEIGHTS, filters: FilterFlags = DEFAULT_FILTERS):
+                w: ScoreWeights = DEFAULT_WEIGHTS, filters: FilterFlags = DEFAULT_FILTERS,
+                mesh=None):
     """The xray flight recorder's diagnostic for one group against a carry
     (JAX `explain_pod`): `feasibility`, then `score_components` over the
     feasible mask. Plain version of `explain_kernel`. Returns (feasible [N]
     bool, stages {EXPLAIN_STAGES: [N] bool}, total [N] f32, components
     {COMPONENT_ORDER: [N] f32}); every component is computed on every node,
-    only the normalizers and the zone sums are taken over the feasible set."""
+    only the normalizers and the zone sums are taken over the feasible set.
+    On a partitioned node `mesh` (the tables and carry this rank's block,
+    `forced` a global node) the same for the block's nodes, normalized over
+    every rank's feasible set (`score_components`)."""
+    if _partitioned(mesh):
+        NL = tb.alloc.shape[0]
+        forced = block_forced(forced, mesh.rank * NL, NL)
     feasible, stages = feasibility(tb, cry, g, forced, valid, filters, enable_gpu=enable_gpu,
                                    enable_storage=enable_storage)
-    comp = score_components(tb, cry, g, feasible, n_zones, w, enable_storage)
+    comp = score_components(tb, cry, g, feasible, n_zones, w, enable_storage, mesh)
     N = feasible.shape[0]
     comp = {k: torch.as_tensor(v, dtype=_F32, device=feasible.device).expand(N)
             for k, v in comp.items()}  # openlocal is a python 0.0 without storage
@@ -694,27 +826,40 @@ def commit(tb: Tables, cry: Carry, g: int, choice, do, enable_gpu: bool = False,
     device ledger and the Open-Local VG/device state too; the storage take
     is computed from the carry before this commit."""
     dev = tb.alloc.device
-    T = cry.counter.shape[0]
-    Tc = cry.carrier.shape[0]
-    D = cry.counter.shape[1] - 1
     c = torch.as_tensor(choice, device=dev).long().clamp(min=0).reshape(1)
     do_t = torch.as_tensor(do, device=dev).bool()
-    dof = do_t.to(_F32)
+    counter, carrier = _commit_domains(tb, cry, g, tb.counter_dom[:, c[0]].long(),
+                                       tb.carr_dom[:, c[0]].long(), do_t.to(_F32))
+    return _commit_node(tb, cry, g, c, do_t, enable_gpu, enable_storage)._replace(
+        counter=counter, carrier=carrier)
 
+
+def _commit_domains(tb: Tables, cry: Carry, g: int, dom_col, cdom_col, dof):
+    """The placement's (counter, carrier): every counter and carrier row
+    counts group g in the chosen node's domain (its columns `dom_col` [T]
+    and `cdom_col` [Tc]), the sentinel column never; `dof` is 1.0 or 0.0."""
+    dev = tb.alloc.device
+    D = cry.counter.shape[1] - 1
+    inc = tb.counter_sel_match_g[:, g].to(_F32) * (dom_col < D) * dof
+    counter = cry.counter.index_put((torch.arange(cry.counter.shape[0], device=dev), dom_col),
+                                    inc, accumulate=True)
+    cinc = tb.grp_carries[g] * (cdom_col < D) * dof
+    carrier = cry.carrier.index_put((torch.arange(cry.carrier.shape[0], device=dev), cdom_col),
+                                    cinc, accumulate=True)
+    return counter, carrier
+
+
+def _commit_node(tb: Tables, cry: Carry, g: int, c, do_t, enable_gpu: bool,
+                 enable_storage: bool) -> Carry:
+    """The placement's node rows at node c ([1] long) when `do_t`: requested,
+    nonzero, ports and, with the flags, the GPU and storage ledgers; the
+    counter and carrier are `cry`'s."""
+    dof = do_t.to(_F32)
     requested = cry.requested.index_add(0, c, (tb.grp_requests[g] * dof)[None])
     nonzero = cry.nonzero.index_add(0, c, (tb.grp_nonzero[g] * dof)[None])
     pids = tb.grp_ports[g].long()
     port_used = cry.port_used.clone()
     port_used[c, pids] = port_used[c, pids] | ((pids > 0) & do_t)
-
-    dom_col = tb.counter_dom[:, c[0]].long()
-    inc = tb.counter_sel_match_g[:, g].to(_F32) * (dom_col < D) * dof
-    counter = cry.counter.index_put((torch.arange(T, device=dev), dom_col), inc, accumulate=True)
-
-    cdom_col = tb.carr_dom[:, c[0]].long()
-    cinc = tb.grp_carries[g] * (cdom_col < D) * dof
-    carrier = cry.carrier.index_put((torch.arange(Tc, device=dev), cdom_col), cinc,
-                                    accumulate=True)
 
     # GPU device allocation (AllocateGpuId): pre-assigned ids charge exactly
     # the annotated devices (the host's add_pod), without a fit check
@@ -736,7 +881,8 @@ def commit(tb: Tables, cry: Carry, g: int, choice, do, enable_gpu: bool = False,
         sdo = dof * float(st["has_storage"])
         vg_req = cry.vg_req.index_add(0, c, (st["lvm_add"][c[0]] * sdo)[None])
         sdev_alloc = cry.sdev_alloc.index_add(0, c, (st["dev_add"][c[0]] * sdo)[None])
-    return Carry(requested, nonzero, port_used, counter, carrier, dev_used, vg_req, sdev_alloc)
+    return Carry(requested, nonzero, port_used, cry.counter, cry.carrier, dev_used, vg_req,
+                 sdev_alloc)
 
 
 def step(tb: Tables, cry: Carry, g: int, forced: int, valid: bool, n_zones: int,
@@ -775,6 +921,70 @@ def schedule_batch_plain(tb: Tables, cry: Carry, pod_group, forced_node, valid,
     if not choices:
         return cry, torch.zeros(0, dtype=torch.int32, device=tb.alloc.device)
     return cry, torch.stack(choices)
+
+
+@torch.inference_mode()
+def schedule_batch_sharded_plain(tb: Tables, cry: Carry, pod_group, forced_node, valid,
+                                 n_zones: int, mesh, w: ScoreWeights = DEFAULT_WEIGHTS,
+                                 filters: FilterFlags = DEFAULT_FILTERS,
+                                 enable_gpu: bool = False, enable_storage: bool = False):
+    """Plain version of `schedule_batch_sharded_kernel` (K12): the serial scan
+    on a partitioned node `mesh`, where `tb` and `cry` are this rank's block
+    of NL nodes (parallel/mesh.py `to_device_sharded`) and the pods, their
+    forced nodes and the choices are global. Per valid pod, as K12's stages:
+
+    A. feasibility on the block (a forced node in another block leaves the
+       block none), the node-local score inputs and the block's partials
+       (`_score_partials`); all_gather_rows #1, reduced in rank order;
+    A2. for a group with ScheduleAnyway terms, the raw scores with the
+       global topology sizes and their block extrema; pmax #1b;
+    B. the total in COMPONENT_ORDER and the block's first max as (score,
+       global node, -inf without a feasible node) with the node's counter
+       and carrier domain columns; all_gather_rows #2;
+    C. on every rank, the global first max (largest score, then lowest
+       global node; -1 when no rank has a feasible node), the replicated
+       counter / carrier update from the winner's columns, and on the owning
+       rank alone the commit of the node's rows.
+
+    Returns (this block's final carry, choices [P] i32 as global node
+    indices, equal on every rank)."""
+    from ..parallel.collectives import all_gather_rows
+
+    dev = tb.alloc.device
+    NL = tb.alloc.shape[0]
+    lo = mesh.rank * NL
+    choices = []
+    pods = zip(torch.as_tensor(pod_group).tolist(), torch.as_tensor(forced_node).tolist(),
+               torch.as_tensor(valid).tolist())
+    for g, f, v in pods:
+        if not v:
+            choices.append(-1)
+            continue
+        F, _ = feasibility(tb, cry, g, block_forced(f, lo, NL), True, filters,
+                           enable_gpu=enable_gpu, enable_storage=enable_storage)
+        total = components_total(score_components(tb, cry, g, F, n_zones, w, enable_storage,
+                                                  mesh))
+        masked = torch.where(F, total, float("-inf"))
+        i = int(torch.argmax(masked))  # the block's first max
+        row = torch.cat([torch.stack([masked[i].double(), torch.tensor(lo + i, dtype=torch.float64,
+                                                                       device=dev)]),
+                         tb.counter_dom[:, i].double(), tb.carr_dom[:, i].double()])
+        rows = all_gather_rows(row[None], mesh)
+        score, c = _first_max([(r[0], r[1]) for r in rows[:, :2].tolist()])
+        if score == float("-inf"):
+            choices.append(-1)
+            continue
+        c = int(c)
+        win = rows[c // NL]
+        T = tb.counter_dom.shape[0]
+        counter, carrier = _commit_domains(tb, cry, g, win[2:2 + T].long(), win[2 + T:].long(),
+                                           torch.tensor(1.0, device=dev))
+        cry = cry._replace(counter=counter, carrier=carrier)
+        if c // NL == mesh.rank:
+            cry = _commit_node(tb, cry, g, torch.tensor([c - lo], device=dev),
+                               torch.tensor(True, device=dev), enable_gpu, enable_storage)
+        choices.append(c)
+    return cry, torch.tensor(choices, dtype=torch.int32, device=dev)
 
 
 # ------------------------------------------------------------------ wave route ----
@@ -2689,6 +2899,118 @@ def schedule_affinity_wave_rounds_kernel(tb: Tables, cry: Carry, g: int, m: int,
     return j, state[0], state[2:5]
 
 
+def _k12_buffers(lib, vr, dev) -> tuple:
+    """K12's scratch, its partial vector (sized for a group with
+    ScheduleAnyway terms) and the sa stage's two extrema, on the card."""
+    return (torch.empty(int(lib.batch_sharded_scratch_floats(vr)), dtype=_F32, device=dev),
+            torch.empty(int(lib.batch_sharded_part_floats(vr, 1)), dtype=_F32, device=dev),
+            torch.empty(2, dtype=_F32, device=dev))
+
+
+def _k12_pod(lib, vr, mesh, lo: int, g: int, forced: int, valid: bool, sa: bool, bufs: tuple,
+             prev=None, prev_g: int = 0, prev_p: int = 0, choices=None, row2=None, out=None,
+             perm: int = 0) -> int:
+    """One pod's K12 stages on this rank's block, whose first node is the
+    global `lo` (`forced` already in the block's numbering): the front,
+    which first commits the previous pod from its gathered rows `prev`,
+    all_gather_rows #1 of the partial vector, for a group with
+    ScheduleAnyway terms (`sa`) the sa stage and pmax #1b, then the score
+    stage, which writes the block's best row into `row2` or, in explain
+    mode (`out`: every node of the block, K7's packed rows at stage order
+    `perm`), the packed rows. Returns the launches made."""
+    from ..parallel.collectives import all_gather_rows, pmax
+
+    scratch, part, part_b = bufs
+    R = mesh.shards
+    k1 = int(lib.batch_sharded_part_floats(vr, int(sa)))
+    _sharded_launch(lib.batch_sharded_front_launch, vr, g, forced, int(bool(valid)),
+                    int(out is not None), lo, R, _ptr_or_null(prev), prev_g, prev_p,
+                    _ptr_or_null(choices), _ptr(scratch), _ptr(part))
+    rows = all_gather_rows(part[:k1][None], mesh)
+    sa_red = None
+    if sa:
+        _sharded_launch(lib.batch_sharded_sa_launch, vr, g, R, _ptr(rows), k1, _ptr(scratch),
+                        _ptr(part_b))
+        sa_red = pmax(part_b, mesh)
+    _sharded_launch(lib.batch_sharded_score_launch, vr, g, lo, R, _ptr(rows), k1,
+                    _ptr_or_null(sa_red), _ptr(scratch), _ptr_or_null(row2), _ptr_or_null(out),
+                    ctypes.c_longlong(perm))
+    return 3 if sa else 2
+
+
+def schedule_batch_sharded_kernel(tb: Tables, cry: Carry, pod_group, forced_node, valid,
+                                  n_zones: int, mesh, w: ScoreWeights = DEFAULT_WEIGHTS,
+                                  filters: FilterFlags = DEFAULT_FILTERS, enable_gpu: bool = False,
+                                  enable_storage: bool = False):
+    """Launch K12 (csrc/batch_sharded.cu) on this rank of a partitioned node
+    `mesh`: `tb` and `cry` are the rank's block of NL nodes, the pods and
+    their forced nodes global. Per valid pod `_k12_pod` (the front with the
+    previous pod's commit, all_gather_rows #1, the sa stage and pmax #1b for
+    a group with ScheduleAnyway terms, the score), then all_gather_rows #2 of
+    the block's best row; one commit launch after the last. The host reads
+    which groups have ScheduleAnyway terms once, and nothing per pod.
+    Returns (a CLONE of `cry` that the kernel updates in place, choices [P]
+    i32 as global nodes, equal on every rank), on the card."""
+    from ..parallel.collectives import all_gather_rows
+    from . import build
+
+    lib = build.library()
+    dev = tb.alloc.device
+    NL = tb.alloc.shape[0]
+    lo = mesh.rank * NL
+    out = Carry(*(t.clone() for t in cry))
+    v = _view(tb, out, n_zones, w, filters, enable_gpu, enable_storage)
+    vr = ctypes.byref(v)
+    pg, fn, vd = (torch.as_tensor(a).tolist() for a in (pod_group, forced_node, valid))
+    P = len(pg)
+    if len(fn) != P or len(vd) != P:
+        raise ValueError("pod_group, forced_node and valid must have one length")
+    sa = (tb.sa_t >= 0).any(dim=1).tolist()
+    choices = torch.full((P,), -1, dtype=torch.int32, device=dev)
+    bufs = _k12_buffers(lib, vr, dev)
+    row2 = torch.empty((1, 2 + v.T + v.Tc), dtype=torch.float64, device=dev)
+    fnk = schedule_batch_sharded_kernel
+    prev, prev_g, prev_p = None, 0, 0
+    for p in range(P):
+        if not vd[p]:  # padded pod: feasible nowhere, commits nothing
+            continue
+        g = int(pg[p])
+        fnk.launches += _k12_pod(lib, vr, mesh, lo, g, block_forced(int(fn[p]), lo, NL), True,
+                                 sa[g], bufs, prev, prev_g, prev_p, choices, row2=row2)
+        prev, prev_g, prev_p = all_gather_rows(row2, mesh), g, p
+    if prev is not None:
+        _sharded_launch(lib.batch_sharded_commit_launch, vr, prev_g, prev_p, lo, mesh.shards,
+                        _ptr(prev), _ptr(choices))
+        fnk.launches += 1
+    if enable_gpu or enable_storage:
+        BRANCH_LAUNCHES["schedule_batch_sharded/gpu_storage"] += 1
+    return out, choices
+
+
+def explain_sharded_kernel(tb: Tables, cry: Carry, g: int, forced: int, valid: bool,
+                           n_zones: int, enable_gpu: bool = False, enable_storage: bool = False,
+                           w: ScoreWeights = DEFAULT_WEIGHTS,
+                           filters: FilterFlags = DEFAULT_FILTERS, mesh=None) -> torch.Tensor:
+    """K12's explain mode on this rank of a partitioned node `mesh`:
+    `_k12_pod` on every node of the block, its score stage writing K7's
+    packed [EXPLAIN_ROWS, NL] rows with the global normalizers (`forced`
+    global; `cry` only read). Returns the block's rows."""
+    from . import build
+
+    lib = build.library()
+    dev = tb.alloc.device
+    NL = tb.alloc.shape[0]
+    v = _view(tb, cry, n_zones, w, filters, enable_gpu, enable_storage)
+    vr = ctypes.byref(v)
+    lo = mesh.rank * NL
+    out = torch.empty((len(EXPLAIN_ROWS), NL), dtype=_F32, device=dev)
+    perm = sum(STAGE_ROWS.index(k) << (4 * i) for i, k in enumerate(EXPLAIN_STAGES))
+    explain_sharded_kernel.launches += _k12_pod(
+        lib, vr, mesh, lo, int(g), block_forced(forced, lo, NL), valid, _has_sa(tb, g),
+        _k12_buffers(lib, vr, dev), out=out, perm=perm)
+    return out
+
+
 def _on_cpu(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return True
@@ -2699,13 +3021,29 @@ def _on_cpu(t: torch.Tensor) -> bool:
 
 def feasibility_jit(tb: Tables, cry: Carry, g: int, forced: int, valid: bool,
                     filters: FilterFlags = DEFAULT_FILTERS, enable_gpu: bool = False,
-                    enable_storage: bool = False):
+                    enable_storage: bool = False, mesh=None):
     """The failure-reason diagnostic (JAX `feasibility_jit`): the plain
-    version for CPU tensors, K1 for CUDA tensors."""
+    version for CPU tensors, K1 for CUDA tensors. On a partitioned node
+    `mesh` (the tables and carry this rank's block, `forced` a global node)
+    the same on the block, its masks then gathered tiled, so that every rank
+    returns them for all N nodes (one `all_gather_tiled`)."""
     flags = dict(enable_gpu=enable_gpu, enable_storage=enable_storage)
-    if _on_cpu(tb.alloc):
-        return feasibility(tb, cry, g, forced, valid, filters, **flags)
-    return feasibility_kernel(tb, cry, g, forced, valid, filters, **flags)
+    if _partitioned(mesh):
+        NL = tb.alloc.shape[0]
+        forced = block_forced(forced, mesh.rank * NL, NL)
+    run = feasibility if _on_cpu(tb.alloc) else feasibility_kernel
+    feasible, stages = run(tb, cry, g, forced, valid, filters, **flags)
+    if not _partitioned(mesh):
+        return feasible, stages
+    from ..parallel.collectives import all_gather_tiled
+
+    n = len(STAGE_ROWS)
+    rows = torch.cat([feasible[None], torch.stack([stages[k] for k in STAGE_ROWS]),
+                      stages["fit_each"].T]).to(torch.uint8)
+    full = all_gather_tiled(rows, mesh, axis=1) > 0
+    stages = {k: full[1 + i] for i, k in enumerate(STAGE_ROWS)}
+    stages["fit_each"] = full[1 + n:].T.contiguous()
+    return full[0], {k: stages[k] for k in STAGE_KEYS}
 
 
 def explain_kernel(tb: Tables, cry: Carry, g: int, forced: int, valid: bool, n_zones: int,
@@ -2738,21 +3076,42 @@ def explain_kernel(tb: Tables, cry: Carry, g: int, forced: int, valid: bool, n_z
 def explain_jit(tb: Tables, cry: Carry, g: int, forced: int, valid: bool, n_zones: int,
                 enable_gpu: bool = False, enable_storage: bool = False,
                 w: ScoreWeights = DEFAULT_WEIGHTS,
-                filters: FilterFlags = DEFAULT_FILTERS) -> torch.Tensor:
+                filters: FilterFlags = DEFAULT_FILTERS, mesh=None) -> torch.Tensor:
     """The xray diagnostic (JAX `explain_jit`) as packed [EXPLAIN_ROWS, N]
     f32 rows, the JAX engine's packed fetch: `explain_pod` packed for CPU
-    tensors, K7 for CUDA tensors. `unpack_explain` gives JAX's four-tuple."""
+    tensors, K7 for CUDA tensors. `unpack_explain` gives JAX's four-tuple.
+    On a partitioned node `mesh` (the tables and carry this rank's block,
+    `forced` a global node) the block's rows (K12's explain mode on the
+    card), normalized over every rank's nodes and gathered tiled, so that
+    every rank returns all N columns."""
     args = (tb, cry, g, forced, valid, n_zones, enable_gpu, enable_storage, w, filters)
     if _on_cpu(tb.alloc):
-        return pack_explain(*explain_pod(*args))
-    return explain_kernel(*args)
+        packed = pack_explain(*explain_pod(*args, mesh=mesh))
+    elif _partitioned(mesh):
+        packed = explain_sharded_kernel(*args, mesh=mesh)
+    else:
+        return explain_kernel(*args)
+    if not _partitioned(mesh):
+        return packed
+    from ..parallel.collectives import all_gather_tiled
+
+    return all_gather_tiled(packed, mesh, axis=1)
 
 
 def schedule_batch(tb: Tables, cry: Carry, pod_group, forced_node, valid, n_zones: int,
                    w: ScoreWeights = DEFAULT_WEIGHTS, filters: FilterFlags = DEFAULT_FILTERS,
-                   enable_gpu: bool = False, enable_storage: bool = False):
+                   enable_gpu: bool = False, enable_storage: bool = False, mesh=None):
     """Scan the whole batch; returns (final carry, choices [P] i32, -1 =
-    unschedulable): the plain version for CPU tensors, K2 for CUDA tensors."""
+    unschedulable): the plain version for CPU tensors, K2 for CUDA tensors.
+    On a partitioned node `mesh` (the tables and carry this rank's block:
+    parallel/mesh.py `to_device_sharded`) the scan on the block, K12 for
+    CUDA tensors and `schedule_batch_sharded_plain` for CPU tensors; the
+    carry returned is the block's, the choices global and equal on every
+    rank."""
+    if _partitioned(mesh):
+        run = schedule_batch_sharded_plain if _on_cpu(tb.alloc) else schedule_batch_sharded_kernel
+        return run(tb, cry, pod_group, forced_node, valid, n_zones, mesh, w, filters, enable_gpu,
+                   enable_storage)
     run = schedule_batch_plain if _on_cpu(tb.alloc) else schedule_batch_kernel
     return run(tb, cry, pod_group, forced_node, valid, n_zones, w, filters, enable_gpu,
                enable_storage)
@@ -3558,7 +3917,9 @@ _WRAPPERS = {"schedule_batch": schedule_batch, "feasibility": feasibility_jit,
              "schedule_wave_sharded": schedule_wave_sharded_kernel,
              "schedule_affinity_wave_sharded": schedule_affinity_wave_sharded_kernel,
              "schedule_wave_rounds": schedule_wave_rounds_kernel,
-             "schedule_affinity_wave_rounds": schedule_affinity_wave_rounds_kernel}
+             "schedule_affinity_wave_rounds": schedule_affinity_wave_rounds_kernel,
+             "schedule_batch_sharded": schedule_batch_sharded_kernel,
+             "explain_sharded": explain_sharded_kernel}
 for _f in _WRAPPERS.values():
     _f.launches = 0
 # the sharded kernels' reads of (placed, last), one per epoch or round
@@ -3575,7 +3936,8 @@ schedule_affinity_wave.last_stats = None
 BRANCH_LAUNCHES = dict.fromkeys(("feasibility/gpu_storage", "schedule_batch/gpu_storage",
                                  "schedule_wave/gpu_live", "aggregate_commit/gpu_live",
                                  "schedule_wave_sharded/gpu_live",
-                                 "schedule_wave_rounds/gpu_live"), 0)
+                                 "schedule_wave_rounds/gpu_live",
+                                 "schedule_batch_sharded/gpu_storage"), 0)
 
 
 def reset_launch_counts() -> None:

@@ -7,9 +7,12 @@ from .distributed import initialize as initialize_distributed
 from .mesh import (
     NODE_AXIS,
     SCENARIO_AXIS,
+    NodeBlock,
     NodeMesh,
     ScenarioMesh,
     ShardedKernels,
+    carry_reshard_bytes,
+    carry_shardings,
     epoch_shards,
     fanout_shardings,
     fetch_lanes,
@@ -18,16 +21,22 @@ from .mesh import (
     pad_batch_tables,
     put_fanout_inputs,
     round_shards,
+    schedule_batch_on_mesh,
     schedule_scenarios_on_mesh,
+    table_shardings,
+    to_device_sharded,
 )
 
 __all__ = [
     "NODE_AXIS",
     "SCENARIO_AXIS",
+    "NodeBlock",
     "NodeMesh",
     "ScenarioMesh",
     "ShardedKernels",
     "all_gather_rows",
+    "carry_reshard_bytes",
+    "carry_shardings",
     "choose_backend",
     "epoch_shards",
     "fanout_shardings",
@@ -41,5 +50,8 @@ __all__ = [
     "pad_batch_tables",
     "put_fanout_inputs",
     "round_shards",
+    "schedule_batch_on_mesh",
     "schedule_scenarios_on_mesh",
+    "table_shardings",
+    "to_device_sharded",
 ]

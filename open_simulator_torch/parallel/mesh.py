@@ -59,8 +59,29 @@ rank's block and exchange only block summaries and block tops:
   per epoch.
 
 In every path the per-node counts, `placed`, the statistics and K3c's new
-carry are equal on every rank (JAX's out_specs `P()`). The serial routes
-(K2, K4, K1, K7) and the commit (K3c) run replicated on every rank.
+carry are equal on every rank (JAX's out_specs `P()`). On the replicated
+layout the serial routes (K2, K4, K1, K7) and the commit (K3c) run
+replicated on every rank.
+
+The partitioned layout (JAX `table_shardings`, `carry_shardings`,
+`to_device_sharded`): each rank stages and holds only its block [r*NL,
+(r+1)*NL) of the node axis of every [*, N] table (`static_mask`, the
+`mask_*` and `*_raw` [G, N] tables, `counter_dom`, `topo_dom`, `carr_dom`,
+`node_zone`) and [N, *] table and carry row (`alloc`, `dev_total`, the
+volume-group and storage-device tables; `requested`, `nonzero`,
+`port_used`, `dev_used`, `vg_req`, `sdev_alloc`); every per-group table,
+`counter_topo`, `carr_topo` and the carry's domain counters `counter` and
+`carrier` [*, D+1] are whole on every rank. `table_shardings` and
+`carry_shardings` give each leaf's `NodeBlock` rule; `carry_reshard_bytes`
+counts the bytes of carry leaves out of that layout (0 on every chained
+dispatch). The serial scan runs on it (`schedule_batch_on_mesh`, and the
+engine on a node mesh with `use_waves = False`): `kernels.schedule_batch`,
+`feasibility_jit` and `explain_jit` with the mesh take the block (K12,
+csrc/batch_sharded.cu; K1 on the block; K12's explain mode), two
+`all_gather_rows` per pod and a `pmax` for a pod whose group has
+ScheduleAnyway terms, the diagnostics' masks gathered tiled at the fetch.
+The other routes (K4, K3c and the wave kernels' setups) still read the
+replicated layout (ROADMAP B13b (c2)).
 
 Scenario axis. `make_scenario_mesh(n)` is JAX's pure-scenario mesh
 ('scenarios' = n, 'nodes' = 1) over the n ranks of the process group, and
@@ -79,9 +100,6 @@ which every rank holds the same [S, ...] result, as JAX's fetch of a
 lane-sharded array gives it. The callers pad S to a multiple of k as JAX's
 do (the probe session repeats its last candidate, the image its lane 0).
 
-Not ported (ROADMAP B13b (c)): the partitioned table layout
-(`table_shardings`, `carry_shardings`, `to_device_sharded`,
-`carry_reshard_bytes`), with which each rank would store only its block.
 """
 
 from __future__ import annotations
@@ -100,7 +118,7 @@ from ..ops import kernels
 from ..simulator.encode import pad_batch_tables as _pad_batch_tables
 from ..simulator.encode import plugin_flags
 from ..simulator.engine import resolve_device
-from .collectives import gather_lanes
+from .collectives import all_gather_rows, gather_lanes
 
 NODE_AXIS = "nodes"
 SCENARIO_AXIS = "scenarios"
@@ -207,6 +225,135 @@ def round_shards(mesh, N: int) -> int:
     if ax is not None and shards > 1 and N % shards == 0 and N > epoch_max_nodes():
         return shards
     return 1
+
+
+# ------------------------------------------------------- partitioned layout ----
+
+# The node axis of every partitioned leaf (0: rows, -1: columns); every
+# other leaf is whole on every rank (JAX :67-115).
+_TABLE_NODE_AXIS = dict(
+    alloc=0, node_zone=0, static_mask=-1, mask_taint=-1, mask_unsched=-1, mask_aff=-1,
+    mask_extra=-1, simon_raw=-1, nodeaff_raw=-1, taint_raw=-1, avoid_raw=-1, image_raw=-1,
+    extra_raw=-1, counter_dom=-1, topo_dom=-1, carr_dom=-1, dev_total=0, vg_cap=0, vg_nameid=0,
+    sdev_cap=0, sdev_media=0)
+_CARRY_NODE_AXIS = dict(requested=0, nonzero=0, port_used=0, dev_used=0, vg_req=0, sdev_alloc=0)
+
+
+@dataclasses.dataclass(frozen=True)
+class NodeBlock:
+    """One leaf's rule on one rank of a node mesh (the port's NamedSharding):
+    `axis` is the leaf's node axis (None: whole on every rank), of `nodes`
+    entries in all (the padded N; None: the leaf's own extent); the rank
+    holds [rank*NL, (rank+1)*NL) of it, NL = nodes / shards, on `device`.
+    Called on a host array or tensor of every node, returns that part."""
+
+    axis: Optional[int]
+    rank: int
+    shards: int
+    device: torch.device
+    nodes: Optional[int] = None
+
+    def block(self, n: int) -> slice:
+        if n % self.shards:
+            raise ValueError(f"{n} nodes do not split over {self.shards} shards; "
+                             f"pad them (pad_batch_tables)")
+        NL = n // self.shards
+        return slice(self.rank * NL, (self.rank + 1) * NL)
+
+    def __call__(self, a):
+        if self.axis is None:
+            return a
+        idx = [slice(None)] * a.ndim
+        idx[self.axis] = self.block(a.shape[self.axis] if self.nodes is None else self.nodes)
+        return a[tuple(idx)]
+
+    def holds(self, t: torch.Tensor) -> bool:
+        """Whether tensor `t` is in this layout: on the rank's device and, on
+        a node axis, NL entries long."""
+        if t.device != _concrete(self.device):
+            return False
+        if self.axis is None:
+            return True
+        if self.nodes is None:
+            raise ValueError("a node-axis rule needs `nodes` to check a layout")
+        return t.shape[self.axis] == self.nodes // self.shards
+
+
+def _concrete(dev: torch.device) -> torch.device:
+    """`dev` with its index, as a tensor there reports it."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _rules(fields, axes: dict, mesh, n_nodes) -> list:
+    return [NodeBlock(axes.get(f), mesh.rank, mesh.shards, mesh.device, n_nodes) for f in fields]
+
+
+def table_shardings(mesh, n_nodes: Optional[int] = None) -> kernels.Tables:
+    """The `NodeBlock` rule of every Tables field on this rank (JAX
+    `table_shardings`): the node axis partitioned, everything else whole.
+    `n_nodes` (the padded N) lets the rules check a layout."""
+    return kernels.Tables(*_rules(kernels.Tables._fields, _TABLE_NODE_AXIS, mesh, n_nodes))
+
+
+def carry_shardings(mesh, n_nodes: Optional[int] = None) -> kernels.Carry:
+    """The `NodeBlock` rule of every Carry field on this rank (JAX
+    `carry_shardings`): the [N, *] rows partitioned, the domain counters
+    `counter` and `carrier` whole (global state)."""
+    return kernels.Carry(*_rules(kernels.Carry._fields, _CARRY_NODE_AXIS, mesh, n_nodes))
+
+
+def to_device_sharded(bt, mesh) -> Tuple[kernels.Tables, kernels.Carry, object]:
+    """Pad the batch to the mesh's shard count (`pad_batch_tables`; a no-op
+    when the encoder aligned the node axis) and stage only this rank's part
+    of every leaf on the mesh's device: (tables block, carry block, padded
+    bt). The choices of a scan on it are global node indices; padding nodes
+    are infeasible for every pod."""
+    bt = pad_batch_tables(bt, mesh.shards)
+    N = int(bt.alloc.shape[0])
+    dev = mesh.device
+
+    def put(a, rule):
+        return torch.tensor(np.ascontiguousarray(rule(np.asarray(a))), device=dev)
+
+    tables = kernels.Tables(*(put(getattr(bt, f), r) for f, r in
+                              zip(kernels.Tables._fields, table_shardings(mesh, N))))
+    carry = kernels.Carry(*(put(getattr(bt, "seed_" + f), r) for f, r in
+                            zip(kernels.Carry._fields, carry_shardings(mesh, N))))
+    return tables, carry, bt
+
+
+def carry_reshard_bytes(carry, shardings) -> int:
+    """Bytes of the carry leaves whose shape or device differs from the
+    declared layout `shardings` (`carry_shardings(mesh, n_nodes)`): what a
+    chained dispatch would have to move to bring the carry back to its
+    block. The partitioned scan returns the block it was given, so this is
+    0 on every chained dispatch (simon_reshard_bytes_total)."""
+    return sum(leaf.numel() * leaf.element_size() for leaf, rule in zip(carry, shardings)
+               if not rule.holds(leaf))
+
+
+def gather_carry(carry, mesh) -> kernels.Carry:
+    """Every rank's carry block assembled in node order (one all_gather_rows
+    per partitioned leaf), on every rank: the carry of all N nodes."""
+    return kernels.Carry(*(all_gather_rows(leaf, mesh) if f in _CARRY_NODE_AXIS else leaf
+                           for f, leaf in zip(kernels.Carry._fields, carry)))
+
+
+def schedule_batch_on_mesh(bt, mesh):
+    """One schedulePods batch with the node axis partitioned over `mesh`
+    (JAX `schedule_batch_on_mesh`): `to_device_sharded`, then the serial scan
+    on this rank's block (`kernels.schedule_batch` with the mesh: K12 on the
+    card). Returns (this rank's final carry block, choices [P] i32). The
+    choices index the original node list, equal on every rank: phantom
+    padding is infeasible, so they never reach the real N."""
+    tables, carry, bt = to_device_sharded(bt, mesh)
+    enable_gpu, enable_storage = plugin_flags(bt)
+    return kernels.schedule_batch(tables, carry, torch.from_numpy(bt.pod_group),
+                                  torch.from_numpy(bt.forced_node), torch.from_numpy(bt.valid),
+                                  n_zones=bt.n_zones, enable_gpu=enable_gpu,
+                                  enable_storage=enable_storage, mesh=mesh)
 
 
 # ------------------------------------------------------------ scenario axis ----

@@ -53,16 +53,26 @@ Left out of this port so far, each with the ROADMAP item it waits for:
 - the watchdog, CPU failover, fault injection and transactional rollback
   (resilience/), and the pulse and scope instrumentation (obs/): A9;
 - the columnar PodStore/NodeStore batches: A14;
-- the mesh's partitioned table layout (A12b).
+- the partitioned table layout on the default route (B13b (c2)).
 
 On a node mesh (`use_mesh`, parallel/mesh.py) every rank runs this engine
-on the same input with the tables and carry replicated; the encoder pads
-the node axis to a multiple of the shard count, and the "wave" and
-"affinity" routes pass the mesh to their kernels, whose epoch fronts run on
-the rank's node block with two collectives per epoch (K8, K9 on the card);
-above the epoch limit the wave's rounds run on the block with four
-collectives per round (K10), and the affinity wave's epochs on the block
-but their rounds, with two to four collectives per epoch (K11).
+on the same input; the encoder pads the node axis to a multiple of the
+shard count. On the default route the tables and carry are replicated, and
+the "wave" and "affinity" routes pass the mesh to their kernels, whose
+epoch fronts run on the rank's node block with two collectives per epoch
+(K8, K9 on the card); above the epoch limit the wave's rounds run on the
+block with four collectives per round (K10), and the affinity wave's epochs
+on the block but their rounds, with two to four collectives per epoch
+(K11). The segment router decides as it does without a mesh. With
+`use_waves = False` the layout is partitioned (`_partition_mesh`, JAX's
+`to_device_sharded` staging): each rank stages and holds only its block of
+the node axis, the serial scan runs on it (K12: two `all_gather_rows` per
+pod, a `pmax` more for a group with ScheduleAnyway terms), the FitError
+reasons and the recorder's decision sets come from K1 and K12's explain
+mode on the block, gathered at the fetch, and the host commits the global
+choices, which are equal on every rank. Each partitioned dispatch adds the
+bytes of any carry leaf out of that layout to simon_reshard_bytes_total
+(0 by construction).
 """
 
 from __future__ import annotations
@@ -266,6 +276,7 @@ class Simulator:
         self._domain_count_cache: Dict[str, int] = {}  # topo key -> #domains
         self.segment_census: Dict[str, List[int]] = {}  # kind -> [segments, pods]
         self._last_carry: Optional[kernels.Carry] = None  # end carry of the last batch
+        self._last_mesh = None  # the partitioned mesh whose block _last_carry is, if any
         # Live-DNS groups whose every self topology has fewer domains than
         # this ride the group-serial scan instead of the affinity route (the
         # JAX engine's break-even knob, read the same way so that both
@@ -474,8 +485,37 @@ class Simulator:
 
     def _to_device(self, bt: BatchTables):
         obs.TRANSFER_BYTES.inc(batch_tables_nbytes(bt))
+        mesh = self._partition_mesh()
+        if mesh is not None:
+            from ..parallel.mesh import to_device_sharded
+
+            tables, carry, _ = to_device_sharded(bt, mesh)
+            return tables, carry
         return (kernels.tables_from_batch(bt, self.device),
                 kernels.carry_from_batch(bt, self.device))
+
+    def _partition_mesh(self):
+        """The node mesh whose partitioned layout this run stages, or None:
+        a 1-D node mesh of more than one shard with `use_waves = False` (the
+        serial route, which runs on the block; the default route keeps the
+        replicated layout)."""
+        from ..parallel.mesh import NODE_AXIS
+
+        mesh = self._resolve_mesh()
+        if (self.use_waves or mesh is None or mesh.shards <= 1
+                or tuple(mesh.axis_names) != (NODE_AXIS,)):
+            return None
+        return mesh
+
+    def _audit_reshard(self, carry, bt: BatchTables) -> None:
+        """Count any carry leaf out of the partitioned layout
+        (simon_reshard_bytes_total; 0 on every partitioned dispatch)."""
+        from ..parallel.mesh import carry_reshard_bytes, carry_shardings
+
+        b = carry_reshard_bytes(carry, carry_shardings(self._partition_mesh(),
+                                                       int(bt.alloc.shape[0])))
+        if b:
+            obs.RESHARD_BYTES.inc(b)
 
     # ------------------------------------------------------------ routing ---------
 
@@ -633,10 +673,14 @@ class Simulator:
             fn[:length] = bt.forced_node[start:start + length]
             vd = np.zeros(pad, bool)
             vd[:length] = True
-            return kernels.schedule_batch(
+            mesh = self._partition_mesh()
+            out = kernels.schedule_batch(
                 tables, carry, torch.from_numpy(pg), torch.from_numpy(fn),
                 torch.from_numpy(vd), n_zones=bt.n_zones, w=w, filters=filters,
-                enable_gpu=flags[0], enable_storage=flags[1])
+                enable_gpu=flags[0], enable_storage=flags[1], mesh=mesh)
+            if mesh is not None:
+                self._audit_reshard(out[0], bt)
+            return out
         g, cap1 = seg[3], bool(seg[4])
         if kind == "wave":
             block = kernels.wave_block_for(length, self.na.N)
@@ -707,7 +751,7 @@ class Simulator:
                 aff_stats[len(outs)] = kernels.schedule_affinity_wave.last_stats
             outs.append((seg, res, carry))
         span.step("dispatch")
-        self._last_carry = carry
+        self._last_carry, self._last_mesh = carry, self._partition_mesh()
         flat = torch.cat([res for _, res, _ in outs]).cpu().numpy()
         choices = np.full(P, -1, np.int32)
         seg_of = np.zeros(P, np.int32)
@@ -868,7 +912,7 @@ class Simulator:
             # a serial segment returns per-pod choices, the others per-node counts
             placed_parts.append((res >= 0).sum(dtype=torch.int32) if seg[0] == "serial"
                                 else res.sum(dtype=torch.int32))
-        self._last_carry = carry
+        self._last_carry, self._last_mesh = carry, self._partition_mesh()
         total = int(torch.stack(placed_parts).sum().cpu())  # one fetch
         return scheduled + total, total_known
 
@@ -884,7 +928,12 @@ class Simulator:
         if self._last_carry is None:
             used = np.zeros((N, self.axis.R), np.float64)
         else:
-            used = self._last_carry.requested.cpu().numpy()[:N].astype(np.float64)
+            requested = self._last_carry.requested
+            if self._last_mesh is not None:  # a block of the partitioned layout
+                from ..parallel.collectives import all_gather_rows
+
+                requested = all_gather_rows(requested, self._last_mesh)
+            used = requested.cpu().numpy()[:N].astype(np.float64)
         alloc = self.na.alloc
         return {
             "cpu_used": float(used[:, CPU_I].sum()),
@@ -962,7 +1011,8 @@ class Simulator:
                             storage=flags[1], **self._dispatch_dims(bt))
         packed = kernels.explain_jit(tables, carry_start, g, forced, True, bt.n_zones,
                                      enable_gpu=flags[0], enable_storage=flags[1],
-                                     w=self.score_w, filters=self.filter_flags)
+                                     w=self.score_w, filters=self.filter_flags,
+                                     mesh=self._partition_mesh())
         packed = packed.cpu().numpy()[:, :self.na.N]  # drop the phantom node padding
         ns = len(xray.STAGE_NAMES)
         stage_rows = {s: packed[2 + i] > 0.5 for i, s in enumerate(xray.STAGE_NAMES)}
@@ -992,10 +1042,14 @@ class Simulator:
         kernels.feasibility_jit with the batch's (enable_gpu, enable_storage)
         (findNodesThatFitPod failure accounting, first-failing plugin per
         node)."""
-        obs.record_dispatch("feasibility_jit", gpu=flags[0], storage=flags[1],
-                            **self._dispatch_dims(tables))
+        mesh = self._partition_mesh()
+        dims = self._dispatch_dims(tables)
+        if mesh is not None:  # the block's tables: the signature keys the global N
+            dims["N"] *= mesh.shards
+        obs.record_dispatch("feasibility_jit", gpu=flags[0], storage=flags[1], **dims)
         _, stages = kernels.feasibility_jit(tables, carry, g, forced, True, self.filter_flags,
-                                            enable_gpu=flags[0], enable_storage=flags[1])
+                                            enable_gpu=flags[0], enable_storage=flags[1],
+                                            mesh=mesh)
         N = self.na.N  # stages carry phantom node padding; slice it off
         stages = {k: v.cpu().numpy()[:N] for k, v in stages.items()}
         return self._reasons_from_stages(pod, forced, stages)

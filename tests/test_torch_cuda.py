@@ -639,6 +639,31 @@ def test_tail_kernel_matches_plain_tail_on_two_ranks(tmp_path):
     assert sum(r["branches"].get("rejected", 0) for r in got[0]) > 0
 
 
+@pytest.mark.cuda
+def test_partitioned_scan_kernel_matches_plain_on_two_ranks(tmp_path):
+    """K12 on two ranks that share cuda:0 over gloo, each holding its block
+    of the node axis, against the plain sharded scan on the same ranks and
+    the unsharded K2, bit for bit (choices, carry), on the seeded clusters of
+    tests/torch_mesh_cases.py `partitioned_scans` (EXT false and true), with
+    two all_gather_rows per pod and a pmax per ScheduleAnyway pod; K1 on the
+    block and K12's explain mode against K1, K7 and the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import torch_mesh_cases as C
+    from open_simulator_torch.ops import build
+    from open_simulator_torch.parallel.launch import run_ranks
+
+    build.library()  # build once, before the ranks load it
+    got = run_ranks(C.card_partitioned, 2, str(tmp_path), device="cuda", backend="gloo")
+    assert got[0] == got[1]
+    assert [r["flags"] for r in got[0]] == [(False, False), (True, True)]
+    for r in got[0]:
+        assert r["same_plain"] and r["same_unsharded"] and r["diag_same"], r
+        assert r["calls"] == {"pmax": r["sa_pods"], "all_gather_tiled": 0,
+                              "all_gather_rows": 2 * r["pods"]}, r
+    assert got[0][0]["sa_pods"] > 0 and got[0][0]["failed"] > 0
+
+
 LANE_FANOUTS = ("probe_serial_fanout", "probe_wave_fanout", "probe_group_serial_fanout",
                 "probe_affinity_wave_fanout", "serve_whatif_fanout", "serve_wave_fanout",
                 "sweep_wave_fanout", "sweep_whatif_fanout")

@@ -683,3 +683,392 @@ def card_kernels(mesh) -> list:
                     and kst.tolist() == ust.tolist()})
         cry = K.aggregate_commit(tb, cry, g, kj, bool(seg[5]) if kind == "wave" else False)
     return out
+
+
+# --------------------------------------------------------- partitioned layout ----
+#
+# The serial route on the partitioned node layout (each rank holds only its
+# block of the node axis): tests/test_torch_partitioned.py spawns the ranks
+# and holds these records against the JAX package's partitioned runs.
+
+# tests/test_parallel.py's three schedule_batch_on_mesh batches: synth_cluster
+# (nodes, pods, hard predicates)
+JAX_BATCHES = ((26, 48, True), (16, 32, False), (10, 20, True))
+
+
+def _anyway(pod, app, topo, skew):
+    pod["spec"]["topologySpreadConstraints"] = [{
+        "maxSkew": skew, "topologyKey": topo, "whenUnsatisfiable": "ScheduleAnyway",
+        "labelSelector": {"matchLabels": {"app": app}}}]
+    return pod
+
+
+def _pinned(pod, node: str):
+    """A DaemonSet-style pin (matchFields metadata.name): a forced node."""
+    pod["spec"]["affinity"] = {"nodeAffinity": {"requiredDuringSchedulingIgnoredDuringExecution": {
+        "nodeSelectorTerms": [{"matchFields": [
+            {"key": "metadata.name", "operator": "In", "values": [node]}]}]}}}
+    return pod
+
+
+def partitioned_workload(seed: int = 11, n_nodes: int = 64, cordon_from: int = 48):
+    """Seeded node sizes on three zones (so the zones cut across every rank
+    block), nodes from `cordon_from` on cordoned (at four shards the last
+    block holds no feasible node), and pods, interleaved, of every shape
+    whose reductions cross the ranks: hostname self-anti-affinity that
+    overflows (52 pods on 48 nodes), required zone self-affinity (its
+    bootstrap), a hostname DoNotSchedule spread, ScheduleAnyway on the
+    hostname and the zone key, a Service-backed group (SelectorSpread over
+    the zones), host ports, preferred-free plain pods, and pods pinned to a
+    node of every block (one to a cordoned node). Returns (nodes, pods,
+    services)."""
+    rng = np.random.RandomState(seed)
+    nodes = [make_node(f"q{i}", cpu=str(int(rng.choice([4, 8, 16]))),
+                       memory=f"{int(rng.choice([8, 16, 32]))}Gi", pods="30",
+                       labels={ZONE: f"z{i % 3}"}, unschedulable=i >= cordon_from)
+             for i in range(n_nodes)]
+    shapes = [
+        lambda i: _required(make_pod(f"ah-{i}", cpu="100m", memory="64Mi", labels={"app": "ah"}),
+                            "podAntiAffinity", "ah", HOST),
+        lambda i: _required(make_pod(f"af-{i}", cpu="100m", memory="64Mi", labels={"app": "af"}),
+                            "podAffinity", "af", ZONE),
+        lambda i: _spread(make_pod(f"hs-{i}", cpu="150m", memory="96Mi", labels={"app": "hs"}),
+                          "hs", HOST, 1),
+        lambda i: _anyway(make_pod(f"ha-{i}", cpu="200m", memory="128Mi", labels={"app": "ha"}),
+                          "ha", HOST, 1),
+        lambda i: _anyway(make_pod(f"za-{i}", cpu="250m", memory="256Mi", labels={"app": "za"}),
+                          "za", ZONE, 2),
+        lambda i: make_pod(f"sv-{i}", cpu="300m", memory="256Mi", labels={"app": "svc"}),
+        lambda i: make_pod(f"pt-{i}", cpu="100m", memory="64Mi", labels={"app": "pt"},
+                           host_ports=[8080]),
+        lambda i: make_pod(f"w-{i}", cpu=str(int(rng.choice([250, 500, 1000]))) + "m",
+                           memory="512Mi", labels={"app": "w"}),
+    ]
+    pods = [shapes[k % len(shapes)](k // len(shapes)) for k in range(52 * len(shapes))]
+    stride = n_nodes // 8
+    pods += [_pinned(make_pod(f"pin-{b}", cpu="500m", memory="256Mi"), f"q{b * stride + 3}")
+             for b in range(8)]
+    pods += [_pinned(make_pod("pin-cordoned", cpu="100m", memory="64Mi"), f"q{n_nodes - 1}")]
+    return nodes, pods, _services("svc")
+
+
+def _carry_np(cry) -> dict:
+    return {f: t.cpu().numpy() for f, t in cry._asdict().items()}
+
+
+def _calls(mesh) -> dict:
+    return {k: v["calls"] for k, v in mesh.counts.items()}
+
+
+def partitioned_batches(mesh, device="cpu") -> list:
+    """The three batches of tests/test_parallel.py through the port's
+    `schedule_batch_on_mesh` on this rank: its choices, its carry block and
+    the collective calls."""
+    from open_simulator_torch.parallel import schedule_batch_on_mesh
+    from open_simulator_torch.simulator.engine import Simulator
+    from open_simulator_torch.utils.synth import synth_cluster
+
+    out = []
+    for n, p, hard in JAX_BATCHES:
+        nodes, pods = synth_cluster(n, p, hard_predicates=hard)
+        bt = Simulator(nodes, device=device, use_mesh=False).encode_batch(pods)
+        mesh.reset_counts()
+        cry, ch = schedule_batch_on_mesh(bt, mesh)
+        out.append({"choices": ch.tolist(), "carry": _carry_np(cry), "calls": _calls(mesh),
+                    "valid": int(bt.valid.sum()), "real_nodes": n})
+    return out
+
+
+def partitioned_clusters():
+    """(label, nodes, pods, services, storage classes) of the seeded scans."""
+    from open_simulator_torch.utils.synth import synth_extended_cluster
+
+    nodes, pods, services = partitioned_workload()
+    ext_nodes, ext_pods, _, scs = synth_extended_cluster(32, 160)
+    return (("seeded", nodes, pods, services, []), ("extended", ext_nodes, ext_pods, [], scs))
+
+
+def partitioned_scans(mesh, device="cpu") -> list:
+    """On each seeded cluster: the plain sharded scan against the unsharded
+    `schedule_batch_plain` from the same seed (choices; the final carry,
+    gathered), with its collective calls, its choices and this rank's block
+    of its final carry; then, against the unsharded end
+    carry and its block, `feasibility_jit` and `explain_jit` on the block
+    (gathered) against the unsharded `feasibility` and packed `explain_pod`
+    for every group, unforced and forced into every block. Bit for bit."""
+    import torch
+
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.parallel.mesh import carry_shardings, gather_carry, to_device_sharded
+    from open_simulator_torch.simulator.encode import pad_batch_tables, plugin_flags
+    from open_simulator_torch.simulator.engine import Simulator
+
+    out = []
+    for label, nodes, pods, services, scs in partitioned_clusters():
+        sim = Simulator(copy.deepcopy(nodes), device=device, use_mesh=False)
+        sim.register_cluster_objects(ResourceTypes(services=list(services),
+                                                   storage_classes=list(scs)))
+        bt = pad_batch_tables(sim.encode_batch(copy.deepcopy(pods)), mesh.shards)
+        gpu, storage = plugin_flags(bt)
+        flags = dict(enable_gpu=gpu, enable_storage=storage)
+        pg, fn, vd = (torch.from_numpy(a) for a in (bt.pod_group, bt.forced_node, bt.valid))
+        tb, seed = K.tables_from_batch(bt, device), K.carry_from_batch(bt, device)
+        end, ch = K.schedule_batch_plain(tb, seed, pg, fn, vd, bt.n_zones, **flags)
+        tbl, seedl, _ = to_device_sharded(bt, mesh)
+        mesh.reset_counts()
+        endl, chl = K.schedule_batch_sharded_plain(tbl, seedl, pg, fn, vd, bt.n_zones, mesh,
+                                                   **flags)
+        calls = _calls(mesh)
+        full = gather_carry(endl, mesh)
+        N, NL = int(tb.alloc.shape[0]), int(tbl.alloc.shape[0])
+        P = int(vd.sum())
+        sa_pods = sum(K._has_sa(tb, int(g)) for g, v in zip(bt.pod_group, bt.valid) if v)
+        # the diagnostics on the block of the unsharded end carry
+        endb = K.Carry(*(rule(t).contiguous() for t, rule in zip(end, carry_shardings(mesh, N))))
+        groups = sorted({int(g) for g in bt.pod_group[:P]})
+        forced = [-1] + [b * NL + NL // 2 for b in range(mesh.shards)]
+        diag_same, diag_cases = True, 0
+        mesh.reset_counts()
+        for g in groups:
+            for f in forced:
+                fk, sk = K.feasibility_jit(tbl, endb, g, f, True, **flags, mesh=mesh)
+                fu, su = K.feasibility(tb, end, g, f, True, **flags)
+                diag_same &= torch.equal(fk, fu) and all(torch.equal(sk[k], su[k])
+                                                         for k in K.STAGE_KEYS)
+                ek = K.explain_jit(tbl, endb, g, f, True, bt.n_zones, **flags, mesh=mesh)
+                eu = K.pack_explain(*K.explain_pod(tb, end, g, f, True, bt.n_zones, **flags))
+                diag_same &= bool(torch.equal(ek.view(torch.int32), eu.view(torch.int32)))
+                diag_cases += 1
+        feas_blocks = K.feasibility(tb, seed, int(bt.pod_group[0]), -1, True, **flags)[0]
+        out.append({
+            "cluster": label, "N": N, "NL": NL, "pods": P, "sa_pods": sa_pods,
+            "flags": (gpu, storage), "same_choices": torch.equal(ch, chl),
+            "same_carry": all(torch.equal(a, b) for a, b in zip(full, end)),
+            "failed": int((ch[:P] < 0).sum()), "calls": calls,
+            "choices": chl.tolist(), "carry": _carry_np(endl),
+            "forced_blocks": sorted({int(f) // NL for f in bt.forced_node[:P] if f >= 0}),
+            "feasible_blocks": sorted({int(n) // NL for n in feas_blocks.nonzero().flatten()}),
+            "placed_blocks": sorted({int(c) // NL for c in ch[:P] if c >= 0}),
+            "diag_same": bool(diag_same), "diag_cases": diag_cases,
+            "diag_calls": _calls(mesh)})
+    return out
+
+
+def partitioned_layout(mesh, device="cpu") -> dict:
+    """The layout on this rank: every node-axis leaf holds NL of the N rows
+    or columns (this rank's), every other leaf is whole; the bytes each rank
+    holds against the unsharded layout's; carry_reshard_bytes after two
+    chained dispatches (0) and of a full-width carry (its node-axis leaves'
+    bytes)."""
+    import torch
+
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.parallel.mesh import (_CARRY_NODE_AXIS, _TABLE_NODE_AXIS,
+                                                    carry_reshard_bytes, carry_shardings,
+                                                    to_device_sharded)
+    from open_simulator_torch.simulator.encode import pad_batch_tables
+    from open_simulator_torch.simulator.engine import Simulator
+
+    nodes, pods, _ = partitioned_workload()
+    sim = Simulator(copy.deepcopy(nodes), device=device, use_mesh=False)
+    bt = pad_batch_tables(sim.encode_batch(copy.deepcopy(pods)), mesh.shards)
+    tb, cry, _ = to_device_sharded(bt, mesh)
+    full_tb, full_cry = K.tables_from_batch(bt, device), K.carry_from_batch(bt, device)
+    N = int(bt.alloc.shape[0])
+    NL = N // mesh.shards
+    sl = slice(mesh.rank * NL, (mesh.rank + 1) * NL)
+    leaves = {}
+    for axes, blk, full in ((_TABLE_NODE_AXIS, tb, full_tb), (_CARRY_NODE_AXIS, cry, full_cry)):
+        for f, t, u in zip(blk._fields, blk, full):
+            ax = axes.get(f)
+            want = u if ax is None else (u[sl] if ax == 0 else u[..., sl])
+            leaves[f] = {"axis": ax, "shape": list(t.shape), "full": list(u.shape),
+                         "same": bool(torch.equal(t, want))}
+    P = int(bt.valid.sum())
+    half = P // 2
+    args = [torch.from_numpy(a) for a in (bt.pod_group, bt.forced_node, bt.valid)]
+    first = [a.clone() for a in args]
+    first[2][half:] = False
+    second = [a.clone() for a in args]
+    second[2][:half] = False
+    c1, _ = K.schedule_batch(tb, cry, *first, n_zones=bt.n_zones, mesh=mesh)
+    c2, _ = K.schedule_batch(tb, c1, *second, n_zones=bt.n_zones, mesh=mesh)
+    decl = carry_shardings(mesh, N)
+    node_bytes = sum(t.numel() * t.element_size() for f, t in full_cry._asdict().items()
+                     if f in _CARRY_NODE_AXIS)
+    return {"N": N, "NL": NL, "leaves": leaves,
+            "reshard_chained": carry_reshard_bytes(c2, decl),
+            "reshard_full": carry_reshard_bytes(full_cry, decl), "node_carry_bytes": node_bytes,
+            "bytes_block": sum(t.numel() * t.element_size() for t in (*tb, *cry)),
+            "bytes_full": sum(t.numel() * t.element_size() for t in (*full_tb, *full_cry))}
+
+
+def phantom_pods(first: int):
+    """tests/test_mesh_sharding.py's two-batch phantom test: 80 one-cpu pods
+    from index `first`."""
+    return [make_pod(f"p-{i}", cpu="1", memory="128Mi", labels={"app": "w"})
+            for i in range(first, first + 80)]
+
+
+def phantom_nodes():
+    """26 four-cpu nodes (104 one-cpu pods cluster-wide): 6 phantom columns
+    at 8 shards, 6 at 2 and 4 (padded to 32)."""
+    return [make_node(f"n{i}", cpu="4", memory="8Gi", pods="8") for i in range(26)]
+
+
+def _reasons(failed) -> dict:
+    return {u.pod["metadata"]["name"]: u.reason for u in failed}
+
+
+def _xray_lines(prefix) -> list:
+    import json
+
+    out = []
+    with open(prefix + ".jsonl") as f:
+        for line in f:
+            rec = json.loads(line)
+            for k in ("backend_path", "pid", "created_unix"):
+                rec.pop(k, None)
+            out.append(rec)
+    return out
+
+
+def _same_xray(a: str, b: str) -> bool:
+    if _xray_lines(a) != _xray_lines(b):
+        return False
+    with np.load(a + ".npz") as za, np.load(b + ".npz") as zb:
+        return sorted(za.files) == sorted(zb.files) and all(
+            np.array_equal(za[k].view(np.uint8), zb[k].view(np.uint8)) for k in za.files)
+
+
+def partitioned_engine(mesh, device="cpu", xray_dir=None) -> dict:
+    """`Simulator(use_mesh=True)` with `use_waves = False` on this rank's
+    mesh (the partitioned layout): the mixed workload (recorded by the xray
+    flight recorder, its trace against the unsharded serial run's when
+    `xray_dir` is given) and the two-batch phantom test, with placements,
+    failures and their reasons, the collective calls, the end carry's
+    phantom rows (gathered) and simon_reshard_bytes_total."""
+    from open_simulator_torch.obs import REGISTRY
+    from open_simulator_torch.obs import xray
+    from open_simulator_torch.parallel.collectives import all_gather_rows
+    from open_simulator_torch.simulator.engine import Simulator
+
+    def sim_on(nodes, partitioned):
+        sim = Simulator(copy.deepcopy(nodes), device=device, use_mesh=partitioned)
+        sim.use_waves = False
+        if partitioned:
+            assert sim._resolve_mesh().shards == mesh.shards
+            sim._mesh = mesh  # this rank's mesh, whose counters are read
+        return sim
+
+    reshard0 = REGISTRY.values().get("simon_reshard_bytes_total", 0)
+    out = {}
+    nodes, pods = mixed_workload()
+    traces = []
+    for partitioned in (True, False):
+        prefix = None
+        if xray_dir is not None:
+            prefix = os.path.join(xray_dir, f"r{mesh.rank}_{int(partitioned)}")
+            xray.enable(prefix)
+        try:
+            sim = sim_on(nodes, partitioned)
+            mesh.reset_counts()
+            failed = sim.schedule_pods(copy.deepcopy(pods))
+        finally:
+            if prefix is not None:
+                xray.disable()
+        traces.append(prefix)
+        rec = placements(sim, failed)
+        rec.update(reasons=_reasons(failed), calls=_calls(mesh),
+                   census={k: list(v) for k, v in sim.segment_census.items()})
+        out["mixed" if partitioned else "mixed_unsharded"] = rec
+    out["mixed"]["same_xray"] = _same_xray(*traces) if xray_dir is not None else None
+    sim = sim_on(phantom_nodes(), True)
+    mesh.reset_counts()
+    f1 = sim.schedule_pods(phantom_pods(0))
+    f2 = sim.schedule_pods(phantom_pods(100))
+    requested = all_gather_rows(sim._last_carry.requested, mesh)
+    rec = placements(sim, f1 + f2)
+    rec.update(failed_per_batch=[len(f1), len(f2)], reasons=_reasons(f1 + f2),
+               calls=_calls(mesh), block_rows=int(sim._last_carry.requested.shape[0]),
+               padded=int(requested.shape[0]),
+               phantom_untouched=not bool(requested[26:].any()),
+               utilization=sim.probe_utilization())
+    out["phantom"] = rec
+    out["reshard_bytes"] = REGISTRY.values().get("simon_reshard_bytes_total", 0) - reshard0
+    return out
+
+
+def partitioned_cases(mesh, device="cpu", xray_dir=None) -> dict:
+    """Every case of test_torch_partitioned.py on this rank's mesh."""
+    return {"rank": mesh.rank, "shards": mesh.shards,
+            "batches": partitioned_batches(mesh, device),
+            "scans": partitioned_scans(mesh, device),
+            "layout": partitioned_layout(mesh, device),
+            "engine": partitioned_engine(mesh, device, xray_dir)}
+
+
+def card_partitioned(mesh) -> list:
+    """On the card: K12 against the plain sharded scan (on the card, on the
+    same ranks) and against the unsharded K2, on the seeded clusters of
+    `partitioned_scans` (EXT false, then true): choices, the final carry
+    (gathered for K2) and K12's collective calls; then at the end carry K1
+    on the block and K12's explain mode, gathered, against K1 and K7
+    unsharded and against the plain versions on the block, for every group,
+    unforced and forced into every block. One record per cluster."""
+    import torch
+
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.parallel.collectives import all_gather_tiled
+    from open_simulator_torch.parallel.mesh import gather_carry, to_device_sharded
+    from open_simulator_torch.simulator.encode import pad_batch_tables, plugin_flags
+    from open_simulator_torch.simulator.engine import Simulator
+
+    out = []
+    for label, nodes, pods, services, scs in partitioned_clusters():
+        sim = Simulator(copy.deepcopy(nodes), device="cuda", use_mesh=False)
+        sim.register_cluster_objects(ResourceTypes(services=list(services),
+                                                   storage_classes=list(scs)))
+        bt = pad_batch_tables(sim.encode_batch(copy.deepcopy(pods)), mesh.shards)
+        gpu, storage = plugin_flags(bt)
+        flags = dict(enable_gpu=gpu, enable_storage=storage)
+        pg, fn, vd = (torch.from_numpy(a) for a in (bt.pod_group, bt.forced_node, bt.valid))
+        tb, seed = K.tables_from_batch(bt, "cuda"), K.carry_from_batch(bt, "cuda")
+        tbl, seedl, _ = to_device_sharded(bt, mesh)
+        mesh.reset_counts()
+        kc, kch = K.schedule_batch_sharded_kernel(tbl, seedl, pg, fn, vd, bt.n_zones, mesh,
+                                                  **flags)
+        calls = _calls(mesh)
+        pc, pch = K.schedule_batch_sharded_plain(tbl, seedl, pg, fn, vd, bt.n_zones, mesh,
+                                                 **flags)
+        uc, uch = K.schedule_batch_kernel(tb, seed, pg, fn, vd, bt.n_zones, **flags)
+        full = gather_carry(kc, mesh)
+        N, NL = int(tb.alloc.shape[0]), int(tbl.alloc.shape[0])
+        P = int(vd.sum())
+        groups = sorted({int(g) for g in bt.pod_group[:P]})
+        forced = [-1] + [b * NL + NL // 2 for b in range(mesh.shards)]
+        diag = True
+        for g in groups:
+            for f in forced:
+                fk, sk = K.feasibility_jit(tbl, kc, g, f, True, **flags, mesh=mesh)
+                fu, su = K.feasibility_kernel(tb, uc, g, f, True, **flags)
+                diag &= torch.equal(fk, fu) and all(torch.equal(sk[k], su[k])
+                                                    for k in K.STAGE_KEYS)
+                ek = K.explain_sharded_kernel(tbl, kc, g, f, True, bt.n_zones, **flags, mesh=mesh)
+                ep = K.pack_explain(*K.explain_pod(tbl, kc, g, f, True, bt.n_zones, **flags,
+                                                   mesh=mesh))
+                eu = K.explain_kernel(tb, uc, g, f, True, bt.n_zones, **flags)
+                diag &= torch.equal(ek.view(torch.int32), ep.view(torch.int32))
+                diag &= torch.equal(all_gather_tiled(ek, mesh, axis=1).view(torch.int32),
+                                    eu.view(torch.int32))
+        out.append({"cluster": label, "N": N, "pods": P, "flags": (gpu, storage),
+                    "sa_pods": sum(K._has_sa(tb, int(g)) for g in bt.pod_group[:P]),
+                    "calls": calls,
+                    "same_plain": bool(torch.equal(kch, pch))
+                    and all(torch.equal(a, b) for a, b in zip(kc, pc)),
+                    "same_unsharded": bool(torch.equal(kch, uch))
+                    and all(torch.equal(a, b) for a, b in zip(full, uc)),
+                    "diag_same": bool(diag), "failed": int((kch[:P] < 0).sum())})
+    return out
