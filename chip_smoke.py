@@ -56,31 +56,45 @@ goldens the JAX package computed (tests/golden/torch_port_*.json):
   feasible node and a seeded sample of 32 others. The phase prints the
   recording-on and -off walls and the encode and host-commit seconds the
   metric catalog measured.
-- the node mesh (`parallel/`): first the port's unsharded run of bench.py's
-  `mesh8_1m` cluster (100,000 nodes, 1,000,000 pods, in one chunk as
-  bench.py's store form streams it: OPEN_SIMULATOR_STREAM_PODS=2097152) on
-  the card; then two ranks spawned after the build share cuda:0 over gloo
-  (NCCL refuses two ranks on one card; the collectives stage CUDA tensors
-  through pinned host memory) and run `extended` (N 2,048 at the default
-  epoch limit: K8 with the GPU-share branch), `affinity` (N 5,120,
-  OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES=8192: K9), `affinity` again at
-  the default limit (the affinity wave's sharded tail, K11), `northstar` (N
-  10,240 at the default limit: the wave's per-round path, K10) and
+- the node mesh (`parallel/`), every run on the partitioned default route
+  (each rank stages and holds only its block of the node axis): first the
+  port's unsharded runs of bench.py's `mesh8_1m` cluster (100,000 nodes,
+  1,000,000 pods, in one chunk as bench.py's store form streams it:
+  OPEN_SIMULATOR_STREAM_PODS=2097152) and of `spread`'s first 2,000 pods
+  on the card; then two ranks spawned after the build share cuda:0 over
+  gloo (NCCL refuses two ranks on one card; the collectives stage CUDA
+  tensors through pinned host memory) and run `extended` (N 2,048 at the
+  default epoch limit: K8 with the GPU-share branch, its 10,025 serial pods
+  on K12 with EXT, K1 on the block for its 6,109 failures), `affinity` (N
+  5,120, OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES=8192: K9), `affinity`
+  again at the default limit (the affinity wave's sharded tail, K11),
+  `overflow_waves` (N 128: K8, K9, and K1 on the block for 4,400
+  failures), `spread`'s first 2,000 pods (K13 on its ScheduleAnyway,
+  SelectorSpread and DoNotSchedule segments, K10 on its wave), `northstar`
+  (N 10,240 at the default limit: the wave's per-round path, K10) and
   `mesh8_1m` (K10, one chunk) through `Simulator(use_mesh=True)` against
-  their goldens on both ranks (`mesh8_1m` against the unsharded run's
-  choices): one `pmax` and one all-gather per epoch on K8 / K9, two `pmax`
-  and two `all_gather_rows` per round on K10, two to four collectives per
-  epoch by branch on K11, which must launch where K3, K5 and K9 do not.
-  Then K8 and K9 against their plain sharded versions (on the card, on the
-  same ranks) and the unsharded K3 / K5 on one segment each (K8's on
-  northstar with the limit at 16,384), K10 against its plain per-round
-  version and K3 on northstar's first wave, and K11 against its plain
-  version and K5 on the affinity cluster's hostname spread and zone
-  spread, with `torch.topk` of the block's scores at K10's and K11's select
-  widths beside them. The phase prints the epochs or rounds, the branches,
-  the collective calls and bytes, the staged bytes, the host reads, the
-  sharded kernels' per-stage times and each rank's wall; a rank that fails
-  fails the phase.
+  their goldens on both ranks (`mesh8_1m` and the spread prefix against
+  the unsharded runs: digest, counts, reasons), every counted segment
+  committed by K14. Each run's collectives must equal its formula
+  (`expected_calls`: one `pmax` and one all-gather per epoch on K8 / K9,
+  two `pmax` and two `all_gather_rows` per round on K10, two to four
+  collectives per epoch by branch on K11, two `all_gather_rows` per serial
+  or group-serial pod and a `pmax` per such pod with ScheduleAnyway
+  terms, one `all_gather_rows` per commit, one tiled gather per fetch and
+  per failure diagnosis), no unsharded kernel may launch, and each rank
+  must hold 50% ± 5% of the node-axis table and carry bytes. Then K8 and
+  K9 against their plain sharded versions (on the card, on the same ranks,
+  on the rank's block) and the unsharded K3 / K5 on one segment each (K8's
+  on northstar with the limit at 16,384), K10 against its plain per-round
+  version and K3 on northstar's first wave, K11 against its plain version
+  and K5 on the affinity cluster's hostname spread and zone spread, K13
+  against its plain version and K4 on spread's first three segments, and
+  K14 against its plain version and K3c on extended's first 1-GPU wave and
+  on northstar's wave, with `torch.topk` of the block's scores at K10's
+  and K11's select widths beside them. The phase prints the epochs or
+  rounds, the branches, the collective calls and bytes, the staged bytes,
+  the host reads, the sharded kernels' per-stage and setup times, the
+  bytes held and each rank's wall; a rank that fails fails the phase.
 - the scenario mesh (`parallel/`, the probe, serve and sweep fan-outs on a
   'scenarios' axis): two ranks spawned after the build share cuda:0 over
   gloo, each a scenario group that stages and runs its block of every
@@ -94,23 +108,20 @@ goldens the JAX package computed (tests/golden/torch_port_*.json):
   over all 8 (and, gathered, against all of it), bit for bit, timed with
   its plain version on the block. The phase prints each run's walls,
   launches, fetches, gathered calls and bytes and staged bytes per rank.
-- the partitioned layout (`parallel/mesh.py` `to_device_sharded`): the
-  port's unsharded serial runs of `hard`'s and `extended_serial`'s first
-  2,500 pods and of `overflow`'s shortest prefix with 200 failures in this
-  process, then two ranks sharing cuda:0 over gloo, each staging only its
-  block of the node axis, hold K12 (`ops/csrc/batch_sharded.cu`, the
-  serial scan on the block) against its plain version and the unsharded K2
-  on the first 256 pods of `hard` and `extended` (EXT), and its explain
-  mode against K7, then run those three serial runs through
-  `Simulator(use_mesh=True)` with `use_waves = False` against the
-  unsharded ones (choices digest, census, every reason; K1 on the block
-  supplies overflow's) and `demo_1` against its golden. Every scan on the
-  block must make exactly two all_gather_rows a pod and one pmax per pod
-  whose group has ScheduleAnyway terms (the engine runs one tiled gather
-  per K1 launch besides). The phase prints per rank the wall and wall per
-  pod, collectives per pod by kind, the bytes gathered and staged, K12's
-  per-stage times and the table and carry bytes each rank holds against
-  the unsharded layout's.
+- the partitioned layout's serial route (`use_waves = False`): the port's
+  unsharded serial run of `hard`'s first 2,500 pods in this process, then
+  two ranks sharing cuda:0 over gloo, each staging only its block of the
+  node axis, hold K12 (`ops/csrc/batch_sharded.cu`, the serial scan on the
+  block) against its plain version and the unsharded K2 on the first 256
+  pods of `hard` and `extended` (EXT), and its explain mode against K7,
+  then run that serial run through `Simulator(use_mesh=True)` with
+  `use_waves = False` against the unsharded one (choices digest, census,
+  every reason) and `demo_1` against its golden. Every scan on the block
+  must make exactly two all_gather_rows a pod and one pmax per pod whose
+  group has ScheduleAnyway terms. The phase prints per rank the wall and
+  wall per pod, collectives per pod by kind, the bytes gathered and
+  staged, K12's per-stage times and the table and carry bytes each rank
+  holds against the unsharded layout's.
 
 Every phase prints one JSON line; any mismatch or error exits non-zero. The
 line before the card line lists every kernel with its launches on the main
@@ -1391,12 +1402,21 @@ def xray_path(kind: str, nodes, pods, wall_off: float, card: str, storage_classe
 EPOCH_LIMIT = "OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES"
 # (label, cluster kind, the epoch path's node limit: None keeps the default
 # 2,048, the path: "epoch" (K8, K9) or "rounds" (above the limit: K10 for
-# the wave, K11 for the affinity wave)). Each run equals its kind's golden
-# but mesh8_1m (bench.py's 100,000-node row), which has none: it equals the
-# port's unsharded run of the same cluster on the card.
+# the wave, K11 for the affinity wave)). Every run takes the default route
+# on the partitioned layout (serial segments on K12, group-serial ones on
+# K13, every counted segment's commit on K14). Each run equals its kind's
+# golden but mesh8_1m (bench.py's 100,000-node row) and spread_prefix,
+# which have none: they equal the port's unsharded run of the same pods on
+# the card (UNSHARDED_RUNS).
 MESH_RUNS = (("extended", "extended", None, "epoch"), ("affinity", "affinity", 8192, "epoch"),
              ("affinity_tail", "affinity", None, "rounds"),
+             ("overflow_waves", "overflow_waves", None, "epoch"),
+             ("spread_prefix", "spread_prefix", None, "rounds"),
              ("northstar", "northstar", None, "rounds"), ("mesh8_1m", "mesh8_1m", None, "rounds"))
+UNSHARDED_RUNS = ("spread_prefix", "mesh8_1m")
+# spread's first pods: its ScheduleAnyway, SelectorSpread and DoNotSchedule
+# segments (K13) and one wave
+SPREAD_PREFIX = 2000
 MESH_SHARDS = 2
 # bench.py runs mesh8_1m in store form, which the JAX engine streams in one
 # chunk of 2,097,152 pods (JAX engine.py:1216-1224); an explicit
@@ -1420,6 +1440,14 @@ def mesh_cluster(kind: str):
     if kind == "mesh8_1m":
         nodes, pods = synth_cluster(100_000, 1_000_000)
         return nodes, pods, [], []
+    if kind == "overflow_waves":
+        nodes, pods = synth_cluster(100, 30000, hard_predicates=True)
+        return nodes, pods, [], []
+    if kind == "spread_prefix":
+        from open_simulator_torch.utils.synth import synth_spread_cluster
+
+        nodes, pods, services = synth_spread_cluster(5000, 20000)
+        return nodes, pods[:SPREAD_PREFIX], services, []
     nodes, pods = synth_cluster(10000, 100000)
     return nodes, pods, [], []
 
@@ -1461,10 +1489,24 @@ def k11_cost(tb, cry, g: int, block: int, stats: dict, shards: int, c: int) -> t
 
 
 def stage_ms(events: dict) -> dict:
-    """Milliseconds per K8 / K9 / K10 stage, summed over its recorded
-    launches (SHARDED_STAGE_EVENTS), the setup stages left out."""
+    """Milliseconds per K8 - K14 stage, summed over its recorded launches
+    (SHARDED_STAGE_EVENTS), the setup stages left out."""
     return {k: sum(s.elapsed_time(e) for s, e in v) for k, v in events.items()
             if "setup" not in k}
+
+
+def setup_ms(events: dict) -> float:
+    """Milliseconds of the setup stages' recorded launches."""
+    return sum(s.elapsed_time(e) for k, v in events.items() if "setup" in k for s, e in v)
+
+
+def block_of_staged(tb, seed, mesh) -> tuple:
+    """This rank's block of staged whole tables and carry (the partitioned
+    layout `to_device_sharded` stages), and its node slice."""
+    from open_simulator_torch.parallel.mesh import block_of
+
+    NL = int(tb.alloc.shape[0]) // mesh.shards
+    return (*block_of(tb, seed, mesh), slice(mesh.rank * NL, (mesh.rank + 1) * NL))
 
 
 def mesh_rounds_case(mesh, nodes, pods) -> dict:
@@ -1487,8 +1529,10 @@ def mesh_rounds_case(mesh, nodes, pods) -> dict:
     block = K.wave_block_for(m, sim.na.N)
     kmax = K.wave_kmax(m, sim.na.N, block)
     kw = dict(block=block, kmax=kmax, gpu_live=bool(flag))
-    kernel = lambda: K.schedule_wave_rounds_kernel(tb, seed, g, m, cap1, mesh=mesh, **kw)  # noqa: E731
-    plain = lambda: K.schedule_wave_plain(tb, seed, g, m, cap1, mesh=mesh, **kw)  # noqa: E731
+    tbl, seedl, _ = block_of_staged(tb, seed, mesh)
+    kernel = lambda: K.schedule_wave_rounds_kernel(  # noqa: E731
+        tbl, seedl, g, m, cap1, mesh=mesh, **kw)
+    plain = lambda: K.schedule_wave_plain(tbl, seedl, g, m, cap1, mesh=mesh, **kw)  # noqa: E731
     (kj, kp, kst), _ = timed(kernel)
     plain()  # warm-up: the rank's first calls of some PyTorch ops load their kernels
     (pj, pp, pst), plain_ms = timed(plain)
@@ -1511,6 +1555,7 @@ def mesh_rounds_case(mesh, nodes, pods) -> dict:
     wall_ms = (time.perf_counter() - t0) * 1e3 / (reps * rounds)
     K.SHARDED_STAGE_EVENTS = None
     stages = stage_ms(events)
+    setup = setup_ms(events) / reps
     NL = N // mesh.shards
     c = min(kmax, m, NL * block)
     # the library's yardstick: the k = c largest of the block's flat scores
@@ -1528,6 +1573,7 @@ def mesh_rounds_case(mesh, nodes, pods) -> dict:
     return dict(label="northstar", nodes=N, pods=m, block=block, kmax=kmax, c=c, placed=pp,
                 rounds=rounds, stats=pst, kernel_ms_per_round=sum(stages.values()) / (reps * rounds),
                 stage_ms_per_round={k: v / (reps * rounds) for k, v in stages.items()},
+                setup_ms=setup,
                 wall_ms_per_round=wall_ms, plain_ms_per_round=plain_ms / rounds,
                 topk_ms=topk_ms, bound_ms=bound, bound_by=by, bytes=b, f32_ops=ops,
                 collectives=coll, staged_bytes=mesh.staged_bytes // reps,
@@ -1563,8 +1609,11 @@ def mesh_tail_case(mesh, label: str, nodes, pods, services, pick) -> dict:
     N = int(tb.alloc.shape[0])
     block = K.wave_block_for(m, sim.na.N)
     kw = dict(ss_live=bool(ss_live), block=block, n_zones=bt.n_zones if ss_live else 2)
-    kernel = lambda: K.schedule_affinity_wave_rounds_kernel(tb, seed, g, m, cap1, mesh=mesh, **kw)  # noqa: E731
-    plain = lambda: K.schedule_affinity_wave_plain(tb, seed, g, m, cap1, mesh=mesh, **kw)  # noqa: E731
+    tbl, seedl, _ = block_of_staged(tb, seed, mesh)
+    kernel = lambda: K.schedule_affinity_wave_rounds_kernel(  # noqa: E731
+        tbl, seedl, g, m, cap1, mesh=mesh, **kw)
+    plain = lambda: K.schedule_affinity_wave_plain(  # noqa: E731
+        tbl, seedl, g, m, cap1, mesh=mesh, **kw)
     mesh.reset_counts()
     (kj, kp, kst), _ = timed(kernel)
     branches = tail_verdicts(mesh)
@@ -1594,6 +1643,7 @@ def mesh_tail_case(mesh, label: str, nodes, pods, services, pick) -> dict:
     wall_ms = (time.perf_counter() - t0) * 1e3 / (reps * epochs)
     K.SHARDED_STAGE_EVENTS = None
     stages = stage_ms(events)
+    setup = setup_ms(events) / reps
     NL = N // mesh.shards
     c = min(N * block, K.K_EP_MAX, NL * block)
     # the library's yardstick: the k = c largest of the block's flat scores
@@ -1612,6 +1662,7 @@ def mesh_tail_case(mesh, label: str, nodes, pods, services, pick) -> dict:
                 ss_live=bool(ss_live), block=block, c=c, placed=pp, epochs=epochs, stats=pst,
                 branches=branches, kernel_ms_per_epoch=sum(stages.values()) / (reps * epochs),
                 stage_ms_per_epoch={k: v / (reps * epochs) for k, v in stages.items()},
+                setup_ms=setup,
                 wall_ms_per_epoch=wall_ms, plain_ms_per_epoch=plain_ms / epochs, topk_ms=topk_ms,
                 bound_ms=bound, bound_by=by, bytes=b, f32_ops=ops, collectives=coll,
                 staged_bytes=mesh.staged_bytes // reps,
@@ -1638,17 +1689,20 @@ def mesh_kernel_case(mesh, label: str, kind: str, nodes, pods, services, scs, pi
     seg = pick(sim._segments(bt, len(pods)))
     _, _, m, g, cap1, flag = seg[:6]
     block = K.wave_block_for(m, sim.na.N)
+    tbl, seedl, _ = block_of_staged(tb, seed, mesh)
     if kind == "wave":
         kw = dict(block=block, kmax=K.wave_kmax(m, sim.na.N, block), gpu_live=bool(flag))
-        kernel = lambda: K.schedule_wave_sharded_kernel(tb, seed, g, m, cap1, mesh=mesh, **kw)  # noqa: E731
-        plain = lambda: K.schedule_wave_plain(tb, seed, g, m, cap1, mesh=mesh, **kw)  # noqa: E731
+        kernel = lambda: K.schedule_wave_sharded_kernel(  # noqa: E731
+            tbl, seedl, g, m, cap1, mesh=mesh, **kw)
+        plain = lambda: K.schedule_wave_plain(tbl, seedl, g, m, cap1, mesh=mesh, **kw)  # noqa: E731
         single = lambda: K.schedule_wave_kernel(tb, seed, g, m, cap1, **kw)  # noqa: E731
         names = K.WAVE_STATS
     else:
         kw = dict(ss_live=bool(flag), block=block, n_zones=bt.n_zones if flag else 2)
         kernel = lambda: K.schedule_affinity_wave_sharded_kernel(  # noqa: E731
-            tb, seed, g, m, cap1, mesh=mesh, **kw)
-        plain = lambda: K.schedule_affinity_wave_plain(tb, seed, g, m, cap1, mesh=mesh, **kw)  # noqa: E731
+            tbl, seedl, g, m, cap1, mesh=mesh, **kw)
+        plain = lambda: K.schedule_affinity_wave_plain(  # noqa: E731
+            tbl, seedl, g, m, cap1, mesh=mesh, **kw)
         single = lambda: K.schedule_affinity_wave_kernel(tb, seed, g, m, cap1, **kw)  # noqa: E731
         names = K.AFFINITY_STATS
     (kj, kp, kst), _ = timed(kernel)
@@ -1674,6 +1728,7 @@ def mesh_kernel_case(mesh, label: str, kind: str, nodes, pods, services, scs, pi
     stages = stage_ms(events)
     ms = sum(stages.values()) / (reps * epochs)
     per_epoch = {k: v / (reps * epochs) for k, v in stages.items()}
+    setup = setup_ms(events) / reps
     b, ops = (k8_cost(tb, seed, g, block, mesh.shards) if kind == "wave"
               else k9_cost(tb, seed, g, block, pst, mesh.shards))
     bound, by = bound_of(b, ops)
@@ -1681,18 +1736,235 @@ def mesh_kernel_case(mesh, label: str, kind: str, nodes, pods, services, scs, pi
             for k, v in mesh.counts.items()}
     return dict(label=label, nodes=int(tb.alloc.shape[0]), pods=m, block=block, placed=pp,
                 epochs=epochs, stats=pst, kernel_ms_per_epoch=ms, stage_ms_per_epoch=per_epoch,
-                wall_ms_per_epoch=wall_ms, plain_ms_per_epoch=plain_ms / epochs,
+                setup_ms=setup, wall_ms_per_epoch=wall_ms, plain_ms_per_epoch=plain_ms / epochs,
                 bound_ms=bound, bound_by=by, bytes=b, f32_ops=ops, collectives=coll,
                 staged_bytes=mesh.staged_bytes // reps, max_abs_err=err_of(kj, pj))
 
 
-def mesh_rank(mesh, card: str, want_1m: str) -> dict:
+def k13_cost(tbl, seedl, g: int, m: int) -> tuple:
+    """(bytes, f32 operations) K13 must spend on one rank's block for m pods
+    of group g: K4's counts over the block's NL nodes (k4_cost); the
+    collective rows (tens of bytes a pod) left out."""
+    return one_lane(k4_cost(tbl, seedl, g, m))
+
+
+def k14_cost(tbl, seedl, gpu_live: bool, copies: int) -> tuple:
+    """(bytes, f32 operations) of K14 on one rank's block: K3c's counts over
+    the block (its rows, counts and domain maps, the replicated counters in
+    and out; k3c_cost) and, with gpu_live, the block's device ledger (read,
+    read and written) and 8 operations per copy and device."""
+    b, ops = one_lane(k3c_cost(tbl, seedl))
+    if gpu_live:
+        b += 3 * nbytes(tbl.dev_total)
+        ops += copies * int(tbl.dev_total.shape[1]) * 8
+    return b, ops
+
+
+def mesh_group_serial_case(mesh, nodes, pods, services) -> dict:
+    """K13 against its plain version on the card (the block's counts and
+    placed, bit for bit, on this rank of `mesh`) and against the unsharded
+    K4, on spread's first three segments from the seed carry (ScheduleAnyway,
+    SelectorSpread, DoNotSchedule only), with K13's collectives asserted
+    (two all_gather_rows a pod, a pmax a ScheduleAnyway pod); K13 timed per
+    stage by CUDA events. Returns {segment label: record}."""
+    import torch
+
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.simulator.engine import Simulator
+
+    sim = Simulator(nodes, device="cuda", use_mesh=False)
+    sim.register_cluster_objects(ResourceTypes(services=list(services)))
+    bt = sim.encode_batch(pods)
+    tb, seed = sim._to_device(bt)
+    tbl, seedl, sl = block_of_staged(tb, seed, mesh)
+    segs = [s for s in sim._segments(bt, len(pods)) if s[0] == "spread"][:3]
+    if {(s[5], s[6]) for s in segs} != {(False, True), (True, False), (False, False)}:
+        fail(f"mesh spread: the first segments' flags {[(s[5], s[6]) for s in segs]}")
+    out = {}
+    for _, _, m, g, cap1, ss, sa in segs:
+        label = "sa_live" if sa else "ss_live" if ss else "dns"
+        vd = torch.ones(m, dtype=torch.bool)
+        kw = dict(ss_live=bool(ss), sa_live=bool(sa), n_zones=bt.n_zones if ss else 2)
+        mesh.reset_counts()
+        events = K.SHARDED_STAGE_EVENTS = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kj, kp = K.schedule_group_serial_sharded_kernel(tbl, seedl, g, vd, cap1, mesh, **kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        K.SHARDED_STAGE_EVENTS = None
+        calls = {k: v["calls"] for k, v in mesh.counts.items()}
+        want = {"pmax": m if sa else 0, "all_gather_tiled": 0, "all_gather_rows": 2 * m}
+        if calls != want:
+            fail(f"mesh spread {label}: K13 made {calls} collective calls, not {want}")
+        staged = mesh.staged_bytes
+        (pj, pp), plain_ms = timed(lambda: K.schedule_group_serial_sharded_plain(
+            tbl, seedl, g, vd, cap1, mesh, **kw))
+        uj, up = K.schedule_group_serial_kernel(tb, seed, g, vd.cuda(), cap1, **kw)
+        if not torch.equal(kj, pj) or int(kp) != pp:
+            fail(f"mesh spread {label}: K13 differs from its plain version "
+                 f"({int((kj != pj).sum())} nodes, placed {int(kp)} vs {pp})")
+        if not torch.equal(kj, uj[sl]) or int(kp) != int(up):
+            fail(f"mesh spread {label}: K13 differs from the unsharded K4")
+        stages = stage_ms(events)
+        b, ops = k13_cost(tbl, seedl, g, m)
+        bound, by = bound_of(b, ops)
+        out[label] = dict(nodes=int(tb.alloc.shape[0]), block_nodes=int(tbl.alloc.shape[0]),
+                          pods=m, placed=pp, ss_live=bool(ss), sa_live=bool(sa),
+                          ms_per_pod=sum(stages.values()) / m,
+                          stage_ms_per_pod={k: v / m for k, v in stages.items()},
+                          setup_ms=setup_ms(events), wall_ms_per_pod=wall_ms / m,
+                          plain_ms_per_pod=plain_ms / m, bound_ms_per_pod=bound / m,
+                          bound_by=by, bytes=b, f32_ops=ops,
+                          collectives_per_pod={k: v / m for k, v in calls.items()},
+                          staged_bytes=staged, max_abs_err=err_of(kj, pj))
+    return out
+
+
+def mesh_commit_case(mesh, label: str, nodes, pods, services, scs, pick) -> dict:
+    """K14 against its plain version on the card (the block's carry, bit for
+    bit, on this rank of `mesh`) and against the unsharded K3c of the same
+    counts, on one wave segment of the cluster from the seed carry (K3's
+    counts), with its one all_gather_rows asserted; K14 timed per stage by
+    CUDA events over ten calls."""
+    import torch
+
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.simulator.engine import Simulator
+
+    sim = Simulator(nodes, device="cuda", use_mesh=False)
+    sim.register_cluster_objects(ResourceTypes(services=list(services),
+                                               storage_classes=list(scs)))
+    bt = sim.encode_batch(pods)
+    tb, seed = sim._to_device(bt)
+    tbl, seedl, sl = block_of_staged(tb, seed, mesh)
+    _, _, m, g, cap1, flag = pick(sim._segments(bt, len(pods)))[:6]
+    gpu_live = bool(flag)
+    block = K.wave_block_for(m, sim.na.N)
+    j = K.schedule_wave_kernel(tb, seed, g, m, cap1, block=block,
+                               kmax=K.wave_kmax(m, sim.na.N, block), gpu_live=gpu_live)[0]
+    jl = j[sl].contiguous()
+    mesh.reset_counts()
+    kc = K.aggregate_commit_sharded_kernel(tbl, seedl, g, jl, gpu_live, mesh)
+    calls = {k: v["calls"] for k, v in mesh.counts.items()}
+    if calls != {"pmax": 0, "all_gather_tiled": 0, "all_gather_rows": 1}:
+        fail(f"mesh commit {label}: K14 made {calls} collective calls")
+    pc, plain_ms = timed(lambda: K.aggregate_commit_sharded_plain(tbl, seedl, g, jl, gpu_live,
+                                                                  mesh))
+    uc = K.aggregate_commit_kernel(tb, seed, g, j, gpu_live)
+    ucb = block_of_staged(tb, uc, mesh)[1]
+    for f in K.Carry._fields:
+        if not torch.equal(getattr(kc, f), getattr(pc, f)):
+            fail(f"mesh commit {label}: K14's carry.{f} differs from its plain version")
+        if not torch.equal(getattr(kc, f), getattr(ucb, f)):
+            fail(f"mesh commit {label}: K14's carry.{f} differs from the unsharded K3c")
+    err = max(err_of(getattr(kc, f), getattr(pc, f)) for f in K.Carry._fields)
+    reps = 10
+    events = K.SHARDED_STAGE_EVENTS = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        K.aggregate_commit_sharded_kernel(tbl, seedl, g, jl, gpu_live, mesh)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    K.SHARDED_STAGE_EVENTS = None
+    stages = {k: v / reps for k, v in stage_ms(events).items()}
+    b, ops = k14_cost(tbl, seedl, gpu_live, int(jl.sum()))
+    bound, by = bound_of(b, ops)
+    return dict(label=label, nodes=int(tb.alloc.shape[0]), block_nodes=int(tbl.alloc.shape[0]),
+                pods=m, copies=int(jl.sum()), gpu_live=gpu_live, ms=sum(stages.values()),
+                stage_ms=stages, wall_ms=wall_ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, bytes=b, f32_ops=ops, max_abs_err=err)
+
+
+def tap_engine(sim, mesh) -> dict:
+    """Counters a partitioned engine run fills as it goes (each hook calls
+    the engine's own method): the node-axis table and carry bytes this rank
+    stages against the whole tables' (`_to_device`), the serial and
+    group-serial pods and the pods of those whose groups have ScheduleAnyway
+    terms, the counted segments (`_dispatch`), the fetches of block counts
+    (`_fetch_results`) and the failure diagnoses (`_explain_reasons`)."""
+    from open_simulator_torch.parallel.mesh import _CARRY_NODE_AXIS, _TABLE_NODE_AXIS
+
+    taps = dict(held=0, full=0, scanned=0, sa_pods=0, counted=0, fetches=0, explains=0)
+    to_device, dispatch = sim._to_device, sim._dispatch
+    fetch, explain = sim._fetch_results, sim._explain_reasons
+
+    def tapped_to_device(bt):
+        tables, carry = to_device(bt)
+        taps["held"] += (nbytes(*(getattr(tables, f) for f in _TABLE_NODE_AXIS))
+                         + nbytes(*(getattr(carry, f) for f in _CARRY_NODE_AXIS)))
+        taps["full"] += (sum(getattr(bt, f).nbytes for f in _TABLE_NODE_AXIS)
+                         + sum(getattr(bt, "seed_" + f).nbytes for f in _CARRY_NODE_AXIS))
+        return tables, carry
+
+    def tapped_dispatch(seg, bt, tables, carry, flags):
+        kind, start, length = seg[:3]
+        if kind == "serial":
+            taps["scanned"] += length
+            sa = (bt.sa_t >= 0).any(axis=1)
+            taps["sa_pods"] += int(sa[bt.pod_group[start:start + length]].sum())
+        elif kind == "spread":
+            taps["scanned"] += length
+            taps["sa_pods"] += length if seg[6] else 0
+        taps["counted"] += kind != "serial"
+        return dispatch(seg, bt, tables, carry, flags)
+
+    def tapped_fetch(outs):
+        taps["fetches"] += any(seg[0] != "serial" for seg, _, _ in outs)
+        return fetch(outs)
+
+    def tapped_explain(*args):
+        taps["explains"] += 1
+        return explain(*args)
+
+    sim._to_device, sim._dispatch = tapped_to_device, tapped_dispatch
+    sim._fetch_results, sim._explain_reasons = tapped_fetch, tapped_explain
+    return taps
+
+
+def expected_calls(path: str, taps: dict, stats: dict, aff: dict, branches: dict) -> dict:
+    """The collective calls of a partitioned default-route run: each route's
+    (the epoch path: a pmax and an all_gather_tiled per wave iteration and
+    affinity epoch; above the limit: two pmax and two all_gather_rows per
+    wave round, and per affinity epoch two to four by branch), two
+    all_gather_rows per serial and group-serial pod and a pmax per such pod
+    with ScheduleAnyway terms, one all_gather_rows per counted segment's
+    commit, one all_gather_tiled per fetch of block counts and one per
+    failure diagnosis."""
+    want = {"pmax": taps["sa_pods"], "all_gather_tiled": taps["fetches"] + taps["explains"],
+            "all_gather_rows": 2 * taps["scanned"] + taps["counted"]}
+    if path == "epoch":
+        epochs = stats["iterations"] + aff["epochs"]
+        want["pmax"] += epochs
+        want["all_gather_tiled"] += epochs
+    else:
+        rounds, head, sel, sand = (stats["iterations"], branches.get("head", 0),
+                                   branches.get("select", 0), branches.get("sandwich", 0))
+        if head + sel + sand != aff["epochs"]:
+            fail(f"the tail's branches {branches} do not count its {aff['epochs']} epochs")
+        want["pmax"] += 2 * rounds + sand
+        want["all_gather_rows"] += 2 * rounds + 2 * head + 3 * (sel + sand)
+    return want
+
+
+# the unsharded kernels that a partitioned default-route run must not launch
+UNSHARDED_NAMES = ("schedule_batch", "schedule_wave", "schedule_group_serial",
+                   "schedule_affinity_wave", "aggregate_commit")
+
+
+def mesh_rank(mesh, card: str, want_unsharded: dict) -> dict:
     """One rank of the mesh phase: each MESH_RUNS cluster through
-    `Simulator(use_mesh=True).schedule_pods` against its golden, or for
-    mesh8_1m (one chunk, as bench.py cuts it) against the unsharded run's
-    choices digest `want_1m` (every launch count and collective counter set
-    to 0 just before it, the sharded kernels' stages timed by CUDA events),
-    then K8, K9, K10 or K11 against its plain version on segments of it."""
+    `Simulator(use_mesh=True).schedule_pods` on the partitioned default
+    route against its golden, or for spread_prefix and mesh8_1m (one chunk,
+    as bench.py cuts it) against the unsharded run `want_unsharded[label]`
+    (every launch count and collective counter set to 0 just before it, the
+    sharded kernels' stages timed by CUDA events, the collectives checked
+    against `expected_calls`, this rank's share of the node-axis bytes held
+    between 45% and 55%), then K8 - K11, K13 and K14 against their plain
+    versions on segments of it."""
     import torch
 
     from open_simulator_torch.core.types import ResourceTypes
@@ -1713,6 +1985,7 @@ def mesh_rank(mesh, card: str, want_1m: str) -> dict:
         if sim._resolve_mesh().shards != mesh.shards:
             fail(f"mesh {label}: the simulator's mesh has {sim._mesh.shards} shards")
         sim._mesh = mesh  # this rank's mesh, whose collective counters are read below
+        taps = tap_engine(sim, mesh)
         K.reset_launch_counts()
         mesh.reset_counts()
         events = K.SHARDED_STAGE_EVENTS = {}
@@ -1725,60 +1998,71 @@ def mesh_rank(mesh, card: str, want_1m: str) -> dict:
         counts = K.launch_counts()
         stats, aff = K.wave_stats(), K.affinity_stats()
         got = summarize(sim, pods, failed)
-        if kind == "mesh8_1m":
-            if got["choices_sha256"] != want_1m:
-                fail(f"mesh {label}: the choices differ from the unsharded run's")
+        if label in UNSHARDED_RUNS:
+            ref = want_unsharded[label]
+            got["reasons"] = [u.reason for u in failed]
+            for k in ref:
+                if got[k] != ref[k]:
+                    fail(f"mesh {label}: {k} differs from the unsharded run's")
         else:
             check_golden(kind, got)
         calls = {k: v["calls"] for k, v in mesh.counts.items()}
         branches = dict(mesh.tail_branches)
-        if path == "epoch":
-            epochs = stats["iterations"] + aff["epochs"]
-            if epochs <= 0 or calls != {"pmax": epochs, "all_gather_tiled": epochs,
-                                        "all_gather_rows": 0}:
-                fail(f"mesh {label}: {calls} collective calls for {epochs} epochs")
-        else:
-            # above the limit: two pmax and two all_gather_rows per wave
-            # round (K10); two all_gather_rows per affinity epoch, a third
-            # after use_multi_pre and a pmax after rounds that took pods (K11)
-            rounds, head, sel, sand = (stats["iterations"], branches.get("head", 0),
-                                       branches.get("select", 0), branches.get("sandwich", 0))
-            want = {"pmax": 2 * rounds + sand, "all_gather_tiled": 0,
-                    "all_gather_rows": 2 * rounds + 2 * head + 3 * (sel + sand)}
-            if rounds + aff["epochs"] <= 0 or head + sel + sand != aff["epochs"] or calls != want:
-                fail(f"mesh {label}: {calls} collective calls for {rounds} rounds and the "
-                     f"tail branches {branches}")
-            if (counts["schedule_wave_rounds"] > 0) != (rounds > 0) or counts["schedule_wave"]:
-                fail(f"mesh {label}: K10 launched {counts['schedule_wave_rounds']} times, "
-                     f"K3 {counts['schedule_wave']}")
-            if ((counts["schedule_affinity_wave_rounds"] > 0) != (aff["epochs"] > 0)
-                    or counts["schedule_affinity_wave"] or counts["schedule_affinity_wave_sharded"]):
-                fail(f"mesh {label}: K11 launched {counts['schedule_affinity_wave_rounds']} times, "
-                     f"K5 {counts['schedule_affinity_wave']}, "
-                     f"K9 {counts['schedule_affinity_wave_sharded']}")
+        want = expected_calls(path, taps, stats, aff, branches)
+        if calls != want:
+            fail(f"mesh {label}: {calls} collective calls, expected {want} (stats {stats}, "
+                 f"{aff}, branches {branches}, {taps})")
+        share = taps["held"] / taps["full"]
+        if abs(share - 1.0 / mesh.shards) > 0.05:
+            fail(f"mesh {label}: this rank holds {share:.3f} of the node-axis bytes")
+        if any(counts[k] for k in UNSHARDED_NAMES):
+            fail(f"mesh {label}: an unsharded kernel ran: "
+                 f"{ {k: counts[k] for k in UNSHARDED_NAMES} }")
+        if taps["counted"] and counts["aggregate_commit_sharded"] != 2 * taps["counted"]:
+            fail(f"mesh {label}: K14 launched {counts['aggregate_commit_sharded']} times for "
+                 f"{taps['counted']} commits")
+        census = sim.segment_census
+        for seg_kind, name in (("serial", "schedule_batch_sharded"),
+                               ("spread", "schedule_group_serial_sharded")):
+            if (seg_kind in census) != (counts[name] > 0):
+                fail(f"mesh {label}: {name} launched {counts[name]} times for the "
+                     f"{seg_kind} segments {census.get(seg_kind)}")
+        if failed and counts["feasibility"] <= 0:
+            fail(f"mesh {label}: K1 never ran on the block for {len(failed)} failures")
+        if path == "rounds":
+            if (counts["schedule_wave_rounds"] > 0) != (stats["iterations"] > 0):
+                fail(f"mesh {label}: K10 launched {counts['schedule_wave_rounds']} times")
+            if (counts["schedule_affinity_wave_rounds"] > 0) != (aff["epochs"] > 0):
+                fail(f"mesh {label}: K11 launched {counts['schedule_affinity_wave_rounds']} "
+                     f"times")
         out["launches"].update(counts)
         stages = stage_ms(events)
         out["runs"][label] = dict(
-            nodes=len(nodes), pods=len(pods), padded=int(sim._last_carry.requested.shape[0]),
+            nodes=len(nodes), pods=len(pods),
+            padded=int(sim._last_carry.requested.shape[0]) * mesh.shards,
             epoch_limit=limit or 2048, path=path, chunk=sim._stream_chunk, placed=got["placed"],
             unscheduled=got["unscheduled"], choices_sha256=got["choices_sha256"], seconds=wall,
             pods_per_s=len(pods) / wall, wave_stats=stats, affinity_stats=aff,
             rounds=stats["iterations"] if path == "rounds" else 0, tail_branches=branches,
-            collectives=copy.deepcopy(mesh.counts), staged_bytes=mesh.staged_bytes,
+            collectives=copy.deepcopy(mesh.counts), expected_calls=want,
+            staged_bytes=mesh.staged_bytes, held_share=share, held_bytes=taps["held"],
+            unsharded_bytes=taps["full"], serial_and_spread_pods=taps["scanned"],
+            sa_pods=taps["sa_pods"], commits=taps["counted"], diagnoses=taps["explains"],
             host_reads=(K.schedule_wave_sharded_kernel.host_reads
                         + K.schedule_affinity_wave_sharded_kernel.host_reads
                         + K.schedule_wave_rounds_kernel.host_reads
                         + K.schedule_affinity_wave_rounds_kernel.host_reads),
-            stage_ms=stages, kernel_ms=sum(stages.values()),
-            launches={k: counts[k] for k in ("schedule_wave_sharded",
-                                             "schedule_affinity_wave_sharded",
-                                             "schedule_wave_sharded/gpu_live",
-                                             "schedule_wave_rounds",
-                                             "schedule_affinity_wave_rounds", "schedule_wave",
-                                             "schedule_affinity_wave", "aggregate_commit")},
-            census={k: list(v) for k, v in sorted(sim.segment_census.items())})
+            stage_ms=stages, kernel_ms=sum(stages.values()), setup_ms=setup_ms(events),
+            launches={k: counts[k] for k in (
+                "schedule_wave_sharded", "schedule_affinity_wave_sharded",
+                "schedule_wave_sharded/gpu_live", "schedule_wave_rounds",
+                "schedule_affinity_wave_rounds", "schedule_batch_sharded",
+                "schedule_group_serial_sharded", "aggregate_commit_sharded",
+                "aggregate_commit_sharded/gpu_live", "feasibility",
+                "schedule_batch_sharded/gpu_storage")},
+            census={k: list(v) for k, v in sorted(census.items())})
         del sim, nodes, pods, failed
-        # the kernel against its plain version on one segment (of a fresh
+        # the kernels against their plain versions on segments (of a fresh
         # copy of the cluster: the run bound the pods)
         if kind == "mesh8_1m":
             continue
@@ -1786,6 +2070,9 @@ def mesh_rank(mesh, card: str, want_1m: str) -> dict:
         if label == "extended":
             out["cases"]["schedule_wave_sharded/gpu_live"] = mesh_kernel_case(
                 mesh, "extended_1gpu", "wave", nodes, pods, services, scs,
+                lambda segs: next(s for s in segs if s[0] == "wave" and s[5]))
+            out["cases"]["aggregate_commit_sharded/gpu_live"] = mesh_commit_case(
+                mesh, "extended_1gpu", nodes, pods, services, scs,
                 lambda segs: next(s for s in segs if s[0] == "wave" and s[5]))
         elif label == "affinity":
             out["cases"]["schedule_affinity_wave_sharded"] = mesh_kernel_case(
@@ -1798,8 +2085,15 @@ def mesh_rank(mesh, card: str, want_1m: str) -> dict:
                 mesh, "affinity_hostname_spread", nodes, pods, services, lambda segs: segs[1])
             out["cases"]["schedule_affinity_wave_rounds/zone_spread"] = mesh_tail_case(
                 mesh, "affinity_zone_spread", nodes, pods, services, lambda segs: segs[3])
-        else:
+        elif label == "spread_prefix":
+            for seg_label, case in mesh_group_serial_case(mesh, nodes, pods, services).items():
+                name = "schedule_group_serial_sharded"
+                out["cases"][name if seg_label == "sa_live" else f"{name}/{seg_label}"] = case
+        elif label == "northstar":
             out["cases"]["schedule_wave_rounds"] = mesh_rounds_case(mesh, nodes, pods)
+            out["cases"]["aggregate_commit_sharded"] = mesh_commit_case(
+                mesh, "northstar", nodes, pods, services, scs,
+                lambda segs: next(s for s in segs if s[0] == "wave"))
             os.environ[EPOCH_LIMIT] = str(K8_NORTHSTAR_LIMIT)
             out["cases"]["schedule_wave_sharded"] = mesh_kernel_case(
                 mesh, "northstar", "wave", nodes, pods, services, scs,
@@ -1826,40 +2120,63 @@ class stream_pods:
             os.environ["OPEN_SIMULATOR_STREAM_PODS"] = self.prev
 
 
-def unsharded_1m(card: str) -> str:
-    """The port's unsharded run of the mesh8_1m cluster on the card (one
-    process, no mesh, one chunk as bench.py cuts it): emits its wall and
-    returns its choices digest."""
+def unsharded_runs(card: str) -> dict:
+    """The port's unsharded runs of the UNSHARDED_RUNS clusters on the card
+    (one process, no mesh; mesh8_1m in one chunk as bench.py cuts it): emits
+    their walls and returns {label: the digest, per-node counts, placed,
+    unscheduled, reason census and (spread_prefix) the reasons in order}."""
     import torch
 
+    from open_simulator_torch.core.types import ResourceTypes
     from open_simulator_torch.ops import kernels as K
     from open_simulator_torch.simulator.engine import Simulator
 
-    nodes, pods, _, _ = mesh_cluster("mesh8_1m")
-    K.reset_launch_counts()
-    with stream_pods(STREAM_PODS_1M):
-        sim = Simulator(nodes, device="cuda", use_mesh=False)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    failed = sim.schedule_pods(pods)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    got = summarize(sim, pods, failed)
-    stats = K.wave_stats()
-    emit("mesh8_1m_unsharded", nodes=len(nodes), pods=len(pods), chunk=sim._stream_chunk,
-         placed=got["placed"], unscheduled=got["unscheduled"],
-         choices_sha256=got["choices_sha256"], seconds=wall,
-         pods_per_s=len(pods) / wall, wave_stats=stats,
-         census={k: list(v) for k, v in sorted(sim.segment_census.items())}, card=card)
-    return got["choices_sha256"]
+    out = {}
+    for label in UNSHARDED_RUNS:
+        nodes, pods, services, _ = mesh_cluster(label)
+        K.reset_launch_counts()
+        with stream_pods(STREAM_PODS_1M if label == "mesh8_1m" else None):
+            sim = Simulator(nodes, device="cuda", use_mesh=False)
+        sim.register_cluster_objects(ResourceTypes(services=list(services)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        failed = sim.schedule_pods(pods)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = summarize(sim, pods, failed)
+        if label == "spread_prefix":
+            got["reasons"] = [u.reason for u in failed]
+        emit(f"{label}_unsharded", nodes=len(nodes), pods=len(pods), chunk=sim._stream_chunk,
+             placed=got["placed"], unscheduled=got["unscheduled"],
+             choices_sha256=got["choices_sha256"], seconds=wall,
+             pods_per_s=len(pods) / wall, wave_stats=K.wave_stats(),
+             census={k: list(v) for k, v in sorted(sim.segment_census.items())}, card=card)
+        out[label] = got
+        del sim, nodes, pods, failed
+    return out
+
+
+# the kernels-line rows of the mesh phase's cases: (source, JAX file:line,
+# the case's per-call time key)
+MESH_ROWS = {
+    "schedule_wave_sharded": ("wave_sharded.cu", JAX_KERNELS + ":1204", "epoch"),
+    "schedule_wave_sharded/gpu_live": ("wave_sharded.cu", JAX_KERNELS + ":1204", "epoch"),
+    "schedule_affinity_wave_sharded": ("affinity_sharded.cu", JAX_KERNELS + ":1977", "epoch"),
+    "schedule_wave_rounds": ("wave_rounds.cu", JAX_KERNELS + ":1273", "round"),
+    "schedule_affinity_wave_rounds": ("affinity_rounds.cu", JAX_KERNELS + ":2095", "epoch"),
+    "schedule_group_serial_sharded": ("group_serial_sharded.cu", JAX_KERNELS + ":2104", "pod"),
+    "aggregate_commit_sharded": ("commit_sharded.cu", JAX_KERNELS + ":976", "call"),
+    "aggregate_commit_sharded/gpu_live": ("commit_sharded.cu", JAX_KERNELS + ":1007", "call"),
+}
 
 
 def mesh_phase(card: str) -> tuple:
     """The mesh phase: MESH_SHARDS ranks spawned after the build, sharing
     cuda:0 over gloo (NCCL refuses two ranks on one card; the collectives
-    stage CUDA tensors through pinned host memory). Every rank's placements
-    must equal the goldens and each other's. Returns (kernels-line rows,
-    rank 0's launch counts of the main path)."""
+    stage CUDA tensors through pinned host memory), every run on the
+    partitioned default route. Every rank's placements must equal the
+    goldens (or the unsharded runs) and each other's. Returns (kernels-line
+    rows, rank 0's launch counts of the main path)."""
     import tempfile
 
     import torch
@@ -1867,12 +2184,12 @@ def mesh_phase(card: str) -> tuple:
     from open_simulator_torch.parallel.launch import run_ranks
 
     t0 = time.perf_counter()
-    want_1m = unsharded_1m(card)
+    want = unsharded_runs(card)
     torch.cuda.empty_cache()  # the earlier phases' cached blocks, before two more contexts
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as rdzv:
         try:
-            ranks = run_ranks(mesh_rank, MESH_SHARDS, rdzv, args=(card, want_1m), device="cuda",
+            ranks = run_ranks(mesh_rank, MESH_SHARDS, rdzv, args=(card, want), device="cuda",
                               backend="gloo", timeout_s=900)
         except RuntimeError as e:
             fail(f"mesh: {e}")
@@ -1885,33 +2202,29 @@ def mesh_phase(card: str) -> tuple:
     for label, run in r0["runs"].items():
         emit("mesh", label=label, shards=MESH_SHARDS, backend=r0["backend"],
              transport=r0["transport"], **run,
-             golden="match" if label != "mesh8_1m" else "unsharded run's choices",
+             reference="unsharded run" if label in UNSHARDED_RUNS else "golden",
              walls_per_rank=[r["runs"][label]["seconds"] for r in ranks],
+             held_share_per_rank=[r["runs"][label]["held_share"] for r in ranks],
              kernel_ms_per_rank=[r["runs"][label]["kernel_ms"] for r in ranks], card=card)
     rows = {}
     for name, case in r0["cases"].items():
         emit("mesh_kernel", name=name, shards=MESH_SHARDS, transport=r0["transport"], **case,
              card=card)
-        if name == "schedule_affinity_wave_rounds":  # the kernels line reports the hostname spread
-            rows[name] = dict(source=SRC + "affinity_rounds.cu", replaces=JAX_KERNELS + ":2095",
-                              max_abs_err=case["max_abs_err"], ms=case["kernel_ms_per_epoch"],
-                              plain_ms=case["plain_ms_per_epoch"], bound_ms=case["bound_ms"],
-                              bound_by=case["bound_by"], library_ms=case["topk_ms"])
+        if name not in MESH_ROWS:  # the kernels line reports one case per kernel
             continue
-        if name.startswith("schedule_affinity_wave_rounds/"):
-            continue
-        if name == "schedule_wave_rounds":
-            rows[name] = dict(source=SRC + "wave_rounds.cu", replaces=JAX_KERNELS + ":1273",
-                              max_abs_err=case["max_abs_err"], ms=case["kernel_ms_per_round"],
-                              plain_ms=case["plain_ms_per_round"], bound_ms=case["bound_ms"],
-                              bound_by=case["bound_by"], library_ms=case["topk_ms"])
-            continue
-        source = "wave_sharded.cu" if "affinity" not in name else "affinity_sharded.cu"
-        replaces = ":1204" if "affinity" not in name else ":1977"
-        rows[name] = dict(source=SRC + source, replaces=JAX_KERNELS + replaces,
-                          max_abs_err=case["max_abs_err"], ms=case["kernel_ms_per_epoch"],
-                          plain_ms=case["plain_ms_per_epoch"], bound_ms=case["bound_ms"],
-                          bound_by=case["bound_by"])
+        source, replaces, per = MESH_ROWS[name]
+        if per == "pod":
+            ms, plain, bound = (case["ms_per_pod"], case["plain_ms_per_pod"],
+                                case["bound_ms_per_pod"])
+        elif per == "call":
+            ms, plain, bound = case["ms"], case["plain_ms"], case["bound_ms"]
+        else:
+            ms, plain = case[f"kernel_ms_per_{per}"], case[f"plain_ms_per_{per}"]
+            bound = case["bound_ms"]
+        rows[name] = dict(source=SRC + source, replaces=replaces,
+                          max_abs_err=case["max_abs_err"], ms=ms, plain_ms=plain,
+                          bound_ms=bound, bound_by=case["bound_by"],
+                          library_ms=case.get("topk_ms"))
     emit("mesh_done", seconds=wall, card=card)
     return rows, r0["launches"]
 
@@ -2260,22 +2573,19 @@ def scenario_mesh_phase(card: str, serve_want: list) -> tuple:
 # the serial route runs on it (K12)
 
 PART_SHARDS = 2
-PART_ENGINE_PODS = 2500  # the engine runs' prefix of hard's and extended_serial's pods
+PART_ENGINE_PODS = 2500  # the engine run's prefix of hard's pods
 PART_KERNEL_PODS = 256   # K12 against its plain version on this prefix
-PART_OVERFLOW_FAILED = 200  # overflow's prefix: the shortest with this many failures
 
 
 def partitioned_cluster(label: str, n_pods: int) -> tuple:
     """(nodes, the first n_pods pods, storage classes) of a partitioned-phase
-    cluster: hard's and overflow's synth_cluster shapes, or the extended
-    cluster."""
+    cluster: hard's synth_cluster shape, or the extended cluster."""
     from open_simulator_torch.utils.synth import synth_cluster, synth_extended_cluster
 
-    if label in ("extended", "extended_serial"):
+    if label == "extended":
         nodes, pods, _, scs = synth_extended_cluster(2000, 20000)
         return nodes, pods[:n_pods], scs
-    nodes, pods = synth_cluster(*((5000, 50000) if label == "hard" else (100, 30000)),
-                                hard_predicates=True)
+    nodes, pods = synth_cluster(5000, 50000, hard_predicates=True)
     return nodes, pods[:n_pods], []
 
 
@@ -2328,22 +2638,16 @@ def sa_pods_of(nodes, pods, scs) -> int:
 
 
 def partitioned_unsharded(card: str) -> dict:
-    """The port's unsharded serial runs of the partitioned phase's clusters
-    on the card, in this process: {label: (pods, summary, ScheduleAnyway
-    pods)}; overflow's pods are the shortest prefix whose run fails
-    PART_OVERFLOW_FAILED pods (the serial scan has no lookahead, so the
-    prefix's run is the whole run's prefix)."""
+    """The port's unsharded serial run of the partitioned phase's cluster
+    (hard's first PART_ENGINE_PODS pods) on the card, in this process:
+    {label: (pods, summary, ScheduleAnyway pods)}. The serial scan on the
+    block's other runs are the mesh phase's: extended's serial segments
+    (K12 with the GPU-share and Open-Local branches, K1 on the block for its
+    failures) and overflow_waves' failures (K1 on the block)."""
     runs = {}
-    for label in ("hard", "extended_serial"):
+    for label in ("hard",):
         nodes, pods, scs = partitioned_cluster(label, PART_ENGINE_PODS)
         runs[label] = (len(pods), *serial_run(nodes, pods, scs)[::2], sa_pods_of(nodes, pods, scs))
-    nodes, pods, scs = partitioned_cluster("overflow", 30000)
-    at = serial_run(nodes, pods, scs)[0]["failed_at"]
-    if len(at) < PART_OVERFLOW_FAILED:
-        fail(f"overflow: {len(at)} failures, fewer than {PART_OVERFLOW_FAILED}")
-    n = sorted(at)[PART_OVERFLOW_FAILED - 1] + 1
-    nodes, pods, scs = partitioned_cluster("overflow", n)
-    runs["overflow"] = (n, *serial_run(nodes, pods, scs)[::2], sa_pods_of(nodes, pods, scs))
     for label, (n, got, wall, sa) in runs.items():
         emit("partitioned_unsharded", label=label, pods=n, placed=got["placed"],
              unscheduled=got["unscheduled"], choices_sha256=got["choices_sha256"], sa_pods=sa,
@@ -2486,7 +2790,7 @@ def demo1_partitioned(mesh) -> tuple:
 def partitioned_rank(mesh, card: str, want: dict) -> dict:
     """One rank of the partitioned phase: K12 against its plain version on
     hard's and extended's clusters, then the engine's partitioned serial
-    route on hard, extended_serial and overflow against the unsharded runs
+    route (`use_waves = False`) on hard's prefix against the unsharded run
     `want` (choices digest, census, reasons), with collectives per pod, the
     stage times and the bytes held, and demo_1 against its golden."""
     import torch
@@ -2509,8 +2813,6 @@ def partitioned_rank(mesh, card: str, want: dict) -> dict:
         if counts["schedule_batch_sharded"] <= 0 or counts["schedule_batch"]:
             fail(f"partitioned {label}: K12 launched {counts['schedule_batch_sharded']} times, "
                  f"K2 {counts['schedule_batch']}")
-        if label == "overflow" and counts["feasibility"] <= 0:
-            fail("partitioned overflow: K1 never ran on the block")
         # the scan's collectives, and one tiled gather per K1 launch on the block
         check_scan_collectives(f"partitioned {label}", mesh.counts, n, sa_pods,
                                tiled=counts["feasibility"])

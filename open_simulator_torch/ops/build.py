@@ -25,10 +25,11 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [os.path.join(_HERE, "csrc", f)
            for f in ("schedule.cu", "wave.cu", "group_serial.cu", "affinity_wave.cu", "extend.cu",
                      "explain.cu", "wave_sharded.cu", "affinity_sharded.cu", "wave_rounds.cu",
-                     "affinity_rounds.cu", "batch_sharded.cu")]
+                     "affinity_rounds.cu", "batch_sharded.cu", "group_serial_sharded.cu",
+                     "commit_sharded.cu")]
 HEADERS = [os.path.join(_HERE, "csrc", f)
            for f in ("common.cuh", "select.cuh", "wave.cuh", "affinity.cuh", "wave_sharded.cuh",
-                     "affinity_sharded.cuh", "merge.cuh")]
+                     "affinity_sharded.cuh", "merge.cuh", "commit.cuh")]
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
@@ -181,20 +182,24 @@ def _load(path: str) -> ctypes.CDLL:
     lib.wave_sharded_scratch_floats.restype = L
     lib.wave_sharded_scratch_ints.argtypes = [I]
     lib.wave_sharded_scratch_ints.restype = L
-    lib.wave_sharded_setup_launch.argtypes = [V, I, I] + [P] * 5
-    lib.wave_sharded_front_launch.argtypes = [V] + [I] * 4 + [P] * 5
-    lib.wave_sharded_table_launch.argtypes = [V] + [I] * 4 + [P] * 6
-    lib.wave_sharded_tail_launch.argtypes = [V] + [I] * 4 + [P] * 7
-    lib.affinity_sharded_scratch_floats.argtypes = [V, I]
+    lib.wave_sharded_pay_floats.argtypes = [I]
+    lib.wave_sharded_pay_floats.restype = I
+    lib.wave_sharded_setup_launch.argtypes = [V] + [I] * 5 + [P] * 5
+    lib.wave_sharded_front_launch.argtypes = [V] + [I] * 5 + [P] * 5
+    lib.wave_sharded_table_launch.argtypes = [V] + [I] * 5 + [P] * 6
+    lib.wave_sharded_tail_launch.argtypes = [V] + [I] * 5 + [P] * 7
+    lib.affinity_sharded_scratch_floats.argtypes = [V, I, I]
     lib.affinity_sharded_scratch_floats.restype = L
-    lib.affinity_sharded_scratch_ints.argtypes = [V]
+    lib.affinity_sharded_scratch_ints.argtypes = [V, I]
     lib.affinity_sharded_scratch_ints.restype = L
     lib.affinity_sharded_parts.argtypes = [V]
     lib.affinity_sharded_parts.restype = I
-    lib.affinity_sharded_setup_launch.argtypes = [V, I, I, I] + [P] * 5
-    lib.affinity_sharded_front_launch.argtypes = [V] + [I] * 4 + [P] * 6
-    lib.affinity_sharded_table_launch.argtypes = [V] + [I] * 4 + [P] * 6
-    lib.affinity_sharded_tail_launch.argtypes = [V] + [I] * 4 + [P] * 7
+    lib.affinity_sharded_pay_floats.argtypes = [V, I]
+    lib.affinity_sharded_pay_floats.restype = I
+    lib.affinity_sharded_setup_launch.argtypes = [V] + [I] * 6 + [P] * 5
+    lib.affinity_sharded_front_launch.argtypes = [V] + [I] * 5 + [P] * 6
+    lib.affinity_sharded_table_launch.argtypes = [V] + [I] * 5 + [P] * 6
+    lib.affinity_sharded_tail_launch.argtypes = [V] + [I] * 5 + [P] * 7
     for stage in ("setup", "front", "table", "tail"):
         getattr(lib, f"wave_sharded_{stage}_launch").restype = I
         getattr(lib, f"affinity_sharded_{stage}_launch").restype = I
@@ -202,10 +207,10 @@ def _load(path: str) -> ctypes.CDLL:
     # finish around K8's front and table
     lib.wave_rounds_merge_state_bytes.argtypes = []
     lib.wave_rounds_merge_state_bytes.restype = L
-    lib.wave_rounds_setup_launch.argtypes = [V] + [I] * 4 + [P] * 5
-    lib.wave_rounds_summary_launch.argtypes = [V] + [I] * 3 + [P] * 5
-    lib.wave_rounds_select_launch.argtypes = [V] + [I] * 5 + [P] * 6
-    lib.wave_rounds_merge_launch.argtypes = [V] + [I] * 8 + [P] * 8
+    lib.wave_rounds_setup_launch.argtypes = [V] + [I] * 5 + [P] * 5
+    lib.wave_rounds_summary_launch.argtypes = [I] * 4 + [P] * 5
+    lib.wave_rounds_select_launch.argtypes = [I] * 6 + [P] * 6
+    lib.wave_rounds_merge_launch.argtypes = [V] + [I] * 9 + [P] * 8
     lib.wave_rounds_finish_launch.argtypes = [I] * 4 + [P] * 8
     for stage in ("setup", "summary", "select", "merge", "finish"):
         getattr(lib, f"wave_rounds_{stage}_launch").restype = I
@@ -213,13 +218,13 @@ def _load(path: str) -> ctypes.CDLL:
     # then flags, reduce, summary, select, merge, sandwich and finish
     lib.affinity_rounds_state_ints.argtypes = []
     lib.affinity_rounds_state_ints.restype = I
-    lib.affinity_rounds_flags_launch.argtypes = [V] + [I] * 5 + [P] * 3 + [I, P]
-    lib.affinity_rounds_reduce_launch.argtypes = [V] + [I] * 5 + [P] * 6
-    lib.affinity_rounds_summary_launch.argtypes = [V] + [I] * 5 + [P] * 8
-    lib.affinity_rounds_select_launch.argtypes = [V] + [I] * 6 + [P] * 5
-    lib.affinity_rounds_merge_launch.argtypes = [V] + [I] * 5 + [P] * 5
-    lib.affinity_rounds_sandwich_launch.argtypes = [V] + [I] * 4 + [P] * 5
-    lib.affinity_rounds_finish_launch.argtypes = [V] + [I] * 5 + [P] * 8
+    lib.affinity_rounds_flags_launch.argtypes = [V] + [I] * 6 + [P] * 3 + [I, P]
+    lib.affinity_rounds_reduce_launch.argtypes = [V] + [I] * 6 + [P] * 6
+    lib.affinity_rounds_summary_launch.argtypes = [V] + [I] * 6 + [P] * 8
+    lib.affinity_rounds_select_launch.argtypes = [V] + [I] * 7 + [P] * 5
+    lib.affinity_rounds_merge_launch.argtypes = [V] + [I] * 6 + [P] * 5
+    lib.affinity_rounds_sandwich_launch.argtypes = [V] + [I] * 5 + [P] * 5
+    lib.affinity_rounds_finish_launch.argtypes = [V] + [I] * 6 + [P] * 8
     for stage in ("flags", "reduce", "summary", "select", "merge", "sandwich", "finish"):
         getattr(lib, f"affinity_rounds_{stage}_launch").restype = I
     # K12, the serial scan on a partitioned node mesh: front, sa, score, commit
@@ -233,6 +238,23 @@ def _load(path: str) -> ctypes.CDLL:
     lib.batch_sharded_commit_launch.argtypes = [V] + [I] * 4 + [P] * 3
     for stage in ("front", "sa", "score", "commit"):
         getattr(lib, f"batch_sharded_{stage}_launch").restype = I
+    # K13, the group-serial scan on a partitioned node mesh: setup, then per
+    # pod front, sa, score, and the finish
+    for name, args, res in (("gs_sharded_scratch_floats", [V], L),
+                            ("gs_sharded_scratch_ints", [V], L),
+                            ("gs_sharded_part_floats", [V, I, I], I),
+                            ("gs_sharded_marks_offset", [V, I], I),
+                            ("gs_sharded_j_offset", [V], L),
+                            ("gs_sharded_setup_launch", [V, I, I, P, P, P], I),
+                            ("gs_sharded_front_launch", [V] + [I] * 5 + [P] * 5, I),
+                            ("gs_sharded_sa_launch", [V, I, I, P, I, I, P, P, P, P], I),
+                            ("gs_sharded_score_launch", [V] + [I] * 5 + [P, I] + [P] * 5, I),
+                            ("gs_sharded_finish_launch", [V] + [I] * 4 + [P] * 4, I),
+                            # K14, the aggregate commit on a partitioned node mesh
+                            ("commit_sharded_rows_launch", [V, I, P, P, I, I, P, P], I),
+                            ("commit_sharded_domains_launch", [V, I, P, I, P, P, I, P, P], I)):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = res
     lib.ext_args_size.argtypes = []
     lib.ext_args_size.restype = ctypes.c_int
     lib.extend_tables_launch.argtypes = [ctypes.POINTER(ExtArgs), ctypes.c_longlong, P]

@@ -21,6 +21,7 @@ enum { SK_DNS = 0, SK_AFF, SK_ANTI, SK_CAR, SK_CW, SK_SS, N_KINDS };
 #define AF_START 1  // in F_start (serial's current feasible set)
 #define AF_HI 2     // in F_hi (live budget gates lifted)
 #define AF_KEY 4    // carries every live DoNotSchedule term's key (static)
+#define AF_SAME 8   // every live budget term's domain is the composed one (static)
 
 struct Slot {
   int id;       // counter id (carrier id for SK_CAR, SK_CW); 0 for a padded slot
@@ -475,11 +476,15 @@ affinity_lower_set(const TablesView& t, const AffScratch& e, const Avail& av, co
 
 // Fold the epoch's takes into j and every live row (the sentinel column
 // never counts, as in commit()): each node's counts when use_multi, else
-// one pod on `head` (none where head < 0); then clear the zone sums.
-// Block-uniform.
+// one pod on `head` (none where head < 0); then clear the zone sums. A
+// slot's domain at node n is the table's, or (GATHERED: the sharded paths,
+// whose view holds only the rank's block) fdom[(off[k] + s) * N + n],
+// gathered for every node the epoch may take. Block-uniform.
+template <bool GATHERED = false>
 static __device__ __forceinline__ void affinity_fold(const TablesView& t, const Ctx& c,
                                                      const AffScratch& e, const AffDims& dm,
-                                                     bool use_multi, int head, int* j) {
+                                                     bool use_multi, int head, int* j,
+                                                     const int* fdom = nullptr) {
   const int D1 = dm.D1, D = dm.D;
   for (int n = threadIdx.x; n < dm.N; n += blockDim.x) {
     const int cn = use_multi ? e.counts[n] : (n == head ? 1 : 0);
@@ -489,7 +494,8 @@ static __device__ __forceinline__ void affinity_fold(const TablesView& t, const 
       for (int s = 0; s < c.n[k]; ++s) {
         const Slot& x = c.slot[k][s];
         if (x.inc == 0.0f) continue;
-        const int dom = slot_dom(t, k, x.id, n);
+        const int dom = GATHERED ? fdom[(size_t)(c.off[k] + s) * dm.N + n]
+                                 : slot_dom(t, k, x.id, n);
         if (dom < D) atomicAdd(&e.rows[(size_t)(c.off[k] + s) * D1 + dom], (float)cn * x.inc);
       }
     }
@@ -507,14 +513,15 @@ static __device__ __forceinline__ void affinity_fold(const TablesView& t, const 
 // rows, for the m - placed pods left. `v` is the epoch's normalizer vector
 // in K5's order. Adds the head
 // fallbacks to `heads` and the accepted rounds to `rounds_total`; returns
-// the number of pods taken. Block-uniform.
-template <class Avail>
+// the number of pods taken. GATHERED, fdom: the fold's (affinity_fold).
+// Block-uniform.
+template <class Avail, bool GATHERED = false>
 static __device__ __forceinline__ int
 affinity_epoch_tail(const TablesView& t, const Ctx& c, const AffScratch& e, const AffShared& sh,
                     const Avail& av, const AffDims& dm, int m, int placed, int ss_live,
                     bool use_multi_pre, bool uniform_base, bool any_start, bool has_budget,
                     bool dns_live, float inc_live, const float* v, float b1, int i1, int* j,
-                    int& heads, int& rounds_total) {
+                    int& heads, int& rounds_total, const int* fdom = nullptr) {
   const int N = dm.N, tid = threadIdx.x, bd = blockDim.x;
   const int B = dm.B, B1 = dm.B1, K_EP = dm.K_EP;
   float* table = e.table;
@@ -595,7 +602,7 @@ affinity_epoch_tail(const TablesView& t, const Ctx& c, const AffScratch& e, cons
     head = hi;
   }
   const int m_take = use_multi ? got : (head >= 0 ? 1 : 0);
-  affinity_fold(t, c, e, dm, use_multi, head, j);
+  affinity_fold<GATHERED>(t, c, e, dm, use_multi, head, j, fdom);
   heads += head >= 0;
   rounds_total += use_multi ? rounds : 0;
   return m_take;

@@ -7,18 +7,23 @@
 //    :2095-2096: the plain `while_loop` over the epoch body, whose front
 //    `epoch_head` :1568, `apply_zone` :1680 and tail `epoch_tail`
 //    :1714-1964 XLA's GSPMD partitions over the node-sharded inputs). Rank
-//    r of a mesh of R ranks works on its node block [lo, hi), NL = N / R:
-//    every per-node stage reads the block only; the rounds run on every
-//    rank on the merged candidate list and the replicated [D+1] counters.
+//    r of a mesh of R ranks works on its node block [lo, hi), NL = N / R,
+//    the only part of the tables and the carry it holds (the partitioned
+//    layout, viewed as affinity_sharded.cuh says): every per-node stage
+//    reads the block only; the rounds run on every rank on the merged
+//    candidate list and the replicated [D+1] counters, and the fold reads
+//    the term domains the candidates and the heads carried.
 //    The rule (parallel/mesh.py `round_shards`): a 1-D node mesh of more
 //    than one shard, N a multiple of it and N above the limit.
 //
-// One segment: K9's setup once (affinity_sharded.cu, on K9's scratch), then
+// One segment: K9's setup once (affinity_sharded.cu, on K9's scratch, the
+// block), then
 // per epoch, launched by ops/kernels.py
 // `schedule_affinity_wave_rounds_kernel`, one block each:
 //   front    (K9's, the block): the live gates, F_start, F_hi, ip_raw and
 //            the SelectorSpread counts, and K9's stacked vector of maxima;
 //   flags    (the block): any(F_hi), any(F_start), any(F_start on a zone),
+//            whether a node's live budget terms leave its composed domain,
 //            and with ss_live the block's [Z] zone sums of the counts over
 //            F_start, after the stacked vector in the same row;
 //   -- all_gather_rows #1 of the rows --
@@ -30,13 +35,14 @@
 //   summary  (the block): the SelectorSpread blend into the table rows,
 //            each node's usable prefix and first hidden entry, the block's
 //            first two maxima of that bound and its best head as (value,
-//            global node), and its usable count;
+//            global node) with every term's domain at that head, and its
+//            usable count;
 //   -- all_gather_rows #2 of the summaries; the host reads use_multi_pre
 //      and any(F_start); without use_multi_pre: finish (the head) --
 //   select   (the block): the guard from the global pairs, the radix select
 //            of the block's top c = min(K_EP, NL*B) entries, emitted as
-//            [c] (global key, dom_live) rows, 0 keys after the block's
-//            own, then (guarded usable count, 0);
+//            [c] (global key, dom_live, every term's domain) rows, 0 keys
+//            after the block's own, then (guarded usable count, 0, ...);
 //   -- all_gather_rows #3 of the [c+1] rows --
 //   merge    (replicated): the radix select of the top K_EP of the R*c keys,
 //            their bitonic sort, each position's carried domain, and the
@@ -47,7 +53,8 @@
 //            nodes, the exhausted nodes left out), the minima negated;
 //   -- pmax #4 of those seven --
 //   finish   (replicated): the sandwich's test, the head fallback from the
-//            gathered heads, the fold into j and the live rows, the loop
+//            gathered heads, the fold into j and the live rows (the term
+//            domains from the merged rows or the head's summary), the loop
 //            state (placed, last, epochs, head fallbacks, multi rounds).
 // Collectives per epoch: 2 (the head fallback without use_multi_pre), 3
 // (rounds that took nothing), 4 (a sandwich); the host reads one to three
@@ -110,20 +117,21 @@ static __device__ __forceinline__ void k5_order(const float* red, float (&v)[14]
 }
 
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
-affinity_rounds_flags(TablesView t, int g, int B, int lo, int hi, int ss_live, float* fs, int* is,
-                      float* part, int p0) {
+affinity_rounds_flags(TablesView t, int g, int B, int N, int lo, int hi, int ss_live, float* fs,
+                      int* is, float* part, int p0) {
   __shared__ Ctx c;
   const int tid = threadIdx.x, bd = blockDim.x;
   if (tid == 0) affinity_slots(t, g, &c);
-  float* zs = part + p0 + 3;
+  float* zs = part + p0 + 4;
   if (ss_live)
     for (int z = tid; z < t.Z; z += bd) zs[z] = 0.0f;
   __syncthreads();
-  const AffScratch a = aff_scratch(t, c, B, fs, is);
-  bool h = false, s = false, hz = false;
+  const AffScratch a = aff_scratch(t, c, B, fs, is, N);
+  bool h = false, s = false, hz = false, ns = false;
   for (int n = lo + tid; n < hi; n += bd) {
     const int fl = a.flags[n];
     h |= (fl & AF_HI) != 0;
+    ns |= !(fl & AF_SAME);
     if (!(fl & AF_START)) continue;
     s = true;
     const int zone = t.node_zone[n];
@@ -133,31 +141,33 @@ affinity_rounds_flags(TablesView t, int g, int B, int lo, int hi, int ss_live, f
   const bool any_hi = __syncthreads_or(h);
   const bool any_start = __syncthreads_or(s);
   const bool zoned = __syncthreads_or(hz);
+  const bool not_same = __syncthreads_or(ns);
   if (tid == 0) {
     part[p0] = any_hi ? 1.0f : 0.0f;
     part[p0 + 1] = any_start ? 1.0f : 0.0f;
     part[p0 + 2] = zoned ? 1.0f : 0.0f;
+    part[p0 + 3] = not_same ? 1.0f : 0.0f;
   }
 }
 
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
-affinity_rounds_reduce(TablesView t, int g, int B, int ss_live, int R, int P1,
+affinity_rounds_reduce(TablesView t, int g, int B, int N, int ss_live, int R, int P1,
                        const float* rows1, float* red, float* fs, int* is, int* state) {
   __shared__ Ctx c;
   const int tid = threadIdx.x, bd = blockDim.x;
   if (tid == 0) affinity_slots(t, g, &c);
   __syncthreads();
-  const AffScratch a = aff_scratch(t, c, B, fs, is);
+  const AffScratch a = aff_scratch(t, c, B, fs, is, N);
   const int Cw = c.n[SK_CW], p0 = AS_FIXED + 2 * Cw;
-  for (int i = tid; i < p0 + 3; i += bd) {
+  for (int i = tid; i < p0 + 4; i += bd) {
     float x = rows1[i];
     for (int r = 1; r < R; ++r) x = fmaxf(x, rows1[(size_t)r * P1 + i]);
     red[i] = x;
   }
   if (ss_live) {
     for (int z = tid; z < t.Z; z += bd) {
-      float x = rows1[p0 + 3 + z];
-      for (int r = 1; r < R; ++r) x = x + rows1[(size_t)r * P1 + p0 + 3 + z];
+      float x = rows1[p0 + 4 + z];
+      for (int r = 1; r < R; ++r) x = x + rows1[(size_t)r * P1 + p0 + 4 + z];
       a.zone_sums[z] = x;
     }
   }
@@ -178,25 +188,28 @@ affinity_rounds_reduce(TablesView t, int g, int B, int ss_live, int R, int P1,
                                        && v[3] == v[10] && v[5] == v[12] && v[6] == v[13]);
   if (ss_live) pre_norms_ok = pre_norms_ok && v[4] == v[11];
   const bool ss_multi_ok = !ss_live || !zoned;
-  const bool budget_composes = c.n_budget <= 1 || (c.n_dns == 0 && state[6]);
+  const bool doms_same = !(red[p0 + 3] > 0.0f);
+  const bool budget_composes = c.n_budget <= 1 || (c.n_dns == 0 && doms_same);
   state[ST_MULTI_PRE] = budget_composes && !state[5] && ip_safe && ss_multi_ok && pre_norms_ok;
   state[ST_ANY_START] = any_start;
   state[ST_UNIFORM] = uniform_base;
   state[ST_ZONED] = zoned;
 }
 
-// summary row: [b1, i1, b2, i2, head, head node, usable count, 0]
+// summary row: [b1, i1, b2, i2, head, head node, usable count, 0], then
+// every term slot's domain at the head node (K9's payload order)
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
-affinity_rounds_summary(TablesView t, int g, int B, int lo, int hi, int ss_live, const int* j,
-                        float* fs, int* is, const float* red, const float* pay, const int* state,
-                        double* summ) {
+affinity_rounds_summary(TablesView t, int g, int B, int N, int lo, int hi, int ss_live,
+                        const int* j, float* fs, int* is, const float* red, const float* pay,
+                        const int* state, double* summ) {
   __shared__ Ctx c;
   __shared__ float s_red[8 * 32];
   __shared__ int s_idx[32];
-  const int tid = threadIdx.x, bd = blockDim.x, B1 = B + 1, P = B + 6;
+  const int tid = threadIdx.x, bd = blockDim.x, B1 = B + 1;
   if (tid == 0) affinity_slots(t, g, &c);
   __syncthreads();
-  const AffScratch a = aff_scratch(t, c, B, fs, is);
+  const AffScratch a = aff_scratch(t, c, B, fs, is, N);
+  const int P = B + AS_PAY_FIXED + c.off[SK_SS] + 1;
   const bool use_multi_pre = state[ST_MULTI_PRE], zoned = state[ST_ZONED];
   const float maxN = fmaxf(red[4], 0.0f);
   float maxZ = 0.0f;
@@ -261,11 +274,15 @@ affinity_rounds_summary(TablesView t, int g, int B, int lo, int hi, int ss_live,
     summ[6] = nU;
     summ[7] = 0.0;
   }
+  const bool own = ih >= lo && ih < hi;  // no F_start node: no head, the domains unread
+  for (int k = 0; k < N_KINDS; ++k)
+    for (int s = tid; s < c.n[k]; s += bd)
+      summ[8 + c.off[k] + s] = own ? (double)slot_dom(t, k, c.slot[k][s].id, ih) : 0.0;
 }
 
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
-affinity_rounds_select(TablesView t, int g, int B, int lo, int hi, int c_, int R, float* fs,
-                       int* is, const double* summ_all, long long* cand) {
+affinity_rounds_select(TablesView t, int g, int B, int N, int lo, int hi, int c_, int R,
+                       float* fs, int* is, const double* summ_all, long long* cand) {
   __shared__ Ctx c;
   __shared__ int s_idx[32];
   __shared__ int hist[256];
@@ -274,23 +291,24 @@ affinity_rounds_select(TablesView t, int g, int B, int lo, int hi, int c_, int R
   const int tid = threadIdx.x, bd = blockDim.x, B1 = B + 1, NL = hi - lo;
   if (tid == 0) affinity_slots(t, g, &c);
   __syncthreads();
-  const AffScratch a = aff_scratch(t, c, B, fs, is);
+  const AffScratch a = aff_scratch(t, c, B, fs, is, N);
+  const int n_rows = c.off[SK_SS] + 1, SW = 8 + n_rows, CW = 2 + n_rows;
 
   // ---- the global pairs: the best block first, then the best of the other
   // blocks' firsts and the winner's second
   int win = 0;
   double b1 = summ_all[0], g1 = summ_all[1];
   for (int r = 1; r < R; ++r) {
-    const double v = summ_all[r * 8], i = summ_all[r * 8 + 1];
+    const double v = summ_all[r * SW], i = summ_all[r * SW + 1];
     if (v > b1 || (v == b1 && i < g1)) {
       b1 = v;
       g1 = i;
       win = r;
     }
   }
-  double b2 = summ_all[win * 8 + 2], g2 = summ_all[win * 8 + 3];
+  double b2 = summ_all[win * SW + 2], g2 = summ_all[win * SW + 3];
   for (int r = 0; r < R; ++r)
-    if (r != win) pair_update(summ_all[r * 8], summ_all[r * 8 + 1], &b2, &g2);
+    if (r != win) pair_update(summ_all[r * SW], summ_all[r * SW + 1], &b2, &g2);
   const float f1 = (float)b1, f2 = (float)b2;
   const int i1 = (int)g1, i2 = (int)g2;
 
@@ -321,24 +339,21 @@ affinity_rounds_select(TablesView t, int g, int B, int lo, int hi, int c_, int R
     int total;
     const int off = base + block_exclusive_scan(cnt, s_idx, &total);
     for (int k = 0; k < cnt; ++k) {
-      long long* out = cand + (size_t)(off + k) * 2;
+      long long* out = cand + (size_t)(off + k) * CW;
       out[0] = (long long)entry_key(row[k], lo + nl, k, B);
       out[1] = a.dom_live[lo + nl];
+      for (int q = 0; q < N_KINDS; ++q)
+        for (int s = 0; s < c.n[q]; ++s)
+          out[2 + c.off[q] + s] = slot_dom(t, q, c.slot[q][s].id, lo + nl);
     }
     base += total;
   }
-  for (int s = r + tid; s < c_; s += bd) {
-    cand[(size_t)s * 2] = 0;
-    cand[(size_t)s * 2 + 1] = 0;
-  }
-  if (tid == 0) {
-    cand[(size_t)c_ * 2] = U;
-    cand[(size_t)c_ * 2 + 1] = 0;
-  }
+  for (size_t i = (size_t)r * CW + tid; i < (size_t)c_ * CW; i += bd) cand[i] = 0;
+  for (int i = tid; i < CW; i += bd) cand[(size_t)c_ * CW + i] = i == 0 ? U : 0;
 }
 
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
-affinity_rounds_merge(TablesView t, int g, int m, int B, int c_, int R, float* fs, int* is,
+affinity_rounds_merge(TablesView t, int g, int m, int B, int N, int c_, int R, float* fs, int* is,
                       const long long* rows, int* state) {
   __shared__ Ctx c;
   __shared__ float s_red[8 * 32];
@@ -350,7 +365,7 @@ affinity_rounds_merge(TablesView t, int g, int m, int B, int c_, int R, float* f
   __shared__ int s_prise[LMAX + 2], s_prov[LMAX + 2], s_hist[LMAX + 2];
   __shared__ u64 s_prefix;
   __shared__ int s_rem, s_cnt, s_L, s_PL;
-  const int N = t.N, D1 = t.D1, tid = threadIdx.x, bd = blockDim.x;
+  const int D1 = t.D1, tid = threadIdx.x, bd = blockDim.x;
   if (tid == 0) {
     affinity_slots(t, g, &c);
     s_cnt = 0;
@@ -361,24 +376,31 @@ affinity_rounds_merge(TablesView t, int g, int m, int B, int c_, int R, float* f
     s_hist[tid] = 0;
   }
   __syncthreads();
-  const AffScratch a = aff_scratch(t, c, B, fs, is);
-  const AffDims dm = {N, D1, D1 - 1, B, B + 1, t.Z, min(N * B, K_EP_MAX), N * B + 1,
-                      (size_t)g * N};
-  const int total = R * c_;
+  const AffScratch a = aff_scratch(t, c, B, fs, is, N);
+  const AffGathered ga = aff_gathered(t, a, N);
+  const AffDims dm = {N, D1, D1 - 1, B, B + 1, t.Z, min(N * B, K_EP_MAX), N * B + 1, 0};
+  const int total = R * c_, n_rows = c.off[SK_SS] + 1, CW = 2 + n_rows;
 
   // ---- the global top: the n_cand = min(K_EP, keys) best gathered keys
   int nk = 0;
   for (int e = tid; e < total; e += bd) {
     const int rk = e / c_, s = e - rk * c_;
-    nk += rows[((size_t)rk * (c_ + 1) + s) * 2] != 0;
+    nk += rows[((size_t)rk * (c_ + 1) + s) * CW] != 0;
   }
   nk = block_sum_int(nk, s_int);
   const int n_cand = min(nk, dm.K_EP);
-  const u64 T = n_cand > 0 ? select_gathered(rows, R, c_, n_cand, hist, &s_prefix, &s_rem) : 0;
+  const u64 T =
+      n_cand > 0 ? select_gathered(rows, R, c_, n_cand, hist, &s_prefix, &s_rem, CW) : 0;
   for (int e = tid; e < total; e += bd) {
     const int rk = e / c_, s = e - rk * c_;
-    const u64 key = (u64)rows[((size_t)rk * (c_ + 1) + s) * 2];
-    if (key != 0 && key >= T) s_key[atomicAdd(&s_cnt, 1)] = key;
+    const long long* row = rows + ((size_t)rk * (c_ + 1) + s) * CW;
+    const u64 key = (u64)row[0];
+    if (key == 0 || key < T) continue;
+    s_key[atomicAdd(&s_cnt, 1)] = key;
+    // the term domains at its node, for the fold (every key of a node
+    // carries the same)
+    const int node = key_node(key, B);
+    for (int r = 0; r < n_rows; ++r) ga.fdom[(size_t)r * N + node] = (int)row[2 + r];
   }
   int L = 2;
   while (L < n_cand) L <<= 1;
@@ -389,7 +411,7 @@ affinity_rounds_merge(TablesView t, int g, int m, int B, int c_, int R, float* f
   // descending), and the domain it carried there
   for (int e = tid; e < total; e += bd) {
     const int rk = e / c_, s = e - rk * c_;
-    const long long* row = rows + ((size_t)rk * (c_ + 1) + s) * 2;
+    const long long* row = rows + ((size_t)rk * (c_ + 1) + s) * CW;
     const u64 key = (u64)row[0];
     if (key == 0 || key < T) continue;
     int lo_p = 0, hi_p = n_cand - 1;
@@ -415,14 +437,15 @@ affinity_rounds_merge(TablesView t, int g, int m, int B, int c_, int R, float* f
 }
 
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
-affinity_rounds_sandwich(TablesView t, int g, int B, int lo, int hi, const int* j, float* fs,
-                         int* is, float* part) {
+affinity_rounds_sandwich(TablesView t, int g, int B, int N, int lo, int hi, const int* j,
+                         float* fs, int* is, float* part) {
   __shared__ Ctx c;
   __shared__ float s_red[8 * 32];
   if (threadIdx.x == 0) affinity_slots(t, g, &c);
   __syncthreads();
-  const AffScratch a = aff_scratch(t, c, B, fs, is);
-  const AffDims dm = {t.N, t.D1, t.D1 - 1, B, B + 1, t.Z, min(t.N * B, K_EP_MAX), t.N * B + 1,
+  const AffScratch a = aff_scratch(t, c, B, fs, is, N);
+  // the lower set reads the block's rows of the rebased view
+  const AffDims dm = {N, t.D1, t.D1 - 1, B, B + 1, t.Z, min(N * B, K_EP_MAX), N * B + 1,
                       (size_t)g * t.N};
   float w7[7];
   affinity_lower_set(t, a, AvailLive{a.cap, j}, dm, lo, hi, c.n_budget >= 1, w7, s_red);
@@ -430,15 +453,16 @@ affinity_rounds_sandwich(TablesView t, int g, int B, int lo, int hi, const int* 
 }
 
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
-affinity_rounds_finish(TablesView t, int g, int m, int ss_live, int B, int R, int* j, float* fs,
-                       int* is, const float* red, const float* red4, const double* summ_all,
-                       int* state) {
+affinity_rounds_finish(TablesView t, int g, int m, int ss_live, int B, int N, int R, int* j,
+                       float* fs, int* is, const float* red, const float* red4,
+                       const double* summ_all, int* state) {
   __shared__ Ctx c;
   if (threadIdx.x == 0) affinity_slots(t, g, &c);
   __syncthreads();
-  const AffScratch a = aff_scratch(t, c, B, fs, is);
-  const AffDims dm = {t.N, t.D1, t.D1 - 1, B, B + 1, t.Z, min(t.N * B, K_EP_MAX), t.N * B + 1,
-                      (size_t)g * t.N};
+  const AffScratch a = aff_scratch(t, c, B, fs, is, N);
+  const AffGathered ga = aff_gathered(t, a, N);
+  const AffDims dm = {N, t.D1, t.D1 - 1, B, B + 1, t.Z, min(N * B, K_EP_MAX), N * B + 1, 0};
+  const int n_rows = c.off[SK_SS] + 1, SW = 8 + n_rows;
   const int placed = state[0], got = state[ST_GOT], rounds = state[ST_ROUNDS];
   // ---- the normalizer sandwich (red4: the lower set's maxima, the minima
   // negated; null when the rounds took nothing)
@@ -453,14 +477,28 @@ affinity_rounds_finish(TablesView t, int g, int m, int ss_live, int B, int R, in
     use_multi = lo_ok;
   }
   // ---- the head fallback from the gathered heads (value desc, node asc)
-  int head = -1;
+  int head = -1, head_r = 0;
   if (!use_multi && state[ST_ANY_START] && placed < m) {
     double hv = -INFINITY, hn = 2147483647.0;
-    for (int r = 0; r < R; ++r) pair_update(summ_all[r * 8 + 4], summ_all[r * 8 + 5], &hv, &hn);
+    for (int r = 0; r < R; ++r) {
+      const double v = summ_all[r * SW + 4], i = summ_all[r * SW + 5];
+      if (v > hv || (v == hv && i < hn)) {
+        hv = v;
+        hn = i;
+        head_r = r;
+      }
+    }
     head = (int)hn;
   }
+  // the head's term domains, from its block's summary (the merged
+  // candidates' are in place from the merge)
+  if (head >= 0)
+    for (int r = threadIdx.x; r < n_rows; r += blockDim.x)
+      ga.fdom[(size_t)r * N + head] = (int)summ_all[head_r * SW + 8 + r];
+  __syncthreads();
   const int m_take = use_multi ? got : (head >= 0 ? 1 : 0);
-  affinity_fold(t, c, a, dm, use_multi, head, j);  // ends with a barrier: state read above
+  // ends with a barrier: state read above
+  affinity_fold<true>(t, c, a, dm, use_multi, head, j, ga.fdom);
   if (threadIdx.x == 0) {
     state[0] = placed + m_take;
     state[1] = m_take;
@@ -476,57 +514,64 @@ extern "C" {
 
 int affinity_rounds_state_ints() { return ST_INTS; }
 
-int affinity_rounds_flags_launch(const TablesView* t, int g, int B, int lo, int hi, int ss_live,
-                                 float* fs, int* is, float* part, int p0, cudaStream_t stream) {
-  affinity_rounds_flags<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, B, lo, hi, ss_live, fs, is, part,
-                                                         p0);
+// t: the block's view, rebased by lo (affinity_sharded.cuh); N: the mesh's
+// nodes. The summary rows hold 8 + slots doubles and the candidate rows
+// 2 + slots ints, slots = Sd + A + B + Ca + Cw + 1.
+int affinity_rounds_flags_launch(const TablesView* t, int g, int B, int N, int lo, int hi,
+                                 int ss_live, float* fs, int* is, float* part, int p0,
+                                 cudaStream_t stream) {
+  affinity_rounds_flags<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, B, N, lo, hi, ss_live, fs, is,
+                                                         part, p0);
   return (int)cudaGetLastError();
 }
 
-int affinity_rounds_reduce_launch(const TablesView* t, int g, int B, int ss_live, int R, int P1,
-                                  const float* rows1, float* red, float* fs, int* is, int* state,
-                                  cudaStream_t stream) {
-  affinity_rounds_reduce<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, B, ss_live, R, P1, rows1, red,
+int affinity_rounds_reduce_launch(const TablesView* t, int g, int B, int N, int ss_live, int R,
+                                  int P1, const float* rows1, float* red, float* fs, int* is,
+                                  int* state, cudaStream_t stream) {
+  affinity_rounds_reduce<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, B, N, ss_live, R, P1, rows1, red,
                                                           fs, is, state);
   return (int)cudaGetLastError();
 }
 
-int affinity_rounds_summary_launch(const TablesView* t, int g, int B, int lo, int hi, int ss_live,
-                                   const int* j, float* fs, int* is, const float* red,
-                                   const float* pay, const int* state, double* summ,
-                                   cudaStream_t stream) {
-  affinity_rounds_summary<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, B, lo, hi, ss_live, j, fs, is,
-                                                           red, pay, state, summ);
+int affinity_rounds_summary_launch(const TablesView* t, int g, int B, int N, int lo, int hi,
+                                   int ss_live, const int* j, float* fs, int* is,
+                                   const float* red, const float* pay, const int* state,
+                                   double* summ, cudaStream_t stream) {
+  affinity_rounds_summary<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, B, N, lo, hi, ss_live, j, fs,
+                                                           is, red, pay, state, summ);
   return (int)cudaGetLastError();
 }
 
-int affinity_rounds_select_launch(const TablesView* t, int g, int B, int lo, int hi, int c, int R,
-                                  float* fs, int* is, const double* summ_all, long long* cand,
-                                  cudaStream_t stream) {
-  affinity_rounds_select<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, B, lo, hi, c, R, fs, is,
+int affinity_rounds_select_launch(const TablesView* t, int g, int B, int N, int lo, int hi, int c,
+                                  int R, float* fs, int* is, const double* summ_all,
+                                  long long* cand, cudaStream_t stream) {
+  affinity_rounds_select<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, B, N, lo, hi, c, R, fs, is,
                                                           summ_all, cand);
   return (int)cudaGetLastError();
 }
 
-int affinity_rounds_merge_launch(const TablesView* t, int g, int m, int B, int c, int R, float* fs,
-                                 int* is, const long long* rows, int* state,
+int affinity_rounds_merge_launch(const TablesView* t, int g, int m, int B, int N, int c, int R,
+                                 float* fs, int* is, const long long* rows, int* state,
                                  cudaStream_t stream) {
-  affinity_rounds_merge<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, m, B, c, R, fs, is, rows, state);
+  affinity_rounds_merge<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, m, B, N, c, R, fs, is, rows,
+                                                         state);
   return (int)cudaGetLastError();
 }
 
-int affinity_rounds_sandwich_launch(const TablesView* t, int g, int B, int lo, int hi,
+int affinity_rounds_sandwich_launch(const TablesView* t, int g, int B, int N, int lo, int hi,
                                     const int* j, float* fs, int* is, float* part,
                                     cudaStream_t stream) {
-  affinity_rounds_sandwich<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, B, lo, hi, j, fs, is, part);
+  affinity_rounds_sandwich<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, B, N, lo, hi, j, fs, is,
+                                                            part);
   return (int)cudaGetLastError();
 }
 
-int affinity_rounds_finish_launch(const TablesView* t, int g, int m, int ss_live, int B, int R,
-                                  int* j, float* fs, int* is, const float* red, const float* red4,
-                                  const double* summ_all, int* state, cudaStream_t stream) {
-  affinity_rounds_finish<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, m, ss_live, B, R, j, fs, is, red,
-                                                          red4, summ_all, state);
+int affinity_rounds_finish_launch(const TablesView* t, int g, int m, int ss_live, int B, int N,
+                                  int R, int* j, float* fs, int* is, const float* red,
+                                  const float* red4, const double* summ_all, int* state,
+                                  cudaStream_t stream) {
+  affinity_rounds_finish<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, m, ss_live, B, N, R, j, fs, is,
+                                                          red, red4, summ_all, state);
   return (int)cudaGetLastError();
 }
 

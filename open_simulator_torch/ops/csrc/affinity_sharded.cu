@@ -3,18 +3,21 @@
 // K9 replaces the `shard_map` epoch loop of open_simulator_tpu/ops/kernels.py
 //    `schedule_affinity_wave` (:1977-2094: `front_sharded` :1982-2066,
 //    `loop_sharded` :2068-2078, the shared `epoch_tail` :1714 and
-//    `apply_zone` :1680): every rank of a node mesh holds the whole tables
-//    and the live [slots, D+1] rows; rank r builds the epoch front on its
-//    node block [lo, hi), the host makes the epoch's two collectives
+//    `apply_zone` :1680) on the partitioned layout (`table_shardings`,
+//    `carry_shardings`): every rank of a node mesh holds only its node
+//    block [lo, hi) of the tables and the carry, and the live [slots, D+1]
+//    rows whole; rank r builds the segment constants and the epoch front on
+//    its block, the host makes the epoch's two collectives
 //    (parallel/collectives.py), and the tail runs on every rank on the
 //    gathered full-width rows, so the counts, the live rows, `placed` and
 //    the statistics are equal on every rank and equal to K5's.
 //
 // Four kernels, one block each, launched by ops/kernels.py
 // `schedule_affinity_wave_sharded_kernel`:
-//   setup  (once per segment, full width): the term slots, base
+//   setup  (once per segment, the block): the term slots, base
 //          feasibility, capacity, static score terms, the composed budget
-//          domain of each node, the live rows from the carry, j = 0;
+//          domain of each node and whether its live budget terms all lie in
+//          it, the live rows from the carry, j = 0 on every node;
 //   front  (per epoch, the block): the live gates, F_start and F_hi, ip_raw
 //          and the SelectorSpread count (epoch_head :1586), and one stacked
 //          vector of maxima over the block (:1996-2010): the maxima over
@@ -25,14 +28,20 @@
 //   table  (per epoch, the block): the normalizers of F_start from the
 //          reduced vector, the block's [B+1] score rows without the
 //          SelectorSpread blend, and the payload row [table; F_start; F_hi;
-//          min(avail, B+1); ip_raw; pernode0] (:2036-2046);
+//          min(avail, B+1); ip_raw; pernode0] (:2036-2046), then what the
+//          tail reads of every node besides: simon_s, nodeaff, taint, the
+//          zone, the budget domain, the AF_KEY / AF_SAME flags and every
+//          term slot's domain (the fold's); the segment constants among
+//          them ride every epoch, so that the epoch keeps its two
+//          collectives;
 //   -- all_gather of the payload rows, in rank order --
-//   tail   (per epoch, full width): the uniform-base, domain and ip gates
-//          from the reduced vector, the zone sums and the SelectorSpread
-//          blend post-gather (apply_zone, as JAX: the zone sums are
-//          cross-node sums), then K5's epoch tail: the cut, the top K_EP
-//          candidates, the rounds, the sandwich, the head fallback and the
-//          fold into j and the live rows.
+//   tail   (per epoch, full width, reading no table): the uniform-base,
+//          domain and ip gates from the reduced vector, whether the budget
+//          composes, the zone sums and the SelectorSpread blend post-gather
+//          (apply_zone, as JAX: the zone sums are cross-node sums), then
+//          K5's epoch tail: the cut, the top K_EP candidates, the rounds,
+//          the sandwich, the head fallback and the fold into j and the live
+//          rows.
 // The host reads (placed, last) once per epoch to decide on the next.
 //
 // Exactness across the cut: the payload is f32 (avail clamped to B+1 packs
@@ -55,22 +64,21 @@
 #include "select.cuh"
 
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
-affinity_sharded_setup(TablesView t, int g, int cap1, int B, int* j, float* fs, int* is,
-                       int* state) {
+affinity_sharded_setup(TablesView t, int g, int cap1, int B, int N, int lo, int hi, int* j,
+                       float* fs, int* is, int* state) {
   __shared__ Ctx c;
   __shared__ PodCtx pc;
   __shared__ float s_red[16 * 32];
-  const int N = t.N, D1 = t.D1, D = D1 - 1, tid = threadIdx.x, bd = blockDim.x;
+  const int D1 = t.D1, D = D1 - 1, tid = threadIdx.x, bd = blockDim.x;
   if (tid == 0) affinity_slots(t, g, &c);
   __syncthreads();
-  const AffScratch a = aff_scratch(t, c, B, fs, is);
+  const AffScratch a = aff_scratch(t, c, B, fs, is, N);
   const int n_rows = c.off[SK_SS] + 1;
   // the segment constants (K5's): base feasibility without DoNotSchedule and
   // InterPodAffinity, capacity, static terms, each node's composed budget
   // domain and whether it has every live DoNotSchedule term's key
   pod_prologue(t, g, 0, &pc, s_red);
-  bool same = true;
-  for (int n = tid; n < N; n += bd) {
+  for (int n = lo + tid; n < hi; n += bd) {
     float ip_unused;
     segment_node_constants<false, false>(t, &pc, g, n, cap1, 0, 0, &a.feas[n], &a.cap[n],
                                          &ip_unused, &a.simon_s[n], &a.stat[n]);
@@ -86,15 +94,16 @@ affinity_sharded_setup(TablesView t, int g, int cap1, int B, int* j, float* fs, 
       }
     }
     const int dl = sum / max(c.n_budget, 1);
+    bool same = true;
     for (int k = SK_DNS; k <= SK_CAR; ++k) {
       if (k == SK_AFF) continue;
       for (int s = 0; s < c.n[k]; ++s)
         if (c.slot[k][s].live && slot_dom(t, k, c.slot[k][s].id, n) != dl) same = false;
     }
     a.dom_live[n] = dl;
-    a.flags[n] = key ? AF_KEY : 0;
-    j[n] = 0;
+    a.flags[n] = (key ? AF_KEY : 0) | (same ? AF_SAME : 0);
   }
+  for (int n = tid; n < N; n += bd) j[n] = 0;
   for (size_t i = tid; i < (size_t)n_rows * D1; i += bd) {
     const int r = (int)(i / D1);
     int k = 0;
@@ -110,25 +119,23 @@ affinity_sharded_setup(TablesView t, int g, int cap1, int B, int* j, float* fs, 
     a.edom_live[d] = e;
   }
   for (int z = tid; z < t.Z; z += bd) a.zone_sums[z] = 0.0f;
-  const bool doms_same = __syncthreads_and(same);
   if (tid == 0) {
     state[0] = 0;  // placed
     state[1] = 1;  // last
-    state[2] = state[3] = state[4] = state[5] = 0;
-    state[6] = doms_same;
+    state[2] = state[3] = state[4] = state[5] = state[6] = 0;
   }
 }
 
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
-affinity_sharded_front(TablesView t, int g, int B, int lo, int hi, const int* j, float* fs,
-                       int* is, float* part, int* state) {
+affinity_sharded_front(TablesView t, int g, int B, int N, int lo, int hi, const int* j,
+                       float* fs, int* is, float* part, int* state) {
   __shared__ Ctx c;
   __shared__ float s_red[AS_FIXED * 32];
-  const int N = t.N, D1 = t.D1, D = D1 - 1, tid = threadIdx.x, bd = blockDim.x;
-  const size_t gN = (size_t)g * N;
+  const int D1 = t.D1, D = D1 - 1, tid = threadIdx.x, bd = blockDim.x;
+  const size_t gN = (size_t)g * t.N;  // the block's rows, rebased
   if (tid == 0) affinity_slots(t, g, &c);
   __syncthreads();
-  const AffScratch a = aff_scratch(t, c, B, fs, is);
+  const AffScratch a = aff_scratch(t, c, B, fs, is, N);
   const float* rows = a.rows;
 
   // ---- the DoNotSchedule minimum of every valid term, the bootstrap flag
@@ -162,7 +169,7 @@ affinity_sharded_front(TablesView t, int g, int B, int lo, int hi, const int* j,
   for (int i = 0; i < AS_FIXED; ++i) v[i] = -INFINITY;
   for (int n = lo + tid; n < hi; n += bd) {
     const int avail = a.cap[n] - j[n];
-    int fl = a.flags[n] & AF_KEY;
+    int fl = a.flags[n] & (AF_KEY | AF_SAME);
     if (a.feas[n] && avail > 0) {
       bool dns_ok = true, dns_ok_st = true;
       for (int s = 0; s < c.n[SK_DNS]; ++s) {
@@ -261,15 +268,17 @@ affinity_sharded_front(TablesView t, int g, int B, int lo, int hi, const int* j,
 }
 
 // payload row of node n: [table (B+1); F_start; F_hi; min(avail, B+1);
-// ip_raw; pernode0], P = B+6 floats
+// ip_raw; pernode0; simon_s; nodeaff; taint; zone; dom_live; flags], then
+// every slot's domain (affinity_sharded.cuh AS_PAY_FIXED)
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
-affinity_sharded_table(TablesView t, int g, int B, int lo, int hi, const int* j, float* fs,
+affinity_sharded_table(TablesView t, int g, int B, int N, int lo, int hi, const int* j, float* fs,
                        int* is, const float* red, float* pay) {
   __shared__ Ctx c;
   if (threadIdx.x == 0) affinity_slots(t, g, &c);
   __syncthreads();
-  const AffScratch a = aff_scratch(t, c, B, fs, is);
-  const int R = t.R, B1 = B + 1, P = B + 6;
+  const AffScratch a = aff_scratch(t, c, B, fs, is, N);
+  const int n_rows = c.off[SK_SS] + 1;
+  const int R = t.R, B1 = B + 1, P = B + AS_PAY_FIXED + n_rows;
   const size_t gN = (size_t)g * t.N;
   const float gz_c = t.grp_nonzero[g * 2 + 0], gz_m = t.grp_nonzero[g * 2 + 1];
   // serial's normalizers over F_start (norms6 :2019)
@@ -297,12 +306,21 @@ affinity_sharded_table(TablesView t, int g, int B, int lo, int hi, const int* j,
     row[B1 + 2] = (float)min(a.cap[n] - j[n], B1);
     row[B1 + 3] = a.ip_raw[n];
     row[B1 + 4] = a.pn0[n];
+    row[B1 + 5] = a.simon_s[n];
+    row[B1 + 6] = t.nodeaff_raw[gN + n];
+    row[B1 + 7] = t.taint_raw[gN + n];
+    row[B1 + 8] = (float)t.node_zone[n];
+    row[B1 + 9] = (float)a.dom_live[n];  // ids < 2^24: exact
+    row[B1 + 10] = (float)(fl & (AF_KEY | AF_SAME));
+    for (int k = 0; k < N_KINDS; ++k)
+      for (int s = 0; s < c.n[k]; ++s)
+        row[B1 + 11 + c.off[k] + s] = (float)slot_dom(t, k, c.slot[k][s].id, n);
   }
 }
 
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
-affinity_sharded_tail(TablesView t, int g, int m, int ss_live, int B, int* j, float* fs, int* is,
-                      const float* red, const float* full, int* state) {
+affinity_sharded_tail(TablesView t, int g, int m, int ss_live, int B, int N, int* j, float* fs,
+                      int* is, const float* red, const float* full, int* state) {
   __shared__ Ctx c;
   __shared__ float s_red[16 * 32];
   __shared__ int s_int[32];
@@ -312,9 +330,10 @@ affinity_sharded_tail(TablesView t, int g, int m, int ss_live, int B, int* j, fl
   __shared__ int s_prise[LMAX + 2], s_prov[LMAX + 2], s_hist[LMAX + 2];
   __shared__ u64 s_prefix;
   __shared__ int s_rem, s_cnt, s_L, s_PL;
-  const int N = t.N, D1 = t.D1, tid = threadIdx.x, bd = blockDim.x;
-  const int B1 = B + 1, P = B + 6, Z = t.Z;
-  const AffDims dm = {N, D1, D1 - 1, B, B1, Z, min(N * B, K_EP_MAX), N * B + 1, (size_t)g * N};
+  const int D1 = t.D1, tid = threadIdx.x, bd = blockDim.x;
+  const int B1 = B + 1, Z = t.Z;
+  // the gathered rows stand for the tables: group offset 0
+  const AffDims dm = {N, D1, D1 - 1, B, B1, Z, min(N * B, K_EP_MAX), N * B + 1, 0};
   if (tid == 0) affinity_slots(t, g, &c);
   if (tid < LMAX + 2) {
     s_prise[tid] = -1;
@@ -322,7 +341,12 @@ affinity_sharded_tail(TablesView t, int g, int m, int ss_live, int B, int* j, fl
     s_hist[tid] = 0;
   }
   __syncthreads();
-  const AffScratch a = aff_scratch(t, c, B, fs, is);
+  const AffScratch a = aff_scratch(t, c, B, fs, is, N);
+  const AffGathered ga = aff_gathered(t, a, N);
+  const int n_rows = c.off[SK_SS] + 1, P = B + AS_PAY_FIXED + n_rows;
+  TablesView tg = t;  // the sandwich's lower set reads nodeaff and taint of every node
+  tg.nodeaff_raw = ga.nodeaff;
+  tg.taint_raw = ga.taint;
   float* table = a.table;
   float* ip_raw = a.ip_raw;
   float* pn0 = a.pn0;
@@ -332,27 +356,33 @@ affinity_sharded_tail(TablesView t, int g, int m, int ss_live, int B, int* j, fl
   int* u_s = a.u;
   int* flags = a.flags;
   const int placed = state[0], boot = state[5];
-  const bool budget_composes = c.n_budget <= 1 || (c.n_dns == 0 && state[6]);
   const bool has_budget = c.n_budget >= 1, dns_live = c.n_dns > 0;
   const float inc_live = c.inc_live;
   const int Cw = c.n[SK_CW];
 
   // ---- the gathered rows: the epoch's sets, avail, ip_raw and pernode0 of
   // every node; the zone sums over F_start (apply_zone, post-gather)
-  bool anyS = false, anyH = false, hz = false;
+  bool anyS = false, anyH = false, hz = false, same = true;
   for (int n = tid; n < N; n += bd) {
     const float* src = full + (size_t)n * P;
-    const int fl = (flags[n] & AF_KEY) | (src[B1] > 0.0f ? AF_START : 0)
+    const int fl = (int)src[B1 + 10] | (src[B1] > 0.0f ? AF_START : 0)
                    | (src[B1 + 1] > 0.0f ? AF_HI : 0);
     flags[n] = fl;
     a.avail[n] = (int)src[B1 + 2];
     ip_raw[n] = src[B1 + 3];
     pn0[n] = src[B1 + 4];
+    a.simon_s[n] = src[B1 + 5];
+    ga.nodeaff[n] = src[B1 + 6];
+    ga.taint[n] = src[B1 + 7];
+    ga.zone[n] = (int)src[B1 + 8];
+    a.dom_live[n] = (int)src[B1 + 9];
+    for (int r = 0; r < n_rows; ++r) ga.fdom[(size_t)r * N + n] = (int)src[B1 + 11 + r];
+    same = same && (fl & AF_SAME);
     anyH |= (fl & AF_HI) != 0;
     if (fl & AF_START) {
       anyS = true;
       if (ss_live) {
-        const int zone = t.node_zone[n];
+        const int zone = ga.zone[n];
         if (zone > 0) hz = true;
         atomicAdd(&zone_sums[zone], pn0[n]);  // integer counts: exact
       }
@@ -361,6 +391,7 @@ affinity_sharded_tail(TablesView t, int g, int m, int ss_live, int B, int* j, fl
   const bool any_start = __syncthreads_or(anyS);
   const bool any_hi = __syncthreads_or(anyH);
   const bool have_zones = __syncthreads_or(hz);
+  const bool budget_composes = c.n_budget <= 1 || (c.n_dns == 0 && __syncthreads_and(same));
   // the reduced vector in K5's order: v[0..4] maxima over F_start, v[5], v[6]
   // minima (simon, ip); v[7..11], v[12], v[13] the same over F_hi
   float v[14];
@@ -394,7 +425,7 @@ affinity_sharded_tail(TablesView t, int g, int m, int ss_live, int B, int* j, fl
     float bound = -INFINITY;
     if (fl & AF_HI) {
       const float* src = full + (size_t)n * P;
-      const int zone = t.node_zone[n];
+      const int zone = ga.zone[n];
       const bool blend = have_zones && zone > 0;
       const float zs = ss_live ? zone_sums[zone] : 0.0f;
       float* row = table + (size_t)n * B1;
@@ -429,9 +460,9 @@ affinity_sharded_tail(TablesView t, int g, int m, int ss_live, int B, int* j, fl
                         &s_L, &s_PL, s_key, &s_prefix};
   const AvailGathered av = {avail_s};
   int heads = 0, rounds = 0;
-  const int m_take = affinity_epoch_tail(t, c, a, sh, av, dm, m, placed, ss_live,
-                                         use_multi_pre, uniform_base, any_start, has_budget,
-                                         dns_live, inc_live, v, b1, i1, j, heads, rounds);
+  const int m_take = affinity_epoch_tail<AvailGathered, true>(
+      tg, c, a, sh, av, dm, m, placed, ss_live, use_multi_pre, uniform_base, any_start,
+      has_budget, dns_live, inc_live, v, b1, i1, j, heads, rounds, ga.fdom);
   if (tid == 0) {
     state[0] = placed + m_take;
     state[1] = m_take;
@@ -449,40 +480,49 @@ static long long affinity_sharded_rows(const TablesView* t) {
   return (long long)(t->Sd + t->A + t->B + t->Ca + t->Cw + 1) * t->D1;
 }
 
-// (float scratch, int scratch, stacked vector) sizes of K9 at depth B
-long long affinity_sharded_scratch_floats(const TablesView* t, int B) {
-  return (long long)t->N * (B + 1) + 6LL * t->N + affinity_sharded_rows(t) + 2LL * t->D1 + t->Z;
+// (float scratch, int scratch, stacked vector, payload row) sizes of K9 at
+// depth B for N nodes (the mesh's)
+long long affinity_sharded_scratch_floats(const TablesView* t, int B, int N) {
+  return (long long)N * (B + 1) + 6LL * N + affinity_sharded_rows(t) + 2LL * t->D1 + t->Z
+         + 2LL * N;
 }
-long long affinity_sharded_scratch_ints(const TablesView* t) {
-  return 7LL * t->N + 4LL * t->D1;
+long long affinity_sharded_scratch_ints(const TablesView* t, int N) {
+  return 7LL * N + 4LL * t->D1 + N + (affinity_sharded_rows(t) / t->D1) * (long long)N;
 }
 int affinity_sharded_parts(const TablesView* t) { return AS_FIXED + 2 * t->Cw; }
-
-int affinity_sharded_setup_launch(const TablesView* t, int g, int cap1, int B, int* j, float* fs,
-                                  int* is, int* state, cudaStream_t stream) {
-  affinity_sharded_setup<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, cap1, B, j, fs, is, state);
-  return (int)cudaGetLastError();
+int affinity_sharded_pay_floats(const TablesView* t, int B) {
+  return B + AS_PAY_FIXED + (int)(affinity_sharded_rows(t) / t->D1);
 }
 
-int affinity_sharded_front_launch(const TablesView* t, int g, int B, int lo, int hi, const int* j,
-                                  float* fs, int* is, float* part, int* state,
+// t: the block's view, rebased by lo (affinity_sharded.cuh); N: the mesh's
+int affinity_sharded_setup_launch(const TablesView* t, int g, int cap1, int B, int N, int lo,
+                                  int hi, int* j, float* fs, int* is, int* state,
                                   cudaStream_t stream) {
-  affinity_sharded_front<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, B, lo, hi, j, fs, is, part,
+  affinity_sharded_setup<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, cap1, B, N, lo, hi, j, fs, is,
                                                           state);
   return (int)cudaGetLastError();
 }
 
-int affinity_sharded_table_launch(const TablesView* t, int g, int B, int lo, int hi, const int* j,
-                                  float* fs, int* is, const float* red, float* pay,
+int affinity_sharded_front_launch(const TablesView* t, int g, int B, int N, int lo, int hi,
+                                  const int* j, float* fs, int* is, float* part, int* state,
                                   cudaStream_t stream) {
-  affinity_sharded_table<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, B, lo, hi, j, fs, is, red, pay);
+  affinity_sharded_front<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, B, N, lo, hi, j, fs, is, part,
+                                                          state);
   return (int)cudaGetLastError();
 }
 
-int affinity_sharded_tail_launch(const TablesView* t, int g, int m, int ss_live, int B, int* j,
-                                 float* fs, int* is, const float* red, const float* full,
+int affinity_sharded_table_launch(const TablesView* t, int g, int B, int N, int lo, int hi,
+                                  const int* j, float* fs, int* is, const float* red, float* pay,
+                                  cudaStream_t stream) {
+  affinity_sharded_table<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, B, N, lo, hi, j, fs, is, red,
+                                                          pay);
+  return (int)cudaGetLastError();
+}
+
+int affinity_sharded_tail_launch(const TablesView* t, int g, int m, int ss_live, int B, int N,
+                                 int* j, float* fs, int* is, const float* red, const float* full,
                                  int* state, cudaStream_t stream) {
-  affinity_sharded_tail<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, m, ss_live, B, j, fs, is, red,
+  affinity_sharded_tail<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, m, ss_live, B, N, j, fs, is, red,
                                                          full, state);
   return (int)cudaGetLastError();
 }

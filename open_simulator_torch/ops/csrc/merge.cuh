@@ -45,10 +45,11 @@ static __device__ int block_exclusive_scan(int x, int* s_int, int* total) {
 }
 
 // The key of the r-th best nonzero key (r >= 1, at most their count) among
-// the gathered rows: R blocks of c + 1 (key, exhaust) rows, keys in the
-// first c. An 8-pass MSB-first radix select as select.cuh's select_key.
+// the gathered rows: R blocks of c + 1 rows of W entries (the key, then its
+// payload), keys in the first c. An 8-pass MSB-first radix select as
+// select.cuh's select_key.
 static __device__ u64 select_gathered(const long long* rows, int R, int c, int r, int* hist,
-                                      u64* s_prefix, int* s_rem) {
+                                      u64* s_prefix, int* s_rem, int W = 2) {
   const int tid = threadIdx.x, bd = blockDim.x, lane = tid & 31;
   const unsigned total = (unsigned)R * (unsigned)c;
   u64 prefix = 0, mask = 0;
@@ -61,7 +62,7 @@ static __device__ u64 select_gathered(const long long* rows, int R, int c, int r
       int digit = 256;
       if (e < total) {
         const unsigned rk = e / (unsigned)c, s = e - rk * (unsigned)c;
-        const u64 key = (u64)rows[((size_t)rk * (c + 1) + s) * 2];
+        const u64 key = (u64)rows[((size_t)rk * (c + 1) + s) * W];
         if (key != 0 && (key & mask) == prefix) digit = (int)((key >> shift) & 255u);
       }
       const unsigned peers = __match_any_sync(FULL_MASK, digit);

@@ -62,6 +62,7 @@
 //
 // The exactness contract with the plain PyTorch version is in common.cuh.
 
+#include "commit.cuh"
 #include "common.cuh"
 #include "select.cuh"
 #include "wave.cuh"
@@ -198,58 +199,18 @@ schedule_wave_lanes_kernel(TablesView t, int g, int m, int cap1, const int* g_s,
 
 // ---------------------------------------------------------------- K3c ------
 
-// Commit j[n] copies of group g on every node n into the carry `t` points at.
-// seg: [U, D+1] scratch for the per-topology domain sums.
+// Commit j[n] copies of group g on every node n into the carry `t` points at
+// (commit.cuh). seg: [U, D+1] scratch for the per-topology domain sums.
 static __device__ __forceinline__ void
 aggregate_commit_body(const TablesView& t, int g, const int* j, const int* topo_dom,
                       const int* counter_topo, const int* carr_topo, int U, int gpu_live,
                       float* seg) {
-  const int N = t.N, R = t.R, D1 = t.D1, D = D1 - 1, tid = threadIdx.x, bd = blockDim.x;
-  for (size_t i = tid; i < (size_t)U * D1; i += bd) seg[i] = 0.0f;
-  // requested and nonzero: one multiply, then one add
-  for (size_t i = tid; i < (size_t)N * R; i += bd)
-    t.requested[i] = t.requested[i] + t.grp_requests[(size_t)g * R + i % R] * (float)j[i / R];
-  for (size_t i = tid; i < (size_t)N * 2; i += bd)
-    t.nonzero[i] = t.nonzero[i] + t.grp_nonzero[g * 2 + i % 2] * (float)j[i / 2];
-  // a placed copy claims the group's host ports on its node (bits set with max)
-  for (int n = tid; n < N; n += bd) {
-    if (j[n] <= 0) continue;
-    for (int k = 0; k < t.PP; ++k) {
-      const int pid = t.grp_ports[g * t.PP + k];
-      if (pid > 0) t.port_used[(size_t)n * t.PORT1 + pid] = 1;
-    }
-  }
+  for (size_t i = threadIdx.x; i < (size_t)U * t.D1; i += blockDim.x) seg[i] = 0.0f;
+  commit_node_rows(t, g, j, gpu_live);
   __syncthreads();
-  // per-topology domain counts: integer sums, exact in any order
-  for (size_t i = tid; i < (size_t)U * N; i += bd) {
-    const int n = (int)(i % N), d = topo_dom[i];
-    if (d < D && j[n] != 0) atomicAdd(&seg[(i / N) * D1 + d], (float)j[n]);
-  }
+  commit_topo_counts(t, j, topo_dom, U, seg);
   __syncthreads();
-  for (size_t i = tid; i < (size_t)t.T * D1; i += bd) {
-    const size_t r = i / D1, d = i % D1;
-    t.counter[i] = t.counter[i] + (float)t.counter_sel_match_g[r * t.G + g]
-                                  * seg[(size_t)counter_topo[r] * D1 + d];
-  }
-  for (size_t i = tid; i < (size_t)t.Tc * D1; i += bd) {
-    const size_t r = i / D1, d = i % D1;
-    t.carrier[i] = t.carrier[i] + t.grp_carries[(size_t)g * t.Tc + r]
-                                  * seg[(size_t)carr_topo[r] * D1 + d];
-  }
-  // the GPU device ledger: j[n] copies of the allocator, one after another
-  const float gmem = t.grp_gpu_mem[g];
-  if (gpu_live && gmem > 0.0f) {
-    const float gnum = fmaxf(t.grp_gpu_num[g], 1.0f), safe_mem = fmaxf(gmem, 1.0f);
-    const bool single = t.grp_gpu_num[g] == 1.0f;
-    float take[MAX_NODE_DEVS];
-    for (int n = tid; n < N; n += bd) {
-      float* used = t.dev_used + (size_t)n * t.MAXDEV;
-      for (int k = 0; k < j[n]; ++k) {
-        gpu_take_at(t, used, n, gmem, gnum, safe_mem, single, take);
-        for (int d = 0; d < t.MAXDEV; ++d) used[d] = used[d] + take[d] * gmem;
-      }
-    }
-  }
+  commit_domain_counters(t, g, counter_topo, carr_topo, seg);
 }
 
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)

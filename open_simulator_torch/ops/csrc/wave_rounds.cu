@@ -5,9 +5,10 @@
 //    OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES (the `else` at :1273-1283, whose
 //    `body_tail` :1162-1198 XLA's GSPMD partitions over the node mesh). Rank
 //    r of a node mesh of R ranks works on its node block [lo, hi), NL = N /
-//    R; every stage reads the tables and the carry only on the block, and
-//    the only full-width arrays are j (the per-node counts, replicated) and
-//    the gathered candidates.
+//    R; every stage reads the tables and the carry only on the block (each
+//    rank holds only its block: the partitioned layout of parallel/mesh.py,
+//    viewed as wave_sharded.cuh says), and the only full-width arrays are j
+//    (the per-node counts, replicated) and the gathered candidates.
 //
 // One segment: `setup` once (the block's base feasibility, capacity and
 // static score terms; j = 0), then per round six launches of one block
@@ -16,7 +17,8 @@
 //   front    (K8's, the block): F and the six masked maxima;
 //   -- pmax #1 of the six values --
 //   table    (K8's, the block): the normalizers and the block's payload
-//            rows [table (B+1); F; min(avail, B+1)];
+//            rows [table (B+1); F; min(avail, B+1); K8's four normalizer
+//            inputs, which this path does not gather];
 //   summary  (the block): each node's usable prefix and first hidden
 //            entry; the block's first two maxima of that bound and its
 //            best head, as (value, global index), and its feasible count;
@@ -79,16 +81,16 @@ struct MergeState {
 
 template <bool EXT>
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
-wave_rounds_setup(TablesView t, int g, int cap1, int lo, int hi, int* j, float* fs, int* is,
-                  int* state) {
+wave_rounds_setup(TablesView t, int g, int cap1, int N, int lo, int hi, int* j, float* fs,
+                  int* is, int* state) {
   __shared__ PodCtx pc;
   __shared__ float s_red[8 * 32];
-  const WaveScratch w = wave_scratch(t.N, fs, is);
+  const WaveScratch w = wave_scratch(N, fs, is);
   pod_prologue(t, g, 1, &pc, s_red);
   for (int n = lo + threadIdx.x; n < hi; n += blockDim.x)
     segment_node_constants<EXT, false>(t, &pc, g, n, cap1, 1, 1, &w.feas[n], &w.cap[n], &w.ip[n],
                                        &w.simon_s[n], &w.stat[n]);
-  for (int n = threadIdx.x; n < t.N; n += blockDim.x) j[n] = 0;
+  for (int n = threadIdx.x; n < N; n += blockDim.x) j[n] = 0;
   if (threadIdx.x < 5) state[threadIdx.x] = threadIdx.x == 1 ? 1 : 0;
 }
 
@@ -98,7 +100,7 @@ wave_rounds_summary(int N, int B, int lo, int hi, float* fs, int* is, const floa
                     double* summ) {
   __shared__ float s_red[8 * 32];
   __shared__ int s_idx[32];
-  const int tid = threadIdx.x, bd = blockDim.x, B1 = B + 1, P = B + 3;
+  const int tid = threadIdx.x, bd = blockDim.x, B1 = B + 1, P = B + WAVE_PAY_EXTRA;
   const WaveScratch w = wave_scratch(N, fs, is);
   float b1 = -INFINITY, hv = -INFINITY;
   int i1 = 0x7fffffff, ih = 0x7fffffff, nF = 0;
@@ -148,7 +150,7 @@ wave_rounds_select(int N, int B, int lo, int hi, int c, int R, float* fs, int* i
   __shared__ int hist[256];
   __shared__ u64 s_prefix;
   __shared__ int s_rem;
-  const int tid = threadIdx.x, bd = blockDim.x, P = B + 3, NL = hi - lo;
+  const int tid = threadIdx.x, bd = blockDim.x, P = B + WAVE_PAY_EXTRA, NL = hi - lo;
   const WaveScratch w = wave_scratch(N, fs, is);
 
   // ---- the global pairs: the best block first, then the best of the other
@@ -213,7 +215,7 @@ wave_rounds_select(int N, int B, int lo, int hi, int c, int R, float* fs, int* i
 }
 
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
-wave_rounds_merge(TablesView t, int g, int m, int K, int B, int lo, int hi, int c, int R,
+wave_rounds_merge(TablesView t, int g, int m, int K, int B, int N, int lo, int hi, int c, int R,
                   float* fs, int* is, const float* pay, const long long* rows, const int* state,
                   MergeState* ms, float* part) {
   __shared__ float s_red[8 * 32];
@@ -222,9 +224,9 @@ wave_rounds_merge(TablesView t, int g, int m, int K, int B, int lo, int hi, int 
   __shared__ int hist[256];
   __shared__ u64 s_prefix;
   __shared__ int s_rem;
-  const int tid = threadIdx.x, bd = blockDim.x, P = B + 3;
-  const WaveScratch w = wave_scratch(t.N, fs, is);
-  const size_t gN = (size_t)g * t.N;
+  const int tid = threadIdx.x, bd = blockDim.x, P = B + WAVE_PAY_EXTRA;
+  const WaveScratch w = wave_scratch(N, fs, is);
+  const size_t gN = (size_t)g * t.N;  // the block's rows, rebased
   const int total = R * c;
 
   // ---- the global top: m_cand = min(m - placed, K, keys)
@@ -332,37 +334,38 @@ extern "C" {
 
 long long wave_rounds_merge_state_bytes() { return (long long)sizeof(MergeState); }
 
-int wave_rounds_setup_launch(const TablesView* t, int g, int cap1, int lo, int hi, int* j,
+// t: the block's view, rebased by lo (wave_sharded.cuh); N: the mesh's nodes
+int wave_rounds_setup_launch(const TablesView* t, int g, int cap1, int N, int lo, int hi, int* j,
                              float* fs, int* is, int* state, cudaStream_t stream) {
   if (t->f_gpu)
-    wave_rounds_setup<true><<<1, BLOCK_THREADS, 0, stream>>>(*t, g, cap1, lo, hi, j, fs, is,
+    wave_rounds_setup<true><<<1, BLOCK_THREADS, 0, stream>>>(*t, g, cap1, N, lo, hi, j, fs, is,
                                                              state);
   else
-    wave_rounds_setup<false><<<1, BLOCK_THREADS, 0, stream>>>(*t, g, cap1, lo, hi, j, fs, is,
+    wave_rounds_setup<false><<<1, BLOCK_THREADS, 0, stream>>>(*t, g, cap1, N, lo, hi, j, fs, is,
                                                               state);
   return (int)cudaGetLastError();
 }
 
-int wave_rounds_summary_launch(const TablesView* t, int B, int lo, int hi, float* fs, int* is,
+int wave_rounds_summary_launch(int N, int B, int lo, int hi, float* fs, int* is,
                                const float* pay, double* summ, cudaStream_t stream) {
-  wave_rounds_summary<<<1, BLOCK_THREADS, 0, stream>>>(t->N, B, lo, hi, fs, is, pay, summ);
+  wave_rounds_summary<<<1, BLOCK_THREADS, 0, stream>>>(N, B, lo, hi, fs, is, pay, summ);
   return (int)cudaGetLastError();
 }
 
-int wave_rounds_select_launch(const TablesView* t, int B, int lo, int hi, int c, int R,
-                              float* fs, int* is, const float* pay, const double* summ_all,
-                              long long* cand, cudaStream_t stream) {
-  wave_rounds_select<<<1, BLOCK_THREADS, 0, stream>>>(t->N, B, lo, hi, c, R, fs, is, pay,
+int wave_rounds_select_launch(int N, int B, int lo, int hi, int c, int R, float* fs, int* is,
+                              const float* pay, const double* summ_all, long long* cand,
+                              cudaStream_t stream) {
+  wave_rounds_select<<<1, BLOCK_THREADS, 0, stream>>>(N, B, lo, hi, c, R, fs, is, pay,
                                                       summ_all, cand);
   return (int)cudaGetLastError();
 }
 
-int wave_rounds_merge_launch(const TablesView* t, int g, int m, int K, int B, int lo, int hi,
-                             int c, int R, float* fs, int* is, const float* pay,
+int wave_rounds_merge_launch(const TablesView* t, int g, int m, int K, int B, int N, int lo,
+                             int hi, int c, int R, float* fs, int* is, const float* pay,
                              const long long* rows, const int* state, void* ms, float* part,
                              cudaStream_t stream) {
-  wave_rounds_merge<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, m, K, B, lo, hi, c, R, fs, is, pay,
-                                                     rows, state, (MergeState*)ms, part);
+  wave_rounds_merge<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, m, K, B, N, lo, hi, c, R, fs, is,
+                                                     pay, rows, state, (MergeState*)ms, part);
   return (int)cudaGetLastError();
 }
 

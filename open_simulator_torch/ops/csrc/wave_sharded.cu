@@ -2,29 +2,33 @@
 //
 // K8 replaces the `shard_map` epoch loop of open_simulator_tpu/ops/kernels.py
 //    `schedule_wave` (:1204-1282, `loop_sharded` :1215-1260, the selection
-//    `body_tail` :1162-1198): every rank of a node mesh holds the whole
-//    tables; rank r builds the epoch front on its node block [lo, hi), the
-//    host makes the epoch's two collectives (parallel/collectives.py), and
-//    the selection runs on every rank on the gathered full-width arrays, so
-//    the counts, `placed` and the statistics are equal on every rank and
-//    equal to K3's.
+//    `body_tail` :1162-1198) on the partitioned layout (`table_shardings`,
+//    `carry_shardings`): every rank of a node mesh holds only its node block
+//    [lo, hi) of the tables and the carry; it builds the segment constants
+//    and the epoch front on it, the host makes the epoch's two collectives
+//    (parallel/collectives.py), and the selection runs on every rank on the
+//    gathered full-width rows, so the counts, `placed` and the statistics
+//    are equal on every rank and equal to K3's.
 //
 // Four kernels, one block each, launched by ops/kernels.py
 // `schedule_wave_sharded_kernel`:
-//   setup  (once per segment, full width): base feasibility, capacity and
-//          the static score terms of every node (K3's segment constants;
-//          EXT: the gpu_live branch), j = 0;
+//   setup  (once per segment, the block): base feasibility, capacity and
+//          the static score terms of the block's nodes (K3's segment
+//          constants; EXT: the gpu_live branch), j = 0 on every node;
 //   front  (per epoch, the block): F = feas & (cap - j > 0) and the masked
 //          max of [simon, nodeaff, taint, ip] and of [-simon, -ip] (:1224);
 //   -- pmax of those six values over the ranks --
 //   table  (per epoch, the block): the normalizers from the reduced vector
 //          (:1233), the block's [B+1] score rows (_wave_score_table_rows
-//          :904) and the payload row [table; F; min(avail, B+1)] (:1240);
+//          :904) and the payload row [table; F; min(avail, B+1)] (:1240)
+//          with the four normalizer inputs the tail's end normalizers read
+//          (simon_s, nodeaff, taint, ip: constant in the segment, carried
+//          every epoch so that the epoch keeps its two collectives);
 //   -- all_gather of the payload rows, in rank order --
 //   tail   (per epoch, full width): body_tail on the gathered rows, read
 //          in place (K3's selection, `wave_take` of wave.cuh: the guard,
 //          the radix select, the end normalizers, the head fallback, then
-//          j += counts), and the loop state.
+//          j += counts), and the loop state. It reads no table.
 // The host reads (placed, last) once per epoch to decide on the next.
 //
 // Exactness across the cut: the payload is f32 (avail clamped to B+1 packs
@@ -48,24 +52,24 @@
 
 template <bool EXT>
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
-wave_sharded_setup(TablesView t, int g, int cap1, int* j, float* fs, int* is, int* state) {
+wave_sharded_setup(TablesView t, int g, int cap1, int N, int lo, int hi, int* j, float* fs,
+                   int* is, int* state) {
   __shared__ PodCtx pc;
   __shared__ float s_red[8 * 32];
-  const WaveScratch w = wave_scratch(t.N, fs, is);
+  const WaveScratch w = wave_scratch(N, fs, is);
   pod_prologue(t, g, 1, &pc, s_red);
-  for (int n = threadIdx.x; n < t.N; n += blockDim.x) {
+  for (int n = lo + threadIdx.x; n < hi; n += blockDim.x)
     segment_node_constants<EXT, false>(t, &pc, g, n, cap1, 1, 1, &w.feas[n], &w.cap[n], &w.ip[n],
                                        &w.simon_s[n], &w.stat[n]);
-    j[n] = 0;
-  }
+  for (int n = threadIdx.x; n < N; n += blockDim.x) j[n] = 0;
   if (threadIdx.x < 5) state[threadIdx.x] = threadIdx.x == 1 ? 1 : 0;
 }
 
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
-wave_sharded_front(TablesView t, int g, int B, int lo, int hi, const int* j, float* fs, int* is,
-                   float* part) {
+wave_sharded_front(TablesView t, int g, int B, int N, int lo, int hi, const int* j, float* fs,
+                   int* is, float* part) {
   __shared__ float s_red[8 * 32];
-  const WaveScratch w = wave_scratch(t.N, fs, is);
+  const WaveScratch w = wave_scratch(N, fs, is);
   const size_t gN = (size_t)g * t.N;
   float v6[6] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY, -INFINITY, -INFINITY};
   for (int n = lo + threadIdx.x; n < hi; n += blockDim.x) {
@@ -82,12 +86,13 @@ wave_sharded_front(TablesView t, int g, int B, int lo, int hi, const int* j, flo
   if (threadIdx.x < 6) part[threadIdx.x] = v6[threadIdx.x];
 }
 
-// payload row of node n: [table (B+1); F; min(avail, B+1)], P = B+3 floats
+// payload row of node n: [table (B+1); F; min(avail, B+1); simon_s;
+// nodeaff; taint; ip], P = B + WAVE_PAY_EXTRA floats
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
-wave_sharded_table(TablesView t, int g, int B, int lo, int hi, const int* j, float* fs, int* is,
-                   const float* red, float* pay) {
-  const WaveScratch w = wave_scratch(t.N, fs, is);
-  const int R = t.R, B1 = B + 1, P = B + 3;
+wave_sharded_table(TablesView t, int g, int B, int N, int lo, int hi, const int* j, float* fs,
+                   int* is, const float* red, float* pay) {
+  const WaveScratch w = wave_scratch(N, fs, is);
+  const int R = t.R, B1 = B + 1, P = B + WAVE_PAY_EXTRA;
   const size_t gN = (size_t)g * t.N;
   const float gz_c = t.grp_nonzero[g * 2 + 0], gz_m = t.grp_nonzero[g * 2 + 1];
   const Norms nm = reduced_norms(red);
@@ -110,11 +115,15 @@ wave_sharded_table(TablesView t, int g, int B, int lo, int hi, const int* j, flo
     }
     row[B1] = (w.feas[n] && avail > 0) ? 1.0f : 0.0f;
     row[B1 + 1] = (float)min(avail, B1);
+    row[B1 + 2] = w.simon_s[n];
+    row[B1 + 3] = t.nodeaff_raw[gN + n];
+    row[B1 + 4] = t.taint_raw[gN + n];
+    row[B1 + 5] = w.ip[n];
   }
 }
 
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
-wave_sharded_tail(TablesView t, int g, int m, int B, int K, int* j, float* fs, int* is,
+wave_sharded_tail(TablesView t, int g, int m, int B, int K, int N, int* j, float* fs, int* is,
                   const float* red, const float* full, int* state) {
   __shared__ float s_red[8 * 32];
   __shared__ int s_idx[32];
@@ -122,10 +131,14 @@ wave_sharded_tail(TablesView t, int g, int m, int B, int K, int* j, float* fs, i
   __shared__ int hist[256];
   __shared__ u64 s_prefix;
   __shared__ int s_rem;
-  const int N = t.N, tid = threadIdx.x, bd = blockDim.x, B1 = B + 1, P = B + 3;
+  const int tid = threadIdx.x, bd = blockDim.x, B1 = B + 1, P = B + WAVE_PAY_EXTRA;
   const WaveScratch w = wave_scratch(N, fs, is);
-  const size_t gN = (size_t)g * N;
   const Norms nm = reduced_norms(red);
+  // the selection's end normalizers read nodeaff and taint of every node:
+  // a view whose rows are the gathered ones (group offset 0)
+  TablesView tg = t;
+  tg.nodeaff_raw = w.nodeaff;
+  tg.taint_raw = w.taint;
   const int placed = state[0];
 
   // ---- the gathered rows: each node's table row, its monotone usable
@@ -147,6 +160,10 @@ wave_sharded_tail(TablesView t, int g, int m, int B, int K, int* j, float* fs, i
     anyF |= F;
     w.F[n] = F;
     w.avail[n] = avail;
+    w.simon_s[n] = row[B1 + 2];
+    w.nodeaff[n] = row[B1 + 3];
+    w.taint[n] = row[B1 + 4];
+    w.ip[n] = row[B1 + 5];
     w.u[n] = F ? min(avail, first_bad) : 0;
     const float bound = (F && first_bad < avail) ? row[first_bad] : -INFINITY;
     w.bound[n] = bound;
@@ -155,7 +172,7 @@ wave_sharded_tail(TablesView t, int g, int m, int B, int K, int* j, float* fs, i
   const bool anyF_b = __syncthreads_or(anyF);
   int heads = 0, guarded = 0;
   const WaveNodesGathered nd = {w.F, w.avail};
-  const int m_take = wave_take(t, nd, N, gN, m, placed, K, B, anyF_b, nm, full, P, w.bound,
+  const int m_take = wave_take(tg, nd, N, 0, m, placed, K, B, anyF_b, nm, full, P, w.bound,
                                w.simon_s, w.ip, w.u, w.c0, j, b1, i1, s_red, s_idx, s_u64, hist,
                                &s_prefix, &s_rem, heads, guarded);
   if (tid == 0) {
@@ -171,36 +188,42 @@ wave_sharded_tail(TablesView t, int g, int m, int B, int K, int* j, float* fs, i
 
 extern "C" {
 
-// (float scratch, int scratch) sizes of K8 for N nodes
-long long wave_sharded_scratch_floats(int N) { return 4LL * N; }
+// (float scratch, int scratch) sizes of K8 for N nodes (the mesh's), and
+// the floats of a node's payload row at depth B
+long long wave_sharded_scratch_floats(int N) { return 6LL * N; }
 long long wave_sharded_scratch_ints(int N) { return 6LL * N; }
+int wave_sharded_pay_floats(int B) { return B + WAVE_PAY_EXTRA; }
 
-int wave_sharded_setup_launch(const TablesView* t, int g, int cap1, int* j, float* fs, int* is,
-                              int* state, cudaStream_t stream) {
+// t: the block's view, rebased by lo (wave_sharded.cuh); N: the mesh's nodes
+int wave_sharded_setup_launch(const TablesView* t, int g, int cap1, int N, int lo, int hi, int* j,
+                              float* fs, int* is, int* state, cudaStream_t stream) {
   if (t->f_gpu)
-    wave_sharded_setup<true><<<1, BLOCK_THREADS, 0, stream>>>(*t, g, cap1, j, fs, is, state);
+    wave_sharded_setup<true><<<1, BLOCK_THREADS, 0, stream>>>(*t, g, cap1, N, lo, hi, j, fs, is,
+                                                              state);
   else
-    wave_sharded_setup<false><<<1, BLOCK_THREADS, 0, stream>>>(*t, g, cap1, j, fs, is, state);
+    wave_sharded_setup<false><<<1, BLOCK_THREADS, 0, stream>>>(*t, g, cap1, N, lo, hi, j, fs, is,
+                                                               state);
   return (int)cudaGetLastError();
 }
 
-int wave_sharded_front_launch(const TablesView* t, int g, int B, int lo, int hi, const int* j,
-                              float* fs, int* is, float* part, cudaStream_t stream) {
-  wave_sharded_front<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, B, lo, hi, j, fs, is, part);
-  return (int)cudaGetLastError();
-}
-
-int wave_sharded_table_launch(const TablesView* t, int g, int B, int lo, int hi, const int* j,
-                              float* fs, int* is, const float* red, float* pay,
+int wave_sharded_front_launch(const TablesView* t, int g, int B, int N, int lo, int hi,
+                              const int* j, float* fs, int* is, float* part,
                               cudaStream_t stream) {
-  wave_sharded_table<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, B, lo, hi, j, fs, is, red, pay);
+  wave_sharded_front<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, B, N, lo, hi, j, fs, is, part);
   return (int)cudaGetLastError();
 }
 
-int wave_sharded_tail_launch(const TablesView* t, int g, int m, int B, int K, int* j, float* fs,
-                             int* is, const float* red, const float* full, int* state,
+int wave_sharded_table_launch(const TablesView* t, int g, int B, int N, int lo, int hi,
+                              const int* j, float* fs, int* is, const float* red, float* pay,
+                              cudaStream_t stream) {
+  wave_sharded_table<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, B, N, lo, hi, j, fs, is, red, pay);
+  return (int)cudaGetLastError();
+}
+
+int wave_sharded_tail_launch(const TablesView* t, int g, int m, int B, int K, int N, int* j,
+                             float* fs, int* is, const float* red, const float* full, int* state,
                              cudaStream_t stream) {
-  wave_sharded_tail<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, m, B, K, j, fs, is, red, full,
+  wave_sharded_tail<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, m, B, K, N, j, fs, is, red, full,
                                                      state);
   return (int)cudaGetLastError();
 }

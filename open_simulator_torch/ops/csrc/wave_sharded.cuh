@@ -7,14 +7,26 @@
 
 #include "common.cuh"
 
-// Float scratch: ip, simon_s, static, bound [N] each. Int scratch: feas,
-// cap (the segment's), F, avail (the epoch's gathered rows), u, c0 [N] each.
-// State: placed, last, iterations, head fallbacks, guarded. The tail reads
-// the table rows where the all-gather put them.
+// The kernels read the tables through a view of the rank's block (parallel/
+// mesh.py `to_device_sharded`: its N is the block's NL) whose node-axis
+// pointers ops/kernels.py rebases by the block's first node `lo`, so that
+// global node n of [lo, hi) addresses the block's row n - lo. The scratch
+// is indexed by global node over all N of the mesh (the argument N, not the
+// view's): the setup fills the block's part, the tail the rest from the
+// gathered rows.
+//
+// Float scratch: ip, simon_s, static, bound, nodeaff, taint [N] each. Int
+// scratch: feas, cap (the segment's), F, avail (the epoch's gathered rows),
+// u, c0 [N] each. State: placed, last, iterations, head fallbacks,
+// guarded. The tail reads the table rows where the all-gather put them.
 struct WaveScratch {
-  float *ip, *simon_s, *stat, *bound;
+  float *ip, *simon_s, *stat, *bound, *nodeaff, *taint;
   int *feas, *cap, *F, *avail, *u, *c0;
 };
+
+// the payload row of a node: [table (B+1); F; min(avail, B+1); simon_s;
+// nodeaff; taint; ip]: B + WAVE_PAY_EXTRA floats
+#define WAVE_PAY_EXTRA 7
 
 static __device__ __forceinline__ WaveScratch wave_scratch(int N, float* fs, int* is) {
   WaveScratch w;
@@ -22,6 +34,8 @@ static __device__ __forceinline__ WaveScratch wave_scratch(int N, float* fs, int
   w.simon_s = w.ip + N;
   w.stat = w.simon_s + N;
   w.bound = w.stat + N;
+  w.nodeaff = w.bound + N;
+  w.taint = w.nodeaff + N;
   w.feas = is;
   w.cap = w.feas + N;
   w.F = w.cap + N;

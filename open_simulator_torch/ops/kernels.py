@@ -748,7 +748,14 @@ def score_components(tb: Tables, cry: Carry, g: int, feasible, n_zones: int,
 def _partitioned(mesh) -> bool:
     """Whether `mesh` partitions the node axis over more than one rank (the
     tables and carry handed over with it are then this rank's block)."""
-    return mesh is not None and mesh.shards > 1
+    return mesh is not None and mesh.shards > 1 and len(mesh.axis_names) == 1
+
+
+def global_nodes(tb: Tables, mesh) -> int:
+    """The node count of the whole table: the block's NL times the shard
+    count on a partitioned `mesh`, else the table's own N."""
+    NL = tb.alloc.shape[0]
+    return NL * mesh.shards if _partitioned(mesh) else NL
 
 
 def block_forced(forced: int, lo: int, NL: int) -> int:
@@ -1276,30 +1283,30 @@ def _reduced_norms(red: torch.Tensor) -> tuple:
             torch.clamp(red[3], min=0.0), torch.clamp(-red[5], max=0.0))
 
 
-def _block_norm_partials(st: dict, F_l: torch.Tensor, sl: slice) -> torch.Tensor:
-    """This rank's six maxima over its feasible block F_l: [simon, nodeaff,
-    taint, ip] and, negated, [simon, ip] (mins ride negated)."""
+def _block_norm_partials(st: dict, F_l: torch.Tensor) -> torch.Tensor:
+    """This rank's six maxima over its feasible block F_l (`st` the block's
+    statics): [simon, nodeaff, taint, ip] and, negated, [simon, ip] (mins
+    ride negated)."""
     ninf = float("-inf")
-    mx = torch.amax(torch.where(F_l[None, :], st["max_stack"][:, sl], ninf), dim=1)
-    mn = torch.amax(torch.where(F_l[None, :], -st["min_stack"][:, sl], ninf), dim=1)
+    mx = torch.amax(torch.where(F_l[None, :], st["max_stack"], ninf), dim=1)
+    mn = torch.amax(torch.where(F_l[None, :], -st["min_stack"], ninf), dim=1)
     return torch.cat([mx, mn])
 
 
 def _wave_block_front(tb: Tables, cry: Carry, g: int, st: dict, capacity, base_feas, j,
                       w: ScoreWeights, B: int, mesh):
-    """The front of one sharded iteration on this rank's node block: the
+    """The front of one sharded iteration on this rank's node block (`tb`,
+    `cry`, `st`, `capacity` and `base_feas` the block's; `j` global): the
     block's feasible set, ONE pmax of the stacked normalizers and the
     block's [NL, B+1] score rows. Returns (norms, table_l, F_l, avail_l)."""
     from ..parallel.collectives import pmax
 
-    sl = _block_of(mesh, j.shape[0])
-    j_l = j[sl]
-    avail_l = capacity[sl] - j_l
-    F_l = base_feas[sl] & (avail_l > 0)
-    norms = _reduced_norms(pmax(_block_norm_partials(st, F_l, sl), mesh))
-    st_l = {k: st[k][sl] for k in ("simon_s", "na_raw", "t_raw", "ip_raw", "static")}
-    table_l = _wave_score_table_rows(tb.alloc[sl, CPU_I], tb.alloc[sl, MEM_I], cry.nonzero[sl],
-                                     tb.grp_nonzero[g], st_l, norms, j_l, w, B)
+    j_l = j[_block_of(mesh, j.shape[0])]
+    avail_l = capacity - j_l
+    F_l = base_feas & (avail_l > 0)
+    norms = _reduced_norms(pmax(_block_norm_partials(st, F_l), mesh))
+    table_l = _wave_score_table_rows(tb.alloc[:, CPU_I], tb.alloc[:, MEM_I], cry.nonzero,
+                                     tb.grp_nonzero[g], st, norms, j_l, w, B)
     return norms, table_l, F_l, avail_l
 
 
@@ -1307,18 +1314,21 @@ def _wave_front_sharded(tb: Tables, cry: Carry, g: int, st: dict, capacity, base
                         w: ScoreWeights, B: int, mesh):
     """The sharded epoch front of the wave (JAX :1220-1246): the block's
     front (`_wave_block_front`, one pmax) and ONE tiled all-gather of
-    [table.T; F; min(avail, B+1)]. Returns (norms, table_ext [N, B+1], F,
-    avail) at full width: the same floats as the unsharded front, avail
-    clamped to B+1 (every comparison the selection makes against it has a
-    left side <= B)."""
+    [table.T; F; min(avail, B+1); simon_s; nodeaff; taint; ip]. Returns
+    (norms, table_ext [N, B+1], F, avail, statics) at full width: the same
+    floats as the unsharded front, avail clamped to B+1 (every comparison
+    the selection makes against it has a left side <= B), and the
+    normalizer inputs the selection's end normalizers read."""
     from ..parallel.collectives import all_gather_tiled
 
     norms, table_l, F_l, avail_l = _wave_block_front(tb, cry, g, st, capacity, base_feas, j,
                                                      w, B, mesh)
     pay = torch.cat([table_l.T, F_l[None].to(_F32),
-                     torch.clamp(avail_l, max=B + 1)[None].to(_F32)], dim=0)
+                     torch.clamp(avail_l, max=B + 1)[None].to(_F32), st["max_stack"]], dim=0)
     full = all_gather_tiled(pay, mesh, axis=1)
-    return norms, full[:B + 1].T, full[B + 1] > 0, full[B + 2].to(torch.int32)
+    ins = full[B + 3:B + 7]  # simon_s, nodeaff, taint, ip
+    st_full = {"max_stack": ins, "min_stack": torch.stack([ins[0], ins[3]])}
+    return norms, full[:B + 1].T, full[B + 1] > 0, full[B + 2].to(torch.int32), st_full
 
 
 def _first_max(pairs) -> tuple:
@@ -1405,7 +1415,7 @@ def _wave_round_sharded(tb: Tables, cry: Carry, g: int, st: dict, capacity, base
             0, idx_srt, (pos < take).to(torch.int32))
 
     leaves_l = counts_of(m_cand)[sl] >= torch.clamp(avail_l, min=1)
-    norms_end = _reduced_norms(pmax(_block_norm_partials(st, F_l & ~leaves_l, sl), mesh))
+    norms_end = _reduced_norms(pmax(_block_norm_partials(st, F_l & ~leaves_l), mesh))
     # ---- finish: the same on every rank
     same = all(bool(a == b) for a, b in zip(norms, norms_end))  # ±inf equal themselves
     p_ex = int(torch.amin(torch.where(ex_srt & (pos < m_cand), pos, N * B)))
@@ -1433,14 +1443,15 @@ def schedule_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
     deferred, summed over iterations. `gpu_live`: the group asks for shared
     GPU memory (no pre-assigned gpu-index): the GPU filter joins the base
     feasibility and GPU units clamp the capacity; the scores do not move.
-    `mesh`: a node mesh (parallel/mesh.py) whose epoch path applies runs
-    each iteration's front on this rank's node block, with one `pmax` and
-    one `all_gather_tiled` per iteration (JAX `loop_sharded` :1215-1260),
-    and the selection on the full-width arrays; above the epoch limit its
+    `mesh`: a partitioned node mesh (parallel/mesh.py): `tb` and `cry` are
+    this rank's node block, the counts global. Where its epoch path applies,
+    each iteration's front runs on the block with one `pmax` and one
+    `all_gather_tiled` per iteration (JAX `loop_sharded` :1215-1260), and
+    the selection on the gathered full-width rows; above the epoch limit its
     per-round path runs every stage on the block but the merge, with two
     `pmax` and two `all_gather_rows` per iteration (`_wave_round_sharded`).
     The result is the same."""
-    N = tb.alloc.shape[0]
+    N = global_nodes(tb, mesh)
     shards = _epoch_shards(mesh, N)
     rounds = _round_shards(mesh, N) > 1
     K = kmax if kmax else N * block
@@ -1457,15 +1468,16 @@ def schedule_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
             j, placed, last_w, it = _wave_round_sharded(tb, cry, g, st, capacity, base_feas, j,
                                                         placed, m, w, block, K, mesh)
         else:
+            st_sel = st
             if shards > 1:
-                norms, table_ext, F, avail = _wave_front_sharded(tb, cry, g, st, capacity,
-                                                                 base_feas, j, w, block, mesh)
+                norms, table_ext, F, avail, st_sel = _wave_front_sharded(
+                    tb, cry, g, st, capacity, base_feas, j, w, block, mesh)
             else:
                 avail = capacity - j  # copies left per node
                 F = base_feas & (avail > 0)
                 norms = _wave_norms(st, F)
                 table_ext = _wave_score_table(tb, cry, st, norms, g, j, w, block)
-            j, placed, last_w, it = _wave_iteration(st, norms, table_ext, F, avail, j, placed,
+            j, placed, last_w, it = _wave_iteration(st_sel, norms, table_ext, F, avail, j, placed,
                                                     m, block, K)
         stats["iterations"] += 1
         for k, v in it.items():
@@ -1473,31 +1485,19 @@ def schedule_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
     return j, placed, stats
 
 
-@torch.inference_mode()
-def aggregate_commit_plain(tb: Tables, cry: Carry, g: int, j: torch.Tensor,
-                           gpu_live: bool = False) -> Carry:
-    """The sum of sum(j) serial commit() calls for group g (j = per-node
-    counts), as one update of the carry; returns a new Carry. Plain version
-    of `aggregate_commit_kernel`. With `gpu_live`, the device ledger replays
-    the allocator one copy at a time on every node (JAX :1007-1031), so it
-    equals the serial commits' ledger bit for bit."""
+def _commit_rows(tb: Tables, cry: Carry, g: int, j: torch.Tensor, gpu_live: bool) -> Carry:
+    """The [N, *] carry rows after j[n] commits of group g on every node n
+    (requested, nonzero, ports and, with `gpu_live`, the device ledger
+    replayed one copy at a time on every node, JAX :1007-1031); the domain
+    counters are `cry`'s. Node-local: the rows of a block need only the
+    block's j."""
     jf = j.to(_F32)
-    D = cry.counter.shape[1] - 1
     requested = cry.requested + tb.grp_requests[g][None, :] * jf[:, None]
     nonzero = cry.nonzero + tb.grp_nonzero[g][None, :] * jf[:, None]
     # a placed copy claims the group's host ports on its node (idempotent bits)
     pids = tb.grp_ports[g].long()
     port_used = cry.port_used.clone()
     port_used[:, pids] = port_used[:, pids] | ((pids > 0)[None, :] & (j > 0)[:, None])
-    # counter/carrier rows of one topology key share their domain row: reduce
-    # the counts once per unique topology, then broadcast to the rows
-    U = tb.topo_dom.shape[0]
-    dom = tb.topo_dom.long()
-    seg = torch.zeros((U, D + 1), dtype=_F32, device=jf.device).scatter_add_(
-        1, dom, jf[None, :] * (dom < D))
-    counter = (cry.counter + tb.counter_sel_match_g[:, g, None].to(_F32)
-               * seg[tb.counter_topo.long()])
-    carrier = cry.carrier + tb.grp_carries[g][:, None] * seg[tb.carr_topo.long()]
     dev_used = cry.dev_used
     if gpu_live:
         gmem, gnum, safe_mem = _wave_gpu_params(tb, g)
@@ -1508,7 +1508,58 @@ def aggregate_commit_plain(tb: Tables, cry: Carry, g: int, j: torch.Tensor,
             dev_used = dev_used + take * gmem * (rem > 0).to(_F32)[:, None]
             rem = rem - (rem > 0).to(rem.dtype)
     return cry._replace(requested=requested, nonzero=nonzero, port_used=port_used,
-                        counter=counter, carrier=carrier, dev_used=dev_used)
+                        dev_used=dev_used)
+
+
+def _topo_seg(tb: Tables, cry: Carry, j: torch.Tensor) -> torch.Tensor:
+    """[U, D+1]: per unique topology key, the copies j puts in each domain
+    (the sentinel column never counts). Integer-valued, exact in any order."""
+    D = cry.counter.shape[1] - 1
+    dom = tb.topo_dom.long()
+    return torch.zeros((tb.topo_dom.shape[0], D + 1), dtype=_F32, device=j.device).scatter_add_(
+        1, dom, j.to(_F32)[None, :] * (dom < D))
+
+
+def _commit_counters(tb: Tables, cry: Carry, g: int, seg: torch.Tensor) -> tuple:
+    """(counter, carrier) after the per-topology domain counts `seg`:
+    counter/carrier rows of one topology key share their domain row."""
+    counter = (cry.counter + tb.counter_sel_match_g[:, g, None].to(_F32)
+               * seg[tb.counter_topo.long()])
+    carrier = cry.carrier + tb.grp_carries[g][:, None] * seg[tb.carr_topo.long()]
+    return counter, carrier
+
+
+@torch.inference_mode()
+def aggregate_commit_plain(tb: Tables, cry: Carry, g: int, j: torch.Tensor,
+                           gpu_live: bool = False) -> Carry:
+    """The sum of sum(j) serial commit() calls for group g (j = per-node
+    counts), as one update of the carry; returns a new Carry. Plain version
+    of `aggregate_commit_kernel`. With `gpu_live`, the device ledger replays
+    the allocator one copy at a time on every node (JAX :1007-1031), so it
+    equals the serial commits' ledger bit for bit."""
+    counter, carrier = _commit_counters(tb, cry, g, _topo_seg(tb, cry, j))
+    return _commit_rows(tb, cry, g, j, gpu_live)._replace(counter=counter, carrier=carrier)
+
+
+@torch.inference_mode()
+def aggregate_commit_sharded_plain(tb: Tables, cry: Carry, g: int, j: torch.Tensor,
+                                   gpu_live: bool = False, mesh=None) -> Carry:
+    """Plain version of `aggregate_commit_sharded_kernel` (K14): the commit
+    on a partitioned node `mesh`, `tb`, `cry` and the counts `j` [NL] this
+    rank's block. The block's [NL, *] rows take their copies as
+    `aggregate_commit_plain` does (node-local, the device ledger included);
+    the replicated `counter` / `carrier` take the per-domain counts of every
+    block: each block's [U, D+1] partial rides ONE all_gather_rows and the
+    partials add in rank order (integer-valued: exact). Returns the block's
+    new carry."""
+    from ..parallel.collectives import all_gather_rows
+
+    rows = all_gather_rows(_topo_seg(tb, cry, j)[None], mesh)
+    seg = rows[0]
+    for r in range(1, rows.shape[0]):
+        seg = seg + rows[r]
+    counter, carrier = _commit_counters(tb, cry, g, seg)
+    return _commit_rows(tb, cry, g, j, gpu_live)._replace(counter=counter, carrier=carrier)
 
 
 @torch.inference_mode()
@@ -1597,6 +1648,152 @@ def schedule_group_serial_plain(tb: Tables, cry: Carry, g: int, valid, cap1: boo
             # the ScheduleAnyway topology key (a score-only plugin)
             sa_dom_c = sa_dom_rows[:, choice]
             cnt_sa[torch.arange(Ss, device=dev), sa_dom_c] += sa_match * (sa_dom_c < D)
+    return j, placed
+
+
+# The partial vector of one group-serial pod on a block (K13's stage A):
+# GS_HEAD maxima in max space, [simon, nodeaff, taint, ip, pernode, -simon,
+# -ip, any feasible, any zoned feasible], then with ss_live the [Z] zone
+# sums of the per-node counts and with sa_live the [Ss, D+1] domain marks.
+GS_HEAD = 9
+
+
+def _gs_reduce(rows: torch.Tensor, Z: int, ss_live: bool) -> torch.Tensor:
+    """Every rank's group-serial partials ([ranks, K], rank order) reduced:
+    max, but the zone sums, which add in rank order (integer-valued: exact)."""
+    red = torch.amax(rows, dim=0)
+    if ss_live:
+        zs = rows[0, GS_HEAD:GS_HEAD + Z]
+        for r in range(1, rows.shape[0]):
+            zs = zs + rows[r, GS_HEAD:GS_HEAD + Z]
+        red[GS_HEAD:GS_HEAD + Z] = zs
+    return red
+
+
+@torch.inference_mode()
+def schedule_group_serial_sharded_plain(tb: Tables, cry: Carry, g: int, valid, cap1: bool,
+                                        mesh, w: ScoreWeights = DEFAULT_WEIGHTS,
+                                        filters: FilterFlags = DEFAULT_FILTERS,
+                                        ss_live: bool = False, sa_live: bool = False,
+                                        n_zones: int = 2):
+    """Plain version of `schedule_group_serial_sharded_kernel` (K13): the
+    group-serial scan on a partitioned node `mesh`, `tb` and `cry` this
+    rank's block of NL nodes. K4's hoisted per-run state (the base
+    feasibility without DoNotSchedule, the capacity, the constant score
+    terms, the SelectorSpread base counts) is the block's; the live
+    DoNotSchedule and ScheduleAnyway rows are replicated. Per valid pod, as
+    K13's stages:
+
+    A. the live DoNotSchedule filter on the block and the block's partials
+       (GS_HEAD maxima, the zone sums, the ScheduleAnyway domain marks):
+       all_gather_rows #1, reduced in rank order;
+    A2. with sa_live, the raw ScheduleAnyway scores with the global
+       topology sizes and their block extrema: pmax #1b;
+    B. the score and the block's first max as (score, global node, -inf
+       without a feasible node) with the node's DoNotSchedule and
+       ScheduleAnyway domain columns: all_gather_rows #2;
+    C. on every rank the global first max and the live rows' update; on the
+       owning rank j += 1 at the node.
+
+    A pod with no feasible node anywhere places nothing and changes nothing
+    (every later pod finds none either), so every valid pod makes the same
+    collectives. Returns (the block's per-node counts [NL] i32, placed,
+    equal on every rank)."""
+    from ..parallel.collectives import all_gather_rows, pmax
+
+    NL = tb.alloc.shape[0]
+    D = cry.counter.shape[1] - 1
+    dev = tb.alloc.device
+    lo = mesh.rank * NL
+    ninf = torch.tensor(float("-inf"), device=dev)
+    base_feas, _ = feasibility(tb, cry, g, -1, True, filters, include_dns=False)
+    st = _wave_statics(tb, cry, g, w)
+    capacity = _base_capacity(tb, cry, g, cap1, base_feas, filters)
+    Z = max(2, n_zones)
+
+    dvalid, dids = _slot_ids(tb.dns_t[g])
+    dom_rows = tb.counter_dom[dids].long()  # [Sd, NL]
+    key_present = dom_rows < D
+    edom = tb.dns_edom[g]
+    dself = tb.dns_self[g][:, None]
+    dskew = tb.dns_maxskew[g][:, None]
+    dmatch = (tb.counter_sel_match_g[dids, g] & dvalid).to(_F32)
+    Sd = dids.shape[0]
+    a_c, a_m = tb.alloc[:, CPU_I], tb.alloc[:, MEM_I]
+    gnz = tb.grp_nonzero[g]
+    ss_id = torch.clamp(tb.ss_t[g], min=0).reshape(1).long()
+    base_pernode = counter_rows_at(tb, cry, ss_id)[1][0]
+    svalid, sidx = _slot_ids(tb.sa_t[g])
+    sa_dom_rows = tb.counter_dom[sidx].long()  # [Ss, NL]
+    sa_ignored = torch.any(svalid[:, None] & (sa_dom_rows >= D), dim=0)
+    sa_match = (tb.counter_sel_match_g[sidx, g] & svalid).to(_F32)
+    Ss = sidx.shape[0]
+
+    j = torch.zeros(NL, dtype=torch.int32, device=dev)
+    cnt = cry.counter[dids].clone()
+    cnt_sa = cry.counter[sidx].clone()
+    placed = 0
+    for ok in torch.as_tensor(valid).tolist():
+        if not ok:  # padded pod: commits nothing
+            continue
+        # ---- A: the live DoNotSchedule filter, the block's partials
+        cnt_at = torch.gather(cnt, 1, dom_rows)
+        min_c = torch.amin(torch.where(edom, cnt, float("inf")), dim=1)
+        min_c = torch.where(torch.isfinite(min_c), min_c, 0.0)
+        dns_ok_each = key_present & (cnt_at + dself - min_c[:, None] <= dskew)
+        dns_ok = torch.all(dns_ok_each | ~dvalid[:, None], dim=0)
+        F = base_feas & (capacity - j > 0) & dns_ok
+        pernode = base_pernode + j.to(_F32)
+        relF = F & ~sa_ignored
+        heads = torch.stack([st["simon_s"], st["na_raw"], st["t_raw"], st["ip_raw"], pernode,
+                             -st["simon_s"], -st["ip_raw"]])
+        part = [torch.amax(torch.where(F[None, :], heads, ninf), dim=1),
+                torch.stack([torch.any(F), torch.any(F & (tb.node_zone > 0))]).to(_F32)]
+        if ss_live:
+            part.append(_zone_sums(pernode, F, tb.node_zone, Z))
+        if sa_live:
+            part.append(_sa_marks(relF, sa_dom_rows, D).reshape(-1))
+        red = _gs_reduce(all_gather_rows(torch.cat(part)[None], mesh), Z, ss_live)
+        # ---- A2, B: the score on the block, its first max
+        norms = _reduced_norms(torch.cat([red[:4], red[5:7]]))
+        used = cry.nonzero + gnz[None, :] * (j + 1).to(_F32)[:, None]
+        least, balanced = least_balanced(used[:, 0], used[:, 1], a_c, a_m)
+        lb = w.least * least + w.balanced * balanced
+        simon, nodeaff, taint, interpod = _normalized_terms(st, norms)
+        score = (lb + (w.simon + w.gpushare) * simon + w.nodeaff * nodeaff + w.taint * taint
+                 + w.interpod * interpod + st["static"])
+        if ss_live:
+            maxN = torch.clamp(red[4], min=0.0)
+            zs = red[GS_HEAD:GS_HEAD + Z]
+            score = score + w.ss * _flr(_selector_spread_blend(pernode, tb.node_zone, zs,
+                                                               red[8] > 0, maxN))
+        if sa_live:
+            o = GS_HEAD + (Z if ss_live else 0)
+            marks = red[o:].view(Ss, D + 1)
+            sa_raw = _sa_raw(torch.gather(cnt_sa, 1, sa_dom_rows), marks, svalid,
+                             tb.sa_maxskew[g])
+            sa_red = pmax(_sa_partials(sa_raw, relF), mesh)
+            score = score + w.pts * _sa_normalized(sa_raw, relF, sa_red)
+        masked = torch.where(F, score, ninf)
+        i = int(torch.argmax(masked))
+        row = torch.cat([torch.stack([masked[i].double(),
+                                      torch.tensor(lo + i, dtype=torch.float64, device=dev)]),
+                         dom_rows[:, i].double(), sa_dom_rows[:, i].double()])
+        rows = all_gather_rows(row[None], mesh)
+        # ---- C: the winner, the live rows
+        best, c = _first_max([(r[0], r[1]) for r in rows[:, :2].tolist()])
+        if best == float("-inf"):
+            continue
+        win = rows[int(c) // NL]
+        cnt[torch.arange(Sd, device=dev), win[2:2 + Sd].long()] += dmatch
+        if sa_live:
+            # sentinel-masked like commit(): a pod may land on a node missing
+            # the ScheduleAnyway topology key (a score-only plugin)
+            sa_dom_c = win[2 + Sd:].long()
+            cnt_sa[torch.arange(Ss, device=dev), sa_dom_c] += sa_match * (sa_dom_c < D)
+        if int(c) // NL == mesh.rank:
+            j[int(c) - lo] += 1
+        placed += 1
     return j, placed
 
 
@@ -1743,15 +1940,18 @@ def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: b
     of the affinity-route group g, exactly as m serial steps would. Returns
     (per-node counts [N] i32, placed, stats) with stats the AFFINITY_STATS
     dict (epochs, head-fallback epochs, productive multi-rounds); the carry is
-    not touched (the aggregate commit applies the counts). `mesh`: a node
-    mesh whose epoch path applies runs each epoch's front on this rank's
-    node block, with one `pmax` and one `all_gather_tiled` per epoch (JAX
-    `loop_sharded` :2068-2078), and the tail on the full-width arrays;
-    above the epoch limit its sharded tail runs every stage on the block but
-    the rounds, with two to four collectives per epoch (`epoch_rounds`; JAX
-    partitions the plain loop with GSPMD there, :2095). The result is the
-    same."""
-    N = tb.alloc.shape[0]
+    not touched (the aggregate commit applies the counts). `mesh`: a
+    partitioned node mesh (`tb` and `cry` this rank's node block, the counts
+    global). Where its epoch path applies, each epoch's front runs on the
+    block, with one `pmax` and one `all_gather_tiled` per epoch (JAX
+    `loop_sharded` :2068-2078), whose payload also carries the per-node
+    values the tail reads (the normalizer inputs, the zone, the budget
+    domain and every term's domain), and the tail on the gathered
+    full-width rows; above the epoch limit its sharded tail runs every
+    stage on the block but the rounds, with two to four collectives per
+    epoch (`epoch_rounds`; JAX partitions the plain loop with GSPMD there,
+    :2095). The result is the same."""
+    N = global_nodes(tb, mesh)
     dev = tb.alloc.device
     B = block
     K_EP = min(N * B, K_EP_MAX)
@@ -1820,10 +2020,14 @@ def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: b
     has_budget = n_budget >= 1
     dom_sum = _sel(live_dns, dom_dns) + _sel(live_anti, dom_anti) + _sel(live_car, dom_car)
     dom_live = torch.div(dom_sum, max(n_budget, 1), rounding_mode="floor").to(torch.int32)
-    doms_same = all(bool(torch.all(~live[:, None] | (dom == dom_live[None, :].long())))
-                    for live, dom in ((live_dns, dom_dns), (live_anti, dom_anti),
-                                      (live_car, dom_car)))
-    budget_composes = n_budget <= 1 or (n_dns == 0 and doms_same)
+    # per node: every live budget term's domain is the composed one (the
+    # budget composes when that holds on every node, over every block)
+    same_n = torch.ones_like(dom_live, dtype=torch.bool)
+    for live, dom in ((live_dns, dom_dns), (live_anti, dom_anti), (live_car, dom_car)):
+        same_n &= torch.all(~live[:, None] | (dom == dom_live[None, :].long()), dim=0)
+
+    def composes(doms_same: bool) -> bool:
+        return n_budget <= 1 or (n_dns == 0 and doms_same)
     edom_live = _sel(live_dns, edom.to(_F32)) > 0           # [D+1]
     ep = {
         "D": D, "INF_P": INF_P, "pos_k": pos_k, "edom_live": edom_live,
@@ -1840,12 +2044,18 @@ def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: b
     has_live_cw = bool(torch.any(live_cw))
 
     # the node-axis inputs of the epoch front: the full [N] (or [slots, N])
-    # arrays, or one mesh shard's block of each (every operation of `head` is
-    # per node or reads the replicated [slots, D+1] rows: the same floats)
-    nd_full = {"feas": base_feas, "cap": capacity, "dom_dns": dom_dns, "dom_aff": dom_aff,
-               "dom_anti": dom_anti, "dom_car": dom_car, "dom_cw": dom_cw, "dom_ss": dom_ss,
-               "ip_pref": ip_pref, "key_ok": dns_key_live_ok, "simon_s": st0["simon_s"],
-               "na_raw": st0["na_raw"], "t_raw": st0["t_raw"], "static": st0["static"]}
+    # arrays, or this rank's block of each on a partitioned mesh (every
+    # operation of `head` is per node or reads the replicated [slots, D+1]
+    # rows: the same floats)
+    nd = {"feas": base_feas, "cap": capacity, "dom_dns": dom_dns, "dom_aff": dom_aff,
+          "dom_anti": dom_anti, "dom_car": dom_car, "dom_cw": dom_cw, "dom_ss": dom_ss,
+          "ip_pref": ip_pref, "key_ok": dns_key_live_ok, "simon_s": st0["simon_s"],
+          "na_raw": st0["na_raw"], "t_raw": st0["t_raw"], "static": st0["static"]}
+    # every term's domain rows, in the fold's order (`finish`)
+    fold_keys = ("dom_dns", "dom_aff", "dom_anti", "dom_car", "dom_cw", "dom_ss")
+    fold_sizes = [nd[k].shape[0] for k in fold_keys]
+    fold_nd = torch.cat([nd[k] for k in fold_keys])
+    lo_blk = _block_of(mesh, N).start if _partitioned(mesh) else 0
 
     def norm_stacks(nd, ip_raw, pernode0):
         rows = [nd["simon_s"], nd["na_raw"], nd["t_raw"], ip_raw]
@@ -1925,12 +2135,12 @@ def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: b
                 torch.clamp(maxes_s[2], min=0.0), torch.clamp(maxes_s[3], min=0.0),
                 torch.clamp(mins_s[1], max=0.0))
 
-    def block_table(sl, nd_l, ip_raw_l, maxes_s, mins_s, j_l):
-        """The [NL, B+1] score rows of the node block `sl` under serial's
+    def block_table(nd_l, ip_raw_l, maxes_s, mins_s, j_l):
+        """The [NL, B+1] score rows of this rank's node block under serial's
         normalizers, without the SelectorSpread blend."""
         st_l = {"simon_s": nd_l["simon_s"], "na_raw": nd_l["na_raw"], "t_raw": nd_l["t_raw"],
                 "static": nd_l["static"], "ip_raw": ip_raw_l}
-        return _wave_score_table_rows(tb.alloc[sl, CPU_I], tb.alloc[sl, MEM_I], cry.nonzero[sl],
+        return _wave_score_table_rows(tb.alloc[:, CPU_I], tb.alloc[:, MEM_I], cry.nonzero,
                                       tb.grp_nonzero[g], st_l, norms_of(maxes_s, mins_s), j_l,
                                       w, B)
 
@@ -1972,7 +2182,7 @@ def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: b
     def front_full(j, cnts):
         """The unsharded epoch front (JAX front_full :1628)."""
         (avail, F_start, F_hi, bootstrap, ip_raw, pernode0, max_stack,
-         min_stack) = head(j, cnts, nd_full)
+         min_stack) = head(j, cnts, nd)
         maxes_s, mins_s = _norm_vals(max_stack, min_stack, F_start)
         maxes_h, mins_h = _norm_vals(max_stack, min_stack, F_hi)
         base_hi_min = torch.amin(torch.where(F_hi[None, :], max_stack[:4], float("inf")), dim=1)
@@ -1988,46 +2198,55 @@ def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: b
         table_ext, k_cap = apply_zone(table_ext, maxes_s, pernode0, zones, zone_sums, have_zones)
         # the zone sums move with every zoned take
         return (avail, F_start, F_hi, table_ext, k_cap, not (ss_live and have_zones), max_stack,
-                min_stack, maxes_s, mins_s, maxes_h, mins_h, uniform_base, bootstrap, ip_safe)
+                min_stack, maxes_s, mins_s, maxes_h, mins_h, uniform_base, bootstrap, ip_safe,
+                dom_live, fold_nd, composes(bool(torch.all(same_n))))
 
     def front_sharded(j, cnts):
         """The sharded epoch front (JAX front_sharded :1982-2066): `head` on
         this rank's node block, ONE pmax of every normalizer reduction in
         max space (`block_partials`), the table block, ONE tiled all-gather
-        of [table.T; F_start; F_hi; min(avail, B+1); ip_raw (; pernode0)],
-        then the full-width values of `front_full`."""
+        of [table.T; F_start; F_hi; min(avail, B+1); ip_raw (; pernode0)]
+        and the per-node values the tail reads: [simon_s; nodeaff; taint;
+        zone; dom_live; same_n] and every term's domain; then the
+        full-width values of `front_full`."""
         from ..parallel.collectives import all_gather_tiled, pmax
 
         sl = _block_of(mesh, N)
-        nd_l = {k: v[..., sl] for k, v in nd_full.items()}
         (avail_l, F_start_l, F_hi_l, bootstrap, ip_raw_l, pernode0_l, max_stack_l,
-         min_stack_l) = head(j[sl], cnts, nd_l)
-        red = pmax(block_partials(max_stack_l, min_stack_l, F_start_l, F_hi_l, nd_l["dom_cw"]),
+         min_stack_l) = head(j[sl], cnts, nd)
+        red = pmax(block_partials(max_stack_l, min_stack_l, F_start_l, F_hi_l, nd["dom_cw"]),
                    mesh)
         maxes_s, mins_s, maxes_h, mins_h, base_hi_min, dmax, dmin = reduced_vals(red)
-        table_l = block_table(sl, nd_l, ip_raw_l, maxes_s, mins_s, j[sl])
+        table_l = block_table(nd, ip_raw_l, maxes_s, mins_s, j[sl])
         rows = [table_l.T, F_start_l[None].to(_F32), F_hi_l[None].to(_F32),
                 torch.clamp(avail_l, max=B + 1)[None].to(_F32), ip_raw_l[None]]
         if ss_live:
             rows.append(pernode0_l[None])
-        full = all_gather_tiled(torch.cat(rows), mesh, axis=1)
+        o = B + 4 + (2 if ss_live else 1)
+        rows += [torch.stack([nd["simon_s"], nd["na_raw"], nd["t_raw"]]),
+                 torch.stack([zones, dom_live.long(), same_n.long()]).to(_F32), fold_nd.to(_F32)]
+        full = all_gather_tiled(torch.cat(rows), mesh, axis=1)  # ids < 2**24: exact
         F_start, F_hi = full[B + 1] > 0, full[B + 2] > 0
         ip_raw, pernode0 = full[B + 4], (full[B + 5] if ss_live else None)
-        max_stack, min_stack = norm_stacks(nd_full, ip_raw, pernode0)
+        nd_g = {"simon_s": full[o], "na_raw": full[o + 1], "t_raw": full[o + 2]}
+        zones_g, dom_live_g = full[o + 3].long(), full[o + 4].to(torch.int32)
+        doms_same = bool(torch.all(full[o + 5] > 0))
+        fold_g = full[o + 6:].long()
+        max_stack, min_stack = norm_stacks(nd_g, ip_raw, pernode0)
         uniform_base, ip_safe = gates(maxes_h, mins_h, base_hi_min, dmax, dmin,
                                       bool(torch.any(F_hi)))
-        have_zones = bool(torch.any(F_start & (zones > 0)))
-        zone_sums = zone_sums_of(pernode0, F_start, zones) if ss_live else None
-        table_ext, k_cap = apply_zone(full[:B + 1].T, maxes_s, pernode0, zones, zone_sums,
+        have_zones = bool(torch.any(F_start & (zones_g > 0)))
+        zone_sums = zone_sums_of(pernode0, F_start, zones_g) if ss_live else None
+        table_ext, k_cap = apply_zone(full[:B + 1].T, maxes_s, pernode0, zones_g, zone_sums,
                                       have_zones)
         return (full[B + 3].to(torch.int32), F_start, F_hi, table_ext, k_cap,
-                not (ss_live and have_zones), max_stack, min_stack, maxes_s, mins_s, maxes_h, mins_h, uniform_base, bootstrap,
-                ip_safe)
+                not (ss_live and have_zones), max_stack, min_stack, maxes_s, mins_s, maxes_h,
+                mins_h, uniform_base, bootstrap, ip_safe, dom_live_g, fold_g, composes(doms_same))
 
     front = front_sharded if _epoch_shards(mesh, N) > 1 else front_full
 
     def multi_pre(maxes_s, mins_s, maxes_h, mins_h, uniform_base, bootstrap, ip_safe,
-                  ss_multi_ok) -> bool:
+                  ss_multi_ok, budget_composes: bool) -> bool:
         """Whether the epoch may take several pods: the budget composes, no
         bootstrap, ip and the zone sums frozen, and the normalizers of
         F_start equal those of F_hi."""
@@ -2089,22 +2308,25 @@ def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: b
         return ok
 
     def finish(state: AffinityWaveState, counts, m_take: int, use_head: bool,
-               rounds: int) -> AffinityWaveState:
+               rounds: int, fold) -> AffinityWaveState:
         """Fold the epoch's takes into j and every counter/carrier row (the
-        sentinel column never counts, as in commit())."""
+        sentinel column never counts, as in commit()); `fold` holds every
+        term's domain rows [slots, N] (`fold_nd`'s order) at least where
+        counts is nonzero."""
         cf = counts.to(_F32)
         col_real = (torch.arange(D + 1, device=dev) < D).to(_F32)
+        doms = torch.split(fold, fold_sizes)
 
-        def upd(rows, doms, incs):
-            add = torch.zeros_like(rows).scatter_add_(1, doms, cf[None, :] * incs[:, None])
+        def upd(rows, k, incs):
+            add = torch.zeros_like(rows).scatter_add_(1, doms[k], cf[None, :] * incs[:, None])
             return rows + add * col_real
 
         cnt_dns, cnt_aff, cnt_anti, cnt_car, cnt_cw, cnt_ss = state[1:7]
         e, h, r = state.ep_stats
         return AffinityWaveState(
-            state.j + counts, upd(cnt_dns, dom_dns, inc_dns), upd(cnt_aff, dom_aff, inc_aff),
-            upd(cnt_anti, dom_anti, inc_anti), upd(cnt_car, dom_car, inc_car),
-            upd(cnt_cw, dom_cw, inc_cw), upd(cnt_ss, dom_ss, ss_match),
+            state.j + counts, upd(cnt_dns, 0, inc_dns), upd(cnt_aff, 1, inc_aff),
+            upd(cnt_anti, 2, inc_anti), upd(cnt_car, 3, inc_car),
+            upd(cnt_cw, 4, inc_cw), upd(cnt_ss, 5, ss_match),
             state.placed + m_take, m_take, (e + 1, h + int(use_head), r + rounds))
 
     def epoch(state: AffinityWaveState) -> AffinityWaveState:
@@ -2112,12 +2334,13 @@ def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: b
         epoch path's gathered rows): JAX epoch_tail :1714-1964."""
         cnts = state[1:7]
         (avail, F_start, F_hi, table_ext, k_cap, ss_multi_ok, max_stack, min_stack, maxes_s,
-         mins_s, maxes_h, mins_h, uniform_base, bootstrap, ip_safe) = front(state.j, cnts)
+         mins_s, maxes_h, mins_h, uniform_base, bootstrap, ip_safe, dom_live_f,
+         fold, budget_composes) = front(state.j, cnts)
         table = table_ext[:, :B]
         m_rem = m - state.placed
         rs = None
         if multi_pre(maxes_s, mins_s, maxes_h, mins_h, uniform_base, bootstrap, ip_safe,
-                     ss_multi_ok):
+                     ss_multi_ok, budget_composes):
             # the hidden-continuation cut (the rounds never run when
             # use_multi_pre is off, so neither does this), then the top K_EP
             # entries in lax.top_k order (score desc, flat index asc)
@@ -2131,22 +2354,22 @@ def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: b
             usable = _guarded(table, usable, iota_n, cut_s, cut_i)[0]
             vals_k, flat_pos = _top_k(torch.where(usable, table, ninf).reshape(-1), K_EP)
             idx_srt = torch.div(flat_pos, B, rounding_mode="floor").to(torch.int32)
-            rs = run_rounds(vals_k, idx_srt, dom_live[idx_srt.long()], cnts, m_rem)
+            rs = run_rounds(vals_k, idx_srt, dom_live_f[idx_srt.long()], cnts, m_rem)
 
         # ---- the normalizer sandwich: S_lo <= every F_t <= F_hi
         use_multi = False
         if rs is not None and rs["got"] > 0:
-            F_lo = F_hi & ~rs["everb_d"][dom_live.long()] & ~(rs["counts"] >= avail)
+            F_lo = F_hi & ~rs["everb_d"][dom_live_f.long()] & ~(rs["counts"] >= avail)
             maxes_l, mins_l = _norm_vals(max_stack, min_stack, F_lo)
             use_multi = lo_ok(uniform_base, maxes_h, mins_h, maxes_l, mins_l)
         # the head fallback: serial's single next pick is always exact
         use_head = not use_multi and bool(torch.any(F_start)) and m_rem > 0
         if use_multi:
-            return finish(state, rs["counts"], rs["got"], False, rs["rounds"])
+            return finish(state, rs["counts"], rs["got"], False, rs["rounds"], fold)
         counts = torch.zeros(N, dtype=torch.int32, device=dev)
         if use_head:
             counts[torch.argmax(torch.where(F_start, table[:, 0], ninf))] = 1
-        return finish(state, counts, int(use_head), use_head, 0)
+        return finish(state, counts, int(use_head), use_head, 0, fold)
 
     def epoch_rounds(state: AffinityWaveState) -> AffinityWaveState:
         """One epoch of the sharded tail above the epoch limit (the plain
@@ -2155,8 +2378,10 @@ def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: b
         merged candidate order, with two, three or four collectives
         (parallel/mesh.py), each counted in `mesh.tail_branches`:
         1. `head` on the block, then all_gather_rows #1 of one row: the
-           block's `block_partials`, the flags any(F_hi), any(F_start) and
-           any(F_start on a zone) and, with ss_live, the block's zone sums;
+           block's `block_partials`, the flags any(F_hi), any(F_start),
+           any(F_start on a zone) and whether a block node's live budget
+           terms leave its composed domain, and, with ss_live, the block's
+           zone sums;
            every rank reduces the rows in rank order (the maxima by max, the
            integer-valued zone sums by a left-to-right sum);
         2. the table block with the SelectorSpread blend, and the block's
@@ -2166,28 +2391,30 @@ def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: b
            head fallback ("head");
         3. the guard from the global pairs, then the block's top c =
            min(K_EP, NL*B) entries in pick order (score desc, global flat
-           index asc), padded with -inf, each with its node's dom_live:
-           all_gather_rows #3; the top K_EP of the gathered entries is the
-           unsharded top, and the rounds run on it with no collective
-           ("select" when they take nothing);
+           index asc), padded with -inf, each with its node's dom_live and
+           every term's domain there (the fold's): all_gather_rows #3; the
+           top K_EP of the gathered entries is the unsharded top, and the
+           rounds run on it with no collective ("select" when they take
+           nothing);
         4. when they took pods, the block's maxima over F_lo (the domains
            ever blocked, expanded to the block): pmax #4 ("sandwich").
-        The head fallback and the fold are the same on every rank."""
+        The head fallback and the fold are the same on every rank: the
+        summary row of #2 carries the domains of the block's best head too."""
         from ..parallel.collectives import all_gather_rows, pmax
 
         sl = _block_of(mesh, N)
         lo, NL = sl.start, sl.stop - sl.start
         cnts = state[1:7]
         m_rem = m - state.placed
-        nd_l = {k: v[..., sl] for k, v in nd_full.items()}
+        nd_l = nd
         (avail_l, F_start_l, F_hi_l, bootstrap, ip_raw_l, pernode0_l, max_stack_l,
          min_stack_l) = head(state.j[sl], cnts, nd_l)
-        zn_l = zones[sl]
+        zn_l = zones
         # ---- #1: the block's reductions, reduced on every rank
         part = [block_partials(max_stack_l, min_stack_l, F_start_l, F_hi_l, nd_l["dom_cw"]),
                 torch.stack([torch.any(F_hi_l), torch.any(F_start_l),
-                             torch.any(F_start_l & (zn_l > 0))]).to(_F32)]
-        nv = part[0].shape[0] + 3
+                             torch.any(F_start_l & (zn_l > 0)), torch.any(~same_n)]).to(_F32)]
+        nv = part[0].shape[0] + 4
         if ss_live:
             part.append(zone_sums_of(pernode0_l, F_start_l, zn_l))
         rows1 = all_gather_rows(torch.cat(part)[None], mesh)
@@ -2195,13 +2422,13 @@ def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: b
         zone_sums = rows1[0, nv:]
         for r in range(1, mesh.shards):
             zone_sums = zone_sums + rows1[r, nv:]
-        any_hi, any_start, have_zones = (bool(x) for x in red[nv - 3:] > 0)
-        maxes_s, mins_s, maxes_h, mins_h, base_hi_min, dmax, dmin = reduced_vals(red[:nv - 3])
+        any_hi, any_start, have_zones, not_same = (bool(x) for x in red[nv - 4:] > 0)
+        maxes_s, mins_s, maxes_h, mins_h, base_hi_min, dmax, dmin = reduced_vals(red[:nv - 4])
         uniform_base, ip_safe = gates(maxes_h, mins_h, base_hi_min, dmax, dmin, any_hi)
         use_multi_pre = multi_pre(maxes_s, mins_s, maxes_h, mins_h, uniform_base, bootstrap,
-                                  ip_safe, not (ss_live and have_zones))
+                                  ip_safe, not (ss_live and have_zones), composes(not not_same))
         # ---- #2: the table block and its summary
-        table_l = block_table(sl, nd_l, ip_raw_l, maxes_s, mins_s, state.j[sl])
+        table_l = block_table(nd_l, ip_raw_l, maxes_s, mins_s, state.j[sl])
         table_l, k_cap_l = apply_zone(table_l, maxes_s, pernode0_l, zn_l, zone_sums, have_zones)
         table = table_l[:, :B]
         heads = torch.where(F_start_l, table[:, 0], ninf)
@@ -2215,8 +2442,9 @@ def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: b
             i2 = int(torch.argmax(bound2))
             summary[:4] = [float(bound_l[i1]), lo + i1, float(bound2[i2]), lo + i2]
             summary[6] = int(usable_l.sum())
-        rows2 = all_gather_rows(torch.tensor([summary], dtype=torch.float64, device=dev),
-                                mesh).tolist()
+        summary = torch.cat([torch.tensor(summary, dtype=torch.float64, device=dev),
+                             fold_nd[:, ih].double()])
+        rows2 = all_gather_rows(summary[None], mesh).tolist()
         rs, branch = None, "head"
         if use_multi_pre:
             # ---- #3: the guard, the block's top c, the merge, the rounds
@@ -2233,8 +2461,10 @@ def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: b
             usable_l = _guarded(table, usable_l, iota_l, cut_s, cut_i)[0]
             vals_l, pos_l = _top_k(torch.where(usable_l, table, ninf).reshape(-1),
                                    min(K_EP, NL * B))
-            ent = all_gather_rows(torch.stack([vals_l.double(), (pos_l + lo * B).double(),
-                                               dom_live[sl][pos_l // B].double()], dim=1), mesh)
+            ent = all_gather_rows(torch.cat([
+                torch.stack([vals_l.double(), (pos_l + lo * B).double(),
+                             dom_live[pos_l // B].double()], dim=1),
+                fold_nd[:, pos_l // B].T.double()], dim=1), mesh)
             flat = ent[:, 1].long()
             o1 = torch.argsort(flat, stable=True)
             top = o1[torch.argsort(ent[o1, 0].to(_F32), descending=True, stable=True)][:K_EP]
@@ -2244,7 +2474,7 @@ def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: b
         if rs is not None and rs["got"] > 0:
             # ---- #4: the sandwich's maxima over the block's F_lo
             branch = "sandwich"
-            F_lo_l = (F_hi_l & ~rs["everb_d"][dom_live[sl].long()]
+            F_lo_l = (F_hi_l & ~rs["everb_d"][dom_live.long()]
                       & ~(rs["counts"][sl] >= avail_l))
             mx, mn = _norm_vals(max_stack_l, min_stack_l, F_lo_l)
             red4 = pmax(torch.cat([mx, -mn]), mesh)
@@ -2260,12 +2490,20 @@ def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: b
             else:
                 mesh.tail_branches["rejected"] += 1
         use_head = not use_multi and any_start and m_rem > 0
+        # every term's domain at the nodes the epoch may take: the merged
+        # candidates' and the best head's
+        fold = torch.zeros((fold_nd.shape[0], N), dtype=torch.long, device=dev)
         if use_multi:
-            return finish(state, rs["counts"], rs["got"], False, rs["rounds"])
+            fold[:, (flat[top] // B)] = ent[top, 3:].T.long()
+            return finish(state, rs["counts"], rs["got"], False, rs["rounds"], fold)
         counts = torch.zeros(N, dtype=torch.int32, device=dev)
         if use_head:
-            counts[int(_first_max([(r[4], r[5]) for r in rows2])[1])] = 1
-        return finish(state, counts, int(use_head), use_head, 0)
+            heads_g = [(r[4], r[5]) for r in rows2]
+            best = _first_max(heads_g)
+            counts[int(best[1])] = 1
+            fold[:, int(best[1])] = torch.tensor(rows2[heads_g.index(best)][8:],
+                                                 dtype=torch.long, device=dev)
+        return finish(state, counts, int(use_head), use_head, 0, fold)
 
     step = epoch_rounds if _round_shards(mesh, N) > 1 else epoch
     state = AffinityWaveState(
@@ -2388,6 +2626,31 @@ def _view(tb: Tables, cry: Carry, n_zones: int, w: ScoreWeights,
                w.taint, w.interpod, w.ss, w.pts, w.avoid, w.image, 1.0)
     for i, x in enumerate(weights):
         v.w[i] = float(x)
+    return v
+
+
+# The view's node-axis fields: [N, *] rows and [*, N] columns (the leaves
+# parallel/mesh.py partitions; the view holds no topo_dom).
+_NODE_ROW_FIELDS = ("alloc", "node_zone", "dev_total", "vg_cap", "vg_nameid", "sdev_cap",
+                    "sdev_media", "requested", "nonzero", "port_used", "dev_used", "vg_req",
+                    "sdev_alloc")
+_NODE_COL_FIELDS = ("static_mask", "mask_taint", "mask_unsched", "mask_aff", "mask_extra",
+                    "simon_raw", "nodeaff_raw", "taint_raw", "avoid_raw", "image_raw",
+                    "extra_raw", "counter_dom", "carr_dom")
+
+
+def _rebased_view(tb: Tables, cry: Carry, lo: int, *args, **kwargs) -> TablesView:
+    """`_view` of a rank's node block whose node-axis pointers are moved back
+    by `lo` rows or columns: a kernel that indexes node n of the block
+    [lo, lo + NL) by its global number reads the block's entry n - lo (the
+    view's N stays NL, the stride of the [*, N] columns). The K8 - K11
+    kernels read the block so (csrc/wave_sharded.cuh)."""
+    v = _view(tb, cry, *args, **kwargs)
+    src = {**tb._asdict(), **cry._asdict()}
+    for name in _NODE_ROW_FIELDS + _NODE_COL_FIELDS:
+        t = src[name]
+        row = t.numel() // max(t.shape[0], 1) if name in _NODE_ROW_FIELDS else 1
+        setattr(v, name, t.data_ptr() - lo * row * t.element_size())
     return v
 
 
@@ -2621,18 +2884,19 @@ def _sharded_loop(front, table, tail, v, g: int, m: int, block: int, mesh, dims:
                   j, fs, iscr, part, pay, front_args: tuple, tail_args: tuple, wrapper) -> None:
     """The host's epoch loop of K8 / K9: `front` on the block, one pmax,
     `table` on the block, one tiled all-gather of the payload rows, `tail`
-    at full width; one read of (placed, last) per epoch. `front_args` and
+    at full width; one read of (placed, last) per epoch. `dims`: (the
+    mesh's N, the block's lo, hi). `front_args` and
     `tail_args` are the launch arguments that differ between the two
     families. Every launch adds one to `wrapper.launches`."""
     from ..parallel.collectives import all_gather_tiled, pmax
 
-    lo, hi = dims
+    N, lo, hi = dims
     placed, last = 0, 1
     while last > 0 and placed < m:
-        _sharded_launch(front, ctypes.byref(v), int(g), int(block), lo, hi, _ptr(j), _ptr(fs),
+        _sharded_launch(front, ctypes.byref(v), int(g), int(block), N, lo, hi, _ptr(j), _ptr(fs),
                         _ptr(iscr), _ptr(part), *front_args)
         red = pmax(part, mesh)
-        _sharded_launch(table, ctypes.byref(v), int(g), int(block), lo, hi, _ptr(j), _ptr(fs),
+        _sharded_launch(table, ctypes.byref(v), int(g), int(block), N, lo, hi, _ptr(j), _ptr(fs),
                         _ptr(iscr), _ptr(red), _ptr(pay))
         full = all_gather_tiled(pay, mesh, axis=0)
         _sharded_launch(tail, ctypes.byref(v), int(g), int(m), *tail_args, _ptr(j), _ptr(fs),
@@ -2646,38 +2910,40 @@ def schedule_wave_sharded_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: b
                                  w: ScoreWeights = DEFAULT_WEIGHTS,
                                  filters: FilterFlags = DEFAULT_FILTERS, block: int = WAVE_BLOCK,
                                  kmax: int = 0, gpu_live: bool = False, mesh=None):
-    """Launch K8 (csrc/wave_sharded.cu) on this rank of a node `mesh` whose
-    epoch path applies: setup once, then per epoch the front and the table
-    on the rank's node block and the tail at full width, with one `pmax` and
-    one `all_gather_tiled` between them (parallel/collectives.py). Every
-    rank returns the same (per-node counts [N] i32, placed as a 0-dim i32
-    tensor, [iterations, head_fallbacks, guarded] i32), on the card; `cry`
-    is only read."""
+    """Launch K8 (csrc/wave_sharded.cu) on this rank of a partitioned node
+    `mesh` whose epoch path applies: `tb` and `cry` are the rank's block.
+    Setup once on the block, then per epoch the front and the table on the
+    block and the tail at full width on the gathered rows, with one `pmax`
+    and one `all_gather_tiled` between them (parallel/collectives.py). Every
+    rank returns the same (per-node counts [N] i32 of every node, placed as
+    a 0-dim i32 tensor, [iterations, head_fallbacks, guarded] i32), on the
+    card; `cry` is only read."""
     from . import build
 
     lib = build.library()
     dev = tb.alloc.device
-    N = tb.alloc.shape[0]
+    N = global_nodes(tb, mesh)
     K = kmax if kmax else N * block
     if N * block >= 2 ** 31 or not 1 <= K <= N * block:
         raise ValueError(f"wave table {N}x{block} with kmax {K} is out of the kernel's range")
-    if _epoch_shards(mesh, N) <= 1:
+    if _epoch_shards(mesh, N) <= 1 or not _partitioned(mesh):
         raise ValueError(f"the mesh's epoch path does not apply to {N} nodes")
     sl = _block_of(mesh, N)
-    v = _view(tb, cry, 2, w, filters, enable_gpu=gpu_live)
+    v = _rebased_view(tb, cry, sl.start, 2, w, filters, enable_gpu=gpu_live)
     j = torch.empty(N, dtype=torch.int32, device=dev)
     state = torch.empty(5, dtype=torch.int32, device=dev)
     fs = torch.empty(int(lib.wave_sharded_scratch_floats(N)), dtype=_F32, device=dev)
     iscr = torch.empty(int(lib.wave_sharded_scratch_ints(N)), dtype=torch.int32, device=dev)
     part = torch.empty(6, dtype=_F32, device=dev)
-    pay = torch.empty((sl.stop - sl.start, block + 3), dtype=_F32, device=dev)
+    pay = torch.empty((sl.stop - sl.start, int(lib.wave_sharded_pay_floats(block))), dtype=_F32,
+                      device=dev)
     fn = schedule_wave_sharded_kernel
-    _sharded_launch(lib.wave_sharded_setup_launch, ctypes.byref(v), int(g), int(bool(cap1)),
-                    _ptr(j), _ptr(fs), _ptr(iscr), _ptr(state))
+    _sharded_launch(lib.wave_sharded_setup_launch, ctypes.byref(v), int(g), int(bool(cap1)), N,
+                    sl.start, sl.stop, _ptr(j), _ptr(fs), _ptr(iscr), _ptr(state))
     fn.launches += 1
     _sharded_loop(lib.wave_sharded_front_launch, lib.wave_sharded_table_launch,
-                  lib.wave_sharded_tail_launch, v, g, m, block, mesh, (sl.start, sl.stop), state,
-                  j, fs, iscr, part, pay, (), (int(block), int(K)), fn)
+                  lib.wave_sharded_tail_launch, v, g, m, block, mesh, (N, sl.start, sl.stop),
+                  state, j, fs, iscr, part, pay, (), (int(block), int(K), N), fn)
     if gpu_live:
         BRANCH_LAUNCHES["schedule_wave_sharded/gpu_live"] += 1
     return j, state[0], state[2:5]
@@ -2687,9 +2953,10 @@ def schedule_wave_rounds_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: bo
                                 w: ScoreWeights = DEFAULT_WEIGHTS,
                                 filters: FilterFlags = DEFAULT_FILTERS, block: int = WAVE_BLOCK,
                                 kmax: int = 0, gpu_live: bool = False, mesh=None):
-    """Launch K10 (csrc/wave_rounds.cu) on this rank of a node `mesh` whose
-    per-round path applies (N above the epoch limit): setup once on the
-    rank's node block, then per round K8's front and table and K10's
+    """Launch K10 (csrc/wave_rounds.cu) on this rank of a partitioned node
+    `mesh` (`tb` and `cry` the rank's block) whose per-round path applies
+    (N above the epoch limit): setup once on the block, then per round K8's
+    front and table and K10's
     summary, select, merge and finish, with two `pmax` and two
     `all_gather_rows` between them (parallel/collectives.py) and one read of
     (placed, last). Every rank returns the same (per-node counts [N] i32,
@@ -2700,16 +2967,16 @@ def schedule_wave_rounds_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: bo
 
     lib = build.library()
     dev = tb.alloc.device
-    N = tb.alloc.shape[0]
+    N = global_nodes(tb, mesh)
     K = kmax if kmax else N * block
     if N * block >= 2 ** 31 or not 1 <= K <= N * block:
         raise ValueError(f"wave table {N}x{block} with kmax {K} is out of the kernel's range")
-    if _round_shards(mesh, N) <= 1:
+    if _round_shards(mesh, N) <= 1 or not _partitioned(mesh):
         raise ValueError(f"the mesh's per-round path does not apply to {N} nodes")
     R = mesh.shards
     sl = _block_of(mesh, N)
     lo, hi, NL = sl.start, sl.stop, sl.stop - sl.start
-    v = _view(tb, cry, 2, w, filters, enable_gpu=gpu_live)
+    v = _rebased_view(tb, cry, lo, 2, w, filters, enable_gpu=gpu_live)
     vr = ctypes.byref(v)
     j = torch.empty(N, dtype=torch.int32, device=dev)
     state = torch.empty(5, dtype=torch.int32, device=dev)
@@ -2717,31 +2984,31 @@ def schedule_wave_rounds_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: bo
     iscr = torch.empty(int(lib.wave_sharded_scratch_ints(N)), dtype=torch.int32, device=dev)
     part = torch.empty(6, dtype=_F32, device=dev)
     part2 = torch.empty(6, dtype=_F32, device=dev)
-    pay = torch.empty((NL, block + 3), dtype=_F32, device=dev)
+    pay = torch.empty((NL, int(lib.wave_sharded_pay_floats(block))), dtype=_F32, device=dev)
     summ = torch.empty((1, 8), dtype=torch.float64, device=dev)
     cand = torch.empty((min(K, m, NL * block) + 1, 2), dtype=torch.int64, device=dev)
     ms = torch.empty(int(lib.wave_rounds_merge_state_bytes()) // 8, dtype=torch.int64,
                      device=dev)
     fn = schedule_wave_rounds_kernel
-    _sharded_launch(lib.wave_rounds_setup_launch, vr, int(g), int(bool(cap1)), lo, hi, _ptr(j),
-                    _ptr(fs), _ptr(iscr), _ptr(state))
+    _sharded_launch(lib.wave_rounds_setup_launch, vr, int(g), int(bool(cap1)), N, lo, hi,
+                    _ptr(j), _ptr(fs), _ptr(iscr), _ptr(state))
     fn.launches += 1
     placed, last = 0, 1
     while last > 0 and placed < m:
         c = min(K, m - placed, NL * block)
-        _sharded_launch(lib.wave_sharded_front_launch, vr, int(g), int(block), lo, hi, _ptr(j),
+        _sharded_launch(lib.wave_sharded_front_launch, vr, int(g), int(block), N, lo, hi, _ptr(j),
                         _ptr(fs), _ptr(iscr), _ptr(part))
         red = pmax(part, mesh)
-        _sharded_launch(lib.wave_sharded_table_launch, vr, int(g), int(block), lo, hi, _ptr(j),
+        _sharded_launch(lib.wave_sharded_table_launch, vr, int(g), int(block), N, lo, hi, _ptr(j),
                         _ptr(fs), _ptr(iscr), _ptr(red), _ptr(pay))
-        _sharded_launch(lib.wave_rounds_summary_launch, vr, int(block), lo, hi, _ptr(fs),
+        _sharded_launch(lib.wave_rounds_summary_launch, N, int(block), lo, hi, _ptr(fs),
                         _ptr(iscr), _ptr(pay), _ptr(summ))
         summ_all = all_gather_rows(summ, mesh)
-        _sharded_launch(lib.wave_rounds_select_launch, vr, int(block), lo, hi, c, R, _ptr(fs),
+        _sharded_launch(lib.wave_rounds_select_launch, N, int(block), lo, hi, c, R, _ptr(fs),
                         _ptr(iscr), _ptr(pay), _ptr(summ_all), _ptr(cand))
         rows = all_gather_rows(cand[:c + 1], mesh)
-        _sharded_launch(lib.wave_rounds_merge_launch, vr, int(g), int(m), int(K), int(block), lo,
-                        hi, c, R, _ptr(fs), _ptr(iscr), _ptr(pay), _ptr(rows), _ptr(state),
+        _sharded_launch(lib.wave_rounds_merge_launch, vr, int(g), int(m), int(K), int(block), N,
+                        lo, hi, c, R, _ptr(fs), _ptr(iscr), _ptr(pay), _ptr(rows), _ptr(state),
                         _ptr(ms), _ptr(part2))
         red2 = pmax(part2, mesh)
         _sharded_launch(lib.wave_rounds_finish_launch, int(m), int(block), c, R, _ptr(j),
@@ -2760,41 +3027,45 @@ def schedule_affinity_wave_sharded_kernel(tb: Tables, cry: Carry, g: int, m: int
                                           w: ScoreWeights = DEFAULT_WEIGHTS,
                                           filters: FilterFlags = DEFAULT_FILTERS,
                                           block: int = WAVE_BLOCK, n_zones: int = 2, mesh=None):
-    """Launch K9 (csrc/affinity_sharded.cu) on this rank of a node `mesh`
-    whose epoch path applies: setup once, then per epoch the front and the
-    table on the rank's node block and the tail at full width, with one
+    """Launch K9 (csrc/affinity_sharded.cu) on this rank of a partitioned
+    node `mesh` whose epoch path applies: `tb` and `cry` are the rank's
+    block. Setup once on the block, then per epoch the front and the table
+    on the block and the tail at full width on the gathered rows, with one
     `pmax` and one `all_gather_tiled` between them. Every rank returns the
-    same (per-node counts [N] i32, placed as a 0-dim i32 tensor, [epochs,
-    head_fallbacks, multi_rounds] i32), on the card; `cry` is only read."""
+    same (per-node counts [N] i32 of every node, placed as a 0-dim i32
+    tensor, [epochs, head_fallbacks, multi_rounds] i32), on the card; `cry`
+    is only read."""
     from . import build
 
     lib = build.library()
     dev = tb.alloc.device
-    N = tb.alloc.shape[0]
+    N = global_nodes(tb, mesh)
     if N * block >= 2 ** 31 or block < 1:
         raise ValueError(f"affinity table {N}x{block} is out of the kernel's range")
     if cry.counter.shape[1] > AFFINITY_MAX_D1:
         raise ValueError(f"{cry.counter.shape[1]} domains exceed the kernel's {AFFINITY_MAX_D1}")
-    if _epoch_shards(mesh, N) <= 1:
+    if _epoch_shards(mesh, N) <= 1 or not _partitioned(mesh):
         raise ValueError(f"the mesh's epoch path does not apply to {N} nodes")
     sl = _block_of(mesh, N)
-    v = _view(tb, cry, n_zones, w, filters)
+    v = _rebased_view(tb, cry, sl.start, n_zones, w, filters)
+    vr = ctypes.byref(v)
     j = torch.empty(N, dtype=torch.int32, device=dev)
     state = torch.empty(7, dtype=torch.int32, device=dev)
-    fs = torch.empty(int(lib.affinity_sharded_scratch_floats(ctypes.byref(v), int(block))),
-                     dtype=_F32, device=dev)
-    iscr = torch.empty(int(lib.affinity_sharded_scratch_ints(ctypes.byref(v))),
-                       dtype=torch.int32, device=dev)
-    part = torch.empty(int(lib.affinity_sharded_parts(ctypes.byref(v))), dtype=_F32, device=dev)
-    pay = torch.empty((sl.stop - sl.start, block + 6), dtype=_F32, device=dev)
+    fs = torch.empty(int(lib.affinity_sharded_scratch_floats(vr, int(block), N)), dtype=_F32,
+                     device=dev)
+    iscr = torch.empty(int(lib.affinity_sharded_scratch_ints(vr, N)), dtype=torch.int32,
+                       device=dev)
+    part = torch.empty(int(lib.affinity_sharded_parts(vr)), dtype=_F32, device=dev)
+    pay = torch.empty((sl.stop - sl.start, int(lib.affinity_sharded_pay_floats(vr, int(block)))),
+                      dtype=_F32, device=dev)
     fn = schedule_affinity_wave_sharded_kernel
-    _sharded_launch(lib.affinity_sharded_setup_launch, ctypes.byref(v), int(g), int(bool(cap1)),
-                    int(block), _ptr(j), _ptr(fs), _ptr(iscr), _ptr(state))
+    _sharded_launch(lib.affinity_sharded_setup_launch, vr, int(g), int(bool(cap1)), int(block), N,
+                    sl.start, sl.stop, _ptr(j), _ptr(fs), _ptr(iscr), _ptr(state))
     fn.launches += 1
     _sharded_loop(lib.affinity_sharded_front_launch, lib.affinity_sharded_table_launch,
-                  lib.affinity_sharded_tail_launch, v, g, m, block, mesh, (sl.start, sl.stop),
-                  state, j, fs, iscr, part, pay, (_ptr(state),), (int(bool(ss_live)), int(block)),
-                  fn)
+                  lib.affinity_sharded_tail_launch, v, g, m, block, mesh, (N, sl.start, sl.stop),
+                  state, j, fs, iscr, part, pay, (_ptr(state),),
+                  (int(bool(ss_live)), int(block), N), fn)
     return j, state[0], state[2:5]
 
 
@@ -2803,8 +3074,9 @@ def schedule_affinity_wave_rounds_kernel(tb: Tables, cry: Carry, g: int, m: int,
                                          w: ScoreWeights = DEFAULT_WEIGHTS,
                                          filters: FilterFlags = DEFAULT_FILTERS,
                                          block: int = WAVE_BLOCK, n_zones: int = 2, mesh=None):
-    """Launch K11 (csrc/affinity_rounds.cu) on this rank of a node `mesh`
-    whose sharded tail applies (N above the epoch limit): K9's setup once,
+    """Launch K11 (csrc/affinity_rounds.cu) on this rank of a partitioned
+    node `mesh` (`tb` and `cry` the rank's block) whose sharded tail
+    applies (N above the epoch limit): K9's setup once,
     then per epoch K9's front and table and K11's flags, reduce and summary
     on the rank's node block, with all_gather_rows #1 and #2; where
     use_multi_pre holds, K11's select (the block) and merge (the rounds,
@@ -2819,49 +3091,52 @@ def schedule_affinity_wave_rounds_kernel(tb: Tables, cry: Carry, g: int, m: int,
 
     lib = build.library()
     dev = tb.alloc.device
-    N = tb.alloc.shape[0]
+    N = global_nodes(tb, mesh)
     if N * block >= 2 ** 31 or block < 1:
         raise ValueError(f"affinity table {N}x{block} is out of the kernel's range")
     if cry.counter.shape[1] > AFFINITY_MAX_D1:
         raise ValueError(f"{cry.counter.shape[1]} domains exceed the kernel's {AFFINITY_MAX_D1}")
-    if _round_shards(mesh, N) <= 1:
+    if _round_shards(mesh, N) <= 1 or not _partitioned(mesh):
         raise ValueError(f"the mesh's sharded tail does not apply to {N} nodes")
     R = mesh.shards
     sl = _block_of(mesh, N)
     lo, hi, NL = sl.start, sl.stop, sl.stop - sl.start
-    v = _view(tb, cry, n_zones, w, filters)
+    v = _rebased_view(tb, cry, lo, n_zones, w, filters)
     vr = ctypes.byref(v)
+    slots = v.Sd + v.A + v.B + v.Ca + v.Cw + 1  # every term slot's domain rides the rows
     j = torch.empty(N, dtype=torch.int32, device=dev)
     state = torch.zeros(int(lib.affinity_rounds_state_ints()), dtype=torch.int32, device=dev)
-    fs = torch.empty(int(lib.affinity_sharded_scratch_floats(vr, int(block))), dtype=_F32,
+    fs = torch.empty(int(lib.affinity_sharded_scratch_floats(vr, int(block), N)), dtype=_F32,
                      device=dev)
-    iscr = torch.empty(int(lib.affinity_sharded_scratch_ints(vr)), dtype=torch.int32, device=dev)
+    iscr = torch.empty(int(lib.affinity_sharded_scratch_ints(vr, N)), dtype=torch.int32,
+                       device=dev)
     p0 = int(lib.affinity_sharded_parts(vr))  # K9's stacked vector
-    P1 = p0 + 3 + (v.Z if ss_live else 0)     # then the flags and the zone sums
+    P1 = p0 + 4 + (v.Z if ss_live else 0)     # then the flags and the zone sums
     part = torch.empty(P1, dtype=_F32, device=dev)
-    red = torch.empty(p0 + 3, dtype=_F32, device=dev)
-    pay = torch.empty((NL, block + 6), dtype=_F32, device=dev)
-    summ = torch.empty((1, 8), dtype=torch.float64, device=dev)
+    red = torch.empty(p0 + 4, dtype=_F32, device=dev)
+    pay = torch.empty((NL, int(lib.affinity_sharded_pay_floats(vr, int(block)))), dtype=_F32,
+                      device=dev)
+    summ = torch.empty((1, 8 + slots), dtype=torch.float64, device=dev)
     c = min(N * block, K_EP_MAX, NL * block)
-    cand = torch.empty((c + 1, 2), dtype=torch.int64, device=dev)
+    cand = torch.empty((c + 1, 2 + slots), dtype=torch.int64, device=dev)
     part4 = torch.empty(7, dtype=_F32, device=dev)
     G, B, ss = int(g), int(block), int(bool(ss_live))
     fn = schedule_affinity_wave_rounds_kernel
-    _sharded_launch(lib.affinity_sharded_setup_launch, vr, G, int(bool(cap1)), B, _ptr(j),
-                    _ptr(fs), _ptr(iscr), _ptr(state))
+    _sharded_launch(lib.affinity_sharded_setup_launch, vr, G, int(bool(cap1)), B, N, lo, hi,
+                    _ptr(j), _ptr(fs), _ptr(iscr), _ptr(state))
     fn.launches += 1
     placed, last, heads = 0, 1, 0
     while last > 0 and placed < m:
-        _sharded_launch(lib.affinity_sharded_front_launch, vr, G, B, lo, hi, _ptr(j), _ptr(fs),
+        _sharded_launch(lib.affinity_sharded_front_launch, vr, G, B, N, lo, hi, _ptr(j), _ptr(fs),
                         _ptr(iscr), _ptr(part), _ptr(state))
-        _sharded_launch(lib.affinity_rounds_flags_launch, vr, G, B, lo, hi, ss, _ptr(fs),
+        _sharded_launch(lib.affinity_rounds_flags_launch, vr, G, B, N, lo, hi, ss, _ptr(fs),
                         _ptr(iscr), _ptr(part), p0)
         rows1 = all_gather_rows(part[None], mesh)
-        _sharded_launch(lib.affinity_rounds_reduce_launch, vr, G, B, ss, R, P1, _ptr(rows1),
+        _sharded_launch(lib.affinity_rounds_reduce_launch, vr, G, B, N, ss, R, P1, _ptr(rows1),
                         _ptr(red), _ptr(fs), _ptr(iscr), _ptr(state))
-        _sharded_launch(lib.affinity_sharded_table_launch, vr, G, B, lo, hi, _ptr(j), _ptr(fs),
+        _sharded_launch(lib.affinity_sharded_table_launch, vr, G, B, N, lo, hi, _ptr(j), _ptr(fs),
                         _ptr(iscr), _ptr(red), _ptr(pay))
-        _sharded_launch(lib.affinity_rounds_summary_launch, vr, G, B, lo, hi, ss, _ptr(j),
+        _sharded_launch(lib.affinity_rounds_summary_launch, vr, G, B, N, lo, hi, ss, _ptr(j),
                         _ptr(fs), _ptr(iscr), _ptr(red), _ptr(pay), _ptr(state), _ptr(summ))
         summ_all = all_gather_rows(summ, mesh)
         multi_pre, any_start = state[7:9].tolist()
@@ -2869,21 +3144,21 @@ def schedule_affinity_wave_rounds_kernel(tb: Tables, cry: Carry, g: int, m: int,
         fn.host_reads += 1
         red4, branch = None, "head"
         if multi_pre:
-            _sharded_launch(lib.affinity_rounds_select_launch, vr, G, B, lo, hi, c, R, _ptr(fs),
-                            _ptr(iscr), _ptr(summ_all), _ptr(cand))
+            _sharded_launch(lib.affinity_rounds_select_launch, vr, G, B, N, lo, hi, c, R,
+                            _ptr(fs), _ptr(iscr), _ptr(summ_all), _ptr(cand))
             rows3 = all_gather_rows(cand, mesh)
-            _sharded_launch(lib.affinity_rounds_merge_launch, vr, G, int(m), B, c, R, _ptr(fs),
+            _sharded_launch(lib.affinity_rounds_merge_launch, vr, G, int(m), B, N, c, R, _ptr(fs),
                             _ptr(iscr), _ptr(rows3), _ptr(state))
             fn.launches += 2
             fn.host_reads += 1
             branch = "select"
             if int(state[11]) > 0:
-                _sharded_launch(lib.affinity_rounds_sandwich_launch, vr, G, B, lo, hi, _ptr(j),
+                _sharded_launch(lib.affinity_rounds_sandwich_launch, vr, G, B, N, lo, hi, _ptr(j),
                                 _ptr(fs), _ptr(iscr), _ptr(part4))
                 red4 = pmax(part4, mesh)
                 fn.launches += 1
                 branch = "sandwich"
-        _sharded_launch(lib.affinity_rounds_finish_launch, vr, G, int(m), ss, B, R, _ptr(j),
+        _sharded_launch(lib.affinity_rounds_finish_launch, vr, G, int(m), ss, B, N, R, _ptr(j),
                         _ptr(fs), _ptr(iscr), _ptr(red), _ptr_or_null(red4), _ptr(summ_all),
                         _ptr(state))
         fn.launches += 1
@@ -3011,6 +3286,98 @@ def explain_sharded_kernel(tb: Tables, cry: Carry, g: int, forced: int, valid: b
     return out
 
 
+def schedule_group_serial_sharded_kernel(tb: Tables, cry: Carry, g: int, valid, cap1: bool,
+                                         mesh, w: ScoreWeights = DEFAULT_WEIGHTS,
+                                         filters: FilterFlags = DEFAULT_FILTERS,
+                                         ss_live: bool = False, sa_live: bool = False,
+                                         n_zones: int = 2):
+    """Launch K13 (csrc/group_serial_sharded.cu) on this rank of a
+    partitioned node `mesh`: `tb` and `cry` are the rank's block of NL
+    nodes. Setup once, then per valid pod the front (with the previous
+    pod's commit), all_gather_rows #1, with sa_live the sa stage and pmax
+    #1b, the score, all_gather_rows #2; one finish launch commits the last
+    pod. The host reads nothing per pod. Returns (the block's per-node
+    counts [NL] i32, placed as a 0-dim i32 tensor, equal on every rank), on
+    the card; `cry` is only read."""
+    from ..parallel.collectives import all_gather_rows, pmax
+    from . import build
+
+    lib = build.library()
+    dev = tb.alloc.device
+    NL = tb.alloc.shape[0]
+    lo, R = mesh.rank * NL, mesh.shards
+    v = _view(tb, cry, n_zones, w, filters)
+    vr = ctypes.byref(v)
+    G, ss, sa = int(g), int(bool(ss_live)), int(bool(sa_live))
+    fs = torch.empty(int(lib.gs_sharded_scratch_floats(vr)), dtype=_F32, device=dev)
+    iscr = torch.empty(int(lib.gs_sharded_scratch_ints(vr)), dtype=torch.int32, device=dev)
+    k1 = int(lib.gs_sharded_part_floats(vr, ss, sa))
+    mk = int(lib.gs_sharded_marks_offset(vr, ss))
+    part = torch.empty(k1, dtype=_F32, device=dev)
+    part_b = torch.empty(2, dtype=_F32, device=dev)
+    row2 = torch.empty((1, 2 + v.Sd + v.Ss), dtype=torch.float64, device=dev)
+    fn = schedule_group_serial_sharded_kernel
+    _sharded_launch(lib.gs_sharded_setup_launch, vr, G, int(bool(cap1)), _ptr(fs), _ptr(iscr))
+    fn.launches += 1
+    prev = None
+    for ok in torch.as_tensor(valid).tolist():
+        if not ok:  # padded pod: commits nothing
+            continue
+        _sharded_launch(lib.gs_sharded_front_launch, vr, G, lo, R, ss, sa, _ptr_or_null(prev),
+                        _ptr(fs), _ptr(iscr), _ptr(part))
+        rows = all_gather_rows(part[None], mesh)
+        sa_red = None
+        if sa:
+            _sharded_launch(lib.gs_sharded_sa_launch, vr, G, R, _ptr(rows), k1, mk, _ptr(fs),
+                            _ptr(iscr), _ptr(part_b))
+            sa_red = pmax(part_b, mesh)
+            fn.launches += 1
+        _sharded_launch(lib.gs_sharded_score_launch, vr, G, lo, R, ss, sa, _ptr(rows), k1,
+                        _ptr_or_null(sa_red), _ptr(fs), _ptr(iscr), _ptr(row2))
+        fn.launches += 2
+        prev = all_gather_rows(row2, mesh)
+    if prev is not None:
+        _sharded_launch(lib.gs_sharded_finish_launch, vr, G, lo, R, sa, _ptr(prev), _ptr(fs),
+                        _ptr(iscr))
+        fn.launches += 1
+    off = int(lib.gs_sharded_j_offset(vr))
+    return iscr[off:off + NL].clone(), iscr[off + NL]
+
+
+def aggregate_commit_sharded_kernel(tb: Tables, cry: Carry, g: int, j: torch.Tensor,
+                                    gpu_live: bool = False, mesh=None) -> Carry:
+    """Launch K14 (csrc/commit_sharded.cu) on this rank of a partitioned
+    node `mesh` (`tb`, `cry` and the counts `j` [NL] the rank's block) on a
+    CLONE of `cry`, which it updates in place and returns: the rows launch
+    (the block's rows and its per-topology domain counts), ONE
+    all_gather_rows of those counts, the domains launch (their sum in rank
+    order into the replicated counter / carrier)."""
+    from ..parallel.collectives import all_gather_rows
+    from . import build
+
+    lib = build.library()
+    dev = tb.alloc.device
+    out = Carry(*(t.clone() for t in cry))
+    v = _view(tb, out, 2, DEFAULT_WEIGHTS, DEFAULT_FILTERS, enable_gpu=gpu_live)
+    vr = ctypes.byref(v)
+    jj = _i32_on(j, dev, tb.alloc.shape[0], "j")
+    for name in ("topo_dom", "counter_topo", "carr_topo"):
+        t = getattr(tb, name)
+        if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous int32 tensor on {dev}")
+    U, D1 = tb.topo_dom.shape[0], cry.counter.shape[1]
+    seg = torch.empty((1, U, D1), dtype=_F32, device=dev)
+    _sharded_launch(lib.commit_sharded_rows_launch, vr, int(g), _ptr(jj), _ptr(tb.topo_dom), U,
+                    int(bool(gpu_live)), _ptr(seg))
+    rows = all_gather_rows(seg, mesh)
+    _sharded_launch(lib.commit_sharded_domains_launch, vr, int(g), _ptr(rows), mesh.shards,
+                    _ptr(tb.counter_topo), _ptr(tb.carr_topo), U, _ptr(seg))
+    aggregate_commit_sharded_kernel.launches += 2
+    if gpu_live:
+        BRANCH_LAUNCHES["aggregate_commit_sharded/gpu_live"] += 1
+    return out
+
+
 def _on_cpu(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return True
@@ -3118,13 +3485,26 @@ def schedule_batch(tb: Tables, cry: Carry, pod_group, forced_node, valid, n_zone
 
 
 def aggregate_commit(tb: Tables, cry: Carry, g: int, j: torch.Tensor,
-                     gpu_live: bool = False) -> Carry:
+                     gpu_live: bool = False, mesh=None) -> Carry:
     """Commit j[n] copies of group g on every node n at once (JAX
     `_aggregate_commit`): the plain version for CPU tensors, K3c for CUDA
-    tensors. Returns a new Carry."""
+    tensors. On a partitioned node `mesh` (`tb`, `cry` and j this rank's
+    block) the commit on the block, K14 for CUDA tensors and
+    `aggregate_commit_sharded_plain` for CPU tensors. Returns a new Carry
+    (the block's on a mesh)."""
+    if _partitioned(mesh):
+        run = (aggregate_commit_sharded_plain if _on_cpu(tb.alloc)
+               else aggregate_commit_sharded_kernel)
+        return run(tb, cry, g, j, gpu_live, mesh)
     if _on_cpu(tb.alloc):
         return aggregate_commit_plain(tb, cry, g, j, gpu_live)
     return aggregate_commit_kernel(tb, cry, g, j, gpu_live)
+
+
+def _block_counts(j: torch.Tensor, mesh) -> torch.Tensor:
+    """A wave's global counts j [N] as this rank's block on a partitioned
+    `mesh` (every rank holds the same j), else j."""
+    return j[_block_of(mesh, j.shape[0])] if _partitioned(mesh) else j
 
 
 def schedule_wave(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
@@ -3132,20 +3512,22 @@ def schedule_wave(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
                   block: int = WAVE_BLOCK, kmax: int = 0, gpu_live: bool = False, mesh=None):
     """Place up to m pods of wave-eligible group g, exactly as m serial steps
     would (JAX `schedule_wave`): the plain version for CPU tensors, K3 for
-    CUDA tensors (on a node `mesh`, K8 where it takes the sharded epoch path
-    and K10 where it takes the per-round path above the epoch limit), then
-    `aggregate_commit`. Returns (new carry, per-node counts [N] i32,
-    placed). The loop's statistics (WAVE_STATS) are added to
+    CUDA tensors (on a partitioned node `mesh`, whose block `tb` and `cry`
+    are, K8 where it takes the sharded epoch path and K10 where it takes the
+    per-round path above the epoch limit), then `aggregate_commit`. Returns
+    (new carry, per-node counts i32, placed): the counts of every node, or
+    the block's on a mesh. The loop's statistics (WAVE_STATS) are added to
     `schedule_wave.stats`, an i32 tensor on the wrapper's device (adding it
     up does not wait for the card)."""
+    N = global_nodes(tb, mesh)
     if _on_cpu(tb.alloc):
         j, placed, st = schedule_wave_plain(tb, cry, g, m, cap1, w, filters, block, kmax,
                                             gpu_live, mesh)
         stats = torch.tensor([st[k] for k in WAVE_STATS], dtype=torch.int32)
-    elif _epoch_shards(mesh, tb.alloc.shape[0]) > 1:
+    elif _epoch_shards(mesh, N) > 1:
         j, placed, stats = schedule_wave_sharded_kernel(tb, cry, g, m, cap1, w, filters, block,
                                                         kmax, gpu_live, mesh)
-    elif _round_shards(mesh, tb.alloc.shape[0]) > 1:
+    elif _round_shards(mesh, N) > 1:
         j, placed, stats = schedule_wave_rounds_kernel(tb, cry, g, m, cap1, w, filters, block,
                                                        kmax, gpu_live, mesh)
     else:
@@ -3153,24 +3535,32 @@ def schedule_wave(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
                                                 gpu_live)
     prev = schedule_wave.stats
     schedule_wave.stats = stats if prev is None or prev.device != stats.device else prev + stats
-    return aggregate_commit(tb, cry, g, j, gpu_live), j, placed
+    j = _block_counts(j, mesh)
+    return aggregate_commit(tb, cry, g, j, gpu_live, mesh), j, placed
 
 
 def schedule_group_serial(tb: Tables, cry: Carry, g: int, valid, cap1: bool,
                           w: ScoreWeights = DEFAULT_WEIGHTS,
                           filters: FilterFlags = DEFAULT_FILTERS,
-                          ss_live: bool = False, sa_live: bool = False, n_zones: int = 2):
+                          ss_live: bool = False, sa_live: bool = False, n_zones: int = 2,
+                          mesh=None):
     """The serial scan of one group with live spread state (JAX
     `schedule_group_serial`): the plain version for CPU tensors, K4 for CUDA
-    tensors, then `aggregate_commit`. Returns (new carry, per-node counts [N]
-    i32, placed)."""
-    if _on_cpu(tb.alloc):
+    tensors (on a partitioned node `mesh`, the scan on this rank's block:
+    K13, or `schedule_group_serial_sharded_plain` for CPU tensors), then
+    `aggregate_commit`. Returns (new carry, per-node counts i32, placed):
+    the block's counts on a mesh, placed global."""
+    if _partitioned(mesh):
+        run = (schedule_group_serial_sharded_plain if _on_cpu(tb.alloc)
+               else schedule_group_serial_sharded_kernel)
+        j, placed = run(tb, cry, g, valid, cap1, mesh, w, filters, ss_live, sa_live, n_zones)
+    elif _on_cpu(tb.alloc):
         j, placed = schedule_group_serial_plain(tb, cry, g, valid, cap1, w, filters,
                                                 ss_live, sa_live, n_zones)
     else:
         j, placed = schedule_group_serial_kernel(tb, cry, g, valid, cap1, w, filters,
                                                  ss_live, sa_live, n_zones)
-    return aggregate_commit(tb, cry, g, j), j, placed
+    return aggregate_commit(tb, cry, g, j, mesh=mesh), j, placed
 
 
 def schedule_affinity_wave(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
@@ -3179,21 +3569,23 @@ def schedule_affinity_wave(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
                            n_zones: int = 2, mesh=None):
     """Place up to m pods of affinity-route group g, exactly as m serial
     steps would (JAX `schedule_affinity_wave`): the plain version for CPU
-    tensors, K5 for CUDA tensors (on a node `mesh`, K9 where it takes the
-    sharded epoch path and K11 where it takes the sharded tail above the
-    epoch limit), then `aggregate_commit`. Returns (new carry, per-node
-    counts [N] i32, placed). The epoch statistics (AFFINITY_STATS) are
+    tensors, K5 for CUDA tensors (on a partitioned node `mesh`, whose block
+    `tb` and `cry` are, K9 where it takes the sharded epoch path and K11
+    where it takes the sharded tail above the epoch limit), then
+    `aggregate_commit`. Returns (new carry, per-node counts i32, placed):
+    the block's counts on a mesh. The epoch statistics (AFFINITY_STATS) are
     added to `schedule_affinity_wave.stats`, an i32 tensor on the wrapper's
     device (adding them up does not wait for the card), and this call's
     alone are `schedule_affinity_wave.last_stats`."""
+    N = global_nodes(tb, mesh)
     if _on_cpu(tb.alloc):
         j, placed, st = schedule_affinity_wave_plain(tb, cry, g, m, cap1, ss_live, w, filters,
                                                      block, n_zones, mesh)
         stats = torch.tensor([st[k] for k in AFFINITY_STATS], dtype=torch.int32)
-    elif _epoch_shards(mesh, tb.alloc.shape[0]) > 1:
+    elif _epoch_shards(mesh, N) > 1:
         j, placed, stats = schedule_affinity_wave_sharded_kernel(
             tb, cry, g, m, cap1, ss_live, w, filters, block, n_zones, mesh)
-    elif _round_shards(mesh, tb.alloc.shape[0]) > 1:
+    elif _round_shards(mesh, N) > 1:
         j, placed, stats = schedule_affinity_wave_rounds_kernel(
             tb, cry, g, m, cap1, ss_live, w, filters, block, n_zones, mesh)
     else:
@@ -3203,7 +3595,8 @@ def schedule_affinity_wave(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
     schedule_affinity_wave.stats = (stats if prev is None or prev.device != stats.device
                                     else prev + stats)
     schedule_affinity_wave.last_stats = stats
-    return aggregate_commit(tb, cry, g, j), j, placed
+    j = _block_counts(j, mesh)
+    return aggregate_commit(tb, cry, g, j, mesh=mesh), j, placed
 
 
 # ------------------------------------------------------------------- lanes ----
@@ -3919,7 +4312,9 @@ _WRAPPERS = {"schedule_batch": schedule_batch, "feasibility": feasibility_jit,
              "schedule_wave_rounds": schedule_wave_rounds_kernel,
              "schedule_affinity_wave_rounds": schedule_affinity_wave_rounds_kernel,
              "schedule_batch_sharded": schedule_batch_sharded_kernel,
-             "explain_sharded": explain_sharded_kernel}
+             "explain_sharded": explain_sharded_kernel,
+             "schedule_group_serial_sharded": schedule_group_serial_sharded_kernel,
+             "aggregate_commit_sharded": aggregate_commit_sharded_kernel}
 for _f in _WRAPPERS.values():
     _f.launches = 0
 # the sharded kernels' reads of (placed, last), one per epoch or round
@@ -3937,7 +4332,8 @@ BRANCH_LAUNCHES = dict.fromkeys(("feasibility/gpu_storage", "schedule_batch/gpu_
                                  "schedule_wave/gpu_live", "aggregate_commit/gpu_live",
                                  "schedule_wave_sharded/gpu_live",
                                  "schedule_wave_rounds/gpu_live",
-                                 "schedule_batch_sharded/gpu_storage"), 0)
+                                 "schedule_batch_sharded/gpu_storage",
+                                 "aggregate_commit_sharded/gpu_live"), 0)
 
 
 def reset_launch_counts() -> None:

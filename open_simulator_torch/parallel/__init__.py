@@ -11,6 +11,7 @@ from .mesh import (
     NodeMesh,
     ScenarioMesh,
     ShardedKernels,
+    block_of,
     carry_reshard_bytes,
     carry_shardings,
     epoch_shards,
@@ -35,6 +36,7 @@ __all__ = [
     "ScenarioMesh",
     "ShardedKernels",
     "all_gather_rows",
+    "block_of",
     "carry_reshard_bytes",
     "carry_shardings",
     "choose_backend",

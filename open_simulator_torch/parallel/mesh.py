@@ -2,93 +2,89 @@
 (port of `open_simulator_tpu/parallel/mesh.py`).
 
 Node axis. Every rank runs the same `Simulator` on the same input: it
-encodes the same `BatchTables` and holds the whole tables and carry,
-replicated. The encoder pads the node axis to a multiple of the shard
-count with phantom nodes, infeasible for every pod. Rank r works on nodes
-[r*NL, (r+1)*NL), NL = N / shards, exactly as the JAX `shard_map` in_specs
-slice them. The sharded paths, all on a 1-D node mesh of more than one
-shard with N a multiple of the shard count, split at
-OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES (default 2,048, read on every
-call; JAX reads it at import):
+encodes the same `BatchTables`, and the encoder pads the node axis to a
+multiple of the shard count with phantom nodes, infeasible for every pod.
+On a 1-D node mesh of more than one shard the layout is partitioned (JAX
+`table_shardings`, `carry_shardings`, `to_device_sharded`): rank r stages
+and holds only its block [r*NL, (r+1)*NL), NL = N / shards, of the node
+axis of every [*, N] table (`static_mask`, the `mask_*` and `*_raw` [G, N]
+tables, `counter_dom`, `topo_dom`, `carr_dom`, `node_zone`) and [N, *]
+table and carry row (`alloc`, `dev_total`, the volume-group and
+storage-device tables; `requested`, `nonzero`, `port_used`, `dev_used`,
+`vg_req`, `sdev_alloc`); every per-group table, `counter_topo`,
+`carr_topo` and the carry's domain counters `counter` and `carrier`
+[*, D+1] are whole on every rank. `table_shardings` and `carry_shardings`
+give each leaf's `NodeBlock` rule; `carry_reshard_bytes` counts the bytes
+of carry leaves out of that layout (0 on every chained dispatch). Every
+route runs on the block (the engine passes the mesh to every kernel
+wrapper; ops/kernels.py):
 
-- The epoch path, N at most the limit (`epoch_shards`; JAX
-  `_mesh_axis_shards` and the `shard_map` loops of ops/kernels.py): the
-  epoch front of `schedule_wave` and `schedule_affinity_wave` runs on the
-  rank's block, and each epoch makes exactly two collectives
-  (collectives.py): one `pmax` of a stacked vector that holds every
-  normalizer (mins ride negated: -max(-x) == min(x)) and one tiled
-  `all_gather` of the payload, the rank's score-table block and the
-  per-node rows the selection reads. The selection tail then runs on every
-  rank on the full-width arrays (K8, K9).
-
-Above the limit (`round_shards`: JAX keeps XLA's GSPMD form of the plain
-loops there, :1273 and :2095) both waves run every per-node stage on the
-rank's block and exchange only block summaries and block tops:
-
-- The per-round path of `schedule_wave`: every stage of a round reads the
-  tables and the carry only on the rank's block but the merge, and each
-  round makes exactly four collectives: `pmax` #1 of the six normalizer
-  maxima; `all_gather_rows` #1 of each block's summary (its first two
-  maxima of the hidden-entry bound and its best head, as (value, global
-  node), and its feasible count); `all_gather_rows` #2 of each block's top
-  c = min(K, m - placed, NL*B) guarded entries (key, exhaust flag) and its
-  guarded count, from which every rank merges the same global top; `pmax`
-  #2 of the six maxima over the nodes that top leaves feasible. Exact: the maxima are
-  order-free, ties break on global node and flat indices, and the top of
-  the union of the blocks' tops is the unsharded top (csrc/wave_rounds.cu
-  K10, ops/kernels.py `_wave_round_sharded`). Its cost per round: four
-  collectives and one host read of (placed, last), and the block's radix
-  select and the merge's over shards*c keys, one block each.
-- The sharded tail of `schedule_affinity_wave`: each epoch's front, score
-  table, SelectorSpread blend, guard and top c = min(K_EP, NL*B) entries run
-  on the block; the rounds run on every rank on the merged list and the
-  replicated [D+1] counters, so they need no collective (a round reads only
-  the candidates and the counters, and the only per-node state it writes
-  is a domain's "ever blocked" bit). An epoch makes two to four
-  collectives, by branch (`NodeMesh.tail_branches`): all_gather_rows #1 of
-  the block's stacked maxima, three flags and the block's SelectorSpread
-  zone sums (integer-valued: summed in rank order, exact); all_gather_rows
-  #2 of the block summaries (the two largest hidden-entry bounds and the
-  best head as (value, global node), the usable count) — "head" ends
-  there when the epoch cannot take several pods; all_gather_rows #3 of
-  each block's top c keys with their budget domains, whose top K_EP is the
-  unsharded top — "select" ends there when the rounds take nothing; pmax
-  #4 of the sandwich's maxima over the block — "sandwich" (csrc/
-  affinity_rounds.cu K11, ops/kernels.py `epoch_rounds` in
-  `schedule_affinity_wave_plain`). The host reads one to three small values
-  per epoch.
-
-In every path the per-node counts, `placed`, the statistics and K3c's new
-carry are equal on every rank (JAX's out_specs `P()`). On the replicated
-layout the serial routes (K2, K4, K1, K7) and the commit (K3c) run
-replicated on every rank.
-
-The partitioned layout (JAX `table_shardings`, `carry_shardings`,
-`to_device_sharded`): each rank stages and holds only its block [r*NL,
-(r+1)*NL) of the node axis of every [*, N] table (`static_mask`, the
-`mask_*` and `*_raw` [G, N] tables, `counter_dom`, `topo_dom`, `carr_dom`,
-`node_zone`) and [N, *] table and carry row (`alloc`, `dev_total`, the
-volume-group and storage-device tables; `requested`, `nonzero`,
-`port_used`, `dev_used`, `vg_req`, `sdev_alloc`); every per-group table,
-`counter_topo`, `carr_topo` and the carry's domain counters `counter` and
-`carrier` [*, D+1] are whole on every rank. `table_shardings` and
-`carry_shardings` give each leaf's `NodeBlock` rule; `carry_reshard_bytes`
-counts the bytes of carry leaves out of that layout (0 on every chained
-dispatch). The serial scan runs on it (`schedule_batch_on_mesh`, and the
-engine on a node mesh with `use_waves = False`): `kernels.schedule_batch`,
-`feasibility_jit` and `explain_jit` with the mesh take the block (K12,
-csrc/batch_sharded.cu; K1 on the block; K12's explain mode), two
-`all_gather_rows` per pod and a `pmax` for a pod whose group has
-ScheduleAnyway terms, the diagnostics' masks gathered tiled at the fetch.
-The other routes (K4, K3c and the wave kernels' setups) still read the
-replicated layout (ROADMAP B13b (c2)).
+- the serial scan (`schedule_batch_on_mesh`, and the engine's serial
+  segments): K12, per pod two `all_gather_rows` and a `pmax` for a group
+  with ScheduleAnyway terms; `feasibility_jit` and `explain_jit` with the
+  mesh take the block (K1; K12's explain mode), their masks gathered tiled
+  at the fetch;
+- the group-serial scan (`schedule_group_serial`): K13, K4's hoisted run
+  state on the block and K12's per-pod stages, the same collectives;
+- the commit of a counted segment (`aggregate_commit`): K14, the block's
+  rows, then the replicated counters from ONE `all_gather_rows` of every
+  block's per-domain counts, summed in rank order (integer-valued: exact);
+- the waves, split at OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES (default
+  2,048, read on every call; JAX reads it at import):
+  - the epoch path, N at most the limit (`epoch_shards`; JAX
+    `_mesh_axis_shards` and the `shard_map` loops of ops/kernels.py): the
+    segment constants and the epoch front of `schedule_wave` and
+    `schedule_affinity_wave` run on the block, and each epoch makes
+    exactly two collectives (collectives.py): one `pmax` of a stacked
+    vector that holds every normalizer (mins ride negated: -max(-x) ==
+    min(x)) and one tiled `all_gather` of the payload: the block's
+    score-table rows and every per-node value the selection tail reads
+    (the normalizer inputs; for the affinity wave also the zone, the
+    budget domain, the static flags and every term's domain). The tail
+    then runs on every rank on the gathered full-width rows (K8, K9).
+  - above the limit (`round_shards`; JAX keeps XLA's GSPMD form of the
+    plain loops there, :1273 and :2095) both waves run every per-node stage
+    on the block and exchange only block summaries and block tops:
+    - the wave's per-round path: each round makes exactly four
+      collectives: `pmax` #1 of the six normalizer maxima;
+      `all_gather_rows` #1 of each block's summary (its first two maxima of
+      the hidden-entry bound and its best head, as (value, global node),
+      and its feasible count); `all_gather_rows` #2 of each block's top c =
+      min(K, m - placed, NL*B) guarded entries (key, exhaust flag) and its
+      guarded count, from which every rank merges the same global top;
+      `pmax` #2 of the six maxima over the nodes that top leaves feasible.
+      Exact: the maxima are order-free, ties break on global node and flat
+      indices, and the top of the union of the blocks' tops is the
+      unsharded top (csrc/wave_rounds.cu K10, ops/kernels.py
+      `_wave_round_sharded`).
+    - the affinity wave's sharded tail: each epoch's front, score table,
+      SelectorSpread blend, guard and top c = min(K_EP, NL*B) entries run
+      on the block; the rounds run on every rank on the merged list and the
+      replicated [D+1] counters, so they need no collective. An epoch makes
+      two to four collectives, by branch (`NodeMesh.tail_branches`):
+      all_gather_rows #1 of the block's stacked maxima, four flags and the
+      block's SelectorSpread zone sums (integer-valued: summed in rank
+      order, exact); all_gather_rows #2 of the block summaries (the two
+      largest hidden-entry bounds and the best head as (value, global
+      node) with every term's domain at that head, the usable count) —
+      "head" ends there when the epoch cannot take several pods;
+      all_gather_rows #3 of each block's top c keys with their budget
+      domains and every term's domain at their node, whose top K_EP is the
+      unsharded top — "select" ends there when the rounds take nothing;
+      pmax #4 of the sandwich's maxima over the block — "sandwich"
+      (csrc/affinity_rounds.cu K11, ops/kernels.py `epoch_rounds` in
+      `schedule_affinity_wave_plain`).
+In every wave path the per-node counts, `placed` and the statistics are
+equal on every rank (JAX's out_specs `P()`); the engine keeps the block's
+part of the counts, commits it (K14) and gathers the blocks once per run at
+its fetch. The host reads one to three small values per epoch or round.
 
 Scenario axis. `make_scenario_mesh(n)` is JAX's pure-scenario mesh
 ('scenarios' = n, 'nodes' = 1) over the n ranks of the process group, and
 `make_node_mesh(n, scenario_axis=k)` its 2-D form: k scenario groups of
-n/k consecutive ranks, the node axis replicated within a group (the
-partitioned layout is A12b), so no wave kernel takes the epoch path on it,
-as in JAX. The S lanes of a probe, serve or sweep fan-out are independent:
+n/k consecutive ranks, the node axis replicated within a group (JAX's
+`fanout_shardings` partition it there: ROADMAP A12), so no wave kernel
+takes the epoch path on it, as in JAX. The S lanes of a probe, serve or sweep fan-out are independent:
 K2-K5 and K3c over lanes run one block per lane and read nothing of another
 lane. So scenario group r runs lanes [r*S/k, (r+1)*S/k) through the same
 lane kernels (`ShardedKernels`: the eight fan-outs of `kernels`, by name and
@@ -324,6 +320,17 @@ def to_device_sharded(bt, mesh) -> Tuple[kernels.Tables, kernels.Carry, object]:
     return tables, carry, bt
 
 
+def block_of(tables: kernels.Tables, carry: kernels.Carry, mesh) -> tuple:
+    """This rank's block of tables and a carry of every node (tensors, the
+    node axis a multiple of the shard count), as `to_device_sharded` stages
+    them: (tables block, carry block), contiguous copies on the tensors'
+    device. The tests and chip_smoke.py hold a kernel on the block against
+    an unsharded one on the whole tables with it."""
+    N = int(tables.alloc.shape[0])
+    return (kernels.Tables(*(r(t).contiguous() for t, r in zip(tables, table_shardings(mesh, N)))),
+            kernels.Carry(*(r(t).contiguous() for t, r in zip(carry, carry_shardings(mesh, N)))))
+
+
 def carry_reshard_bytes(carry, shardings) -> int:
     """Bytes of the carry leaves whose shape or device differs from the
     declared layout `shardings` (`carry_shardings(mesh, n_nodes)`): what a
@@ -520,9 +527,9 @@ class ShardedKernels:
     for CPU tensors) and returns this rank's block; chained segments keep
     the carry block on the rank's device. Nothing here gathers: the caller
     fetches the outputs it reads with `fetch_lanes`. The node axis needs no
-    namespace of its own: the engine passes its mesh to
-    `kernels.schedule_wave` and `kernels.schedule_affinity_wave`, and every
-    other kernel runs unsharded on the replicated tensors of each rank."""
+    namespace of its own: the engine passes its mesh to every
+    kernel wrapper of `kernels`, which takes the rank's block of the
+    partitioned layout."""
 
     def __init__(self, mesh: ScenarioMesh) -> None:
         if SCENARIO_AXIS not in mesh.axis_names:

@@ -52,27 +52,31 @@ Left out of this port so far, each with the ROADMAP item it waits for:
 - custom scheduler configs and out-of-tree plugins: A7;
 - the watchdog, CPU failover, fault injection and transactional rollback
   (resilience/), and the pulse and scope instrumentation (obs/): A9;
-- the columnar PodStore/NodeStore batches: A14;
-- the partitioned table layout on the default route (B13b (c2)).
+- the columnar PodStore/NodeStore batches: A14.
 
-On a node mesh (`use_mesh`, parallel/mesh.py) every rank runs this engine
-on the same input; the encoder pads the node axis to a multiple of the
-shard count. On the default route the tables and carry are replicated, and
-the "wave" and "affinity" routes pass the mesh to their kernels, whose
-epoch fronts run on the rank's node block with two collectives per epoch
-(K8, K9 on the card); above the epoch limit the wave's rounds run on the
-block with four collectives per round (K10), and the affinity wave's epochs
-on the block but their rounds, with two to four collectives per epoch
-(K11). The segment router decides as it does without a mesh. With
-`use_waves = False` the layout is partitioned (`_partition_mesh`, JAX's
-`to_device_sharded` staging): each rank stages and holds only its block of
-the node axis, the serial scan runs on it (K12: two `all_gather_rows` per
-pod, a `pmax` more for a group with ScheduleAnyway terms), the FitError
-reasons and the recorder's decision sets come from K1 and K12's explain
-mode on the block, gathered at the fetch, and the host commits the global
-choices, which are equal on every rank. Each partitioned dispatch adds the
-bytes of any carry leaf out of that layout to simon_reshard_bytes_total
-(0 by construction).
+On a 1-D node mesh of more than one shard (`use_mesh`, parallel/mesh.py)
+every rank runs this engine on the same input; the encoder pads the node
+axis to a multiple of the shard count, and the layout is partitioned on
+every route (`_partition_mesh`, JAX's `to_device_sharded` staging): each
+rank stages and holds only its block of every node-axis table and carry
+row, and every segment kind runs on it. The segment router decides as it
+does without a mesh:
+- "serial": K12, two `all_gather_rows` per pod and a `pmax` more for a
+  group with ScheduleAnyway terms;
+- "spread": K13 (the group-serial scan on the block), the same per pod;
+- "wave": K8's epoch fronts on the block with two collectives per epoch;
+  above the epoch limit K10's rounds with four per round;
+- "affinity": K9's epoch fronts on the block with two per epoch; above the
+  limit K11's epochs on the block but their rounds, two to four per epoch;
+- every non-serial segment then commits with K14: the block's rows, and
+  the replicated domain counters from one `all_gather_rows` of the blocks'
+  per-domain counts.
+A counted segment returns its block's per-node counts; the one fetch of a
+run gathers them with one `all_gather_tiled`. The FitError reasons and the
+recorder's decision sets come from K1 and K12's explain mode on the block,
+gathered at the fetch, and the host commits the global choices, which are
+equal on every rank. Each dispatch adds the bytes of any carry leaf out of
+that layout to simon_reshard_bytes_total (0 by construction).
 """
 
 from __future__ import annotations
@@ -496,14 +500,12 @@ class Simulator:
 
     def _partition_mesh(self):
         """The node mesh whose partitioned layout this run stages, or None:
-        a 1-D node mesh of more than one shard with `use_waves = False` (the
-        serial route, which runs on the block; the default route keeps the
-        replicated layout)."""
+        a 1-D node mesh of more than one shard (every route runs on the
+        block)."""
         from ..parallel.mesh import NODE_AXIS
 
         mesh = self._resolve_mesh()
-        if (self.use_waves or mesh is None or mesh.shards <= 1
-                or tuple(mesh.axis_names) != (NODE_AXIS,)):
+        if mesh is None or mesh.shards <= 1 or tuple(mesh.axis_names) != (NODE_AXIS,):
             return None
         return mesh
 
@@ -657,12 +659,21 @@ class Simulator:
 
     def _dispatch(self, seg: tuple, bt: BatchTables, tables, carry, flags: Tuple[bool, bool]):
         """One segment's kernel dispatch from `carry` (its start carry):
-        returns (end carry, i32 result on the device): per-pod choices of a
-        serial segment, per-node counts of every other kind. `flags`:
+        returns (end carry, i32 result on the device, pods placed): per-pod
+        choices of a serial segment, per-node counts of every other kind
+        (the block's on a partitioned mesh; `placed` is global). `flags`:
         (enable_gpu, enable_storage) of the batch, for the serial scan."""
+        out = self._dispatch_segment(seg, bt, tables, carry, flags)
+        if self._partition_mesh() is not None:
+            self._audit_reshard(out[0], bt)
+        return out
+
+    def _dispatch_segment(self, seg: tuple, bt: BatchTables, tables, carry,
+                          flags: Tuple[bool, bool]):
         kind, start, length = seg[:3]
         w, filters = self.score_w, self.filter_flags
         dims = self._dispatch_dims(bt)
+        mesh = self._partition_mesh()
         if kind == "serial":
             pad = bucket_capped(length, 2048)
             obs.record_dispatch("schedule_batch", P=pad, zones=bt.n_zones, gpu=flags[0],
@@ -673,25 +684,19 @@ class Simulator:
             fn[:length] = bt.forced_node[start:start + length]
             vd = np.zeros(pad, bool)
             vd[:length] = True
-            mesh = self._partition_mesh()
-            out = kernels.schedule_batch(
+            carry, choices = kernels.schedule_batch(
                 tables, carry, torch.from_numpy(pg), torch.from_numpy(fn),
                 torch.from_numpy(vd), n_zones=bt.n_zones, w=w, filters=filters,
                 enable_gpu=flags[0], enable_storage=flags[1], mesh=mesh)
-            if mesh is not None:
-                self._audit_reshard(out[0], bt)
-            return out
+            return carry, choices, (choices >= 0).sum(dtype=torch.int32)
         g, cap1 = seg[3], bool(seg[4])
         if kind == "wave":
             block = kernels.wave_block_for(length, self.na.N)
             kmax = kernels.wave_kmax(length, self.na.N, block)
             obs.record_dispatch("schedule_wave", block=block, k=kmax, gpu_live=bool(seg[5]),
                                 **dims)
-            carry, counts, _ = kernels.schedule_wave(tables, carry, g, length, cap1, w=w,
-                                                     filters=filters, block=block, kmax=kmax,
-                                                     gpu_live=bool(seg[5]),
-                                                     mesh=self._resolve_mesh())
-            return carry, counts
+            return kernels.schedule_wave(tables, carry, g, length, cap1, w=w, filters=filters,
+                                         block=block, kmax=kmax, gpu_live=bool(seg[5]), mesh=mesh)
         if kind == "spread":
             ss_live, sa_live = bool(seg[5]), bool(seg[6])
             obs.record_dispatch("schedule_group_serial", P=bucket_capped(length, 2048),
@@ -699,19 +704,34 @@ class Simulator:
                                 **dims)
             vd = np.zeros(bucket_capped(length, 2048), bool)
             vd[:length] = True
-            carry, counts, _ = kernels.schedule_group_serial(
+            return kernels.schedule_group_serial(
                 tables, carry, g, torch.from_numpy(vd), cap1, w=w, filters=filters,
-                ss_live=ss_live, sa_live=sa_live, n_zones=bt.n_zones if ss_live else 2)
-            return carry, counts
+                ss_live=ss_live, sa_live=sa_live, n_zones=bt.n_zones if ss_live else 2, mesh=mesh)
         # "affinity": counter-live hard predicates, the epoch-batched wave
         ss_live = bool(seg[5])
         block = kernels.wave_block_for(length, self.na.N)
         obs.record_dispatch("schedule_affinity_wave", block=block, ss=ss_live,
                             zones=bt.n_zones if ss_live else 2, **dims)
-        carry, counts, _ = kernels.schedule_affinity_wave(
+        return kernels.schedule_affinity_wave(
             tables, carry, g, length, cap1, ss_live=ss_live, w=w, filters=filters, block=block,
-            n_zones=bt.n_zones if ss_live else 2, mesh=self._resolve_mesh())
-        return carry, counts
+            n_zones=bt.n_zones if ss_live else 2, mesh=mesh)
+
+    def _fetch_results(self, outs: List[tuple]) -> List[np.ndarray]:
+        """Every segment's result on the host, in segment order, from one
+        fetch: the serial segments' choices and the other segments'
+        per-node counts of every node. On a partitioned mesh the counts are
+        each rank's block, gathered with ONE all_gather_tiled for the run."""
+        mesh = self._partition_mesh()
+        if mesh is None:
+            flat = torch.cat([res for _, res, _ in outs]).cpu().numpy()
+            return np.split(flat, np.cumsum([res.shape[0] for _, res, _ in outs])[:-1])
+        from ..parallel.collectives import all_gather_tiled
+
+        blocks = [res for seg, res, _ in outs if seg[0] != "serial"]
+        full = (iter(all_gather_tiled(torch.stack(blocks), mesh, axis=1).cpu().numpy())
+                if blocks else iter(()))
+        return [res.cpu().numpy() if seg[0] == "serial" else next(full)
+                for seg, res, _ in outs]
 
     def _schedule_run_once(self, to_schedule: List[dict]) -> List[UnscheduledPod]:
         with Span("schedule_run", log_if_longer=30.0) as span:
@@ -746,19 +766,16 @@ class Simulator:
         outs: List[tuple] = []  # (seg, i32 device result, carry after the segment)
         aff_stats: Dict[int, torch.Tensor] = {}  # outs index -> [3] i32 epoch statistics
         for seg in segs:
-            carry, res = self._dispatch(seg, bt, tables, carry, flags)
+            carry, res, _ = self._dispatch(seg, bt, tables, carry, flags)
             if seg[0] == "affinity" and xb is not None:
                 aff_stats[len(outs)] = kernels.schedule_affinity_wave.last_stats
             outs.append((seg, res, carry))
         span.step("dispatch")
         self._last_carry, self._last_mesh = carry, self._partition_mesh()
-        flat = torch.cat([res for _, res, _ in outs]).cpu().numpy()
+        parts = self._fetch_results(outs)
         choices = np.full(P, -1, np.int32)
         seg_of = np.zeros(P, np.int32)
-        off = 0
-        for k, (seg, res, _) in enumerate(outs):
-            part = flat[off:off + res.shape[0]]
-            off += res.shape[0]
+        for k, ((seg, _, _), part) in enumerate(zip(outs, parts)):
             start, length = seg[1], seg[2]
             seg_of[start:start + length] = k
             if seg[0] == "serial":
@@ -908,10 +925,11 @@ class Simulator:
         segs = self._segments(bt, P) if self.use_waves else [("serial", 0, P)]
         placed_parts = []
         for seg in segs:
-            carry, res = self._dispatch(seg, bt, tables, carry, flags)
-            # a serial segment returns per-pod choices, the others per-node counts
-            placed_parts.append((res >= 0).sum(dtype=torch.int32) if seg[0] == "serial"
-                                else res.sum(dtype=torch.int32))
+            # `placed` is global: on a partitioned mesh a segment's counts
+            # are its block's share
+            carry, _, placed = self._dispatch(seg, bt, tables, carry, flags)
+            placed_parts.append(torch.as_tensor(placed, dtype=torch.int32,
+                                                device=self.device).reshape(()))
         self._last_carry, self._last_mesh = carry, self._partition_mesh()
         total = int(torch.stack(placed_parts).sum().cpu())  # one fetch
         return scheduled + total, total_known

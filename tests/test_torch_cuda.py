@@ -664,6 +664,43 @@ def test_partitioned_scan_kernel_matches_plain_on_two_ranks(tmp_path):
     assert got[0][0]["sa_pods"] > 0 and got[0][0]["failed"] > 0
 
 
+@pytest.mark.cuda
+def test_default_route_kernels_match_plain_on_two_ranks(tmp_path):
+    """K13 and K14 on two ranks that share cuda:0 over gloo, each holding its
+    block of the node axis, against their plain versions on the same ranks
+    and the unsharded K4 / K3c, bit for bit (the block's counts and placed;
+    the block's carry), on every segment of the spread prefix and of the
+    extended cluster's GPU waves, with exactly two all_gather_rows per pod,
+    a pmax per ScheduleAnyway pod and one all_gather_rows per commit; then
+    the engine's default route on the partitioned layout places the mixed,
+    hard-affinity and spread workloads as the unsharded engine on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import torch_mesh_cases as C
+    from open_simulator_torch.ops import build
+    from open_simulator_torch.parallel.launch import run_ranks
+
+    build.library()  # build once, before the ranks load it
+    got = run_ranks(C.card_default_route, 2, str(tmp_path), device="cuda", backend="gloo")
+    assert got[0] == got[1]
+    segs = got[0]["segments"]
+    spread = [r for r in segs if r["kind"] == "spread"]
+    assert {(r["ss_live"], r["sa_live"]) for r in spread} == {(False, False), (True, False),
+                                                              (False, True)}
+    for r in spread:
+        assert r["same_plain"] and r["same_unsharded"], r
+        assert r["calls"] == {"pmax": r["m"] if r["sa_live"] else 0, "all_gather_tiled": 0,
+                              "all_gather_rows": 2 * r["m"]}, r
+    for r in segs:
+        assert r["commit_plain"] and r["commit_unsharded"], r
+        assert r["commit_calls"] == {"pmax": 0, "all_gather_tiled": 0, "all_gather_rows": 1}, r
+    assert any(r["gpu_live"] for r in segs)
+    for name, r in got[0]["engine"].items():
+        assert r["same"], (name, r)
+        assert r["launches"]["aggregate_commit_sharded"] > 0, (name, r)
+    assert got[0]["engine"]["spread"]["launches"]["schedule_group_serial_sharded"] > 0
+
+
 LANE_FANOUTS = ("probe_serial_fanout", "probe_wave_fanout", "probe_group_serial_fanout",
                 "probe_affinity_wave_fanout", "serve_whatif_fanout", "serve_wave_fanout",
                 "sweep_wave_fanout", "sweep_whatif_fanout")

@@ -7,8 +7,11 @@ every case of tests/torch_mesh_cases.py on every rank. Held here:
 - end to end, on the JAX mesh tests' workloads, the port on `shards` ranks
   places every pod as the JAX Simulator on `make_node_mesh(shards)` (the 8
   virtual CPU devices of conftest.py) and as the port's unsharded run;
-- the epoch path is really taken: one `pmax` and one `all_gather_tiled` per
-  epoch of the wave and affinity segments, on both kinds;
+- the epoch path is really taken on the partitioned layout: one `pmax` and
+  one `all_gather_tiled` per epoch of the wave and affinity segments, on
+  both kinds, beside the other routes' collectives (two all_gather_rows per
+  serial pod, one per commit, one all_gather_tiled per fetch and per
+  failure diagnosis);
 - the plain sharded kernels equal the unsharded ones bit for bit (counts,
   placed, statistics) on seeded tables whose upper shards' blocks are all
   infeasible;
@@ -23,10 +26,10 @@ every case of tests/torch_mesh_cases.py on every rank. Held here:
   use_multi_pre and a pmax after rounds that took pods (none in a round),
   and equals the unsharded plain version bit for bit on seeded tables with
   the limit lowered, every branch of the epoch reached;
-- the route's rules: an N the shard count does not divide makes no
-  collective call, and above the limit the wave segments make the rounds'
-  collectives and the affinity segments the tail's; both place the same
-  pods;
+- the route's rules: an N the shard count does not divide is padded with
+  phantom nodes and places the same pods on the epoch path, and above the
+  limit the wave segments make the rounds' collectives and the affinity
+  segments the tail's; both place the same pods;
 - every rank returns the same results, and a failing rank fails the run.
 """
 
@@ -108,7 +111,10 @@ def test_one_pmax_and_one_gather_per_epoch(ranks, unsharded, shards):
         got = ranks[shards][0][name]
         epochs = got["wave"]["iterations"] + got["affinity"]["epochs"]
         calls = {k: v["calls"] for k, v in got["counts"].items()}
-        assert calls == {"pmax": epochs, "all_gather_tiled": epochs, "all_gather_rows": 0}, name
+        want = C.summed_calls({"pmax": epochs, "all_gather_tiled": epochs, "all_gather_rows": 0},
+                              C.route_calls(got))
+        assert got["dispatch_calls"] == want, name
+        assert calls == C.summed_calls(want, C.fetch_calls(got)), name
         assert got["affinity"] == unsharded[name]["affinity"], name
         assert got["wave"] == unsharded[name]["wave"], name
     mixed = ranks[shards][0]["mixed"]
@@ -141,20 +147,26 @@ def test_plain_sharded_kernels_equal_unsharded(ranks, shards):
 
 @pytest.mark.parametrize("shards", SHARDS)
 def test_route_rules_make_no_collective(ranks, unsharded, shards):
-    """An N the shard count does not divide makes no collective call; above
-    the epoch limit the wave segments take the per-round path and the
-    affinity segments the sharded tail."""
+    """An N the shard count does not divide is padded with phantom nodes,
+    whose blocks take the epoch path (one pmax and one all_gather_tiled per
+    epoch) and place as the unsharded run; above the epoch limit the wave
+    segments take the per-round path and the affinity segments the sharded
+    tail."""
     rules = ranks[shards][0]["rules"]
     ind = rules["indivisible"]
-    assert ind["N"] % shards and ind["kind"] == "affinity" and ind["same"]
-    assert ind["calls"] == {"pmax": 0, "all_gather_tiled": 0, "all_gather_rows": 0}
+    assert ind["N"] % shards and ind["padded"] % shards == 0 and ind["padded"] > ind["N"]
+    assert ind["kind"] == "affinity" and ind["same"]
+    assert ind["calls"] == {"pmax": ind["epochs"], "all_gather_tiled": ind["epochs"],
+                            "all_gather_rows": 0}
     above = rules["above_limit"]
     assert above["shards"] == shards
     rounds = above["wave"]["iterations"]
     assert rounds > 0 and above["affinity"]["epochs"] > 0
     assert C.tail_epochs(above["branches"]) == above["affinity"]["epochs"]
+    assert above["dispatch_calls"] == C.summed_calls(
+        C.round_calls(rounds), C.tail_calls(above["branches"]), C.route_calls(above))
     assert {k: v["calls"] for k, v in above["counts"].items()} == C.summed_calls(
-        C.round_calls(rounds), C.tail_calls(above["branches"]))
+        above["dispatch_calls"], C.fetch_calls(above))
     assert above["placed"] == unsharded["mixed"]["placed"]
     assert above["wave"] == unsharded["mixed"]["wave"]
     assert above["affinity"] == unsharded["mixed"]["affinity"]
@@ -174,7 +186,8 @@ def test_rounds_path_places_as_the_jax_mesh(ranks, unsharded, shards):
     assert got["wave"] == unsharded["rounds"]["wave"]
     rounds = got["wave"]["iterations"]
     assert rounds > got["census"]["wave"][0]  # some segment took two rounds or more
-    assert {k: v["calls"] for k, v in got["counts"].items()} == C.round_calls(rounds)
+    assert {k: v["calls"] for k, v in got["counts"].items()} == C.summed_calls(
+        C.round_calls(rounds), C.route_calls(got), C.fetch_calls(got))
 
 
 @pytest.mark.parametrize("shards", SHARDS)
@@ -219,7 +232,8 @@ def test_sharded_tail_places_as_the_jax_mesh(ranks, unsharded, shards):
     assert epochs > 0 and C.tail_epochs(got["branches"]) == epochs
     assert got["branches"].get("sandwich", 0) > 0  # rounds took pods, with no collective
     assert {k: v["calls"] for k, v in got["counts"].items()} == C.summed_calls(
-        C.round_calls(got["wave"]["iterations"]), C.tail_calls(got["branches"]))
+        C.round_calls(got["wave"]["iterations"]), C.tail_calls(got["branches"]),
+        C.route_calls(got), C.fetch_calls(got))
 
 
 @pytest.mark.parametrize("shards", SHARDS)

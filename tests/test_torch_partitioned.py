@@ -55,9 +55,14 @@ SHARDS = (2, 4)
 def ranks(tmp_path_factory):
     """{shards: every rank's records}, one spawn per world size, both
     worlds at once."""
+    # the directories are made before the threads: two first calls of
+    # mktemp at once race to make pytest's base directory
+    dirs = {w: (str(tmp_path_factory.mktemp(f"prdzv{w}")),
+                str(tmp_path_factory.mktemp(f"pxray{w}"))) for w in SHARDS}
+
     def spawn(w):
-        return run_ranks(C.partitioned_cases, w, str(tmp_path_factory.mktemp(f"prdzv{w}")),
-                         args=("cpu", str(tmp_path_factory.mktemp(f"pxray{w}"))), device="cpu")
+        return run_ranks(C.partitioned_cases, w, dirs[w][0], args=("cpu", dirs[w][1]),
+                         device="cpu")
 
     with ThreadPoolExecutor(len(SHARDS)) as pool:
         return dict(zip(SHARDS, pool.map(spawn, SHARDS)))

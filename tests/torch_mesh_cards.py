@@ -2,11 +2,12 @@
 
     python tests/torch_mesh_cards.py [RANKS]      # default: every card of the host
 
-The node axis, on each rank: K8 and K9 against their plain sharded versions
-and the unsharded K3 / K5 on the seeded workload of
-tests/torch_mesh_cases.py, and the engine on the mesh against the
-unsharded engine on the JAX mesh tests' workloads, with one pmax and one
-all-gather per epoch; then the wave's per-round path above the epoch
+The node axis, on each rank's block of the partitioned layout: K8 and K9
+against their plain sharded versions and the unsharded K3 / K5 on the
+seeded workload of tests/torch_mesh_cases.py, and the engine's default
+route on the mesh against the unsharded engine on the JAX mesh tests'
+workloads, with one pmax and one all-gather per epoch beside the other
+routes' collectives (`route_calls`, `fetch_calls`); then the wave's per-round path above the epoch
 limit: K10 against its plain per-round version and K3 on the seeded
 per-round cases (the limit at 16), and the engine on the N = 2,560
 `rounds_workload` (the default limit) against the unsharded engine, with
@@ -77,16 +78,22 @@ def rank_fn(mesh) -> dict:
         nodes, pods = make()
         got = C.run_engine(nodes, pods, mesh=mesh, device="cuda")
         want = C.run_engine(nodes, pods, mesh=None, device="cuda")
+        epochs = got["wave"]["iterations"] + got["affinity"]["epochs"]
         out[name] = {"same": got["placed"] == want["placed"] and got["failed"] == want["failed"],
                      "calls": {k: v["calls"] for k, v in got["counts"].items()},
-                     "epochs": got["wave"]["iterations"] + got["affinity"]["epochs"]}
+                     "epochs": epochs,
+                     "want": C.summed_calls({"pmax": epochs, "all_gather_tiled": epochs,
+                                             "all_gather_rows": 0},
+                                            C.route_calls(got), C.fetch_calls(got))}
     out["round_kernels"] = C.card_round_kernels(mesh)
     nodes, pods = C.rounds_workload()
     got = C.run_engine(nodes, pods, mesh=mesh, device="cuda")
     want = C.run_engine(nodes, pods, mesh=None, device="cuda")
     out["rounds"] = {"same": got["placed"] == want["placed"] and got["failed"] == want["failed"],
                      "calls": {k: v["calls"] for k, v in got["counts"].items()},
-                     "rounds": got["wave"]["iterations"]}
+                     "rounds": got["wave"]["iterations"],
+                     "want": C.summed_calls(C.round_calls(got["wave"]["iterations"]),
+                                            C.route_calls(got), C.fetch_calls(got))}
     out["tail_kernels"] = C.card_tail_kernels(mesh)
     nodes, pods, services = C.tail_workload()
     got = C.run_engine(nodes, pods, services, mesh=mesh, device="cuda")
@@ -94,7 +101,8 @@ def rank_fn(mesh) -> dict:
     out["tail"] = {"same": got["placed"] == want["placed"] and got["failed"] == want["failed"],
                    "calls": {k: v["calls"] for k, v in got["counts"].items()},
                    "want": C.summed_calls(C.round_calls(got["wave"]["iterations"]),
-                                          C.tail_calls(got["branches"])),
+                                          C.tail_calls(got["branches"]), C.route_calls(got),
+                                          C.fetch_calls(got)),
                    "epochs": got["affinity"]["epochs"],
                    "tail_epochs": C.tail_epochs(got["branches"])}
     out["scenario"] = scenario_cases()
@@ -119,18 +127,14 @@ def main() -> int:
         print(json.dumps(r))
     ok = all(r["backend"] == "nccl" and r["transport"] == "direct" for r in res)
     ok &= all(k["same_plain"] and k["same_unsharded"] for r in res for k in r["kernels"])
-    ok &= all(r[n]["same"] and r[n]["epochs"] > 0
-              and r[n]["calls"] == {"pmax": r[n]["epochs"], "all_gather_tiled": r[n]["epochs"],
-                                    "all_gather_rows": 0}
+    ok &= all(r[n]["same"] and r[n]["epochs"] > 0 and r[n]["calls"] == r[n]["want"]
               for r in res for n in C.WORKLOADS)
     ok &= all(k["same_plain"] and k["same_unsharded"]
               and k["calls"] == {"pmax": 2 * k["stats"][0], "all_gather_tiled": 0,
                                  "all_gather_rows": 2 * k["stats"][0]}
               for r in res for k in r["round_kernels"])
     ok &= all(r["rounds"]["same"] and r["rounds"]["rounds"] > 0
-              and r["rounds"]["calls"] == {"pmax": 2 * r["rounds"]["rounds"], "all_gather_tiled": 0,
-                                           "all_gather_rows": 2 * r["rounds"]["rounds"]}
-              for r in res)
+              and r["rounds"]["calls"] == r["rounds"]["want"] for r in res)
     ok &= all(k["same_plain"] and k["same_unsharded"] and k["same_branches"]
               and k["calls"] == C.tail_calls(k["branches"])
               for r in res for k in r["tail_kernels"])

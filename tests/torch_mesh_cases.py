@@ -178,10 +178,23 @@ def run_engine(nodes, pods, services=(), mesh=None, device="cpu") -> dict:
     K.reset_launch_counts()
     sim = Simulator(copy.deepcopy(nodes), device=device, use_mesh=mesh is not None)
     sim.register_cluster_objects(ResourceTypes(services=list(services)))
+    taps = {"dispatch": [], "explains": 0, "fetches": 0}
     if mesh is not None:
         assert sim._resolve_mesh().shards == mesh.shards
         sim._mesh = mesh  # read the collective counters of this rank's mesh
         mesh.reset_counts()
+        fetch, explain = sim._fetch_results, sim._explain_reasons
+
+        def tapped_fetch(outs):  # the dispatches' collectives, before the fetch's
+            taps["dispatch"].append(copy.deepcopy(mesh.counts))
+            taps["fetches"] += any(seg[0] != "serial" for seg, _, _ in outs)
+            return fetch(outs)
+
+        def tapped_explain(*args):
+            taps["explains"] += 1
+            return explain(*args)
+
+        sim._fetch_results, sim._explain_reasons = tapped_fetch, tapped_explain
     failed = sim.schedule_pods(copy.deepcopy(pods))
     out = placements(sim, failed)
     out.update(census={k: list(v) for k, v in sim.segment_census.items()},
@@ -189,8 +202,42 @@ def run_engine(nodes, pods, services=(), mesh=None, device="cpu") -> dict:
                launches={k: v for k, v in K.launch_counts().items() if "sharded" in k},
                shards=sim._mesh.shards if sim._mesh is not None else 1,
                counts=copy.deepcopy(mesh.counts) if mesh is not None else None,
-               branches=dict(mesh.tail_branches) if mesh is not None else None)
+               branches=dict(mesh.tail_branches) if mesh is not None else None,
+               fetches=taps["fetches"], explains=taps["explains"],
+               # the calls before the last run's fetch (one run: its dispatches')
+               dispatch_calls=({k: v["calls"] for k, v in taps["dispatch"][-1].items()}
+                               if taps["dispatch"] else None))
     return out
+
+
+def route_calls(rec: dict, sa_pods: int = 0) -> dict:
+    """The collective calls every segment of an engine run (`run_engine` on
+    a mesh) makes besides its route's epochs or rounds: two all_gather_rows
+    per serial and group-serial pod (K12, K13), a pmax per such pod whose
+    group has ScheduleAnyway terms (`sa_pods`), one all_gather_rows per
+    commit of a counted segment (K14)."""
+    census = rec["census"]
+    counted = sum(v[0] for k, v in census.items() if k != "serial")
+    scanned = sum(census.get(k, [0, 0])[1] for k in ("serial", "spread"))
+    return {"pmax": sa_pods, "all_gather_tiled": 0, "all_gather_rows": 2 * scanned + counted}
+
+
+def fetch_calls(rec: dict) -> dict:
+    """The calls of an engine run besides its dispatches': one
+    all_gather_tiled per run that has a counted segment (the block counts'
+    fetch) and one per failure diagnosis (K1 on the block, gathered)."""
+    return {"pmax": 0, "all_gather_tiled": rec["fetches"] + rec["explains"],
+            "all_gather_rows": 0}
+
+
+def on_mesh(tb, cry, mesh) -> tuple:
+    """(tables, carry) as a kernel on `mesh` takes them: this rank's block
+    of the partitioned layout, or the whole tables without a mesh."""
+    if mesh is None:
+        return tb, cry
+    from open_simulator_torch.parallel.mesh import block_of
+
+    return block_of(tb, cry, mesh)
 
 
 def kernel_segments(mesh, device="cpu", seed: int = 7, cordon_from: int = 32) -> list:
@@ -220,14 +267,15 @@ def kernel_segments(mesh, device="cpu", seed: int = 7, cordon_from: int = 32) ->
         for msh in (None, mesh):
             if msh is not None:
                 msh.reset_counts()
+            tbm, crym = on_mesh(tb, cry, msh)
             if kind == "wave":
                 kmax = K.wave_kmax(m, sim.na.N, block)
-                j, placed, st = K.schedule_wave_plain(tb, cry, g, m, bool(cap1), block=block,
+                j, placed, st = K.schedule_wave_plain(tbm, crym, g, m, bool(cap1), block=block,
                                                       kmax=kmax, gpu_live=bool(seg[5]), mesh=msh)
             else:
                 nz = bt.n_zones if seg[5] else 2
                 j, placed, st = K.schedule_affinity_wave_plain(
-                    tb, cry, g, m, bool(cap1), ss_live=bool(seg[5]), block=block, n_zones=nz,
+                    tbm, crym, g, m, bool(cap1), ss_live=bool(seg[5]), block=block, n_zones=nz,
                     mesh=msh)
             runs.append({"j": j.tolist(), "placed": int(placed), "stats": dict(st),
                          "counts": copy.deepcopy(msh.counts) if msh is not None else None})
@@ -396,7 +444,8 @@ def round_segments(mesh, device="cpu", limit: int = 16) -> list:
                 for msh in (None, mesh):
                     if msh is not None:
                         msh.reset_counts()
-                    j, placed, st = K.schedule_wave_plain(tb, cry, g, m, cap1, filters=filters,
+                    tbm, crym = on_mesh(tb, cry, msh)
+                    j, placed, st = K.schedule_wave_plain(tbm, crym, g, m, cap1, filters=filters,
                                                           block=block, kmax=kmax,
                                                           gpu_live=gpu_live, mesh=msh)
                     runs.append((j.tolist(), int(placed), dict(st)))
@@ -424,9 +473,11 @@ def card_round_kernels(mesh, limit: int = 16) -> list:
             for filters, block, kmax in variants:
                 kw = dict(filters=filters, block=block, kmax=kmax, gpu_live=gpu_live)
                 mesh.reset_counts()
-                kj, kp, kst = K.schedule_wave_rounds_kernel(tb, cry, g, m, cap1, mesh=mesh, **kw)
+                tbl, cryl = on_mesh(tb, cry, mesh)
+                kj, kp, kst = K.schedule_wave_rounds_kernel(tbl, cryl, g, m, cap1, mesh=mesh,
+                                                            **kw)
                 calls = {k: v["calls"] for k, v in mesh.counts.items()}
-                pj, pp, pst = K.schedule_wave_plain(tb, cry, g, m, cap1, mesh=mesh, **kw)
+                pj, pp, pst = K.schedule_wave_plain(tbl, cryl, g, m, cap1, mesh=mesh, **kw)
                 uj, up, ust = K.schedule_wave_kernel(tb, cry, g, m, cap1, **kw)
                 out.append({"cluster": label, "m": m, "kmax": kmax, "stats": kst.tolist(),
                             "calls": calls,
@@ -535,8 +586,9 @@ def tail_segments(mesh, device="cpu") -> list:
         with epoch_limit(limit):
             for msh in (None, mesh):
                 mesh.reset_counts()
+                tbm, crym = on_mesh(tb, cry, msh)
                 j, placed, st = K.schedule_affinity_wave_plain(
-                    tb, cry, g, m, bool(cap1), ss_live=bool(ss_live), block=block,
+                    tbm, crym, g, m, bool(cap1), ss_live=bool(ss_live), block=block,
                     n_zones=n_zones, mesh=msh)
                 runs.append((j.tolist(), int(placed), dict(st)))
         N = int(tb.alloc.shape[0])
@@ -568,12 +620,13 @@ def card_tail_kernels(mesh) -> list:
         kw = dict(ss_live=bool(ss_live), block=block, n_zones=n_zones)
         with epoch_limit(limit):
             mesh.reset_counts()
-            kj, kp, kst = K.schedule_affinity_wave_rounds_kernel(tb, cry, g, m, bool(cap1),
+            tbl, cryl = on_mesh(tb, cry, mesh)
+            kj, kp, kst = K.schedule_affinity_wave_rounds_kernel(tbl, cryl, g, m, bool(cap1),
                                                                  mesh=mesh, **kw)
             calls = {k: v["calls"] for k, v in mesh.counts.items()}
             branches = tail_verdicts(mesh.tail_branches)
             mesh.reset_counts()
-            pj, pp, pst = K.schedule_affinity_wave_plain(tb, cry, g, m, bool(cap1), mesh=mesh,
+            pj, pp, pst = K.schedule_affinity_wave_plain(tbl, cryl, g, m, bool(cap1), mesh=mesh,
                                                          **kw)
             plain_branches = tail_verdicts(mesh.tail_branches)
         uj, up, ust = K.schedule_affinity_wave_kernel(tb, cry, g, m, bool(cap1), **kw)
@@ -588,12 +641,14 @@ def card_tail_kernels(mesh) -> list:
 
 def route_rules(mesh, device="cpu") -> dict:
     """The epoch path's limits: an N that the shard count does not divide
-    makes no collective call, and at an N above
-    OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES the wave segments take the
-    per-round path (two pmax and two all_gather_rows per round) and the
-    affinity segments the sharded tail (two to four collectives per epoch);
-    both place the same pods."""
+    is padded with phantom nodes when the layout is staged
+    (`to_device_sharded`) and places the same pods with the epoch path's
+    collectives, and at an N above OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES
+    the wave segments take the per-round path (two pmax and two
+    all_gather_rows per round) and the affinity segments the sharded tail
+    (two to four collectives per epoch); both place the same pods."""
     from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.parallel.mesh import to_device_sharded
     from open_simulator_torch.simulator.encode import pad_encoder_axes
     from open_simulator_torch.simulator.engine import Simulator
 
@@ -610,10 +665,13 @@ def route_rules(mesh, device="cpu") -> dict:
     for msh in (None, mesh):
         if msh is not None:
             msh.reset_counts()
+            tb, cry, _ = to_device_sharded(bt, msh)
         j, placed, st = K.schedule_affinity_wave_plain(tb, cry, g, m, bool(cap1), ss_live=ss,
                                                        block=block, mesh=msh)
-        res.append((j.tolist(), placed, st))
+        res.append((j.tolist()[:N], placed, st))
     out["indivisible"] = {"N": N, "kind": kind, "same": res[0] == res[1],
+                          "padded": int(tb.alloc.shape[0]) * mesh.shards,
+                          "epochs": res[1][2]["epochs"],
                           "calls": {k: v["calls"] for k, v in mesh.counts.items()}}
     # above the limit: the engine's own run at N 32 with the limit at 16
     with epoch_limit(16):
@@ -662,18 +720,19 @@ def card_kernels(mesh) -> list:
         if kind not in ("wave", "affinity"):
             continue
         block = K.wave_block_for(m, sim.na.N)
+        tbl, cryl = on_mesh(tb, cry, mesh)
         if kind == "wave":
             kw = dict(block=block, kmax=K.wave_kmax(m, sim.na.N, block), gpu_live=bool(seg[5]))
-            kj, kp, kst = K.schedule_wave_sharded_kernel(tb, cry, g, m, bool(cap1), mesh=mesh,
+            kj, kp, kst = K.schedule_wave_sharded_kernel(tbl, cryl, g, m, bool(cap1), mesh=mesh,
                                                          **kw)
-            pj, pp, pst = K.schedule_wave_plain(tb, cry, g, m, bool(cap1), mesh=mesh, **kw)
+            pj, pp, pst = K.schedule_wave_plain(tbl, cryl, g, m, bool(cap1), mesh=mesh, **kw)
             uj, up, ust = K.schedule_wave_kernel(tb, cry, g, m, bool(cap1), **kw)
             names = K.WAVE_STATS
         else:
             kw = dict(ss_live=bool(seg[5]), block=block, n_zones=bt.n_zones if seg[5] else 2)
-            kj, kp, kst = K.schedule_affinity_wave_sharded_kernel(tb, cry, g, m, bool(cap1),
+            kj, kp, kst = K.schedule_affinity_wave_sharded_kernel(tbl, cryl, g, m, bool(cap1),
                                                                   mesh=mesh, **kw)
-            pj, pp, pst = K.schedule_affinity_wave_plain(tb, cry, g, m, bool(cap1), mesh=mesh,
+            pj, pp, pst = K.schedule_affinity_wave_plain(tbl, cryl, g, m, bool(cap1), mesh=mesh,
                                                          **kw)
             uj, up, ust = K.schedule_affinity_wave_kernel(tb, cry, g, m, bool(cap1), **kw)
             names = K.AFFINITY_STATS
@@ -1071,4 +1130,283 @@ def card_partitioned(mesh) -> list:
                     "same_unsharded": bool(torch.equal(kch, uch))
                     and all(torch.equal(a, b) for a, b in zip(full, uc)),
                     "diag_same": bool(diag), "failed": int((kch[:P] < 0).sum())})
+    return out
+
+
+# ------------------------------------------------ the default route, partitioned ----
+#
+# Every route on the partitioned node layout (the group-serial scan K13 and
+# the block commit K14 beside K8 - K12): tests/test_torch_partitioned_default.py
+# spawns the ranks and holds these records against the JAX package's mesh.
+
+def spread_workload(n_nodes: int = 64, n_pods: int = 600):
+    """A prefix of utils/synth.py `synth_spread_cluster` (zoned nodes,
+    self-spreading groups): its segments reach the group-serial scan with
+    ScheduleAnyway terms (sa_live), with a zoned SelectorSpread (ss_live)
+    and with DoNotSchedule terms only, and a wave. Returns (nodes, pods,
+    services)."""
+    from open_simulator_torch.utils.synth import synth_spread_cluster
+
+    nodes, pods, services = synth_spread_cluster(n_nodes, 2 * n_pods)
+    return nodes, pods[:n_pods], services
+
+
+def _seg_valid(length: int):
+    import torch
+
+    from open_simulator_torch.simulator.encode import bucket_capped
+
+    vd = torch.zeros(bucket_capped(length, 2048), dtype=torch.bool)
+    vd[:length] = True
+    return vd
+
+
+def group_serial_segments(mesh, device="cpu") -> list:
+    """Every segment of `spread_workload` and of the extended cluster's GPU
+    waves, chained from the seed carry by the unsharded path: for a spread
+    segment the plain block scan (`schedule_group_serial_sharded_plain`)
+    against the unsharded plain scan (the block's counts, placed, the
+    collective calls); for every segment the plain block commit against the
+    unsharded commit of the same counts (the block's carry), with and
+    without gpu_live. One record per segment."""
+    import torch
+
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.simulator.engine import Simulator
+    from open_simulator_torch.utils.synth import synth_extended_cluster
+
+    ext_nodes, ext_pods, _, scs = synth_extended_cluster(32, 300)
+    out = []
+    for label, nodes, pods, svc, sc in (("spread", *spread_workload(), []),
+                                        ("extended", ext_nodes, ext_pods, [], scs)):
+        sim = Simulator(copy.deepcopy(nodes), device=device, use_mesh=False)
+        sim.register_cluster_objects(ResourceTypes(services=list(svc),
+                                                   storage_classes=list(sc)))
+        bt = sim.encode_batch(copy.deepcopy(pods))
+        tb, cry = sim._to_device(bt)
+        N = int(tb.alloc.shape[0])
+        sl = slice(mesh.rank * (N // mesh.shards), (mesh.rank + 1) * (N // mesh.shards))
+        for seg in sim._segments(bt, len(pods)):
+            if seg[0] == "serial":
+                continue
+            kind, _, m, g, cap1 = seg[:5]
+            tbl, cryl = on_mesh(tb, cry, mesh)
+            rec = {"cluster": label, "kind": kind, "m": m}
+            gpu_live = kind == "wave" and bool(seg[5])
+            if kind == "spread":
+                ss, sa = bool(seg[5]), bool(seg[6])
+                kw = dict(ss_live=ss, sa_live=sa, n_zones=bt.n_zones if ss else 2)
+                vd = _seg_valid(m)
+                mesh.reset_counts()
+                bj, bp = K.schedule_group_serial_sharded_plain(tbl, cryl, g, vd, bool(cap1), mesh,
+                                                               **kw)
+                rec["calls"] = _calls(mesh)
+                j, placed = K.schedule_group_serial_plain(tb, cry, g, vd, bool(cap1), **kw)
+                rec.update(ss_live=ss, sa_live=sa, placed=placed,
+                           same=torch.equal(bj, j[sl]) and bp == placed)
+            elif kind == "wave":
+                block = K.wave_block_for(m, sim.na.N)
+                j = K.schedule_wave_plain(tb, cry, g, m, bool(cap1), block=block,
+                                          kmax=K.wave_kmax(m, sim.na.N, block),
+                                          gpu_live=gpu_live)[0]
+            else:
+                j = K.schedule_affinity_wave_plain(tb, cry, g, m, bool(cap1),
+                                                   ss_live=bool(seg[5]),
+                                                   block=K.wave_block_for(m, sim.na.N),
+                                                   n_zones=bt.n_zones if seg[5] else 2)[0]
+            mesh.reset_counts()
+            bc = K.aggregate_commit_sharded_plain(tbl, cryl, g, j[sl], gpu_live, mesh)
+            rec["commit_calls"] = _calls(mesh)
+            uc = K.aggregate_commit_plain(tb, cry, g, j, gpu_live)
+            rec.update(gpu_live=gpu_live, commit_same=all(
+                torch.equal(a, b) for a, b in zip(bc, on_mesh(tb, uc, mesh)[1])))
+            out.append(rec)
+            cry = uc
+    return out
+
+
+def chained_layout(mesh, device="cpu") -> dict:
+    """The default route's layout over chained dispatches: the seeded
+    workload's engine run on the mesh, then this rank's bytes of every
+    node-axis table and carry leaf against the unsharded ones, and the carry
+    leaves out of the partitioned layout after each segment's dispatch
+    (simon_reshard_bytes_total)."""
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.obs.metrics import REGISTRY
+    from open_simulator_torch.parallel.mesh import (_CARRY_NODE_AXIS, _TABLE_NODE_AXIS,
+                                                    carry_reshard_bytes, carry_shardings)
+    from open_simulator_torch.simulator.engine import Simulator
+
+    nodes, pods, services = seeded_workload()
+    reshard0 = REGISTRY.values().get("simon_reshard_bytes_total", 0)
+    sim = Simulator(copy.deepcopy(nodes), device=device, use_mesh=True)
+    sim.register_cluster_objects(ResourceTypes(services=services))
+    sim._mesh = mesh
+    bt = sim.encode_batch(copy.deepcopy(pods))
+    tables, carry = sim._to_device(bt)
+    N = int(bt.alloc.shape[0])
+    decl = carry_shardings(mesh, N)
+    moved = []
+    for seg in sim._segments(bt, len(pods)):
+        carry, _, _ = sim._dispatch(seg, bt, tables, carry, (False, False))
+        moved.append(carry_reshard_bytes(carry, decl))
+
+    def node_bytes(obj, axes) -> int:
+        return sum(getattr(obj, f).numel() * getattr(obj, f).element_size() for f in axes)
+
+    full = (sum(getattr(bt, f).nbytes for f in _TABLE_NODE_AXIS)
+            + sum(getattr(bt, "seed_" + f).nbytes for f in _CARRY_NODE_AXIS))
+    held = node_bytes(tables, _TABLE_NODE_AXIS) + node_bytes(carry, _CARRY_NODE_AXIS)
+    return {"segments": len(moved), "moved": moved, "held": held, "full": full,
+            "reshard_bytes": REGISTRY.values().get("simon_reshard_bytes_total", 0) - reshard0}
+
+
+def probe_counts(mesh, device="cpu") -> dict:
+    """`Simulator.probe_pods` of the mixed and seeded workloads on the mesh
+    (every route, the counts global)."""
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.simulator.engine import Simulator
+
+    out = {}
+    for name, (nodes, pods, services) in (("mixed", (*mixed_workload(), [])),
+                                          ("seeded", seeded_workload())):
+        sim = Simulator(copy.deepcopy(nodes), device=device, use_mesh=mesh is not None)
+        sim.register_cluster_objects(ResourceTypes(services=list(services)))
+        if mesh is not None:
+            sim._mesh = mesh
+        out[name] = list(sim.probe_pods(copy.deepcopy(pods)))
+        out[name + "_utilization"] = sim.probe_utilization()
+    return out
+
+
+def default_route_cases(mesh, device="cpu", tables=()) -> dict:
+    """Every case of test_torch_partitioned_default.py on this rank's mesh;
+    `tables`: `block_scans`' table sets."""
+    out = {"rank": mesh.rank, "shards": mesh.shards, "blocks": block_scans(mesh, tables)}
+    for name in ("mixed", "hard_affinity"):
+        out[name] = run_engine(*WORKLOADS[name](), mesh=mesh, device=device)
+    out["spread"] = run_engine(*spread_workload(), mesh=mesh, device=device)
+    out["segments"] = group_serial_segments(mesh, device)
+    out["layout"] = chained_layout(mesh, device)
+    out["probe"] = probe_counts(mesh, device)
+    return out
+
+
+def card_default_route(mesh) -> dict:
+    """On the card: K13 against `schedule_group_serial_sharded_plain` (on
+    the card, on the same ranks) and the unsharded K4, and K14 against
+    `aggregate_commit_sharded_plain` and the unsharded K3c, on every segment
+    of `group_serial_segments`' clusters; then the engine's default route on
+    the mesh against the unsharded engine on the card (mixed, hard
+    affinity, spread)."""
+    import torch
+
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.simulator.engine import Simulator
+    from open_simulator_torch.utils.synth import synth_extended_cluster
+
+    ext_nodes, ext_pods, _, scs = synth_extended_cluster(32, 300)
+    segs = []
+    for label, nodes, pods, svc, sc in (("spread", *spread_workload(), []),
+                                        ("extended", ext_nodes, ext_pods, [], scs)):
+        sim = Simulator(copy.deepcopy(nodes), device="cuda", use_mesh=False)
+        sim.register_cluster_objects(ResourceTypes(services=list(svc),
+                                                   storage_classes=list(sc)))
+        bt = sim.encode_batch(copy.deepcopy(pods))
+        tb, cry = sim._to_device(bt)
+        N = int(tb.alloc.shape[0])
+        sl = slice(mesh.rank * (N // mesh.shards), (mesh.rank + 1) * (N // mesh.shards))
+        for seg in sim._segments(bt, len(pods)):
+            if seg[0] == "serial":
+                continue
+            kind, _, m, g, cap1 = seg[:5]
+            tbl, cryl = on_mesh(tb, cry, mesh)
+            rec = {"cluster": label, "kind": kind, "m": m}
+            gpu_live = kind == "wave" and bool(seg[5])
+            if kind == "spread":
+                ss, sa = bool(seg[5]), bool(seg[6])
+                kw = dict(ss_live=ss, sa_live=sa, n_zones=bt.n_zones if ss else 2)
+                vd = _seg_valid(m)
+                mesh.reset_counts()
+                kj, kp = K.schedule_group_serial_sharded_kernel(tbl, cryl, g, vd, bool(cap1),
+                                                                mesh, **kw)
+                rec["calls"] = _calls(mesh)
+                pj, pp = K.schedule_group_serial_sharded_plain(tbl, cryl, g, vd, bool(cap1),
+                                                               mesh, **kw)
+                j, up = K.schedule_group_serial_kernel(tb, cry, g, vd, bool(cap1), **kw)
+                rec.update(ss_live=ss, sa_live=sa, placed=int(kp),
+                           same_plain=torch.equal(kj, pj) and int(kp) == pp,
+                           same_unsharded=torch.equal(kj, j[sl]) and int(kp) == int(up))
+            elif kind == "wave":
+                block = K.wave_block_for(m, sim.na.N)
+                j = K.schedule_wave_kernel(tb, cry, g, m, bool(cap1), block=block,
+                                           kmax=K.wave_kmax(m, sim.na.N, block),
+                                           gpu_live=gpu_live)[0]
+            else:
+                j = K.schedule_affinity_wave_kernel(tb, cry, g, m, bool(cap1),
+                                                    ss_live=bool(seg[5]),
+                                                    block=K.wave_block_for(m, sim.na.N),
+                                                    n_zones=bt.n_zones if seg[5] else 2)[0]
+            mesh.reset_counts()
+            kc = K.aggregate_commit_sharded_kernel(tbl, cryl, g, j[sl], gpu_live, mesh)
+            rec["commit_calls"] = _calls(mesh)
+            pc = K.aggregate_commit_sharded_plain(tbl, cryl, g, j[sl], gpu_live, mesh)
+            uc = K.aggregate_commit_kernel(tb, cry, g, j, gpu_live)
+            rec.update(gpu_live=gpu_live,
+                       commit_plain=all(torch.equal(a, b) for a, b in zip(kc, pc)),
+                       commit_unsharded=all(torch.equal(a, b)
+                                            for a, b in zip(kc, on_mesh(tb, uc, mesh)[1])))
+            segs.append(rec)
+            cry = uc
+    engine = {}
+    for name, (nodes, pods, services) in (("mixed", (*mixed_workload(), [])),
+                                          ("hard_affinity", (*hard_affinity_workload(), [])),
+                                          ("spread", spread_workload())):
+        got = run_engine(nodes, pods, services, mesh=mesh, device="cuda")
+        want = run_engine(nodes, pods, services, device="cuda")
+        engine[name] = {"same": got["placed"] == want["placed"]
+                        and got["failed"] == want["failed"],
+                        "census": got["census"], "calls": {k: v["calls"]
+                                                          for k, v in got["counts"].items()},
+                        "launches": got["launches"]}
+    return {"segments": segs, "engine": engine}
+
+
+def block_scans(mesh, tables: list) -> list:
+    """On tables given as numpy arrays (the JAX package's encode of a
+    batch: every Tables field and every carry field's `seed_` array), each
+    spec of the plain block scan and commit on this rank's block of them:
+    for a scan (g, m, cap1, ss_live, sa_live, n_zones), over m pods and three
+    padded ones, the block's counts, placed and the carry block after the
+    block commit of its counts; for a commit (g, j of every node, gpu_live),
+    the carry block after it. One record per table set."""
+    import torch
+
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.parallel.mesh import block_of
+
+    out = []
+    for arrays, scans, commits in tables:
+        tb = K.Tables(**{f: torch.tensor(arrays[f]) for f in K.Tables._fields})
+        cry = K.Carry(**{f: torch.tensor(arrays["seed_" + f]) for f in K.Carry._fields})
+        tbl, cryl = block_of(tb, cry, mesh)
+        NL = int(tbl.alloc.shape[0])
+        sl = slice(mesh.rank * NL, (mesh.rank + 1) * NL)
+        rec = {"scans": [], "commits": []}
+        for g, m, cap1, ss, sa, nz in scans:
+            vd = torch.arange(m + 3) < m
+            mesh.reset_counts()
+            j, placed = K.schedule_group_serial_sharded_plain(tbl, cryl, g, vd, cap1, mesh,
+                                                              ss_live=ss, sa_live=sa, n_zones=nz)
+            calls = _calls(mesh)
+            c = K.aggregate_commit_sharded_plain(tbl, cryl, g, j, False, mesh)
+            rec["scans"].append({"j": j.numpy(), "placed": placed, "calls": calls,
+                                 "carry": _carry_np(c)})
+        for g, j, gpu_live in commits:
+            c = K.aggregate_commit_sharded_plain(tbl, cryl, g, torch.from_numpy(j[sl]), gpu_live,
+                                                 mesh)
+            rec["commits"].append(_carry_np(c))
+        out.append(rec)
     return out
