@@ -3,10 +3,14 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of open_simulator_torch/ops/csrc from this checkout,
-holds each kernel against its plain PyTorch version on the card (exact
-equality: every output is a bool, an i32 or an f32 count), then drives the
-port's main path, `Simulator.schedule_pods`, and holds each run against the
-goldens the JAX package computed (tests/golden/torch_port_*.json):
+times one fused cluster round of K2 / K4 at each cluster size (a run of
+empty pod steps: the latency floor of their pod steps), holds each kernel
+against its plain PyTorch version on the card (exact equality: every output
+is a bool, an i32 or an f32 count; K2 also at 10,000 nodes; every K2 / K4
+line with its cluster shape, µs a pod and rounds and cluster barriers a
+pod), then drives the port's main path,
+`Simulator.schedule_pods`, and holds each run against the goldens the JAX
+package computed (tests/golden/torch_port_*.json):
 
 - on the serial route (`use_waves=False`): a 5,000-node / 50,000-pod
   hard-predicate cluster and a 100-node cluster that overflows;
@@ -418,6 +422,38 @@ def bound_of(b: int, ops: int) -> tuple:
     return max(tb, to) * 1e3, "operations" if to > tb else "bytes"
 
 
+def cluster_fields(wrapper, ms: float) -> dict:
+    """The cluster shape of `wrapper`'s last K2 / K4 launch (ops/cluster.py
+    Shape), its time a pod from `ms` (the launch's mean), its rounds (each a
+    cluster-wide exchange) and cluster barriers a pod, over the pods lane 0
+    stepped (the kernel's own counts)."""
+    from open_simulator_torch.ops.cluster import STATS_WORDS
+
+    shape = wrapper.last_shape
+    rounds, barriers, steps = wrapper.last_stats.reshape(-1, STATS_WORDS)[0].tolist()
+    steps = max(steps, 1)
+    return dict(cluster_ctas=shape.C, threads=shape.threads,
+                nodes_per_thread=shape.nodes_per_thread, resident=shape.resident,
+                us_per_pod=ms * 1e3 / steps, rounds_per_pod=rounds / steps,
+                barriers_per_pod=barriers / steps)
+
+
+def cluster_round_case(card: str) -> None:
+    """The latency floor of K2's and K4's pod steps: a run of empty pod
+    steps (csrc/schedule.cu cluster_round_probe_kernel, no node work), each
+    one fused round of phase B's shape with 9 zone sums and one argmax
+    round, on one cluster of each size; and a cluster barrier alone (what a
+    round adds whose ScheduleAnyway marks are too wide to ride it). Prints
+    microseconds a round or barrier."""
+    from open_simulator_torch.ops import kernels as K
+
+    rounds = 2000
+    us = {name: {C: cuda_ms(lambda: K.cluster_round_probe_kernel(C, rounds, 9, mode), 3) * 1e3
+                 / (2 * rounds) for C in (1, 2, 4, 8, 16)}
+          for mode, name in enumerate(("us_per_round", "us_per_barrier"))}
+    emit("cluster_round", rounds=2 * rounds, **us, card=card)
+
+
 def run_simulate(kind: str, cluster, apps, card: str):
     """simulate() on the card with every launch count set to 0 just before
     it: (result, launch counts, wall seconds)."""
@@ -654,6 +690,9 @@ def lane_case(ses, seg, active, card: str) -> tuple:
         if not torch.equal(getattr(kc, f), getattr(pc, f)):
             fail(f"{name}: carry.{f} differs from the plain lanes")
     ms = cuda_ms(lanes_k, 3)
+    shape = (cluster_fields(K.probe_serial_fanout if kind == "serial"
+                            else K.probe_group_serial_fanout, ms)
+             if kind in ("serial", "spread") else {})
     single_ms = cuda_ms(lambda: single(0), 3)
     N = int(tb.alloc.shape[0])
     # the tables once for all lanes; each lane's carry, counts, statistics
@@ -663,7 +702,7 @@ def lane_case(ses, seg, active, card: str) -> tuple:
     bound, by = bound_of(b, ops)
     emit(name, segment=kind, lanes=S, nodes=N, pods=length, placed=placed.tolist(),
          stats=stats, kernel_ms=ms, single_lane_ms=single_ms, plain_ms=plain_ms, bound_ms=bound,
-         bytes=b, f32_ops=ops, max_abs_err=0.0, card=card)
+         bytes=b, f32_ops=ops, max_abs_err=0.0, **shape, card=card)
     row = dict(source=SRC + {"serial": "schedule.cu", "wave": "wave.cu",
                              "spread": "group_serial.cu", "affinity": "affinity_wave.cu"}[kind],
                replaces=JAX_KERNELS + {"serial": ":2361", "wave": ":2302", "spread": ":2322",
@@ -969,7 +1008,8 @@ def serve_sweep_lane_cases(card: str) -> dict:
             fail(f"sweep_whatif_fanout: lane {s} differs from the single-lane K2")
     costs = [k2_cost(tb, seed, L, P) for L in lengths]
     row("sweep_whatif_fanout", ms, plain_ms, costs[0][0] + sum(c[1] + N for c in costs),
-        sum(c[2] for c in costs), pods=lengths, placed=(ko >= 0).sum(dim=1).tolist())
+        sum(c[2] for c in costs), pods=lengths, placed=(ko >= 0).sum(dim=1).tolist(),
+        **cluster_fields(K.sweep_whatif_fanout, ms))
 
     # ---- serve_whatif_fanout: one union of 8 requests of ~125 pods
     union, spans = [], []
@@ -1003,7 +1043,8 @@ def serve_sweep_lane_cases(card: str) -> dict:
             fail(f"serve_whatif_fanout: lane {s} differs from the single-lane K2")
     costs = [k2_cost(tb, seed, n, P) for _, n in spans]
     row("serve_whatif_fanout", ms, plain_ms, costs[0][0] + sum(c[1] + N for c in costs),
-        sum(c[2] for c in costs), union=len(union), placed=ko.tolist())
+        sum(c[2] for c in costs), union=len(union), placed=ko.tolist(),
+        **cluster_fields(K.serve_whatif_fanout, ms))
 
     def plain_wave(cry, act, g, m, c, **kw):
         """The plain lanes of K3 then K3c, segment by segment ([S, K] inputs)."""
@@ -2885,6 +2926,39 @@ def partitioned_phase(card: str) -> tuple:
     return {"schedule_batch_sharded": row}, r0["launches"]
 
 
+def schedule_batch_10240(card: str) -> None:
+    """K2 at northstar's node count (10,000 nodes, N 10,240) on 2,500 pods
+    of the hard shape: its time, shape and rounds a pod over all of them,
+    and, on their first 500, choices and every carry field against its
+    plain version (the plain scan of all 2,500 would add ~16 s)."""
+    import torch
+
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.simulator.engine import Simulator
+    from open_simulator_torch.utils.synth import synth_cluster
+
+    nodes, pods = synth_cluster(10000, 2500, hard_predicates=True)
+    sim = Simulator(nodes, device="cuda")
+    bt = sim.encode_batch(pods)
+    tb, seed = sim._to_device(bt)
+    args = [torch.from_numpy(a).cuda() for a in (bt.pod_group, bt.forced_node, bt.valid)]
+    head = [a[:500] for a in args]
+    end_k, ch_k = K.schedule_batch_kernel(tb, seed, *head, bt.n_zones)
+    (end_p, ch_p), plain_ms = timed(lambda: K.schedule_batch_plain(tb, seed, *head, bt.n_zones))
+    if not torch.equal(ch_k, ch_p):
+        fail(f"schedule_batch N 10,240: choices differ at {int((ch_k != ch_p).sum())} pods")
+    for f in K.Carry._fields:
+        if not torch.equal(getattr(end_k, f), getattr(end_p, f)):
+            fail(f"schedule_batch N 10,240: carry.{f} differs")
+    ms = cuda_ms(lambda: K.schedule_batch_kernel(tb, seed, *args, bt.n_zones), 3)
+    b, ops = one_lane(k2_cost(tb, seed, len(pods), int(bt.pod_group.shape[0])))
+    bound, _ = bound_of(b, ops)
+    emit("schedule_batch_10240", nodes=int(tb.alloc.shape[0]), pods=len(pods),
+         kernel_ms=ms, bound_ms=bound, checked_pods=500, plain_ms_500=plain_ms,
+         placed_500=int((ch_k >= 0).sum()), max_abs_err=0.0,
+         **cluster_fields(K.schedule_batch, ms), card=card)
+
+
 def main() -> int:
     import torch
 
@@ -2920,6 +2994,8 @@ def main() -> int:
     emit("signature", path=native.backend())
     rows = {}  # kernel name -> kernels-line fields measured below
 
+    cluster_round_case(card)
+
     # ---- the 5,000-node / 2,500-pod batch, on the card
     nodes, pods = synth_cluster(5000, 2500, hard_predicates=True)
     sim = Simulator(nodes, device="cuda")
@@ -2950,7 +3026,9 @@ def main() -> int:
     k2_bound, k2_by = bound_of(k2_b, k2_ops)
     emit("schedule_batch", nodes=int(tb.alloc.shape[0]), pods=P, padded=pad, groups=len(kinds),
          placed=int((ch_k >= 0).sum()), kernel_ms=k2_ms, plain_ms=plain_ms_k2,
-         bound_ms=k2_bound, bytes=k2_b, f32_ops=k2_ops, max_abs_err=err_k2, card=card)
+         bound_ms=k2_bound, bytes=k2_b, f32_ops=k2_ops, max_abs_err=err_k2,
+         **cluster_fields(K.schedule_batch, k2_ms), card=card)
+    schedule_batch_10240(card)
     rows["schedule_batch"] = dict(source=SRC + "schedule.cu", replaces=JAX_KERNELS + ":2267",
                                   max_abs_err=err_k2, ms=k2_ms, plain_ms=plain_ms_k2,
                                   bound_ms=k2_bound, bound_by=k2_by)
@@ -2976,7 +3054,7 @@ def main() -> int:
     k1_bound = k1_b / HBM_BYTES_PER_S * 1e3
     emit("feasibility", cases=checked, groups=len(kinds), kernel_ms=k1_ms,
          plain_ms=k1_plain_ms, bound_ms=k1_bound, bytes=k1_b, max_abs_err=0.0, card=card)
-    rows["feasibility"] = dict(source=SRC + "schedule.cu", replaces=JAX_KERNELS + ":743",
+    rows["feasibility"] = dict(source=SRC + "feasibility.cu", replaces=JAX_KERNELS + ":743",
                                max_abs_err=0.0, ms=k1_ms, plain_ms=k1_plain_ms,
                                bound_ms=k1_bound, bound_by="bytes")
 
@@ -3072,7 +3150,8 @@ def main() -> int:
         bound, by = bound_of(b, ops)
         emit("schedule_group_serial", nodes=int(tb.alloc.shape[0]), pods=m, ss_live=ss_live,
              sa_live=sa_live, placed=pp, kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound,
-             bytes=b, f32_ops=ops, max_abs_err=err_of(kj, pj), card=card)
+             bytes=b, f32_ops=ops, max_abs_err=err_of(kj, pj),
+             **cluster_fields(K.schedule_group_serial, ms), card=card)
         if sa_live:  # the kernels line reports the ScheduleAnyway segment
             k4 = dict(max_abs_err=err_of(kj, pj), ms=ms, plain_ms=plain_ms, bound_ms=bound,
                       bound_by=by)
@@ -3162,7 +3241,8 @@ def main() -> int:
     bound, by = bound_of(b, ops)
     emit("schedule_batch_gpu_storage", nodes=N, pods=P, padded=pad,
          placed=int((ch_k >= 0).sum()), kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound,
-         bytes=b, f32_ops=ops, max_abs_err=err, card=card)
+         bytes=b, f32_ops=ops, max_abs_err=err, **cluster_fields(K.schedule_batch, ms),
+         card=card)
     rows["schedule_batch/gpu_storage"] = dict(
         source=SRC + "schedule.cu", replaces=JAX_KERNELS + ":2265", max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=bound, bound_by=by)
@@ -3187,7 +3267,7 @@ def main() -> int:
     emit("feasibility_gpu_storage", cases=checked, groups=len(kinds), kernel_ms=ms,
          plain_ms=plain_ms, bound_ms=bound, bytes=b, max_abs_err=0.0, card=card)
     rows["feasibility/gpu_storage"] = dict(
-        source=SRC + "schedule.cu", replaces=JAX_KERNELS + ":743", max_abs_err=0.0, ms=ms,
+        source=SRC + "feasibility.cu", replaces=JAX_KERNELS + ":743", max_abs_err=0.0, ms=ms,
         plain_ms=plain_ms, bound_ms=bound, bound_by=by)
 
     def gpu_wave(units):

@@ -23,13 +23,13 @@ from typing import List, Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [os.path.join(_HERE, "csrc", f)
-           for f in ("schedule.cu", "wave.cu", "group_serial.cu", "affinity_wave.cu", "extend.cu",
-                     "explain.cu", "wave_sharded.cu", "affinity_sharded.cu", "wave_rounds.cu",
-                     "affinity_rounds.cu", "batch_sharded.cu", "group_serial_sharded.cu",
-                     "commit_sharded.cu")]
+           for f in ("feasibility.cu", "schedule.cu", "wave.cu", "group_serial.cu",
+                     "affinity_wave.cu", "extend.cu", "explain.cu", "wave_sharded.cu",
+                     "affinity_sharded.cu", "wave_rounds.cu", "affinity_rounds.cu",
+                     "batch_sharded.cu", "group_serial_sharded.cu", "commit_sharded.cu")]
 HEADERS = [os.path.join(_HERE, "csrc", f)
-           for f in ("common.cuh", "select.cuh", "wave.cuh", "affinity.cuh", "wave_sharded.cuh",
-                     "affinity_sharded.cuh", "merge.cuh", "commit.cuh")]
+           for f in ("common.cuh", "cluster.cuh", "select.cuh", "wave.cuh", "affinity.cuh",
+                     "wave_sharded.cuh", "affinity_sharded.cuh", "merge.cuh", "commit.cuh")]
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
@@ -129,11 +129,24 @@ def _load(path: str) -> ctypes.CDLL:
     lib.tables_view_size.restype = ctypes.c_int
     lib.error_string.argtypes = [ctypes.c_int]
     lib.error_string.restype = ctypes.c_char_p
-    lib.schedule_scratch_floats.argtypes = [V]
-    lib.schedule_scratch_floats.restype = ctypes.c_longlong
+    I, L = ctypes.c_int, ctypes.c_longlong
+    # K2 and K4 (thread-block clusters): scratch, shared memory, occupancy
+    for name, args in (("schedule_scratch_floats", [V, I]), ("schedule_batch_smem", [V, I]),
+                       ("group_serial_scratch_floats", [V, I]), ("group_serial_smem", [V, I]),
+                       ("cluster_round_probe_smem", [I, I])):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = L
+    lib.schedule_batch_occupancy.argtypes = [I, I, I, L, P]
+    lib.schedule_batch_occupancy.restype = I
+    lib.group_serial_occupancy.argtypes = [I, I, L, P]
+    lib.group_serial_occupancy.restype = I
+    lib.cluster_round_probe_launch.argtypes = [I, I, I, I, P, P]
+    lib.cluster_round_probe_launch.restype = I
+    lib.cluster_kernels_init.argtypes = []
+    lib.cluster_kernels_init.restype = I
     lib.feasibility_launch.argtypes = [V] + [ctypes.c_int] * 4 + [P] * 4
     lib.feasibility_launch.restype = ctypes.c_int
-    lib.schedule_batch_launch.argtypes = [V, P, P, P, ctypes.c_int, P, P, P]
+    lib.schedule_batch_launch.argtypes = [V, P, P, P, I, P, P, P, I, L, P]
     lib.schedule_batch_launch.restype = ctypes.c_int
     lib.wave_scratch_floats.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.wave_scratch_floats.restype = ctypes.c_longlong
@@ -144,12 +157,7 @@ def _load(path: str) -> ctypes.CDLL:
     lib.aggregate_commit_launch.argtypes = [V, ctypes.c_int, P, P, P, P, ctypes.c_int, ctypes.c_int,
                                             P, P]
     lib.aggregate_commit_launch.restype = ctypes.c_int
-    lib.group_serial_scratch_floats.argtypes = [V]
-    lib.group_serial_scratch_floats.restype = ctypes.c_longlong
-    lib.group_serial_scratch_ints.argtypes = [V]
-    lib.group_serial_scratch_ints.restype = ctypes.c_longlong
-    lib.schedule_group_serial_launch.argtypes = ([V, ctypes.c_int, P] + [ctypes.c_int] * 4
-                                                 + [P] * 5)
+    lib.schedule_group_serial_launch.argtypes = [V, I, P] + [I] * 4 + [P] * 4 + [I, L, P]
     lib.schedule_group_serial_launch.restype = ctypes.c_int
     lib.affinity_scratch_floats.argtypes = [V, ctypes.c_int]
     lib.affinity_scratch_floats.restype = ctypes.c_longlong
@@ -158,8 +166,7 @@ def _load(path: str) -> ctypes.CDLL:
     lib.schedule_affinity_wave_launch.argtypes = [V] + [ctypes.c_int] * 5 + [P] * 5
     lib.schedule_affinity_wave_launch.restype = ctypes.c_int
     # the lane kernels: the same arguments and the lane count S before the outputs
-    lib.schedule_batch_lanes_launch.argtypes = [V, P, P, P, ctypes.c_int, ctypes.c_longlong,
-                                                ctypes.c_longlong, ctypes.c_int, P, P, P]
+    lib.schedule_batch_lanes_launch.argtypes = [V, P, P, P, I, L, L, I, P, P, P, I, L, P]
     lib.schedule_batch_lanes_launch.restype = ctypes.c_int
     lib.schedule_wave_lanes_launch.argtypes = ([V] + [ctypes.c_int] * 3 + [P] * 3
                                                + [ctypes.c_int] * 3 + [P] * 5)
@@ -167,8 +174,7 @@ def _load(path: str) -> ctypes.CDLL:
     lib.aggregate_commit_lanes_launch.argtypes = ([V, ctypes.c_int, P, P, P, P, P]
                                                   + [ctypes.c_int] * 3 + [P, P])
     lib.aggregate_commit_lanes_launch.restype = ctypes.c_int
-    lib.schedule_group_serial_lanes_launch.argtypes = ([V, ctypes.c_int, P] + [ctypes.c_int] * 5
-                                                       + [P] * 5)
+    lib.schedule_group_serial_lanes_launch.argtypes = [V, I, P] + [I] * 5 + [P] * 4 + [I, L, P]
     lib.schedule_group_serial_lanes_launch.restype = ctypes.c_int
     lib.schedule_affinity_wave_lanes_launch.argtypes = [V] + [ctypes.c_int] * 6 + [P] * 5
     lib.schedule_affinity_wave_lanes_launch.restype = ctypes.c_int
@@ -177,7 +183,6 @@ def _load(path: str) -> ctypes.CDLL:
     lib.explain_launch.argtypes = [V] + [ctypes.c_int] * 3 + [ctypes.c_longlong, P, P, P]
     lib.explain_launch.restype = ctypes.c_int
     # K8 and K9, the sharded epoch paths: setup, front, table, tail
-    I, L = ctypes.c_int, ctypes.c_longlong
     lib.wave_sharded_scratch_floats.argtypes = [I]
     lib.wave_sharded_scratch_floats.restype = L
     lib.wave_sharded_scratch_ints.argtypes = [I]

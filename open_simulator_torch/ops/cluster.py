@@ -1,0 +1,79 @@
+"""Launch shapes of the cluster kernels K2 and K4 (csrc/cluster.cuh).
+
+Each lane of K2 (`schedule_batch`) and K4 (`schedule_group_serial`) runs on
+one thread-block cluster of C CTAs of THREADS threads; CTA r owns the node
+slice [r * chunk, (r + 1) * chunk), chunk = ceil(N / C), and each of its
+threads holds ceil(chunk / THREADS) nodes of a pod step. `choose` picks C
+from N, the lane count S and the card's answer to how many such clusters
+can be resident at once (cudaOccupancyMaxActiveClusters), given as a
+function so that the rule runs without a card, as is the shared memory of
+a CTA at each C (`smem_of`: on the card the library's schedule_batch_smem /
+group_serial_smem, csrc/schedule.cu `k2_smem_bytes` and csrc/group_serial.cu
+`k4_smem_bytes`). A CTA's per-node rows are in its shared memory when they
+fit SMEM_MAX, else in global scratch, so every N has a shape. Plain Python:
+nothing here needs torch or a card.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+THREADS = 512            # csrc/cluster.cuh CLUSTER_THREADS
+SIZES = (1, 2, 4, 8, 16)  # cluster sizes; 16 is the non-portable maximum
+# dynamic shared memory a CTA may ask for: 227 KB less room for the
+# kernels' static shared memory (csrc/cluster.cuh CLUSTER_SMEM_MAX)
+SMEM_MAX = 232_448 - 8_192
+# a launch's stats row per lane (csrc/cluster.cuh STATS_WORDS, i64): rounds,
+# cluster barriers, pods stepped
+STATS_WORDS = 3
+
+
+class Shape(NamedTuple):
+    C: int                 # CTAs of a lane's cluster
+    threads: int           # threads of a CTA
+    smem: int              # dynamic shared memory bytes of a CTA
+    chunk: int             # nodes a CTA owns (the last may own fewer)
+    nodes_per_thread: int
+    occupancy: int         # clusters of this shape resident at once
+    resident: bool         # every lane's cluster resident at once
+
+
+def chunk_of(N: int, C: int) -> int:
+    return -(-N // C)
+
+
+def nodes_per_thread(N: int, C: int, threads: int = THREADS) -> int:
+    return max(1, -(-chunk_of(N, C) // threads))
+
+
+def choose(N: int, S: int, smem_of: Callable[[int], int],
+           occupancy: Callable[[int, int], int], threads: int = THREADS) -> Shape:
+    """The cluster shape of an S-lane launch over N nodes.
+
+    Every C of SIZES whose shared memory `smem_of(C)` fits SMEM_MAX and of
+    which the card can hold at least one cluster (`occupancy(C, smem)`) is a
+    candidate. A lane is persistent for its whole pod stream, and a pod
+    step's time grows with the nodes a thread holds, so the rule takes,
+    where some candidate keeps all S clusters resident at once, the
+    resident candidate with the fewest nodes per thread; otherwise the
+    least waves of resident clusters (ceil(S / occupancy)) times nodes per
+    thread; ties go to the smaller C. One lane at N 5,120 takes C 16 (320
+    nodes a CTA, one a thread); eight lanes take C 8 where eight clusters
+    of 16 do not fit at once. Raises ValueError when no C fits."""
+    best = None
+    for C in SIZES:
+        smem = int(smem_of(C))
+        if smem > SMEM_MAX:
+            continue
+        occ = int(occupancy(C, smem))
+        if occ < 1:
+            continue
+        npt = nodes_per_thread(N, C, threads)
+        key = (0, npt, C) if occ >= S else (1, -(-S // occ) * npt, C)
+        if best is None or key < best[0]:
+            best = (key, Shape(C, threads, smem, chunk_of(N, C), npt, occ, occ >= S))
+    if best is None:
+        raise ValueError(f"no cluster shape fits N={N} with {S} lanes: every size of {SIZES} "
+                         f"needs more than {SMEM_MAX} bytes of shared memory or has no "
+                         f"resident cluster")
+    return best[1]

@@ -1,4 +1,4 @@
-// Device code shared by the port's CUDA kernels (schedule.cu: K1, K2;
+// Device code shared by the port's CUDA kernels (feasibility.cu: K1; schedule.cu: K2;
 // wave.cu: K3, K3c; group_serial.cu: K4; affinity_wave.cu: K5, and the lane
 // kernels of K2-K5): the tables view, the filters of `feasibility`, the
 // score formulas, the block reductions and the lanes' view.

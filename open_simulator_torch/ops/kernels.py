@@ -39,6 +39,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .cluster import STATS_WORDS, choose
 from .resources import CPU_I, MEM_I
 
 
@@ -2668,7 +2669,7 @@ def _stream() -> ctypes.c_void_p:
 def feasibility_kernel(tb: Tables, cry: Carry, g: int, forced: int, valid: bool,
                        filters: FilterFlags = DEFAULT_FILTERS, include_dns: bool = True,
                        enable_gpu: bool = False, enable_storage: bool = False):
-    """Launch K1 (csrc/schedule.cu feasibility_kernel): one thread per node.
+    """Launch K1 (csrc/feasibility.cu feasibility_kernel): one thread per node.
     Returns (feasible [N] bool, stages {STAGE_KEYS: tensor})."""
     from . import build
 
@@ -2693,13 +2694,51 @@ def feasibility_kernel(tb: Tables, cry: Carry, g: int, forced: int, valid: bool,
     return feasible, {k: stages[k] for k in STAGE_KEYS}
 
 
+# the devices on which the cluster kernels' attributes are set
+_CLUSTER_READY: set = set()
+
+
+def _cluster_init(lib) -> None:
+    """Allow the cluster kernels (K2, K4, the round probe) clusters of 16 and
+    csrc/cluster.cuh CLUSTER_SMEM_MAX bytes of shared memory on the current
+    device, once per device."""
+    dev = torch.cuda.current_device()
+    if dev not in _CLUSTER_READY:
+        _check(lib.cluster_kernels_init(), "cluster kernel attributes")
+        _CLUSTER_READY.add(dev)
+
+
+def _cluster_shape(lib, kernel: str, lanes: bool, ext: bool, v: TablesView, S: int):
+    """The cluster shape (ops/cluster.py `choose`) of a K2 ("k2") or K4
+    ("k4") launch of S lanes on the view `v`: the shared memory of each
+    candidate C from the library (schedule_batch_smem / group_serial_smem,
+    the one formula of it), and the card's cudaOccupancyMaxActiveClusters
+    answer for it."""
+    _cluster_init(lib)
+    smem_fn = lib.schedule_batch_smem if kernel == "k2" else lib.group_serial_smem
+
+    def occupancy(C: int, smem: int) -> int:
+        out = ctypes.c_int(0)
+        if kernel == "k2":
+            rc = lib.schedule_batch_occupancy(int(lanes), int(ext), C, smem, ctypes.byref(out))
+        else:
+            rc = lib.group_serial_occupancy(int(lanes), C, smem, ctypes.byref(out))
+        _check(rc, f"{kernel} cluster occupancy query (C {C}, {smem} bytes)")
+        return out.value
+
+    return choose(int(v.N), S, lambda C: int(smem_fn(ctypes.byref(v), C)), occupancy)
+
+
 def schedule_batch_kernel(tb: Tables, cry: Carry, pod_group, forced_node, valid,
                           n_zones: int, w: ScoreWeights = DEFAULT_WEIGHTS,
                           filters: FilterFlags = DEFAULT_FILTERS, enable_gpu: bool = False,
                           enable_storage: bool = False):
     """Launch K2 (csrc/schedule.cu schedule_batch_kernel): one persistent
-    block that loops over the P pods. The returned carry is a CLONE of `cry`
-    that the kernel updates in place; `cry` itself is left untouched."""
+    thread-block cluster that loops over the P pods, its shape from
+    ops/cluster.py (recorded with the launch's stats row, ops/cluster.py
+    STATS_WORDS, in `schedule_batch.last_shape` / `.last_stats`). The
+    returned carry is a CLONE of `cry` that the kernel updates in place;
+    `cry` itself is left untouched."""
     from . import build
 
     lib = build.library()
@@ -2712,16 +2751,16 @@ def schedule_batch_kernel(tb: Tables, cry: Carry, pod_group, forced_node, valid,
     if fn.shape[0] != P or vd.shape[0] != P:
         raise ValueError("pod_group, forced_node and valid must have one length")
     v = _view(tb, out, n_zones, w, filters, enable_gpu, enable_storage)
+    shape = _cluster_shape(lib, "k2", False, bool(enable_gpu or enable_storage), v, 1)
     choices = torch.empty(P, dtype=torch.int32, device=dev)
-    scratch = torch.empty(int(lib.schedule_scratch_floats(ctypes.byref(v))),
+    scratch = torch.empty(max(1, int(lib.schedule_scratch_floats(ctypes.byref(v), shape.C))),
                           dtype=torch.float32, device=dev)
+    stats = torch.zeros(STATS_WORDS, dtype=torch.int64, device=dev)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    _check(lib.schedule_batch_launch(ctypes.byref(v), ctypes.c_void_p(pg.data_ptr()),
-                                     ctypes.c_void_p(fn.data_ptr()),
-                                     ctypes.c_void_p(vd.data_ptr()), int(P),
-                                     ctypes.c_void_p(choices.data_ptr()),
-                                     ctypes.c_void_p(scratch.data_ptr()), _stream()),
+    _check(lib.schedule_batch_launch(ctypes.byref(v), _ptr(pg), _ptr(fn), _ptr(vd), int(P),
+                                     _ptr(choices), _ptr(scratch), _ptr(stats), shape.C,
+                                     shape.smem, _stream()),
            "schedule_batch_kernel launch")
     end.record()
     schedule_batch.launches += 1
@@ -2729,7 +2768,26 @@ def schedule_batch_kernel(tb: Tables, cry: Carry, pod_group, forced_node, valid,
         BRANCH_LAUNCHES["schedule_batch/gpu_storage"] += 1
     # the launch's CUDA events: elapsed_time() once the caller has synchronized
     schedule_batch.last_events = (start, end)
+    schedule_batch.last_shape, schedule_batch.last_stats = shape, stats
     return out, choices
+
+
+def cluster_round_probe_kernel(C: int, rounds: int, n_zones: int = 2,
+                               mode: int = 0) -> torch.Tensor:
+    """Launch csrc/schedule.cu cluster_round_probe_kernel on one cluster of
+    C CTAs, no node work: mode 0 `rounds` times a fused round of K2's
+    phase-B shape (with max(2, n_zones) zone sums) and an argmax round (a
+    pod step's pair, the latency floor of its rounds), mode 1 `rounds` times
+    two cluster barriers. Measurement only; no main path launches it."""
+    from . import build
+
+    lib = build.library()
+    _cluster_init(lib)
+    out = torch.zeros(1, dtype=torch.int32, device="cuda")
+    _check(lib.cluster_round_probe_launch(int(C), int(rounds), max(2, int(n_zones)), int(mode),
+                                          _ptr(out), _stream()),
+           "cluster_round_probe_kernel launch")
+    return out
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -2806,8 +2864,11 @@ def schedule_group_serial_kernel(tb: Tables, cry: Carry, g: int, valid, cap1: bo
                                  filters: FilterFlags = DEFAULT_FILTERS,
                                  ss_live: bool = False, sa_live: bool = False, n_zones: int = 2):
     """Launch K4 (csrc/group_serial.cu schedule_group_serial_kernel): one
-    persistent block loops over the pods. Returns (per-node counts [N] i32,
-    placed as a 0-dim i32 tensor), on the card; `cry` is only read."""
+    persistent thread-block cluster loops over the pods, its shape from
+    ops/cluster.py (recorded with the launch's stats row, ops/cluster.py
+    STATS_WORDS, in `schedule_group_serial.last_shape` / `.last_stats`).
+    Returns (per-node counts [N] i32, placed as a 0-dim i32 tensor), on the
+    card; `cry` is only read."""
     from . import build
 
     lib = build.library()
@@ -2815,18 +2876,20 @@ def schedule_group_serial_kernel(tb: Tables, cry: Carry, g: int, valid, cap1: bo
     N = tb.alloc.shape[0]
     vd = torch.as_tensor(valid, dtype=torch.bool, device=dev).contiguous()
     v = _view(tb, cry, n_zones, w, filters)
+    shape = _cluster_shape(lib, "k4", False, False, v, 1)
     j = torch.empty(N, dtype=torch.int32, device=dev)
     placed = torch.empty(1, dtype=torch.int32, device=dev)
-    fs = torch.empty(int(lib.group_serial_scratch_floats(ctypes.byref(v))), dtype=_F32,
-                     device=dev)
-    iscr = torch.empty(int(lib.group_serial_scratch_ints(ctypes.byref(v))), dtype=torch.int32,
-                       device=dev)
+    fs = torch.empty(max(1, int(lib.group_serial_scratch_floats(ctypes.byref(v), shape.C))),
+                     dtype=_F32, device=dev)
+    stats = torch.zeros(STATS_WORDS, dtype=torch.int64, device=dev)
     _check(lib.schedule_group_serial_launch(ctypes.byref(v), int(g), _ptr(vd), int(vd.shape[0]),
                                             int(bool(cap1)), int(bool(ss_live)),
                                             int(bool(sa_live)), _ptr(j), _ptr(placed),
-                                            _ptr(fs), _ptr(iscr), _stream()),
+                                            _ptr(fs), _ptr(stats), shape.C, shape.smem,
+                                            _stream()),
            "schedule_group_serial_kernel launch")
     schedule_group_serial.launches += 1
+    schedule_group_serial.last_shape, schedule_group_serial.last_stats = shape, stats
     return j, placed[0]
 
 
@@ -3780,8 +3843,10 @@ def schedule_batch_lanes_kernel(tb: Tables, cry_s: Carry, active_s, pod_group, f
                                 filters: FilterFlags = DEFAULT_FILTERS, enable_gpu: bool = False,
                                 enable_storage: bool = False, fanout=None):
     """Launch K2 over S lanes (csrc/schedule.cu schedule_batch_lanes_kernel),
-    block s on lane s. `pod_group`, `forced_node` and `valid` are [P] (one
-    stream for every lane) or [S, P] (a row per lane). Returns (carry_s,
+    cluster s on lane s (the shape and [S, STATS_WORDS] stats recorded on
+    the counting wrapper as in schedule_batch_kernel). `pod_group`,
+    `forced_node` and `valid` are [P] (one stream for every lane) or [S, P]
+    (a row per lane). Returns (carry_s,
     choices [S, P] i32): the carry is a CLONE of `cry_s` that the kernel
     updates in place. The launch counts on `fanout` (the fan-out wrapper
     that asked for it; probe_serial_fanout by default)."""
@@ -3798,14 +3863,19 @@ def schedule_batch_lanes_kernel(tb: Tables, cry_s: Carry, active_s, pod_group, f
     vd, valid_lane = _lane_rows(valid, torch.bool, S, P, dev, "valid")
     if fn_lane != pod_lane:
         raise ValueError("pod_group and forced_node must both be shared or both per lane")
+    shape = _cluster_shape(lib, "k2", True, bool(enable_gpu or enable_storage), v, S)
     choices = torch.empty((S, P), dtype=torch.int32, device=dev)
-    scratch = torch.empty(S * int(lib.schedule_scratch_floats(ctypes.byref(v))),
+    scratch = torch.empty(max(1, S * int(lib.schedule_scratch_floats(ctypes.byref(v), shape.C))),
                           dtype=torch.float32, device=dev)
+    stats = torch.zeros((S, STATS_WORDS), dtype=torch.int64, device=dev)
     _check(lib.schedule_batch_lanes_launch(ctypes.byref(v), _ptr(pg), _ptr(fn), _ptr(vd), int(P),
                                            pod_lane, valid_lane, int(S), _ptr(choices),
-                                           _ptr(scratch), _stream()),
+                                           _ptr(scratch), _ptr(stats), shape.C, shape.smem,
+                                           _stream()),
            "schedule_batch_lanes_kernel launch")
-    (fanout or probe_serial_fanout).launches += 1
+    wrapper = fanout or probe_serial_fanout
+    wrapper.last_shape, wrapper.last_stats = shape, stats
+    wrapper.launches += 1
     return out, choices
 
 
@@ -3904,8 +3974,10 @@ def schedule_group_serial_lanes_kernel(tb: Tables, cry_s: Carry, active_s, g: in
                                        ss_live: bool = False, sa_live: bool = False,
                                        n_zones: int = 2):
     """Launch K4 over S lanes (csrc/group_serial.cu
-    schedule_group_serial_lanes_kernel). Returns (counts [S, N] i32, placed
-    [S] i32), on the card; `cry_s` is only read."""
+    schedule_group_serial_lanes_kernel, one cluster per lane; the shape and
+    [S, STATS_WORDS] stats recorded on probe_group_serial_fanout). Returns
+    (counts [S, N] i32, placed [S] i32), on the card; `cry_s` is only
+    read."""
     from . import build
 
     lib = build.library()
@@ -3913,18 +3985,20 @@ def schedule_group_serial_lanes_kernel(tb: Tables, cry_s: Carry, active_s, g: in
     N = tb.alloc.shape[0]
     vd = torch.as_tensor(valid, dtype=torch.bool, device=dev).contiguous()
     S, active, v = _lane_view(tb, cry_s, active_s, n_zones, w, filters)
+    shape = _cluster_shape(lib, "k4", True, False, v, S)
     j = torch.empty((S, N), dtype=torch.int32, device=dev)
     placed = torch.empty(S, dtype=torch.int32, device=dev)
-    fs = torch.empty(S * int(lib.group_serial_scratch_floats(ctypes.byref(v))), dtype=_F32,
-                     device=dev)
-    iscr = torch.empty(S * int(lib.group_serial_scratch_ints(ctypes.byref(v))),
-                       dtype=torch.int32, device=dev)
+    fs = torch.empty(max(1, S * int(lib.group_serial_scratch_floats(ctypes.byref(v), shape.C))),
+                     dtype=_F32, device=dev)
+    stats = torch.zeros((S, STATS_WORDS), dtype=torch.int64, device=dev)
     _check(lib.schedule_group_serial_lanes_launch(ctypes.byref(v), int(g), _ptr(vd),
                                                   int(vd.shape[0]), int(bool(cap1)),
                                                   int(bool(ss_live)), int(bool(sa_live)), int(S),
-                                                  _ptr(j), _ptr(placed), _ptr(fs), _ptr(iscr),
-                                                  _stream()),
+                                                  _ptr(j), _ptr(placed), _ptr(fs), _ptr(stats),
+                                                  shape.C, shape.smem, _stream()),
            "schedule_group_serial_lanes_kernel launch")
+    probe_group_serial_fanout.last_shape = shape
+    probe_group_serial_fanout.last_stats = stats
     probe_group_serial_fanout.launches += 1
     return j, placed
 
@@ -4323,6 +4397,11 @@ schedule_affinity_wave_sharded_kernel.host_reads = 0
 schedule_wave_rounds_kernel.host_reads = 0
 schedule_affinity_wave_rounds_kernel.host_reads = 0
 schedule_batch.last_events = None
+# the last launch's cluster shape (ops/cluster.py Shape) and its stats
+# rows (ops/cluster.py STATS_WORDS; one per lane for the fan-outs)
+for _f in (schedule_batch, schedule_group_serial, probe_serial_fanout, serve_whatif_fanout,
+           sweep_whatif_fanout, probe_group_serial_fanout):
+    _f.last_shape = _f.last_stats = None
 schedule_wave.stats = None
 schedule_affinity_wave.stats = None
 schedule_affinity_wave.last_stats = None

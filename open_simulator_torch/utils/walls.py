@@ -19,12 +19,14 @@ parent, change, change, parent. Imports no JAX.
 
 With `--kernels`, it times the kernels of the main path instead (CUDA
 events, mean of `--reps` launches after a warm-up): K2 on 2,500 pods of the
-5,000-node hard shape, K4 on the first ScheduleAnyway segment of the spread
-cluster, K5 and K3 on the first affinity and wave segments of the hard shape
-(each also over 8 lanes), K3 with gpu_live on the first GPU wave of the
-extended cluster, and
-prints the root's `ptxas -v` lines (registers, stack, spills) of each
-kernel, so that two checkouts compare kernel for kernel.
+5,000-node hard shape (also over 8 lanes) and of the same shape at 10,000
+nodes, K4 on the first ScheduleAnyway segment of the spread cluster (also
+over 8 lanes), K5 and K3 on the first affinity and wave segments of the hard
+shape (each also over 8 lanes), K3 with gpu_live on the first GPU wave of
+the extended cluster, and prints the root's `ptxas -v` lines (registers,
+stack, spills) of each kernel and, where the root's K2 and K4 run on
+thread-block clusters, each launch's cluster shape, so that two checkouts
+compare kernel for kernel.
 """
 
 from __future__ import annotations
@@ -199,14 +201,32 @@ def kernel_times(synth, root: str, reps: int) -> int:
     print(json.dumps({"root": os.path.abspath(root), "ptxas": [
         ln.strip() for ln in log.splitlines()
         if "Compiling entry" in ln or "registers" in ln or "spill" in ln]}), flush=True)
-    out = {}
-    nodes, pods = synth.synth_cluster(5000, 2500, hard_predicates=True)
-    sim = Simulator(nodes, device="cuda")
-    bt = sim.encode_batch(pods)
-    tb, seed = sim._to_device(bt)
-    pg, fn, vd = (torch.from_numpy(a).cuda() for a in (bt.pod_group, bt.forced_node, bt.valid))
-    out["K2 schedule_batch hard 2500 pods"] = _ms(
-        lambda: K.schedule_batch_kernel(tb, seed, pg, fn, vd, bt.n_zones), reps)
+    out, shapes = {}, {}
+
+    def shape_of(name, wrapper):
+        shape = getattr(wrapper, "last_shape", None)  # None: a single-block checkout
+        if shape is not None:
+            shapes[name] = {"C": shape.C, "threads": shape.threads,
+                            "nodes_per_thread": shape.nodes_per_thread}
+
+    for n_nodes in (5000, 10000):
+        nodes, pods = synth.synth_cluster(n_nodes, 2500, hard_predicates=True)
+        sim = Simulator(nodes, device="cuda")
+        bt = sim.encode_batch(pods)
+        tb, seed = sim._to_device(bt)
+        pg, fn, vd = (torch.from_numpy(a).cuda() for a in (bt.pod_group, bt.forced_node,
+                                                           bt.valid))
+        name = ("K2 schedule_batch hard 2500 pods" if n_nodes == 5000
+                else f"K2 schedule_batch hard N {tb.alloc.shape[0]} 2500 pods")
+        out[name] = _ms(lambda: K.schedule_batch_kernel(tb, seed, pg, fn, vd, bt.n_zones), reps)
+        shape_of(name, K.schedule_batch)
+        if n_nodes == 5000:
+            lanes = K.carry_lanes(seed, 8)
+            active = torch.ones((8, tb.alloc.shape[0]), dtype=torch.bool, device="cuda")
+            name = "K2 over 8 lanes hard 2500 pods"
+            out[name] = _ms(lambda: K.schedule_batch_lanes_kernel(tb, lanes, active, pg, fn, vd,
+                                                                  bt.n_zones), reps)
+            shape_of(name, K.probe_serial_fanout)
     nodes, pods, services = synth.synth_spread_cluster(5000, 20000)
     sim = Simulator(nodes, device="cuda")
     sim.register_cluster_objects(ResourceTypes(services=services))
@@ -218,6 +238,14 @@ def kernel_times(synth, root: str, reps: int) -> int:
     out["K4 schedule_group_serial spread sa_live"] = _ms(
         lambda: K.schedule_group_serial_kernel(tb, seed, g, valid, cap1, ss_live=ss_live,
                                                sa_live=sa_live, n_zones=2), reps)
+    shape_of("K4 schedule_group_serial spread sa_live", K.schedule_group_serial)
+    lanes = K.carry_lanes(seed, 8)
+    active = torch.ones((8, tb.alloc.shape[0]), dtype=torch.bool, device="cuda")
+    out["K4 over 8 lanes spread sa_live"] = _ms(
+        lambda: K.schedule_group_serial_lanes_kernel(tb, lanes, active, g, valid, cap1,
+                                                     ss_live=ss_live, sa_live=sa_live,
+                                                     n_zones=2), reps)
+    shape_of("K4 over 8 lanes spread sa_live", K.probe_group_serial_fanout)
     nodes, pods = synth.synth_cluster(5000, 50000, hard_predicates=True)
     sim = Simulator(nodes, device="cuda")
     bt = sim.encode_batch(pods)
@@ -252,8 +280,8 @@ def kernel_times(synth, root: str, reps: int) -> int:
         lambda: K.schedule_wave_kernel(tb, seed, g, m, cap1, block=block,
                                        kmax=K.wave_kmax(m, sim.na.N, block), gpu_live=True),
         reps)
-    print(json.dumps({"root": os.path.abspath(root), "kernel_ms": out, "reps": reps,
-                      "card": card}), flush=True)
+    print(json.dumps({"root": os.path.abspath(root), "kernel_ms": out, "cluster_shapes": shapes,
+                      "reps": reps, "card": card}), flush=True)
     return 0
 
 

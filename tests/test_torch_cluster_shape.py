@@ -1,0 +1,134 @@
+"""The launch-shape rule of the cluster kernels K2 and K4
+(open_simulator_torch/ops/cluster.py), as plain Python: the card's occupancy
+answer and the library's shared-memory size are models passed in, so nothing
+here needs a card. The tables' axes are the ones the encoder pads to, and
+tests/test_torch_cuda.py holds `smem_model` against the library's own
+schedule_batch_smem / group_serial_smem on the card."""
+
+import functools
+
+import pytest
+
+from open_simulator_torch.ops import cluster
+
+# clusters of C CTAs (one CTA an SM at these shapes) resident at once on a
+# card whose SMs sit in processing clusters of these sizes (132 SMs), and on
+# one whose largest holds 12 SMs (no cluster of 16)
+MODELS = {"gpc_18_16": (18, 18, 18, 18, 16, 16, 14, 14), "gpc_12": (12,) * 11}
+NS = (1, 100, 1_024, 2_048, 5_120, 10_240, 100_352)
+
+ROW_WORDS = {"k2": 6, "k2_ext": 7, "k4": 7}  # f32 / i32 rows a node (and a u8 row)
+KEYS = {"k2": 9, "k2_ext": 11, "k4": 9}      # round 1's keys
+MARKS_FUSED_MAX = 64                          # csrc/cluster.cuh
+
+
+def smem_model(kernel: str, N: int, C: int, Ss: int, Z: int, D1: int) -> int:
+    """A CTA's dynamic shared memory as csrc/cluster.cuh lays it out: its
+    per-node rows when they fit SMEM_MAX with the rest, then two sets of
+    fused marks, the round slots [2][C][W], fin [W] and the zone sums [Z]."""
+    chunk = -(-N // C)
+    rows = 4 * ROW_WORDS[kernel] * chunk + ((chunk + 3) & ~3)
+    marks = min(Ss * ((D1 + 31) // 32), MARKS_FUSED_MAX)
+    W = KEYS[kernel] + Z + marks
+    rounds = 8 * marks + 4 * (2 * C * W + W + Z)
+    return (rows if rows + rounds <= cluster.SMEM_MAX else 0) + rounds
+
+
+@functools.lru_cache(maxsize=None)
+def encoder_axes():
+    """(ScheduleAnyway slots, zone axis, domains besides the hostnames) of
+    the encoder's padded tables for a batch whose pods spread ScheduleAnyway
+    on hostname and zone at once: the widest domain axis a batch has."""
+    from open_simulator_torch.simulator.encode import pad_encoder_axes
+    from open_simulator_torch.simulator.engine import Simulator
+    from open_simulator_torch.utils.synth import synth_cluster, synth_pod
+
+    n = 300
+    nodes, pods = synth_cluster(n, 20, hard_predicates=True)
+    sim = Simulator(nodes, device="cpu")
+    for i in range(4):
+        pod = synth_pod(len(pods) + i, labels={"app": "sa2"})
+        pod["spec"]["topologySpreadConstraints"] = [{
+            "maxSkew": 1, "topologyKey": key, "whenUnsatisfiable": "ScheduleAnyway",
+            "labelSelector": {"matchLabels": {"app": "sa2"}}}
+            for key in ("kubernetes.io/hostname", "topology.kubernetes.io/zone")]
+        pods.append(pod)
+    raw = sim.encode_batch_raw(pods)
+    bt = pad_encoder_axes(raw)
+    return bt.sa_t.shape[1], bt.n_zones, raw.seed_counter.shape[1] - 1 - n
+
+
+def padded_d1(N: int) -> int:
+    """The encoder's domain axis (sentinel included) for N hostnames."""
+    from open_simulator_torch.simulator.encode import _bucket
+
+    return _bucket(N + encoder_axes()[2]) + 1
+
+
+def _occupancy(model):
+    def occ(C, smem):
+        assert smem <= cluster.SMEM_MAX  # never asked for a shape that cannot launch
+        return sum(g // C for g in MODELS[model])
+    return occ
+
+
+@pytest.mark.parametrize("model", sorted(MODELS))
+@pytest.mark.parametrize("kernel", ["k2", "k2_ext", "k4"])
+@pytest.mark.parametrize("S", [1, 8, 32])
+@pytest.mark.parametrize("N", NS + (4_000_000,))
+def test_cluster_shape(N, S, kernel, model):
+    Ss, Z, _ = encoder_axes()
+    assert Ss >= 2 and Z >= 2
+    D1 = padded_d1(N)
+    assert D1 > N + 1  # padded past the hostnames
+    smem_of = lambda C: smem_model(kernel, N, C, Ss, Z, D1)  # noqa: E731
+    occ = _occupancy(model)
+    # every size fits: rows that do not fit a CTA's shared memory go to scratch
+    assert all(smem_of(C) <= cluster.SMEM_MAX for C in cluster.SIZES)
+    fits = [C for C in cluster.SIZES if occ(C, smem_of(C))]
+    shape = cluster.choose(N, S, smem_of, occ)
+    C = shape.C
+    # the node axis is cut as documented: CTA r owns [r * chunk, (r + 1) * chunk)
+    assert C in fits and shape.threads == cluster.THREADS
+    assert shape.chunk == -(-N // C) and (C - 1) * shape.chunk < N <= C * shape.chunk
+    assert shape.nodes_per_thread == -(-shape.chunk // shape.threads)
+    assert shape.smem == smem_of(C) <= cluster.SMEM_MAX
+    # the card's answer bounds the shape: never a cluster it cannot hold
+    assert 1 <= shape.occupancy == occ(C, shape.smem)
+    assert shape.resident == (shape.occupancy >= S)
+    resident = [c for c in fits if occ(c, smem_of(c)) >= S]
+    if resident:  # all lanes resident where possible, then the fewest nodes a thread
+        assert shape.resident
+        best = min(cluster.nodes_per_thread(N, c) for c in resident)
+        assert shape.nodes_per_thread == best
+        assert C == min(c for c in resident if cluster.nodes_per_thread(N, c) == best)
+    else:
+        waves = lambda c: -(-S // occ(c, smem_of(c))) * cluster.nodes_per_thread(N, c)  # noqa: E731
+        assert waves(C) == min(waves(c) for c in fits)
+    if S == 1 and N <= 8 * 1_024 and model == "gpc_18_16":
+        # one lane: the smallest cluster whose threads hold one node each
+        assert shape.nodes_per_thread == 1 and (C == 1 or -(-N // (C // 2)) > shape.threads)
+    if N == 5_120 and S == 1:
+        assert C > 1
+    if N == 100_352 and model == "gpc_18_16" and S == 1:
+        # bench.py's node count with hostname and zone ScheduleAnyway terms:
+        # clusters of 16 with every per-node row on chip
+        assert C == 16 and shape.smem > 4 * ROW_WORDS[kernel] * shape.chunk
+    if N == 4_000_000:  # far past the chip: the rows live in scratch
+        assert shape.smem < shape.chunk
+
+
+def test_no_resident_cluster_raises():
+    with pytest.raises(ValueError, match="no cluster shape fits"):
+        cluster.choose(5_120, 1, lambda C: smem_model("k2", 5_120, C, 2, 4, 8_193),
+                       lambda C, smem: 0)
+
+
+def test_oversized_shape_raises():
+    """A shape whose shared memory exceeds SMEM_MAX at every C is never
+    asked of the card."""
+    def occ(C, smem):
+        raise AssertionError("occupancy asked for a shape that cannot launch")
+
+    with pytest.raises(ValueError, match="no cluster shape fits"):
+        cluster.choose(5_120, 1, lambda C: cluster.SMEM_MAX + 4, occ)

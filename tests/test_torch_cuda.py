@@ -720,3 +720,308 @@ def test_lane_block_equals_full_launch(fanout):
     for blocks in (2, 4):
         got = SC.lane_block_cases("cuda", blocks, names=(fanout,))
         assert got == {fanout: {"lanes": 8 // blocks, "same": True}}
+
+
+# ---- K2 and K4 on thread-block clusters (csrc/cluster.cuh) ----
+#
+# One lane at N nodes takes the smallest cluster whose threads hold one
+# node each (ops/cluster.py), two a thread at 10,240: these N make the rule
+# pick every size it can return, none of them (but the first) a multiple of
+# its C.
+CLUSTER_NODES = ((300, 1), (701, 2), (1_501, 4), (3_001, 8), (5_000, 16), (10_240, 16))
+
+
+def _unzone_some(nodes):
+    """Every seventh node loses its zone label (a node without a zone)."""
+    for i, n in enumerate(nodes):
+        if i % 7 == 3:
+            n["metadata"]["labels"].pop("topology.kubernetes.io/zone", None)
+    return nodes
+
+
+def _edge_pods(n_nodes, start):
+    """Pods every K2 scan must get right: one with nothing feasible (too
+    large for any node), one forced onto a node (a daemon pin), and a
+    replica run spreading ScheduleAnyway on hostname domains (D1 = N + 1)."""
+    from open_simulator_torch.utils.synth import synth_pod
+
+    huge = synth_pod(start, cpu_milli=10_000_000)
+    pinned = synth_pod(start + 1)
+    pin = {"key": "metadata.name", "operator": "In", "values": ["node-00003"]}
+    pinned["spec"]["affinity"] = {"nodeAffinity": {
+        "requiredDuringSchedulingIgnoredDuringExecution": {
+            "nodeSelectorTerms": [{"matchFields": [pin]}]}}}
+    host = []
+    for i in range(40):
+        pod = synth_pod(start + 2 + i, labels={"app": "sa-host"})
+        pod["spec"]["topologySpreadConstraints"] = [{
+            "maxSkew": 1, "topologyKey": "kubernetes.io/hostname",
+            "whenUnsatisfiable": "ScheduleAnyway",
+            "labelSelector": {"matchLabels": {"app": "sa-host"}}}]
+        host.append(pod)
+    return [huge, pinned] + host
+
+
+def _unpadded_tables(sim, pods):
+    """The batch's tables over exactly the cluster's nodes (no phantom node
+    padding, so N need not be a multiple of anything) and the seed carry."""
+    from open_simulator_torch.simulator.encode import pad_encoder_axes
+
+    bt = pad_encoder_axes(sim.encode_batch_raw(pods))
+    tb, seed = sim._to_device(bt)
+    return bt, tb, seed
+
+
+def _two_term_pods(start, n=12):
+    """A replica run spreading ScheduleAnyway on hostname and zone at once:
+    two ScheduleAnyway slots, and the encoder's widest domain axis."""
+    from open_simulator_torch.utils.synth import synth_pod
+
+    out = []
+    for i in range(n):
+        pod = synth_pod(start + i, labels={"app": "sa-two"})
+        pod["spec"]["topologySpreadConstraints"] = [{
+            "maxSkew": 1, "topologyKey": key, "whenUnsatisfiable": "ScheduleAnyway",
+            "labelSelector": {"matchLabels": {"app": "sa-two"}}}
+            for key in ("kubernetes.io/hostname", "topology.kubernetes.io/zone")]
+        out.append(pod)
+    return out
+
+
+def _k2_cluster(n_nodes, ext, n_pods=260, two_terms=False):
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.utils.synth import synth_extended_cluster
+
+    if ext:
+        nodes, pods, _, scs = synth_extended_cluster(n_nodes, n_pods)
+    else:
+        nodes, pods = synth_cluster(n_nodes, n_pods, hard_predicates=True)
+        scs = []
+    sim = Simulator(_unzone_some(nodes), device="cuda")
+    sim.register_cluster_objects(ResourceTypes(storage_classes=scs))
+    half = n_pods // 2
+    pods = pods[:half] + _edge_pods(n_nodes, len(pods)) + pods[half:]
+    if two_terms:
+        pods += _two_term_pods(len(pods))
+    bt, tb, seed = _unpadded_tables(sim, pods)
+    assert tb.alloc.shape[0] == n_nodes
+    return bt, tb, seed, len(pods)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ext", [False, True])
+@pytest.mark.parametrize("n_nodes,C", CLUSTER_NODES)
+def test_cluster_schedule_batch_matches_plain(n_nodes, C, ext):
+    """K2 on one cluster of C CTAs against its plain version: choices and
+    every carry field bit for bit, with padded pod rows, a pod with nothing
+    feasible, a forced pod, nodes without a zone and a ScheduleAnyway run on
+    hostname domains; with EXT the GPU-share and Open-Local branches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    bt, tb, seed, P = _k2_cluster(n_nodes, ext)
+    flags = dict(enable_gpu=ext, enable_storage=ext)
+    args = [torch.from_numpy(a).cuda() for a in (bt.pod_group, bt.forced_node, bt.valid)]
+    assert not bool(args[2].all())  # padded rows
+    kc, kch = K.schedule_batch_kernel(tb, seed, *args, bt.n_zones, **flags)
+    pc, pch = K.schedule_batch_plain(tb, seed, *args, bt.n_zones, **flags)
+    assert K.schedule_batch.last_shape.C == C
+    assert torch.equal(kch, pch), int((kch != pch).sum())
+    _same_carry(kc, pc)
+    assert int(kch[130]) == -1 and int(kch[131]) == 3  # nothing feasible; forced
+    rounds, barriers, steps = K.schedule_batch.last_stats.tolist()
+    assert steps == P and steps < rounds <= 3 * steps and barriers <= steps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [8, 32])
+@pytest.mark.parametrize("n_nodes", [1_501, 5_000])
+def test_cluster_schedule_batch_lanes_match_plain(n_nodes, S):
+    """K2 over S lanes (one cluster a lane) against the plain lanes: per-lane
+    pod streams with per-lane valid rows, arbitrary node-active masks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import numpy as np
+
+    bt, tb, seed, P = _k2_cluster(n_nodes, False)
+    rng = np.random.default_rng(n_nodes + S)
+    Pp = bt.pod_group.shape[0]
+    pg = np.stack([np.roll(bt.pod_group, 3 * s) for s in range(S)])
+    fn = np.stack([np.roll(bt.forced_node, 3 * s) for s in range(S)])
+    vd = np.stack([np.roll(bt.valid, 3 * s) & (rng.random(Pp) < 0.9) for s in range(S)])
+    active = torch.from_numpy(rng.random((S, n_nodes)) < 0.8).cuda()
+    active[0] = True
+    cry_s = K.carry_lanes(seed, S)
+    args = [torch.from_numpy(a).cuda() for a in (pg, fn, vd)]
+    kc, kch = K.schedule_batch_lanes_kernel(tb, cry_s, active, *args, bt.n_zones)
+    pc, pch = K.schedule_batch_lanes_plain(tb, cry_s, active, *args, bt.n_zones)
+    shape = K.probe_serial_fanout.last_shape
+    assert shape.C > 1 and K.probe_serial_fanout.last_stats.shape == (S, 3)
+    assert torch.equal(kch, pch), int((kch != pch).sum())
+    _same_carry(kc, pc)
+
+
+def _spread_cluster(n_nodes, device="cuda", two_terms=False):
+    """synth_spread_cluster (live ScheduleAnyway on zones, live zoned
+    SelectorSpread, two DoNotSchedule terms) with nodes without a zone, a
+    ScheduleAnyway run on hostname domains and a ScheduleAnyway zone run of
+    pods so large that a node holds one (before it, with `two_terms`, a run
+    spreading on hostname and zone at once), on unpadded tables, with its
+    spread segments."""
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.utils.synth import synth_pod, synth_spread_cluster
+
+    nodes, pods, services = synth_spread_cluster(n_nodes, 480)
+    sim = Simulator(_unzone_some(nodes), device=device)
+    sim.register_cluster_objects(ResourceTypes(services=services))
+    big = []
+    for i in range(20):
+        pod = synth_pod(len(pods) + i, cpu_milli=24_000, labels={"app": "big"})
+        pod["spec"]["topologySpreadConstraints"] = [{
+            "maxSkew": 1, "topologyKey": "topology.kubernetes.io/zone",
+            "whenUnsatisfiable": "ScheduleAnyway",
+            "labelSelector": {"matchLabels": {"app": "big"}}}]
+        big.append(pod)
+    pods = pods + _edge_pods(n_nodes, len(pods) + 20)[2:]
+    if two_terms:
+        pods += _two_term_pods(len(pods) + 100)
+    pods += big
+    bt, tb, seed = _unpadded_tables(sim, pods)
+    assert tb.alloc.shape[0] == n_nodes
+    spread = [s for s in sim._segments(bt, len(pods)) if s[0] == "spread"]
+    return bt, tb, seed, spread
+
+
+def _k4_cases(tb, spread):
+    """The first spread segment of each flag pair, the first ScheduleAnyway
+    run on hostname domains and the last run (the large pods)."""
+    firsts = {}
+    for s in spread:
+        firsts.setdefault((s[5], s[6]), s)
+    assert set(firsts) == {(True, False), (False, True), (False, False)}
+    host = [s for s in spread if s[6] and any(
+        int(i) >= 0 and tb.counter_dom[int(i)].unique().numel() > 64 for i in tb.sa_t[s[3]])]
+    assert host, "no ScheduleAnyway run on hostname domains"
+    return list(firsts.values()) + [host[0], spread[-1]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_nodes,C", CLUSTER_NODES)
+def test_cluster_group_serial_matches_plain(n_nodes, C):
+    """K4 on one cluster of C CTAs against its plain version on every spread
+    flag (sa_live, ss_live, two DoNotSchedule terms) and on a ScheduleAnyway
+    run on hostname domains (with padded pod rows), and on the large pods'
+    run given more rows than the nodes hold, which stops when nothing is
+    feasible: counts and placed bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    bt, tb, seed, spread = _spread_cluster(n_nodes)
+    cases = _k4_cases(tb, spread)
+    for case, (_, _, m, g, cap1, ss_live, sa_live) in enumerate(cases):
+        full = case == len(cases) - 1
+        rows = m + n_nodes + 10 if full else m + 5
+        valid = torch.arange(rows, device="cuda") < (rows if full else m)
+        nz = bt.n_zones if ss_live else 2
+        kj, kp = K.schedule_group_serial_kernel(tb, seed, g, valid, cap1, ss_live=ss_live,
+                                                sa_live=sa_live, n_zones=nz)
+        pj, pp = K.schedule_group_serial_plain(tb, seed, g, valid, cap1, ss_live=ss_live,
+                                               sa_live=sa_live, n_zones=nz)
+        assert K.schedule_group_serial.last_shape.C == C
+        assert torch.equal(kj, pj), (g, ss_live, sa_live, int((kj != pj).sum()))
+        assert int(kp) == pp
+        rounds, barriers, steps = K.schedule_group_serial.last_stats.tolist()
+        assert 2 * steps - 1 <= rounds <= 3 * steps and barriers <= steps
+        if full:
+            assert pp == n_nodes < rows  # stopped: nothing feasible
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [8, 32])
+@pytest.mark.parametrize("n_nodes", [1_501, 5_000])
+def test_cluster_group_serial_lanes_match_plain(n_nodes, S):
+    """K4 over S lanes (one cluster a lane) against the plain lanes on each
+    spread flag, arbitrary node-active masks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import numpy as np
+
+    bt, tb, seed, spread = _spread_cluster(n_nodes)
+    rng = np.random.default_rng(n_nodes + S)
+    active = torch.from_numpy(rng.random((S, n_nodes)) < 0.8).cuda()
+    active[0] = True
+    cry_s = K.carry_lanes(seed, S)
+    for _, _, m, g, cap1, ss_live, sa_live in _k4_cases(tb, spread)[:4]:
+        valid = torch.arange(m + 5, device="cuda") < m
+        kw = dict(ss_live=ss_live, sa_live=sa_live, n_zones=bt.n_zones if ss_live else 2)
+        kj, kp = K.schedule_group_serial_lanes_kernel(tb, cry_s, active, g, valid, cap1, **kw)
+        pj, pp = K.schedule_group_serial_lanes_plain(tb, cry_s, active, g, valid, cap1, **kw)
+        assert K.probe_group_serial_fanout.last_shape.C > 1
+        assert torch.equal(kj, pj), (g, ss_live, sa_live)
+        assert torch.equal(kp.cpu(), torch.as_tensor(pp).reshape(kp.shape).cpu().to(kp.dtype))
+
+
+# bench.py's node count (every per-node row on chip) and one past the chip
+# (a CTA's rows in global scratch), with a run that spreads ScheduleAnyway
+# on hostname and zone at once: two ScheduleAnyway slots and the encoder's
+# widest domain axis (D1 131,073 and 262,145), marks far too wide for round 1
+LARGE_NODES = (100_352, 140_000)
+
+
+def _smem_model_holds(shape, kernel, n_nodes, tb, seed, n_zones):
+    """The chosen shape against tests/test_torch_cluster_shape.py's model of
+    the library's shared memory, and where the rows live."""
+    import test_torch_cluster_shape as CS
+
+    Ss, D1 = tb.sa_t.shape[1], seed.counter.shape[1]
+    assert Ss >= 2 and D1 == CS.padded_d1(n_nodes)
+    assert shape.C == 16
+    assert shape.smem == CS.smem_model(kernel, n_nodes, 16, Ss, max(2, n_zones), D1)
+    rows_on_chip = shape.smem > 4 * CS.ROW_WORDS[kernel] * shape.chunk
+    assert rows_on_chip == (n_nodes == LARGE_NODES[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ext", [False, True])
+@pytest.mark.parametrize("n_nodes", LARGE_NODES)
+def test_cluster_schedule_batch_at_large_node_counts(n_nodes, ext):
+    """K2 on a cluster of 16 at bench.py's node count and past the per-node
+    rows' room on chip, with two ScheduleAnyway slots on the padded hostname
+    axis: choices and every carry field bit for bit against the plain
+    version, and the shared memory the library asked for."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    bt, tb, seed, P = _k2_cluster(n_nodes, ext, n_pods=40, two_terms=True)
+    flags = dict(enable_gpu=ext, enable_storage=ext)
+    args = [torch.from_numpy(a).cuda() for a in (bt.pod_group, bt.forced_node, bt.valid)]
+    kc, kch = K.schedule_batch_kernel(tb, seed, *args, bt.n_zones, **flags)
+    pc, pch = K.schedule_batch_plain(tb, seed, *args, bt.n_zones, **flags)
+    _smem_model_holds(K.schedule_batch.last_shape, "k2_ext" if ext else "k2", n_nodes, tb, seed,
+                      bt.n_zones)
+    assert torch.equal(kch, pch), int((kch != pch).sum())
+    _same_carry(kc, pc)
+    assert int(kch[20]) == -1 and int(kch[21]) == 3  # nothing feasible; forced
+    rounds, barriers, steps = K.schedule_batch.last_stats.tolist()
+    assert steps == P and barriers >= 40 + 12  # the wide marks' rounds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_nodes", LARGE_NODES)
+def test_cluster_group_serial_at_large_node_counts(n_nodes):
+    """K4 on a cluster of 16 at bench.py's node count and past the per-node
+    rows' room on chip: every spread flag, the hostname run and the run on
+    hostname and zone at once, counts and placed bit for bit against the
+    plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    bt, tb, seed, spread = _spread_cluster(n_nodes, two_terms=True)
+    two = [s for s in spread if s[6] and int((tb.sa_t[s[3]] >= 0).sum()) == 2]
+    assert two, "no run with two ScheduleAnyway terms"
+    for _, _, m, g, cap1, ss_live, sa_live in _k4_cases(tb, spread)[:-1] + two[:1]:
+        valid = torch.arange(m + 5, device="cuda") < m
+        nz = bt.n_zones if ss_live else 2
+        kj, kp = K.schedule_group_serial_kernel(tb, seed, g, valid, cap1, ss_live=ss_live,
+                                                sa_live=sa_live, n_zones=nz)
+        pj, pp = K.schedule_group_serial_plain(tb, seed, g, valid, cap1, ss_live=ss_live,
+                                               sa_live=sa_live, n_zones=nz)
+        _smem_model_holds(K.schedule_group_serial.last_shape, "k4", n_nodes, tb, seed, nz)
+        assert torch.equal(kj, pj), (g, ss_live, sa_live, int((kj != pj).sum()))
+        assert int(kp) == pp
