@@ -438,6 +438,32 @@ def cluster_fields(wrapper, ms: float) -> dict:
                 barriers_per_pod=barriers / steps)
 
 
+def wave_cluster_fields(wrapper, ms: float, unit: str, steps: int = 0) -> dict:
+    """The cluster shape of `wrapper`'s last K3 ("iteration") or K5
+    ("epoch") launch (ops/cluster.py Shape), that launch's device time
+    between the CUDA events around it (`device_ms`: the kernel without the
+    wrapper's host work, which `ms`, the mean of a run of calls, includes),
+    its time a wave iteration or epoch from `ms` over `steps` (by default
+    the most steps a lane of the launch made, the kernel's own count) and
+    from device_ms, and its cluster rounds a step; for K5 the head-fallback
+    epochs of those lanes."""
+    shape = wrapper.last_shape
+    st = wrapper.last_cluster_stats.reshape(-1, 5).tolist()  # placed, steps, heads, _, rounds
+    steps = max(steps or max(r[1] for r in st), 1)
+    start, end = wrapper.last_events
+    end.synchronize()
+    device_ms = start.elapsed_time(end)
+    out = dict(cluster_ctas=shape.C, threads=shape.threads,
+               nodes_per_thread=shape.nodes_per_thread, resident=shape.resident,
+               smem=shape.smem, device_ms=device_ms)
+    out[f"us_per_{unit}"] = ms * 1e3 / steps
+    out[f"device_us_per_{unit}"] = device_ms * 1e3 / steps
+    out[f"rounds_per_{unit}"] = max(r[4] for r in st) / steps
+    if unit == "epoch":
+        out["head_fallback_epochs"] = sum(r[2] for r in st)
+    return out
+
+
 def cluster_round_case(card: str) -> None:
     """The latency floor of K2's and K4's pod steps: a run of empty pod
     steps (csrc/schedule.cu cluster_round_probe_kernel, no node work), each
@@ -692,7 +718,9 @@ def lane_case(ses, seg, active, card: str) -> tuple:
     ms = cuda_ms(lanes_k, 3)
     shape = (cluster_fields(K.probe_serial_fanout if kind == "serial"
                             else K.probe_group_serial_fanout, ms)
-             if kind in ("serial", "spread") else {})
+             if kind in ("serial", "spread") else
+             wave_cluster_fields(K.probe_wave_fanout, ms, "iteration") if kind == "wave" else
+             wave_cluster_fields(K.probe_affinity_wave_fanout, ms, "epoch"))
     single_ms = cuda_ms(lambda: single(0), 3)
     N = int(tb.alloc.shape[0])
     # the tables once for all lanes; each lane's carry, counts, statistics
@@ -718,8 +746,57 @@ def lane_case(ses, seg, active, card: str) -> tuple:
     emit("aggregate_commit_lanes", segment=kind, lanes=S, nodes=N,
          copies=ko[0].sum(dim=1).tolist(), kernel_ms=c_ms, plain_ms=commit_plain_ms,
          bound_ms=c_bound, bytes=cb, f32_ops=S * c_ops, max_abs_err=0.0, card=card)
-    return row, dict(source=SRC + "wave.cu", replaces=JAX_KERNELS + ":976", max_abs_err=0.0,
-                     ms=c_ms, plain_ms=commit_plain_ms, bound_ms=c_bound, bound_by=c_by)
+    return row, dict(source=SRC + "aggregate_commit.cu", replaces=JAX_KERNELS + ":976",
+                     max_abs_err=0.0, ms=c_ms, plain_ms=commit_plain_ms, bound_ms=c_bound,
+                     bound_by=c_by)
+
+
+def scratch_cases(card: str) -> None:
+    """K3 and K5 at a node count where a CTA's rows no longer fit its shared
+    memory (20,480 nodes at table depth 64, clusters of 16: 1,280 nodes a
+    CTA, ~370 KB of rows), so they live in its slice of global scratch: a
+    cap1 wave, another wave and an affinity segment of the hard shape
+    against their plain versions, bit for bit, and timed."""
+    import torch
+
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.simulator.engine import Simulator
+    from open_simulator_torch.utils.synth import synth_cluster
+
+    t0 = time.perf_counter()
+    nodes, pods = synth_cluster(20_480, 20_000, hard_predicates=True)
+    sim = Simulator(nodes, device="cuda")
+    bt = sim.encode_batch(pods)
+    tb, seed = sim._to_device(bt)
+    segs = sim._segments(bt, len(pods))
+    picks = [("wave_cap1", next(s for s in segs if s[0] == "wave" and s[4])),
+             ("wave", next(s for s in segs if s[0] == "wave" and not s[4])),
+             ("affinity", next(s for s in segs if s[0] == "affinity"))]
+    for label, (kind, _, m, g, cap1, flag) in picks:
+        if kind == "wave":
+            kw = dict(block=64, kmax=K.wave_kmax(m, sim.na.N, 64), gpu_live=flag)
+            run_k, run_p, wrapper, unit = (K.schedule_wave_kernel, K.schedule_wave_plain,
+                                           K.schedule_wave, "iteration")
+        else:
+            kw = dict(ss_live=flag, block=64, n_zones=bt.n_zones if flag else 2)
+            run_k, run_p, wrapper, unit = (K.schedule_affinity_wave_kernel,
+                                           K.schedule_affinity_wave_plain,
+                                           K.schedule_affinity_wave, "epoch")
+        kj, kp, kst = run_k(tb, seed, g, m, cap1, **kw)
+        (pj, pp, pst), plain_ms = timed(lambda: run_p(tb, seed, g, m, cap1, **kw))
+        names = K.WAVE_STATS if kind == "wave" else K.AFFINITY_STATS
+        if (not torch.equal(kj, pj) or int(kp) != pp
+                or kst.tolist() != [pst[k] for k in names]):
+            fail(f"scratch {label}: the kernel differs from its plain version")
+        ms = cuda_ms(lambda: run_k(tb, seed, g, m, cap1, **kw), 3)
+        fields = wave_cluster_fields(wrapper, ms, unit)
+        shape = wrapper.last_shape
+        if shape.smem >= 4 * 65 * shape.chunk:  # less than the table's rows alone
+            fail(f"scratch {label}: the rows did not go to scratch (smem {shape.smem})")
+        emit("scratch_" + ("schedule_wave" if kind == "wave" else "schedule_affinity_wave"),
+             case=label, nodes=int(tb.alloc.shape[0]), pods=m, block=64, placed=pp, **pst,
+             kernel_ms=ms, plain_ms=plain_ms, max_abs_err=err_of(kj, pj), **fields, card=card)
+    emit("scratch_done", seconds=time.perf_counter() - t0, card=card)
 
 
 def extend_case(card: str) -> dict:
@@ -1088,7 +1165,8 @@ def serve_sweep_lane_cases(card: str) -> dict:
     row("serve_wave_fanout", ms, plain_ms,
         sum(c[0] for c in costs) + sum(c[1] + N for c in costs) + c_shared + S * c_lane,
         sum(c[2] for c in costs) + S * c_ops, launches_per_call=2, k3_ms=k3_ms,
-        placed=ko.tolist(), iterations=st_s[:, 0].tolist())
+        placed=ko.tolist(), iterations=st_s[:, 0].tolist(),
+        **wave_cluster_fields(K.probe_wave_fanout, k3_ms, "iteration"))
 
     # ---- sweep_wave_fanout: K = 4 segments per lane, the last a padding
     # segment (m = 0); the chain as the fan-out runs it: 2K launches
@@ -1125,13 +1203,18 @@ def serve_sweep_lane_cases(card: str) -> dict:
     K.schedule_wave.stats = None
     K.sweep_wave_fanout(tb, cry_s, active, g_sk, m_sk, c_sk, w, filters, **kw)
     iters = K.wave_stats()["iterations"]
+    # the call's time over every lane's iterations (lanes run at once), the
+    # shape of its segment launches
+    sweep_fields = wave_cluster_fields(K.sweep_wave_fanout, ms, "iteration", steps=iters)
+    for k in ("device_ms", "device_us_per_iteration"):  # the last (padding) segment's
+        sweep_fields.pop(k)
     shared3 = sum(group_row_bytes(tb, seed, g)[0] for g in set(g_sk.flatten().tolist()))
     lane3 = sum(group_row_bytes(tb, seed, g)[1] + 5 * N for g in g_sk.flatten().tolist())
     c_shared, c_lane, c_ops = k3c_cost(tb, seed)
     b = shared3 + lane3 + depth * (c_shared + S * c_lane)
     ops = iters * N * ((block + 1) * K3_OPS_PER_ENTRY + K3_OPS_PER_NODE) + depth * S * c_ops
     row("sweep_wave_fanout", ms, plain_ms, b, ops, segments=depth, launches_per_call=2 * depth,
-        placed=ko.sum(dim=2).tolist(), iterations=iters)
+        placed=ko.sum(dim=2).tolist(), iterations=iters, **sweep_fields)
 
     # ---- one call of five lanes padded to eight (lanes 5-7 repeat lane 0)
     act5, cry5 = padded(active, 5), K.Carry(*(padded(t, 5) for t in cry_s))
@@ -3104,7 +3187,8 @@ def main() -> int:
         emit("schedule_wave", case=label, nodes=int(tb.alloc.shape[0]), pods=m, cap1=bool(cap1),
              gpu_live=bool(gpu_live), block=block, kmax=kmax, placed=pp, **pst, kernel_ms=ms,
              plain_ms=plain_ms, bound_ms=bound, bytes=b, f32_ops=ops,
-             max_abs_err=err_of(kj, pj), card=card)
+             max_abs_err=err_of(kj, pj), **wave_cluster_fields(K.schedule_wave, ms, "iteration"),
+             card=card)
         emit("aggregate_commit", case=label, gpu_live=bool(gpu_live), copies=int(kj.sum()),
              kernel_ms=c_ms, plain_ms=c_plain_ms, bound_ms=c_bound, bytes=cb, f32_ops=cops,
              max_abs_err=c_err, card=card)
@@ -3120,8 +3204,8 @@ def main() -> int:
     w_row, c_row = wave_case("northstar", Simulator(nodes, device="cuda"), pods,
                              lambda segs: next(s for s in segs if s[0] == "wave"))
     rows["schedule_wave"] = dict(source=SRC + "wave.cu", replaces=JAX_KERNELS + ":1113", **w_row)
-    rows["aggregate_commit"] = dict(source=SRC + "wave.cu", replaces=JAX_KERNELS + ":976",
-                                    **c_row)
+    rows["aggregate_commit"] = dict(source=SRC + "aggregate_commit.cu",
+                                    replaces=JAX_KERNELS + ":976", **c_row)
 
     # ---- schedule_group_serial: K4 against its plain version on full-width
     # segments of the spread workload, one of each spread flag (500 pods each)
@@ -3192,7 +3276,8 @@ def main() -> int:
         emit("schedule_affinity_wave", case=label, nodes=int(tb.alloc.shape[0]), pods=m,
              domains=int(seed.counter.shape[1]), ss_live=bool(ss_live), cap1=bool(cap1),
              block=block, placed=pp, **pst, kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound,
-             bytes=b, f32_ops=ops, max_abs_err=err_of(kj, pj), card=card)
+             bytes=b, f32_ops=ops, max_abs_err=err_of(kj, pj), us_per_pod=ms * 1e3 / max(pp, 1),
+             **wave_cluster_fields(K.schedule_affinity_wave, ms, "epoch"), card=card)
         return dict(max_abs_err=err_of(kj, pj), ms=ms, plain_ms=plain_ms, bound_ms=bound,
                     bound_by=by)
 
@@ -3204,10 +3289,15 @@ def main() -> int:
     sim.register_cluster_objects(ResourceTypes(services=services))
     # the second block of each cycle is the hostname spread
     affinity_case("hostname_spread", sim, pods, lambda segs: segs[1])
-    affinity_case("service_zoned", sim, pods, lambda segs: next(s for s in segs
-                                                                if s[0] == "affinity" and s[5]))
+    # svc-web: the Service-backed Deployment in a zoned cluster, live zoned
+    # SelectorSpread, one pod an epoch by design (JAX kernels.py:1708)
+    k5_ss = affinity_case("service_zoned", sim, pods,
+                          lambda segs: next(s for s in segs if s[0] == "affinity" and s[5]))
     rows["schedule_affinity_wave"] = dict(source=SRC + "affinity_wave.cu",
                                           replaces=JAX_KERNELS + ":1311", **k5)
+    rows["schedule_affinity_wave/ss_live"] = dict(source=SRC + "affinity_wave.cu",
+                                                  replaces=JAX_KERNELS + ":1708", **k5_ss)
+    scratch_cases(card)
 
     # ---- the GPU-share and Open-Local branches: K2 and K1 with both on
     # against their plain versions on a 2,500-pod serial slice of the
@@ -3285,7 +3375,7 @@ def main() -> int:
         if units == 1:  # the kernels line reports the one-GPU segment
             rows["schedule_wave/gpu_live"] = dict(source=SRC + "wave.cu",
                                                   replaces=JAX_KERNELS + ":963", **w_row)
-            rows["aggregate_commit/gpu_live"] = dict(source=SRC + "wave.cu",
+            rows["aggregate_commit/gpu_live"] = dict(source=SRC + "aggregate_commit.cu",
                                                      replaces=JAX_KERNELS + ":1007", **c_row)
 
     # ---- the capacity probe's kernels: K2-K5 over lanes (then K3c over

@@ -23,13 +23,15 @@ from typing import List, Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [os.path.join(_HERE, "csrc", f)
-           for f in ("feasibility.cu", "schedule.cu", "wave.cu", "group_serial.cu",
-                     "affinity_wave.cu", "extend.cu", "explain.cu", "wave_sharded.cu",
-                     "affinity_sharded.cu", "wave_rounds.cu", "affinity_rounds.cu",
-                     "batch_sharded.cu", "group_serial_sharded.cu", "commit_sharded.cu")]
+           for f in ("feasibility.cu", "schedule.cu", "wave.cu", "aggregate_commit.cu",
+                     "group_serial.cu", "affinity_wave.cu", "extend.cu", "explain.cu",
+                     "wave_sharded.cu", "affinity_sharded.cu", "wave_rounds.cu",
+                     "affinity_rounds.cu", "batch_sharded.cu", "group_serial_sharded.cu",
+                     "commit_sharded.cu")]
 HEADERS = [os.path.join(_HERE, "csrc", f)
            for f in ("common.cuh", "cluster.cuh", "select.cuh", "wave.cuh", "affinity.cuh",
-                     "wave_sharded.cuh", "affinity_sharded.cuh", "merge.cuh", "commit.cuh")]
+                     "wave_sharded.cuh", "affinity_sharded.cuh", "merge.cuh", "commit.cuh",
+                     "wave_cluster.cuh")]
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
@@ -148,35 +150,37 @@ def _load(path: str) -> ctypes.CDLL:
     lib.feasibility_launch.restype = ctypes.c_int
     lib.schedule_batch_launch.argtypes = [V, P, P, P, I, P, P, P, I, L, P]
     lib.schedule_batch_launch.restype = ctypes.c_int
-    lib.wave_scratch_floats.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.wave_scratch_floats.restype = ctypes.c_longlong
-    lib.wave_scratch_ints.argtypes = [ctypes.c_int]
-    lib.wave_scratch_ints.restype = ctypes.c_longlong
-    lib.schedule_wave_launch.argtypes = [V] + [ctypes.c_int] * 5 + [P] * 5
+    # K3 and K5 (thread-block clusters): shared memory, scratch, occupancy
+    for name, args in (("schedule_wave_smem", [I, I, I]), ("wave_scratch_floats", [I, I, I]),
+                       ("affinity_wave_smem", [V, I, I]),
+                       ("affinity_scratch_floats", [V, I, I])):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = L
+    lib.schedule_wave_occupancy.argtypes = [I, I, I, L, P]
+    lib.schedule_wave_occupancy.restype = I
+    lib.affinity_wave_occupancy.argtypes = [I, I, L, P]
+    lib.affinity_wave_occupancy.restype = I
+    lib.schedule_wave_launch.argtypes = [V] + [I] * 5 + [P] * 3 + [I, L, P]
     lib.schedule_wave_launch.restype = ctypes.c_int
     lib.aggregate_commit_launch.argtypes = [V, ctypes.c_int, P, P, P, P, ctypes.c_int, ctypes.c_int,
                                             P, P]
     lib.aggregate_commit_launch.restype = ctypes.c_int
     lib.schedule_group_serial_launch.argtypes = [V, I, P] + [I] * 4 + [P] * 4 + [I, L, P]
     lib.schedule_group_serial_launch.restype = ctypes.c_int
-    lib.affinity_scratch_floats.argtypes = [V, ctypes.c_int]
-    lib.affinity_scratch_floats.restype = ctypes.c_longlong
-    lib.affinity_scratch_ints.argtypes = [V]
-    lib.affinity_scratch_ints.restype = ctypes.c_longlong
-    lib.schedule_affinity_wave_launch.argtypes = [V] + [ctypes.c_int] * 5 + [P] * 5
+    lib.schedule_affinity_wave_launch.argtypes = [V] + [I] * 5 + [P] * 3 + [I, L, P]
     lib.schedule_affinity_wave_launch.restype = ctypes.c_int
     # the lane kernels: the same arguments and the lane count S before the outputs
     lib.schedule_batch_lanes_launch.argtypes = [V, P, P, P, I, L, L, I, P, P, P, I, L, P]
     lib.schedule_batch_lanes_launch.restype = ctypes.c_int
-    lib.schedule_wave_lanes_launch.argtypes = ([V] + [ctypes.c_int] * 3 + [P] * 3
-                                               + [ctypes.c_int] * 3 + [P] * 5)
+    lib.schedule_wave_lanes_launch.argtypes = ([V] + [I] * 3 + [P] * 3 + [I] * 3 + [P] * 3
+                                               + [I, L, P])
     lib.schedule_wave_lanes_launch.restype = ctypes.c_int
     lib.aggregate_commit_lanes_launch.argtypes = ([V, ctypes.c_int, P, P, P, P, P]
                                                   + [ctypes.c_int] * 3 + [P, P])
     lib.aggregate_commit_lanes_launch.restype = ctypes.c_int
     lib.schedule_group_serial_lanes_launch.argtypes = [V, I, P] + [I] * 5 + [P] * 4 + [I, L, P]
     lib.schedule_group_serial_lanes_launch.restype = ctypes.c_int
-    lib.schedule_affinity_wave_lanes_launch.argtypes = [V] + [ctypes.c_int] * 6 + [P] * 5
+    lib.schedule_affinity_wave_lanes_launch.argtypes = [V] + [I] * 6 + [P] * 3 + [I, L, P]
     lib.schedule_affinity_wave_lanes_launch.restype = ctypes.c_int
     lib.explain_scratch_floats.argtypes = [V]
     lib.explain_scratch_floats.restype = ctypes.c_longlong

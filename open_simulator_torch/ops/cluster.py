@@ -1,17 +1,20 @@
-"""Launch shapes of the cluster kernels K2 and K4 (csrc/cluster.cuh).
+"""Launch shapes of the cluster kernels K2, K3, K4 and K5 (csrc/cluster.cuh).
 
-Each lane of K2 (`schedule_batch`) and K4 (`schedule_group_serial`) runs on
-one thread-block cluster of C CTAs of THREADS threads; CTA r owns the node
+Each lane of K2 (`schedule_batch`), K3 (`schedule_wave`), K4
+(`schedule_group_serial`) and K5 (`schedule_affinity_wave`) runs on one
+thread-block cluster of C CTAs of THREADS threads; CTA r owns the node
 slice [r * chunk, (r + 1) * chunk), chunk = ceil(N / C), and each of its
-threads holds ceil(chunk / THREADS) nodes of a pod step. `choose` picks C
-from N, the lane count S and the card's answer to how many such clusters
-can be resident at once (cudaOccupancyMaxActiveClusters), given as a
-function so that the rule runs without a card, as is the shared memory of
-a CTA at each C (`smem_of`: on the card the library's schedule_batch_smem /
-group_serial_smem, csrc/schedule.cu `k2_smem_bytes` and csrc/group_serial.cu
-`k4_smem_bytes`). A CTA's per-node rows are in its shared memory when they
-fit SMEM_MAX, else in global scratch, so every N has a shape. Plain Python:
-nothing here needs torch or a card.
+threads holds ceil(chunk / THREADS) nodes of a pod step, wave iteration or
+epoch. `choose` picks C from N, the lane count S and the card's answer to
+how many such clusters can be resident at once
+(cudaOccupancyMaxActiveClusters), given as a function so that the rule
+runs without a card, as is the shared memory of a CTA at each C (`smem_of`:
+on the card the library's schedule_batch_smem / schedule_wave_smem /
+group_serial_smem / affinity_wave_smem, csrc/schedule.cu `k2_smem_bytes`,
+csrc/wave.cu `k3_smem_bytes`, csrc/group_serial.cu `k4_smem_bytes` and
+csrc/affinity_wave.cu `k5_smem_bytes`). A CTA's per-node rows are in its
+shared memory when they fit SMEM_MAX, else in global scratch, so every N
+has a shape. Plain Python: nothing here needs torch or a card.
 """
 
 from __future__ import annotations

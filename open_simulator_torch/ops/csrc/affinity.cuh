@@ -1,7 +1,7 @@
 // Device code shared by the affinity kernels (affinity_wave.cu: K5 and its
-// lanes; affinity_sharded.cu: K9): the term slots of one group, their live
-// flags and increments, the round budget, the block-wide sorts and scans of
-// the candidate order, and the epoch tail.
+// lanes; affinity_sharded.cu: K9; affinity_rounds.cu: K11): the term slots
+// of one group, their live flags and increments, the round budget, the
+// block-wide sorts and scans of the candidate order, and K9's epoch tail.
 
 #pragma once
 
@@ -81,14 +81,15 @@ static __device__ void bitonic_sort(T* a, int L) {
   }
 }
 
-// Inclusive scan (sum, or max of non-negative values) over 2 * blockDim.x
-// elements, thread t holding elements 2t and 2t+1; returns the total.
+// Inclusive scan (sum, or max of non-negative values) over Q * blockDim.x
+// elements, thread t holding elements Q t to Q t + Q - 1; returns the total.
 // `s_int` holds 32 ints.
-template <bool MAX>
-static __device__ int block_scan2(int& a0, int& a1, int* s_int) {
+template <bool MAX, int Q>
+static __device__ int block_scan(int (&a)[Q], int* s_int) {
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, nw = (blockDim.x + 31) >> 5;
-  a1 = MAX ? max(a0, a1) : a0 + a1;
-  int x = a1;
+#pragma unroll
+  for (int q = 1; q < Q; ++q) a[q] = MAX ? max(a[q - 1], a[q]) : a[q - 1] + a[q];
+  int x = a[Q - 1];
   for (int o = 1; o < 32; o <<= 1) {
     const int y = __shfl_up_sync(FULL_MASK, x, o);
     if (lane >= o) x = MAX ? max(x, y) : x + y;
@@ -109,8 +110,8 @@ static __device__ int block_scan2(int& a0, int& a1, int* s_int) {
   if (lane == 0) prev = 0;
   const int before = wid > 0 ? s_int[wid - 1] : 0;
   const int excl = MAX ? max(before, prev) : before + prev;
-  a0 = MAX ? max(excl, a0) : excl + a0;
-  a1 = MAX ? max(excl, a1) : excl + a1;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) a[q] = MAX ? max(excl, a[q]) : excl + a[q];
   return s_int[nw - 1];
 }
 
@@ -255,8 +256,10 @@ struct DomLive {
 // first) and each domain's sandwich bit in e.everb: JAX ORs
 // blocked_d[dom_live] into a per-node mask, and dom_live is fixed within the
 // epoch, so a node's bit is its domain's. Adds the productive rounds to
-// `rounds`; returns the pods taken, at most m_rem. Block-uniform.
-template <class DomOf>
+// `rounds`; returns the pods taken, at most m_rem. Block-uniform; each
+// thread owns Q positions, so Q * blockDim.x must reach K_EP_MAX (K5's
+// clusters of 512 threads take Q = 4).
+template <int Q = 2, class DomOf>
 static __device__ __forceinline__ int
 affinity_rounds(const Ctx& c, const AffScratch& e, const AffShared& sh, const AffDims& dm,
                 int m_rem, int n_cand, int L, bool has_budget, bool dns_live, float inc_live,
@@ -281,12 +284,12 @@ affinity_rounds(const Ctx& c, const AffScratch& e, const AffShared& sh, const Af
   int& s_L = *sh.L;
   int& s_PL = *sh.PL;
   int got = 0;
-  // each thread owns positions 2*tid and 2*tid+1
-  int node[2], dom[2];
-  bool cand[2];
-  float occ[2];
-  for (int q = 0; q < 2; ++q) {
-    const int p = 2 * tid + q;
+  // each thread owns positions Q*tid to Q*tid+Q-1
+  int node[Q], dom[Q];
+  bool cand[Q];
+  float occ[Q];
+  for (int q = 0; q < Q; ++q) {
+    const int p = Q * tid + q;
     cand[q] = p < n_cand;
     node[q] = 0;
     dom[q] = 0;
@@ -300,20 +303,20 @@ affinity_rounds(const Ctx& c, const AffScratch& e, const AffShared& sh, const Af
   // rank among the same domain's candidates: sort the unique
   // (domain, position) pairs, then a max-scan of the run starts
   u32* s_comp = reinterpret_cast<u32*>(s_key);
-  for (int q = 0; q < 2; ++q) {
-    const int p = 2 * tid + q;
+  for (int q = 0; q < Q; ++q) {
+    const int p = Q * tid + q;
     if (p < L) s_comp[p] = cand[q] ? ((u32)dom[q] << POS_BITS) | (u32)p : 0xffffffffu;
   }
   bitonic_sort<u32, false>(s_comp, L);
-  int rs[2];
-  for (int q = 0; q < 2; ++q) {
-    const int i = 2 * tid + q;
+  int rs[Q];
+  for (int q = 0; q < Q; ++q) {
+    const int i = Q * tid + q;
     rs[q] = (i > 0 && i < n_cand && (s_comp[i] >> POS_BITS) == (s_comp[i - 1] >> POS_BITS))
                 ? 0 : i;
   }
-  block_scan2<true>(rs[0], rs[1], s_int);
-  for (int q = 0; q < 2; ++q) {
-    const int i = 2 * tid + q;
+  block_scan<true>(rs, s_int);
+  for (int q = 0; q < Q; ++q) {
+    const int i = Q * tid + q;
     if (i < n_cand) s_occ[s_comp[i] & ((1u << POS_BITS) - 1)] = i - rs[q];
   }
   // the epoch's round state: live counts, consumption, blocks
@@ -332,7 +335,7 @@ affinity_rounds(const Ctx& c, const AffScratch& e, const AffShared& sh, const Af
   }
   for (int n = tid; n < N; n += bd) counts[n] = 0;
   __syncthreads();
-  for (int q = 0; q < 2; ++q) occ[q] = cand[q] ? (float)s_occ[2 * tid + q] : 0.0f;
+  for (int q = 0; q < Q; ++q) occ[q] = cand[q] ? (float)s_occ[Q * tid + q] : 0.0f;
 
   // ---- the rounds, in chains of four (JAX round_chain): the condition
   // is read once per chain
@@ -351,10 +354,10 @@ affinity_rounds(const Ctx& c, const AffScratch& e, const AffShared& sh, const Af
         const float delta = cl[d] + taken[d] * inc_live - min_c;
         atomicAdd(&s_hist[(int)fminf(fmaxf(delta, 0.0f), (float)(LMAX + 1))], 1);
       }
-      bool rem[2], cons[2];
-      float l_e[2];
-      for (int q = 0; q < 2; ++q) {
-        const int p = 2 * tid + q;
+      bool rem[Q], cons[Q];
+      float l_e[Q];
+      for (int q = 0; q < Q; ++q) {
+        const int p = Q * tid + q;
         rem[q] = cons[q] = false;
         l_e[q] = 1.0f;
         if (!cand[q]) continue;
@@ -389,10 +392,10 @@ affinity_rounds(const Ctx& c, const AffScratch& e, const AffShared& sh, const Af
       }
       __syncthreads();
       const int L_used = s_L, P_L = s_PL;
-      bool tf[2];
+      bool tf[Q];
       float rv[4] = {0.0f, -1.0f, 0.0f, 0.0f};  // n_full, rise, unreached, any at min
-      for (int q = 0; q < 2; ++q) {
-        tf[q] = rem[q] && l_e[q] <= (float)L_used && 2 * tid + q <= P_L;
+      for (int q = 0; q < Q; ++q) {
+        tf[q] = rem[q] && l_e[q] <= (float)L_used && Q * tid + q <= P_L;
         rv[0] += tf[q] ? 1.0f : 0.0f;
       }
       if (dns_live) {
@@ -411,14 +414,12 @@ affinity_rounds(const Ctx& c, const AffScratch& e, const AffShared& sh, const Af
       const bool use_full = dns_live && L_used >= 1 && n_full <= m_left && n_full > 0;
       const int p_rise = (rv[3] > 0.0f && rv[2] == 0.0f) ? (int)rv[1] : INF_P;
       // the single-rise take, cut at m_left in position order
-      int r0 = cons[0] && 2 * tid <= p_rise, r1 = cons[1] && 2 * tid + 1 <= p_rise;
-      const int tp0 = r0, tp1 = r1;
-      const int total = block_scan2<false>(r0, r1, s_int);
-      const bool take[2] = {use_full ? tf[0] : (tp0 && r0 <= m_left),
-                            use_full ? tf[1] : (tp1 && r1 <= m_left)};
+      int r[Q], tp[Q];
+      for (int q = 0; q < Q; ++q) tp[q] = r[q] = cons[q] && Q * tid + q <= p_rise;
+      const int total = block_scan<false>(r, s_int);
       const int n_take = use_full ? n_full : min(m_left, total);
-      for (int q = 0; q < 2; ++q) {
-        if (!take[q]) continue;
+      for (int q = 0; q < Q; ++q) {
+        if (!(use_full ? tf[q] : (tp[q] && r[q] <= m_left))) continue;
         atomicAdd(&counts[node[q]], 1);
         atomicAdd(&consumed[dom[q]], 1);
       }
@@ -504,8 +505,8 @@ static __device__ __forceinline__ void affinity_fold(const TablesView& t, const 
   __syncthreads();
 }
 
-// The epoch tail shared by K5 (affinity_wave.cu) and K9's tail
-// (affinity_sharded.cu), on the full-width table (row n at table + n * (B+1))
+// K9's epoch tail (affinity_sharded.cu; K5 runs the same steps on a
+// cluster, affinity_wave.cu), on the full-width table (row n at table + n * (B+1))
 // with each F_hi node's usable prefix and first hidden entry (bound; this
 // thread's best in (b1, i1)) already in place: the two-largest-bound cut,
 // the top K_EP candidates in lax.top_k order, the rounds, the normalizer

@@ -493,6 +493,57 @@ static __device__ void cta_prologue(const TablesView& t, int g, bool boot, int n
   __syncthreads();
 }
 
+// The DoNotSchedule levels of the terms in `terms` (bit s of the first Sd;
+// K4 group_serial.cu and K5 affinity_wave.cu keep them across pods):
+// the minimum over its eligible domains of the live row cnt[s]
+// (pc->dns_min, 0 when no domain is eligible; `mn` keeps it raw) and how
+// many eligible domains hold it (`nmin`). Four CTA barriers.
+static __device__ void dns_levels(const TablesView& t, int g, const float* cnt,
+                                  unsigned long long terms, PodCtx* pc, float* mn, int* nmin,
+                                  int* s_warp) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, Sd = t.Sd, D1 = t.D1;
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int s = 0; s < Sd; ++s) {
+      if (!((terms >> s) & 1ull)) continue;
+      const int id = t.dns_t[g * Sd + s];
+      const float* row = cnt + (size_t)s * D1;
+      const uint8_t* edom = t.dns_edom + ((size_t)g * Sd + s) * D1;
+      int r;
+      if (pass == 0) {  // the minimum
+        float m = INFINITY;
+        if (id >= 0)
+          for (int d = threadIdx.x; d < D1; d += CLUSTER_THREADS)
+            if (edom[d]) m = fminf(m, row[d]);
+        r = __reduce_min_sync(FULL_MASK, okey(m));
+      } else {  // the eligible domains at it
+        int k = 0;
+        if (id >= 0 && isfinite(mn[s]))
+          for (int d = threadIdx.x; d < D1; d += CLUSTER_THREADS)
+            if (edom[d] && row[d] == mn[s]) ++k;
+        r = __reduce_add_sync(FULL_MASK, k);
+      }
+      if (lane == 0) s_warp[s * CLUSTER_WARPS + wid] = r;
+    }
+    __syncthreads();
+    for (int s = wid; s < Sd; s += CLUSTER_WARPS) {
+      if (!((terms >> s) & 1ull)) continue;
+      if (pass == 0) {
+        const float m = ounkey(__reduce_min_sync(
+            FULL_MASK, lane < CLUSTER_WARPS ? s_warp[s * CLUSTER_WARPS + lane] : INT_HI));
+        if (lane == 0) {
+          mn[s] = m;
+          pc->dns_min[s] = (t.dns_t[g * Sd + s] >= 0 && isfinite(m)) ? m : 0.0f;
+        }
+      } else {
+        const int k = __reduce_add_sync(
+            FULL_MASK, lane < CLUSTER_WARPS ? s_warp[s * CLUSTER_WARPS + lane] : 0);
+        if (lane == 0) nmin[s] = k;
+      }
+    }
+    __syncthreads();
+  }
+}
+
 // Allow `kernel` clusters of 16 and CLUSTER_SMEM_MAX bytes of dynamic
 // shared memory on the current device; once per device, before any
 // occupancy query or launch (cluster_kernels_init).

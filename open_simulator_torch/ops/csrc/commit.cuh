@@ -1,5 +1,5 @@
-// The aggregate commit's device code, shared by K3c (wave.cu: every node on
-// one block) and K14 (commit_sharded.cu: the rank's block of a partitioned
+// The aggregate commit's device code, shared by K3c (aggregate_commit.cu:
+// every node on one block) and K14 (commit_sharded.cu: the rank's block of a partitioned
 // node mesh, its per-domain counts summed over the ranks in between): j[n]
 // copies of group g into the node rows, the per-topology domain counts of
 // j, and the domain counters' update from those counts.

@@ -70,56 +70,6 @@ static __host__ __device__ inline long long k4_scratch_floats(const TablesView& 
          + (rows_on_chip(rows, k4_rounds_bytes(t, C)) ? 0 : C * rows / 4);
 }
 
-// The DoNotSchedule levels of the terms in `terms` (bit s of the first Sd):
-// the minimum over its eligible domains of the live row cnt[s]
-// (pc->dns_min, 0 when no domain is eligible; `mn` keeps it raw) and how
-// many eligible domains hold it (`nmin`). Four CTA barriers.
-static __device__ void dns_levels(const TablesView& t, int g, const float* cnt,
-                                  unsigned long long terms, PodCtx* pc, float* mn, int* nmin,
-                                  int* s_warp) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, Sd = t.Sd, D1 = t.D1;
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int s = 0; s < Sd; ++s) {
-      if (!((terms >> s) & 1ull)) continue;
-      const int id = t.dns_t[g * Sd + s];
-      const float* row = cnt + (size_t)s * D1;
-      const uint8_t* edom = t.dns_edom + ((size_t)g * Sd + s) * D1;
-      int r;
-      if (pass == 0) {  // the minimum
-        float m = INFINITY;
-        if (id >= 0)
-          for (int d = threadIdx.x; d < D1; d += CLUSTER_THREADS)
-            if (edom[d]) m = fminf(m, row[d]);
-        r = __reduce_min_sync(FULL_MASK, okey(m));
-      } else {  // the eligible domains at it
-        int k = 0;
-        if (id >= 0 && isfinite(mn[s]))
-          for (int d = threadIdx.x; d < D1; d += CLUSTER_THREADS)
-            if (edom[d] && row[d] == mn[s]) ++k;
-        r = __reduce_add_sync(FULL_MASK, k);
-      }
-      if (lane == 0) s_warp[s * CLUSTER_WARPS + wid] = r;
-    }
-    __syncthreads();
-    for (int s = wid; s < Sd; s += CLUSTER_WARPS) {
-      if (!((terms >> s) & 1ull)) continue;
-      if (pass == 0) {
-        const float m = ounkey(__reduce_min_sync(
-            FULL_MASK, lane < CLUSTER_WARPS ? s_warp[s * CLUSTER_WARPS + lane] : INT_HI));
-        if (lane == 0) {
-          mn[s] = m;
-          pc->dns_min[s] = (t.dns_t[g * Sd + s] >= 0 && isfinite(m)) ? m : 0.0f;
-        }
-      } else {
-        const int k = __reduce_add_sync(
-            FULL_MASK, lane < CLUSTER_WARPS ? s_warp[s * CLUSTER_WARPS + lane] : 0);
-        if (lane == 0) nmin[s] = k;
-      }
-    }
-    __syncthreads();
-  }
-}
-
 // One lane's segment on this CTA's cluster. `t_in` is the launch's view
 // (lane 0's for the lane kernel, moved to lane s by lane_view); j_out [N],
 // placed_out [1], stats [STATS_WORDS] (cluster.cuh) are the lane's.

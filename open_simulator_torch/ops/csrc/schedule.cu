@@ -541,9 +541,11 @@ int schedule_batch_occupancy(int lanes, int ext, int C, long long smem, int* out
              : cluster_occupancy_of(schedule_batch_kernel<false>, C, smem, out);
 }
 
-// Allow every cluster kernel (K2, K4, the round probe) clusters of 16 and
+// Allow every cluster kernel (K2, K3, K4, K5, the round probe) clusters of 16 and
 // CLUSTER_SMEM_MAX bytes of dynamic shared memory; once per device.
 int group_serial_init();  // group_serial.cu
+int wave_cluster_init();  // wave.cu
+int affinity_cluster_init();  // affinity_wave.cu
 
 int cluster_kernels_init() {
   cudaError_t e = cluster_kernel_init(schedule_batch_kernel<false>);
@@ -551,7 +553,9 @@ int cluster_kernels_init() {
   if (e == cudaSuccess) e = cluster_kernel_init(schedule_batch_lanes_kernel<false>);
   if (e == cudaSuccess) e = cluster_kernel_init(schedule_batch_lanes_kernel<true>);
   if (e == cudaSuccess) e = cluster_kernel_init(cluster_round_probe_kernel);
-  return e == cudaSuccess ? group_serial_init() : (int)e;
+  if (e == cudaSuccess) e = (cudaError_t)group_serial_init();
+  if (e == cudaSuccess) e = (cudaError_t)wave_cluster_init();
+  return e == cudaSuccess ? affinity_cluster_init() : (int)e;
 }
 
 // cluster_round_probe_kernel on one cluster of C CTAs

@@ -1,9 +1,10 @@
-// Radix selection over a score table, shared by the wave kernels (K3, K8:
-// wave.cuh) and the affinity kernels (K5, K9: affinity.cuh): the serial pick
-// order of the table's entries (score desc, then flat index n*B+k asc, the
-// order lax.top_k returns) as one distinct 64-bit key per entry, and an
-// MSB-first radix select that finds the key of the r-th best usable entry
-// without sorting.
+// Radix selection over a score table: the serial pick order of the table's
+// entries (score desc, then flat index n*B+k asc, the order lax.top_k
+// returns) as one distinct 64-bit key per entry, shared by every wave and
+// affinity kernel, and a one-block MSB-first radix select that finds the key
+// of the r-th best usable entry without sorting (K8's tail in wave.cuh, K9's
+// in affinity.cuh, K10; K3 and K5 select across a cluster in
+// wave_cluster.cuh).
 
 #pragma once
 

@@ -1,10 +1,10 @@
-// The selection of one wave iteration, shared by K3 (wave.cu: every node on
-// one block) and K8's tail (wave_sharded.cu: on the gathered rows of every
-// rank): given each node's score row, its usable prefix and its first hidden
-// entry, the hidden-continuation guard, the radix select of the first
-// min(m_rem, kmax, usable) entries in serial's pick order, the stop at the
-// first node-exhausting pick when the normalizers over the shrunken feasible
-// set differ, the head fallback, and j += the counts.
+// The selection of one wave iteration on one block, K8's tail
+// (wave_sharded.cu: on the gathered rows of every rank; K3 runs it on a
+// cluster, wave.cu): given each node's score row, its usable prefix and
+// its first hidden entry, the hidden-continuation guard, the radix select of
+// the first min(m_rem, kmax, usable) entries in serial's pick order, the
+// stop at the first node-exhausting pick when the normalizers over the
+// shrunken feasible set differ, the head fallback, and j += the counts.
 
 #pragma once
 
@@ -12,16 +12,9 @@
 #include "select.cuh"
 
 // What the selection reads of node n besides its row: `avail(n)`, the copies
-// it has left (K8: clamped to B+1, which no comparison below can tell
-// apart), and `F(n)` or `F(n, avail)`, whether it is in the epoch's feasible
-// set. Segment constants and j (K3):
-struct WaveNodesLive {
-  const int *feas, *cap, *j;
-  __device__ __forceinline__ int avail(int n) const { return cap[n] - j[n]; }
-  __device__ __forceinline__ bool F(int n, int avail) const { return feas[n] && avail > 0; }
-  __device__ __forceinline__ bool F(int n) const { return feas[n] && cap[n] - j[n] > 0; }
-};
-// The gathered rows (K8):
+// it has left (clamped to B+1, which no comparison below can tell apart),
+// and `F(n)` or `F(n, avail)`, whether it is in the epoch's feasible set,
+// from the gathered rows:
 struct WaveNodesGathered {
   const int *F_s, *avail_s;
   __device__ __forceinline__ int avail(int n) const { return avail_s[n]; }

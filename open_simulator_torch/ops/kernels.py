@@ -1012,6 +1012,8 @@ _WAVE_TABLE_BUDGET = 1 << 21
 _CAP_UNBOUNDED_F = 2_147_483_000.0
 _CAP_UNBOUNDED_I = 2_147_483_000
 WAVE_STATS = ("iterations", "head_fallbacks", "guarded")
+# K3's stats row per lane (csrc/wave.cu K3_STATS, i32)
+WAVE_CLUSTER_STATS = ("placed",) + WAVE_STATS + ("rounds",)
 
 
 def wave_block_for(m: int, n: int) -> int:
@@ -1812,6 +1814,8 @@ def schedule_group_serial_sharded_plain(tb: Tables, cry: Carry, g: int, valid, c
 # (the head fallback).
 
 AFFINITY_STATS = ("epochs", "head_fallbacks", "multi_rounds")
+# K5's stats row per lane (csrc/affinity_wave.cu K5_STATS, i32)
+AFFINITY_CLUSTER_STATS = ("placed",) + AFFINITY_STATS + ("rounds",)
 K_EP_MAX = 2048  # width of one epoch's candidate order (JAX K_EP = min(N*B, 2048))
 LMAX = 32        # min-rise levels one multi-level round may take
 # K5 keys a candidate by (domain, position) in 32 bits: 11 bits of position
@@ -2708,25 +2712,34 @@ def _cluster_init(lib) -> None:
         _CLUSTER_READY.add(dev)
 
 
-def _cluster_shape(lib, kernel: str, lanes: bool, ext: bool, v: TablesView, S: int):
-    """The cluster shape (ops/cluster.py `choose`) of a K2 ("k2") or K4
-    ("k4") launch of S lanes on the view `v`: the shared memory of each
-    candidate C from the library (schedule_batch_smem / group_serial_smem,
-    the one formula of it), and the card's cudaOccupancyMaxActiveClusters
-    answer for it."""
+def _cluster_shape(lib, kernel: str, lanes: bool, ext: bool, v: TablesView, S: int,
+                   block: int = 0):
+    """The cluster shape (ops/cluster.py `choose`) of a K2 ("k2"), K3
+    ("k3", table depth `block`), K4 ("k4") or K5 ("k5", table depth
+    `block`) launch of S lanes on the view `v`: the shared memory of each
+    candidate C from the library (schedule_batch_smem, schedule_wave_smem,
+    group_serial_smem, affinity_wave_smem: the one formula of each), and the
+    card's cudaOccupancyMaxActiveClusters answer for it."""
     _cluster_init(lib)
-    smem_fn = lib.schedule_batch_smem if kernel == "k2" else lib.group_serial_smem
+    smem_of = {"k2": lambda C: lib.schedule_batch_smem(ctypes.byref(v), C),
+               "k3": lambda C: lib.schedule_wave_smem(int(v.N), int(block), C),
+               "k4": lambda C: lib.group_serial_smem(ctypes.byref(v), C),
+               "k5": lambda C: lib.affinity_wave_smem(ctypes.byref(v), int(block), C)}[kernel]
 
     def occupancy(C: int, smem: int) -> int:
         out = ctypes.c_int(0)
         if kernel == "k2":
             rc = lib.schedule_batch_occupancy(int(lanes), int(ext), C, smem, ctypes.byref(out))
-        else:
+        elif kernel == "k3":
+            rc = lib.schedule_wave_occupancy(int(lanes), int(ext), C, smem, ctypes.byref(out))
+        elif kernel == "k4":
             rc = lib.group_serial_occupancy(int(lanes), C, smem, ctypes.byref(out))
+        else:
+            rc = lib.affinity_wave_occupancy(int(lanes), C, smem, ctypes.byref(out))
         _check(rc, f"{kernel} cluster occupancy query (C {C}, {smem} bytes)")
         return out.value
 
-    return choose(int(v.N), S, lambda C: int(smem_fn(ctypes.byref(v), C)), occupancy)
+    return choose(int(v.N), S, lambda C: int(smem_of(C)), occupancy)
 
 
 def schedule_batch_kernel(tb: Tables, cry: Carry, pod_group, forced_node, valid,
@@ -2805,10 +2818,12 @@ def _i32_on(t, dev, n: int, what: str) -> torch.Tensor:
 def schedule_wave_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
                          w: ScoreWeights = DEFAULT_WEIGHTS, filters: FilterFlags = DEFAULT_FILTERS,
                          block: int = WAVE_BLOCK, kmax: int = 0, gpu_live: bool = False):
-    """Launch K3 (csrc/wave.cu schedule_wave_kernel): one persistent block
-    runs the whole wave loop. Returns (per-node counts [N] i32, placed as a
-    0-dim i32 tensor, [iterations, head_fallbacks, guarded] i32), all on the
-    card; `cry` is only read."""
+    """Launch K3 (csrc/wave.cu schedule_wave_kernel): one persistent
+    thread-block cluster runs the whole wave loop, its shape from
+    ops/cluster.py (recorded with the launch's stats row, WAVE_CLUSTER_STATS,
+    in `schedule_wave.last_shape` / `.last_cluster_stats`). Returns
+    (per-node counts [N] i32, placed as a 0-dim i32 tensor, [iterations,
+    head_fallbacks, guarded] i32), all on the card; `cry` is only read."""
     from . import build
 
     lib = build.library()
@@ -2818,23 +2833,29 @@ def schedule_wave_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
     if N * block >= 2 ** 31 or not 1 <= K <= N * block:
         raise ValueError(f"wave table {N}x{block} with kmax {K} is out of the kernel's range")
     v = _view(tb, cry, 2, w, filters, enable_gpu=gpu_live)
+    shape = _cluster_shape(lib, "k3", False, bool(gpu_live), v, 1, block)
     j = torch.empty(N, dtype=torch.int32, device=dev)
-    stats = torch.empty(4, dtype=torch.int32, device=dev)
-    fs = torch.empty(int(lib.wave_scratch_floats(N, block)), dtype=_F32, device=dev)
-    iscr = torch.empty(int(lib.wave_scratch_ints(N)), dtype=torch.int32, device=dev)
+    stats = torch.empty(len(WAVE_CLUSTER_STATS), dtype=torch.int32, device=dev)
+    fs = torch.empty(max(1, int(lib.wave_scratch_floats(N, int(block), shape.C))), dtype=_F32,
+                     device=dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
     _check(lib.schedule_wave_launch(ctypes.byref(v), int(g), int(m), int(bool(cap1)),
-                                    int(block), int(K), _ptr(j), _ptr(stats), _ptr(fs),
-                                    _ptr(iscr), _stream()),
+                                    int(block), int(K), _ptr(j), _ptr(stats), _ptr(fs), shape.C,
+                                    shape.smem, _stream()),
            "schedule_wave_kernel launch")
+    end.record()
     schedule_wave.launches += 1
+    schedule_wave.last_events = (start, end)
+    schedule_wave.last_shape, schedule_wave.last_cluster_stats = shape, stats
     if gpu_live:
         BRANCH_LAUNCHES["schedule_wave/gpu_live"] += 1
-    return j, stats[0], stats[1:]
+    return j, stats[0], stats[1:4]
 
 
 def aggregate_commit_kernel(tb: Tables, cry: Carry, g: int, j: torch.Tensor,
                             gpu_live: bool = False) -> Carry:
-    """Launch K3c (csrc/wave.cu aggregate_commit_kernel) on a CLONE of `cry`,
+    """Launch K3c (csrc/aggregate_commit.cu aggregate_commit_kernel) on a CLONE of `cry`,
     which it updates in place and returns; `cry` is left untouched."""
     from . import build
 
@@ -2898,9 +2919,12 @@ def schedule_affinity_wave_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: 
                                   filters: FilterFlags = DEFAULT_FILTERS,
                                   block: int = WAVE_BLOCK, n_zones: int = 2):
     """Launch K5 (csrc/affinity_wave.cu schedule_affinity_wave_kernel): one
-    persistent block runs the whole epoch loop. Returns (per-node counts [N]
-    i32, placed as a 0-dim i32 tensor, [epochs, head_fallbacks,
-    multi_rounds] i32), all on the card; `cry` is only read."""
+    persistent thread-block cluster runs the whole epoch loop, its shape
+    from ops/cluster.py (recorded with the launch's stats row,
+    AFFINITY_CLUSTER_STATS, in `schedule_affinity_wave.last_shape` /
+    `.last_cluster_stats`). Returns (per-node counts [N] i32, placed as a
+    0-dim i32 tensor, [epochs, head_fallbacks, multi_rounds] i32), all on
+    the card; `cry` is only read."""
     from . import build
 
     lib = build.library()
@@ -2911,18 +2935,26 @@ def schedule_affinity_wave_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: 
     if cry.counter.shape[1] > AFFINITY_MAX_D1:
         raise ValueError(f"{cry.counter.shape[1]} domains exceed the kernel's {AFFINITY_MAX_D1}")
     v = _view(tb, cry, n_zones, w, filters)
+    shape = _cluster_shape(lib, "k5", False, False, v, 1, block)
     j = torch.empty(N, dtype=torch.int32, device=dev)
-    stats = torch.empty(4, dtype=torch.int32, device=dev)
-    fs = torch.empty(int(lib.affinity_scratch_floats(ctypes.byref(v), int(block))), dtype=_F32,
-                     device=dev)
-    iscr = torch.empty(int(lib.affinity_scratch_ints(ctypes.byref(v))), dtype=torch.int32,
-                       device=dev)
+    stats = torch.empty(len(AFFINITY_CLUSTER_STATS), dtype=torch.int32, device=dev)
+    fs = torch.empty(int(lib.affinity_scratch_floats(ctypes.byref(v), int(block), shape.C)),
+                     dtype=_F32, device=dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
     _check(lib.schedule_affinity_wave_launch(ctypes.byref(v), int(g), int(m), int(bool(cap1)),
                                              int(bool(ss_live)), int(block), _ptr(j),
-                                             _ptr(stats), _ptr(fs), _ptr(iscr), _stream()),
+                                             _ptr(stats), _ptr(fs), shape.C, shape.smem,
+                                             _stream()),
            "schedule_affinity_wave_kernel launch")
+    end.record()
     schedule_affinity_wave.launches += 1
-    return j, stats[0], stats[1:]
+    schedule_affinity_wave.last_events = (start, end)
+    if ss_live:
+        BRANCH_LAUNCHES["schedule_affinity_wave/ss_live"] += 1
+    schedule_affinity_wave.last_shape = shape
+    schedule_affinity_wave.last_cluster_stats = stats
+    return j, stats[0], stats[1:4]
 
 
 # A timing hook for the K8 - K11 stages: when it is a dict, each of their
@@ -3672,9 +3704,9 @@ def schedule_affinity_wave(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
 # (`probe_*_fanout`) share one segment; the serve and sweep lanes
 # (`serve_*_fanout`, `sweep_*_fanout`) carry their own pod rows or wave
 # groups. JAX vmaps K2-K5 over the lanes; the plain versions below loop over
-# them, and the lane kernels run one block per lane (csrc/*.cu
-# `*_lanes_kernel`), reading per-lane inputs at a lane stride (0 for one
-# value shared by every lane).
+# them, and the lane kernels run one thread-block cluster per lane (K2-K5;
+# K3c one block per lane: csrc/*.cu `*_lanes_kernel`), reading per-lane
+# inputs at a lane stride (0 for one value shared by every lane).
 
 
 def _mask_active(tb: Tables, active: torch.Tensor) -> Tables:
@@ -3900,11 +3932,13 @@ def schedule_wave_lanes_kernel(tb: Tables, cry_s: Carry, active_s, g, m, cap1,
                                w: ScoreWeights = DEFAULT_WEIGHTS,
                                filters: FilterFlags = DEFAULT_FILTERS, block: int = WAVE_BLOCK,
                                kmax: int = 0, gpu_live: bool = False, fanout=None):
-    """Launch K3 over S lanes (csrc/wave.cu schedule_wave_lanes_kernel).
-    `g`, `m` and `cap1` are each a scalar (every lane; a launch argument) or
-    an [S] tensor (one per lane); `block` and `kmax` are shared. Returns
-    (counts [S, N] i32, placed [S] i32, stats [S, 3] i32), all on the card;
-    `cry_s` is only read. The launch counts on `fanout` (probe_wave_fanout by
+    """Launch K3 over S lanes (csrc/wave.cu schedule_wave_lanes_kernel, one
+    cluster per lane; the shape and [S, WAVE_CLUSTER_STATS] stats recorded
+    as the fan-out wrapper's `last_shape` / `last_cluster_stats`). `g`, `m`
+    and `cap1` are each a scalar (every lane; a launch argument) or an [S]
+    tensor (one per lane); `block` and `kmax` are shared. Returns (counts
+    [S, N] i32, placed [S] i32, stats [S, 3] i32), all on the card; `cry_s`
+    is only read. The launch counts on `fanout` (probe_wave_fanout by
     default)."""
     from . import build
 
@@ -3915,25 +3949,32 @@ def schedule_wave_lanes_kernel(tb: Tables, cry_s: Carry, active_s, g, m, cap1,
     if N * block >= 2 ** 31 or not 1 <= K <= N * block:
         raise ValueError(f"wave table {N}x{block} with kmax {K} is out of the kernel's range")
     S, active, v = _lane_view(tb, cry_s, active_s, 2, w, filters, enable_gpu=gpu_live)
+    shape = _cluster_shape(lib, "k3", True, bool(gpu_live), v, S, block)
     g0, g_t = _lane_values(g, torch.int32, S, dev, "g")
     m0, m_t = _lane_values(m, torch.int32, S, dev, "m")
     c0, c_t = _lane_values(cap1, torch.bool, S, dev, "cap1")
     j = torch.empty((S, N), dtype=torch.int32, device=dev)
-    stats = torch.empty((S, 4), dtype=torch.int32, device=dev)
-    fs = torch.empty(S * int(lib.wave_scratch_floats(N, block)), dtype=_F32, device=dev)
-    iscr = torch.empty(S * int(lib.wave_scratch_ints(N)), dtype=torch.int32, device=dev)
+    stats = torch.empty((S, len(WAVE_CLUSTER_STATS)), dtype=torch.int32, device=dev)
+    fs = torch.empty(max(1, S * int(lib.wave_scratch_floats(N, int(block), shape.C))),
+                     dtype=_F32, device=dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
     _check(lib.schedule_wave_lanes_launch(ctypes.byref(v), g0, m0, int(bool(c0)),
                                           _ptr_or_null(g_t), _ptr_or_null(m_t), _ptr_or_null(c_t),
                                           int(block), int(K), int(S), _ptr(j), _ptr(stats),
-                                          _ptr(fs), _ptr(iscr), _stream()),
+                                          _ptr(fs), shape.C, shape.smem, _stream()),
            "schedule_wave_lanes_kernel launch")
-    (fanout or probe_wave_fanout).launches += 1
-    return j, stats[:, 0], stats[:, 1:]
+    end.record()
+    wrapper = fanout or probe_wave_fanout
+    wrapper.launches += 1
+    wrapper.last_events = (start, end)
+    wrapper.last_shape, wrapper.last_cluster_stats = shape, stats
+    return j, stats[:, 0], stats[:, 1:4]
 
 
 def aggregate_commit_lanes_kernel(tb: Tables, cry_s: Carry, g, j_s: torch.Tensor,
                                   gpu_live: bool = False, fanout=None) -> Carry:
-    """Launch K3c over S lanes (csrc/wave.cu aggregate_commit_lanes_kernel,
+    """Launch K3c over S lanes (csrc/aggregate_commit.cu aggregate_commit_lanes_kernel,
     the lane on the grid's second dimension) on a CLONE of `cry_s`, which it
     updates in place and returns. `g` is a scalar (every lane; a launch
     argument) or an [S] tensor (one group per lane). The launch counts on
@@ -4009,8 +4050,10 @@ def schedule_affinity_wave_lanes_kernel(tb: Tables, cry_s: Carry, active_s, g: i
                                         filters: FilterFlags = DEFAULT_FILTERS,
                                         block: int = WAVE_BLOCK, n_zones: int = 2):
     """Launch K5 over S lanes (csrc/affinity_wave.cu
-    schedule_affinity_wave_lanes_kernel). Returns (counts [S, N] i32, placed
-    [S] i32, stats [S, 3] i32), all on the card; `cry_s` is only read."""
+    schedule_affinity_wave_lanes_kernel, one cluster per lane; the shape
+    and [S, AFFINITY_CLUSTER_STATS] stats recorded on
+    probe_affinity_wave_fanout). Returns (counts [S, N] i32, placed [S] i32,
+    stats [S, 3] i32), all on the card; `cry_s` is only read."""
     from . import build
 
     lib = build.library()
@@ -4022,19 +4065,24 @@ def schedule_affinity_wave_lanes_kernel(tb: Tables, cry_s: Carry, active_s, g: i
         raise ValueError(f"{cry_s.counter.shape[2]} domains exceed the kernel's "
                          f"{AFFINITY_MAX_D1}")
     S, active, v = _lane_view(tb, cry_s, active_s, n_zones, w, filters)
+    shape = _cluster_shape(lib, "k5", True, False, v, S, block)
     j = torch.empty((S, N), dtype=torch.int32, device=dev)
-    stats = torch.empty((S, 4), dtype=torch.int32, device=dev)
-    fs = torch.empty(S * int(lib.affinity_scratch_floats(ctypes.byref(v), int(block))),
+    stats = torch.empty((S, len(AFFINITY_CLUSTER_STATS)), dtype=torch.int32, device=dev)
+    fs = torch.empty(S * int(lib.affinity_scratch_floats(ctypes.byref(v), int(block), shape.C)),
                      dtype=_F32, device=dev)
-    iscr = torch.empty(S * int(lib.affinity_scratch_ints(ctypes.byref(v))), dtype=torch.int32,
-                       device=dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
     _check(lib.schedule_affinity_wave_lanes_launch(ctypes.byref(v), int(g), int(m),
                                                    int(bool(cap1)), int(bool(ss_live)),
                                                    int(block), int(S), _ptr(j), _ptr(stats),
-                                                   _ptr(fs), _ptr(iscr), _stream()),
+                                                   _ptr(fs), shape.C, shape.smem, _stream()),
            "schedule_affinity_wave_lanes_kernel launch")
+    end.record()
     probe_affinity_wave_fanout.launches += 1
-    return j, stats[:, 0], stats[:, 1:]
+    probe_affinity_wave_fanout.last_events = (start, end)
+    probe_affinity_wave_fanout.last_shape = shape
+    probe_affinity_wave_fanout.last_cluster_stats = stats
+    return j, stats[:, 0], stats[:, 1:4]
 
 
 def aggregate_commit_lanes(tb: Tables, cry_s: Carry, g, j_s: torch.Tensor,
@@ -4402,6 +4450,12 @@ schedule_batch.last_events = None
 for _f in (schedule_batch, schedule_group_serial, probe_serial_fanout, serve_whatif_fanout,
            sweep_whatif_fanout, probe_group_serial_fanout):
     _f.last_shape = _f.last_stats = None
+# K3's and K5's (single lane and fan-outs): the last launch's cluster shape,
+# its i32 stats rows (WAVE_CLUSTER_STATS, AFFINITY_CLUSTER_STATS) and its
+# CUDA events (elapsed_time() once the caller has synchronized)
+for _f in (schedule_wave, schedule_affinity_wave, probe_wave_fanout, serve_wave_fanout,
+           sweep_wave_fanout, probe_affinity_wave_fanout):
+    _f.last_shape = _f.last_cluster_stats = _f.last_events = None
 schedule_wave.stats = None
 schedule_affinity_wave.stats = None
 schedule_affinity_wave.last_stats = None
@@ -4412,7 +4466,8 @@ BRANCH_LAUNCHES = dict.fromkeys(("feasibility/gpu_storage", "schedule_batch/gpu_
                                  "schedule_wave_sharded/gpu_live",
                                  "schedule_wave_rounds/gpu_live",
                                  "schedule_batch_sharded/gpu_storage",
-                                 "aggregate_commit_sharded/gpu_live"), 0)
+                                 "aggregate_commit_sharded/gpu_live",
+                                 "schedule_affinity_wave/ss_live"), 0)
 
 
 def reset_launch_counts() -> None:

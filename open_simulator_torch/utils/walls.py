@@ -21,12 +21,14 @@ With `--kernels`, it times the kernels of the main path instead (CUDA
 events, mean of `--reps` launches after a warm-up): K2 on 2,500 pods of the
 5,000-node hard shape (also over 8 lanes) and of the same shape at 10,000
 nodes, K4 on the first ScheduleAnyway segment of the spread cluster (also
-over 8 lanes), K5 and K3 on the first affinity and wave segments of the hard
-shape (each also over 8 lanes), K3 with gpu_live on the first GPU wave of
-the extended cluster, and prints the root's `ptxas -v` lines (registers,
-stack, spills) of each kernel and, where the root's K2 and K4 run on
-thread-block clusters, each launch's cluster shape, so that two checkouts
-compare kernel for kernel.
+over 8 lanes), K5 on the first affinity segment of the hard shape and K3 on
+its first wave and first cap1 wave segments (each also over 8 lanes, the
+cap1 wave's counts then committed by K3c over 8 lanes), K5 on
+the affinity cluster's svc-web segment and hostname spread, K3 with gpu_live
+on the first GPU wave of the extended cluster, and prints the root's
+`ptxas -v` lines (registers, stack, spills) of each kernel and, where the
+root's K2-K5 run on thread-block clusters, each launch's cluster shape, so
+that two checkouts compare kernel for kernel.
 """
 
 from __future__ import annotations
@@ -256,18 +258,44 @@ def kernel_times(synth, root: str, reps: int) -> int:
     out["K5 schedule_affinity_wave hard zone spread"] = _ms(
         lambda: K.schedule_affinity_wave_kernel(tb, seed, g, m, cap1, ss_live=ss_live,
                                                 block=block), reps)
+    shape_of("K5 schedule_affinity_wave hard zone spread", K.schedule_affinity_wave)
     lanes = K.carry_lanes(seed, 8)
     active = torch.ones((8, tb.alloc.shape[0]), dtype=torch.bool, device="cuda")
     out["K5 over 8 lanes hard zone spread"] = _ms(
         lambda: K.schedule_affinity_wave_lanes_kernel(tb, lanes, active, g, m, cap1,
                                                       ss_live=ss_live, block=block), reps)
-    _, _, m, g, cap1 = next(s for s in sim._segments(bt, len(pods)) if s[0] == "wave")[:5]
-    block = K.wave_block_for(m, sim.na.N)
-    kw = dict(block=block, kmax=K.wave_kmax(m, sim.na.N, block))
-    out["K3 schedule_wave hard"] = _ms(
-        lambda: K.schedule_wave_kernel(tb, seed, g, m, cap1, **kw), reps)
-    out["K3 over 8 lanes hard"] = _ms(
-        lambda: K.schedule_wave_lanes_kernel(tb, lanes, active, g, m, cap1, **kw), reps)
+    shape_of("K5 over 8 lanes hard zone spread", K.probe_affinity_wave_fanout)
+    segs = sim._segments(bt, len(pods))
+    for label, seg in (("", next(s for s in segs if s[0] == "wave")),
+                       (" cap1", next(s for s in segs if s[0] == "wave" and s[4]))):
+        _, _, m, g, cap1 = seg[:5]
+        block = K.wave_block_for(m, sim.na.N)
+        kw = dict(block=block, kmax=K.wave_kmax(m, sim.na.N, block))
+        out[f"K3 schedule_wave hard{label}"] = _ms(
+            lambda: K.schedule_wave_kernel(tb, seed, g, m, cap1, **kw), reps)
+        shape_of(f"K3 schedule_wave hard{label}", K.schedule_wave)
+        out[f"K3 over 8 lanes hard{label}"] = _ms(
+            lambda: K.schedule_wave_lanes_kernel(tb, lanes, active, g, m, cap1, **kw), reps)
+        shape_of(f"K3 over 8 lanes hard{label}", K.probe_wave_fanout)
+    j_s = K.schedule_wave_lanes_kernel(tb, lanes, active, g, m, cap1, **kw)[0]
+    out["K3c over 8 lanes hard cap1"] = _ms(
+        lambda: K.aggregate_commit_lanes_kernel(tb, lanes, g, j_s), reps)
+    # the Service-backed svc-web segment of the affinity cluster (zoned
+    # SelectorSpread: a head-fallback epoch a pod) and its hostname spread
+    nodes, pods, services = synth.synth_affinity_cluster(5000, 20000)
+    sim = Simulator(nodes, device="cuda")
+    sim.register_cluster_objects(ResourceTypes(services=services))
+    bt = sim.encode_batch(pods)
+    tb, seed = sim._to_device(bt)
+    segs = sim._segments(bt, len(pods))
+    for label, seg in (("svc-web", next(s for s in segs if s[0] == "affinity" and s[5])),
+                       ("hostname spread", segs[1])):
+        _, _, m, g, cap1, ss_live = seg
+        kw = dict(ss_live=ss_live, block=K.wave_block_for(m, sim.na.N),
+                  n_zones=bt.n_zones if ss_live else 2)
+        out[f"K5 schedule_affinity_wave {label}"] = _ms(
+            lambda: K.schedule_affinity_wave_kernel(tb, seed, g, m, cap1, **kw), reps)
+        shape_of(f"K5 schedule_affinity_wave {label}", K.schedule_affinity_wave)
     nodes, pods, _, scs = synth.synth_extended_cluster(2000, 20000)
     sim = Simulator(nodes, device="cuda")
     sim.register_cluster_objects(ResourceTypes(storage_classes=scs))
@@ -280,6 +308,7 @@ def kernel_times(synth, root: str, reps: int) -> int:
         lambda: K.schedule_wave_kernel(tb, seed, g, m, cap1, block=block,
                                        kmax=K.wave_kmax(m, sim.na.N, block), gpu_live=True),
         reps)
+    shape_of("K3 schedule_wave extended gpu_live", K.schedule_wave)
     print(json.dumps({"root": os.path.abspath(root), "kernel_ms": out, "cluster_shapes": shapes,
                       "reps": reps, "card": card}), flush=True)
     return 0

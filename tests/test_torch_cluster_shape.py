@@ -1,9 +1,10 @@
-"""The launch-shape rule of the cluster kernels K2 and K4
+"""The launch-shape rule of the cluster kernels K2, K3, K4 and K5
 (open_simulator_torch/ops/cluster.py), as plain Python: the card's occupancy
 answer and the library's shared-memory size are models passed in, so nothing
 here needs a card. The tables' axes are the ones the encoder pads to, and
 tests/test_torch_cuda.py holds `smem_model` against the library's own
-schedule_batch_smem / group_serial_smem on the card."""
+schedule_batch_smem / group_serial_smem / schedule_wave_smem /
+affinity_wave_smem on the card."""
 
 import functools
 
@@ -20,12 +21,41 @@ NS = (1, 100, 1_024, 2_048, 5_120, 10_240, 100_352)
 ROW_WORDS = {"k2": 6, "k2_ext": 7, "k4": 7}  # f32 / i32 rows a node (and a u8 row)
 KEYS = {"k2": 9, "k2_ext": 11, "k4": 9}      # round 1's keys
 MARKS_FUSED_MAX = 64                          # csrc/cluster.cuh
+# K3 and K5 (csrc/wave.cu, csrc/affinity_wave.cu, csrc/wave_cluster.cuh)
+WAVE_B = 64         # the deepest table (ops/kernels.py WAVE_BLOCK)
+RX_WORDS = 256      # a round slot's words: a radix pass's histogram
+RX_SCRATCH = 65 * 16  # the rounds' warp words, (MAX_SLOTS + 1) * warps
+K_EP_MAX = 2048     # K5's candidate keys
+CTX_BYTES = 9552    # K5's term slots (affinity.cuh Ctx, padded to 16 bytes)
+K5_KEYS = 23        # K5's round 1 keys
+K5_LIVE_ROWS = 8    # K5's live rows [Sd + A + B + Ca + Cw + 1] of a typical batch
+
+
+def wave_smem_model(kernel: str, N: int, C: int, Z: int, D1: int) -> int:
+    """K3's (rows: the table [chunk, B+1] and 8 words a node; the round
+    slots [2][C][RX_WORDS]) and K5's (the candidate keys and ranks, the term
+    slots, warp words, a histogram, the slots [2][C][W] and fin [W], the zone
+    partials and sums; then the node rows, 11 words and the table a node,
+    and the live rows, each on chip while they fit) dynamic shared memory."""
+    chunk = -(-N // C)
+    if kernel in ("k3", "k3_ext"):
+        rows, rounds = 4 * chunk * (WAVE_B + 1 + 8), 4 * 2 * C * RX_WORDS
+        return (rows if rows + rounds <= cluster.SMEM_MAX else 0) + rounds
+    W, Z4 = max(RX_WORDS, K5_KEYS + Z), (Z + 3) & ~3
+    fixed = 12 * K_EP_MAX + CTX_BYTES + 4 * (RX_SCRATCH + 256 + 2 * C * W + W + 2 * Z4)
+    rows, live = 4 * chunk * (WAVE_B + 11), 4 * K5_LIVE_ROWS * D1
+    rows_on = fixed + rows <= cluster.SMEM_MAX
+    live_on = rows_on and fixed + rows + live <= cluster.SMEM_MAX
+    return fixed + (rows if rows_on else 0) + (live if live_on else 0)
 
 
 def smem_model(kernel: str, N: int, C: int, Ss: int, Z: int, D1: int) -> int:
     """A CTA's dynamic shared memory as csrc/cluster.cuh lays it out: its
     per-node rows when they fit SMEM_MAX with the rest, then two sets of
-    fused marks, the round slots [2][C][W], fin [W] and the zone sums [Z]."""
+    fused marks, the round slots [2][C][W], fin [W] and the zone sums [Z]
+    (K3 and K5: wave_smem_model)."""
+    if kernel in ("k3", "k3_ext", "k5"):
+        return wave_smem_model(kernel, N, C, Z, D1)
     chunk = -(-N // C)
     rows = 4 * ROW_WORDS[kernel] * chunk + ((chunk + 3) & ~3)
     marks = min(Ss * ((D1 + 31) // 32), MARKS_FUSED_MAX)
@@ -73,7 +103,7 @@ def _occupancy(model):
 
 
 @pytest.mark.parametrize("model", sorted(MODELS))
-@pytest.mark.parametrize("kernel", ["k2", "k2_ext", "k4"])
+@pytest.mark.parametrize("kernel", ["k2", "k2_ext", "k3", "k3_ext", "k4", "k5"])
 @pytest.mark.parametrize("S", [1, 8, 32])
 @pytest.mark.parametrize("N", NS + (4_000_000,))
 def test_cluster_shape(N, S, kernel, model):
@@ -112,8 +142,16 @@ def test_cluster_shape(N, S, kernel, model):
         assert C > 1
     if N == 100_352 and model == "gpc_18_16" and S == 1:
         # bench.py's node count with hostname and zone ScheduleAnyway terms:
-        # clusters of 16 with every per-node row on chip
-        assert C == 16 and shape.smem > 4 * ROW_WORDS[kernel] * shape.chunk
+        # clusters of 16, with every per-node row on chip but K3's and K5's
+        # (their table rows of 65 entries a node)
+        assert C == 16
+        if kernel in ROW_WORDS:
+            assert shape.smem > 4 * ROW_WORDS[kernel] * shape.chunk
+        else:
+            assert shape.smem < 4 * 8 * shape.chunk
+    if kernel in ("k3", "k3_ext", "k5") and N <= 5_120 and S == 1 and model == "gpc_18_16":
+        # a lane's table and rows on chip up to the engine's 5,120 nodes
+        assert shape.smem >= 4 * (WAVE_B + 1) * shape.chunk
     if N == 4_000_000:  # far past the chip: the rows live in scratch
         assert shape.smem < shape.chunk
 

@@ -959,6 +959,203 @@ def test_cluster_group_serial_lanes_match_plain(n_nodes, S):
         assert torch.equal(kp.cpu(), torch.as_tensor(pp).reshape(kp.shape).cpu().to(kp.dtype))
 
 
+# ---- K3 and K5 on thread-block clusters (csrc/wave.cu, csrc/affinity_wave.cu) ----
+
+
+def _wave_cluster(n_nodes, n_pods):
+    """synth_cluster's hard-predicate cluster with nodes without a zone, on
+    unpadded tables, with its wave segments (cap1 and not)."""
+    nodes, pods = synth_cluster(n_nodes, n_pods, hard_predicates=True)
+    sim = Simulator(_unzone_some(nodes), device="cuda")
+    bt, tb, seed = _unpadded_tables(sim, pods)
+    assert tb.alloc.shape[0] == n_nodes
+    return tb, seed, [s for s in sim._segments(bt, len(pods)) if s[0] == "wave"]
+
+
+def _same_wave(tb, seed, g, m, cap1, **kw):
+    """K3 against its plain version: counts, placed and loop statistics bit
+    for bit; returns the plain statistics."""
+    kj, kp, kst = K.schedule_wave_kernel(tb, seed, g, m, cap1, **kw)
+    pj, pp, pst = K.schedule_wave_plain(tb, seed, g, m, cap1, **kw)
+    assert torch.equal(kj, pj), (g, cap1, kw, int((kj != pj).sum()))
+    assert int(kp) == pp, (g, cap1, kw)
+    assert kst.tolist() == [pst[k] for k in K.WAVE_STATS], (g, cap1, kw)
+    placed, iters, heads, guarded, rounds = K.schedule_wave.last_cluster_stats.tolist()
+    assert (placed, iters) == (pp, pst["iterations"]) and rounds >= 3 * iters
+    return pst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_nodes,C", CLUSTER_NODES)
+def test_cluster_wave_matches_plain(n_nodes, C):
+    """K3 on one cluster of C CTAs against its plain version on cap1 and
+    other wave segments, at the engine's block and kmax, at block 8 / kmax 16
+    (the guard, more iterations) and on waves larger than the cluster holds
+    (they stop when nothing is feasible)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    tb, seed, waves = _wave_cluster(n_nodes, 2 * n_nodes)
+    cap1 = [s for s in waves if s[4]][:2]
+    other = [s for s in waves if not s[4]][:2]
+    assert cap1 and other
+    for _, _, m, g, c1, _ in cap1 + other:
+        block = K.wave_block_for(m, n_nodes)
+        for blk, kmax in ((block, K.wave_kmax(m, n_nodes, block)), (8, 16)):
+            _same_wave(tb, seed, g, m, c1, block=blk, kmax=kmax)
+            assert K.schedule_wave.last_shape.C == C
+    for _, _, m, g, c1, _ in other:
+        _same_wave(tb, seed, g, 50 * n_nodes, c1, block=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [8, 32])
+def test_cluster_wave_lanes_match_plain(S):
+    """K3 over S lanes (one cluster a lane) against the plain lanes, with
+    per-lane g, m and cap1 (the sweep's and serve's form) and arbitrary
+    node-active masks: counts, placed and loop statistics."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import numpy as np
+
+    n_nodes = 1_501
+    tb, seed, waves = _wave_cluster(n_nodes, 2 * n_nodes)
+    rng = np.random.default_rng(S)
+    active = torch.from_numpy(rng.random((S, n_nodes)) < 0.8).cuda()
+    active[0] = True
+    cry_s = K.carry_lanes(seed, S)
+    picks = [waves[i % len(waves)] for i in range(S)]
+    g_s = torch.tensor([p[3] for p in picks], dtype=torch.int32).cuda()
+    m_s = torch.tensor([0 if s == 1 else p[2] for s, p in enumerate(picks)],
+                       dtype=torch.int32).cuda()
+    c_s = torch.tensor([p[4] for p in picks], dtype=torch.bool).cuda()
+    block = K.wave_block_for(int(m_s.max()), n_nodes)
+    kw = dict(block=block, kmax=K.wave_kmax(int(m_s.max()), n_nodes, block))
+    kj, kp, kst = K.schedule_wave_lanes_kernel(tb, cry_s, active, g_s, m_s, c_s, **kw)
+    pj, pp, pst = K.schedule_wave_lanes_plain(tb, cry_s, active, g_s, m_s, c_s, **kw)
+    assert K.probe_wave_fanout.last_shape.C >= 1
+    assert torch.equal(kj, pj)
+    assert torch.equal(kp.cpu(), torch.as_tensor(pp).reshape(kp.shape).cpu().to(kp.dtype))
+    assert torch.equal(kst.cpu(), torch.as_tensor(pst).reshape(kst.shape).cpu().to(kst.dtype))
+
+
+@pytest.mark.cuda
+def test_cluster_wave_at_large_node_count():
+    """K3 at bench.py's node count, a cluster of 16 with each CTA's rows in
+    global scratch: a cap1 and another wave bit for bit against the plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import test_torch_cluster_shape as CS
+
+    n_nodes = LARGE_NODES[0]
+    tb, seed, waves = _wave_cluster(n_nodes, 3_000)
+    cases = [s for s in waves if s[4]][:1] + [s for s in waves if not s[4]][:1]
+    assert len(cases) == 2
+    for _, _, m, g, c1, _ in cases:
+        block = K.wave_block_for(m, n_nodes)
+        _same_wave(tb, seed, g, m, c1, block=block, kmax=K.wave_kmax(m, n_nodes, block))
+        shape = K.schedule_wave.last_shape
+        assert shape.C == 16 and shape.smem < 4 * 8 * shape.chunk  # the rows in scratch
+        assert shape.smem == CS.wave_smem_model("k3", n_nodes, 16, 2, 2)
+
+
+def _affinity_cluster(n_nodes, n_pods):
+    """synth_affinity_cluster (zone self-affinity with its bootstrap, a
+    hostname and a zone DoNotSchedule spread, zone self-anti-affinity, the
+    zoned Service-backed `svc-web`) with nodes without a zone, on unpadded
+    tables, with its affinity segments."""
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.utils.synth import synth_affinity_cluster
+
+    nodes, pods, services = synth_affinity_cluster(n_nodes, n_pods)
+    sim = Simulator(_unzone_some(nodes), device="cuda")
+    sim.register_cluster_objects(ResourceTypes(services=services))
+    bt, tb, seed = _unpadded_tables(sim, pods)
+    assert tb.alloc.shape[0] == n_nodes
+    return bt, tb, seed, [s for s in sim._segments(bt, len(pods)) if s[0] == "affinity"]
+
+
+def _same_affinity(bt, tb, seed, seg, **kw):
+    """K5 against its plain version on one affinity segment: counts, placed
+    and epoch statistics bit for bit; returns the plain statistics."""
+    _, _, m, g, cap1, ss_live = seg
+    kw = dict(ss_live=ss_live, n_zones=bt.n_zones if ss_live else 2, **kw)
+    kj, kp, kst = K.schedule_affinity_wave_kernel(tb, seed, g, m, cap1, **kw)
+    pj, pp, pst = K.schedule_affinity_wave_plain(tb, seed, g, m, cap1, **kw)
+    assert torch.equal(kj, pj), (g, kw, int((kj != pj).sum()))
+    assert int(kp) == pp, (g, kw)
+    assert kst.tolist() == [pst[k] for k in K.AFFINITY_STATS], (g, kw)
+    placed, epochs, heads, multi, rounds = K.schedule_affinity_wave.last_cluster_stats.tolist()
+    assert (placed, epochs) == (pp, pst["epochs"]) and rounds >= epochs
+    return pst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_nodes,C", CLUSTER_NODES)
+def test_cluster_affinity_wave_matches_plain(n_nodes, C):
+    """K5 on one cluster of C CTAs against its plain version on each of the
+    five affinity shapes (bootstrap, DoNotSchedule levels on hostname and
+    zone domains, self-anti-affinity past the zones, zoned SelectorSpread's
+    head fallbacks), at the engine's block and at block 2 (depth caps and
+    the cut bind, more multi-pod epochs)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    bt, tb, seed, aff = _affinity_cluster(n_nodes, 1_000)
+    totals = dict.fromkeys(K.AFFINITY_STATS, 0)
+    for seg in aff[:5]:
+        for blk in (K.wave_block_for(seg[2], n_nodes), 2):
+            st = _same_affinity(bt, tb, seed, seg, block=blk)
+            assert K.schedule_affinity_wave.last_shape.C == C
+            for k in K.AFFINITY_STATS:
+                totals[k] += st[k]
+    assert totals["head_fallbacks"] > 0 and totals["multi_rounds"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [8, 32])
+def test_cluster_affinity_wave_lanes_match_plain(S):
+    """K5 over S lanes (one cluster a lane) against the plain lanes on each
+    affinity shape, arbitrary node-active masks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import numpy as np
+
+    n_nodes = 1_501
+    bt, tb, seed, aff = _affinity_cluster(n_nodes, 1_000)
+    rng = np.random.default_rng(S)
+    active = torch.from_numpy(rng.random((S, n_nodes)) < 0.8).cuda()
+    active[0] = True
+    cry_s = K.carry_lanes(seed, S)
+    for _, _, m, g, cap1, ss_live in aff[:5]:
+        kw = dict(ss_live=ss_live, n_zones=bt.n_zones if ss_live else 2,
+                  block=K.wave_block_for(m, n_nodes))
+        kj, kp, kst = K.schedule_affinity_wave_lanes_kernel(tb, cry_s, active, g, m, cap1, **kw)
+        pj, pp, pst = K.schedule_affinity_wave_lanes_plain(tb, cry_s, active, g, m, cap1, **kw)
+        assert K.probe_affinity_wave_fanout.last_shape.C >= 1
+        assert torch.equal(kj, pj), (g, ss_live)
+        assert torch.equal(kp.cpu(), torch.as_tensor(pp).reshape(kp.shape).cpu().to(kp.dtype))
+        assert torch.equal(kst.cpu(), torch.as_tensor(pst).reshape(kst.shape).cpu().to(kst.dtype))
+
+
+@pytest.mark.cuda
+def test_cluster_affinity_wave_at_large_node_count():
+    """K5 at bench.py's node count, a cluster of 16 with each CTA's node
+    rows and live rows in global scratch: each affinity shape bit for bit
+    against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import test_torch_cluster_shape as CS
+
+    n_nodes = LARGE_NODES[0]
+    bt, tb, seed, aff = _affinity_cluster(n_nodes, 200)
+    for seg in aff[:5]:
+        _same_affinity(bt, tb, seed, seg, block=K.wave_block_for(seg[2], n_nodes))
+        shape = K.schedule_affinity_wave.last_shape
+        assert shape.C == 16 and shape.smem < 4 * 11 * shape.chunk  # the rows in scratch
+        Z = bt.n_zones if seg[5] else 2
+        assert shape.smem == CS.wave_smem_model("k5", n_nodes, 16, Z, seed.counter.shape[1])
+
+
 # bench.py's node count (every per-node row on chip) and one past the chip
 # (a CTA's rows in global scratch), with a run that spreads ScheduleAnyway
 # on hostname and zone at once: two ScheduleAnyway slots and the encoder's
