@@ -43,7 +43,7 @@ package computed (tests/golden/torch_port_*.json):
   image at full width: bench.py's serve shape (10,000 nodes, 5,000 bound
   pods, a 20,000-event watch stream ingested through `apply_events`) and 64
   what-if sessions in one `dispatch_sessions` call, every response against
-  `fresh_probe` on the card. Before them, the four serve and sweep fan-outs
+  `fresh_probe`'s answer on the card (`oracle_answers`). Before them, the four serve and sweep fan-outs
   (K2, K3 and K3c over lanes with per-lane pod streams, valid rows and wave
   groups) are held against their plain versions at S = 8 on the sweep's
   1,024-node image, lane by lane against the single-lane kernels, and in a
@@ -1377,12 +1377,46 @@ def serve_requests(img) -> list:
 RESPONSE_KEYS = ("scheduled", "total", "unscheduled", "utilization")
 
 
+def oracle_answers(img, requests) -> list:
+    """fresh_probe's answer to each (pods, drains) request, built apart
+    from the image's resident state: a request with drains gets its own
+    img.fresh_probe; the requests without drains share one fresh Simulator
+    over the live cluster with the bound pods replayed once (a probe's run
+    writes nothing back to the Simulator), each probed on it with
+    fresh_probe's arithmetic, and the first of them is also held against
+    its own img.fresh_probe. A fresh Simulator at 10,000 nodes takes 2-3 s
+    to build and replay."""
+    base = None
+    out = []
+    for pods, drains in requests:
+        if drains:
+            out.append(img.fresh_probe(pods, drains=drains))
+            continue
+        first = base is None
+        if first:
+            sim, bound, _ = img.fresh_simulator()
+            base = (sim, len(bound), *sim.probe_pods(bound))  # the bound pods commit
+        sim, n_bound, s0, t0 = base
+        s1, t1 = sim.probe_pods([copy.deepcopy(p) for p in pods])
+        scheduled, total = s0 + s1, t0 + t1
+        ans = {"scheduled": scheduled - n_bound, "total": total - n_bound,
+               "unscheduled": total - scheduled, "utilization": sim.probe_utilization()}
+        if first:
+            want = img.fresh_probe(pods)
+            for k in RESPONSE_KEYS:
+                if ans[k] != want[k]:
+                    fail(f"serve: the shared fresh Simulator's {k} {ans[k]} != fresh_probe "
+                         f"{want[k]}")
+        out.append(ans)
+    return out
+
+
 def serve_full_width(card: str) -> tuple:
     """bench.py's serve shape on the card (serve_image), then the 64
     sessions of serve_requests in one dispatch_sessions call, each
-    response held against fresh_probe of the same request on the card.
-    Returns (the launch counts of the ingest and the dispatch, the
-    responses)."""
+    response held against fresh_probe's answer to the same request on the
+    card (oracle_answers). Returns (the launch counts of the ingest and the
+    dispatch, the responses)."""
     import torch
 
     from open_simulator_torch.ops import kernels as K
@@ -1411,8 +1445,7 @@ def serve_full_width(card: str) -> tuple:
     if counts["serve_wave_fanout"] != 2 or counts["serve_whatif_fanout"] != 1:
         fail(f"serve: launches {counts}")
     t0 = time.perf_counter()
-    for (pods, drains), resp in zip(requests, responses):
-        want = img.fresh_probe(pods, drains=drains)
+    for resp, want in zip(responses, oracle_answers(img, requests)):
         for k in RESPONSE_KEYS:
             if resp[k] != want[k]:
                 fail(f"serve: {k} {resp[k]} != fresh_probe {want[k]}")
@@ -1633,13 +1666,57 @@ def block_of_staged(tb, seed, mesh) -> tuple:
     return (*block_of(tb, seed, mesh), slice(mesh.rank * NL, (mesh.rank + 1) * NL))
 
 
+class gathered_rows:
+    """Inside the block, every int64 `all_gather_rows` result (the block
+    tops' candidate rows of K10 and K11) is kept in `.rows`."""
+
+    def __enter__(self):
+        import torch
+
+        from open_simulator_torch.parallel import collectives
+
+        self.mod, self.real, self.rows = collectives, collectives.all_gather_rows, []
+
+        def spy(x, mesh):
+            out = self.real(x, mesh)
+            if out.dtype == torch.int64:
+                self.rows.append(out)
+            return out
+
+        collectives.all_gather_rows = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.all_gather_rows = self.real
+
+
+def merge_yardstick(rows, R: int, c: int, k_max: int) -> tuple:
+    """(ms, k) of torch.topk of a merge's gathered keys (the first c of each
+    rank's c + 1 rows, pads included) at k = min(k_max, its nonzero keys):
+    the library's call for the merge's selection."""
+    import torch
+
+    keys = rows.view(R, c + 1, -1)[:, :c, 0].reshape(-1).contiguous()
+    k = min(k_max, int((keys != 0).sum()))
+    return cuda_ms(lambda: torch.topk(keys, k), 10), k
+
+
+def shape_fields(wrapper) -> dict:
+    """The cluster shape of a K10 / K11 call's stages."""
+    sh = wrapper.last_shape
+    return dict(C=sh.C, threads=sh.threads, smem=sh.smem, nodes_per_thread=sh.nodes_per_thread,
+                occupancy=sh.occupancy)
+
+
 def mesh_rounds_case(mesh, nodes, pods) -> dict:
     """K10 against its plain per-round version on the card (bit for bit:
     counts, placed, WAVE_STATS) and against the unsharded K3, on the first
     wave segment of the cluster from the seed carry, on this rank of `mesh`
     at the default epoch limit; then K10 timed per stage by CUDA events and
-    per call by the host clock, and torch.topk of the block's flat scores
-    at k = c (the first round's local select) beside it."""
+    per call by the host clock, with its stages' cluster shape, and beside
+    it torch.topk of the block's flat scores at k = c (the first round's
+    local select) and of the first round's R * c gathered keys at k = m_cand
+    (its merge)."""
     import torch
 
     from open_simulator_torch.ops import kernels as K
@@ -1657,7 +1734,8 @@ def mesh_rounds_case(mesh, nodes, pods) -> dict:
     kernel = lambda: K.schedule_wave_rounds_kernel(  # noqa: E731
         tbl, seedl, g, m, cap1, mesh=mesh, **kw)
     plain = lambda: K.schedule_wave_plain(tbl, seedl, g, m, cap1, mesh=mesh, **kw)  # noqa: E731
-    (kj, kp, kst), _ = timed(kernel)
+    with gathered_rows() as gr:
+        (kj, kp, kst), _ = timed(kernel)
     plain()  # warm-up: the rank's first calls of some PyTorch ops load their kernels
     (pj, pp, pst), plain_ms = timed(plain)
     uj, up, ust = K.schedule_wave_kernel(tb, seed, g, m, cap1, **kw)
@@ -1690,6 +1768,8 @@ def mesh_rounds_case(mesh, nodes, pods) -> dict:
                                 block=block)
     flat = table[mesh.rank * NL:(mesh.rank + 1) * NL, :block].reshape(-1).contiguous()
     topk_ms = cuda_ms(lambda: torch.topk(flat, c), 10)
+    # and the merge's: the first round's R * c gathered keys at k = m_cand
+    merge_topk_ms, m_cand = merge_yardstick(gr.rows[0], mesh.shards, c, min(kmax, m))
     b, ops = k10_cost(tb, seed, g, block, mesh.shards, c)
     bound, by = bound_of(b, ops)
     coll = {k: {"calls": v["calls"] // reps, "bytes": v["bytes"] // reps}
@@ -1699,7 +1779,9 @@ def mesh_rounds_case(mesh, nodes, pods) -> dict:
                 stage_ms_per_round={k: v / (reps * rounds) for k, v in stages.items()},
                 setup_ms=setup,
                 wall_ms_per_round=wall_ms, plain_ms_per_round=plain_ms / rounds,
-                topk_ms=topk_ms, bound_ms=bound, bound_by=by, bytes=b, f32_ops=ops,
+                topk_ms=topk_ms, merge_topk_ms=merge_topk_ms, merge_k=m_cand,
+                shape=shape_fields(K.schedule_wave_rounds_kernel),
+                bound_ms=bound, bound_by=by, bytes=b, f32_ops=ops,
                 collectives=coll, staged_bytes=mesh.staged_bytes // reps,
                 host_reads=K.schedule_wave_rounds_kernel.host_reads // reps,
                 max_abs_err=err_of(kj, pj))
@@ -1717,8 +1799,10 @@ def mesh_tail_case(mesh, label: str, nodes, pods, services, pick) -> dict:
     counts, placed, AFFINITY_STATS, and the same branches) and against the
     unsharded K5, on one affinity segment of the cluster from the seed
     carry, on this rank of `mesh` at the default epoch limit; then K11 timed
-    per stage by CUDA events and per call by the host clock, and torch.topk
-    of the block's flat first-epoch scores at k = c beside it."""
+    per stage by CUDA events and per call by the host clock, with its stages'
+    cluster shape, and beside it torch.topk of the block's flat first-epoch
+    scores at k = c and of the first select's R * c gathered keys at k =
+    K_EP (its merge)."""
     import torch
 
     from open_simulator_torch.core.types import ResourceTypes
@@ -1739,7 +1823,8 @@ def mesh_tail_case(mesh, label: str, nodes, pods, services, pick) -> dict:
     plain = lambda: K.schedule_affinity_wave_plain(  # noqa: E731
         tbl, seedl, g, m, cap1, mesh=mesh, **kw)
     mesh.reset_counts()
-    (kj, kp, kst), _ = timed(kernel)
+    with gathered_rows() as gr:
+        (kj, kp, kst), _ = timed(kernel)
     branches = tail_verdicts(mesh)
     plain()  # warm-up: the rank's first calls of some PyTorch ops load their kernels
     mesh.reset_counts()
@@ -1778,6 +1863,9 @@ def mesh_tail_case(mesh, label: str, nodes, pods, services, pick) -> dict:
                                 block=block)
     flat = table[mesh.rank * NL:(mesh.rank + 1) * NL, :block].reshape(-1).contiguous()
     topk_ms = cuda_ms(lambda: torch.topk(flat, c), 10)
+    # and the merge's: the first select's R * c gathered keys at k = K_EP
+    merge_topk_ms, k_ep = (merge_yardstick(gr.rows[0], mesh.shards, c, K.K_EP_MAX) if gr.rows
+                           else (None, 0))
     b, ops = k11_cost(tb, seed, g, block, pst, mesh.shards, c)
     bound, by = bound_of(b, ops)
     coll = {k: {"calls": v["calls"] // reps, "bytes": v["bytes"] // reps}
@@ -1788,7 +1876,8 @@ def mesh_tail_case(mesh, label: str, nodes, pods, services, pick) -> dict:
                 stage_ms_per_epoch={k: v / (reps * epochs) for k, v in stages.items()},
                 setup_ms=setup,
                 wall_ms_per_epoch=wall_ms, plain_ms_per_epoch=plain_ms / epochs, topk_ms=topk_ms,
-                bound_ms=bound, bound_by=by, bytes=b, f32_ops=ops, collectives=coll,
+                merge_topk_ms=merge_topk_ms, merge_k=k_ep,
+                shape=shape_fields(K.schedule_affinity_wave_rounds_kernel), bound_ms=bound, bound_by=by, bytes=b, f32_ops=ops, collectives=coll,
                 staged_bytes=mesh.staged_bytes // reps,
                 host_reads=K.schedule_affinity_wave_rounds_kernel.host_reads // reps,
                 max_abs_err=err_of(kj, pj))

@@ -212,30 +212,48 @@ def _load(path: str) -> ctypes.CDLL:
     for stage in ("setup", "front", "table", "tail"):
         getattr(lib, f"wave_sharded_{stage}_launch").restype = I
         getattr(lib, f"affinity_sharded_{stage}_launch").restype = I
-    # K10, the wave's per-round path: setup, then summary, select, merge and
-    # finish around K8's front and table
+    # K10, the wave's per-round path (thread-block clusters): setup, then
+    # front, table, select, merge and finish, each with its shape (C, smem)
     lib.wave_rounds_merge_state_bytes.argtypes = []
     lib.wave_rounds_merge_state_bytes.restype = L
-    lib.wave_rounds_setup_launch.argtypes = [V] + [I] * 5 + [P] * 5
-    lib.wave_rounds_summary_launch.argtypes = [I] * 4 + [P] * 5
-    lib.wave_rounds_select_launch.argtypes = [I] * 6 + [P] * 6
-    lib.wave_rounds_merge_launch.argtypes = [V] + [I] * 9 + [P] * 8
-    lib.wave_rounds_finish_launch.argtypes = [I] * 4 + [P] * 8
-    for stage in ("setup", "summary", "select", "merge", "finish"):
-        getattr(lib, f"wave_rounds_{stage}_launch").restype = I
-    # K11, the affinity wave's sharded tail: K9's setup, front and table,
-    # then flags, reduce, summary, select, merge, sandwich and finish
-    lib.affinity_rounds_state_ints.argtypes = []
-    lib.affinity_rounds_state_ints.restype = I
-    lib.affinity_rounds_flags_launch.argtypes = [V] + [I] * 6 + [P] * 3 + [I, P]
-    lib.affinity_rounds_reduce_launch.argtypes = [V] + [I] * 6 + [P] * 6
-    lib.affinity_rounds_summary_launch.argtypes = [V] + [I] * 6 + [P] * 8
-    lib.affinity_rounds_select_launch.argtypes = [V] + [I] * 7 + [P] * 5
-    lib.affinity_rounds_merge_launch.argtypes = [V] + [I] * 6 + [P] * 5
-    lib.affinity_rounds_sandwich_launch.argtypes = [V] + [I] * 5 + [P] * 5
-    lib.affinity_rounds_finish_launch.argtypes = [V] + [I] * 6 + [P] * 8
-    for stage in ("flags", "reduce", "summary", "select", "merge", "sandwich", "finish"):
-        getattr(lib, f"affinity_rounds_{stage}_launch").restype = I
+    lib.wave_rounds_smem.argtypes = [I]
+    lib.wave_rounds_smem.restype = L
+    lib.wave_rounds_occupancy.argtypes = [I, L, P]
+    lib.wave_rounds_init.argtypes = []
+    lib.wave_rounds_setup_launch.argtypes = [V] + [I] * 5 + [P] * 4 + [I, L, P]
+    lib.wave_rounds_front_launch.argtypes = [V] + [I] * 4 + [P] * 4 + [I, L, P]
+    lib.wave_rounds_table_launch.argtypes = [V] + [I] * 5 + [P] * 6 + [I, L, P]
+    lib.wave_rounds_select_launch.argtypes = [I] * 6 + [P] * 5 + [I, L, P]
+    lib.wave_rounds_merge_launch.argtypes = [V] + [I] * 9 + [P] * 7 + [I, L, P]
+    lib.wave_rounds_finish_launch.argtypes = [I] * 4 + [P] * 7 + [I, L, P]
+    for name in ("occupancy", "init", "setup_launch", "front_launch", "table_launch",
+                 "select_launch", "merge_launch", "finish_launch"):
+        getattr(lib, f"wave_rounds_{name}").restype = I
+    # K11, the affinity wave's sharded tail: setup, then front, reduce,
+    # table, select, merge, sandwich and finish; the cluster stages with
+    # their shape (C, smem)
+    for name, args, res in (("affinity_rounds_state_ints", [], I),
+                            ("affinity_rounds_compact_ints", [], I),
+                            ("affinity_rounds_smem", [V, I], L),
+                            ("affinity_rounds_smem_max", [], L),
+                            ("affinity_rounds_occupancy", [I, L, P], I),
+                            ("affinity_rounds_init", [], I),
+                            ("affinity_rounds_setup_launch", [V] + [I] * 6 + [P] * 4 + [I, L, P],
+                             I),
+                            ("affinity_rounds_front_launch", [V] + [I] * 6 + [P] * 5 + [I, L, P],
+                             I),
+                            ("affinity_rounds_reduce_launch", [V] + [I] * 6 + [P] * 6, I),
+                            ("affinity_rounds_table_launch", [V] + [I] * 6 + [P] * 6 + [I, L, P],
+                             I),
+                            ("affinity_rounds_select_launch", [V] + [I] * 7 + [P] * 4 + [I, L, P],
+                             I),
+                            ("affinity_rounds_merge_launch", [V] + [I] * 6 + [P] * 6, I),
+                            ("affinity_rounds_sandwich_launch",
+                             [V] + [I] * 5 + [P] * 4 + [I, L, P], I),
+                            ("affinity_rounds_finish_launch", [V] + [I] * 6 + [P] * 8 + [I, L, P],
+                             I)):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = res
     # K12, the serial scan on a partitioned node mesh: front, sa, score, commit
     lib.batch_sharded_scratch_floats.argtypes = [V]
     lib.batch_sharded_scratch_floats.restype = L

@@ -1,4 +1,5 @@
-"""Launch shapes of the cluster kernels K2, K3, K4 and K5 (csrc/cluster.cuh).
+"""Launch shapes of the cluster kernels K2, K3, K4, K5, K10 and K11
+(csrc/cluster.cuh).
 
 Each lane of K2 (`schedule_batch`), K3 (`schedule_wave`), K4
 (`schedule_group_serial`) and K5 (`schedule_affinity_wave`) runs on one
@@ -14,7 +15,12 @@ group_serial_smem / affinity_wave_smem, csrc/schedule.cu `k2_smem_bytes`,
 csrc/wave.cu `k3_smem_bytes`, csrc/group_serial.cu `k4_smem_bytes` and
 csrc/affinity_wave.cu `k5_smem_bytes`). A CTA's per-node rows are in its
 shared memory when they fit SMEM_MAX, else in global scratch, so every N
-has a shape. Plain Python: nothing here needs torch or a card.
+has a shape. Every stage of K10 (csrc/wave_rounds.cu, `wave_rounds_smem`)
+and each cluster stage of K11 (csrc/affinity_rounds.cu,
+`affinity_rounds_smem`, bounded by `affinity_rounds_smem_max`) is one
+cluster over a rank's block of NL nodes, its shape the rule's for one lane
+over NL; their shared memory holds the rounds' words only. Plain Python:
+nothing here needs torch or a card.
 """
 
 from __future__ import annotations
@@ -50,10 +56,12 @@ def nodes_per_thread(N: int, C: int, threads: int = THREADS) -> int:
 
 
 def choose(N: int, S: int, smem_of: Callable[[int], int],
-           occupancy: Callable[[int, int], int], threads: int = THREADS) -> Shape:
+           occupancy: Callable[[int, int], int], threads: int = THREADS,
+           smem_max: int = SMEM_MAX) -> Shape:
     """The cluster shape of an S-lane launch over N nodes.
 
-    Every C of SIZES whose shared memory `smem_of(C)` fits SMEM_MAX and of
+    Every C of SIZES whose shared memory `smem_of(C)` fits `smem_max` (the
+    kernel's bound, SMEM_MAX but for K11's) and of
     which the card can hold at least one cluster (`occupancy(C, smem)`) is a
     candidate. A lane is persistent for its whole pod stream, and a pod
     step's time grows with the nodes a thread holds, so the rule takes,
@@ -66,7 +74,7 @@ def choose(N: int, S: int, smem_of: Callable[[int], int],
     best = None
     for C in SIZES:
         smem = int(smem_of(C))
-        if smem > SMEM_MAX:
+        if smem > smem_max:
             continue
         occ = int(occupancy(C, smem))
         if occ < 1:
@@ -77,6 +85,6 @@ def choose(N: int, S: int, smem_of: Callable[[int], int],
             best = (key, Shape(C, threads, smem, chunk_of(N, C), npt, occ, occ >= S))
     if best is None:
         raise ValueError(f"no cluster shape fits N={N} with {S} lanes: every size of {SIZES} "
-                         f"needs more than {SMEM_MAX} bytes of shared memory or has no "
+                         f"needs more than {smem_max} bytes of shared memory or has no "
                          f"resident cluster")
     return best[1]

@@ -16,60 +16,84 @@
 //    The rule (parallel/mesh.py `round_shards`): a 1-D node mesh of more
 //    than one shard, N a multiple of it and N above the limit.
 //
-// One segment: K9's setup once (affinity_sharded.cu, on K9's scratch, the
-// block), then
-// per epoch, launched by ops/kernels.py
-// `schedule_affinity_wave_rounds_kernel`, one block each:
-//   front    (K9's, the block): the live gates, F_start, F_hi, ip_raw and
-//            the SelectorSpread counts, and K9's stacked vector of maxima;
-//   flags    (the block): any(F_hi), any(F_start), any(F_start on a zone),
+// The per-node stages (setup, front, table, select, sandwich) and the
+// finish are each one thread-block cluster of C CTAs of 512 threads (C from
+// ops/cluster.py `choose` over the block's NL nodes), CTA r owning the node
+// slice [r * chunk, (r + 1) * chunk) of the block, their cross-node values
+// cluster rounds (wave_cluster.cuh, merge.cuh); the reduce and the merge
+// work on replicated rows and run on one CTA. One segment: `setup` once
+// (K9's segment constants on the block, the live rows, j = 0), then per
+// epoch, launched by ops/kernels.py `schedule_affinity_wave_rounds_kernel`:
+//   front    (K9's front and the flags) the live gates, F_start, F_hi,
+//            ip_raw and the SelectorSpread counts, K9's stacked vector of
+//            maxima, any(F_hi), any(F_start), any(F_start on a zone),
 //            whether a node's live budget terms leave its composed domain,
-//            and with ss_live the block's [Z] zone sums of the counts over
-//            F_start, after the stacked vector in the same row;
+//            and with ss_live the [Z] zone sums of the counts over F_start,
+//            in one row (one round);
 //   -- all_gather_rows #1 of the rows --
-//   reduce   (replicated): the maxima by max, the zone sums by a
+//   reduce   (one CTA, replicated) the maxima by max, the zone sums by a
 //            left-to-right sum in rank order; the epoch's gates (uniform
 //            base, ip and zone liveness, the normalizer test, bootstrap) and
 //            use_multi_pre;
-//   table    (K9's, the block): the block's [B+1] score rows;
-//   summary  (the block): the SelectorSpread blend into the table rows,
-//            each node's usable prefix and first hidden entry, the block's
-//            first two maxima of that bound and its best head as (value,
-//            global node) with every term's domain at that head, and its
-//            usable count;
+//   table    (K9's table and the summary) each F_hi node's score row with
+//            the SelectorSpread blend (B+1 entries where use_multi_pre, the
+//            head entry otherwise), its usable prefix and first hidden
+//            entry; the block's first two maxima of that bound and its best
+//            head as (value, global node) with every term's domain at that
+//            head, and its usable count (three rounds);
 //   -- all_gather_rows #2 of the summaries; the host reads use_multi_pre
 //      and any(F_start); without use_multi_pre: finish (the head) --
-//   select   (the block): the guard from the global pairs, the radix select
-//            of the block's top c = min(K_EP, NL*B) entries, emitted as
-//            [c] (global key, dom_live, every term's domain) rows, 0 keys
-//            after the block's own, then (guarded usable count, 0, ...);
+//   select   the guard from the global pairs, the block's top c = min(K_EP,
+//            NL*B) entries (merge.cuh cluster_block_top), emitted in node
+//            order as [c] (global key, dom_live, every term's domain) rows,
+//            0 keys after the block's own, then (guarded usable count, 0,
+//            ...);
 //   -- all_gather_rows #3 of the [c+1] rows --
-//   merge    (replicated): the radix select of the top K_EP of the R*c keys,
-//            their bitonic sort, each position's carried domain, and the
-//            rounds (affinity.cuh `affinity_rounds`, K5's and K9's), with
-//            no collective; the host reads the pods they took;
-//   sandwich (the block, when they took pods): the lower set's maxima over
-//            the block (the ever-blocked domains expanded to the block's
-//            nodes, the exhausted nodes left out), the minima negated;
+//   merge    (one CTA, replicated) the radix select of the top K_EP of the
+//            R*c keys, their bitonic sort, each position's carried domain,
+//            and the rounds on the compacted domain state
+//            (`affinity_rounds_compact`, below), with no collective; the
+//            host reads the pods they took;
+//   sandwich (when they took pods) the lower set's maxima over the block
+//            (the ever-blocked domains expanded to the block's nodes, the
+//            exhausted nodes left out), the minima negated (one round);
 //   -- pmax #4 of those seven --
-//   finish   (replicated): the sandwich's test, the head fallback from the
-//            gathered heads, the fold into j and the live rows (the term
-//            domains from the merged rows or the head's summary), the loop
-//            state (placed, last, epochs, head fallbacks, multi rounds).
+//   finish   (replicated) the sandwich's test, the head fallback from the
+//            gathered heads, the fold into j and the live rows over the
+//            merged candidates' nodes (the keys split over the CTAs; each
+//            node's count taken and cleared at once) or the head, and the
+//            loop state (placed, last, epochs, head fallbacks, multi rounds).
 // Collectives per epoch: 2 (the head fallback without use_multi_pre), 3
 // (rounds that took nothing), 4 (a sandwich); the host reads one to three
 // small values per epoch.
 //
+// The rounds' compacted state. A round of K5 and K9 walks all D+1 domains
+// four times (the minimum, the level histogram, the rise scan, the
+// bookkeeping). Within an epoch only a candidate's domain changes (its
+// taken count); an eligible domain that holds no candidate keeps its count,
+// so its part of the minimum is one fixed value (smin), its part of the
+// level histogram a histogram of its counts above smin shifted by smin -
+// min_c, and it is at the minimum exactly when smin == min_c (with no
+// candidate: its first position is never reached). Its sandwich bit is the
+// one of the epoch's first round: the minimum never falls (counts only
+// grow), a domain's budget never falls as the minimum grows (float sums are
+// monotone), so a domain blocked in a later round was blocked in the first;
+// and a multi-level round marks it when it is eligible. So each round walks
+// the candidates' distinct domains only (at most K_EP), and the epoch walks
+// all D+1 four times: counts, marks, the fixed minimum and histogram, the
+// sandwich bits. The counts are integer-valued (pods and carried terms), so
+// the shifted histogram bins equal the direct ones.
+//
 // Exactness against K5 (and the plain `epoch` of ops/kernels.py):
 // - the per-node floats are K9's: the block's rows are the unsharded rows;
-// - maxima are exact in any order, and mins ride negated (-max(-x) ==
-//   min(x), +-inf included); the flags ride as 0/1 maxima;
-// - the zone sums and every count are integer-valued f32 below 2^24, so
+// - maxima are exact in any order (as order-preserving integer keys
+//   too), and mins ride negated (-max(-x) == min(x), +-inf included); the
+//   flags ride as 0/1 maxima;
+// - the zone sums and every count are integer-valued and below 2^24, so
 //   their sums are exact in any order (the reduce adds them in rank order);
 // - ties break on the global node index (the bound and head pairs, by
 //   value desc, node asc) and the global flat position n*B+k (the 64-bit
-//   key of select.cuh); the block's select runs on local keys, whose order
-//   is the global keys', and emits global keys;
+//   key of select.cuh);
 // - the merge sees the unsharded top K_EP keys: that top holds at most
 //   min(K_EP, NL*B) = c entries of any block and each block offers its own
 //   top c, so the top of the union of the blocks' tops is the unsharded
@@ -78,18 +102,20 @@
 // - the rounds keep one "ever blocked" bit per domain where JAX ORs
 //   blocked_d[dom_live] into a per-node mask: dom_live is fixed within an
 //   epoch, so a node's bit is its domain's, and the sandwich reads it on
-//   the block;
+//   the block; the compaction keeps every round's minimum, histogram, rise
+//   and bit as above (tests/test_torch_rounds_compact.py holds a model of
+//   it against the plain rounds);
 // - ROADMAP §B's invariants: compiled with --fmad=false, no log here (the
 //   setup's interpod term keeps common.cuh's f64 log, rounded once), and
-//   only integer-valued atomics. The rounds inherit K5's sentinel-domain
-//   behaviour (ROADMAP §C3).
+//   only integer-valued atomics. The rounds keep K5's sentinel-domain
+//   behaviour (ROADMAP §C3): domain D is never metered.
 //
-// What bounds it on an H100: latency. Every stage is one block of 1,024
-// threads: the block's select makes 8 radix passes over its NL*B entries
-// and the merge 8 over R*c keys, then the rounds' block-wide scans per
-// round. Per epoch the host makes two to four collectives and one to three
+// What bounds it on an H100: latency. A per-node stage is a short pass over
+// the block on C SMs plus a start and an end cluster barrier and its
+// rounds; the merge is the rounds' block-wide scans over the candidates on
+// one SM. Per epoch the host makes two to four collectives and one to three
 // reads. The bytes it must move per epoch are the block's table and the
-// merged list (ops: counted in chip_smoke.py `k11_cost`).
+// merged list (counted in chip_smoke.py `k11_cost`).
 //
 // The exactness contract with the plain PyTorch version is in common.cuh.
 
@@ -101,14 +127,53 @@
 
 // K11's loop state after K9's seven: the epoch's use_multi_pre, any(F_start),
 // uniform base and zoned-start flags, then the rounds' pods and productive
-// rounds
-enum { ST_MULTI_PRE = 7, ST_ANY_START, ST_UNIFORM, ST_ZONED, ST_GOT, ST_ROUNDS, ST_INTS = 16 };
-
-// A position's budget domain as the merged entry carried it
-struct DomCarried {
-  const int* s_dom;
-  __device__ __forceinline__ int operator()(int p, int) const { return s_dom[p]; }
+// rounds, and the merged candidates' count
+enum {
+  ST_MULTI_PRE = 7, ST_ANY_START, ST_UNIFORM, ST_ZONED, ST_GOT, ST_ROUNDS, ST_NCAND, ST_INTS = 16
 };
+
+// The words of a CTA's round slot: a radix histogram, or the front's row
+// (K9's stacked vector, the four flags and the zone sums)
+static __host__ __device__ inline int k11_words(const TablesView& t) {
+  const int row = AS_FIXED + 2 * t.Cw + 4 + t.Z;
+  return row > RX_WORDS ? row : RX_WORDS;
+}
+
+// The dynamic shared memory a K11 stage may ask for: its CTAs also hold the
+// term slots (Ctx, ~9.5 KB) and the rounds' words in static shared memory,
+// 8 KB more than cluster.cuh leaves room for (ops/cluster.py takes it from
+// affinity_rounds_smem_max)
+#define K11_SMEM_MAX (CLUSTER_SMEM_MAX - 8192)
+
+// K11's dynamic shared memory at C: the round slots [2][C][W], then the
+// front's row partials [W]
+static __host__ __device__ inline long long k11_smem_bytes(const TablesView& t, int C) {
+  const long long W = k11_words(t);
+  return 4LL * (2 * C * W + W);
+}
+
+// The merge's compacted round state (global scratch, K_EP_MAX entries
+// each): the merged keys (for the finish), and per distinct candidate
+// domain its domain, sandwich bit, first consumable position, consumption,
+// live count and taken count
+struct Compact {
+  u64* keys;
+  int *dom, *everb, *first, *cons;
+  float *cl, *taken;
+};
+#define K11_COMPACT_INTS (8 * K_EP_MAX)
+
+static __device__ __forceinline__ Compact compact_of(int* kx) {
+  Compact cp;
+  cp.keys = reinterpret_cast<u64*>(kx);
+  cp.dom = kx + 2 * K_EP_MAX;
+  cp.everb = cp.dom + K_EP_MAX;
+  cp.first = cp.everb + K_EP_MAX;
+  cp.cons = cp.first + K_EP_MAX;
+  cp.cl = reinterpret_cast<float*>(cp.cons + K_EP_MAX);
+  cp.taken = cp.cl + K_EP_MAX;
+  return cp;
+}
 
 // The epoch's normalizer vector in K5's order (maxima, then the minima of
 // simon and ip, over F_start and over F_hi) from the reduced stacked vector
@@ -116,38 +181,134 @@ static __device__ __forceinline__ void k5_order(const float* red, float (&v)[14]
   for (int i = 0; i < 14; ++i) v[i] = (i == 5 || i == 6 || i == 12 || i == 13) ? -red[i] : red[i];
 }
 
-__global__ void __launch_bounds__(BLOCK_THREADS, 1)
-affinity_rounds_flags(TablesView t, int g, int B, int N, int lo, int hi, int ss_live, float* fs,
-                      int* is, float* part, int p0) {
+// A domain's live count: the live budget rows' sum (the order of K5's)
+static __device__ __forceinline__ float live_count(const Ctx& c, const float* rows, int D1, int d) {
+  float acc = 0.0f;
+  for (int k = SK_DNS; k <= SK_CAR; ++k) {
+    if (k == SK_AFF) continue;
+    for (int s = 0; s < c.n[k]; ++s)
+      if (c.slot[k][s].live) acc = acc + rows[(size_t)(c.off[k] + s) * D1 + d];
+  }
+  return acc;
+}
+
+__global__ void __launch_bounds__(CLUSTER_THREADS, 1)
+affinity_rounds_setup(TablesView t, int g, int cap1, int B, int N, int lo, int hi, int* j,
+                      float* fs, int* is, int* state) {
   __shared__ Ctx c;
-  const int tid = threadIdx.x, bd = blockDim.x;
+  __shared__ PodCtx pc;
+  __shared__ float s_red[16 * 32];
+  const int D1 = t.D1, tid = threadIdx.x, rank = cluster_rank();
+  const int gt = rank * CLUSTER_THREADS + tid, stride = cluster_ctas() * CLUSTER_THREADS;
   if (tid == 0) affinity_slots(t, g, &c);
-  float* zs = part + p0 + 4;
-  if (ss_live)
-    for (int z = tid; z < t.Z; z += bd) zs[z] = 0.0f;
   __syncthreads();
   const AffScratch a = aff_scratch(t, c, B, fs, is, N);
+  const int n_rows = c.off[SK_SS] + 1;
+  int sa, sb;
+  cta_slice(hi - lo, &sa, &sb);
+  pod_prologue(t, g, 0, &pc, s_red);
+  for (int n = lo + sa + tid; n < lo + sb; n += CLUSTER_THREADS) {
+    float ip_unused;
+    segment_node_constants<false, false>(t, &pc, g, n, cap1, 0, 0, &a.feas[n], &a.cap[n],
+                                         &ip_unused, &a.simon_s[n], &a.stat[n]);
+    a.ip_pref[n] = interpod_pref_at(t, g, n);
+    aff_budget_node(t, c, n, a);
+  }
+  for (int n = gt; n < N; n += stride) {
+    j[n] = 0;
+    a.counts[n] = 0;  // the rounds' takes; each finish clears the ones it read
+  }
+  for (size_t i = gt; i < (size_t)n_rows * D1; i += stride) {
+    const int r = (int)(i / D1);
+    int k = 0;
+    while (k + 1 < N_KINDS && r >= c.off[k + 1]) ++k;
+    const int id = c.slot[k][r - c.off[k]].id;
+    const float* src = (k == SK_CAR || k == SK_CW) ? t.carrier : t.counter;
+    a.rows[i] = src[(size_t)id * D1 + i % D1];
+  }
+  for (int d = gt; d < D1; d += stride) {
+    int e = 0;
+    for (int s = 0; s < c.n[SK_DNS]; ++s)
+      if (c.slot[SK_DNS][s].live && t.dns_edom[((size_t)g * t.Sd + s) * D1 + d]) e = 1;
+    a.edom_live[d] = e;
+  }
+  for (int z = gt; z < t.Z; z += stride) a.zone_sums[z] = 0.0f;
+  if (rank == 0 && tid == 0) {
+    state[0] = 0;  // placed
+    state[1] = 1;  // last
+    state[2] = state[3] = state[4] = state[5] = state[6] = 0;
+  }
+}
+
+// The front's row: K9's stacked vector [0, p0), p0 = AS_FIXED + 2 Cw, the
+// flags [p0, p0 + 4) and with ss_live the zone sums [p0 + 4, p0 + 4 + Z)
+__global__ void __launch_bounds__(CLUSTER_THREADS, 1)
+affinity_rounds_front(TablesView t, int g, int B, int N, int lo, int hi, int ss_live,
+                      const int* j, float* fs, int* is, float* part, int* state) {
+  __shared__ Ctx c;
+  __shared__ StageShared sh;
+  __shared__ float s_red[8 * 32];
+  extern __shared__ uint32_t smem[];
+  const int tid = threadIdx.x, lane = tid & 31, D = t.D1 - 1, W = k11_words(t);
+  if (tid == 0) affinity_slots(t, g, &c);
+  __syncthreads();
+  Cluster cx = cluster_stage(hi - lo, W, (int*)smem, sh.mbar);
+  int* acc = (int*)smem + 2 * cx.C * W;
+  const AffScratch a = aff_scratch(t, c, B, fs, is, N);
+  const int Cw = c.n[SK_CW], p0 = AS_FIXED + 2 * Cw, nw = p0 + 4 + (ss_live ? t.Z : 0);
+  const int boot = aff_front_prologue(t, c, g, a.rows, s_red);
+  // the CTA's row as integer keys: maxima as okey (the carriers' domains
+  // start at K9's -1 and -(D + 2)), the flags as 0/1, the zone sums as counts
+  for (int k = tid; k < nw; k += CLUSTER_THREADS)
+    acc[k] = k < AS_FIXED ? okey(-INFINITY)
+             : k < AS_FIXED + Cw ? okey(-1.0f)
+             : k < p0 ? okey(-(float)(D + 2)) : 0;
+  __syncthreads();
+  float v[AS_FIXED];
+  for (int i = 0; i < AS_FIXED; ++i) v[i] = -INFINITY;
   bool h = false, s = false, hz = false, ns = false;
-  for (int n = lo + tid; n < hi; n += bd) {
+  for (int n = lo + cx.lo + tid; n < lo + cx.hi; n += CLUSTER_THREADS) {
+    aff_front_node(t, c, a, g, n, j, boot, v);
     const int fl = a.flags[n];
     h |= (fl & AF_HI) != 0;
     ns |= !(fl & AF_SAME);
+    if (fl & AF_HI)
+      for (int q = 0; q < Cw; ++q) {
+        const float dom = (float)slot_dom(t, SK_CW, c.slot[SK_CW][q].id, n);  // ids < 2^24
+        atomicMax(&acc[AS_FIXED + q], okey(dom));
+        atomicMax(&acc[AS_FIXED + Cw + q], okey(-dom));
+      }
     if (!(fl & AF_START)) continue;
     s = true;
     const int zone = t.node_zone[n];
     hz |= zone > 0;
-    if (ss_live) atomicAdd(&zs[zone], a.pn0[n]);  // integer counts: exact
+    if (ss_live) atomicAdd(&acc[p0 + 4 + zone], (int)a.pn0[n]);  // integer counts: exact
   }
-  const bool any_hi = __syncthreads_or(h);
-  const bool any_start = __syncthreads_or(s);
-  const bool zoned = __syncthreads_or(hz);
-  const bool not_same = __syncthreads_or(ns);
-  if (tid == 0) {
-    part[p0] = any_hi ? 1.0f : 0.0f;
-    part[p0 + 1] = any_start ? 1.0f : 0.0f;
-    part[p0 + 2] = zoned ? 1.0f : 0.0f;
-    part[p0 + 3] = not_same ? 1.0f : 0.0f;
+  for (int i = 0; i < AS_FIXED; ++i) {
+    const int r = __reduce_max_sync(FULL_MASK, okey(v[i]));
+    if (lane == 0) atomicMax(&acc[i], r);
   }
+  const bool fl4[4] = {h, s, hz, ns};
+  for (int i = 0; i < 4; ++i)
+    if (__any_sync(FULL_MASK, fl4[i]) && lane == 0) atomicMax(&acc[p0 + i], 1);
+  __syncthreads();
+  round_arm(cx, nw);
+  for (int k = threadIdx.x >> 5; k < nw; k += CLUSTER_WARPS) round_put(cx, k, acc[k]);
+  const int* src = round_wait(cx);
+  if (cx.rank == 0) {
+    for (int k = tid; k < nw; k += CLUSTER_THREADS) {
+      int x = src[k];
+      if (k < p0 + 4) {
+        for (int q = 1; q < cx.C; ++q) x = max(x, src[q * W + k]);
+        part[k] = k < p0 ? ounkey(x) : (x ? 1.0f : 0.0f);
+      } else {
+        for (int q = 1; q < cx.C; ++q) x += src[q * W + k];
+        part[k] = (float)x;
+      }
+    }
+    if (tid == 0) state[5] = boot;
+  }
+  cluster_barrier_uncounted();  // no CTA leaves with its stores into another in flight
 }
 
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
@@ -194,36 +355,50 @@ affinity_rounds_reduce(TablesView t, int g, int B, int N, int ss_live, int R, in
   state[ST_ANY_START] = any_start;
   state[ST_UNIFORM] = uniform_base;
   state[ST_ZONED] = zoned;
+  state[ST_NCAND] = 0;  // the merge sets it when it runs
 }
 
-// summary row: [b1, i1, b2, i2, head, head node, usable count, 0], then
-// every term slot's domain at the head node (K9's payload order)
-__global__ void __launch_bounds__(BLOCK_THREADS, 1)
-affinity_rounds_summary(TablesView t, int g, int B, int N, int lo, int hi, int ss_live,
-                        const int* j, float* fs, int* is, const float* red, const float* pay,
-                        const int* state, double* summ) {
+// Each F_hi node's score row (K9's table: serial's normalizers over F_start,
+// norms6 :2019, the [B+1] rows :2036) with the SelectorSpread blend; the
+// summary row [b1, i1, b2, i2, head, head node, usable count, 0], then every
+// term slot's domain at the head node (K9's payload order)
+__global__ void __launch_bounds__(CLUSTER_THREADS, 1)
+affinity_rounds_table(TablesView t, int g, int B, int N, int lo, int hi, int ss_live,
+                      const int* j, float* fs, int* is, const float* red, const int* state,
+                      double* summ) {
   __shared__ Ctx c;
-  __shared__ float s_red[8 * 32];
-  __shared__ int s_idx[32];
-  const int tid = threadIdx.x, bd = blockDim.x, B1 = B + 1;
+  __shared__ StageShared sh;
+  extern __shared__ uint32_t smem[];
+  const int tid = threadIdx.x, R = t.R, B1 = B + 1;
   if (tid == 0) affinity_slots(t, g, &c);
   __syncthreads();
+  Cluster cx = cluster_stage(hi - lo, k11_words(t), (int*)smem, sh.mbar);
   const AffScratch a = aff_scratch(t, c, B, fs, is, N);
-  const int P = B + AS_PAY_FIXED + c.off[SK_SS] + 1;
+  const size_t gN = (size_t)g * t.N;
+  const float gz_c = t.grp_nonzero[g * 2 + 0], gz_m = t.grp_nonzero[g * 2 + 1];
+  const Norms nm = {red[0], -red[5], fmaxf(red[1], 0.0f), fmaxf(red[2], 0.0f),
+                    fmaxf(red[3], 0.0f), fminf(-red[6], 0.0f)};
   const bool use_multi_pre = state[ST_MULTI_PRE], zoned = state[ST_ZONED];
   const float maxN = fmaxf(red[4], 0.0f);
   float maxZ = 0.0f;
   if (ss_live)
     for (int z = 1; z < t.Z; ++z) maxZ = fmaxf(maxZ, a.zone_sums[z]);
   const int ncols = use_multi_pre ? B1 : 1;
-  float b1 = -INFINITY, hv = -INFINITY;
-  int i1 = 0x7fffffff, ih = 0x7fffffff, nU = 0;
-  for (int n = lo + tid; n < hi; n += bd) {
+  float b1 = -INFINITY, b2 = -INFINITY, hv = -INFINITY, hv2 = -INFINITY;
+  int i1 = INT_HI, i2 = INT_HI, ih = INT_HI, ih2 = INT_HI, nU = 0;
+  for (int n = lo + cx.lo + tid; n < lo + cx.hi; n += CLUSTER_THREADS) {
     const int fl = a.flags[n];
     int u = 0;
     float bound = -INFINITY;
     if (fl & AF_HI) {  // F_start is inside F_hi
-      const float* src = pay + (size_t)(n - lo) * P;
+      float simon, nodeaff, taint, interpod;
+      normalized_terms(nm, a.simon_s[n], t.nodeaff_raw[gN + n], t.taint_raw[gN + n], a.ip_raw[n],
+                       &simon, &nodeaff, &taint, &interpod);
+      const float static_n = t.w[W_SIMON] * simon + t.w[W_NODEAFF] * nodeaff
+                             + t.w[W_TAINT] * taint + t.w[W_INTERPOD] * interpod + a.stat[n];
+      const float jf = (float)j[n];
+      const float nz_c = t.nonzero[(size_t)n * 2 + 0], nz_m = t.nonzero[(size_t)n * 2 + 1];
+      const float a_c = t.alloc[(size_t)n * R + 0], a_m = t.alloc[(size_t)n * R + 1];
       const int zone = t.node_zone[n];
       const bool blend = zoned && zone > 0;
       const float zs = ss_live ? a.zone_sums[zone] : 0.0f;
@@ -231,7 +406,10 @@ affinity_rounds_summary(TablesView t, int g, int B, int N, int lo, int hi, int s
       int first_bad = B;
       float prev = 0.0f;
       for (int k = 0; k < ncols; ++k) {
-        float val = src[k];
+        const float copies = jf + (float)(k + 1);
+        float least, bal;
+        least_balanced(nz_c + gz_c * copies, nz_m + gz_m * copies, a_c, a_m, &least, &bal);
+        float val = t.w[W_LEAST] * least + t.w[W_BALANCED] * bal + static_n;
         if (ss_live)
           val = val + t.w[W_SS] * floorf(selector_spread_blend(a.pn0[n] + (float)k, maxN, zs,
                                                                maxZ, blend));
@@ -246,123 +424,323 @@ affinity_rounds_summary(TablesView t, int g, int B, int N, int lo, int hi, int s
         const int k_hid = min(first_bad, k_cap);
         if (k_hid < avail) bound = row[k_hid];
       }
-      if (fl & AF_START) argmax_update(row[0], n, &hv, &ih);
+      if (fl & AF_START) top2_update(row[0], n, hv, ih, hv2, ih2);
     }
     a.u[n] = u;
     nU += u;
     if (use_multi_pre) {
       a.bound[n] = bound;
-      argmax_update(bound, n, &b1, &i1);
+      top2_update(bound, n, b1, i1, b2, i2);
     }
   }
-  block_argmax(&b1, &i1, s_red, s_idx);
-  float b2 = -INFINITY;
-  int i2 = 0x7fffffff;
-  if (use_multi_pre)
-    for (int n = lo + tid; n < hi; n += bd)
-      argmax_update(n == i1 ? -INFINITY : a.bound[n], n, &b2, &i2);
-  block_argmax(&b2, &i2, s_red, s_idx);
-  block_argmax(&hv, &ih, s_red, s_idx);
-  nU = block_sum_int(nU, s_idx);
-  if (tid == 0) {
-    summ[0] = b1;
-    summ[1] = i1;
-    summ[2] = b2;
-    summ[3] = i2;
-    summ[4] = hv;
-    summ[5] = ih;
-    summ[6] = nU;
-    summ[7] = 0.0;
+  if (use_multi_pre) cluster_top2(cx, b1, i1, b2, i2, sh.rx, sh.fin);
+  cluster_top2(cx, hv, ih, hv2, ih2, sh.rx, sh.fin);
+  int cnt[1] = {nU};
+  const int op[1] = {RX_SUM};
+  cluster_reduce<1>(cx, cnt, op, sh.rx, sh.fin);
+  if (cx.rank == 0) {
+    if (tid == 0) {
+      summ[0] = b1;
+      summ[1] = i1;
+      summ[2] = b2;
+      summ[3] = i2;
+      summ[4] = hv;
+      summ[5] = ih;
+      summ[6] = cnt[0];
+      summ[7] = 0.0;
+    }
+    const bool own = ih >= lo && ih < hi;  // no F_start node: no head, the domains unread
+    for (int k = 0; k < N_KINDS; ++k)
+      for (int s = tid; s < c.n[k]; s += CLUSTER_THREADS)
+        summ[8 + c.off[k] + s] = own ? (double)slot_dom(t, k, c.slot[k][s].id, ih) : 0.0;
   }
-  const bool own = ih >= lo && ih < hi;  // no F_start node: no head, the domains unread
-  for (int k = 0; k < N_KINDS; ++k)
-    for (int s = tid; s < c.n[k]; s += bd)
-      summ[8 + c.off[k] + s] = own ? (double)slot_dom(t, k, c.slot[k][s].id, ih) : 0.0;
+  cluster_barrier_uncounted();
 }
 
-__global__ void __launch_bounds__(BLOCK_THREADS, 1)
+__global__ void __launch_bounds__(CLUSTER_THREADS, 1)
 affinity_rounds_select(TablesView t, int g, int B, int N, int lo, int hi, int c_, int R,
                        float* fs, int* is, const double* summ_all, long long* cand) {
   __shared__ Ctx c;
-  __shared__ int s_idx[32];
-  __shared__ int hist[256];
-  __shared__ u64 s_prefix;
-  __shared__ int s_rem;
-  const int tid = threadIdx.x, bd = blockDim.x, B1 = B + 1, NL = hi - lo;
+  __shared__ StageShared sh;
+  extern __shared__ uint32_t smem[];
+  const int tid = threadIdx.x, B1 = B + 1;
   if (tid == 0) affinity_slots(t, g, &c);
   __syncthreads();
+  Cluster cx = cluster_stage(hi - lo, k11_words(t), (int*)smem, sh.mbar);
   const AffScratch a = aff_scratch(t, c, B, fs, is, N);
-  const int n_rows = c.off[SK_SS] + 1, SW = 8 + n_rows, CW = 2 + n_rows;
+  const int n_rows = c.off[SK_SS] + 1, SW = 8 + n_rows, CW = 2 + n_rows, s0 = lo + cx.lo;
+  float f1, f2;
+  int i1, i2;
+  global_pairs(summ_all, R, SW, &f1, &i1, &f2, &i2);
+  // K9's gathered avail is not read on this path: it holds the block top's
+  // per-node counts
+  const RowSet rs = {a.table + (size_t)s0 * B1, B1, a.u + s0, s0, cx.hi - cx.lo, B, B};
+  const BlockTop bt = cluster_block_top(cx, rs, a.u + s0, a.avail + s0, f1, i1, f2, i2, c_, sh,
+                                        [&](int slot, int l, int, u64 key) {
+                                          const int n = s0 + l;
+                                          long long* out = cand + (size_t)slot * CW;
+                                          out[0] = (long long)key;
+                                          out[1] = a.dom_live[n];
+                                          for (int q = 0; q < N_KINDS; ++q)
+                                            for (int s = 0; s < c.n[q]; ++s)
+                                              out[2 + c.off[q] + s] =
+                                                  slot_dom(t, q, c.slot[q][s].id, n);
+                                        });
+  const int stride = cx.C * CLUSTER_THREADS;
+  for (size_t i = (size_t)bt.r * CW + cx.rank * CLUSTER_THREADS + tid; i < (size_t)c_ * CW;
+       i += stride)
+    cand[i] = 0;
+  if (cx.rank == 0)
+    for (int i = tid; i < CW; i += CLUSTER_THREADS) cand[(size_t)c_ * CW + i] = i == 0 ? bt.U : 0;
+  cluster_barrier_uncounted();
+}
 
-  // ---- the global pairs: the best block first, then the best of the other
-  // blocks' firsts and the winner's second
-  int win = 0;
-  double b1 = summ_all[0], g1 = summ_all[1];
-  for (int r = 1; r < R; ++r) {
-    const double v = summ_all[r * SW], i = summ_all[r * SW + 1];
-    if (v > b1 || (v == b1 && i < g1)) {
-      b1 = v;
-      g1 = i;
-      win = r;
+// The rounds of one epoch (JAX round_body :1808, four to a condition check
+// as round_chain :1905) on the compacted domain state (see the file's
+// header): affinity.cuh `affinity_rounds` with its per-domain passes over the
+// candidates' distinct domains. s_key[0, L) holds the n_cand distinct keys
+// sorted descending, 0 after them, s_dom[p] position p's carried domain
+// (overwritten: each position's compact index). Leaves each candidate
+// node's takes in e.counts (which are 0 on entry) and every domain's
+// sandwich bit in e.everb; adds the productive rounds to `rounds`; returns
+// the pods taken, at most m_rem. Block-uniform, one CTA of BLOCK_THREADS:
+// each thread owns Q positions.
+template <int Q>
+static __device__ int affinity_rounds_compact(const Ctx& c, const AffScratch& e, const Compact& cp,
+                                              const AffShared& sh, int* s_dom, int* s_h0,
+                                              const AffDims& dm, int m_rem, int n_cand, int L,
+                                              bool has_budget, bool dns_live, float inc_live,
+                                              int& rounds) {
+  const int D1 = dm.D1, D = dm.D, B = dm.B, INF_P = dm.INF_P;
+  const int tid = threadIdx.x, bd = blockDim.x;
+  const float* rows = e.rows;
+  const int* edom_live = e.edom_live;
+  float* s_red = sh.red;
+  int* s_int = sh.ints;
+  int* s_occ = sh.occ;
+  int* s_prise = sh.prise;
+  int* s_prov = sh.prov;
+  int* s_hist = sh.lhist;
+  int& s_L = *sh.L;
+  int& s_PL = *sh.PL;
+  int got = 0;
+  int node[Q], dom[Q], ci[Q];
+  bool cand[Q];
+  float occ[Q];
+  for (int q = 0; q < Q; ++q) {
+    const int p = Q * tid + q;
+    cand[q] = p < n_cand;
+    node[q] = 0;
+    dom[q] = 0;
+    if (cand[q]) {
+      const u32 flat = 0xffffffffu - (u32)(sh.key[p] & 0xffffffffull);
+      node[q] = (int)(flat / (u32)B);
+      dom[q] = s_dom[p];
     }
   }
-  double b2 = summ_all[win * SW + 2], g2 = summ_all[win * SW + 3];
-  for (int r = 0; r < R; ++r)
-    if (r != win) pair_update(summ_all[r * SW], summ_all[r * SW + 1], &b2, &g2);
-  const float f1 = (float)b1, f2 = (float)b2;
-  const int i1 = (int)g1, i2 = (int)g2;
-
-  // ---- the guard on the block: an entry is usable only if its key beats
-  // every OTHER node's first hidden entry
-  int U = 0;
-  for (int n = lo + tid; n < hi; n += bd) {
-    const float cut_s = n == i1 ? f2 : f1;
-    const int cut_i = n == i1 ? i2 : i1;
-    const float* row = a.table + (size_t)n * B1;
-    const int u0 = a.u[n];
-    int uu = 0;
-    while (uu < u0 && (row[uu] > cut_s || (row[uu] == cut_s && n < cut_i))) ++uu;
-    a.u[n] = uu;
-    U += uu;
+  __syncthreads();
+  // rank among the same domain's candidates and the compact index of each
+  // position's domain: sort the unique (domain, position) pairs, then a
+  // max-scan of the run starts and a sum-scan of the runs
+  u32* s_comp = reinterpret_cast<u32*>(sh.key);
+  for (int q = 0; q < Q; ++q) {
+    const int p = Q * tid + q;
+    if (p < L) s_comp[p] = cand[q] ? ((u32)dom[q] << POS_BITS) | (u32)p : 0xffffffffu;
   }
-  U = block_sum_int(U, s_idx);
+  bitonic_sort<u32, false>(s_comp, L);
+  int rs[Q], st[Q];
+  for (int q = 0; q < Q; ++q) {
+    const int i = Q * tid + q;
+    const bool same = i > 0 && i < n_cand && (s_comp[i] >> POS_BITS) == (s_comp[i - 1] >> POS_BITS);
+    rs[q] = same ? 0 : i;
+    st[q] = i < n_cand && !same;
+  }
+  block_scan<true>(rs, s_int);
+  const int nd = block_scan<false>(st, s_int);  // the distinct candidate domains
+  for (int q = 0; q < Q; ++q) {
+    const int i = Q * tid + q;
+    if (i >= n_cand) continue;
+    const int p = s_comp[i] & ((1u << POS_BITS) - 1);
+    s_occ[p] = i - rs[q];
+    s_dom[p] = st[q] - 1;
+    if (i == rs[q]) cp.dom[st[q] - 1] = (int)(s_comp[i] >> POS_BITS);
+  }
+  // the epoch's domain state: every domain's live count, the candidates'
+  // marks (compact index + 1 in everb until the rounds end) and round
+  // state, the other eligible domains' fixed minimum and level histogram
+  for (int d = tid; d < D1; d += bd) {
+    e.cl[d] = live_count(c, rows, D1, d);
+    e.everb[d] = 0;
+  }
+  if (tid < LMAX + 2) s_h0[tid] = 0;
+  __syncthreads();
+  for (int i = tid; i < nd; i += bd) {
+    const int d = cp.dom[i];
+    e.everb[d] = i + 1;
+    cp.cl[i] = e.cl[d];
+    cp.taken[i] = 0.0f;
+    cp.first[i] = INF_P;
+    cp.cons[i] = 0;
+    cp.everb[i] = 0;
+  }
+  __syncthreads();
+  float smin = INFINITY;
+  for (int d = tid; d < D1; d += bd)
+    if (edom_live[d] && !e.everb[d]) smin = fminf(smin, e.cl[d]);
+  smin = block_min(smin, s_red);
+  if (isfinite(smin))
+    for (int d = tid; d < D1; d += bd)
+      if (edom_live[d] && !e.everb[d])
+        atomicAdd(&s_h0[(int)fminf(e.cl[d] - smin, (float)(LMAX + 1))], 1);
+  for (int q = 0; q < Q; ++q) {
+    ci[q] = cand[q] ? s_dom[Q * tid + q] : 0;
+    occ[q] = cand[q] ? (float)s_occ[Q * tid + q] : 0.0f;
+  }
+  __syncthreads();
 
-  // ---- the block's top r = min(c, U) on local keys, emitted as global keys
-  const float* tbl = a.table + (size_t)lo * B1;
-  const int r = min(c_, U);
-  const u64 T = r > 0 ? select_key(tbl, B1, a.u + lo, NL, B, r, hist, &s_prefix, &s_rem) : 0;
-  int base = 0;
-  for (int n0 = 0; n0 < NL; n0 += bd) {  // uniform trip count: every thread scans
-    const int nl = n0 + tid;
-    const float* row = tbl + (size_t)nl * B1;
-    const int cnt = (r > 0 && nl < NL) ? count_at_least(row, nl, a.u[lo + nl], B, T) : 0;
-    int total;
-    const int off = base + block_exclusive_scan(cnt, s_idx, &total);
-    for (int k = 0; k < cnt; ++k) {
-      long long* out = cand + (size_t)(off + k) * CW;
-      out[0] = (long long)entry_key(row[k], lo + nl, k, B);
-      out[1] = a.dom_live[lo + nl];
-      for (int q = 0; q < N_KINDS; ++q)
-        for (int s = 0; s < c.n[q]; ++s)
-          out[2 + c.off[q] + s] = slot_dom(t, q, c.slot[q][s].id, lo + nl);
+  // ---- the rounds, in chains of four (JAX round_chain): the condition
+  // is read once per chain
+  float min_c1 = 0.0f;  // the first round's minimum: the static domains' bits
+  bool ran = false, any_full = false;
+  int last_r = 1;
+  while (last_r > 0 && got < m_rem) {
+    for (int chain = 0; chain < 4; ++chain) {
+      const int m_left = m_rem - got;
+      float mn = smin;
+      for (int i = tid; i < nd; i += bd)
+        if (edom_live[cp.dom[i]]) mn = fminf(mn, cp.cl[i] + cp.taken[i] * inc_live);
+      mn = block_min(mn, s_red);
+      const float min_c = isfinite(mn) ? mn : 0.0f;
+      if (!ran) min_c1 = min_c;
+      ran = true;
+      // levels still needed per eligible domain; per-position budgets
+      for (int i = tid; i < nd; i += bd) {
+        if (!edom_live[cp.dom[i]]) continue;
+        const float delta = cp.cl[i] + cp.taken[i] * inc_live - min_c;
+        atomicAdd(&s_hist[(int)fminf(fmaxf(delta, 0.0f), (float)(LMAX + 1))], 1);
+      }
+      if (tid < LMAX + 2 && isfinite(smin) && s_h0[tid] > 0)
+        atomicAdd(&s_hist[(int)fminf((float)tid + (smin - min_c), (float)(LMAX + 1))], s_h0[tid]);
+      bool rem[Q], cons[Q];
+      float l_e[Q];
+      for (int q = 0; q < Q; ++q) {
+        const int p = Q * tid + q;
+        rem[q] = cons[q] = false;
+        l_e[q] = 1.0f;
+        if (!cand[q]) continue;
+        const int d = dom[q], x = ci[q];
+        const float cnow = cp.cl[x] + cp.taken[x] * inc_live;
+        const float qe = budget_q(c, cnow, min_c, d, D);
+        const float r_e = occ[q] - cp.taken[x];
+        rem[q] = r_e >= 0.0f;
+        cons[q] = rem[q] && r_e < qe;
+        l_e[q] = fmaxf(1.0f, r_e - qe + 2.0f);
+        const float lc = cnow + r_e + 1.0f - min_c;
+        if (rem[q] && edom_live[d] && lc >= 1.0f && lc <= (float)LMAX) {
+          const int li = (int)fminf(fmaxf(lc, 0.0f), (float)(LMAX + 1));
+          atomicMax(&s_prise[li], p);
+          atomicAdd(&s_prov[li], 1);
+        }
+        if (cons[q]) atomicMin(&cp.first[x], p);
+      }
+      __syncthreads();
+      // the multi-level take: the longest run of levels whose every
+      // needed domain provided its rise-completing entry
+      if (tid == 0) {
+        int needed = s_hist[0], L_used = 0, prise = s_prise[0];
+        for (int l = 1; l <= LMAX; ++l) {
+          if (s_prov[l] != needed) break;
+          needed += s_hist[l];
+          prise = max(prise, s_prise[l]);
+          L_used = l;
+        }
+        s_L = L_used;
+        s_PL = prise;
+      }
+      __syncthreads();
+      const int L_used = s_L, P_L = s_PL;
+      bool tf[Q];
+      float rv[4] = {0.0f, -1.0f, 0.0f, 0.0f};  // n_full, rise, unreached, any at min
+      for (int q = 0; q < Q; ++q) {
+        tf[q] = rem[q] && l_e[q] <= (float)L_used && Q * tid + q <= P_L;
+        rv[0] += tf[q] ? 1.0f : 0.0f;
+      }
+      if (dns_live) {
+        for (int i = tid; i < nd; i += bd) {
+          if (!edom_live[cp.dom[i]] || cp.cl[i] + cp.taken[i] * inc_live != min_c) continue;
+          rv[3] = 1.0f;
+          if (cp.first[i] >= INF_P) rv[2] = 1.0f;
+          else rv[1] = fmaxf(rv[1], (float)cp.first[i]);
+        }
+        if (tid == 0 && smin == min_c) rv[2] = rv[3] = 1.0f;  // no candidate: unreached
+      }
+      {
+        const int op4[4] = {OP_SUM, OP_MAX, OP_MAX, OP_MAX};
+        block_reduce<4>(rv, op4, s_red);
+      }
+      const int n_full = (int)rv[0];
+      const bool use_full = dns_live && L_used >= 1 && n_full <= m_left && n_full > 0;
+      const int p_rise = (rv[3] > 0.0f && rv[2] == 0.0f) ? (int)rv[1] : INF_P;
+      // the single-rise take, cut at m_left in position order
+      int r[Q], tp[Q];
+      for (int q = 0; q < Q; ++q) tp[q] = r[q] = cons[q] && Q * tid + q <= p_rise;
+      const int total = block_scan<false>(r, s_int);
+      const int n_take = use_full ? n_full : min(m_left, total);
+      for (int q = 0; q < Q; ++q) {
+        if (!(use_full ? tf[q] : (tp[q] && r[q] <= m_left))) continue;
+        atomicAdd(&e.counts[node[q]], 1);
+        atomicAdd(&cp.cons[ci[q]], 1);
+      }
+      __syncthreads();
+      // the sandwich's bookkeeping, and the round's consumption
+      for (int i = tid; i < nd; i += bd) {
+        const int d = cp.dom[i];
+        const float qd = budget_q(c, cp.cl[i] + cp.taken[i] * inc_live, min_c, d, D);
+        const float cd = (float)cp.cons[i];
+        const bool blocked = qd < 1.0f || (cd >= qd && isfinite(qd))
+                             || (use_full && (edom_live[d] || cd > 0.0f));
+        if (blocked && has_budget) cp.everb[i] = 1;
+        if (d < D) cp.taken[i] = cp.taken[i] + cd;
+        cp.cons[i] = 0;
+        cp.first[i] = INF_P;
+      }
+      if (tid < LMAX + 2) {
+        s_prise[tid] = -1;
+        s_prov[tid] = 0;
+        s_hist[tid] = 0;
+      }
+      any_full = any_full || use_full;
+      __syncthreads();
+      got += n_take;
+      last_r = n_take;
+      rounds += n_take > 0;
     }
-    base += total;
   }
-  for (size_t i = (size_t)r * CW + tid; i < (size_t)c_ * CW; i += bd) cand[i] = 0;
-  for (int i = tid; i < CW; i += bd) cand[(size_t)c_ * CW + i] = i == 0 ? U : 0;
+  // ---- every domain's sandwich bit: the candidates' from their rounds,
+  // the others' from the first round's minimum and the multi-level rounds
+  for (int d = tid; d < D1; d += bd) {
+    const int mk = e.everb[d];
+    bool b = false;
+    if (mk) b = cp.everb[mk - 1];
+    else if (has_budget && ran)
+      b = budget_q(c, e.cl[d] + 0.0f * inc_live, min_c1, d, D) < 1.0f || (any_full && edom_live[d]);
+    e.everb[d] = b;
+  }
+  __syncthreads();
+  return got;
 }
 
 __global__ void __launch_bounds__(BLOCK_THREADS, 1)
 affinity_rounds_merge(TablesView t, int g, int m, int B, int N, int c_, int R, float* fs, int* is,
-                      const long long* rows, int* state) {
+                      const long long* rows, int* kx, int* state) {
   __shared__ Ctx c;
   __shared__ float s_red[8 * 32];
   __shared__ int s_int[32];
   __shared__ u64 s_key[K_EP_MAX];
   __shared__ int s_occ[K_EP_MAX];
   __shared__ int s_dom[K_EP_MAX];
-  __shared__ int hist[256];
-  __shared__ int s_prise[LMAX + 2], s_prov[LMAX + 2], s_hist[LMAX + 2];
+  __shared__ int hist[256 + 8];  // select_gathered's bins and warp sums
+  __shared__ int s_prise[LMAX + 2], s_prov[LMAX + 2], s_hist[LMAX + 2], s_h0[LMAX + 2];
   __shared__ u64 s_prefix;
   __shared__ int s_rem, s_cnt, s_L, s_PL;
   const int D1 = t.D1, tid = threadIdx.x, bd = blockDim.x;
@@ -378,6 +756,7 @@ affinity_rounds_merge(TablesView t, int g, int m, int B, int N, int c_, int R, f
   __syncthreads();
   const AffScratch a = aff_scratch(t, c, B, fs, is, N);
   const AffGathered ga = aff_gathered(t, a, N);
+  const Compact cp = compact_of(kx);
   const AffDims dm = {N, D1, D1 - 1, B, B + 1, t.Z, min(N * B, K_EP_MAX), N * B + 1, 0};
   const int total = R * c_, n_rows = c.off[SK_SS] + 1, CW = 2 + n_rows;
 
@@ -408,7 +787,7 @@ affinity_rounds_merge(TablesView t, int g, int m, int B, int N, int c_, int R, f
   for (int i = n_cand + tid; i < L; i += bd) s_key[i] = 0ull;
   bitonic_sort<u64, true>(s_key, L);
   // each merged key's position (the keys are distinct and sorted
-  // descending), and the domain it carried there
+  // descending), and the domain it carried there; the keys for the finish
   for (int e = tid; e < total; e += bd) {
     const int rk = e / c_, s = e - rk * c_;
     const long long* row = rows + ((size_t)rk * (c_ + 1) + s) * CW;
@@ -422,48 +801,77 @@ affinity_rounds_merge(TablesView t, int g, int m, int B, int N, int c_, int R, f
     }
     s_dom[lo_p] = (int)row[1];
   }
+  for (int i = tid; i < n_cand; i += bd) cp.keys[i] = s_key[i];
   __syncthreads();
 
   // ---- the rounds, replicated, on the merged list
   const AffShared sh = {s_red, s_int, s_occ, hist, s_prise, s_prov, s_hist, &s_rem, &s_cnt,
                         &s_L, &s_PL, s_key, &s_prefix};
   int rounds = 0;
-  const int got = affinity_rounds(c, a, sh, dm, m - state[0], n_cand, L, c.n_budget >= 1,
-                                  c.n_dns > 0, c.inc_live, DomCarried{s_dom}, rounds);
+  const int got = affinity_rounds_compact<2>(c, a, cp, sh, s_dom, s_h0, dm, m - state[0], n_cand,
+                                             L, c.n_budget >= 1, c.n_dns > 0, c.inc_live, rounds);
   if (tid == 0) {
     state[ST_GOT] = got;
     state[ST_ROUNDS] = rounds;
+    state[ST_NCAND] = n_cand;
   }
 }
 
-__global__ void __launch_bounds__(BLOCK_THREADS, 1)
+__global__ void __launch_bounds__(CLUSTER_THREADS, 1)
 affinity_rounds_sandwich(TablesView t, int g, int B, int N, int lo, int hi, const int* j,
                          float* fs, int* is, float* part) {
   __shared__ Ctx c;
+  __shared__ StageShared sh;
   __shared__ float s_red[8 * 32];
+  extern __shared__ uint32_t smem[];
   if (threadIdx.x == 0) affinity_slots(t, g, &c);
   __syncthreads();
+  Cluster cx = cluster_stage(hi - lo, k11_words(t), (int*)smem, sh.mbar);
   const AffScratch a = aff_scratch(t, c, B, fs, is, N);
   // the lower set reads the block's rows of the rebased view
   const AffDims dm = {N, t.D1, t.D1 - 1, B, B + 1, t.Z, min(N * B, K_EP_MAX), N * B + 1,
                       (size_t)g * t.N};
   float w7[7];
-  affinity_lower_set(t, a, AvailLive{a.cap, j}, dm, lo, hi, c.n_budget >= 1, w7, s_red);
-  if (threadIdx.x < 7) part[threadIdx.x] = threadIdx.x < 5 ? w7[threadIdx.x] : -w7[threadIdx.x];
+  affinity_lower_set(t, a, AvailLive{a.cap, j}, dm, lo + cx.lo, lo + cx.hi, c.n_budget >= 1, w7,
+                     s_red);
+  int r7[7];
+  for (int i = 0; i < 7; ++i) r7[i] = okey(w7[i]);
+  const int op7[7] = {RX_MAX, RX_MAX, RX_MAX, RX_MAX, RX_MAX, RX_MIN, RX_MIN};
+  cluster_reduce<7>(cx, r7, op7, sh.rx, sh.fin);
+  if (cx.rank == 0 && threadIdx.x < 7)
+    part[threadIdx.x] = threadIdx.x < 5 ? ounkey(r7[threadIdx.x]) : -ounkey(r7[threadIdx.x]);
+  cluster_barrier_uncounted();
 }
 
-__global__ void __launch_bounds__(BLOCK_THREADS, 1)
+// Fold `cn` pods on node n into j and every live row (the sentinel column
+// never counts, as in commit()), slot (k, s)'s domain dom_of(k, s)
+template <class DomOf>
+static __device__ __forceinline__ void fold_node(const Ctx& c, const AffScratch& a, int D1, int n,
+                                                 int cn, int* j, const DomOf& dom_of) {
+  atomicAdd(&j[n], cn);
+  for (int k = 0; k < N_KINDS; ++k)
+    for (int s = 0; s < c.n[k]; ++s) {
+      const Slot& x = c.slot[k][s];
+      if (x.inc == 0.0f) continue;
+      const int dom = dom_of(k, s);
+      if (dom < D1 - 1) atomicAdd(&a.rows[(size_t)(c.off[k] + s) * D1 + dom], (float)cn * x.inc);
+    }
+}
+
+__global__ void __launch_bounds__(CLUSTER_THREADS, 1)
 affinity_rounds_finish(TablesView t, int g, int m, int ss_live, int B, int N, int R, int* j,
                        float* fs, int* is, const float* red, const float* red4,
-                       const double* summ_all, int* state) {
+                       const double* summ_all, const int* kx, int* state) {
   __shared__ Ctx c;
-  if (threadIdx.x == 0) affinity_slots(t, g, &c);
+  const int tid = threadIdx.x, rank = cluster_rank(), D1 = t.D1;
+  if (tid == 0) affinity_slots(t, g, &c);
   __syncthreads();
   const AffScratch a = aff_scratch(t, c, B, fs, is, N);
   const AffGathered ga = aff_gathered(t, a, N);
-  const AffDims dm = {N, t.D1, t.D1 - 1, B, B + 1, t.Z, min(N * B, K_EP_MAX), N * B + 1, 0};
+  const u64* keys = reinterpret_cast<const u64*>(kx);
   const int n_rows = c.off[SK_SS] + 1, SW = 8 + n_rows;
   const int placed = state[0], got = state[ST_GOT], rounds = state[ST_ROUNDS];
+  const int n_cand = state[ST_NCAND];
   // ---- the normalizer sandwich (red4: the lower set's maxima, the minima
   // negated; null when the rounds took nothing)
   bool use_multi = false;
@@ -490,16 +898,23 @@ affinity_rounds_finish(TablesView t, int g, int m, int ss_live, int B, int N, in
     }
     head = (int)hn;
   }
-  // the head's term domains, from its block's summary (the merged
-  // candidates' are in place from the merge)
-  if (head >= 0)
-    for (int r = threadIdx.x; r < n_rows; r += blockDim.x)
-      ga.fdom[(size_t)r * N + head] = (int)summ_all[head_r * SW + 8 + r];
-  __syncthreads();
   const int m_take = use_multi ? got : (head >= 0 ? 1 : 0);
-  // ends with a barrier: state read above
-  affinity_fold<true>(t, c, a, dm, use_multi, head, j, ga.fdom);
-  if (threadIdx.x == 0) {
+  // ---- the fold: each merged candidate's node once (its count taken and
+  // cleared for the next epoch by the one exchange that finds it nonzero),
+  // its term domains as the merge gathered them; or the head's, from its
+  // block's summary
+  for (int p = rank * CLUSTER_THREADS + tid; p < n_cand; p += cluster_ctas() * CLUSTER_THREADS) {
+    const int n = key_node(keys[p], B);
+    const int cn = atomicExch(&a.counts[n], 0);
+    if (use_multi && cn > 0)
+      fold_node(c, a, D1, n, cn, j,
+                [&](int k, int s) { return ga.fdom[(size_t)(c.off[k] + s) * N + n]; });
+  }
+  if (head >= 0 && rank == 0 && tid == 0)
+    fold_node(c, a, D1, head, 1, j,
+              [&](int k, int s) { return (int)summ_all[head_r * SW + 8 + c.off[k] + s]; });
+  cluster_barrier_uncounted();  // every CTA has read state
+  if (rank == 0 && tid == 0) {
     state[0] = placed + m_take;
     state[1] = m_take;
     state[2] += 1;
@@ -508,21 +923,71 @@ affinity_rounds_finish(TablesView t, int g, int m, int ss_live, int B, int N, in
   }
 }
 
+// cluster.cuh cluster_kernel_init with K11's shared-memory bound
+template <typename... Params>
+static cudaError_t k11_init(void (*kernel)(Params...)) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K11_SMEM_MAX);
+  return e;
+}
+
 // ------------------------------------------------------------ C interface --
 
 extern "C" {
 
 int affinity_rounds_state_ints() { return ST_INTS; }
+int affinity_rounds_compact_ints() { return K11_COMPACT_INTS; }
+
+// K11's dynamic shared memory at C (ops/cluster.py takes it from here)
+long long affinity_rounds_smem(const TablesView* t, int C) { return k11_smem_bytes(*t, C); }
+
+long long affinity_rounds_smem_max() { return K11_SMEM_MAX; }
+
+// Allow each K11 cluster kernel clusters of 16 and K11_SMEM_MAX bytes of
+// dynamic shared memory, once per device
+int affinity_rounds_init() {
+  cudaError_t e = k11_init(affinity_rounds_setup);
+  if (e == cudaSuccess) e = k11_init(affinity_rounds_front);
+  if (e == cudaSuccess) e = k11_init(affinity_rounds_table);
+  if (e == cudaSuccess) e = k11_init(affinity_rounds_select);
+  if (e == cudaSuccess) e = k11_init(affinity_rounds_sandwich);
+  if (e == cudaSuccess) e = k11_init(affinity_rounds_finish);
+  return (int)e;
+}
+
+static bool k11_size_ok(int C) { return C == 1 || C == 2 || C == 4 || C == 8 || C == 16; }
+
+// Clusters of C CTAs with `smem` bytes of K11's largest stage (the select)
+// that can be resident at once, into *out
+int affinity_rounds_occupancy(int C, long long smem, int* out) {
+  if (!k11_size_ok(C)) return (int)cudaErrorInvalidValue;
+  return cluster_occupancy_of(affinity_rounds_select, C, smem, out);
+}
+
+#define K11_SHAPE_OK                                                                \
+  if (!k11_size_ok(C) || smem != k11_smem_bytes(*t, C) || smem > K11_SMEM_MAX) \
+  return (int)cudaErrorInvalidValue
 
 // t: the block's view, rebased by lo (affinity_sharded.cuh); N: the mesh's
-// nodes. The summary rows hold 8 + slots doubles and the candidate rows
-// 2 + slots ints, slots = Sd + A + B + Ca + Cw + 1.
-int affinity_rounds_flags_launch(const TablesView* t, int g, int B, int N, int lo, int hi,
-                                 int ss_live, float* fs, int* is, float* part, int p0,
-                                 cudaStream_t stream) {
-  affinity_rounds_flags<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, B, N, lo, hi, ss_live, fs, is,
-                                                         part, p0);
-  return (int)cudaGetLastError();
+// nodes. Every cluster stage: one cluster of C CTAs, `smem` =
+// affinity_rounds_smem(t, C) (any other shape is refused). The summary rows
+// hold 8 + slots doubles and the candidate rows 2 + slots ints, slots = Sd +
+// A + B + Ca + Cw + 1; kx: affinity_rounds_compact_ints ints.
+int affinity_rounds_setup_launch(const TablesView* t, int g, int cap1, int B, int N, int lo,
+                                 int hi, int* j, float* fs, int* is, int* state, int C,
+                                 long long smem, cudaStream_t stream) {
+  K11_SHAPE_OK;
+  return cluster_launch(affinity_rounds_setup, C, 1, 0, stream, *t, g, cap1, B, N, lo, hi, j, fs,
+                        is, state);
+}
+
+int affinity_rounds_front_launch(const TablesView* t, int g, int B, int N, int lo, int hi,
+                                 int ss_live, const int* j, float* fs, int* is, float* part,
+                                 int* state, int C, long long smem, cudaStream_t stream) {
+  K11_SHAPE_OK;
+  return cluster_launch(affinity_rounds_front, C, 1, smem, stream, *t, g, B, N, lo, hi, ss_live, j,
+                        fs, is, part, state);
 }
 
 int affinity_rounds_reduce_launch(const TablesView* t, int g, int B, int N, int ss_live, int R,
@@ -533,46 +998,46 @@ int affinity_rounds_reduce_launch(const TablesView* t, int g, int B, int N, int 
   return (int)cudaGetLastError();
 }
 
-int affinity_rounds_summary_launch(const TablesView* t, int g, int B, int N, int lo, int hi,
-                                   int ss_live, const int* j, float* fs, int* is,
-                                   const float* red, const float* pay, const int* state,
-                                   double* summ, cudaStream_t stream) {
-  affinity_rounds_summary<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, B, N, lo, hi, ss_live, j, fs,
-                                                           is, red, pay, state, summ);
-  return (int)cudaGetLastError();
+int affinity_rounds_table_launch(const TablesView* t, int g, int B, int N, int lo, int hi,
+                                 int ss_live, const int* j, float* fs, int* is, const float* red,
+                                 const int* state, double* summ, int C, long long smem,
+                                 cudaStream_t stream) {
+  K11_SHAPE_OK;
+  return cluster_launch(affinity_rounds_table, C, 1, smem, stream, *t, g, B, N, lo, hi, ss_live, j,
+                        fs, is, red, state, summ);
 }
 
 int affinity_rounds_select_launch(const TablesView* t, int g, int B, int N, int lo, int hi, int c,
                                   int R, float* fs, int* is, const double* summ_all,
-                                  long long* cand, cudaStream_t stream) {
-  affinity_rounds_select<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, B, N, lo, hi, c, R, fs, is,
-                                                          summ_all, cand);
-  return (int)cudaGetLastError();
+                                  long long* cand, int C, long long smem, cudaStream_t stream) {
+  K11_SHAPE_OK;
+  return cluster_launch(affinity_rounds_select, C, 1, smem, stream, *t, g, B, N, lo, hi, c, R, fs,
+                        is, summ_all, cand);
 }
 
 int affinity_rounds_merge_launch(const TablesView* t, int g, int m, int B, int N, int c, int R,
-                                 float* fs, int* is, const long long* rows, int* state,
+                                 float* fs, int* is, const long long* rows, int* kx, int* state,
                                  cudaStream_t stream) {
-  affinity_rounds_merge<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, m, B, N, c, R, fs, is, rows,
+  affinity_rounds_merge<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, m, B, N, c, R, fs, is, rows, kx,
                                                          state);
   return (int)cudaGetLastError();
 }
 
 int affinity_rounds_sandwich_launch(const TablesView* t, int g, int B, int N, int lo, int hi,
-                                    const int* j, float* fs, int* is, float* part,
-                                    cudaStream_t stream) {
-  affinity_rounds_sandwich<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, B, N, lo, hi, j, fs, is,
-                                                            part);
-  return (int)cudaGetLastError();
+                                    const int* j, float* fs, int* is, float* part, int C,
+                                    long long smem, cudaStream_t stream) {
+  K11_SHAPE_OK;
+  return cluster_launch(affinity_rounds_sandwich, C, 1, smem, stream, *t, g, B, N, lo, hi, j, fs,
+                        is, part);
 }
 
 int affinity_rounds_finish_launch(const TablesView* t, int g, int m, int ss_live, int B, int N,
                                   int R, int* j, float* fs, int* is, const float* red,
-                                  const float* red4, const double* summ_all, int* state,
-                                  cudaStream_t stream) {
-  affinity_rounds_finish<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, m, ss_live, B, N, R, j, fs, is,
-                                                          red, red4, summ_all, state);
-  return (int)cudaGetLastError();
+                                  const float* red4, const double* summ_all, const int* kx,
+                                  int* state, int C, long long smem, cudaStream_t stream) {
+  K11_SHAPE_OK;
+  return cluster_launch(affinity_rounds_finish, C, 1, 0, stream, *t, g, m, ss_live, B, N, R, j, fs,
+                        is, red, red4, summ_all, kx, state);
 }
 
 }  // extern "C"

@@ -69,39 +69,20 @@ affinity_sharded_setup(TablesView t, int g, int cap1, int B, int N, int lo, int 
   __shared__ Ctx c;
   __shared__ PodCtx pc;
   __shared__ float s_red[16 * 32];
-  const int D1 = t.D1, D = D1 - 1, tid = threadIdx.x, bd = blockDim.x;
+  const int D1 = t.D1, tid = threadIdx.x, bd = blockDim.x;
   if (tid == 0) affinity_slots(t, g, &c);
   __syncthreads();
   const AffScratch a = aff_scratch(t, c, B, fs, is, N);
   const int n_rows = c.off[SK_SS] + 1;
-  // the segment constants (K5's): base feasibility without DoNotSchedule and
-  // InterPodAffinity, capacity, static terms, each node's composed budget
-  // domain and whether it has every live DoNotSchedule term's key
+  // the segment constants (K5's), each node's composed budget domain and
+  // whether it has every live DoNotSchedule term's key
   pod_prologue(t, g, 0, &pc, s_red);
   for (int n = lo + tid; n < hi; n += bd) {
     float ip_unused;
     segment_node_constants<false, false>(t, &pc, g, n, cap1, 0, 0, &a.feas[n], &a.cap[n],
                                          &ip_unused, &a.simon_s[n], &a.stat[n]);
     a.ip_pref[n] = interpod_pref_at(t, g, n);
-    int sum = 0, key = 1;
-    for (int k = SK_DNS; k <= SK_CAR; ++k) {
-      if (k == SK_AFF) continue;
-      for (int s = 0; s < c.n[k]; ++s) {
-        if (!c.slot[k][s].live) continue;
-        const int dom = slot_dom(t, k, c.slot[k][s].id, n);
-        sum += dom;
-        if (k == SK_DNS && dom >= D) key = 0;
-      }
-    }
-    const int dl = sum / max(c.n_budget, 1);
-    bool same = true;
-    for (int k = SK_DNS; k <= SK_CAR; ++k) {
-      if (k == SK_AFF) continue;
-      for (int s = 0; s < c.n[k]; ++s)
-        if (c.slot[k][s].live && slot_dom(t, k, c.slot[k][s].id, n) != dl) same = false;
-    }
-    a.dom_live[n] = dl;
-    a.flags[n] = (key ? AF_KEY : 0) | (same ? AF_SAME : 0);
+    aff_budget_node(t, c, n, a);
   }
   for (int n = tid; n < N; n += bd) j[n] = 0;
   for (size_t i = tid; i < (size_t)n_rows * D1; i += bd) {
@@ -131,8 +112,7 @@ affinity_sharded_front(TablesView t, int g, int B, int N, int lo, int hi, const 
                        float* fs, int* is, float* part, int* state) {
   __shared__ Ctx c;
   __shared__ float s_red[AS_FIXED * 32];
-  const int D1 = t.D1, D = D1 - 1, tid = threadIdx.x, bd = blockDim.x;
-  const size_t gN = (size_t)g * t.N;  // the block's rows, rebased
+  const int D = t.D1 - 1, tid = threadIdx.x, bd = blockDim.x;
   if (tid == 0) affinity_slots(t, g, &c);
   __syncthreads();
   const AffScratch a = aff_scratch(t, c, B, fs, is, N);
@@ -140,107 +120,14 @@ affinity_sharded_front(TablesView t, int g, int B, int N, int lo, int hi, const 
 
   // ---- the DoNotSchedule minimum of every valid term, the bootstrap flag
   // (K5's, from the replicated live rows)
-  for (int s = 0; s < c.n[SK_DNS]; ++s) {
-    if (!c.slot[SK_DNS][s].valid) continue;
-    const float* row = rows + (size_t)(c.off[SK_DNS] + s) * D1;
-    const uint8_t* edom = t.dns_edom + ((size_t)g * t.Sd + s) * D1;
-    float mn = INFINITY;
-    for (int d = tid; d < D1; d += bd)
-      if (edom[d]) mn = fminf(mn, row[d]);
-    mn = block_min(mn, s_red);
-    if (tid == 0) c.dns_min[s] = isfinite(mn) ? mn : 0.0f;
-  }
-  int boot = 0;
-  if (c.has_aff && c.aff_self) {
-    bool nz = false;
-    for (int s = 0; s < c.n[SK_AFF]; ++s) {
-      if (!c.slot[SK_AFF][s].valid) continue;
-      const float* row = rows + (size_t)(c.off[SK_AFF] + s) * D1;
-      for (int d = tid; d < D; d += bd)
-        if (row[d] != 0.0f) nz = true;
-    }
-    boot = !__syncthreads_or(nz);
-  }
+  const int boot = aff_front_prologue(t, c, g, rows, s_red);
   __syncthreads();
 
   // ---- the block's gates, live scores and maxima (epoch_head, then the
   // stacked vector of front_sharded)
   float v[AS_FIXED];
   for (int i = 0; i < AS_FIXED; ++i) v[i] = -INFINITY;
-  for (int n = lo + tid; n < hi; n += bd) {
-    const int avail = a.cap[n] - j[n];
-    int fl = a.flags[n] & (AF_KEY | AF_SAME);
-    if (a.feas[n] && avail > 0) {
-      bool dns_ok = true, dns_ok_st = true;
-      for (int s = 0; s < c.n[SK_DNS]; ++s) {
-        const Slot& x = c.slot[SK_DNS][s];
-        if (!x.valid) continue;
-        const int dom = slot_dom(t, SK_DNS, x.id, n);
-        const float at = rows[(size_t)(c.off[SK_DNS] + s) * D1 + dom];
-        const bool ok = dom < D && at + x.self - c.dns_min[s] <= x.w;
-        dns_ok = dns_ok && ok;
-        if (!x.live) dns_ok_st = dns_ok_st && ok;
-      }
-      bool aff_all = true;
-      for (int s = 0; s < c.n[SK_AFF]; ++s) {
-        const Slot& x = c.slot[SK_AFF][s];
-        if (!x.valid) continue;
-        const int dom = slot_dom(t, SK_AFF, x.id, n);
-        aff_all = aff_all && dom < D && rows[(size_t)(c.off[SK_AFF] + s) * D1 + dom] > 0.0f;
-      }
-      bool bl = false, bl_st = false;
-      for (int k = SK_ANTI; k <= SK_CAR; ++k) {
-        for (int s = 0; s < c.n[k]; ++s) {
-          const Slot& x = c.slot[k][s];
-          if (!x.valid) continue;
-          const int dom = slot_dom(t, k, x.id, n);
-          if (rows[(size_t)(c.off[k] + s) * D1 + dom] > 0.0f) {
-            bl = true;
-            if (!x.live) bl_st = true;
-          }
-        }
-      }
-      if (boot || aff_all) {  // room
-        if (dns_ok && !bl) fl |= AF_START;
-        if (dns_ok_st && !bl_st && (fl & AF_KEY)) fl |= AF_HI;
-      }
-    }
-    a.flags[n] = fl;
-    float acc = 0.0f;
-    for (int s = 0; s < c.n[SK_CW]; ++s) {
-      const Slot& x = c.slot[SK_CW][s];
-      if (!x.valid) continue;
-      const int dom = slot_dom(t, SK_CW, x.id, n);
-      acc = acc + x.w * rows[(size_t)(c.off[SK_CW] + s) * D1 + dom];
-    }
-    const float ip = a.ip_pref[n] + acc;
-    const float pn = rows[(size_t)c.off[SK_SS] * D1 + slot_dom(t, SK_SS, c.slot[SK_SS][0].id, n)];
-    a.ip_raw[n] = ip;
-    a.pn0[n] = pn;
-    const float sm = a.simon_s[n], na = t.nodeaff_raw[gN + n], tr = t.taint_raw[gN + n];
-    if (fl & AF_START) {
-      v[0] = fmaxf(v[0], sm);
-      v[1] = fmaxf(v[1], na);
-      v[2] = fmaxf(v[2], tr);
-      v[3] = fmaxf(v[3], ip);
-      v[4] = fmaxf(v[4], pn);
-      v[5] = fmaxf(v[5], -sm);
-      v[6] = fmaxf(v[6], -ip);
-    }
-    if (fl & AF_HI) {
-      v[7] = fmaxf(v[7], sm);
-      v[8] = fmaxf(v[8], na);
-      v[9] = fmaxf(v[9], tr);
-      v[10] = fmaxf(v[10], ip);
-      v[11] = fmaxf(v[11], pn);
-      v[12] = fmaxf(v[12], -sm);
-      v[13] = fmaxf(v[13], -ip);
-      v[14] = fmaxf(v[14], -sm);
-      v[15] = fmaxf(v[15], -na);
-      v[16] = fmaxf(v[16], -tr);
-      v[17] = fmaxf(v[17], -ip);
-    }
-  }
+  for (int n = lo + tid; n < hi; n += bd) aff_front_node(t, c, a, g, n, j, boot, v);
   {
     int op[AS_FIXED];
     for (int i = 0; i < AS_FIXED; ++i) op[i] = OP_MAX;

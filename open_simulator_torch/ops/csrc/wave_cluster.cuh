@@ -12,7 +12,9 @@
 //     round a byte, each CTA pushing its 256-bin histogram; it starts at the
 //     first byte where the smallest and largest keys differ and stops early
 //     once the remaining rank is the last entry of its bin.
-// K8 and K10 keep the one-block selection of select.cuh and wave.cuh.
+// K8 and K9 keep the one-block selection of select.cuh and wave.cuh; K10
+// and K11 select their block tops with cluster_select_key, and K10 merges
+// the gathered keys with it (merge.cuh GatheredKeys).
 
 #pragma once
 
@@ -171,39 +173,57 @@ static __device__ void cluster_top2(Cluster& cx, float& b1, int& i1, float& b2, 
 // The usable entries of one CTA's nodes for the selection: `cnt` nodes from
 // global node `lo`, node l's row at tab + l * S with usable prefix u[l]
 // (at most A entries), entry (n, k) keyed entry_key(row[k], n, k, Bk).
+// A key source of cluster_select_key: slots() flat slots, key_at(e, &key)
+// whether slot e holds a key (and which), max_comp(mask, prefix) the
+// largest complement of this thread's keys whose bits under mask equal
+// prefix (0 for none).
 struct RowSet {
   const float* tab;
   int S;
   const int* u;
   int lo, cnt, A, Bk;
+  __device__ __forceinline__ unsigned slots() const { return (unsigned)cnt * (unsigned)A; }
+  __device__ __forceinline__ bool key_at(unsigned e, u64* key) const {
+    const int l = (int)(e / (unsigned)A), k = (int)(e - (unsigned)l * A);
+    if (k >= u[l]) return false;
+    *key = entry_key(tab[(size_t)l * S + k], lo + l, k, Bk);
+    return true;
+  }
+  __device__ __forceinline__ u64 max_comp(u64 mask, u64 prefix) const {
+    u64 best = 0;
+    for (int l = threadIdx.x; l < cnt; l += CLUSTER_THREADS) {
+      const float* row = tab + (size_t)l * S;
+      for (int k = 0; k < u[l]; ++k) {
+        const u64 key = entry_key(row[k], lo + l, k, Bk);
+        if ((key & mask) == prefix && ~key > best) best = ~key;
+      }
+    }
+    return best;
+  }
 };
 
-// The smallest key of `rs` whose bits under `mask` equal `prefix`, over the
+// The smallest key of `ks` whose bits under `mask` equal `prefix`, over the
 // cluster (at least one exists). One round.
-static __device__ u64 cluster_min_match(Cluster& cx, const RowSet& rs, u64 mask, u64 prefix,
+template <class Keys>
+static __device__ u64 cluster_min_match(Cluster& cx, const Keys& ks, u64 mask, u64 prefix,
                                         int* s_rx, int* fin, u64* s_w64) {
-  u64 best = 0;  // the largest complement
-  for (int l = threadIdx.x; l < rs.cnt; l += CLUSTER_THREADS) {
-    const float* row = rs.tab + (size_t)l * rs.S;
-    for (int k = 0; k < rs.u[l]; ++k) {
-      const u64 key = entry_key(row[k], rs.lo + l, k, rs.Bk);
-      if ((key & mask) == prefix && ~key > best) best = ~key;
-    }
-  }
+  u64 best = ks.max_comp(mask, prefix);  // the largest complement
   int none[1] = {0};
   const int op[1] = {RX_SUM};
   cluster_reduce<1, true>(cx, none, op, s_rx, fin, &best, s_w64);
   return ~best;
 }
 
-// The key of the r-th best usable entry over the cluster (1 <= r <= the
-// usable count), every usable key lying in [kmin, kmax]: an MSB-first radix
+// The key of the r-th best key of the key source `ks` (a RowSet, or
+// merge.cuh's GatheredKeys) over the cluster (1 <= r <= the key count),
+// every key lying in [kmin, kmax]: an MSB-first radix
 // select from the first byte where kmin and kmax differ, one cluster round
 // a byte (each CTA's 256-bin histogram, warp-aggregated), ending with one
 // cluster_min_match round where the remaining rank is the last entry of
 // its bin. Every thread gets the key. s_hist: 256 ints; s_sel:
 // CLUSTER_WARPS + 3 ints.
-static __device__ u64 cluster_select_key(Cluster& cx, const RowSet& rs, int r, u64 kmin, u64 kmax,
+template <class Keys>
+static __device__ u64 cluster_select_key(Cluster& cx, const Keys& ks, int r, u64 kmin, u64 kmax,
                                          int* s_hist, int* s_sel, int* s_rx, int* fin,
                                          u64* s_w64) {
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
@@ -213,17 +233,16 @@ static __device__ u64 cluster_select_key(Cluster& cx, const RowSet& rs, int r, u
   u64 mask = shift >= 56 ? 0ull : ~0ull << (shift + 8);
   u64 prefix = kmax & mask;
   int rem = r;
-  const unsigned E = (unsigned)rs.cnt * (unsigned)rs.A;
+  const unsigned E = ks.slots();
   for (; shift >= 0; shift -= 8) {
     for (int d = tid; d < 256; d += CLUSTER_THREADS) s_hist[d] = 0;
     __syncthreads();
     for (unsigned e0 = 0; e0 < E; e0 += CLUSTER_THREADS) {  // uniform trips: warps converged
       const unsigned e = e0 + tid;
       int digit = 256;
-      if (e < E) {
-        const int l = (int)(e / (unsigned)rs.A), k = (int)(e - (unsigned)l * rs.A);
-        if (k < rs.u[l]) {
-          const u64 key = entry_key(rs.tab[(size_t)l * rs.S + k], rs.lo + l, k, rs.Bk);
+      if (e < E) {  // nested ifs: one && form costs K3 (EXT) 12 bytes more of spills
+        u64 key;
+        if (ks.key_at(e, &key)) {
           if ((key & mask) == prefix) digit = (int)((key >> shift) & 255u);
         }
       }
@@ -262,7 +281,7 @@ static __device__ u64 cluster_select_key(Cluster& cx, const RowSet& rs, int r, u
     prefix |= (u64)d << shift;
     mask |= 255ull << shift;
     if (shift > 0 && rem == in_bin)
-      return cluster_min_match(cx, rs, mask, prefix, s_rx, fin, s_w64);
+      return cluster_min_match(cx, ks, mask, prefix, s_rx, fin, s_w64);
   }
   return prefix;
 }

@@ -10,60 +10,68 @@
 //    viewed as wave_sharded.cuh says), and the only full-width arrays are j
 //    (the per-node counts, replicated) and the gathered candidates.
 //
-// One segment: `setup` once (the block's base feasibility, capacity and
-// static score terms; j = 0), then per round six launches of one block
-// each, four collectives (parallel/collectives.py) and one host read,
-// launched by ops/kernels.py `schedule_wave_rounds_kernel`:
-//   front    (K8's, the block): F and the six masked maxima;
+// Every stage is one thread-block cluster of C CTAs of 512 threads (C from
+// ops/cluster.py `choose` over the block's NL nodes), CTA r owning the node
+// slice [r * chunk, (r + 1) * chunk) of the block; the cross-node values are
+// cluster rounds (wave_cluster.cuh, merge.cuh). One segment: `setup` once
+// (the block's base feasibility, capacity and static score terms; j = 0),
+// then per round five launches, four collectives (parallel/collectives.py)
+// and one host read, launched by ops/kernels.py `schedule_wave_rounds_kernel`:
+//   front    F and the six masked maxima over the block (one round);
 //   -- pmax #1 of the six values --
-//   table    (K8's, the block): the normalizers and the block's payload
-//            rows [table (B+1); F; min(avail, B+1); K8's four normalizer
-//            inputs, which this path does not gather];
-//   summary  (the block): each node's usable prefix and first hidden
-//            entry; the block's first two maxima of that bound and its
-//            best head, as (value, global index), and its feasible count;
+//   table    the normalizers and the block's payload rows [table (B+1); F;
+//            min(avail, B+1); K8's four normalizer inputs, which this path
+//            does not gather], then each node's usable prefix and first
+//            hidden entry; the block's first two maxima of that bound and
+//            its best head, as (value, global index), and its feasible
+//            count (three rounds);
 //   -- all_gather_rows #1 of the summaries, in rank order --
-//   select   (the block): the guard from the global pairs, then the radix
-//            select of the block's top c = min(K, m - placed, NL*B) usable
-//            entries and their compaction into [c] (key, exhaust) rows, 0
-//            keys after the block's own, then (guarded, usable) in row c;
+//   select   the guard from the global pairs, then the block's top c =
+//            min(K, m - placed, NL*B) usable entries (merge.cuh
+//            cluster_block_top: the cluster radix select a round a byte, from
+//            the first byte the keys do not share) and their compaction into
+//            [c] (key, exhaust) rows in node order at offsets from a cluster
+//            scan, 0 keys after the block's own, then (guarded, usable) in
+//            row c;
 //   -- all_gather_rows #2 of the [c+1] rows --
-//   merge    (the gathered rows, then the block): the radix select of the
-//            top m_cand = min(m - placed, K, keys) of the R*c keys; the
-//            best node-exhausting key among them and the count above it;
-//            each block node's count in the top and the block's six
-//            maxima over the nodes the top leaves feasible;
+//   merge    the gathered R*c keys split over the CTAs: the top m_cand =
+//            min(m - placed, K, keys) (the cluster radix select on the flat
+//            keys); the best node-exhausting key among them and the count
+//            above it; each block node's count in the top and the block's
+//            six maxima over the nodes the top leaves feasible;
 //   -- pmax #2 of those six --
-//   finish   (replicated): the end normalizers against the epoch's, the
-//            stop at the first exhausting pick, the head fallback from the
-//            gathered heads, j += one per gathered key in the take, and the
-//            loop state (placed, last, iterations, head fallbacks, guarded).
+//   finish   (replicated) the end normalizers against the epoch's, the stop
+//            at the first exhausting pick, the head fallback from the
+//            gathered heads, j += one per gathered key in the take (the keys
+//            split over the CTAs), and the loop state (placed, last,
+//            iterations, head fallbacks, guarded).
 // The host reads (placed, last) once per round to decide on the next.
 //
 // Exactness against the unsharded selection (K3, `_wave_iteration`):
 // - the per-node floats are K8's: the block's rows are the unsharded rows,
 //   and the reduced maxima are the unsharded maxima (a max is exact in any
-//   order, mins ride negated: -max(-x) == min(x), +-inf included);
+//   order, as order-preserving integer keys (okey) too; mins ride negated:
+//   -max(-x) == min(x), +-inf included);
 // - ties break on global indices: the bound and head pairs by (value desc,
 //   global node asc), the candidates by the distinct 64-bit key of
-//   select.cuh with the global flat position n*B+k; the block's select runs
-//   on local keys, whose order is the global keys' (a constant offset of
-//   the flat position), and emits global keys;
+//   select.cuh with the global flat position n*B+k;
 // - the merge sees the same keys as an unsharded select would: the
 //   unsharded top min(K, m - placed) holds at most c entries of any block,
 //   and each block offers its own top c, so the top of the union of the
 //   blocks' tops is the unsharded top; the exhausting key and the count
-//   above it lie in that top too;
+//   above it lie in that top too. The rows leave each block in node order,
+//   CTA by CTA, as the one-block form wrote them;
 // - everything else is integers: counts, the guarded sum, j's updates (one
 //   integer atomicAdd per taken key, order-free);
 // - compiled with --fmad=false; no log or other transcendental is taken
 //   here (setup's interpod term keeps common.cuh's f64 log, rounded once).
 //
-// What bounds it on an H100: latency. Each stage is one block of 1,024
-// threads; the block's radix select makes 8 passes over its NL*B entries
-// and the merge's 8 passes over R*c keys, on one SM each. Per round the host
-// makes four collectives and one read. A multi-block select and the
-// gathers overlapped with the table build are later work.
+// What bounds it on an H100: latency. A round's stages are short passes
+// over the block's NL * (B + 1) table entries and R * c gathered keys; each
+// costs a launch, a start and an end cluster barrier and a few rounds, and
+// the radix selects one round a byte. Per round the host makes four
+// collectives and one read (parallel/collectives.py; moving them onto the
+// device is later work).
 //
 // The exactness contract with the plain PyTorch version is in common.cuh.
 
@@ -79,187 +87,214 @@ struct MergeState {
   long long p_ex, m_cand;
 };
 
+// K10's dynamic shared memory at C: the round slots [2][C][RX_WORDS]
+static __host__ __device__ inline long long k10_smem_bytes(int C) {
+  return 4LL * 2 * C * RX_WORDS;
+}
+
 template <bool EXT>
-__global__ void __launch_bounds__(BLOCK_THREADS, 1)
+__global__ void __launch_bounds__(CLUSTER_THREADS, 1)
 wave_rounds_setup(TablesView t, int g, int cap1, int N, int lo, int hi, int* j, float* fs,
                   int* is, int* state) {
   __shared__ PodCtx pc;
   __shared__ float s_red[8 * 32];
+  const int tid = threadIdx.x, C = cluster_ctas(), rank = cluster_rank();
   const WaveScratch w = wave_scratch(N, fs, is);
+  int a, b;
+  cta_slice(hi - lo, &a, &b);
   pod_prologue(t, g, 1, &pc, s_red);
-  for (int n = lo + threadIdx.x; n < hi; n += blockDim.x)
+  for (int n = lo + a + tid; n < lo + b; n += CLUSTER_THREADS)
     segment_node_constants<EXT, false>(t, &pc, g, n, cap1, 1, 1, &w.feas[n], &w.cap[n], &w.ip[n],
                                        &w.simon_s[n], &w.stat[n]);
-  for (int n = threadIdx.x; n < N; n += blockDim.x) j[n] = 0;
-  if (threadIdx.x < 5) state[threadIdx.x] = threadIdx.x == 1 ? 1 : 0;
+  for (int n = rank * CLUSTER_THREADS + tid; n < N; n += C * CLUSTER_THREADS) j[n] = 0;
+  if (rank == 0 && tid < 5) state[tid] = tid == 1 ? 1 : 0;
 }
 
-// summary row: [b1, i1, b2, i2, head, head index, feasible count, 0]
-__global__ void __launch_bounds__(BLOCK_THREADS, 1)
-wave_rounds_summary(int N, int B, int lo, int hi, float* fs, int* is, const float* pay,
-                    double* summ) {
-  __shared__ float s_red[8 * 32];
-  __shared__ int s_idx[32];
-  const int tid = threadIdx.x, bd = blockDim.x, B1 = B + 1, P = B + WAVE_PAY_EXTRA;
+// F and the masked maxima of [simon, nodeaff, taint, ip, -simon, -ip] over
+// the block (K8's front: JAX :1224)
+__global__ void __launch_bounds__(CLUSTER_THREADS, 1)
+wave_rounds_front(TablesView t, int g, int N, int lo, int hi, const int* j, float* fs, int* is,
+                  float* part) {
+  __shared__ StageShared sh;
+  extern __shared__ uint32_t smem[];
+  Cluster cx = cluster_stage(hi - lo, RX_WORDS, (int*)smem, sh.mbar);
+  const int tid = threadIdx.x;
   const WaveScratch w = wave_scratch(N, fs, is);
-  float b1 = -INFINITY, hv = -INFINITY;
-  int i1 = 0x7fffffff, ih = 0x7fffffff, nF = 0;
-  for (int n = lo + tid; n < hi; n += bd) {
-    const float* row = pay + (size_t)(n - lo) * P;
-    const bool F = row[B1] > 0.0f;
-    const int avail = (int)row[B1 + 1];
+  const size_t gN = (size_t)g * t.N;
+  float v6[6] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY, -INFINITY, -INFINITY};
+  for (int n = lo + cx.lo + tid; n < lo + cx.hi; n += CLUSTER_THREADS) {
+    if (!(w.feas[n] && w.cap[n] - j[n] > 0)) continue;
+    v6[0] = fmaxf(v6[0], w.simon_s[n]);
+    v6[1] = fmaxf(v6[1], t.nodeaff_raw[gN + n]);
+    v6[2] = fmaxf(v6[2], t.taint_raw[gN + n]);
+    v6[3] = fmaxf(v6[3], w.ip[n]);
+    v6[4] = fmaxf(v6[4], -w.simon_s[n]);
+    v6[5] = fmaxf(v6[5], -w.ip[n]);
+  }
+  int r6[6];
+  for (int k = 0; k < 6; ++k) r6[k] = okey(v6[k]);
+  const int op6[6] = {RX_MAX, RX_MAX, RX_MAX, RX_MAX, RX_MAX, RX_MAX};
+  cluster_reduce<6>(cx, r6, op6, sh.rx, sh.fin);
+  if (cx.rank == 0 && tid < 6) part[tid] = ounkey(r6[tid]);
+  cluster_barrier_uncounted();  // no CTA leaves with its stores into another in flight
+}
+
+// The block's payload rows (K8's table: the normalizers from the reduced
+// vector, JAX :1233, the [B+1] score rows :904, the payload :1240), then
+// its summary row [b1, i1, b2, i2, head, head index, feasible count, 0]
+__global__ void __launch_bounds__(CLUSTER_THREADS, 1)
+wave_rounds_table(TablesView t, int g, int B, int N, int lo, int hi, const int* j, float* fs,
+                  int* is, const float* red, float* pay, double* summ) {
+  __shared__ StageShared sh;
+  extern __shared__ uint32_t smem[];
+  Cluster cx = cluster_stage(hi - lo, RX_WORDS, (int*)smem, sh.mbar);
+  const int tid = threadIdx.x, R = t.R, B1 = B + 1, P = B + WAVE_PAY_EXTRA;
+  const WaveScratch w = wave_scratch(N, fs, is);
+  const size_t gN = (size_t)g * t.N;
+  const float gz_c = t.grp_nonzero[g * 2 + 0], gz_m = t.grp_nonzero[g * 2 + 1];
+  const Norms nm = reduced_norms(red);
+  float b1 = -INFINITY, b2 = -INFINITY, hv = -INFINITY, hv2 = -INFINITY;
+  int i1 = INT_HI, i2 = INT_HI, ih = INT_HI, ih2 = INT_HI, nF = 0;
+  for (int n = lo + cx.lo + tid; n < lo + cx.hi; n += CLUSTER_THREADS) {
+    const int avail = w.cap[n] - j[n];
+    float simon, nodeaff, taint, interpod;
+    normalized_terms(nm, w.simon_s[n], t.nodeaff_raw[gN + n], t.taint_raw[gN + n], w.ip[n],
+                     &simon, &nodeaff, &taint, &interpod);
+    const float static_n = t.w[W_SIMON] * simon + t.w[W_NODEAFF] * nodeaff
+                           + t.w[W_TAINT] * taint + t.w[W_INTERPOD] * interpod + w.stat[n];
+    const float jf = (float)j[n];
+    const float nz_c = t.nonzero[(size_t)n * 2 + 0], nz_m = t.nonzero[(size_t)n * 2 + 1];
+    const float a_c = t.alloc[(size_t)n * R + 0], a_m = t.alloc[(size_t)n * R + 1];
+    float* row = pay + (size_t)(n - lo) * P;
     int first_bad = B;
     float prev = 0.0f;
-    for (int k = 0; k <= B; ++k) {
-      const float v = row[k];
+    for (int k = 0; k < B1; ++k) {
+      const float copies = jf + (float)(k + 1);
+      float least, bal;
+      least_balanced(nz_c + gz_c * copies, nz_m + gz_m * copies, a_c, a_m, &least, &bal);
+      const float v = t.w[W_LEAST] * least + t.w[W_BALANCED] * bal + static_n;
+      row[k] = v;
       if (k > 0 && k < B && first_bad == B && v > prev) first_bad = k;
       prev = v;
     }
+    const bool F = w.feas[n] && avail > 0;
+    const int av = min(avail, B1);
+    row[B1] = F ? 1.0f : 0.0f;
+    row[B1 + 1] = (float)av;
+    row[B1 + 2] = w.simon_s[n];
+    row[B1 + 3] = t.nodeaff_raw[gN + n];
+    row[B1 + 4] = t.taint_raw[gN + n];
+    row[B1 + 5] = w.ip[n];
     w.F[n] = F;
-    w.avail[n] = avail;
-    w.u[n] = F ? min(avail, first_bad) : 0;
-    const float bound = (F && first_bad < avail) ? row[first_bad] : -INFINITY;
+    w.avail[n] = av;
+    w.u[n] = F ? min(av, first_bad) : 0;
+    const float bound = (F && first_bad < av) ? row[first_bad] : -INFINITY;
     w.bound[n] = bound;
-    argmax_update(bound, n, &b1, &i1);
-    argmax_update(F ? row[0] : -INFINITY, n, &hv, &ih);
+    top2_update(bound, n, b1, i1, b2, i2);
+    top2_update(F ? row[0] : -INFINITY, n, hv, ih, hv2, ih2);
     nF += F;
   }
-  block_argmax(&b1, &i1, s_red, s_idx);
-  float b2 = -INFINITY;
-  int i2 = 0x7fffffff;
-  for (int n = lo + tid; n < hi; n += bd) argmax_update(n == i1 ? -INFINITY : w.bound[n], n, &b2, &i2);
-  block_argmax(&b2, &i2, s_red, s_idx);
-  block_argmax(&hv, &ih, s_red, s_idx);
-  nF = block_sum_int(nF, s_idx);
-  if (tid == 0) {
+  cluster_top2(cx, b1, i1, b2, i2, sh.rx, sh.fin);
+  cluster_top2(cx, hv, ih, hv2, ih2, sh.rx, sh.fin);
+  int cnt[1] = {nF};
+  const int op[1] = {RX_SUM};
+  cluster_reduce<1>(cx, cnt, op, sh.rx, sh.fin);
+  if (cx.rank == 0 && tid == 0) {
     summ[0] = b1;
     summ[1] = i1;
     summ[2] = b2;
     summ[3] = i2;
     summ[4] = hv;
     summ[5] = ih;
-    summ[6] = nF;
+    summ[6] = cnt[0];
     summ[7] = 0.0;
   }
+  cluster_barrier_uncounted();
 }
 
-__global__ void __launch_bounds__(BLOCK_THREADS, 1)
+__global__ void __launch_bounds__(CLUSTER_THREADS, 1)
 wave_rounds_select(int N, int B, int lo, int hi, int c, int R, float* fs, int* is,
                    const float* pay, const double* summ_all, long long* cand) {
-  __shared__ int s_idx[32];
-  __shared__ int hist[256];
-  __shared__ u64 s_prefix;
-  __shared__ int s_rem;
-  const int tid = threadIdx.x, bd = blockDim.x, P = B + WAVE_PAY_EXTRA, NL = hi - lo;
+  __shared__ StageShared sh;
+  extern __shared__ uint32_t smem[];
+  Cluster cx = cluster_stage(hi - lo, RX_WORDS, (int*)smem, sh.mbar);
+  const int tid = threadIdx.x, P = B + WAVE_PAY_EXTRA, a = lo + cx.lo;
   const WaveScratch w = wave_scratch(N, fs, is);
-
-  // ---- the global pairs: the best block first, then the best of the other
-  // blocks' firsts and the winner's second
-  int win = 0;
-  double b1 = summ_all[0], g1 = summ_all[1];
-  for (int r = 1; r < R; ++r) {
-    const double v = summ_all[r * 8], i = summ_all[r * 8 + 1];
-    if (v > b1 || (v == b1 && i < g1)) {
-      b1 = v;
-      g1 = i;
-      win = r;
-    }
-  }
-  double b2 = summ_all[win * 8 + 2], g2 = summ_all[win * 8 + 3];
-  for (int r = 0; r < R; ++r)
-    if (r != win) pair_update(summ_all[r * 8], summ_all[r * 8 + 1], &b2, &g2);
-  const float f1 = (float)b1, f2 = (float)b2;
-  const int i1 = (int)g1, i2 = (int)g2;
-
-  // ---- the guard on the block
-  int U = 0, gsum = 0;
-  for (int n = lo + tid; n < hi; n += bd) {
-    const float cut_s = n == i1 ? f2 : f1;
-    const int cut_i = n == i1 ? i2 : i1;
-    const float* row = pay + (size_t)(n - lo) * P;
-    const int u0 = w.u[n];
-    int uu = 0;
-    while (uu < u0 && (row[uu] > cut_s || (row[uu] == cut_s && n < cut_i))) ++uu;
-    w.u[n] = uu;
-    U += uu;
-    gsum += u0 - uu;
-  }
-  U = block_sum_int(U, s_idx);
-  gsum = block_sum_int(gsum, s_idx);
-
-  // ---- the block's top r = min(c, U) on local keys, emitted as global keys
-  const int r = min(c, U);
-  const u64 T = r > 0 ? select_key(pay, P, w.u + lo, NL, B, r, hist, &s_prefix, &s_rem) : 0;
-  int base = 0;
-  for (int n0 = 0; n0 < NL; n0 += bd) {  // uniform trip count: every thread scans
-    const int nl = n0 + tid;
-    const float* row = pay + (size_t)nl * P;
-    const int cnt = (r > 0 && nl < NL) ? count_at_least(row, nl, w.u[lo + nl], B, T) : 0;
-    int total;
-    const int off = base + block_exclusive_scan(cnt, s_idx, &total);
-    for (int k = 0; k < cnt; ++k) {
-      long long* out = cand + (size_t)(off + k) * 2;
-      out[0] = (long long)entry_key(row[k], lo + nl, k, B);
-      out[1] = k == w.avail[lo + nl] - 1;
-    }
-    base += total;
-  }
-  for (int s = r + tid; s < c; s += bd) {
+  float f1, f2;
+  int i1, i2;
+  global_pairs(summ_all, R, 8, &f1, &i1, &f2, &i2);
+  const RowSet rs = {pay + (size_t)cx.lo * P, P, w.u + a, a, cx.hi - cx.lo, B, B};
+  const int* avail = w.avail + a;
+  const BlockTop bt = cluster_block_top(cx, rs, w.u + a, w.c0 + a, f1, i1, f2, i2, c, sh,
+                                        [&](int slot, int l, int k, u64 key) {
+                                          long long* out = cand + (size_t)slot * 2;
+                                          out[0] = (long long)key;
+                                          out[1] = k == avail[l] - 1;
+                                        });
+  const int stride = cx.C * CLUSTER_THREADS;
+  for (int s = bt.r + cx.rank * CLUSTER_THREADS + tid; s < c; s += stride) {
     cand[(size_t)s * 2] = 0;
     cand[(size_t)s * 2 + 1] = 0;
   }
-  if (tid == 0) {
-    cand[(size_t)c * 2] = gsum;
-    cand[(size_t)c * 2 + 1] = U;
+  if (cx.rank == 0 && tid == 0) {
+    cand[(size_t)c * 2] = bt.gsum;
+    cand[(size_t)c * 2 + 1] = bt.U;
   }
+  cluster_barrier_uncounted();
 }
 
-__global__ void __launch_bounds__(BLOCK_THREADS, 1)
+__global__ void __launch_bounds__(CLUSTER_THREADS, 1)
 wave_rounds_merge(TablesView t, int g, int m, int K, int B, int N, int lo, int hi, int c, int R,
                   float* fs, int* is, const float* pay, const long long* rows, const int* state,
                   MergeState* ms, float* part) {
-  __shared__ float s_red[8 * 32];
-  __shared__ int s_idx[32];
-  __shared__ u64 s_u64[32];
-  __shared__ int hist[256];
-  __shared__ u64 s_prefix;
-  __shared__ int s_rem;
-  const int tid = threadIdx.x, bd = blockDim.x, P = B + WAVE_PAY_EXTRA;
+  __shared__ StageShared sh;
+  extern __shared__ uint32_t smem[];
+  Cluster cx = cluster_stage(hi - lo, RX_WORDS, (int*)smem, sh.mbar);
+  const int tid = threadIdx.x, P = B + WAVE_PAY_EXTRA;
   const WaveScratch w = wave_scratch(N, fs, is);
   const size_t gN = (size_t)g * t.N;  // the block's rows, rebased
-  const int total = R * c;
+  // this CTA's share of the R*c gathered keys
+  const unsigned E = (unsigned)R * (unsigned)c, ec = (E + cx.C - 1) / cx.C;
+  const unsigned e0 = min(E, (unsigned)cx.rank * ec), e1 = min(E, e0 + ec);
+  const GatheredKeys gk = {rows, c, 2, e0, e1 - e0};
 
-  // ---- the global top: m_cand = min(m - placed, K, keys)
-  int nk = 0;
-  for (int e = tid; e < total; e += bd) {
-    const int rk = e / c, s = e - rk * c;
-    nk += rows[((size_t)rk * (c + 1) + s) * 2] != 0;
+  // ---- the global top: m_cand = min(m - placed, K, keys), its last key T
+  // (the smallest key exactly when every key is in it)
+  int nk = 0, hmax = INT_LO, lmax = INT_LO;
+  u64 ncomp = 0;  // the largest complement of a key: ~ the smallest key
+  for (unsigned e = tid; e < gk.n; e += CLUSTER_THREADS) {
+    const u64 key = (u64)gk.row(e)[0];
+    if (key == 0) continue;
+    ++nk;
+    hmax = max(hmax, uokey((uint32_t)(key >> 32)));
+    lmax = max(lmax, uokey((uint32_t)key));
+    if (~key > ncomp) ncomp = ~key;
   }
-  nk = block_sum_int(nk, s_idx);
+  int r1[3] = {nk, hmax, lmax};
+  const int op1[3] = {RX_SUM, RX_MAX, RX_MAX};
+  cluster_reduce<3, true>(cx, r1, op1, sh.rx, sh.fin, &ncomp, sh.w64);
+  nk = r1[0];
   const int m_cand = min(m - state[0], min(K, nk));
-  const u64 T = m_cand > 0 ? select_gathered(rows, R, c, m_cand, hist, &s_prefix, &s_rem) : 0;
+  u64 T = 0;
+  if (m_cand > 0) {
+    const u64 kmin = ~ncomp, kmax = ((u64)uounkey(r1[1]) << 32) | (u64)uounkey(r1[2]);
+    T = m_cand == nk ? kmin
+                     : cluster_select_key(cx, gk, m_cand, kmin, kmax, sh.hist, sh.sel, sh.rx,
+                                          sh.fin, sh.w64);
+  }
+
+  // ---- the best exhausting key in the top; the block: counts in the top,
+  // the maxima over the nodes it leaves feasible
   u64 ex_best = 0;
   if (m_cand > 0) {
-    for (int e = tid; e < total; e += bd) {
-      const int rk = e / c, s = e - rk * c;
-      const long long* row = rows + ((size_t)rk * (c + 1) + s) * 2;
+    for (unsigned e = tid; e < gk.n; e += CLUSTER_THREADS) {
+      const long long* row = gk.row(e);
       const u64 key = (u64)row[0];
       if (row[1] && key >= T && key > ex_best) ex_best = key;
     }
   }
-  ex_best = block_max_u64(ex_best, s_u64);
-  int above = 0;
-  if (ex_best != 0) {
-    for (int e = tid; e < total; e += bd) {
-      const int rk = e / c, s = e - rk * c;
-      above += (u64)rows[((size_t)rk * (c + 1) + s) * 2] > ex_best;
-    }
-  }
-  above = block_sum_int(above, s_idx);
-
-  // ---- the block: counts in the top, the maxima over the nodes it leaves
   float e6[6] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY, -INFINITY, -INFINITY};
-  for (int n = lo + tid; n < hi; n += bd) {
+  for (int n = lo + cx.lo + tid; n < lo + cx.hi; n += CLUSTER_THREADS) {
     const float* row = pay + (size_t)(n - lo) * P;
     const int c0 = m_cand > 0 ? count_at_least(row, n, w.u[n], B, T) : 0;
     const int avail = w.avail[n];
@@ -272,17 +307,26 @@ wave_rounds_merge(TablesView t, int g, int m, int K, int B, int N, int lo, int h
       e6[5] = fmaxf(e6[5], -w.ip[n]);
     }
   }
-  const int op6[6] = {OP_MAX, OP_MAX, OP_MAX, OP_MAX, OP_MAX, OP_MAX};
-  block_reduce<6>(e6, op6, s_red);
-  if (tid < 6) part[tid] = e6[tid];
-  if (tid == 0) *ms = MergeState{T, ex_best, (long long)above, (long long)m_cand};
+  int r6[6];
+  for (int k = 0; k < 6; ++k) r6[k] = okey(e6[k]);
+  const int op6[6] = {RX_MAX, RX_MAX, RX_MAX, RX_MAX, RX_MAX, RX_MAX};
+  cluster_reduce<6, true>(cx, r6, op6, sh.rx, sh.fin, &ex_best, sh.w64);
+  int above[1] = {0};
+  if (ex_best != 0) {
+    for (unsigned e = tid; e < gk.n; e += CLUSTER_THREADS) above[0] += (u64)gk.row(e)[0] > ex_best;
+    const int op[1] = {RX_SUM};
+    cluster_reduce<1>(cx, above, op, sh.rx, sh.fin);
+  }
+  if (cx.rank == 0 && tid < 6) part[tid] = ounkey(r6[tid]);
+  if (cx.rank == 0 && tid == 0) *ms = MergeState{T, ex_best, (long long)above[0], (long long)m_cand};
+  cluster_barrier_uncounted();
 }
 
-__global__ void __launch_bounds__(BLOCK_THREADS, 1)
+__global__ void __launch_bounds__(CLUSTER_THREADS, 1)
 wave_rounds_finish(int m, int B, int c, int R, int* j, const float* red, const float* red2,
                    const double* summ_all, const long long* rows, const MergeState* ms,
                    int* state) {
-  const int tid = threadIdx.x, bd = blockDim.x;
+  const int tid = threadIdx.x, C = cluster_ctas(), rank = cluster_rank();
   const Norms a = reduced_norms(red), b = reduced_norms(red2);
   const bool same = a.simon_hi == b.simon_hi && a.simon_lo == b.simon_lo && a.na_max == b.na_max
                     && a.t_max == b.t_max && a.ip_max == b.ip_max && a.ip_min == b.ip_min;
@@ -307,17 +351,17 @@ wave_rounds_finish(int m, int B, int c, int R, int* j, const float* red, const f
     }
   }
   if (head >= 0) {
-    if (tid == 0) j[head] += 1;
+    if (rank == 0 && tid == 0) j[head] += 1;
   } else if (m_take > 0) {
     const int total = R * c;
-    for (int e = tid; e < total; e += bd) {
+    for (int e = rank * CLUSTER_THREADS + tid; e < total; e += C * CLUSTER_THREADS) {
       const int rk = e / c, sl = e - rk * c;
       const u64 key = (u64)rows[((size_t)rk * (c + 1) + sl) * 2];
       if (key != 0 && key >= cut) atomicAdd(&j[key_node(key, B)], 1);
     }
   }
-  __syncthreads();  // every thread has read state[0]
-  if (tid == 0) {
+  cluster_barrier_uncounted();  // every CTA has read state[0]
+  if (rank == 0 && tid == 0) {
     long long guarded = 0;
     for (int r = 0; r < R; ++r) guarded += rows[((size_t)r * (c + 1) + c) * 2];
     state[0] = placed + m_take;
@@ -334,47 +378,85 @@ extern "C" {
 
 long long wave_rounds_merge_state_bytes() { return (long long)sizeof(MergeState); }
 
-// t: the block's view, rebased by lo (wave_sharded.cuh); N: the mesh's nodes
-int wave_rounds_setup_launch(const TablesView* t, int g, int cap1, int N, int lo, int hi, int* j,
-                             float* fs, int* is, int* state, cudaStream_t stream) {
-  if (t->f_gpu)
-    wave_rounds_setup<true><<<1, BLOCK_THREADS, 0, stream>>>(*t, g, cap1, N, lo, hi, j, fs, is,
-                                                             state);
-  else
-    wave_rounds_setup<false><<<1, BLOCK_THREADS, 0, stream>>>(*t, g, cap1, N, lo, hi, j, fs, is,
-                                                              state);
-  return (int)cudaGetLastError();
+// K10's dynamic shared memory at C (ops/cluster.py takes it from here)
+long long wave_rounds_smem(int C) { return k10_smem_bytes(C); }
+
+// cluster_kernel_init (cluster.cuh) of K10's kernels, once per device
+int wave_rounds_init() {
+  cudaError_t e = cluster_kernel_init(wave_rounds_setup<false>);
+  if (e == cudaSuccess) e = cluster_kernel_init(wave_rounds_setup<true>);
+  if (e == cudaSuccess) e = cluster_kernel_init(wave_rounds_front);
+  if (e == cudaSuccess) e = cluster_kernel_init(wave_rounds_table);
+  if (e == cudaSuccess) e = cluster_kernel_init(wave_rounds_select);
+  if (e == cudaSuccess) e = cluster_kernel_init(wave_rounds_merge);
+  if (e == cudaSuccess) e = cluster_kernel_init(wave_rounds_finish);
+  return (int)e;
 }
 
-int wave_rounds_summary_launch(int N, int B, int lo, int hi, float* fs, int* is,
-                               const float* pay, double* summ, cudaStream_t stream) {
-  wave_rounds_summary<<<1, BLOCK_THREADS, 0, stream>>>(N, B, lo, hi, fs, is, pay, summ);
-  return (int)cudaGetLastError();
+static bool k10_shape_ok(int C, long long smem) {
+  return (C == 1 || C == 2 || C == 4 || C == 8 || C == 16) && smem == k10_smem_bytes(C);
+}
+
+// Clusters of C CTAs with `smem` bytes of K10's largest stage (the select)
+// that can be resident at once, into *out
+int wave_rounds_occupancy(int C, long long smem, int* out) {
+  if (!k10_shape_ok(C, smem)) return (int)cudaErrorInvalidValue;
+  return cluster_occupancy_of(wave_rounds_select, C, smem, out);
+}
+
+// Every launch: one cluster of C CTAs, `smem` = wave_rounds_smem(C) (any
+// other shape is refused). t: the block's view, rebased by lo
+// (wave_sharded.cuh); N: the mesh's nodes.
+int wave_rounds_setup_launch(const TablesView* t, int g, int cap1, int N, int lo, int hi, int* j,
+                             float* fs, int* is, int* state, int C, long long smem,
+                             cudaStream_t stream) {
+  if (!k10_shape_ok(C, smem)) return (int)cudaErrorInvalidValue;
+  if (t->f_gpu)
+    return cluster_launch(wave_rounds_setup<true>, C, 1, 0, stream, *t, g, cap1, N, lo, hi, j, fs,
+                          is, state);
+  return cluster_launch(wave_rounds_setup<false>, C, 1, 0, stream, *t, g, cap1, N, lo, hi, j, fs,
+                        is, state);
+}
+
+int wave_rounds_front_launch(const TablesView* t, int g, int N, int lo, int hi, const int* j,
+                             float* fs, int* is, float* part, int C, long long smem,
+                             cudaStream_t stream) {
+  if (!k10_shape_ok(C, smem)) return (int)cudaErrorInvalidValue;
+  return cluster_launch(wave_rounds_front, C, 1, smem, stream, *t, g, N, lo, hi, j, fs, is, part);
+}
+
+int wave_rounds_table_launch(const TablesView* t, int g, int B, int N, int lo, int hi,
+                             const int* j, float* fs, int* is, const float* red, float* pay,
+                             double* summ, int C, long long smem, cudaStream_t stream) {
+  if (!k10_shape_ok(C, smem)) return (int)cudaErrorInvalidValue;
+  return cluster_launch(wave_rounds_table, C, 1, smem, stream, *t, g, B, N, lo, hi, j, fs, is,
+                        red, pay, summ);
 }
 
 int wave_rounds_select_launch(int N, int B, int lo, int hi, int c, int R, float* fs, int* is,
-                              const float* pay, const double* summ_all, long long* cand,
-                              cudaStream_t stream) {
-  wave_rounds_select<<<1, BLOCK_THREADS, 0, stream>>>(N, B, lo, hi, c, R, fs, is, pay,
-                                                      summ_all, cand);
-  return (int)cudaGetLastError();
+                              const float* pay, const double* summ_all, long long* cand, int C,
+                              long long smem, cudaStream_t stream) {
+  if (!k10_shape_ok(C, smem)) return (int)cudaErrorInvalidValue;
+  return cluster_launch(wave_rounds_select, C, 1, smem, stream, N, B, lo, hi, c, R, fs, is, pay,
+                        summ_all, cand);
 }
 
 int wave_rounds_merge_launch(const TablesView* t, int g, int m, int K, int B, int N, int lo,
                              int hi, int c, int R, float* fs, int* is, const float* pay,
                              const long long* rows, const int* state, void* ms, float* part,
-                             cudaStream_t stream) {
-  wave_rounds_merge<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, m, K, B, N, lo, hi, c, R, fs, is,
-                                                     pay, rows, state, (MergeState*)ms, part);
-  return (int)cudaGetLastError();
+                             int C, long long smem, cudaStream_t stream) {
+  if (!k10_shape_ok(C, smem)) return (int)cudaErrorInvalidValue;
+  return cluster_launch(wave_rounds_merge, C, 1, smem, stream, *t, g, m, K, B, N, lo, hi, c, R, fs,
+                        is, pay, rows, state, (MergeState*)ms, part);
 }
 
 int wave_rounds_finish_launch(int m, int B, int c, int R, int* j, const float* red,
                               const float* red2, const double* summ_all, const long long* rows,
-                              const void* ms, int* state, cudaStream_t stream) {
-  wave_rounds_finish<<<1, BLOCK_THREADS, 0, stream>>>(m, B, c, R, j, red, red2, summ_all, rows,
-                                                      (const MergeState*)ms, state);
-  return (int)cudaGetLastError();
+                              const void* ms, int* state, int C, long long smem,
+                              cudaStream_t stream) {
+  if (!k10_shape_ok(C, smem)) return (int)cudaErrorInvalidValue;
+  return cluster_launch(wave_rounds_finish, C, 1, 0, stream, m, B, c, R, j, red, red2, summ_all,
+                        rows, (const MergeState*)ms, state);
 }
 
 }  // extern "C"

@@ -39,7 +39,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .cluster import STATS_WORDS, choose
+from .cluster import SMEM_MAX, STATS_WORDS, choose
 from .resources import CPU_I, MEM_I
 
 
@@ -1822,6 +1822,13 @@ LMAX = 32        # min-rise levels one multi-level round may take
 AFFINITY_MAX_D1 = 1 << 21
 
 
+def _check_domains(D1: int) -> None:
+    """The affinity kernels' domain cap (ROADMAP §C10): K5, K9 and K11 key a
+    candidate by (domain, position) in 32 bits."""
+    if D1 > AFFINITY_MAX_D1:
+        raise ValueError(f"domain axis D1={D1} exceeds the kernel's {AFFINITY_MAX_D1}")
+
+
 class AffinityWaveState(NamedTuple):
     """The epoch loop's carry (the JAX `AffinityWaveState`): the only state an
     epoch changes. The plain loop keeps the scalars as Python ints."""
@@ -2703,12 +2710,15 @@ _CLUSTER_READY: set = set()
 
 
 def _cluster_init(lib) -> None:
-    """Allow the cluster kernels (K2, K4, the round probe) clusters of 16 and
-    csrc/cluster.cuh CLUSTER_SMEM_MAX bytes of shared memory on the current
+    """Allow the cluster kernels (K2 - K5, K10, K11, the round probe)
+    clusters of 16 and csrc/cluster.cuh CLUSTER_SMEM_MAX bytes of shared
+    memory (K11 its own bound, affinity_rounds_smem_max) on the current
     device, once per device."""
     dev = torch.cuda.current_device()
     if dev not in _CLUSTER_READY:
         _check(lib.cluster_kernels_init(), "cluster kernel attributes")
+        _check(lib.wave_rounds_init(), "K10 cluster kernel attributes")
+        _check(lib.affinity_rounds_init(), "K11 cluster kernel attributes")
         _CLUSTER_READY.add(dev)
 
 
@@ -2927,13 +2937,12 @@ def schedule_affinity_wave_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: 
     the card; `cry` is only read."""
     from . import build
 
-    lib = build.library()
     dev = tb.alloc.device
     N = tb.alloc.shape[0]
     if N * block >= 2 ** 31 or block < 1:
         raise ValueError(f"affinity table {N}x{block} is out of the kernel's range")
-    if cry.counter.shape[1] > AFFINITY_MAX_D1:
-        raise ValueError(f"{cry.counter.shape[1]} domains exceed the kernel's {AFFINITY_MAX_D1}")
+    _check_domains(cry.counter.shape[1])
+    lib = build.library()
     v = _view(tb, cry, n_zones, w, filters)
     shape = _cluster_shape(lib, "k5", False, False, v, 1, block)
     j = torch.empty(N, dtype=torch.int32, device=dev)
@@ -3044,19 +3053,43 @@ def schedule_wave_sharded_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: b
     return j, state[0], state[2:5]
 
 
+def _rounds_shape(lib, kernel: str, NL: int, v: TablesView):
+    """The cluster shape (ops/cluster.py `choose`) of every K10 ("k10") or
+    K11 ("k11") stage over a block of NL nodes: the shared memory of each
+    candidate C from the library (wave_rounds_smem, affinity_rounds_smem,
+    K11's bounded by affinity_rounds_smem_max) and the card's
+    cudaOccupancyMaxActiveClusters answer for it."""
+    _cluster_init(lib)
+    if kernel == "k10":
+        smem_of, occ_of = (lambda C: lib.wave_rounds_smem(C)), lib.wave_rounds_occupancy
+        smem_max = SMEM_MAX
+    else:
+        smem_of = lambda C: lib.affinity_rounds_smem(ctypes.byref(v), C)  # noqa: E731
+        occ_of, smem_max = lib.affinity_rounds_occupancy, int(lib.affinity_rounds_smem_max())
+
+    def occupancy(C: int, smem: int) -> int:
+        out = ctypes.c_int(0)
+        _check(occ_of(C, smem, ctypes.byref(out)),
+               f"{kernel} cluster occupancy query (C {C}, {smem} bytes)")
+        return out.value
+
+    return choose(NL, 1, lambda C: int(smem_of(C)), occupancy, smem_max=smem_max)
+
+
 def schedule_wave_rounds_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
                                 w: ScoreWeights = DEFAULT_WEIGHTS,
                                 filters: FilterFlags = DEFAULT_FILTERS, block: int = WAVE_BLOCK,
                                 kmax: int = 0, gpu_live: bool = False, mesh=None):
     """Launch K10 (csrc/wave_rounds.cu) on this rank of a partitioned node
     `mesh` (`tb` and `cry` the rank's block) whose per-round path applies
-    (N above the epoch limit): setup once on the block, then per round K8's
-    front and table and K10's
-    summary, select, merge and finish, with two `pmax` and two
-    `all_gather_rows` between them (parallel/collectives.py) and one read of
-    (placed, last). Every rank returns the same (per-node counts [N] i32,
-    placed as a 0-dim i32 tensor, [iterations, head_fallbacks, guarded]
-    i32), on the card; `cry` is only read."""
+    (N above the epoch limit): setup once on the block, then per round the
+    front, table, select, merge and finish, each one thread-block cluster
+    over the block (its shape from ops/cluster.py, recorded in `last_shape`),
+    with two `pmax` and two `all_gather_rows` between them
+    (parallel/collectives.py) and one read of (placed, last). Every rank
+    returns the same (per-node counts [N] i32, placed as a 0-dim i32 tensor,
+    [iterations, head_fallbacks, guarded] i32), on the card; `cry` is only
+    read."""
     from ..parallel.collectives import all_gather_rows, pmax
     from . import build
 
@@ -3073,6 +3106,9 @@ def schedule_wave_rounds_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: bo
     lo, hi, NL = sl.start, sl.stop, sl.stop - sl.start
     v = _rebased_view(tb, cry, lo, 2, w, filters, enable_gpu=gpu_live)
     vr = ctypes.byref(v)
+    fn = schedule_wave_rounds_kernel
+    shape = fn.last_shape = _rounds_shape(lib, "k10", NL, v)
+    C, smem = shape.C, shape.smem
     j = torch.empty(N, dtype=torch.int32, device=dev)
     state = torch.empty(5, dtype=torch.int32, device=dev)
     fs = torch.empty(int(lib.wave_sharded_scratch_floats(N)), dtype=_F32, device=dev)
@@ -3084,32 +3120,29 @@ def schedule_wave_rounds_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: bo
     cand = torch.empty((min(K, m, NL * block) + 1, 2), dtype=torch.int64, device=dev)
     ms = torch.empty(int(lib.wave_rounds_merge_state_bytes()) // 8, dtype=torch.int64,
                      device=dev)
-    fn = schedule_wave_rounds_kernel
     _sharded_launch(lib.wave_rounds_setup_launch, vr, int(g), int(bool(cap1)), N, lo, hi,
-                    _ptr(j), _ptr(fs), _ptr(iscr), _ptr(state))
+                    _ptr(j), _ptr(fs), _ptr(iscr), _ptr(state), C, smem)
     fn.launches += 1
     placed, last = 0, 1
     while last > 0 and placed < m:
         c = min(K, m - placed, NL * block)
-        _sharded_launch(lib.wave_sharded_front_launch, vr, int(g), int(block), N, lo, hi, _ptr(j),
-                        _ptr(fs), _ptr(iscr), _ptr(part))
+        _sharded_launch(lib.wave_rounds_front_launch, vr, int(g), N, lo, hi, _ptr(j), _ptr(fs),
+                        _ptr(iscr), _ptr(part), C, smem)
         red = pmax(part, mesh)
-        _sharded_launch(lib.wave_sharded_table_launch, vr, int(g), int(block), N, lo, hi, _ptr(j),
-                        _ptr(fs), _ptr(iscr), _ptr(red), _ptr(pay))
-        _sharded_launch(lib.wave_rounds_summary_launch, N, int(block), lo, hi, _ptr(fs),
-                        _ptr(iscr), _ptr(pay), _ptr(summ))
+        _sharded_launch(lib.wave_rounds_table_launch, vr, int(g), int(block), N, lo, hi, _ptr(j),
+                        _ptr(fs), _ptr(iscr), _ptr(red), _ptr(pay), _ptr(summ), C, smem)
         summ_all = all_gather_rows(summ, mesh)
         _sharded_launch(lib.wave_rounds_select_launch, N, int(block), lo, hi, c, R, _ptr(fs),
-                        _ptr(iscr), _ptr(pay), _ptr(summ_all), _ptr(cand))
+                        _ptr(iscr), _ptr(pay), _ptr(summ_all), _ptr(cand), C, smem)
         rows = all_gather_rows(cand[:c + 1], mesh)
         _sharded_launch(lib.wave_rounds_merge_launch, vr, int(g), int(m), int(K), int(block), N,
                         lo, hi, c, R, _ptr(fs), _ptr(iscr), _ptr(pay), _ptr(rows), _ptr(state),
-                        _ptr(ms), _ptr(part2))
+                        _ptr(ms), _ptr(part2), C, smem)
         red2 = pmax(part2, mesh)
         _sharded_launch(lib.wave_rounds_finish_launch, int(m), int(block), c, R, _ptr(j),
                         _ptr(red), _ptr(red2), _ptr(summ_all), _ptr(rows), _ptr(ms),
-                        _ptr(state))
-        fn.launches += 6
+                        _ptr(state), C, smem)
+        fn.launches += 5
         placed, last = state[:2].tolist()
         fn.host_reads += 1
     if gpu_live:
@@ -3132,13 +3165,12 @@ def schedule_affinity_wave_sharded_kernel(tb: Tables, cry: Carry, g: int, m: int
     is only read."""
     from . import build
 
-    lib = build.library()
     dev = tb.alloc.device
     N = global_nodes(tb, mesh)
     if N * block >= 2 ** 31 or block < 1:
         raise ValueError(f"affinity table {N}x{block} is out of the kernel's range")
-    if cry.counter.shape[1] > AFFINITY_MAX_D1:
-        raise ValueError(f"{cry.counter.shape[1]} domains exceed the kernel's {AFFINITY_MAX_D1}")
+    _check_domains(cry.counter.shape[1])
+    lib = build.library()
     if _epoch_shards(mesh, N) <= 1 or not _partitioned(mesh):
         raise ValueError(f"the mesh's epoch path does not apply to {N} nodes")
     sl = _block_of(mesh, N)
@@ -3171,26 +3203,27 @@ def schedule_affinity_wave_rounds_kernel(tb: Tables, cry: Carry, g: int, m: int,
                                          block: int = WAVE_BLOCK, n_zones: int = 2, mesh=None):
     """Launch K11 (csrc/affinity_rounds.cu) on this rank of a partitioned
     node `mesh` (`tb` and `cry` the rank's block) whose sharded tail
-    applies (N above the epoch limit): K9's setup once,
-    then per epoch K9's front and table and K11's flags, reduce and summary
-    on the rank's node block, with all_gather_rows #1 and #2; where
-    use_multi_pre holds, K11's select (the block) and merge (the rounds,
-    replicated) around all_gather_rows #3, and where the rounds took pods
-    K11's sandwich (the block) and pmax #4; then K11's finish. The host reads
-    use_multi_pre, the rounds' take and, after a sandwich, (placed, last):
-    one to three reads per epoch. Every rank returns the same (per-node
-    counts [N] i32, placed as a 0-dim i32 tensor, [epochs, head_fallbacks,
-    multi_rounds] i32), on the card; `cry` is only read."""
+    applies (N above the epoch limit): the setup once, then per epoch the
+    front and the table on the block with all_gather_rows #1 and #2 and the
+    reduce between them; where use_multi_pre holds, the select (the block)
+    and the merge (the rounds, replicated) around all_gather_rows #3, and
+    where the rounds took pods the sandwich (the block) and pmax #4; then
+    the finish. Every stage but the reduce and the merge is one
+    thread-block cluster over the block (its shape from ops/cluster.py,
+    recorded in `last_shape`). The host reads use_multi_pre, the rounds'
+    take and, after a sandwich, (placed, last): one to three reads per
+    epoch. Every rank returns the same (per-node counts [N] i32, placed as a
+    0-dim i32 tensor, [epochs, head_fallbacks, multi_rounds] i32), on the
+    card; `cry` is only read."""
     from ..parallel.collectives import all_gather_rows, pmax
     from . import build
 
-    lib = build.library()
     dev = tb.alloc.device
     N = global_nodes(tb, mesh)
     if N * block >= 2 ** 31 or block < 1:
         raise ValueError(f"affinity table {N}x{block} is out of the kernel's range")
-    if cry.counter.shape[1] > AFFINITY_MAX_D1:
-        raise ValueError(f"{cry.counter.shape[1]} domains exceed the kernel's {AFFINITY_MAX_D1}")
+    _check_domains(cry.counter.shape[1])
+    lib = build.library()
     if _round_shards(mesh, N) <= 1 or not _partitioned(mesh):
         raise ValueError(f"the mesh's sharded tail does not apply to {N} nodes")
     R = mesh.shards
@@ -3198,6 +3231,9 @@ def schedule_affinity_wave_rounds_kernel(tb: Tables, cry: Carry, g: int, m: int,
     lo, hi, NL = sl.start, sl.stop, sl.stop - sl.start
     v = _rebased_view(tb, cry, lo, n_zones, w, filters)
     vr = ctypes.byref(v)
+    fn = schedule_affinity_wave_rounds_kernel
+    shape = fn.last_shape = _rounds_shape(lib, "k11", NL, v)
+    C, smem = shape.C, shape.smem
     slots = v.Sd + v.A + v.B + v.Ca + v.Cw + 1  # every term slot's domain rides the rows
     j = torch.empty(N, dtype=torch.int32, device=dev)
     state = torch.zeros(int(lib.affinity_rounds_state_ints()), dtype=torch.int32, device=dev)
@@ -3205,57 +3241,51 @@ def schedule_affinity_wave_rounds_kernel(tb: Tables, cry: Carry, g: int, m: int,
                      device=dev)
     iscr = torch.empty(int(lib.affinity_sharded_scratch_ints(vr, N)), dtype=torch.int32,
                        device=dev)
+    kx = torch.empty(int(lib.affinity_rounds_compact_ints()), dtype=torch.int32, device=dev)
     p0 = int(lib.affinity_sharded_parts(vr))  # K9's stacked vector
     P1 = p0 + 4 + (v.Z if ss_live else 0)     # then the flags and the zone sums
     part = torch.empty(P1, dtype=_F32, device=dev)
     red = torch.empty(p0 + 4, dtype=_F32, device=dev)
-    pay = torch.empty((NL, int(lib.affinity_sharded_pay_floats(vr, int(block)))), dtype=_F32,
-                      device=dev)
     summ = torch.empty((1, 8 + slots), dtype=torch.float64, device=dev)
     c = min(N * block, K_EP_MAX, NL * block)
     cand = torch.empty((c + 1, 2 + slots), dtype=torch.int64, device=dev)
     part4 = torch.empty(7, dtype=_F32, device=dev)
     G, B, ss = int(g), int(block), int(bool(ss_live))
-    fn = schedule_affinity_wave_rounds_kernel
-    _sharded_launch(lib.affinity_sharded_setup_launch, vr, G, int(bool(cap1)), B, N, lo, hi,
-                    _ptr(j), _ptr(fs), _ptr(iscr), _ptr(state))
+    _sharded_launch(lib.affinity_rounds_setup_launch, vr, G, int(bool(cap1)), B, N, lo, hi,
+                    _ptr(j), _ptr(fs), _ptr(iscr), _ptr(state), C, smem)
     fn.launches += 1
     placed, last, heads = 0, 1, 0
     while last > 0 and placed < m:
-        _sharded_launch(lib.affinity_sharded_front_launch, vr, G, B, N, lo, hi, _ptr(j), _ptr(fs),
-                        _ptr(iscr), _ptr(part), _ptr(state))
-        _sharded_launch(lib.affinity_rounds_flags_launch, vr, G, B, N, lo, hi, ss, _ptr(fs),
-                        _ptr(iscr), _ptr(part), p0)
+        _sharded_launch(lib.affinity_rounds_front_launch, vr, G, B, N, lo, hi, ss, _ptr(j),
+                        _ptr(fs), _ptr(iscr), _ptr(part), _ptr(state), C, smem)
         rows1 = all_gather_rows(part[None], mesh)
         _sharded_launch(lib.affinity_rounds_reduce_launch, vr, G, B, N, ss, R, P1, _ptr(rows1),
                         _ptr(red), _ptr(fs), _ptr(iscr), _ptr(state))
-        _sharded_launch(lib.affinity_sharded_table_launch, vr, G, B, N, lo, hi, _ptr(j), _ptr(fs),
-                        _ptr(iscr), _ptr(red), _ptr(pay))
-        _sharded_launch(lib.affinity_rounds_summary_launch, vr, G, B, N, lo, hi, ss, _ptr(j),
-                        _ptr(fs), _ptr(iscr), _ptr(red), _ptr(pay), _ptr(state), _ptr(summ))
+        _sharded_launch(lib.affinity_rounds_table_launch, vr, G, B, N, lo, hi, ss, _ptr(j),
+                        _ptr(fs), _ptr(iscr), _ptr(red), _ptr(state), _ptr(summ), C, smem)
         summ_all = all_gather_rows(summ, mesh)
         multi_pre, any_start = state[7:9].tolist()
-        fn.launches += 5
+        fn.launches += 3
         fn.host_reads += 1
         red4, branch = None, "head"
         if multi_pre:
             _sharded_launch(lib.affinity_rounds_select_launch, vr, G, B, N, lo, hi, c, R,
-                            _ptr(fs), _ptr(iscr), _ptr(summ_all), _ptr(cand))
+                            _ptr(fs), _ptr(iscr), _ptr(summ_all), _ptr(cand), C, smem)
             rows3 = all_gather_rows(cand, mesh)
             _sharded_launch(lib.affinity_rounds_merge_launch, vr, G, int(m), B, N, c, R, _ptr(fs),
-                            _ptr(iscr), _ptr(rows3), _ptr(state))
+                            _ptr(iscr), _ptr(rows3), _ptr(kx), _ptr(state))
             fn.launches += 2
             fn.host_reads += 1
             branch = "select"
             if int(state[11]) > 0:
                 _sharded_launch(lib.affinity_rounds_sandwich_launch, vr, G, B, N, lo, hi, _ptr(j),
-                                _ptr(fs), _ptr(iscr), _ptr(part4))
+                                _ptr(fs), _ptr(iscr), _ptr(part4), C, smem)
                 red4 = pmax(part4, mesh)
                 fn.launches += 1
                 branch = "sandwich"
         _sharded_launch(lib.affinity_rounds_finish_launch, vr, G, int(m), ss, B, N, R, _ptr(j),
                         _ptr(fs), _ptr(iscr), _ptr(red), _ptr_or_null(red4), _ptr(summ_all),
-                        _ptr(state))
+                        _ptr(kx), _ptr(state), C, smem)
         fn.launches += 1
         mesh.tail_branches[branch] += 1
         if red4 is None:  # the head fallback, or nothing feasible
@@ -4056,14 +4086,12 @@ def schedule_affinity_wave_lanes_kernel(tb: Tables, cry_s: Carry, active_s, g: i
     stats [S, 3] i32), all on the card; `cry_s` is only read."""
     from . import build
 
-    lib = build.library()
     dev = tb.alloc.device
     N = tb.alloc.shape[0]
     if N * block >= 2 ** 31 or block < 1:
         raise ValueError(f"affinity table {N}x{block} is out of the kernel's range")
-    if cry_s.counter.shape[2] > AFFINITY_MAX_D1:
-        raise ValueError(f"{cry_s.counter.shape[2]} domains exceed the kernel's "
-                         f"{AFFINITY_MAX_D1}")
+    _check_domains(cry_s.counter.shape[2])
+    lib = build.library()
     S, active, v = _lane_view(tb, cry_s, active_s, n_zones, w, filters)
     shape = _cluster_shape(lib, "k5", True, False, v, S, block)
     j = torch.empty((S, N), dtype=torch.int32, device=dev)
@@ -4459,6 +4487,8 @@ for _f in (schedule_wave, schedule_affinity_wave, probe_wave_fanout, serve_wave_
 schedule_wave.stats = None
 schedule_affinity_wave.stats = None
 schedule_affinity_wave.last_stats = None
+# K10's and K11's: the cluster shape of the last call's stages
+schedule_wave_rounds_kernel.last_shape = schedule_affinity_wave_rounds_kernel.last_shape = None
 # launches of the kernels with their GPU-share / Open-Local branches on (a
 # part of the wrappers' own counts)
 BRANCH_LAUNCHES = dict.fromkeys(("feasibility/gpu_storage", "schedule_batch/gpu_storage",

@@ -29,6 +29,18 @@ on the first GPU wave of the extended cluster, and prints the root's
 `ptxas -v` lines (registers, stack, spills) of each kernel and, where the
 root's K2-K5 run on thread-block clusters, each launch's cluster shape, so
 that two checkouts compare kernel for kernel.
+
+With `--mesh-kernels`, it times the node mesh's per-round kernels instead:
+two ranks spawned on the card (gloo, sharing cuda:0, as chip_smoke.py's
+mesh phase runs them) time K10 on the first wave segment of the northstar
+cluster (10,000 nodes, 100,000 pods) and K11 on the affinity cluster's
+hostname and zone spreads, at the default epoch limit, stage by stage with
+CUDA events (kernels.SHARDED_STAGE_EVENTS; the two ranks' launches
+interleave on the card, so a stage's events include the other rank's time
+slices, and a stage launched after a host read or a collective also the
+launch's host latency) and with torch.profiler (each kernel's device time
+alone), per round or epoch by the host clock, and prints the root's
+`ptxas -v` lines of K8-K11.
 """
 
 from __future__ import annotations
@@ -75,6 +87,8 @@ def main() -> int:
     ap.add_argument("--repeat", type=int, default=1)
     ap.add_argument("--kernels", action="store_true",
                     help="time K2, K3, K4 and K5 and print ptxas lines")
+    ap.add_argument("--mesh-kernels", action="store_true",
+                    help="time K10 and K11 on two ranks and print K8-K11's ptxas lines")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("kinds", nargs="*", default=["hard_waves", "overflow_waves", "affinity"])
     args = ap.parse_args()
@@ -94,6 +108,8 @@ def main() -> int:
     build.library()
     if args.kernels:
         return kernel_times(synth, args.root, args.reps)
+    if args.mesh_kernels:
+        return mesh_kernel_times(args.root, args.reps)
     for kind in args.kinds:
         if kind in synth.CAPACITY_SCENARIOS:
             continue  # the search warms up on its first run
@@ -184,25 +200,41 @@ def _ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_times(synth, root: str, reps: int) -> int:
-    import torch
-
-    from open_simulator_torch.core.types import ResourceTypes
-    from open_simulator_torch.ops import build
-    from open_simulator_torch.ops import kernels as K
-    from open_simulator_torch.simulator.engine import Simulator
-
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+def _card() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
+
+
+def _ptxas_lines(entries=()) -> list:
+    """The root library's `ptxas -v` lines (each entry, its registers, stack
+    and spills), of the entries whose name holds one of `entries` (all
+    without)."""
+    from open_simulator_torch.ops import build
+
     path = build.compile_library()
     log = build.ptxas_log
     if not log:  # built by an earlier process: compile once more for the log
         os.remove(path)
         build.compile_library()
         log = build.ptxas_log
-    print(json.dumps({"root": os.path.abspath(root), "ptxas": [
-        ln.strip() for ln in log.splitlines()
-        if "Compiling entry" in ln or "registers" in ln or "spill" in ln]}), flush=True)
+    out, keep = [], not entries
+    for ln in log.splitlines():
+        if "Compiling entry" in ln:
+            keep = not entries or any(e in ln for e in entries)
+        if keep and ("Compiling entry" in ln or "registers" in ln or "spill" in ln):
+            out.append(ln.strip())
+    return out
+
+
+def kernel_times(synth, root: str, reps: int) -> int:
+    import torch
+
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.simulator.engine import Simulator
+
+    card = _card()
+    print(json.dumps({"root": os.path.abspath(root), "ptxas": _ptxas_lines()}), flush=True)
     out, shapes = {}, {}
 
     def shape_of(name, wrapper):
@@ -311,6 +343,119 @@ def kernel_times(synth, root: str, reps: int) -> int:
     shape_of("K3 schedule_wave extended gpu_live", K.schedule_wave)
     print(json.dumps({"root": os.path.abspath(root), "kernel_ms": out, "cluster_shapes": shapes,
                       "reps": reps, "card": card}), flush=True)
+    return 0
+
+
+def _mesh_case(kernel, stats_of, reps: int) -> dict:
+    """One K10 / K11 call timed `reps` times after a warm-up: the host
+    clock per round or epoch (`stats_of(result)` of them a call) and each
+    stage's CUDA-event milliseconds per round or epoch."""
+    import torch
+
+    from open_simulator_torch.ops import kernels as K
+
+    steps = stats_of(kernel())
+    K.SHARDED_STAGE_EVENTS = events = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        kernel()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    K.SHARDED_STAGE_EVENTS = None
+    stages = {k: sum(a.elapsed_time(b) for a, b in v) / (reps * steps)
+              for k, v in events.items() if "setup" not in k}
+    shape = getattr(kernel.wrapper, "last_shape", None)  # None: a single-block checkout
+    return {"steps": steps, "wall_ms": wall * 1e3 / (reps * steps),
+            "kernel_ms": sum(stages.values()), "stage_ms": stages,
+            "device_ms": _device_ms(kernel, reps * steps, reps),
+            "C": shape.C if shape is not None else 1}
+
+
+def _device_ms(kernel, steps: int, reps: int) -> dict:
+    """Each K8-K11 kernel's device time per round or epoch over `reps`
+    calls under torch.profiler (CUPTI: the kernels alone, without the gaps
+    a host-side launch leaves after the collectives and host reads, which
+    the CUDA events of the stages hold); {} where the profiler records no
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, supported_activities
+
+    if ProfilerActivity.CUDA not in supported_activities():
+        return {}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            kernel()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        name = e.key.split("(")[0].replace("void ", "")
+        if us and any(k in name for k in ("wave_rounds", "affinity_rounds", "wave_sharded",
+                                          "affinity_sharded")):
+            out[name] = out.get(name, 0.0) + us / 1e3 / steps
+    return out
+
+
+def _mesh_rank(mesh, reps: int) -> dict:
+    """K10 and K11 on this rank's block (see the module's docstring)."""
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.parallel.mesh import block_of
+    from open_simulator_torch.simulator.engine import Simulator
+
+    synth = _synth()
+    out = {}
+    nodes, pods = synth.synth_cluster(10000, 100000)
+    sim = Simulator(nodes, device="cuda", use_mesh=False)
+    bt = sim.encode_batch(pods)
+    tb, seed = sim._to_device(bt)
+    _, _, m, g, cap1, flag = next(s for s in sim._segments(bt, len(pods)) if s[0] == "wave")[:6]
+    block = K.wave_block_for(m, sim.na.N)
+    kw = dict(block=block, kmax=K.wave_kmax(m, sim.na.N, block), gpu_live=bool(flag))
+    tbl, seedl = block_of(tb, seed, mesh)
+
+    def k10():
+        return K.schedule_wave_rounds_kernel(tbl, seedl, g, m, cap1, mesh=mesh, **kw)
+
+    k10.wrapper = K.schedule_wave_rounds_kernel
+    out["K10 northstar first wave"] = _mesh_case(k10, lambda r: int(r[2][0]), reps)
+    nodes, pods, services = synth.synth_affinity_cluster(5000, 20000)
+    sim = Simulator(nodes, device="cuda", use_mesh=False)
+    sim.register_cluster_objects(ResourceTypes(services=list(services)))
+    bt = sim.encode_batch(pods)
+    tb, seed = sim._to_device(bt)
+    segs = sim._segments(bt, len(pods))
+    tbl, seedl = block_of(tb, seed, mesh)
+    for label, seg in (("hostname spread", segs[1]), ("zone spread", segs[3])):
+        _, _, m, g, cap1, ss_live = seg[:6]
+        kw11 = dict(ss_live=bool(ss_live), block=K.wave_block_for(m, sim.na.N),
+                    n_zones=bt.n_zones if ss_live else 2)
+
+        def k11(m=m, g=g, cap1=cap1, kw11=kw11):
+            return K.schedule_affinity_wave_rounds_kernel(tbl, seedl, g, m, cap1, mesh=mesh,
+                                                          **kw11)
+
+        k11.wrapper = K.schedule_affinity_wave_rounds_kernel
+        out[f"K11 affinity {label}"] = _mesh_case(k11, lambda r: int(r[2][0]), reps)
+    return {"rank": mesh.rank, "cases": out}
+
+
+def mesh_kernel_times(root: str, reps: int) -> int:
+    import tempfile
+
+    from open_simulator_torch.parallel.launch import run_ranks
+
+    card = _card()
+    print(json.dumps({"root": os.path.abspath(root), "card": card, "ptxas": _ptxas_lines(
+        ("wave_sharded", "affinity_sharded", "wave_rounds", "affinity_rounds"))}), flush=True)
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as rdzv:
+        ranks = run_ranks(_mesh_rank, 2, rdzv, args=(reps,), device="cuda", backend="gloo",
+                          timeout_s=900)
+    for r in ranks:
+        print(json.dumps({"root": os.path.abspath(root), "reps": reps, "card": card, **r}),
+              flush=True)
     return 0
 
 

@@ -1,10 +1,11 @@
-"""The launch-shape rule of the cluster kernels K2, K3, K4 and K5
+"""The launch-shape rule of the cluster kernels K2, K3, K4, K5, K10 and K11
 (open_simulator_torch/ops/cluster.py), as plain Python: the card's occupancy
 answer and the library's shared-memory size are models passed in, so nothing
 here needs a card. The tables' axes are the ones the encoder pads to, and
-tests/test_torch_cuda.py holds `smem_model` against the library's own
-schedule_batch_smem / group_serial_smem / schedule_wave_smem /
-affinity_wave_smem on the card."""
+tests/test_torch_cuda.py holds `smem_model` and `rounds_smem_model` against
+the library's own schedule_batch_smem / group_serial_smem /
+schedule_wave_smem / affinity_wave_smem / wave_rounds_smem /
+affinity_rounds_smem on the card."""
 
 import functools
 
@@ -29,6 +30,9 @@ K_EP_MAX = 2048     # K5's candidate keys
 CTX_BYTES = 9552    # K5's term slots (affinity.cuh Ctx, padded to 16 bytes)
 K5_KEYS = 23        # K5's round 1 keys
 K5_LIVE_ROWS = 8    # K5's live rows [Sd + A + B + Ca + Cw + 1] of a typical batch
+# K11's bound (csrc/affinity_rounds.cu K11_SMEM_MAX): its CTAs hold the term
+# slots in static shared memory too
+K11_SMEM_MAX = cluster.SMEM_MAX - 8_192
 
 
 def wave_smem_model(kernel: str, N: int, C: int, Z: int, D1: int) -> int:
@@ -47,6 +51,18 @@ def wave_smem_model(kernel: str, N: int, C: int, Z: int, D1: int) -> int:
     rows_on = fixed + rows <= cluster.SMEM_MAX
     live_on = rows_on and fixed + rows + live <= cluster.SMEM_MAX
     return fixed + (rows if rows_on else 0) + (live if live_on else 0)
+
+
+def rounds_smem_model(kernel: str, C: int, Cw: int = 0, Z: int = 2) -> int:
+    """A CTA's dynamic shared memory in K10's and K11's stages: the round
+    slots [2][C][W], W a radix histogram's words (and for K11 at least the
+    front's row: the stacked vector of 18 + 2 Cw maxima, four flags and the
+    Z zone sums), then K11's row partials [W]. Nothing grows with the
+    block's nodes or the table's depth."""
+    if kernel == "k10":
+        return 4 * 2 * C * RX_WORDS
+    W = max(RX_WORDS, 18 + 2 * Cw + 4 + Z)
+    return 4 * (2 * C * W + W)
 
 
 def smem_model(kernel: str, N: int, C: int, Ss: int, Z: int, D1: int) -> int:
@@ -170,3 +186,51 @@ def test_oversized_shape_raises():
 
     with pytest.raises(ValueError, match="no cluster shape fits"):
         cluster.choose(5_120, 1, lambda C: cluster.SMEM_MAX + 4, occ)
+
+
+# K10's and K11's blocks: a rank's NL nodes (bench.py's mesh8_1m on 2 ranks
+# is 50,176; mesh8_10m's is about 500,000 on 2 ranks)
+ROUND_NLS = (1_024, 2_560, 5_120, 50_176, 500_000)
+
+
+@pytest.mark.parametrize("model", sorted(MODELS))
+@pytest.mark.parametrize("kernel", ["k10", "k11"])
+@pytest.mark.parametrize("B", [8, 16, 64])
+@pytest.mark.parametrize("R", [2, 4])
+@pytest.mark.parametrize("NL", ROUND_NLS)
+def test_round_stage_shape(NL, R, B, kernel, model):
+    """Every stage of K10 / K11 over a rank's block takes the rule's shape:
+    one cluster, the candidate with the fewest nodes a thread (ties to the
+    smaller C), never refused (no N, NL, B or D+1 is), more than one CTA at
+    every block of 1,024 nodes or more, and the same shape at every table
+    depth B and rank count R (the stages' shared memory holds no table)."""
+    _, Z, _ = encoder_axes()
+    smem_of = lambda C: rounds_smem_model(kernel, C, Cw=2, Z=Z)  # noqa: E731
+    smem_max = cluster.SMEM_MAX if kernel == "k10" else K11_SMEM_MAX
+    occ = _occupancy(model)
+    assert all(smem_of(C) <= smem_max for C in cluster.SIZES)
+    shape = cluster.choose(NL, 1, smem_of, occ, smem_max=smem_max)
+    fits = [C for C in cluster.SIZES if occ(C, smem_of(C))]
+    best = min(cluster.nodes_per_thread(NL, c) for c in fits)
+    assert shape.nodes_per_thread == best
+    assert shape.C == min(c for c in fits if cluster.nodes_per_thread(NL, c) == best)
+    assert shape.smem == smem_of(shape.C) and shape.resident and shape.C > 1
+    assert shape.chunk == -(-NL // shape.C)
+    if NL >= 8_192:  # mesh8_1m's and mesh8_10m's blocks: the largest cluster the card holds
+        assert shape.C == (16 if model == "gpc_18_16" else 8)
+    if NL == 1_024:
+        assert shape.C == 2 and shape.nodes_per_thread == 1
+    assert shape == cluster.choose(NL * R // R, 1, smem_of, occ, smem_max=smem_max)
+
+
+@pytest.mark.parametrize("kernel", ["k10", "k11"])
+def test_round_stage_smem_grows_with_the_rounds_only(kernel):
+    """K11's slot widens with the zone axis only past a histogram's words
+    (a smaller cluster still fits at 2,000 zones); K10's is a histogram's."""
+    assert rounds_smem_model(kernel, 16) == (32_768 if kernel == "k10" else 33_792)
+    if kernel == "k11":
+        assert rounds_smem_model("k11", 16, Cw=64, Z=200) > rounds_smem_model("k11", 16)
+        smem_of = lambda C: rounds_smem_model("k11", C, Cw=64, Z=2_000)  # noqa: E731
+        shape = cluster.choose(50_176, 1, smem_of, _occupancy("gpc_18_16"),
+                               smem_max=K11_SMEM_MAX)
+        assert shape.C == 8 and smem_of(16) > K11_SMEM_MAX

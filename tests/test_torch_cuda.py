@@ -640,6 +640,54 @@ def test_tail_kernel_matches_plain_tail_on_two_ranks(tmp_path):
 
 
 @pytest.mark.cuda
+def test_round_stage_smem_models_hold():
+    """The library's K10 / K11 stage shared memory (wave_rounds_smem,
+    affinity_rounds_smem and K11's bound) is tests/test_torch_cluster_shape.py
+    `rounds_smem_model` at every cluster size, on the view of a batch whose
+    zone axis and carriers are the encoder's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import ctypes
+
+    import test_torch_cluster_shape as CS
+    from open_simulator_torch.ops import build, cluster
+
+    lib = build.library()
+    nodes, pods = synth_cluster(64, 256, hard_predicates=True)
+    sim = Simulator(nodes, device="cuda")
+    bt = sim.encode_batch(pods)
+    tb, seed = sim._to_device(bt)
+    v = K._view(tb, seed, bt.n_zones, K.DEFAULT_WEIGHTS, K.DEFAULT_FILTERS)
+    assert lib.affinity_rounds_smem_max() == CS.K11_SMEM_MAX
+    for C in cluster.SIZES:
+        assert lib.wave_rounds_smem(C) == CS.rounds_smem_model("k10", C)
+        assert lib.affinity_rounds_smem(ctypes.byref(v), C) == CS.rounds_smem_model(
+            "k11", C, Cw=v.Cw, Z=v.Z)
+
+
+@pytest.mark.cuda
+def test_round_and_tail_kernels_on_every_cluster_size(tmp_path):
+    """K10 and K11 on two ranks that share cuda:0 over gloo, at blocks whose
+    stages take clusters of 2, 4, 8 and 16 CTAs (tests/torch_mesh_cases.py
+    `card_cluster_sizes`), against their plain versions on the same ranks
+    and the unsharded K3 / K5, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import torch_mesh_cases as C
+    from open_simulator_torch.ops import build
+    from open_simulator_torch.parallel.launch import run_ranks
+
+    build.library()  # build once, before the ranks load it
+    got = run_ranks(C.card_cluster_sizes, 2, str(tmp_path), device="cuda", backend="gloo")
+    assert got[0] == got[1]
+    for r in got[0]:
+        assert r["C"] == r["want_C"], r
+        assert r["same_plain"] and r["same_unsharded"] and r.get("same_branches", True), r
+    assert {r["C"] for r in got[0] if r["kernel"] == "K10"} == {2, 4, 8, 16}
+    assert {r["C"] for r in got[0] if r["kernel"] == "K11"} == {2, 4, 8, 16}
+
+
+@pytest.mark.cuda
 def test_partitioned_scan_kernel_matches_plain_on_two_ranks(tmp_path):
     """K12 on two ranks that share cuda:0 over gloo, each holding its block
     of the node axis, against the plain sharded scan on the same ranks and

@@ -488,6 +488,90 @@ def card_round_kernels(mesh, limit: int = 16) -> list:
     return out
 
 
+# the blocks of K10's and K11's card cases over every cluster size: NL nodes
+# a rank and the C that ops/cluster.py `choose` gives them (one node a thread)
+ROUND_BLOCKS = ((1_024, 2), (2_048, 4), (4_096, 8), (8_192, 16))
+
+
+def card_cluster_sizes(mesh) -> list:
+    """On the card, at blocks that take every cluster size (ROUND_BLOCKS,
+    above the epoch limit): K10 on the two largest wave segments of
+    synth_cluster's hard shape and K11 on every affinity segment of
+    `tail_workload`, each against its plain version on the same ranks and
+    the unsharded K3 / K5, with the shape of its stages. One record per
+    segment."""
+    out = []
+    with epoch_limit(16):
+        for NL, C in ROUND_BLOCKS:
+            out += _cluster_size_cases(mesh, NL, C)
+    return out
+
+
+def _cluster_size_cases(mesh, NL: int, C: int) -> list:
+    """`card_cluster_sizes` at one block size."""
+    import torch
+
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.simulator.engine import Simulator
+    from open_simulator_torch.utils.synth import synth_cluster
+
+    out = []
+    N = NL * mesh.shards
+    nodes, pods = synth_cluster(N, 2 * N, hard_predicates=True)
+    sim = Simulator(nodes, device="cuda", use_mesh=False)
+    bt = sim.encode_batch(pods)
+    tb, cry = sim._to_device(bt)
+    assert tb.alloc.shape[0] == N
+    waves = sorted((s for s in sim._segments(bt, len(pods)) if s[0] == "wave"),
+                   key=lambda s: s[2])[-2:]  # the two largest
+    for seg in waves:
+        _, _, m, g, cap1, gpu_live = seg[:6]
+        block = K.wave_block_for(m, N)
+        kw = dict(block=block, kmax=K.wave_kmax(m, N, block), gpu_live=bool(gpu_live))
+        tbl, cryl = on_mesh(tb, cry, mesh)
+        kj, kp, kst = K.schedule_wave_rounds_kernel(tbl, cryl, g, m, cap1, mesh=mesh, **kw)
+        shape = K.schedule_wave_rounds_kernel.last_shape
+        pj, pp, pst = K.schedule_wave_plain(tbl, cryl, g, m, cap1, mesh=mesh, **kw)
+        uj, up, ust = K.schedule_wave_kernel(tb, cry, g, m, cap1, **kw)
+        out.append({"kernel": "K10", "NL": NL, "C": shape.C, "want_C": C, "m": m,
+                    "stats": kst.tolist(),
+                    "same_plain": bool(torch.equal(kj, pj)) and int(kp) == pp
+                    and kst.tolist() == [pst[k] for k in K.WAVE_STATS],
+                    "same_unsharded": bool(torch.equal(kj, uj)) and int(kp) == int(up)
+                    and kst.tolist() == ust.tolist()})
+    nodes, pods, services = tail_workload(n_nodes=N)
+    sim = Simulator(nodes, device="cuda", use_mesh=False)
+    sim.register_cluster_objects(ResourceTypes(services=list(services)))
+    bt = sim.encode_batch(pods)
+    tb, cry = sim._to_device(bt)
+    for seg in sim._segments(bt, len(pods)):
+        if seg[0] != "affinity":
+            continue
+        _, _, m, g, cap1, ss_live = seg[:6]
+        kw = dict(ss_live=bool(ss_live), block=K.wave_block_for(m, N),
+                  n_zones=bt.n_zones if ss_live else 2)
+        tbl, cryl = on_mesh(tb, cry, mesh)
+        mesh.reset_counts()
+        kj, kp, kst = K.schedule_affinity_wave_rounds_kernel(tbl, cryl, g, m, bool(cap1),
+                                                             mesh=mesh, **kw)
+        shape = K.schedule_affinity_wave_rounds_kernel.last_shape
+        branches = tail_verdicts(mesh.tail_branches)
+        mesh.reset_counts()
+        pj, pp, pst = K.schedule_affinity_wave_plain(tbl, cryl, g, m, bool(cap1), mesh=mesh,
+                                                     **kw)
+        uj, up, ust = K.schedule_affinity_wave_kernel(tb, cry, g, m, bool(cap1), **kw)
+        out.append({"kernel": "K11", "NL": NL, "C": shape.C, "want_C": C, "m": m,
+                    "stats": kst.tolist(), "branches": branches,
+                    "same_branches": branches == tail_verdicts(mesh.tail_branches),
+                    "same_plain": bool(torch.equal(kj, pj)) and int(kp) == pp
+                    and kst.tolist() == [pst[k] for k in K.AFFINITY_STATS],
+                    "same_unsharded": bool(torch.equal(kj, uj)) and int(kp) == int(up)
+                    and kst.tolist() == ust.tolist()})
+        cry = K.aggregate_commit(tb, cry, g, uj)
+    return out
+
+
 def overcommit_nodes():
     """tests/test_torch_affinity.py `anti_unlabeled_overcommit`: six zoned
     nodes and the unlabeled node u0 with two pod slots."""
