@@ -1947,7 +1947,11 @@ def mesh_kernel_case(mesh, label: str, kind: str, nodes, pods, services, scs, pi
     bound, by = bound_of(b, ops)
     coll = {k: {"calls": v["calls"] // reps, "bytes": v["bytes"] // reps}
             for k, v in mesh.counts.items()}
+    shape = {}  # K9's cluster shapes (C of its block stages and of its tail)
+    if kind == "affinity":
+        shape = {k: v.C for k, v in K.schedule_affinity_wave_sharded_kernel.last_shape.items()}
     return dict(label=label, nodes=int(tb.alloc.shape[0]), pods=m, block=block, placed=pp,
+                cluster_C=shape,
                 epochs=epochs, stats=pst, kernel_ms_per_epoch=ms, stage_ms_per_epoch=per_epoch,
                 setup_ms=setup, wall_ms_per_epoch=wall_ms, plain_ms_per_epoch=plain_ms / epochs,
                 bound_ms=bound, bound_by=by, bytes=b, f32_ops=ops, collectives=coll,
@@ -2956,6 +2960,7 @@ def partitioned_kernel_case(mesh, label: str) -> dict:
     bound, by = bound_of(b, ops)
     return dict(label=label, nodes=int(tb.alloc.shape[0]), block_nodes=int(tbl.alloc.shape[0]),
                 pods=P, placed=int((kch >= 0).sum()), sa_pods=sa_pods,
+                cluster_C=K.schedule_batch_sharded_kernel.last_shape.C,
                 ms_per_pod=sum(stages.values()), stage_ms_per_pod=stages,
                 wall_ms_per_pod=wall_ms / P, plain_ms_per_pod=plain_ms / P,
                 k2_ms_per_pod=k2_ms / P, bound_ms_per_pod=bound / P, bound_by=by, bytes=b,

@@ -205,10 +205,19 @@ def _load(path: str) -> ctypes.CDLL:
     lib.affinity_sharded_parts.restype = I
     lib.affinity_sharded_pay_floats.argtypes = [V, I]
     lib.affinity_sharded_pay_floats.restype = I
-    lib.affinity_sharded_setup_launch.argtypes = [V] + [I] * 6 + [P] * 5
-    lib.affinity_sharded_front_launch.argtypes = [V] + [I] * 5 + [P] * 6
-    lib.affinity_sharded_table_launch.argtypes = [V] + [I] * 5 + [P] * 6
-    lib.affinity_sharded_tail_launch.argtypes = [V] + [I] * 5 + [P] * 7
+    # K9's stages on thread-block clusters, each with its shape (C, smem)
+    lib.affinity_sharded_setup_launch.argtypes = [V] + [I] * 6 + [P] * 4 + [I, L, P]
+    lib.affinity_sharded_front_launch.argtypes = [V] + [I] * 5 + [P] * 5 + [I, L, P]
+    lib.affinity_sharded_table_launch.argtypes = [V] + [I] * 5 + [P] * 5 + [I, L, P]
+    lib.affinity_sharded_tail_launch.argtypes = [V] + [I] * 5 + [P] * 7 + [I, L, P]
+    for name, args, res in (("affinity_sharded_smem", [V, I], L),
+                            ("affinity_sharded_tail_smem", [V, I], L),
+                            ("affinity_sharded_smem_max", [], L),
+                            ("affinity_sharded_cta_ints", [V, I], L),
+                            ("affinity_sharded_init", [], I),
+                            ("affinity_sharded_occupancy", [I, I, L, P], I)):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = res
     for stage in ("setup", "front", "table", "tail"):
         getattr(lib, f"wave_sharded_{stage}_launch").restype = I
         getattr(lib, f"affinity_sharded_{stage}_launch").restype = I
@@ -254,17 +263,23 @@ def _load(path: str) -> ctypes.CDLL:
                              I)):
         getattr(lib, name).argtypes = args
         getattr(lib, name).restype = res
-    # K12, the serial scan on a partitioned node mesh: front, sa, score, commit
-    lib.batch_sharded_scratch_floats.argtypes = [V]
-    lib.batch_sharded_scratch_floats.restype = L
-    lib.batch_sharded_part_floats.argtypes = [V, I]
-    lib.batch_sharded_part_floats.restype = I
-    lib.batch_sharded_front_launch.argtypes = [V] + [I] * 6 + [P, I, I] + [P] * 4
-    lib.batch_sharded_sa_launch.argtypes = [V, I, I, P, I, P, P, P]
-    lib.batch_sharded_score_launch.argtypes = [V] + [I] * 3 + [P, I] + [P] * 4 + [L, P]
-    lib.batch_sharded_commit_launch.argtypes = [V] + [I] * 4 + [P] * 3
-    for stage in ("front", "sa", "score", "commit"):
-        getattr(lib, f"batch_sharded_{stage}_launch").restype = I
+    # K12, the serial scan on a partitioned node mesh: front, sa, score,
+    # commit, each one thread-block cluster with its shape (C, smem)
+    for name, args, res in (("batch_sharded_scratch_floats", [V], L),
+                            ("batch_sharded_part_floats", [V, I], I),
+                            ("batch_sharded_smem", [V, I], L),
+                            ("batch_sharded_smem_max", [], L),
+                            ("batch_sharded_init", [], I),
+                            ("batch_sharded_occupancy", [I, L, P], I),
+                            ("batch_sharded_front_launch",
+                             [V] + [I] * 6 + [P, I, I] + [P] * 3 + [I, L, P], I),
+                            ("batch_sharded_sa_launch", [V, I, I, P, I, P, P, I, L, P], I),
+                            ("batch_sharded_score_launch",
+                             [V] + [I] * 3 + [P, I] + [P] * 4 + [L, I, L, P], I),
+                            ("batch_sharded_commit_launch", [V] + [I] * 4 + [P] * 2 + [I, L, P],
+                             I)):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = res
     # K13, the group-serial scan on a partitioned node mesh: setup, then per
     # pod front, sa, score, and the finish
     for name, args, res in (("gs_sharded_scratch_floats", [V], L),

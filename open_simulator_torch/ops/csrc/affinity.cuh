@@ -1,7 +1,8 @@
 // Device code shared by the affinity kernels (affinity_wave.cu: K5 and its
 // lanes; affinity_sharded.cu: K9; affinity_rounds.cu: K11): the term slots
 // of one group, their live flags and increments, the round budget, the
-// block-wide sorts and scans of the candidate order, and K9's epoch tail.
+// block-wide sorts and scans of the candidate order, the rounds, the
+// sandwich's lower set and the fold.
 
 #pragma once
 
@@ -209,7 +210,7 @@ static __device__ __forceinline__ void affinity_slots(const TablesView& t, int g
 
 // The working arrays of one group's epochs in global scratch (K5 and K9
 // lay them out apart; `avail` is K9's gathered, clamped copies left, null in
-// K5) and the epoch tail's shared memory (each kernel declares its own).
+// K5) and the rounds' shared memory (each kernel declares its own).
 struct AffScratch {
   float *table, *ip_pref, *simon_s, *stat, *ip_raw, *pn0, *rows, *cl, *taken, *bound, *zone_sums;
   int *feas, *cap, *dom_live, *u, *flags, *counts, *avail, *edom_live, *first_pos, *consumed,
@@ -225,8 +226,8 @@ struct AffDims {
 
 struct AffShared {
   float* red;
-  int *ints, *occ, *hist, *prise, *prov, *lhist, *rem, *cnt, *L, *PL;
-  u64 *key, *prefix;
+  int *ints, *occ, *prise, *prov, *lhist, *L, *PL;
+  u64* key;
 };
 
 // What the sandwich reads of node n: the copies it has left, from the
@@ -241,9 +242,8 @@ struct AvailGathered {
   __device__ __forceinline__ int avail(int n) const { return avail_s[n]; }
 };
 
-// A position's budget domain in the rounds: its node's dom_live (K5 and K9,
-// whose candidates come from the full-width table) or the domain the entry
-// carried through the gather (K11's merged list).
+// A position's budget domain in the rounds: its node's dom_live (K5, whose
+// candidates come from its full-width table).
 struct DomLive {
   const int* dom_live;
   __device__ __forceinline__ int operator()(int, int node) const { return dom_live[node]; }
@@ -475,19 +475,19 @@ affinity_lower_set(const TablesView& t, const AffScratch& e, const Avail& av, co
   block_reduce<7>(w7, op7, s_red);
 }
 
-// Fold the epoch's takes into j and every live row (the sentinel column
-// never counts, as in commit()): each node's counts when use_multi, else
-// one pod on `head` (none where head < 0); then clear the zone sums. A
-// slot's domain at node n is the table's, or (GATHERED: the sharded paths,
-// whose view holds only the rank's block) fdom[(off[k] + s) * N + n],
-// gathered for every node the epoch may take. Block-uniform.
-template <bool GATHERED = false>
-static __device__ __forceinline__ void affinity_fold(const TablesView& t, const Ctx& c,
-                                                     const AffScratch& e, const AffDims& dm,
-                                                     bool use_multi, int head, int* j,
-                                                     const int* fdom = nullptr) {
-  const int D1 = dm.D1, D = dm.D;
-  for (int n = threadIdx.x; n < dm.N; n += blockDim.x) {
+// Fold the epoch's takes on the nodes [lo, hi) into j and every live row
+// (the sentinel column never counts, as in commit()): each node's counts
+// when use_multi, else one pod on `head` (none where head < 0). A slot's
+// domain at node n is dom_of(n, r), r the slot's live row (K9's tail reads
+// it from the gathered payload, since its view holds only the rank's
+// block). The row updates are atomics of integer-valued counts: exact in
+// any order, so the CTAs of a cluster may fold their slices at once.
+template <class DomOf>
+static __device__ __forceinline__ void affinity_fold(const Ctx& c, const AffScratch& e, int D1,
+                                                     int lo, int hi, bool use_multi, int head,
+                                                     int* j, const DomOf& dom_of) {
+  const int D = D1 - 1;
+  for (int n = lo + threadIdx.x; n < hi; n += blockDim.x) {
     const int cn = use_multi ? e.counts[n] : (n == head ? 1 : 0);
     if (cn == 0) continue;
     j[n] += cn;
@@ -495,116 +495,9 @@ static __device__ __forceinline__ void affinity_fold(const TablesView& t, const 
       for (int s = 0; s < c.n[k]; ++s) {
         const Slot& x = c.slot[k][s];
         if (x.inc == 0.0f) continue;
-        const int dom = GATHERED ? fdom[(size_t)(c.off[k] + s) * dm.N + n]
-                                 : slot_dom(t, k, x.id, n);
+        const int dom = dom_of(n, c.off[k] + s);
         if (dom < D) atomicAdd(&e.rows[(size_t)(c.off[k] + s) * D1 + dom], (float)cn * x.inc);
       }
     }
   }
-  for (int z = threadIdx.x; z < dm.Z; z += blockDim.x) e.zone_sums[z] = 0.0f;
-  __syncthreads();
-}
-
-// K9's epoch tail (affinity_sharded.cu; K5 runs the same steps on a
-// cluster, affinity_wave.cu), on the full-width table (row n at table + n * (B+1))
-// with each F_hi node's usable prefix and first hidden entry (bound; this
-// thread's best in (b1, i1)) already in place: the two-largest-bound cut,
-// the top K_EP candidates in lax.top_k order, the rounds, the normalizer
-// sandwich, the head fallback, and the fold of the takes into j and the live
-// rows, for the m - placed pods left. `v` is the epoch's normalizer vector
-// in K5's order. Adds the head
-// fallbacks to `heads` and the accepted rounds to `rounds_total`; returns
-// the number of pods taken. GATHERED, fdom: the fold's (affinity_fold).
-// Block-uniform.
-template <class Avail, bool GATHERED = false>
-static __device__ __forceinline__ int
-affinity_epoch_tail(const TablesView& t, const Ctx& c, const AffScratch& e, const AffShared& sh,
-                    const Avail& av, const AffDims& dm, int m, int placed, int ss_live,
-                    bool use_multi_pre, bool uniform_base, bool any_start, bool has_budget,
-                    bool dns_live, float inc_live, const float* v, float b1, int i1, int* j,
-                    int& heads, int& rounds_total, const int* fdom = nullptr) {
-  const int N = dm.N, tid = threadIdx.x, bd = blockDim.x;
-  const int B = dm.B, B1 = dm.B1, K_EP = dm.K_EP;
-  float* table = e.table;
-  float* bound_s = e.bound;
-  const int* dom_live = e.dom_live;
-  const int* flags = e.flags;
-  int* u_s = e.u;
-  float* s_red = sh.red;
-  int* s_int = sh.ints;
-  u64* s_key = sh.key;
-  int* hist = sh.hist;
-  u64& s_prefix = *sh.prefix;
-  int& s_rem = *sh.rem;
-  int& s_cnt = *sh.cnt;
-
-  if (tid < 1) s_cnt = 0;
-  int got = 0, rounds = 0;
-  if (use_multi_pre) {
-    // ---- the two-largest-bound cut: an entry is usable only if its key
-    // beats every OTHER node's first hidden entry
-    block_argmax(&b1, &i1, s_red, s_int);
-    float b2 = -INFINITY;
-    int i2 = 0x7fffffff;
-    for (int n = tid; n < N; n += bd) argmax_update(n == i1 ? -INFINITY : bound_s[n], n, &b2, &i2);
-    block_argmax(&b2, &i2, s_red, s_int);
-    int U = 0;
-    for (int n = tid; n < N; n += bd) {
-      const float cut_s = n == i1 ? b2 : b1;
-      const int cut_i = n == i1 ? i2 : i1;
-      const float* row = table + (size_t)n * B1;
-      const int u0 = u_s[n];
-      int uu = 0;
-      while (uu < u0 && (row[uu] > cut_s || (row[uu] == cut_s && n < cut_i))) ++uu;
-      u_s[n] = uu;
-      U += uu;
-    }
-    U = block_sum_int(U, s_int);
-
-    // ---- the top K_EP usable entries in lax.top_k order
-    const int n_cand = min(U, K_EP);
-    const u64 T = U > K_EP ? select_key(table, B1, u_s, N, B, K_EP, hist, &s_prefix, &s_rem) : 0;
-    for (int n = tid; n < N; n += bd) {
-      const float* row = table + (size_t)n * B1;
-      const int cn = T ? count_at_least(row, n, u_s[n], B, T) : u_s[n];
-      if (cn == 0) continue;
-      const int base = atomicAdd(&s_cnt, cn);
-      for (int k = 0; k < cn; ++k) s_key[base + k] = entry_key(row[k], n, k, B);
-    }
-    int L = 2;
-    while (L < n_cand) L <<= 1;
-    __syncthreads();
-    for (int i = n_cand + tid; i < L; i += bd) s_key[i] = 0ull;
-    bitonic_sort<u64, true>(s_key, L);
-
-    got = affinity_rounds(c, e, sh, dm, m - placed, n_cand, L, has_budget, dns_live, inc_live,
-                          DomLive{dom_live}, rounds);
-  }
-
-  // ---- the normalizer sandwich: S_lo <= every F_t <= F_hi
-  bool use_multi = false;
-  if (use_multi_pre && got > 0) {
-    float w7[7];
-    affinity_lower_set(t, e, av, dm, 0, N, has_budget, w7, s_red);
-    bool lo_ok = uniform_base || (v[7] == w7[0] && v[8] == w7[1] && v[9] == w7[2]
-                                  && v[10] == w7[3] && v[12] == w7[5] && v[13] == w7[6]);
-    if (ss_live) lo_ok = lo_ok && v[11] == w7[4];
-    use_multi = lo_ok;
-  }
-
-  // ---- the head fallback: serial's single next pick is always exact
-  int head = -1;
-  if (!use_multi && any_start) {
-    float hv = -INFINITY;
-    int hi = 0x7fffffff;
-    for (int n = tid; n < N; n += bd)
-      argmax_update((flags[n] & AF_START) ? table[(size_t)n * B1] : -INFINITY, n, &hv, &hi);
-    block_argmax(&hv, &hi, s_red, s_int);
-    head = hi;
-  }
-  const int m_take = use_multi ? got : (head >= 0 ? 1 : 0);
-  affinity_fold<GATHERED>(t, c, e, dm, use_multi, head, j, fdom);
-  heads += head >= 0;
-  rounds_total += use_multi ? rounds : 0;
-  return m_take;
 }

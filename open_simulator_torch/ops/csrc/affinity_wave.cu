@@ -322,8 +322,7 @@ schedule_affinity_wave_body(const TablesView& t_in, int s, int g, int m, int cap
                                nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                                dom_live, nullptr, flags_s - lo, counts, nullptr, nullptr,
                                nullptr, nullptr, everb};
-  const AffShared sh = {s_red, s_int, s_occ, nullptr, s_prise, s_prov, s_lhist, nullptr, nullptr,
-                        &s_L, &s_PL, s_key, nullptr};
+  const AffShared sh = {s_red, s_int, s_occ, s_prise, s_prov, s_lhist, &s_L, &s_PL, s_key};
   const AffDims dm = {N, D1, D, B, B1, Z, K_EP, INF_P, gN};
 
   int placed = 0, last = 1, epochs = 0, heads = 0, rounds_total = 0;

@@ -1,5 +1,7 @@
-// The block tops and their merge, shared by the per-round sharded paths
-// (K10 wave_rounds.cu, K11 affinity_rounds.cu): each rank of a node mesh
+// The cluster stages of the sharded paths (K9 affinity_sharded.cu, K10
+// wave_rounds.cu, K11 affinity_rounds.cu, K12 batch_sharded.cu): their
+// static shared memory, a row of maxima and counts as one round, and the
+// block tops and their merge of the per-round paths (K10, K11): each rank of a node mesh
 // selects its block's best entries on a thread-block cluster
 // (cluster_block_top) and gathers every rank's rows of (64-bit key of
 // select.cuh, payload), R blocks of c + 1 rows whose first c hold the
@@ -170,6 +172,24 @@ static __device__ int cluster_offset(Cluster& cx, int x, int* fin) {
   }
   __syncthreads();
   return fin[0];
+}
+
+// One round of a row of nw words from every CTA's `acc` (this CTA's
+// shared memory, written before the call, then a CTA barrier): the first
+// nmax words reduced by a signed maximum (floats as okey, flags as 0 / 1),
+// the rest by an integer sum in rank order (counts: exact). Every CTA gets
+// the cluster's row in fin[0, nw) (nw <= cx.W). Ends with a CTA barrier.
+static __device__ void cluster_row_round(Cluster& cx, const int* acc, int nmax, int nw, int* fin) {
+  round_arm(cx, nw);
+  for (int k = threadIdx.x >> 5; k < nw; k += CLUSTER_WARPS) round_put(cx, k, acc[k]);
+  const int W = cx.W;
+  const int* src = round_wait(cx);
+  for (int k = threadIdx.x; k < nw; k += CLUSTER_THREADS) {
+    int x = src[k];
+    for (int q = 1; q < cx.C; ++q) x = k < nmax ? max(x, src[q * W + k]) : x + src[q * W + k];
+    fin[k] = x;
+  }
+  __syncthreads();
 }
 
 // The static shared memory of a CTA of a K10 / K11 cluster stage (the

@@ -12,9 +12,10 @@
 //     round a byte, each CTA pushing its 256-bin histogram; it starts at the
 //     first byte where the smallest and largest keys differ and stops early
 //     once the remaining rank is the last entry of its bin.
-// K8 and K9 keep the one-block selection of select.cuh and wave.cuh; K10
-// and K11 select their block tops with cluster_select_key, and K10 merges
-// the gathered keys with it (merge.cuh GatheredKeys).
+// K8 keeps the one-block selection of select.cuh and wave.cuh; K9's tail
+// selects over the mesh's gathered rows with cluster_select_key, K10 and
+// K11 their block tops, and K10 merges the gathered keys with it (merge.cuh
+// GatheredKeys).
 
 #pragma once
 

@@ -1943,6 +1943,38 @@ def _affinity_round(rs: dict, ep: dict) -> dict:
             "full": rs["full"] + int(use_full and n_take > 0)}
 
 
+def _zone_sums(pernode0, F, zn, Z: int) -> torch.Tensor:
+    """The [Z] sums of the SelectorSpread counts over F by zone
+    (integer-valued: exact in any order)."""
+    return torch.zeros(Z, dtype=_F32, device=pernode0.device).index_add_(
+        0, zn, torch.where(F, pernode0, 0.0))
+
+
+def _affinity_usable_bound(table_ext, avail, k_cap, F_hi, B: int):
+    """The candidates of n nodes' [n, B+1] rows: capacity, depth cap and
+    the monotone prefix over F_hi (the usable-entry mask [n, B]), and each
+    node's first hidden entry `bound` (-inf where none)."""
+    n, dev = table_ext.shape[0], table_ext.device
+    table = table_ext[:, :B]
+    ks = torch.arange(B, dtype=torch.int32, device=dev)[None, :]
+    in_cap = ks < torch.minimum(avail, k_cap)[:, None]
+    step_ok = torch.cat([torch.ones((n, 1), dtype=torch.int32, device=dev),
+                         (table[:, 1:] <= table[:, :-1]).to(torch.int32)], dim=1)
+    mono = torch.cumprod(step_ok, dim=1) > 0
+    usable = in_cap & mono & F_hi[:, None]
+    first_bad = torch.amin(torch.where(mono, B, ks), dim=1)
+    k_hid = torch.minimum(torch.clamp(first_bad, max=B), k_cap)
+    has_hidden = (k_hid < avail) & F_hi
+    bound = torch.where(has_hidden, torch.gather(table_ext, 1, k_hid.long()[:, None])[:, 0],
+                        float("-inf"))
+    return usable, bound
+
+
+def _first_head(vals, F) -> int:
+    """Serial's single next pick: the first maximum of vals over F."""
+    return int(torch.argmax(torch.where(F, vals, float("-inf"))))
+
+
 @torch.inference_mode()
 def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
                                  ss_live: bool = False, w: ScoreWeights = DEFAULT_WEIGHTS,
@@ -2114,12 +2146,6 @@ def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: b
         max_stack, min_stack = norm_stacks(nd, ip_raw, pernode0)
         return avail, F_start, F_hi, bootstrap, ip_raw, pernode0, max_stack, min_stack
 
-    def zone_sums_of(pernode0, F_start, zn):
-        """The [Z] sums of the SelectorSpread counts over F_start by zone
-        (integer-valued: exact in any order)."""
-        nz_count = torch.where(F_start, pernode0, 0.0)
-        return torch.zeros(Z, dtype=_F32, device=dev).index_add_(0, zn, nz_count)
-
     def apply_zone(table_ext, maxes_s, pernode0, zn, zone_sums, have_zones):
         """The live SelectorSpread blend and depth caps (JAX apply_zone
         :1680) on the rows of the nodes whose zones are zn, term for term:
@@ -2206,7 +2232,7 @@ def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: b
         table_ext = _wave_score_table(tb, cry, dict(st0, ip_raw=ip_raw),
                                       norms_of(maxes_s, mins_s), g, j, w, B)
         have_zones = bool(torch.any(F_start & (zones > 0)))
-        zone_sums = zone_sums_of(pernode0, F_start, zones) if ss_live else None
+        zone_sums = _zone_sums(pernode0, F_start, zones, Z) if ss_live else None
         table_ext, k_cap = apply_zone(table_ext, maxes_s, pernode0, zones, zone_sums, have_zones)
         # the zone sums move with every zoned take
         return (avail, F_start, F_hi, table_ext, k_cap, not (ss_live and have_zones), max_stack,
@@ -2248,7 +2274,7 @@ def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: b
         uniform_base, ip_safe = gates(maxes_h, mins_h, base_hi_min, dmax, dmin,
                                       bool(torch.any(F_hi)))
         have_zones = bool(torch.any(F_start & (zones_g > 0)))
-        zone_sums = zone_sums_of(pernode0, F_start, zones_g) if ss_live else None
+        zone_sums = _zone_sums(pernode0, F_start, zones_g, Z) if ss_live else None
         table_ext, k_cap = apply_zone(full[:B + 1].T, maxes_s, pernode0, zones_g, zone_sums,
                                       have_zones)
         return (full[B + 3].to(torch.int32), F_start, F_hi, table_ext, k_cap,
@@ -2267,25 +2293,6 @@ def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: b
         if ss_live:
             pre_norms_ok = pre_norms_ok and bool(maxes_s[4] == maxes_h[4])
         return budget_composes and not bootstrap and ip_safe and ss_multi_ok and pre_norms_ok
-
-    def usable_bound(table_ext, avail, k_cap, F_hi):
-        """The candidates of n nodes' [n, B+1] rows: capacity, depth cap and
-        the monotone prefix over F_hi (the usable-entry mask [n, B]), and
-        each node's first hidden entry `bound` (-inf where none)."""
-        n = table_ext.shape[0]
-        table = table_ext[:, :B]
-        ks = torch.arange(B, dtype=torch.int32, device=dev)[None, :]
-        in_cap = ks < torch.minimum(avail, k_cap)[:, None]
-        step_ok = torch.cat([torch.ones((n, 1), dtype=torch.int32, device=dev),
-                             (table[:, 1:] <= table[:, :-1]).to(torch.int32)], dim=1)
-        mono = torch.cumprod(step_ok, dim=1) > 0
-        usable = in_cap & mono & F_hi[:, None]
-        first_bad = torch.amin(torch.where(mono, B, ks), dim=1)
-        k_hid = torch.minimum(torch.clamp(first_bad, max=B), k_cap)
-        has_hidden = (k_hid < avail) & F_hi
-        bound = torch.where(has_hidden, torch.gather(table_ext, 1, k_hid.long()[:, None])[:, 0],
-                            ninf)
-        return usable, bound
 
     def run_rounds(vals_k, idx_srt, dom_srt, cnts, m_rem: int) -> dict:
         """The epoch's rounds over one candidate order (vals_k, the node
@@ -2356,7 +2363,7 @@ def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: b
             # the hidden-continuation cut (the rounds never run when
             # use_multi_pre is off, so neither does this), then the top K_EP
             # entries in lax.top_k order (score desc, flat index asc)
-            usable, bound = usable_bound(table_ext, avail, k_cap, F_hi)
+            usable, bound = _affinity_usable_bound(table_ext, avail, k_cap, F_hi, B)
             b1, i1 = torch.amax(bound), torch.argmax(bound)
             bound2 = bound.clone()
             bound2[i1] = ninf
@@ -2380,7 +2387,7 @@ def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: b
             return finish(state, rs["counts"], rs["got"], False, rs["rounds"], fold)
         counts = torch.zeros(N, dtype=torch.int32, device=dev)
         if use_head:
-            counts[torch.argmax(torch.where(F_start, table[:, 0], ninf))] = 1
+            counts[_first_head(table[:, 0], F_start)] = 1
         return finish(state, counts, int(use_head), use_head, 0, fold)
 
     def epoch_rounds(state: AffinityWaveState) -> AffinityWaveState:
@@ -2428,7 +2435,7 @@ def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: b
                              torch.any(F_start_l & (zn_l > 0)), torch.any(~same_n)]).to(_F32)]
         nv = part[0].shape[0] + 4
         if ss_live:
-            part.append(zone_sums_of(pernode0_l, F_start_l, zn_l))
+            part.append(_zone_sums(pernode0_l, F_start_l, zn_l, Z))
         rows1 = all_gather_rows(torch.cat(part)[None], mesh)
         red = torch.amax(rows1[:, :nv], dim=0)
         zone_sums = rows1[0, nv:]
@@ -2447,7 +2454,7 @@ def schedule_affinity_wave_plain(tb: Tables, cry: Carry, g: int, m: int, cap1: b
         ih = int(torch.argmax(heads))
         summary = [float("-inf"), lo, float("-inf"), lo, float(heads[ih]), lo + ih, 0, 0]
         if use_multi_pre:
-            usable_l, bound_l = usable_bound(table_l, avail_l, k_cap_l, F_hi_l)
+            usable_l, bound_l = _affinity_usable_bound(table_l, avail_l, k_cap_l, F_hi_l, B)
             i1 = int(torch.argmax(bound_l))
             bound2 = bound_l.clone()
             bound2[i1] = ninf
@@ -2710,15 +2717,18 @@ _CLUSTER_READY: set = set()
 
 
 def _cluster_init(lib) -> None:
-    """Allow the cluster kernels (K2 - K5, K10, K11, the round probe)
+    """Allow the cluster kernels (K2 - K5, K9 - K12, the round probe)
     clusters of 16 and csrc/cluster.cuh CLUSTER_SMEM_MAX bytes of shared
-    memory (K11 its own bound, affinity_rounds_smem_max) on the current
+    memory (K9, K11 and K12 their own bounds, affinity_sharded_smem_max,
+    affinity_rounds_smem_max and batch_sharded_smem_max) on the current
     device, once per device."""
     dev = torch.cuda.current_device()
     if dev not in _CLUSTER_READY:
         _check(lib.cluster_kernels_init(), "cluster kernel attributes")
         _check(lib.wave_rounds_init(), "K10 cluster kernel attributes")
         _check(lib.affinity_rounds_init(), "K11 cluster kernel attributes")
+        _check(lib.affinity_sharded_init(), "K9 cluster kernel attributes")
+        _check(lib.batch_sharded_init(), "K12 cluster kernel attributes")
         _CLUSTER_READY.add(dev)
 
 
@@ -2985,13 +2995,15 @@ def _sharded_launch(launch, *args) -> None:
 
 
 def _sharded_loop(front, table, tail, v, g: int, m: int, block: int, mesh, dims: tuple, state,
-                  j, fs, iscr, part, pay, front_args: tuple, tail_args: tuple, wrapper) -> None:
+                  j, fs, iscr, part, pay, front_args: tuple, tail_args: tuple, wrapper,
+                  table_args: tuple = (), tail_post: tuple = ()) -> None:
     """The host's epoch loop of K8 / K9: `front` on the block, one pmax,
     `table` on the block, one tiled all-gather of the payload rows, `tail`
     at full width; one read of (placed, last) per epoch. `dims`: (the
-    mesh's N, the block's lo, hi). `front_args` and
-    `tail_args` are the launch arguments that differ between the two
-    families. Every launch adds one to `wrapper.launches`."""
+    mesh's N, the block's lo, hi). `front_args`, `table_args`, `tail_args`
+    and `tail_post` are the launch arguments that differ between the two
+    families (K9's shapes among them). Every launch adds one to
+    `wrapper.launches`."""
     from ..parallel.collectives import all_gather_tiled, pmax
 
     N, lo, hi = dims
@@ -3001,10 +3013,10 @@ def _sharded_loop(front, table, tail, v, g: int, m: int, block: int, mesh, dims:
                         _ptr(iscr), _ptr(part), *front_args)
         red = pmax(part, mesh)
         _sharded_launch(table, ctypes.byref(v), int(g), int(block), N, lo, hi, _ptr(j), _ptr(fs),
-                        _ptr(iscr), _ptr(red), _ptr(pay))
+                        _ptr(iscr), _ptr(red), _ptr(pay), *table_args)
         full = all_gather_tiled(pay, mesh, axis=0)
         _sharded_launch(tail, ctypes.byref(v), int(g), int(m), *tail_args, _ptr(j), _ptr(fs),
-                        _ptr(iscr), _ptr(red), _ptr(full), _ptr(state))
+                        _ptr(iscr), _ptr(red), _ptr(full), _ptr(state), *tail_post)
         wrapper.launches += 3
         placed, last = state[:2].tolist()
         wrapper.host_reads += 1
@@ -3054,18 +3066,32 @@ def schedule_wave_sharded_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: b
 
 
 def _rounds_shape(lib, kernel: str, NL: int, v: TablesView):
-    """The cluster shape (ops/cluster.py `choose`) of every K10 ("k10") or
-    K11 ("k11") stage over a block of NL nodes: the shared memory of each
-    candidate C from the library (wave_rounds_smem, affinity_rounds_smem,
-    K11's bounded by affinity_rounds_smem_max) and the card's
-    cudaOccupancyMaxActiveClusters answer for it."""
+    """The cluster shape (ops/cluster.py `choose`) of every K10 ("k10"),
+    K11 ("k11"), K9 block ("k9") or K12 ("k12") stage over a block of NL
+    nodes, or of K9's tail ("k9_tail") over the mesh's NL = N nodes: the
+    shared memory of each candidate C from the library (wave_rounds_smem,
+    affinity_rounds_smem, affinity_sharded_smem, affinity_sharded_tail_smem,
+    batch_sharded_smem; K9's, K11's and K12's bounded by their smem_max) and
+    the card's cudaOccupancyMaxActiveClusters answer for it."""
     _cluster_init(lib)
+    vr = ctypes.byref(v)
+    smem_max = SMEM_MAX
     if kernel == "k10":
         smem_of, occ_of = (lambda C: lib.wave_rounds_smem(C)), lib.wave_rounds_occupancy
-        smem_max = SMEM_MAX
-    else:
-        smem_of = lambda C: lib.affinity_rounds_smem(ctypes.byref(v), C)  # noqa: E731
+    elif kernel == "k11":
+        smem_of = lambda C: lib.affinity_rounds_smem(vr, C)  # noqa: E731
         occ_of, smem_max = lib.affinity_rounds_occupancy, int(lib.affinity_rounds_smem_max())
+    elif kernel in ("k9", "k9_tail"):
+        tail = int(kernel == "k9_tail")
+        smem_of = ((lambda C: lib.affinity_sharded_tail_smem(vr, C)) if tail  # noqa: E731
+                   else (lambda C: lib.affinity_sharded_smem(vr, C)))
+        occ_of = lambda C, smem, out: lib.affinity_sharded_occupancy(tail, C, smem, out)  # noqa: E731
+        smem_max = int(lib.affinity_sharded_smem_max())
+    elif kernel == "k12":
+        smem_of, occ_of = (lambda C: lib.batch_sharded_smem(vr, C)), lib.batch_sharded_occupancy
+        smem_max = int(lib.batch_sharded_smem_max())
+    else:
+        raise ValueError(f"no cluster stages of {kernel!r}")
 
     def occupancy(C: int, smem: int) -> int:
         out = ctypes.c_int(0)
@@ -3159,7 +3185,10 @@ def schedule_affinity_wave_sharded_kernel(tb: Tables, cry: Carry, g: int, m: int
     node `mesh` whose epoch path applies: `tb` and `cry` are the rank's
     block. Setup once on the block, then per epoch the front and the table
     on the block and the tail at full width on the gathered rows, with one
-    `pmax` and one `all_gather_tiled` between them. Every rank returns the
+    `pmax` and one `all_gather_tiled` between them. The setup, front and
+    table are each one thread-block cluster over the block, the tail one
+    over the mesh's N nodes, their shapes from ops/cluster.py (recorded in
+    `last_shape`: {"block": ..., "tail": ...}). Every rank returns the
     same (per-node counts [N] i32 of every node, placed as a 0-dim i32
     tensor, [epochs, head_fallbacks, multi_rounds] i32), on the card; `cry`
     is only read."""
@@ -3176,23 +3205,30 @@ def schedule_affinity_wave_sharded_kernel(tb: Tables, cry: Carry, g: int, m: int
     sl = _block_of(mesh, N)
     v = _rebased_view(tb, cry, sl.start, n_zones, w, filters)
     vr = ctypes.byref(v)
+    fn = schedule_affinity_wave_sharded_kernel
+    shape_b = _rounds_shape(lib, "k9", sl.stop - sl.start, v)
+    shape_t = _rounds_shape(lib, "k9_tail", N, v)
+    fn.last_shape = {"block": shape_b, "tail": shape_t}
+    Cb, smem_b, Ct, smem_t = shape_b.C, shape_b.smem, shape_t.C, shape_t.smem
     j = torch.empty(N, dtype=torch.int32, device=dev)
     state = torch.empty(7, dtype=torch.int32, device=dev)
     fs = torch.empty(int(lib.affinity_sharded_scratch_floats(vr, int(block), N)), dtype=_F32,
                      device=dev)
     iscr = torch.empty(int(lib.affinity_sharded_scratch_ints(vr, N)), dtype=torch.int32,
                        device=dev)
+    cs = torch.zeros(Ct * int(lib.affinity_sharded_cta_ints(vr, N)), dtype=torch.int32,
+                     device=dev)  # each tail CTA's round state, its takes 0
     part = torch.empty(int(lib.affinity_sharded_parts(vr)), dtype=_F32, device=dev)
     pay = torch.empty((sl.stop - sl.start, int(lib.affinity_sharded_pay_floats(vr, int(block)))),
                       dtype=_F32, device=dev)
-    fn = schedule_affinity_wave_sharded_kernel
     _sharded_launch(lib.affinity_sharded_setup_launch, vr, int(g), int(bool(cap1)), int(block), N,
-                    sl.start, sl.stop, _ptr(j), _ptr(fs), _ptr(iscr), _ptr(state))
+                    sl.start, sl.stop, _ptr(j), _ptr(fs), _ptr(iscr), _ptr(state), Cb, smem_b)
     fn.launches += 1
     _sharded_loop(lib.affinity_sharded_front_launch, lib.affinity_sharded_table_launch,
                   lib.affinity_sharded_tail_launch, v, g, m, block, mesh, (N, sl.start, sl.stop),
-                  state, j, fs, iscr, part, pay, (_ptr(state),),
-                  (int(bool(ss_live)), int(block), N), fn)
+                  state, j, fs, iscr, part, pay, (_ptr(state), Cb, smem_b),
+                  (int(bool(ss_live)), int(block), N), fn, table_args=(Cb, smem_b),
+                  tail_post=(_ptr(cs), Ct, smem_t))
     return j, state[0], state[2:5]
 
 
@@ -3308,10 +3344,11 @@ def _k12_buffers(lib, vr, dev) -> tuple:
 
 
 def _k12_pod(lib, vr, mesh, lo: int, g: int, forced: int, valid: bool, sa: bool, bufs: tuple,
-             prev=None, prev_g: int = 0, prev_p: int = 0, choices=None, row2=None, out=None,
-             perm: int = 0) -> int:
+             shape, prev=None, prev_g: int = 0, prev_p: int = 0, choices=None, row2=None,
+             out=None, perm: int = 0) -> int:
     """One pod's K12 stages on this rank's block, whose first node is the
-    global `lo` (`forced` already in the block's numbering): the front,
+    global `lo` (`forced` already in the block's numbering), each one
+    thread-block cluster of `shape` (`_rounds_shape` "k12"): the front,
     which first commits the previous pod from its gathered rows `prev`,
     all_gather_rows #1 of the partial vector, for a group with
     ScheduleAnyway terms (`sa`) the sa stage and pmax #1b, then the score
@@ -3322,19 +3359,20 @@ def _k12_pod(lib, vr, mesh, lo: int, g: int, forced: int, valid: bool, sa: bool,
 
     scratch, part, part_b = bufs
     R = mesh.shards
+    C, smem = shape.C, shape.smem
     k1 = int(lib.batch_sharded_part_floats(vr, int(sa)))
     _sharded_launch(lib.batch_sharded_front_launch, vr, g, forced, int(bool(valid)),
                     int(out is not None), lo, R, _ptr_or_null(prev), prev_g, prev_p,
-                    _ptr_or_null(choices), _ptr(scratch), _ptr(part))
+                    _ptr_or_null(choices), _ptr(scratch), _ptr(part), C, smem)
     rows = all_gather_rows(part[:k1][None], mesh)
     sa_red = None
     if sa:
         _sharded_launch(lib.batch_sharded_sa_launch, vr, g, R, _ptr(rows), k1, _ptr(scratch),
-                        _ptr(part_b))
+                        _ptr(part_b), C, smem)
         sa_red = pmax(part_b, mesh)
     _sharded_launch(lib.batch_sharded_score_launch, vr, g, lo, R, _ptr(rows), k1,
                     _ptr_or_null(sa_red), _ptr(scratch), _ptr_or_null(row2), _ptr_or_null(out),
-                    ctypes.c_longlong(perm))
+                    ctypes.c_longlong(perm), C, smem)
     return 3 if sa else 2
 
 
@@ -3347,8 +3385,10 @@ def schedule_batch_sharded_kernel(tb: Tables, cry: Carry, pod_group, forced_node
     their forced nodes global. Per valid pod `_k12_pod` (the front with the
     previous pod's commit, all_gather_rows #1, the sa stage and pmax #1b for
     a group with ScheduleAnyway terms, the score), then all_gather_rows #2 of
-    the block's best row; one commit launch after the last. The host reads
-    which groups have ScheduleAnyway terms once, and nothing per pod.
+    the block's best row; one commit launch after the last. Every stage is
+    one thread-block cluster over the block, its shape from ops/cluster.py
+    (recorded in `last_shape`). The host reads which groups have
+    ScheduleAnyway terms once, and nothing per pod.
     Returns (a CLONE of `cry` that the kernel updates in place, choices [P]
     i32 as global nodes, equal on every rank), on the card."""
     from ..parallel.collectives import all_gather_rows
@@ -3361,6 +3401,8 @@ def schedule_batch_sharded_kernel(tb: Tables, cry: Carry, pod_group, forced_node
     out = Carry(*(t.clone() for t in cry))
     v = _view(tb, out, n_zones, w, filters, enable_gpu, enable_storage)
     vr = ctypes.byref(v)
+    fnk = schedule_batch_sharded_kernel
+    shape = fnk.last_shape = _rounds_shape(lib, "k12", NL, v)
     pg, fn, vd = (torch.as_tensor(a).tolist() for a in (pod_group, forced_node, valid))
     P = len(pg)
     if len(fn) != P or len(vd) != P:
@@ -3369,18 +3411,17 @@ def schedule_batch_sharded_kernel(tb: Tables, cry: Carry, pod_group, forced_node
     choices = torch.full((P,), -1, dtype=torch.int32, device=dev)
     bufs = _k12_buffers(lib, vr, dev)
     row2 = torch.empty((1, 2 + v.T + v.Tc), dtype=torch.float64, device=dev)
-    fnk = schedule_batch_sharded_kernel
     prev, prev_g, prev_p = None, 0, 0
     for p in range(P):
         if not vd[p]:  # padded pod: feasible nowhere, commits nothing
             continue
         g = int(pg[p])
         fnk.launches += _k12_pod(lib, vr, mesh, lo, g, block_forced(int(fn[p]), lo, NL), True,
-                                 sa[g], bufs, prev, prev_g, prev_p, choices, row2=row2)
+                                 sa[g], bufs, shape, prev, prev_g, prev_p, choices, row2=row2)
         prev, prev_g, prev_p = all_gather_rows(row2, mesh), g, p
     if prev is not None:
         _sharded_launch(lib.batch_sharded_commit_launch, vr, prev_g, prev_p, lo, mesh.shards,
-                        _ptr(prev), _ptr(choices))
+                        _ptr(prev), _ptr(choices), shape.C, shape.smem)
         fnk.launches += 1
     if enable_gpu or enable_storage:
         BRANCH_LAUNCHES["schedule_batch_sharded/gpu_storage"] += 1
@@ -3394,7 +3435,8 @@ def explain_sharded_kernel(tb: Tables, cry: Carry, g: int, forced: int, valid: b
     """K12's explain mode on this rank of a partitioned node `mesh`:
     `_k12_pod` on every node of the block, its score stage writing K7's
     packed [EXPLAIN_ROWS, NL] rows with the global normalizers (`forced`
-    global; `cry` only read). Returns the block's rows."""
+    global; `cry` only read), on K12's cluster shape (recorded in
+    `last_shape`). Returns the block's rows."""
     from . import build
 
     lib = build.library()
@@ -3403,11 +3445,12 @@ def explain_sharded_kernel(tb: Tables, cry: Carry, g: int, forced: int, valid: b
     v = _view(tb, cry, n_zones, w, filters, enable_gpu, enable_storage)
     vr = ctypes.byref(v)
     lo = mesh.rank * NL
+    shape = explain_sharded_kernel.last_shape = _rounds_shape(lib, "k12", NL, v)
     out = torch.empty((len(EXPLAIN_ROWS), NL), dtype=_F32, device=dev)
     perm = sum(STAGE_ROWS.index(k) << (4 * i) for i, k in enumerate(EXPLAIN_STAGES))
     explain_sharded_kernel.launches += _k12_pod(
         lib, vr, mesh, lo, int(g), block_forced(forced, lo, NL), valid, _has_sa(tb, g),
-        _k12_buffers(lib, vr, dev), out=out, perm=perm)
+        _k12_buffers(lib, vr, dev), shape, out=out, perm=perm)
     return out
 
 

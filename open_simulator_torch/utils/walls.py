@@ -30,17 +30,20 @@ on the first GPU wave of the extended cluster, and prints the root's
 root's K2-K5 run on thread-block clusters, each launch's cluster shape, so
 that two checkouts compare kernel for kernel.
 
-With `--mesh-kernels`, it times the node mesh's per-round kernels instead:
-two ranks spawned on the card (gloo, sharing cuda:0, as chip_smoke.py's
-mesh phase runs them) time K10 on the first wave segment of the northstar
-cluster (10,000 nodes, 100,000 pods) and K11 on the affinity cluster's
-hostname and zone spreads, at the default epoch limit, stage by stage with
-CUDA events (kernels.SHARDED_STAGE_EVENTS; the two ranks' launches
-interleave on the card, so a stage's events include the other rank's time
-slices, and a stage launched after a host read or a collective also the
-launch's host latency) and with torch.profiler (each kernel's device time
-alone), per round or epoch by the host clock, and prints the root's
-`ptxas -v` lines of K8-K11.
+With `--mesh-kernels`, it times the node mesh's kernels instead: two ranks
+spawned on the card (gloo, sharing cuda:0, as chip_smoke.py's mesh and
+partitioned phases run them) time K10 on the first wave segment of the
+northstar cluster (10,000 nodes, 100,000 pods) and K11 on the affinity
+cluster's hostname and zone spreads at the default epoch limit, K9 on the
+same two spreads with OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES=8192 (the
+epoch path), and K12 on the first 256 pods of the hard shape (5,000 nodes)
+and of the extended cluster (EXT), stage by stage with CUDA events
+(kernels.SHARDED_STAGE_EVENTS; the two ranks' launches interleave on the
+card, so a stage's events include the other rank's time slices, and a
+stage launched after a host read or a collective also the launch's host
+latency) and with torch.profiler (each kernel's device time alone), per
+round, epoch or pod by the host clock, and prints the root's `ptxas -v`
+lines of K8-K12.
 """
 
 from __future__ import annotations
@@ -88,7 +91,7 @@ def main() -> int:
     ap.add_argument("--kernels", action="store_true",
                     help="time K2, K3, K4 and K5 and print ptxas lines")
     ap.add_argument("--mesh-kernels", action="store_true",
-                    help="time K10 and K11 on two ranks and print K8-K11's ptxas lines")
+                    help="time K9 - K12 on two ranks and print K8-K12's ptxas lines")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("kinds", nargs="*", default=["hard_waves", "overflow_waves", "affinity"])
     args = ap.parse_args()
@@ -347,9 +350,9 @@ def kernel_times(synth, root: str, reps: int) -> int:
 
 
 def _mesh_case(kernel, stats_of, reps: int) -> dict:
-    """One K10 / K11 call timed `reps` times after a warm-up: the host
-    clock per round or epoch (`stats_of(result)` of them a call) and each
-    stage's CUDA-event milliseconds per round or epoch."""
+    """One K9 - K12 call timed `reps` times after a warm-up: the host clock
+    per round, epoch or pod (`stats_of(result)` of them a call) and each
+    stage's CUDA-event milliseconds per round, epoch or pod."""
     import torch
 
     from open_simulator_torch.ops import kernels as K
@@ -366,14 +369,17 @@ def _mesh_case(kernel, stats_of, reps: int) -> dict:
     stages = {k: sum(a.elapsed_time(b) for a, b in v) / (reps * steps)
               for k, v in events.items() if "setup" not in k}
     shape = getattr(kernel.wrapper, "last_shape", None)  # None: a single-block checkout
+    if isinstance(shape, dict):  # K9: its block stages' and its tail's
+        C = {k: v.C for k, v in shape.items()}
+    else:
+        C = shape.C if shape is not None else 1
     return {"steps": steps, "wall_ms": wall * 1e3 / (reps * steps),
             "kernel_ms": sum(stages.values()), "stage_ms": stages,
-            "device_ms": _device_ms(kernel, reps * steps, reps),
-            "C": shape.C if shape is not None else 1}
+            "device_ms": _device_ms(kernel, reps * steps, reps), "C": C}
 
 
 def _device_ms(kernel, steps: int, reps: int) -> dict:
-    """Each K8-K11 kernel's device time per round or epoch over `reps`
+    """Each K8-K12 kernel's device time per round, epoch or pod over `reps`
     calls under torch.profiler (CUPTI: the kernels alone, without the gaps
     a host-side launch leaves after the collectives and host reads, which
     the CUDA events of the stages hold); {} where the profiler records no
@@ -392,13 +398,13 @@ def _device_ms(kernel, steps: int, reps: int) -> dict:
         us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
         name = e.key.split("(")[0].replace("void ", "")
         if us and any(k in name for k in ("wave_rounds", "affinity_rounds", "wave_sharded",
-                                          "affinity_sharded")):
+                                          "affinity_sharded", "batch_sharded")):
             out[name] = out.get(name, 0.0) + us / 1e3 / steps
     return out
 
 
 def _mesh_rank(mesh, reps: int) -> dict:
-    """K10 and K11 on this rank's block (see the module's docstring)."""
+    """K9 - K12 on this rank's block (see the module's docstring)."""
     from open_simulator_torch.core.types import ResourceTypes
     from open_simulator_torch.ops import kernels as K
     from open_simulator_torch.parallel.mesh import block_of
@@ -438,7 +444,62 @@ def _mesh_rank(mesh, reps: int) -> dict:
 
         k11.wrapper = K.schedule_affinity_wave_rounds_kernel
         out[f"K11 affinity {label}"] = _mesh_case(k11, lambda r: int(r[2][0]), reps)
+    limit, prev = "OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES", os.environ.get(
+        "OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES")
+    os.environ[limit] = "8192"  # the epoch path (K9) at N 5,120
+    try:
+        for label, seg in (("hostname spread", segs[1]), ("zone spread", segs[3])):
+            _, _, m, g, cap1, ss_live = seg[:6]
+            kw9 = dict(ss_live=bool(ss_live), block=K.wave_block_for(m, sim.na.N),
+                       n_zones=bt.n_zones if ss_live else 2)
+
+            def k9(m=m, g=g, cap1=cap1, kw9=kw9):
+                return K.schedule_affinity_wave_sharded_kernel(tbl, seedl, g, m, cap1, mesh=mesh,
+                                                               **kw9)
+
+            k9.wrapper = K.schedule_affinity_wave_sharded_kernel
+            out[f"K9 affinity {label}"] = _mesh_case(k9, lambda r: int(r[2][0]), reps)
+    finally:
+        if prev is None:
+            del os.environ[limit]
+        else:
+            os.environ[limit] = prev
+    out.update(_k12_cases(synth, mesh, reps))
     return {"rank": mesh.rank, "cases": out}
+
+
+def _k12_cases(synth, mesh, reps: int) -> dict:
+    """K12 on this rank's block of the first 256 pods of the hard shape
+    (5,000 nodes) and of the extended cluster (EXT), per pod."""
+    import torch
+
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.parallel.mesh import to_device_sharded
+    from open_simulator_torch.simulator.encode import pad_batch_tables, plugin_flags
+    from open_simulator_torch.simulator.engine import Simulator
+
+    out = {}
+    for label, (gen, n_nodes, n_pods) in (("hard", KINDS["hard_waves"]),
+                                          ("extended", KINDS["extended"])):
+        nodes, pods, _, scs = workload(synth, gen, n_nodes, n_pods)
+        sim = Simulator(nodes, device="cuda", use_mesh=False)
+        sim.register_cluster_objects(ResourceTypes(storage_classes=list(scs)))
+        bt = pad_batch_tables(sim.encode_batch(pods[:256]), mesh.shards)
+        gpu, storage = plugin_flags(bt)
+        pg, fn, vd = (torch.from_numpy(a) for a in (bt.pod_group, bt.forced_node, bt.valid))
+        tbl, seedl, _ = to_device_sharded(bt, mesh)
+        P = int(vd.sum())
+
+        def k12(tbl=tbl, seedl=seedl, pg=pg, fn=fn, vd=vd, nz=bt.n_zones, gpu=gpu,
+                storage=storage):
+            return K.schedule_batch_sharded_kernel(tbl, seedl, pg, fn, vd, nz, mesh,
+                                                   enable_gpu=gpu, enable_storage=storage)
+
+        k12.wrapper = K.schedule_batch_sharded_kernel
+        out[f"K12 {label} first 256 pods" + (" EXT" if gpu or storage else "")] = _mesh_case(
+            k12, lambda r, P=P: P, reps)
+    return out
 
 
 def mesh_kernel_times(root: str, reps: int) -> int:
@@ -448,7 +509,8 @@ def mesh_kernel_times(root: str, reps: int) -> int:
 
     card = _card()
     print(json.dumps({"root": os.path.abspath(root), "card": card, "ptxas": _ptxas_lines(
-        ("wave_sharded", "affinity_sharded", "wave_rounds", "affinity_rounds"))}), flush=True)
+        ("wave_sharded", "affinity_sharded", "wave_rounds", "affinity_rounds",
+         "batch_sharded"))}), flush=True)
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as rdzv:
         ranks = run_ranks(_mesh_rank, 2, rdzv, args=(reps,), device="cuda", backend="gloo",

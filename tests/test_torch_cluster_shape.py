@@ -1,11 +1,12 @@
-"""The launch-shape rule of the cluster kernels K2, K3, K4, K5, K10 and K11
+"""The launch-shape rule of the cluster kernels K2 - K5 and K9 - K12
 (open_simulator_torch/ops/cluster.py), as plain Python: the card's occupancy
 answer and the library's shared-memory size are models passed in, so nothing
 here needs a card. The tables' axes are the ones the encoder pads to, and
 tests/test_torch_cuda.py holds `smem_model` and `rounds_smem_model` against
 the library's own schedule_batch_smem / group_serial_smem /
 schedule_wave_smem / affinity_wave_smem / wave_rounds_smem /
-affinity_rounds_smem on the card."""
+affinity_rounds_smem / affinity_sharded_smem / affinity_sharded_tail_smem /
+batch_sharded_smem on the card."""
 
 import functools
 
@@ -33,6 +34,13 @@ K5_LIVE_ROWS = 8    # K5's live rows [Sd + A + B + Ca + Cw + 1] of a typical bat
 # K11's bound (csrc/affinity_rounds.cu K11_SMEM_MAX): its CTAs hold the term
 # slots in static shared memory too
 K11_SMEM_MAX = cluster.SMEM_MAX - 8_192
+# K9's and K12's bound (csrc/affinity_sharded.cu K9_SMEM_MAX,
+# csrc/batch_sharded.cu K12_SMEM_MAX): the term slots or PodCtx and the
+# stage's StageShared in static shared memory
+K9_SMEM_MAX = K12_SMEM_MAX = cluster.SMEM_MAX - 16_384
+SMEM_MAX_OF = {"k10": cluster.SMEM_MAX, "k11": K11_SMEM_MAX, "k9": K9_SMEM_MAX,
+               "k9_tail": K9_SMEM_MAX, "k12": K12_SMEM_MAX}
+PART_HEAD = 11  # K12's partial vector head (csrc/batch_sharded.cu)
 
 
 def wave_smem_model(kernel: str, N: int, C: int, Z: int, D1: int) -> int:
@@ -53,14 +61,28 @@ def wave_smem_model(kernel: str, N: int, C: int, Z: int, D1: int) -> int:
     return fixed + (rows if rows_on else 0) + (live if live_on else 0)
 
 
-def rounds_smem_model(kernel: str, C: int, Cw: int = 0, Z: int = 2) -> int:
-    """A CTA's dynamic shared memory in K10's and K11's stages: the round
-    slots [2][C][W], W a radix histogram's words (and for K11 at least the
-    front's row: the stacked vector of 18 + 2 Cw maxima, four flags and the
-    Z zone sums), then K11's row partials [W]. Nothing grows with the
-    block's nodes or the table's depth."""
+def rounds_smem_model(kernel: str, C: int, Cw: int = 0, Z: int = 2, Ss: int = 2) -> int:
+    """A CTA's dynamic shared memory in K9's, K10's, K11's and K12's
+    stages: the round slots [2][C][W], W a radix histogram's words (and for
+    K11 at least the front's row: the stacked vector of 18 + 2 Cw maxima,
+    four flags and the Z zone sums), then K11's row partials [W]. K9's
+    block stages: W the stacked vector (18 + 2 Cw), then the CTA's maxima
+    [W]; K9's tail: the candidate keys (u64), ranks and domains (K_EP_MAX
+    each), then W a histogram's words or round 1's 4 + Z, fin [W] and
+    round 1's row [4 + Z]; K12's stages: W the front's row (11 maxima and
+    the Z zone sums) or the sa stage's Ss counts, fin and the CTA's row [W]
+    each. Nothing grows with the block's nodes or the table's depth."""
     if kernel == "k10":
         return 4 * 2 * C * RX_WORDS
+    if kernel == "k9":
+        W = 18 + 2 * Cw
+        return 4 * (2 * C * W + W)
+    if kernel == "k9_tail":
+        W = max(RX_WORDS, 4 + Z)
+        return 16 * K_EP_MAX + 4 * (2 * C * W + W + 4 + Z)
+    if kernel == "k12":
+        W = max(PART_HEAD + Z, Ss)
+        return 4 * (2 * C * W + 2 * W)
     W = max(RX_WORDS, 18 + 2 * Cw + 4 + Z)
     return 4 * (2 * C * W + W)
 
@@ -194,33 +216,39 @@ ROUND_NLS = (1_024, 2_560, 5_120, 50_176, 500_000)
 
 
 @pytest.mark.parametrize("model", sorted(MODELS))
-@pytest.mark.parametrize("kernel", ["k10", "k11"])
+@pytest.mark.parametrize("kernel", ["k10", "k11", "k9", "k9_tail", "k12"])
 @pytest.mark.parametrize("B", [8, 16, 64])
 @pytest.mark.parametrize("R", [2, 4])
 @pytest.mark.parametrize("NL", ROUND_NLS)
 def test_round_stage_shape(NL, R, B, kernel, model):
-    """Every stage of K10 / K11 over a rank's block takes the rule's shape:
-    one cluster, the candidate with the fewest nodes a thread (ties to the
-    smaller C), never refused (no N, NL, B or D+1 is), more than one CTA at
-    every block of 1,024 nodes or more, and the same shape at every table
-    depth B and rank count R (the stages' shared memory holds no table)."""
-    _, Z, _ = encoder_axes()
-    smem_of = lambda C: rounds_smem_model(kernel, C, Cw=2, Z=Z)  # noqa: E731
-    smem_max = cluster.SMEM_MAX if kernel == "k10" else K11_SMEM_MAX
+    """Every stage of K10 / K11, K9's setup, front and table and K12's
+    stages over a rank's block, and K9's tail over the mesh's N = NL * R
+    nodes, take the rule's shape: one cluster, the candidate with the
+    fewest nodes a thread (ties to the smaller C), never refused (no N, NL,
+    B or D+1 is), more than one CTA at every block of 1,024 nodes or more,
+    and the same shape at every table depth B (the stages' shared memory
+    holds no table)."""
+    Ss, Z, _ = encoder_axes()
+    n = NL * R if kernel == "k9_tail" else NL
+    smem_of = lambda C: rounds_smem_model(kernel, C, Cw=2, Z=Z, Ss=Ss)  # noqa: E731
+    smem_max = SMEM_MAX_OF[kernel]
     occ = _occupancy(model)
     assert all(smem_of(C) <= smem_max for C in cluster.SIZES)
-    shape = cluster.choose(NL, 1, smem_of, occ, smem_max=smem_max)
+    shape = cluster.choose(n, 1, smem_of, occ, smem_max=smem_max)
     fits = [C for C in cluster.SIZES if occ(C, smem_of(C))]
-    best = min(cluster.nodes_per_thread(NL, c) for c in fits)
+    best = min(cluster.nodes_per_thread(n, c) for c in fits)
     assert shape.nodes_per_thread == best
-    assert shape.C == min(c for c in fits if cluster.nodes_per_thread(NL, c) == best)
+    assert shape.C == min(c for c in fits if cluster.nodes_per_thread(n, c) == best)
     assert shape.smem == smem_of(shape.C) and shape.resident and shape.C > 1
-    assert shape.chunk == -(-NL // shape.C)
-    if NL >= 8_192:  # mesh8_1m's and mesh8_10m's blocks: the largest cluster the card holds
+    assert shape.chunk == -(-n // shape.C)
+    if n >= 8_192:  # mesh8_1m's and mesh8_10m's blocks: the largest cluster the card holds
         assert shape.C == (16 if model == "gpc_18_16" else 8)
-    if NL == 1_024:
+    if n == 1_024:
         assert shape.C == 2 and shape.nodes_per_thread == 1
-    assert shape == cluster.choose(NL * R // R, 1, smem_of, occ, smem_max=smem_max)
+    if kernel == "k9_tail" and n == 5_120 and model == "gpc_18_16":
+        # the affinity cluster's tail on two ranks: clusters of 16, one node a thread
+        assert shape.C == 16 and shape.nodes_per_thread == 1
+    assert shape == cluster.choose(n * R // R, 1, smem_of, occ, smem_max=smem_max)
 
 
 @pytest.mark.parametrize("kernel", ["k10", "k11"])

@@ -641,10 +641,12 @@ def test_tail_kernel_matches_plain_tail_on_two_ranks(tmp_path):
 
 @pytest.mark.cuda
 def test_round_stage_smem_models_hold():
-    """The library's K10 / K11 stage shared memory (wave_rounds_smem,
-    affinity_rounds_smem and K11's bound) is tests/test_torch_cluster_shape.py
-    `rounds_smem_model` at every cluster size, on the view of a batch whose
-    zone axis and carriers are the encoder's."""
+    """The library's K9 - K12 stage shared memory (wave_rounds_smem,
+    affinity_rounds_smem, affinity_sharded_smem, affinity_sharded_tail_smem,
+    batch_sharded_smem and K9's, K11's and K12's bounds) is
+    tests/test_torch_cluster_shape.py `rounds_smem_model` at every cluster
+    size, on the view of a batch whose zone axis, carriers and
+    ScheduleAnyway slots are the encoder's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     import ctypes
@@ -659,18 +661,27 @@ def test_round_stage_smem_models_hold():
     tb, seed = sim._to_device(bt)
     v = K._view(tb, seed, bt.n_zones, K.DEFAULT_WEIGHTS, K.DEFAULT_FILTERS)
     assert lib.affinity_rounds_smem_max() == CS.K11_SMEM_MAX
+    assert lib.affinity_sharded_smem_max() == CS.K9_SMEM_MAX
+    assert lib.batch_sharded_smem_max() == CS.K12_SMEM_MAX
+    vr = ctypes.byref(v)
     for C in cluster.SIZES:
         assert lib.wave_rounds_smem(C) == CS.rounds_smem_model("k10", C)
-        assert lib.affinity_rounds_smem(ctypes.byref(v), C) == CS.rounds_smem_model(
-            "k11", C, Cw=v.Cw, Z=v.Z)
+        assert lib.affinity_rounds_smem(vr, C) == CS.rounds_smem_model("k11", C, Cw=v.Cw, Z=v.Z)
+        assert lib.affinity_sharded_smem(vr, C) == CS.rounds_smem_model("k9", C, Cw=v.Cw)
+        assert lib.affinity_sharded_tail_smem(vr, C) == CS.rounds_smem_model("k9_tail", C, Z=v.Z)
+        assert lib.batch_sharded_smem(vr, C) == CS.rounds_smem_model("k12", C, Z=v.Z, Ss=v.Ss)
 
 
 @pytest.mark.cuda
-def test_round_and_tail_kernels_on_every_cluster_size(tmp_path):
-    """K10 and K11 on two ranks that share cuda:0 over gloo, at blocks whose
-    stages take clusters of 2, 4, 8 and 16 CTAs (tests/torch_mesh_cases.py
-    `card_cluster_sizes`), against their plain versions on the same ranks
-    and the unsharded K3 / K5, bit for bit."""
+@pytest.mark.parametrize("kernels", ["K10/K11", "K9"])
+def test_round_and_tail_kernels_on_every_cluster_size(tmp_path, kernels):
+    """K10 and K11, and K9, on two ranks that share cuda:0 over gloo, at
+    blocks whose stages take clusters of 2, 4, 8 and 16 CTAs
+    (tests/torch_mesh_cases.py `card_cluster_sizes`; K9's blocks, not a
+    multiple of C, and its tail over N: `card_k9_cluster_sizes`), against
+    their plain versions on the same ranks and the unsharded K3 / K5, bit
+    for bit; K9 with live SelectorSpread, head fallbacks and zone spreads,
+    one pmax and one all-gather an epoch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     import torch_mesh_cases as C
@@ -678,23 +689,38 @@ def test_round_and_tail_kernels_on_every_cluster_size(tmp_path):
     from open_simulator_torch.parallel.launch import run_ranks
 
     build.library()  # build once, before the ranks load it
-    got = run_ranks(C.card_cluster_sizes, 2, str(tmp_path), device="cuda", backend="gloo")
+    fn = C.card_cluster_sizes if kernels == "K10/K11" else C.card_k9_cluster_sizes
+    got = run_ranks(fn, 2, str(tmp_path), device="cuda", backend="gloo")
     assert got[0] == got[1]
     for r in got[0]:
         assert r["C"] == r["want_C"], r
         assert r["same_plain"] and r["same_unsharded"] and r.get("same_branches", True), r
+    if kernels == "K9":
+        assert {r["C"][0] for r in got[0]} == {1, 2, 4, 8, 16}
+        assert {r["C"][1] for r in got[0]} == {2, 4, 8, 16}
+        for r in got[0]:
+            epochs = r["stats"][0]
+            assert r["calls"] == {"pmax": epochs, "all_gather_tiled": epochs,
+                                  "all_gather_rows": 0}, r
+        assert any(r["ss_live"] for r in got[0])
+        assert sum(r["stats"][1] for r in got[0]) > 0 and sum(r["stats"][2] for r in got[0]) > 0
+        return
     assert {r["C"] for r in got[0] if r["kernel"] == "K10"} == {2, 4, 8, 16}
     assert {r["C"] for r in got[0] if r["kernel"] == "K11"} == {2, 4, 8, 16}
 
 
 @pytest.mark.cuda
-def test_partitioned_scan_kernel_matches_plain_on_two_ranks(tmp_path):
+@pytest.mark.parametrize("blocks", ["seeded", "every_cluster_size"])
+def test_partitioned_scan_kernel_matches_plain_on_two_ranks(tmp_path, blocks):
     """K12 on two ranks that share cuda:0 over gloo, each holding its block
     of the node axis, against the plain sharded scan on the same ranks and
     the unsharded K2, bit for bit (choices, carry), on the seeded clusters of
-    tests/torch_mesh_cases.py `partitioned_scans` (EXT false and true), with
-    two all_gather_rows per pod and a pmax per ScheduleAnyway pod; K1 on the
-    block and K12's explain mode against K1, K7 and the plain versions."""
+    tests/torch_mesh_cases.py `partitioned_scans` (EXT false and true) and,
+    at blocks whose stages take clusters of 2, 4, 8 and 16 CTAs (not a
+    multiple of C: `card_k12_cluster_sizes`), on the same shapes of cluster,
+    with two all_gather_rows per pod and a pmax per ScheduleAnyway pod; K1 on
+    the block and K12's explain mode against K1, K7 and the plain
+    versions."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     import torch_mesh_cases as C
@@ -702,14 +728,23 @@ def test_partitioned_scan_kernel_matches_plain_on_two_ranks(tmp_path):
     from open_simulator_torch.parallel.launch import run_ranks
 
     build.library()  # build once, before the ranks load it
-    got = run_ranks(C.card_partitioned, 2, str(tmp_path), device="cuda", backend="gloo")
+    fn = C.card_partitioned if blocks == "seeded" else C.card_k12_cluster_sizes
+    got = run_ranks(fn, 2, str(tmp_path), device="cuda", backend="gloo")
     assert got[0] == got[1]
-    assert [r["flags"] for r in got[0]] == [(False, False), (True, True)]
     for r in got[0]:
         assert r["same_plain"] and r["same_unsharded"] and r["diag_same"], r
         assert r["calls"] == {"pmax": r["sa_pods"], "all_gather_tiled": 0,
                               "all_gather_rows": 2 * r["pods"]}, r
-    assert got[0][0]["sa_pods"] > 0 and got[0][0]["failed"] > 0
+    if blocks == "seeded":
+        assert [r["flags"] for r in got[0]] == [(False, False), (True, True)]
+        assert got[0][0]["sa_pods"] > 0 and got[0][0]["failed"] > 0
+        return
+    for r in got[0]:
+        assert r["C"] == r["want_C"] and r["NL"] % r["C"] != 0, r
+    assert {r["C"] for r in got[0]} == {2, 4, 8, 16}
+    seeded = [r for r in got[0] if r["cluster"] == "seeded"]
+    assert all(r["sa_pods"] > 0 and r["forced_blocks"] == [0, 1] for r in seeded)
+    assert all(r["flags"] == (True, True) for r in got[0] if r["cluster"] == "extended")
 
 
 @pytest.mark.cuda

@@ -572,6 +572,72 @@ def _cluster_size_cases(mesh, NL: int, C: int) -> list:
     return out
 
 
+def unbucketed(sim, pods, shards: int):
+    """`sim.encode_batch(pods)` with the node axis padded only to a multiple
+    of `shards`, not to the encoder's bucket, so that a rank's block keeps
+    a node count that is no multiple of a cluster size."""
+    from open_simulator_torch.simulator.encode import pad_batch_tables, pad_encoder_axes
+
+    return pad_batch_tables(pad_encoder_axes(sim.encode_batch_raw(pods)), shards)
+
+
+# the blocks of K9's card cases over every cluster size: NL nodes a rank
+# (not a multiple of the cluster size), the C that ops/cluster.py `choose`
+# gives its block stages and the C of its tail over N = 2 * NL
+K9_BLOCKS = ((511, 1, 2), (1_001, 2, 4), (2_047, 4, 8), (4_095, 8, 16), (8_191, 16, 16))
+
+
+def card_k9_cluster_sizes(mesh) -> list:
+    """On the card, at blocks whose stages take every cluster size
+    (K9_BLOCKS, the epoch limit at N so that the epoch path applies): K9 on
+    every affinity segment of `tail_workload` (a zone DoNotSchedule spread,
+    a hostname spread, anti-affinity, required self-affinity and its
+    bootstrap's head fallbacks, live SelectorSpread over the zones),
+    against its plain sharded version on the same ranks and the unsharded
+    K5, bit for bit, with the shapes of its block stages and its tail. One
+    record per segment."""
+    import torch
+
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.simulator.engine import Simulator
+
+    out = []
+    for NL, want_b, want_t in K9_BLOCKS:
+        N = NL * mesh.shards
+        nodes, pods, services = tail_workload(n_nodes=N)
+        sim = Simulator(nodes, device="cuda", use_mesh=False)
+        sim.register_cluster_objects(ResourceTypes(services=list(services)))
+        bt = unbucketed(sim, pods, mesh.shards)
+        tb, cry = sim._to_device(bt)
+        assert tb.alloc.shape[0] == N
+        with epoch_limit(N):
+            for seg in sim._segments(bt, len(pods)):
+                if seg[0] != "affinity":
+                    continue
+                _, _, m, g, cap1, ss_live = seg[:6]
+                kw = dict(ss_live=bool(ss_live), block=K.wave_block_for(m, N),
+                          n_zones=bt.n_zones if ss_live else 2)
+                tbl, cryl = on_mesh(tb, cry, mesh)
+                mesh.reset_counts()
+                kj, kp, kst = K.schedule_affinity_wave_sharded_kernel(tbl, cryl, g, m, bool(cap1),
+                                                                      mesh=mesh, **kw)
+                shape = K.schedule_affinity_wave_sharded_kernel.last_shape
+                calls = _calls(mesh)
+                pj, pp, pst = K.schedule_affinity_wave_plain(tbl, cryl, g, m, bool(cap1),
+                                                             mesh=mesh, **kw)
+                uj, up, ust = K.schedule_affinity_wave_kernel(tb, cry, g, m, bool(cap1), **kw)
+                out.append({"NL": NL, "C": (shape["block"].C, shape["tail"].C),
+                            "want_C": (want_b, want_t), "m": m, "ss_live": bool(ss_live),
+                            "stats": kst.tolist(), "calls": calls,
+                            "same_plain": bool(torch.equal(kj, pj)) and int(kp) == pp
+                            and kst.tolist() == [pst[k] for k in K.AFFINITY_STATS],
+                            "same_unsharded": bool(torch.equal(kj, uj)) and int(kp) == int(up)
+                            and kst.tolist() == ust.tolist()})
+                cry = K.aggregate_commit(tb, cry, g, uj)
+    return out
+
+
 def overcommit_nodes():
     """tests/test_torch_affinity.py `anti_unlabeled_overcommit`: six zoned
     nodes and the unlabeled node u0 with two pod slots."""
@@ -1160,6 +1226,37 @@ def card_partitioned(mesh) -> list:
     on the block and K12's explain mode, gathered, against K1 and K7
     unsharded and against the plain versions on the block, for every group,
     unforced and forced into every block. One record per cluster."""
+    return [_card_partitioned_cluster(mesh, *c) for c in partitioned_clusters()]
+
+
+# the blocks of K12's card cases over every cluster size: NL nodes a rank
+# (not a multiple of the cluster size) and the C that ops/cluster.py
+# `choose` gives its stages
+K12_BLOCKS = ((1_001, 2), (2_047, 4), (4_095, 8), (8_191, 16))
+
+
+def card_k12_cluster_sizes(mesh) -> list:
+    """`card_partitioned` at blocks whose stages take every cluster size
+    (K12_BLOCKS): `partitioned_workload` over 2 * NL nodes (ScheduleAnyway
+    groups on the hostname and the zone key, pods pinned into every block)
+    and the extended cluster (EXT: GPU-share and Open-Local), with the shape
+    of K12's stages. One record per cluster and block."""
+    from open_simulator_torch.utils.synth import synth_extended_cluster
+
+    out = []
+    for NL, want in K12_BLOCKS:
+        N = NL * mesh.shards
+        nodes, pods, services = partitioned_workload(n_nodes=N, cordon_from=N - NL // 2)
+        ext_nodes, ext_pods, _, scs = synth_extended_cluster(N, 160)
+        for c in (("seeded", nodes, pods, services, []),
+                  ("extended", ext_nodes, ext_pods, [], scs)):
+            out.append(dict(_card_partitioned_cluster(mesh, *c, bucketed=False), want_C=want))
+    return out
+
+
+def _card_partitioned_cluster(mesh, label, nodes, pods, services, scs, bucketed=True) -> dict:
+    """`card_partitioned` on one cluster (`bucketed`: the node axis padded
+    to the encoder's bucket, else to the shard count only)."""
     import torch
 
     from open_simulator_torch.core.types import ResourceTypes
@@ -1169,52 +1266,52 @@ def card_partitioned(mesh) -> list:
     from open_simulator_torch.simulator.encode import pad_batch_tables, plugin_flags
     from open_simulator_torch.simulator.engine import Simulator
 
-    out = []
-    for label, nodes, pods, services, scs in partitioned_clusters():
-        sim = Simulator(copy.deepcopy(nodes), device="cuda", use_mesh=False)
-        sim.register_cluster_objects(ResourceTypes(services=list(services),
-                                                   storage_classes=list(scs)))
-        bt = pad_batch_tables(sim.encode_batch(copy.deepcopy(pods)), mesh.shards)
-        gpu, storage = plugin_flags(bt)
-        flags = dict(enable_gpu=gpu, enable_storage=storage)
-        pg, fn, vd = (torch.from_numpy(a) for a in (bt.pod_group, bt.forced_node, bt.valid))
-        tb, seed = K.tables_from_batch(bt, "cuda"), K.carry_from_batch(bt, "cuda")
-        tbl, seedl, _ = to_device_sharded(bt, mesh)
-        mesh.reset_counts()
-        kc, kch = K.schedule_batch_sharded_kernel(tbl, seedl, pg, fn, vd, bt.n_zones, mesh,
-                                                  **flags)
-        calls = _calls(mesh)
-        pc, pch = K.schedule_batch_sharded_plain(tbl, seedl, pg, fn, vd, bt.n_zones, mesh,
-                                                 **flags)
-        uc, uch = K.schedule_batch_kernel(tb, seed, pg, fn, vd, bt.n_zones, **flags)
-        full = gather_carry(kc, mesh)
-        N, NL = int(tb.alloc.shape[0]), int(tbl.alloc.shape[0])
-        P = int(vd.sum())
-        groups = sorted({int(g) for g in bt.pod_group[:P]})
-        forced = [-1] + [b * NL + NL // 2 for b in range(mesh.shards)]
-        diag = True
-        for g in groups:
-            for f in forced:
-                fk, sk = K.feasibility_jit(tbl, kc, g, f, True, **flags, mesh=mesh)
-                fu, su = K.feasibility_kernel(tb, uc, g, f, True, **flags)
-                diag &= torch.equal(fk, fu) and all(torch.equal(sk[k], su[k])
-                                                    for k in K.STAGE_KEYS)
-                ek = K.explain_sharded_kernel(tbl, kc, g, f, True, bt.n_zones, **flags, mesh=mesh)
-                ep = K.pack_explain(*K.explain_pod(tbl, kc, g, f, True, bt.n_zones, **flags,
-                                                   mesh=mesh))
-                eu = K.explain_kernel(tb, uc, g, f, True, bt.n_zones, **flags)
-                diag &= torch.equal(ek.view(torch.int32), ep.view(torch.int32))
-                diag &= torch.equal(all_gather_tiled(ek, mesh, axis=1).view(torch.int32),
-                                    eu.view(torch.int32))
-        out.append({"cluster": label, "N": N, "pods": P, "flags": (gpu, storage),
-                    "sa_pods": sum(K._has_sa(tb, int(g)) for g in bt.pod_group[:P]),
-                    "calls": calls,
-                    "same_plain": bool(torch.equal(kch, pch))
-                    and all(torch.equal(a, b) for a, b in zip(kc, pc)),
-                    "same_unsharded": bool(torch.equal(kch, uch))
-                    and all(torch.equal(a, b) for a, b in zip(full, uc)),
-                    "diag_same": bool(diag), "failed": int((kch[:P] < 0).sum())})
-    return out
+    sim = Simulator(copy.deepcopy(nodes), device="cuda", use_mesh=False)
+    sim.register_cluster_objects(ResourceTypes(services=list(services),
+                                               storage_classes=list(scs)))
+    bt = pad_batch_tables(sim.encode_batch(copy.deepcopy(pods)) if bucketed
+                          else unbucketed(sim, copy.deepcopy(pods), mesh.shards), mesh.shards)
+    gpu, storage = plugin_flags(bt)
+    flags = dict(enable_gpu=gpu, enable_storage=storage)
+    pg, fn, vd = (torch.from_numpy(a) for a in (bt.pod_group, bt.forced_node, bt.valid))
+    tb, seed = K.tables_from_batch(bt, "cuda"), K.carry_from_batch(bt, "cuda")
+    tbl, seedl, _ = to_device_sharded(bt, mesh)
+    mesh.reset_counts()
+    kc, kch = K.schedule_batch_sharded_kernel(tbl, seedl, pg, fn, vd, bt.n_zones, mesh,
+                                              **flags)
+    calls = _calls(mesh)
+    shape = K.schedule_batch_sharded_kernel.last_shape
+    pc, pch = K.schedule_batch_sharded_plain(tbl, seedl, pg, fn, vd, bt.n_zones, mesh,
+                                             **flags)
+    uc, uch = K.schedule_batch_kernel(tb, seed, pg, fn, vd, bt.n_zones, **flags)
+    full = gather_carry(kc, mesh)
+    N, NL = int(tb.alloc.shape[0]), int(tbl.alloc.shape[0])
+    P = int(vd.sum())
+    groups = sorted({int(g) for g in bt.pod_group[:P]})
+    forced = [-1] + [b * NL + NL // 2 for b in range(mesh.shards)]
+    diag = True
+    for g in groups:
+        for f in forced:
+            fk, sk = K.feasibility_jit(tbl, kc, g, f, True, **flags, mesh=mesh)
+            fu, su = K.feasibility_kernel(tb, uc, g, f, True, **flags)
+            diag &= torch.equal(fk, fu) and all(torch.equal(sk[k], su[k])
+                                                for k in K.STAGE_KEYS)
+            ek = K.explain_sharded_kernel(tbl, kc, g, f, True, bt.n_zones, **flags, mesh=mesh)
+            ep = K.pack_explain(*K.explain_pod(tbl, kc, g, f, True, bt.n_zones, **flags,
+                                               mesh=mesh))
+            eu = K.explain_kernel(tb, uc, g, f, True, bt.n_zones, **flags)
+            diag &= torch.equal(ek.view(torch.int32), ep.view(torch.int32))
+            diag &= torch.equal(all_gather_tiled(ek, mesh, axis=1).view(torch.int32),
+                                eu.view(torch.int32))
+    return {"cluster": label, "N": N, "NL": NL, "pods": P, "flags": (gpu, storage),
+            "sa_pods": sum(K._has_sa(tb, int(g)) for g in bt.pod_group[:P]),
+            "calls": calls, "C": shape.C,
+            "forced_blocks": sorted({int(f) // NL for f in bt.forced_node[:P] if f >= 0}),
+            "same_plain": bool(torch.equal(kch, pch))
+            and all(torch.equal(a, b) for a, b in zip(kc, pc)),
+            "same_unsharded": bool(torch.equal(kch, uch))
+            and all(torch.equal(a, b) for a, b in zip(full, uc)),
+            "diag_same": bool(diag), "failed": int((kch[:P] < 0).sum())}
 
 
 # ------------------------------------------------ the default route, partitioned ----
