@@ -1947,9 +1947,10 @@ def mesh_kernel_case(mesh, label: str, kind: str, nodes, pods, services, scs, pi
     bound, by = bound_of(b, ops)
     coll = {k: {"calls": v["calls"] // reps, "bytes": v["bytes"] // reps}
             for k, v in mesh.counts.items()}
-    shape = {}  # K9's cluster shapes (C of its block stages and of its tail)
-    if kind == "affinity":
-        shape = {k: v.C for k, v in K.schedule_affinity_wave_sharded_kernel.last_shape.items()}
+    # the cluster shapes: C of K8's / K9's block stages and of its tail
+    wrapper = (K.schedule_wave_sharded_kernel if kind == "wave"
+               else K.schedule_affinity_wave_sharded_kernel)
+    shape = {k: v.C for k, v in wrapper.last_shape.items()}
     return dict(label=label, nodes=int(tb.alloc.shape[0]), pods=m, block=block, placed=pp,
                 cluster_C=shape,
                 epochs=epochs, stats=pst, kernel_ms_per_epoch=ms, stage_ms_per_epoch=per_epoch,
@@ -2028,6 +2029,7 @@ def mesh_group_serial_case(mesh, nodes, pods, services) -> dict:
         b, ops = k13_cost(tbl, seedl, g, m)
         bound, by = bound_of(b, ops)
         out[label] = dict(nodes=int(tb.alloc.shape[0]), block_nodes=int(tbl.alloc.shape[0]),
+                          cluster_C=K.schedule_group_serial_sharded_kernel.last_shape.C,
                           pods=m, placed=pp, ss_live=bool(ss), sa_live=bool(sa),
                           ms_per_pod=sum(stages.values()) / m,
                           stage_ms_per_pod={k: v / m for k, v in stages.items()},

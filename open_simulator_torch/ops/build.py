@@ -29,7 +29,7 @@ SOURCES = [os.path.join(_HERE, "csrc", f)
                      "affinity_rounds.cu", "batch_sharded.cu", "group_serial_sharded.cu",
                      "commit_sharded.cu")]
 HEADERS = [os.path.join(_HERE, "csrc", f)
-           for f in ("common.cuh", "cluster.cuh", "select.cuh", "wave.cuh", "affinity.cuh",
+           for f in ("common.cuh", "cluster.cuh", "select.cuh", "affinity.cuh",
                      "wave_sharded.cuh", "affinity_sharded.cuh", "merge.cuh", "commit.cuh",
                      "wave_cluster.cuh")]
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build", "torch_kernels")
@@ -193,10 +193,15 @@ def _load(path: str) -> ctypes.CDLL:
     lib.wave_sharded_scratch_ints.restype = L
     lib.wave_sharded_pay_floats.argtypes = [I]
     lib.wave_sharded_pay_floats.restype = I
-    lib.wave_sharded_setup_launch.argtypes = [V] + [I] * 5 + [P] * 5
-    lib.wave_sharded_front_launch.argtypes = [V] + [I] * 5 + [P] * 5
-    lib.wave_sharded_table_launch.argtypes = [V] + [I] * 5 + [P] * 6
-    lib.wave_sharded_tail_launch.argtypes = [V] + [I] * 5 + [P] * 7
+    # K8's table and tail on thread-block clusters, each with its shape (C,
+    # smem); its setup and front are K10's (below)
+    lib.wave_sharded_table_launch.argtypes = [V] + [I] * 5 + [P] * 5 + [I, L, P]
+    lib.wave_sharded_tail_launch.argtypes = [V] + [I] * 5 + [P] * 6 + [I, L, P]
+    for name, args, res in (("wave_sharded_smem", [I], L), ("wave_sharded_smem_max", [], L),
+                            ("wave_sharded_init", [], I),
+                            ("wave_sharded_occupancy", [I, I, L, P], I)):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = res
     lib.affinity_sharded_scratch_floats.argtypes = [V, I, I]
     lib.affinity_sharded_scratch_floats.restype = L
     lib.affinity_sharded_scratch_ints.argtypes = [V, I]
@@ -219,8 +224,9 @@ def _load(path: str) -> ctypes.CDLL:
         getattr(lib, name).argtypes = args
         getattr(lib, name).restype = res
     for stage in ("setup", "front", "table", "tail"):
-        getattr(lib, f"wave_sharded_{stage}_launch").restype = I
         getattr(lib, f"affinity_sharded_{stage}_launch").restype = I
+    for stage in ("table", "tail"):
+        getattr(lib, f"wave_sharded_{stage}_launch").restype = I
     # K10, the wave's per-round path (thread-block clusters): setup, then
     # front, table, select, merge and finish, each with its shape (C, smem)
     lib.wave_rounds_merge_state_bytes.argtypes = []
@@ -281,17 +287,23 @@ def _load(path: str) -> ctypes.CDLL:
         getattr(lib, name).argtypes = args
         getattr(lib, name).restype = res
     # K13, the group-serial scan on a partitioned node mesh: setup, then per
-    # pod front, sa, score, and the finish
+    # pod front, sa, score, and the finish, each one thread-block cluster
+    # with its shape (C, smem)
     for name, args, res in (("gs_sharded_scratch_floats", [V], L),
                             ("gs_sharded_scratch_ints", [V], L),
                             ("gs_sharded_part_floats", [V, I, I], I),
                             ("gs_sharded_marks_offset", [V, I], I),
                             ("gs_sharded_j_offset", [V], L),
-                            ("gs_sharded_setup_launch", [V, I, I, P, P, P], I),
-                            ("gs_sharded_front_launch", [V] + [I] * 5 + [P] * 5, I),
-                            ("gs_sharded_sa_launch", [V, I, I, P, I, I, P, P, P, P], I),
-                            ("gs_sharded_score_launch", [V] + [I] * 5 + [P, I] + [P] * 5, I),
-                            ("gs_sharded_finish_launch", [V] + [I] * 4 + [P] * 4, I),
+                            ("gs_sharded_smem", [V, I], L),
+                            ("gs_sharded_smem_max", [], L),
+                            ("gs_sharded_init", [], I),
+                            ("gs_sharded_occupancy", [I, L, P], I),
+                            ("gs_sharded_setup_launch", [V, I, I, P, P, I, L, P], I),
+                            ("gs_sharded_front_launch", [V] + [I] * 5 + [P] * 4 + [I, L, P], I),
+                            ("gs_sharded_sa_launch", [V, I, I, P, I, I, P, P, P, I, L, P], I),
+                            ("gs_sharded_score_launch",
+                             [V] + [I] * 5 + [P, I] + [P] * 4 + [I, L, P], I),
+                            ("gs_sharded_finish_launch", [V] + [I] * 4 + [P] * 3 + [I, L, P], I),
                             # K14, the aggregate commit on a partitioned node mesh
                             ("commit_sharded_rows_launch", [V, I, P, P, I, I, P, P], I),
                             ("commit_sharded_domains_launch", [V, I, P, I, P, P, I, P, P], I)):

@@ -1,4 +1,4 @@
-"""Launch shapes of the cluster kernels K2, K3, K4, K5, K10 and K11
+"""Launch shapes of the cluster kernels K2 - K5 and K8 - K13
 (csrc/cluster.cuh).
 
 Each lane of K2 (`schedule_batch`), K3 (`schedule_wave`), K4
@@ -15,11 +15,18 @@ group_serial_smem / affinity_wave_smem, csrc/schedule.cu `k2_smem_bytes`,
 csrc/wave.cu `k3_smem_bytes`, csrc/group_serial.cu `k4_smem_bytes` and
 csrc/affinity_wave.cu `k5_smem_bytes`). A CTA's per-node rows are in its
 shared memory when they fit SMEM_MAX, else in global scratch, so every N
-has a shape. Every stage of K10 (csrc/wave_rounds.cu, `wave_rounds_smem`)
-and each cluster stage of K11 (csrc/affinity_rounds.cu,
-`affinity_rounds_smem`, bounded by `affinity_rounds_smem_max`) is one
-cluster over a rank's block of NL nodes, its shape the rule's for one lane
-over NL; their shared memory holds the rounds' words only. Plain Python:
+has a shape. The node mesh's kernels run every stage as one cluster over
+a rank's block of NL nodes, its shape the rule's for one lane over NL:
+K10 (csrc/wave_rounds.cu, `wave_rounds_smem`), K11's cluster stages
+(csrc/affinity_rounds.cu, `affinity_rounds_smem`), K12
+(csrc/batch_sharded.cu, `batch_sharded_smem`), K13
+(csrc/group_serial_sharded.cu, `gs_sharded_smem`) and the setup, front and
+table of K8 and K9 (csrc/wave_sharded.cu `wave_sharded_smem`,
+csrc/affinity_sharded.cu `affinity_sharded_smem`); the tails of K8 and K9
+(`wave_sharded_smem`, `affinity_sharded_tail_smem`) are one cluster over
+the mesh's N nodes. Their shared memory holds the rounds' words only
+(K9's tail also its candidate keys), bounded by each kernel's smem_max
+(K8, K9, K11, K12, K13); a shape the rule refuses raises. Plain Python:
 nothing here needs torch or a card.
 """
 

@@ -698,40 +698,6 @@ static __device__ void segment_node_constants(const TablesView& t, const PodCtx*
   *stat = t.w[W_AVOID] * t.avoid_raw[gn] + t.w[W_IMAGE] * t.image_raw[gn] + t.extra_raw[gn];
 }
 
-// Block-wide first-max argmax: (value desc, index asc); every thread gets
-// the winner. Two barriers; `s_val`/`s_idx` hold 32 entries each.
-static __device__ void block_argmax(float* best, int* best_i, float* s_val, int* s_idx) {
-  float b = *best;
-  int bi = *best_i;
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ov = __shfl_xor_sync(FULL_MASK, b, o);
-    const int oi = __shfl_xor_sync(FULL_MASK, bi, o);
-    if (ov > b || (ov == b && oi < bi)) {
-      b = ov;
-      bi = oi;
-    }
-  }
-  __syncthreads();  // the previous call's readers are done with s_val/s_idx
-  const int lane = threadIdx.x & 31, nw = (blockDim.x + 31) >> 5;
-  if (lane == 0) {
-    s_val[threadIdx.x >> 5] = b;
-    s_idx[threadIdx.x >> 5] = bi;
-  }
-  __syncthreads();
-  b = lane < nw ? s_val[lane] : -INFINITY;
-  bi = lane < nw ? s_idx[lane] : 0x7fffffff;
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ov = __shfl_xor_sync(FULL_MASK, b, o);
-    const int oi = __shfl_xor_sync(FULL_MASK, bi, o);
-    if (ov > b || (ov == b && oi < bi)) {
-      b = ov;
-      bi = oi;
-    }
-  }
-  *best = b;
-  *best_i = bi;
-}
-
 static __device__ __forceinline__ void argmax_update(float v, int i, float* best, int* best_i) {
   if (v > *best || (v == *best && i < *best_i)) {
     *best = v;
@@ -751,21 +717,3 @@ static __device__ int block_sum_int(int x, int* s_int) {
   return x;
 }
 
-// Block-wide max of unsigned 64-bit keys; every thread gets the result.
-static __device__ unsigned long long block_max_u64(unsigned long long x,
-                                                   unsigned long long* s_u64) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const unsigned long long y = __shfl_xor_sync(FULL_MASK, x, o);
-    x = y > x ? y : x;
-  }
-  __syncthreads();
-  const int lane = threadIdx.x & 31, nw = (blockDim.x + 31) >> 5;
-  if (lane == 0) s_u64[threadIdx.x >> 5] = x;
-  __syncthreads();
-  x = lane < nw ? s_u64[lane] : 0ull;
-  for (int o = 16; o > 0; o >>= 1) {
-    const unsigned long long y = __shfl_xor_sync(FULL_MASK, x, o);
-    x = y > x ? y : x;
-  }
-  return x;
-}

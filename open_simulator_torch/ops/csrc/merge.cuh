@@ -1,5 +1,6 @@
-// The cluster stages of the sharded paths (K9 affinity_sharded.cu, K10
-// wave_rounds.cu, K11 affinity_rounds.cu, K12 batch_sharded.cu): their
+// The cluster stages of the sharded paths (K8 wave_sharded.cu, K9
+// affinity_sharded.cu, K10 wave_rounds.cu, K11 affinity_rounds.cu, K12
+// batch_sharded.cu, K13 group_serial_sharded.cu): their
 // static shared memory, a row of maxima and counts as one round, and the
 // block tops and their merge of the per-round paths (K10, K11): each rank of a node mesh
 // selects its block's best entries on a thread-block cluster
@@ -192,8 +193,8 @@ static __device__ void cluster_row_round(Cluster& cx, const int* acc, int nmax, 
   __syncthreads();
 }
 
-// The static shared memory of a CTA of a K10 / K11 cluster stage (the
-// round slots are its dynamic shared memory)
+// The static shared memory of a CTA of a cluster stage (the round slots
+// are its dynamic shared memory)
 struct StageShared {
   uint64_t mbar[2];
   u64 w64[CLUSTER_WARPS];

@@ -12,10 +12,9 @@
 //     round a byte, each CTA pushing its 256-bin histogram; it starts at the
 //     first byte where the smallest and largest keys differ and stops early
 //     once the remaining rank is the last entry of its bin.
-// K8 keeps the one-block selection of select.cuh and wave.cuh; K9's tail
-// selects over the mesh's gathered rows with cluster_select_key, K10 and
-// K11 their block tops, and K10 merges the gathered keys with it (merge.cuh
-// GatheredKeys).
+// K8's and K9's tails select over the mesh's gathered rows with
+// cluster_select_key, K10 and K11 their block tops, and K10 merges the
+// gathered keys with it (merge.cuh GatheredKeys).
 
 #pragma once
 

@@ -13,7 +13,10 @@
 // Every stage is one thread-block cluster of C CTAs of 512 threads (C from
 // ops/cluster.py `choose` over the block's NL nodes), CTA r owning the node
 // slice [r * chunk, (r + 1) * chunk) of the block; the cross-node values are
-// cluster rounds (wave_cluster.cuh, merge.cuh). One segment: `setup` once
+// cluster rounds (wave_cluster.cuh, merge.cuh). The setup and the front are
+// K8's too (wave_sharded.cu launches them at its shape), and the table's
+// payload rows are K8's table's body (wave_sharded.cuh
+// wave_payload_rows). One segment: `setup` once
 // (the block's base feasibility, capacity and static score terms; j = 0),
 // then per round five launches, four collectives (parallel/collectives.py)
 // and one host read, launched by ops/kernels.py `schedule_wave_rounds_kernel`:
@@ -88,8 +91,9 @@ struct MergeState {
 };
 
 // K10's dynamic shared memory at C: the round slots [2][C][RX_WORDS]
+// (wave_sharded.cuh; K8's stages take the same)
 static __host__ __device__ inline long long k10_smem_bytes(int C) {
-  return 4LL * 2 * C * RX_WORDS;
+  return wave_stage_smem_bytes(C);
 }
 
 template <bool EXT>
@@ -139,61 +143,30 @@ wave_rounds_front(TablesView t, int g, int N, int lo, int hi, const int* j, floa
   cluster_barrier_uncounted();  // no CTA leaves with its stores into another in flight
 }
 
-// The block's payload rows (K8's table: the normalizers from the reduced
-// vector, JAX :1233, the [B+1] score rows :904, the payload :1240), then
-// its summary row [b1, i1, b2, i2, head, head index, feasible count, 0]
+// The block's payload rows (wave_sharded.cuh wave_payload_rows, K8's
+// table's body), then its summary row [b1, i1, b2, i2, head, head index,
+// feasible count, 0]
 __global__ void __launch_bounds__(CLUSTER_THREADS, 1)
 wave_rounds_table(TablesView t, int g, int B, int N, int lo, int hi, const int* j, float* fs,
                   int* is, const float* red, float* pay, double* summ) {
   __shared__ StageShared sh;
   extern __shared__ uint32_t smem[];
   Cluster cx = cluster_stage(hi - lo, RX_WORDS, (int*)smem, sh.mbar);
-  const int tid = threadIdx.x, R = t.R, B1 = B + 1, P = B + WAVE_PAY_EXTRA;
+  const int tid = threadIdx.x;
   const WaveScratch w = wave_scratch(N, fs, is);
-  const size_t gN = (size_t)g * t.N;
-  const float gz_c = t.grp_nonzero[g * 2 + 0], gz_m = t.grp_nonzero[g * 2 + 1];
-  const Norms nm = reduced_norms(red);
   float b1 = -INFINITY, b2 = -INFINITY, hv = -INFINITY, hv2 = -INFINITY;
   int i1 = INT_HI, i2 = INT_HI, ih = INT_HI, ih2 = INT_HI, nF = 0;
-  for (int n = lo + cx.lo + tid; n < lo + cx.hi; n += CLUSTER_THREADS) {
-    const int avail = w.cap[n] - j[n];
-    float simon, nodeaff, taint, interpod;
-    normalized_terms(nm, w.simon_s[n], t.nodeaff_raw[gN + n], t.taint_raw[gN + n], w.ip[n],
-                     &simon, &nodeaff, &taint, &interpod);
-    const float static_n = t.w[W_SIMON] * simon + t.w[W_NODEAFF] * nodeaff
-                           + t.w[W_TAINT] * taint + t.w[W_INTERPOD] * interpod + w.stat[n];
-    const float jf = (float)j[n];
-    const float nz_c = t.nonzero[(size_t)n * 2 + 0], nz_m = t.nonzero[(size_t)n * 2 + 1];
-    const float a_c = t.alloc[(size_t)n * R + 0], a_m = t.alloc[(size_t)n * R + 1];
-    float* row = pay + (size_t)(n - lo) * P;
-    int first_bad = B;
-    float prev = 0.0f;
-    for (int k = 0; k < B1; ++k) {
-      const float copies = jf + (float)(k + 1);
-      float least, bal;
-      least_balanced(nz_c + gz_c * copies, nz_m + gz_m * copies, a_c, a_m, &least, &bal);
-      const float v = t.w[W_LEAST] * least + t.w[W_BALANCED] * bal + static_n;
-      row[k] = v;
-      if (k > 0 && k < B && first_bad == B && v > prev) first_bad = k;
-      prev = v;
-    }
-    const bool F = w.feas[n] && avail > 0;
-    const int av = min(avail, B1);
-    row[B1] = F ? 1.0f : 0.0f;
-    row[B1 + 1] = (float)av;
-    row[B1 + 2] = w.simon_s[n];
-    row[B1 + 3] = t.nodeaff_raw[gN + n];
-    row[B1 + 4] = t.taint_raw[gN + n];
-    row[B1 + 5] = w.ip[n];
-    w.F[n] = F;
-    w.avail[n] = av;
-    w.u[n] = F ? min(av, first_bad) : 0;
-    const float bound = (F && first_bad < av) ? row[first_bad] : -INFINITY;
-    w.bound[n] = bound;
-    top2_update(bound, n, b1, i1, b2, i2);
-    top2_update(F ? row[0] : -INFINITY, n, hv, ih, hv2, ih2);
-    nF += F;
-  }
+  wave_payload_rows(t, g, B, lo, lo + cx.lo, lo + cx.hi, j, w, reduced_norms(red), pay,
+                    [&](int n, const float* row, bool F, int av, int first_bad) {
+                      w.F[n] = F;
+                      w.avail[n] = av;
+                      w.u[n] = F ? min(av, first_bad) : 0;
+                      const float bound = (F && first_bad < av) ? row[first_bad] : -INFINITY;
+                      w.bound[n] = bound;
+                      top2_update(bound, n, b1, i1, b2, i2);
+                      top2_update(F ? row[0] : -INFINITY, n, hv, ih, hv2, ih2);
+                      nF += F;
+                    });
   cluster_top2(cx, b1, i1, b2, i2, sh.rx, sh.fin);
   cluster_top2(cx, hv, ih, hv2, ih2, sh.rx, sh.fin);
   int cnt[1] = {nF};

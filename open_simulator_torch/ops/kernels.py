@@ -2717,18 +2717,21 @@ _CLUSTER_READY: set = set()
 
 
 def _cluster_init(lib) -> None:
-    """Allow the cluster kernels (K2 - K5, K9 - K12, the round probe)
+    """Allow the cluster kernels (K2 - K5, K8 - K13, the round probe)
     clusters of 16 and csrc/cluster.cuh CLUSTER_SMEM_MAX bytes of shared
-    memory (K9, K11 and K12 their own bounds, affinity_sharded_smem_max,
-    affinity_rounds_smem_max and batch_sharded_smem_max) on the current
-    device, once per device."""
+    memory (K8, K9, K11, K12 and K13 their own bounds, wave_sharded_smem_max,
+    affinity_sharded_smem_max, affinity_rounds_smem_max,
+    batch_sharded_smem_max and gs_sharded_smem_max) on the current device,
+    once per device."""
     dev = torch.cuda.current_device()
     if dev not in _CLUSTER_READY:
         _check(lib.cluster_kernels_init(), "cluster kernel attributes")
         _check(lib.wave_rounds_init(), "K10 cluster kernel attributes")
         _check(lib.affinity_rounds_init(), "K11 cluster kernel attributes")
+        _check(lib.wave_sharded_init(), "K8 cluster kernel attributes")
         _check(lib.affinity_sharded_init(), "K9 cluster kernel attributes")
         _check(lib.batch_sharded_init(), "K12 cluster kernel attributes")
+        _check(lib.gs_sharded_init(), "K13 cluster kernel attributes")
         _CLUSTER_READY.add(dev)
 
 
@@ -2996,20 +2999,20 @@ def _sharded_launch(launch, *args) -> None:
 
 def _sharded_loop(front, table, tail, v, g: int, m: int, block: int, mesh, dims: tuple, state,
                   j, fs, iscr, part, pay, front_args: tuple, tail_args: tuple, wrapper,
-                  table_args: tuple = (), tail_post: tuple = ()) -> None:
+                  table_args: tuple = (), tail_post: tuple = (), front_lead: tuple = ()) -> None:
     """The host's epoch loop of K8 / K9: `front` on the block, one pmax,
     `table` on the block, one tiled all-gather of the payload rows, `tail`
     at full width; one read of (placed, last) per epoch. `dims`: (the
-    mesh's N, the block's lo, hi). `front_args`, `table_args`, `tail_args`
-    and `tail_post` are the launch arguments that differ between the two
-    families (K9's shapes among them). Every launch adds one to
-    `wrapper.launches`."""
+    mesh's N, the block's lo, hi). `front_lead` (before N), `front_args`,
+    `table_args`, `tail_args` and `tail_post` are the launch arguments that
+    differ between the two families (their shapes among them). Every launch
+    adds one to `wrapper.launches`."""
     from ..parallel.collectives import all_gather_tiled, pmax
 
     N, lo, hi = dims
     placed, last = 0, 1
     while last > 0 and placed < m:
-        _sharded_launch(front, ctypes.byref(v), int(g), int(block), N, lo, hi, _ptr(j), _ptr(fs),
+        _sharded_launch(front, ctypes.byref(v), int(g), *front_lead, N, lo, hi, _ptr(j), _ptr(fs),
                         _ptr(iscr), _ptr(part), *front_args)
         red = pmax(part, mesh)
         _sharded_launch(table, ctypes.byref(v), int(g), int(block), N, lo, hi, _ptr(j), _ptr(fs),
@@ -3030,9 +3033,13 @@ def schedule_wave_sharded_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: b
     `mesh` whose epoch path applies: `tb` and `cry` are the rank's block.
     Setup once on the block, then per epoch the front and the table on the
     block and the tail at full width on the gathered rows, with one `pmax`
-    and one `all_gather_tiled` between them (parallel/collectives.py). Every
-    rank returns the same (per-node counts [N] i32 of every node, placed as
-    a 0-dim i32 tensor, [iterations, head_fallbacks, guarded] i32), on the
+    and one `all_gather_tiled` between them (parallel/collectives.py). The
+    setup and the front are K10's stages (csrc/wave_rounds.cu); the setup,
+    front and table are each one thread-block cluster over the block, the
+    tail one over the mesh's N nodes, their shapes from ops/cluster.py
+    (recorded in `last_shape`: {"block": ..., "tail": ...}). Every rank
+    returns the same (per-node counts [N] i32 of every node, placed as a
+    0-dim i32 tensor, [iterations, head_fallbacks, guarded] i32), on the
     card; `cry` is only read."""
     from . import build
 
@@ -3046,6 +3053,11 @@ def schedule_wave_sharded_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: b
         raise ValueError(f"the mesh's epoch path does not apply to {N} nodes")
     sl = _block_of(mesh, N)
     v = _rebased_view(tb, cry, sl.start, 2, w, filters, enable_gpu=gpu_live)
+    fn = schedule_wave_sharded_kernel
+    shape_b = _rounds_shape(lib, "k8", sl.stop - sl.start, v)
+    shape_t = _rounds_shape(lib, "k8_tail", N, v)
+    fn.last_shape = {"block": shape_b, "tail": shape_t}
+    Cb, smem_b, Ct, smem_t = shape_b.C, shape_b.smem, shape_t.C, shape_t.smem
     j = torch.empty(N, dtype=torch.int32, device=dev)
     state = torch.empty(5, dtype=torch.int32, device=dev)
     fs = torch.empty(int(lib.wave_sharded_scratch_floats(N)), dtype=_F32, device=dev)
@@ -3053,13 +3065,13 @@ def schedule_wave_sharded_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: b
     part = torch.empty(6, dtype=_F32, device=dev)
     pay = torch.empty((sl.stop - sl.start, int(lib.wave_sharded_pay_floats(block))), dtype=_F32,
                       device=dev)
-    fn = schedule_wave_sharded_kernel
-    _sharded_launch(lib.wave_sharded_setup_launch, ctypes.byref(v), int(g), int(bool(cap1)), N,
-                    sl.start, sl.stop, _ptr(j), _ptr(fs), _ptr(iscr), _ptr(state))
+    _sharded_launch(lib.wave_rounds_setup_launch, ctypes.byref(v), int(g), int(bool(cap1)), N,
+                    sl.start, sl.stop, _ptr(j), _ptr(fs), _ptr(iscr), _ptr(state), Cb, smem_b)
     fn.launches += 1
-    _sharded_loop(lib.wave_sharded_front_launch, lib.wave_sharded_table_launch,
+    _sharded_loop(lib.wave_rounds_front_launch, lib.wave_sharded_table_launch,
                   lib.wave_sharded_tail_launch, v, g, m, block, mesh, (N, sl.start, sl.stop),
-                  state, j, fs, iscr, part, pay, (), (int(block), int(K), N), fn)
+                  state, j, fs, iscr, part, pay, (Cb, smem_b), (int(block), int(K), N), fn,
+                  table_args=(Cb, smem_b), tail_post=(Ct, smem_t))
     if gpu_live:
         BRANCH_LAUNCHES["schedule_wave_sharded/gpu_live"] += 1
     return j, state[0], state[2:5]
@@ -3067,12 +3079,14 @@ def schedule_wave_sharded_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: b
 
 def _rounds_shape(lib, kernel: str, NL: int, v: TablesView):
     """The cluster shape (ops/cluster.py `choose`) of every K10 ("k10"),
-    K11 ("k11"), K9 block ("k9") or K12 ("k12") stage over a block of NL
-    nodes, or of K9's tail ("k9_tail") over the mesh's NL = N nodes: the
-    shared memory of each candidate C from the library (wave_rounds_smem,
-    affinity_rounds_smem, affinity_sharded_smem, affinity_sharded_tail_smem,
-    batch_sharded_smem; K9's, K11's and K12's bounded by their smem_max) and
-    the card's cudaOccupancyMaxActiveClusters answer for it."""
+    K11 ("k11"), K8 block ("k8"), K9 block ("k9"), K12 ("k12") or K13
+    ("k13") stage over a block of NL nodes, or of K8's or K9's tail
+    ("k8_tail", "k9_tail") over the mesh's NL = N nodes: the shared memory
+    of each candidate C from the library (wave_rounds_smem,
+    affinity_rounds_smem, wave_sharded_smem (K8's stages and tail alike),
+    affinity_sharded_smem, affinity_sharded_tail_smem, batch_sharded_smem,
+    gs_sharded_smem; K8's, K9's, K11's, K12's and K13's bounded by their
+    smem_max) and the card's cudaOccupancyMaxActiveClusters answer for it."""
     _cluster_init(lib)
     vr = ctypes.byref(v)
     smem_max = SMEM_MAX
@@ -3081,6 +3095,11 @@ def _rounds_shape(lib, kernel: str, NL: int, v: TablesView):
     elif kernel == "k11":
         smem_of = lambda C: lib.affinity_rounds_smem(vr, C)  # noqa: E731
         occ_of, smem_max = lib.affinity_rounds_occupancy, int(lib.affinity_rounds_smem_max())
+    elif kernel in ("k8", "k8_tail"):
+        tail = int(kernel == "k8_tail")
+        smem_of = lambda C: lib.wave_sharded_smem(C)  # noqa: E731
+        occ_of = lambda C, smem, out: lib.wave_sharded_occupancy(tail, C, smem, out)  # noqa: E731
+        smem_max = int(lib.wave_sharded_smem_max())
     elif kernel in ("k9", "k9_tail"):
         tail = int(kernel == "k9_tail")
         smem_of = ((lambda C: lib.affinity_sharded_tail_smem(vr, C)) if tail  # noqa: E731
@@ -3090,6 +3109,9 @@ def _rounds_shape(lib, kernel: str, NL: int, v: TablesView):
     elif kernel == "k12":
         smem_of, occ_of = (lambda C: lib.batch_sharded_smem(vr, C)), lib.batch_sharded_occupancy
         smem_max = int(lib.batch_sharded_smem_max())
+    elif kernel == "k13":
+        smem_of, occ_of = (lambda C: lib.gs_sharded_smem(vr, C)), lib.gs_sharded_occupancy
+        smem_max = int(lib.gs_sharded_smem_max())
     else:
         raise ValueError(f"no cluster stages of {kernel!r}")
 
@@ -3228,7 +3250,7 @@ def schedule_affinity_wave_sharded_kernel(tb: Tables, cry: Carry, g: int, m: int
                   lib.affinity_sharded_tail_launch, v, g, m, block, mesh, (N, sl.start, sl.stop),
                   state, j, fs, iscr, part, pay, (_ptr(state), Cb, smem_b),
                   (int(bool(ss_live)), int(block), N), fn, table_args=(Cb, smem_b),
-                  tail_post=(_ptr(cs), Ct, smem_t))
+                  tail_post=(_ptr(cs), Ct, smem_t), front_lead=(int(block),))
     return j, state[0], state[2:5]
 
 
@@ -3464,9 +3486,11 @@ def schedule_group_serial_sharded_kernel(tb: Tables, cry: Carry, g: int, valid, 
     nodes. Setup once, then per valid pod the front (with the previous
     pod's commit), all_gather_rows #1, with sa_live the sa stage and pmax
     #1b, the score, all_gather_rows #2; one finish launch commits the last
-    pod. The host reads nothing per pod. Returns (the block's per-node
-    counts [NL] i32, placed as a 0-dim i32 tensor, equal on every rank), on
-    the card; `cry` is only read."""
+    pod. Every stage is one thread-block cluster over the block, its shape
+    from ops/cluster.py (recorded in `last_shape`). The host reads nothing
+    per pod. Returns (the block's per-node counts [NL] i32, placed as a
+    0-dim i32 tensor, equal on every rank), on the card; `cry` is only
+    read."""
     from ..parallel.collectives import all_gather_rows, pmax
     from . import build
 
@@ -3476,6 +3500,9 @@ def schedule_group_serial_sharded_kernel(tb: Tables, cry: Carry, g: int, valid, 
     lo, R = mesh.rank * NL, mesh.shards
     v = _view(tb, cry, n_zones, w, filters)
     vr = ctypes.byref(v)
+    fn = schedule_group_serial_sharded_kernel
+    shape = fn.last_shape = _rounds_shape(lib, "k13", NL, v)
+    C, smem = shape.C, shape.smem
     G, ss, sa = int(g), int(bool(ss_live)), int(bool(sa_live))
     fs = torch.empty(int(lib.gs_sharded_scratch_floats(vr)), dtype=_F32, device=dev)
     iscr = torch.empty(int(lib.gs_sharded_scratch_ints(vr)), dtype=torch.int32, device=dev)
@@ -3484,29 +3511,29 @@ def schedule_group_serial_sharded_kernel(tb: Tables, cry: Carry, g: int, valid, 
     part = torch.empty(k1, dtype=_F32, device=dev)
     part_b = torch.empty(2, dtype=_F32, device=dev)
     row2 = torch.empty((1, 2 + v.Sd + v.Ss), dtype=torch.float64, device=dev)
-    fn = schedule_group_serial_sharded_kernel
-    _sharded_launch(lib.gs_sharded_setup_launch, vr, G, int(bool(cap1)), _ptr(fs), _ptr(iscr))
+    _sharded_launch(lib.gs_sharded_setup_launch, vr, G, int(bool(cap1)), _ptr(fs), _ptr(iscr),
+                    C, smem)
     fn.launches += 1
     prev = None
     for ok in torch.as_tensor(valid).tolist():
         if not ok:  # padded pod: commits nothing
             continue
         _sharded_launch(lib.gs_sharded_front_launch, vr, G, lo, R, ss, sa, _ptr_or_null(prev),
-                        _ptr(fs), _ptr(iscr), _ptr(part))
+                        _ptr(fs), _ptr(iscr), _ptr(part), C, smem)
         rows = all_gather_rows(part[None], mesh)
         sa_red = None
         if sa:
             _sharded_launch(lib.gs_sharded_sa_launch, vr, G, R, _ptr(rows), k1, mk, _ptr(fs),
-                            _ptr(iscr), _ptr(part_b))
+                            _ptr(iscr), _ptr(part_b), C, smem)
             sa_red = pmax(part_b, mesh)
             fn.launches += 1
         _sharded_launch(lib.gs_sharded_score_launch, vr, G, lo, R, ss, sa, _ptr(rows), k1,
-                        _ptr_or_null(sa_red), _ptr(fs), _ptr(iscr), _ptr(row2))
+                        _ptr_or_null(sa_red), _ptr(fs), _ptr(iscr), _ptr(row2), C, smem)
         fn.launches += 2
         prev = all_gather_rows(row2, mesh)
     if prev is not None:
         _sharded_launch(lib.gs_sharded_finish_launch, vr, G, lo, R, sa, _ptr(prev), _ptr(fs),
-                        _ptr(iscr))
+                        _ptr(iscr), C, smem)
         fn.launches += 1
     off = int(lib.gs_sharded_j_offset(vr))
     return iscr[off:off + NL].clone(), iscr[off + NL]

@@ -36,14 +36,19 @@ partitioned phases run them) time K10 on the first wave segment of the
 northstar cluster (10,000 nodes, 100,000 pods) and K11 on the affinity
 cluster's hostname and zone spreads at the default epoch limit, K9 on the
 same two spreads with OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES=8192 (the
-epoch path), and K12 on the first 256 pods of the hard shape (5,000 nodes)
-and of the extended cluster (EXT), stage by stage with CUDA events
+epoch path), K8 on the extended cluster's first 1-GPU wave (N 2,048, EXT),
+on overflow_waves' first wave (N 128) and with the limit at 16,384 on the
+northstar cluster's first wave (N 10,240), K12 on the first 256 pods of the
+hard shape (5,000 nodes) and of the extended cluster (EXT), and K13 on the
+spread cluster's ScheduleAnyway, SelectorSpread and DoNotSchedule segments
+(its first 2,000 pods, N 5,120; `--cases K8,K13` times only the kernels
+named), stage by stage with CUDA events
 (kernels.SHARDED_STAGE_EVENTS; the two ranks' launches interleave on the
 card, so a stage's events include the other rank's time slices, and a
 stage launched after a host read or a collective also the launch's host
 latency) and with torch.profiler (each kernel's device time alone), per
 round, epoch or pod by the host clock, and prints the root's `ptxas -v`
-lines of K8-K12.
+lines of K8-K13.
 """
 
 from __future__ import annotations
@@ -91,7 +96,9 @@ def main() -> int:
     ap.add_argument("--kernels", action="store_true",
                     help="time K2, K3, K4 and K5 and print ptxas lines")
     ap.add_argument("--mesh-kernels", action="store_true",
-                    help="time K9 - K12 on two ranks and print K8-K12's ptxas lines")
+                    help="time K8 - K13 on two ranks and print their ptxas lines")
+    ap.add_argument("--cases", default="K8,K9,K10,K11,K12,K13",
+                    help="the mesh kernels --mesh-kernels times")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("kinds", nargs="*", default=["hard_waves", "overflow_waves", "affinity"])
     args = ap.parse_args()
@@ -112,7 +119,7 @@ def main() -> int:
     if args.kernels:
         return kernel_times(synth, args.root, args.reps)
     if args.mesh_kernels:
-        return mesh_kernel_times(args.root, args.reps)
+        return mesh_kernel_times(args.root, args.reps, args.cases.split(","))
     for kind in args.kinds:
         if kind in synth.CAPACITY_SCENARIOS:
             continue  # the search warms up on its first run
@@ -350,7 +357,7 @@ def kernel_times(synth, root: str, reps: int) -> int:
 
 
 def _mesh_case(kernel, stats_of, reps: int) -> dict:
-    """One K9 - K12 call timed `reps` times after a warm-up: the host clock
+    """One K8 - K13 call timed `reps` times after a warm-up: the host clock
     per round, epoch or pod (`stats_of(result)` of them a call) and each
     stage's CUDA-event milliseconds per round, epoch or pod."""
     import torch
@@ -369,7 +376,7 @@ def _mesh_case(kernel, stats_of, reps: int) -> dict:
     stages = {k: sum(a.elapsed_time(b) for a, b in v) / (reps * steps)
               for k, v in events.items() if "setup" not in k}
     shape = getattr(kernel.wrapper, "last_shape", None)  # None: a single-block checkout
-    if isinstance(shape, dict):  # K9: its block stages' and its tail's
+    if isinstance(shape, dict):  # K8, K9: their block stages' and their tail's
         C = {k: v.C for k, v in shape.items()}
     else:
         C = shape.C if shape is not None else 1
@@ -379,7 +386,7 @@ def _mesh_case(kernel, stats_of, reps: int) -> dict:
 
 
 def _device_ms(kernel, steps: int, reps: int) -> dict:
-    """Each K8-K12 kernel's device time per round, epoch or pod over `reps`
+    """Each K8-K13 kernel's device time per round, epoch or pod over `reps`
     calls under torch.profiler (CUPTI: the kernels alone, without the gaps
     a host-side launch leaves after the collectives and host reads, which
     the CUDA events of the stages hold); {} where the profiler records no
@@ -398,13 +405,51 @@ def _device_ms(kernel, steps: int, reps: int) -> dict:
         us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
         name = e.key.split("(")[0].replace("void ", "")
         if us and any(k in name for k in ("wave_rounds", "affinity_rounds", "wave_sharded",
-                                          "affinity_sharded", "batch_sharded")):
+                                          "affinity_sharded", "batch_sharded", "gs_sharded")):
             out[name] = out.get(name, 0.0) + us / 1e3 / steps
     return out
 
 
-def _mesh_rank(mesh, reps: int) -> dict:
-    """K9 - K12 on this rank's block (see the module's docstring)."""
+class _limit:
+    """OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES at `value` inside the block."""
+
+    name = "OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES"
+
+    def __init__(self, value: int) -> None:
+        self.value = str(value)
+
+    def __enter__(self):
+        self.prev = os.environ.get(self.name)
+        os.environ[self.name] = self.value
+
+    def __exit__(self, *exc) -> None:
+        if self.prev is None:
+            del os.environ[self.name]
+        else:
+            os.environ[self.name] = self.prev
+
+
+def _wave_case(mesh, tb, seed, seg, N: int, reps: int, kernel) -> dict:
+    """K8 or K10 (`kernel`) on this rank's block of one wave segment, per
+    epoch or round."""
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.parallel.mesh import block_of
+
+    _, _, m, g, cap1, flag = seg[:6]
+    block = K.wave_block_for(m, N)
+    kw = dict(block=block, kmax=K.wave_kmax(m, N, block), gpu_live=bool(flag))
+    tbl, seedl = block_of(tb, seed, mesh)
+
+    def run():
+        return kernel(tbl, seedl, g, m, cap1, mesh=mesh, **kw)
+
+    run.wrapper = kernel
+    return _mesh_case(run, lambda r: int(r[2][0]), reps)
+
+
+def _mesh_rank(mesh, reps: int, cases: list) -> dict:
+    """K8 - K13 on this rank's block (see the module's docstring): the
+    kernels named in `cases`."""
     from open_simulator_torch.core.types import ResourceTypes
     from open_simulator_torch.ops import kernels as K
     from open_simulator_torch.parallel.mesh import block_of
@@ -412,60 +457,99 @@ def _mesh_rank(mesh, reps: int) -> dict:
 
     synth = _synth()
     out = {}
-    nodes, pods = synth.synth_cluster(10000, 100000)
-    sim = Simulator(nodes, device="cuda", use_mesh=False)
-    bt = sim.encode_batch(pods)
-    tb, seed = sim._to_device(bt)
-    _, _, m, g, cap1, flag = next(s for s in sim._segments(bt, len(pods)) if s[0] == "wave")[:6]
-    block = K.wave_block_for(m, sim.na.N)
-    kw = dict(block=block, kmax=K.wave_kmax(m, sim.na.N, block), gpu_live=bool(flag))
-    tbl, seedl = block_of(tb, seed, mesh)
+    if "K10" in cases or "K8" in cases:
+        nodes, pods = synth.synth_cluster(10000, 100000)
+        sim = Simulator(nodes, device="cuda", use_mesh=False)
+        bt = sim.encode_batch(pods)
+        tb, seed = sim._to_device(bt)
+        seg = next(s for s in sim._segments(bt, len(pods)) if s[0] == "wave")
+        if "K10" in cases:
+            out["K10 northstar first wave"] = _wave_case(mesh, tb, seed, seg, sim.na.N, reps,
+                                                         K.schedule_wave_rounds_kernel)
+        if "K8" in cases:
+            with _limit(16384):  # the epoch path at N 10,240
+                out["K8 northstar first wave"] = _wave_case(mesh, tb, seed, seg, sim.na.N, reps,
+                                                            K.schedule_wave_sharded_kernel)
+            del sim, bt, tb, seed
+            for label, (gen, n_nodes, n_pods) in (("extended first 1-GPU wave",
+                                                   KINDS["extended"]),
+                                                  ("overflow_waves first wave",
+                                                   KINDS["overflow_waves"])):
+                nodes, pods, _, scs = workload(synth, gen, n_nodes, n_pods)
+                sim = Simulator(nodes, device="cuda", use_mesh=False)
+                sim.register_cluster_objects(ResourceTypes(storage_classes=list(scs)))
+                bt = sim.encode_batch(pods)
+                tb, seed = sim._to_device(bt)
+                seg = next(s for s in sim._segments(bt, len(pods))
+                           if s[0] == "wave" and (s[5] or gen != "extended"))
+                out[f"K8 {label}" + (" EXT" if seg[5] else "")] = _wave_case(
+                    mesh, tb, seed, seg, sim.na.N, reps, K.schedule_wave_sharded_kernel)
+    if "K11" in cases or "K9" in cases:
+        nodes, pods, services = synth.synth_affinity_cluster(5000, 20000)
+        sim = Simulator(nodes, device="cuda", use_mesh=False)
+        sim.register_cluster_objects(ResourceTypes(services=list(services)))
+        bt = sim.encode_batch(pods)
+        tb, seed = sim._to_device(bt)
+        segs = sim._segments(bt, len(pods))
+        tbl, seedl = block_of(tb, seed, mesh)
+        for kname, wrapper, limit in (("K11", K.schedule_affinity_wave_rounds_kernel, None),
+                                      ("K9", K.schedule_affinity_wave_sharded_kernel, 8192)):
+            if kname not in cases:
+                continue
+            for label, seg in (("hostname spread", segs[1]), ("zone spread", segs[3])):
+                _, _, m, g, cap1, ss_live = seg[:6]
+                kw = dict(ss_live=bool(ss_live), block=K.wave_block_for(m, sim.na.N),
+                          n_zones=bt.n_zones if ss_live else 2)
 
-    def k10():
-        return K.schedule_wave_rounds_kernel(tbl, seedl, g, m, cap1, mesh=mesh, **kw)
+                def run(m=m, g=g, cap1=cap1, kw=kw, wrapper=wrapper):
+                    return wrapper(tbl, seedl, g, m, cap1, mesh=mesh, **kw)
 
-    k10.wrapper = K.schedule_wave_rounds_kernel
-    out["K10 northstar first wave"] = _mesh_case(k10, lambda r: int(r[2][0]), reps)
-    nodes, pods, services = synth.synth_affinity_cluster(5000, 20000)
+                run.wrapper = wrapper
+                if limit is None:
+                    out[f"{kname} affinity {label}"] = _mesh_case(run, lambda r: int(r[2][0]),
+                                                                  reps)
+                else:  # the epoch path (K9) at N 5,120
+                    with _limit(limit):
+                        out[f"{kname} affinity {label}"] = _mesh_case(
+                            run, lambda r: int(r[2][0]), reps)
+    if "K12" in cases:
+        out.update(_k12_cases(synth, mesh, reps))
+    if "K13" in cases:
+        out.update(_k13_cases(synth, mesh, reps))
+    return {"rank": mesh.rank, "cases": out}
+
+
+def _k13_cases(synth, mesh, reps: int) -> dict:
+    """K13 on this rank's block of the spread cluster's (5,000 nodes, its
+    first 2,000 pods) ScheduleAnyway, SelectorSpread and DoNotSchedule
+    segments, each from the seed carry, per pod."""
+    import torch
+
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.parallel.mesh import block_of
+    from open_simulator_torch.simulator.engine import Simulator
+
+    nodes, pods, services = synth.synth_spread_cluster(5000, 20000)
+    pods = pods[:2000]
     sim = Simulator(nodes, device="cuda", use_mesh=False)
     sim.register_cluster_objects(ResourceTypes(services=list(services)))
     bt = sim.encode_batch(pods)
     tb, seed = sim._to_device(bt)
-    segs = sim._segments(bt, len(pods))
     tbl, seedl = block_of(tb, seed, mesh)
-    for label, seg in (("hostname spread", segs[1]), ("zone spread", segs[3])):
-        _, _, m, g, cap1, ss_live = seg[:6]
-        kw11 = dict(ss_live=bool(ss_live), block=K.wave_block_for(m, sim.na.N),
-                    n_zones=bt.n_zones if ss_live else 2)
+    out = {}
+    for _, _, m, g, cap1, ss, sa in [s for s in sim._segments(bt, len(pods))
+                                     if s[0] == "spread"][:3]:
+        label = "sa_live" if sa else "ss_live" if ss else "dns"
+        vd = torch.ones(m, dtype=torch.bool)
+        kw = dict(ss_live=bool(ss), sa_live=bool(sa), n_zones=bt.n_zones if ss else 2)
 
-        def k11(m=m, g=g, cap1=cap1, kw11=kw11):
-            return K.schedule_affinity_wave_rounds_kernel(tbl, seedl, g, m, cap1, mesh=mesh,
-                                                          **kw11)
+        def run(m=m, g=g, cap1=cap1, vd=vd, kw=kw):
+            return K.schedule_group_serial_sharded_kernel(tbl, seedl, g, vd, cap1, mesh, **kw)
 
-        k11.wrapper = K.schedule_affinity_wave_rounds_kernel
-        out[f"K11 affinity {label}"] = _mesh_case(k11, lambda r: int(r[2][0]), reps)
-    limit, prev = "OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES", os.environ.get(
-        "OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES")
-    os.environ[limit] = "8192"  # the epoch path (K9) at N 5,120
-    try:
-        for label, seg in (("hostname spread", segs[1]), ("zone spread", segs[3])):
-            _, _, m, g, cap1, ss_live = seg[:6]
-            kw9 = dict(ss_live=bool(ss_live), block=K.wave_block_for(m, sim.na.N),
-                       n_zones=bt.n_zones if ss_live else 2)
-
-            def k9(m=m, g=g, cap1=cap1, kw9=kw9):
-                return K.schedule_affinity_wave_sharded_kernel(tbl, seedl, g, m, cap1, mesh=mesh,
-                                                               **kw9)
-
-            k9.wrapper = K.schedule_affinity_wave_sharded_kernel
-            out[f"K9 affinity {label}"] = _mesh_case(k9, lambda r: int(r[2][0]), reps)
-    finally:
-        if prev is None:
-            del os.environ[limit]
-        else:
-            os.environ[limit] = prev
-    out.update(_k12_cases(synth, mesh, reps))
-    return {"rank": mesh.rank, "cases": out}
+        run.wrapper = K.schedule_group_serial_sharded_kernel
+        out[f"K13 spread {label}"] = _mesh_case(run, lambda r, m=m: m, reps)
+    return out
 
 
 def _k12_cases(synth, mesh, reps: int) -> dict:
@@ -502,7 +586,7 @@ def _k12_cases(synth, mesh, reps: int) -> dict:
     return out
 
 
-def mesh_kernel_times(root: str, reps: int) -> int:
+def mesh_kernel_times(root: str, reps: int, cases: list) -> int:
     import tempfile
 
     from open_simulator_torch.parallel.launch import run_ranks
@@ -510,11 +594,11 @@ def mesh_kernel_times(root: str, reps: int) -> int:
     card = _card()
     print(json.dumps({"root": os.path.abspath(root), "card": card, "ptxas": _ptxas_lines(
         ("wave_sharded", "affinity_sharded", "wave_rounds", "affinity_rounds",
-         "batch_sharded"))}), flush=True)
+         "batch_sharded", "gs_sharded"))}), flush=True)
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as rdzv:
-        ranks = run_ranks(_mesh_rank, 2, rdzv, args=(reps,), device="cuda", backend="gloo",
-                          timeout_s=900)
+        ranks = run_ranks(_mesh_rank, 2, rdzv, args=(reps, cases), device="cuda",
+                          backend="gloo", timeout_s=900)
     for r in ranks:
         print(json.dumps({"root": os.path.abspath(root), "reps": reps, "card": card, **r}),
               flush=True)

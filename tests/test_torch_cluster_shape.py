@@ -1,12 +1,12 @@
-"""The launch-shape rule of the cluster kernels K2 - K5 and K9 - K12
+"""The launch-shape rule of the cluster kernels K2 - K5 and K8 - K13
 (open_simulator_torch/ops/cluster.py), as plain Python: the card's occupancy
 answer and the library's shared-memory size are models passed in, so nothing
 here needs a card. The tables' axes are the ones the encoder pads to, and
 tests/test_torch_cuda.py holds `smem_model` and `rounds_smem_model` against
 the library's own schedule_batch_smem / group_serial_smem /
 schedule_wave_smem / affinity_wave_smem / wave_rounds_smem /
-affinity_rounds_smem / affinity_sharded_smem / affinity_sharded_tail_smem /
-batch_sharded_smem on the card."""
+affinity_rounds_smem / wave_sharded_smem / affinity_sharded_smem / affinity_sharded_tail_smem / batch_sharded_smem /
+gs_sharded_smem on the card."""
 
 import functools
 
@@ -34,13 +34,16 @@ K5_LIVE_ROWS = 8    # K5's live rows [Sd + A + B + Ca + Cw + 1] of a typical bat
 # K11's bound (csrc/affinity_rounds.cu K11_SMEM_MAX): its CTAs hold the term
 # slots in static shared memory too
 K11_SMEM_MAX = cluster.SMEM_MAX - 8_192
-# K9's and K12's bound (csrc/affinity_sharded.cu K9_SMEM_MAX,
-# csrc/batch_sharded.cu K12_SMEM_MAX): the term slots or PodCtx and the
-# stage's StageShared in static shared memory
-K9_SMEM_MAX = K12_SMEM_MAX = cluster.SMEM_MAX - 16_384
-SMEM_MAX_OF = {"k10": cluster.SMEM_MAX, "k11": K11_SMEM_MAX, "k9": K9_SMEM_MAX,
-               "k9_tail": K9_SMEM_MAX, "k12": K12_SMEM_MAX}
+# K8's, K9's, K12's and K13's bound (csrc/wave_sharded.cu K8_SMEM_MAX,
+# csrc/affinity_sharded.cu K9_SMEM_MAX, csrc/batch_sharded.cu K12_SMEM_MAX,
+# csrc/group_serial_sharded.cu K13_SMEM_MAX): the term slots or PodCtx and
+# the stage's StageShared in static shared memory
+K8_SMEM_MAX = K9_SMEM_MAX = K12_SMEM_MAX = K13_SMEM_MAX = cluster.SMEM_MAX - 16_384
+SMEM_MAX_OF = {"k10": cluster.SMEM_MAX, "k11": K11_SMEM_MAX, "k8": K8_SMEM_MAX,
+               "k8_tail": K8_SMEM_MAX, "k9": K9_SMEM_MAX, "k9_tail": K9_SMEM_MAX,
+               "k12": K12_SMEM_MAX, "k13": K13_SMEM_MAX}
 PART_HEAD = 11  # K12's partial vector head (csrc/batch_sharded.cu)
+GS_HEAD = 9     # K13's (csrc/group_serial_sharded.cu Q_HEAD)
 
 
 def wave_smem_model(kernel: str, N: int, C: int, Z: int, D1: int) -> int:
@@ -61,9 +64,11 @@ def wave_smem_model(kernel: str, N: int, C: int, Z: int, D1: int) -> int:
     return fixed + (rows if rows_on else 0) + (live if live_on else 0)
 
 
-def rounds_smem_model(kernel: str, C: int, Cw: int = 0, Z: int = 2, Ss: int = 2) -> int:
-    """A CTA's dynamic shared memory in K9's, K10's, K11's and K12's
-    stages: the round slots [2][C][W], W a radix histogram's words (and for
+def rounds_smem_model(kernel: str, C: int, Cw: int = 0, Z: int = 2, Ss: int = 2,
+                      Sd: int = 0) -> int:
+    """A CTA's dynamic shared memory in K8's - K13's stages: the round
+    slots [2][C][W], W a radix histogram's words (K8's block stages and its
+    tail, K10's), and for
     K11 at least the front's row: the stacked vector of 18 + 2 Cw maxima,
     four flags and the Z zone sums), then K11's row partials [W]. K9's
     block stages: W the stacked vector (18 + 2 Cw), then the CTA's maxima
@@ -71,9 +76,15 @@ def rounds_smem_model(kernel: str, C: int, Cw: int = 0, Z: int = 2, Ss: int = 2)
     each), then W a histogram's words or round 1's 4 + Z, fin [W] and
     round 1's row [4 + Z]; K12's stages: W the front's row (11 maxima and
     the Z zone sums) or the sa stage's Ss counts, fin and the CTA's row [W]
-    each. Nothing grows with the block's nodes or the table's depth."""
-    if kernel == "k10":
+    each; K13's stages: W the DoNotSchedule minima (Sd), the front's row (9
+    maxima and the Z zone sums) or the sa stage's Ss counts, fin and the
+    CTA's row [W] each. Nothing grows with the block's nodes or the table's
+    depth."""
+    if kernel in ("k10", "k8", "k8_tail"):
         return 4 * 2 * C * RX_WORDS
+    if kernel == "k13":
+        W = max(GS_HEAD + Z, Sd, Ss)
+        return 4 * (2 * C * W + 2 * W)
     if kernel == "k9":
         W = 18 + 2 * Cw
         return 4 * (2 * C * W + W)
@@ -216,21 +227,22 @@ ROUND_NLS = (1_024, 2_560, 5_120, 50_176, 500_000)
 
 
 @pytest.mark.parametrize("model", sorted(MODELS))
-@pytest.mark.parametrize("kernel", ["k10", "k11", "k9", "k9_tail", "k12"])
+@pytest.mark.parametrize("kernel", ["k10", "k11", "k8", "k8_tail", "k9", "k9_tail", "k12",
+                                    "k13"])
 @pytest.mark.parametrize("B", [8, 16, 64])
 @pytest.mark.parametrize("R", [2, 4])
 @pytest.mark.parametrize("NL", ROUND_NLS)
 def test_round_stage_shape(NL, R, B, kernel, model):
-    """Every stage of K10 / K11, K9's setup, front and table and K12's
-    stages over a rank's block, and K9's tail over the mesh's N = NL * R
-    nodes, take the rule's shape: one cluster, the candidate with the
+    """Every stage of K10 / K11 / K13, K8's and K9's setup, front and table
+    and K12's stages over a rank's block, and K8's and K9's tails over the
+    mesh's N = NL * R nodes, take the rule's shape: one cluster, the candidate with the
     fewest nodes a thread (ties to the smaller C), never refused (no N, NL,
     B or D+1 is), more than one CTA at every block of 1,024 nodes or more,
     and the same shape at every table depth B (the stages' shared memory
     holds no table)."""
     Ss, Z, _ = encoder_axes()
-    n = NL * R if kernel == "k9_tail" else NL
-    smem_of = lambda C: rounds_smem_model(kernel, C, Cw=2, Z=Z, Ss=Ss)  # noqa: E731
+    n = NL * R if kernel in ("k8_tail", "k9_tail") else NL
+    smem_of = lambda C: rounds_smem_model(kernel, C, Cw=2, Z=Z, Ss=Ss, Sd=2)  # noqa: E731
     smem_max = SMEM_MAX_OF[kernel]
     occ = _occupancy(model)
     assert all(smem_of(C) <= smem_max for C in cluster.SIZES)
@@ -245,9 +257,12 @@ def test_round_stage_shape(NL, R, B, kernel, model):
         assert shape.C == (16 if model == "gpc_18_16" else 8)
     if n == 1_024:
         assert shape.C == 2 and shape.nodes_per_thread == 1
-    if kernel == "k9_tail" and n == 5_120 and model == "gpc_18_16":
+    if kernel in ("k8_tail", "k9_tail") and n == 5_120 and model == "gpc_18_16":
         # the affinity cluster's tail on two ranks: clusters of 16, one node a thread
         assert shape.C == 16 and shape.nodes_per_thread == 1
+    if kernel == "k13" and NL == 2_560 and model == "gpc_18_16":
+        # spread's block on two ranks: clusters of 8, one node a thread
+        assert shape.C == 8 and shape.nodes_per_thread == 1
     assert shape == cluster.choose(n * R // R, 1, smem_of, occ, smem_max=smem_max)
 
 
@@ -262,3 +277,31 @@ def test_round_stage_smem_grows_with_the_rounds_only(kernel):
         shape = cluster.choose(50_176, 1, smem_of, _occupancy("gpc_18_16"),
                                smem_max=K11_SMEM_MAX)
         assert shape.C == 8 and smem_of(16) > K11_SMEM_MAX
+
+
+@pytest.mark.parametrize("kernel", ["k8", "k8_tail", "k13"])
+def test_scan_and_epoch_stage_smem_grows_with_the_rounds_only(kernel):
+    """K8's block stages and tail hold a radix histogram's round slots, the
+    same at every block, node count and table depth; K13's slot widens with
+    the zone axis (and the DoNotSchedule and ScheduleAnyway slots) only, so
+    that a smaller cluster still fits at 2,000 zones, and a shape that fits
+    at no cluster size raises."""
+    occ = _occupancy("gpc_18_16")
+    if kernel != "k13":
+        assert rounds_smem_model(kernel, 16) == 32_768
+        for n in (128, 2_048, 10_240):
+            shape = cluster.choose(n, 1, lambda C: rounds_smem_model(kernel, C), occ,
+                                   smem_max=K8_SMEM_MAX)
+            assert shape.smem == 4 * 2 * shape.C * RX_WORDS
+        assert cluster.choose(128, 1, lambda C: rounds_smem_model(kernel, C), occ,
+                              smem_max=K8_SMEM_MAX).C == 1  # overflow_waves: one CTA
+        return
+    assert rounds_smem_model("k13", 16) == 4 * (2 * 16 * 11 + 2 * 11)
+    assert rounds_smem_model("k13", 16, Z=200) > rounds_smem_model("k13", 16)
+    assert rounds_smem_model("k13", 16, Sd=40) == rounds_smem_model("k13", 16, Z=31)
+    smem_of = lambda C: rounds_smem_model("k13", C, Z=2_000)  # noqa: E731
+    shape = cluster.choose(2_560, 1, smem_of, occ, smem_max=K13_SMEM_MAX)
+    assert shape.C == 8 and smem_of(16) > K13_SMEM_MAX
+    with pytest.raises(ValueError, match="no cluster shape fits"):
+        cluster.choose(2_560, 1, lambda C: rounds_smem_model("k13", C, Z=20_000), occ,
+                       smem_max=K13_SMEM_MAX)

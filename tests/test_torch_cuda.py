@@ -641,9 +641,10 @@ def test_tail_kernel_matches_plain_tail_on_two_ranks(tmp_path):
 
 @pytest.mark.cuda
 def test_round_stage_smem_models_hold():
-    """The library's K9 - K12 stage shared memory (wave_rounds_smem,
-    affinity_rounds_smem, affinity_sharded_smem, affinity_sharded_tail_smem,
-    batch_sharded_smem and K9's, K11's and K12's bounds) is
+    """The library's K8 - K13 stage shared memory (wave_sharded_smem,
+    wave_rounds_smem, affinity_rounds_smem,
+    affinity_sharded_smem, affinity_sharded_tail_smem, batch_sharded_smem,
+    gs_sharded_smem and K8's, K9's, K11's, K12's and K13's bounds) is
     tests/test_torch_cluster_shape.py `rounds_smem_model` at every cluster
     size, on the view of a batch whose zone axis, carriers and
     ScheduleAnyway slots are the encoder's."""
@@ -663,8 +664,14 @@ def test_round_stage_smem_models_hold():
     assert lib.affinity_rounds_smem_max() == CS.K11_SMEM_MAX
     assert lib.affinity_sharded_smem_max() == CS.K9_SMEM_MAX
     assert lib.batch_sharded_smem_max() == CS.K12_SMEM_MAX
+    assert lib.wave_sharded_smem_max() == CS.K8_SMEM_MAX
+    assert lib.gs_sharded_smem_max() == CS.K13_SMEM_MAX
     vr = ctypes.byref(v)
     for C in cluster.SIZES:
+        assert lib.wave_sharded_smem(C) == CS.rounds_smem_model("k8", C) \
+            == CS.rounds_smem_model("k8_tail", C)
+        assert lib.gs_sharded_smem(vr, C) == CS.rounds_smem_model("k13", C, Z=v.Z, Ss=v.Ss,
+                                                                  Sd=v.Sd)
         assert lib.wave_rounds_smem(C) == CS.rounds_smem_model("k10", C)
         assert lib.affinity_rounds_smem(vr, C) == CS.rounds_smem_model("k11", C, Cw=v.Cw, Z=v.Z)
         assert lib.affinity_sharded_smem(vr, C) == CS.rounds_smem_model("k9", C, Cw=v.Cw)
@@ -782,6 +789,59 @@ def test_default_route_kernels_match_plain_on_two_ranks(tmp_path):
         assert r["same"], (name, r)
         assert r["launches"]["aggregate_commit_sharded"] > 0, (name, r)
     assert got[0]["engine"]["spread"]["launches"]["schedule_group_serial_sharded"] > 0
+
+
+@pytest.mark.cuda
+def test_group_serial_scan_kernel_on_cluster_blocks(tmp_path):
+    """K13 on two ranks that share cuda:0 over gloo, at blocks of 1,024 and
+    2,560 nodes (tests/torch_mesh_cases.py `card_k13_blocks`: clusters of 2
+    and 8 CTAs, as `last_shape` reports), against its plain version on the
+    same ranks and the unsharded K4, bit for bit (the block's counts and
+    placed), on segments with and without ScheduleAnyway terms, with two
+    all_gather_rows a pod and a pmax a ScheduleAnyway pod."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import torch_mesh_cases as C
+    from open_simulator_torch.ops import build
+    from open_simulator_torch.parallel.launch import run_ranks
+
+    build.library()  # build once, before the ranks load it
+    got = run_ranks(C.card_k13_blocks, 2, str(tmp_path), device="cuda", backend="gloo")
+    assert got[0] == got[1]
+    for r in got[0]:
+        assert r["C"] == r["want_C"], r
+        assert r["same_plain"] and r["same_unsharded"] and r["placed"] > 0, r
+        assert r["calls"] == {"pmax": r["m"] if r["sa_live"] else 0, "all_gather_tiled": 0,
+                              "all_gather_rows": 2 * r["m"]}, r
+    for NL in (1_024, 2_560):
+        assert {r["sa_live"] for r in got[0] if r["NL"] == NL} == {False, True}, NL
+
+
+@pytest.mark.cuda
+def test_wave_epoch_kernel_on_cluster_shapes(tmp_path):
+    """K8 on two ranks that share cuda:0 over gloo at N 128, 2,048 (EXT)
+    and 10,240 (tests/torch_mesh_cases.py `card_k8_clusters`: its block
+    stages and its tail on clusters of 1 / 1, 2 / 4 and 16 / 16 CTAs, as
+    `last_shape` reports), against its plain sharded version on the same
+    ranks and the unsharded K3, bit for bit (counts, placed, WAVE_STATS),
+    with one pmax and one tiled all-gather an epoch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import torch_mesh_cases as C
+    from open_simulator_torch.ops import build
+    from open_simulator_torch.parallel.launch import run_ranks
+
+    build.library()  # build once, before the ranks load it
+    got = run_ranks(C.card_k8_clusters, 2, str(tmp_path), device="cuda", backend="gloo")
+    assert got[0] == got[1]
+    for r in got[0]:
+        assert tuple(r["C"]) == tuple(r["want_C"]), r
+        assert r["same_plain"] and r["same_unsharded"], r
+        epochs = r["stats"][0]
+        assert r["calls"] == {"pmax": epochs, "all_gather_tiled": epochs,
+                              "all_gather_rows": 0}, r
+    assert {r["N"] for r in got[0]} == {128, 2_048, 10_240}
+    assert any(r["gpu_live"] for r in got[0])
 
 
 LANE_FANOUTS = ("probe_serial_fanout", "probe_wave_fanout", "probe_group_serial_fanout",

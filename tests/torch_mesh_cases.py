@@ -1555,6 +1555,130 @@ def card_default_route(mesh) -> dict:
     return {"segments": segs, "engine": engine}
 
 
+# K13's card blocks: (nodes of the spread cluster, NL nodes a rank, the C
+# that ops/cluster.py `choose` gives its stages: one node a thread)
+K13_BLOCKS = ((2_000, 1_024, 2), (5_000, 2_560, 8))
+
+
+def card_k13_blocks(mesh) -> list:
+    """On the card, at blocks of 1,024 and 2,560 nodes (K13_BLOCKS): K13 on
+    every group-serial segment of the spread cluster's first 600 pods (with
+    ScheduleAnyway terms, with a zoned SelectorSpread, with DoNotSchedule
+    terms only), against its plain version on the same ranks and the
+    unsharded K4, with the shape of its stages and its collective calls.
+    One record per segment."""
+    import torch
+
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.simulator.engine import Simulator
+
+    out = []
+    for n_nodes, NL, want in K13_BLOCKS:
+        nodes, pods, services = spread_workload(n_nodes=n_nodes)
+        sim = Simulator(nodes, device="cuda", use_mesh=False)
+        sim.register_cluster_objects(ResourceTypes(services=list(services)))
+        bt = sim.encode_batch(pods)
+        tb, cry = sim._to_device(bt)
+        assert tb.alloc.shape[0] == NL * mesh.shards
+        sl = slice(mesh.rank * NL, (mesh.rank + 1) * NL)
+        for seg in sim._segments(bt, len(pods)):
+            kind, _, m, g, cap1 = seg[:5]
+            if kind == "spread":
+                ss, sa = bool(seg[5]), bool(seg[6])
+                kw = dict(ss_live=ss, sa_live=sa, n_zones=bt.n_zones if ss else 2)
+                vd = _seg_valid(m)
+                tbl, cryl = on_mesh(tb, cry, mesh)
+                mesh.reset_counts()
+                kj, kp = K.schedule_group_serial_sharded_kernel(tbl, cryl, g, vd, bool(cap1),
+                                                                mesh, **kw)
+                calls = _calls(mesh)
+                shape = K.schedule_group_serial_sharded_kernel.last_shape
+                pj, pp = K.schedule_group_serial_sharded_plain(tbl, cryl, g, vd, bool(cap1), mesh,
+                                                               **kw)
+                uj, up = K.schedule_group_serial_kernel(tb, cry, g, vd.cuda(), bool(cap1), **kw)
+                out.append({"NL": NL, "C": shape.C, "want_C": want, "m": m, "ss_live": ss,
+                            "sa_live": sa, "placed": int(kp), "calls": calls,
+                            "same_plain": bool(torch.equal(kj, pj)) and int(kp) == pp,
+                            "same_unsharded": bool(torch.equal(kj, uj[sl]))
+                            and int(kp) == int(up)})
+                j = uj
+            elif kind == "wave":
+                block = K.wave_block_for(m, sim.na.N)
+                j = K.schedule_wave_kernel(tb, cry, g, m, bool(cap1), block=block,
+                                           kmax=K.wave_kmax(m, sim.na.N, block),
+                                           gpu_live=bool(seg[5]))[0]
+            else:
+                continue
+            cry = K.aggregate_commit(tb, cry, g, j)
+    return out
+
+
+# K8's card clusters: (label, the mesh's N, the C of its block stages and of
+# its tail that ops/cluster.py `choose` gives them, pods of the cluster)
+K8_CLUSTERS = (("overflow_waves", 128, 1, 1, 3_000), ("extended_1gpu", 2_048, 2, 4, 2_500),
+               ("northstar", 10_240, 16, 16, 20_000))
+
+
+def card_k8_clusters(mesh) -> list:
+    """On the card, the epoch path at the limit 16,384: K8 on the first wave
+    segments (up to three) of overflow_waves' cluster (N 128: clusters of 1),
+    on the extended cluster's first 1-GPU wave (N 2,048, EXT) and on the
+    northstar shape's first waves (N 10,240, B 64: the gathered rows in
+    global memory), against its plain sharded version on the same ranks
+    and the unsharded K3, with the shapes of its block stages and its tail
+    and its collective calls. One record per segment."""
+    import torch
+
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.simulator.engine import Simulator
+    from open_simulator_torch.utils.synth import synth_cluster, synth_extended_cluster
+
+    out = []
+    with epoch_limit(16384):
+        for label, N, want_b, want_t, n_pods in K8_CLUSTERS:
+            scs = []
+            if label == "overflow_waves":
+                nodes, pods = synth_cluster(100, n_pods, hard_predicates=True)
+            elif label == "extended_1gpu":
+                nodes, pods, _, scs = synth_extended_cluster(2000, 20000)
+                pods = pods[:n_pods]
+            else:
+                nodes, pods = synth_cluster(10000, n_pods)
+            sim = Simulator(nodes, device="cuda", use_mesh=False)
+            sim.register_cluster_objects(ResourceTypes(storage_classes=list(scs)))
+            bt = sim.encode_batch(pods)
+            tb, cry = sim._to_device(bt)
+            assert tb.alloc.shape[0] == N
+            waves = [s for s in sim._segments(bt, len(pods)) if s[0] == "wave"]
+            if label == "extended_1gpu":
+                waves = [next(s for s in waves if s[5])]
+            for seg in waves[:3]:
+                _, _, m, g, cap1, gpu_live = seg[:6]
+                block = K.wave_block_for(m, sim.na.N)
+                kw = dict(block=block, kmax=K.wave_kmax(m, sim.na.N, block),
+                          gpu_live=bool(gpu_live))
+                tbl, cryl = on_mesh(tb, cry, mesh)
+                mesh.reset_counts()
+                kj, kp, kst = K.schedule_wave_sharded_kernel(tbl, cryl, g, m, bool(cap1),
+                                                             mesh=mesh, **kw)
+                calls = _calls(mesh)
+                shape = K.schedule_wave_sharded_kernel.last_shape
+                pj, pp, pst = K.schedule_wave_plain(tbl, cryl, g, m, bool(cap1), mesh=mesh, **kw)
+                uj, up, ust = K.schedule_wave_kernel(tb, cry, g, m, bool(cap1), **kw)
+                out.append({"cluster": label, "N": N, "block": block, "m": m,
+                            "gpu_live": bool(gpu_live),
+                            "C": (shape["block"].C, shape["tail"].C), "want_C": (want_b, want_t),
+                            "stats": kst.tolist(), "calls": calls,
+                            "same_plain": bool(torch.equal(kj, pj)) and int(kp) == pp
+                            and kst.tolist() == [pst[k] for k in K.WAVE_STATS],
+                            "same_unsharded": bool(torch.equal(kj, uj)) and int(kp) == int(up)
+                            and kst.tolist() == ust.tolist()})
+                cry = K.aggregate_commit(tb, cry, g, uj, bool(gpu_live))
+    return out
+
+
 def block_scans(mesh, tables: list) -> list:
     """On tables given as numpy arrays (the JAX package's encode of a
     batch: every Tables field and every carry field's `seed_` array), each
