@@ -55,7 +55,8 @@ package computed (tests/golden/torch_port_*.json):
   (the recorder only observes) and against the JAX package's traces of the
   same runs (tests/golden/torch_port_xray_*.json: every decision set's
   arrays, the set records and the pod rows, bit for bit). K7
-  (`explain_jit`) runs once per decision set; before that phase line, K7 is
+  (`explain_jit`, one thread-block cluster over the nodes; the phase line
+  shows its shape) runs once per decision set; before that phase line, K7 is
   held against the plain `explain_pod` on the card for every set without a
   feasible node and a seeded sample of 32 others. The phase prints the
   recording-on and -off walls and the encode and host-commit seconds the
@@ -308,16 +309,22 @@ def k3_cost(tb, cry, g: int, block: int, iterations: int) -> tuple:
     return shared, lane + 4 * N, ops
 
 
-def k3c_cost(tb, cry) -> tuple:
+def k3c_cost(tb, cry, out_of_place: bool = True) -> tuple:
     """(shared bytes, lane bytes, f32 operations) of one aggregate commit:
     the [U, N] domain maps read once (shared by lanes); the carry's
     requested, nonzero, counter and carrier read and written once and the
     counts read once (each lane's own); one multiply and one add per
-    element."""
+    element. Out of place (K3c since it writes a new carry) also the fields
+    it copies, each read and written once: port_used, dev_used, vg_req and
+    sdev_alloc (`out_of_place` False: the in-place commit of K14 and of
+    K3c's one-block form, which left them where they were)."""
     N, R = tb.alloc.shape
     D1 = cry.counter.shape[1]
     rows = N * R + 2 * N + (cry.counter.shape[0] + cry.carrier.shape[0]) * D1
-    return nbytes(tb.topo_dom), 2 * 4 * rows + 4 * N, 2 * rows + tb.topo_dom.numel()
+    lane = 2 * 4 * rows + 4 * N
+    if out_of_place:
+        lane += 2 * nbytes(cry.port_used, cry.dev_used, cry.vg_req, cry.sdev_alloc)
+    return nbytes(tb.topo_dom), lane, 2 * rows + tb.topo_dom.numel()
 
 
 # f32 operations of one K4 step per node (csrc/group_serial.cu): the live
@@ -738,14 +745,19 @@ def lane_case(ses, seg, active, card: str) -> tuple:
                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
     if commit is None:
         return row, None
-    # K3c over lanes: the domain maps once, each lane's carry and counts
+    # K3c over lanes: the domain maps once, each lane's carry (every field
+    # read and written once: out of place) and counts; the in-place bound
+    # beside it
     c_ms = cuda_ms(commit, 20)
     shared, lane, c_ops = k3c_cost(tb, seed)
     cb = shared + S * lane
+    cb_in_place = shared + S * k3c_cost(tb, seed, out_of_place=False)[1]
     c_bound, c_by = bound_of(cb, S * c_ops)
     emit("aggregate_commit_lanes", segment=kind, lanes=S, nodes=N,
          copies=ko[0].sum(dim=1).tolist(), kernel_ms=c_ms, plain_ms=commit_plain_ms,
-         bound_ms=c_bound, bytes=cb, f32_ops=S * c_ops, max_abs_err=0.0, card=card)
+         bound_ms=c_bound, bound_ms_in_place=bound_of(cb_in_place, S * c_ops)[0], bytes=cb,
+         f32_ops=S * c_ops, max_abs_err=0.0, **shape_fields(K.aggregate_commit_lanes),
+         card=card)
     return row, dict(source=SRC + "aggregate_commit.cu", replaces=JAX_KERNELS + ":976",
                      max_abs_err=0.0, ms=c_ms, plain_ms=commit_plain_ms, bound_ms=c_bound,
                      bound_by=c_by)
@@ -1546,7 +1558,8 @@ def xray_path(kind: str, nodes, pods, wall_off: float, card: str, storage_classe
          empty_sets=digest["empty_sets"], checked_sets=len(chosen),
          unscheduled=got["unscheduled"], launches=counts["explain_jit"], k7_ms=ms,
          k7_plain_ms=plain_ms, k7_bound_ms=bound, k7_bytes=b, k7_f32_ops=ops,
-         ext=bool(gpu or storage), max_abs_err=err, recording_on_s=wall,
+         ext=bool(gpu or storage), **shape_fields(K.explain_jit), max_abs_err=err,
+         recording_on_s=wall,
          recording_off_s=wall_off, encode_s=seconds("simon_encode_seconds"),
          host_commit_s=seconds("simon_host_commit_seconds"), golden="match", card=card)
     return (dict(source=SRC + "explain.cu", replaces=JAX_KERNELS + ":751", max_abs_err=err,
@@ -1702,7 +1715,8 @@ def merge_yardstick(rows, R: int, c: int, k_max: int) -> tuple:
 
 
 def shape_fields(wrapper) -> dict:
-    """The cluster shape of a K10 / K11 call's stages."""
+    """The cluster shape of a K10 / K11 call's stages, or of the last K3c
+    or K7 launch."""
     sh = wrapper.last_shape
     return dict(C=sh.C, threads=sh.threads, smem=sh.smem, nodes_per_thread=sh.nodes_per_thread,
                 occupancy=sh.occupancy)
@@ -1971,7 +1985,7 @@ def k14_cost(tbl, seedl, gpu_live: bool, copies: int) -> tuple:
     the block (its rows, counts and domain maps, the replicated counters in
     and out; k3c_cost) and, with gpu_live, the block's device ledger (read,
     read and written) and 8 operations per copy and device."""
-    b, ops = one_lane(k3c_cost(tbl, seedl))
+    b, ops = one_lane(k3c_cost(tbl, seedl, out_of_place=False))
     if gpu_live:
         b += 3 * nbytes(tbl.dev_total)
         ops += copies * int(tbl.dev_total.shape[1]) * 8
@@ -3268,15 +3282,20 @@ def main() -> int:
         ms = cuda_ms(lambda: K.schedule_wave_kernel(tb, seed, g, m, cap1, **kw), 3)
         c_ms = cuda_ms(lambda: K.aggregate_commit_kernel(tb, seed, g, kj, gpu_live), 20)
         b, ops = one_lane(k3_cost(tb, seed, g, block, pst["iterations"]))
+        # K3c writes a new carry: every field read and written once
+        # (k3c_cost); the in-place one-block form's bound beside it
         cb, cops = one_lane(k3c_cost(tb, seed))
+        cb_in_place = one_lane(k3c_cost(tb, seed, out_of_place=False))[0]
         if gpu_live:
             # K3: dev_total and dev_used read once, the units 6 per device and
-            # 2 per node; K3c: dev_total read, dev_used read and written, 8
-            # operations per copy and device
+            # 2 per node; K3c: dev_total read (dev_used read and written: in
+            # k3c_cost out of place, added in place), 8 operations per copy
+            # and device
             M = int(tb.dev_total.shape[1])
             b += nbytes(tb.dev_total, seed.dev_used)
             ops += int(tb.alloc.shape[0]) * (6 * M + 2)
-            cb += 3 * nbytes(tb.dev_total)
+            cb += nbytes(tb.dev_total)
+            cb_in_place += 3 * nbytes(tb.dev_total)
             cops += int(kj.sum()) * M * 8
         bound, by = bound_of(b, ops)
         c_bound, c_by = bound_of(cb, cops)
@@ -3286,8 +3305,10 @@ def main() -> int:
              max_abs_err=err_of(kj, pj), **wave_cluster_fields(K.schedule_wave, ms, "iteration"),
              card=card)
         emit("aggregate_commit", case=label, gpu_live=bool(gpu_live), copies=int(kj.sum()),
-             kernel_ms=c_ms, plain_ms=c_plain_ms, bound_ms=c_bound, bytes=cb, f32_ops=cops,
-             max_abs_err=c_err, card=card)
+             kernel_ms=c_ms, plain_ms=c_plain_ms, bound_ms=c_bound,
+             bound_ms_in_place=bound_of(cb_in_place, cops)[0], bytes=cb,
+             bytes_in_place=cb_in_place, f32_ops=cops, max_abs_err=c_err,
+             **shape_fields(K.aggregate_commit), card=card)
         return (dict(max_abs_err=err_of(kj, pj), ms=ms, plain_ms=plain_ms, bound_ms=bound,
                      bound_by=by),
                 dict(max_abs_err=c_err, ms=c_ms, plain_ms=c_plain_ms, bound_ms=c_bound,

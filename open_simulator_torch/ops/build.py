@@ -122,7 +122,7 @@ def library() -> ctypes.CDLL:
 
 
 def _load(path: str) -> ctypes.CDLL:
-    from .kernels import ExtArgs, TablesView
+    from .kernels import CarryOut, ExtArgs, TablesView
 
     lib = ctypes.CDLL(path)
     P = ctypes.c_void_p
@@ -162,9 +162,6 @@ def _load(path: str) -> ctypes.CDLL:
     lib.affinity_wave_occupancy.restype = I
     lib.schedule_wave_launch.argtypes = [V] + [I] * 5 + [P] * 3 + [I, L, P]
     lib.schedule_wave_launch.restype = ctypes.c_int
-    lib.aggregate_commit_launch.argtypes = [V, ctypes.c_int, P, P, P, P, ctypes.c_int, ctypes.c_int,
-                                            P, P]
-    lib.aggregate_commit_launch.restype = ctypes.c_int
     lib.schedule_group_serial_launch.argtypes = [V, I, P] + [I] * 4 + [P] * 4 + [I, L, P]
     lib.schedule_group_serial_launch.restype = ctypes.c_int
     lib.schedule_affinity_wave_launch.argtypes = [V] + [I] * 5 + [P] * 3 + [I, L, P]
@@ -175,17 +172,29 @@ def _load(path: str) -> ctypes.CDLL:
     lib.schedule_wave_lanes_launch.argtypes = ([V] + [I] * 3 + [P] * 3 + [I] * 3 + [P] * 3
                                                + [I, L, P])
     lib.schedule_wave_lanes_launch.restype = ctypes.c_int
-    lib.aggregate_commit_lanes_launch.argtypes = ([V, ctypes.c_int, P, P, P, P, P]
-                                                  + [ctypes.c_int] * 3 + [P, P])
-    lib.aggregate_commit_lanes_launch.restype = ctypes.c_int
     lib.schedule_group_serial_lanes_launch.argtypes = [V, I, P] + [I] * 5 + [P] * 4 + [I, L, P]
     lib.schedule_group_serial_lanes_launch.restype = ctypes.c_int
     lib.schedule_affinity_wave_lanes_launch.argtypes = [V] + [I] * 6 + [P] * 3 + [I, L, P]
     lib.schedule_affinity_wave_lanes_launch.restype = ctypes.c_int
-    lib.explain_scratch_floats.argtypes = [V]
-    lib.explain_scratch_floats.restype = ctypes.c_longlong
-    lib.explain_launch.argtypes = [V] + [ctypes.c_int] * 3 + [ctypes.c_longlong, P, P, P]
-    lib.explain_launch.restype = ctypes.c_int
+    # K3c (one thread-block cluster a lane, out of place: the input carry's
+    # view, then the new carry) and K7 (one cluster over N), each with its
+    # shape (C, smem)
+    O = ctypes.POINTER(CarryOut)
+    for name, args, res in (("aggregate_commit_smem", [], L),
+                            ("aggregate_commit_init", [], I),
+                            ("aggregate_commit_occupancy", [I, I, L, P], I),
+                            ("aggregate_commit_launch", [V, O, I, P, P, P, P, I, I, P, I, L, P],
+                             I),
+                            ("aggregate_commit_lanes_launch",
+                             [V, O, I, P, P, P, P, P, I, I, I, P, I, L, P], I),
+                            ("explain_scratch_floats", [V], L),
+                            ("explain_smem", [V, I], L),
+                            ("explain_smem_max", [], L),
+                            ("explain_init", [], I),
+                            ("explain_occupancy", [I, I, L, P], I),
+                            ("explain_launch", [V, I, I, I, L, P, P, I, L, P], I)):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = res
     # K8 and K9, the sharded epoch paths: setup, front, table, tail
     lib.wave_sharded_scratch_floats.argtypes = [I]
     lib.wave_sharded_scratch_floats.restype = L

@@ -1,4 +1,4 @@
-"""Launch shapes of the cluster kernels K2 - K5 and K8 - K13
+"""Launch shapes of the cluster kernels K2 - K5, K3c, K7 and K8 - K13
 (csrc/cluster.cuh).
 
 Each lane of K2 (`schedule_batch`), K3 (`schedule_wave`), K4
@@ -26,13 +26,18 @@ csrc/affinity_sharded.cu `affinity_sharded_smem`); the tails of K8 and K9
 (`wave_sharded_smem`, `affinity_sharded_tail_smem`) are one cluster over
 the mesh's N nodes. Their shared memory holds the rounds' words only
 (K9's tail also its candidate keys), bounded by each kernel's smem_max
-(K8, K9, K11, K12, K13); a shape the rule refuses raises. Plain Python:
-nothing here needs torch or a card.
+(K8, K9, K11, K12, K13); a shape the rule refuses raises. K3c
+(csrc/aggregate_commit.cu, one cluster a lane, `aggregate_commit_smem`:
+none) and K7 (csrc/explain.cu, one cluster over N, `explain_smem`: the
+rounds' words, bounded by `explain_smem_max`) take the rule's shape too;
+they run tens to hundreds of times a run, so their shapes are cached per
+their inputs (`choose_cached`) and only a shape's first call asks the card
+for occupancy. Plain Python: nothing here needs torch or a card.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, Dict, Hashable, NamedTuple
 
 THREADS = 512            # csrc/cluster.cuh CLUSTER_THREADS
 SIZES = (1, 2, 4, 8, 16)  # cluster sizes; 16 is the non-portable maximum
@@ -95,3 +100,17 @@ def choose(N: int, S: int, smem_of: Callable[[int], int],
                          f"needs more than {smem_max} bytes of shared memory or has no "
                          f"resident cluster")
     return best[1]
+
+
+def choose_cached(cache: Dict[Hashable, Shape], key: Hashable, N: int, S: int,
+                  smem_of: Callable[[int], int], occupancy: Callable[[int, int], int],
+                  threads: int = THREADS, smem_max: int = SMEM_MAX) -> Shape:
+    """`choose` once per `key` of `cache`: later calls with the same key
+    return the first call's shape and ask neither `smem_of` nor `occupancy`
+    again. The key holds every input the shape depends on (the device, N, S
+    and the shared-memory arguments); a refused shape raises and is not
+    kept."""
+    shape = cache.get(key)
+    if shape is None:
+        shape = cache[key] = choose(N, S, smem_of, occupancy, threads, smem_max)
+    return shape

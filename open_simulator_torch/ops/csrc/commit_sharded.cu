@@ -6,8 +6,10 @@
 //    `schedule_group_serial` :2262) as XLA partitions it over the nodes
 //    under the layout of parallel/mesh.py: each rank holds only its block of
 //    NL nodes of the [N, *] carry rows and the whole [*, D+1] domain
-//    counters. It is K3c (wave.cu; their device code is commit.cuh) cut at
-//    its one cross-node sum, with one collective between the halves
+//    counters. It is the aggregate commit's one-block form (commit.cuh's
+//    one-block functions; K3c, aggregate_commit.cu, runs their cluster form
+//    commit_cluster) cut at its one cross-node sum, with one collective
+//    between the halves
 //    (ops/kernels.py `aggregate_commit_sharded_kernel` drives them; its
 //    plain version is `aggregate_commit_sharded_plain`):
 // - rows (the block): the block's j[n] copies of group g into requested,

@@ -526,17 +526,19 @@ static __device__ uint32_t node_feasibility(const TablesView& t, const PodCtx* p
   return bits;
 }
 
-// One block of this many threads runs each of K2, K3, K3c, K4 and K5 (one
-// block per lane in their lane kernels).
+// One block of this many threads runs each of the one-block stages left:
+// K11's reduce and merge and K14's two (the cluster kernels' CTAs have
+// cluster.cuh CLUSTER_THREADS).
 #define BLOCK_THREADS 1024
 
 // ---- lanes (the capacity probe's fan-out, JAX probe_*_fanout :2300-2378) ----
 //
-// A lane kernel runs S candidate node-active masks at once, one block per
-// lane. The wrapper passes the view of lane 0: every carry field is an
-// [S, ...] tensor, contiguous, whose lane-0 slice the view points at, and
-// `active` is the [S, N] mask. lane_view moves each carry pointer and the
-// mask to lane s; the lane's block keeps it in shared memory. Every lane
+// A lane kernel runs S candidate node-active masks at once, one
+// thread-block cluster per lane. The wrapper passes the view of lane 0:
+// every carry field is an [S, ...] tensor, contiguous, whose lane-0 slice
+// the view points at, and `active` is the [S, N] mask. lane_view moves each
+// carry pointer and the mask to lane s; each CTA of the lane keeps it in
+// shared memory. Every lane
 // reads the one copy of the tables and writes only its own carry, scratch
 // and outputs, so the lanes never touch each other's memory and every
 // atomic stays inside its lane.
@@ -555,8 +557,8 @@ static __device__ TablesView lane_view(const TablesView& t, int s) {
   return v;
 }
 
-// The lane kernels' prologue: block blockIdx.x (or blockIdx.y for K3c) runs
-// lane `s` from the view `lt` in shared memory.
+// The lane kernels' prologue: the CTA runs lane `s` (its cluster's index,
+// blockIdx.x / C) from the view `lt` in shared memory.
 #define LANE_VIEW(lt, t, s)                     \
   __shared__ TablesView lt;                     \
   if (threadIdx.x == 0) lt = lane_view(t, s);   \

@@ -39,7 +39,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .cluster import SMEM_MAX, STATS_WORDS, choose
+from .cluster import SMEM_MAX, STATS_WORDS, choose, choose_cached
 from .resources import CPU_I, MEM_I
 
 
@@ -2586,6 +2586,19 @@ class TablesView(ctypes.Structure):
                 + [("w", ctypes.c_float * N_WEIGHTS)])
 
 
+class CarryOut(ctypes.Structure):
+    """The new carry an out-of-place K3c writes (csrc/commit.cuh CarryOut):
+    the Carry fields, in order."""
+    _fields_ = [(name, ctypes.c_void_p) for name in Carry._fields]
+
+
+def _carry_out(out: Carry) -> CarryOut:
+    o = CarryOut()
+    for name, t in zip(Carry._fields, out):
+        setattr(o, name, t.data_ptr())
+    return o
+
+
 _EXPECT = {  # dtype each pointer field must have
     "node_zone": torch.int32, "grp_ports": torch.int32, "counter_dom": torch.int32,
     "req_aff_t": torch.int32, "req_anti_t": torch.int32, "pref_t": torch.int32,
@@ -2714,15 +2727,17 @@ def feasibility_kernel(tb: Tables, cry: Carry, g: int, forced: int, valid: bool,
 
 # the devices on which the cluster kernels' attributes are set
 _CLUSTER_READY: set = set()
+# K3c's and K7's cluster shapes by their inputs (ops/cluster.py choose_cached)
+_SHAPES: dict = {}
 
 
 def _cluster_init(lib) -> None:
-    """Allow the cluster kernels (K2 - K5, K8 - K13, the round probe)
-    clusters of 16 and csrc/cluster.cuh CLUSTER_SMEM_MAX bytes of shared
-    memory (K8, K9, K11, K12 and K13 their own bounds, wave_sharded_smem_max,
-    affinity_sharded_smem_max, affinity_rounds_smem_max,
-    batch_sharded_smem_max and gs_sharded_smem_max) on the current device,
-    once per device."""
+    """Allow the cluster kernels (K2 - K5, K3c, K7, K8 - K13, the round
+    probe) clusters of 16 and csrc/cluster.cuh CLUSTER_SMEM_MAX bytes of
+    shared memory (K7, K8, K9, K11, K12 and K13 their own bounds,
+    explain_smem_max, wave_sharded_smem_max, affinity_sharded_smem_max,
+    affinity_rounds_smem_max, batch_sharded_smem_max and gs_sharded_smem_max)
+    on the current device, once per device."""
     dev = torch.cuda.current_device()
     if dev not in _CLUSTER_READY:
         _check(lib.cluster_kernels_init(), "cluster kernel attributes")
@@ -2732,22 +2747,32 @@ def _cluster_init(lib) -> None:
         _check(lib.affinity_sharded_init(), "K9 cluster kernel attributes")
         _check(lib.batch_sharded_init(), "K12 cluster kernel attributes")
         _check(lib.gs_sharded_init(), "K13 cluster kernel attributes")
+        _check(lib.aggregate_commit_init(), "K3c cluster kernel attributes")
+        _check(lib.explain_init(), "K7 cluster kernel attributes")
         _CLUSTER_READY.add(dev)
 
 
 def _cluster_shape(lib, kernel: str, lanes: bool, ext: bool, v: TablesView, S: int,
                    block: int = 0):
     """The cluster shape (ops/cluster.py `choose`) of a K2 ("k2"), K3
-    ("k3", table depth `block`), K4 ("k4") or K5 ("k5", table depth
-    `block`) launch of S lanes on the view `v`: the shared memory of each
-    candidate C from the library (schedule_batch_smem, schedule_wave_smem,
-    group_serial_smem, affinity_wave_smem: the one formula of each), and the
-    card's cudaOccupancyMaxActiveClusters answer for it."""
+    ("k3", table depth `block`), K4 ("k4"), K5 ("k5", table depth
+    `block`), K3c ("k3c") or K7 ("k7") launch of S lanes on the view `v`:
+    the shared memory of each candidate C from the library
+    (schedule_batch_smem, schedule_wave_smem, group_serial_smem,
+    affinity_wave_smem, aggregate_commit_smem, explain_smem: the one formula
+    of each; K7 bounded by explain_smem_max), and the card's
+    cudaOccupancyMaxActiveClusters answer for it. K3c's and K7's shapes are
+    cached per their inputs (`choose_cached`: the device, N, S, the lane
+    form or EXT, and K7's zone and ScheduleAnyway axes, which size its
+    rounds), so only their first call asks the card."""
     _cluster_init(lib)
-    smem_of = {"k2": lambda C: lib.schedule_batch_smem(ctypes.byref(v), C),
+    vr = ctypes.byref(v)
+    smem_of = {"k2": lambda C: lib.schedule_batch_smem(vr, C),
                "k3": lambda C: lib.schedule_wave_smem(int(v.N), int(block), C),
-               "k4": lambda C: lib.group_serial_smem(ctypes.byref(v), C),
-               "k5": lambda C: lib.affinity_wave_smem(ctypes.byref(v), int(block), C)}[kernel]
+               "k4": lambda C: lib.group_serial_smem(vr, C),
+               "k5": lambda C: lib.affinity_wave_smem(vr, int(block), C),
+               "k3c": lambda C: lib.aggregate_commit_smem(),
+               "k7": lambda C: lib.explain_smem(vr, C)}[kernel]
 
     def occupancy(C: int, smem: int) -> int:
         out = ctypes.c_int(0)
@@ -2757,11 +2782,22 @@ def _cluster_shape(lib, kernel: str, lanes: bool, ext: bool, v: TablesView, S: i
             rc = lib.schedule_wave_occupancy(int(lanes), int(ext), C, smem, ctypes.byref(out))
         elif kernel == "k4":
             rc = lib.group_serial_occupancy(int(lanes), C, smem, ctypes.byref(out))
-        else:
+        elif kernel == "k5":
             rc = lib.affinity_wave_occupancy(int(lanes), C, smem, ctypes.byref(out))
+        elif kernel == "k3c":
+            rc = lib.aggregate_commit_occupancy(int(lanes), C, smem, ctypes.byref(out))
+        else:
+            rc = lib.explain_occupancy(int(ext), C, smem, ctypes.byref(out))
         _check(rc, f"{kernel} cluster occupancy query (C {C}, {smem} bytes)")
         return out.value
 
+    if kernel == "k3c":
+        key = (kernel, torch.cuda.current_device(), int(v.N), S, bool(lanes))
+        return choose_cached(_SHAPES, key, int(v.N), S, lambda C: int(smem_of(C)), occupancy)
+    if kernel == "k7":
+        key = (kernel, torch.cuda.current_device(), int(v.N), bool(ext), int(v.Z), int(v.Ss))
+        return choose_cached(_SHAPES, key, int(v.N), S, lambda C: int(smem_of(C)), occupancy,
+                             smem_max=int(lib.explain_smem_max()))
     return choose(int(v.N), S, lambda C: int(smem_of(C)), occupancy)
 
 
@@ -2876,28 +2912,40 @@ def schedule_wave_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
     return j, stats[0], stats[1:4]
 
 
-def aggregate_commit_kernel(tb: Tables, cry: Carry, g: int, j: torch.Tensor,
-                            gpu_live: bool = False) -> Carry:
-    """Launch K3c (csrc/aggregate_commit.cu aggregate_commit_kernel) on a CLONE of `cry`,
-    which it updates in place and returns; `cry` is left untouched."""
-    from . import build
-
-    lib = build.library()
+def _commit_inputs(tb: Tables, cry: Carry) -> Tuple[int, int]:
+    """(U, D+1) of a commit, after checking its int32 topology tables."""
     dev = tb.alloc.device
-    out = Carry(*(t.clone() for t in cry))
-    v = _view(tb, out, 2, DEFAULT_WEIGHTS, DEFAULT_FILTERS, enable_gpu=gpu_live)
-    jj = _i32_on(j, dev, tb.alloc.shape[0], "j")
     for name in ("topo_dom", "counter_topo", "carr_topo"):
         t = getattr(tb, name)
         if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"{name}: need a contiguous int32 tensor on {dev}")
-    U = tb.topo_dom.shape[0]
-    seg = torch.empty(U * cry.counter.shape[1], dtype=_F32, device=dev)
-    _check(lib.aggregate_commit_launch(ctypes.byref(v), int(g), _ptr(jj), _ptr(tb.topo_dom),
-                                       _ptr(tb.counter_topo), _ptr(tb.carr_topo), int(U),
-                                       int(bool(gpu_live)), _ptr(seg), _stream()),
+    return tb.topo_dom.shape[0], cry.counter.shape[-1]
+
+
+def aggregate_commit_kernel(tb: Tables, cry: Carry, g: int, j: torch.Tensor,
+                            gpu_live: bool = False) -> Carry:
+    """Launch K3c (csrc/aggregate_commit.cu aggregate_commit_kernel): one
+    thread-block cluster over the N nodes reads `cry` and writes the new
+    carry, which it returns, into fresh tensors (`cry` is left untouched and
+    nothing is cloned). The cluster shape is recorded in
+    `aggregate_commit.last_shape`."""
+    from . import build
+
+    lib = build.library()
+    dev = tb.alloc.device
+    v = _view(tb, cry, 2, DEFAULT_WEIGHTS, DEFAULT_FILTERS, enable_gpu=gpu_live)
+    jj = _i32_on(j, dev, tb.alloc.shape[0], "j")
+    U, D1 = _commit_inputs(tb, cry)
+    shape = _cluster_shape(lib, "k3c", False, False, v, 1)
+    out = Carry(*(torch.empty_like(t) for t in cry))
+    seg = torch.empty(max(1, U * D1), dtype=_F32, device=dev)
+    _check(lib.aggregate_commit_launch(ctypes.byref(v), ctypes.byref(_carry_out(out)), int(g),
+                                       _ptr(jj), _ptr(tb.topo_dom), _ptr(tb.counter_topo),
+                                       _ptr(tb.carr_topo), int(U), int(bool(gpu_live)), _ptr(seg),
+                                       shape.C, shape.smem, _stream()),
            "aggregate_commit_kernel launch")
     aggregate_commit.launches += 1
+    aggregate_commit.last_shape = shape
     if gpu_live:
         BRANCH_LAUNCHES["aggregate_commit/gpu_live"] += 1
     return out
@@ -3556,11 +3604,7 @@ def aggregate_commit_sharded_kernel(tb: Tables, cry: Carry, g: int, j: torch.Ten
     v = _view(tb, out, 2, DEFAULT_WEIGHTS, DEFAULT_FILTERS, enable_gpu=gpu_live)
     vr = ctypes.byref(v)
     jj = _i32_on(j, dev, tb.alloc.shape[0], "j")
-    for name in ("topo_dom", "counter_topo", "carr_topo"):
-        t = getattr(tb, name)
-        if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError(f"{name}: need a contiguous int32 tensor on {dev}")
-    U, D1 = tb.topo_dom.shape[0], cry.counter.shape[1]
+    U, D1 = _commit_inputs(tb, cry)
     seg = torch.empty((1, U, D1), dtype=_F32, device=dev)
     _sharded_launch(lib.commit_sharded_rows_launch, vr, int(g), _ptr(jj), _ptr(tb.topo_dom), U,
                     int(bool(gpu_live)), _ptr(seg))
@@ -3612,26 +3656,29 @@ def explain_kernel(tb: Tables, cry: Carry, g: int, forced: int, valid: bool, n_z
                    enable_gpu: bool = False, enable_storage: bool = False,
                    w: ScoreWeights = DEFAULT_WEIGHTS,
                    filters: FilterFlags = DEFAULT_FILTERS) -> torch.Tensor:
-    """Launch K7 (csrc/explain.cu explain_kernel): one block computes the
-    stages, components and total of `explain_pod` for group g. Returns the
-    [EXPLAIN_ROWS, N] f32 rows on the card (`unpack_explain` gives the
-    four-tuple); `cry` is only read."""
+    """Launch K7 (csrc/explain.cu explain_kernel): one thread-block cluster
+    over the N nodes computes the stages, components and total of
+    `explain_pod` for group g. Returns the [EXPLAIN_ROWS, N] f32 rows on the
+    card (`unpack_explain` gives the four-tuple); `cry` is only read. The
+    cluster shape is recorded in `explain_jit.last_shape`."""
     from . import build
 
     lib = build.library()
     dev = tb.alloc.device
     N = tb.alloc.shape[0]
     v = _view(tb, cry, n_zones, w, filters, enable_gpu, enable_storage)
+    vr = ctypes.byref(v)
+    shape = _cluster_shape(lib, "k7", False, bool(enable_gpu or enable_storage), v, 1)
     # row i of the output holds stage bit perm[i]: EXPLAIN_STAGES mapped by
     # name onto the STAGE_ROWS order of the kernels' stage bits, 4 bits each
     perm = sum(STAGE_ROWS.index(k) << (4 * i) for i, k in enumerate(EXPLAIN_STAGES))
     out = torch.empty((len(EXPLAIN_ROWS), N), dtype=_F32, device=dev)
-    scratch = torch.empty(int(lib.explain_scratch_floats(ctypes.byref(v))), dtype=_F32,
-                          device=dev)
-    _check(lib.explain_launch(ctypes.byref(v), int(g), int(forced), int(bool(valid)),
-                              ctypes.c_longlong(perm), _ptr(out), _ptr(scratch), _stream()),
+    scratch = torch.empty(max(1, int(lib.explain_scratch_floats(vr))), dtype=_F32, device=dev)
+    _check(lib.explain_launch(vr, int(g), int(forced), int(bool(valid)), ctypes.c_longlong(perm),
+                              _ptr(out), _ptr(scratch), shape.C, shape.smem, _stream()),
            "explain_kernel launch")
     explain_jit.launches += 1
+    explain_jit.last_shape = shape
     return out
 
 
@@ -3804,8 +3851,8 @@ def schedule_affinity_wave(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
 # (`probe_*_fanout`) share one segment; the serve and sweep lanes
 # (`serve_*_fanout`, `sweep_*_fanout`) carry their own pod rows or wave
 # groups. JAX vmaps K2-K5 over the lanes; the plain versions below loop over
-# them, and the lane kernels run one thread-block cluster per lane (K2-K5;
-# K3c one block per lane: csrc/*.cu `*_lanes_kernel`), reading per-lane
+# them, and the lane kernels run one thread-block cluster per lane (K2-K5
+# and K3c: csrc/*.cu `*_lanes_kernel`), reading per-lane
 # inputs at a lane stride (0 for one value shared by every lane).
 
 
@@ -4074,38 +4121,39 @@ def schedule_wave_lanes_kernel(tb: Tables, cry_s: Carry, active_s, g, m, cap1,
 
 def aggregate_commit_lanes_kernel(tb: Tables, cry_s: Carry, g, j_s: torch.Tensor,
                                   gpu_live: bool = False, fanout=None) -> Carry:
-    """Launch K3c over S lanes (csrc/aggregate_commit.cu aggregate_commit_lanes_kernel,
-    the lane on the grid's second dimension) on a CLONE of `cry_s`, which it
-    updates in place and returns. `g` is a scalar (every lane; a launch
-    argument) or an [S] tensor (one group per lane). The launch counts on
-    `fanout` (aggregate_commit_lanes, the probe fan-outs' commit, by
-    default)."""
+    """Launch K3c over S lanes (csrc/aggregate_commit.cu
+    aggregate_commit_lanes_kernel, one thread-block cluster a lane): lane s
+    reads its carry of `cry_s` and writes its new carry into fresh [S, ...]
+    tensors, which it returns (`cry_s` is left untouched). `g` is a scalar
+    (every lane; a launch argument) or an [S] tensor (one group per lane).
+    The launch counts on `fanout` (aggregate_commit_lanes, the probe
+    fan-outs' commit, by default); the cluster shape is recorded in
+    `aggregate_commit_lanes.last_shape`."""
     from . import build
 
     lib = build.library()
     dev = tb.alloc.device
-    out = Carry(*(t.clone() for t in cry_s))
     N = tb.alloc.shape[0]
     jj = torch.as_tensor(j_s, dtype=torch.int32, device=dev).contiguous()
     S = jj.shape[0]
     if jj.shape != (S, N):
         raise ValueError(f"j_s: need shape (S, {N}), got {tuple(jj.shape)}")
-    _check_lanes(out, S)
-    v = _view(tb, carry_lane(out, 0, copy=False), 2, DEFAULT_WEIGHTS, DEFAULT_FILTERS,
+    _check_lanes(cry_s, S)
+    v = _view(tb, carry_lane(cry_s, 0, copy=False), 2, DEFAULT_WEIGHTS, DEFAULT_FILTERS,
               enable_gpu=gpu_live)
-    for name in ("topo_dom", "counter_topo", "carr_topo"):
-        t = getattr(tb, name)
-        if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError(f"{name}: need a contiguous int32 tensor on {dev}")
-    U = tb.topo_dom.shape[0]
+    U, D1 = _commit_inputs(tb, cry_s)
     g0, g_t = _lane_values(g, torch.int32, S, dev, "g")
-    seg = torch.empty(S * U * cry_s.counter.shape[2], dtype=_F32, device=dev)
-    _check(lib.aggregate_commit_lanes_launch(ctypes.byref(v), g0, _ptr_or_null(g_t), _ptr(jj),
-                                             _ptr(tb.topo_dom), _ptr(tb.counter_topo),
-                                             _ptr(tb.carr_topo), int(U), int(bool(gpu_live)),
-                                             int(S), _ptr(seg), _stream()),
+    shape = _cluster_shape(lib, "k3c", True, False, v, S)
+    out = Carry(*(torch.empty_like(t) for t in cry_s))
+    seg = torch.empty(max(1, S * U * D1), dtype=_F32, device=dev)
+    _check(lib.aggregate_commit_lanes_launch(ctypes.byref(v), ctypes.byref(_carry_out(out)), g0,
+                                             _ptr_or_null(g_t), _ptr(jj), _ptr(tb.topo_dom),
+                                             _ptr(tb.counter_topo), _ptr(tb.carr_topo), int(U),
+                                             int(bool(gpu_live)), int(S), _ptr(seg), shape.C,
+                                             shape.smem, _stream()),
            "aggregate_commit_lanes_kernel launch")
     (fanout or aggregate_commit_lanes).launches += 1
+    aggregate_commit_lanes.last_shape = shape
     return out
 
 
@@ -4557,6 +4605,8 @@ for _f in (schedule_wave, schedule_affinity_wave, probe_wave_fanout, serve_wave_
 schedule_wave.stats = None
 schedule_affinity_wave.stats = None
 schedule_affinity_wave.last_stats = None
+# K3c's (single lane and over lanes) and K7's: the last launch's cluster shape
+aggregate_commit.last_shape = aggregate_commit_lanes.last_shape = explain_jit.last_shape = None
 # K10's and K11's: the cluster shape of the last call's stages
 schedule_wave_rounds_kernel.last_shape = schedule_affinity_wave_rounds_kernel.last_shape = None
 # launches of the kernels with their GPU-share / Open-Local branches on (a

@@ -28,7 +28,16 @@ the affinity cluster's svc-web segment and hostname spread, K3 with gpu_live
 on the first GPU wave of the extended cluster, and prints the root's
 `ptxas -v` lines (registers, stack, spills) of each kernel and, where the
 root's K2-K5 run on thread-block clusters, each launch's cluster shape, so
-that two checkouts compare kernel for kernel.
+that two checkouts compare kernel for kernel. It also times K3c on the
+northstar cluster's first wave, on the hard shape's first cap1 wave and
+with gpu_live on the extended cluster's first 1-GPU wave, and K7 and K1 on
+a decision set of the hard shape (N 5,120) and of the extended cluster
+(N 2,048, the GPU-share and Open-Local branches on): each with its call
+rate (CUDA events over back-to-back calls, the wrapper's host work
+included) and its device time per call under torch.profiler (the kernel
+alone, and every other kernel the call launches, such as a clone's copy
+kernels). `--cases K3c,K7,K1` times only the kernels named (K2, K3, K4 and
+K5 are one case set).
 
 With `--mesh-kernels`, it times the node mesh's kernels instead: two ranks
 spawned on the card (gloo, sharing cuda:0, as chip_smoke.py's mesh and
@@ -41,14 +50,15 @@ on overflow_waves' first wave (N 128) and with the limit at 16,384 on the
 northstar cluster's first wave (N 10,240), K12 on the first 256 pods of the
 hard shape (5,000 nodes) and of the extended cluster (EXT), and K13 on the
 spread cluster's ScheduleAnyway, SelectorSpread and DoNotSchedule segments
-(its first 2,000 pods, N 5,120; `--cases K8,K13` times only the kernels
-named), stage by stage with CUDA events
+(its first 2,000 pods, N 5,120), and K14 on extended's first 1-GPU wave
+(gpu_live) and on the northstar cluster's first wave (`--cases K8,K13`
+times only the kernels named), stage by stage with CUDA events
 (kernels.SHARDED_STAGE_EVENTS; the two ranks' launches interleave on the
 card, so a stage's events include the other rank's time slices, and a
 stage launched after a host read or a collective also the launch's host
 latency) and with torch.profiler (each kernel's device time alone), per
 round, epoch or pod by the host clock, and prints the root's `ptxas -v`
-lines of K8-K13.
+lines of K8-K14.
 """
 
 from __future__ import annotations
@@ -94,11 +104,12 @@ def main() -> int:
     ap.add_argument("--root", default=HERE, help="checkout whose open_simulator_torch runs")
     ap.add_argument("--repeat", type=int, default=1)
     ap.add_argument("--kernels", action="store_true",
-                    help="time K2, K3, K4 and K5 and print ptxas lines")
+                    help="time K2, K3, K4, K5, K3c, K7 and K1 and print ptxas lines")
     ap.add_argument("--mesh-kernels", action="store_true",
-                    help="time K8 - K13 on two ranks and print their ptxas lines")
-    ap.add_argument("--cases", default="K8,K9,K10,K11,K12,K13",
-                    help="the mesh kernels --mesh-kernels times")
+                    help="time K8 - K14 on two ranks and print their ptxas lines")
+    ap.add_argument("--cases", default=None,
+                    help="the kernels --kernels (default K2,K3,K4,K5,K3c,K7,K1) or "
+                         "--mesh-kernels (default K8,K9,K10,K11,K12,K13,K14) times")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("kinds", nargs="*", default=["hard_waves", "overflow_waves", "affinity"])
     args = ap.parse_args()
@@ -117,9 +128,11 @@ def main() -> int:
     # set-up outside the timed runs: the kernels' build, the first launches
     build.library()
     if args.kernels:
-        return kernel_times(synth, args.root, args.reps)
+        return kernel_times(synth, args.root, args.reps,
+                            (args.cases or "K2,K3,K4,K5,K3c,K7,K1").split(","))
     if args.mesh_kernels:
-        return mesh_kernel_times(args.root, args.reps, args.cases.split(","))
+        return mesh_kernel_times(args.root, args.reps,
+                                 (args.cases or "K8,K9,K10,K11,K12,K13,K14").split(","))
     for kind in args.kinds:
         if kind in synth.CAPACITY_SCENARIOS:
             continue  # the search warms up on its first run
@@ -236,13 +249,7 @@ def _ptxas_lines(entries=()) -> list:
     return out
 
 
-def kernel_times(synth, root: str, reps: int) -> int:
-    import torch
-
-    from open_simulator_torch.core.types import ResourceTypes
-    from open_simulator_torch.ops import kernels as K
-    from open_simulator_torch.simulator.engine import Simulator
-
+def kernel_times(synth, root: str, reps: int, cases: list) -> int:
     card = _card()
     print(json.dumps({"root": os.path.abspath(root), "ptxas": _ptxas_lines()}), flush=True)
     out, shapes = {}, {}
@@ -252,6 +259,25 @@ def kernel_times(synth, root: str, reps: int) -> int:
         if shape is not None:
             shapes[name] = {"C": shape.C, "threads": shape.threads,
                             "nodes_per_thread": shape.nodes_per_thread}
+
+    if {"K2", "K3", "K4", "K5"} & set(cases):
+        _wave_kernel_times(synth, reps, out, shape_of)
+    launch = {}
+    if {"K3c", "K7", "K1"} & set(cases):
+        launch = _launch_times(synth, reps, cases, shape_of)
+    print(json.dumps({"root": os.path.abspath(root), "kernel_ms": out, "launch_cases": launch,
+                      "cluster_shapes": shapes, "reps": reps, "card": card}), flush=True)
+    return 0
+
+
+def _wave_kernel_times(synth, reps: int, out: dict, shape_of) -> None:
+    """K2 - K5 (and K3c over 8 lanes): CUDA events, mean of `reps`
+    launches, into `out`."""
+    import torch
+
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.simulator.engine import Simulator
 
     for n_nodes in (5000, 10000):
         nodes, pods = synth.synth_cluster(n_nodes, 2500, hard_predicates=True)
@@ -351,9 +377,109 @@ def kernel_times(synth, root: str, reps: int) -> int:
                                        kmax=K.wave_kmax(m, sim.na.N, block), gpu_live=True),
         reps)
     shape_of("K3 schedule_wave extended gpu_live", K.schedule_wave)
-    print(json.dumps({"root": os.path.abspath(root), "kernel_ms": out, "cluster_shapes": shapes,
-                      "reps": reps, "card": card}), flush=True)
-    return 0
+
+
+# the kernels' names as torch.profiler reports them (substrings)
+LAUNCH_NAMES = {"K3c": ("aggregate_commit",), "K7": ("explain_kernel",),
+                "K1": ("feasibility_kernel",)}
+
+
+def _launch_case(fn, reps: int, names: tuple, wrapper=None, shape_of=None, label="") -> dict:
+    """One wrapper call timed: its call rate (CUDA events over `reps`
+    back-to-back calls after a warm-up, the host's work between launches
+    included) and its device time per call under torch.profiler, the
+    kernel (`names`) alone and every other kernel of the call."""
+    call_ms = _ms(fn, reps)
+    dev = _device_ms(fn, reps, reps, names, others=True)
+    if shape_of is not None:
+        shape_of(label, wrapper)
+    return {"call_ms": call_ms, "device_ms": sum(v for k, v in dev.items() if k != "other"),
+            "other_device_ms": dev.get("other", 0.0), "kernels": dev}
+
+
+def _case_cluster(synth, gen: str, n_nodes: int, n_pods: int, use_mesh=None):
+    """(simulator, batch, tables, seed carry, segments) of a cluster on the
+    card: `plain` is synth_cluster's plain shape, else a KINDS generator."""
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.simulator.engine import Simulator
+
+    if gen == "plain":
+        nodes, pods = synth.synth_cluster(n_nodes, n_pods)
+        scs = []
+    else:
+        nodes, pods, _, scs = workload(synth, gen, n_nodes, n_pods)
+    kw = {} if use_mesh is None else {"use_mesh": use_mesh}
+    sim = Simulator(nodes, device="cuda", **kw)
+    sim.register_cluster_objects(ResourceTypes(storage_classes=list(scs)))
+    bt = sim.encode_batch(pods)
+    tb, seed = sim._to_device(bt)
+    return sim, bt, tb, seed, sim._segments(bt, len(pods)), len(pods)
+
+
+def _first_wave(sim, segs, gpu_1: bool, cap1: bool):
+    """The first wave segment (the first 1-GPU gpu_live one with `gpu_1`,
+    the first cap1 one with `cap1`)."""
+    return next(s for s in segs if s[0] == "wave" and (not cap1 or s[4]) and (
+        not gpu_1 or (s[5] and int(sim.encoder.group_list[s[3]].gpu_num) == 1)))
+
+
+def _wave_counts(sim, tb, seed, seg):
+    """A wave segment's counts from K3 on the seed carry."""
+    from open_simulator_torch.ops import kernels as K
+
+    _, _, m, g, cap1, gpu_live = seg[:6]
+    block = K.wave_block_for(m, sim.na.N)
+    return K.schedule_wave_kernel(tb, seed, g, m, cap1, block=block,
+                                  kmax=K.wave_kmax(m, sim.na.N, block),
+                                  gpu_live=bool(gpu_live))[0]
+
+
+def _launch_times(synth, reps: int, cases: list, shape_of) -> dict:
+    """K3c, K7 and K1 per call (`_launch_case`): K3c on the northstar
+    cluster's first wave, the hard shape's first cap1 wave and, with
+    gpu_live, the extended cluster's first 1-GPU wave (each wave's counts
+    from K3 on the seed carry); K7 and K1 on the hard shape's (N 5,120) and
+    the extended cluster's (N 2,048, EXT) first decision set: the first
+    pod's group (the extended cluster's first GPU group) against the seed
+    carry, no forced node."""
+    import torch
+
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.simulator.encode import plugin_flags
+
+    out = {}
+    for label, spec in (("northstar", ("plain", 10000, 100000)), ("hard", KINDS["hard_waves"]),
+                        ("extended", KINDS["extended"])):
+        sim, bt, tb, seed, segs, P = _case_cluster(synth, *spec)
+        N = int(tb.alloc.shape[0])
+        if "K3c" in cases:
+            seg = _first_wave(sim, segs, label == "extended", label == "hard")
+            g, gpu_live = seg[3], bool(seg[5])
+            j = _wave_counts(sim, tb, seed, seg)
+            name = f"K3c {label} " + ("first 1-GPU wave gpu_live" if label == "extended" else
+                                      "first cap1 wave" if label == "hard" else "first wave")
+            out[name] = dict(nodes=N, copies=int(j.sum()), **_launch_case(
+                lambda: K.aggregate_commit_kernel(tb, seed, g, j, gpu_live), reps,
+                LAUNCH_NAMES["K3c"], K.aggregate_commit, shape_of, name))
+        if label != "northstar":
+            gpu, storage = plugin_flags(bt)
+            g = next(int(x) for x in bt.pod_group[:P]
+                     if label != "extended" or bt.grp_gpu_mem[int(x)] > 0)
+            ext = " EXT" if gpu or storage else ""
+            if "K7" in cases:
+                name = f"K7 {label} decision set{ext}"
+                out[name] = dict(nodes=N, group=g, **_launch_case(
+                    lambda: K.explain_kernel(tb, seed, g, -1, True, bt.n_zones, gpu, storage),
+                    reps, LAUNCH_NAMES["K7"], K.explain_jit, shape_of, name))
+            if "K1" in cases:
+                name = f"K1 {label} decision set{ext}"
+                out[name] = dict(nodes=N, group=g, **_launch_case(
+                    lambda: K.feasibility_kernel(tb, seed, g, -1, True, enable_gpu=gpu,
+                                                 enable_storage=storage),
+                    reps, LAUNCH_NAMES["K1"]))
+        del sim, bt, tb, seed
+        torch.cuda.empty_cache()
+    return out
 
 
 def _mesh_case(kernel, stats_of, reps: int) -> dict:
@@ -385,12 +511,19 @@ def _mesh_case(kernel, stats_of, reps: int) -> dict:
             "device_ms": _device_ms(kernel, reps * steps, reps), "C": C}
 
 
-def _device_ms(kernel, steps: int, reps: int) -> dict:
-    """Each K8-K13 kernel's device time per round, epoch or pod over `reps`
-    calls under torch.profiler (CUPTI: the kernels alone, without the gaps
-    a host-side launch leaves after the collectives and host reads, which
-    the CUDA events of the stages hold); {} where the profiler records no
-    device time."""
+MESH_NAMES = ("wave_rounds", "affinity_rounds", "wave_sharded", "affinity_sharded",
+              "batch_sharded", "gs_sharded", "commit_sharded")
+
+
+def _device_ms(kernel, steps: int, reps: int, names: tuple = MESH_NAMES,
+               others: bool = False) -> dict:
+    """Each kernel's (those whose name holds one of `names`; the K8-K14
+    kernels by default) device time per round, epoch, pod or call over
+    `reps` calls under torch.profiler (CUPTI: the kernels alone, without
+    the gaps a host-side launch leaves after the collectives and host
+    reads, which the CUDA events of the stages hold), with `others` the
+    device time of every other kernel as "other"; {} where the profiler
+    records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile, supported_activities
 
@@ -404,9 +537,11 @@ def _device_ms(kernel, steps: int, reps: int) -> dict:
     for e in prof.key_averages():
         us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
         name = e.key.split("(")[0].replace("void ", "")
-        if us and any(k in name for k in ("wave_rounds", "affinity_rounds", "wave_sharded",
-                                          "affinity_sharded", "batch_sharded", "gs_sharded")):
-            out[name] = out.get(name, 0.0) + us / 1e3 / steps
+        if not us:
+            continue
+        key = name if any(k in name for k in names) else "other" if others else None
+        if key is not None:
+            out[key] = out.get(key, 0.0) + us / 1e3 / steps
     return out
 
 
@@ -516,7 +651,40 @@ def _mesh_rank(mesh, reps: int, cases: list) -> dict:
         out.update(_k12_cases(synth, mesh, reps))
     if "K13" in cases:
         out.update(_k13_cases(synth, mesh, reps))
+    if "K14" in cases:
+        out.update(_k14_cases(synth, mesh, reps))
     return {"rank": mesh.rank, "cases": out}
+
+
+def _k14_cases(synth, mesh, reps: int) -> dict:
+    """K14 (rows, the all_gather_rows, domains) on this rank's block of the
+    extended cluster's first 1-GPU wave (gpu_live) and of the northstar
+    cluster's first wave, each wave's counts from K3 on the seed carry, per
+    call."""
+    import torch
+
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.parallel.mesh import block_of
+
+    out = {}
+    for label, spec in (("extended first 1-GPU wave", KINDS["extended"]),
+                        ("northstar first wave", ("plain", 10000, 100000))):
+        sim, bt, tb, seed, segs, _ = _case_cluster(synth, *spec, use_mesh=False)
+        seg = _first_wave(sim, segs, spec[0] == "extended", False)
+        g, flag = seg[3], bool(seg[5])
+        j = _wave_counts(sim, tb, seed, seg)
+        tbl, seedl = block_of(tb, seed, mesh)
+        NL = int(tbl.alloc.shape[0])
+        jl = j[mesh.rank * NL:(mesh.rank + 1) * NL].contiguous()
+
+        def run(tbl=tbl, seedl=seedl, g=g, jl=jl, flag=flag):
+            return K.aggregate_commit_sharded_kernel(tbl, seedl, g, jl, flag, mesh)
+
+        run.wrapper = K.aggregate_commit_sharded_kernel
+        out[f"K14 {label}" + (" gpu_live" if flag else "")] = _mesh_case(run, lambda r: 1, reps)
+        del sim, bt, tb, seed
+        torch.cuda.empty_cache()
+    return out
 
 
 def _k13_cases(synth, mesh, reps: int) -> dict:
@@ -593,8 +761,7 @@ def mesh_kernel_times(root: str, reps: int, cases: list) -> int:
 
     card = _card()
     print(json.dumps({"root": os.path.abspath(root), "card": card, "ptxas": _ptxas_lines(
-        ("wave_sharded", "affinity_sharded", "wave_rounds", "affinity_rounds",
-         "batch_sharded", "gs_sharded"))}), flush=True)
+        MESH_NAMES)}), flush=True)
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as rdzv:
         ranks = run_ranks(_mesh_rank, 2, rdzv, args=(reps, cases), device="cuda",

@@ -1,12 +1,14 @@
-"""The launch-shape rule of the cluster kernels K2 - K5 and K8 - K13
-(open_simulator_torch/ops/cluster.py), as plain Python: the card's occupancy
-answer and the library's shared-memory size are models passed in, so nothing
-here needs a card. The tables' axes are the ones the encoder pads to, and
-tests/test_torch_cuda.py holds `smem_model` and `rounds_smem_model` against
-the library's own schedule_batch_smem / group_serial_smem /
-schedule_wave_smem / affinity_wave_smem / wave_rounds_smem /
-affinity_rounds_smem / wave_sharded_smem / affinity_sharded_smem / affinity_sharded_tail_smem / batch_sharded_smem /
-gs_sharded_smem on the card."""
+"""The launch-shape rule of the cluster kernels K2 - K5, K3c, K7 and K8 -
+K13 (open_simulator_torch/ops/cluster.py), as plain Python: the card's
+occupancy answer and the library's shared-memory size are models passed in,
+so nothing here needs a card. The tables' axes are the ones the encoder pads
+to, and tests/test_torch_cuda.py holds `smem_model`, `rounds_smem_model`,
+`k3c_smem_model` and `k7_smem_model` against the library's own
+schedule_batch_smem / group_serial_smem / schedule_wave_smem /
+affinity_wave_smem / wave_rounds_smem / affinity_rounds_smem /
+wave_sharded_smem / affinity_sharded_smem / affinity_sharded_tail_smem /
+batch_sharded_smem / gs_sharded_smem / aggregate_commit_smem / explain_smem
+on the card."""
 
 import functools
 
@@ -42,6 +44,10 @@ K8_SMEM_MAX = K9_SMEM_MAX = K12_SMEM_MAX = K13_SMEM_MAX = cluster.SMEM_MAX - 16_
 SMEM_MAX_OF = {"k10": cluster.SMEM_MAX, "k11": K11_SMEM_MAX, "k8": K8_SMEM_MAX,
                "k8_tail": K8_SMEM_MAX, "k9": K9_SMEM_MAX, "k9_tail": K9_SMEM_MAX,
                "k12": K12_SMEM_MAX, "k13": K13_SMEM_MAX}
+# K7's bound (csrc/explain.cu K7_SMEM_MAX): PodCtx and StageShared in
+# static shared memory
+K7_SMEM_MAX = cluster.SMEM_MAX - 16_384
+K7_HEAD = 10    # round B's maxima and flag (csrc/explain.cu K7_HEAD)
 PART_HEAD = 11  # K12's partial vector head (csrc/batch_sharded.cu)
 GS_HEAD = 9     # K13's (csrc/group_serial_sharded.cu Q_HEAD)
 
@@ -305,3 +311,106 @@ def test_scan_and_epoch_stage_smem_grows_with_the_rounds_only(kernel):
     with pytest.raises(ValueError, match="no cluster shape fits"):
         cluster.choose(2_560, 1, lambda C: rounds_smem_model("k13", C, Z=20_000), occ,
                        smem_max=K13_SMEM_MAX)
+
+
+# ---- K3c and K7: one cluster a lane (csrc/aggregate_commit.cu) and one
+# cluster over N (csrc/explain.cu), their shapes cached per their inputs
+
+
+def k3c_smem_model() -> int:
+    """K3c's dynamic shared memory: none at any C (its per-topology sums
+    live in global scratch; a CTA's static shared memory holds a lane's
+    view)."""
+    return 0
+
+
+def k7_smem_model(C: int, Z: int, Ss: int) -> int:
+    """K7's dynamic shared memory: the round slots [2][C][W], fin [W], the
+    CTA's row [W] and the zone sums [Z], W round B's row (the 10 maxima and
+    flag and the Z zone sums) or round C's Ss counts."""
+    W = max(K7_HEAD + Z, Ss)
+    return 4 * (2 * C * W + 2 * W + Z)
+
+
+@pytest.mark.parametrize("model", sorted(MODELS))
+@pytest.mark.parametrize("kernel,S", [("k3c", 1), ("k3c", 8), ("k3c", 32), ("k7", 1)])
+@pytest.mark.parametrize("N", NS)
+def test_commit_and_explain_shape(N, S, kernel, model):
+    """K3c (one lane or S lanes) and K7 (one launch: S = 1) take the rule's
+    shape: every size fits at the encoder's axes, the fewest nodes a thread
+    among the resident candidates (ties to the smaller C), the shared
+    memory of the library's formula, one node a thread up to 8,192 nodes for
+    one lane, and clusters of 16 at the engine's 5,120 nodes."""
+    Ss, Z, _ = encoder_axes()
+    smem_of = ((lambda C: k3c_smem_model()) if kernel == "k3c"  # noqa: E731
+               else (lambda C: k7_smem_model(C, Z, Ss)))
+    smem_max = cluster.SMEM_MAX if kernel == "k3c" else K7_SMEM_MAX
+    occ = _occupancy(model)
+    assert all(smem_of(C) <= smem_max for C in cluster.SIZES)
+    shape = cluster.choose(N, S, smem_of, occ, smem_max=smem_max)
+    fits = [C for C in cluster.SIZES if occ(C, smem_of(C))]
+    resident = [c for c in fits if occ(c, smem_of(c)) >= S]
+    assert shape.smem == smem_of(shape.C) and shape.chunk == -(-N // shape.C)
+    if resident:
+        best = min(cluster.nodes_per_thread(N, c) for c in resident)
+        assert shape.resident and shape.nodes_per_thread == best
+        assert shape.C == min(c for c in resident if cluster.nodes_per_thread(N, c) == best)
+    if kernel == "k7":
+        assert shape.smem == 4 * (2 * shape.C * (K7_HEAD + Z) + 2 * (K7_HEAD + Z) + Z)
+    else:
+        assert shape.smem == 0
+    if S == 1 and N <= 8_192 and model == "gpc_18_16":
+        assert shape.nodes_per_thread == 1 and (shape.C == 1 or -(-N // (shape.C // 2)) > 512)
+    if S == 1 and N == 5_120 and model == "gpc_18_16":
+        assert shape.C == 16
+
+
+def test_explain_smem_grows_with_the_zones_only():
+    """K7's slot is round B's row: it widens with the zone axis (or past it
+    with the ScheduleAnyway slots), never with N; at 2,000 zones a smaller
+    cluster still fits, and a shape that fits at no size raises."""
+    assert k7_smem_model(16, 2, 2) == 4 * (2 * 16 * 12 + 2 * 12 + 2)
+    assert k7_smem_model(16, 2, 40) == 4 * (2 * 16 * 40 + 2 * 40 + 2)
+    occ = _occupancy("gpc_18_16")
+    shape = cluster.choose(5_120, 1, lambda C: k7_smem_model(C, 2_000, 2), occ,
+                           smem_max=K7_SMEM_MAX)
+    assert shape.C == 8 and k7_smem_model(16, 2_000, 2) > K7_SMEM_MAX
+    with pytest.raises(ValueError, match="no cluster shape fits"):
+        cluster.choose(5_120, 1, lambda C: k7_smem_model(C, 20_000, 2), occ,
+                       smem_max=K7_SMEM_MAX)
+
+
+@pytest.mark.parametrize("kernel", ["k3c", "k7"])
+def test_cached_shape_asks_the_card_once(kernel):
+    """`choose_cached` (K3c's and K7's shapes) asks for shared memory and
+    occupancy on a key's first call only and returns the same shape after;
+    another key (another N, lane count, EXT or axis) is chosen anew; a
+    refused shape raises and is not kept."""
+    cache = {}
+    asked = []
+
+    def occ(C, smem):
+        asked.append((C, smem))
+        return sum(g // C for g in MODELS["gpc_18_16"])
+
+    def smem_of(C):
+        return k3c_smem_model() if kernel == "k3c" else k7_smem_model(C, 4, 2)
+
+    key = (kernel, 0, 5_120, 1)
+    first = cluster.choose_cached(cache, key, 5_120, 1, smem_of, occ)
+    n = len(asked)
+    assert n == len(cluster.SIZES)
+    for _ in range(3):
+        assert cluster.choose_cached(cache, key, 5_120, 1, smem_of, occ) == first
+    assert len(asked) == n
+    other = cluster.choose_cached(cache, (kernel, 0, 1_024, 1), 1_024, 1, smem_of, occ)
+    assert len(asked) == 2 * n and other.C == 2 and first.C == 16
+
+    def refuse(C, smem):
+        return 0
+
+    bad = (kernel, 0, 5_120, 8)
+    for _ in range(2):
+        with pytest.raises(ValueError, match="no cluster shape fits"):
+            cluster.choose_cached(cache, bad, 5_120, 8, smem_of, refuse)
+    assert bad not in cache and len(cache) == 2

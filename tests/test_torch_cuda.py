@@ -1365,3 +1365,120 @@ def test_cluster_group_serial_at_large_node_counts(n_nodes):
         _smem_model_holds(K.schedule_group_serial.last_shape, "k4", n_nodes, tb, seed, nz)
         assert torch.equal(kj, pj), (g, ss_live, sa_live, int((kj != pj).sum()))
         assert int(kp) == pp
+
+
+# ---- K3c and K7 on thread-block clusters (csrc/aggregate_commit.cu, csrc/explain.cu) ----
+
+
+def _commit_counts(tb, groups, seed_int):
+    """Seeded per-node counts (0-3 copies on about half the nodes) for each
+    group, on the card."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed_int)
+    N = int(tb.alloc.shape[0])
+    return [(g, torch.from_numpy((rng.integers(0, 4, size=N) * (rng.random(N) < 0.5))
+                                 .astype(np.int32)).cuda()) for g in groups]
+
+
+def _carry_copy(cry):
+    return K.Carry(*(t.clone() for t in cry))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ext", [False, True])
+@pytest.mark.parametrize("n_nodes,C", CLUSTER_NODES)
+def test_cluster_commit_matches_plain(n_nodes, C, ext):
+    """K3c on one cluster of C CTAs against its plain version: every carry
+    field bit for bit on seeded counts of every group (with EXT the GPU
+    groups also with gpu_live: the device ledger replayed), from the seed
+    carry and from a committed one, and the input carry unchanged (the
+    kernel writes a new carry out of place)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import test_torch_cluster_shape as CS
+
+    bt, tb, seed, P = _k2_cluster(n_nodes, ext)
+    groups = sorted({int(g) for g in bt.pod_group[:P]})
+    gpu_groups = [g for g in groups if float(tb.grp_gpu_mem[g]) > 0]
+    assert not ext or gpu_groups
+    cry = seed
+    for i, (g, j) in enumerate(_commit_counts(tb, groups, n_nodes)):
+        for gpu_live in (False, True) if g in gpu_groups else (False,):
+            before = _carry_copy(cry)
+            kc = K.aggregate_commit_kernel(tb, cry, g, j, gpu_live)
+            shape = K.aggregate_commit.last_shape
+            assert shape.C == C and shape.smem == CS.k3c_smem_model()
+            _same_carry(cry, before)
+            _same_carry(kc, K.aggregate_commit_plain(tb, cry, g, j, gpu_live))
+            assert all(a.data_ptr() != b.data_ptr() for a, b in zip(kc, cry))
+        if i % 3 == 0:
+            cry = kc  # the next groups commit on top of this one
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [8, 32])
+def test_cluster_commit_lanes_match_plain(S):
+    """K3c over S lanes (one cluster a lane) against the plain lanes, with
+    one group for every lane and with a group per lane, and with gpu_live on
+    the extended cluster: every carry field of every lane bit for bit, the
+    input carries unchanged."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import numpy as np
+
+    for ext in (False, True):
+        bt, tb, seed, P = _k2_cluster(1_501, ext)
+        groups = sorted({int(g) for g in bt.pod_group[:P]})
+        rng = np.random.default_rng(S + ext)
+        N = int(tb.alloc.shape[0])
+        cry_s = K.carry_lanes(seed, S)
+        j_s = torch.from_numpy((rng.integers(0, 4, size=(S, N)) * (rng.random((S, N)) < 0.5))
+                               .astype(np.int32)).cuda()
+        g_s = torch.tensor([groups[s % len(groups)] for s in range(S)], dtype=torch.int32).cuda()
+        gpu = next((g for g in groups if float(tb.grp_gpu_mem[g]) > 0), None)
+        cases = [(groups[0], False), (g_s, False)] + ([(gpu, True)] if ext else [])
+        for g, gpu_live in cases:
+            before = _carry_copy(cry_s)
+            kc = K.aggregate_commit_lanes_kernel(tb, cry_s, g, j_s, gpu_live)
+            assert K.aggregate_commit_lanes.last_shape.C >= 1
+            _same_carry(cry_s, before)
+            _same_carry(kc, K.aggregate_commit_lanes_plain(tb, cry_s, g, j_s, gpu_live))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ext", [False, True])
+@pytest.mark.parametrize("n_nodes,C", CLUSTER_NODES)
+def test_cluster_explain_matches_plain(n_nodes, C, ext):
+    """K7 on one cluster of C CTAs against plain explain_pod packed, bit for
+    bit, on every group of a batch with a pod that fits nowhere, a forced
+    pod, nodes without a zone and a ScheduleAnyway run on hostname domains;
+    against the seed carry, a mid-run carry, a full carry (no node feasible:
+    an empty F everywhere) and a carry with room only on the last CTA's
+    slice (every other CTA without a feasible node)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import test_torch_cluster_shape as CS
+
+    bt, tb, seed, P = _k2_cluster(n_nodes, ext)
+    flags = dict(enable_gpu=ext, enable_storage=ext)
+    args = [torch.from_numpy(a).cuda() for a in (bt.pod_group, bt.forced_node, bt.valid)]
+    mid, _ = K.schedule_batch_kernel(tb, seed, *args, bt.n_zones, **flags)
+    full = seed._replace(requested=tb.alloc.clone())
+    last = (C - 1) * -(-n_nodes // C)
+    only_last = seed._replace(requested=torch.where(
+        (torch.arange(n_nodes, device="cuda") < last)[:, None], tb.alloc, seed.requested))
+    groups = sorted({int(g) for g in bt.pod_group[:P]})
+    Ss, Z = int(tb.sa_t.shape[1]), max(2, bt.n_zones)
+    seen = {"empty": 0, "last_only": 0}
+    for cry in (seed, mid, full, only_last):
+        for g in groups:
+            for forced in (-1, (7 * g + 3) % n_nodes):
+                got = K.explain_kernel(tb, cry, g, forced, True, bt.n_zones, **flags)
+                shape = K.explain_jit.last_shape
+                assert shape.C == C and shape.smem == CS.k7_smem_model(C, Z, Ss)
+                _same_explain(got, K.explain_pod(tb, cry, g, forced, True, bt.n_zones, **flags))
+                f = got[0] > 0
+                seen["empty"] += not bool(f.any())
+                seen["last_only"] += bool(f[last:].any()) and not bool(f[:last].any())
+    assert seen["empty"] > 0 and (C == 1 or seen["last_only"] > 0), seen
