@@ -271,6 +271,50 @@ def k1_bytes(tb, cry, g: int) -> int:
     return b + N * (1 + 12 + R)                             # feasible, stages, fit_each
 
 
+def k1_checks(label: str, tables: dict, carries: dict, groups, flags: dict,
+              forced_too: bool = True) -> int:
+    """K1 against its plain version, bit for bit, on every table variant,
+    carry and group: the packed buffer (`feasibility_packed`, one launch)
+    against the plain pair packed, then the mask and every stage
+    (`feasibility_kernel`), forced (with `forced_too`) and not, with and
+    without the DoNotSchedule filter. Returns the cases checked."""
+    import torch
+
+    from open_simulator_torch.ops import kernels as K
+
+    checked = 0
+    for tname, tb in tables.items():
+        N = int(tb.alloc.shape[0])
+        for cname, cry in carries.items():
+            for g in groups:
+                cases = ((-1, True), (g % N, True), (-1, False)) if forced_too else ((-1, True),)
+                for forced, dns in cases:
+                    where = f"{label}: group {g}, forced {forced}, {tname} tables, {cname} carry"
+                    f_p, s_p = K.feasibility(tb, cry, g, forced, True, include_dns=dns, **flags)
+                    if dns:
+                        rows = K.feasibility_packed(tb, cry, g, forced, True, **flags)
+                        if not torch.equal(rows, K.pack_feasibility(f_p, s_p)):
+                            fail(f"feasibility {where}: the packed buffer differs")
+                    f_k, s_k = K.feasibility_kernel(tb, cry, g, forced, True, include_dns=dns,
+                                                    **flags)
+                    if not torch.equal(f_k, f_p):
+                        fail(f"feasibility {where}: the mask differs")
+                    for k in K.STAGE_KEYS:
+                        if not torch.equal(s_k[k], s_p[k]):
+                            fail(f"feasibility {where}: stage {k} differs")
+                    checked += 1
+    return checked
+
+
+def k1_shape() -> dict:
+    """The cluster shape of K1's last launch."""
+    from open_simulator_torch.ops import kernels as K
+
+    shape = K.feasibility_jit.last_shape
+    return dict(cluster_ctas=shape.C, threads=shape.threads, smem=shape.smem,
+                items_per_thread=shape.nodes_per_thread)
+
+
 def k2_cost(tb, cry, n_valid: int, P: int) -> tuple:
     """(shared bytes, lane bytes, f32 operations) the serial scan must spend:
     tables and pod arrays read once (shared by lanes), carry in and out and
@@ -314,10 +358,10 @@ def k3c_cost(tb, cry, out_of_place: bool = True) -> tuple:
     the [U, N] domain maps read once (shared by lanes); the carry's
     requested, nonzero, counter and carrier read and written once and the
     counts read once (each lane's own); one multiply and one add per
-    element. Out of place (K3c since it writes a new carry) also the fields
-    it copies, each read and written once: port_used, dev_used, vg_req and
-    sdev_alloc (`out_of_place` False: the in-place commit of K14 and of
-    K3c's one-block form, which left them where they were)."""
+    element. Out of place (K3c and K14, which write a new carry) also the
+    fields they copy, each read and written once: port_used, dev_used,
+    vg_req and sdev_alloc (`out_of_place` False: the in-place one-block
+    forms of both, which left them where they were)."""
     N, R = tb.alloc.shape
     D1 = cry.counter.shape[1]
     rows = N * R + 2 * N + (cry.counter.shape[0] + cry.carrier.shape[0]) * D1
@@ -1980,14 +2024,16 @@ def k13_cost(tbl, seedl, g: int, m: int) -> tuple:
     return one_lane(k4_cost(tbl, seedl, g, m))
 
 
-def k14_cost(tbl, seedl, gpu_live: bool, copies: int) -> tuple:
+def k14_cost(tbl, seedl, gpu_live: bool, copies: int, out_of_place: bool = True) -> tuple:
     """(bytes, f32 operations) of K14 on one rank's block: K3c's counts over
     the block (its rows, counts and domain maps, the replicated counters in
-    and out; k3c_cost) and, with gpu_live, the block's device ledger (read,
-    read and written) and 8 operations per copy and device."""
-    b, ops = one_lane(k3c_cost(tbl, seedl, out_of_place=False))
+    and out; k3c_cost; out of place, as K14 writes a new carry, also the
+    fields it copies) and, with gpu_live, the block's device ledger (the
+    totals read; in place also the ledger read and written, which out of
+    place k3c_cost holds) and 8 operations per copy and device."""
+    b, ops = one_lane(k3c_cost(tbl, seedl, out_of_place=out_of_place))
     if gpu_live:
-        b += 3 * nbytes(tbl.dev_total)
+        b += (1 if out_of_place else 3) * nbytes(tbl.dev_total)
         ops += copies * int(tbl.dev_total.shape[1]) * 8
     return b, ops
 
@@ -2059,8 +2105,9 @@ def mesh_commit_case(mesh, label: str, nodes, pods, services, scs, pick) -> dict
     """K14 against its plain version on the card (the block's carry, bit for
     bit, on this rank of `mesh`) and against the unsharded K3c of the same
     counts, on one wave segment of the cluster from the seed carry (K3's
-    counts), with its one all_gather_rows asserted; K14 timed per stage by
-    CUDA events over ten calls."""
+    counts), with its one all_gather_rows asserted and the input block carry
+    unchanged (K14 writes a new one); K14 timed per stage by CUDA events over
+    ten calls."""
     import torch
 
     from open_simulator_torch.core.types import ResourceTypes
@@ -2079,8 +2126,11 @@ def mesh_commit_case(mesh, label: str, nodes, pods, services, scs, pick) -> dict
     j = K.schedule_wave_kernel(tb, seed, g, m, cap1, block=block,
                                kmax=K.wave_kmax(m, sim.na.N, block), gpu_live=gpu_live)[0]
     jl = j[sl].contiguous()
+    before = K.Carry(*(t.clone() for t in seedl))
     mesh.reset_counts()
     kc = K.aggregate_commit_sharded_kernel(tbl, seedl, g, jl, gpu_live, mesh)
+    if not all(torch.equal(a, b) for a, b in zip(seedl, before)):
+        fail(f"mesh commit {label}: K14 wrote its input carry")
     calls = {k: v["calls"] for k, v in mesh.counts.items()}
     if calls != {"pmax": 0, "all_gather_tiled": 0, "all_gather_rows": 1}:
         fail(f"mesh commit {label}: K14 made {calls} collective calls")
@@ -2103,13 +2153,20 @@ def mesh_commit_case(mesh, label: str, nodes, pods, services, scs, pick) -> dict
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / reps
     K.SHARDED_STAGE_EVENTS = None
+    if not all(torch.equal(a, b) for a, b in zip(seedl, before)):
+        fail(f"mesh commit {label}: K14's timed calls wrote their input carry")
     stages = {k: v / reps for k, v in stage_ms(events).items()}
     b, ops = k14_cost(tbl, seedl, gpu_live, int(jl.sum()))
     bound, by = bound_of(b, ops)
+    # the in-place commit's bound (K14's one-block form, before it wrote a
+    # new carry) beside the out-of-place one
+    bound_in_place = bound_of(*k14_cost(tbl, seedl, gpu_live, int(jl.sum()), False))[0]
     return dict(label=label, nodes=int(tb.alloc.shape[0]), block_nodes=int(tbl.alloc.shape[0]),
+                cluster_C=K.aggregate_commit_sharded_kernel.last_shape.C,
                 pods=m, copies=int(jl.sum()), gpu_live=gpu_live, ms=sum(stages.values()),
                 stage_ms=stages, wall_ms=wall_ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=by, bytes=b, f32_ops=ops, max_abs_err=err)
+                bound_ms_in_place=bound_in_place, bound_by=by, bytes=b, f32_ops=ops,
+                max_abs_err=err)
 
 
 def tap_engine(sim, mesh) -> dict:
@@ -3153,6 +3210,7 @@ def schedule_batch_10240(card: str) -> None:
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -3226,27 +3284,47 @@ def main() -> int:
                                   max_abs_err=err_k2, ms=k2_ms, plain_ms=plain_ms_k2,
                                   bound_ms=k2_bound, bound_by=k2_by)
 
-    # ---- feasibility: K1 against its plain version, every group, seed and
-    # end carry, with and without the DoNotSchedule filter
-    checked = 0
-    for label, cry in (("seed", seed), ("end", end_k)):
-        for g in kinds:
-            for forced, dns in ((-1, True), (g % int(tb.alloc.shape[0]), True), (-1, False)):
-                f_k, s_k = K.feasibility_kernel(tb, cry, g, forced, True, include_dns=dns)
-                f_p, s_p = K.feasibility(tb, cry, g, forced, True, include_dns=dns)
-                if not torch.equal(f_k, f_p):
-                    fail(f"feasibility mask differs (group {g}, forced {forced}, {label} carry)")
-                for k in K.STAGE_KEYS:
-                    if not torch.equal(s_k[k], s_p[k]):
-                        fail(f"feasibility stage {k} differs (group {g}, {label} carry)")
-                checked += 1
+    # ---- feasibility: K1 against its plain version (the packed buffer, the
+    # mask and every stage), every group, seed and end carry, forced and
+    # not, with and without the DoNotSchedule filter
+    checked = k1_checks("hard", {"encoded": tb}, {"seed": seed, "end": end_k}, kinds, {})
     g0 = kinds[0]
     k1_ms = cuda_ms(lambda: K.feasibility_kernel(tb, end_k, g0, -1, True), 200)
     k1_plain_ms = cuda_ms(lambda: K.feasibility(tb, end_k, g0, -1, True), 50)
     k1_b = k1_bytes(tb, end_k, g0)
     k1_bound = k1_b / HBM_BYTES_PER_S * 1e3
     emit("feasibility", cases=checked, groups=len(kinds), kernel_ms=k1_ms,
-         plain_ms=k1_plain_ms, bound_ms=k1_bound, bytes=k1_b, max_abs_err=0.0, card=card)
+         plain_ms=k1_plain_ms, bound_ms=k1_bound, bytes=k1_b, max_abs_err=0.0, **k1_shape(),
+         card=card)
+    # K1 on the spread cluster's hostname DoNotSchedule group (D+1 = N + 1:
+    # the prologue's shares cut the hostnames), from the seed carry and after
+    # K2 placed the first 1,250 pods, with the encoded eligible sets and with
+    # none at all (every minimum 0)
+    sp_nodes, sp_pods, sp_services = synth_spread_cluster(5000, 20000)
+    sp_sim = Simulator(sp_nodes, device="cuda")
+    sp_sim.register_cluster_objects(ResourceTypes(services=sp_services))
+    sp_bt = sp_sim.encode_batch(sp_pods[:2000])
+    sp_tb, sp_seed = sp_sim._to_device(sp_bt)
+    sp_N = int(sp_tb.alloc.shape[0])
+    host = [g for g in sorted({int(x) for x in sp_bt.pod_group[:2000]})
+            if int(sp_tb.dns_edom[g].sum(dim=1).max()) > sp_N // 2]
+    if not host:
+        fail("spread: no group with a hostname DoNotSchedule term in the first 2,000 pods")
+    g_h = host[0]
+    sp_pg, sp_fn = (torch.from_numpy(a).cuda() for a in (sp_bt.pod_group, sp_bt.forced_node))
+    sp_vd = torch.from_numpy(sp_bt.valid & (np.arange(sp_bt.valid.shape[0]) < 1250)).cuda()
+    sp_end, _ = K.schedule_batch_kernel(sp_tb, sp_seed, sp_pg, sp_fn, sp_vd, sp_bt.n_zones)
+    no_eligible = sp_tb._replace(dns_edom=torch.zeros_like(sp_tb.dns_edom))
+    checked_h = k1_checks("hostname", {"encoded": sp_tb, "no_eligible": no_eligible},
+                          {"seed": sp_seed, "end": sp_end}, [g_h], {})
+    h_ms = cuda_ms(lambda: K.feasibility_kernel(sp_tb, sp_end, g_h, -1, True), 200)
+    h_plain_ms = cuda_ms(lambda: K.feasibility(sp_tb, sp_end, g_h, -1, True), 50)
+    h_b = k1_bytes(sp_tb, sp_end, g_h)
+    emit("feasibility_hostname", cases=checked_h, group=g_h, nodes=sp_N,
+         domains=int(sp_end.counter.shape[1]), kernel_ms=h_ms, plain_ms=h_plain_ms,
+         bound_ms=h_b / HBM_BYTES_PER_S * 1e3, bytes=h_b, max_abs_err=0.0, **k1_shape(),
+         card=card)
+    del sp_sim, sp_bt, sp_tb, sp_seed, sp_end, no_eligible
     rows["feasibility"] = dict(source=SRC + "feasibility.cu", replaces=JAX_KERNELS + ":743",
                                max_abs_err=0.0, ms=k1_ms, plain_ms=k1_plain_ms,
                                bound_ms=k1_bound, bound_by="bytes")
@@ -3454,17 +3532,8 @@ def main() -> int:
         source=SRC + "schedule.cu", replaces=JAX_KERNELS + ":2265", max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=bound, bound_by=by)
     kinds = sorted({int(g) for g in bt.pod_group[:P]})
-    checked = 0
-    for label, cry in (("seed", seed), ("end", end_k)):
-        for g in kinds:
-            f_k, s_k = K.feasibility_kernel(tb, cry, g, -1, True, **flags)
-            f_p, s_p = K.feasibility(tb, cry, g, -1, True, **flags)
-            if not torch.equal(f_k, f_p):
-                fail(f"feasibility (gpu, storage) mask differs (group {g}, {label} carry)")
-            for k in K.STAGE_KEYS:
-                if not torch.equal(s_k[k], s_p[k]):
-                    fail(f"feasibility (gpu, storage) stage {k} differs (group {g}, {label})")
-            checked += 1
+    checked = k1_checks("gpu, storage", {"encoded": tb}, {"seed": seed, "end": end_k}, kinds,
+                        flags, forced_too=False)
     # time K1 on a group with LVM and device volumes, against the end carry
     g_st = next(g for g in kinds if bool((tb.grp_lvm_size[g] > 0).any()))
     ms = cuda_ms(lambda: K.feasibility_kernel(tb, end_k, g_st, -1, True, **flags), 200)
@@ -3472,7 +3541,7 @@ def main() -> int:
     b = k1_bytes(tb, end_k, g_st) + gpu_storage_bytes(tb, end_k)
     bound, by = bound_of(b, N * gpu_storage_ops(tb, g_st))
     emit("feasibility_gpu_storage", cases=checked, groups=len(kinds), kernel_ms=ms,
-         plain_ms=plain_ms, bound_ms=bound, bytes=b, max_abs_err=0.0, card=card)
+         plain_ms=plain_ms, bound_ms=bound, bytes=b, max_abs_err=0.0, **k1_shape(), card=card)
     rows["feasibility/gpu_storage"] = dict(
         source=SRC + "feasibility.cu", replaces=JAX_KERNELS + ":743", max_abs_err=0.0, ms=ms,
         plain_ms=plain_ms, bound_ms=bound, bound_by=by)

@@ -146,8 +146,6 @@ def _load(path: str) -> ctypes.CDLL:
     lib.cluster_round_probe_launch.restype = I
     lib.cluster_kernels_init.argtypes = []
     lib.cluster_kernels_init.restype = I
-    lib.feasibility_launch.argtypes = [V] + [ctypes.c_int] * 4 + [P] * 4
-    lib.feasibility_launch.restype = ctypes.c_int
     lib.schedule_batch_launch.argtypes = [V, P, P, P, I, P, P, P, I, L, P]
     lib.schedule_batch_launch.restype = ctypes.c_int
     # K3 and K5 (thread-block clusters): shared memory, scratch, occupancy
@@ -177,8 +175,8 @@ def _load(path: str) -> ctypes.CDLL:
     lib.schedule_affinity_wave_lanes_launch.argtypes = [V] + [I] * 6 + [P] * 3 + [I, L, P]
     lib.schedule_affinity_wave_lanes_launch.restype = ctypes.c_int
     # K3c (one thread-block cluster a lane, out of place: the input carry's
-    # view, then the new carry) and K7 (one cluster over N), each with its
-    # shape (C, smem)
+    # view, then the new carry), K7 and K1 (one cluster over N), each with
+    # its shape (C, smem)
     O = ctypes.POINTER(CarryOut)
     for name, args, res in (("aggregate_commit_smem", [], L),
                             ("aggregate_commit_init", [], I),
@@ -192,7 +190,13 @@ def _load(path: str) -> ctypes.CDLL:
                             ("explain_smem_max", [], L),
                             ("explain_init", [], I),
                             ("explain_occupancy", [I, I, L, P], I),
-                            ("explain_launch", [V, I, I, I, L, P, P, I, L, P], I)):
+                            ("explain_launch", [V, I, I, I, L, P, P, I, L, P], I),
+                            # K1
+                            ("feasibility_smem", [V, I, I], L),
+                            ("feasibility_smem_max", [], L),
+                            ("feasibility_init", [], I),
+                            ("feasibility_occupancy", [I, I, L, P], I),
+                            ("feasibility_launch", [V, I, I, I, I, P, I, L, P], I)):
         getattr(lib, name).argtypes = args
         getattr(lib, name).restype = res
     # K8 and K9, the sharded epoch paths: setup, front, table, tail
@@ -314,8 +318,11 @@ def _load(path: str) -> ctypes.CDLL:
                              [V] + [I] * 5 + [P, I] + [P] * 4 + [I, L, P], I),
                             ("gs_sharded_finish_launch", [V] + [I] * 4 + [P] * 3 + [I, L, P], I),
                             # K14, the aggregate commit on a partitioned node mesh
-                            ("commit_sharded_rows_launch", [V, I, P, P, I, I, P, P], I),
-                            ("commit_sharded_domains_launch", [V, I, P, I, P, P, I, P, P], I)):
+                            ("commit_sharded_smem", [], L),
+                            ("commit_sharded_init", [], I),
+                            ("commit_sharded_occupancy", [I, L, P], I),
+                            ("commit_sharded_rows_launch", [V, O, I, P, P, I, I, P, I, L, P], I),
+                            ("commit_sharded_domains_launch", [V, O, I, P, I, P, P, I, P], I)):
         getattr(lib, name).argtypes = args
         getattr(lib, name).restype = res
     lib.ext_args_size.argtypes = []

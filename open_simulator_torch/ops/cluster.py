@@ -1,4 +1,4 @@
-"""Launch shapes of the cluster kernels K2 - K5, K3c, K7 and K8 - K13
+"""Launch shapes of the cluster kernels K1 - K5, K3c, K7 and K8 - K14
 (csrc/cluster.cuh).
 
 Each lane of K2 (`schedule_batch`), K3 (`schedule_wave`), K4
@@ -28,11 +28,17 @@ the mesh's N nodes. Their shared memory holds the rounds' words only
 (K9's tail also its candidate keys), bounded by each kernel's smem_max
 (K8, K9, K11, K12, K13); a shape the rule refuses raises. K3c
 (csrc/aggregate_commit.cu, one cluster a lane, `aggregate_commit_smem`:
-none) and K7 (csrc/explain.cu, one cluster over N, `explain_smem`: the
-rounds' words, bounded by `explain_smem_max`) take the rule's shape too;
-they run tens to hundreds of times a run, so their shapes are cached per
-their inputs (`choose_cached`) and only a shape's first call asks the card
-for occupancy. Plain Python: nothing here needs torch or a card.
+none), K7 (csrc/explain.cu, one cluster over N, `explain_smem`: the
+rounds' words, bounded by `explain_smem_max`), K1 (csrc/feasibility.cu,
+one cluster over N, its EXT build over 3N items: a node's three checks on
+three threads; `feasibility_smem`: the prologue round's words and a pass's
+staged bits and fit_each bytes, bounded by `feasibility_smem_max`) and
+K14's rows stage (csrc/commit_sharded.cu, one cluster over a rank's
+block, `commit_sharded_smem`: none; one-shot, its ties to the largest C
+whose CTAs keep a warp's 32 nodes, `min_chunk`) take the rule's shape
+too; they run tens to hundreds of times a run, so their shapes are cached
+per their inputs (`choose_cached`) and only a shape's first call asks the
+card for occupancy. Plain Python: nothing here needs torch or a card.
 """
 
 from __future__ import annotations
@@ -69,7 +75,7 @@ def nodes_per_thread(N: int, C: int, threads: int = THREADS) -> int:
 
 def choose(N: int, S: int, smem_of: Callable[[int], int],
            occupancy: Callable[[int, int], int], threads: int = THREADS,
-           smem_max: int = SMEM_MAX) -> Shape:
+           smem_max: int = SMEM_MAX, min_chunk: int = 0) -> Shape:
     """The cluster shape of an S-lane launch over N nodes.
 
     Every C of SIZES whose shared memory `smem_of(C)` fits `smem_max` (the
@@ -82,7 +88,11 @@ def choose(N: int, S: int, smem_of: Callable[[int], int],
     least waves of resident clusters (ceil(S / occupancy)) times nodes per
     thread; ties go to the smaller C. One lane at N 5,120 takes C 16 (320
     nodes a CTA, one a thread); eight lanes take C 8 where eight clusters
-    of 16 do not fit at once. Raises ValueError when no C fits."""
+    of 16 do not fit at once. With `min_chunk` (a one-shot launch, whose
+    CTAs share its bytes rather than step a pod stream: K14's rows stage)
+    ties go instead to the LARGEST C whose CTAs each keep at least
+    min_chunk nodes (the smallest C where none does): more SMs move the
+    same bytes. Raises ValueError when no C fits."""
     best = None
     for C in SIZES:
         smem = int(smem_of(C))
@@ -92,7 +102,9 @@ def choose(N: int, S: int, smem_of: Callable[[int], int],
         if occ < 1:
             continue
         npt = nodes_per_thread(N, C, threads)
-        key = (0, npt, C) if occ >= S else (1, -(-S // occ) * npt, C)
+        small = chunk_of(N, C) < min_chunk
+        tie = (small, C if small else -C) if min_chunk else (C,)
+        key = (0, npt) + tie if occ >= S else (1, -(-S // occ) * npt) + tie
         if best is None or key < best[0]:
             best = (key, Shape(C, threads, smem, chunk_of(N, C), npt, occ, occ >= S))
     if best is None:
@@ -104,13 +116,14 @@ def choose(N: int, S: int, smem_of: Callable[[int], int],
 
 def choose_cached(cache: Dict[Hashable, Shape], key: Hashable, N: int, S: int,
                   smem_of: Callable[[int], int], occupancy: Callable[[int, int], int],
-                  threads: int = THREADS, smem_max: int = SMEM_MAX) -> Shape:
+                  threads: int = THREADS, smem_max: int = SMEM_MAX,
+                  min_chunk: int = 0) -> Shape:
     """`choose` once per `key` of `cache`: later calls with the same key
     return the first call's shape and ask neither `smem_of` nor `occupancy`
     again. The key holds every input the shape depends on (the device, N, S
-    and the shared-memory arguments); a refused shape raises and is not
-    kept."""
+    and the shared-memory arguments; `min_chunk` is the kernel's own); a
+    refused shape raises and is not kept."""
     shape = cache.get(key)
     if shape is None:
-        shape = cache[key] = choose(N, S, smem_of, occupancy, threads, smem_max)
+        shape = cache[key] = choose(N, S, smem_of, occupancy, threads, smem_max, min_chunk)
     return shape

@@ -527,8 +527,8 @@ static __device__ uint32_t node_feasibility(const TablesView& t, const PodCtx* p
 }
 
 // One block of this many threads runs each of the one-block stages left:
-// K11's reduce and merge and K14's two (the cluster kernels' CTAs have
-// cluster.cuh CLUSTER_THREADS).
+// K11's reduce and merge (the cluster kernels' CTAs have cluster.cuh
+// CLUSTER_THREADS).
 #define BLOCK_THREADS 1024
 
 // ---- lanes (the capacity probe's fan-out, JAX probe_*_fanout :2300-2378) ----

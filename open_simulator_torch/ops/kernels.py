@@ -564,6 +564,28 @@ def feasibility(tb: Tables, cry: Carry, g: int, forced: int, valid: bool,
     return feasible, stages
 
 
+# rows of the packed diagnostic before fit_each's R: feasible, then the stages
+FEASIBILITY_ROWS = 1 + len(STAGE_ROWS)
+
+
+def pack_feasibility(feasible: torch.Tensor, stages: dict) -> torch.Tensor:
+    """`feasibility`'s pair as K1 writes it: ONE [FEASIBILITY_ROWS + R, N]
+    uint8 buffer, row 0 the feasible mask, the STAGE_ROWS masks, then
+    fit_each transposed ([R, N]); 1 / 0."""
+    return torch.cat([feasible[None], torch.stack([stages[k] for k in STAGE_ROWS]),
+                      stages["fit_each"].T]).to(torch.uint8)
+
+
+def unpack_feasibility(rows: torch.Tensor):
+    """(feasible [N], {STAGE_KEYS: mask}) as bool views of the packed rows
+    (`pack_feasibility`'s layout), fit_each the transposed [N, R] view; no
+    copy."""
+    b = rows.view(torch.bool)
+    stages = {k: b[1 + i] for i, k in enumerate(STAGE_ROWS)}
+    stages["fit_each"] = b[FEASIBILITY_ROWS:].T
+    return b[0], {k: stages[k] for k in STAGE_KEYS}
+
+
 # Per-plugin score components in the summation order of the JAX package's
 # fused total (left-associated adds of weighted terms).
 COMPONENT_ORDER = (
@@ -2697,47 +2719,62 @@ def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-def feasibility_kernel(tb: Tables, cry: Carry, g: int, forced: int, valid: bool,
-                       filters: FilterFlags = DEFAULT_FILTERS, include_dns: bool = True,
-                       enable_gpu: bool = False, enable_storage: bool = False):
-    """Launch K1 (csrc/feasibility.cu feasibility_kernel): one thread per node.
-    Returns (feasible [N] bool, stages {STAGE_KEYS: tensor})."""
+def _feasibility_rows(tb: Tables, cry: Carry, g: int, forced: int, valid: bool,
+                      filters: FilterFlags, include_dns: bool, enable_gpu: bool,
+                      enable_storage: bool) -> torch.Tensor:
+    """Launch K1 (csrc/feasibility.cu feasibility_kernel): one thread-block
+    cluster over the N nodes writes the packed [FEASIBILITY_ROWS + R, N]
+    uint8 rows (`unpack_feasibility`) into one allocation. The cluster shape
+    is recorded in `feasibility_jit.last_shape`."""
     from . import build
 
     lib = build.library()
     N, R = tb.alloc.shape
-    dev = tb.alloc.device
     v = _view(tb, cry, 2, DEFAULT_WEIGHTS, filters, enable_gpu, enable_storage)
-    feasible = torch.empty(N, dtype=torch.bool, device=dev)
-    stage_rows = torch.empty((len(STAGE_ROWS), N), dtype=torch.bool, device=dev)
-    fit_each = torch.empty((N, R), dtype=torch.bool, device=dev)
-    _check(lib.feasibility_launch(ctypes.byref(v), int(g), int(forced), int(bool(valid)),
-                                  int(bool(include_dns)),
-                                  ctypes.c_void_p(feasible.data_ptr()),
-                                  ctypes.c_void_p(stage_rows.data_ptr()),
-                                  ctypes.c_void_p(fit_each.data_ptr()), _stream()),
+    vr = ctypes.byref(v)
+    ext = bool(enable_gpu or enable_storage)
+    shape = _cluster_shape(lib, "k1", False, ext, v, 1)
+    out = torch.empty((FEASIBILITY_ROWS + R, N), dtype=torch.uint8, device=tb.alloc.device)
+    _check(lib.feasibility_launch(vr, int(g), int(forced), int(bool(valid)),
+                                  int(bool(include_dns)), _ptr(out), shape.C, shape.smem,
+                                  _stream()),
            "feasibility_kernel launch")
     feasibility_jit.launches += 1
-    if enable_gpu or enable_storage:
+    feasibility_jit.last_shape = shape
+    if ext:
         BRANCH_LAUNCHES["feasibility/gpu_storage"] += 1
-    stages = {k: stage_rows[i] for i, k in enumerate(STAGE_ROWS)}
-    stages["fit_each"] = fit_each
-    return feasible, {k: stages[k] for k in STAGE_KEYS}
+    return out
+
+
+def feasibility_kernel(tb: Tables, cry: Carry, g: int, forced: int, valid: bool,
+                       filters: FilterFlags = DEFAULT_FILTERS, include_dns: bool = True,
+                       enable_gpu: bool = False, enable_storage: bool = False):
+    """Launch K1 (`_feasibility_rows`). Returns (feasible [N] bool, stages
+    {STAGE_KEYS: tensor}), bool views of the one packed buffer (fit_each
+    its transposed [N, R] view)."""
+    return unpack_feasibility(_feasibility_rows(tb, cry, g, forced, valid, filters, include_dns,
+                                                enable_gpu, enable_storage))
 
 
 # the devices on which the cluster kernels' attributes are set
 _CLUSTER_READY: set = set()
-# K3c's and K7's cluster shapes by their inputs (ops/cluster.py choose_cached)
+# K3c's, K7's, K1's and K14's cluster shapes by their inputs (ops/cluster.py
+# choose_cached)
 _SHAPES: dict = {}
+# K14's rows stage is one launch whose CTAs share its bytes: among the shapes
+# with the fewest nodes a thread it takes the most CTAs that keep this many
+# nodes each (a warp's)
+K14_MIN_CHUNK = 32
 
 
 def _cluster_init(lib) -> None:
-    """Allow the cluster kernels (K2 - K5, K3c, K7, K8 - K13, the round
-    probe) clusters of 16 and csrc/cluster.cuh CLUSTER_SMEM_MAX bytes of
-    shared memory (K7, K8, K9, K11, K12 and K13 their own bounds,
-    explain_smem_max, wave_sharded_smem_max, affinity_sharded_smem_max,
-    affinity_rounds_smem_max, batch_sharded_smem_max and gs_sharded_smem_max)
-    on the current device, once per device."""
+    """Allow the cluster kernels (K1 - K5, K3c, K7, K8 - K14's rows stage,
+    the round probe) clusters of 16 and csrc/cluster.cuh CLUSTER_SMEM_MAX
+    bytes of shared memory (K1, K7, K8, K9, K11, K12 and K13 their own
+    bounds, feasibility_smem_max, explain_smem_max, wave_sharded_smem_max,
+    affinity_sharded_smem_max, affinity_rounds_smem_max,
+    batch_sharded_smem_max and gs_sharded_smem_max) on the current device,
+    once per device."""
     dev = torch.cuda.current_device()
     if dev not in _CLUSTER_READY:
         _check(lib.cluster_kernels_init(), "cluster kernel attributes")
@@ -2749,6 +2786,8 @@ def _cluster_init(lib) -> None:
         _check(lib.gs_sharded_init(), "K13 cluster kernel attributes")
         _check(lib.aggregate_commit_init(), "K3c cluster kernel attributes")
         _check(lib.explain_init(), "K7 cluster kernel attributes")
+        _check(lib.feasibility_init(), "K1 cluster kernel attributes")
+        _check(lib.commit_sharded_init(), "K14 cluster kernel attributes")
         _CLUSTER_READY.add(dev)
 
 
@@ -2756,15 +2795,19 @@ def _cluster_shape(lib, kernel: str, lanes: bool, ext: bool, v: TablesView, S: i
                    block: int = 0):
     """The cluster shape (ops/cluster.py `choose`) of a K2 ("k2"), K3
     ("k3", table depth `block`), K4 ("k4"), K5 ("k5", table depth
-    `block`), K3c ("k3c") or K7 ("k7") launch of S lanes on the view `v`:
-    the shared memory of each candidate C from the library
-    (schedule_batch_smem, schedule_wave_smem, group_serial_smem,
-    affinity_wave_smem, aggregate_commit_smem, explain_smem: the one formula
-    of each; K7 bounded by explain_smem_max), and the card's
-    cudaOccupancyMaxActiveClusters answer for it. K3c's and K7's shapes are
-    cached per their inputs (`choose_cached`: the device, N, S, the lane
-    form or EXT, and K7's zone and ScheduleAnyway axes, which size its
-    rounds), so only their first call asks the card."""
+    `block`), K3c ("k3c"), K7 ("k7"), K1 ("k1") or K14's rows stage ("k14")
+    launch of S lanes on the view `v`: the shared memory of each candidate C
+    from the library (schedule_batch_smem, schedule_wave_smem,
+    group_serial_smem, affinity_wave_smem, aggregate_commit_smem,
+    explain_smem, feasibility_smem, commit_sharded_smem: the one formula of
+    each; K7 bounded by explain_smem_max, K1 by feasibility_smem_max), and
+    the card's cudaOccupancyMaxActiveClusters answer for it. K1 sizes its
+    EXT build over 3N items (a node's three checks on three threads); K14's
+    one-shot rows stage breaks ties toward more CTAs (K14_MIN_CHUNK). The
+    shapes of K3c, K7, K1 and K14 are cached per their inputs
+    (`choose_cached`: the device, N, S, the lane form or EXT, and the axes
+    that size their shared memory), so only their first call asks the
+    card."""
     _cluster_init(lib)
     vr = ctypes.byref(v)
     smem_of = {"k2": lambda C: lib.schedule_batch_smem(vr, C),
@@ -2772,7 +2815,9 @@ def _cluster_shape(lib, kernel: str, lanes: bool, ext: bool, v: TablesView, S: i
                "k4": lambda C: lib.group_serial_smem(vr, C),
                "k5": lambda C: lib.affinity_wave_smem(vr, int(block), C),
                "k3c": lambda C: lib.aggregate_commit_smem(),
-               "k7": lambda C: lib.explain_smem(vr, C)}[kernel]
+               "k7": lambda C: lib.explain_smem(vr, C),
+               "k1": lambda C: lib.feasibility_smem(vr, C, int(ext)),
+               "k14": lambda C: lib.commit_sharded_smem()}[kernel]
 
     def occupancy(C: int, smem: int) -> int:
         out = ctypes.c_int(0)
@@ -2786,8 +2831,12 @@ def _cluster_shape(lib, kernel: str, lanes: bool, ext: bool, v: TablesView, S: i
             rc = lib.affinity_wave_occupancy(int(lanes), C, smem, ctypes.byref(out))
         elif kernel == "k3c":
             rc = lib.aggregate_commit_occupancy(int(lanes), C, smem, ctypes.byref(out))
-        else:
+        elif kernel == "k7":
             rc = lib.explain_occupancy(int(ext), C, smem, ctypes.byref(out))
+        elif kernel == "k1":
+            rc = lib.feasibility_occupancy(int(ext), C, smem, ctypes.byref(out))
+        else:
+            rc = lib.commit_sharded_occupancy(C, smem, ctypes.byref(out))
         _check(rc, f"{kernel} cluster occupancy query (C {C}, {smem} bytes)")
         return out.value
 
@@ -2798,6 +2847,15 @@ def _cluster_shape(lib, kernel: str, lanes: bool, ext: bool, v: TablesView, S: i
         key = (kernel, torch.cuda.current_device(), int(v.N), bool(ext), int(v.Z), int(v.Ss))
         return choose_cached(_SHAPES, key, int(v.N), S, lambda C: int(smem_of(C)), occupancy,
                              smem_max=int(lib.explain_smem_max()))
+    if kernel == "k1":
+        key = (kernel, torch.cuda.current_device(), int(v.N), bool(ext), int(v.Sd), int(v.R))
+        items = (3 if ext else 1) * int(v.N)
+        return choose_cached(_SHAPES, key, items, S, lambda C: int(smem_of(C)), occupancy,
+                             smem_max=int(lib.feasibility_smem_max()))
+    if kernel == "k14":  # one-shot: ties to the most CTAs that keep a warp's nodes
+        key = (kernel, torch.cuda.current_device(), int(v.N))
+        return choose_cached(_SHAPES, key, int(v.N), S, lambda C: int(smem_of(C)), occupancy,
+                             min_chunk=K14_MIN_CHUNK)
     return choose(int(v.N), S, lambda C: int(smem_of(C)), occupancy)
 
 
@@ -3590,28 +3648,34 @@ def schedule_group_serial_sharded_kernel(tb: Tables, cry: Carry, g: int, valid, 
 def aggregate_commit_sharded_kernel(tb: Tables, cry: Carry, g: int, j: torch.Tensor,
                                     gpu_live: bool = False, mesh=None) -> Carry:
     """Launch K14 (csrc/commit_sharded.cu) on this rank of a partitioned
-    node `mesh` (`tb`, `cry` and the counts `j` [NL] the rank's block) on a
-    CLONE of `cry`, which it updates in place and returns: the rows launch
-    (the block's rows and its per-topology domain counts), ONE
-    all_gather_rows of those counts, the domains launch (their sum in rank
-    order into the replicated counter / carrier)."""
+    node `mesh` (`tb`, `cry` and the counts `j` [NL] the rank's block): the
+    rows stage (one thread-block cluster over the block writes the new
+    carry's rows and the block's per-topology domain counts), ONE
+    all_gather_rows of those counts, the domains stage (a grid over the
+    counter and carrier elements adds their sum in rank order). Reads `cry`
+    and returns the block's new carry in fresh tensors (`cry` is left
+    untouched and nothing is cloned). The rows stage's cluster shape is
+    recorded in `aggregate_commit_sharded_kernel.last_shape`."""
     from ..parallel.collectives import all_gather_rows
     from . import build
 
     lib = build.library()
     dev = tb.alloc.device
-    out = Carry(*(t.clone() for t in cry))
-    v = _view(tb, out, 2, DEFAULT_WEIGHTS, DEFAULT_FILTERS, enable_gpu=gpu_live)
+    v = _view(tb, cry, 2, DEFAULT_WEIGHTS, DEFAULT_FILTERS, enable_gpu=gpu_live)
     vr = ctypes.byref(v)
     jj = _i32_on(j, dev, tb.alloc.shape[0], "j")
     U, D1 = _commit_inputs(tb, cry)
+    shape = _cluster_shape(lib, "k14", False, False, v, 1)
+    out = Carry(*(torch.empty_like(t) for t in cry))
+    o = ctypes.byref(_carry_out(out))
     seg = torch.empty((1, U, D1), dtype=_F32, device=dev)
-    _sharded_launch(lib.commit_sharded_rows_launch, vr, int(g), _ptr(jj), _ptr(tb.topo_dom), U,
-                    int(bool(gpu_live)), _ptr(seg))
+    _sharded_launch(lib.commit_sharded_rows_launch, vr, o, int(g), _ptr(jj), _ptr(tb.topo_dom),
+                    U, int(bool(gpu_live)), _ptr(seg), shape.C, shape.smem)
     rows = all_gather_rows(seg, mesh)
-    _sharded_launch(lib.commit_sharded_domains_launch, vr, int(g), _ptr(rows), mesh.shards,
-                    _ptr(tb.counter_topo), _ptr(tb.carr_topo), U, _ptr(seg))
+    _sharded_launch(lib.commit_sharded_domains_launch, vr, o, int(g), _ptr(rows), mesh.shards,
+                    _ptr(tb.counter_topo), _ptr(tb.carr_topo), U)
     aggregate_commit_sharded_kernel.launches += 2
+    aggregate_commit_sharded_kernel.last_shape = shape
     if gpu_live:
         BRANCH_LAUNCHES["aggregate_commit_sharded/gpu_live"] += 1
     return out
@@ -3625,31 +3689,42 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return False
 
 
-def feasibility_jit(tb: Tables, cry: Carry, g: int, forced: int, valid: bool,
-                    filters: FilterFlags = DEFAULT_FILTERS, enable_gpu: bool = False,
-                    enable_storage: bool = False, mesh=None):
-    """The failure-reason diagnostic (JAX `feasibility_jit`): the plain
-    version for CPU tensors, K1 for CUDA tensors. On a partitioned node
-    `mesh` (the tables and carry this rank's block, `forced` a global node)
-    the same on the block, its masks then gathered tiled, so that every rank
-    returns them for all N nodes (one `all_gather_tiled`)."""
+def feasibility_packed(tb: Tables, cry: Carry, g: int, forced: int, valid: bool,
+                       filters: FilterFlags = DEFAULT_FILTERS, enable_gpu: bool = False,
+                       enable_storage: bool = False, mesh=None) -> torch.Tensor:
+    """The failure-reason diagnostic as ONE packed [FEASIBILITY_ROWS + R, N]
+    uint8 buffer (`unpack_feasibility` gives `feasibility_jit`'s pair): the
+    plain version packed (`pack_feasibility`) for CPU tensors, K1's own
+    output for CUDA tensors. On a partitioned node `mesh` (the tables and
+    carry this rank's block, `forced` a global node) the same on the block,
+    gathered tiled as it is, so that every rank holds all N columns (one
+    `all_gather_tiled`)."""
     flags = dict(enable_gpu=enable_gpu, enable_storage=enable_storage)
     if _partitioned(mesh):
         NL = tb.alloc.shape[0]
         forced = block_forced(forced, mesh.rank * NL, NL)
-    run = feasibility if _on_cpu(tb.alloc) else feasibility_kernel
-    feasible, stages = run(tb, cry, g, forced, valid, filters, **flags)
+    if _on_cpu(tb.alloc):
+        rows = pack_feasibility(*feasibility(tb, cry, g, forced, valid, filters, **flags))
+    else:
+        rows = _feasibility_rows(tb, cry, g, forced, valid, filters, True, **flags)
     if not _partitioned(mesh):
-        return feasible, stages
+        return rows
     from ..parallel.collectives import all_gather_tiled
 
-    n = len(STAGE_ROWS)
-    rows = torch.cat([feasible[None], torch.stack([stages[k] for k in STAGE_ROWS]),
-                      stages["fit_each"].T]).to(torch.uint8)
-    full = all_gather_tiled(rows, mesh, axis=1) > 0
-    stages = {k: full[1 + i] for i, k in enumerate(STAGE_ROWS)}
-    stages["fit_each"] = full[1 + n:].T.contiguous()
-    return full[0], {k: stages[k] for k in STAGE_KEYS}
+    return all_gather_tiled(rows, mesh, axis=1)
+
+
+def feasibility_jit(tb: Tables, cry: Carry, g: int, forced: int, valid: bool,
+                    filters: FilterFlags = DEFAULT_FILTERS, enable_gpu: bool = False,
+                    enable_storage: bool = False, mesh=None):
+    """The failure-reason diagnostic (JAX `feasibility_jit`): the plain
+    version for CPU tensors, K1 for CUDA tensors, as (feasible [N], stages),
+    bool views of `feasibility_packed`'s buffer. On a partitioned node
+    `mesh` (the tables and carry this rank's block, `forced` a global node)
+    the same on the block, gathered tiled, so that every rank returns them
+    for all N nodes (one `all_gather_tiled`)."""
+    return unpack_feasibility(feasibility_packed(tb, cry, g, forced, valid, filters, enable_gpu,
+                                                 enable_storage, mesh))
 
 
 def explain_kernel(tb: Tables, cry: Carry, g: int, forced: int, valid: bool, n_zones: int,
@@ -4605,8 +4680,10 @@ for _f in (schedule_wave, schedule_affinity_wave, probe_wave_fanout, serve_wave_
 schedule_wave.stats = None
 schedule_affinity_wave.stats = None
 schedule_affinity_wave.last_stats = None
-# K3c's (single lane and over lanes) and K7's: the last launch's cluster shape
+# K3c's (single lane and over lanes), K7's, K1's and K14's rows stage's: the
+# last launch's cluster shape
 aggregate_commit.last_shape = aggregate_commit_lanes.last_shape = explain_jit.last_shape = None
+feasibility_jit.last_shape = aggregate_commit_sharded_kernel.last_shape = None
 # K10's and K11's: the cluster shape of the last call's stages
 schedule_wave_rounds_kernel.last_shape = schedule_affinity_wave_rounds_kernel.last_shape = None
 # launches of the kernels with their GPU-share / Open-Local branches on (a

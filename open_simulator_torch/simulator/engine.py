@@ -16,13 +16,14 @@ dispatch from the previous segment's end carry:
 
 The results are fetched once (`torch.cat` and `.cpu()`); pods of a counted
 segment are handed out in node order, as in the JAX engine. Failed pods get
-their FitError reasons from `kernels.feasibility_jit` (K1 on the card)
-against the end carry of their segment. `use_waves = False` sends every pod
-through K2 (the serial route). A batch with GPU-share or Open-Local demand
-turns on those branches of K1 and K2 (`plugin_flags`); groups with volumes,
-with a pre-assigned gpu-index, or sharing GPUs under live counters take the
-serial route, and the host ledgers (`GpuShareHost`, `OpenLocalHost`) write
-the gpu-index annotations and the storage state as each pod commits.
+their FitError reasons from `kernels.feasibility_packed` (K1 on the card,
+one packed buffer fetched with one copy) against the end carry of their
+segment. `use_waves = False` sends every pod through K2 (the serial
+route). A batch with GPU-share or Open-Local demand turns on those branches
+of K1 and K2 (`plugin_flags`); groups with volumes, with a pre-assigned
+gpu-index, or sharing GPUs under live counters take the serial route, and
+the host ledgers (`GpuShareHost`, `OpenLocalHost`) write the gpu-index
+annotations and the storage state as each pod commits.
 
 The xray flight recorder (obs/xray.py, `apply --xray`) stages one batch
 record per run of unbound pods and one decision set per (group, forced,
@@ -1065,20 +1066,23 @@ class Simulator:
 
     def _explain_reasons(self, pod: dict, g: int, forced: int, tables, carry,
                          flags: Tuple[bool, bool]) -> Dict[str, int]:
-        """FitError reason counts from the per-stage masks of
-        kernels.feasibility_jit with the batch's (enable_gpu, enable_storage)
-        (findNodesThatFitPod failure accounting, first-failing plugin per
-        node)."""
+        """FitError reason counts from the per-stage masks of the
+        failure-reason diagnostic with the batch's (enable_gpu,
+        enable_storage) (findNodesThatFitPod failure accounting,
+        first-failing plugin per node): kernels.feasibility_packed's one
+        buffer, fetched with one device-to-host copy and sliced on the
+        host."""
         mesh = self._partition_mesh()
         dims = self._dispatch_dims(tables)
         if mesh is not None:  # the block's tables: the signature keys the global N
             dims["N"] *= mesh.shards
         obs.record_dispatch("feasibility_jit", gpu=flags[0], storage=flags[1], **dims)
-        _, stages = kernels.feasibility_jit(tables, carry, g, forced, True, self.filter_flags,
-                                            enable_gpu=flags[0], enable_storage=flags[1],
-                                            mesh=mesh)
+        rows = kernels.feasibility_packed(tables, carry, g, forced, True, self.filter_flags,
+                                          enable_gpu=flags[0], enable_storage=flags[1],
+                                          mesh=mesh)
+        _, stages = kernels.unpack_feasibility(rows.cpu())
         N = self.na.N  # stages carry phantom node padding; slice it off
-        stages = {k: v.cpu().numpy()[:N] for k, v in stages.items()}
+        stages = {k: v.numpy()[:N] for k, v in stages.items()}
         return self._reasons_from_stages(pod, forced, stages)
 
     def _reasons_from_stages(self, pod: dict, forced: int,

@@ -32,12 +32,17 @@ that two checkouts compare kernel for kernel. It also times K3c on the
 northstar cluster's first wave, on the hard shape's first cap1 wave and
 with gpu_live on the extended cluster's first 1-GPU wave, and K7 and K1 on
 a decision set of the hard shape (N 5,120) and of the extended cluster
-(N 2,048, the GPU-share and Open-Local branches on): each with its call
-rate (CUDA events over back-to-back calls, the wrapper's host work
-included) and its device time per call under torch.profiler (the kernel
-alone, and every other kernel the call launches, such as a clone's copy
-kernels). `--cases K3c,K7,K1` times only the kernels named (K2, K3, K4 and
-K5 are one case set).
+(N 2,048, the GPU-share and Open-Local branches on), K1 also on the spread
+cluster's first group with a hostname DoNotSchedule term (N 5,120, D+1 =
+N + 1): each with its call rate (CUDA events over back-to-back calls, the
+wrapper's host work included) and its device time per call under
+torch.profiler (the kernel alone, and every other kernel the call
+launches, such as a clone's copy kernels); K1's cases also with its bytes'
+bound and the wrapper's host split (`_k1_split`: the view's fill, the
+allocations, the launch call, the engine reason path's fetches). The line
+ends with the launch floor, a one-element fill's call rate and device
+time. `--cases K3c,K7,K1` times only the kernels named (K2, K3, K4 and K5
+are one case set).
 
 With `--mesh-kernels`, it times the node mesh's kernels instead: two ranks
 spawned on the card (gloo, sharing cuda:0, as chip_smoke.py's mesh and
@@ -51,8 +56,9 @@ northstar cluster's first wave (N 10,240), K12 on the first 256 pods of the
 hard shape (5,000 nodes) and of the extended cluster (EXT), and K13 on the
 spread cluster's ScheduleAnyway, SelectorSpread and DoNotSchedule segments
 (its first 2,000 pods, N 5,120), and K14 on extended's first 1-GPU wave
-(gpu_live) and on the northstar cluster's first wave (`--cases K8,K13`
-times only the kernels named), stage by stage with CUDA events
+(gpu_live) and on the northstar cluster's first wave (with every kernel
+and copy of a call by name, its bounds in and out of place and the launch
+floor; `--cases K8,K13` times only the kernels named), stage by stage with CUDA events
 (kernels.SHARDED_STAGE_EVENTS; the two ranks' launches interleave on the
 card, so a stage's events include the other rank's time slices, and a
 stage launched after a host read or a collective also the launch's host
@@ -266,8 +272,110 @@ def kernel_times(synth, root: str, reps: int, cases: list) -> int:
     if {"K3c", "K7", "K1"} & set(cases):
         launch = _launch_times(synth, reps, cases, shape_of)
     print(json.dumps({"root": os.path.abspath(root), "kernel_ms": out, "launch_cases": launch,
-                      "cluster_shapes": shapes, "reps": reps, "card": card}), flush=True)
+                      "cluster_shapes": shapes, "launch_floor": _launch_floor(reps),
+                      "reps": reps, "card": card}), flush=True)
     return 0
+
+
+def _launch_floor(reps: int) -> dict:
+    """A one-element fill's call rate and device time under torch.profiler:
+    the floor of any launch's time on this card."""
+    import torch
+
+    x = torch.empty(1, device="cuda")
+    return {"call_ms": _ms(lambda: x.fill_(0.0), reps),
+            "device_ms": sum(_device_ms(lambda: x.fill_(0.0), reps, reps,
+                                        ("FillFunctor",)).values())}
+
+
+def _smoke():
+    """This checkout's chip_smoke.py (its cost formulas), loaded by path."""
+    spec = importlib.util.spec_from_file_location("walls_smoke",
+                                                  os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _host_us(fn, reps: int) -> float:
+    """Host microseconds per call of `fn` (after a warm-up, the card idle
+    before; what it enqueues is not waited for, except by the call itself)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / reps
+    torch.cuda.synchronize()
+    return us
+
+
+def _k1_split(tb, seed, g: int, gpu: bool, storage: bool, reps: int) -> dict:
+    """The root's K1 wrapper per call, by the host clock (microseconds):
+    the view's fill, its output allocations (one packed buffer, or the
+    three tensors of a checkout without it), the cached shape lookup (none
+    without a cluster), the launch call, the whole wrapper, and the engine
+    reason path's device-to-host fetch (one packed buffer, or one a stage
+    tensor)."""
+    import ctypes
+
+    import torch
+
+    from open_simulator_torch.ops import build
+    from open_simulator_torch.ops import kernels as K
+
+    lib = build.library()
+    N, R = tb.alloc.shape
+    packed = hasattr(K, "feasibility_packed")
+    ext = bool(gpu or storage)
+
+    def view():
+        return K._view(tb, seed, 2, K.DEFAULT_WEIGHTS, K.DEFAULT_FILTERS, gpu, storage)
+
+    def alloc():
+        if packed:
+            return (torch.empty((K.FEASIBILITY_ROWS + R, N), dtype=torch.uint8, device="cuda"),)
+        return (torch.empty(N, dtype=torch.bool, device="cuda"),
+                torch.empty((len(K.STAGE_ROWS), N), dtype=torch.bool, device="cuda"),
+                torch.empty((N, R), dtype=torch.bool, device="cuda"))
+
+    v = view()
+    vr = ctypes.byref(v)
+    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in alloc()]
+    out = {"view_us": _host_us(view, reps), "alloc_us": _host_us(alloc, reps),
+           "buffers": len(ptrs)}
+    if packed:
+        def shape():
+            return K._cluster_shape(lib, "k1", False, ext, v, 1)
+
+        sh = shape()
+        out["shape_us"] = _host_us(shape, reps)
+
+        def launch():
+            return lib.feasibility_launch(vr, g, -1, 1, 1, ptrs[0], sh.C, sh.smem, K._stream())
+
+        rows = K.feasibility_packed(tb, seed, g, -1, True, enable_gpu=gpu, enable_storage=storage)
+
+        def fetch():
+            return rows.cpu()
+        out["fetches"] = 1
+    else:
+        def launch():
+            return lib.feasibility_launch(vr, g, -1, 1, 1, *ptrs, K._stream())
+
+        _, stages = K.feasibility_jit(tb, seed, g, -1, True, enable_gpu=gpu,
+                                      enable_storage=storage)
+
+        def fetch():
+            return {k: t.cpu() for k, t in stages.items()}
+        out["fetches"] = len(stages)
+    out["launch_us"] = _host_us(launch, reps)
+    out["wrapper_us"] = _host_us(lambda: K.feasibility_kernel(
+        tb, seed, g, -1, True, enable_gpu=gpu, enable_storage=storage), reps)
+    out["fetch_us"] = _host_us(fetch, reps)
+    return out
 
 
 def _wave_kernel_times(synth, reps: int, out: dict, shape_of) -> None:
@@ -448,10 +556,27 @@ def _launch_times(synth, reps: int, cases: list, shape_of) -> dict:
     from open_simulator_torch.simulator.encode import plugin_flags
 
     out = {}
+    smoke = _smoke()
     for label, spec in (("northstar", ("plain", 10000, 100000)), ("hard", KINDS["hard_waves"]),
-                        ("extended", KINDS["extended"])):
+                        ("extended", KINDS["extended"]), ("spread", KINDS["spread"])):
+        if label == "spread" and "K1" not in cases:
+            continue
         sim, bt, tb, seed, segs, P = _case_cluster(synth, *spec)
         N = int(tb.alloc.shape[0])
+        if label == "spread":  # K1 on the first group with a hostname DoNotSchedule term
+            g = next(int(x) for x in bt.pod_group[:P]
+                     if int(tb.dns_edom[int(x)].sum(dim=1).max()) > N // 2)
+            name = "K1 spread hostname DoNotSchedule"
+            b = smoke.k1_bytes(tb, seed, g)
+            out[name] = dict(nodes=N, group=g, domains=int(seed.counter.shape[1]),
+                             bytes=b, bound_ms=b / smoke.HBM_BYTES_PER_S * 1e3,
+                             host_split=_k1_split(tb, seed, g, False, False, reps),
+                             **_launch_case(
+                                 lambda: K.feasibility_kernel(tb, seed, g, -1, True), reps,
+                                 LAUNCH_NAMES["K1"], K.feasibility_jit, shape_of, name))
+            del sim, bt, tb, seed
+            torch.cuda.empty_cache()
+            continue
         if "K3c" in cases:
             seg = _first_wave(sim, segs, label == "extended", label == "hard")
             g, gpu_live = seg[3], bool(seg[5])
@@ -473,10 +598,17 @@ def _launch_times(synth, reps: int, cases: list, shape_of) -> dict:
                     reps, LAUNCH_NAMES["K7"], K.explain_jit, shape_of, name))
             if "K1" in cases:
                 name = f"K1 {label} decision set{ext}"
-                out[name] = dict(nodes=N, group=g, **_launch_case(
-                    lambda: K.feasibility_kernel(tb, seed, g, -1, True, enable_gpu=gpu,
-                                                 enable_storage=storage),
-                    reps, LAUNCH_NAMES["K1"]))
+                b = smoke.k1_bytes(tb, seed, g) + (smoke.gpu_storage_bytes(tb, seed) if ext
+                                                   else 0)
+                out[name] = dict(nodes=N, group=g, bytes=b,
+                                 bound_ms=b / smoke.HBM_BYTES_PER_S * 1e3,
+                                 host_split=_k1_split(tb, seed, g, gpu, storage, reps),
+                                 **_launch_case(
+                                     lambda: K.feasibility_kernel(tb, seed, g, -1, True,
+                                                                  enable_gpu=gpu,
+                                                                  enable_storage=storage),
+                                     reps, LAUNCH_NAMES["K1"], K.feasibility_jit, shape_of,
+                                     name))
         del sim, bt, tb, seed
         torch.cuda.empty_cache()
     return out
@@ -660,13 +792,17 @@ def _k14_cases(synth, mesh, reps: int) -> dict:
     """K14 (rows, the all_gather_rows, domains) on this rank's block of the
     extended cluster's first 1-GPU wave (gpu_live) and of the northstar
     cluster's first wave, each wave's counts from K3 on the seed carry, per
-    call."""
+    call; with every kernel and copy of a call by name under torch.profiler
+    (`device_ms_by_name`: a checkout that clones the carry block first
+    shows its copies there), the bound of the out-of-place commit and of
+    the in-place one (chip_smoke.py k14_cost) and the launch floor."""
     import torch
 
     from open_simulator_torch.ops import kernels as K
     from open_simulator_torch.parallel.mesh import block_of
 
-    out = {}
+    smoke = _smoke()
+    out = {"launch floor": _launch_floor(reps)}
     for label, spec in (("extended first 1-GPU wave", KINDS["extended"]),
                         ("northstar first wave", ("plain", 10000, 100000))):
         sim, bt, tb, seed, segs, _ = _case_cluster(synth, *spec, use_mesh=False)
@@ -681,7 +817,13 @@ def _k14_cases(synth, mesh, reps: int) -> dict:
             return K.aggregate_commit_sharded_kernel(tbl, seedl, g, jl, flag, mesh)
 
         run.wrapper = K.aggregate_commit_sharded_kernel
-        out[f"K14 {label}" + (" gpu_live" if flag else "")] = _mesh_case(run, lambda r: 1, reps)
+        case = _mesh_case(run, lambda r: 1, reps)
+        case["device_ms_by_name"] = _device_ms(run, reps, reps, ("",))
+        copies = int(jl.sum())
+        for key, oop in (("bound_ms", True), ("bound_ms_in_place", False)):
+            b, ops = smoke.k14_cost(tbl, seedl, flag, copies, oop)
+            case[key] = smoke.bound_of(b, ops)[0]
+        out[f"K14 {label}" + (" gpu_live" if flag else "")] = case
         del sim, bt, tb, seed
         torch.cuda.empty_cache()
     return out

@@ -1,6 +1,8 @@
-"""A CPU model of the cross-CTA steps of K3c and K7 on thread-block clusters
-(open_simulator_torch/ops/csrc/aggregate_commit.cu with commit.cuh
-`commit_cluster`, the wave-like routes' commit, one cluster a lane; and
+"""A CPU model of the cross-CTA steps of K3c, K14 and K7 on thread-block
+clusters (open_simulator_torch/ops/csrc/aggregate_commit.cu with commit.cuh
+`commit_cluster`, the wave-like routes' commit, one cluster a lane;
+csrc/commit_sharded.cu, the same commit on a partitioned node mesh, its
+rows stage a cluster over a rank's block and its domains stage a grid; and
 csrc/explain.cu, the xray diagnostic, one cluster over the N nodes), held
 against the plain versions' own values and the JAX package's.
 
@@ -15,6 +17,12 @@ what the one-block form gave:
   CTA updates its share of the D+1 columns of every counter and carrier row
   from the complete sums. The input carry is never written. Over lanes,
   each lane has its own sums and its own group.
+- K14: on each of R ranks, K3c's rows step on the rank's block (one
+  cluster, the new block carry's rows and the block's counts), the sums of
+  every rank gathered in rank order (all_gather_rows), then a grid over the
+  (T + Tc) x (D+1) counter and carrier elements: each element sums the R
+  ranks' counts in rank order and makes one multiply and one add; every
+  element is written, the sentinel column too, and the input carry never.
 - K7: each CTA's maxima over its feasible nodes (the minima negated) as
   order-preserving integer keys (okey), any zoned feasible node, and its
   zone sums as integers, merged in one round (maxima by max, sums in rank
@@ -28,23 +36,30 @@ The kernels cannot run here, so this is the CPU guard of the designs: on
 the commit counts of seeded wave, spread and affinity segments and seeded
 counts with the device ledger live, each step gives
 `aggregate_commit_plain`'s carry and the JAX `_aggregate_commit`'s (and the
-plain lanes'); on every group of the five explain batches of
-tests/test_torch_kernels.py, against a mid-run carry, a full carry (an
+plain lanes'), and K14's on blocks of 1, 2 and 4 ranks, assembled over the
+ranks, those and `aggregate_commit_sharded_plain`'s on every rank; on every
+group of the five explain batches of tests/test_torch_kernels.py, against a mid-run carry, a full carry (an
 empty F everywhere) and carries that leave room on one CTA's slice only,
 each merged value equals `explain_pod`'s own (`_score_partials` reduced,
 `_sa_marks`, `_sa_partials`) and the packed rows equal `explain_pod`'s and
 the JAX `explain_pod`'s, bit for bit.
 
-The model carries seven named mutations, each a fault the designs must not
-have; `test_named_mutation_is_caught` shows that each one makes a check of
-this file fail:
+The model carries eleven named mutations, each a fault the designs must
+not have; `test_named_mutation_is_caught` and
+`test_sharded_commit_named_mutation_is_caught` show that each one makes a
+check of this file fail:
 - "sentinel_counted": the sentinel domain counted in the per-topology sums;
 - "own_counts": a CTA's counter columns updated from its own counts only;
 - "in_place": the input carry written in place;
 - "shared_seg": the lanes sharing one [U, D+1] scratch;
 - "local_max": a CTA-local maximum taken as the normalizer of its nodes;
 - "empty_as_zero": an empty CTA's -inf read as 0 in the merge;
-- "one_cta_marks": the topology sizes counted from one CTA's marks.
+- "one_cta_marks": the topology sizes counted from one CTA's marks;
+- "k14_sentinel_counted": K14's sentinel column counted in the block sums;
+- "from_rank_1": K14's ranks summed from rank 1;
+- "unwritten_element": K14's counter and carrier sentinel column left
+  unwritten (as torch.empty leaves it);
+- "k14_in_place": K14's input carry written in place.
 """
 
 import numpy as np
@@ -88,6 +103,56 @@ def jax_carry_equal(want, got) -> bool:
 
 # ------------------------------------------------------------------ K3c ----
 
+def cluster_rows(tb, cry, out, g: int, j, gpu_live: bool, C: int, seg, mutation=None) -> list:
+    """The rows step of one cluster over the view's N nodes (K3c's lane,
+    K14's rows stage): each CTA writes its node slice's rows of the new
+    carry `out` from `cry` (requested, nonzero, ports, the device ledger
+    replayed copy by copy with gpu_live, the rest copied) and adds its
+    slice's counts into the flat [U * D+1] sums `seg` (the sentinel column
+    never counts). Returns each CTA's own [U, D+1] counts."""
+    N, D1 = tb.alloc.shape[0], cry.counter.shape[-1]
+    D, U = D1 - 1, tb.topo_dom.shape[0]
+    jf = j.to(F32)
+    own = []
+    for lo, hi in shares(N, C):
+        sl = slice(lo, hi)
+        out.requested[sl] = cry.requested[sl] + tb.grp_requests[g][None, :] * jf[sl, None]
+        out.nonzero[sl] = cry.nonzero[sl] + tb.grp_nonzero[g][None, :] * jf[sl, None]
+        out.port_used[sl] = cry.port_used[sl]
+        out.vg_req[sl] = cry.vg_req[sl]
+        out.sdev_alloc[sl] = cry.sdev_alloc[sl]
+        used = cry.dev_used[sl].clone()
+        gmem, gnum, safe_mem = tk._wave_gpu_params(tb, g)
+        if gpu_live and float(gmem) > 0:  # each node replayed by its thread
+            single = bool(tb.grp_gpu_num[g] == 1)
+            rem = j[sl].clone()
+            while bool(torch.any(rem > 0)):
+                take = tk._gpu_take(tb.dev_total[sl], used, gmem, gnum, safe_mem, single)
+                used = used + take * gmem * (rem > 0).to(F32)[:, None]
+                rem = rem - (rem > 0).to(rem.dtype)
+        out.dev_used[sl] = used
+        for n in range(lo, hi):  # the group's port bits on nodes with a copy
+            if int(j[n]) > 0:
+                for pid in tb.grp_ports[g].tolist():
+                    if pid > 0:
+                        out.port_used[n, pid] = True
+        # the slice's counts, integer sums into the sums
+        part = torch.zeros((U, D1), dtype=torch.int64)
+        for u in range(U):
+            d = tb.topo_dom[u, sl].long()
+            keep = (d <= D if mutation == "sentinel_counted" else d < D) & (j[sl] != 0)
+            part[u].index_add_(0, d[keep], j[sl][keep].long())
+        own.append(part.to(F32))
+        seg += part.reshape(-1).to(F32)
+    return own
+
+
+def fresh_like(cry):
+    """New tensors as torch.empty leaves them: poisoned."""
+    return tk.Carry(*(torch.full_like(t, True) if t.dtype == torch.bool
+                      else torch.full_like(t, NAN) for t in cry))
+
+
 def k3c_lanes(tb, cry_s, g_s: list, j_s, gpu_live: bool, C: int, mutation=None):
     """K3c over S lanes (lane s: group g_s[s], counts j_s[s], carry lane s of
     the [S, ...] `cry_s`), phase by phase as the clusters run them: every
@@ -95,52 +160,15 @@ def k3c_lanes(tb, cry_s, g_s: list, j_s, gpu_live: bool, C: int, mutation=None):
     its node rows and its slice's counts, then (after the second) its
     columns. Returns the new [S, ...] carry."""
     S = j_s.shape[0]
-    N, D1 = tb.alloc.shape[0], cry_s.counter.shape[-1]
-    D, U = D1 - 1, tb.topo_dom.shape[0]
-    if mutation == "in_place":
-        out = cry_s
-    else:  # fresh tensors, as torch.empty leaves them: poisoned
-        out = tk.Carry(*(torch.full_like(t, True) if t.dtype == torch.bool
-                         else torch.full_like(t, NAN) for t in cry_s))
+    D1, U = cry_s.counter.shape[-1], tb.topo_dom.shape[0]
+    out = cry_s if mutation == "in_place" else fresh_like(cry_s)
     one = torch.full((U * D1,), NAN) if mutation == "shared_seg" else None
     segs = [one if one is not None else torch.full((U * D1,), NAN) for _ in range(S)]
     for s in range(S):  # each CTA clears its share of its lane's sums
         for a, b in shares(U * D1, C):
             segs[s][a:b] = 0.0
-    own = [[None] * C for _ in range(S)]
-    for s in range(S):
-        g, j, jf = g_s[s], j_s[s], j_s[s].to(F32)
-        for r, (lo, hi) in enumerate(shares(N, C)):
-            sl = slice(lo, hi)
-            out.requested[s, sl] = (cry_s.requested[s, sl]
-                                    + tb.grp_requests[g][None, :] * jf[sl, None])
-            out.nonzero[s, sl] = cry_s.nonzero[s, sl] + tb.grp_nonzero[g][None, :] * jf[sl, None]
-            out.port_used[s, sl] = cry_s.port_used[s, sl]
-            out.vg_req[s, sl] = cry_s.vg_req[s, sl]
-            out.sdev_alloc[s, sl] = cry_s.sdev_alloc[s, sl]
-            used = cry_s.dev_used[s, sl].clone()
-            gmem, gnum, safe_mem = tk._wave_gpu_params(tb, g)
-            if gpu_live and float(gmem) > 0:  # each node replayed by its thread
-                single = bool(tb.grp_gpu_num[g] == 1)
-                rem = j[sl].clone()
-                while bool(torch.any(rem > 0)):
-                    take = tk._gpu_take(tb.dev_total[sl], used, gmem, gnum, safe_mem, single)
-                    used = used + take * gmem * (rem > 0).to(F32)[:, None]
-                    rem = rem - (rem > 0).to(rem.dtype)
-            out.dev_used[s, sl] = used
-            for n in range(lo, hi):  # the group's port bits on nodes with a copy
-                if int(j[n]) > 0:
-                    for pid in tb.grp_ports[g].tolist():
-                        if pid > 0:
-                            out.port_used[s, n, pid] = True
-            # the slice's counts, integer sums into the lane's sums
-            part = torch.zeros((U, D1), dtype=torch.int64)
-            for u in range(U):
-                d = tb.topo_dom[u, sl].long()
-                keep = (d <= D if mutation == "sentinel_counted" else d < D) & (j[sl] != 0)
-                part[u].index_add_(0, d[keep], j[sl][keep].long())
-            own[s][r] = part.to(F32)
-            segs[s] += part.reshape(-1).to(F32)
+    own = [cluster_rows(tb, tk.carry_lane(cry_s, s, copy=False), tk.carry_lane(out, s, copy=False),
+                        g_s[s], j_s[s], gpu_live, C, segs[s], mutation) for s in range(S)]
     for s in range(S):
         g = g_s[s]
         match = tb.counter_sel_match_g[:, g, None].to(F32)
@@ -345,6 +373,139 @@ def test_commit_lanes_cluster_steps_equal_plain(C):
     lane's, and the lanes' input carry is unchanged."""
     assert len(set(_lane_inputs()[2])) > 1
     assert k3c_lanes_mismatches(C) == []
+
+
+# ------------------------------------------------------------------ K14 ----
+
+K14_MUTATIONS = ("k14_sentinel_counted", "from_rank_1", "unwritten_element", "k14_in_place")
+RANKS = (1, 2, 4)
+
+
+class _Rank:
+    """Rank r of an R-rank node mesh, as parallel/mesh.py block_of reads
+    it."""
+
+    def __init__(self, rank: int, shards: int):
+        self.rank, self.shards, self.device = rank, shards, "cpu"
+
+
+def k14(tb, cry, g: int, j, gpu_live: bool, R: int, C: int, mutation=None) -> list:
+    """K14 on R ranks, each its block of N / R nodes and a cluster of C
+    CTAs for its rows stage: every rank's rows stage (the new block carry's
+    rows, the block's counts into its [U, D+1] sums, cluster_rows), the one
+    all_gather_rows (the sums stacked in rank order), then every rank's
+    domains grid over the (T + Tc) x (D+1) counter and carrier elements (the
+    ranks' counts summed in rank order, one multiply and one add). Returns
+    [(block tables, block input carry, its copy before the call, new block
+    carry)] in rank order."""
+    from open_simulator_torch.parallel.mesh import block_of
+
+    N, D1 = tb.alloc.shape[0], cry.counter.shape[-1]
+    U, D, NL = tb.topo_dom.shape[0], D1 - 1, N // R
+    rows_mut = {"k14_sentinel_counted": "sentinel_counted"}.get(mutation)
+    ranks, sums = [], []
+    for r in range(R):
+        tbl, cryl = block_of(tb, cry, _Rank(r, R))
+        before = tk.Carry(*(t.clone() for t in cryl))
+        out = cryl if mutation == "k14_in_place" else fresh_like(cryl)
+        seg = torch.full((U * D1,), NAN)
+        for a, b in shares(U * D1, C):  # each CTA clears its share
+            seg[a:b] = 0.0
+        cluster_rows(tbl, cryl, out, g, j[r * NL:(r + 1) * NL], gpu_live, C, seg, rows_mut)
+        ranks.append((tbl, cryl, before, out))
+        sums.append(seg.view(U, D1))
+    rows = torch.stack(sums)  # all_gather_rows: [R, U, D+1] in rank order
+    for tbl, cryl, before, out in ranks:
+        x = rows[0] if mutation != "from_rank_1" else torch.zeros_like(rows[0])
+        for q in range(1, R):
+            x = x + rows[q]
+        src = before if mutation == "k14_in_place" else cryl
+        counter = src.counter + tb.counter_sel_match_g[:, g, None].to(F32) * x[
+            tb.counter_topo.long()]
+        carrier = src.carrier + tb.grp_carries[g][:, None] * x[tb.carr_topo.long()]
+        cols = slice(0, D) if mutation == "unwritten_element" else slice(0, D1)
+        out.counter[:, cols] = counter[:, cols]
+        out.carrier[:, cols] = carrier[:, cols]
+    return ranks
+
+
+def k14_mismatches(name: str, C: int, R: int, mutation=None) -> list:
+    """Where the model of K14 at C on R ranks, assembled over the ranks,
+    differs from `aggregate_commit_sharded_plain` on each rank (its one
+    all_gather_rows given every rank's block sums), the plain full-width
+    commit and the JAX `_aggregate_commit`, or leaves a block's input carry
+    or the carry changed."""
+    from open_simulator_torch.parallel import collectives
+
+    tt, tc, want = commit_cases(name)
+    N = tt.alloc.shape[0]
+    assert N % R == 0, (name, N, R)
+    NL = N // R
+    bad = []
+    real = collectives.all_gather_rows
+    for g, j, gl, plain, jax_c in want:
+        cry = tk.Carry(*(t.clone() for t in tc))
+        ranks = k14(tt, cry, g, j, gl, R, C, mutation)
+        got = tk.Carry(*(torch.cat([o[3][i] for o in ranks]) if f not in ("counter", "carrier")
+                         else ranks[0][3][i] for i, f in enumerate(tk.Carry._fields)))
+        if not same_carry(got, plain):
+            bad.append((name, C, R, g, "plain"))
+        if not jax_carry_equal(jax_c, got):
+            bad.append((name, C, R, g, "jax"))
+        stack = torch.stack([tk._topo_seg(tbl, cryl, j[r * NL:(r + 1) * NL])
+                             for r, (tbl, cryl, *_) in enumerate(ranks)])
+        collectives.all_gather_rows = lambda t, mesh: stack.clone()
+        try:
+            for r, (tbl, cryl, before, out) in enumerate(ranks):
+                sp = tk.aggregate_commit_sharded_plain(tbl, before, g, j[r * NL:(r + 1) * NL], gl,
+                                                       _Rank(r, R))
+                if not same_carry(out, sp):
+                    bad.append((name, C, R, g, r, "sharded plain"))
+                if not same_carry(cryl, before):
+                    bad.append((name, C, R, g, r, "block input written"))
+        finally:
+            collectives.all_gather_rows = real
+        if not same_carry(cry, tc):
+            bad.append((name, C, R, g, "input written"))
+    return bad
+
+
+@pytest.mark.parametrize("R", RANKS)
+@pytest.mark.parametrize("C", SIZES)
+@pytest.mark.parametrize("name", sorted(COMMIT_SOURCES))
+def test_sharded_commit_steps_equal_plain_and_jax(name, C, R):
+    assert k14_mismatches(name, C, R) == []
+
+
+def test_sharded_commit_cases_cross_the_ranks():
+    """The inputs reach what K14's cross-rank step guards at R 4: counts on
+    the blocks of several ranks in one domain (a zone's counts summed over
+    the ranks), on the zoned, the partly unzoned and the device-ledger
+    sources."""
+    crossing = set()
+    for name in sorted(COMMIT_SOURCES):
+        tt, _, want = commit_cases(name)
+        NL = tt.alloc.shape[0] // 4
+        for _, j, *_ in want:
+            for u in range(tt.topo_dom.shape[0]):
+                dom = tt.topo_dom[u]
+                for d in set(dom[j > 0].tolist()):
+                    owners = {r for r in range(4)
+                              if bool(((dom[r * NL:(r + 1) * NL] == d)
+                                       & (j[r * NL:(r + 1) * NL] > 0)).any())}
+                    if len(owners) > 1:
+                        crossing.add(name)
+    assert crossing >= {"affinity", "gpu_live", "unzoned"}, crossing
+
+
+@pytest.mark.parametrize("mutation", K14_MUTATIONS)
+def test_sharded_commit_named_mutation_is_caught(mutation):
+    found = []
+    for name in sorted(COMMIT_SOURCES):
+        found += k14_mismatches(name, 4, 2, mutation)
+        if found:
+            break
+    assert found, f"the mutation {mutation!r} went unnoticed"
 
 
 # ------------------------------------------------------------------- K7 ----

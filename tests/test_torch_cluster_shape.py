@@ -3,12 +3,13 @@ K13 (open_simulator_torch/ops/cluster.py), as plain Python: the card's
 occupancy answer and the library's shared-memory size are models passed in,
 so nothing here needs a card. The tables' axes are the ones the encoder pads
 to, and tests/test_torch_cuda.py holds `smem_model`, `rounds_smem_model`,
-`k3c_smem_model` and `k7_smem_model` against the library's own
-schedule_batch_smem / group_serial_smem / schedule_wave_smem /
-affinity_wave_smem / wave_rounds_smem / affinity_rounds_smem /
-wave_sharded_smem / affinity_sharded_smem / affinity_sharded_tail_smem /
-batch_sharded_smem / gs_sharded_smem / aggregate_commit_smem / explain_smem
-on the card."""
+`k3c_smem_model`, `k7_smem_model`, `k1_smem_model` and `k14_smem_model`
+against the library's own schedule_batch_smem / group_serial_smem /
+schedule_wave_smem / affinity_wave_smem / wave_rounds_smem /
+affinity_rounds_smem / wave_sharded_smem / affinity_sharded_smem /
+affinity_sharded_tail_smem / batch_sharded_smem / gs_sharded_smem /
+aggregate_commit_smem / explain_smem / feasibility_smem /
+commit_sharded_smem on the card."""
 
 import functools
 
@@ -48,6 +49,11 @@ SMEM_MAX_OF = {"k10": cluster.SMEM_MAX, "k11": K11_SMEM_MAX, "k8": K8_SMEM_MAX,
 # static shared memory
 K7_SMEM_MAX = cluster.SMEM_MAX - 16_384
 K7_HEAD = 10    # round B's maxima and flag (csrc/explain.cu K7_HEAD)
+# K1's bound (csrc/feasibility.cu K1_SMEM_MAX) and its passes' nodes
+# (K1_PASS: one a thread; K1_PASS_EXT: five warps a role)
+K1_SMEM_MAX = cluster.SMEM_MAX - 16_384
+K1_PASS, K1_PASS_EXT = 512, 160
+K14_MIN_CHUNK = 32  # ops/kernels.py: K14's rows keep a warp's nodes a CTA
 PART_HEAD = 11  # K12's partial vector head (csrc/batch_sharded.cu)
 GS_HEAD = 9     # K13's (csrc/group_serial_sharded.cu Q_HEAD)
 
@@ -380,9 +386,119 @@ def test_explain_smem_grows_with_the_zones_only():
                        smem_max=K7_SMEM_MAX)
 
 
-@pytest.mark.parametrize("kernel", ["k3c", "k7"])
+# ---- K1 and K14: one cluster over N (csrc/feasibility.cu) and one over a
+# rank's block (csrc/commit_sharded.cu's rows stage), cached likewise
+
+
+def k1_smem_model(C: int, Sd: int, R: int, ext: bool) -> int:
+    """K1's dynamic shared memory: the prologue round's slots [2][C][W], fin
+    [W] and the CTA's row [W] (W: the Sd negated minima and the bootstrap
+    flag), a pass's stage bits [pass] (u32), its fit_each bytes [pass, R]
+    and with EXT its GPU and storage checks [2][pass] (u8)."""
+    W, P = Sd + 1, K1_PASS_EXT if ext else K1_PASS
+    return 4 * (2 * C * W + 2 * W) + 4 * P + P * R + (2 * P if ext else 0)
+
+
+def k14_smem_model() -> int:
+    """K14's rows stage: none at any C (its sums live in global scratch)."""
+    return 0
+
+
+@functools.lru_cache(maxsize=None)
+def k1_axes():
+    """(DoNotSchedule slots, resources) of the encoder's padded tables for
+    the spread cluster (zone and hostname DoNotSchedule terms)."""
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.simulator.engine import Simulator
+    from open_simulator_torch.utils.synth import synth_spread_cluster
+
+    nodes, pods, services = synth_spread_cluster(64, 320)
+    sim = Simulator(nodes, device="cpu")
+    sim.register_cluster_objects(ResourceTypes(services=services))
+    bt = sim.encode_batch(pods)
+    return bt.dns_t.shape[1], bt.alloc.shape[1]
+
+
+@pytest.mark.parametrize("model", sorted(MODELS))
+@pytest.mark.parametrize("kernel", ["k1", "k1_ext", "k14"])
+@pytest.mark.parametrize("N", NS)
+def test_feasibility_and_sharded_commit_shape(N, kernel, model):
+    """K1 (one launch over N nodes, its EXT build over 3N items: a node's
+    three checks on three threads) and K14's rows stage (one launch over a
+    block of N nodes) take the rule's shape: every size fits at the
+    encoder's axes, the fewest items a thread among the resident candidates
+    (K1's ties to the smaller C; K14's, one-shot, to the largest C whose
+    CTAs keep K14_MIN_CHUNK nodes each, else the smallest), the shared
+    memory of the library's formula, and clusters of 16 at the engine's
+    5,120 nodes (K1's EXT build at the extended cluster's 2,048; K14 from
+    512 nodes a block)."""
+    Sd, R = k1_axes()
+    ext = kernel == "k1_ext"
+    items = 3 * N if ext else N
+    smem_of = ((lambda C: k14_smem_model()) if kernel == "k14"  # noqa: E731
+               else (lambda C: k1_smem_model(C, Sd, R, ext)))
+    smem_max = cluster.SMEM_MAX if kernel == "k14" else K1_SMEM_MAX
+    min_chunk = K14_MIN_CHUNK if kernel == "k14" else 0
+    occ = _occupancy(model)
+    assert all(smem_of(C) <= smem_max for C in cluster.SIZES)
+    shape = cluster.choose(items, 1, smem_of, occ, smem_max=smem_max, min_chunk=min_chunk)
+    fits = [C for C in cluster.SIZES if occ(C, smem_of(C))]
+    best = min(cluster.nodes_per_thread(items, c) for c in fits)
+    tied = [c for c in fits if cluster.nodes_per_thread(items, c) == best]
+    assert shape.resident and shape.nodes_per_thread == best
+    if kernel == "k14":
+        keep = [c for c in tied if -(-items // c) >= K14_MIN_CHUNK]
+        assert shape.C == (max(keep) if keep else min(tied))
+        if model == "gpc_18_16" and N >= 512:
+            assert shape.C == 16
+    else:
+        assert shape.C == min(tied)
+    assert shape.smem == smem_of(shape.C) and shape.chunk == -(-items // shape.C)
+    if kernel == "k14":
+        assert shape.smem == 0
+    else:
+        W, P = Sd + 1, K1_PASS_EXT if ext else K1_PASS
+        assert shape.smem == 4 * (2 * shape.C * W + 2 * W) + (6 if ext else 4) * P + P * R
+    if model == "gpc_18_16" and ((N == 5_120 and not ext) or (N == 2_048 and ext)):
+        assert shape.C == 16
+
+
+@pytest.mark.parametrize("N,want", [(1, 1), (62, 1), (63, 2), (100, 2), (200, 4),
+                                    (400, 8), (512, 16), (1_024, 16), (10_240, 16)])
+def test_one_shot_ties_go_to_the_most_ctas(N, want):
+    """`min_chunk` (K14's rows stage): among the shapes with the fewest
+    nodes a thread, the largest C whose CTAs each keep min_chunk nodes, the
+    smallest C where none does; a card without clusters of 16 takes the
+    largest it holds. Without it the persistent kernels' rule is unchanged
+    (ties to the smaller C)."""
+    occ = _occupancy("gpc_18_16")
+    shape = cluster.choose(N, 1, lambda C: 0, occ, min_chunk=K14_MIN_CHUNK)
+    assert shape.C == want
+    assert shape.nodes_per_thread == min(cluster.nodes_per_thread(N, c) for c in cluster.SIZES)
+    if N <= 512:
+        assert cluster.choose(N, 1, lambda C: 0, occ).C == 1
+    if N >= 512:
+        assert cluster.choose(N, 1, lambda C: 0, _occupancy("gpc_12"),
+                              min_chunk=K14_MIN_CHUNK).C == 8
+
+
+def test_feasibility_smem_grows_with_the_slots_and_resources_only():
+    """K1's shared memory widens with the DoNotSchedule slots (the round)
+    and the resources (the staged fit_each), never with N; a shape that fits
+    at no size raises."""
+    assert k1_smem_model(16, 2, 4, False) == 4 * (2 * 16 * 3 + 2 * 3) + 4 * 512 + 512 * 4
+    assert k1_smem_model(16, 2, 4, True) == 4 * (2 * 16 * 3 + 2 * 3) + 6 * 160 + 160 * 4
+    assert k1_smem_model(1, 64, 4, False) - k1_smem_model(1, 2, 4, False) == 4 * 4 * 62
+    occ = _occupancy("gpc_18_16")
+    for ext in (False, True):
+        with pytest.raises(ValueError, match="no cluster shape fits"):
+            cluster.choose(5_120, 1, lambda C, ext=ext: k1_smem_model(C, 2, 1_400, ext), occ,
+                           smem_max=K1_SMEM_MAX)
+
+
+@pytest.mark.parametrize("kernel", ["k3c", "k7", "k1", "k14"])
 def test_cached_shape_asks_the_card_once(kernel):
-    """`choose_cached` (K3c's and K7's shapes) asks for shared memory and
+    """`choose_cached` (K3c's, K7's, K1's and K14's shapes) asks for shared memory and
     occupancy on a key's first call only and returns the same shape after;
     another key (another N, lane count, EXT or axis) is chosen anew; a
     refused shape raises and is not kept."""
@@ -394,7 +510,9 @@ def test_cached_shape_asks_the_card_once(kernel):
         return sum(g // C for g in MODELS["gpc_18_16"])
 
     def smem_of(C):
-        return k3c_smem_model() if kernel == "k3c" else k7_smem_model(C, 4, 2)
+        return {"k3c": k3c_smem_model, "k14": k14_smem_model,
+                "k7": lambda: k7_smem_model(C, 4, 2),
+                "k1": lambda: k1_smem_model(C, 2, 4, False)}[kernel]()
 
     key = (kernel, 0, 5_120, 1)
     first = cluster.choose_cached(cache, key, 5_120, 1, smem_of, occ)

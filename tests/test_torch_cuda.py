@@ -1482,3 +1482,133 @@ def test_cluster_explain_matches_plain(n_nodes, C, ext):
                 seen["empty"] += not bool(f.any())
                 seen["last_only"] += bool(f[last:].any()) and not bool(f[:last].any())
     assert seen["empty"] > 0 and (C == 1 or seen["last_only"] > 0), seen
+
+
+# ---- K1 and K14 on thread-block clusters (csrc/feasibility.cu, csrc/commit_sharded.cu) ----
+
+
+def _k1_want_C(n_nodes, ext):
+    """The C ops/cluster.py `choose` gives K1 over N nodes (3N items with
+    EXT) on a card where every size is resident: the fewest items a thread,
+    then the smaller C."""
+    from open_simulator_torch.ops import cluster
+
+    items = (3 if ext else 1) * n_nodes
+    best = min(cluster.nodes_per_thread(items, c) for c in cluster.SIZES)
+    return min(c for c in cluster.SIZES if cluster.nodes_per_thread(items, c) == best)
+
+
+def _k1_carries(tb, seed, mid):
+    """The CPU model's carries (tests/test_torch_cluster_feasibility.py):
+    seed, mid-run, full, DoNotSchedule rows rising column by column, every
+    required-affinity row empty, and its only count in the last real
+    domain."""
+    D1 = seed.counter.shape[1]
+    dns_ids = torch.unique(tb.dns_t[tb.dns_t >= 0]).long()
+    aff_ids = torch.unique(tb.req_aff_t[tb.req_aff_t >= 0]).long()
+    ramp = mid.counter.clone()
+    ramp[dns_ids] = torch.arange(1, D1 + 1, dtype=torch.float32, device=ramp.device)[None, :]
+    empty = mid.counter.clone()
+    empty[aff_ids] = 0.0
+    last = empty.clone()
+    last[aff_ids, D1 - 2] = 1.0
+    return {"seed": seed, "mid": mid, "full": mid._replace(requested=tb.alloc.clone()),
+            "ramp": mid._replace(counter=ramp), "aff_empty": mid._replace(counter=empty),
+            "aff_last": mid._replace(counter=last)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ext", [False, True])
+@pytest.mark.parametrize("n_nodes,C", CLUSTER_NODES)
+def test_cluster_feasibility_matches_plain(n_nodes, C, ext):
+    """K1 on one cluster (C CTAs over N nodes; with EXT, over 3N items)
+    against the plain `feasibility`: the packed buffer and every stage, bit
+    for bit, on the spread (zone and hostname DoNotSchedule terms), affinity
+    (required self-affinity) and hard clusters, or the extended one with
+    EXT, against the CPU model's carries (a mid-run one, a full one,
+    DoNotSchedule rows rising column by column, required-affinity rows
+    empty and with their only count in the last real domain), with the
+    encoded eligible sets and with none, forced and not, with and without
+    the DoNotSchedule filter."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import numpy as np
+    import test_torch_cluster_shape as CS
+
+    flags = dict(enable_gpu=ext, enable_storage=ext)
+    if ext:
+        clusters = [_k2_cluster(n_nodes, True)[:3]]
+    else:
+        clusters = [_spread_cluster(n_nodes)[:3], _affinity_cluster(n_nodes, 400)[:3],
+                    _k2_cluster(n_nodes, False)[:3]]
+    want_C = _k1_want_C(n_nodes, ext)
+    assert ext or want_C == C
+    seen = {"boot": 0, "no_boot": 0, "hostname": 0}
+    for bt, tb, seed in clusters:
+        P = int(bt.valid.sum())
+        pg, fn = (torch.from_numpy(a).cuda() for a in (bt.pod_group, bt.forced_node))
+        vd = torch.from_numpy(bt.valid & (np.arange(bt.valid.shape[0]) < P // 2)).cuda()
+        mid, _ = K.schedule_batch_kernel(tb, seed, pg, fn, vd, bt.n_zones, **flags)
+        tables = {"encoded": tb, "no_eligible": tb._replace(dns_edom=torch.zeros_like(tb.dns_edom))}
+        groups = sorted({int(g) for g in bt.pod_group[:P]})
+        Sd, R = int(tb.dns_t.shape[1]), int(tb.alloc.shape[1])
+        seen["hostname"] += int(tb.dns_edom.sum(dim=2).max()) > n_nodes // 2
+        for kind, cry in _k1_carries(tb, seed, mid).items():
+            for tname, t in tables.items():
+                if tname == "no_eligible" and kind != "ramp":
+                    continue
+                for g in groups:
+                    for forced, dns in ((-1, True), ((7 * g + 3) % n_nodes, True), (-1, False)):
+                        rows = K.feasibility_packed(t, cry, g, forced, True, **flags) if dns \
+                            else None
+                        kf, ks = K.feasibility_kernel(t, cry, g, forced, True, include_dns=dns,
+                                                      **flags)
+                        shape = K.feasibility_jit.last_shape
+                        assert shape.C == want_C
+                        assert shape.smem == CS.k1_smem_model(want_C, Sd, R, ext)
+                        pf, ps = K.feasibility(t, cry, g, forced, True, include_dns=dns,
+                                               **flags)
+                        if rows is not None:
+                            assert torch.equal(rows, K.pack_feasibility(pf, ps)), (kind, g)
+                        assert torch.equal(kf, pf), (kind, tname, g, forced, dns)
+                        for k in K.STAGE_KEYS:
+                            assert torch.equal(ks[k], ps[k]), (kind, tname, g, k)
+                        if kind == "aff_empty" and bool(ps["pod_affinity"].all()):
+                            seen["boot"] += bool(tb.grp_aff_self[g])
+                        if kind == "aff_last" and bool(tb.grp_aff_self[g]):
+                            seen["no_boot"] += not bool(ps["pod_affinity"].all())
+    assert ext or (seen["boot"] > 0 and seen["no_boot"] > 0 and seen["hostname"] > 0), seen
+
+
+# K14's rows stage is one-shot: its ties go to the most CTAs that keep
+# kernels.K14_MIN_CHUNK (32) nodes each, so these blocks give every C
+K14_BLOCKS = ((40, 1), (100, 2), (200, 4), (400, 8), (5_000, 16), (10_240, 16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_nodes,C", K14_BLOCKS)
+def test_cluster_sharded_commit_on_two_ranks(tmp_path, n_nodes, C):
+    """K14 on two ranks that share cuda:0 over gloo, each holding a block of
+    n_nodes nodes (its rows stage one cluster of C CTAs, as `last_shape`
+    reports), against `aggregate_commit_sharded_plain` on the same ranks
+    and the unsharded K3c, every carry field of the block bit for bit, on
+    seeded counts of every group of the hard and the extended cluster (the
+    GPU groups also with gpu_live), from the seed carry and from committed
+    ones: one all_gather_rows a call, the block's input carry unchanged and
+    no output aliasing it (tests/torch_mesh_cases.py `card_k14_blocks`)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import torch_mesh_cases as MC
+    from open_simulator_torch.ops import build
+    from open_simulator_torch.parallel.launch import run_ranks
+
+    build.library()  # build once, before the ranks load it
+    got = run_ranks(MC.card_k14_blocks, 2, str(tmp_path), args=(n_nodes,), device="cuda",
+                    backend="gloo")
+    for recs in got:
+        assert recs and any(r["gpu_live"] for r in recs)
+        for r in recs:
+            assert r["C"] == C, r
+            assert r["calls"] == {"pmax": 0, "all_gather_tiled": 0, "all_gather_rows": 1}, r
+            assert r["same_plain"] and r["same_unsharded"], r
+            assert r["input_kept"] and r["fresh"], r

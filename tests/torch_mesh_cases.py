@@ -1715,3 +1715,64 @@ def block_scans(mesh, tables: list) -> list:
             rec["commits"].append(_carry_np(c))
         out.append(rec)
     return out
+
+
+def card_k14_blocks(mesh, n_nodes: int) -> list:
+    """On the card, each rank a block of `n_nodes` nodes: K14 against
+    `aggregate_commit_sharded_plain` (on the same ranks) and the unsharded
+    K3c, on seeded counts (0-3 copies on about half the nodes) of every
+    group of the hard-predicate cluster (every seventh node without a zone)
+    and of the extended cluster (the GPU groups also with gpu_live), from
+    the seed carry and, after every third group, from the carry K3c
+    committed. One record per call: the rows stage's C, the collective
+    calls, the block's carry against both, the input block unchanged and no
+    output aliasing it."""
+    import torch
+
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.simulator.encode import pad_encoder_axes
+    from open_simulator_torch.simulator.engine import Simulator
+    from open_simulator_torch.utils.synth import synth_cluster, synth_extended_cluster
+
+    N = n_nodes * mesh.shards
+    sl = slice(mesh.rank * n_nodes, (mesh.rank + 1) * n_nodes)
+    out = []
+    for ext in (False, True):
+        if ext:
+            nodes, pods, _, scs = synth_extended_cluster(N, 300)
+        else:
+            nodes, pods = synth_cluster(N, 300, hard_predicates=True)
+            scs = []
+            for i, n in enumerate(nodes):
+                if i % 7 == 3:
+                    n["metadata"]["labels"].pop("topology.kubernetes.io/zone", None)
+        sim = Simulator(nodes, device="cuda", use_mesh=False)
+        sim.register_cluster_objects(ResourceTypes(storage_classes=list(scs)))
+        bt = pad_encoder_axes(sim.encode_batch_raw(pods))
+        tb, cry = sim._to_device(bt)
+        assert int(tb.alloc.shape[0]) == N
+        rng = np.random.default_rng(n_nodes + ext)
+        for i, g in enumerate(sorted({int(g) for g in bt.pod_group[:len(pods)]})):
+            j = torch.from_numpy((rng.integers(0, 4, size=N) * (rng.random(N) < 0.5))
+                                 .astype(np.int32)).cuda()
+            for gpu_live in (False, True) if float(tb.grp_gpu_mem[g]) > 0 else (False,):
+                tbl, cryl = on_mesh(tb, cry, mesh)
+                before = K.Carry(*(t.clone() for t in cryl))
+                mesh.reset_counts()
+                kc = K.aggregate_commit_sharded_kernel(tbl, cryl, g, j[sl].contiguous(),
+                                                       gpu_live, mesh)
+                calls = _calls(mesh)
+                shape = K.aggregate_commit_sharded_kernel.last_shape
+                pc = K.aggregate_commit_sharded_plain(tbl, cryl, g, j[sl], gpu_live, mesh)
+                uc = on_mesh(tb, K.aggregate_commit_kernel(tb, cry, g, j, gpu_live), mesh)[1]
+                out.append({"ext": ext, "g": g, "gpu_live": gpu_live, "C": shape.C,
+                            "calls": calls,
+                            "same_plain": all(torch.equal(a, b) for a, b in zip(kc, pc)),
+                            "same_unsharded": all(torch.equal(a, b) for a, b in zip(kc, uc)),
+                            "input_kept": all(torch.equal(a, b) for a, b in zip(cryl, before)),
+                            "fresh": all(a.data_ptr() != b.data_ptr()
+                                         for a, b in zip(kc, cryl))})
+            if i % 3 == 0:
+                cry = K.aggregate_commit_kernel(tb, cry, g, j, False)
+    return out
