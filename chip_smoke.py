@@ -39,7 +39,8 @@ package computed (tests/golden/torch_port_*.json):
   full --device cuda`): the three examples/sweeps specs byte for byte
   against the JAX reports (tests/golden/torch_port_sweep_*.json), and
   bench.py's 256-scenario sweep (2,564,314 pods on 960 + 64 nodes, fanout
-  32) against the JAX report but for its parity block; then the resident
+  32, its parity pass on a seeded sample of 64 lanes: `--parity sample`)
+  against the JAX report but for its parity block; then the resident
   image at full width: bench.py's serve shape (10,000 nodes, 5,000 bound
   pods, a 20,000-event watch stream ingested through `apply_events`) and 64
   what-if sessions in one `dispatch_sessions` call, every response against
@@ -61,6 +62,24 @@ package computed (tests/golden/torch_port_*.json):
   feasible node and a seeded sample of 32 others. The phase prints the
   recording-on and -off walls and the encode and host-commit seconds the
   metric catalog measured.
+- preemption (`preempt_phase`): the DefaultPreemption PostFilter at full
+  width, three `Simulator.schedule_pods` calls of rising priority on the
+  1,000 nodes of `synth_cluster(1000, ·, hard_predicates=True)`
+  (`preempt_workload`: 2,000 batch pods under a PDB, 1,000 service pods,
+  40 production pods in four specs, one with preemptionPolicy Never),
+  every fit of the PostFilter required to be exactly one K1 launch, against
+  the JAX golden (tests/golden/torch_port_preempt.json: summarize()'s
+  digest, the `preempted` records' sha256, every failed pod's
+  nominatedNodeName, the preemption counters' deltas); K1 is then held
+  against its plain version on the first fit's tables and carry and on
+  one fit's after an eviction (N 1,024, C 2). Two sampled runs then time
+  a fit's host split on `_fits`' own callees and K1's device time on the
+  fits (under torch.profiler; CUDA events where it traces no K1 launch). Then `sched_hard_waves`: `hard_waves` under the
+  KubeSchedulerConfiguration of
+  tests/golden/torch_port_sched_hard_waves.sched.yaml (custom score
+  weights, NodePorts and TaintToleration disabled) against its golden, and
+  (`sched_kernels`) K2, K1, K7 and K4, which that run does not reach, under
+  the same configuration at full width against their plain versions.
 - the node mesh (`parallel/`), every run on the partitioned default route
   (each rank stages and holds only its block of the node axis): first the
   port's unsharded runs of bench.py's `mesh8_1m` cluster (100,000 nodes,
@@ -1008,6 +1027,9 @@ def apply_config(kind: str, card: str) -> dict:
 # ---------------------------------------------------- the serve and sweep lanes
 
 BENCH_SPEC = "tests/golden/torch_port_sweep_bench.spec.json"
+# lanes of bench.py's sweep the parity pass re-runs on fresh Simulators (of
+# 256; the example sweeps re-run every lane)
+BENCH_PARITY_SAMPLE = 64
 SWEEP_EXAMPLES = ("zone-outage", "monte-carlo-mix", "preemption-storm")
 # the kernels line's source and TPU kernel of each serve and sweep fan-out
 LANE_ROWS = {"serve_whatif_fanout": ("schedule.cu", ":2383"),
@@ -1301,8 +1323,10 @@ def run_cli_sweep(name: str, card: str, extra=()) -> dict:
     """`python -m open_simulator_torch.cli sweep SPEC --parity full --device
     cuda` in this process (so the launch counts are read), its report held
     against the JAX golden: byte for byte for the example specs; for the
-    bench spec every byte but the parity block (the golden ran with parity
-    off). Returns the launch counts of the run."""
+    bench spec, whose parity pass re-runs a seeded sample of
+    BENCH_PARITY_SAMPLE of its 256 lanes (`--parity sample`), every byte but
+    the parity block (the golden ran with parity off). Returns the launch
+    counts of the run."""
     import contextlib
     import io
     import re
@@ -1321,7 +1345,9 @@ def run_cli_sweep(name: str, card: str, extra=()) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with contextlib.redirect_stderr(err), contextlib.redirect_stdout(io.StringIO()):
-        rc = cli(["sweep", os.path.join(REPO, spec), "--out", out, "--parity", "full",
+        parity = (("--parity", "sample", "--parity-sample", str(BENCH_PARITY_SAMPLE))
+                  if name == "bench" else ("--parity", "full"))
+        rc = cli(["sweep", os.path.join(REPO, spec), "--out", out, *parity,
                   "--device", "cuda", *extra])
     wall = time.perf_counter() - t0
     counts = K.launch_counts()
@@ -1334,7 +1360,8 @@ def run_cli_sweep(name: str, card: str, extra=()) -> dict:
     report = json.loads(got)
     if name == "bench":
         golden = json.loads(want)
-        if report["parity"] != {"mode": "full", "checked": 256, "mismatches": 0}:
+        if report["parity"] != {"mode": "sample", "checked": BENCH_PARITY_SAMPLE,
+                                "mismatches": 0}:
             fail(f"sweep bench: parity {report['parity']}")
         report.pop("parity")
         golden.pop("parity")
@@ -1609,6 +1636,332 @@ def xray_path(kind: str, nodes, pods, wall_off: float, card: str, storage_classe
     return (dict(source=SRC + "explain.cu", replaces=JAX_KERNELS + ":751", max_abs_err=err,
                  ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None),
             counts)
+
+
+# ---- preemption: the DefaultPreemption PostFilter on the card -----------------
+# (tests/test_torch_golden.py keeps the same workload function; a tier-1 test
+# holds the two copies to one result)
+
+PREEMPT_NODES = 1000
+PREEMPT_BATCH = (7000, 24)   # (cpu milli, memory GiB) of every call-1 / call-2 pod
+PREEMPT_PROD = (20000, 48)   # the same of every call-3 pod
+PREEMPT_COUNTERS = ("simon_preemption_attempts_total", "simon_preemption_victims_total",
+                    "simon_preemption_replay_pods_total", "simon_commit_rollbacks_total")
+PREEMPT_KEYS = ("choices_sha256", "per_node_counts", "placed", "unscheduled", "reason_census",
+                "preempted", "preempted_sha256", "nominations", "counters")
+# K1's device time a launch on hard's first decision set before preemption
+# (PERF.md §6, the feasibility_jit row)
+K1_HARD_MS = 0.0079
+PREEMPT_SAMPLE_REPLAYS = 1  # PostFilter passes of the timing runs
+REPLAY_CAP = "OPEN_SIMULATOR_MAX_PREEMPTION_REPLAYS"
+
+
+def preempt_pod(name: str, priority: int, cpu_milli: int, mem_gi: int, app: str,
+                tolerate: bool = False, spread: bool = False, never: bool = False) -> dict:
+    spec = {"priority": priority,
+            "containers": [{"name": "app", "image": "nginx:1.25", "resources": {
+                "requests": {"cpu": f"{cpu_milli}m", "memory": str(mem_gi << 30)}}}]}
+    if tolerate:
+        spec["tolerations"] = [{"key": "synth/dedicated", "operator": "Equal",
+                                "value": "batch", "effect": "NoSchedule"}]
+    if spread:
+        spec["topologySpreadConstraints"] = [{
+            "maxSkew": 1, "topologyKey": "topology.kubernetes.io/zone",
+            "whenUnsatisfiable": "DoNotSchedule",
+            "labelSelector": {"matchLabels": {"app": app}}}]
+    if never:
+        spec["preemptionPolicy"] = "Never"
+    return {"apiVersion": "v1", "kind": "Pod",
+            "metadata": {"name": name, "namespace": "default", "labels": {"app": app}},
+            "spec": spec}
+
+
+def preempt_workload(n_nodes: int = PREEMPT_NODES) -> tuple:
+    """(nodes, calls, pdbs): synth_cluster(n_nodes, 0, hard_predicates=True)'s
+    nodes; call 1 at priority 0 (`batch-a`, and `batch-b` tolerating the
+    taint under a PDB allowing 2 disruptions), call 2 at priority 100
+    (`svc-c`), call 3 at priority 1000 (`prod-x`, `prod-y` with a zone
+    DoNotSchedule spread, `prod-z` tolerating the taint, `prod-n` with
+    preemptionPolicy Never)."""
+    from open_simulator_torch.utils.synth import synth_cluster
+
+    nodes, _ = synth_cluster(n_nodes, 0, hard_predicates=True)
+    bc, bm = PREEMPT_BATCH
+    pc, pm = PREEMPT_PROD
+    call1 = ([preempt_pod(f"batch-a-{i:05d}", 0, bc, bm, "batch-a") for i in range(n_nodes)]
+             + [preempt_pod(f"batch-b-{i:05d}", 0, bc, bm, "batch-b", tolerate=True)
+                for i in range(n_nodes)])
+    call2 = [preempt_pod(f"svc-c-{i:05d}", 100, bc, bm, "svc-c") for i in range(n_nodes)]
+    k = max(2, n_nodes // 100)
+    call3 = [preempt_pod(f"{app}-{i:03d}", 1000, pc, pm, app, **kw)
+             for app, kw in (("prod-x", {}), ("prod-y", {"spread": True}),
+                             ("prod-z", {"tolerate": True}), ("prod-n", {"never": True}))
+             for i in range(k)]
+    pdb = {"apiVersion": "policy/v1beta1", "kind": "PodDisruptionBudget",
+           "metadata": {"name": "batch-b", "namespace": "default"},
+           "spec": {"selector": {"matchLabels": {"app": "batch-b"}}},
+           "status": {"disruptionsAllowed": 2}}
+    return nodes, [call1, call2, call3], [pdb]
+
+
+SCHED_CONFIG = os.path.join(REPO, "tests", "golden", "torch_port_sched_hard_waves.sched.yaml")
+
+
+def sched_kernel_cases(sched, card: str) -> None:
+    """The kernels `sched_hard_waves` does not reach (its segments are waves
+    and affinity runs, none failing) under its configuration at full width:
+    K2 on 256 pods strided over `hard`'s 50 blocks (every kind of the
+    cluster) and K1 on their groups (seed and end carries, forced and not,
+    with and without DoNotSchedule), K7 on each group, and K4 on the first
+    segment of each spread flag of `spread`, all on tables encoded under the
+    configuration (TaintToleration off), each against its plain version
+    with the configuration's ScoreWeights / FilterFlags, bit for bit."""
+    import torch
+
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.simulator.engine import Simulator
+    from open_simulator_torch.utils.synth import synth_cluster, synth_spread_cluster
+
+    nodes, pods = synth_cluster(5000, 50000, hard_predicates=True)
+    sim = Simulator(nodes, device="cuda", sched_config=sched)
+    wf = dict(w=sim.score_w, filters=sim.filter_flags)
+    batch = pods[::196][:256]
+    bt = sim.encode_batch(batch)
+    tb, seed = sim._to_device(bt)
+    dev = tb.alloc.device
+    pg, fn, vd = (torch.from_numpy(a).to(dev) for a in (bt.pod_group, bt.forced_node, bt.valid))
+    end_k, ch_k = K.schedule_batch_kernel(tb, seed, pg, fn, vd, bt.n_zones, **wf)
+    end_p, ch_p = K.schedule_batch_plain(tb, seed, pg, fn, vd, bt.n_zones, **wf)
+    if not torch.equal(ch_k, ch_p):
+        fail(f"sched: schedule_batch choices differ at {int((ch_k != ch_p).sum())} pods")
+    for f in K.Carry._fields:
+        if not torch.equal(getattr(end_k, f), getattr(end_p, f)):
+            fail(f"sched: schedule_batch carry.{f} differs")
+    kinds = sorted({int(g) for g in bt.pod_group[:len(batch)]})
+    k1 = k1_checks("sched", {"encoded": tb}, {"seed": seed, "end": end_k}, kinds,
+                   {"filters": sim.filter_flags})
+    for g in kinds:
+        for cry in (seed, end_k):
+            k = K.explain_kernel(tb, cry, g, -1, True, bt.n_zones, **wf)
+            p = K.pack_explain(*K.explain_pod(tb, cry, g, -1, True, bt.n_zones, **wf))
+            if not torch.equal(k.view(torch.int32), p.view(torch.int32)):
+                fail(f"sched: explain_kernel differs on group {g}")
+    sp_nodes, sp_pods, sp_services = synth_spread_cluster(5000, 20000)
+    sp = Simulator(sp_nodes, device="cuda", sched_config=sched)
+    sp.register_cluster_objects(ResourceTypes(services=sp_services))
+    sp_bt = sp.encode_batch(sp_pods)
+    sp_tb, sp_seed = sp._to_device(sp_bt)
+    firsts = {}
+    for seg in sp._segments(sp_bt, len(sp_pods)):
+        if seg[0] == "spread":
+            firsts.setdefault((seg[5], seg[6]), seg)
+    for (ss_live, sa_live), (_, _, m, g, cap1, _, _) in sorted(firsts.items()):
+        valid = torch.ones(m, dtype=torch.bool, device=dev)
+        kw = dict(ss_live=ss_live, sa_live=sa_live, n_zones=sp_bt.n_zones if ss_live else 2, **wf)
+        kj, kp = K.schedule_group_serial_kernel(sp_tb, sp_seed, g, valid, cap1, **kw)
+        pj, pp = K.schedule_group_serial_plain(sp_tb, sp_seed, g, valid, cap1, **kw)
+        if not torch.equal(kj, pj) or int(kp) != pp:
+            fail(f"sched: schedule_group_serial (ss_live={ss_live}, sa_live={sa_live}) differs")
+    emit("sched_kernels", nodes=int(tb.alloc.shape[0]), k2_pods=len(batch),
+         k2_placed=int((ch_k >= 0).sum()), k1_cases=k1, k7_cases=2 * len(kinds),
+         k4_segments=len(firsts), score_weights=sim.score_w._asdict(),
+         filter_flags=sim.filter_flags._asdict(), max_abs_err=0.0, card=card)
+
+
+def cuda_profiling() -> bool:
+    """Whether torch.profiler can trace the card here (CUPTI)."""
+    from torch.profiler import ProfilerActivity, supported_activities
+
+    return ProfilerActivity.CUDA in supported_activities()
+
+
+def preempt_phase(card: str) -> Counter:
+    """The PostFilter at full width on the card. Run 1 (the main path, every
+    launch count set to 0 just before it): the three calls of
+    `preempt_workload()` through `Simulator.schedule_pods`, each fit counted
+    and required to be exactly one K1 launch, against the JAX golden
+    (tests/golden/torch_port_preempt.json: digests, the `preempted` sha256,
+    the nominations, the counters' deltas). The tables and carry of its
+    first fit and of its first fit after an eviction are kept, and K1 is
+    held against its plain version on them after the run (`k1_checks`: the
+    packed buffer, the mask and every stage at the fits' shape). Run 2: the
+    same with each fit's host split timed on the port's own callees of
+    `preemption._fits` (the table build, the upload, the launch call, the
+    one-byte fetch; synchronized after the upload). Run 3: call 3 under
+    torch.profiler for K1's device time on the fits (where the profiler
+    shows no K1 launch: CUDA events over the kept fits' launches back to
+    back). Runs 2 and 3 stop after PREEMPT_SAMPLE_REPLAYS PostFilter passes
+    (OPEN_SIMULATOR_MAX_PREEMPTION_REPLAYS), so they time a sample of the
+    fits; only run 1 is held to the golden. Returns run 1's launch counts."""
+    import torch
+
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.obs import REGISTRY
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.simulator import preemption as PRE
+    from open_simulator_torch.simulator.encode import plugin_flags
+    from open_simulator_torch.simulator.engine import Simulator
+
+    want = load_golden("preempt")
+    orig = {f: getattr(PRE, f) for f in ("_fits", "try_preempt", "_fit_tables", "_fit_byte")}
+    tally = Counter()
+    kept = {}  # "first" / "after_eviction" -> (g, tables, carry, K1's flags)
+
+    def counted_fit(sim, g, node_i, placed2):
+        key = ("first" if not kept else
+               "after_eviction" if sim.preempted and "after_eviction" not in kept else None)
+        if key is not None:
+            bt = orig["_fit_tables"](sim, g, placed2)
+            gpu, storage = plugin_flags(bt)
+            kept[key] = (g, *sim._to_device(bt),
+                         dict(filters=sim.filter_flags, enable_gpu=gpu, enable_storage=storage))
+        before = K.feasibility_jit.launches
+        out = orig["_fits"](sim, g, node_i, placed2)
+        if K.feasibility_jit.launches != before + 1:
+            fail("preempt: a fit was not exactly one K1 launch")
+        tally["fits"] += 1
+        return out
+
+    def counted_try(sim, pod):
+        before = K.feasibility_jit.launches
+        out = orig["try_preempt"](sim, pod)
+        tally["k1_preemption"] += K.feasibility_jit.launches - before
+        tally["replays"] += 1
+        return out
+
+    def run(patch=None, hook=None, profile_call3=False, replays=None):
+        nodes, calls, pdbs = preempt_workload()
+        sim = Simulator(nodes, device="cuda")
+        sim.register_cluster_objects(ResourceTypes(pod_disruption_budgets=pdbs))
+        if hook is not None:
+            hook(sim)
+        v0 = REGISTRY.values()
+        failed, walls, prof = [], [], None
+        for f, fn in (patch or {}).items():
+            setattr(PRE, f, fn)
+        cap = os.environ.get(REPLAY_CAP)
+        if replays is not None:
+            os.environ[REPLAY_CAP] = str(replays)
+        try:
+            for i, call in enumerate(calls):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if profile_call3 and i == 2 and cuda_profiling():
+                    from torch.profiler import ProfilerActivity, profile
+
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        failed.extend(sim.schedule_pods(call))
+                        torch.cuda.synchronize()
+                else:
+                    failed.extend(sim.schedule_pods(call))
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+        finally:
+            for f, fn in orig.items():
+                setattr(PRE, f, fn)
+            os.environ.pop(REPLAY_CAP, None)
+            if cap is not None:
+                os.environ[REPLAY_CAP] = cap
+        pods = [p for call in calls for p in call]
+        rows = [[r["pod"]["metadata"]["name"], r["node"], r["by"]] for r in sim.preempted]
+        after = REGISTRY.values()
+        got = {**summarize(sim, pods, failed), "preempted": len(rows),
+               "preempted_sha256": hashlib.sha256(json.dumps(rows).encode()).hexdigest(),
+               "nominations": [[u.pod["metadata"]["name"],
+                                (u.pod.get("status") or {}).get("nominatedNodeName")]
+                               for u in failed],
+               "counters": {k: after[k] - v0.get(k, 0) for k in sorted(after)
+                            if k.split("{")[0] in PREEMPT_COUNTERS
+                            and after[k] != v0.get(k, 0)}}
+        for k in PREEMPT_KEYS if replays is None else ():
+            if got[k] != want[k]:
+                fail(f"preempt: {k} differs from the JAX golden")
+        return got, walls, prof, [len(call) for call in calls]
+
+    # run 1: the main path
+    K.reset_launch_counts()
+    got, walls, _, sizes = run({"_fits": counted_fit, "try_preempt": counted_try})
+    counts = K.launch_counts()
+    # each PostFilter pass: one K1 launch for the preemptor's reasons, one a fit
+    if tally["fits"] <= 0 or tally["k1_preemption"] != tally["replays"] + tally["fits"]:
+        fail(f"preempt: {tally['fits']} fits and {tally['replays']} passes made "
+             f"{tally['k1_preemption']} K1 launches")
+    if set(kept) != {"first", "after_eviction"}:
+        fail(f"preempt: kept fits {sorted(kept)}, wanted a first one and one after an eviction")
+    # K1 against its plain version at the fits' shape (not counted: after run 1)
+    k1_cases = sum(k1_checks(f"preempt {key} fit", {"fit": tables}, {"fit": carry}, [g], flags)
+                   for key, (g, tables, carry, flags) in sorted(kept.items()))
+    fit_shape = dict(nodes=int(kept["first"][1].alloc.shape[0]), **k1_shape())
+
+    # run 2: the host split of every fit, timed on the callees `_fits` calls
+    split = Counter()
+    in_fit = [False]
+
+    def timer(name, fn, sync=False):
+        def wrapped(*a, **kw):
+            if not in_fit[0]:
+                return fn(*a, **kw)
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            split[name] += time.perf_counter() - t0
+            return out
+        return wrapped
+
+    def timed_fit(sim, g, node_i, placed2):
+        in_fit[0] = True
+        try:
+            return orig["_fits"](sim, g, node_i, placed2)
+        finally:
+            in_fit[0] = False
+            split["fits"] += 1
+
+    def time_callees(sim):
+        sim._to_device = timer("upload", sim._to_device, sync=True)
+        sim._feasibility_packed = timer("launch", sim._feasibility_packed)
+
+    _, split_walls, _, _ = run({"_fits": timed_fit,
+                                "_fit_tables": timer("build", orig["_fit_tables"]),
+                                "_fit_byte": timer("fetch", orig["_fit_byte"])},
+                               hook=time_callees, replays=PREEMPT_SAMPLE_REPLAYS)
+    if split["fits"] <= 0:
+        fail("preempt: the split run made no fit")
+    host_ms = {k: split[k] * 1e3 / split["fits"] for k in ("build", "upload", "launch", "fetch")}
+
+    # run 3: K1's device time on call 3's launches under torch.profiler
+    _, prof_walls, prof, _ = run(profile_call3=True, replays=PREEMPT_SAMPLE_REPLAYS)
+    dev = {"launches": 0, "ms": 0.0}
+    for e in (prof.key_averages() if prof is not None else ()):
+        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        if us and "feasibility_kernel" in e.key:
+            dev["launches"] += e.count
+            dev["ms"] += us / 1e3
+    if dev["launches"]:
+        k1_ms, k1_source = dev["ms"] / dev["launches"], "torch.profiler (run 3's fits)"
+    else:  # no device time traced: events over the kept fits' launches
+        k1_ms = sum(cuda_ms(lambda: K.feasibility_packed(tables, carry, g, -1, True, **flags),
+                            200) for g, tables, carry, flags in kept.values()) / len(kept)
+        k1_source = "CUDA events (the kept fits, 200 launches back to back)"
+    if not k1_ms > 0:
+        fail("preempt: no device time for K1 on the fits")
+    c = got["counters"]
+    emit("preempt", nodes=PREEMPT_NODES, pods=sizes, walls_s=walls,
+         attempts={k.split('"')[1]: v for k, v in c.items()
+                   if k.startswith("simon_preemption_attempts_total")},
+         victims=got["preempted"], replays=tally["replays"],
+         replay_pods=c.get("simon_preemption_replay_pods_total", 0),
+         rollbacks=c.get("simon_commit_rollbacks_total", 0), fits=tally["fits"],
+         k1_launches_preemption=tally["k1_preemption"], k1_launches=counts["feasibility"],
+         k1_fit_cases=k1_cases, k1_fit_shape=fit_shape, max_abs_err=0.0,
+         k1_device_ms=k1_ms, k1_device_source=k1_source, k1_device_launches=dev["launches"],
+         k1_hard_ms=K1_HARD_MS, fit_host_ms=host_ms,
+         fit_host_total_ms=sum(host_ms.values()), split_fits=split["fits"],
+         split_run_walls_s=split_walls,
+         profiled_run_walls_s=prof_walls, nominated=sum(1 for _, v in got["nominations"] if v),
+         unscheduled=got["unscheduled"], golden="match", card=card)
+    return counts
 
 
 # ---- the node mesh: two ranks that share the card ----------------------------
@@ -3586,9 +3939,10 @@ def main() -> int:
     launches = Counter()
     walls = {}
 
-    def main_path(kind, nodes, pods, services=(), serial=False, storage_classes=()):
+    def main_path(kind, nodes, pods, services=(), serial=False, storage_classes=(),
+                  sched_config=None):
         K.reset_launch_counts()
-        sim = Simulator(nodes, device="cuda")
+        sim = Simulator(nodes, device="cuda", sched_config=sched_config)
         sim.use_waves = not serial
         sim.register_cluster_objects(ResourceTypes(services=list(services),
                                                    storage_classes=list(storage_classes)))
@@ -3612,7 +3966,11 @@ def main() -> int:
              nodes=len(nodes), placed=got["placed"], unscheduled=got["unscheduled"],
              reasons=len(got["reason_census"]), choices_sha256=got["choices_sha256"],
              seconds=wall, pods_per_s=len(pods) / wall, launches=counts, wave_stats=stats,
-             affinity_stats=aff_stats, census=census, golden="match", card=card)
+             affinity_stats=aff_stats, census=census, golden="match",
+             **({"score_weights": sim.score_w._asdict(),
+                 "filter_flags": sim.filter_flags._asdict(),
+                 "encoder_filters_disabled": sorted(sim.encoder.filter_disabled)}
+                if sched_config is not None else {}), card=card)
         return counts
 
     nodes, pods = synth_cluster(5000, 50000, hard_predicates=True)
@@ -3639,6 +3997,16 @@ def main() -> int:
     nodes, pods, _, scs = synth_extended_cluster(2000, 20000)
     launches.update(xray_path("extended", nodes, pods, walls["extended"], card,
                               storage_classes=scs)[1])
+    # preemption: the PostFilter's fits through K1 at full width, then
+    # hard_waves under a KubeSchedulerConfiguration (custom score weights, a
+    # kernel filter and an encoder filter disabled) on the default route
+    launches.update(preempt_phase(card))
+    from open_simulator_torch.api.schedconfig import parse_scheduler_config
+
+    sched = parse_scheduler_config(SCHED_CONFIG)
+    nodes, pods = synth_cluster(5000, 50000, hard_predicates=True)
+    launches.update(main_path("sched_hard_waves", nodes, pods, sched_config=sched))
+    sched_kernel_cases(sched, card)
     launches.update(demo1(card))
     launches.update(gpushare_example(card))
     # the capacity planner: both searches, then apply on the example configs
@@ -3650,8 +4018,9 @@ def main() -> int:
             fail("capacity: the tables did not grow on the device")
     for kind in ("apply_smoke", "apply_gpushare", "apply_demo1"):
         launches.update(apply_config(kind, card))
-    # scenario sweeps through the CLI entry point (parity full on the card)
-    # against the JAX reports, then the resident image at full width
+    # scenario sweeps through the CLI entry point (parity on the card: every
+    # lane of the examples, a 64-lane sample of bench's 256) against the JAX
+    # reports, then the resident image at full width
     for spec in SWEEP_EXAMPLES:
         launches.update(run_cli_sweep(spec, card))
     launches.update(run_cli_sweep("bench", card, ("--fanout", "32")))

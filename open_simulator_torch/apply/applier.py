@@ -15,9 +15,10 @@ report, on the port's Simulator (the card by default, the CPU when asked:
 - report tables (report* :309-687) as plain aligned-text tables instead of pterm.
 
 Not ported yet, each raising NotImplementedError with the ROADMAP item it
-waits for: chart apps and `--default-scheduler-config` (A7), a live cluster
-through `kubeConfig` (A10), `deadline` and `resume_journal` (A9, with the
-probe-verdict journal of resilience/guard.py).
+waits for: chart apps (A7), a live cluster through `kubeConfig` (A10),
+`deadline` and `resume_journal` (A9, with the probe-verdict journal of
+resilience/guard.py). `--default-scheduler-config` (api/schedconfig.py)
+reaches every Simulator the run builds, the probes' included.
 """
 
 from __future__ import annotations
@@ -86,13 +87,14 @@ class CapacityPlanner:
     def __init__(self, base_nodes: List[dict], new_node: dict, pods: List[dict],
                  cluster_objects: Optional[ResourceTypes] = None,
                  app_objects: Optional[List[ResourceTypes]] = None,
-                 device=None) -> None:
+                 device=None, sched_config=None) -> None:
         self.base_nodes = base_nodes
         self.new_node = new_node
         self.pods = pods
         self.cluster_objects = cluster_objects
         self.app_objects = app_objects or []
         self.device = device
+        self.sched_config = sched_config
         # filled by search(): path ("incremental"/"fresh"), probes (candidate
         # evaluations), dispatches (probe rounds), encode_s (one-time
         # pod-encoding wall), encodes (must stay 1 on the incremental path)
@@ -103,7 +105,7 @@ class CapacityPlanner:
     @classmethod
     def try_build(cls, cluster: ResourceTypes, apps: List[AppResource],
                   new_node: Optional[dict], patch_funcs,
-                  device=None) -> Optional["CapacityPlanner"]:
+                  device=None, sched_config=None) -> Optional["CapacityPlanner"]:
         from ..models.workloads import expand_workloads_excluding_daemonsets
         from ..algo.queues import sort_affinity, sort_toleration
 
@@ -133,7 +135,7 @@ class CapacityPlanner:
                 seen_unbound = True
         return cls(cluster.nodes, new_node, pods,
                    cluster_objects=cluster, app_objects=[a.resource for a in apps],
-                   device=device)
+                   device=device, sched_config=sched_config)
 
     # ------------------------------------------------------------ arithmetic ----
 
@@ -224,7 +226,7 @@ class CapacityPlanner:
         from ..simulator.engine import Simulator
 
         trial = self.base_nodes + new_fake_nodes(self.new_node, n)
-        sim = Simulator(trial, device=self.device)
+        sim = Simulator(trial, device=self.device, sched_config=self.sched_config)
         if self.cluster_objects is not None:
             sim.register_cluster_objects(self.cluster_objects)
         for rt in self.app_objects:
@@ -266,7 +268,7 @@ class CapacityPlanner:
         session = ProbeSession.try_build(
             self.base_nodes, self.new_node, self.pods,
             cluster_objects=self.cluster_objects, app_objects=self.app_objects,
-            n_new=2, fanout=PROBE_FANOUT, device=self.device)
+            n_new=2, fanout=PROBE_FANOUT, device=self.device, sched_config=self.sched_config)
         if session is None:
             return None
         self.session = session
@@ -407,10 +409,15 @@ class Applier:
         self.opts = opts
         self.cfg: SimonConfig = parse_simon_config(opts.simon_config)
         validate_config(self.cfg, opts.default_scheduler_config)
+        # --default-scheduler-config (GetAndSetSchedulerConfig,
+        # pkg/simulator/utils.go:303-381): plugin enable/disable and score
+        # weights; unsupported fields raise ConfigError here
         if opts.default_scheduler_config:
-            raise NotImplementedError(
-                "--default-scheduler-config is not ported yet (ROADMAP A7): the port's "
-                "Simulator takes the default scheduler configuration only")
+            from ..api.schedconfig import parse_scheduler_config
+
+            self.sched_config = parse_scheduler_config(opts.default_scheduler_config)
+        else:
+            self.sched_config = None
         if opts.deadline:
             raise NotImplementedError("deadline is not ported yet (ROADMAP A9)")
         if opts.resume_journal:
@@ -495,7 +502,8 @@ class Applier:
     def _simulate_with(self, cluster, apps, new_node, n, patch_funcs) -> SimulateResult:
         trial = cluster.copy()
         trial.nodes = list(trial.nodes) + new_fake_nodes(new_node, n)
-        return simulate(trial, apps, patch_pod_funcs=patch_funcs, device=self.opts.device)
+        return simulate(trial, apps, patch_pod_funcs=patch_funcs, device=self.opts.device,
+                        sched_config=self.sched_config)
 
     def _plan(self, cluster, apps, new_node, patch_funcs):
         """Returns (result, nodes_added) or (None, 0) when the user exits / search
@@ -512,7 +520,8 @@ class Applier:
             return not res.unscheduled_pods and satisfied
 
         planner = CapacityPlanner.try_build(cluster, apps, new_node, patch_funcs,
-                                            device=self.opts.device)
+                                            device=self.opts.device,
+                                            sched_config=self.sched_config)
         self.planner = planner
         if planner is not None:
             found, n, hist = planner.search()

@@ -17,8 +17,9 @@
 that the port runs, plus the JAX package's observability flags: `--xray`
 records the flight recorder's trace (PREFIX.jsonl + PREFIX.npz),
 `--metrics-out` writes the metrics registry's snapshot and `--trace-out` a
-Chrome trace of the run's spans; `--default-scheduler-config` is parsed and
-refused with the ROADMAP item it waits for. `sweep` takes the JAX package's
+Chrome trace of the run's spans; `--default-scheduler-config` takes a
+KubeSchedulerConfiguration (api/schedconfig.py: score weights, disabled
+filters, DefaultPreemption off). `sweep` takes the JAX package's
 `simon sweep` flags. `--device` picks the device (the card by default).
 `explain` and `metrics` read files only and need no device; they read the
 JAX package's traces and snapshots too. The other subcommands of the JAX
@@ -71,8 +72,7 @@ def build_parser() -> argparse.ArgumentParser:
     p_apply.add_argument("-f", "--simon-config", required=True,
                          help="path of the simon config file (simon/v1alpha1 Config)")
     p_apply.add_argument("--default-scheduler-config", default="",
-                         help="path to JSON or YAML file containing scheduler configuration "
-                              "(not ported yet: refused)")
+                         help="path to JSON or YAML file containing scheduler configuration")
     p_apply.add_argument("--output-file", default="", help="save report to output file.")
     p_apply.add_argument("--use-greed", action="store_true",
                          help="use greedy algorithm when queue pods")

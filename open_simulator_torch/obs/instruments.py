@@ -33,7 +33,6 @@ Left out, with the writers they wait for (ROADMAP A9 unless named):
 - `install_jax_monitoring` and the XLA compile families
   (`simon_xla_backend_compiles_total`, `..._compile_seconds_total`): JAX only;
 - `simon_segment_wall_seconds_total` (OPEN_SIMULATOR_SEGMENT_TIMING);
-- `simon_commit_rollbacks_total` and the preemption families (A6);
 - the probe-session, serve, serve-HA, sync, sweep and capacity-search
   families: the port's ProbeSession, ResidentImage, SweepRunner and
   CapacityPlanner record xray probe counts only (serve HA and sync: A10);
@@ -114,12 +113,31 @@ COMMITS = counter(
     "Pods committed onto nodes (placements materialized on cluster state). "
     "Monotonic reconciliation: commits - simon_commit_rollbacks_total - "
     "simon_preemption_victims_total = placements currently live.")
+COMMIT_ROLLBACKS = counter(
+    "simon_commit_rollbacks_total",
+    "Commits undone by preemption rewinds (the replay then re-commits and "
+    "re-counts them; see simon_commits_total for the reconciliation).")
 FILTER_REJECTIONS = counter(
     "simon_filter_rejections_total",
     "Per-node filter-stage rejections behind failed pods, keyed by the "
     "FitError reason label (_reasons_from_stages) — the per-extension-point "
     "failure accounting of kube-scheduler's framework metrics.",
     ("reason",))
+
+# -------------------------------------------------------------- preemption ----
+
+PREEMPT_ATTEMPTS = counter(
+    "simon_preemption_attempts_total",
+    "PostFilter runs for failed pods, by outcome (kube-scheduler "
+    "preemption_attempts_total).",
+    ("outcome",))  # nominated | no_candidates | capped
+PREEMPT_VICTIMS = counter(
+    "simon_preemption_victims_total",
+    "Pods evicted by preemption (kube-scheduler preemption_victims).")
+PREEMPT_REPLAY_PODS = counter(
+    "simon_preemption_replay_pods_total",
+    "Pods re-scheduled by rewind/replay passes — the simulator-specific "
+    "cost of exact mid-batch preemption (PARITY.md cost envelope).")
 
 # compile-cache accounting: a dispatch whose static shape signature was seen
 # before in this process is a hit; a fresh signature is a miss.

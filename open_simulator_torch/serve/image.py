@@ -48,8 +48,9 @@ With the flight recorder on (obs/xray.py), each `dispatch_sessions` call
 commits one probe record per session (counts only).
 
 Not ported: the watchdog, fault sites, scope spans and metrics (ROADMAP A9),
-custom scheduler configs (A7), and the micro-batching service, HA state and
-watch sync built on this image (A10b). The port donates no carry on a mesh
+and the micro-batching service, HA state and watch sync built on this image
+(A10b). A `sched_config` (api/schedconfig.py) reaches the image's Simulator,
+its rebuilds and the fresh Simulators of `fresh_simulator`. The port donates no carry on a mesh
 or off it (the lane kernels clone the carry they write), so the base carry
 is cached on every mesh, where JAX caches it only where it does not donate.
 """
@@ -140,9 +141,7 @@ class ResidentImage:
         from ..parallel.mesh import auto_scenario_mesh
         from ..simulator.engine import Simulator
 
-        if sched_config is not None:
-            raise NotImplementedError("custom scheduler configs are not ported yet (ROADMAP A7)")
-        sim = Simulator(list(nodes), device=device, use_mesh=False)
+        sim = Simulator(list(nodes), device=device, use_mesh=False, sched_config=sched_config)
         if mesh is not None and mesh.device != sim.device:
             raise ValueError(f"the mesh is on {mesh.device}, the image on {sim.device}")
         if cluster_objects is not None:
@@ -347,7 +346,8 @@ class ResidentImage:
         got = sim._sig_of.pop(id(pod), None)
         if got is None:
             return
-        pg = sim.placed.get(got[0])
+        sig, _, _ = got  # (signature, node, commit order)
+        pg = sim.placed.get(sig)
         if pg is not None:
             c = pg.node_counts.get(node_i, 0)
             if c <= 1:
@@ -375,7 +375,7 @@ class ResidentImage:
 
         old = self._sim
         nodes = [copy.deepcopy(n) for i, n in enumerate(old.na.nodes) if self.active[i]]
-        sim = Simulator(nodes, device=self.device, use_mesh=False)
+        sim = Simulator(nodes, device=self.device, use_mesh=False, sched_config=old.sched_config)
         sim.register_cluster_objects(_cluster_objects(old.model))
         self._sim = sim
         index: Dict[str, Tuple[dict, int]] = {}
@@ -755,8 +755,9 @@ class ResidentImage:
             nodes = self.current_nodes(drains, include)
             bound = self.cluster_pods(drains)
             rt = _cluster_objects(self._sim.model)
+            sched_config = self._sim.sched_config
             epoch = self.epoch
-        sim = Simulator(nodes, device=self.device)
+        sim = Simulator(nodes, device=self.device, sched_config=sched_config)
         sim.register_cluster_objects(rt)
         return sim, bound, epoch
 

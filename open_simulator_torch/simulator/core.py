@@ -23,13 +23,15 @@ def simulate(
     disable_progress: bool = True,
     patch_pod_funcs: Optional[List[Callable]] = None,
     device=None,
+    sched_config=None,
 ) -> SimulateResult:
     """Run one full simulation; returns placements + unschedulable pods.
 
     `cluster.pods` is replaced by the expansion of all cluster workloads (raw pods,
     Deployments/RS/RC/STS/Jobs/CronJobs, then DaemonSets against the node list), exactly
     like Simulate (core.go:85-96). `device` is "cuda" (the default, None) or
-    "cpu"; without a CUDA device only an explicit "cpu" runs.
+    "cpu"; without a CUDA device only an explicit "cpu" runs. `sched_config`:
+    an api/schedconfig.py SchedulerConfig (None = the default profile).
     """
     from ..utils.trace import Span
 
@@ -42,7 +44,8 @@ def simulate(
         span.step("expand cluster workloads")
 
         sim = Simulator(cluster.nodes, disable_progress=disable_progress,
-                        patch_pod_funcs=patch_pod_funcs, device=device)
+                        patch_pod_funcs=patch_pod_funcs, device=device,
+                        sched_config=sched_config)
         result = sim.run_cluster(cluster)
         span.step("sync cluster")
         failed = list(result.unscheduled_pods)

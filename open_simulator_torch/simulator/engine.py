@@ -48,9 +48,15 @@ Capacity probing (`probe_pods`, `probe_utilization`) counts how many pods
 would schedule without materializing placements: the capacity planner's
 fresh-probe search (apply/applier.py) calls it.
 
+Mixed pod priorities arm the DefaultPreemption PostFilter
+(simulator/preemption.py): a failed pod may evict strictly-lower-priority
+pods, found by rewinding to its serial position and dry-running its fit
+through `kernels.feasibility_packed` (K1 on the card) with victims removed.
+A KubeSchedulerConfiguration (`sched_config`, api/schedconfig.py) sets the
+score weights, the disabled filters and whether preemption runs at all.
+
 Left out of this port so far, each with the ROADMAP item it waits for:
-- preemption (mixed pod priorities raise): A6;
-- custom scheduler configs and out-of-tree plugins: A7;
+- out-of-tree plugins: A7;
 - the watchdog, CPU failover, fault injection and transactional rollback
   (resilience/), and the pulse and scope instrumentation (obs/): A9;
 - the columnar PodStore/NodeStore batches: A14.
@@ -240,26 +246,36 @@ class Simulator:
         patch_pod_funcs: Optional[List[Callable]] = None,
         device=None,
         use_mesh: Optional[bool] = None,
+        sched_config=None,
     ) -> None:
         """device: "cuda" (the default, None) or "cpu". Without a CUDA device
         only an explicit "cpu" runs; nothing falls back quietly. use_mesh:
         shard the wave kernels' epoch fronts over the ranks of the
         torch.distributed process group (parallel/mesh.py); None = a mesh
         when the group is initialized with more than one rank, overridable
-        by OPEN_SIMULATOR_MESH; True or False forces the choice."""
+        by OPEN_SIMULATOR_MESH; True or False forces the choice.
+        sched_config: an api/schedconfig.py SchedulerConfig (None = the
+        default profile): score weights, disabled filters, preemption."""
+        from ..api.schedconfig import DEFAULT_SCHEDULER_CONFIG, KERNEL_FILTERS
+
         self.device = resolve_device(device)
         self.use_mesh = use_mesh
         self._mesh = _UNSET
         # the simulator owns its node objects (the plugins write annotations
         # back into them), like the reference's fakeclient Create
         nodes = copy.deepcopy(list(nodes))
-        self.score_w = kernels.DEFAULT_WEIGHTS
-        self.filter_flags = kernels.DEFAULT_FILTERS
+        self.sched_config = sched_config or DEFAULT_SCHEDULER_CONFIG
+        self.score_w = kernels.ScoreWeights(**self.sched_config.weight_kwargs())
+        self.filter_flags = kernels.FilterFlags(**{
+            flag: name not in self.sched_config.disabled_kernel_filters
+            for name, flag in KERNEL_FILTERS.items()
+        })
         self.axis = ResourceAxis()
         self.axis.discover(nodes, [])
         self.model = ClusterModel()
         self.na = NodeArrays(nodes, self.axis)
         self.encoder = Encoder(self.na, self.axis, self.model)
+        self.encoder.filter_disabled = self.sched_config.disabled_encoder_filters
         from ..plugins.gpushare import GpuShareHost
         from ..plugins.openlocal import OpenLocalHost
 
@@ -270,10 +286,21 @@ class Simulator:
         self.placed: Dict[object, PlacedGroup] = {}  # signature → aggregated commits
         self.pods_on_node: List[List[dict]] = [[] for _ in range(self.na.N)]
         self.homeless: List[dict] = []  # bound to a node name we don't know
-        # id(pod) -> (sig, node_i) of every committed pod: pod deletion
-        # (serve/image.py) decrements the right signature's placed counts
-        # from it (the part of JAX's preemption bookkeeping it needs)
-        self._sig_of: Dict[int, tuple] = {}
+        # Preemption bookkeeping (simulator/preemption.py). _sig_of and
+        # _commits_prio are kept on every commit: evictions (and pod
+        # deletion, serve/image.py) find any placed pod's signature, and
+        # commit order stands in for pod start time. The commit log (pod-dict
+        # undo records for the rewind) fills only while mixed priorities arm
+        # the PostFilter, and is dropped when the call returns.
+        self.preempted: List[dict] = []   # {pod, node, by} eviction records
+        self._sig_of: Dict[int, tuple] = {}   # id(pod) -> (sig, node_i, seq)
+        self._commits_prio: List[int] = []    # spec.priority per commit, in order
+        # (pod, prev_gpu_index, prev_assume, prev_node_name, prev_status)
+        self._commit_log: List[tuple] = []
+        # nominatedNodeName writes on failed preemptors (not commits):
+        # (pod, had_status, prev_value, had_key)
+        self._nominate_log: List[tuple] = []
+        self._preempt_armed = False
         self._priority_seen: set = set()
         self.match_cache: Dict[Tuple[int, object], bool] = {}  # (counter id, sched signature)
         self.disable_progress = disable_progress
@@ -318,6 +345,17 @@ class Simulator:
         spec = pod.get("spec")
         if spec is None:
             spec = pod["spec"] = {}
+        if self._preempt_armed:
+            # rewind record BEFORE reserve() mutates the pod (preemption.restore);
+            # the annotations matter only when gpushare reserve() writes them
+            if self.gpu_host.enabled:
+                anns = (pod.get("metadata") or {}).get("annotations") or {}
+                prev_idx = anns.get(C.AnnoGpuIndex)
+                prev_assume = anns.get(C.AnnoGpuAssumeTime)
+            else:
+                prev_idx = prev_assume = None
+            self._commit_log.append((pod, prev_idx, prev_assume,
+                                     spec.get("nodeName"), pod.get("status")))
         spec["nodeName"] = self.na.names[node_i]
         pod["status"] = {"phase": "Running"}
         # signature BEFORE reserve() writes gpu-index/assume-time annotations,
@@ -325,7 +363,11 @@ class Simulator:
         sig = pod.get(SIG_MEMO_KEY)
         if sig is None:
             sig = scheduling_signature(pod)
-        self._sig_of[id(pod)] = (sig, node_i)
+        self._sig_of[id(pod)] = (sig, node_i, len(self._commits_prio))
+        try:
+            self._commits_prio.append(int(spec.get("priority") or 0))
+        except (TypeError, ValueError):
+            self._commits_prio.append(0)
         if scheduled:
             if self.gpu_host.enabled:
                 self.gpu_host.reserve(pod, node_i)
@@ -349,6 +391,13 @@ class Simulator:
         nc[node_i] = nc.get(node_i, 0) + 1
         pod.pop(SIG_MEMO_KEY, None)  # internal marker; keep result objects clean
         self.pods_on_node[node_i].append(pod)
+
+    def _sig_rec(self, pod: dict) -> Optional[tuple]:
+        """(signature, node_i, commit_seq) of a placed pod, or None
+        (preemption's victim bookkeeping). JAX also reads the columnar
+        records of bulk-committed store rows here; the port commits no
+        store batches (ROADMAP A14)."""
+        return self._sig_of.get(id(pod))
 
     def register_cluster_objects(self, rt: ResourceTypes) -> None:
         m = self.model
@@ -374,28 +423,43 @@ class Simulator:
         the reference's strictly serial order: runs of unbound pods become one
         kernel dispatch; a pre-bound pod (spec.nodeName) flushes the run first,
         then commits directly. With the flight recorder on, the call's
-        records commit when it returns; a call that raises commits none."""
-        self._check_priorities(pods)
+        records commit when it returns; a call that raises commits none.
+
+        When the pods seen so far carry more than one distinct spec.priority,
+        the DefaultPreemption PostFilter arms (simulator/preemption.py):
+        failed pods may evict strictly-lower-priority victims, as the
+        reference's default plugin set does (algorithmprovider/
+        registry.go:106-110). With one priority no victim can have a lower
+        one, so the single batched pass runs unchanged."""
         t0 = time.perf_counter()
         try:
             self._xray_run = xray.begin_run("schedule")
-            result = self._schedule_pods_inner(pods)
+            if self._track_priorities(pods):
+                from .preemption import schedule_with_preemption
+
+                result = schedule_with_preemption(self, pods)
+            else:
+                result = self._schedule_pods_inner(pods)
             self._xray_commit()
             return result
         finally:
+            # the rewind records are reachable only within this call
+            self._commit_log.clear()
+            self._nominate_log.clear()
             self._xray_run = None
             obs.E2E_SECONDS.observe(time.perf_counter() - t0)
 
-    def _check_priorities(self, pods: List[dict]) -> None:
-        """More than one distinct spec.priority across all calls would arm
-        the DefaultPreemption PostFilter, which this port does not have yet."""
-        seen = self._priority_seen | {(p.get("spec") or {}).get("priority") or 0
-                                      for p in pods}
-        if len(seen) > 1:
-            raise NotImplementedError(
-                "mixed pod priorities arm preemption, which the PyTorch port does not "
-                "implement yet (ROADMAP A6)")
-        self._priority_seen = seen
+    def _track_priorities(self, pods: List[dict]) -> bool:
+        """Arm the PostFilter when more than one distinct priority has been
+        seen across ALL schedule_pods calls (cluster pods and app pods
+        schedule in separate calls, and a priority gap between those sets is
+        where the reference could preempt), unless the scheduler config
+        disabled it."""
+        if self.sched_config.preemption_disabled:
+            return False
+        self._priority_seen.update((p.get("spec") or {}).get("priority") or 0 for p in pods)
+        self._preempt_armed = len(self._priority_seen) > 1
+        return self._preempt_armed
 
     def _schedule_pods_inner(self, pods: List[dict]) -> List[UnscheduledPod]:
         from ..utils.trace import Progress
@@ -442,7 +506,11 @@ class Simulator:
         """Encode a pod batch into padded tables (no scheduling): encoder axes
         to pow2 buckets, the node axis to bucket_capped(N, 1024), aligned to
         the mesh's shard count (JAX :902-911)."""
-        bt = pad_encoder_axes(self.encode_batch_raw(to_schedule))
+        return self._pad_nodes(pad_encoder_axes(self.encode_batch_raw(to_schedule)))
+
+    def _pad_nodes(self, bt: BatchTables) -> BatchTables:
+        """Pad the node axis of `bt` to bucket_capped(N, 1024), aligned to the
+        mesh's shard count, so the tables divide over the mesh's ranks."""
         target = bucket_capped(self.na.N, 1024)
         mesh = self._resolve_mesh()
         if mesh is not None:
@@ -895,7 +963,7 @@ class Simulator:
         pre-bound pods all commit BEFORE the unbound run, whatever their list
         position, and pods bound to unknown nodes drop out of the totals as
         schedule_pods drops them from every report. Like the JAX probe, it
-        runs no preemption, so mixed priorities do not raise here. With the
+        runs no preemption, whatever the pods' priorities. With the
         flight recorder on, the call commits one probe record (counts only:
         no pod rows, no decision sets)."""
         self._xray_run = xray.begin_run("probe")
@@ -1027,6 +1095,21 @@ class Simulator:
                 "scheduling result itself is unaffected)")
             xray.disable()
 
+    def _xray_preempt(self, pod: dict, node_i: int, victims: List[dict],
+                      reasons: Dict[str, int]) -> None:
+        """Preemption hook (simulator/preemption.py): record the preemptor's
+        authoritative reason and victim chain; the victims flip to
+        'preempted'."""
+        run = self._xray_run
+        if run is None:
+            return
+        run.add_preempt(
+            f"{namespace_of(pod)}/{name_of(pod)}",
+            self.na.names[node_i] if node_i >= 0 else None,
+            [f"{namespace_of(v)}/{name_of(v)}" for v in victims],
+            self._format_reason(pod, reasons, self.na.N), dict(reasons),
+            nominated=node_i >= 0)
+
     def _xray_set(self, key3: Tuple[int, int, int], tables, carry_start, bt: BatchTables,
                   flags: Tuple[bool, bool]) -> xray.XraySet:
         """One decision set: the per-stage masks, total score and per-plugin
@@ -1072,18 +1155,31 @@ class Simulator:
         first-failing plugin per node): kernels.feasibility_packed's one
         buffer, fetched with one device-to-host copy and sliced on the
         host."""
+        return self._reasons_from_stages(pod, forced,
+                                         self._feasibility_stages(g, forced, tables, carry, flags))
+
+    def _feasibility_packed(self, g: int, forced: int, tables, carry,
+                            flags: Tuple[bool, bool]) -> torch.Tensor:
+        """`kernels.feasibility_packed` for group g against `carry` (K1 on
+        the card; on a partitioned mesh on the block, gathered tiled), with
+        the dispatch counted: the packed rows of every node, on the device."""
         mesh = self._partition_mesh()
         dims = self._dispatch_dims(tables)
         if mesh is not None:  # the block's tables: the signature keys the global N
             dims["N"] *= mesh.shards
         obs.record_dispatch("feasibility_jit", gpu=flags[0], storage=flags[1], **dims)
-        rows = kernels.feasibility_packed(tables, carry, g, forced, True, self.filter_flags,
+        return kernels.feasibility_packed(tables, carry, g, forced, True, self.filter_flags,
                                           enable_gpu=flags[0], enable_storage=flags[1],
                                           mesh=mesh)
+
+    def _feasibility_stages(self, g: int, forced: int, tables, carry,
+                            flags: Tuple[bool, bool]) -> Dict[str, np.ndarray]:
+        """The per-stage masks of `_feasibility_packed` on the host, from ONE
+        device-to-host copy, the phantom node padding sliced off."""
+        rows = self._feasibility_packed(g, forced, tables, carry, flags)
         _, stages = kernels.unpack_feasibility(rows.cpu())
-        N = self.na.N  # stages carry phantom node padding; slice it off
-        stages = {k: v.numpy()[:N] for k, v in stages.items()}
-        return self._reasons_from_stages(pod, forced, stages)
+        N = self.na.N
+        return {k: v.numpy()[:N] for k, v in stages.items()}
 
     def _reasons_from_stages(self, pod: dict, forced: int,
                              stages: Dict[str, np.ndarray]) -> Dict[str, int]:

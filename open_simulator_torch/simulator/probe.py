@@ -88,7 +88,7 @@ class ProbeSession:
     def try_build(cls, base_nodes: List[dict], new_node: Optional[dict],
                   pods: List[dict], cluster_objects=None,
                   app_objects: Sequence = (), n_new: int = 2, fanout: int = 8,
-                  device=None, mesh=None) -> Optional["ProbeSession"]:
+                  device=None, mesh=None, sched_config=None) -> Optional["ProbeSession"]:
         """Build a session able to probe up to (at least) n_new template
         copies on `device` ("cuda", the default, or "cpu"), or None when the
         workload fails an equivalence gate. `mesh`: a scenario mesh on that
@@ -105,7 +105,8 @@ class ProbeSession:
         # real, probe-able template columns
         n0 = max(2, int(n_new))
         n0 = bucket_capped(n_base + n0, 1024) - n_base
-        sim = Simulator(base_nodes + new_fake_nodes(new_node, n0), device=device, use_mesh=False)
+        sim = Simulator(base_nodes + new_fake_nodes(new_node, n0), device=device, use_mesh=False,
+                        sched_config=sched_config)
         if cluster_objects is not None:
             sim.register_cluster_objects(cluster_objects)
         for rt in app_objects:

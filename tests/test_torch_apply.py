@@ -83,10 +83,13 @@ def test_satisfy_resource_setting_env(monkeypatch):
 
 def test_inputs_not_ported_raise(monkeypatch, tmp_path):
     monkeypatch.chdir(REPO)
-    for kw, item in (({"default_scheduler_config": SMOKE}, "A7"), ({"deadline": 5.0}, "A9"),
-                     ({"resume_journal": str(tmp_path / "j")}, "A9")):
+    for kw, item in (({"deadline": 5.0}, "A9"), ({"resume_journal": str(tmp_path / "j")}, "A9")):
         with pytest.raises(NotImplementedError, match=item):
             Applier(Options(simon_config=SMOKE, device="cpu", **kw))
+    # --default-scheduler-config is parsed now (api/schedconfig.py): a file
+    # that is no KubeSchedulerConfiguration is a ConfigError
+    with pytest.raises(ConfigError, match="unsupported apiVersion"):
+        Applier(Options(simon_config=SMOKE, device="cpu", default_scheduler_config=SMOKE))
     chart = tmp_path / "chart.yaml"
     chart.write_text(open(SMOKE).read().replace("path: examples/smoke/app",
                                                 "path: examples/smoke/app\n      chart: true"))
@@ -111,7 +114,7 @@ def test_cli_apply_on_the_cpu(tmp_path):
     bad = subprocess.run([sys.executable, "-m", "open_simulator_torch.cli", "apply", "-f",
                           SMOKE, "--device", "cpu", "--default-scheduler-config", SMOKE],
                          cwd=REPO, capture_output=True, text=True, timeout=300)
-    assert bad.returncode == 1 and "ROADMAP A7" in bad.stderr
+    assert bad.returncode == 1 and "scheduler config: unsupported apiVersion" in bad.stderr
 
 
 def test_planner_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):

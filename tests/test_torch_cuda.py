@@ -254,7 +254,7 @@ def test_extended_kernels_match_plain_versions(n_pods):
                     K.aggregate_commit_plain(tb, kc, g, pj, gpu_live=True))
 
 
-def _capacity_session(n_base=48, n_pods=600, n_new=40):
+def _capacity_session(n_base=48, n_pods=600, n_new=40, sched_config=None):
     """A capacity probe session on the card over synth_capacity_cluster
     (every segment kind of the router), with its segments by kind."""
     from open_simulator_torch.core.types import ResourceTypes
@@ -263,7 +263,7 @@ def _capacity_session(n_base=48, n_pods=600, n_new=40):
 
     base, tpl, pods, services = synth_capacity_cluster(n_base, n_pods)
     ses = ProbeSession.try_build(base, tpl, pods, ResourceTypes(services=services),
-                                 n_new=n_new, device="cuda")
+                                 n_new=n_new, device="cuda", sched_config=sched_config)
     assert ses is not None
     kinds = {}
     for s in ses._segs:
@@ -287,10 +287,12 @@ def _lane_masks(ses, S):
     return torch.from_numpy(a).cuda()
 
 
-def _fanout_cases(ses, seg, active):
+def _fanout_cases(ses, seg, active, wf=None):
     """(kernel dispatcher, plain fan-out, args, kwargs) of one segment: the
     plain fan-out is the plain lanes then the plain commit over lanes, run on
-    the card's tensors."""
+    the card's tensors. `wf`: score weights and filter flags (w=, filters=)
+    joining the kwargs."""
+    wf = wf or {}
     from open_simulator_torch.simulator.encode import bucket_capped
 
     tb, bt = ses._tables, ses._bt
@@ -306,13 +308,13 @@ def _fanout_cases(ses, seg, active):
         vd = torch.arange(pad) < length
         args = (tb, cry_s, active, pg.cuda(), fn.cuda(), vd.cuda(), bt.n_zones, *ses._flags)
 
-        def plain(*a):
+        def plain(*a, **k):
             enable_gpu, enable_storage = a[7:]
             carry_s, choices = K.schedule_batch_lanes_plain(*a[:7], enable_gpu=enable_gpu,
-                                                            enable_storage=enable_storage)
+                                                            enable_storage=enable_storage, **k)
             return carry_s, (choices >= 0).sum(dim=1, dtype=torch.int32)
 
-        return K.probe_serial_fanout, plain, args, {}
+        return K.probe_serial_fanout, plain, args, dict(wf)
     g, cap1 = seg[3], bool(seg[4])
     block = K.wave_block_for(length, n_real)
     if kind == "wave":
@@ -334,7 +336,7 @@ def _fanout_cases(ses, seg, active):
         out = lanes(*a, **k)
         return K.aggregate_commit_lanes_plain(tb, cry_s, g, out[0], **commit_kw), out[1]
 
-    return dispatch, plain, args, kw
+    return dispatch, plain, args, {**kw, **wf}
 
 
 @pytest.mark.cuda
@@ -612,6 +614,7 @@ def test_round_kernel_matches_plain_rounds_on_two_ranks(tmp_path):
         assert r["calls"] == {"pmax": 2 * rounds, "all_gather_tiled": 0,
                               "all_gather_rows": 2 * rounds}, r
     assert sum(r["stats"][1] for r in got[0]) > 0 and sum(r["stats"][2] for r in got[0]) > 0
+    assert sum(r["sched"] for r in got[0]) == 1  # one run under custom weights and flags
 
 
 @pytest.mark.cuda
@@ -1612,3 +1615,203 @@ def test_cluster_sharded_commit_on_two_ranks(tmp_path, n_nodes, C):
             assert r["calls"] == {"pmax": 0, "all_gather_tiled": 0, "all_gather_rows": 1}, r
             assert r["same_plain"] and r["same_unsharded"], r
             assert r["input_kept"] and r["fresh"], r
+
+
+# ---- preemption and a custom scheduler configuration on the card ----------------
+
+
+def _preempt_case(name):
+    import torch_preempt_cases as P
+
+    if name.startswith("cut"):
+        return P.preempt_cut(64)
+    build = (P.SCENARIOS.get(name) or P.EXTRA_CASES[name])[0]
+    return build()
+
+
+def _preempt_names():
+    import torch_preempt_cases as P
+
+    return sorted(P.SCENARIOS) + sorted(P.EXTRA_CASES) + ["cut64"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_waves", [True, False], ids=["default", "serial"])
+@pytest.mark.parametrize("name", _preempt_names())
+def test_preemption_on_the_card_equals_the_cpu(name, use_waves, tmp_path, monkeypatch):
+    """Every preemption case of tests/test_torch_preemption.py (the 15
+    scenarios of tests/test_preemption.py, the ledger and metric cases, the
+    64-node cut of chip_smoke.py's `preempt`) through the Simulator on the
+    card against the same on the CPU: placements, `preempted`, reasons,
+    nominations, annotations and counters. On the card every fit is exactly
+    one K1 launch, and each PostFilter pass launches K1 once for the
+    preemptor's reasons and once a fit, and nowhere else."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import torch_preempt_cases as P
+    from open_simulator_torch.api.schedconfig import parse_scheduler_config
+    from open_simulator_torch.simulator import preemption as PRE
+
+    nodes, calls, kw = _preempt_case(name)
+    kw = dict(kw, use_waves=use_waves)
+    if "sched_yaml" in kw:
+        path = tmp_path / "sched.yaml"
+        path.write_text(kw.pop("sched_yaml"))
+        kw["sched_config"] = parse_scheduler_config(str(path))
+    cpu, _ = P.run_port("cpu", nodes, calls, **kw)
+    orig_fits, orig_try = PRE._fits, PRE.try_preempt
+    tally = {"fits": 0, "passes": 0, "k1": 0}
+
+    def fits(sim, g, node_i, placed2):
+        before = K.feasibility_jit.launches
+        out = orig_fits(sim, g, node_i, placed2)
+        assert K.feasibility_jit.launches == before + 1
+        tally["fits"] += 1
+        return out
+
+    def try_preempt(sim, pod):
+        before = K.feasibility_jit.launches
+        out = orig_try(sim, pod)
+        tally["k1"] += K.feasibility_jit.launches - before
+        tally["passes"] += 1
+        return out
+
+    monkeypatch.setattr(PRE, "_fits", fits)
+    monkeypatch.setattr(PRE, "try_preempt", try_preempt)
+    card, _ = P.run_port("cuda", nodes, calls, **kw)
+    assert card == cpu
+    assert tally["k1"] == tally["passes"] + tally["fits"]
+    if card["preempted"]:
+        assert tally["fits"] > 0
+
+
+def _sched_sim(nodes, services=(), scs=()):
+    """A Simulator on the card under tests/golden/torch_port_sched_hard_waves.sched.yaml
+    (custom score weights, NodePorts and TaintToleration disabled)."""
+    import os
+
+    from open_simulator_torch.api.schedconfig import parse_scheduler_config
+    from open_simulator_torch.core.types import ResourceTypes
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
+                        "torch_port_sched_hard_waves.sched.yaml")
+    sim = Simulator(nodes, device="cuda", sched_config=parse_scheduler_config(path))
+    sim.register_cluster_objects(ResourceTypes(services=list(services),
+                                               storage_classes=list(scs)))
+    assert sim.score_w != K.DEFAULT_WEIGHTS and sim.filter_flags != K.DEFAULT_FILTERS
+    return sim
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["hard", "extended"])
+def test_custom_config_serial_kernels_match_plain(kind):
+    """K2, K1 and K7 under sched_hard_waves' weights and flags (and its
+    encoder filter in the tables) against their plain versions: choices and
+    carry, every stage, every explain row; the extended cluster with the
+    GPU-share and Open-Local branches on."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from open_simulator_torch.utils.synth import synth_extended_cluster
+
+    scs = []
+    if kind == "hard":
+        nodes, pods = synth_cluster(256, 1500, hard_predicates=True)
+    else:
+        nodes, pods, _, scs = synth_extended_cluster(256, 1200)
+    sim = _sched_sim(nodes, scs=scs)
+    wf = dict(w=sim.score_w, filters=sim.filter_flags)
+    ext = kind == "extended"
+    flags = dict(enable_gpu=ext, enable_storage=ext)
+    bt, tb, seed, segs = _segments_of(sim, pods)
+    args = [torch.from_numpy(a).cuda() for a in (bt.pod_group, bt.forced_node, bt.valid)]
+    kc, kch = K.schedule_batch_kernel(tb, seed, *args, bt.n_zones, **wf, **flags)
+    pc, pch = K.schedule_batch_plain(tb, seed, *args, bt.n_zones, **wf, **flags)
+    assert torch.equal(kch, pch)
+    _same_carry(kc, pc)
+    N = int(tb.alloc.shape[0])
+    for g in sorted({int(g) for g in bt.pod_group[:len(pods)]}):
+        for cry in (seed, kc):
+            kf, ks = K.feasibility_kernel(tb, cry, g, -1, True, filters=sim.filter_flags, **flags)
+            pf, ps = K.feasibility(tb, cry, g, -1, True, filters=sim.filter_flags, **flags)
+            assert torch.equal(kf, pf), g
+            for k in K.STAGE_KEYS:
+                assert torch.equal(ks[k], ps[k]), (g, k)
+            for forced in (-1, (7 * g + 3) % N):
+                got = K.explain_kernel(tb, cry, g, forced, True, bt.n_zones, **flags, **wf)
+                _same_explain(got, K.explain_pod(tb, cry, g, forced, True, bt.n_zones, **flags,
+                                                 **wf))
+
+
+@pytest.mark.cuda
+def test_custom_config_route_kernels_match_plain():
+    """K3 + K3c, K4 + K3c and K5 + K3c under sched_hard_waves' weights and
+    flags against their plain versions, on every wave, group-serial and
+    affinity segment of the hard, spread and affinity clusters."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from open_simulator_torch.utils.synth import synth_affinity_cluster, synth_spread_cluster
+
+    seen = set()
+    nodes, pods = synth_cluster(256, 3000, hard_predicates=True)
+    sp_nodes, sp_pods, sp_svc = synth_spread_cluster(256, 1200)
+    af_nodes, af_pods, af_svc = synth_affinity_cluster(256, 1200)
+    for nodes, pods, svc in ((nodes, pods, []), (sp_nodes, sp_pods, sp_svc),
+                             (af_nodes, af_pods, af_svc)):
+        sim = _sched_sim(nodes, services=svc)
+        wf = dict(w=sim.score_w, filters=sim.filter_flags)
+        bt, tb, seed, segs = _segments_of(sim, pods)
+        for seg in segs[:24]:
+            kind, _, m, g, cap1 = seg[:5]
+            if kind == "wave":
+                block = K.wave_block_for(m, sim.na.N)
+                kw = dict(block=block, kmax=K.wave_kmax(m, sim.na.N, block), **wf)
+                kj, kp, kst = K.schedule_wave_kernel(tb, seed, g, m, cap1, **kw)
+                pj, pp, pst = K.schedule_wave_plain(tb, seed, g, m, cap1, **kw)
+                assert kst.tolist() == [pst[k] for k in K.WAVE_STATS]
+            elif kind == "spread":
+                nz = bt.n_zones if seg[5] else 2
+                valid = torch.arange(m + 5, device="cuda") < m
+                kw = dict(ss_live=seg[5], sa_live=seg[6], n_zones=nz, **wf)
+                kj, kp = K.schedule_group_serial_kernel(tb, seed, g, valid, cap1, **kw)
+                pj, pp = K.schedule_group_serial_plain(tb, seed, g, valid, cap1, **kw)
+            elif kind == "affinity":
+                nz = bt.n_zones if seg[5] else 2
+                kw = dict(ss_live=seg[5], block=K.wave_block_for(m, sim.na.N), n_zones=nz, **wf)
+                kj, kp, kst = K.schedule_affinity_wave_kernel(tb, seed, g, m, cap1, **kw)
+                pj, pp, pst = K.schedule_affinity_wave_plain(tb, seed, g, m, cap1, **kw)
+                assert kst.tolist() == [pst[k] for k in K.AFFINITY_STATS]
+            else:
+                continue
+            assert torch.equal(kj, pj), (kind, g)
+            assert int(kp) == pp
+            _same_carry(K.aggregate_commit_kernel(tb, seed, g, kj),
+                        K.aggregate_commit_plain(tb, seed, g, pj))
+            seen.add(kind)
+    assert seen == {"wave", "spread", "affinity"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [2, 8])
+def test_custom_config_lane_kernels_match_plain_fanouts(S):
+    """Each probe fan-out (K2-K5 over lanes, then K3c over lanes) under
+    sched_hard_waves' weights and flags against its plain fan-out, one
+    segment of each kind of a session built with that configuration."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import os
+
+    from open_simulator_torch.api.schedconfig import parse_scheduler_config
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
+                        "torch_port_sched_hard_waves.sched.yaml")
+    ses, kinds = _capacity_session(16, 600, sched_config=parse_scheduler_config(path))
+    sim = ses._sim
+    wf = dict(w=sim.score_w, filters=sim.filter_flags)
+    assert wf["w"] != K.DEFAULT_WEIGHTS
+    active = _lane_masks(ses, S)
+    for kind, seg in sorted(kinds.items()):
+        kfn, pfn, args, kw = _fanout_cases(ses, seg, active, wf)
+        kc, kp = kfn(*args, **kw)
+        pc, pp = pfn(*args, **kw)
+        assert torch.equal(kp, pp), kind
+        _same_carry(kc, pc)

@@ -31,6 +31,19 @@ the pod rows' digests) and the placements of the same run with recording
 off:
 
     JAX_PLATFORMS=cpu python tests/test_torch_golden.py --write xray_hard_waves xray_extended
+
+`preempt` holds the JAX package's run of chip_smoke.py's preemption
+workload (`preempt_workload(1000)`: three calls of rising priority on
+`synth_cluster(1000, ·, hard_predicates=True)`'s nodes, a PDB on one
+batch app, the third call's pods preempting): summarize()'s digest over
+all three calls, a sha256 over the `preempted` records in order, the
+nominatedNodeName of every failed pod, the preemption counters' deltas
+and the checks the workload was sized to pass. `sched_hard_waves` holds
+`hard_waves` under the KubeSchedulerConfiguration in
+tests/golden/torch_port_sched_hard_waves.sched.yaml (custom score weights,
+a kernel filter and an encoder filter disabled):
+
+    JAX_PLATFORMS=cpu python tests/test_torch_golden.py --write preempt sched_hard_waves
 """
 
 from __future__ import annotations
@@ -85,8 +98,10 @@ APPLY_SCENARIOS = {
 }
 # kind -> the SCENARIOS kind recorded with the flight recorder on
 XRAY_SCENARIOS = {"xray_hard_waves": "hard_waves", "xray_extended": "extended"}
+# the KubeSchedulerConfiguration of the sched_hard_waves golden
+SCHED_HARD_WAVES = "tests/golden/torch_port_sched_hard_waves.sched.yaml"
 ALL_KINDS = (sorted(SCENARIOS) + ["capacity", "capacity_lanes"] + sorted(APPLY_SCENARIOS)
-             + sorted(XRAY_SCENARIOS))
+             + sorted(XRAY_SCENARIOS) + ["preempt", "sched_hard_waves"])
 
 
 def golden_path(kind: str) -> str:
@@ -134,30 +149,175 @@ def workload(gen: str, n_nodes: int, n_pods: int, synth) -> tuple:
     return nodes, pods, [], []
 
 
-def run_jax(gen: str, n_nodes: int, n_pods: int, serial: bool) -> dict:
+def run_jax(gen: str, n_nodes: int, n_pods: int, serial: bool, sched_config=None) -> dict:
     from open_simulator_tpu.core.types import ResourceTypes
     from open_simulator_tpu.simulator.engine import Simulator
     from open_simulator_tpu.utils import synth
 
     nodes, pods, services, scs = workload(gen, n_nodes, n_pods, synth)
-    sim = Simulator(nodes, use_mesh=False)
+    sim = Simulator(nodes, use_mesh=False, sched_config=sched_config)
     sim.use_waves = not serial
     sim.register_cluster_objects(ResourceTypes(services=services, storage_classes=scs))
     failed = sim.schedule_pods(pods)
     return summarize(sim, pods, failed)
 
 
-def run_port(gen: str, n_nodes: int, n_pods: int, serial: bool, device: str = "cpu") -> dict:
+def run_port(gen: str, n_nodes: int, n_pods: int, serial: bool, device: str = "cpu",
+             sched_config=None) -> dict:
     from open_simulator_torch.core.types import ResourceTypes
     from open_simulator_torch.simulator.engine import Simulator
     from open_simulator_torch.utils import synth
 
     nodes, pods, services, scs = workload(gen, n_nodes, n_pods, synth)
-    sim = Simulator(nodes, device=device)
+    sim = Simulator(nodes, device=device, sched_config=sched_config)
     sim.use_waves = not serial
     sim.register_cluster_objects(ResourceTypes(services=services, storage_classes=scs))
     failed = sim.schedule_pods(pods)
     return summarize(sim, pods, failed)
+
+
+# ---- chip_smoke.py's preemption workload (chip_smoke.py keeps a copy) ----
+
+PREEMPT_NODES = 1000
+PREEMPT_BATCH = (7000, 24)   # (cpu milli, memory GiB) of every call-1 / call-2 pod
+PREEMPT_PROD = (20000, 48)   # the same of every call-3 pod
+PREEMPT_COUNTERS = ("simon_preemption_attempts_total", "simon_preemption_victims_total",
+                    "simon_preemption_replay_pods_total", "simon_commit_rollbacks_total")
+
+
+def preempt_pod(name: str, priority: int, cpu_milli: int, mem_gi: int, app: str,
+                tolerate: bool = False, spread: bool = False, never: bool = False) -> dict:
+    spec = {"priority": priority,
+            "containers": [{"name": "app", "image": "nginx:1.25", "resources": {
+                "requests": {"cpu": f"{cpu_milli}m", "memory": str(mem_gi << 30)}}}]}
+    if tolerate:
+        spec["tolerations"] = [{"key": "synth/dedicated", "operator": "Equal",
+                                "value": "batch", "effect": "NoSchedule"}]
+    if spread:
+        spec["topologySpreadConstraints"] = [{
+            "maxSkew": 1, "topologyKey": "topology.kubernetes.io/zone",
+            "whenUnsatisfiable": "DoNotSchedule",
+            "labelSelector": {"matchLabels": {"app": app}}}]
+    if never:
+        spec["preemptionPolicy"] = "Never"
+    return {"apiVersion": "v1", "kind": "Pod",
+            "metadata": {"name": name, "namespace": "default", "labels": {"app": app}},
+            "spec": spec}
+
+
+def preempt_workload(n_nodes: int = PREEMPT_NODES) -> tuple:
+    """(nodes, calls, pdbs): the nodes of synth_cluster(n_nodes, 0,
+    hard_predicates=True) (8 zones, every 10th node tainted); call 1 at
+    priority 0: n_nodes `batch-a` pods and n_nodes `batch-b` pods that
+    tolerate the taint, under a PDB allowing 2 disruptions; call 2 at
+    priority 100: n_nodes `svc-c` pods; call 3 at priority 1000: four specs
+    of max(2, n_nodes // 100) pods (`prod-x` plain, `prod-y` with a zone
+    DoNotSchedule spread of maxSkew 1, `prod-z` tolerating the taint,
+    `prod-n` with preemptionPolicy Never)."""
+    from open_simulator_torch.utils.synth import synth_cluster
+
+    nodes, _ = synth_cluster(n_nodes, 0, hard_predicates=True)
+    bc, bm = PREEMPT_BATCH
+    pc, pm = PREEMPT_PROD
+    call1 = ([preempt_pod(f"batch-a-{i:05d}", 0, bc, bm, "batch-a") for i in range(n_nodes)]
+             + [preempt_pod(f"batch-b-{i:05d}", 0, bc, bm, "batch-b", tolerate=True)
+                for i in range(n_nodes)])
+    call2 = [preempt_pod(f"svc-c-{i:05d}", 100, bc, bm, "svc-c") for i in range(n_nodes)]
+    k = max(2, n_nodes // 100)
+    call3 = [preempt_pod(f"{app}-{i:03d}", 1000, pc, pm, app, **kw)
+             for app, kw in (("prod-x", {}), ("prod-y", {"spread": True}),
+                             ("prod-z", {"tolerate": True}), ("prod-n", {"never": True}))
+             for i in range(k)]
+    pdb = {"apiVersion": "policy/v1beta1", "kind": "PodDisruptionBudget",
+           "metadata": {"name": "batch-b", "namespace": "default"},
+           "spec": {"selector": {"matchLabels": {"app": "batch-b"}}},
+           "status": {"disruptionsAllowed": 2}}
+    return nodes, [call1, call2, call3], [pdb]
+
+
+def preempt_digest(sim, calls, failed) -> dict:
+    """summarize() over every call's pods, the `preempted` records' sha256
+    (victim, node, preemptor, in order) and every failed pod's
+    nominatedNodeName."""
+    pods = [p for call in calls for p in call]
+    rows = [[r["pod"]["metadata"]["name"], r["node"], r["by"]] for r in sim.preempted]
+    return {**summarize(sim, pods, failed),
+            "preempted": len(rows),
+            "preempted_sha256": hashlib.sha256(json.dumps(rows).encode()).hexdigest(),
+            "nominations": [[u.pod["metadata"]["name"],
+                             (u.pod.get("status") or {}).get("nominatedNodeName")]
+                            for u in failed]}
+
+
+def counter_deltas(before: dict, after: dict) -> dict:
+    """The PREEMPT_COUNTERS samples that moved between two registry views."""
+    return {k: after[k] - before.get(k, 0) for k in sorted(after)
+            if k.split("{")[0] in PREEMPT_COUNTERS and after[k] != before.get(k, 0)}
+
+
+def preempt_run(pkg: str, n_nodes: int = PREEMPT_NODES, use_waves: bool = True,
+                device: str = "cpu", spy=None) -> dict:
+    """preempt_workload(n_nodes) through package `pkg`'s Simulator, one
+    schedule_pods call a tier: preempt_digest plus the counter deltas.
+    `spy(sim)`, if given, runs before the first call."""
+    import importlib
+
+    E = importlib.import_module(f"{pkg}.simulator.engine")
+    T = importlib.import_module(f"{pkg}.core.types")
+    reg = importlib.import_module(f"{pkg}.obs").REGISTRY
+    nodes, calls, pdbs = preempt_workload(n_nodes)
+    sim = (E.Simulator(nodes, use_mesh=False) if pkg == "open_simulator_tpu"
+           else E.Simulator(nodes, device=device))
+    sim.use_waves = use_waves
+    sim.register_cluster_objects(T.ResourceTypes(pod_disruption_budgets=pdbs))
+    if spy is not None:
+        spy(sim)
+    v0 = reg.values()
+    failed = []
+    for call in calls:
+        failed.extend(sim.schedule_pods(call))
+    return {**preempt_digest(sim, calls, failed), "counters": counter_deltas(v0, reg.values())}
+
+
+def preempt_checks(n_nodes: int = PREEMPT_NODES) -> dict:
+    """What the workload is sized to exercise, read from the JAX package's
+    PostFilter: the preemptors nominated, whether a candidate node held pods
+    of both lower tiers (the reprieve order), whether a candidate's victims
+    matched the PDB, and how many prod-n pods failed with no attempt and no
+    nomination."""
+    from open_simulator_tpu.simulator import preemption as P
+
+    seen = {"tiers": False, "pdb": False}
+    orig = P._select_victims_on_node
+
+    def spy(sim, g, node_i, prio):
+        out = orig(sim, g, node_i, prio)
+        if out is not None:
+            tiers = {P.pod_priority(p) for p in sim.pods_on_node[node_i]}
+            seen["tiers"] |= {0, 100} <= tiers
+            seen["pdb"] |= any(v["metadata"]["labels"]["app"] == "batch-b"
+                               for v in out["victims"])
+        return out
+
+    P._select_victims_on_node = spy
+    try:
+        got = preempt_run("open_simulator_tpu", n_nodes)
+    finally:
+        P._select_victims_on_node = orig
+    noms = dict((n, v) for n, v in got["nominations"])
+    return {"nominated": sum(1 for v in noms.values() if v),
+            "candidate_with_both_lower_tiers": seen["tiers"],
+            "candidate_victims_under_the_pdb": seen["pdb"],
+            "prod_n_failed_without_nomination": sum(
+                1 for n, v in noms.items() if n.startswith("prod-n") and v is None),
+            "got": got}
+
+
+def sched_config_of(pkg: str):
+    import importlib
+
+    parse = importlib.import_module(f"{pkg}.api.schedconfig").parse_scheduler_config
+    return parse(os.path.join(REPO, SCHED_HARD_WAVES))
 
 
 class _env:
@@ -284,6 +444,19 @@ def compute(kind: str) -> dict:
         return {"generator": generator(gen, n_nodes, n_pods), "route": ROUTES[serial] + ", --xray",
                 "commit": commit, "recording_off_choices_sha256": off["choices_sha256"],
                 **{k: v for k, v in on.items() if k != "choices_sha256"}}
+    if kind == "preempt":
+        checks = preempt_checks()
+        got = checks.pop("got")
+        return {"generator": f"tests/test_torch_golden.py preempt_workload({PREEMPT_NODES})",
+                "route": ROUTES[False] + ", three schedule_pods calls", "commit": commit,
+                "checks": checks, **got}
+    if kind == "sched_hard_waves":
+        gen, n_nodes, n_pods, serial = SCENARIOS["hard_waves"]
+        return {"generator": generator(gen, n_nodes, n_pods),
+                "route": ROUTES[serial] + ", sched_config " + SCHED_HARD_WAVES,
+                "commit": commit,
+                **run_jax(gen, n_nodes, n_pods, serial,
+                          sched_config=sched_config_of("open_simulator_tpu"))}
     if kind in APPLY_SCENARIOS:
         config, max_cpu, ext = APPLY_SCENARIOS[kind]
         return {"config": config, "max_cpu": max_cpu, "extended_resources": list(ext),
@@ -386,6 +559,64 @@ def test_xray_golden_files_are_consistent(kind):
     assert g["empty_sets"] <= g["sets"]
     assert g["pods"] == base[2]
     assert g["unscheduled_rows"] == load(XRAY_SCENARIOS[kind])["unscheduled"]
+
+
+PREEMPT_KEYS = RESULT_KEYS + ("preempted", "preempted_sha256", "nominations", "counters")
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("kind", ["preempt", "sched_hard_waves"])
+def test_preempt_and_sched_goldens_match_jax(kind):
+    got = json.loads(json.dumps(compute(kind)))
+    want = load(kind)
+    for k in (PREEMPT_KEYS + ("checks",) if kind == "preempt" else RESULT_KEYS):
+        assert got[k] == want[k], k
+
+
+def test_preempt_golden_file_is_consistent():
+    g = load("preempt")
+    nodes, calls, _ = preempt_workload()
+    n_pods = sum(len(c) for c in calls)
+    assert g["generator"] == f"tests/test_torch_golden.py preempt_workload({PREEMPT_NODES})"
+    assert len(g["per_node_counts"]) == len(nodes) == PREEMPT_NODES
+    assert sum(g["per_node_counts"]) == g["placed"]
+    # an evicted pod keeps its nodeName (the reference deletes it), so
+    # summarize() counts it where it ran
+    assert g["placed"] + g["unscheduled"] == n_pods
+    assert sum(g["reason_census"].values()) == g["unscheduled"] == len(g["nominations"])
+    c = g["checks"]
+    nominated = sum(1 for _, v in g["nominations"] if v)
+    assert c["nominated"] == nominated > 0
+    assert c["candidate_with_both_lower_tiers"] and c["candidate_victims_under_the_pdb"]
+    assert c["prod_n_failed_without_nomination"] == max(2, PREEMPT_NODES // 100)
+    assert g["counters"]['simon_preemption_attempts_total{outcome="nominated"}'] == nominated
+    assert g["counters"]["simon_preemption_victims_total"] == g["preempted"]
+
+
+def test_sched_golden_file_is_consistent():
+    g = load("sched_hard_waves")
+    gen, n_nodes, n_pods, serial = SCENARIOS["hard_waves"]
+    assert g["generator"] == generator(gen, n_nodes, n_pods)
+    assert g["route"] == ROUTES[serial] + ", sched_config " + SCHED_HARD_WAVES
+    assert len(g["per_node_counts"]) == n_nodes
+    assert g["placed"] + g["unscheduled"] == n_pods
+    # the configuration moves the placements off the default profile's
+    assert g["choices_sha256"] != load("hard_waves")["choices_sha256"]
+    for pkg in ("open_simulator_tpu", "open_simulator_torch"):
+        sc = sched_config_of(pkg)
+        assert sc.disabled_kernel_filters == frozenset({"NodePorts"})
+        assert sc.disabled_encoder_filters == frozenset({"TaintToleration"})
+        assert sc.score_weights["NodeResourcesBalancedAllocation"] == 0.0
+
+
+def test_chip_smoke_builds_the_same_preempt_workload():
+    """chip_smoke.py keeps its own copy of the workload function (it imports
+    nothing of tests/): both copies build the same nodes, pods and PDB."""
+    import chip_smoke
+
+    for n in (64, PREEMPT_NODES):
+        assert chip_smoke.preempt_workload(n) == preempt_workload(n)
+    assert chip_smoke.PREEMPT_COUNTERS == PREEMPT_COUNTERS
 
 
 def test_small_scenario_both_packages():

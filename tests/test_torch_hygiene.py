@@ -76,13 +76,24 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unsupported_batches_raise():
+    import copy
+
     import open_simulator_torch
     from open_simulator_torch.utils.synth import synth_cluster
+    from open_simulator_tpu.simulator.engine import Simulator as JaxSimulator
 
+    # mixed priorities no longer raise: the batch schedules as the JAX
+    # package schedules it, the PostFilter armed
     nodes, pods = synth_cluster(2, 2)
     pods[1]["spec"]["priority"] = 100
-    with pytest.raises(NotImplementedError, match="A6"):
-        open_simulator_torch.Simulator(nodes, device="cpu").schedule_pods(pods)
+    runs = []
+    for sim in (open_simulator_torch.Simulator(nodes, device="cpu"),
+                JaxSimulator(nodes, use_mesh=False)):
+        batch = copy.deepcopy(pods)
+        failed = sim.schedule_pods(batch)
+        runs.append(([p["spec"].get("nodeName") for p in batch], [u.reason for u in failed],
+                     sim._preempt_armed, len(sim.preempted)))
+    assert runs[0] == runs[1] and runs[0][2]
     # GPU-share demand no longer raises: with no GPU node the pod fails with
     # the GPU filter's per-node reasons
     nodes, pods = synth_cluster(2, 1)

@@ -27,7 +27,12 @@ CPU devices in the test process. Held here:
 - each rank holds 1/R of the node-axis table and carry bytes, and no carry
   leaf leaves its block over chained dispatches (simon_reshard_bytes_total
   stays 0);
-- `probe_pods` on the mesh counts JAX's.
+- `probe_pods` on the mesh counts JAX's;
+- the DefaultPreemption PostFilter (`preempt_engine`: the preemption
+  workload of tests/test_torch_golden.py cut to 32 nodes, three calls)
+  places, evicts and nominates on the mesh as the port's unsharded run and
+  as JAX's `Simulator(use_mesh=True)` on make_node_mesh(2), each fit one
+  tiled gather.
 """
 
 import copy
@@ -245,3 +250,31 @@ def test_probe_pods_counts_as_jax(ranks, shards):
         want = list(sim.probe_pods(copy.deepcopy(pods)))
         assert got[name] == want == unsharded[name], name
         assert got[name + "_utilization"] == unsharded[name + "_utilization"], name
+
+
+@pytest.fixture(scope="module")
+def jax_preempt():
+    """The JAX package's preemption run on make_node_mesh(2)."""
+    from test_torch_golden import preempt_workload
+
+    nodes, calls, pdbs = preempt_workload(C.PREEMPT_MESH_NODES)
+    sim = JaxSimulator(nodes, use_mesh=True)
+    sim._mesh = jax_node_mesh(2)
+    sim.register_cluster_objects(jax_types.ResourceTypes(pod_disruption_budgets=pdbs))
+    failed = []
+    for call in calls:
+        failed.extend(sim.schedule_pods(call))
+    return C.preempt_records(sim, calls, failed)
+
+
+@pytest.mark.parametrize("shards", SHARDS)
+def test_preemption_on_the_mesh(ranks, jax_preempt, shards):
+    got = ranks[shards][0]
+    mine, unsharded = got["preempt"], got["preempt_unsharded"]
+    assert mine["shards"] == shards and unsharded["shards"] == 1
+    for k in ("placed", "failed", "preempted", "nominated"):
+        assert mine[k] == unsharded[k] == jax_preempt[k], k
+    assert mine["fits"] == unsharded["fits"] > 0
+    assert mine["gathers_per_fit"] == {1: mine["fits"]}
+    assert len(mine["preempted"]) > 0
+    assert sum(1 for v in mine["nominated"].values() if v) == 3

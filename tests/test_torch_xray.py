@@ -246,13 +246,15 @@ def test_failed_call_commits_no_records(tmp_path):
     nodes = [make_node("n0", cpu="8")]
     lo = make_pod("lo", cpu="1")
     hi = make_pod("hi", cpu="1")
-    hi["spec"]["priority"] = 100  # mixed priorities raise before anything runs
+    # an unparseable request fails the encode, before any launch or commit
+    hi["spec"]["containers"][0]["resources"]["requests"]["cpu"] = "lots"
     rec = tx.enable(str(tmp_path / "trace"))
     sim = _torch_sim(nodes)
     sim.schedule_pods([lo])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unparseable quantity"):
         sim.schedule_pods([hi])
     assert rec.counts()["pods"] == 1 and rec.explain("default/hi") is None
+    assert [p["metadata"]["name"] for p in sim.pods_on_node[0]] == ["lo"]
 
 
 # ---------------------------------------------------------- trace parity ----

@@ -458,20 +458,40 @@ def round_segments(mesh, device="cpu", limit: int = 16) -> list:
     return out
 
 
+def sched_weights_and_flags():
+    """(ScoreWeights, FilterFlags) of the KubeSchedulerConfiguration in
+    tests/golden/torch_port_sched_hard_waves.sched.yaml."""
+    from open_simulator_torch.api.schedconfig import KERNEL_FILTERS, parse_scheduler_config
+    from open_simulator_torch.ops import kernels as K
+
+    sc = parse_scheduler_config(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                             "golden", "torch_port_sched_hard_waves.sched.yaml"))
+    return (K.ScoreWeights(**sc.weight_kwargs()),
+            K.FilterFlags(**{f: n not in sc.disabled_kernel_filters
+                             for n, f in KERNEL_FILTERS.items()}))
+
+
 def card_round_kernels(mesh, limit: int = 16) -> list:
     """On the card: K10 against its plain per-round version (on the card, on
     the same ranks) and against the unsharded K3, on every run of
-    `round_segments` (the epoch limit lowered to `limit`). One record per
-    run, with the rounds' collective calls of K10's run."""
+    `round_segments` (the epoch limit lowered to `limit`), and once more on
+    the first seeded segment under a custom scheduler configuration's
+    weights and flags (`sched_weights_and_flags`). One record per run, with
+    the rounds' collective calls of K10's run."""
     import torch
 
     from open_simulator_torch.ops import kernels as K
 
     out = []
+    sched = sched_weights_and_flags()
     with epoch_limit(limit):
         for label, tb, cry, m, g, cap1, gpu_live, variants in _round_wave_segments("cuda"):
-            for filters, block, kmax in variants:
-                kw = dict(filters=filters, block=block, kmax=kmax, gpu_live=gpu_live)
+            runs = [(K.DEFAULT_WEIGHTS, *v) for v in variants]
+            if label == "seeded" and not any(r.get("sched") for r in out):
+                # one run under a custom scheduler configuration
+                runs.append((sched[0], sched[1], variants[0][1], variants[0][2]))
+            for w, filters, block, kmax in runs:
+                kw = dict(w=w, filters=filters, block=block, kmax=kmax, gpu_live=gpu_live)
                 mesh.reset_counts()
                 tbl, cryl = on_mesh(tb, cry, mesh)
                 kj, kp, kst = K.schedule_wave_rounds_kernel(tbl, cryl, g, m, cap1, mesh=mesh,
@@ -480,7 +500,7 @@ def card_round_kernels(mesh, limit: int = 16) -> list:
                 pj, pp, pst = K.schedule_wave_plain(tbl, cryl, g, m, cap1, mesh=mesh, **kw)
                 uj, up, ust = K.schedule_wave_kernel(tb, cry, g, m, cap1, **kw)
                 out.append({"cluster": label, "m": m, "kmax": kmax, "stats": kst.tolist(),
-                            "calls": calls,
+                            "calls": calls, "sched": w != K.DEFAULT_WEIGHTS,
                             "same_plain": bool(torch.equal(kj, pj)) and int(kp) == pp
                             and kst.tolist() == [pst[k] for k in K.WAVE_STATS],
                             "same_unsharded": bool(torch.equal(kj, uj)) and int(kp) == int(up)
@@ -1471,6 +1491,64 @@ def default_route_cases(mesh, device="cpu", tables=()) -> dict:
     out["segments"] = group_serial_segments(mesh, device)
     out["layout"] = chained_layout(mesh, device)
     out["probe"] = probe_counts(mesh, device)
+    out["preempt"] = preempt_engine(mesh, device)
+    out["preempt_unsharded"] = preempt_engine(None, device)
+    return out
+
+
+# the node count of the preemption case (tests/test_torch_golden.py
+# `preempt_workload`, cut): every lower tier placed, three specs preempting
+PREEMPT_MESH_NODES = 32
+
+
+def preempt_records(sim, calls, failed) -> dict:
+    """Placements, the `preempted` records and every failed pod's
+    nominatedNodeName of a preemption run."""
+    out = placements(sim, failed)
+    out["preempted"] = [[r["pod"]["metadata"]["name"], r["node"], r["by"]]
+                        for r in sim.preempted]
+    out["nominated"] = {u.pod["metadata"]["name"]:
+                        (u.pod.get("status") or {}).get("nominatedNodeName") for u in failed}
+    return out
+
+
+def preempt_engine(mesh, device="cpu", n_nodes: int = PREEMPT_MESH_NODES) -> dict:
+    """The DefaultPreemption PostFilter on `mesh` (None: unsharded): the
+    three calls of the preemption workload through the port's Simulator,
+    with the fits counted and, on a mesh, the tiled gathers each fit made
+    (K1 on the block, gathered once: `feasibility_packed`)."""
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.simulator import preemption as P
+    from open_simulator_torch.simulator.engine import Simulator
+    from test_torch_golden import preempt_workload
+
+    nodes, calls, pdbs = preempt_workload(n_nodes)
+    sim = Simulator(nodes, device=device, use_mesh=mesh is not None)
+    sim.register_cluster_objects(ResourceTypes(pod_disruption_budgets=pdbs))
+    if mesh is not None:
+        sim._mesh = mesh  # read the collective counters of this rank's mesh
+        mesh.reset_counts()
+    tally = {"fits": 0, "gathers": Counter()}
+    orig = P._fits
+
+    def counted(s, g, node_i, placed2):
+        before = mesh.counts["all_gather_tiled"]["calls"] if mesh is not None else 0
+        out = orig(s, g, node_i, placed2)
+        tally["fits"] += 1
+        if mesh is not None:
+            tally["gathers"][mesh.counts["all_gather_tiled"]["calls"] - before] += 1
+        return out
+
+    P._fits = counted
+    try:
+        failed = []
+        for call in calls:
+            failed.extend(sim.schedule_pods(call))
+    finally:
+        P._fits = orig
+    out = preempt_records(sim, calls, failed)
+    out.update(fits=tally["fits"], gathers_per_fit=dict(tally["gathers"]),
+               shards=mesh.shards if mesh is not None else 1)
     return out
 
 
