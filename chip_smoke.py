@@ -3562,6 +3562,610 @@ def schedule_batch_10240(card: str) -> None:
          **cluster_fields(K.schedule_batch, ms), card=card)
 
 
+# ---- the wide build: tables past the default build's fixed axes ----------
+#
+# The default build holds a group's term slots in arrays of 64, a node's
+# GPUs, volume groups and storage devices in arrays of 32 and the affinity
+# kernels' candidate key in 32 bits (domains up to 2^21); a table past one of
+# them launches in the wide build (csrc/common.cuh OSIM_WIDE), which the
+# first such launch builds. tests/test_torch_golden.py keeps the workloads'
+# originals (a tier-1 test holds the two copies to one result).
+
+CARRIER_APPS = (80, 72)  # services keeping away from the log shipper / the batch tier
+STORAGE_BAYS = (36, 45)  # devices of the wide storage nodes
+
+
+def wide_pod(name: str, app: str, cpu_milli: int, mem_gi: int, affinity=None) -> dict:
+    spec = {"containers": [{"name": "app", "image": "nginx:1.25", "resources": {
+        "requests": {"cpu": f"{cpu_milli}m", "memory": str(mem_gi << 30)}}}]}
+    if affinity:
+        spec["affinity"] = affinity
+    return {"apiVersion": "v1", "kind": "Pod",
+            "metadata": {"name": name, "namespace": "default", "labels": {"app": app}},
+            "spec": spec}
+
+
+def carriers_wide_workload(n_nodes: int, replicas: int = 8, n_tail: int = 2000,
+                           seed: int = 0) -> tuple:
+    """(nodes, pods): the nodes of synth_cluster(n_nodes, 0,
+    hard_predicates=True); in one namespace, 80 Deployments of `replicas`
+    pods with a preferred podAntiAffinity term on hostname (weight 1-100
+    from `seed`, selector app In [own app, log-shipper]), 72 with a required
+    one (app In [own app, noisy-batch]), then n_tail `log-shipper` pods and
+    n_tail `noisy-batch` pods: the log shipper's group matches 80 distinct
+    weighted carrier terms (Cw) and the batch tier's 72 anti ones (Ca)."""
+    import numpy as np
+
+    from open_simulator_torch.utils.synth import synth_cluster
+
+    nodes, _ = synth_cluster(n_nodes, 0, hard_predicates=True)
+    n_pref, n_req = CARRIER_APPS
+    weights = np.random.default_rng(seed).integers(1, 101, size=n_pref)
+
+    def term(app, other):
+        return {"labelSelector": {"matchExpressions": [
+            {"key": "app", "operator": "In", "values": [app, other]}]},
+            "topologyKey": "kubernetes.io/hostname"}
+
+    pods = []
+    for k in range(n_pref):
+        app = f"svc-pref-{k:02d}"
+        aff = {"podAntiAffinity": {"preferredDuringSchedulingIgnoredDuringExecution": [
+            {"weight": int(weights[k]), "podAffinityTerm": term(app, "log-shipper")}]}}
+        pods += [wide_pod(f"{app}-{r}", app, 500, 1, aff) for r in range(replicas)]
+    for k in range(n_req):
+        app = f"svc-req-{k:02d}"
+        aff = {"podAntiAffinity": {"requiredDuringSchedulingIgnoredDuringExecution": [
+            term(app, "noisy-batch")]}}
+        pods += [wide_pod(f"{app}-{r}", app, 500, 1, aff) for r in range(replicas)]
+    pods += [wide_pod(f"log-shipper-{i:05d}", "log-shipper", 100, 1) for i in range(n_tail)]
+    pods += [wide_pod(f"noisy-batch-{i:05d}", "noisy-batch", 2000, 4) for i in range(n_tail)]
+    return nodes, pods
+
+
+def storage_wide_workload(n_nodes: int, n_pods: int, seed: int = 0) -> tuple:
+    """(nodes, pods, storage_classes): synth_extended_cluster(n_nodes,
+    n_pods) with every tenth node (i % 10 == 9) a storage node of 36 or 45
+    devices (alternating), hdd and ssd of 100-800 GiB drawn from `seed`,
+    and the yoda-pool VG of 500 GiB: its device claims land on them too."""
+    import numpy as np
+
+    from open_simulator_torch.utils.synth import synth_extended_cluster, synth_node
+
+    nodes, pods, _, scs = synth_extended_cluster(n_nodes, n_pods)
+    rng = np.random.default_rng(seed)
+    for k, i in enumerate(range(9, n_nodes, 10)):
+        bays = STORAGE_BAYS[k % 2]
+        sizes = rng.integers(1, 9, size=bays) * 100
+        media = rng.integers(0, 2, size=bays)
+        node = synth_node(i, cpu_milli=32000, mem_bytes=64 << 30, pods=110, n_zones=8)
+        devices = [{"name": f"/dev/sd{d:02d}", "device": f"/dev/sd{d:02d}",
+                    "capacity": str(int(sizes[d]) << 30), "mediaType": ("hdd", "ssd")[media[d]],
+                    "isAllocated": "false"} for d in range(bays)]
+        vgs = [{"name": "yoda-pool", "capacity": str(500 << 30)}]
+        node["metadata"]["annotations"] = {"simon/node-local-storage": json.dumps(
+            {"devices": devices, "vgs": vgs})}
+        nodes[i] = node
+    return nodes, pods, scs
+
+
+# the widths the kernel cases widen to (never narrower than the table's own):
+# every slot axis past 64, every node-device axis past 32, and for the
+# affinity kernels the domain axis past 2^21
+WIDE_SLOTS = {"A": 65, "B": 65, "Cp": 65, "Sd": 65, "Ss": 65, "Ca": 128, "Cw": 128, "PP": 65,
+              "SL": 65, "SD": 65}
+WIDE_DEVS = {"MAXDEV": 33, "MAXVG": 33, "MAXSD": 45}
+WIDE_D1 = (1 << 21) + 1
+# base workload -> (nodes, pods, domain axis widened): the kernel cases' tables
+WIDE_BASES = {"extended": (1024, 600, False), "affinity": (1024, 80, True)}
+WIDE_SHARDS = 2
+WIDE_LANES = 2
+WIDE_PODS = 64  # K2's and its lanes' pods (the plain scan is ~10 ms a pod)
+# the wide phase's simulate() runs: kind -> (workload function, its arguments)
+WIDE_RUNS = {"carriers_wide": ("carriers_wide_workload", (5000,)),
+             "storage_wide": ("storage_wide_workload", (2000, 20000))}
+# kernel -> the prefix of its CUDA kernels' names (their device time)
+WIDE_KERNEL_NAMES = {
+    "feasibility": ("feasibility_kernel",), "schedule_batch": ("schedule_batch_kernel",),
+    "schedule_wave": ("schedule_wave_kernel",), "aggregate_commit": ("aggregate_commit_kernel",),
+    "schedule_group_serial": ("schedule_group_serial_kernel",),
+    "schedule_affinity_wave": ("schedule_affinity_wave_kernel",),
+    "explain_jit": ("explain_kernel",),
+    "probe_serial_fanout": ("schedule_batch_lanes_kernel",),
+    "probe_wave_fanout": ("schedule_wave_lanes_kernel",),
+    "probe_group_serial_fanout": ("schedule_group_serial_lanes_kernel",),
+    "probe_affinity_wave_fanout": ("schedule_affinity_wave_lanes_kernel",),
+    "aggregate_commit_lanes": ("aggregate_commit_lanes_kernel",),
+    "schedule_wave_sharded": ("wave_rounds_setup", "wave_rounds_front", "wave_sharded"),
+    "schedule_wave_rounds": ("wave_rounds",),
+    "schedule_affinity_wave_sharded": ("affinity_sharded",),
+    "schedule_affinity_wave_rounds": ("affinity_rounds",),
+    "schedule_batch_sharded": ("batch_sharded",), "explain_sharded": ("batch_sharded",),
+    "schedule_group_serial_sharded": ("gs_sharded",),
+    "aggregate_commit_sharded": ("commit_sharded",),
+}
+
+
+def wide_tables(base: str, n_nodes: int, n_pods: int, d1: bool) -> dict:
+    """The base workload's whole batch encoded (utils/synth.py
+    synth_extended_cluster or synth_affinity_cluster), on the card as
+    encoded ("base") and widened (utils/widen.py: WIDE_SLOTS, WIDE_DEVS and
+    with `d1` WIDE_D1; "wide"), with its segments and plugin flags."""
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.simulator.encode import plugin_flags
+    from open_simulator_torch.simulator.engine import Simulator
+    from open_simulator_torch.utils import synth
+    from open_simulator_torch.utils.widen import widen_all, width_of
+
+    out = getattr(synth, f"synth_{base}_cluster")(n_nodes, n_pods)
+    nodes, pods, services, scs = out if len(out) == 4 else (*out, [])
+    sim = Simulator(nodes, device="cuda", use_mesh=False)
+    sim.register_cluster_objects(ResourceTypes(services=list(services), storage_classes=scs))
+    bt = sim.encode_batch(pods)
+    widths = {**WIDE_SLOTS, **WIDE_DEVS, **({"D1": WIDE_D1} if d1 else {})}
+    wt = widen_all(bt, widths)
+    gpu, storage = plugin_flags(bt)
+    return dict(base=base, bt=bt, segs=sim._segments(bt, len(pods)), n_pods=len(pods),
+                N=sim.na.N, flags=dict(enable_gpu=gpu, enable_storage=storage),
+                axes={a: width_of(wt, a) for a in widths},
+                wide=(K.tables_from_batch(wt, "cuda"), K.carry_from_batch(wt, "cuda")),
+                base_tables=(K.tables_from_batch(bt, "cuda"), K.carry_from_batch(bt, "cuda")))
+
+
+def _same(a, b) -> bool:
+    """Bit for bit: tensors (floats of one dtype; integers and masks by
+    value), carries, tuples of them, numbers."""
+    import torch
+
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        a = torch.as_tensor(a)
+        b = torch.as_tensor(b, device=a.device)
+        if a.is_floating_point() or b.is_floating_point():
+            return a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(a, b))
+        return bool(torch.equal(a.reshape(-1).long(), b.reshape(-1).long()))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def _same_run(names):
+    """`compare` of a wave-like wrapper: its (counts, placed, stats row)
+    against the plain version's (counts, placed, stats by `names`)."""
+    return lambda a, b: _same(a[:2], b[:2]) and a[2].tolist() == [b[2][k] for k in names]
+
+
+def device_ms(fn, prefixes: tuple, reps: int):
+    """Device time per call of `fn`'s CUDA kernels whose names start with
+    one of `prefixes`, over `reps` calls under torch.profiler (the caller
+    has warmed `fn` up); None where the profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not cuda_profiling():
+        return None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, seen = 0.0, []
+    for e in prof.key_averages():
+        name = e.key.replace("void ", "")
+        t = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        if t:
+            seen.append(name[:60])
+        if name.startswith(prefixes):
+            us += t
+    if not us:
+        print(f"chip_smoke: no device time for {prefixes}; traced: {seen[:6]}", file=sys.stderr)
+    return us / 1e3 / reps if us else None
+
+
+def wide_case(name: str, kernel, plain, default=None, compare=None) -> dict:
+    """`kernel` (a wrapper call on a widened table) against `plain` (its
+    plain version on the same inputs), bit for bit, with the wrapper's wide
+    launches of that call; its device time, and that of `default` (the same
+    wrapper on the base table: the default build) beside it."""
+    from open_simulator_torch.ops import kernels as K
+
+    before = K.wide_launch_counts()[name]
+    got, ms = timed(kernel)
+    wide = K.wide_launch_counts()[name] - before
+    want, plain_ms = timed(plain)
+    same = compare(got, want) if compare is not None else _same(got, want)
+    prefixes = WIDE_KERNEL_NAMES[name]
+    reps = 1 if ms > 50.0 else 3  # a slow call once (the domain axis past 2^21)
+    rec = dict(kernel=name, same=bool(same), wide_launches=wide, ms=ms, plain_ms=plain_ms,
+               wide_device_ms=device_ms(kernel, prefixes, reps))
+    if default is not None:
+        default()  # warm-up
+        rec["default_device_ms"] = device_ms(default, prefixes, reps)
+    return rec
+
+
+def wide_kernel_cases(bases=None) -> list:
+    """Every single-device kernel and lane kernel in the wide build against
+    its plain version on the card, bit for bit: on the extended base
+    widened on every slot and node-device axis (the GPU-share and
+    Open-Local branches on), K2 on its first WIDE_PODS pods, K1 and K7 on
+    three groups from the seed and K2's end carry, K3 and K3c on the first
+    wave segment, K4 on a DoNotSchedule group with the live spreads, and
+    K2-K4 and K3c over WIDE_LANES lanes; on the affinity base widened on
+    every slot axis and the domain axis, K5 (and over lanes) on its first
+    affinity segment. Returns one record per case (`wide_case`)."""
+    import numpy as np
+    import torch
+
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.simulator.encode import bucket_capped
+
+    out = []
+    for base, (n_nodes, n_pods, d1) in (bases or WIDE_BASES).items():
+        w = wide_tables(base, n_nodes, n_pods, d1)
+        tb, seed = w["wide"]
+        btb, bseed = w["base_tables"]
+        bt, fl = w["bt"], w["flags"]
+        S, N = WIDE_LANES, int(tb.alloc.shape[0])
+        rng = np.random.default_rng(5)
+        active = torch.from_numpy(rng.random((S, N)) < 0.8).cuda()
+        cry_s, bcry_s = K.carry_lanes(seed, S), K.carry_lanes(bseed, S)
+        segs = w["segs"]
+
+        def first(kind):
+            return next((s for s in segs if s[0] == kind), None)
+
+        def rec(r):
+            out.append({"base": base, "axes": w["axes"], **r})
+
+        if base == "extended":
+            pg, fn, vd = (torch.from_numpy(a[:WIDE_PODS]).cuda()
+                          for a in (bt.pod_group, bt.forced_node, bt.valid))
+            args = (pg, fn, vd, bt.n_zones)
+            rec(wide_case("schedule_batch",
+                          lambda: K.schedule_batch_kernel(tb, seed, *args, **fl),
+                          lambda: K.schedule_batch_plain(tb, seed, *args, **fl),
+                          lambda: K.schedule_batch_kernel(btb, bseed, *args, **fl)))
+            end, _ = K.schedule_batch_plain(tb, seed, *args, **fl)
+            groups = sorted({int(g) for g in bt.pod_group[:w["n_pods"]]})[:3]
+            for cname, cry, bcry in (("seed", seed, bseed), ("end", end, None)):
+                for g in groups:
+                    rec({**wide_case(
+                        "feasibility",
+                        lambda: K.feasibility_packed(tb, cry, g, -1, True, **fl),
+                        lambda: K.pack_feasibility(*K.feasibility(tb, cry, g, -1, True, **fl)),
+                        (lambda: K.feasibility_packed(btb, bcry, g, -1, True, **fl))
+                        if bcry is not None else None), "group": g, "carry": cname})
+                    rec({**wide_case(
+                        "explain_jit",
+                        lambda: K.explain_kernel(tb, cry, g, -1, True, bt.n_zones, **fl),
+                        lambda: K.pack_explain(*K.explain_pod(tb, cry, g, -1, True, bt.n_zones,
+                                                              **fl)),
+                        (lambda: K.explain_kernel(btb, bcry, g, -1, True, bt.n_zones, **fl))
+                        if bcry is not None else None,
+                        compare=lambda a, b: _same(a.view(torch.int32), b.view(torch.int32))),
+                        "group": g, "carry": cname})
+            seg = first("wave")
+            _, _, m, g, cap1, gpu_live = seg[:6]
+            block = K.wave_block_for(m, w["N"])
+            kw = dict(block=block, kmax=K.wave_kmax(m, w["N"], block), gpu_live=bool(gpu_live))
+            rec({**wide_case("schedule_wave",
+                             lambda: K.schedule_wave_kernel(tb, seed, g, m, cap1, **kw),
+                             lambda: K.schedule_wave_plain(tb, seed, g, m, cap1, **kw),
+                             lambda: K.schedule_wave_kernel(btb, bseed, g, m, cap1, **kw),
+                             compare=_same_run(K.WAVE_STATS)),
+                 "segment": "wave", "m": m})
+            j = K.schedule_wave_plain(tb, seed, g, m, cap1, **kw)[0]
+            rec(wide_case("aggregate_commit",
+                          lambda: K.aggregate_commit_kernel(tb, seed, g, j, bool(gpu_live)),
+                          lambda: K.aggregate_commit_plain(tb, seed, g, j, bool(gpu_live)),
+                          lambda: K.aggregate_commit_kernel(btb, bseed, g, j, bool(gpu_live))))
+            rec(wide_case(
+                "probe_wave_fanout",
+                lambda: K.schedule_wave_lanes_kernel(tb, cry_s, active, g, m, cap1, **kw),
+                lambda: K.schedule_wave_lanes_plain(tb, cry_s, active, g, m, cap1, **kw),
+                lambda: K.schedule_wave_lanes_kernel(btb, bcry_s, active, g, m, cap1, **kw)))
+            js = K.schedule_wave_lanes_plain(tb, cry_s, active, g, m, cap1, **kw)[0]
+            rec(wide_case("aggregate_commit_lanes",
+                          lambda: K.aggregate_commit_lanes_kernel(tb, cry_s, g, js, bool(gpu_live)),
+                          lambda: K.aggregate_commit_lanes_plain(tb, cry_s, g, js, bool(gpu_live)),
+                          lambda: K.aggregate_commit_lanes_kernel(btb, bcry_s, g, js,
+                                                                  bool(gpu_live))))
+            rec(wide_case("probe_serial_fanout",
+                          lambda: K.schedule_batch_lanes_kernel(tb, cry_s, active, *args, **fl),
+                          lambda: K.schedule_batch_lanes_plain(tb, cry_s, active, *args, **fl),
+                          lambda: K.schedule_batch_lanes_kernel(btb, bcry_s, active, *args, **fl)))
+            # K4 on the first group with a DoNotSchedule term, a valid prefix
+            # of 48 pods, with the live zone spreads
+            g = next(int(x) for x in bt.pod_group[:w["n_pods"]]
+                     if (bt.dns_t[int(x)] >= 0).any())
+            vd4 = (torch.arange(bucket_capped(48, 2048)) < 48).cuda()
+            kw4 = dict(ss_live=True, sa_live=True, n_zones=bt.n_zones)
+            rec({**wide_case(
+                "schedule_group_serial",
+                lambda: K.schedule_group_serial_kernel(tb, seed, g, vd4, False, **kw4),
+                lambda: K.schedule_group_serial_plain(tb, seed, g, vd4, False, **kw4),
+                lambda: K.schedule_group_serial_kernel(btb, bseed, g, vd4, False, **kw4)),
+                "segment": "spread"})
+            rec({**wide_case(
+                "probe_group_serial_fanout",
+                lambda: K.schedule_group_serial_lanes_kernel(tb, cry_s, active, g, vd4, False,
+                                                             **kw4),
+                lambda: K.schedule_group_serial_lanes_plain(tb, cry_s, active, g, vd4, False,
+                                                            **kw4),
+                lambda: K.schedule_group_serial_lanes_kernel(btb, bcry_s, active, g, vd4, False,
+                                                             **kw4)),
+                "segment": "spread"})
+        else:
+            seg = first("affinity")
+            _, _, m, g, cap1, ss_live = seg[:6]
+            block = K.wave_block_for(m, w["N"])
+            kw = dict(ss_live=bool(ss_live), block=block,
+                      n_zones=bt.n_zones if ss_live else 2)
+            rec({**wide_case(
+                "schedule_affinity_wave",
+                lambda: K.schedule_affinity_wave_kernel(tb, seed, g, m, cap1, **kw),
+                lambda: K.schedule_affinity_wave_plain(tb, seed, g, m, cap1, **kw),
+                lambda: K.schedule_affinity_wave_kernel(btb, bseed, g, m, cap1, **kw),
+                compare=_same_run(K.AFFINITY_STATS)),
+                "segment": "affinity", "m": m, "ss_live": bool(ss_live)})
+            rec({**wide_case(
+                "probe_affinity_wave_fanout",
+                lambda: K.schedule_affinity_wave_lanes_kernel(tb, cry_s, active, g, m, cap1,
+                                                              **kw),
+                lambda: K.schedule_affinity_wave_lanes_plain(tb, cry_s, active, g, m, cap1,
+                                                             **kw),
+                lambda: K.schedule_affinity_wave_lanes_kernel(btb, bcry_s, active, g, m, cap1,
+                                                              **kw)),
+                "segment": "affinity", "m": m})
+        del w, tb, seed, btb, bseed, cry_s, bcry_s
+        torch.cuda.empty_cache()
+    return out
+
+
+class _epoch_limit:
+    """OPEN_SIMULATOR_EPOCH_AMORTIZE_MAX_NODES at `value` inside the block."""
+
+    def __init__(self, value: int) -> None:
+        self.value = str(value)
+
+    def __enter__(self):
+        self.prev = os.environ.get(EPOCH_LIMIT)
+        os.environ[EPOCH_LIMIT] = self.value
+
+    def __exit__(self, *exc):
+        if self.prev is None:
+            os.environ.pop(EPOCH_LIMIT, None)
+        else:
+            os.environ[EPOCH_LIMIT] = self.prev
+
+
+def wide_mesh_rank(mesh, bases=None) -> dict:
+    """On this rank of a node mesh of ranks sharing the card: the node-mesh
+    kernels in the wide build against their plain versions on the same
+    ranks, bit for bit, on the rank's block of the widened tables (each
+    beside the default kernel on the block of the base table): K8 (the
+    epoch path) and K10 (the per-round path, epoch limit 16) on the first
+    wave segment, K14 on its counts, K12 on the first WIDE_PODS pods and in
+    its explain mode, K13 on a DoNotSchedule group (the extended base); K9
+    and K11 on the first affinity segment (the affinity base, its domain
+    axis past 2^21). Returns {"rank", "cases": records, "launches": wide
+    launch counts}."""
+    import torch
+
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.parallel.mesh import block_of
+    from open_simulator_torch.simulator.encode import bucket_capped
+
+    K.reset_launch_counts()
+    out = []
+    for base, (n_nodes, n_pods, d1) in (bases or WIDE_BASES).items():
+        w = wide_tables(base, n_nodes, n_pods, d1)
+        tb, seed = w["wide"]
+        bt, fl = w["bt"], w["flags"]
+        tbl, seedl = block_of(tb, seed, mesh)
+        btbl, bseedl = block_of(*w["base_tables"], mesh)
+        NL = int(tbl.alloc.shape[0])
+        sl = slice(mesh.rank * NL, (mesh.rank + 1) * NL)
+
+        def rec(r):
+            out.append({"base": base, "axes": w["axes"], **r})
+
+        if base == "extended":
+            seg = next(s for s in w["segs"] if s[0] == "wave")
+            _, _, m, g, cap1, gpu_live = seg[:6]
+            block = K.wave_block_for(m, w["N"])
+            kw = dict(block=block, kmax=K.wave_kmax(m, w["N"], block), gpu_live=bool(gpu_live))
+            stats = _same_run(K.WAVE_STATS)
+            rec(wide_case("schedule_wave_sharded",
+                          lambda: K.schedule_wave_sharded_kernel(tbl, seedl, g, m, cap1,
+                                                                 mesh=mesh, **kw),
+                          lambda: K.schedule_wave_plain(tbl, seedl, g, m, cap1, mesh=mesh, **kw),
+                          lambda: K.schedule_wave_sharded_kernel(btbl, bseedl, g, m, cap1,
+                                                                 mesh=mesh, **kw),
+                          compare=stats))
+            with _epoch_limit(16):
+                rec(wide_case("schedule_wave_rounds",
+                              lambda: K.schedule_wave_rounds_kernel(tbl, seedl, g, m, cap1,
+                                                                    mesh=mesh, **kw),
+                              lambda: K.schedule_wave_plain(tbl, seedl, g, m, cap1, mesh=mesh,
+                                                            **kw),
+                              lambda: K.schedule_wave_rounds_kernel(btbl, bseedl, g, m, cap1,
+                                                                    mesh=mesh, **kw),
+                              compare=stats))
+            jl = K.schedule_wave_plain(tbl, seedl, g, m, cap1, mesh=mesh, **kw)[0][sl]
+            rec(wide_case("aggregate_commit_sharded",
+                          lambda: K.aggregate_commit_sharded_kernel(tbl, seedl, g, jl,
+                                                                    bool(gpu_live), mesh),
+                          lambda: K.aggregate_commit_sharded_plain(tbl, seedl, g, jl,
+                                                                   bool(gpu_live), mesh),
+                          lambda: K.aggregate_commit_sharded_kernel(btbl, bseedl, g, jl,
+                                                                    bool(gpu_live), mesh)))
+            pg, fn, vd = (torch.from_numpy(a[:WIDE_PODS]).cuda()
+                          for a in (bt.pod_group, bt.forced_node, bt.valid))
+            rec(wide_case("schedule_batch_sharded",
+                          lambda: K.schedule_batch_sharded_kernel(tbl, seedl, pg, fn, vd,
+                                                                  bt.n_zones, mesh, **fl),
+                          lambda: K.schedule_batch_sharded_plain(tbl, seedl, pg, fn, vd,
+                                                                 bt.n_zones, mesh, **fl),
+                          lambda: K.schedule_batch_sharded_kernel(btbl, bseedl, pg, fn, vd,
+                                                                  bt.n_zones, mesh, **fl)))
+            endl, _ = K.schedule_batch_sharded_plain(tbl, seedl, pg, fn, vd, bt.n_zones, mesh,
+                                                     **fl)
+            for g in sorted({int(x) for x in bt.pod_group[:w["n_pods"]]})[:3]:
+                rec({**wide_case(
+                    "explain_sharded",
+                    lambda: K.explain_sharded_kernel(tbl, endl, g, -1, True, bt.n_zones, **fl,
+                                                     mesh=mesh),
+                    lambda: K.pack_explain(*K.explain_pod(tbl, endl, g, -1, True, bt.n_zones,
+                                                          **fl, mesh=mesh)),
+                    lambda: K.explain_sharded_kernel(btbl, bseedl, g, -1, True, bt.n_zones,
+                                                     **fl, mesh=mesh),
+                    compare=lambda a, b: _same(a.view(torch.int32), b.view(torch.int32))),
+                    "group": g})
+            g = next(int(x) for x in bt.pod_group[:w["n_pods"]]
+                     if (bt.dns_t[int(x)] >= 0).any())
+            vd4 = (torch.arange(bucket_capped(48, 2048)) < 48).cuda()
+            kw4 = dict(ss_live=True, sa_live=True, n_zones=bt.n_zones)
+            rec({**wide_case(
+                "schedule_group_serial_sharded",
+                lambda: K.schedule_group_serial_sharded_kernel(tbl, seedl, g, vd4, False,
+                                                               mesh, **kw4),
+                lambda: K.schedule_group_serial_sharded_plain(tbl, seedl, g, vd4, False,
+                                                              mesh, **kw4),
+                lambda: K.schedule_group_serial_sharded_kernel(btbl, bseedl, g, vd4, False,
+                                                               mesh, **kw4)),
+                "segment": "spread"})
+        else:
+            seg = next(s for s in w["segs"] if s[0] == "affinity")
+            _, _, m, g, cap1, ss_live = seg[:6]
+            block = K.wave_block_for(m, w["N"])
+            kw = dict(ss_live=bool(ss_live), block=block, n_zones=bt.n_zones if ss_live else 2)
+            stats = _same_run(K.AFFINITY_STATS)
+            rec(wide_case("schedule_affinity_wave_sharded",
+                          lambda: K.schedule_affinity_wave_sharded_kernel(tbl, seedl, g, m, cap1,
+                                                                          mesh=mesh, **kw),
+                          lambda: K.schedule_affinity_wave_plain(tbl, seedl, g, m, cap1,
+                                                                 mesh=mesh, **kw),
+                          lambda: K.schedule_affinity_wave_sharded_kernel(
+                              btbl, bseedl, g, m, cap1, mesh=mesh, **kw),
+                          compare=stats))
+            with _epoch_limit(16):
+                rec(wide_case("schedule_affinity_wave_rounds",
+                              lambda: K.schedule_affinity_wave_rounds_kernel(
+                                  tbl, seedl, g, m, cap1, mesh=mesh, **kw),
+                              lambda: K.schedule_affinity_wave_plain(tbl, seedl, g, m, cap1,
+                                                                     mesh=mesh, **kw),
+                              lambda: K.schedule_affinity_wave_rounds_kernel(
+                                  btbl, bseedl, g, m, cap1, mesh=mesh, **kw),
+                              compare=stats))
+        del w, tb, seed, tbl, seedl, btbl, bseedl
+        torch.cuda.empty_cache()
+    return {"rank": mesh.rank, "cases": out, "launches": K.wide_launch_counts()}
+
+
+def wide_cases_rank(mesh, bases=None) -> dict:
+    """wide_kernel_cases in a process of its own (the phase spawns it as a
+    one-rank run: on an H100 80GB HBM3, torch.profiler traced no kernel in
+    the process that had run every earlier phase)."""
+    return {"rank": mesh.rank, "cases": wide_kernel_cases(bases)}
+
+
+def wide_simulate(kind: str, serial: bool, card: str):
+    """A WIDE_RUNS workload through Simulator.schedule_pods on the card (the
+    launch counts set to 0 just before it), against its JAX golden on that
+    route; returns (launch counts, wide launch counts)."""
+    import torch
+
+    from open_simulator_torch.core.types import ResourceTypes
+    from open_simulator_torch.ops import kernels as K
+    from open_simulator_torch.simulator.engine import Simulator
+
+    fn, args = WIDE_RUNS[kind]
+    out = globals()[fn](*args)
+    nodes, pods, scs = out if len(out) == 3 else (*out, [])
+    route = "serial" if serial else "default"
+    K.reset_launch_counts()
+    sim = Simulator(nodes, device="cuda")
+    sim.use_waves = not serial
+    sim.register_cluster_objects(ResourceTypes(storage_classes=scs))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    failed = sim.schedule_pods(pods)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, wide = K.launch_counts(), K.wide_launch_counts()
+    got = summarize(sim, pods, failed)
+    want = load_golden(kind)
+    for k in ("choices_sha256", "per_node_counts", "placed", "unscheduled", "reason_census"):
+        if got[k] != want[route][k]:
+            fail(f"{kind} ({route} route): {k} differs from the JAX golden")
+    emit("wide_simulate", kind=kind, route=route, nodes=len(nodes), pods=len(pods),
+         axes=want["axes"], placed=got["placed"], unscheduled=got["unscheduled"], seconds=wall,
+         pods_per_s=len(pods) / wall, launches={k: v for k, v in counts.items() if v},
+         wide_launches={k: v for k, v in wide.items() if v}, golden="match", card=card)
+    return counts, wide
+
+
+def wide_phase(card: str) -> tuple:
+    """The wide build at full width: its build (seconds and ptxas lines);
+    carriers_wide and storage_wide through Simulator.schedule_pods on the
+    serial and the default route against their JAX goldens (the main path:
+    each run's counts set to 0 just before it); then every kernel and lane
+    kernel in the wide build against its plain version (wide_kernel_cases,
+    in a process of its own) and the node-mesh kernels on WIDE_SHARDS ranks
+    sharing the card (wide_mesh_rank), each with its device time beside the
+    default kernel's on the base table. Returns (launch counts, wide launch
+    counts) of the main path."""
+    import tempfile
+
+    import torch
+
+    from open_simulator_torch.ops import build
+    from open_simulator_torch.parallel.launch import run_ranks
+
+    t0 = time.perf_counter()
+    path = build.compile_library(wide=True)
+    build.library(wide=True)
+    emit("wide_build", seconds=round(time.perf_counter() - t0, 3),
+         nvcc_seconds=build.wide_build_seconds, library=os.path.relpath(path, REPO),
+         ptxas=[ln for ln in build.wide_ptxas_log.splitlines()
+                if "registers" in ln or "spill" in ln])
+    launches, wide = Counter(), Counter()
+    for kind in WIDE_RUNS:
+        for serial in (True, False):
+            c, w = wide_simulate(kind, serial, card)
+            launches.update(c)
+            wide.update(w)
+    if sum(wide.values()) <= 0:
+        fail("wide: the main path made no launch in the wide build")
+    torch.cuda.empty_cache()
+    cases = []
+    for fn, world in ((wide_cases_rank, 1), (wide_mesh_rank, WIDE_SHARDS)):
+        with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as rdzv:
+            try:
+                ranks = run_ranks(fn, world, rdzv, device="cuda", backend="gloo", timeout_s=600)
+            except RuntimeError as e:
+                fail(f"wide ({fn.__name__}): {e}")
+        for r in ranks[1:]:
+            if [c["same"] for c in r["cases"]] != [c["same"] for c in ranks[0]["cases"]]:
+                fail(f"wide mesh: rank {r['rank']} differs from rank 0")
+        cases += [{**c, "shards": world} for c in ranks[0]["cases"]]
+    for c in cases:
+        emit("wide_kernel", **c, card=card)
+        if not c["same"]:
+            fail(f"wide: {c['kernel']} differs from its plain version ({c})")
+        if c["wide_launches"] <= 0:
+            fail(f"wide: {c['kernel']} did not launch in the wide build")
+    ran = {c["kernel"] for c in cases}
+    if ran != set(WIDE_KERNEL_NAMES):
+        fail(f"wide: no case of {sorted(set(WIDE_KERNEL_NAMES) - ran)}")
+    emit("wide_done", seconds=time.perf_counter() - t0, cases=len(cases), card=card)
+    return launches, wide
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4039,13 +4643,17 @@ def main() -> int:
     mesh_rows, mesh_launches = partitioned_phase(card)
     rows.update(mesh_rows)
     launches.update(mesh_launches)
+    # the wide build: tables past the default build's fixed axes
+    wide_counts, wide_launches = wide_phase(card)
+    launches.update(wide_counts)
     for k in rows:
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched on the main path")
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
-         "launches": launches[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+         "launches": launches[k], "wide_launches": wide_launches[k],
+         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r.get("library_ms")}
         for k, r in rows.items()]}), flush=True)

@@ -8,6 +8,12 @@ source never loads a stale binary. Each source compiles in its own nvcc
 process, all started together, then one link makes the library. It has a
 plain C interface and includes no PyTorch header, which keeps the build to
 seconds. Nothing here runs at import.
+
+The same sources build a second time with WIDE_FLAGS into the wide library
+(`library(wide=True)`, its own digest and file), which takes the tables past
+the default build's fixed slot, node-device and domain axes
+(csrc/common.cuh OSIM_WIDE); ops/kernels.py loads it, on its first wide
+table, for exactly those launches. A failed build raises in either case.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [os.path.join(_HERE, "csrc", f)
@@ -35,11 +41,15 @@ HEADERS = [os.path.join(_HERE, "csrc", f)
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build", "torch_kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
+WIDE_FLAGS = ["-DOSIM_WIDE=1"]
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-build_seconds: Optional[float] = None  # wall time of this process's build, if it built
+_libs: Dict[bool, ctypes.CDLL] = {}
+# wall time and ptxas report of this process's build of each library, if it built
+build_seconds: Optional[float] = None
 ptxas_log: str = ""
+wide_build_seconds: Optional[float] = None
+wide_ptxas_log: str = ""
 
 
 def nvcc_path() -> str:
@@ -55,16 +65,21 @@ def nvcc_path() -> str:
     return found
 
 
-def _digest(paths: List[str]) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def flags(wide: bool = False) -> List[str]:
+    return NVCC_FLAGS + (WIDE_FLAGS if wide else [])
+
+
+def _digest(paths: List[str], wide: bool = False) -> str:
+    h = hashlib.sha256(" ".join(flags(wide)).encode())
     for p in paths:
         with open(p, "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:16]
 
 
-def library_path() -> str:
-    return os.path.join(BUILD_DIR, f"libschedule_{_digest(SOURCES + HEADERS)}.so")
+def library_path(wide: bool = False) -> str:
+    name = "libschedule_wide" if wide else "libschedule"
+    return os.path.join(BUILD_DIR, f"{name}_{_digest(SOURCES + HEADERS, wide)}.so")
 
 
 def _run_all(cmds: List[List[str]]) -> List[subprocess.CompletedProcess]:
@@ -78,20 +93,21 @@ def _run_all(cmds: List[List[str]]) -> List[subprocess.CompletedProcess]:
     return done
 
 
-def compile_library() -> str:
-    """Compile csrc/ into the shared library (if not already built); returns
-    its path. Raises with nvcc's output when the build fails."""
-    global build_seconds, ptxas_log
-    out = library_path()
+def compile_library(wide: bool = False) -> str:
+    """Compile csrc/ into the shared library, or with `wide` the wide one (if
+    not already built); returns its path. Raises with nvcc's output when the
+    build fails."""
+    global build_seconds, ptxas_log, wide_build_seconds, wide_ptxas_log
+    out = library_path(wide)
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tag = f"{os.getpid()}.tmp"
+    tag = f"{'wide.' if wide else ''}{os.getpid()}.tmp"
     objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o") for s in SOURCES]
     t0 = time.perf_counter()
     nvcc = nvcc_path()
     try:
-        compiled = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
+        compiled = _run_all([[nvcc, *flags(wide), "-c", "-o", o, s]
                              for s, o in zip(SOURCES, objs)])
         for proc in compiled:
             if proc.returncode != 0:
@@ -107,28 +123,35 @@ def compile_library() -> str:
         for o in objs:
             if os.path.exists(o):
                 os.remove(o)
-    build_seconds = time.perf_counter() - t0
-    ptxas_log = "".join(p.stderr for p in compiled)
+    seconds, log = time.perf_counter() - t0, "".join(p.stderr for p in compiled)
+    if wide:
+        wide_build_seconds, wide_ptxas_log = seconds, log
+    else:
+        build_seconds, ptxas_log = seconds, log
     return out
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
-    global _lib
+def library(wide: bool = False) -> ctypes.CDLL:
+    """The loaded kernel library (`wide`: the wide build), built on first
+    use."""
     with _lock:
-        if _lib is None:
-            _lib = _load(compile_library())
-    return _lib
+        if wide not in _libs:
+            _libs[wide] = _load(compile_library(wide), wide)
+    return _libs[wide]
 
 
-def _load(path: str) -> ctypes.CDLL:
-    from .kernels import CarryOut, ExtArgs, TablesView
+def _load(path: str, wide: bool = False) -> ctypes.CDLL:
+    from .kernels import CarryOut, ExtArgs, TablesView, WideTablesView
 
     lib = ctypes.CDLL(path)
     P = ctypes.c_void_p
-    V = ctypes.POINTER(TablesView)
+    # the wide build's functions take the wide view (its TablesView)
+    view = WideTablesView if wide else TablesView
+    V = ctypes.POINTER(view)
     lib.tables_view_size.argtypes = []
     lib.tables_view_size.restype = ctypes.c_int
+    lib.wide_build.argtypes = []
+    lib.wide_build.restype = ctypes.c_int
     lib.error_string.argtypes = [ctypes.c_int]
     lib.error_string.restype = ctypes.c_char_p
     I, L = ctypes.c_int, ctypes.c_longlong
@@ -332,9 +355,11 @@ def _load(path: str) -> ctypes.CDLL:
     if lib.ext_args_size() != ctypes.sizeof(ExtArgs):
         raise RuntimeError(f"ExtArgs layout mismatch: library {lib.ext_args_size()} bytes, "
                            f"ctypes {ctypes.sizeof(ExtArgs)}")
-    if lib.tables_view_size() != ctypes.sizeof(TablesView):
+    if lib.wide_build() != int(wide):
+        raise RuntimeError(f"{path}: wide_build() is {lib.wide_build()}, expected {int(wide)}")
+    if lib.tables_view_size() != ctypes.sizeof(view):
         raise RuntimeError(f"TablesView layout mismatch: library {lib.tables_view_size()} "
-                           f"bytes, ctypes {ctypes.sizeof(TablesView)}")
+                           f"bytes, ctypes {ctypes.sizeof(view)}")
     return lib
 
 

@@ -15,6 +15,19 @@
 
 typedef unsigned int u32;
 
+// The candidate key (domain << POS_BITS) | position of the rounds' rank
+// sort: 32-bit in the default build (a domain below 2^21,
+// ops/kernels.py AFFINITY_MAX_D1), 64-bit in the wide build
+#if OSIM_WIDE
+typedef u64 ckey;
+#define CKEY_NONE 0xffffffffffffffffull
+#define CKEY_POS(k) ((int)((k) & ((1u << POS_BITS) - 1)))
+#else
+typedef u32 ckey;
+#define CKEY_NONE 0xffffffffu
+#define CKEY_POS(k) ((k) & ((1u << POS_BITS) - 1))
+#endif
+
 // term slot kinds, in the order of their live rows in the float scratch
 enum { SK_DNS = 0, SK_AFF, SK_ANTI, SK_CAR, SK_CW, SK_SS, N_KINDS };
 
@@ -33,14 +46,37 @@ struct Slot {
   float self;   // SK_DNS: the self-match count
 };
 
+// The group's term slots; the wide build keeps the slots and dns_min in the
+// CTA's scratch (CTX_BIND)
 struct Ctx {
+#if OSIM_WIDE
+  Slot* slot[N_KINDS];  // [n[k]] each
+#else
   Slot slot[N_KINDS][MAX_SLOTS];
+#endif
   int n[N_KINDS];
   int off[N_KINDS];  // first live row of each kind
+#if OSIM_WIDE
+  float* dns_min;  // [Sd]
+#else
   float dns_min[MAX_SLOTS];
+#endif
   int n_dns, n_budget, has_aff, aff_self, has_live_cw;
   float skew_live, self_live, inc_live;
 };
+
+#if OSIM_WIDE
+static_assert(sizeof(Slot) == 4 * WIDE_SLOT_WORDS && N_KINDS == WIDE_KINDS, "wide scratch");
+// every thread writes the same pointers, before any reads them
+#define CTX_BIND(c, t)                                                                   \
+  do {                                                                                   \
+    for (int k_ = 0; k_ < N_KINDS; ++k_)                                                 \
+      (c).slot[k_] = (Slot*)wide_row(t, WR_ROWS) + (size_t)k_ * (t).wide_slots;          \
+    (c).dns_min = wide_row(t, WR_CTX_DNS);                                               \
+  } while (0)
+#else
+#define CTX_BIND(c, t)
+#endif
 
 static __device__ __forceinline__ int slot_dom(const TablesView& t, int kind, int id, int n) {
   return (kind == SK_CAR || kind == SK_CW) ? t.carr_dom[(size_t)id * t.N + n]
@@ -302,12 +338,12 @@ affinity_rounds(const Ctx& c, const AffScratch& e, const AffShared& sh, const Af
   __syncthreads();
   // rank among the same domain's candidates: sort the unique
   // (domain, position) pairs, then a max-scan of the run starts
-  u32* s_comp = reinterpret_cast<u32*>(s_key);
+  ckey* s_comp = reinterpret_cast<ckey*>(s_key);
   for (int q = 0; q < Q; ++q) {
     const int p = Q * tid + q;
-    if (p < L) s_comp[p] = cand[q] ? ((u32)dom[q] << POS_BITS) | (u32)p : 0xffffffffu;
+    if (p < L) s_comp[p] = cand[q] ? ((ckey)dom[q] << POS_BITS) | (ckey)p : CKEY_NONE;
   }
-  bitonic_sort<u32, false>(s_comp, L);
+  bitonic_sort<ckey, false>(s_comp, L);
   int rs[Q];
   for (int q = 0; q < Q; ++q) {
     const int i = Q * tid + q;
@@ -317,7 +353,7 @@ affinity_rounds(const Ctx& c, const AffScratch& e, const AffShared& sh, const Af
   block_scan<true>(rs, s_int);
   for (int q = 0; q < Q; ++q) {
     const int i = Q * tid + q;
-    if (i < n_cand) s_occ[s_comp[i] & ((1u << POS_BITS) - 1)] = i - rs[q];
+    if (i < n_cand) s_occ[CKEY_POS(s_comp[i])] = i - rs[q];
   }
   // the epoch's round state: live counts, consumption, blocks
   for (int d = tid; d < D1; d += bd) {

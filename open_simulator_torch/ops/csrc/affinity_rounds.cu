@@ -164,6 +164,7 @@ __global__ void __launch_bounds__(CLUSTER_THREADS, 1)
 affinity_rounds_front(TablesView t, int g, int B, int N, int lo, int hi, int ss_live,
                       const int* j, float* fs, int* is, float* part, int* state) {
   __shared__ Ctx c;
+  CTX_BIND(c, t);
   __shared__ StageShared sh;
   __shared__ float s_red[8 * 32];
   extern __shared__ uint32_t smem[];
@@ -233,6 +234,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 1)
 affinity_rounds_reduce(TablesView t, int g, int B, int N, int ss_live, int R, int P1,
                        const float* rows1, float* red, float* fs, int* is, int* state) {
   __shared__ Ctx c;
+  CTX_BIND(c, t);
   const int tid = threadIdx.x, bd = blockDim.x;
   if (tid == 0) affinity_slots(t, g, &c);
   __syncthreads();
@@ -285,6 +287,7 @@ affinity_rounds_table(TablesView t, int g, int B, int N, int lo, int hi, int ss_
                       const int* j, float* fs, int* is, const float* red, const int* state,
                       double* summ) {
   __shared__ Ctx c;
+  CTX_BIND(c, t);
   __shared__ StageShared sh;
   extern __shared__ uint32_t smem[];
   const int tid = threadIdx.x, R = t.R, B1 = B + 1;
@@ -379,6 +382,7 @@ __global__ void __launch_bounds__(CLUSTER_THREADS, 1)
 affinity_rounds_select(TablesView t, int g, int B, int N, int lo, int hi, int c_, int R,
                        float* fs, int* is, const double* summ_all, long long* cand) {
   __shared__ Ctx c;
+  CTX_BIND(c, t);
   __shared__ StageShared sh;
   extern __shared__ uint32_t smem[];
   const int tid = threadIdx.x, B1 = B + 1;
@@ -417,6 +421,7 @@ __global__ void __launch_bounds__(BLOCK_THREADS, 1)
 affinity_rounds_merge(TablesView t, int g, int m, int B, int N, int c_, int R, float* fs, int* is,
                       const long long* rows, int* kx, int* state) {
   __shared__ Ctx c;
+  CTX_BIND(c, t);
   __shared__ float s_red[8 * 32];
   __shared__ int s_int[32];
   __shared__ u64 s_key[K_EP_MAX];
@@ -503,6 +508,7 @@ __global__ void __launch_bounds__(CLUSTER_THREADS, 1)
 affinity_rounds_sandwich(TablesView t, int g, int B, int N, int lo, int hi, const int* j,
                          float* fs, int* is, float* part) {
   __shared__ Ctx c;
+  CTX_BIND(c, t);
   __shared__ StageShared sh;
   __shared__ float s_red[8 * 32];
   extern __shared__ uint32_t smem[];
@@ -545,6 +551,7 @@ affinity_rounds_finish(TablesView t, int g, int m, int ss_live, int B, int N, in
                        float* fs, int* is, const float* red, const float* red4,
                        const double* summ_all, const int* kx, int* state) {
   __shared__ Ctx c;
+  CTX_BIND(c, t);
   const int tid = threadIdx.x, rank = cluster_rank(), D1 = t.D1;
   if (tid == 0) affinity_slots(t, g, &c);
   __syncthreads();
@@ -675,7 +682,12 @@ int affinity_rounds_front_launch(const TablesView* t, int g, int B, int N, int l
 int affinity_rounds_reduce_launch(const TablesView* t, int g, int B, int N, int ss_live, int R,
                                   int P1, const float* rows1, float* red, float* fs, int* is,
                                   int* state, cudaStream_t stream) {
-  affinity_rounds_reduce<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, B, N, ss_live, R, P1, rows1, red,
+  TablesView v = *t;
+#if OSIM_WIDE
+  WideScratch ws;
+  if (const int e = wide_open(ws, 1, BLOCK_THREADS, stream, v)) return e;
+#endif
+  affinity_rounds_reduce<<<1, BLOCK_THREADS, 0, stream>>>(v, g, B, N, ss_live, R, P1, rows1, red,
                                                           fs, is, state);
   return (int)cudaGetLastError();
 }
@@ -700,7 +712,12 @@ int affinity_rounds_select_launch(const TablesView* t, int g, int B, int N, int 
 int affinity_rounds_merge_launch(const TablesView* t, int g, int m, int B, int N, int c, int R,
                                  float* fs, int* is, const long long* rows, int* kx, int* state,
                                  cudaStream_t stream) {
-  affinity_rounds_merge<<<1, BLOCK_THREADS, 0, stream>>>(*t, g, m, B, N, c, R, fs, is, rows, kx,
+  TablesView v = *t;
+#if OSIM_WIDE
+  WideScratch ws;
+  if (const int e = wide_open(ws, 1, BLOCK_THREADS, stream, v)) return e;
+#endif
+  affinity_rounds_merge<<<1, BLOCK_THREADS, 0, stream>>>(v, g, m, B, N, c, R, fs, is, rows, kx,
                                                          state);
   return (int)cudaGetLastError();
 }

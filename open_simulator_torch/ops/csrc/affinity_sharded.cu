@@ -131,6 +131,7 @@ __global__ void __launch_bounds__(CLUSTER_THREADS, 1)
 affinity_sharded_front(TablesView t, int g, int B, int N, int lo, int hi, const int* j,
                        float* fs, int* is, float* part, int* state) {
   __shared__ Ctx c;
+  CTX_BIND(c, t);
   __shared__ StageShared sh;
   __shared__ float s_red[8 * 32];
   extern __shared__ __align__(16) uint32_t smem[];
@@ -191,6 +192,7 @@ __global__ void __launch_bounds__(CLUSTER_THREADS, 1)
 affinity_sharded_table(TablesView t, int g, int B, int N, int lo, int hi, const int* j, float* fs,
                        int* is, const float* red, float* pay) {
   __shared__ Ctx c;
+  CTX_BIND(c, t);
   if (threadIdx.x == 0) affinity_slots(t, g, &c);
   __syncthreads();
   const AffScratch a = aff_scratch(t, c, B, fs, is, N);
@@ -241,6 +243,7 @@ __global__ void __launch_bounds__(CLUSTER_THREADS, 1)
 affinity_sharded_tail(TablesView t, int g, int m, int ss_live, int B, int N, int* j, float* fs,
                       int* is, const float* red, const float* full, int* state, int* cs) {
   __shared__ Ctx c;
+  CTX_BIND(c, t);
   __shared__ StageShared sh;
   __shared__ float s_red[8 * 32];
   __shared__ int s_int[32];

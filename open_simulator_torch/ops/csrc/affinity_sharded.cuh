@@ -238,6 +238,8 @@ static __device__ __forceinline__ void aff_setup_stage(const TablesView& t, int 
   __shared__ Ctx c;
   __shared__ PodCtx pc;
   __shared__ float s_red[16 * 32];
+  CTX_BIND(c, t);
+  POD_BIND(pc, t);
   const int D1 = t.D1, tid = threadIdx.x, rank = cluster_rank();
   const int gt = rank * CLUSTER_THREADS + tid, stride = cluster_ctas() * CLUSTER_THREADS;
   if (tid == 0) affinity_slots(t, g, &c);
@@ -368,12 +370,12 @@ static __device__ int affinity_rounds_compact(const Ctx& c, const AffScratch& e,
   // rank among the same domain's candidates and the compact index of each
   // position's domain: sort the unique (domain, position) pairs, then a
   // max-scan of the run starts and a sum-scan of the runs
-  u32* s_comp = reinterpret_cast<u32*>(sh.key);
+  ckey* s_comp = reinterpret_cast<ckey*>(sh.key);
   for (int q = 0; q < Q; ++q) {
     const int p = Q * tid + q;
-    if (p < L) s_comp[p] = cand[q] ? ((u32)dom[q] << POS_BITS) | (u32)p : 0xffffffffu;
+    if (p < L) s_comp[p] = cand[q] ? ((ckey)dom[q] << POS_BITS) | (ckey)p : CKEY_NONE;
   }
-  bitonic_sort<u32, false>(s_comp, L);
+  bitonic_sort<ckey, false>(s_comp, L);
   int rs[Q], st[Q];
   for (int q = 0; q < Q; ++q) {
     const int i = Q * tid + q;
@@ -386,7 +388,7 @@ static __device__ int affinity_rounds_compact(const Ctx& c, const AffScratch& e,
   for (int q = 0; q < Q; ++q) {
     const int i = Q * tid + q;
     if (i >= n_cand) continue;
-    const int p = s_comp[i] & ((1u << POS_BITS) - 1);
+    const int p = CKEY_POS(s_comp[i]);
     s_occ[p] = i - rs[q];
     s_dom[p] = st[q] - 1;
     if (i == rs[q]) cp.dom[st[q] - 1] = (int)(s_comp[i] >> POS_BITS);

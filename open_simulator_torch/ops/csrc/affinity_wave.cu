@@ -169,9 +169,9 @@ schedule_affinity_wave_body(const TablesView& t_in, int s, int g, int m, int cap
   __shared__ int s_prise[LMAX + 2], s_prov[LMAX + 2], s_lhist[LMAX + 2];
   __shared__ int s_sel[CLUSTER_WARPS + 3];
   __shared__ u64 s_w64[CLUSTER_WARPS];
-  __shared__ float s_mn[MAX_SLOTS];  // the DoNotSchedule levels (dns_levels)
-  __shared__ int s_nmin[MAX_SLOTS];
-  __shared__ unsigned long long s_rescan;
+  SLOT_ARRAY(float, s_mn);  // the DoNotSchedule levels (dns_levels)
+  SLOT_ARRAY(int, s_nmin);
+  TERM_WORD(s_rescan);
   __shared__ int s_L, s_PL, s_cnt, s_bootnz;
   __shared__ float s_maxz;
   extern __shared__ __align__(16) uint32_t smem[];
@@ -193,6 +193,12 @@ schedule_affinity_wave_body(const TablesView& t_in, int s, int g, int m, int cap
   int* s_rx = (int*)((char*)&c + k5_ctx_bytes());
   int* s_hist = s_rx + RX_SCRATCH;
   int* slots = s_hist + 256;
+  CTX_BIND(c, t);
+  POD_BIND(pc, t);
+  SLOT_BIND(s_mn, t, WR_MN);
+  SLOT_BIND(s_nmin, t, WR_NMIN);
+  TERM_BIND(s_rescan, t, WC_RESCAN);
+  WARP_BIND(s_rx, t);
   int* fin = slots + 2 * C * W;
   float* part = (float*)(fin + W);
   float* zsum = part + ((Z + 3) & ~3);
@@ -280,12 +286,24 @@ schedule_affinity_wave_body(const TablesView& t_in, int s, int g, int m, int cap
     s_lhist[tid] = 0;
   }
   if (tid == 0) {
-    s_rescan = 0ull;
+    TERMS_ZERO(s_rescan, t);
     s_bootnz = 0;
   }
+#if OSIM_WIDE
+  // the valid DoNotSchedule slots, word by word (every thread stores the
+  // same words)
+  const TermSet dns_terms = wide_terms(t, WC_DNS_TERMS);
+  for (int w = 0; w < (c.n[SK_DNS] + 63) / 64; ++w) {
+    unsigned long long x = 0ull;
+    for (int q = 64 * w; q < min(c.n[SK_DNS], 64 * w + 64); ++q)
+      if (c.slot[SK_DNS][q].valid) x |= 1ull << (q & 63);
+    dns_terms[w] = x;
+  }
+#else
   unsigned long long dns_terms = 0ull;  // the valid DoNotSchedule slots
   for (int q = 0; q < c.n[SK_DNS]; ++q)
     if (c.slot[SK_DNS][q].valid) dns_terms |= 1ull << q;
+#endif
   // every CTA started (its mbarriers visible) and every slice of dom_live
   // written: release / acquire at cluster scope covers global memory
   cluster_barrier_uncounted();
@@ -662,7 +680,7 @@ schedule_affinity_wave_body(const TablesView& t_in, int s, int g, int m, int cap
           }
         }
       }
-      if (tid == 0) s_rescan = dns_terms;  // the levels from scratch
+      if (tid == 0) TERMS_COPY(s_rescan, dns_terms, t);  // the levels from scratch
     } else if (head >= 0 && tid == 0) {
       if (head >= lo && head < cx.hi) j_s[head - lo] += 1;
       for (int k = 0; k < N_KINDS; ++k) {
@@ -676,19 +694,19 @@ schedule_affinity_wave_body(const TablesView& t_in, int s, int g, int m, int cap
           *at = old + x.inc;
           if (k == SK_AFF) s_bootnz = 1;
           // one eligible domain fewer at the minimum; none left: rescan
-          if (k == SK_DNS && ((dns_terms >> q) & 1ull)
+          if (k == SK_DNS && TERM_IN(dns_terms, q)
               && t.dns_edom[((size_t)g * t.Sd + q) * D1 + dom] && old == s_mn[q]
               && --s_nmin[q] == 0)
-            s_rescan |= 1ull << q;
+            TERMS_ADD(s_rescan, q);
         }
       }
     }
     __syncthreads();
     boot_nz = s_bootnz;
-    const unsigned long long rescan = s_rescan;
-    if (rescan) {
+    const TermSet rescan = s_rescan;
+    if (TERMS_ANY(rescan, t)) {
       dns_levels(t, g, rows, rescan, &pc, s_mn, s_nmin, s_rx);
-      if (tid == 0) s_rescan = 0ull;  // every thread read it before the barriers
+      if (tid == 0) TERMS_ZERO(s_rescan, t);  // every thread read it before the barriers
     }
     const int m_take = use_multi ? got : (head >= 0 ? 1 : 0);
     heads += head >= 0;

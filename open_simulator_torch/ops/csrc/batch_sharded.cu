@@ -174,6 +174,7 @@ batch_sharded_front_kernel(TablesView t, int g, int forced, int valid, int all_n
   __shared__ StageShared sh;
   __shared__ float s_red[32];
   extern __shared__ __align__(16) uint32_t smem[];
+  POD_BIND(pc, t);
   const int N = t.N, Rr = t.R, D = t.D1 - 1, tid = threadIdx.x, lane = tid & 31;
   const int W = k12_words(t);
   Cluster cx = cluster_setup(N, W, (int*)smem, sh.mbar);
@@ -288,8 +289,9 @@ __global__ void __launch_bounds__(CLUSTER_THREADS, 1)
 batch_sharded_sa_kernel(TablesView t, int g, int R, const float* rows, int K1, float* scratch,
                         float* part_b) {
   __shared__ StageShared sh;
-  __shared__ float s_tpw[MAX_SLOTS];
+  SLOT_ARRAY(float, s_tpw);
   extern __shared__ __align__(16) uint32_t smem[];
+  SLOT_BIND(s_tpw, t, WR_TPW);
   const int N = t.N, D = t.D1 - 1, tid = threadIdx.x, lane = tid & 31;
   const int W = k12_words(t), mk = PART_HEAD + t.Z;
   Cluster cx = cluster_stage(N, W, (int*)smem, sh.mbar);

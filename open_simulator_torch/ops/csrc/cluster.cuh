@@ -437,8 +437,8 @@ static __device__ void fused_topology_weights(const int* ors, uint32_t* bits, in
 // pod_prologue (common.cuh) in one pass of CTA barriers: the bootstrap flag
 // of required affinity (with `boot`) and the minimum over its eligible
 // domains of each of the first n_dns DoNotSchedule terms, from the counter
-// rows. Every thread of the CTA calls it; `s_warp` holds (MAX_SLOTS + 1) *
-// CLUSTER_WARPS ints. Ends with a CTA barrier, except when there is
+// rows. Every thread of the CTA calls it; `s_warp` holds (n_dns + 1) *
+// CLUSTER_WARPS ints (WARP_WORDS). Ends with a CTA barrier, except when there is
 // nothing to reduce: then every thread writes the same `bootstrap` 0 (the
 // previous readers of `pc` passed a barrier since).
 static __device__ void cta_prologue(const TablesView& t, int g, bool boot, int n_dns, PodCtx* pc,
@@ -493,18 +493,19 @@ static __device__ void cta_prologue(const TablesView& t, int g, bool boot, int n
   __syncthreads();
 }
 
-// The DoNotSchedule levels of the terms in `terms` (bit s of the first Sd;
+// The DoNotSchedule levels of the terms in `terms` (bit s of the first Sd,
+// common.cuh TermSet;
 // K4 group_serial.cu and K5 affinity_wave.cu keep them across pods):
 // the minimum over its eligible domains of the live row cnt[s]
 // (pc->dns_min, 0 when no domain is eligible; `mn` keeps it raw) and how
 // many eligible domains hold it (`nmin`). Four CTA barriers.
 static __device__ void dns_levels(const TablesView& t, int g, const float* cnt,
-                                  unsigned long long terms, PodCtx* pc, float* mn, int* nmin,
+                                  TermSet terms, PodCtx* pc, float* mn, int* nmin,
                                   int* s_warp) {
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5, Sd = t.Sd, D1 = t.D1;
   for (int pass = 0; pass < 2; ++pass) {
     for (int s = 0; s < Sd; ++s) {
-      if (!((terms >> s) & 1ull)) continue;
+      if (!TERM_IN(terms, s)) continue;
       const int id = t.dns_t[g * Sd + s];
       const float* row = cnt + (size_t)s * D1;
       const uint8_t* edom = t.dns_edom + ((size_t)g * Sd + s) * D1;
@@ -526,7 +527,7 @@ static __device__ void dns_levels(const TablesView& t, int g, const float* cnt,
     }
     __syncthreads();
     for (int s = wid; s < Sd; s += CLUSTER_WARPS) {
-      if (!((terms >> s) & 1ull)) continue;
+      if (!TERM_IN(terms, s)) continue;
       if (pass == 0) {
         const float m = ounkey(__reduce_min_sync(
             FULL_MASK, lane < CLUSTER_WARPS ? s_warp[s * CLUSTER_WARPS + lane] : INT_HI));
@@ -557,8 +558,10 @@ static cudaError_t cluster_kernel_init(void (*kernel)(Params...)) {
 }
 
 // Launch `kernel` on S clusters of C CTAs of CLUSTER_THREADS threads with
-// `smem` bytes of dynamic shared memory. A refused launch returns its
-// cudaError; nothing is retried in another shape.
+// `smem` bytes of dynamic shared memory (the wide build first allocates the
+// launch's scratch and points every TablesView argument at it: common.cuh
+// wide_open). A refused launch returns its cudaError; nothing is retried in
+// another shape.
 template <typename... Params, typename... Args>
 static int cluster_launch(void (*kernel)(Params...), int C, int S, long long smem,
                           cudaStream_t stream, Args... args) {
@@ -574,6 +577,11 @@ static int cluster_launch(void (*kernel)(Params...), int C, int S, long long sme
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+#if OSIM_WIDE
+  WideScratch ws;
+  const int we = wide_open(ws, (long long)C * S, CLUSTER_THREADS, stream, args...);
+  if (we != 0) return we;
+#endif
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

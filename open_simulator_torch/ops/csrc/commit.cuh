@@ -80,7 +80,7 @@ static __device__ void commit_rows_out(const TablesView& t, const CarryOut& o, i
   if (gpu_live && gmem > 0.0f) {
     const float gnum = fmaxf(t.grp_gpu_num[g], 1.0f), safe_mem = fmaxf(gmem, 1.0f);
     const bool single = t.grp_gpu_num[g] == 1.0f;
-    float take[MAX_NODE_DEVS];
+    NODE_DEVS(take, t, wt_take);
     for (int n = lo + tid; n < hi; n += bd) {
       const float* in = t.dev_used + (size_t)n * t.MAXDEV;
       float* used = o.dev_used + (size_t)n * t.MAXDEV;

@@ -24,6 +24,18 @@
 // segment_node_constants<EXT>, K2, K3), which the launchers pick when a flag
 // is on: with both off, a kernel runs the code it ran before the branches
 // existed (the same registers, no stack for their per-node arrays).
+//
+// The wide build (-DOSIM_WIDE=1, ops/build.py `library(wide=True)`) takes
+// every table. What the default build holds in arrays of MAX_SLOTS term
+// slots (shared memory) or MAX_NODE_DEVS node devices (a thread's local
+// arrays), and in 64-bit sets of DoNotSchedule terms, it holds in views of
+// global scratch sized by the table's own axes: one part a CTA and one part
+// a thread, which each launch allocates on its stream and frees after it
+// (wide_open). The affinity kernels' candidate key is 64-bit there
+// (affinity.cuh ckey). The kernel bodies are the same source: the accessor
+// macros below (SLOT_ARRAY, NODE_DEVS, TERM_IN, ...) are the default
+// build's arrays and the wide build's views, and the default build compiles
+// none of the wide code.
 
 #pragma once
 
@@ -31,8 +43,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#ifndef OSIM_WIDE
+#define OSIM_WIDE 0
+#endif
+
+// the default build's term slots of one group axis (shared memory) and
+// per-node GPU devices, volume groups and storage devices one thread holds;
+// the wide build's floor of its scratch sizes
 #define MAX_SLOTS 64
-// per-node GPU devices, volume groups and storage devices one thread holds
 #define MAX_NODE_DEVS 32
 #define FULL_MASK 0xffffffffu
 
@@ -104,7 +122,191 @@ struct TablesView {
   int f_fit, f_ports, f_interpod, f_spread, f_gpu, f_storage;
   // least balanced openlocal simon(+gpushare) nodeaff taint interpod ss pts avoid image extra
   float w[12];
+#if OSIM_WIDE
+  // the launch's scratch (wide_open): [CTAs, wide_cta_words] and
+  // [threads, wide_thr_words] words; wide_slots = max(MAX_SLOTS, every
+  // slot axis)
+  float* wide_cta;
+  float* wide_thr;
+  long long wide_cta_words, wide_thr_words;
+  int wide_slots;
+#endif
 };
+
+#if OSIM_WIDE
+// ---- the wide build's scratch
+//
+// A CTA's part (4-byte words; Wm = wide_slots, Q = ceil(Wm / 64)): three
+// term sets [Q] u64 (the valid DoNotSchedule terms, the terms to rescan,
+// every term), the warp words [(Wm + 1) * 32], PodCtx's dns_min and tpw
+// [Wm] each, the DoNotSchedule levels, their counts at the minimum and the
+// topology weights [Wm] each, the affinity term slots' dns_min [Wm] and
+// their Slots [N_KINDS][Wm]. A thread's part: a GPU take [MAXDEV], two
+// volume-group rows [MAXVG], a storage-device row and its taken marks
+// [MAXSD].
+#define WIDE_SLOT_WORDS 6  // sizeof(Slot) / 4 (affinity.cuh)
+#define WIDE_KINDS 6       // N_KINDS (affinity.cuh)
+enum { WC_DNS_TERMS = 0, WC_RESCAN, WC_ALL_TERMS };
+enum { WR_PC_DNS = 0, WR_PC_TPW, WR_MN, WR_NMIN, WR_TPW, WR_CTX_DNS, WR_ROWS };
+
+static __host__ __device__ inline long long wide_term_words(int Wm) {
+  return 2LL * ((Wm + 63) / 64);  // one term set: Q u64
+}
+static __host__ __device__ inline long long wide_warp_at(int Wm) { return 3 * wide_term_words(Wm); }
+static __host__ __device__ inline long long wide_row_at(int Wm, int r) {
+  return wide_warp_at(Wm) + (Wm + 1LL) * 32 + (long long)r * Wm;
+}
+static __host__ __device__ inline long long wide_cta_words_of(int Wm) {
+  return (wide_row_at(Wm, WR_ROWS) + (long long)WIDE_KINDS * Wm * WIDE_SLOT_WORDS + 3) & ~3LL;
+}
+static __host__ __device__ inline long long wide_thr_words_of(const TablesView& t) {
+  return (long long)t.MAXDEV + 2LL * t.MAXVG + 2LL * t.MAXSD;
+}
+
+static __device__ __forceinline__ size_t wide_cta_index() {
+  return (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+}
+// word `at` of this CTA's part, and of this thread's
+static __device__ __forceinline__ float* wide_cta(const TablesView& t, long long at) {
+  return t.wide_cta + wide_cta_index() * t.wide_cta_words + at;
+}
+static __device__ __forceinline__ float* wide_thread(const TablesView& t, long long at) {
+  return t.wide_thr + (wide_cta_index() * blockDim.x + threadIdx.x) * t.wide_thr_words + at;
+}
+static __device__ __forceinline__ float* wide_row(const TablesView& t, int r) {
+  return wide_cta(t, wide_row_at(t.wide_slots, r));
+}
+static __device__ __forceinline__ int* wide_warp_words(const TablesView& t) {
+  return (int*)wide_cta(t, wide_warp_at(t.wide_slots));
+}
+static __device__ __forceinline__ unsigned long long* wide_terms(const TablesView& t, int k) {
+  return (unsigned long long*)wide_cta(t, k * wide_term_words(t.wide_slots));
+}
+// a thread's rows: the GPU take, storage_alloc_at's and storage_commit_at's
+// volume-group rows, the device row and the taken marks
+static __device__ __forceinline__ float* wt_take(const TablesView& t) { return wide_thread(t, 0); }
+static __device__ __forceinline__ float* wt_lvm(const TablesView& t) {
+  return wide_thread(t, t.MAXDEV);
+}
+static __device__ __forceinline__ float* wt_lvm_out(const TablesView& t) {
+  return wide_thread(t, t.MAXDEV + t.MAXVG);
+}
+static __device__ __forceinline__ float* wt_dev_out(const TablesView& t) {
+  return wide_thread(t, t.MAXDEV + 2LL * t.MAXVG);
+}
+static __device__ __forceinline__ float* wt_taken(const TablesView& t) {
+  return wide_thread(t, t.MAXDEV + 2LL * t.MAXVG + t.MAXSD);
+}
+
+// A set of DoNotSchedule terms: a u64 in the default build, Q words of the
+// CTA's scratch in the wide one
+typedef unsigned long long* TermSet;
+#define TERM_IN(ts, s) (((ts)[(s) >> 6] >> ((s) & 63)) & 1ull)
+static __device__ __forceinline__ bool terms_any(const TermSet ts, int Sd) {
+  for (int w = 0; w < (Sd + 63) / 64; ++w)
+    if (ts[w]) return true;
+  return false;
+}
+static __device__ __forceinline__ void terms_clear(TermSet ts, int Sd) {
+  for (int w = 0; w < (Sd + 63) / 64; ++w) ts[w] = 0ull;
+}
+// the set of every term, by every thread of the CTA (identical words)
+static __device__ __forceinline__ TermSet terms_all(const TablesView& t) {
+  TermSet ts = wide_terms(t, WC_ALL_TERMS);
+  for (int w = 0; w < (t.Sd + 63) / 64; ++w) ts[w] = ~0ull;
+  return ts;
+}
+
+// The launch's scratch: wide_open sizes it from every TablesView argument,
+// allocates it on the stream and points each view at it; it is freed on
+// the stream after the launch.
+struct WideScratch {
+  void* p = nullptr;
+  cudaStream_t stream = nullptr;
+  ~WideScratch() {
+    if (p) cudaFreeAsync(p, stream);
+  }
+};
+
+static inline int wide_slots_of(const TablesView& t) {
+  int m = MAX_SLOTS;
+  for (int x : {t.A, t.B, t.Cp, t.Sd, t.Ss, t.Ca, t.Cw, t.PP, t.SL, t.SD}) m = x > m ? x : m;
+  return m;
+}
+template <typename T>
+static inline void wide_need(const T&, long long&, long long&) {}
+static inline void wide_need(const TablesView& t, long long& cta, long long& thr) {
+  const long long c = wide_cta_words_of(wide_slots_of(t)), h = wide_thr_words_of(t);
+  cta = c > cta ? c : cta;
+  thr = h > thr ? h : thr;
+}
+template <typename T>
+static inline void wide_bind(T&, float*, long long, long long, long long) {}
+static inline void wide_bind(TablesView& t, float* base, long long ctas, long long cta,
+                             long long thr) {
+  t.wide_cta = base;
+  t.wide_thr = base + ctas * cta;
+  t.wide_cta_words = cta;
+  t.wide_thr_words = thr;
+  t.wide_slots = wide_slots_of(t);
+}
+template <typename... Args>
+static int wide_open(WideScratch& ws, long long ctas, int threads, cudaStream_t stream,
+                     Args&... args) {
+  long long cta = 0, thr = 0;
+  (wide_need(args, cta, thr), ...);
+  const size_t words = (size_t)ctas * cta + (size_t)ctas * threads * thr;
+  if (words > 0) {
+    const cudaError_t e = cudaMallocAsync(&ws.p, 4 * words, stream);
+    if (e != cudaSuccess) return (int)e;
+    ws.stream = stream;
+  }
+  (wide_bind(args, (float*)ws.p, ctas, cta, thr), ...);
+  return 0;
+}
+
+// Accessors. SLOT_ARRAY declares a per-CTA row of slots, SLOT_BIND points it
+// at its scratch once the view `t` is valid (every thread writes the same
+// value); NODE_DEVS declares a thread's per-node device row.
+#define SLOT_ARRAY(type, name) type* name
+#define SLOT_BIND(name, t, row) name = (decltype(name))wide_row(t, row)
+#define WARP_WORDS(name) int* name
+#define WARP_BIND(name, t) name = wide_warp_words(t)
+#define TERM_WORD(name) TermSet name
+#define TERM_BIND(name, t, k) name = wide_terms(t, k)
+#define NODE_DEVS(name, t, row) float* name = row(t)
+#define TERMS_ZERO(ts, t) terms_clear(ts, (t).Sd)
+#define TERMS_ALL(t) terms_all(t)
+#define TERMS_ANY(ts, t) terms_any(ts, (t).Sd)
+#define TERMS_ADD(ts, s) ((ts)[(s) >> 6] |= 1ull << ((s) & 63))
+#define TERMS_ADD_ATOMIC(ts, s) atomicOr(&(ts)[(s) >> 6], 1ull << ((s) & 63))
+#define TERMS_COPY(dst, src, t)                                               \
+  do {                                                                        \
+    for (int w_ = 0; w_ < ((t).Sd + 63) / 64; ++w_) (dst)[w_] = (src)[w_];   \
+  } while (0)
+#define POD_BIND(pc, t)                      \
+  do {                                       \
+    (pc).dns_min = wide_row(t, WR_PC_DNS);   \
+    (pc).tpw = wide_row(t, WR_PC_TPW);       \
+  } while (0)
+#else
+typedef unsigned long long TermSet;
+#define TERM_IN(ts, s) (((ts) >> (s)) & 1ull)
+#define SLOT_ARRAY(type, name) __shared__ type name[MAX_SLOTS]
+#define SLOT_BIND(name, t, row)
+#define WARP_WORDS(name) __shared__ int name[(MAX_SLOTS + 1) * CLUSTER_WARPS]
+#define WARP_BIND(name, t)
+#define TERM_WORD(name) __shared__ unsigned long long name
+#define TERM_BIND(name, t, k)
+#define NODE_DEVS(name, t, row) float name[MAX_NODE_DEVS]
+#define TERMS_ZERO(ts, t) ts = 0ull
+#define TERMS_ALL(t) ~0ull
+#define TERMS_ANY(ts, t) (ts)
+#define TERMS_ADD(ts, s) ts |= 1ull << s
+#define TERMS_ADD_ATOMIC(ts, s) atomicOr(&ts, 1ull << s)
+#define TERMS_COPY(dst, src, t) dst = src
+#define POD_BIND(pc, t)
+#endif
 
 // stage bits, in ops/kernels.py STAGE_ROWS order, then the feasible bit
 enum {
@@ -116,8 +318,13 @@ enum {
 // Per-pod scalars every node's filters read, computed block-wide.
 struct PodCtx {
   int bootstrap;
+#if OSIM_WIDE
+  float* dns_min;  // [Sd] and [Ss], the CTA's scratch (POD_BIND)
+  float* tpw;
+#else
   float dns_min[MAX_SLOTS];
   float tpw[MAX_SLOTS];
+#endif
 };
 
 enum { OP_MAX = 0, OP_MIN = 1, OP_SUM = 2 };
@@ -267,7 +474,7 @@ static __device__ void gpu_take_at(const TablesView& t, const float* used, int n
 static __device__ void gpu_commit_at(const TablesView& t, int g, int c) {
   const float gmem = t.grp_gpu_mem[g];
   if (!(gmem > 0.0f)) return;  // adds take * gmem * 0
-  float take[MAX_NODE_DEVS];
+  NODE_DEVS(take, t, wt_take);
   float* used = t.dev_used + (size_t)c * t.MAXDEV;
   if (t.grp_gpu_pre[g]) {
     for (int d = 0; d < t.MAXDEV; ++d) take[d] = t.grp_gpu_take[(size_t)g * t.MAXDEV + d];
@@ -296,7 +503,7 @@ static __device__ bool storage_alloc_at(const TablesView& t, int g, int n, float
   const float* vcap = t.vg_cap + (size_t)n * V;
   const int* vname = t.vg_nameid + (size_t)n * V;
   const float* vreq = t.vg_req + (size_t)n * V;
-  float lvm_add[MAX_NODE_DEVS];
+  NODE_DEVS(lvm_add, t, wt_lvm);
   for (int v = 0; v < V; ++v) lvm_add[v] = 0.0f;
   bool ok = true, has_lvm = false, has_dev = false;
   for (int s = 0; s < t.SL; ++s) {
@@ -353,7 +560,16 @@ static __device__ bool storage_alloc_at(const TablesView& t, int g, int n, float
         ++n_vols;
     ok = ok && (n_free >= n_vols || n_vols == 0);
   }
+#if OSIM_WIDE
+  float* taken = wt_taken(t);  // dev_add as 0 / 1
+  for (int d = 0; d < Dv; ++d) taken[d] = 0.0f;
+#define TAKEN(d) (taken[d] != 0.0f)
+#define TAKE(d) (taken[d] = 1.0f)
+#else
   uint32_t taken = 0;  // dev_add as bits
+#define TAKEN(d) ((taken >> (d)) & 1u)
+#define TAKE(d) (taken |= 1u << (d))
+#endif
   float dev_acc = 0.0f, dev_units = 0.0f;
   for (int s = 0; s < t.SD; ++s) {
     const float size = t.grp_sdev_size[(size_t)g * t.SD + s];
@@ -364,7 +580,7 @@ static __device__ bool storage_alloc_at(const TablesView& t, int g, int n, float
     int tgt = 0;
     float best = INFINITY;
     for (int d = 0; d < Dv; ++d) {
-      const bool free_now = dmed[d] == m && dal[d] < 0.5f && dcap[d] > 0.0f && !((taken >> d) & 1u);
+      const bool free_now = dmed[d] == m && dal[d] < 0.5f && dcap[d] > 0.0f && !TAKEN(d);
       if (free_now && dcap[d] >= size) {
         fit = true;
         if (dcap[d] < best) {
@@ -374,10 +590,10 @@ static __device__ bool storage_alloc_at(const TablesView& t, int g, int n, float
       }
     }
     const int li = last[m];
-    const bool last_free = dmed[li] == m && dal[li] < 0.5f && dcap[li] > 0.0f && !((taken >> li) & 1u);
+    const bool last_free = dmed[li] == m && dal[li] < 0.5f && dcap[li] > 0.0f && !TAKEN(li);
     ok = ok && !(!fit && last_free);
     if (fit) {
-      taken |= 1u << tgt;
+      TAKE(tgt);
       dev_acc = dev_acc + size / fmaxf(dcap[tgt], 1.0f);
       dev_units = dev_units + 1.0f;
     }
@@ -397,14 +613,17 @@ static __device__ bool storage_alloc_at(const TablesView& t, int g, int n, float
   if (lvm_out)
     for (int v = 0; v < V; ++v) lvm_out[v] = lvm_add[v];
   if (dev_out)
-    for (int d = 0; d < Dv; ++d) dev_out[d] = (float)((taken >> d) & 1u);
+    for (int d = 0; d < Dv; ++d) dev_out[d] = (float)TAKEN(d);
   return ok || !(has_lvm || has_dev);
+#undef TAKEN
+#undef TAKE
 }
 
 // The serial commit's Open-Local bind at node c (kernels.py:718-723): the
 // take is computed from the carry before the commit. One thread.
 static __device__ void storage_commit_at(const TablesView& t, int g, int c) {
-  float lvm_add[MAX_NODE_DEVS], dev_add[MAX_NODE_DEVS];
+  NODE_DEVS(lvm_add, t, wt_lvm_out);
+  NODE_DEVS(dev_add, t, wt_dev_out);
   storage_alloc_at(t, g, c, nullptr, lvm_add, dev_add);
   // sdo = has_storage: without storage demand both rows are zero
   for (int v = 0; v < t.MAXVG; ++v)

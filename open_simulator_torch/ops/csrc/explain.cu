@@ -111,6 +111,7 @@ explain_kernel(TablesView t, int g, int forced, int valid, long long perm, float
   __shared__ StageShared sh;
   __shared__ float s_red[32];
   extern __shared__ __align__(16) uint32_t smem[];
+  POD_BIND(pc, t);
   const int N = t.N, R = t.R, D = t.D1 - 1, tid = threadIdx.x, lane = tid & 31;
   const int W = k7_words(t), nw = K7_HEAD + t.Z;
   Cluster cx = cluster_setup(N, W, (int*)smem, sh.mbar);

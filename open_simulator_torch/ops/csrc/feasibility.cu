@@ -141,6 +141,7 @@ feasibility_kernel(TablesView t, int g, int forced, int valid, int include_dns, 
   __shared__ PodCtx pc;
   __shared__ __align__(8) uint64_t mbar[2];
   extern __shared__ __align__(16) uint32_t smem[];
+  POD_BIND(pc, t);
   const int N = t.N, R = t.R, tid = threadIdx.x, W = k1_words(t), P = k1_pass(EXT);
   Cluster cx = cluster_setup(N, W, (int*)smem, mbar);
   int* fin = (int*)smem + 2 * cx.C * W;

@@ -81,10 +81,10 @@ schedule_group_serial_body(const TablesView& t_in, int s, int g, const uint8_t* 
   __shared__ TablesView t;
   __shared__ PodCtx pc;
   __shared__ uint64_t s_mbar[2];
-  __shared__ float s_mn[MAX_SLOTS];  // the DoNotSchedule levels (dns_levels)
-  __shared__ int s_nmin[MAX_SLOTS];
-  __shared__ unsigned long long s_rescan;
-  __shared__ int s_warp[(MAX_SLOTS + 1) * CLUSTER_WARPS];
+  SLOT_ARRAY(float, s_mn);  // the DoNotSchedule levels (dns_levels)
+  SLOT_ARRAY(int, s_nmin);
+  TERM_WORD(s_rescan);
+  WARP_WORDS(s_warp);
   __shared__ int s_fin[2];
   // 4-byte words: a 16-byte alignment would pad the static shared memory of
   // every kernel of this file
@@ -93,6 +93,11 @@ schedule_group_serial_body(const TablesView& t_in, int s, int g, const uint8_t* 
   const int C = cluster_ctas(), rank = cluster_rank();
   if (tid == 0) t = LANE ? lane_view(t_in, s) : t_in;
   __syncthreads();
+  POD_BIND(pc, t);
+  SLOT_BIND(s_mn, t, WR_MN);
+  SLOT_BIND(s_nmin, t, WR_NMIN);
+  TERM_BIND(s_rescan, t, WC_RESCAN);
+  WARP_BIND(s_warp, t);
   const int N = t.N, R = t.R, D1 = t.D1, D = D1 - 1, Sd = t.Sd, Ss = t.Ss, Z = t.Z;
   const int chunk = (N + C - 1) / C, Wd = mark_words(D1);
   const int W = K4_KEYS + Z + mark_or_words(Ss, D1);
@@ -142,7 +147,7 @@ schedule_group_serial_body(const TablesView& t_in, int s, int g, const uint8_t* 
   for (size_t i = tid; i < (size_t)Ss * D1; i += CLUSTER_THREADS)
     cnt_sa[i] = t.counter[(size_t)max(t.sa_t[g * Ss + i / D1], 0) * D1 + i % D1];
   for (int z = tid; z < Z; z += CLUSTER_THREADS) part[z] = 0.0f;
-  if (tid == 0) s_rescan = 0ull;
+  if (tid == 0) TERMS_ZERO(s_rescan, t);
   // the words a ScheduleAnyway term's marks can touch: up to its largest
   // domain below D on any node (zones: one word however wide D1 is); with
   // every term's within MARKS_FUSED_MAX, the marks ride round 1
@@ -177,7 +182,7 @@ schedule_group_serial_body(const TablesView& t_in, int s, int g, const uint8_t* 
   cluster_barrier_uncounted();
   // the live DoNotSchedule minima, kept level by level: a commit at the
   // level's last eligible domain rescans that term (dns_levels)
-  dns_levels(t, g, cnt, ~0ull, &pc, s_mn, s_nmin, s_warp);
+  dns_levels(t, g, cnt, TERMS_ALL(t), &pc, s_mn, s_nmin, s_warp);
 
   int placed = 0, steps = 0, sa_pods = 0;
   for (int p = 0; p < P; ++p) {
@@ -351,7 +356,7 @@ schedule_group_serial_body(const TablesView& t_in, int s, int g, const uint8_t* 
       *at = old + 1.0f;
       // one eligible domain fewer at the minimum; none left: rescan
       if (t.dns_edom[((size_t)g * Sd + s2) * D1 + dom] && old == s_mn[s2] && --s_nmin[s2] == 0)
-        atomicOr(&s_rescan, 1ull << s2);
+        TERMS_ADD_ATOMIC(s_rescan, s2);
     }
     if (sa_live) {
       for (int s2 = (tid + CLUSTER_THREADS / 2) % CLUSTER_THREADS; s2 < Ss; s2 += CLUSTER_THREADS) {
@@ -363,10 +368,10 @@ schedule_group_serial_body(const TablesView& t_in, int s, int g, const uint8_t* 
     }
     ++placed;
     __syncthreads();
-    const unsigned long long rescan = s_rescan;
-    if (rescan) {
+    const TermSet rescan = s_rescan;
+    if (TERMS_ANY(rescan, t)) {
       dns_levels(t, g, cnt, rescan, &pc, s_mn, s_nmin, s_warp);
-      if (tid == 0) s_rescan = 0ull;  // every thread read it before the barriers
+      if (tid == 0) TERMS_ZERO(s_rescan, t);  // every thread read it before the barriers
     }
   }
   for (int n = cx.lo + tid; n < cx.hi; n += CLUSTER_THREADS) j_out[n] = j_s[n - cx.lo];

@@ -170,6 +170,7 @@ __global__ void __launch_bounds__(CLUSTER_THREADS, 1)
 gs_sharded_setup(TablesView t, int g, int cap1, float* fs, int* is) {
   __shared__ PodCtx pc;
   __shared__ float s_red[8 * 32];
+  POD_BIND(pc, t);
   const int N = t.N, D1 = t.D1, D = D1 - 1, tid = threadIdx.x;
   const int Sd = t.Sd, Ss = t.Ss, rank = cluster_rank();
   const GsScratch s = gs_scratch(t, fs, is);
@@ -204,8 +205,9 @@ __global__ void __launch_bounds__(CLUSTER_THREADS, 1)
 gs_sharded_front(TablesView t, int g, int lo, int R, int ss_live, int sa_live,
                  const double* prev_rows, float* fs, int* is, float* part) {
   __shared__ StageShared sh;
-  __shared__ float s_min[MAX_SLOTS];
+  SLOT_ARRAY(float, s_min);
   extern __shared__ __align__(16) uint32_t smem[];
+  SLOT_BIND(s_min, t, WR_MN);
   const int N = t.N, D1 = t.D1, D = D1 - 1, tid = threadIdx.x, lane = tid & 31;
   const int Sd = t.Sd, Ss = t.Ss, Z = t.Z, W = k13_words(t);
   const size_t gN = (size_t)g * N;
@@ -307,8 +309,9 @@ __global__ void __launch_bounds__(CLUSTER_THREADS, 1)
 gs_sharded_sa(TablesView t, int g, int R, const float* rows, int K1, int mk, float* fs, int* is,
               float* part_b) {
   __shared__ StageShared sh;
-  __shared__ float s_tpw[MAX_SLOTS];
+  SLOT_ARRAY(float, s_tpw);
   extern __shared__ __align__(16) uint32_t smem[];
+  SLOT_BIND(s_tpw, t, WR_TPW);
   const int N = t.N, D1 = t.D1, D = D1 - 1, tid = threadIdx.x, lane = tid & 31, Ss = t.Ss;
   const int W = k13_words(t);
   const GsScratch s = gs_scratch(t, fs, is);

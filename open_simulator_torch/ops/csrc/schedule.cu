@@ -122,7 +122,7 @@ schedule_batch_body(const TablesView& t_in, int s, const int* pod_group, const i
   constexpr int NK = K2_KEYS(EXT);
   __shared__ TablesView t;
   __shared__ PodCtx pc;
-  __shared__ int s_warp[(MAX_SLOTS + 1) * CLUSTER_WARPS];
+  WARP_WORDS(s_warp);
   __shared__ int s_fin[2];
   __shared__ float* s_src[2];
   __shared__ uint64_t s_mbar[2];
@@ -141,6 +141,8 @@ schedule_batch_body(const TablesView& t_in, int s, const int* pod_group, const i
     }
   }
   __syncthreads();
+  WARP_BIND(s_warp, t);
+  POD_BIND(pc, t);
   const int N = t.N, R = t.R, D1 = t.D1, D = D1 - 1, Z = t.Z, Ss = t.Ss;
   const int chunk = (N + C - 1) / C, Wd = mark_words(D1), W = NK + Z + mark_or_words(Ss, D1);
   const bool fused = !wide_marks(Ss, D1);  // the marks ride round 1
@@ -483,6 +485,9 @@ cluster_round_probe_kernel(int rounds, int Z, int mode, int* out) {
 extern "C" {
 
 int tables_view_size() { return (int)sizeof(TablesView); }
+
+// 1 in the wide build (common.cuh OSIM_WIDE), else 0
+int wide_build() { return OSIM_WIDE; }
 
 const char* error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 

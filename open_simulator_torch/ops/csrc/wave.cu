@@ -117,7 +117,7 @@ schedule_wave_body(const TablesView& t_in, int s, int g, int m, int cap1, int B,
   __shared__ TablesView t;
   __shared__ PodCtx pc;
   __shared__ uint64_t s_mbar[2];
-  __shared__ int s_rx[RX_SCRATCH];  // cta_prologue's warp words, then the rounds'
+  WARP_WORDS(s_rx);  // cta_prologue's warp words, then the rounds'
   __shared__ int s_fin[RX_KEYS + 2];
   __shared__ int s_hist[256];
   __shared__ int s_sel[CLUSTER_WARPS + 3];
@@ -128,6 +128,8 @@ schedule_wave_body(const TablesView& t_in, int s, int g, int m, int cap1, int B,
   const int C = cluster_ctas(), rank = cluster_rank();
   if (tid == 0) t = LANE ? lane_view(t_in, s) : t_in;
   __syncthreads();
+  WARP_BIND(s_rx, t);
+  POD_BIND(pc, t);
   const int N = t.N, R = t.R;
   const int chunk = (N + C - 1) / C;
   const long long rows_b = k3_rows_bytes(N, B, C);

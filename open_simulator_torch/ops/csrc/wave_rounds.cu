@@ -102,6 +102,7 @@ wave_rounds_setup(TablesView t, int g, int cap1, int N, int lo, int hi, int* j, 
                   int* is, int* state) {
   __shared__ PodCtx pc;
   __shared__ float s_red[8 * 32];
+  POD_BIND(pc, t);
   const int tid = threadIdx.x, C = cluster_ctas(), rank = cluster_rank();
   const WaveScratch w = wave_scratch(N, fs, is);
   int a, b;

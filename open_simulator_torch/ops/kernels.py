@@ -1840,15 +1840,10 @@ AFFINITY_STATS = ("epochs", "head_fallbacks", "multi_rounds")
 AFFINITY_CLUSTER_STATS = ("placed",) + AFFINITY_STATS + ("rounds",)
 K_EP_MAX = 2048  # width of one epoch's candidate order (JAX K_EP = min(N*B, 2048))
 LMAX = 32        # min-rise levels one multi-level round may take
-# K5 keys a candidate by (domain, position) in 32 bits: 11 bits of position
+# The default build of K5, K9 and K11 keys a candidate by (domain, position)
+# in 32 bits, 11 of them the position: a wider domain axis takes the wide
+# build (`_view`), whose key is 64-bit
 AFFINITY_MAX_D1 = 1 << 21
-
-
-def _check_domains(D1: int) -> None:
-    """The affinity kernels' domain cap (ROADMAP §C10): K5, K9 and K11 key a
-    candidate by (domain, position) in 32 bits."""
-    if D1 > AFFINITY_MAX_D1:
-        raise ValueError(f"domain axis D1={D1} exceeds the kernel's {AFFINITY_MAX_D1}")
 
 
 class AffinityWaveState(NamedTuple):
@@ -2598,14 +2593,61 @@ _DIM_FIELDS = ("N", "R", "G", "T", "Tc", "D1", "PORT1", "PP", "A", "B", "Cp", "S
                "Ss", "Ca", "Cw", "Z", "MAXDEV", "MAXVG", "MAXSD", "SL", "SD",
                "f_fit", "f_ports", "f_interpod", "f_spread", "f_gpu", "f_storage")
 N_WEIGHTS = 12  # least balanced openlocal simon nodeaff taint interpod ss pts avoid image extra(unused)
-MAX_SLOTS = 64  # per-group slot axes (A, B, Cp, Sd, Ss, Ca, Cw, PP, SL, SD) the kernels hold
-MAX_NODE_DEVS = 32  # per-node GPU devices, volume groups and storage devices a thread holds
+# The default build holds a group's term slots in arrays of MAX_SLOTS (shared
+# memory) and a node's GPU devices, volume groups and storage devices in
+# arrays of MAX_NODE_DEVS (a thread's): a table past one of them, or an
+# affinity kernel's domain axis past AFFINITY_MAX_D1, takes the wide build
+# (csrc/common.cuh OSIM_WIDE), which sizes them by the table's own axes
+MAX_SLOTS = 64
+SLOT_AXES = ("A", "B", "Cp", "Sd", "Ss", "Ca", "Cw", "PP", "SL", "SD")
+MAX_NODE_DEVS = 32
 
 
 class TablesView(ctypes.Structure):
     _fields_ = ([(name, ctypes.c_void_p) for name, _ in _PTR_FIELDS]
                 + [(name, ctypes.c_int) for name in _DIM_FIELDS]
                 + [("w", ctypes.c_float * N_WEIGHTS)])
+
+
+class WideTablesView(TablesView):
+    """The wide build's view: TablesView and the launch's scratch, which the
+    library fills in (csrc/common.cuh wide_open)."""
+    _fields_ = [("wide_cta", ctypes.c_void_p), ("wide_thr", ctypes.c_void_p),
+                ("wide_cta_words", ctypes.c_longlong), ("wide_thr_words", ctypes.c_longlong),
+                ("wide_slots", ctypes.c_int)]
+
+
+def wide_axes(dims: dict, enable_gpu: bool, enable_storage: bool,
+              domains_capped: bool = False) -> Tuple[str, ...]:
+    """The axes of a view's `dims` that pass the default build's caps: the
+    slot axes past MAX_SLOTS, the node-device axes of a branch that is on
+    past MAX_NODE_DEVS and, for the affinity kernels (`domains_capped`), D1
+    past AFFINITY_MAX_D1. A kernel takes the wide build exactly when this
+    is not empty."""
+    devs = ("MAXDEV",) * bool(enable_gpu) + ("MAXVG", "MAXSD") * bool(enable_storage)
+    return (tuple(k for k in SLOT_AXES if dims[k] > MAX_SLOTS)
+            + tuple(k for k in devs if dims[k] > MAX_NODE_DEVS)
+            + (("D1",) if domains_capped and dims["D1"] > AFFINITY_MAX_D1 else ()))
+
+
+def _is_wide(v: TablesView) -> bool:
+    return isinstance(v, WideTablesView)
+
+
+def _lib(v: TablesView):
+    """The library whose build takes the view: the wide one for a
+    WideTablesView (built on its first use)."""
+    from . import build
+
+    return build.library(wide=_is_wide(v))
+
+
+def _count(wrapper, n: int, v: TablesView) -> None:
+    """Add n launches to the wrapper's count, and to its wide count when
+    they ran in the wide build."""
+    wrapper.launches += n
+    if _is_wide(v):
+        wrapper.wide_launches += n
 
 
 class CarryOut(ctypes.Structure):
@@ -2637,23 +2679,16 @@ _EXPECT = {  # dtype each pointer field must have
 
 def _view(tb: Tables, cry: Carry, n_zones: int, w: ScoreWeights,
           filters: FilterFlags, enable_gpu: bool = False,
-          enable_storage: bool = False, active=None) -> TablesView:
+          enable_storage: bool = False, active=None,
+          domains_capped: bool = False) -> TablesView:
     """Check every tensor (device, dtype, contiguity) and fill the struct.
     `enable_gpu` / `enable_storage` switch the kernels' GPU-share and
     Open-Local branches on. A lane kernel passes lane 0 of its [S, ...]
-    carry (`carry_lane(cry_s, 0, copy=False)`) and its [S, N] `active`."""
+    carry (`carry_lane(cry_s, 0, copy=False)`) and its [S, N] `active`.
+    The view is a WideTablesView, which takes the wide build, exactly when
+    `wide_axes` names an axis (`domains_capped`: the affinity kernels)."""
     dev = tb.alloc.device
     src = {**tb._asdict(), **cry._asdict(), "active": active}
-    v = TablesView()
-    for name, field in _PTR_FIELDS:
-        t = src[field]
-        if t is None and name == "active":
-            continue
-        want = _EXPECT.get(name, torch.float32)
-        if t.device != dev or t.dtype != want or not t.is_contiguous():
-            raise ValueError(f"{name}: need a contiguous {want} tensor on {dev}, "
-                             f"got {t.dtype} on {t.device}")
-        setattr(v, name, t.data_ptr())
     G = tb.static_mask.shape[0]
     dims = dict(
         N=tb.alloc.shape[0], R=tb.alloc.shape[1], G=G, T=tb.counter_dom.shape[0],
@@ -2666,12 +2701,17 @@ def _view(tb: Tables, cry: Carry, n_zones: int, w: ScoreWeights,
         f_fit=int(filters.fit), f_ports=int(filters.ports),
         f_interpod=int(filters.interpod), f_spread=int(filters.spread),
         f_gpu=int(bool(enable_gpu)), f_storage=int(bool(enable_storage)))
-    for k in ("A", "B", "Cp", "Sd", "Ss", "Ca", "Cw", "PP", "SL", "SD"):
-        if dims[k] > MAX_SLOTS:
-            raise ValueError(f"slot axis {k}={dims[k]} exceeds the kernel's {MAX_SLOTS}")
-    for k in ("MAXDEV",) * bool(enable_gpu) + ("MAXVG", "MAXSD") * bool(enable_storage):
-        if dims[k] > MAX_NODE_DEVS:
-            raise ValueError(f"node axis {k}={dims[k]} exceeds the kernel's {MAX_NODE_DEVS}")
+    wide = wide_axes(dims, enable_gpu, enable_storage, domains_capped)
+    v = WideTablesView() if wide else TablesView()
+    for name, field in _PTR_FIELDS:
+        t = src[field]
+        if t is None and name == "active":
+            continue
+        want = _EXPECT.get(name, torch.float32)
+        if t.device != dev or t.dtype != want or not t.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous {want} tensor on {dev}, "
+                             f"got {t.dtype} on {t.device}")
+        setattr(v, name, t.data_ptr())
     if tb.alloc.shape[1] <= max(CPU_I, MEM_I):
         raise ValueError("alloc needs the cpu and memory columns")
     for k, val in dims.items():
@@ -2726,11 +2766,10 @@ def _feasibility_rows(tb: Tables, cry: Carry, g: int, forced: int, valid: bool,
     cluster over the N nodes writes the packed [FEASIBILITY_ROWS + R, N]
     uint8 rows (`unpack_feasibility`) into one allocation. The cluster shape
     is recorded in `feasibility_jit.last_shape`."""
-    from . import build
 
-    lib = build.library()
     N, R = tb.alloc.shape
     v = _view(tb, cry, 2, DEFAULT_WEIGHTS, filters, enable_gpu, enable_storage)
+    lib = _lib(v)
     vr = ctypes.byref(v)
     ext = bool(enable_gpu or enable_storage)
     shape = _cluster_shape(lib, "k1", False, ext, v, 1)
@@ -2739,7 +2778,7 @@ def _feasibility_rows(tb: Tables, cry: Carry, g: int, forced: int, valid: bool,
                                   int(bool(include_dns)), _ptr(out), shape.C, shape.smem,
                                   _stream()),
            "feasibility_kernel launch")
-    feasibility_jit.launches += 1
+    _count(feasibility_jit, 1, v)
     feasibility_jit.last_shape = shape
     if ext:
         BRANCH_LAUNCHES["feasibility/gpu_storage"] += 1
@@ -2756,7 +2795,7 @@ def feasibility_kernel(tb: Tables, cry: Carry, g: int, forced: int, valid: bool,
                                                 enable_gpu, enable_storage))
 
 
-# the devices on which the cluster kernels' attributes are set
+# the (device, library) pairs on which the cluster kernels' attributes are set
 _CLUSTER_READY: set = set()
 # K3c's, K7's, K1's and K14's cluster shapes by their inputs (ops/cluster.py
 # choose_cached)
@@ -2774,9 +2813,9 @@ def _cluster_init(lib) -> None:
     bounds, feasibility_smem_max, explain_smem_max, wave_sharded_smem_max,
     affinity_sharded_smem_max, affinity_rounds_smem_max,
     batch_sharded_smem_max and gs_sharded_smem_max) on the current device,
-    once per device."""
+    once per device and library (the default and the wide build)."""
     dev = torch.cuda.current_device()
-    if dev not in _CLUSTER_READY:
+    if (dev, lib._name) not in _CLUSTER_READY:
         _check(lib.cluster_kernels_init(), "cluster kernel attributes")
         _check(lib.wave_rounds_init(), "K10 cluster kernel attributes")
         _check(lib.affinity_rounds_init(), "K11 cluster kernel attributes")
@@ -2788,7 +2827,7 @@ def _cluster_init(lib) -> None:
         _check(lib.explain_init(), "K7 cluster kernel attributes")
         _check(lib.feasibility_init(), "K1 cluster kernel attributes")
         _check(lib.commit_sharded_init(), "K14 cluster kernel attributes")
-        _CLUSTER_READY.add(dev)
+        _CLUSTER_READY.add((dev, lib._name))
 
 
 def _cluster_shape(lib, kernel: str, lanes: bool, ext: bool, v: TablesView, S: int,
@@ -2841,19 +2880,21 @@ def _cluster_shape(lib, kernel: str, lanes: bool, ext: bool, v: TablesView, S: i
         return out.value
 
     if kernel == "k3c":
-        key = (kernel, torch.cuda.current_device(), int(v.N), S, bool(lanes))
+        key = (kernel, lib._name, torch.cuda.current_device(), int(v.N), S, bool(lanes))
         return choose_cached(_SHAPES, key, int(v.N), S, lambda C: int(smem_of(C)), occupancy)
     if kernel == "k7":
-        key = (kernel, torch.cuda.current_device(), int(v.N), bool(ext), int(v.Z), int(v.Ss))
+        key = (kernel, lib._name, torch.cuda.current_device(), int(v.N), bool(ext), int(v.Z),
+               int(v.Ss))
         return choose_cached(_SHAPES, key, int(v.N), S, lambda C: int(smem_of(C)), occupancy,
                              smem_max=int(lib.explain_smem_max()))
     if kernel == "k1":
-        key = (kernel, torch.cuda.current_device(), int(v.N), bool(ext), int(v.Sd), int(v.R))
+        key = (kernel, lib._name, torch.cuda.current_device(), int(v.N), bool(ext), int(v.Sd),
+               int(v.R))
         items = (3 if ext else 1) * int(v.N)
         return choose_cached(_SHAPES, key, items, S, lambda C: int(smem_of(C)), occupancy,
                              smem_max=int(lib.feasibility_smem_max()))
     if kernel == "k14":  # one-shot: ties to the most CTAs that keep a warp's nodes
-        key = (kernel, torch.cuda.current_device(), int(v.N))
+        key = (kernel, lib._name, torch.cuda.current_device(), int(v.N))
         return choose_cached(_SHAPES, key, int(v.N), S, lambda C: int(smem_of(C)), occupancy,
                              min_chunk=K14_MIN_CHUNK)
     return choose(int(v.N), S, lambda C: int(smem_of(C)), occupancy)
@@ -2869,9 +2910,7 @@ def schedule_batch_kernel(tb: Tables, cry: Carry, pod_group, forced_node, valid,
     STATS_WORDS, in `schedule_batch.last_shape` / `.last_stats`). The
     returned carry is a CLONE of `cry` that the kernel updates in place;
     `cry` itself is left untouched."""
-    from . import build
 
-    lib = build.library()
     dev = tb.alloc.device
     out = Carry(*(t.clone() for t in cry))
     pg = torch.as_tensor(pod_group, dtype=torch.int32, device=dev).contiguous()
@@ -2881,6 +2920,7 @@ def schedule_batch_kernel(tb: Tables, cry: Carry, pod_group, forced_node, valid,
     if fn.shape[0] != P or vd.shape[0] != P:
         raise ValueError("pod_group, forced_node and valid must have one length")
     v = _view(tb, out, n_zones, w, filters, enable_gpu, enable_storage)
+    lib = _lib(v)
     shape = _cluster_shape(lib, "k2", False, bool(enable_gpu or enable_storage), v, 1)
     choices = torch.empty(P, dtype=torch.int32, device=dev)
     scratch = torch.empty(max(1, int(lib.schedule_scratch_floats(ctypes.byref(v), shape.C))),
@@ -2893,7 +2933,7 @@ def schedule_batch_kernel(tb: Tables, cry: Carry, pod_group, forced_node, valid,
                                      shape.smem, _stream()),
            "schedule_batch_kernel launch")
     end.record()
-    schedule_batch.launches += 1
+    _count(schedule_batch, 1, v)
     if enable_gpu or enable_storage:
         BRANCH_LAUNCHES["schedule_batch/gpu_storage"] += 1
     # the launch's CUDA events: elapsed_time() once the caller has synchronized
@@ -2941,15 +2981,14 @@ def schedule_wave_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
     in `schedule_wave.last_shape` / `.last_cluster_stats`). Returns
     (per-node counts [N] i32, placed as a 0-dim i32 tensor, [iterations,
     head_fallbacks, guarded] i32), all on the card; `cry` is only read."""
-    from . import build
 
-    lib = build.library()
     dev = tb.alloc.device
     N = tb.alloc.shape[0]
     K = kmax if kmax else N * block
     if N * block >= 2 ** 31 or not 1 <= K <= N * block:
         raise ValueError(f"wave table {N}x{block} with kmax {K} is out of the kernel's range")
     v = _view(tb, cry, 2, w, filters, enable_gpu=gpu_live)
+    lib = _lib(v)
     shape = _cluster_shape(lib, "k3", False, bool(gpu_live), v, 1, block)
     j = torch.empty(N, dtype=torch.int32, device=dev)
     stats = torch.empty(len(WAVE_CLUSTER_STATS), dtype=torch.int32, device=dev)
@@ -2962,7 +3001,7 @@ def schedule_wave_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: bool,
                                     shape.smem, _stream()),
            "schedule_wave_kernel launch")
     end.record()
-    schedule_wave.launches += 1
+    _count(schedule_wave, 1, v)
     schedule_wave.last_events = (start, end)
     schedule_wave.last_shape, schedule_wave.last_cluster_stats = shape, stats
     if gpu_live:
@@ -2987,11 +3026,10 @@ def aggregate_commit_kernel(tb: Tables, cry: Carry, g: int, j: torch.Tensor,
     carry, which it returns, into fresh tensors (`cry` is left untouched and
     nothing is cloned). The cluster shape is recorded in
     `aggregate_commit.last_shape`."""
-    from . import build
 
-    lib = build.library()
     dev = tb.alloc.device
     v = _view(tb, cry, 2, DEFAULT_WEIGHTS, DEFAULT_FILTERS, enable_gpu=gpu_live)
+    lib = _lib(v)
     jj = _i32_on(j, dev, tb.alloc.shape[0], "j")
     U, D1 = _commit_inputs(tb, cry)
     shape = _cluster_shape(lib, "k3c", False, False, v, 1)
@@ -3002,7 +3040,7 @@ def aggregate_commit_kernel(tb: Tables, cry: Carry, g: int, j: torch.Tensor,
                                        _ptr(tb.carr_topo), int(U), int(bool(gpu_live)), _ptr(seg),
                                        shape.C, shape.smem, _stream()),
            "aggregate_commit_kernel launch")
-    aggregate_commit.launches += 1
+    _count(aggregate_commit, 1, v)
     aggregate_commit.last_shape = shape
     if gpu_live:
         BRANCH_LAUNCHES["aggregate_commit/gpu_live"] += 1
@@ -3019,13 +3057,12 @@ def schedule_group_serial_kernel(tb: Tables, cry: Carry, g: int, valid, cap1: bo
     STATS_WORDS, in `schedule_group_serial.last_shape` / `.last_stats`).
     Returns (per-node counts [N] i32, placed as a 0-dim i32 tensor), on the
     card; `cry` is only read."""
-    from . import build
 
-    lib = build.library()
     dev = tb.alloc.device
     N = tb.alloc.shape[0]
     vd = torch.as_tensor(valid, dtype=torch.bool, device=dev).contiguous()
     v = _view(tb, cry, n_zones, w, filters)
+    lib = _lib(v)
     shape = _cluster_shape(lib, "k4", False, False, v, 1)
     j = torch.empty(N, dtype=torch.int32, device=dev)
     placed = torch.empty(1, dtype=torch.int32, device=dev)
@@ -3038,7 +3075,7 @@ def schedule_group_serial_kernel(tb: Tables, cry: Carry, g: int, valid, cap1: bo
                                             _ptr(fs), _ptr(stats), shape.C, shape.smem,
                                             _stream()),
            "schedule_group_serial_kernel launch")
-    schedule_group_serial.launches += 1
+    _count(schedule_group_serial, 1, v)
     schedule_group_serial.last_shape, schedule_group_serial.last_stats = shape, stats
     return j, placed[0]
 
@@ -3054,15 +3091,13 @@ def schedule_affinity_wave_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: 
     `.last_cluster_stats`). Returns (per-node counts [N] i32, placed as a
     0-dim i32 tensor, [epochs, head_fallbacks, multi_rounds] i32), all on
     the card; `cry` is only read."""
-    from . import build
 
     dev = tb.alloc.device
     N = tb.alloc.shape[0]
     if N * block >= 2 ** 31 or block < 1:
         raise ValueError(f"affinity table {N}x{block} is out of the kernel's range")
-    _check_domains(cry.counter.shape[1])
-    lib = build.library()
-    v = _view(tb, cry, n_zones, w, filters)
+    v = _view(tb, cry, n_zones, w, filters, domains_capped=True)
+    lib = _lib(v)
     shape = _cluster_shape(lib, "k5", False, False, v, 1, block)
     j = torch.empty(N, dtype=torch.int32, device=dev)
     stats = torch.empty(len(AFFINITY_CLUSTER_STATS), dtype=torch.int32, device=dev)
@@ -3076,7 +3111,7 @@ def schedule_affinity_wave_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: 
                                              _stream()),
            "schedule_affinity_wave_kernel launch")
     end.record()
-    schedule_affinity_wave.launches += 1
+    _count(schedule_affinity_wave, 1, v)
     schedule_affinity_wave.last_events = (start, end)
     if ss_live:
         BRANCH_LAUNCHES["schedule_affinity_wave/ss_live"] += 1
@@ -3126,7 +3161,7 @@ def _sharded_loop(front, table, tail, v, g: int, m: int, block: int, mesh, dims:
         full = all_gather_tiled(pay, mesh, axis=0)
         _sharded_launch(tail, ctypes.byref(v), int(g), int(m), *tail_args, _ptr(j), _ptr(fs),
                         _ptr(iscr), _ptr(red), _ptr(full), _ptr(state), *tail_post)
-        wrapper.launches += 3
+        _count(wrapper, 3, v)
         placed, last = state[:2].tolist()
         wrapper.host_reads += 1
 
@@ -3147,9 +3182,7 @@ def schedule_wave_sharded_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: b
     returns the same (per-node counts [N] i32 of every node, placed as a
     0-dim i32 tensor, [iterations, head_fallbacks, guarded] i32), on the
     card; `cry` is only read."""
-    from . import build
 
-    lib = build.library()
     dev = tb.alloc.device
     N = global_nodes(tb, mesh)
     K = kmax if kmax else N * block
@@ -3159,6 +3192,7 @@ def schedule_wave_sharded_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: b
         raise ValueError(f"the mesh's epoch path does not apply to {N} nodes")
     sl = _block_of(mesh, N)
     v = _rebased_view(tb, cry, sl.start, 2, w, filters, enable_gpu=gpu_live)
+    lib = _lib(v)
     fn = schedule_wave_sharded_kernel
     shape_b = _rounds_shape(lib, "k8", sl.stop - sl.start, v)
     shape_t = _rounds_shape(lib, "k8_tail", N, v)
@@ -3173,7 +3207,7 @@ def schedule_wave_sharded_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: b
                       device=dev)
     _sharded_launch(lib.wave_rounds_setup_launch, ctypes.byref(v), int(g), int(bool(cap1)), N,
                     sl.start, sl.stop, _ptr(j), _ptr(fs), _ptr(iscr), _ptr(state), Cb, smem_b)
-    fn.launches += 1
+    _count(fn, 1, v)
     _sharded_loop(lib.wave_rounds_front_launch, lib.wave_sharded_table_launch,
                   lib.wave_sharded_tail_launch, v, g, m, block, mesh, (N, sl.start, sl.stop),
                   state, j, fs, iscr, part, pay, (Cb, smem_b), (int(block), int(K), N), fn,
@@ -3245,9 +3279,7 @@ def schedule_wave_rounds_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: bo
     [iterations, head_fallbacks, guarded] i32), on the card; `cry` is only
     read."""
     from ..parallel.collectives import all_gather_rows, pmax
-    from . import build
 
-    lib = build.library()
     dev = tb.alloc.device
     N = global_nodes(tb, mesh)
     K = kmax if kmax else N * block
@@ -3259,6 +3291,7 @@ def schedule_wave_rounds_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: bo
     sl = _block_of(mesh, N)
     lo, hi, NL = sl.start, sl.stop, sl.stop - sl.start
     v = _rebased_view(tb, cry, lo, 2, w, filters, enable_gpu=gpu_live)
+    lib = _lib(v)
     vr = ctypes.byref(v)
     fn = schedule_wave_rounds_kernel
     shape = fn.last_shape = _rounds_shape(lib, "k10", NL, v)
@@ -3276,7 +3309,7 @@ def schedule_wave_rounds_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: bo
                      device=dev)
     _sharded_launch(lib.wave_rounds_setup_launch, vr, int(g), int(bool(cap1)), N, lo, hi,
                     _ptr(j), _ptr(fs), _ptr(iscr), _ptr(state), C, smem)
-    fn.launches += 1
+    _count(fn, 1, v)
     placed, last = 0, 1
     while last > 0 and placed < m:
         c = min(K, m - placed, NL * block)
@@ -3296,7 +3329,7 @@ def schedule_wave_rounds_kernel(tb: Tables, cry: Carry, g: int, m: int, cap1: bo
         _sharded_launch(lib.wave_rounds_finish_launch, int(m), int(block), c, R, _ptr(j),
                         _ptr(red), _ptr(red2), _ptr(summ_all), _ptr(rows), _ptr(ms),
                         _ptr(state), C, smem)
-        fn.launches += 5
+        _count(fn, 5, v)
         placed, last = state[:2].tolist()
         fn.host_reads += 1
     if gpu_live:
@@ -3320,18 +3353,16 @@ def schedule_affinity_wave_sharded_kernel(tb: Tables, cry: Carry, g: int, m: int
     same (per-node counts [N] i32 of every node, placed as a 0-dim i32
     tensor, [epochs, head_fallbacks, multi_rounds] i32), on the card; `cry`
     is only read."""
-    from . import build
 
     dev = tb.alloc.device
     N = global_nodes(tb, mesh)
     if N * block >= 2 ** 31 or block < 1:
         raise ValueError(f"affinity table {N}x{block} is out of the kernel's range")
-    _check_domains(cry.counter.shape[1])
-    lib = build.library()
     if _epoch_shards(mesh, N) <= 1 or not _partitioned(mesh):
         raise ValueError(f"the mesh's epoch path does not apply to {N} nodes")
     sl = _block_of(mesh, N)
-    v = _rebased_view(tb, cry, sl.start, n_zones, w, filters)
+    v = _rebased_view(tb, cry, sl.start, n_zones, w, filters, domains_capped=True)
+    lib = _lib(v)
     vr = ctypes.byref(v)
     fn = schedule_affinity_wave_sharded_kernel
     shape_b = _rounds_shape(lib, "k9", sl.stop - sl.start, v)
@@ -3351,7 +3382,7 @@ def schedule_affinity_wave_sharded_kernel(tb: Tables, cry: Carry, g: int, m: int
                       dtype=_F32, device=dev)
     _sharded_launch(lib.affinity_sharded_setup_launch, vr, int(g), int(bool(cap1)), int(block), N,
                     sl.start, sl.stop, _ptr(j), _ptr(fs), _ptr(iscr), _ptr(state), Cb, smem_b)
-    fn.launches += 1
+    _count(fn, 1, v)
     _sharded_loop(lib.affinity_sharded_front_launch, lib.affinity_sharded_table_launch,
                   lib.affinity_sharded_tail_launch, v, g, m, block, mesh, (N, sl.start, sl.stop),
                   state, j, fs, iscr, part, pay, (_ptr(state), Cb, smem_b),
@@ -3380,20 +3411,18 @@ def schedule_affinity_wave_rounds_kernel(tb: Tables, cry: Carry, g: int, m: int,
     0-dim i32 tensor, [epochs, head_fallbacks, multi_rounds] i32), on the
     card; `cry` is only read."""
     from ..parallel.collectives import all_gather_rows, pmax
-    from . import build
 
     dev = tb.alloc.device
     N = global_nodes(tb, mesh)
     if N * block >= 2 ** 31 or block < 1:
         raise ValueError(f"affinity table {N}x{block} is out of the kernel's range")
-    _check_domains(cry.counter.shape[1])
-    lib = build.library()
     if _round_shards(mesh, N) <= 1 or not _partitioned(mesh):
         raise ValueError(f"the mesh's sharded tail does not apply to {N} nodes")
     R = mesh.shards
     sl = _block_of(mesh, N)
     lo, hi, NL = sl.start, sl.stop, sl.stop - sl.start
-    v = _rebased_view(tb, cry, lo, n_zones, w, filters)
+    v = _rebased_view(tb, cry, lo, n_zones, w, filters, domains_capped=True)
+    lib = _lib(v)
     vr = ctypes.byref(v)
     fn = schedule_affinity_wave_rounds_kernel
     shape = fn.last_shape = _rounds_shape(lib, "k11", NL, v)
@@ -3417,7 +3446,7 @@ def schedule_affinity_wave_rounds_kernel(tb: Tables, cry: Carry, g: int, m: int,
     G, B, ss = int(g), int(block), int(bool(ss_live))
     _sharded_launch(lib.affinity_rounds_setup_launch, vr, G, int(bool(cap1)), B, N, lo, hi,
                     _ptr(j), _ptr(fs), _ptr(iscr), _ptr(state), C, smem)
-    fn.launches += 1
+    _count(fn, 1, v)
     placed, last, heads = 0, 1, 0
     while last > 0 and placed < m:
         _sharded_launch(lib.affinity_rounds_front_launch, vr, G, B, N, lo, hi, ss, _ptr(j),
@@ -3429,7 +3458,7 @@ def schedule_affinity_wave_rounds_kernel(tb: Tables, cry: Carry, g: int, m: int,
                         _ptr(fs), _ptr(iscr), _ptr(red), _ptr(state), _ptr(summ), C, smem)
         summ_all = all_gather_rows(summ, mesh)
         multi_pre, any_start = state[7:9].tolist()
-        fn.launches += 3
+        _count(fn, 3, v)
         fn.host_reads += 1
         red4, branch = None, "head"
         if multi_pre:
@@ -3438,19 +3467,19 @@ def schedule_affinity_wave_rounds_kernel(tb: Tables, cry: Carry, g: int, m: int,
             rows3 = all_gather_rows(cand, mesh)
             _sharded_launch(lib.affinity_rounds_merge_launch, vr, G, int(m), B, N, c, R, _ptr(fs),
                             _ptr(iscr), _ptr(rows3), _ptr(kx), _ptr(state))
-            fn.launches += 2
+            _count(fn, 2, v)
             fn.host_reads += 1
             branch = "select"
             if int(state[11]) > 0:
                 _sharded_launch(lib.affinity_rounds_sandwich_launch, vr, G, B, N, lo, hi, _ptr(j),
                                 _ptr(fs), _ptr(iscr), _ptr(part4), C, smem)
                 red4 = pmax(part4, mesh)
-                fn.launches += 1
+                _count(fn, 1, v)
                 branch = "sandwich"
         _sharded_launch(lib.affinity_rounds_finish_launch, vr, G, int(m), ss, B, N, R, _ptr(j),
                         _ptr(fs), _ptr(iscr), _ptr(red), _ptr_or_null(red4), _ptr(summ_all),
                         _ptr(kx), _ptr(state), C, smem)
-        fn.launches += 1
+        _count(fn, 1, v)
         mesh.tail_branches[branch] += 1
         if red4 is None:  # the head fallback, or nothing feasible
             placed, last, heads = placed + any_start, any_start, heads + any_start
@@ -3520,14 +3549,13 @@ def schedule_batch_sharded_kernel(tb: Tables, cry: Carry, pod_group, forced_node
     Returns (a CLONE of `cry` that the kernel updates in place, choices [P]
     i32 as global nodes, equal on every rank), on the card."""
     from ..parallel.collectives import all_gather_rows
-    from . import build
 
-    lib = build.library()
     dev = tb.alloc.device
     NL = tb.alloc.shape[0]
     lo = mesh.rank * NL
     out = Carry(*(t.clone() for t in cry))
     v = _view(tb, out, n_zones, w, filters, enable_gpu, enable_storage)
+    lib = _lib(v)
     vr = ctypes.byref(v)
     fnk = schedule_batch_sharded_kernel
     shape = fnk.last_shape = _rounds_shape(lib, "k12", NL, v)
@@ -3544,13 +3572,13 @@ def schedule_batch_sharded_kernel(tb: Tables, cry: Carry, pod_group, forced_node
         if not vd[p]:  # padded pod: feasible nowhere, commits nothing
             continue
         g = int(pg[p])
-        fnk.launches += _k12_pod(lib, vr, mesh, lo, g, block_forced(int(fn[p]), lo, NL), True,
-                                 sa[g], bufs, shape, prev, prev_g, prev_p, choices, row2=row2)
+        _count(fnk, _k12_pod(lib, vr, mesh, lo, g, block_forced(int(fn[p]), lo, NL), True,
+                             sa[g], bufs, shape, prev, prev_g, prev_p, choices, row2=row2), v)
         prev, prev_g, prev_p = all_gather_rows(row2, mesh), g, p
     if prev is not None:
         _sharded_launch(lib.batch_sharded_commit_launch, vr, prev_g, prev_p, lo, mesh.shards,
                         _ptr(prev), _ptr(choices), shape.C, shape.smem)
-        fnk.launches += 1
+        _count(fnk, 1, v)
     if enable_gpu or enable_storage:
         BRANCH_LAUNCHES["schedule_batch_sharded/gpu_storage"] += 1
     return out, choices
@@ -3565,20 +3593,19 @@ def explain_sharded_kernel(tb: Tables, cry: Carry, g: int, forced: int, valid: b
     packed [EXPLAIN_ROWS, NL] rows with the global normalizers (`forced`
     global; `cry` only read), on K12's cluster shape (recorded in
     `last_shape`). Returns the block's rows."""
-    from . import build
 
-    lib = build.library()
     dev = tb.alloc.device
     NL = tb.alloc.shape[0]
     v = _view(tb, cry, n_zones, w, filters, enable_gpu, enable_storage)
+    lib = _lib(v)
     vr = ctypes.byref(v)
     lo = mesh.rank * NL
     shape = explain_sharded_kernel.last_shape = _rounds_shape(lib, "k12", NL, v)
     out = torch.empty((len(EXPLAIN_ROWS), NL), dtype=_F32, device=dev)
     perm = sum(STAGE_ROWS.index(k) << (4 * i) for i, k in enumerate(EXPLAIN_STAGES))
-    explain_sharded_kernel.launches += _k12_pod(
+    _count(explain_sharded_kernel, _k12_pod(
         lib, vr, mesh, lo, int(g), block_forced(forced, lo, NL), valid, _has_sa(tb, g),
-        _k12_buffers(lib, vr, dev), shape, out=out, perm=perm)
+        _k12_buffers(lib, vr, dev), shape, out=out, perm=perm), v)
     return out
 
 
@@ -3598,13 +3625,12 @@ def schedule_group_serial_sharded_kernel(tb: Tables, cry: Carry, g: int, valid, 
     0-dim i32 tensor, equal on every rank), on the card; `cry` is only
     read."""
     from ..parallel.collectives import all_gather_rows, pmax
-    from . import build
 
-    lib = build.library()
     dev = tb.alloc.device
     NL = tb.alloc.shape[0]
     lo, R = mesh.rank * NL, mesh.shards
     v = _view(tb, cry, n_zones, w, filters)
+    lib = _lib(v)
     vr = ctypes.byref(v)
     fn = schedule_group_serial_sharded_kernel
     shape = fn.last_shape = _rounds_shape(lib, "k13", NL, v)
@@ -3619,7 +3645,7 @@ def schedule_group_serial_sharded_kernel(tb: Tables, cry: Carry, g: int, valid, 
     row2 = torch.empty((1, 2 + v.Sd + v.Ss), dtype=torch.float64, device=dev)
     _sharded_launch(lib.gs_sharded_setup_launch, vr, G, int(bool(cap1)), _ptr(fs), _ptr(iscr),
                     C, smem)
-    fn.launches += 1
+    _count(fn, 1, v)
     prev = None
     for ok in torch.as_tensor(valid).tolist():
         if not ok:  # padded pod: commits nothing
@@ -3632,15 +3658,15 @@ def schedule_group_serial_sharded_kernel(tb: Tables, cry: Carry, g: int, valid, 
             _sharded_launch(lib.gs_sharded_sa_launch, vr, G, R, _ptr(rows), k1, mk, _ptr(fs),
                             _ptr(iscr), _ptr(part_b), C, smem)
             sa_red = pmax(part_b, mesh)
-            fn.launches += 1
+            _count(fn, 1, v)
         _sharded_launch(lib.gs_sharded_score_launch, vr, G, lo, R, ss, sa, _ptr(rows), k1,
                         _ptr_or_null(sa_red), _ptr(fs), _ptr(iscr), _ptr(row2), C, smem)
-        fn.launches += 2
+        _count(fn, 2, v)
         prev = all_gather_rows(row2, mesh)
     if prev is not None:
         _sharded_launch(lib.gs_sharded_finish_launch, vr, G, lo, R, sa, _ptr(prev), _ptr(fs),
                         _ptr(iscr), C, smem)
-        fn.launches += 1
+        _count(fn, 1, v)
     off = int(lib.gs_sharded_j_offset(vr))
     return iscr[off:off + NL].clone(), iscr[off + NL]
 
@@ -3657,11 +3683,10 @@ def aggregate_commit_sharded_kernel(tb: Tables, cry: Carry, g: int, j: torch.Ten
     untouched and nothing is cloned). The rows stage's cluster shape is
     recorded in `aggregate_commit_sharded_kernel.last_shape`."""
     from ..parallel.collectives import all_gather_rows
-    from . import build
 
-    lib = build.library()
     dev = tb.alloc.device
     v = _view(tb, cry, 2, DEFAULT_WEIGHTS, DEFAULT_FILTERS, enable_gpu=gpu_live)
+    lib = _lib(v)
     vr = ctypes.byref(v)
     jj = _i32_on(j, dev, tb.alloc.shape[0], "j")
     U, D1 = _commit_inputs(tb, cry)
@@ -3674,7 +3699,7 @@ def aggregate_commit_sharded_kernel(tb: Tables, cry: Carry, g: int, j: torch.Ten
     rows = all_gather_rows(seg, mesh)
     _sharded_launch(lib.commit_sharded_domains_launch, vr, o, int(g), _ptr(rows), mesh.shards,
                     _ptr(tb.counter_topo), _ptr(tb.carr_topo), U)
-    aggregate_commit_sharded_kernel.launches += 2
+    _count(aggregate_commit_sharded_kernel, 2, v)
     aggregate_commit_sharded_kernel.last_shape = shape
     if gpu_live:
         BRANCH_LAUNCHES["aggregate_commit_sharded/gpu_live"] += 1
@@ -3736,12 +3761,11 @@ def explain_kernel(tb: Tables, cry: Carry, g: int, forced: int, valid: bool, n_z
     `explain_pod` for group g. Returns the [EXPLAIN_ROWS, N] f32 rows on the
     card (`unpack_explain` gives the four-tuple); `cry` is only read. The
     cluster shape is recorded in `explain_jit.last_shape`."""
-    from . import build
 
-    lib = build.library()
     dev = tb.alloc.device
     N = tb.alloc.shape[0]
     v = _view(tb, cry, n_zones, w, filters, enable_gpu, enable_storage)
+    lib = _lib(v)
     vr = ctypes.byref(v)
     shape = _cluster_shape(lib, "k7", False, bool(enable_gpu or enable_storage), v, 1)
     # row i of the output holds stage bit perm[i]: EXPLAIN_STAGES mapped by
@@ -3752,7 +3776,7 @@ def explain_kernel(tb: Tables, cry: Carry, g: int, forced: int, valid: bool, n_z
     _check(lib.explain_launch(vr, int(g), int(forced), int(bool(valid)), ctypes.c_longlong(perm),
                               _ptr(out), _ptr(scratch), shape.C, shape.smem, _stream()),
            "explain_kernel launch")
-    explain_jit.launches += 1
+    _count(explain_jit, 1, v)
     explain_jit.last_shape = shape
     return out
 
@@ -4071,13 +4095,14 @@ def schedule_affinity_wave_lanes_plain(tb: Tables, cry_s: Carry, active_s, g: in
 
 
 def _lane_view(tb: Tables, cry_s: Carry, active_s, n_zones: int, w: ScoreWeights,
-               filters: FilterFlags, enable_gpu: bool = False, enable_storage: bool = False):
+               filters: FilterFlags, enable_gpu: bool = False, enable_storage: bool = False,
+               domains_capped: bool = False):
     """(S, [S, N] mask, TablesView of lane 0) for a lane kernel."""
     active = _lanes_of(active_s, tb.alloc.shape[0], tb.alloc.device)
     S = active.shape[0]
     _check_lanes(cry_s, S)
     v = _view(tb, carry_lane(cry_s, 0, copy=False), n_zones, w, filters, enable_gpu,
-              enable_storage, active=active)
+              enable_storage, active=active, domains_capped=domains_capped)
     return S, active, v
 
 
@@ -4104,13 +4129,12 @@ def schedule_batch_lanes_kernel(tb: Tables, cry_s: Carry, active_s, pod_group, f
     choices [S, P] i32): the carry is a CLONE of `cry_s` that the kernel
     updates in place. The launch counts on `fanout` (the fan-out wrapper
     that asked for it; probe_serial_fanout by default)."""
-    from . import build
 
-    lib = build.library()
     dev = tb.alloc.device
     out = Carry(*(t.clone() for t in cry_s))
     S, active, v = _lane_view(tb, out, active_s, n_zones, w, filters, enable_gpu,
                               enable_storage)
+    lib = _lib(v)
     P = int(torch.as_tensor(pod_group).shape[-1])
     pg, pod_lane = _lane_rows(pod_group, torch.int32, S, P, dev, "pod_group")
     fn, fn_lane = _lane_rows(forced_node, torch.int32, S, P, dev, "forced_node")
@@ -4129,7 +4153,7 @@ def schedule_batch_lanes_kernel(tb: Tables, cry_s: Carry, active_s, pod_group, f
            "schedule_batch_lanes_kernel launch")
     wrapper = fanout or probe_serial_fanout
     wrapper.last_shape, wrapper.last_stats = shape, stats
-    wrapper.launches += 1
+    _count(wrapper, 1, v)
     return out, choices
 
 
@@ -4162,15 +4186,14 @@ def schedule_wave_lanes_kernel(tb: Tables, cry_s: Carry, active_s, g, m, cap1,
     [S, N] i32, placed [S] i32, stats [S, 3] i32), all on the card; `cry_s`
     is only read. The launch counts on `fanout` (probe_wave_fanout by
     default)."""
-    from . import build
 
-    lib = build.library()
     dev = tb.alloc.device
     N = tb.alloc.shape[0]
     K = kmax if kmax else N * block
     if N * block >= 2 ** 31 or not 1 <= K <= N * block:
         raise ValueError(f"wave table {N}x{block} with kmax {K} is out of the kernel's range")
     S, active, v = _lane_view(tb, cry_s, active_s, 2, w, filters, enable_gpu=gpu_live)
+    lib = _lib(v)
     shape = _cluster_shape(lib, "k3", True, bool(gpu_live), v, S, block)
     g0, g_t = _lane_values(g, torch.int32, S, dev, "g")
     m0, m_t = _lane_values(m, torch.int32, S, dev, "m")
@@ -4188,7 +4211,7 @@ def schedule_wave_lanes_kernel(tb: Tables, cry_s: Carry, active_s, g, m, cap1,
            "schedule_wave_lanes_kernel launch")
     end.record()
     wrapper = fanout or probe_wave_fanout
-    wrapper.launches += 1
+    _count(wrapper, 1, v)
     wrapper.last_events = (start, end)
     wrapper.last_shape, wrapper.last_cluster_stats = shape, stats
     return j, stats[:, 0], stats[:, 1:4]
@@ -4204,9 +4227,7 @@ def aggregate_commit_lanes_kernel(tb: Tables, cry_s: Carry, g, j_s: torch.Tensor
     The launch counts on `fanout` (aggregate_commit_lanes, the probe
     fan-outs' commit, by default); the cluster shape is recorded in
     `aggregate_commit_lanes.last_shape`."""
-    from . import build
 
-    lib = build.library()
     dev = tb.alloc.device
     N = tb.alloc.shape[0]
     jj = torch.as_tensor(j_s, dtype=torch.int32, device=dev).contiguous()
@@ -4216,6 +4237,7 @@ def aggregate_commit_lanes_kernel(tb: Tables, cry_s: Carry, g, j_s: torch.Tensor
     _check_lanes(cry_s, S)
     v = _view(tb, carry_lane(cry_s, 0, copy=False), 2, DEFAULT_WEIGHTS, DEFAULT_FILTERS,
               enable_gpu=gpu_live)
+    lib = _lib(v)
     U, D1 = _commit_inputs(tb, cry_s)
     g0, g_t = _lane_values(g, torch.int32, S, dev, "g")
     shape = _cluster_shape(lib, "k3c", True, False, v, S)
@@ -4227,7 +4249,7 @@ def aggregate_commit_lanes_kernel(tb: Tables, cry_s: Carry, g, j_s: torch.Tensor
                                              int(bool(gpu_live)), int(S), _ptr(seg), shape.C,
                                              shape.smem, _stream()),
            "aggregate_commit_lanes_kernel launch")
-    (fanout or aggregate_commit_lanes).launches += 1
+    _count(fanout or aggregate_commit_lanes, 1, v)
     aggregate_commit_lanes.last_shape = shape
     return out
 
@@ -4242,13 +4264,12 @@ def schedule_group_serial_lanes_kernel(tb: Tables, cry_s: Carry, active_s, g: in
     [S, STATS_WORDS] stats recorded on probe_group_serial_fanout). Returns
     (counts [S, N] i32, placed [S] i32), on the card; `cry_s` is only
     read."""
-    from . import build
 
-    lib = build.library()
     dev = tb.alloc.device
     N = tb.alloc.shape[0]
     vd = torch.as_tensor(valid, dtype=torch.bool, device=dev).contiguous()
     S, active, v = _lane_view(tb, cry_s, active_s, n_zones, w, filters)
+    lib = _lib(v)
     shape = _cluster_shape(lib, "k4", True, False, v, S)
     j = torch.empty((S, N), dtype=torch.int32, device=dev)
     placed = torch.empty(S, dtype=torch.int32, device=dev)
@@ -4263,7 +4284,7 @@ def schedule_group_serial_lanes_kernel(tb: Tables, cry_s: Carry, active_s, g: in
            "schedule_group_serial_lanes_kernel launch")
     probe_group_serial_fanout.last_shape = shape
     probe_group_serial_fanout.last_stats = stats
-    probe_group_serial_fanout.launches += 1
+    _count(probe_group_serial_fanout, 1, v)
     return j, placed
 
 
@@ -4277,15 +4298,13 @@ def schedule_affinity_wave_lanes_kernel(tb: Tables, cry_s: Carry, active_s, g: i
     and [S, AFFINITY_CLUSTER_STATS] stats recorded on
     probe_affinity_wave_fanout). Returns (counts [S, N] i32, placed [S] i32,
     stats [S, 3] i32), all on the card; `cry_s` is only read."""
-    from . import build
 
     dev = tb.alloc.device
     N = tb.alloc.shape[0]
     if N * block >= 2 ** 31 or block < 1:
         raise ValueError(f"affinity table {N}x{block} is out of the kernel's range")
-    _check_domains(cry_s.counter.shape[2])
-    lib = build.library()
-    S, active, v = _lane_view(tb, cry_s, active_s, n_zones, w, filters)
+    S, active, v = _lane_view(tb, cry_s, active_s, n_zones, w, filters, domains_capped=True)
+    lib = _lib(v)
     shape = _cluster_shape(lib, "k5", True, False, v, S, block)
     j = torch.empty((S, N), dtype=torch.int32, device=dev)
     stats = torch.empty((S, len(AFFINITY_CLUSTER_STATS)), dtype=torch.int32, device=dev)
@@ -4299,7 +4318,7 @@ def schedule_affinity_wave_lanes_kernel(tb: Tables, cry_s: Carry, active_s, g: i
                                                    _ptr(fs), shape.C, shape.smem, _stream()),
            "schedule_affinity_wave_lanes_kernel launch")
     end.record()
-    probe_affinity_wave_fanout.launches += 1
+    _count(probe_affinity_wave_fanout, 1, v)
     probe_affinity_wave_fanout.last_events = (start, end)
     probe_affinity_wave_fanout.last_shape = shape
     probe_affinity_wave_fanout.last_cluster_stats = stats
@@ -4659,7 +4678,7 @@ _WRAPPERS = {"schedule_batch": schedule_batch, "feasibility": feasibility_jit,
              "schedule_group_serial_sharded": schedule_group_serial_sharded_kernel,
              "aggregate_commit_sharded": aggregate_commit_sharded_kernel}
 for _f in _WRAPPERS.values():
-    _f.launches = 0
+    _f.launches = _f.wide_launches = 0
 # the sharded kernels' reads of (placed, last), one per epoch or round
 schedule_wave_sharded_kernel.host_reads = 0
 schedule_affinity_wave_sharded_kernel.host_reads = 0
@@ -4699,7 +4718,7 @@ BRANCH_LAUNCHES = dict.fromkeys(("feasibility/gpu_storage", "schedule_batch/gpu_
 
 def reset_launch_counts() -> None:
     for f in _WRAPPERS.values():
-        f.launches = 0
+        f.launches = f.wide_launches = 0
     schedule_wave_sharded_kernel.host_reads = 0
     schedule_affinity_wave_sharded_kernel.host_reads = 0
     schedule_wave_rounds_kernel.host_reads = 0
@@ -4730,4 +4749,9 @@ def affinity_stats() -> Dict[str, int]:
 def launch_counts() -> Dict[str, int]:
     """Launches per wrapper, and per GPU-share / Open-Local branch."""
     return {**{name: f.launches for name, f in _WRAPPERS.items()}, **BRANCH_LAUNCHES}
+
+
+def wide_launch_counts() -> Dict[str, int]:
+    """The wrappers' launches in the wide build (a part of launch_counts)."""
+    return {name: f.wide_launches for name, f in _WRAPPERS.items()}
 

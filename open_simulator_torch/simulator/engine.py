@@ -61,14 +61,15 @@ Left out of this port so far, each with the ROADMAP item it waits for:
   (resilience/), and the pulse and scope instrumentation (obs/): A9;
 - the columnar PodStore/NodeStore batches: A14.
 
-Tables the hand kernels refuse (ROADMAP §C10; `ops/kernels.py` `_view`
-and `_check_domains` raise a ValueError naming the axis, before any
-launch): a per-group slot axis over 64 (A, B, Cp, Sd, Ss, Ca, Cw, PP, SL,
-SD: csrc/common.cuh MAX_SLOTS); a per-node GPU, volume-group or
-storage-device axis over 32 with its GPU-share or Open-Local branch on
-(MAX_NODE_DEVS); a domain axis over 2^21 on the affinity route (K5, K9,
-K11: AFFINITY_MAX_D1). The JAX package schedules such tables; no golden
-and no bench.py shape reaches them.
+Every table the JAX package schedules runs on the hand kernels. A table
+with a per-group slot axis over 64 (A, B, Cp, Sd, Ss, Ca, Cw, PP, SL, SD:
+csrc/common.cuh MAX_SLOTS), a per-node GPU, volume-group or storage-device
+axis over 32 with its GPU-share or Open-Local branch on (MAX_NODE_DEVS),
+or, on the affinity route (K5, K9, K11), a domain axis over 2^21
+(AFFINITY_MAX_D1) launches in the wide build of the same sources
+(`ops/kernels.py` `wide_axes`, `ops/build.py` `library(wide=True)`), which
+holds those axes in global scratch sized by the table; every other table
+runs the default build.
 
 On a 1-D node mesh of more than one shard (`use_mesh`, parallel/mesh.py)
 every rank runs this engine on the same input; the encoder pads the node

@@ -44,6 +44,19 @@ tests/golden/torch_port_sched_hard_waves.sched.yaml (custom score weights,
 a kernel filter and an encoder filter disabled):
 
     JAX_PLATFORMS=cpu python tests/test_torch_golden.py --write preempt sched_hard_waves
+
+`carriers_wide` and `storage_wide` (WIDE_SCENARIOS) hold tables past the
+default kernel build's fixed axes, in the shapes users meet them:
+`carriers_wide_workload(5000)` is a namespace of 80 services that keep a
+preferred hostname anti-affinity to a shared log shipper and 72 that keep a
+required one to a noisy batch tier, then 2,000 pods of each of those two
+(their groups' weighted and anti carrier axes Cw = 80 and Ca = 72, padded
+to 128); `storage_wide_workload(2000, 20000)` is `synth_extended_cluster`
+with every tenth node a 36- or 45-device storage node (MAXSD past 32 with
+Open-Local on). Each file holds summarize() on the serial and on the
+default route and the encoded axes of the whole batch (`wide_axes_of`):
+
+    JAX_PLATFORMS=cpu python tests/test_torch_golden.py --write carriers_wide storage_wide
 """
 
 from __future__ import annotations
@@ -100,8 +113,12 @@ APPLY_SCENARIOS = {
 XRAY_SCENARIOS = {"xray_hard_waves": "hard_waves", "xray_extended": "extended"}
 # the KubeSchedulerConfiguration of the sched_hard_waves golden
 SCHED_HARD_WAVES = "tests/golden/torch_port_sched_hard_waves.sched.yaml"
+# kind -> (workload function, its arguments): tables past the default
+# kernel build's fixed axes, on the serial and the default route
+WIDE_SCENARIOS = {"carriers_wide": ("carriers_wide_workload", (5000,)),
+                  "storage_wide": ("storage_wide_workload", (2000, 20000))}
 ALL_KINDS = (sorted(SCENARIOS) + ["capacity", "capacity_lanes"] + sorted(APPLY_SCENARIOS)
-             + sorted(XRAY_SCENARIOS) + ["preempt", "sched_hard_waves"])
+             + sorted(XRAY_SCENARIOS) + ["preempt", "sched_hard_waves"] + sorted(WIDE_SCENARIOS))
 
 
 def golden_path(kind: str) -> str:
@@ -233,6 +250,125 @@ def preempt_workload(n_nodes: int = PREEMPT_NODES) -> tuple:
            "spec": {"selector": {"matchLabels": {"app": "batch-b"}}},
            "status": {"disruptionsAllowed": 2}}
     return nodes, [call1, call2, call3], [pdb]
+
+
+# ---- workloads past the default kernel build's fixed axes (chip_smoke.py
+# keeps a copy of both) ----
+
+CARRIER_APPS = (80, 72)  # services keeping away from the log shipper / the batch tier
+STORAGE_BAYS = (36, 45)  # devices of the wide storage nodes
+
+
+def wide_pod(name: str, app: str, cpu_milli: int, mem_gi: int, affinity=None) -> dict:
+    spec = {"containers": [{"name": "app", "image": "nginx:1.25", "resources": {
+        "requests": {"cpu": f"{cpu_milli}m", "memory": str(mem_gi << 30)}}}]}
+    if affinity:
+        spec["affinity"] = affinity
+    return {"apiVersion": "v1", "kind": "Pod",
+            "metadata": {"name": name, "namespace": "default", "labels": {"app": app}},
+            "spec": spec}
+
+
+def carriers_wide_workload(n_nodes: int, replicas: int = 8, n_tail: int = 2000,
+                           seed: int = 0) -> tuple:
+    """(nodes, pods): the nodes of synth_cluster(n_nodes, 0,
+    hard_predicates=True); in one namespace, 80 Deployments of `replicas`
+    pods with a preferred podAntiAffinity term on hostname (weight 1-100
+    from `seed`, selector app In [own app, log-shipper]), 72 with a required
+    one (app In [own app, noisy-batch]), then n_tail `log-shipper` pods and
+    n_tail `noisy-batch` pods: the log shipper's group matches 80 distinct
+    weighted carrier terms (Cw) and the batch tier's 72 anti ones (Ca)."""
+    from open_simulator_torch.utils.synth import synth_cluster
+
+    nodes, _ = synth_cluster(n_nodes, 0, hard_predicates=True)
+    n_pref, n_req = CARRIER_APPS
+    weights = np.random.default_rng(seed).integers(1, 101, size=n_pref)
+
+    def term(app, other):
+        return {"labelSelector": {"matchExpressions": [
+            {"key": "app", "operator": "In", "values": [app, other]}]},
+            "topologyKey": "kubernetes.io/hostname"}
+
+    pods = []
+    for k in range(n_pref):
+        app = f"svc-pref-{k:02d}"
+        aff = {"podAntiAffinity": {"preferredDuringSchedulingIgnoredDuringExecution": [
+            {"weight": int(weights[k]), "podAffinityTerm": term(app, "log-shipper")}]}}
+        pods += [wide_pod(f"{app}-{r}", app, 500, 1, aff) for r in range(replicas)]
+    for k in range(n_req):
+        app = f"svc-req-{k:02d}"
+        aff = {"podAntiAffinity": {"requiredDuringSchedulingIgnoredDuringExecution": [
+            term(app, "noisy-batch")]}}
+        pods += [wide_pod(f"{app}-{r}", app, 500, 1, aff) for r in range(replicas)]
+    pods += [wide_pod(f"log-shipper-{i:05d}", "log-shipper", 100, 1) for i in range(n_tail)]
+    pods += [wide_pod(f"noisy-batch-{i:05d}", "noisy-batch", 2000, 4) for i in range(n_tail)]
+    return nodes, pods
+
+
+def storage_wide_workload(n_nodes: int, n_pods: int, seed: int = 0) -> tuple:
+    """(nodes, pods, storage_classes): synth_extended_cluster(n_nodes,
+    n_pods) with every tenth node (i % 10 == 9) a storage node of 36 or 45
+    devices (alternating), hdd and ssd of 100-800 GiB drawn from `seed`,
+    and the yoda-pool VG of 500 GiB: its device claims land on them too."""
+    from open_simulator_torch.utils.synth import synth_extended_cluster, synth_node
+
+    nodes, pods, _, scs = synth_extended_cluster(n_nodes, n_pods)
+    rng = np.random.default_rng(seed)
+    for k, i in enumerate(range(9, n_nodes, 10)):
+        bays = STORAGE_BAYS[k % 2]
+        sizes = rng.integers(1, 9, size=bays) * 100
+        media = rng.integers(0, 2, size=bays)
+        node = synth_node(i, cpu_milli=32000, mem_bytes=64 << 30, pods=110, n_zones=8)
+        devices = [{"name": f"/dev/sd{d:02d}", "device": f"/dev/sd{d:02d}",
+                    "capacity": str(int(sizes[d]) << 30), "mediaType": ("hdd", "ssd")[media[d]],
+                    "isAllocated": "false"} for d in range(bays)]
+        vgs = [{"name": "yoda-pool", "capacity": str(500 << 30)}]
+        node["metadata"]["annotations"] = {"simon/node-local-storage": json.dumps(
+            {"devices": devices, "vgs": vgs})}
+        nodes[i] = node
+    return nodes, pods, scs
+
+
+def wide_workload(kind: str, *args) -> tuple:
+    """(nodes, pods, storage_classes) of a WIDE_SCENARIOS kind (its own
+    arguments by default)."""
+    fn, default = WIDE_SCENARIOS[kind]
+    out = globals()[fn](*(args or default))
+    return out if len(out) == 3 else (*out, [])
+
+
+WIDE_AXES = ("A", "B", "Cp", "Sd", "Ss", "Ca", "Cw", "PP", "SL", "SD", "MAXDEV", "MAXVG",
+             "MAXSD", "D1")
+
+
+def wide_axes_of(bt) -> dict:
+    """The encoded axes of a BatchTables (either package's)."""
+    from open_simulator_torch.utils.widen import width_of
+
+    return {a: width_of(bt, a) for a in WIDE_AXES}
+
+
+def wide_run(pkg: str, kind: str, serial: bool, *args, device: str = "cpu") -> dict:
+    """summarize() of a WIDE_SCENARIOS workload through package `pkg`'s
+    Simulator on the serial or the default route, and the encoded axes of
+    its whole batch."""
+    import importlib
+
+    types = importlib.import_module(f"{pkg}.core.types")
+    engine = importlib.import_module(f"{pkg}.simulator.engine")
+    nodes, pods, scs = wide_workload(kind, *args)
+    kw = {"use_mesh": False} if pkg == "open_simulator_tpu" else {"device": device}
+
+    def simulator():
+        sim = engine.Simulator(nodes, **kw)
+        sim.register_cluster_objects(types.ResourceTypes(storage_classes=scs))
+        return sim
+
+    axes = wide_axes_of(simulator().encode_batch(pods))
+    sim = simulator()
+    sim.use_waves = not serial
+    failed = sim.schedule_pods(pods)
+    return {**summarize(sim, pods, failed), "axes": axes}
 
 
 def preempt_digest(sim, calls, failed) -> dict:
@@ -457,6 +593,17 @@ def compute(kind: str) -> dict:
                 "commit": commit,
                 **run_jax(gen, n_nodes, n_pods, serial,
                           sched_config=sched_config_of("open_simulator_tpu"))}
+    if kind in WIDE_SCENARIOS:
+        fn, args = WIDE_SCENARIOS[kind]
+        routes = {name: wide_run("open_simulator_tpu", kind, serial)
+                  for name, serial in (("serial", True), ("default", False))}
+        axes = routes["serial"].pop("axes")
+        if routes["default"].pop("axes") != axes:
+            raise AssertionError(f"{kind}: the two routes encoded different axes")
+        return {"generator": f"tests/test_torch_golden.py {fn}({', '.join(map(str, args))})",
+                "route": {name: ROUTES[serial] for name, serial in (("serial", True),
+                                                                    ("default", False))},
+                "commit": commit, "axes": axes, **routes}
     if kind in APPLY_SCENARIOS:
         config, max_cpu, ext = APPLY_SCENARIOS[kind]
         return {"config": config, "max_cpu": max_cpu, "extended_resources": list(ext),
